@@ -25,7 +25,29 @@ Phases, each fatal on failure:
      and ``--p 0``, which must select and launch ``cuda:maskfree`` and
      ``cuda:dense``;
   f. phase d's logits at every decode position against the same port run
-     through the ``torch`` family (dequantize + torch.matmul), teacher-forced.
+     through the ``torch`` family (dequantize + torch.matmul), teacher-forced;
+  g. hold the packed-KV kernels K4 (mip2q p=0.5 L=7 pages), K5 (dliq p=1
+     q=4) and K11 against their plain versions at OLMo-1B's attention shapes
+     (16 kv heads x 128, pages of 16, 4 slots, contexts 512 and 2048, R = 1
+     and 16 query rows per kv head) and Qwen2-7B's (4 kv heads, R = 7 and
+     112), with one slot empty and one with -1 tail ids: acc, m, l and
+     acc / l each within KERNEL_TOL x its largest |plain| + 1e-6 over the
+     rows with a live page, the other rows exactly the identity partial,
+     K11 bit for bit; time kernel, plain
+     version and a yardstick interleaved as in phase c (the yardstick for
+     K4/K5 is ``scaled_dot_product_attention`` on the same pages dequantized
+     to bf16; K11 has no one-call yardstick);
+  h. serve full-width OLMo-1B through the paged runtime (``serve --paged
+     --kv-cache mip2q --prompt-len 128 --gen 32``): it must select
+     ``cache:attn_fused`` over ``cache:cuda_decode`` pools, launch K4 once
+     per layer per decode tick and per prefill chunk, and hold its pages at
+     x0.875 of int8; prints the drain time, ticks and decode-only tick;
+  i. a 2-layer full-width scheduler with dliq p=1 q=4 pages must select and
+     launch K5 (``cache:attn_fused_maskfree``);
+  j. decode every page phase h sealed through ``gather_decode_pages`` (K11)
+     against the plain decode, exactly; then phase h's requests, teacher-
+     forced on its tokens, through the cuda family and through the torch
+     family (weights and cache), logits compared to phase f's tolerance.
 
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
@@ -33,6 +55,7 @@ it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,19 +72,40 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 # magnitude <= 128, exact in bf16, and the scale comes after the sum, so bf16
 # x meets the bf16 tensor-core rate; f32 x has only the CUDA cores' rate.
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
-KERNEL_TOL = 2e-5               # |kernel - plain| <= KERNEL_TOL * max|plain|
+# |kernel - plain| <= KERNEL_TOL * max|plain| (+ 1e-6 for K4/K5, each
+# output over its live rows): f32 sums of the same terms in another order
+KERNEL_TOL = 2e-5
 ROUNDS = 5                      # interleaved timing rounds per phase-c row
 SERVE_REPEATS = 4               # warm serves timed after phase d's run
 SOURCE = "src/repro_torch/kernels/csrc/strum_matmul.cu"
 REPLACES = {"onehot": "src/repro/kernels/strum_matmul.py:173",
             "maskfree": "src/repro/kernels/strum_matmul.py:239",
             "dense": "src/repro/kernels/strum_matmul.py:283"}
+KV_SOURCE = "src/repro_torch/kernels/csrc/strum_attention.cu"
+# K4, K5, K11: registry variant name -> (kernel name, TPU kernel it replaces)
+KV_KERNELS = {
+    "cache:attn_fused": ("paged_attention", "src/repro/kernels/strum_attention.py:194"),
+    "cache:attn_fused_maskfree": ("paged_attention_maskfree",
+                                  "src/repro/kernels/strum_attention.py:225"),
+    "cache:cuda_decode": ("page_decode", "src/repro/kernels/strum_decode.py:48")}
+PAGE = 16
+# (label, kv heads, query rows per kv head, context tokens); timed cases first
+ATTN_CASES = [("olmo decode", 16, 1, 2048), ("olmo prefill", 16, 16, 2048),
+              ("qwen decode", 4, 7, 2048), ("olmo decode", 16, 1, 512),
+              ("olmo prefill", 16, 16, 512), ("qwen prefill", 4, 112, 512)]
+TIMED_CASES = 3
 # (K, N) of one OLMo-1B layer's seven linears: wq wk wv wo, wi wg, mlp wo
 LAYER_SHAPES = [(2048, 2048)] * 4 + [(2048, 8192)] * 2 + [(8192, 2048)]
 
 
+#: phase letter -> seconds from the start of the script to the phase's start
+PHASE_S: dict = {}
+_T0 = time.perf_counter()
+
+
 def _phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    PHASE_S[name[0]] = time.perf_counter() - _T0
+    print(f"== {name} (t = {PHASE_S[name[0]]:.1f} s)", flush=True)
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -86,6 +130,30 @@ def _cuda_ms(fn, reps: int) -> float:
 
 def _spread(vals) -> dict:
     return {"median": statistics.median(vals), "min": min(vals), "max": max(vals)}
+
+
+def _interleaved(clocks, fns, calls: int = 1):
+    """Median and range of each ``fns[key] = (fn, reps)`` over ``ROUNDS``
+    rounds taken in turns, so a clock that drifts across the run moves all
+    alike; each time is per one of the ``calls`` units a call of fn does."""
+    runs: dict = {key: [] for key in fns}
+    t0 = time.perf_counter()
+    for _ in range(ROUNDS):
+        for key, (fn, reps) in fns.items():
+            runs[key].append(_cuda_ms(fn, reps) / calls)
+    spread = {key: _spread(v) for key, v in runs.items()}
+    out = {key: s["median"] for key, s in spread.items()}
+    out["range_ms"] = {key: [s["min"], s["max"]] for key, s in spread.items()}
+    out["clock"] = clocks.window(t0, time.perf_counter())
+    return out
+
+
+def _bound(nbytes, flops, peak):
+    """Least time: bytes over the HBM rate or operations over the peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
 class Clocks:
@@ -189,36 +257,25 @@ def phase_c(dev, gen, clocks):
                 calls.append((wrapper, plain, x, fields, kw, packed))
             timed = calls[:2 * len(LAYER_SHAPES)]
             dense_w = [(x, packed_dequant(p)) for _, _, x, _, _, p in timed]
-            # kernel, plain version and yardstick take turns, so a clock that
-            # drifts across the run moves all three alike
-            fns = {"ms": (lambda: [c[0](c[2], *c[3], **c[4]) for c in timed], 20),
-                   "plain_ms": (lambda: [c[1](c[2], *c[3], **c[4]) for c in timed], 2),
-                   "library_ms": (lambda: [torch.matmul(x, w) for x, w in dense_w], 20)}
-            runs: dict = {key: [] for key in fns}
-            t0 = time.perf_counter()
-            for _ in range(ROUNDS):
-                for key, (fn, reps) in fns.items():
-                    runs[key].append(_cuda_ms(fn, reps) / 2)   # two layers timed
-            clock = clocks.window(t0, time.perf_counter())
+            t = _interleaved(clocks, {     # two layers timed: times per layer
+                "ms": (lambda: [c[0](c[2], *c[3], **c[4]) for c in timed], 20),
+                "plain_ms": (lambda: [c[1](c[2], *c[3], **c[4]) for c in timed], 2),
+                "library_ms": (lambda: [torch.matmul(x, w) for x, w in dense_w], 20)},
+                calls=2)
             nbytes = sum(_read_bytes(variant, c[5], c[2]) for c in timed) / 2
             flops = sum(2 * m * k * n for k, n in LAYER_SHAPES)
             peak = PEAK_FLOPS[str(xs[2048].dtype)]
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-            spread = {key: _spread(v) for key, v in runs.items()}
-            row[m] = dict({key: s["median"] for key, s in spread.items()},
-                          range_ms={key: [s["min"], s["max"]] for key, s in spread.items()},
-                          bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                          bytes=nbytes, clock=clock)
+            row[m] = dict(t, **_bound(nbytes, flops, peak))
             print(f"  {variant:8s} M={m:3d} one layer (7 linears), median [min, max] "
                   f"of {ROUNDS} interleaved rounds: " + ", ".join(
-                      f"{label} {spread[key]['median']:.4f} [{spread[key]['min']:.4f}, "
-                      f"{spread[key]['max']:.4f}] ms" for key, label in
+                      f"{label} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
+                      f"{t['range_ms'][key][1]:.4f}] ms" for key, label in
                       (("ms", "kernel"), ("plain_ms", "plain"),
                        ("library_ms", "torch.matmul bf16"))) +
                   f"; bound {row[m]['bound_ms']:.4f} ms ({row[m]['bound_by']}: "
-                  f"{nbytes / 1e6:.2f} MB in {t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP "
-                  f"in {t_ops:.4f} ms at {peak / 1e12:.0f} TFLOP/s); {clock}", flush=True)
+                  f"{nbytes / 1e6:.2f} MB in {row[m]['bytes_ms']:.4f} ms, "
+                  f"{flops / 1e9:.2f} GFLOP in {row[m]['ops_ms']:.4f} ms at "
+                  f"{peak / 1e12:.0f} TFLOP/s); {t['clock']}", flush=True)
             del dense_w
         print(f"  {variant:8s} max |kernel - plain| {row['max_abs_err']:.3e} "
               f"(<= {KERNEL_TOL} x max|plain| at every shape)", flush=True)
@@ -313,8 +370,378 @@ def phase_f(res):
     _check(torch.equal(got.argmax(-1), toks), "served tokens are not the argmax")
 
 
+# ------------------------------------------------- packed KV pages (g-j) --
+
+def _kv_pools(dev, gen, cfg, n_pages, f):
+    """K and V pools of ``n_pages`` random pages encoded with ``cfg``, with
+    empty fields floored at one row as the registry's fused variants do."""
+    import torch
+    from repro_torch.engine.cache import encode_page
+    from repro_torch.kernels.ops import _min1
+    out = []
+    for _ in range(2):
+        enc = encode_page(torch.randn((n_pages, PAGE, f), generator=gen, device=dev),
+                          cfg)
+        out.append({k: v if k == "scale" else _min1(v, 2).contiguous()
+                    for k, v in enc.items()})
+    return out
+
+
+def _attn_table(dev, pages_per_slot):
+    """Slot 0 and 3 full, slot 1 empty, slot 2 with its second half -1."""
+    import torch
+    p = pages_per_slot
+    ids = torch.arange(4 * p, dtype=torch.int32).reshape(4, p)
+    ids[1] = -1
+    ids[2, p // 2:] = -1
+    n_valid = torch.tensor([p, 0, p, p], dtype=torch.int32)
+    return ids.to(dev), n_valid.to(dev)
+
+
+def _kv_args(name, k, v):
+    fields = ("lo", "scale") if name == "paged_attention_maskfree" else \
+        ("mask", "hi", "lo", "scale")
+    return [k[f] for f in fields] + [v[f] for f in fields]
+
+
+def _page_bytes(pool, fields) -> int:
+    """Packed bytes (and scale bytes) of one page of one pool."""
+    return sum(pool[f][0].numel() * pool[f].element_size() for f in fields)
+
+
+def _held(got, want, what) -> dict:
+    """Hold a partial (acc, m, l) to its plain version.  Rows with a live
+    page (plain l > 0) hold acc, m, l and the output acc / l, each to
+    KERNEL_TOL x its own largest |plain| there + 1e-6; the other rows must
+    be the identity partial (m = -1e30, l = 0, acc = 0) exactly.  Returns
+    each one's max |kernel - plain| over the live rows."""
+    import torch
+    (acc, m, l), (acc_p, m_p, l_p) = got, want
+    live = l_p > 0
+    _check(bool(torch.equal(l > 0, live)) and bool(live.any()),
+           f"{what}: kernel and plain disagree on which rows are live")
+    dead = ~live
+    _check(bool((m[dead] == -1e30).all()) and not bool(l[dead].any())
+           and not bool(acc[dead].any()), f"{what}: a row with nothing live is not "
+           "the identity partial")
+    errs = {}
+    for key, a, b in (("acc", acc, acc_p), ("m", m, m_p), ("l", l, l_p),
+                      ("out", acc / l[..., None], acc_p / l_p[..., None])):
+        a, b = a[live], b[live]
+        err = (a - b).abs().max().item()
+        lim = KERNEL_TOL * b.abs().max().item() + 1e-6
+        _check(err <= lim, f"{what}: {key} |kernel - plain| {err} > {lim} on live rows")
+        errs[key] = err
+    return errs
+
+
+def phase_g(dev, gen, clocks):
+    """K4, K5, K11 against their plain versions; timings of the first
+    ``TIMED_CASES`` cases and of K11 on the live pages of the first."""
+    import torch
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.kernels import strum_attention as A
+    from repro_torch.kernels import strum_decode as D
+    codecs = {"paged_attention": StruMConfig(method="mip2q", p=0.5, L=7),
+              "paged_attention_maskfree": StruMConfig(method="dliq", p=1.0, q=4)}
+    wrappers = {"paged_attention": (A.strum_paged_attention,
+                                    A.strum_paged_attention_plain),
+                "paged_attention_maskfree": (A.strum_paged_attention_maskfree,
+                                             A.strum_paged_attention_maskfree_plain)}
+    rows = {name: {"max_abs_err": 0.0, "cases": []} for name in
+            ("paged_attention", "paged_attention_maskfree", "page_decode")}
+    for i, (label, kv, r, ctx) in enumerate(ATTN_CASES):
+        hd, p_slot = 128, ctx // PAGE
+        f = kv * hd
+        ids, n_valid = _attn_table(dev, p_slot)
+        live = int(((ids >= 0) & (torch.arange(p_slot, device=dev)[None, :]
+                                  < n_valid[:, None])).sum())
+        q4 = (torch.randn((4, kv, r, hd), generator=gen, device=dev) / hd ** 0.5).contiguous()
+        for name, cfg in codecs.items():
+            kern, plain = wrappers[name]
+            kw = dict(w=cfg.w, q=cfg.q, method=cfg.method)
+            if name == "paged_attention":
+                kw["n_low"] = cfg.n_low
+            k, v = _kv_pools(dev, gen, cfg, 4 * p_slot, f)
+            args = _kv_args(name, k, v)
+            got = kern(q4, *args, ids, n_valid, **kw)
+            want = plain(q4, *args, ids, n_valid, **kw)
+            torch.cuda.synchronize()
+            errs = _held(got, want, f"{name} {label} ctx {ctx}")
+            err = max(errs.values())
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            case = {"case": f"{label}, {kv} kv heads x {hd}, R={r}, context {ctx}, "
+                            f"{live} live pages of {PAGE}", "max_abs_err": err,
+                    "errs": errs}
+            if i < TIMED_CASES:
+                case.update(_time_attention(clocks, name, kern, plain, q4, args, ids,
+                                            n_valid, kw, k, v, live, r, hd, kv))
+                if i == 0 and name == "paged_attention":
+                    rows["page_decode"]["cases"].append(
+                        _time_page_decode(clocks, D, k, ids, n_valid, cfg, live))
+            rows[name]["cases"].append(case)
+            print(f"  {name:24s} {case['case']}: max |kernel - plain| on live rows "
+                  + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+                  + (f"; kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f}, "
+                     f"sdpa bf16 {case['library_ms']:.4f}, bound {case['bound_ms']:.4f} "
+                     f"({case['bound_by']}, {case['bytes'] / 1e6:.2f} MB); {case['clock']}"
+                     if "ms" in case else ""), flush=True)
+            del k, v, args, got, want
+        torch.cuda.empty_cache()
+    d = rows["page_decode"]["cases"][0]
+    rows["page_decode"]["max_abs_err"] = d["max_abs_err"]
+    print(f"  page_decode              {d['case']}: exact; kernel {d['ms']:.4f} ms, "
+          f"plain {d['plain_ms']:.4f}, bound {d['bound_ms']:.4f} ({d['bound_by']}, "
+          f"{d['bytes'] / 1e6:.2f} MB); no one-call yardstick; {d['clock']}", flush=True)
+    return rows
+
+
+def _time_attention(clocks, name, kern, plain, q4, args, ids, n_valid, kw, k, v,
+                    live, r, hd, kv):
+    """Kernel, plain version and the SDPA yardstick in turns; the bound from
+    the bytes this data needs (live pages' fields and scales, q, outputs)
+    and its f32 operations (QK^T and PV over the live keys)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.strum_decode import decode_lo_pages, strum_page_decode_plain
+    b, p_slot = ids.shape
+    fields = ("lo",) if name == "paged_attention_maskfree" else ("mask", "hi", "lo")
+
+    def dense(pool):        # (B, KV, S, hd) bf16 values of each slot's pages
+        g = {f_: t[ids.clamp(min=0).long().reshape(-1)] for f_, t in pool.items()}
+        if name == "paged_attention_maskfree":
+            vals = decode_lo_pages(g["lo"], g["scale"], w=kw["w"], q=kw["q"],
+                                   method=kw["method"])
+        else:
+            vals = strum_page_decode_plain(g["mask"], g["hi"], g["lo"], g["scale"], **kw)
+        return vals.reshape(b, p_slot * PAGE, kv, hd).transpose(1, 2).to(
+            torch.bfloat16).contiguous()
+    kd, vd = dense(k), dense(v)
+    pos = torch.arange(p_slot * PAGE, device=ids.device)
+    valid = (ids[:, pos // PAGE] >= 0) & (pos[None, :] < (n_valid[:, None] * PAGE))
+    mask = valid[:, None, None, :]
+    qb = q4.to(torch.bfloat16)
+    times = _interleaved(clocks, {
+        "ms": (lambda: kern(q4, *args, ids, n_valid, **kw), 20),
+        "plain_ms": (lambda: plain(q4, *args, ids, n_valid, **kw), 1),
+        "library_ms": (lambda: F.scaled_dot_product_attention(
+            qb, kd, vd, attn_mask=mask, scale=1.0), 20)})
+    page = sum(_page_bytes(pool, fields + ("scale",)) for pool in (k, v))
+    nbytes = (live * page + q4.numel() * 4 + (q4.numel() + 2 * b * kv * r) * 4
+              + ids.numel() * 4 + n_valid.numel() * 4)
+    flops = 4 * live * PAGE * kv * r * hd
+    return dict(times, **_bound(nbytes, flops, PEAK_FLOPS["torch.float32"]))
+
+
+def _time_page_decode(clocks, D, k, ids, n_valid, cfg, live):
+    """K11 on the live K pages of the first case, gathered as
+    ``gather_decode_pages`` gathers them: kernel against plain, exact."""
+    import torch
+    sel = ids[(ids >= 0) & (torch.arange(ids.shape[1], device=ids.device)[None, :]
+                            < n_valid[:, None])].long()
+    g = {f_: t[sel].contiguous() for f_, t in k.items()}
+    kw = dict(w=cfg.w, n_low=cfg.n_low, q=cfg.q, method=cfg.method)
+    fields = [g[f_] for f_ in ("mask", "hi", "lo", "scale")]
+    got = D.strum_page_decode(*fields, **kw)
+    want = D.strum_page_decode_plain(*fields, **kw)
+    torch.cuda.synchronize()
+    _check(torch.equal(got, want), "page_decode differs from its plain version")
+    times = _interleaved(clocks, {
+        "ms": (lambda: D.strum_page_decode(*fields, **kw), 20),
+        "plain_ms": (lambda: D.strum_page_decode_plain(*fields, **kw), 5)})
+    nbytes = sum(t.numel() * t.element_size() for t in fields) + got.numel() * 4
+    return dict(times, library_ms=None, max_abs_err=0.0,
+                case=f"{live} live K pages of OLMo decode (2048 ctx), mip2q p=0.5 "
+                     f"-> ({live}, {PAGE}, 2048) f32",
+                **_bound(nbytes, 0, PEAK_FLOPS["torch.float32"]))
+
+
+def _reset_kv_counts():
+    from repro_torch.kernels import strum_attention as A
+    from repro_torch.kernels import strum_decode as D
+    from repro_torch.kernels import strum_matmul as K
+    for mod in (A, D, K):
+        mod.reset_launch_counts()
+
+
+def _kv_counts() -> dict:
+    from repro_torch.kernels import strum_attention as A
+    from repro_torch.kernels import strum_decode as D
+    from repro_torch.kernels import strum_matmul as K
+    return dict(A.launch_counts, **D.launch_counts, **K.launch_counts)
+
+
+def phase_h(counts):
+    """Full-width OLMo-1B through the paged runtime with mip2q KV pages."""
+    from repro_torch.launch import serve as S
+    _reset_kv_counts()
+    res = S.run(["--arch", "olmo_1b", "--seed", "0", "--paged", "--kv-cache", "mip2q",
+                 "--prompt-len", "128", "--gen", "32"])
+    launched = _kv_counts()
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    sched, cfg = res["sched"], res["cfg"]
+    _check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size) ==
+           (16, 2048, 16, 8192, 50304), f"not full-width OLMo-1B: {cfg}")
+    _check((sched.spec.variant, sched.spec.attn_variant) ==
+           ("cache:cuda_decode", "cache:attn_fused"),
+           f"paged serve selected {sched.spec.variant}, {sched.spec.attn_variant}")
+    runs = res["lane_runs"]
+    lane = runs["decode"] + runs["prefill_chunk"]
+    _check(launched["paged_attention"] == cfg.n_layers * lane,
+           f"K4 launches {launched['paged_attention']}, want {cfg.n_layers} layers x "
+           f"{lane} lane runs ({runs})")
+    _check(launched["onehot"] == 7 * cfg.n_layers * lane,
+           f"K1 launches {launched['onehot']}, want 7 x {cfg.n_layers} x {lane}")
+    _check(launched["paged_attention_maskfree"] == launched["page_decode"] == 0,
+           f"phase h launched K5 or K11: {launched}")
+    st = sched.cache_stats()
+    _check(st["ratio_vs_int8"] == 0.875 and
+           st["resident_page_bytes"] == st["expected_page_bytes"],
+           f"packed pages x{st['ratio_vs_int8']} of int8, want x0.875 ({st})")
+    outs = [r.output for r in res["requests"]]
+    _check(len(outs) == 4 and all(len(o) == 33 for o in outs),
+           f"requests came back with {[len(o) for o in outs]} tokens")
+    counts["paged_attention"] = launched["paged_attention"]
+    dec = sorted(ms for kind, ms in res["ticks"] if kind == "decode")
+    print(f"  launches: {launched}; K4 = {cfg.n_layers} layers x {lane} lane runs "
+          f"{runs} (one request of them the warm-up)", flush=True)
+    return {"drain_ms": res["drain_s"] * 1e3, "ticks": len(res["ticks"]),
+            "decode_tick_ms": _spread(dec), "decode_ticks": len(dec),
+            "lane_runs": runs, "ratio_vs_int8": st["ratio_vs_int8"],
+            "resident_page_bytes": st["resident_page_bytes"]}, res
+
+
+def phase_i(dev, counts):
+    """2 layers, full width, dliq p=1 q=4 pages: K5."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=2, strum=StruMConfig())
+    params = init_params(model_defs(cfg), seed=1, device=dev, dtype_override="float32")
+    plan = build_serving_plan(params, cfg=cfg.strum, device=dev)
+    del params
+    sched = BatchScheduler(cfg, None, n_slots=4, max_len=64 + 9 + PAGE, plan=plan,
+                           kv_cache=StruMConfig(method="dliq", p=1.0, q=4), device=dev)
+    _check(sched.spec.attn_variant == "cache:attn_fused_maskfree",
+           f"dliq p=1 pages selected {sched.spec.attn_variant}")
+    gen = torch.Generator().manual_seed(1)
+    for i in range(4):
+        sched.submit(Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (64,),
+                                                         generator=gen),
+                             max_new_tokens=9))
+    _reset_kv_counts()
+    done = sched.run_to_completion()
+    launched = _kv_counts()
+    lane = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
+    _check(len(done) == 4 and launched["paged_attention_maskfree"] == 2 * lane
+           and launched["paged_attention"] == 0,
+           f"K5 launches {launched}, want 2 layers x {lane} lane runs")
+    counts["paged_attention_maskfree"] = launched["paged_attention_maskfree"]
+    st = sched.cache_stats()
+    print(f"  {sched.spec.attn_variant}: launches {launched} (2 layers x {lane} lane "
+          f"runs {sched.lane_runs}); pages x{st['ratio_vs_int8']:.4f} of int8", flush=True)
+
+
+def _recorded(sched, vocab):
+    """Wrap the scheduler's lanes to keep each request's logits in the order
+    its tokens come out (prefill's first token, then every decode tick)."""
+    rec: dict = {}
+    decode, chunk = sched._decode, sched._chunk_prefill
+
+    def dec(params, token, pools, hot, cache_len, table, active):
+        lg, hot = decode(params, token, pools, hot, cache_len, table, active)
+        for s in active.nonzero().flatten().tolist():
+            rec.setdefault(sched.slots[s].req.uid, []).append(lg[s, -1, :vocab])
+        return lg, hot
+
+    def chk(params, toks, pools, hot, table, slot, start, valid):
+        out = chunk(params, toks, pools, hot, table, slot, start, valid)
+        sl = sched.slots[int(slot)]
+        if int(start) + int(valid) >= sl.req.prompt.shape[0]:
+            rec.setdefault(sl.req.uid, []).append(out[0][0, int(valid) - 1, :vocab])
+        return out
+    sched._decode, sched._chunk_prefill = dec, chk
+    return rec
+
+
+def phase_j(dev, res, counts):
+    """K11 on every sealed page of phase h; phase h's requests teacher-forced
+    through the cuda and the torch family."""
+    import torch
+    from repro_torch.engine.cache import decode_pages, gather_decode_pages
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    sched, cfg = res["sched"], res["cfg"]
+    spec = sched.spec
+    pools = sched.pools["pos0"]
+    sealed = (pools["k"]["scale"][0, :, 0].abs().amax(-1) > 0).nonzero().flatten()
+    _reset_kv_counts()
+    decoded = []
+    for g in range(cfg.n_layers):
+        for name in ("k", "v"):
+            pool = {f: t[g] for f, t in pools[name].items()}
+            decoded.append((pool, gather_decode_pages(pool, sealed, spec)))
+    launched = _kv_counts()
+    _check(launched["page_decode"] == 2 * cfg.n_layers,
+           f"K11 launches {launched}, want {2 * cfg.n_layers}")
+    counts["page_decode"] = launched["page_decode"]
+    for pool, got in decoded:
+        gathered = {f: t[sealed] for f, t in pool.items()}
+        want = decode_pages(gathered, spec, backend="torch")
+        _check(torch.equal(got, want), "K11 differs from the plain decode")
+    print(f"  K11 decoded {sealed.numel()} sealed pages x {cfg.n_layers} layers x "
+          f"K, V in {launched['page_decode']} launches; equal to the plain decode "
+          f"bit for bit", flush=True)
+    del decoded
+
+    # the same requests, teacher-forced, through both families
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    torch_plan = build_serving_plan(params, cfg=cfg.strum, backend="torch", device=dev)
+    del params
+    logits = {}
+    for family, plan, backend in (("cuda", res["plan"], None),
+                                  ("torch", torch_plan, "torch")):
+        s2 = BatchScheduler(cfg, None, n_slots=sched.n_slots, max_len=sched.max_len,
+                            plan=plan, kv_cache=spec.cfg, page_size=spec.page_size,
+                            cache_backend=backend, device=dev)
+        rec = _recorded(s2, cfg.vocab_size)
+        for r in res["requests"]:
+            s2.submit(Request(uid=r.uid, prompt=res["prompt"][r.uid].cpu(),
+                              max_new_tokens=len(r.output), force_tokens=r.output))
+        with torch.inference_mode():
+            s2.run_to_completion()
+        logits[family] = torch.stack([torch.stack(rec[r.uid]) for r in res["requests"]])
+        if family == "torch":
+            _check(s2.spec.attn_variant == "cache:attn_unfused" and
+                   s2.spec.variant == "cache:torch_dequant", f"torch family {s2.spec}")
+    del torch_plan
+    got, ref = logits["cuda"].float(), logits["torch"].float()
+    toks = torch.tensor([r.output for r in res["requests"]], device=got.device)
+    _check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+           f"logits not finite or of shape {tuple(got.shape)}")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    same = (got.argmax(-1) == toks).float().mean().item()
+    print(f"  paged logits cuda vs torch family, teacher-forced on phase h's tokens, "
+          f"{got.shape[1]} positions x {got.shape[0]} requests: max|diff| {err:.4e} "
+          f"(max|logit| {scale:.4e}), argmax agreement {agree:.3f}; cuda argmax = "
+          f"phase h's tokens at {same:.3f} of positions", flush=True)
+    _check(err <= 0.05 * scale, f"paged logits differ: {err} > 0.05 x {scale}")
+    _check(agree >= 0.9, f"paged argmax agreement {agree} < 0.9")
+    return {"max_abs_diff": err, "max_abs_logit": scale, "argmax_agreement": agree,
+            "tokens_equal_share": same}
+
+
 def measure(dev, clocks):
-    """Phases c-f; returns the kernels' records and phase d's serve times."""
+    """Phases c-j; returns the kernels' records and the serve times."""
     import torch
     _phase("c. kernels vs plain versions at OLMo-1B shapes")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -343,6 +770,24 @@ def measure(dev, clocks):
 
     _phase("f. phase d logits vs the torch family, teacher-forced")
     phase_f(res)
+    del res
+    torch.cuda.empty_cache()
+
+    _phase("g. packed-KV kernels K4, K5, K11 vs plain versions at OLMo-1B and "
+           "Qwen2-7B attention shapes")
+    kv_rows = phase_g(dev, gen, clocks)
+
+    _phase("h. paged serve, full-width OLMo-1B, mip2q KV pages (batch 4, prompt 128, "
+           "gen 32)")
+    paged, res = phase_h(counts)
+    times["paged"] = paged
+
+    _phase("i. dliq p=1 KV pages (2 layers, full width)")
+    phase_i(dev, counts)
+
+    _phase("j. phase h's sealed pages through K11; paged logits vs the torch family")
+    times["paged"]["logits"] = phase_j(dev, res, counts)
+    del res
 
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
@@ -360,6 +805,19 @@ def measure(dev, clocks):
             "prefill_bound_by": pf["bound_by"],
             "prefill_library_ms": pf["library_ms"],
             "prefill_range_ms": pf["range_ms"]})
+    for variant, (name, replaces) in KV_KERNELS.items():
+        row = kv_rows[name]
+        t = row["cases"][0]
+        kernels.append({
+            "name": variant, "route": "cuda", "source": KV_SOURCE, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "workload": t["case"] + f"; median of {ROUNDS} interleaved rounds",
+            "range_ms": t["range_ms"], "clock": t["clock"],
+            "cases": [{k: c[k] for k in ("case", "max_abs_err", "errs", "ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by")
+                       if k in c} for c in row["cases"]]})
     return kernels, times
 
 
@@ -385,14 +843,22 @@ def main() -> int:
     print(smi, flush=True)
 
     _phase("b. build")
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.load("strum_matmul")
-    print(f"  built strum_matmul in {time.perf_counter() - t0:.1f} s into "
+    sources = ("strum_matmul", "strum_attention")
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, together
+        for lib in list(pool.map(build.build, sources)):
+            print(f"  built {lib.name}", flush=True)
+    for name in sources:
+        build.load(name)
+    print(f"  built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s into "
           f"{build.build_dir()}", flush=True)
-    for line in build.BUILD_LOGS["strum_matmul"].splitlines():
-        if "registers" in line:
-            print("  " + line.strip().replace("ptxas info    : ", "ptxas: "))
+    for name in sources:
+        for line in build.BUILD_LOGS[name].splitlines():
+            if "registers" in line or "spill" in line and "0 bytes spill" not in line:
+                print(f"  {name}: " + line.strip().replace("ptxas info    : ", "ptxas: "))
 
     clocks = Clocks()
     try:
@@ -401,6 +867,12 @@ def main() -> int:
         clocks.close()
 
     pre, dec = times["prefill_ms"], times["decode_ms_per_token"]
+    paged = times["paged"]
+    tick = paged["decode_tick_ms"]
+    print(f"paged path: drain {paged['drain_ms']:.1f} ms, {paged['ticks']} ticks, "
+          f"decode-only tick median {tick['median']:.3f} ms [{tick['min']:.3f}, "
+          f"{tick['max']:.3f}] over {paged['decode_ticks']}; phase time "
+          f"{json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})} s")
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

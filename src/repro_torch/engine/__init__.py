@@ -4,7 +4,15 @@ funnel (twin of the single-device 2-D half of ``repro.engine``).
     plan = engine.build_plan(params, cfg=StruMConfig(), device="cuda")
     y = engine.apply(plan, "blocks/pos0/mlp/wi/w", x)   # 2-D entries
     served = plan.params                                # model-shaped tree
+
+KV-cache page codecs and the consumers of the page pools are registry
+entries too (the ``cache:*`` family, :mod:`repro_torch.engine.cache`):
+``build_cache_spec`` selects them per (codec, page geometry, device).
 """
+from repro_torch.engine.cache import (CacheSpec, build_cache_spec,
+                                      decode_pages, encode_page,
+                                      gather_decode_pages,
+                                      select_cache_variant)
 from repro_torch.engine.dispatch import apply, dispatch, leaf_spec
 from repro_torch.engine.plan import ExecutionPlan, PlanEntry, build_plan
 from repro_torch.engine.registry import (BACKENDS, ExecSpec, KernelVariant,
@@ -12,7 +20,8 @@ from repro_torch.engine.registry import (BACKENDS, ExecSpec, KernelVariant,
                                          register_kernel, resolve_backend,
                                          select_variant)
 
-__all__ = ["apply", "dispatch", "leaf_spec", "ExecutionPlan", "PlanEntry",
-           "build_plan", "BACKENDS", "ExecSpec", "KernelVariant", "LeafInfo",
+__all__ = ["CacheSpec", "build_cache_spec", "decode_pages", "encode_page",
+           "gather_decode_pages", "select_cache_variant", "apply", "dispatch",
+           "leaf_spec", "ExecutionPlan", "PlanEntry", "build_plan", "BACKENDS", "ExecSpec", "KernelVariant", "LeafInfo",
            "get_variant", "register_kernel", "resolve_backend",
            "select_variant"]

@@ -46,12 +46,28 @@ class LeafInfo(NamedTuple):
     n_out: int
     lead: tuple = ()
     name: str = ""
+    cache: bool = False   # True selects from the ``cache:*`` family (paged
+                          # KV-page codecs: k_dim is the page size, n_out the
+                          # per-token feature dim)
+    attn: bool = False    # True selects the fused-attention partition of the
+                          # cache family (``cache:attn_*``): consumers of the
+                          # page pools, not bare codecs
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelVariant:
     """One registered lowering: ``fn(x2, packed, *, out_dtype) -> y2`` on
-    flattened ``(M, K)`` activations and a :class:`PackedStruM`."""
+    flattened ``(M, K)`` activations and a :class:`PackedStruM`.
+
+    ``cache=True`` marks a KV-page codec (``fn(leaf, *, cfg, page_size,
+    out_dtype) -> pages``); ``attn=True`` (implies ``cache``) a consumer of
+    the page pools that returns the sealed-page partial of paged attention
+    (``repro_torch.engine.cache``).  Selection partitions on both flags, so
+    matmul lowerings, page codecs and attention consumers never compete.
+    ``redispatch=True`` marks a variant whose landing under another family
+    is no datapath substitution (it re-selects with the caller's backend
+    inside), so the cross-family fallback onto it does not warn.
+    """
 
     name: str
     fn: Callable
@@ -59,6 +75,9 @@ class KernelVariant:
     family: str = "cuda"
     priority: int = 0
     description: str = ""
+    redispatch: bool = False
+    cache: bool = False
+    attn: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,15 +94,21 @@ _REGISTRY: dict[str, KernelVariant] = {}
 
 
 def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
-                    priority: int = 0, description: str = ""):
+                    priority: int = 0, description: str = "",
+                    redispatch: bool = False, cache: bool = False,
+                    attn: bool = False):
     """Decorator: register ``fn`` as kernel variant ``name`` (latest wins)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
+    if attn and not cache:
+        raise ValueError("attn=True variants live in the cache family; "
+                         "pass cache=True as well")
 
     def deco(fn):
-        _REGISTRY[name] = KernelVariant(name=name, fn=fn, supports=supports,
-                                        family=family, priority=priority,
-                                        description=description)
+        _REGISTRY[name] = KernelVariant(
+            name=name, fn=fn, supports=supports, family=family,
+            priority=priority, description=description,
+            redispatch=redispatch, cache=cache, attn=attn)
         return fn
     return deco
 
@@ -117,14 +142,19 @@ def select_variant(cfg: StruMConfig, info: LeafInfo,
     """Highest-(priority, name) variant of the resolved family whose
     predicate accepts ``(cfg, info)``; if that family has none (e.g.
     ``w % 8 != 0`` under onehot), fall back to the ``torch`` family, with a
-    warning when the family was asked for explicitly."""
+    warning when the family was asked for explicitly (unless the fallback
+    is a ``redispatch`` variant).  ``info.cache`` and ``info.attn``
+    partition the candidates: only variants with the same two flags
+    compete."""
     fam = resolve_backend(backend, device)
     for family in dict.fromkeys((fam, "torch")):
         cands = [v for v in _REGISTRY.values()
-                 if v.family == family and v.supports(cfg, info)]
+                 if v.family == family and v.cache == info.cache
+                 and v.attn == info.attn and v.supports(cfg, info)]
         if cands:
             best = max(cands, key=lambda v: (v.priority, v.name))
-            if family != fam and backend not in (None, "auto"):
+            if family != fam and backend not in (None, "auto") \
+                    and not best.redispatch:
                 warnings.warn(
                     f"backend={backend!r} has no variant supporting "
                     f"{cfg.method} w={cfg.w} n_low={cfg.n_low} "

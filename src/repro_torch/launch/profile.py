@@ -1,14 +1,20 @@
 """Where the serve driver's time goes on the card: ``torch.profiler`` over
-one prefill and a few decode steps of the port's main path.
+one prefill and a few decode steps of the port's main path, or over a few
+decode-only ticks of the paged runtime.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch olmo_1b --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch olmo_1b \
+        --paged --kv-cache mip2q --prompt-len 128 --gen 32 --steps 4
 
 Serves once through :func:`repro_torch.launch.serve.run` (build, pack,
 warm-up), then profiles a prefill and ``--steps`` decode steps fed the
-tokens that run produced.  For each it prints the host time, the summed
-device time of the kernels, the device busy share (kernel time over host
-wall time) and the top ops by device time and by host time
-(``key_averages``).  Needs a card; other flags pass to the serve driver.
+tokens that run produced.  With ``--paged`` it instead fills a fresh
+scheduler of the same configuration with the same requests, steps it until
+every prompt is prefilled, and profiles ``--steps`` decode-only ticks.  For
+each it prints the host time, the summed device time of the kernels, the
+device busy share (kernel time over host wall time) and the top ops by
+device time and by host time (``key_averages``).  Needs a card; other flags
+pass to ``repro_torch.launch.serve``.
 """
 from __future__ import annotations
 
@@ -46,12 +52,38 @@ def _report(name: str, prof, wall: float, n: int, rows: int) -> None:
     print(avg.table(sort_by="self_cpu_time_total", row_limit=rows))
 
 
+def _profile_paged(res: dict, args) -> int:
+    """Decode-only ticks of a scheduler like the one ``res`` drained."""
+    from repro_torch.serving import BatchScheduler, Request
+    done = res["sched"]
+    b, n = res["prompt"].shape
+    sched = BatchScheduler(res["cfg"], res["params"], n_slots=b, max_len=done.max_len,
+                           plan=res["plan"], kv_cache=done.spec.cfg,
+                           page_size=done.page_size, prefill=done.prefill_mode,
+                           device=res["device"])
+    for i in range(b):
+        sched.submit(Request(uid=i, prompt=res["prompt"][i].cpu(),
+                             max_new_tokens=res["gen"] + 1))
+    while sched.queue or sched._prefill_slots():
+        sched.step()
+    left = min(min(s.req.max_new_tokens - len(s.req.output), sched.max_len - 2 - s.len)
+               for s in sched.slots if s is not None)
+    steps = max(1, min(args.steps, left - 1))
+    with torch.inference_mode():
+        prof, wall, _ = _profiled(lambda: [sched.step() for _ in range(steps)])
+    _report(f"paged decode tick ({b} slots, attention {sched.spec.attn_variant})",
+            prof, wall, steps, args.rows)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.profile")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--rows", type=int, default=15)
     args, rest = ap.parse_known_args(argv)
     res = S.run(rest)
+    if res["paged"]:
+        return _profile_paged(res, args)
     cfg, params, prompt, toks = res["cfg"], res["params"], res["prompt"], res["tokens"]
     steps, n = min(args.steps, res["gen"]), prompt.shape[1]
     with torch.inference_mode():

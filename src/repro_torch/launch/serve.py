@@ -1,14 +1,23 @@
-"""Serving driver (twin of the non-paged path of ``repro.launch.serve``):
-batched prefill + greedy decode from StruM-packed weights.
+"""Serving entry point (twin of ``repro.launch.serve``): batched prefill +
+greedy decode from StruM-packed weights, or the paged continuous-batching
+runtime with StruM-packed KV pages.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b \
+        --paged --kv-cache mip2q --prompt-len 128 --gen 32
 
 builds the model from a seed on the card, packs every linear into an
 :class:`~repro_torch.engine.ExecutionPlan` (``--strum none`` serves dense
 weights), prints the weight bytes against dense, the plan's variant
-distribution, the prefill and decode times and a token sample.  ``--device
-cpu`` runs the plain PyTorch path (the ``torch`` family) without a card;
-without it and without a card the driver raises.
+distribution, the prefill and decode times and a token sample.  ``--paged``
+serves the batch as ``--batch`` requests through
+:class:`repro_torch.serving.BatchScheduler` (``--prefill chunked|serial``,
+``--page-size``), with sealed KV pages packed by ``--kv-cache`` (the fixed
+codec ``StruMConfig(method, p=0.5, q=4, L=7)``; ``none`` keeps raw pages),
+and prints the drain time, the ticks, the median decode-only tick and the
+cache's bytes against int8 pages.  ``--device cpu`` runs the plain PyTorch
+path (the ``torch`` family) without a card; without it and without a card
+it raises.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ from repro_torch.models import model_defs
 from repro_torch.models.params import init_params
 from repro_torch.models.quantize import serve_tree_bytes
 
-__all__ = ["pad_caches", "serve", "run", "main"]
+__all__ = ["pad_caches", "serve", "serve_paged", "run", "main"]
 
 
 def pad_caches(caches: dict, extra: int) -> dict:
@@ -88,6 +97,54 @@ def serve(cfg, params, prompt: torch.Tensor, gen: int, *, device="cuda",
     return out + (torch.stack(steps, dim=1),) if return_logits else out
 
 
+def serve_paged(cfg, params, prompt: torch.Tensor, gen: int, *, plan=None,
+                kv_cache=None, page_size: int = 16, prefill: str = "chunked",
+                device="cuda") -> dict:
+    """Serve each row of ``prompt`` (B, S) as one request of ``gen + 1``
+    tokens through a :class:`BatchScheduler` with B slots and ``max_len =
+    S + gen + page_size``, timing every tick (host clock, synchronized).
+
+    One untimed request first runs through a one-slot scheduler of the same
+    configuration (kernel builds, first-call set-up).  Returns the scheduler, the finished requests, the drain seconds, each
+    tick's ``(kind, ms)`` (kind "decode" when no prompt waited or was
+    prefilling before the tick) and ``lane_runs`` summed over both
+    schedulers.
+    """
+    from repro_torch.serving import BatchScheduler, Request
+    dev = resolve_device(device)
+    b, n = prompt.shape
+    prompt = prompt.cpu()
+
+    def make(slots):
+        return BatchScheduler(cfg, params, n_slots=slots, max_len=n + gen + page_size,
+                              plan=plan, kv_cache=kv_cache, page_size=page_size,
+                              prefill=prefill, device=dev)
+    w = make(1)
+    w.submit(Request(uid=-1, prompt=prompt[0, :page_size + 1], max_new_tokens=2))
+    w.run_to_completion()
+    lane_runs = dict(w.lane_runs)
+    sched = make(b)
+    for i in range(b):
+        sched.submit(Request(uid=i, prompt=prompt[i], max_new_tokens=gen + 1))
+    ticks = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    while sched.queue or any(s is not None for s in sched.slots):
+        decode_only = not sched.queue and not sched._prefill_slots()
+        t1 = time.perf_counter()
+        sched.step()
+        _sync(dev)
+        ticks.append(("decode" if decode_only else "mixed",
+                      (time.perf_counter() - t1) * 1e3))
+    drain = time.perf_counter() - t0
+    # nothing is left to run: this only collects the finished requests
+    done = sorted(sched.run_to_completion(), key=lambda r: r.uid)
+    for k, v in sched.lane_runs.items():
+        lane_runs[k] += v
+    return {"sched": sched, "requests": done, "drain_s": drain, "ticks": ticks,
+            "lane_runs": lane_runs}
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
@@ -107,6 +164,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="pin the engine's kernel-variant family")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged continuous-batching runtime "
+                         "(BatchScheduler) instead of the dense-cache loop")
+    ap.add_argument("--kv-cache", default="none",
+                    choices=["none", "sparsity", "dliq", "mip2q"],
+                    help="(--paged) pack sealed KV pages with this codec")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill", default="chunked", choices=["chunked", "serial"])
     return ap
 
 
@@ -132,10 +197,18 @@ def run(argv=None) -> dict:
     gen = torch.Generator().manual_seed(args.seed)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen).to(dev)
+    res.update(cfg=cfg, params=params, prompt=prompt, gen=args.gen, device=dev,
+               paged=args.paged)
+    if args.paged:
+        kv = None if args.kv_cache == "none" else \
+            StruMConfig(method=args.kv_cache, p=0.5, q=4, L=7)
+        res.update(serve_paged(cfg, params, prompt, args.gen, plan=res["plan"],
+                               kv_cache=kv, page_size=args.page_size,
+                               prefill=args.prefill, device=dev))
+        return res
     toks, t_p, t_d, lg = serve(cfg, params, prompt, args.gen, device=dev,
                                return_logits=True)
-    res.update(cfg=cfg, params=params, prompt=prompt, tokens=toks, logits=lg,
-               t_prefill=t_p, t_decode=t_d, gen=args.gen, device=dev)
+    res.update(tokens=toks, logits=lg, t_prefill=t_p, t_decode=t_d)
     return res
 
 
@@ -152,6 +225,8 @@ def report(res: dict) -> list:
                      f"{summ['variant_distribution']} (backend {summ['backend']})")
     else:
         lines.append(f"weights: dense {dense / 1e6:.2f} MB")
+    if res["paged"]:
+        return lines + _paged_report(res)
     gen = res["gen"]
     lines.append(f"prefill {res['t_prefill'] * 1e3:.1f} ms; decode "
                  f"{res['t_decode'] * 1e3:.1f} ms ({gen} steps, "
@@ -159,6 +234,21 @@ def report(res: dict) -> list:
                  f"{res['device']}")
     lines.append(f"sample: {res['tokens'][0, :16].tolist()}")
     return lines
+
+
+def _paged_report(res: dict) -> list:
+    sched, st = res["sched"], res["sched"].cache_stats()
+    dec = sorted(ms for kind, ms in res["ticks"] if kind == "decode")
+    med = f"{dec[len(dec) // 2]:.2f} ms over {len(dec)}" if dec else "none"
+    return [
+        f"paged serve: {len(res['requests'])} requests in "
+        f"{res['drain_s'] * 1e3:.1f} ms ({len(res['ticks'])} ticks, "
+        f"{sched.prefill_mode} prefill) on {res['device']}; decode-only tick "
+        f"median {med}",
+        f"cache: codec {st['codec']}, attention {st['attn_variant']}; packed "
+        f"pages {st['resident_page_bytes'] / 1e6:.3f} MB, x{st['ratio_vs_int8']:.4f} "
+        f"vs int8 pages; lane runs {res['lane_runs']}",
+        f"sample: {res['requests'][0].output[:16]}"]
 
 
 def main(argv=None) -> int:

@@ -1,13 +1,14 @@
 """Step builders shared by the server and the tests (twin of the serving
 half of ``repro.launch.steps``): one definition of the plan, prefill and
-decode steps."""
+decode steps, and of the paged runtime's two lanes."""
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.models import transformer as tfm
 
-__all__ = ["build_serving_plan", "make_prefill_step", "make_decode_step"]
+__all__ = ["build_serving_plan", "make_prefill_step", "make_decode_step",
+           "make_paged_decode_step", "make_chunked_prefill_step"]
 
 
 def build_serving_plan(params, *, cfg=None, policy=None,
@@ -31,4 +32,25 @@ def make_decode_step(cfg, **kw):
     """(params, token, caches, cache_len) -> (logits, caches)."""
     def step(params, token, caches, cache_len):
         return tfm.decode_step(params, token, caches, cache_len, cfg, **kw)
+    return step
+
+
+def make_paged_decode_step(cfg, spec, cache_backend: Optional[str] = None, **kw):
+    """Decode lane of the paged runtime: one (n_slots, 1) step over the page
+    table.  ``spec`` (a :class:`repro_torch.engine.cache.CacheSpec`) rides
+    the closure; ``kw`` reaches every linear."""
+    def step(params, token, pools, hot, cache_len, page_table, active):
+        return tfm.decode_step_paged(params, token, pools, hot, cache_len,
+                                     page_table, active, spec, cfg,
+                                     cache_backend=cache_backend, **kw)
+    return step
+
+
+def make_chunked_prefill_step(cfg, spec, cache_backend: Optional[str] = None, **kw):
+    """Prefill lane: one fixed-shape (1, chunk) step that every slot's
+    prompt advances through, chunk by chunk."""
+    def step(params, tokens, pools, hot, page_table, slot, start, valid_len):
+        return tfm.prefill_chunk_step(params, tokens, pools, hot, page_table,
+                                      slot, start, valid_len, spec, cfg,
+                                      cache_backend=cache_backend, **kw)
     return step

@@ -1,6 +1,7 @@
-"""GQA attention, the non-paged half of ``repro.models.attention``: chunked
-causal online-softmax attention for train/prefill and cache-based decode,
-as plain torch ops that mirror the reference's arithmetic.
+"""GQA attention (twin of ``repro.models.attention``): chunked causal
+online-softmax attention for train/prefill, cache-based decode, and the
+paged decode and chunked-prefill attention of the serving runtime, as plain
+torch ops that mirror the reference's arithmetic around the kernels.
 
 Head order is kv-major, as in the reference: query head ``h`` belongs to kv
 group ``h // rep`` (``q.reshape(b, nkv, rep, hd)``).
@@ -13,7 +14,8 @@ import torch
 
 from repro_torch.models.layers import apply_rope, linear, linear_def
 
-__all__ = ["attn_def", "attention", "decode_attention", "init_cache_spec"]
+__all__ = ["attn_def", "attention", "decode_attention", "init_cache_spec",
+           "decode_attention_paged", "prefill_attention_paged"]
 
 NEG_INF = -1e30
 
@@ -135,3 +137,124 @@ def init_cache_spec(cfg, batch: int, max_len: int):
     """Shape + logical axes of one attention layer's KV cache."""
     return ((batch, max_len, cfg.n_kv_heads, cfg.hd),
             ("batch", "cache_seq", "kv_heads", "head_dim"))
+
+
+# ----------------------------------------------------------- paged caches --
+#
+# Paged attention splits into two partials merged by their online-softmax
+# states: the sealed pages, through the engine's ``cache:attn_*`` variant
+# (K4 / K5 read the packed pools; the unfused fallback gathers, decodes and
+# einsums), and an fp epilogue over the hot tail page plus the fresh token
+# (decode) or the chunk itself (prefill).  A sealed page is valid for every
+# query row or skipped, so junk pages never reach the softmax.
+
+def _merge_partials(parts):
+    """Merge unnormalized online-softmax states [(acc, m, l), ...].
+
+    acc (..., R, hd), m/l (..., R).  An empty partial (m = NEG_INF, l = 0)
+    contributes nothing: one part is never empty (the epilogue holds the
+    fresh token / the chunk diagonal), so ``m_tot`` is finite and the empty
+    part's correction underflows to exactly 0.
+    """
+    m_tot = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_tot = torch.maximum(m_tot, m)
+    acc_tot = torch.zeros_like(parts[0][0])
+    l_tot = torch.zeros_like(parts[0][2])
+    for acc, m, l in parts:
+        c = torch.exp(m - m_tot)
+        acc_tot = acc_tot + acc * c[..., None]
+        l_tot = l_tot + l * c
+    return acc_tot / torch.clamp(l_tot, min=1e-30)[..., None]
+
+
+def _softmax_partial(qr, k, v, valid):
+    """(acc, m, l) of ``qr`` (B, KV, R, hd) against k/v (B, T, KV, hd) where
+    ``valid`` (broadcast to (B, KV, R, T)) holds; one valid key per row."""
+    sc = torch.einsum("bgrd,btgd->bgrt", qr, k.to(torch.float32))
+    sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(dim=-1)
+    pexp = torch.where(valid, torch.exp(sc - m[..., None]), torch.zeros_like(sc))
+    return (torch.einsum("bgrt,btgd->bgrd", pexp, v.to(torch.float32)), m,
+            pexp.sum(dim=-1))
+
+
+def decode_attention_paged(p: dict, x: torch.Tensor, cfg, pool: dict,
+                           tails: tuple, spec, page_table: torch.Tensor,
+                           cache_len: torch.Tensor, active: torch.Tensor,
+                           cache_backend=None, **kw):
+    """Single-token decode over a paged (possibly packed) KV cache.
+
+    x: (B, 1, D); ``pool`` this layer's page pools (page axis leading);
+    ``tails`` the slot-hot ``(k_tail, v_tail)`` (B, page_size, KV, hd);
+    ``page_table`` (B, pages_per_seq) int32 (-1 = unassigned); ``cache_len``
+    (B,) and ``active`` (B,) bool, all on the device.
+
+    The fresh token is written into the tails in place, at ``cache_len %
+    page_size``, for the ``active`` rows only: parked slots keep their
+    tails.  The sealed pages (indices < ``cache_len //
+    page_size``) run through the spec's ``cache:attn_*`` partial; the tail
+    page is the fp epilogue.  Returns ``(y, tails)``.
+    """
+    from repro_torch.engine.cache import attn_sealed_partial
+    b = x.shape[0]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rep = nh // nkv
+    kt, vt = tails
+    ps = spec.page_size
+    lens = cache_len.to(torch.long)
+    q, k, v = _qkv(p, x, cfg, lens[:, None], **kw)
+
+    rows = torch.arange(b, device=x.device)
+    slot_pos = lens % ps
+    for tail, new in ((kt, k), (vt, v)):
+        tail[rows, slot_pos] = torch.where(active[:, None, None],
+                                           new[:, 0].to(tail.dtype),
+                                           tail[rows, slot_pos])
+
+    qf = (q.to(torch.float32) / math.sqrt(hd)).reshape(b, nkv, rep, hd)
+    n_valid = (lens // ps).to(torch.int32)
+    sealed = attn_sealed_partial(pool, qf, page_table, n_valid, spec,
+                                 backend=cache_backend)
+    # tail index i holds absolute position n_valid * ps + i
+    t_pos = (n_valid.to(torch.long) * ps)[:, None] + torch.arange(ps, device=x.device)
+    valid_t = (t_pos <= lens[:, None])[:, None, None, :]
+    o = _merge_partials([sealed, _softmax_partial(qf, kt, vt, valid_t)])
+    y = linear(p["wo"], o.reshape(b, 1, nh * hd).to(x.dtype), **kw)
+    return y, (kt, vt)
+
+
+def prefill_attention_paged(p: dict, x: torch.Tensor, cfg, pool: dict, spec,
+                            table_row: torch.Tensor, start: torch.Tensor,
+                            cache_backend=None, **kw):
+    """Chunked-prefill attention for ONE request.  x: (1, C, D).
+
+    The chunk sits at absolute positions ``start + [0, C)`` (``start`` a
+    device scalar); chunk starts are page-aligned, so all earlier content
+    is in sealed pages, each valid for every chunk row, and the sealed
+    partial takes the chunk's query rows flattened into the kernel's R axis
+    (row ``i`` <-> (chunk row ``i // rep``, ``i % rep``)).  The chunk
+    against itself (intra-chunk causal) is the fp epilogue.  Returns ``(y,
+    (k, v))`` with k/v (1, C, KV, hd); writing them into pages or the tail
+    is the caller's job.
+    """
+    from repro_torch.engine.cache import attn_sealed_partial
+    b, c, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rep = nh // nkv
+    ps = spec.page_size
+    positions = (start.to(torch.long) + torch.arange(c, device=x.device))[None, :]
+    q, k, v = _qkv(p, x, cfg, positions.expand(b, c), **kw)
+
+    qf5 = (q.to(torch.float32) / math.sqrt(hd)).reshape(b, c, nkv, rep, hd)
+    qr = qf5.permute(0, 2, 1, 3, 4).reshape(b, nkv, c * rep, hd)
+    n_valid = (start.to(torch.int32) // ps).reshape(1).expand(b)
+    sealed = attn_sealed_partial(pool, qr, table_row[None, :], n_valid, spec,
+                                 backend=cache_backend)
+    # query row i = (chunk row i // rep, i % rep) sees keys k <= i // rep
+    qrow = torch.arange(c * rep, device=x.device) // rep
+    causal = (qrow[:, None] >= torch.arange(c, device=x.device)[None, :])[None, None]
+    o = _merge_partials([sealed, _softmax_partial(qr, k, v, causal)])
+    o = o.reshape(b, nkv, c, rep, hd).permute(0, 2, 1, 3, 4)
+    y = linear(p["wo"], o.reshape(b, c, nh * hd).to(x.dtype), **kw)
+    return y, (k, v)

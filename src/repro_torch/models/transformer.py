@@ -1,6 +1,7 @@
 """Decoder stack, the dense family of ``repro.models.transformer``:
 ``model_defs``, ``forward_train`` (forward only), ``prefill`` and
-``decode_step``.
+``decode_step``, and the serving runtime's paged lanes
+``decode_step_paged`` and ``prefill_chunk_step``.
 
 Parameters keep the reference layout: per period position ``pos{i}``,
 every leaf stacked with a leading ``n_groups`` dim.  The reference's
@@ -19,7 +20,7 @@ from repro_torch.models.layers import (apply_norm, embed_def, embed_lookup,
                                        norm_def)
 
 __all__ = ["period", "n_groups", "model_defs", "forward_train", "prefill",
-           "decode_step"]
+           "decode_step", "decode_step_paged", "prefill_chunk_step"]
 
 
 def _check_dense(cfg) -> None:
@@ -139,3 +140,86 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
             x = _mlp_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits(params.get("lm_head"), params["embed"], x), caches
+
+
+# -------------------------------------------------------- paged serving --
+#
+# The serving runtime's two lanes (repro_torch.serving.scheduler): a decode
+# step over every slot and a chunked-prefill step over one slot, both
+# reading KV through the page table.  ``pools`` holds the sealed pages per
+# layer position, ``hot`` the per-slot tail pages.  Shapes are fixed per
+# lane -- (n_slots, 1) and (1, chunk) -- and ``slot`` / ``start`` /
+# ``valid_len`` / ``cache_len`` are device tensors, so no shape depends on
+# a prompt's length and no step reads a value back to the host.  The tails
+# are updated in place (the reference returns new ones); sealing full pages
+# into the pools happens between steps, on the host.
+
+def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
+                      hot: dict, cache_len: torch.Tensor,
+                      page_table: torch.Tensor, active: torch.Tensor,
+                      spec, cfg, cache_backend=None, **kw):
+    """One decode step over paged caches.  token: (B, 1) int.
+
+    ``active`` (B,) bool masks the tail writes: parked slots and slots mid-
+    prefill ride the fixed-shape batch but keep their tails.  Returns
+    (logits (B, 1, V) f32, hot), ``hot`` updated in place.
+    """
+    kw.setdefault("strum", cfg.strum)
+    x = _embed_in(params, token, cfg)
+    for g in range(n_groups(cfg)):
+        gp, pool_g, hot_g = (_group(params["blocks"], g), _group(pools, g),
+                             _group(hot, g))
+        for i in range(period(cfg)):
+            bp, hp = gp[f"pos{i}"], hot_g[f"pos{i}"]
+            h, _ = attn_mod.decode_attention_paged(
+                bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg, pool_g[f"pos{i}"],
+                (hp["k_tail"], hp["v_tail"]), spec, page_table, cache_len,
+                active=active, cache_backend=cache_backend, **kw)
+            x = _mlp_residual(bp, x + h, cfg, kw)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return logits(params.get("lm_head"), params["embed"], x), hot
+
+
+def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
+                       hot: dict, page_table: torch.Tensor, slot: torch.Tensor,
+                       start: torch.Tensor, valid_len: torch.Tensor,
+                       spec, cfg, cache_backend=None, **kw):
+    """One fixed-shape prefill chunk for ONE slot.  tokens: (1, C) int.
+
+    ``slot`` / ``start`` / ``valid_len`` are device scalars.  Returns
+    ``(logits (1, C, V), hot, chunk_kv)``: the first generated token is
+    ``argmax(logits[0, valid_len - 1])`` on the last chunk, and ``chunk_kv``
+    (per layer position, the chunk's group-stacked (k, v)) is what the host
+    seals into full pages.  The slot's tail page gets the ragged remainder
+    ``[floor(valid_len / ps) * ps, valid_len)`` of the chunk, written in
+    place.
+    """
+    kw.setdefault("strum", cfg.strum)
+    ps = spec.page_size
+    x = _embed_in(params, tokens, cfg)
+    c = x.shape[1]
+    slot1 = slot.to(torch.long).reshape(1)
+    row = page_table.index_select(0, slot1)[0]
+    # chunk starts are page-aligned, so the tail starts at a page boundary
+    # of the chunk; the clamp keeps a full chunk's slice in bounds (its tail
+    # is then empty and masked by length)
+    tail_rel = torch.clamp((valid_len.to(torch.long) // ps) * ps, 0, c - ps)
+    tail_idx = tail_rel + torch.arange(ps, device=x.device)
+    chunk_kv: dict = {f"pos{i}": {"k": [], "v": []} for i in range(period(cfg))}
+    for g in range(n_groups(cfg)):
+        gp, pool_g, hot_g = (_group(params["blocks"], g), _group(pools, g),
+                             _group(hot, g))
+        for i in range(period(cfg)):
+            bp, hp = gp[f"pos{i}"], hot_g[f"pos{i}"]
+            h, (ck, cv) = attn_mod.prefill_attention_paged(
+                bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg, pool_g[f"pos{i}"],
+                spec, row, start, cache_backend=cache_backend, **kw)
+            for name, kv in (("k", ck), ("v", cv)):
+                kv = kv.to(hp[f"{name}_tail"].dtype)
+                chunk_kv[f"pos{i}"][name].append(kv)
+                hp[f"{name}_tail"].index_copy_(0, slot1, kv[:, tail_idx])
+            x = _mlp_residual(bp, x + h, cfg, kw)
+    x = apply_norm(params["final_norm"], x, cfg)
+    lg = logits(params.get("lm_head"), params["embed"], x)
+    return lg, hot, {pos: {n: torch.stack(ts) for n, ts in c_.items()}
+                     for pos, c_ in chunk_kv.items()}

@@ -1,0 +1,391 @@
+"""Continuous-batching scheduler over paged, StruM-compressible KV caches
+(twin of ``repro.serving.scheduler``).
+
+A priority request queue, slot-based batching, a page allocator and two
+fixed-shape lanes:
+
+  * **decode lane**: one (n_slots, 1) step; every decoding slot advances
+    one token per tick, parked and mid-prefill slots ride the batch masked
+    (their tails are protected by an ``active`` mask);
+  * **prefill lane**: one (1, prefill_chunk) step that every prompt of
+    every slot runs through, chunk by chunk, with ``slot`` / ``start`` /
+    ``valid_len`` as device scalars.  ``prefill="serial"`` keeps the
+    one-shot prefill (and charges the decode lane the head-of-line stall it
+    implies) as the comparison baseline.
+
+Pages are allocated at admission, sealed when they fill (packed through the
+engine's ``cache:*`` codec when ``kv_cache`` is a :class:`StruMConfig`) and
+freed at retirement.  With a packed codec on the card, the sealed half of
+attention runs in the fused kernels K4 / K5 (``cache:attn_fused*``), which
+read the pools' packed bytes by page id.
+
+Weights come as ``params`` (dense, or a served tree) or ``plan=`` (a
+prebuilt :class:`repro_torch.engine.ExecutionPlan`).  The scheduler and
+its tensors live on ``device`` (default ``"cuda"``; raises without a card
+unless ``device="cpu"``).  Per tick it reads one argmax back to the host;
+the lanes themselves read nothing back.
+
+Not ported yet: ``speculative=`` (only 0 is accepted), ``schedule=``
+(the ``StruMSchedule`` JSON loader), ``mesh=`` / ``rules=`` and the
+telemetry hooks.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.launch.steps import (make_chunked_prefill_step,
+                                      make_paged_decode_step, make_prefill_step)
+from repro_torch.serving import pages as pages_mod
+from repro_torch.serving.pages import PageAllocator, PagesExhausted
+
+__all__ = ["Request", "BatchScheduler", "PagesExhausted"]
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: Any                    # (prompt_len,) int tensor or array
+    max_new_tokens: int = 32
+    eos_id: Optional[int] = None
+    priority: int = 0              # higher admits first (FIFO within a tier)
+    # teacher forcing: feed these tokens back instead of the argmax; the
+    # scheduler still records its own predictions in ``output``
+    force_tokens: Optional[list] = None
+    # filled by the scheduler:
+    output: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+    def _feed(self, k: int, predicted: int) -> int:
+        if self.force_tokens is not None and k < len(self.force_tokens):
+            return int(self.force_tokens[k])
+        return predicted
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request
+    pages: list                    # reserved page ids (sealed in order)
+    len: int = 0                   # committed cache positions
+    n_sealed: int = 0
+    state: str = "prefill"         # "prefill" -> "decode"
+    pf_start: int = 0              # next chunk's absolute start position
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+class BatchScheduler:
+    """n_slots-way continuous batching over paged caches.
+
+    Cache knobs: ``kv_cache`` (None / "fp" for raw pages, or a
+    :class:`StruMConfig` to store sealed pages packed), ``page_size`` (a
+    multiple of the codec's ``w``), ``n_pages`` (default: every slot's full
+    window), ``cache_backend`` (pins the ``cache:*`` selection: ``"cuda"``,
+    ``"torch"``; default by device).  Prefill knobs: ``prefill="chunked"``
+    (one ``prefill_chunk``-token chunk per tick, interleaved with the
+    decode lane) or ``"serial"``.
+
+    ``lane_runs`` counts the lane steps run: ``decode`` ticks,
+    ``prefill_chunk`` chunks and ``prefill_serial`` one-shot prefills.
+    """
+
+    def __init__(self, cfg, params, n_slots: int = 4, max_len: int = 256,
+                 plan=None, kv_cache=None, page_size: int = 16,
+                 n_pages: Optional[int] = None, prefill: str = "chunked",
+                 prefill_chunk: Optional[int] = None, cache_backend=None,
+                 speculative: int = 0, device="cuda"):
+        if speculative:
+            raise ValueError("speculative decoding is not ported yet; "
+                             "speculative must be 0")
+        if prefill not in ("chunked", "serial"):
+            raise ValueError(f"prefill={prefill!r}; want 'chunked'|'serial'")
+        dev = resolve_device(device)
+        if plan is not None:
+            params = plan.params
+        self.plan = plan
+        self.cfg = cfg
+        self.device = dev
+        self.params = _to_device(params, dev)
+        self.n_slots = n_slots
+        self.max_len = max_len
+
+        # ---- paged cache geometry -------------------------------------
+        self.spec = pages_mod.make_cache_spec(cfg, kv_cache, page_size, dev,
+                                              backend=cache_backend)
+        ps = self.spec.page_size
+        self.page_size = ps
+        self.pages_per_seq = pages_mod.pages_per_seq(max_len, ps)
+        self.prefill_mode = prefill
+        self.prefill_chunk = prefill_chunk or ps
+        if self.prefill_chunk % ps:
+            raise ValueError(f"prefill_chunk={self.prefill_chunk} must be a "
+                             f"multiple of page_size={ps}")
+        if (self.pages_per_seq * ps) % self.prefill_chunk:
+            raise ValueError(
+                f"prefill_chunk={self.prefill_chunk} must divide the padded "
+                f"window {self.pages_per_seq * ps} "
+                f"(= pages_per_seq * page_size)")
+        self.n_pages = n_pages or n_slots * self.pages_per_seq
+        self.allocator = PageAllocator(self.n_pages)
+        self.pools = pages_mod.init_pools(cfg, self.n_pages, self.spec)
+        self.hot = pages_mod.init_hot(cfg, n_slots, ps, dev)
+        self._seal = pages_mod.make_sealer(self.spec)
+        self._attn_pos = list(self.pools)
+
+        # ---- lanes -----------------------------------------------------
+        self._decode = make_paged_decode_step(cfg, self.spec,
+                                              cache_backend=cache_backend)
+        self._chunk_prefill = make_chunked_prefill_step(
+            cfg, self.spec, cache_backend=cache_backend)
+        self._prefill = make_prefill_step(cfg)
+        self.lane_runs = {"decode": 0, "prefill_chunk": 0, "prefill_serial": 0}
+
+        # ---- queue / slots --------------------------------------------
+        self.queue: list[Request] = []
+        self._seq = 0
+        self._order: dict[int, int] = {}   # id(req) -> arrival index
+        self.slots: list[Optional[_Slot]] = [None] * n_slots
+        self._tokens = np.zeros((n_slots,), np.int64)
+        self._table = np.full((n_slots, self.pages_per_seq), -1, np.int32)
+        self._finished: list[Request] = []
+        self._steps = 0
+        self._stall = 0                    # serial-mode head-of-line ticks
+
+    def _dev(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    # ------------------------------------------------------------- intake --
+    def submit(self, req: Request) -> None:
+        """Validate + enqueue; impossible requests fail here, not mid-run."""
+        plen = int(req.prompt.shape[0])
+        if req.max_new_tokens > 0 and plen > self.max_len - 3:
+            raise ValueError(
+                f"request {req.uid}: prompt length {plen} does not fit the "
+                f"serving window (max_len={self.max_len} leaves room for "
+                f"{self.max_len - 3} prompt + 1 decode positions)")
+        if self._pages_needed(req) > self.allocator.n_pages:
+            raise PagesExhausted(
+                f"request {req.uid}: needs {self._pages_needed(req)} pages "
+                f"but the pool only holds {self.allocator.n_pages} -- no "
+                f"amount of retirement can admit it (raise n_pages=)")
+        self._order[id(req)] = self._seq
+        self._seq += 1
+        self.queue.append(req)
+
+    def _pages_needed(self, req: Request) -> int:
+        plen = int(req.prompt.shape[0])
+        return min(self.pages_per_seq,
+                   -(-(plen + req.max_new_tokens) // self.page_size))
+
+    def _admit(self) -> None:
+        while self.queue:
+            free = [s for s in range(self.n_slots) if self.slots[s] is None]
+            if not free:
+                return
+            nxt = max(self.queue, key=lambda r: (r.priority, -self._order[id(r)]))
+            if nxt.max_new_tokens <= 0:
+                # nothing to generate: complete at admission
+                self.queue.remove(nxt)
+                self._order.pop(id(nxt), None)
+                nxt.done = True
+                self._finished.append(nxt)
+                continue
+            if self.allocator.available < self._pages_needed(nxt):
+                return                      # wait for retirements
+            self.queue.remove(nxt)
+            self._order.pop(id(nxt), None)
+            slot = free[0]
+            self.slots[slot] = _Slot(req=nxt, pages=self.allocator.alloc(
+                self._pages_needed(nxt)))
+            self._table[slot] = -1
+            if self.prefill_mode == "serial":
+                self._serial_prefill(slot)
+
+    # ------------------------------------------------------------ sealing --
+    def _seal_into(self, slot: int, page_idx: int, kv_pages: dict) -> None:
+        """Write one full page per attention position into the pools;
+        ``kv_pages[pos]`` is ``(k_page, v_page)``, (g, page_size, KV, hd)."""
+        sl = self.slots[slot]
+        pid = sl.pages[page_idx]
+        for pos in self._attn_pos:
+            k_page, v_page = kv_pages[pos]
+            self._seal(self.pools[pos], k_page, v_page, pid)
+        self._table[slot, page_idx] = pid
+        sl.n_sealed = page_idx + 1
+
+    def _seal_tails(self, slot: int) -> None:
+        """Seal the (now full) tail page of ``slot``."""
+        sl = self.slots[slot]
+        page_idx = sl.len // self.page_size - 1
+        kv_pages = {pos: (self.hot[pos]["k_tail"][:, slot],
+                          self.hot[pos]["v_tail"][:, slot])
+                    for pos in self._attn_pos}
+        self._seal_into(slot, page_idx, kv_pages)
+
+    # ------------------------------------------------------------ prefill --
+    def _finish_prefill(self, slot: int, tok: int) -> None:
+        """Record the prefill-produced first token; EOS / budget may retire
+        the request before it ever decodes."""
+        sl = self.slots[slot]
+        req = sl.req
+        req.output.append(int(tok))
+        sl.state = "decode"
+        if ((req.eos_id is not None and int(tok) == req.eos_id)
+                or len(req.output) >= req.max_new_tokens):
+            self._retire(slot)
+            return
+        self._tokens[slot] = req._feed(0, int(tok))
+
+    def _serial_prefill(self, slot: int) -> None:
+        """One-shot prefill of the whole prompt + head-of-line stall on the
+        decode lane."""
+        sl = self.slots[slot]
+        prompt = self._dev(sl.req.prompt, torch.long)
+        plen = int(prompt.shape[0])
+        ps = self.page_size
+        lg, caches = self._prefill(self.params, {"tokens": prompt[None, :]})
+        self.lane_runs["prefill_serial"] += 1
+        n_full = plen // ps
+        for j in range(n_full):
+            kv_pages = {pos: (caches[pos]["k"][:, 0, j * ps:(j + 1) * ps],
+                              caches[pos]["v"][:, 0, j * ps:(j + 1) * ps])
+                        for pos in self._attn_pos}
+            self._seal_into(slot, j, kv_pages)
+        r = plen - n_full * ps
+        if r:
+            for pos in self._attn_pos:
+                for name in ("k", "v"):
+                    tail = self.hot[pos][f"{name}_tail"]
+                    tail[:, slot, :r] = caches[pos][name][:, 0, n_full * ps:plen].to(
+                        tail.dtype)
+        sl.len = plen
+        # the one-shot step owns the device for the whole prompt: charge the
+        # decode lane one stall tick per chunk-equivalent
+        self._stall += -(-plen // self.prefill_chunk)
+        tok = int(lg[0, -1, :self.cfg.vocab_size].argmax())
+        self._finish_prefill(slot, tok)
+
+    def _prefill_slots(self) -> list:
+        return [s for s in range(self.n_slots)
+                if self.slots[s] is not None and self.slots[s].state == "prefill"]
+
+    def _advance_prefill(self, slot: int) -> None:
+        """Run one fixed-shape chunk of ``slot``'s prompt."""
+        sl = self.slots[slot]
+        prompt = sl.req.prompt
+        plen = int(prompt.shape[0])
+        c = self.prefill_chunk
+        start = sl.pf_start
+        valid = min(c, plen - start)
+        toks = torch.zeros((1, c), dtype=torch.long, device=self.device)
+        toks[0, :valid] = self._dev(prompt[start:start + valid], torch.long)
+        lg, self.hot, chunk_kv = self._chunk_prefill(
+            self.params, toks, self.pools, self.hot, self._dev(self._table),
+            self._dev(slot), self._dev(start), self._dev(valid))
+        self.lane_runs["prefill_chunk"] += 1
+        new_len = start + valid
+        ps = self.page_size
+        for j in range(sl.n_sealed, new_len // ps):
+            rel = j * ps - start
+            kv_pages = {pos: (chunk_kv[pos]["k"][:, 0, rel:rel + ps],
+                              chunk_kv[pos]["v"][:, 0, rel:rel + ps])
+                        for pos in self._attn_pos}
+            self._seal_into(slot, j, kv_pages)
+        sl.pf_start = start + valid
+        sl.len = new_len
+        if sl.pf_start >= plen:
+            tok = int(lg[0, valid - 1, :self.cfg.vocab_size].argmax())
+            self._finish_prefill(slot, tok)
+
+    # ------------------------------------------------------------- decode --
+    def _retire(self, slot: int) -> None:
+        sl = self.slots[slot]
+        sl.req.done = True
+        self._finished.append(sl.req)
+        self.allocator.free(sl.pages)      # defrags the free list
+        self._table[slot] = -1
+        self.slots[slot] = None
+
+    def _decode_slots(self) -> list:
+        return [s for s in range(self.n_slots)
+                if self.slots[s] is not None and self.slots[s].state == "decode"]
+
+    def _run_decode(self, active: list) -> None:
+        cache_len = np.zeros((self.n_slots,), np.int32)
+        for s in range(self.n_slots):
+            if self.slots[s] is not None:
+                cache_len[s] = self.slots[s].len
+        mask = np.zeros((self.n_slots,), bool)
+        mask[active] = True
+        lg, self.hot = self._decode(
+            self.params, self._dev(self._tokens)[:, None], self.pools, self.hot,
+            self._dev(cache_len), self._dev(self._table), self._dev(mask))
+        self.lane_runs["decode"] += 1
+        # the tick's one read back to the host
+        nxt = lg[:, -1, :self.cfg.vocab_size].argmax(dim=-1).cpu().numpy()
+        for s in active:
+            sl = self.slots[s]
+            req = sl.req
+            tok = int(nxt[s])
+            req.output.append(tok)
+            sl.len += 1
+            if sl.len % self.page_size == 0 \
+                    and sl.len // self.page_size <= len(sl.pages):
+                self._seal_tails(s)
+            if ((req.eos_id is not None and tok == req.eos_id)
+                    or len(req.output) >= req.max_new_tokens
+                    or sl.len >= self.max_len - 2):
+                self._retire(s)
+                continue
+            self._tokens[s] = req._feed(len(req.output) - 1, tok)
+
+    # -------------------------------------------------------------- drive --
+    def step(self) -> int:
+        """One scheduler tick: admit, advance one prefill chunk, decode all
+        decoding slots.  Returns the number of requests that progressed."""
+        self._admit()
+        progressed = 0
+        if self.prefill_mode == "chunked":
+            pf = self._prefill_slots()
+            if pf:
+                # round-robin by progress: least-advanced first
+                slot = min(pf, key=lambda s: (self.slots[s].pf_start, s))
+                self._advance_prefill(slot)
+                progressed += 1
+        if self._stall > 0:
+            # serial mode: the one-shot prefill still occupies the device
+            self._stall -= 1
+            self._steps += 1
+            return progressed + len(self._decode_slots())
+        active = self._decode_slots()
+        if active:
+            self._run_decode(active)
+            progressed += len(active)
+        self._steps += 1
+        return progressed
+
+    def run_to_completion(self, max_steps: int = 10_000) -> list:
+        while (self.queue or any(s is not None for s in self.slots)) and max_steps:
+            self.step()
+            max_steps -= 1
+        out, self._finished = self._finished, []
+        return out
+
+    # -------------------------------------------------------------- stats --
+    def cache_stats(self) -> dict:
+        """Resident cache bytes vs the codec's Eq.-1/2 expectation (see
+        :func:`repro_torch.serving.pages.cache_stats`), plus allocator state."""
+        out = pages_mod.cache_stats(self.pools, self.hot, self.spec, self.cfg,
+                                    self.n_slots, self.max_len)
+        out["allocator"] = self.allocator.defrag()
+        out["attn_variant"] = self.spec.attn_variant
+        out["steps"] = self._steps
+        return out

@@ -1,4 +1,4 @@
-"""Port kernels K1-K3 on the card against their plain PyTorch versions.
+"""Port kernels K1-K5 and K11 on the card against their plain PyTorch versions.
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -71,3 +71,126 @@ def test_kernel_rejects_mixed_devices(dev):
         K.strum_matmul_onehot(x, packed.mask.cpu(), packed.hi, packed.lo,
                               packed.scale, w=16, n_low=8, q=packed.q,
                               method="mip2q")
+
+
+# ------------------------------------------------ packed KV pages: K4, K5, K11
+
+PAGE_CODECS = [StruMConfig(method="mip2q", p=0.5, L=7),
+               StruMConfig(method="dliq", p=0.5, q=4),
+               StruMConfig(method="dliq", p=0.25, q=3),      # fields straddle bytes
+               StruMConfig(method="sparsity", p=0.5),
+               StruMConfig(method="dliq", p=1.0, q=4),
+               StruMConfig(method="dliq", p=0.0, q=4)]
+
+
+def _pages(dev, n_pages, ps, f, cfg, seed=0):
+    from repro_torch.engine.cache import encode_page
+    rng = np.random.default_rng(seed)
+    pages = torch.from_numpy(rng.normal(size=(n_pages, ps, f)).astype(np.float32))
+    return {k: v.to(dev) for k, v in encode_page(pages, cfg).items()}
+
+
+def _floored(pool):
+    return {k: v if k == "scale" else ops._min1(v, 2).contiguous()
+            for k, v in pool.items()}
+
+
+@pytest.mark.parametrize("cfg", PAGE_CODECS, ids=lambda c: f"{c.method}_p{c.p}_q{c.q}")
+@pytest.mark.parametrize("ps,f", [(16, 2048), (32, 40)])
+def test_page_decode_equals_plain_on_card(dev, cfg, ps, f):
+    from repro_torch.kernels import strum_decode as D
+    pool = _floored(_pages(dev, 5, ps, f, cfg))
+    kw = dict(w=cfg.w, n_low=cfg.n_low, q=cfg.q, method=cfg.method)
+    fields = [pool[k] for k in ("mask", "hi", "lo", "scale")]
+    before = D.launch_counts["page_decode"]
+    got = D.strum_page_decode(*fields, **kw)
+    torch.cuda.synchronize()
+    assert D.launch_counts["page_decode"] == before + 1
+    want = D.strum_page_decode_plain(*[t.cpu() for t in fields], **kw)
+    assert torch.equal(got.cpu(), want)             # integer x scale: exact
+
+
+def _attn_case(dev, cfg, kv, r, n_pages=12, ps=16, hd=128, seed=1):
+    rng = np.random.default_rng(seed)
+    k = _floored(_pages(dev, n_pages, ps, kv * hd, cfg, seed))
+    v = _floored(_pages(dev, n_pages, ps, kv * hd, cfg, seed + 1))
+    q4 = torch.from_numpy((rng.normal(size=(4, kv, r, hd)) / np.sqrt(hd))
+                          .astype(np.float32)).to(dev)
+    # slot 0 full, slot 1 empty, slot 2 with -1 tail ids, slot 3 cut by n_valid
+    table = torch.tensor([[0, 1, 2, 3, 4], [-1, -1, -1, -1, -1],
+                          [5, 6, -1, -1, -1], [7, 8, 9, 10, 11]], dtype=torch.int32)
+    n_valid = torch.tensor([5, 0, 4, 2], dtype=torch.int32)
+    return q4, k, v, table.to(dev), n_valid.to(dev)
+
+
+def _close(got, want):
+    """Rows with a live page (plain l > 0) hold acc, m, l and acc / l, each
+    to REL_TOL x its own largest |plain| there + 1e-6; the other rows are
+    the identity partial (m = -1e30, l = 0, acc = 0) exactly."""
+    (acc, m, l), (acc_p, m_p, l_p) = (t.cpu() for t in got), want
+    live = l_p > 0
+    assert torch.equal(l > 0, live) and live.any()
+    assert (m[~live] == -1e30).all() and not l[~live].any() and not acc[~live].any()
+    for key, a, b in (("acc", acc, acc_p), ("m", m, m_p), ("l", l, l_p),
+                      ("out", acc / l[..., None], acc_p / l_p[..., None])):
+        a, b = a[live], b[live]
+        err = (a - b).abs().max().item()
+        assert err <= REL_TOL * b.abs().max().item() + 1e-6, (key, err)
+
+
+@pytest.mark.parametrize("kv,r", [(16, 1), (16, 16), (4, 7), (4, 112)])
+@pytest.mark.parametrize("cfg", PAGE_CODECS[:4], ids=lambda c: f"{c.method}_p{c.p}_q{c.q}")
+def test_paged_attention_matches_plain_on_card(dev, cfg, kv, r):
+    from repro_torch.kernels import strum_attention as A
+    q4, k, v, table, n_valid = _attn_case(dev, cfg, kv, r)
+    kw = dict(w=cfg.w, n_low=cfg.n_low, q=cfg.q, method=cfg.method)
+    args = [k[f] for f in ("mask", "hi", "lo", "scale")] + \
+        [v[f] for f in ("mask", "hi", "lo", "scale")]
+    before = A.launch_counts["paged_attention"]
+    got = A.strum_paged_attention(q4, *args, table, n_valid, **kw)
+    torch.cuda.synchronize()
+    assert A.launch_counts["paged_attention"] == before + 1
+    want = A.strum_paged_attention_plain(q4.cpu(), *[t.cpu() for t in args],
+                                         table.cpu(), n_valid.cpu(), **kw)
+    _close(got, want)
+    assert (want[2][1] == 0).all()                  # slot 1 (empty) held as identity
+
+
+@pytest.mark.parametrize("kv,r", [(16, 1), (4, 7), (4, 112)])
+@pytest.mark.parametrize("cfg", [StruMConfig(method="dliq", p=1.0, q=4),
+                                 StruMConfig(method="mip2q", p=1.0, L=7)],
+                         ids=lambda c: c.method)
+def test_paged_attention_maskfree_matches_plain_on_card(dev, cfg, kv, r):
+    from repro_torch.kernels import strum_attention as A
+    q4, k, v, table, n_valid = _attn_case(dev, cfg, kv, r)
+    kw = dict(w=cfg.w, q=cfg.q, method=cfg.method)
+    args = [k["lo"], k["scale"], v["lo"], v["scale"]]
+    before = A.launch_counts["paged_attention_maskfree"]
+    got = A.strum_paged_attention_maskfree(q4, *args, table, n_valid, **kw)
+    torch.cuda.synchronize()
+    assert A.launch_counts["paged_attention_maskfree"] == before + 1
+    want = A.strum_paged_attention_maskfree_plain(
+        q4.cpu(), *[t.cpu() for t in args], table.cpu(), n_valid.cpu(), **kw)
+    _close(got, want)
+
+
+def test_paged_scheduler_launches_fused_kernel_on_card(dev):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import strum_attention as A
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = get_smoke_config("qwen2_7b")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    sched = BatchScheduler(cfg, params, n_slots=2, max_len=48, device=dev,
+                           kv_cache=StruMConfig(method="mip2q", p=0.5, L=7))
+    assert sched.cache_stats()["attn_variant"] == "cache:attn_fused"
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((21, 5)):
+        sched.submit(Request(uid=i, prompt=torch.from_numpy(rng.integers(0, 256, n)),
+                             max_new_tokens=12))
+    A.reset_launch_counts()
+    done = sched.run_to_completion()
+    assert sorted(len(r.output) for r in done) == [12, 12]
+    runs = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
+    assert A.launch_counts["paged_attention"] == cfg.n_layers * runs

@@ -60,7 +60,7 @@ def test_all_port_modules_import_with_jax_and_reference_blocked():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 25
 
 
 @pytest.fixture
@@ -87,6 +87,25 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
     # asked for explicitly, the CPU serves through the torch family
     plan = build_plan(params, device="cpu")
     assert set(plan.variants().values()) == {"torch:dequant"}
+
+
+def test_paged_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler
+    cfg = get_smoke_config("olmo_1b")
+    params = init_params(model_defs(cfg), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        BatchScheduler(cfg, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.serve_paged(cfg, params, torch.zeros(1, 4, dtype=torch.long), 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "olmo_1b", "--smoke", "--paged", "--kv-cache", "dliq"])
+    # asked for explicitly, the CPU serves through the torch family
+    sched = BatchScheduler(cfg, params, device="cpu", kv_cache="fp")
+    assert sched.cache_stats()["codec"] == "cache:fp_passthrough"
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
