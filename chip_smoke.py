@@ -47,7 +47,25 @@ Phases, each fatal on failure:
   j. decode every page phase h sealed through ``gather_decode_pages`` (K11)
      against the plain decode, exactly; then phase h's requests, teacher-
      forced on its tokens, through the cuda family and through the torch
-     family (weights and cache), logits compared to phase f's tolerance.
+     family (weights and cache), logits compared to phase f's tolerance;
+  k. hold the grouped MoE kernels K6 (mip2q p=0.5 L=5), K7 (dliq p=1 q=4)
+     and K8 (mip2q p=0) against their plain versions at Moonshot-16B-A3B's
+     expert shapes (64 experts, wi/wg 2048 -> 1408 and wo 1408 -> 2048,
+     capacity 6 at decode and 24 at prefill, bf16 x) and K6 at one
+     Qwen3-MoE decode stack (128 experts, capacity 8, 4096 -> 1536), within
+     KERNEL_TOL x max|plain|; time kernel, plain version and bf16
+     ``torch.bmm`` on the dequantized stack interleaved as in phase c;
+  l. serve Moonshot-16B-A3B at full width with its depth cut to MOE_LAYERS
+     of 48 layers through the paged runtime (``serve --paged --kv-cache
+     mip2q --prompt-len 128 --gen 32``) and the dense-cache loop (batch 4,
+     prompt 32, gen 16): every expert stack must select ``cuda:grouped``
+     and every attention linear ``cuda:onehot``, K6 must launch 3 x layers
+     x lane runs and K4 once per layer per lane run, weights and pages at
+     x0.875 of int8; then the paged requests teacher-forced through the
+     torch family, logits compared to phase f's tolerance;
+  m. 2-layer full-width Moonshot under dliq p=1 and mip2q p=0 weights must
+     select and launch K7 (``cuda:grouped_maskfree``) and K8
+     (``cuda:grouped_dense``).
 
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
@@ -89,6 +107,20 @@ KV_KERNELS = {
                                   "src/repro/kernels/strum_attention.py:225"),
     "cache:cuda_decode": ("page_decode", "src/repro/kernels/strum_decode.py:48")}
 PAGE = 16
+# K6-K8 (grouped, one launch per expert stack): kernel name -> (registry
+# variant, TPU kernel it replaces, plan of the phase-k cases)
+GROUPED = {"grouped_onehot": ("cuda:grouped", "src/repro/kernels/strum_matmul.py:462"),
+           "grouped_maskfree": ("cuda:grouped_maskfree",
+                                "src/repro/kernels/strum_matmul.py:522"),
+           "grouped_dense": ("cuda:grouped_dense", "src/repro/kernels/strum_matmul.py:570")}
+# (label, experts, capacity, (K, N) of each stack, kernels); one MoE layer of
+# Moonshot-16B-A3B is wi, wg (2048 -> 1408) and wo (1408 -> 2048)
+MOE_LAYER = [(2048, 1408), (2048, 1408), (1408, 2048)]
+MOE_CASES = [("moonshot decode", 64, 6, MOE_LAYER, tuple(GROUPED)),
+             ("moonshot prefill", 64, 24, MOE_LAYER, tuple(GROUPED)),
+             ("qwen3-moe decode", 128, 8, [(4096, 1536)], ("grouped_onehot",))]
+MOE_LAYERS = 4                  # of Moonshot's 48: the f32 init of all 48 is ~112 GB
+MOE_ARCH = "moonshot_v1_16b_a3b"
 # (label, kv heads, query rows per kv head, context tokens); timed cases first
 ATTN_CASES = [("olmo decode", 16, 1, 2048), ("olmo prefill", 16, 16, 2048),
               ("qwen decode", 4, 7, 2048), ("olmo decode", 16, 1, 512),
@@ -674,10 +706,6 @@ def phase_j(dev, res, counts):
     through the cuda and the torch family."""
     import torch
     from repro_torch.engine.cache import decode_pages, gather_decode_pages
-    from repro_torch.launch.steps import build_serving_plan
-    from repro_torch.models import model_defs
-    from repro_torch.models.params import init_params
-    from repro_torch.serving import BatchScheduler, Request
     sched, cfg = res["sched"], res["cfg"]
     spec = sched.spec
     pools = sched.pools["pos0"]
@@ -700,8 +728,20 @@ def phase_j(dev, res, counts):
           f"K, V in {launched['page_decode']} launches; equal to the plain decode "
           f"bit for bit", flush=True)
     del decoded
+    return _paged_vs_torch(dev, res)
 
-    # the same requests, teacher-forced, through both families
+
+def _paged_vs_torch(dev, res):
+    """A paged serve's requests, teacher-forced on its tokens, through the
+    cuda family (its own plan) and the torch family (weights and cache),
+    logits held to phase f's tolerance."""
+    import torch
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    sched, cfg = res["sched"], res["cfg"]
+    spec = sched.spec
     params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
     torch_plan = build_serving_plan(params, cfg=cfg.strum, backend="torch", device=dev)
     del params
@@ -730,18 +770,217 @@ def phase_j(dev, res, counts):
     scale = ref.abs().max().item()
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
     same = (got.argmax(-1) == toks).float().mean().item()
-    print(f"  paged logits cuda vs torch family, teacher-forced on phase h's tokens, "
+    print(f"  paged logits cuda vs torch family, teacher-forced on the served tokens, "
           f"{got.shape[1]} positions x {got.shape[0]} requests: max|diff| {err:.4e} "
           f"(max|logit| {scale:.4e}), argmax agreement {agree:.3f}; cuda argmax = "
-          f"phase h's tokens at {same:.3f} of positions", flush=True)
+          f"served tokens at {same:.3f} of positions", flush=True)
     _check(err <= 0.05 * scale, f"paged logits differ: {err} > 0.05 x {scale}")
     _check(agree >= 0.9, f"paged argmax agreement {agree} < 0.9")
     return {"max_abs_diff": err, "max_abs_logit": scale, "argmax_agreement": agree,
             "tokens_equal_share": same}
 
 
+# ----------------------------------------------------- grouped MoE (k-m) --
+
+def _grouped_args(name, packed, cfg):
+    """(wrapper, plain, fields, kwargs) of a grouped kernel's call on a
+    stacked payload (fields (G, nb, rows, N), scale (G, 1, N))."""
+    from repro_torch.kernels import strum_matmul as K
+    from repro_torch.kernels.ops import _min1
+    if name == "grouped_onehot":
+        return (K.strum_matmul_grouped_onehot, K.strum_matmul_grouped_onehot_plain,
+                (packed["mask"], _min1(packed["hi"], 2), _min1(packed["lo"], 2),
+                 packed["scale"]), dict(w=cfg.w, n_low=cfg.n_low, q=cfg.q,
+                                        method=cfg.method))
+    if name == "grouped_maskfree":
+        return (K.strum_matmul_grouped_maskfree, K.strum_matmul_grouped_maskfree_plain,
+                (packed["lo"], packed["scale"]), dict(w=cfg.w, q=cfg.q,
+                                                      method=cfg.method))
+    return (K.strum_matmul_grouped_dense, K.strum_matmul_grouped_dense_plain,
+            (packed["hi"], packed["scale"]), dict(w=cfg.w))
+
+
+def phase_k(dev, gen, clocks):
+    """K6-K8 against their plain versions at MoE expert shapes; per-layer
+    times with the bf16 ``torch.bmm`` yardstick."""
+    import torch
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.engine.dispatch import dequant_leaf
+    from repro_torch.models.quantize import _pack_leaf
+    configs = {"grouped_onehot": StruMConfig(method="mip2q", p=0.5, L=5),
+               "grouped_maskfree": StruMConfig(method="dliq", p=1.0, q=4),
+               "grouped_dense": StruMConfig(method="mip2q", p=0.0, L=5)}
+    rows = {name: {"max_abs_err": 0.0, "cases": []} for name in GROUPED}
+    for label, g, c, shapes, names in MOE_CASES:
+        for name in names:
+            cfg = configs[name]
+            calls = []
+            for k, n in shapes:
+                w = torch.randn((g, k, n), generator=gen, device=dev)
+                packed = _pack_leaf(w, cfg)
+                del w
+                wrapper, plain, fields, kw = _grouped_args(name, packed, cfg)
+                x = torch.randn((g, c, k), generator=gen, device=dev).to(torch.bfloat16)
+                y = wrapper(x, *fields, **kw)
+                y_plain = plain(x, *fields, **kw)
+                torch.cuda.synchronize()
+                err = (y - y_plain).abs().max().item()
+                lim = KERNEL_TOL * y_plain.abs().max().item()
+                _check(err <= lim, f"{name} {label} G={g} C={c} K={k} N={n}: "
+                       f"|kernel - plain| {err} > {lim}")
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+                wd = dequant_leaf(packed, torch.bfloat16, cfg=cfg, k_dim=k)
+                calls.append((wrapper, plain, x, fields, kw, packed, wd, err, lim))
+                del y, y_plain
+            t = _interleaved(clocks, {
+                "ms": (lambda: [cl[0](cl[2], *cl[3], **cl[4]) for cl in calls], 10),
+                "plain_ms": (lambda: [cl[1](cl[2], *cl[3], **cl[4]) for cl in calls], 1),
+                "library_ms": (lambda: [torch.bmm(cl[2], cl[6]) for cl in calls], 10)})
+            read = {"grouped_onehot": ("mask", "hi", "lo"), "grouped_maskfree": ("lo",),
+                    "grouped_dense": ("hi",)}[name]
+            nbytes = sum(sum(cl[5][f].numel() for f in read) + 4 * g * n
+                         + cl[2].numel() * cl[2].element_size() + 4 * g * c * n
+                         for cl, (k, n) in zip(calls, shapes))
+            flops = sum(2 * g * c * k * n for k, n in shapes)
+            case = dict(t, **_bound(nbytes, flops, PEAK_FLOPS["torch.bfloat16"]))
+            case.update(case=f"{label}: {g} experts x capacity {c}, "
+                             f"{' + '.join(f'{k}->{n}' for k, n in shapes)}, bf16 x, "
+                             f"{cfg.method} p={cfg.p}",
+                        max_abs_err=max(cl[7] for cl in calls),
+                        limit=max(cl[8] for cl in calls))
+            rows[name]["cases"].append(case)
+            print(f"  {name:17s} {case['case']}: max |kernel - plain| "
+                  f"{case['max_abs_err']:.3e} (limit {case['limit']:.3e}); median [min, "
+                  f"max] of {ROUNDS} interleaved rounds: " + ", ".join(
+                      f"{lab} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
+                      f"{t['range_ms'][key][1]:.4f}] ms" for key, lab in
+                      (("ms", "kernel"), ("plain_ms", "plain"),
+                       ("library_ms", "torch.bmm bf16"))) +
+                  f"; bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
+                  f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); {t['clock']}",
+                  flush=True)
+            del calls
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_plan_bytes(plan):
+    """(packed payload bytes, int8 bytes) of a plan's entries."""
+    import math
+    payload = plan.summary()["packed_payload_bytes"]
+    return payload, sum(math.prod(e.shape) for e in plan.entries.values())
+
+
+def _check_moe_cfg(cfg, layers):
+    _check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+            cfg.vocab_size, cfg.n_experts, cfg.top_k) ==
+           (layers, 2048, 16, 16, 128, 1408, 163840, 64, 6),
+           f"not full-width Moonshot-16B-A3B at {layers} layers: {cfg}")
+
+
+def phase_l(dev, counts):
+    """Full-width Moonshot-16B-A3B (depth cut) through the paged runtime and
+    the dense-cache loop, then teacher-forced against the torch family."""
+    import torch
+    from repro_torch.kernels import strum_matmul as K
+    from repro_torch.launch import serve as S
+    print(f"  depth cut: {MOE_LAYERS} of 48 layers at full width (the f32 init of "
+          f"all 48 layers needs ~112 GB of the card's 80 GB)", flush=True)
+    _reset_kv_counts()
+    res = S.run(["--arch", MOE_ARCH, "--layers", str(MOE_LAYERS), "--seed", "0",
+                 "--paged", "--kv-cache", "mip2q", "--prompt-len", "128", "--gen", "32"])
+    launched = _kv_counts()
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    sched, cfg, plan = res["sched"], res["cfg"], res["plan"]
+    _check_moe_cfg(cfg, MOE_LAYERS)
+    layers = cfg.n_layers
+    # one plan entry per weight stacked over the layers: 4 attention linears
+    # and 3 expert stacks (wi, wg, wo), each (layers, 64, K, N)
+    dist = plan.summary()["variant_distribution"]
+    _check(dist == {"cuda:onehot": 4, "cuda:grouped": 3} and all(
+        e.shape[:2] == (layers, 64) for n, e in plan.entries.items() if "/moe/" in n),
+           f"plan selected {dist}, want all {3 * layers} expert stacks on "
+           f"cuda:grouped and every attention linear on cuda:onehot")
+    print(f"  plan: all {3 * layers} expert stacks (3 entries x {layers} layers) on "
+          f"cuda:grouped, all {4 * layers} attention linears on cuda:onehot", flush=True)
+    _check((sched.spec.variant, sched.spec.attn_variant) ==
+           ("cache:cuda_decode", "cache:attn_fused"),
+           f"paged serve selected {sched.spec.variant}, {sched.spec.attn_variant}")
+    runs = res["lane_runs"]
+    lane = runs["decode"] + runs["prefill_chunk"]
+    want = {"grouped_onehot": 3 * layers * lane, "onehot": 4 * layers * lane,
+            "paged_attention": layers * lane}
+    _check(all(launched[k] == v for k, v in want.items()) and
+           sum(launched.values()) == sum(want.values()),
+           f"launches {launched}, want {want} and nothing else ({runs})")
+    st = sched.cache_stats()
+    _check(st["ratio_vs_int8"] == 0.875 and
+           st["resident_page_bytes"] == st["expected_page_bytes"],
+           f"packed pages x{st['ratio_vs_int8']} of int8, want x0.875 ({st})")
+    payload, int8 = _moe_plan_bytes(plan)
+    _check(payload * 8 == int8 * 7, f"packed weights {payload} vs int8 {int8}")
+    outs = [r.output for r in res["requests"]]
+    _check(len(outs) == 4 and all(len(o) == 33 for o in outs),
+           f"requests came back with {[len(o) for o in outs]} tokens")
+    counts["grouped_onehot"] = launched["grouped_onehot"]
+    dec = sorted(ms for kind, ms in res["ticks"] if kind == "decode")
+    print(f"  launches: {launched}; K6 = 3 stacks x {layers} layers x {lane} lane runs "
+          f"{runs} (one request of them the warm-up); packed weights "
+          f"{payload / 1e9:.4f} GB vs int8 {int8 / 1e9:.4f} GB (x{payload / int8:.4f})",
+          flush=True)
+    out = {"drain_ms": res["drain_s"] * 1e3, "ticks": len(res["ticks"]),
+           "decode_tick_ms": _spread(dec), "decode_ticks": len(dec), "lane_runs": runs,
+           "ratio_vs_int8": st["ratio_vs_int8"], "weights_ratio_vs_int8": payload / int8,
+           "packed_weight_bytes": payload, "layers": layers}
+
+    # the dense-cache loop on the same plan: the serve entry point's defaults
+    K.reset_launch_counts()
+    gen, tokens = 16, torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32), generator=tokens).to(dev)
+    toks, t_p, t_d, lg = S.serve(cfg, res["params"], prompt, gen, device=dev,
+                                 return_logits=True)
+    dense = dict(K.launch_counts)
+    steps = 1 + gen + 2          # + the untimed warm-up prefill and decode step
+    _check(dense["grouped_onehot"] == 3 * layers * steps and
+           dense["onehot"] == 4 * layers * steps,
+           f"dense loop launches {dense}, want 3 and 4 x {layers} x {steps}")
+    _check(bool(torch.isfinite(lg).all()) and toks.shape == (4, gen + 1),
+           "dense loop logits not finite")
+    out.update(dense_prefill_ms=t_p * 1e3, dense_decode_ms_per_token=t_d / gen * 1e3,
+               dense_launches=dense)
+    print(f"  dense-cache loop (batch 4, prompt 32, gen {gen}): prefill "
+          f"{t_p * 1e3:.1f} ms, decode {t_d / gen * 1e3:.2f} ms/token; launches "
+          f"{dense} (K6 = 3 x {layers} x {steps} steps, 2 of them warm-up)", flush=True)
+    out["logits"] = _paged_vs_torch(dev, res)
+    return out
+
+
+def _serve_moe(argv, attn, grouped, counts):
+    from repro_torch.kernels import strum_matmul as K
+    from repro_torch.launch import serve as S
+    K.reset_launch_counts()
+    res = S.run(argv)
+    launched = dict(K.launch_counts)
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    cfg = res["cfg"]
+    _check_moe_cfg(cfg, 2)
+    dist = res["plan"].summary()["variant_distribution"]
+    _check(dist == {f"cuda:{attn}": 4, GROUPED[grouped][0]: 3}, f"plan selected {dist}")
+    steps = 1 + res["gen"] + 2
+    want = {attn: 4 * cfg.n_layers * steps, grouped: 3 * cfg.n_layers * steps}
+    _check(all(launched[k] == v for k, v in want.items()) and
+           sum(launched.values()) == sum(want.values()),
+           f"launches {launched}, want {want} only")
+    counts[grouped] = launched[grouped]
+    print(f"  launches in this run: {launched} (3 expert stacks and 4 attention "
+          f"linears x {cfg.n_layers} layers x {steps} steps, 2 of them warm-up)",
+          flush=True)
+
+
 def measure(dev, clocks):
-    """Phases c-j; returns the kernels' records and the serve times."""
+    """Phases c-m; returns the kernels' records and the serve times."""
     import torch
     _phase("c. kernels vs plain versions at OLMo-1B shapes")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -788,6 +1027,22 @@ def measure(dev, clocks):
     _phase("j. phase h's sealed pages through K11; paged logits vs the torch family")
     times["paged"]["logits"] = phase_j(dev, res, counts)
     del res
+    torch.cuda.empty_cache()
+
+    _phase("k. grouped MoE kernels K6, K7, K8 vs plain versions at Moonshot-16B-A3B "
+           "and Qwen3-MoE expert shapes")
+    moe_rows = phase_k(dev, gen, clocks)
+
+    _phase(f"l. serve full-width Moonshot-16B-A3B ({MOE_LAYERS} of 48 layers): paged "
+           "runtime (mip2q KV pages, batch 4, prompt 128, gen 32), dense-cache loop")
+    times["moe"] = phase_l(dev, counts)
+    torch.cuda.empty_cache()
+
+    _phase("m. p=1 and p=0 MoE plans (Moonshot-16B-A3B, 2 layers, full width)")
+    _serve_moe(["--arch", MOE_ARCH, "--strum", "dliq", "--p", "1.0", "--layers", "2",
+                "--gen", "4"], "maskfree", "grouped_maskfree", counts)
+    _serve_moe(["--arch", MOE_ARCH, "--p", "0", "--layers", "2", "--gen", "4"],
+               "dense", "grouped_dense", counts)
 
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
@@ -818,6 +1073,20 @@ def measure(dev, clocks):
             "cases": [{k: c[k] for k in ("case", "max_abs_err", "errs", "ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by")
                        if k in c} for c in row["cases"]]})
+    for name, (variant, replaces) in GROUPED.items():
+        row = moe_rows[name]
+        t = row["cases"][0]
+        kernels.append({
+            "name": variant, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "workload": t["case"] + f" (one MoE layer's stacks); median of {ROUNDS} "
+                        "interleaved rounds",
+            "range_ms": t["range_ms"], "clock": t["clock"],
+            "cases": [{k: c[k] for k in ("case", "max_abs_err", "limit", "ms",
+                                         "plain_ms", "library_ms", "bound_ms",
+                                         "bound_by")} for c in row["cases"]]})
     return kernels, times
 
 
@@ -873,6 +1142,14 @@ def main() -> int:
           f"decode-only tick median {tick['median']:.3f} ms [{tick['min']:.3f}, "
           f"{tick['max']:.3f}] over {paged['decode_ticks']}; phase time "
           f"{json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})} s")
+    moe = times["moe"]
+    mt = moe["decode_tick_ms"]
+    print(f"moe path (Moonshot-16B-A3B, {moe['layers']} layers, full width): drain "
+          f"{moe['drain_ms']:.1f} ms, {moe['ticks']} ticks, decode-only tick median "
+          f"{mt['median']:.3f} ms [{mt['min']:.3f}, {mt['max']:.3f}] over "
+          f"{moe['decode_ticks']}; dense loop decode {moe['dense_decode_ms_per_token']:.3f} "
+          f"ms/token, prefill {moe['dense_prefill_ms']:.1f} ms; weights "
+          f"x{moe['weights_ratio_vs_int8']:.4f} of int8")
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

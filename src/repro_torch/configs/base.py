@@ -68,8 +68,55 @@ class ModelConfig:
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def ssm_heads(self) -> int:
+        return (self.ssm_expand * self.d_model) // self.ssm_head_dim
 
-ARCH_IDS = ("qwen2_7b", "olmo_1b")
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    def layer_kind(self, i: int) -> str:
+        """'attn' | 'ssm' for layer i (hybrid: one attention layer per
+        period, at its last slot)."""
+        if self.family == "ssm":
+            return "ssm"
+        if self.family == "hybrid" and self.attn_every > 0:
+            return "attn" if (i % self.attn_every) == self.attn_every - 1 else "ssm"
+        return "attn"
+
+    def layer_is_moe(self, i: int) -> bool:
+        return self.n_experts > 0 and (i % max(self.moe_every, 1)) == self.moe_every - 1
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + layers)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd, nh, nkv = self.hd, self.n_heads, self.n_kv_heads
+        total = v * d * (1 if self.tie_embeddings else 2)
+        mult = 3 if self.gated_mlp else 2
+        for i in range(self.n_layers):
+            if self.layer_kind(i) == "attn":
+                total += d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
+            else:
+                di, ns, nh_s = self.d_inner, self.ssm_state, self.ssm_heads
+                total += d * (2 * di + 2 * ns + nh_s) + di * d
+            if self.layer_is_moe(i):
+                total += self.n_experts * mult * d * f + d * self.n_experts
+            elif f > 0:
+                total += mult * d * f
+        return total
+
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: top_k of n_experts)."""
+        total = self.param_count()
+        mult = 3 if self.gated_mlp else 2
+        for i in range(self.n_layers):
+            if self.layer_is_moe(i):
+                total -= (self.n_experts - self.top_k) * mult * self.d_model * self.d_ff
+        return total
+
+
+ARCH_IDS = ("qwen2_7b", "olmo_1b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,5 +1,5 @@
 """``repro_torch.engine``: kernel registry, execution plans and the dispatch
-funnel (twin of the single-device 2-D half of ``repro.engine``).
+funnel (twin of the single-device half of ``repro.engine``).
 
     plan = engine.build_plan(params, cfg=StruMConfig(), device="cuda")
     y = engine.apply(plan, "blocks/pos0/mlp/wi/w", x)   # 2-D entries
@@ -13,7 +13,8 @@ from repro_torch.engine.cache import (CacheSpec, build_cache_spec,
                                       decode_pages, encode_page,
                                       gather_decode_pages,
                                       select_cache_variant)
-from repro_torch.engine.dispatch import apply, dispatch, leaf_spec
+from repro_torch.engine.dispatch import (apply, dequant_leaf, dispatch,
+                                         dispatch_grouped, leaf_spec)
 from repro_torch.engine.plan import ExecutionPlan, PlanEntry, build_plan
 from repro_torch.engine.registry import (BACKENDS, ExecSpec, KernelVariant,
                                          LeafInfo, get_variant,
@@ -22,6 +23,7 @@ from repro_torch.engine.registry import (BACKENDS, ExecSpec, KernelVariant,
 
 __all__ = ["CacheSpec", "build_cache_spec", "decode_pages", "encode_page",
            "gather_decode_pages", "select_cache_variant", "apply", "dispatch",
-           "leaf_spec", "ExecutionPlan", "PlanEntry", "build_plan", "BACKENDS", "ExecSpec", "KernelVariant", "LeafInfo",
-           "get_variant", "register_kernel", "resolve_backend",
+           "dispatch_grouped", "dequant_leaf", "leaf_spec", "ExecutionPlan",
+           "PlanEntry", "build_plan", "BACKENDS", "ExecSpec", "KernelVariant",
+           "LeafInfo", "get_variant", "register_kernel", "resolve_backend",
            "select_variant"]

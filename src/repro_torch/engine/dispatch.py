@@ -1,5 +1,5 @@
 """Runtime dispatch: packed leaf (+ recorded variant) -> kernel call (twin
-of the local 2-D half of ``repro.engine.dispatch``).
+of the single-device half of ``repro.engine.dispatch``).
 
 The one funnel every quantized linear of ``models/`` goes through.  A leaf
 built by :func:`repro_torch.engine.build_plan` carries an :class:`ExecSpec`
@@ -9,6 +9,7 @@ from the same registry.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -18,7 +19,7 @@ from repro_torch.core.policy import StruMConfig
 from repro_torch.engine.registry import (ExecSpec, LeafInfo, get_variant,
                                          select_variant)
 
-__all__ = ["dispatch", "apply", "leaf_spec"]
+__all__ = ["dispatch", "dispatch_grouped", "apply", "dequant_leaf", "leaf_spec"]
 
 
 def leaf_spec(wleaf: dict, strum: Optional[StruMConfig] = None
@@ -33,6 +34,21 @@ def leaf_spec(wleaf: dict, strum: Optional[StruMConfig] = None
         raise ValueError("compressed leaf needs an embedded spec/cfg or an "
                          "explicit strum config")
     return cfg, None
+
+
+def _as_packed(wleaf: dict, cfg: StruMConfig, k_dim: int) -> packing.PackedStruM:
+    return packing.PackedStruM(
+        method=cfg.method, w=cfg.w, n_low=cfg.n_low, q=cfg.q, L=cfg.L,
+        k_dim=k_dim, scale=wleaf["scale"], mask=wleaf["mask"], hi=wleaf["hi"],
+        lo=wleaf["lo"])
+
+
+def _check_k(spec: Optional[ExecSpec], k_dim: int) -> None:
+    """A plan-built leaf records its true reduction dim: a mismatched x
+    would otherwise contract against a truncated or padded weight."""
+    if spec is not None and spec.k_dim is not None and spec.k_dim != k_dim:
+        raise ValueError(f"x K={k_dim} does not match the leaf's recorded "
+                         f"reduction dim K={spec.k_dim}")
 
 
 def _pick(cfg: StruMConfig, info: LeafInfo, spec: Optional[ExecSpec],
@@ -50,29 +66,103 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
     """y = x @ dequant(leaf) through the leaf's selected kernel variant.
 
     ``x``: (..., K); returns (..., N) in ``out_dtype`` (default x.dtype).
-    Only 2-D leaves: stacked (expert) leaves wait for the grouped kernels.
+    Stacked leaves (lead dims: MoE expert stacks) go to
+    :func:`dispatch_grouped`; ``x`` then carries the matching lead dims.
     """
     cfg, spec = leaf_spec(wleaf, strum)
-    if wleaf["mask"].dim() != 3:
-        raise NotImplementedError("stacked (lead-dim) leaves are not ported "
-                                  "yet; slice scan groups before dispatch")
     k_dim = x.shape[-1]
-    if spec is not None and spec.k_dim is not None and spec.k_dim != k_dim:
-        raise ValueError(f"x K={k_dim} does not match the leaf's recorded "
-                         f"reduction dim K={spec.k_dim}")
+    _check_k(spec, k_dim)
     out_dtype = out_dtype or x.dtype
+    if wleaf["mask"].dim() > 3:
+        return dispatch_grouped(wleaf, x, strum=strum, backend=backend,
+                                out_dtype=out_dtype)
     info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1])
     variant = _pick(cfg, info, spec, backend, x.device)
-    packed = packing.PackedStruM(
-        method=cfg.method, w=cfg.w, n_low=cfg.n_low, q=cfg.q, L=cfg.L,
-        k_dim=k_dim, scale=wleaf["scale"], mask=wleaf["mask"], hi=wleaf["hi"],
-        lo=wleaf["lo"])
+    packed = _as_packed(wleaf, cfg, k_dim)
     lead = tuple(x.shape[:-1])
     y = variant.fn(x.reshape(-1, k_dim), packed, out_dtype=out_dtype)
     return y.reshape(lead + (y.shape[-1],))
 
 
+def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
+                     strum: Optional[StruMConfig] = None,
+                     backend: Optional[str] = None, out_dtype=None,
+                     fsdp_axes=None) -> torch.Tensor:
+    """Batched y[..., c, n] = x[..., c, :] @ dequant(leaf[...]) for stacks.
+
+    ``x``: (lead..., C, K), ``lead`` the leaf's stack dims -- e.g. MoE expert
+    buffers (E, C, D) against a packed (E, D, F) stack.  A ``grouped``
+    selection (``cuda:grouped*``, K6-K8) streams the packed stack; any other
+    (the ``torch:dequant`` fallback) dequantizes the stack at its *true* K
+    to x's dtype and runs a batched matmul accumulated in f32.
+
+    ``fsdp_axes`` (the reference's compressed-gather path inside a mesh
+    body) is not ported yet (ROADMAP queue 1 item 13) and raises.
+    """
+    if fsdp_axes:
+        raise NotImplementedError("dispatch_grouped(fsdp_axes=...) is the "
+                                  "distributed path, not ported yet (ROADMAP "
+                                  "queue 1 item 13)")
+    cfg, spec = leaf_spec(wleaf, strum)
+    lead_dims = wleaf["mask"].dim() - 3
+    if lead_dims == 0:
+        return dispatch(wleaf, x, strum=strum, backend=backend, out_dtype=out_dtype)
+    lead = tuple(wleaf["mask"].shape[:lead_dims])
+    if x.dim() != lead_dims + 2 or tuple(x.shape[:lead_dims]) != lead:
+        raise ValueError(
+            f"stacked leaf with lead dims {lead} needs x of shape "
+            f"(*lead, C, K); got {tuple(x.shape)}")
+    k_dim = x.shape[-1]
+    _check_k(spec, k_dim)
+    out_dtype = out_dtype or x.dtype
+    info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1], lead=lead)
+    variant = _pick(cfg, info, spec, backend, x.device)
+    if variant.grouped:
+        return variant.fn(x, _as_packed(wleaf, cfg, k_dim), out_dtype=out_dtype)
+    wd = dequant_leaf(wleaf, x.dtype, cfg=cfg, k_dim=k_dim)
+    return torch.matmul(x.to(torch.float32), wd.to(torch.float32)).to(out_dtype)
+
+
 def apply(plan, name: str, x: torch.Tensor, *, backend: Optional[str] = None,
           **kw) -> torch.Tensor:
-    """Name-keyed plan execution: y = x @ dequant(plan[name])."""
+    """Name-keyed plan execution: y = x @ dequant(plan[name]); stacked
+    entries (MoE expert stacks) take x with the matching lead dims."""
     return dispatch(plan.entries[name].leaf, x, backend=backend, **kw)
+
+
+def dequant_leaf(wleaf, dtype=torch.bfloat16, cfg: Optional[StruMConfig] = None,
+                 k_dim: Optional[int] = None) -> torch.Tensor:
+    """Decompress a (possibly stacked) packed leaf to dense weights; a dense
+    leaf passes through.
+
+    The true K comes from ``k_dim``, else the leaf's spec (plan-built leaves
+    record it), else -- hand-built leaves only -- the padded payload
+    (``nb * w``), which is right only when ``K % w == 0``: padding rows
+    decode to junk (MIP2Q code 0 is +-1), so plan-built stacks always carry
+    the exact K.  A stack ``(lead..., nb, rows, N)`` decodes in one call
+    with its groups folded into the column axis (every column decodes on
+    its own), then unfolds to ``(lead..., K, N)``.
+    """
+    if not isinstance(wleaf, dict):
+        return wleaf
+    cfg, spec = leaf_spec(wleaf, cfg)
+    if k_dim is None:
+        k_dim = getattr(spec, "k_dim", None)
+    if k_dim is None:
+        k_dim = wleaf["mask"].shape[-3] * cfg.w
+    lead_dims = wleaf["mask"].dim() - 3
+    lead = tuple(wleaf["mask"].shape[:lead_dims])
+    g = math.prod(lead)
+
+    n = wleaf["scale"].shape[-1]
+
+    def fold(a):   # (lead..., r, c, N) -> (r, c, g * N); no -1: 0-row fields
+        a = a.reshape((g,) + tuple(a.shape[lead_dims:]))
+        return a.permute(1, 2, 0, 3).reshape(a.shape[1], a.shape[2], g * n)
+
+    folded = packing.PackedStruM(
+        method=cfg.method, w=cfg.w, n_low=cfg.n_low, q=cfg.q, L=cfg.L,
+        k_dim=k_dim, scale=wleaf["scale"].reshape(1, g * n),
+        mask=fold(wleaf["mask"]), hi=fold(wleaf["hi"]), lo=fold(wleaf["lo"]))
+    wd = packing.dequantize(folded, dtype)                   # (K, g * N)
+    return wd.reshape(k_dim, g, n).permute(1, 0, 2).reshape(lead + (k_dim, n))

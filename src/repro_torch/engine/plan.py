@@ -3,9 +3,12 @@
 
 For every packed linear the plan records the payload *and* the kernel
 variant selected from the registry.  ``plan.params`` is the model-shaped
-tree the forward consumes: each eligible ``.../w`` weight becomes
-``{"mask", "hi", "lo", "scale", "cfg", "spec"}`` with scan-group lead dims
-kept on every payload field.
+tree the forward consumes: each eligible ``.../w`` weight and each MoE
+expert stack (``.../moe/wi|wg|wo``) becomes ``{"mask", "hi", "lo",
+"scale", "cfg", "spec"}`` with its lead dims kept on every payload field.
+Scan-group lead dims are sliced away before dispatch, so 2-D weights
+select a 2-D variant; expert stacks keep their expert dim and select from
+the grouped family (``cuda:grouped*``, K6-K8).
 """
 from __future__ import annotations
 
@@ -21,6 +24,10 @@ from repro_torch.engine import variants as _variants  # noqa: F401  (registratio
 from repro_torch.engine.registry import ExecSpec, LeafInfo, select_variant
 
 __all__ = ["PlanEntry", "ExecutionPlan", "build_plan"]
+
+
+def _is_expert_stack(name: str) -> bool:
+    return "/moe/" in name and name.rsplit("/", 1)[-1] in ("wi", "wg", "wo")
 
 
 @dataclasses.dataclass
@@ -94,8 +101,10 @@ def _map_named(fn: Callable, tree: Any, prefix: str = "") -> Any:
 def build_plan(params: Any, *, policy: Optional[LayerPolicy] = None,
                cfg: Optional[StruMConfig] = None, backend: Optional[str] = None,
                device="cuda") -> ExecutionPlan:
-    """Pack every eligible ``.../w`` linear of a model tree and select its
-    variant.  Precedence: ``policy`` > uniform ``cfg`` > repo default.
+    """Pack every eligible ``.../w`` linear and MoE expert stack of a model
+    tree and select its variant.  Precedence: ``policy`` > uniform ``cfg``
+    > repo default, except that expert stacks pack with ``cfg`` whenever it
+    is given (the reference's legacy rule).
 
     Tensors move to ``device`` (default ``"cuda"``; raises without a card
     unless ``device="cpu"``), packing runs there, and ``backend=None`` /
@@ -110,15 +119,20 @@ def build_plan(params: Any, *, policy: Optional[LayerPolicy] = None,
         if not isinstance(leaf, torch.Tensor):
             return leaf
         leaf = leaf.to(dev)
-        if not name.endswith("/w") or leaf.dim() < 2:
+        is_expert = _is_expert_stack(name)
+        if (not name.endswith("/w") and not is_expert) or leaf.dim() < 2:
             return leaf
         leaf_cfg = pol.resolve(name, tuple(leaf.shape))
+        if is_expert and cfg is not None:
+            leaf_cfg = cfg      # legacy: experts pack with the uniform cfg
         if leaf_cfg is None:
             return leaf
         from repro_torch.models.quantize import _pack_leaf
         shape = tuple(leaf.shape)
-        # scan-group lead dims are sliced away before dispatch: select 2-D
-        info = LeafInfo(k_dim=shape[-2], n_out=shape[-1], lead=(), name=name)
+        # lead dims as the kernel sees them: scan groups are sliced away
+        # before dispatch (2-D), expert stacks keep theirs (grouped family)
+        info = LeafInfo(k_dim=shape[-2], n_out=shape[-1],
+                        lead=shape[:-2] if is_expert else (), name=name)
         variant = select_variant(leaf_cfg, info, backend=backend, device=dev)
         packed = _pack_leaf(leaf, leaf_cfg)
         e = PlanEntry(name=name, cfg=leaf_cfg, variant=variant.name,

@@ -59,6 +59,12 @@ class KernelVariant:
     """One registered lowering: ``fn(x2, packed, *, out_dtype) -> y2`` on
     flattened ``(M, K)`` activations and a :class:`PackedStruM`.
 
+    ``grouped=True`` marks a variant that contracts *stacked* leaves: its
+    ``fn`` takes ``(lead..., M, K)`` activations and a PackedStruM whose
+    fields carry the same lead dims, and returns ``(lead..., M, N)``; its
+    ``supports`` requires ``info.lead``, so grouped and 2-D variants never
+    compete for a leaf.
+
     ``cache=True`` marks a KV-page codec (``fn(leaf, *, cfg, page_size,
     out_dtype) -> pages``); ``attn=True`` (implies ``cache``) a consumer of
     the page pools that returns the sealed-page partial of paged attention
@@ -75,6 +81,7 @@ class KernelVariant:
     family: str = "cuda"
     priority: int = 0
     description: str = ""
+    grouped: bool = False
     redispatch: bool = False
     cache: bool = False
     attn: bool = False
@@ -95,8 +102,8 @@ _REGISTRY: dict[str, KernelVariant] = {}
 
 def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
                     priority: int = 0, description: str = "",
-                    redispatch: bool = False, cache: bool = False,
-                    attn: bool = False):
+                    grouped: bool = False, redispatch: bool = False,
+                    cache: bool = False, attn: bool = False):
     """Decorator: register ``fn`` as kernel variant ``name`` (latest wins)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
@@ -107,7 +114,7 @@ def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
     def deco(fn):
         _REGISTRY[name] = KernelVariant(
             name=name, fn=fn, supports=supports, family=family,
-            priority=priority, description=description,
+            priority=priority, description=description, grouped=grouped,
             redispatch=redispatch, cache=cache, attn=attn)
         return fn
     return deco

@@ -5,7 +5,12 @@
   cuda:maskfree   p = 1.0 -- lo payload only (K2)
   cuda:dense      n_low = 0 -- hi payload only, any ``w`` (K3)
   cuda:onehot     general mask + hi + lo decode, needs ``w % 8 == 0`` (K1)
+  cuda:grouped            stacked (expert) leaves, the group a grid axis (K6)
+  cuda:grouped_maskfree   stacked, p = 1.0 (K7)
+  cuda:grouped_dense      stacked, n_low = 0, any ``w`` (K8)
   torch:dequant   dequantize + torch.matmul, the fallback for every config
+                  (stacks: ``dispatch_grouped`` dequantizes at the true K and
+                  runs a batched matmul)
   ref:torch       the plain oracle (``kernels.ref``)
 
 A ``cuda:*`` variant handed CPU tensors raises: the plan or the call chose
@@ -22,6 +27,10 @@ from repro_torch.kernels import ops, ref
 
 def _two_d(cfg, info):
     return not info.lead
+
+
+def _stacked(cfg, info):
+    return bool(info.lead)
 
 
 def _on_card(name: str, x2: torch.Tensor) -> None:
@@ -56,6 +65,37 @@ def _maskfree(x2, packed, *, out_dtype=None):
 def _dense(x2, packed, *, out_dtype=None):
     _on_card("cuda:dense", x2)
     return ops.strum_matmul(x2, packed, out_dtype=out_dtype, variant="dense")
+
+
+@register_kernel(
+    "cuda:grouped", family="cuda", priority=10, grouped=True,
+    supports=lambda cfg, info: _stacked(cfg, info) and cfg.w % 8 == 0,
+    description="stacked expert leaves: group grid axis, general decode")
+def _grouped(xg, packed, *, out_dtype=None):
+    _on_card("cuda:grouped", xg)
+    return ops.strum_grouped_matmul(xg, packed, out_dtype=out_dtype,
+                                    variant="onehot")
+
+
+@register_kernel(
+    "cuda:grouped_maskfree", family="cuda", priority=20, grouped=True,
+    supports=lambda cfg, info: (_stacked(cfg, info) and cfg.n_low == cfg.w
+                                and cfg.method in ("dliq", "mip2q")),
+    description="stacked p=1.0: per-group lo payload only, no mask/hi stream")
+def _grouped_maskfree(xg, packed, *, out_dtype=None):
+    _on_card("cuda:grouped_maskfree", xg)
+    return ops.strum_grouped_matmul(xg, packed, out_dtype=out_dtype,
+                                    variant="maskfree")
+
+
+@register_kernel(
+    "cuda:grouped_dense", family="cuda", priority=20, grouped=True,
+    supports=lambda cfg, info: _stacked(cfg, info) and cfg.n_low == 0,
+    description="stacked n_low=0: per-group hi payload in order; any w")
+def _grouped_dense(xg, packed, *, out_dtype=None):
+    _on_card("cuda:grouped_dense", xg)
+    return ops.strum_grouped_matmul(xg, packed, out_dtype=out_dtype,
+                                    variant="dense")
 
 
 @register_kernel(

@@ -4,6 +4,20 @@
 //   K1 strum_onehot_launch    <- strum_matmul_pallas           (mask + hi + lo)
 //   K2 strum_maskfree_launch  <- strum_matmul_pallas_maskfree  (p = 1: lo only)
 //   K3 strum_dense_launch     <- strum_matmul_pallas_dense     (n_low = 0: hi only)
+//   K6 strum_grouped_onehot_launch   <- strum_matmul_pallas_grouped
+//   K7 strum_grouped_maskfree_launch <- strum_matmul_pallas_grouped_maskfree
+//   K8 strum_grouped_dense_launch    <- strum_matmul_pallas_grouped_dense
+//
+// K6-K8 are the same kernels over a stack of G weights (MoE expert stacks):
+// y[g] = x[g] @ dequant(W[g]), x (G, M, K), every packed field (G, nb, rows,
+// N), scale (G, N), y (G, M, N), all contiguous.  The group is the grid's z
+// axis and each block offsets its pointers by the group's strides (a
+// template flag, so the 2-D kernels compile as before).  The grouped
+// entries never split K: an expert stack has G x ceil(N/64) >= 132 output
+// tiles, enough to fill the card, so they need no atomicAdd and give the
+// same result on every run.
+// They compute every group's rows, empty experts included, as the TPU
+// kernel does.
 //
 // Packed layout (one [1, w] block per column, N contiguous in every field):
 //   mask  (nb, w/8, N)            uint8, LSB-first, 1 = high
@@ -20,8 +34,9 @@
 // FMAs on the CUDA cores are far from; wgmma on bf16 operands would close it.
 //
 // Design (a first version that is right, not yet fast): a block owns a
-// BM x 64 output tile and a contiguous range of w-blocks along K (split-K over
-// gridDim.z, partial sums added with atomicAdd when z > 1).  For each K chunk
+// BM x 64 output tile of one group and a contiguous range of w-blocks along K
+// (split-K over blockIdx.z, partial sums added with atomicAdd when a weight is
+// split in more than one slice).  For each K chunk
 // it (1) decodes the chunk's weights into shared memory, one thread per
 // (w-block, column): a high position takes the next hi byte and a low one the
 // next q-bit field, so a position's rank inside its set is the running count
@@ -56,7 +71,9 @@ struct Args {
   int M, N, K, ldx;
   int nb, w, mask_rows, hi_rows, lo_rows, n_high, n_low, q, method;
   int nbk;               // w-blocks per K chunk
-  int blocks_per_split;  // w-blocks per gridDim.z slice
+  int blocks_per_split;  // w-blocks per gridDim.z slice (2-D kernels)
+  // per-group element strides of x, mask, hi, lo, scale and out (grouped)
+  long long gx, gmask, ghi, glo, gscale, gout;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -122,7 +139,9 @@ __device__ __forceinline__ void decode_block(const Args& a, int b, int n, float*
   }
 }
 
-template <int MODE, int BM, typename T>
+// GROUPED: blockIdx.z is the group, K is not split; otherwise blockIdx.z is
+// the K slice of one 2-D weight.
+template <int MODE, int BM, typename T, bool GROUPED>
 __global__ void __launch_bounds__(kThreads) strum_matmul_kernel(Args a) {
   constexpr int kRows = BM / kRowGroups;  // rows per thread
   extern __shared__ float smem[];
@@ -130,13 +149,22 @@ __global__ void __launch_bounds__(kThreads) strum_matmul_kernel(Args a) {
   float* Ws = smem;             // [KC][kBN] decoded weights (unscaled)
   float* Xs = smem + KC * kBN;  // [BM][KC] activations as f32
   const T* x = static_cast<const T*>(a.x);
+  if (GROUPED) {
+    const long long g = blockIdx.z;
+    x += g * a.gx;
+    a.mask += g * a.gmask;
+    a.hi += g * a.ghi;
+    a.lo += g * a.glo;
+    a.scale += g * a.gscale;
+    a.out += g * a.gout;
+  }
 
   const int t = threadIdx.x;
   const int c = t % kBN;
   const int rg = t / kBN;
   const int n0 = blockIdx.x * kBN;
   const int m0 = blockIdx.y * BM;
-  const int b_begin = blockIdx.z * a.blocks_per_split;
+  const int b_begin = GROUPED ? 0 : blockIdx.z * a.blocks_per_split;
   const int b_end = min(a.nb, b_begin + a.blocks_per_split);
 
   float acc[kRows];
@@ -178,32 +206,46 @@ __global__ void __launch_bounds__(kThreads) strum_matmul_kernel(Args a) {
     const int m = m0 + rg + kRowGroups * i;
     if (m >= a.M) continue;
     float* o = a.out + (size_t)m * a.N + n;
-    if (gridDim.z > 1) atomicAdd(o, acc[i] * s);
+    if (!GROUPED && gridDim.z > 1) atomicAdd(o, acc[i] * s);
     else *o = acc[i] * s;
   }
 }
 
-template <int MODE, int BM, typename T>
-cudaError_t launch_typed(const Args& a, int splits, cudaStream_t stream) {
+template <int MODE, int BM, typename T, bool GROUPED>
+cudaError_t launch_typed(const Args& a, int grid_z, cudaStream_t stream) {
   const int KC = a.nbk * a.w;
   const size_t smem = sizeof(float) * (size_t)KC * (kBN + BM);
-  auto kernel = strum_matmul_kernel<MODE, BM, T>;
+  auto kernel = strum_matmul_kernel<MODE, BM, T, GROUPED>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid((a.N + kBN - 1) / kBN, (a.M + BM - 1) / BM, splits);
+  dim3 grid((a.N + kBN - 1) / kBN, (a.M + BM - 1) / BM, grid_z);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <int MODE, bool GROUPED>
+cudaError_t launch_rows(const Args& a, int x_bf16, int grid_z, cudaStream_t s) {
+  if (a.M <= 8) {
+    return x_bf16 ? launch_typed<MODE, 8, __nv_bfloat16, GROUPED>(a, grid_z, s)
+                  : launch_typed<MODE, 8, float, GROUPED>(a, grid_z, s);
+  }
+  return x_bf16 ? launch_typed<MODE, 64, __nv_bfloat16, GROUPED>(a, grid_z, s)
+                : launch_typed<MODE, 64, float, GROUPED>(a, grid_z, s);
+}
+
+// groups = 0: one 2-D weight split in `splits` K slices; groups >= 1: a
+// stack of `groups` weights, K not split.
 template <int MODE>
 int launch(const void* x, int x_bf16, const void* mask, const void* hi,
-           const void* lo, const void* scale, void* out, int M, int N, int K,
-           int ldx, int nb, int w, int mask_rows, int hi_rows, int lo_rows,
+           const void* lo, const void* scale, void* out, int groups, int M, int N,
+           int K, int ldx, int nb, int w, int mask_rows, int hi_rows, int lo_rows,
            int n_low, int q, int method, int splits, void* stream) {
-  if (M <= 0 || N <= 0 || nb <= 0 || w <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+  if (groups < 0 || groups > 65535 || M <= 0 || N <= 0 || nb <= 0 || w <= 0 ||
+      splits <= 0)
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
   a.mask = static_cast<const uint8_t*>(mask);
@@ -217,16 +259,16 @@ int launch(const void* x, int x_bf16, const void* mask, const void* hi,
   a.nbk = w >= kTargetKC ? 1 : kTargetKC / w;
   a.blocks_per_split = (nb + splits - 1) / splits;
   splits = (nb + a.blocks_per_split - 1) / a.blocks_per_split;  // no empty slice
+  // contiguous (G, ...) stacks; a 2-D call never reads these
+  a.gx = (long long)M * ldx;
+  a.gmask = (long long)nb * mask_rows * N;
+  a.ghi = (long long)nb * hi_rows * N;
+  a.glo = (long long)nb * lo_rows * N;
+  a.gscale = N;
+  a.gout = (long long)M * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (M <= 8) {
-    e = x_bf16 ? launch_typed<MODE, 8, __nv_bfloat16>(a, splits, s)
-               : launch_typed<MODE, 8, float>(a, splits, s);
-  } else {
-    e = x_bf16 ? launch_typed<MODE, 64, __nv_bfloat16>(a, splits, s)
-               : launch_typed<MODE, 64, float>(a, splits, s);
-  }
-  return (int)e;
+  return (int)(groups ? launch_rows<MODE, true>(a, x_bf16, groups, s)
+                      : launch_rows<MODE, false>(a, x_bf16, splits, s));
 }
 
 }  // namespace
@@ -237,7 +279,7 @@ int launch(const void* x, int x_bf16, const void* mask, const void* hi,
                       int K, int ldx, int nb, int w, int mask_rows, int hi_rows,      \
                       int lo_rows, int n_low, int q, int method, int splits,          \
                       void* stream) {                                                 \
-    return launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, M, N, K, ldx, nb, w,     \
+    return launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, 0, M, N, K, ldx, nb, w,  \
                         mask_rows, hi_rows, lo_rows, n_low, q, method, splits,        \
                         stream);                                                      \
   }
@@ -245,3 +287,18 @@ int launch(const void* x, int x_bf16, const void* mask, const void* hi,
 STRUM_ENTRY(strum_onehot_launch, kOnehot)
 STRUM_ENTRY(strum_maskfree_launch, kMaskfree)
 STRUM_ENTRY(strum_dense_launch, kDense)
+
+// Grouped entries (K6-K8): x (G, M, K) contiguous, G >= 1, no split-K.
+#define STRUM_GROUPED_ENTRY(NAME, MODE)                                               \
+  extern "C" int NAME(const void* x, int x_bf16, const void* mask, const void* hi,     \
+                      const void* lo, const void* scale, void* out, int G, int M,     \
+                      int N, int K, int nb, int w, int mask_rows, int hi_rows,        \
+                      int lo_rows, int n_low, int q, int method, void* stream) {      \
+    if (G <= 0) return (int)cudaErrorInvalidValue;                                   \
+    return launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, G, M, N, K, K, nb, w,    \
+                        mask_rows, hi_rows, lo_rows, n_low, q, method, 1, stream);    \
+  }
+
+STRUM_GROUPED_ENTRY(strum_grouped_onehot_launch, kOnehot)
+STRUM_GROUPED_ENTRY(strum_grouped_maskfree_launch, kMaskfree)
+STRUM_GROUPED_ENTRY(strum_grouped_dense_launch, kDense)

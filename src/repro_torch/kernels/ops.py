@@ -1,9 +1,11 @@
-"""Public wrappers around the StruM matmul kernels (twin of the 2-D half of
-``repro.kernels.ops``).
+"""Public wrappers around the StruM matmul kernels (twin of the matmul half
+of ``repro.kernels.ops``).
 
 Callers hand in activations and a :class:`PackedStruM`; ``variant`` picks
 the lowering: ``"onehot"`` (K1, general), ``"maskfree"`` (K2, p = 1) or
-``"dense"`` (K3, n_low = 0).  The padding contract of the reference holds:
+``"dense"`` (K3, n_low = 0); ``strum_grouped_matmul`` runs the same three
+lowerings over stacked payloads (K6-K8).  The padding contract of the
+reference holds:
 
 * K is taken to ``nb·w`` with *zero activations* (the CUDA kernels read x
   past the true K as 0, the plain versions pad x): padded-K weight rows
@@ -20,12 +22,14 @@ to ``out_dtype`` (default: ``x.dtype``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.packing import PackedStruM
 from repro_torch.kernels import strum_matmul as K
 
-__all__ = ["strum_matmul", "strum_gemv", "VARIANTS"]
+__all__ = ["strum_matmul", "strum_gemv", "strum_grouped_matmul", "VARIANTS"]
 
 VARIANTS = ("onehot", "maskfree", "dense")
 
@@ -89,3 +93,48 @@ def strum_gemv(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,
     """Decode-path matvec (M = a few tokens): the same kernels, which pick
     their small-M tile (8 rows) and split K across blocks themselves."""
     return strum_matmul(x, packed, out_dtype=out_dtype, variant=variant)
+
+
+def strum_grouped_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,
+                         variant: str = "onehot") -> torch.Tensor:
+    """Batched y[..., m, n] = x[..., m, :] @ dequant(W[...]) for stacked leaves.
+
+    ``packed`` carries lead stack dims on every field -- mask ``(lead..., nb,
+    w//8, N)``, hi/lo alike, scale ``(lead..., 1, N)`` -- the layout
+    ``models.quantize._pack_leaf`` emits for MoE expert stacks.  ``x`` is
+    ``(lead..., M, K)`` with ``K == packed.k_dim`` (the true reduction dim).
+    Lead dims flatten into one group axis (K6-K8 take it as a grid axis).
+    Returns ``(lead..., M, N)`` in ``out_dtype`` (default x.dtype).
+    """
+    out_dtype = out_dtype or x.dtype
+    _validate_variant(variant, packed)
+    lead_dims = packed.mask.dim() - 3
+    if lead_dims < 1:
+        raise ValueError("strum_grouped_matmul needs stacked payloads "
+                         "(lead dims); use strum_matmul for 2-D leaves")
+    lead = tuple(packed.mask.shape[:lead_dims])
+    if x.dim() != lead_dims + 2 or tuple(x.shape[:lead_dims]) != lead:
+        raise ValueError(f"x shape {tuple(x.shape)} does not match packed lead "
+                         f"dims {lead} + (M, K)")
+    k_in = x.shape[-1]
+    if k_in != packed.k_dim:
+        raise ValueError(f"x K={k_in} vs packed k_dim={packed.k_dim}")
+    g = math.prod(lead)
+    m, n, w = x.shape[-2], packed.n_out, packed.w
+    x3 = x.reshape(g, m, k_in).contiguous()
+
+    def flat(a):   # explicit g: -1 breaks on 0-row payloads (sparsity lo)
+        return a.reshape((g,) + tuple(a.shape[lead_dims:])).contiguous()
+
+    scale = flat(packed.scale)
+    if variant == "onehot":
+        y = K.strum_matmul_grouped_onehot(
+            x3, flat(packed.mask), _min1(flat(packed.hi), 2),
+            _min1(flat(packed.lo), 2), scale, w=w, n_low=packed.n_low,
+            q=packed.q, method=packed.method)
+    elif variant == "maskfree":
+        y = K.strum_matmul_grouped_maskfree(x3, flat(packed.lo), scale, w=w,
+                                            q=packed.q, method=packed.method)
+    else:
+        y = K.strum_matmul_grouped_dense(x3, flat(packed.hi), scale, w=w)
+    return y.reshape(lead + (m, n)).to(out_dtype)

@@ -1,5 +1,5 @@
-"""StruM packed-weight matmul: the Hopper kernels K1-K3 and their plain
-PyTorch versions.
+"""StruM packed-weight matmul: the Hopper kernels K1-K3, their grouped
+twins K6-K8, and their plain PyTorch versions.
 
 ``strum_matmul_onehot`` (K1, general mask + hi + lo decode),
 ``strum_matmul_maskfree`` (K2, p = 1: lo fields only, in position order) and
@@ -8,6 +8,13 @@ PyTorch versions.
 ``strum_matmul_pallas``, ``strum_matmul_pallas_maskfree`` and
 ``strum_matmul_pallas_dense`` of ``repro/kernels/strum_matmul.py``; the CUDA
 source, with its design and what bounds it, is ``csrc/strum_matmul.cu``.
+
+``strum_matmul_grouped_{onehot,maskfree,dense}`` (K6, K7, K8) compute
+``y(G, M, N) f32 = x(G, M, K) @ dequant(W[g])`` for every group ``g`` of a
+stacked payload (every field ``(G, nb, rows, N)``, scale ``(G, 1, N)``): the
+MoE expert contractions.  They replace ``strum_matmul_pallas_grouped``,
+``_grouped_maskfree`` and ``_grouped_dense``; the group is a grid axis of
+the same CUDA kernels, and K is never split across blocks.
 
 Each wrapper takes the device of its tensors as the choice: CPU tensors go
 to the plain version (the CPU tests' path), CUDA tensors launch the kernel,
@@ -33,16 +40,23 @@ from repro_torch.core.packing import (_scatter_expand, _unpack_bits_axis1,
 
 __all__ = ["strum_matmul_onehot", "strum_matmul_maskfree", "strum_matmul_dense",
            "strum_matmul_onehot_plain", "strum_matmul_maskfree_plain",
-           "strum_matmul_dense_plain", "launch_counts", "reset_launch_counts",
-           "METHOD_CODES"]
+           "strum_matmul_dense_plain", "strum_matmul_grouped_onehot",
+           "strum_matmul_grouped_maskfree", "strum_matmul_grouped_dense",
+           "strum_matmul_grouped_onehot_plain",
+           "strum_matmul_grouped_maskfree_plain",
+           "strum_matmul_grouped_dense_plain", "launch_counts",
+           "reset_launch_counts", "METHOD_CODES"]
 
 METHOD_CODES = {"sparsity": 0, "dliq": 1, "mip2q": 2}
 _ENTRY = {"onehot": "strum_onehot_launch", "maskfree": "strum_maskfree_launch",
-          "dense": "strum_dense_launch"}
+          "dense": "strum_dense_launch",
+          "grouped_onehot": "strum_grouped_onehot_launch",
+          "grouped_maskfree": "strum_grouped_maskfree_launch",
+          "grouped_dense": "strum_grouped_dense_launch"}
 _BN = 64  # output columns per CUDA block (kBN in the source)
 
 #: kernel name -> launches since the last reset
-launch_counts = {"onehot": 0, "maskfree": 0, "dense": 0}
+launch_counts = {name: 0 for name in _ENTRY}
 
 
 def reset_launch_counts() -> None:
@@ -86,16 +100,36 @@ def strum_matmul_dense_plain(x2, hi, scale, *, w: int) -> torch.Tensor:
     return _matmul_scaled(x2, hi[:, :w].to(torch.int32), scale)
 
 
+def strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, **kw) -> torch.Tensor:
+    """(G, M, K) x against (G, ...) fields: the 2-D plain version per group."""
+    return torch.stack([strum_matmul_onehot_plain(x3[g], mask[g], hi[g], lo[g],
+                                                  scale[g], **kw)
+                        for g in range(x3.shape[0])])
+
+
+def strum_matmul_grouped_maskfree_plain(x3, lo, scale, **kw) -> torch.Tensor:
+    return torch.stack([strum_matmul_maskfree_plain(x3[g], lo[g], scale[g], **kw)
+                        for g in range(x3.shape[0])])
+
+
+def strum_matmul_grouped_dense_plain(x3, hi, scale, **kw) -> torch.Tensor:
+    return torch.stack([strum_matmul_dense_plain(x3[g], hi[g], scale[g], **kw)
+                        for g in range(x3.shape[0])])
+
+
 # ------------------------------------------------------------ CUDA launch --
 
 def _lib():
     from repro_torch.kernels import build
     lib = build.load("strum_matmul")
-    for entry in _ENTRY.values():
+    for name, entry in _ENTRY.items():
         fn = getattr(lib, entry)
         if fn.argtypes is None:
+            # 2-D: M N K ldx nb w rows x3 n_low q method splits;
+            # grouped: G M N K nb w rows x3 n_low q method
+            ints = 12 if name.startswith("grouped_") else 13
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                           + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
 
@@ -110,42 +144,59 @@ def _splits(m: int, n: int, nb: int, device: torch.device) -> int:
     return max(1, min(math.ceil(2 * sms / tiles), nb // 4))
 
 
-def _launch(name: str, x2, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
+def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
             method: str) -> torch.Tensor:
-    """Validate every operand, then launch kernel ``name`` on x2's stream.
-    ``None`` marks a field the kernel does not read."""
-    m, k = x2.shape
-    n = scale.numel()
+    """Validate every operand, then launch kernel ``name`` on x's stream.
+    ``None`` marks a field the kernel does not read.  A 2-D kernel takes x
+    (M, K), fields (nb, rows, N) and scale (1, N); a grouped one (name
+    ``grouped_*``) x (G, M, K), fields (G, nb, rows, N) and scale (G, 1, N)."""
+    lead = 1 if name.startswith("grouped_") else 0
+    if x.dim() != 2 + lead:
+        raise ValueError(f"cuda:{name}: x must be {2 + lead}-D, got {tuple(x.shape)}")
+    groups = x.shape[0] if lead else 1
+    m, k = x.shape[-2:]
+    n = scale.shape[-1]
     # field -> (tensor, dtype, least rows per block the kernel reads)
     fields = {"mask": (mask, torch.uint8, -(-w // 8)),
               "hi": (hi, torch.int8, w - n_low),
               "lo": (lo, torch.uint8,
                      0 if method == "sparsity" else -(-(n_low * q) // 8))}
     fields = {f: v for f, v in fields.items() if v[0] is not None}
-    nb = next(iter(fields.values()))[0].shape[0]
-    for t in [x2, scale] + [v[0] for v in fields.values()]:
-        if t.device != x2.device or not t.is_contiguous():
+    nb = next(iter(fields.values()))[0].shape[lead]
+    for t in [x, scale] + [v[0] for v in fields.values()]:
+        if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"cuda:{name}: operands must be contiguous and on "
-                             f"{x2.device}")
-    if x2.dtype not in (torch.float32, torch.bfloat16) or scale.dtype != torch.float32:
+                             f"{x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or scale.dtype != torch.float32:
         raise TypeError(f"cuda:{name}: x must be float32/bfloat16 and scale "
-                        f"float32, got {x2.dtype}, {scale.dtype}")
+                        f"float32, got {x.dtype}, {scale.dtype}")
+    if scale.numel() != groups * n or (lead and scale.shape[0] != groups):
+        raise ValueError(f"cuda:{name}: scale {tuple(scale.shape)} does not fit "
+                         f"{groups} group(s) of N={n}")
     for f, (t, dtype, least) in fields.items():
-        if t.dtype != dtype or t.dim() != 3 or t.shape[0] != nb or \
-                t.shape[2] != n or t.shape[1] < max(least, 1):
+        if t.dtype != dtype or t.dim() != 3 + lead or t.shape[lead] != nb or \
+                t.shape[-1] != n or t.shape[lead + 1] < max(least, 1) or \
+                (lead and t.shape[0] != groups):
             raise ValueError(f"cuda:{name}: {f} {tuple(t.shape)} {t.dtype} does not "
-                             f"fit nb={nb} N={n} ({dtype}, >= {least} rows)")
+                             f"fit G={groups} nb={nb} N={n} ({dtype}, >= {least} rows)")
     if k > nb * w:
         raise ValueError(f"cuda:{name}: x K={k} exceeds the payload's nb*w={nb * w}")
-    splits = _splits(m, n, nb, x2.device)
-    out = (torch.zeros if splits > 1 else torch.empty)(
-        (m, n), dtype=torch.float32, device=x2.device)
     ptrs = [t.data_ptr() if t is not None else None for t in (mask, hi, lo)]
-    rows = [t.shape[1] if t is not None else 0 for t in (mask, hi, lo)]
-    err = getattr(_lib(), _ENTRY[name])(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
-        out.data_ptr(), m, n, k, x2.stride(0), nb, w, *rows, n_low, q,
-        METHOD_CODES[method], splits, torch.cuda.current_stream(x2.device).cuda_stream)
+    rows = [t.shape[lead + 1] if t is not None else 0 for t in (mask, hi, lo)]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = getattr(_lib(), _ENTRY[name])
+    if lead:    # every expert stack fills the card with its own tiles: no split-K
+        out = torch.empty((groups, m, n), dtype=torch.float32, device=x.device)
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
+                 out.data_ptr(), groups, m, n, k, nb, w, *rows, n_low, q,
+                 METHOD_CODES[method], stream)
+    else:
+        splits = _splits(m, n, nb, x.device)
+        out = (torch.zeros if splits > 1 else torch.empty)(
+            (m, n), dtype=torch.float32, device=x.device)
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
+                 out.data_ptr(), m, n, k, x.stride(0), nb, w, *rows, n_low, q,
+                 METHOD_CODES[method], splits, stream)
     if err != 0:
         raise RuntimeError(f"cuda:{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
@@ -188,4 +239,37 @@ def strum_matmul_dense(x2, hi, scale, *, w: int) -> torch.Tensor:
     if _route(x2) == "plain":
         return strum_matmul_dense_plain(x2, hi, scale, w=w)
     return _launch("dense", x2, None, hi, None, scale, w=w, n_low=0, q=1,
+                   method="sparsity")
+
+
+def strum_matmul_grouped_onehot(x3, mask, hi, lo, scale, *, w: int, n_low: int,
+                                q: int, method: str) -> torch.Tensor:
+    """K6: y[g] = x3[g] @ dequant(mask[g], hi[g], lo[g], scale[g]), (G, M, N)
+    f32; needs w % 8 == 0."""
+    if w % 8:
+        raise ValueError(f"grouped onehot kernel needs byte-aligned mask rows (w={w})")
+    if _route(x3) == "plain":
+        return strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, w=w,
+                                                 n_low=n_low, q=q, method=method)
+    return _launch("grouped_onehot", x3, mask, hi, lo, scale, w=w, n_low=n_low,
+                   q=q, method=method)
+
+
+def strum_matmul_grouped_maskfree(x3, lo, scale, *, w: int, q: int,
+                                  method: str) -> torch.Tensor:
+    """K7 (p = 1): y[g] = x3[g] @ dequant(lo[g], scale[g]); no mask, no hi."""
+    if method not in ("dliq", "mip2q"):
+        raise ValueError(f"grouped maskfree kernel needs a lo payload, got {method!r}")
+    if _route(x3) == "plain":
+        return strum_matmul_grouped_maskfree_plain(x3, lo, scale, w=w, q=q,
+                                                   method=method)
+    return _launch("grouped_maskfree", x3, None, None, lo, scale, w=w, n_low=w,
+                   q=q, method=method)
+
+
+def strum_matmul_grouped_dense(x3, hi, scale, *, w: int) -> torch.Tensor:
+    """K8 (n_low = 0): y[g] = x3[g] @ dequant(hi[g], scale[g]); any w."""
+    if _route(x3) == "plain":
+        return strum_matmul_grouped_dense_plain(x3, hi, scale, w=w)
+    return _launch("grouped_dense", x3, None, hi, None, scale, w=w, n_low=0, q=1,
                    method="sparsity")

@@ -5,6 +5,9 @@ decode-only ticks of the paged runtime.
     PYTHONPATH=src python -m repro_torch.launch.profile --arch olmo_1b --steps 4
     PYTHONPATH=src python -m repro_torch.launch.profile --arch olmo_1b \
         --paged --kv-cache mip2q --prompt-len 128 --gen 32 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch moonshot_v1_16b_a3b --layers 4 --paged --kv-cache mip2q \
+        --prompt-len 128 --gen 32 --steps 4
 
 Serves once through :func:`repro_torch.launch.serve.run` (build, pack,
 warm-up), then profiles a prefill and ``--steps`` decode steps fed the

@@ -5,8 +5,11 @@ runtime with StruM-packed KV pages.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b \
         --paged --kv-cache mip2q --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot_v1_16b_a3b --layers 4 [--paged --kv-cache mip2q]
 
-builds the model from a seed on the card, packs every linear into an
+builds the model from a seed on the card, packs every linear (and, for the
+MoE architectures, every expert stack) into an
 :class:`~repro_torch.engine.ExecutionPlan` (``--strum none`` serves dense
 weights), prints the weight bytes against dense, the plan's variant
 distribution, the prefill and decode times and a token sample.  ``--paged``
@@ -214,8 +217,9 @@ def run(argv=None) -> dict:
 
 def report(res: dict) -> list:
     """The lines ``main`` prints for a :func:`run` result."""
-    dense = res["dense_bytes"]
-    lines = []
+    dense, cfg = res["dense_bytes"], res["cfg"]
+    lines = [f"model: {cfg.name}, {cfg.n_layers} layers, {cfg.param_count():,} params, "
+             f"{cfg.active_param_count():,} active per token"]
     if res["plan"] is not None:
         comp, summ = res["packed_bytes"], res["plan"].summary()
         lines.append(f"weights: dense {dense / 1e6:.2f} MB -> StruM "

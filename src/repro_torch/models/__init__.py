@@ -1,4 +1,5 @@
-"""Model substrate (dense decoders): layers, attention, decoder stack."""
+"""Model substrate (dense and MoE decoders): layers, attention, MoE FFN,
+decoder stack."""
 from repro_torch.models.transformer import (decode_step, forward_train,
                                             model_defs, n_groups, period,
                                             prefill)

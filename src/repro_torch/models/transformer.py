@@ -1,20 +1,25 @@
-"""Decoder stack, the dense family of ``repro.models.transformer``:
-``model_defs``, ``forward_train`` (forward only), ``prefill`` and
-``decode_step``, and the serving runtime's paged lanes
-``decode_step_paged`` and ``prefill_chunk_step``.
+"""Decoder stack, the dense and MoE families of
+``repro.models.transformer``: ``model_defs``, ``forward_train`` (forward
+only), ``prefill`` and ``decode_step``, and the serving runtime's paged
+lanes ``decode_step_paged`` and ``prefill_chunk_step``.
 
 Parameters keep the reference layout: per period position ``pos{i}``,
-every leaf stacked with a leading ``n_groups`` dim.  The reference's
-``lax.scan`` over groups is a Python loop here that slices group ``g`` out
-of every tensor (packed payload fields included).
+every leaf stacked with a leading ``n_groups`` dim.  The period is the lcm
+of the MoE period (``moe_every``) and 1; a position whose layer is MoE
+holds ``moe`` (router + expert stacks) in place of ``mlp``.  The
+reference's ``lax.scan`` over groups is a Python loop here that slices
+group ``g`` out of every tensor (packed payload fields included).  SSM and
+hybrid stacks are not ported yet (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe
 from repro_torch.models.layers import (apply_norm, embed_def, embed_lookup,
                                        linear_def, logits, mlp, mlp_def,
                                        norm_def)
@@ -23,34 +28,43 @@ __all__ = ["period", "n_groups", "model_defs", "forward_train", "prefill",
            "decode_step", "decode_step_paged", "prefill_chunk_step"]
 
 
-def _check_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: only the dense family is "
-                                  f"ported (family={cfg.family!r})")
+def _check_family(cfg) -> None:
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not "
+                                  f"ported yet (Mamba-2)")
 
 
 def period(cfg) -> int:
-    """Layers per scan group: 1 for the dense family (the reference's lcm of
-    attention and MoE periods matters only for hybrid and MoE stacks)."""
-    _check_dense(cfg)
-    return 1
+    """Layers per scan group: the lcm of the MoE period and 1 (the
+    reference's lcm with the attention period matters only for hybrids)."""
+    _check_family(cfg)
+    p = 1
+    if cfg.n_experts and cfg.moe_every > 1:
+        p = math.lcm(p, cfg.moe_every)
+    if cfg.n_layers % p:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
+                         f"multiple of the period {p}")
+    return p
 
 
 def n_groups(cfg) -> int:
     return cfg.n_layers // period(cfg)
 
 
-def _block_def(cfg, lead) -> dict:
+def _block_def(cfg, pos: int, lead) -> dict:
     d = {"norm1": norm_def(cfg, lead), "attn": attn_mod.attn_def(cfg, lead)}
     if cfg.d_ff > 0:
         d["norm2"] = norm_def(cfg, lead)
-        d["mlp"] = mlp_def(cfg, lead)
+        if cfg.layer_is_moe(pos):
+            d["moe"] = moe.moe_def(cfg, lead)
+        else:
+            d["mlp"] = mlp_def(cfg, lead)
     return d
 
 
 def model_defs(cfg) -> dict:
     defs: dict = {"embed": embed_def(cfg)}
-    defs["blocks"] = {f"pos{i}": _block_def(cfg, (n_groups(cfg),))
+    defs["blocks"] = {f"pos{i}": _block_def(cfg, i, (n_groups(cfg),))
                       for i in range(period(cfg))}
     defs["final_norm"] = norm_def(cfg)
     if not cfg.tie_embeddings:
@@ -67,10 +81,15 @@ def _group(tree: Any, g: int) -> Any:
     return tree[g] if isinstance(tree, torch.Tensor) else tree
 
 
-def _mlp_residual(bp, x, cfg, kw):
-    if cfg.d_ff > 0:
-        x = x + mlp(bp["mlp"], apply_norm(bp["norm2"], x, cfg), cfg, **kw)
-    return x
+def _ffn_residual(bp, x, cfg, kw):
+    """x + the block's MLP or MoE FFN; returns (x, MoE aux loss or 0)."""
+    if cfg.d_ff <= 0:
+        return x, 0.0
+    h = apply_norm(bp["norm2"], x, cfg)
+    if "moe" in bp:
+        h, aux = moe.moe_apply(bp["moe"], h, cfg, **kw)
+        return x + h, aux
+    return x + mlp(bp["mlp"], h, cfg, **kw), 0.0
 
 
 def _embed_in(params, tokens, cfg):
@@ -82,21 +101,23 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward_train(params: dict, batch: dict, cfg, **kw):
-    """Full forward; returns (logits f32, aux) with aux = 0 (dense family)."""
+    """Full forward; returns (logits f32, aux): aux is the MoE load-balance
+    loss summed over layers (0 for the dense family)."""
     kw.setdefault("strum", cfg.strum)
     x = _embed_in(params, batch["tokens"], cfg)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(n_groups(cfg)):
         gp = _group(params["blocks"], g)
         for i in range(period(cfg)):
             bp = gp[f"pos{i}"]
             x = x + attn_mod.attention(bp["attn"], apply_norm(bp["norm1"], x, cfg),
                                        cfg, positions, **kw)
-            x = _mlp_residual(bp, x, cfg, kw)
+            x, a = _ffn_residual(bp, x, cfg, kw)
+            aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
-    return (logits(params.get("lm_head"), params["embed"], x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return logits(params.get("lm_head"), params["embed"], x), aux
 
 
 def prefill(params: dict, batch: dict, cfg, **kw):
@@ -116,7 +137,7 @@ def prefill(params: dict, batch: dict, cfg, **kw):
                                            positions, return_kv=True, **kw)
             kv[f"pos{i}"]["k"].append(k.to(cfg.activation_dtype))
             kv[f"pos{i}"]["v"].append(v.to(cfg.activation_dtype))
-            x = _mlp_residual(bp, x + h, cfg, kw)
+            x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x[:, -1:, :])
     caches = {pos: {n: torch.stack(ts) for n, ts in c.items()}
@@ -137,7 +158,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
             h, _ = attn_mod.decode_attention(
                 bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg,
                 (c["k"][g], c["v"][g]), cache_len, **kw)
-            x = _mlp_residual(bp, x + h, cfg, kw)
+            x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits(params.get("lm_head"), params["embed"], x), caches
 
@@ -175,7 +196,7 @@ def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
                 bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg, pool_g[f"pos{i}"],
                 (hp["k_tail"], hp["v_tail"]), spec, page_table, cache_len,
                 active=active, cache_backend=cache_backend, **kw)
-            x = _mlp_residual(bp, x + h, cfg, kw)
+            x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits(params.get("lm_head"), params["embed"], x), hot
 
@@ -218,7 +239,7 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
                 kv = kv.to(hp[f"{name}_tail"].dtype)
                 chunk_kv[f"pos{i}"][name].append(kv)
                 hp[f"{name}_tail"].index_copy_(0, slot1, kv[:, tail_idx])
-            x = _mlp_residual(bp, x + h, cfg, kw)
+            x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x)
     return lg, hot, {pos: {n: torch.stack(ts) for n, ts in c_.items()}

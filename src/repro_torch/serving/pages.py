@@ -83,8 +83,9 @@ def attn_feat_dim(cfg) -> int:
 
 
 def _attn_positions(cfg) -> list:
-    """Layer positions of the stack, all attention (SSM pages not ported)."""
-    if cfg.family != "dense":
+    """Layer positions of the stack, all attention in the dense and MoE
+    families (SSM pages not ported)."""
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: paged caches are ported for attention stacks only "
             f"(family={cfg.family!r}; SSM hot state waits for the Mamba-2 port)")

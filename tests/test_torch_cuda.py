@@ -1,4 +1,4 @@
-"""Port kernels K1-K5 and K11 on the card against their plain PyTorch versions.
+"""Port kernels K1-K8 and K11 on the card against their plain PyTorch versions.
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -71,6 +71,88 @@ def test_kernel_rejects_mixed_devices(dev):
         K.strum_matmul_onehot(x, packed.mask.cpu(), packed.hi, packed.lo,
                               packed.scale, w=16, n_low=8, q=packed.q,
                               method="mip2q")
+
+
+# ------------------------------------------------- grouped (MoE): K6, K7, K8
+
+GROUPED_CFGS = [
+    (StruMConfig(method="mip2q", p=0.5, L=5), "onehot"),
+    (StruMConfig(method="dliq", p=0.25, q=3), "onehot"),
+    (StruMConfig(method="sparsity", p=0.5), "onehot"),
+    (StruMConfig(method="mip2q", w=8, p=0.75, L=3), "onehot"),
+    (StruMConfig(method="dliq", p=1.0, q=4), "maskfree"),
+    (StruMConfig(method="mip2q", p=1.0, L=5), "maskfree"),
+    (StruMConfig(method="dliq", p=0.0), "dense"),
+    (StruMConfig(method="mip2q", w=12, p=0.0), "dense"),
+]
+
+
+def _grouped_case(dev, g, m, k, n, cfg, dtype, seed=0):
+    from repro_torch.core.packing import PackedStruM
+    from repro_torch.models.quantize import _pack_leaf
+    rng = np.random.default_rng(seed)
+    wt = torch.from_numpy(rng.normal(size=(g, k, n)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(g, m, k)).astype(np.float32)).to(dev, dtype)
+    leaf = _pack_leaf(wt, cfg)
+    return x, PackedStruM(method=cfg.method, w=cfg.w, n_low=cfg.n_low, q=cfg.q,
+                          L=cfg.L, k_dim=k, **leaf)
+
+
+# K % w != 0 in every shape (200, 1400 and 40 against w = 16 and 12); G = 3
+# and 64; M = 6 and 24 take the kernels' two row tiles
+@pytest.mark.parametrize("g,m,k,n", [(3, 5, 200, 130), (64, 6, 1400, 136),
+                                     (3, 24, 40, 96)])
+@pytest.mark.parametrize("cfg,variant", GROUPED_CFGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_matches_plain_on_card(dev, g, m, k, n, cfg, variant, dtype):
+    x, packed = _grouped_case(dev, g, m, k, n, cfg, dtype)
+    name = f"grouped_{variant}"
+    before = K.launch_counts[name]
+    y = ops.strum_grouped_matmul(x, packed, out_dtype=torch.float32, variant=variant)
+    torch.cuda.synchronize()
+    assert K.launch_counts[name] == before + 1 and y.shape == (g, m, n)
+    y_plain = ops.strum_grouped_matmul(x.cpu(), _to_cpu(packed),
+                                       out_dtype=torch.float32, variant=variant)
+    err = (y.cpu() - y_plain).abs().max().item()
+    assert err <= REL_TOL * y_plain.abs().max().item(), (err, variant)
+
+
+def test_grouped_kernels_reject_mixed_devices(dev):
+    x, packed = _grouped_case(dev, 3, 4, 64, 64, StruMConfig(), torch.float32)
+    with pytest.raises(ValueError):
+        K.strum_matmul_grouped_onehot(x, packed.mask.cpu(), packed.hi, packed.lo,
+                                      packed.scale, w=16, n_low=8, q=packed.q,
+                                      method="mip2q")
+    with pytest.raises(ValueError):
+        K.strum_matmul_grouped_maskfree(x, packed.lo, packed.scale.cpu(), w=16,
+                                        q=packed.q, method="mip2q")
+    with pytest.raises(ValueError):
+        K.strum_matmul_grouped_dense(x, packed.hi.cpu(), packed.scale, w=16)
+
+
+def test_moe_paged_scheduler_launches_grouped_kernel_on_card(dev):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.engine import build_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = get_smoke_config("moonshot_v1_16b_a3b")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    plan = build_plan(params, cfg=StruMConfig(), device=dev)
+    assert plan.summary()["variant_distribution"] == {"cuda:onehot": 4,
+                                                      "cuda:grouped": 3}
+    sched = BatchScheduler(cfg, None, plan=plan, n_slots=2, max_len=48, device=dev,
+                           kv_cache=StruMConfig(method="mip2q", p=0.5, L=7))
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((21, 5)):
+        sched.submit(Request(uid=i, prompt=torch.from_numpy(rng.integers(0, 256, n)),
+                             max_new_tokens=12))
+    K.reset_launch_counts()
+    done = sched.run_to_completion()
+    assert sorted(len(r.output) for r in done) == [12, 12]
+    runs = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
+    assert K.launch_counts["grouped_onehot"] == 3 * cfg.n_layers * runs
+    assert K.launch_counts["onehot"] == 4 * cfg.n_layers * runs
 
 
 # ------------------------------------------------ packed KV pages: K4, K5, K11

@@ -143,9 +143,11 @@ def test_dispatch_and_apply_2d(cfg):
 
 
 def test_stacked_leaves_rejected():
+    """A stacked leaf goes to the grouped path, which rejects x without the
+    stack's lead dims (as the reference's ``dispatch`` does)."""
     pk = pack_array(torch.randn(32, 8), TCfg())
     leaf = {f: getattr(pk, f)[None] for f in FIELDS}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="lead dims"):
         engine.dispatch(leaf, torch.zeros(1, 32), strum=TCfg())
 
 

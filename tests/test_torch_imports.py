@@ -108,6 +108,13 @@ def test_paged_entry_points_raise_without_a_card(no_card):
     assert sched.cache_stats()["codec"] == "cache:fp_passthrough"
 
 
+def test_moe_entry_points_raise_without_a_card(no_card):
+    from repro_torch.launch import serve
+    for extra in ([], ["--paged", "--kv-cache", "dliq"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve.main(["--arch", "moonshot_v1_16b_a3b", "--smoke"] + extra)
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     for cwd, script in [(ROOT, ROOT / "chip_smoke.py"),
                         (tmp_path, Path(shutil.copy(ROOT / "chip_smoke.py", tmp_path)))]:
