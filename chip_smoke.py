@@ -65,7 +65,24 @@ Phases, each fatal on failure:
      torch family, logits compared to phase f's tolerance;
   m. 2-layer full-width Moonshot under dliq p=1 and mip2q p=0 weights must
      select and launch K7 (``cuda:grouped_maskfree``) and K8
-     (``cuda:grouped_dense``).
+     (``cuda:grouped_dense``);
+  n. hold the draft kernels K9 (histream: mask + hi) and K10 (maskfree_p: hi
+     only) against their plain versions at OLMo-1B's seven linear shapes
+     (mip2q p=0.5 L=5, bf16 x, M = 4 and 1) within KERNEL_TOL x max|plain|,
+     launched with null pointers for the fields they do not stream; time
+     kernel, plain version and bf16 ``torch.matmul`` on the draft-decoded
+     weight interleaved as in phase c;
+  o. serve full-width OLMo-1B speculatively through the paged runtime
+     (``serve --paged --kv-cache mip2q --prompt-len 128 --gen 32
+     --speculative 3 --draft histream|maskfree_p``): K9 (or K10) must launch
+     112 times per draft step and K1 112 times per verify window and
+     prefill chunk (so never in the draft lane), every drafted tensor must be
+     the target plan's, the draft payload ratio exactly 10/14 (8/14), and
+     the served tokens the verify lane's argmax at every committed position;
+     then phase h's requests teacher-forced through the speculative lane:
+     its predictions against phase h's plain lane at >= 0.9 of positions
+     (each disagreement printed with the plain lane's top-2 gap) and its
+     logits within phase f's tolerance of phase j's plain-lane logits.
 
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
@@ -109,6 +126,10 @@ KV_KERNELS = {
 PAGE = 16
 # K6-K8 (grouped, one launch per expert stack): kernel name -> (registry
 # variant, TPU kernel it replaces, plan of the phase-k cases)
+# K9, K10 (the draft lane): kernel name -> (registry variant, TPU kernel)
+DRAFT = {"histream": ("draft:histream", "src/repro/kernels/strum_matmul.py:348"),
+         "maskfree_p": ("draft:maskfree_p", "src/repro/kernels/strum_matmul.py:404")}
+SPEC_K = 3                      # phase o's speculative window
 GROUPED = {"grouped_onehot": ("cuda:grouped", "src/repro/kernels/strum_matmul.py:462"),
            "grouped_maskfree": ("cuda:grouped_maskfree",
                                 "src/repro/kernels/strum_matmul.py:522"),
@@ -777,7 +798,7 @@ def _paged_vs_torch(dev, res):
     _check(err <= 0.05 * scale, f"paged logits differ: {err} > 0.05 x {scale}")
     _check(agree >= 0.9, f"paged argmax agreement {agree} < 0.9")
     return {"max_abs_diff": err, "max_abs_logit": scale, "argmax_agreement": agree,
-            "tokens_equal_share": same}
+            "tokens_equal_share": same, "cuda_logits": got}
 
 
 # ----------------------------------------------------- grouped MoE (k-m) --
@@ -953,6 +974,7 @@ def phase_l(dev, counts):
           f"{t_p * 1e3:.1f} ms, decode {t_d / gen * 1e3:.2f} ms/token; launches "
           f"{dense} (K6 = 3 x {layers} x {steps} steps, 2 of them warm-up)", flush=True)
     out["logits"] = _paged_vs_torch(dev, res)
+    del out["logits"]["cuda_logits"]
     return out
 
 
@@ -977,6 +999,223 @@ def _serve_moe(argv, attn, grouped, counts):
     print(f"  launches in this run: {launched} (3 expert stacks and 4 attention "
           f"linears x {cfg.n_layers} layers x {steps} steps, 2 of them warm-up)",
           flush=True)
+
+
+# ---------------------------------------------- speculative decoding (n-o) --
+
+def phase_n(dev, gen, clocks):
+    """K9, K10 against their plain versions at OLMo-1B's linear shapes;
+    per-layer times with the bf16 ``torch.matmul`` yardstick on the
+    draft-decoded weights."""
+    import torch
+    from repro_torch.core.apply import pack_array
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.engine.draft import draft_dequant_packed
+    from repro_torch.kernels import strum_matmul as K
+    cfg = StruMConfig(method="mip2q", p=0.5, L=5)
+    # two layers of distinct weights: their payload exceeds the 50 MB L2
+    layers = []
+    for k, n in LAYER_SHAPES * 2:
+        w = torch.randn((k, n), generator=gen, device=dev)
+        layers.append(pack_array(w, cfg))
+        del w
+    calls = {"histream": (K.strum_matmul_histream, K.strum_matmul_histream_plain,
+                          lambda p: (p.mask, p.hi, p.scale), ("mask", "hi")),
+             "maskfree_p": (K.strum_matmul_maskfree_p, K.strum_matmul_maskfree_p_plain,
+                            lambda p: (p.hi, p.scale), ("hi",))}
+    out = {}
+    for mode, (kern, plain, fields, read) in calls.items():
+        row = {"max_abs_err": 0.0}
+        for m in (4, 1):
+            xs = {k: torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                  for k in (2048, 8192)}
+            timed = []
+            for packed in layers:
+                x, f = xs[packed.k_dim], fields(packed)
+                kw = dict(w=packed.w, n_low=packed.n_low)
+                y, y_plain = kern(x, *f, **kw), plain(x, *f, **kw)
+                torch.cuda.synchronize()
+                err = (y - y_plain).abs().max().item()
+                lim = KERNEL_TOL * y_plain.abs().max().item()
+                _check(err <= lim, f"{mode} M={m} K={packed.k_dim} N={packed.n_out}: "
+                       f"|kernel - plain| {err} > {lim}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                timed.append((x, f, kw, packed, draft_dequant_packed(
+                    packed, mode, torch.bfloat16)))
+            t = _interleaved(clocks, {     # two layers timed: times per layer
+                "ms": (lambda: [kern(c[0], *c[1], **c[2]) for c in timed], 20),
+                "plain_ms": (lambda: [plain(c[0], *c[1], **c[2]) for c in timed], 2),
+                "library_ms": (lambda: [torch.matmul(c[0], c[4]) for c in timed], 20)},
+                calls=2)
+            nbytes = sum(sum(getattr(c[3], f_).numel() for f_ in read)
+                         + 4 * c[3].n_out + c[0].numel() * c[0].element_size()
+                         + 4 * m * c[3].n_out for c in timed) / 2
+            flops = sum(2 * m * k * n for k, n in LAYER_SHAPES)
+            row[m] = dict(t, **_bound(nbytes, flops, PEAK_FLOPS["torch.bfloat16"]))
+            print(f"  {mode:10s} M={m} one layer (7 linears), median [min, max] of "
+                  f"{ROUNDS} interleaved rounds: " + ", ".join(
+                      f"{label} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
+                      f"{t['range_ms'][key][1]:.4f}] ms" for key, label in
+                      (("ms", "kernel"), ("plain_ms", "plain"),
+                       ("library_ms", "torch.matmul bf16"))) +
+                  f"; bound {row[m]['bound_ms']:.4f} ms ({row[m]['bound_by']}: "
+                  f"{nbytes / 1e6:.2f} MB); {t['clock']}", flush=True)
+            del timed
+        print(f"  {mode:10s} max |kernel - plain| {row['max_abs_err']:.3e} (<= "
+              f"{KERNEL_TOL} x max|plain| at every shape)", flush=True)
+        out[mode] = row
+    del layers
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_at(tree, name):
+    for key in name.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _verify_rows(sched, plen, rows):
+    """Wrap ``sched``'s verify lane: keep, per request, each window row's
+    logits under the output index it predicts (a later window overwrites a
+    row an earlier one predicted but did not commit)."""
+    verify = sched._verify
+
+    def wrapped(params, toks, pools, hot, table, slot, start):
+        lg, kv = verify(params, toks, pools, hot, table, slot, start)
+        uid = sched.slots[int(slot)].req.uid
+        for j in range(toks.shape[1]):
+            rows.setdefault(uid, {})[int(start) - plen + 1 + j] = lg[0, j]
+        return lg, kv
+    sched._verify = wrapped
+
+
+def phase_o(dev, plain, counts):
+    """Full-width OLMo-1B through the speculative paged runtime, once per
+    draft mode; then phase h's requests teacher-forced through it against
+    the plain lane's logits (phase j)."""
+    import torch
+    from repro_torch.launch import serve as S
+    out = {}
+    for mode in DRAFT:
+        _reset_kv_counts()
+        res = S.run(["--arch", "olmo_1b", "--seed", "0", "--paged", "--kv-cache",
+                     "mip2q", "--prompt-len", "128", "--gen", "32", "--speculative",
+                     str(SPEC_K), "--draft", mode])
+        launched = _kv_counts()
+        for line in S.report(res):
+            print("  " + line, flush=True)
+        sched, cfg, plan = res["sched"], res["cfg"], res["plan"]
+        _check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size) ==
+               (16, 2048, 16, 8192, 50304), f"not full-width OLMo-1B: {cfg}")
+        runs, spec = res["lane_runs"], res["spec"]
+        per = 7 * cfg.n_layers
+        other = "maskfree_p" if mode == "histream" else "histream"
+        _check(runs["draft"] > 0 and runs["decode"] == 0 and
+               launched[mode] == per * runs["draft"] and launched[other] == 0,
+               f"{mode} launches {launched[mode]}, want {per} x {runs['draft']} draft "
+               f"steps ({runs})")
+        # K1 only in the verify windows and prefill chunks: none in the draft lane
+        _check(launched["onehot"] == per * (runs["verify"] + runs["prefill_chunk"]),
+               f"K1 launches {launched['onehot']}, want {per} x (verify "
+               f"{runs['verify']} + prefill {runs['prefill_chunk']})")
+        _check(launched["paged_attention"] == cfg.n_layers * (
+            runs["draft"] + runs["verify"] + runs["prefill_chunk"]),
+            f"K4 launches {launched['paged_attention']} ({runs})")
+        modes = sched.draft_plan.meta["draft"]
+        _check(len(modes) == 7 and set(modes.values()) == {mode},
+               f"draft modes {modes}")
+        for name in modes:
+            got, target = _leaf_at(sched.draft_plan.params, name), _leaf_at(plan.params, name)
+            _check(all(got[f].data_ptr() == target[f].data_ptr() for f in
+                       ("mask", "hi", "lo", "scale")),
+                   f"{name}: the draft's payload is not the target plan's")
+            _check(got["spec"].variant == DRAFT[mode][0], f"{name}: {got['spec']}")
+        st = sched.cache_stats()
+        ratio = {"histream": 10 / 14, "maskfree_p": 8 / 14}[mode]
+        _check(st["speculative"]["ratio"] == ratio,
+               f"draft payload ratio {st['speculative']['ratio']}, want {ratio}")
+        outs = {r.uid: r.output for r in res["requests"]}
+        _check(sorted(outs) == [0, 1, 2, 3] and all(len(o) == 33 for o in outs.values()),
+               f"requests came back with {[len(o) for o in outs.values()]} tokens")
+        counts[mode] = launched[mode]
+        rounds = sorted(ms for kind, ms in res["ticks"] if kind == "decode")
+        acc = spec["accepted"] / spec["drafted"]
+        print(f"  launches: {launched}; K{9 if mode == 'histream' else 10} = {per} x "
+              f"{runs['draft']} draft steps, K1 = {per} x ({runs['verify']} verify + "
+              f"{runs['prefill_chunk']} prefill); draft tensors are the target's "
+              f"({len(modes)} entries); spec counters {spec}; acceptance {acc:.4f}",
+              flush=True)
+        row = {"drain_ms": res["drain_s"] * 1e3, "ticks": len(res["ticks"]),
+               "round_ms": _spread(rounds), "rounds": len(rounds), "lane_runs": runs,
+               "spec": spec, "acceptance": acc, "ratio": st["speculative"]["ratio"],
+               "launches": launched[mode]}
+        row.update(_spec_vs_plain(dev, res, plain, mode))
+        out[mode] = row
+        del res, sched, plan
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spec_vs_plain(dev, res, plain, mode):
+    """Phase h's requests teacher-forced on its tokens through a speculative
+    scheduler on the served plan: the tokens it serves (its predictions)
+    must be its verify lane's argmax at every committed position, and its
+    predictions and logits are held against phase h / j's plain lane."""
+    import torch
+    from repro_torch.serving import BatchScheduler, Request
+    sched, cfg = res["sched"], res["cfg"]
+    s2 = BatchScheduler(cfg, None, n_slots=sched.n_slots, max_len=sched.max_len,
+                        plan=res["plan"], kv_cache=sched.spec.cfg,
+                        page_size=sched.spec.page_size, speculative=SPEC_K, draft=mode,
+                        device=dev)
+    rows: dict = {}
+    _verify_rows(s2, plain["prompt"].shape[1], rows)
+    chunk = s2._chunk_prefill
+
+    def first(params, toks, pools, hot, table, slot, start, valid):
+        o = chunk(params, toks, pools, hot, table, slot, start, valid)
+        sl = s2.slots[int(slot)]
+        if int(start) + int(valid) >= sl.req.prompt.shape[0]:
+            rows.setdefault(sl.req.uid, {})[0] = o[0][0, int(valid) - 1]
+        return o
+    s2._chunk_prefill = first
+    for uid, toks in enumerate(plain["tokens"]):
+        s2.submit(Request(uid=uid, prompt=plain["prompt"][uid].cpu(),
+                          max_new_tokens=len(toks), force_tokens=toks))
+    with torch.inference_mode():
+        done = {r.uid: r.output for r in s2.run_to_completion()}
+    _check(s2.lane_runs["draft"] > 0, f"no draft step ran: {s2.lane_runs}")
+    vocab = cfg.vocab_size
+    got = torch.stack([torch.stack([rows[u][i][:vocab] for i in range(len(done[u]))])
+                       for u in sorted(done)]).float()
+    served = torch.tensor([done[u] for u in sorted(done)], device=got.device)
+    _check(torch.equal(got.argmax(-1), served), "served tokens are not the verify "
+           "lane's argmax at every committed position")
+    ref = plain["logits"].float()
+    toks = torch.tensor(plain["tokens"], device=got.device)
+    _check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+           f"speculative logits not finite or of shape {tuple(got.shape)}")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree_mask = got.argmax(-1) == ref.argmax(-1)
+    agree = agree_mask.float().mean().item()
+    top2 = ref.topk(2, dim=-1).values
+    gaps = [(int(u), int(i), (top2[u, i, 0] - top2[u, i, 1]).item())
+            for u, i in (~agree_mask).nonzero().tolist()]
+    same_h = (got.argmax(-1) == toks).float().mean().item()
+    print(f"  teacher-forced on phase h's tokens ({got.shape[1]} positions x "
+          f"{got.shape[0]} requests): speculative vs plain-lane logits max|diff| "
+          f"{err:.4e} (max|logit| {scale:.4e}), argmax agreement {agree:.3f} "
+          f"({len(gaps)} disagreements; plain top-2 gaps "
+          f"{[round(g, 5) for _, _, g in gaps]}), predictions = phase h's tokens at "
+          f"{same_h:.3f}; served tokens = verify argmax at every committed position",
+          flush=True)
+    _check(err <= 0.05 * scale, f"speculative logits differ: {err} > 0.05 x {scale}")
+    _check(agree >= 0.9 and same_h >= 0.9, f"speculative argmax agreement {agree} "
+           f"with the plain lane, {same_h} with phase h's tokens: < 0.9")
+    return {"max_abs_diff": err, "max_abs_logit": scale, "argmax_agreement": agree,
+            "disagreements": gaps, "tokens_equal_share": same_h}
 
 
 def measure(dev, clocks):
@@ -1026,6 +1265,8 @@ def measure(dev, clocks):
 
     _phase("j. phase h's sealed pages through K11; paged logits vs the torch family")
     times["paged"]["logits"] = phase_j(dev, res, counts)
+    plain = {"tokens": [r.output for r in res["requests"]], "prompt": res["prompt"],
+             "logits": times["paged"]["logits"].pop("cuda_logits")}
     del res
     torch.cuda.empty_cache()
 
@@ -1043,6 +1284,15 @@ def measure(dev, clocks):
                 "--gen", "4"], "maskfree", "grouped_maskfree", counts)
     _serve_moe(["--arch", MOE_ARCH, "--p", "0", "--layers", "2", "--gen", "4"],
                "dense", "grouped_dense", counts)
+    torch.cuda.empty_cache()
+
+    _phase("n. draft kernels K9, K10 vs plain versions at OLMo-1B shapes")
+    draft_rows = phase_n(dev, gen, clocks)
+
+    _phase(f"o. speculative paged serve, full-width OLMo-1B (k={SPEC_K}, histream and "
+           "maskfree_p, mip2q KV pages, batch 4, prompt 128, gen 32)")
+    times["speculative"] = phase_o(dev, plain, counts)
+    del plain
 
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
@@ -1087,6 +1337,20 @@ def measure(dev, clocks):
             "cases": [{k: c[k] for k in ("case", "max_abs_err", "limit", "ms",
                                          "plain_ms", "library_ms", "bound_ms",
                                          "bound_by")} for c in row["cases"]]})
+    for name, (variant, replaces) in DRAFT.items():
+        row = draft_rows[name]
+        t, one = row[4], row[1]
+        kernels.append({
+            "name": variant, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": row["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "workload": "one OLMo-1B layer's 7 linears at M=4 (the draft lane's four "
+                        f"slots), bf16 x, mip2q p=0.5; median of {ROUNDS} interleaved "
+                        "rounds",
+            "range_ms": t["range_ms"], "clock": t["clock"],
+            "m1_ms": one["ms"], "m1_bound_ms": one["bound_ms"],
+            "m1_plain_ms": one["plain_ms"], "m1_library_ms": one["library_ms"]})
     return kernels, times
 
 
@@ -1150,6 +1414,14 @@ def main() -> int:
           f"{moe['decode_ticks']}; dense loop decode {moe['dense_decode_ms_per_token']:.3f} "
           f"ms/token, prefill {moe['dense_prefill_ms']:.1f} ms; weights "
           f"x{moe['weights_ratio_vs_int8']:.4f} of int8")
+    for mode, sp in times["speculative"].items():
+        r = sp["round_ms"]
+        print(f"speculative path ({mode}, k={SPEC_K}): drain {sp['drain_ms']:.1f} ms, "
+              f"{sp['ticks']} ticks, round median {r['median']:.3f} ms [{r['min']:.3f}, "
+              f"{r['max']:.3f}] over {sp['rounds']} against the plain decode-only tick "
+              f"{tick['median']:.3f} ms; acceptance {sp['acceptance']:.4f} "
+              f"({int(sp['spec']['accepted'])} of {int(sp['spec']['drafted'])}); draft "
+              f"payload x{sp['ratio']:.4f}")
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

@@ -8,11 +8,17 @@ funnel (twin of the single-device half of ``repro.engine``).
 KV-cache page codecs and the consumers of the page pools are registry
 entries too (the ``cache:*`` family, :mod:`repro_torch.engine.cache`):
 ``build_cache_spec`` selects them per (codec, page geometry, device).
+``build_draft_plan`` derives a plan's reduced-fidelity twin over the same
+payload tensors (the ``draft:*`` partition, :mod:`repro_torch.engine.draft`).
 """
 from repro_torch.engine.cache import (CacheSpec, build_cache_spec,
                                       decode_pages, encode_page,
                                       gather_decode_pages,
                                       select_cache_variant)
+from repro_torch.engine.draft import (DRAFT_MODES, DraftPolicy,
+                                      build_draft_plan, draft_dequant_leaf,
+                                      draft_dequant_packed, draft_leaf_bytes,
+                                      draft_plan_bytes)
 from repro_torch.engine.dispatch import (apply, dequant_leaf, dispatch,
                                          dispatch_grouped, leaf_spec)
 from repro_torch.engine.plan import ExecutionPlan, PlanEntry, build_plan
@@ -22,7 +28,10 @@ from repro_torch.engine.registry import (BACKENDS, ExecSpec, KernelVariant,
                                          select_variant)
 
 __all__ = ["CacheSpec", "build_cache_spec", "decode_pages", "encode_page",
-           "gather_decode_pages", "select_cache_variant", "apply", "dispatch",
+           "gather_decode_pages", "select_cache_variant", "DRAFT_MODES",
+           "DraftPolicy", "build_draft_plan", "draft_dequant_leaf",
+           "draft_dequant_packed", "draft_leaf_bytes", "draft_plan_bytes",
+           "apply", "dispatch",
            "dispatch_grouped", "dequant_leaf", "leaf_spec", "ExecutionPlan",
            "PlanEntry", "build_plan", "BACKENDS", "ExecSpec", "KernelVariant",
            "LeafInfo", "get_variant", "register_kernel", "resolve_backend",

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import blocking, packing
 from repro_torch.core.policy import StruMConfig
 from repro_torch.core.quantizers import int8_symmetric, quantize_blocks
@@ -163,8 +164,16 @@ def decode_pages(leaf: dict, spec: CacheSpec, *, backend: Optional[str] = None,
     pages.  Returns ``(lead..., page_size, F)`` in ``out_dtype``.
     """
     variant = _pick_cache(spec, backend)
-    return variant.fn(leaf, cfg=spec.cfg, page_size=spec.page_size,
-                      out_dtype=out_dtype)
+    if telemetry.enabled():
+        telemetry.inc(f"cache/decode/{variant.name}")
+        if spec.packed:
+            # packed bytes this decode streams out of the pools
+            telemetry.inc("cache/decode_packed_bytes",
+                          sum(leaf[k].numel() for k in ("mask", "hi", "lo")
+                              if k in leaf))
+    with telemetry.span(variant.name, cat="cache"):
+        return variant.fn(leaf, cfg=spec.cfg, page_size=spec.page_size,
+                          out_dtype=out_dtype)
 
 
 def gather_decode_pages(pool: dict, page_ids: torch.Tensor, spec: CacheSpec, *,
@@ -252,8 +261,11 @@ def attn_sealed_partial(pool: dict, qf: torch.Tensor, page_table: torch.Tensor,
     else:
         variant = select_attn_variant(spec.cfg, page_size=spec.page_size, feat=1,
                                       backend=backend, device=spec.device)
-    return variant.fn(pool, qf, page_table, n_valid, cfg=spec.cfg, spec=spec,
-                      backend=backend)
+    if telemetry.enabled():
+        telemetry.inc(f"attn/variant/{variant.name}")
+    with telemetry.span(variant.name.replace("cache:attn_", "attn:"), cat="attn"):
+        return variant.fn(pool, qf, page_table, n_valid, cfg=spec.cfg, spec=spec,
+                          backend=backend)
 
 
 @register_kernel(
@@ -290,6 +302,15 @@ def _pool_fields(leaf: dict, keys) -> list:
             for k in keys]
 
 
+def _note_fused_bytes(pool: dict, page_table: torch.Tensor, keys) -> None:
+    """``attn/fused/packed_bytes``: the packed fields of every (slot, page)
+    entry of the table, K and V, as the reference counts its page gather."""
+    if telemetry.enabled():
+        telemetry.inc("attn/fused/packed_bytes", page_table.numel() * sum(
+            pool[kv][k][0].numel() for kv in ("k", "v") for k in keys
+            if k != "scale"))
+
+
 @register_kernel(
     "cache:attn_fused", family="cuda", priority=10, cache=True, attn=True,
     supports=lambda cfg, info: (cfg is not None and not _is_identity(cfg)
@@ -299,6 +320,7 @@ def _pool_fields(leaf: dict, keys) -> list:
                 "as mask/hi/lo bytes")
 def _attn_fused(pool, qf, page_table, n_valid, *, cfg, spec, backend=None):
     from repro_torch.kernels.strum_attention import strum_paged_attention
+    _note_fused_bytes(pool, page_table, CACHE_PAYLOAD_KEYS)
     return strum_paged_attention(
         qf.contiguous(), *_pool_fields(pool["k"], CACHE_PAYLOAD_KEYS),
         *_pool_fields(pool["v"], CACHE_PAYLOAD_KEYS), page_table, n_valid,
@@ -316,6 +338,7 @@ def _attn_fused(pool, qf, page_table, n_valid, *, cfg, spec, backend=None):
 def _attn_fused_maskfree(pool, qf, page_table, n_valid, *, cfg, spec,
                          backend=None):
     from repro_torch.kernels.strum_attention import strum_paged_attention_maskfree
+    _note_fused_bytes(pool, page_table, ("lo",))
     return strum_paged_attention_maskfree(
         qf.contiguous(), *_pool_fields(pool["k"], ("lo", "scale")),
         *_pool_fields(pool["v"], ("lo", "scale")), page_table, n_valid,

@@ -6,6 +6,13 @@ built by :func:`repro_torch.engine.build_plan` carries an :class:`ExecSpec`
 naming its selected variant; a hand-built leaf (``{"mask", "hi", "lo",
 "scale"}`` plus an explicit ``strum`` config) gets one selected on the fly
 from the same registry.
+
+With a telemetry recorder active, every call counts
+``dispatch/variant/<name>`` and the packed bytes it streams
+(``dispatch/packed_bytes``; a ``draft:*`` call counts only its mode's
+fields, mirrored under ``spec/draft_packed_bytes``).  The reference counts
+these once per leaf per ``jax.jit`` trace; the eager port counts once per
+call.
 """
 from __future__ import annotations
 
@@ -14,12 +21,36 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import packing
 from repro_torch.core.policy import StruMConfig
 from repro_torch.engine.registry import (ExecSpec, LeafInfo, get_variant,
                                          select_variant)
 
 __all__ = ["dispatch", "dispatch_grouped", "apply", "dequant_leaf", "leaf_spec"]
+
+
+def _draft_mode_of(variant_name: str) -> str:
+    """'draft:histream' / 'draft:torch_histream' -> 'histream'."""
+    tail = variant_name.split(":", 1)[-1]
+    return tail[len("torch_"):] if tail.startswith("torch_") else tail
+
+
+def _note_dispatch(variant, wleaf: dict) -> None:
+    """Count one call through ``variant`` into the active recorders: the
+    variant, and the packed bytes it streams (mask + hi + lo, or a draft
+    mode's subset, also under ``spec/draft_packed_bytes``)."""
+    if not telemetry.enabled():
+        return
+    telemetry.inc(f"dispatch/variant/{variant.name}")
+    if variant.draft:
+        from repro_torch.kernels.ops import draft_field_set
+        fields = draft_field_set(_draft_mode_of(variant.name))
+        payload = sum(wleaf[k].numel() for k in fields if k in wleaf)
+        telemetry.inc("spec/draft_packed_bytes", payload)
+    else:
+        payload = sum(wleaf[k].numel() for k in ("mask", "hi", "lo") if k in wleaf)
+    telemetry.inc("dispatch/packed_bytes", payload)
 
 
 def leaf_spec(wleaf: dict, strum: Optional[StruMConfig] = None
@@ -54,9 +85,16 @@ def _check_k(spec: Optional[ExecSpec], k_dim: int) -> None:
 def _pick(cfg: StruMConfig, info: LeafInfo, spec: Optional[ExecSpec],
           backend: Optional[str], device):
     """A per-call ``backend`` overrides the plan's recorded selection;
-    without one, the spec's variant is authoritative."""
-    if backend is None and spec is not None:
-        return get_variant(spec.variant)
+    without one, the spec's variant is authoritative.  The override stays
+    inside a draft leaf's partition: it never promotes a draft leaf to
+    full fidelity."""
+    if spec is None:
+        return select_variant(cfg, info, backend=backend, device=device)
+    recorded = get_variant(spec.variant)
+    if backend is None:
+        return recorded
+    if recorded.draft and not info.draft:
+        info = info._replace(draft=_draft_mode_of(spec.variant))
     return select_variant(cfg, info, backend=backend, device=device)
 
 
@@ -78,6 +116,7 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
                                 out_dtype=out_dtype)
     info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1])
     variant = _pick(cfg, info, spec, backend, x.device)
+    _note_dispatch(variant, wleaf)
     packed = _as_packed(wleaf, cfg, k_dim)
     lead = tuple(x.shape[:-1])
     y = variant.fn(x.reshape(-1, k_dim), packed, out_dtype=out_dtype)
@@ -117,6 +156,7 @@ def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
     out_dtype = out_dtype or x.dtype
     info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1], lead=lead)
     variant = _pick(cfg, info, spec, backend, x.device)
+    _note_dispatch(variant, wleaf)
     if variant.grouped:
         return variant.fn(x, _as_packed(wleaf, cfg, k_dim), out_dtype=out_dtype)
     wd = dequant_leaf(wleaf, x.dtype, cfg=cfg, k_dim=k_dim)

@@ -68,6 +68,8 @@ class ExecutionPlan:
     entries: dict
     params: Any
     backend: Optional[str] = None
+    meta: dict = dataclasses.field(default_factory=dict)   # e.g. a draft
+                                                           # plan's mode map
 
     def __getitem__(self, name: str) -> PlanEntry:
         return self.entries[name]

@@ -52,6 +52,9 @@ class LeafInfo(NamedTuple):
     attn: bool = False    # True selects the fused-attention partition of the
                           # cache family (``cache:attn_*``): consumers of the
                           # page pools, not bare codecs
+    draft: str = ""       # non-empty selects from the ``draft:*`` partition:
+                          # reduced-fidelity lowerings over the same payload
+                          # ("histream" | "maskfree_p"), the draft lane
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +73,11 @@ class KernelVariant:
     the page pools that returns the sealed-page partial of paged attention
     (``repro_torch.engine.cache``).  Selection partitions on both flags, so
     matmul lowerings, page codecs and attention consumers never compete.
+    ``draft=True`` marks a reduced-fidelity lowering (``draft:*``) with the
+    2-D ``fn`` contract that streams a strict subset of the payload's
+    fields; selection considers it only when ``info.draft`` names a mode,
+    and its ``supports`` matches that mode, so full-fidelity and draft
+    lowerings never compete and neither do the two modes.
     ``redispatch=True`` marks a variant whose landing under another family
     is no datapath substitution (it re-selects with the caller's backend
     inside), so the cross-family fallback onto it does not warn.
@@ -85,6 +93,7 @@ class KernelVariant:
     redispatch: bool = False
     cache: bool = False
     attn: bool = False
+    draft: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +112,8 @@ _REGISTRY: dict[str, KernelVariant] = {}
 def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
                     priority: int = 0, description: str = "",
                     grouped: bool = False, redispatch: bool = False,
-                    cache: bool = False, attn: bool = False):
+                    cache: bool = False, attn: bool = False,
+                    draft: bool = False):
     """Decorator: register ``fn`` as kernel variant ``name`` (latest wins)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
@@ -115,7 +125,7 @@ def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
         _REGISTRY[name] = KernelVariant(
             name=name, fn=fn, supports=supports, family=family,
             priority=priority, description=description, grouped=grouped,
-            redispatch=redispatch, cache=cache, attn=attn)
+            redispatch=redispatch, cache=cache, attn=attn, draft=draft)
         return fn
     return deco
 
@@ -150,14 +160,15 @@ def select_variant(cfg: StruMConfig, info: LeafInfo,
     predicate accepts ``(cfg, info)``; if that family has none (e.g.
     ``w % 8 != 0`` under onehot), fall back to the ``torch`` family, with a
     warning when the family was asked for explicitly (unless the fallback
-    is a ``redispatch`` variant).  ``info.cache`` and ``info.attn``
-    partition the candidates: only variants with the same two flags
-    compete."""
+    is a ``redispatch`` variant).  ``info.cache``, ``info.attn`` and
+    ``info.draft`` partition the candidates: only variants with the same
+    three flags compete, and the fallback stays inside the partition."""
     fam = resolve_backend(backend, device)
     for family in dict.fromkeys((fam, "torch")):
         cands = [v for v in _REGISTRY.values()
                  if v.family == family and v.cache == info.cache
-                 and v.attn == info.attn and v.supports(cfg, info)]
+                 and v.attn == info.attn and v.draft == bool(info.draft)
+                 and v.supports(cfg, info)]
         if cands:
             best = max(cands, key=lambda v: (v.priority, v.name))
             if family != fam and backend not in (None, "auto") \

@@ -8,6 +8,10 @@
   cuda:grouped            stacked (expert) leaves, the group a grid axis (K6)
   cuda:grouped_maskfree   stacked, p = 1.0 (K7)
   cuda:grouped_dense      stacked, n_low = 0, any ``w`` (K8)
+  draft:histream         draft lane: mask + hi, lo never read (K9)
+  draft:maskfree_p       draft lane: hi only, no mask or lo (K10)
+  draft:torch_histream   plain twins: decode only the streamed fields, then
+  draft:torch_maskfree_p torch.matmul (reference ``draft:xla_*``)
   torch:dequant   dequantize + torch.matmul, the fallback for every config
                   (stacks: ``dispatch_grouped`` dequantizes at the true K and
                   runs a batched matmul)
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
+from repro_torch.engine.draft import draft_dequant_packed
 from repro_torch.engine.registry import register_kernel
 from repro_torch.kernels import ops, ref
 
@@ -96,6 +101,63 @@ def _grouped_dense(xg, packed, *, out_dtype=None):
     _on_card("cuda:grouped_dense", xg)
     return ops.strum_grouped_matmul(xg, packed, out_dtype=out_dtype,
                                     variant="dense")
+
+
+# ------------------------------------------------------------------ draft --
+#
+# Reduced-fidelity lowerings over the SAME packed payload (self-speculative
+# decoding's draft model).  Selection is partitioned by ``info.draft`` (a
+# mode string set by ``engine.draft.build_draft_plan``) and each predicate
+# pins its own mode.  The torch twins decode only the streamed fields, so
+# the draft lane reads the same byte subset on every family.
+
+def _draft_mode(mode):
+    def pred(cfg, info):
+        return _two_d(cfg, info) and info.draft == mode and 0 < cfg.n_low < cfg.w
+    return pred
+
+
+def _histream_ok(cfg, info):
+    return _draft_mode("histream")(cfg, info) and cfg.w % 8 == 0
+
+
+@register_kernel(
+    "draft:histream", family="cuda", priority=10, draft=True,
+    supports=_histream_ok,
+    description="K9 draft: mask + hi streams only, lo decodes to zero")
+def _draft_histream(x2, packed, *, out_dtype=None):
+    _on_card("draft:histream", x2)
+    return ops.strum_matmul_draft(x2, packed, mode="histream", out_dtype=out_dtype)
+
+
+@register_kernel(
+    "draft:maskfree_p", family="cuda", priority=10, draft=True,
+    supports=_draft_mode("maskfree_p"),
+    description="K10 draft: hi stream only, in the leading block positions")
+def _draft_maskfree_p(x2, packed, *, out_dtype=None):
+    _on_card("draft:maskfree_p", x2)
+    return ops.strum_matmul_draft(x2, packed, mode="maskfree_p", out_dtype=out_dtype)
+
+
+def _draft_torch(mode):
+    def fn(x2, packed, *, out_dtype=None):
+        out_dtype = out_dtype or x2.dtype
+        wd = draft_dequant_packed(packed, mode, x2.dtype)
+        return (x2.to(torch.float32) @ wd.to(torch.float32)).to(out_dtype)
+    return fn
+
+
+register_kernel(
+    "draft:torch_histream", family="torch", priority=0, draft=True,
+    supports=_histream_ok,
+    description="draft fallback: mask + hi decode + torch.matmul, lo never "
+                "read")(_draft_torch("histream"))
+
+register_kernel(
+    "draft:torch_maskfree_p", family="torch", priority=0, draft=True,
+    supports=_draft_mode("maskfree_p"),
+    description="draft fallback: hi-only decode + torch.matmul, mask and lo "
+                "never read")(_draft_torch("maskfree_p"))
 
 
 @register_kernel(

@@ -7,6 +7,8 @@
 //   K6 strum_grouped_onehot_launch   <- strum_matmul_pallas_grouped
 //   K7 strum_grouped_maskfree_launch <- strum_matmul_pallas_grouped_maskfree
 //   K8 strum_grouped_dense_launch    <- strum_matmul_pallas_grouped_dense
+//   K9 strum_histream_launch   <- strum_matmul_pallas_histream  (draft: mask + hi)
+//   K10 strum_maskfree_p_launch <- strum_matmul_pallas_maskfree_p (draft: hi only)
 //
 // K6-K8 are the same kernels over a stack of G weights (MoE expert stacks):
 // y[g] = x[g] @ dequant(W[g]), x (G, M, K), every packed field (G, nb, rows,
@@ -18,6 +20,16 @@
 // same result on every run.
 // They compute every group's rows, empty experts included, as the TPU
 // kernel does.
+//
+// K9 and K10 are the draft lowerings of self-speculative decoding: the same
+// payload read at lower fidelity, a strict subset of its bytes.  K9
+// (histream) walks the mask as K1 does, a set bit takes the next hi byte and
+// a clear bit decodes to 0: the lo stream is never read.  K10 (maskfree_p)
+// reads neither mask nor lo: position i < n_high of a block takes hi[i], the
+// rest are 0.  Their wrappers pass a null pointer for every field they do not
+// stream, so a stray read faults instead of going unnoticed.  At OLMo-1B
+// decode (mip2q w = 16, p = 0.5) they read 10 and 8 of K1's 14 bytes per 16
+// weights: bound by bytes as K1 is, with less decode work per weight.
 //
 // Packed layout (one [1, w] block per column, N contiguous in every field):
 //   mask  (nb, w/8, N)            uint8, LSB-first, 1 = high
@@ -58,7 +70,7 @@ constexpr int kBN = 64;                       // output columns per block
 constexpr int kRowGroups = kThreads / kBN;    // threads sharing one column
 constexpr int kTargetKC = 64;                 // K elements staged per chunk
 
-enum Mode { kOnehot = 0, kMaskfree = 1, kDense = 2 };
+enum Mode { kOnehot = 0, kMaskfree = 1, kDense = 2, kHistream = 3, kMaskfreeP = 4 };
 enum Method { kSparsity = 0, kDliq = 1, kMip2q = 2 };
 
 struct Args {
@@ -110,6 +122,27 @@ __device__ __forceinline__ void decode_block(const Args& a, int b, int n, float*
   if (MODE == kDense) {  // K3 reads hi only
     const int8_t* hcol = a.hi + (size_t)b * a.hi_rows * a.N + n;
     for (int pos = 0; pos < a.w; ++pos) dst[pos * kBN] = (float)hcol[(size_t)pos * a.N];
+  } else if (MODE == kMaskfreeP) {  // K10 reads hi only: leading n_high positions
+    const int8_t* hcol = a.hi + (size_t)b * a.hi_rows * a.N + n;
+    for (int pos = 0; pos < a.w; ++pos)
+      dst[pos * kBN] = pos < a.n_high ? (float)hcol[(size_t)pos * a.N] : 0.f;
+  } else if (MODE == kHistream) {  // K9 reads mask + hi; low positions are 0
+    const int8_t* hcol = a.hi + (size_t)b * a.hi_rows * a.N + n;
+    const uint8_t* mcol = a.mask + (size_t)b * a.mask_rows * a.N + n;
+    int hc = 0;  // rank among the high positions seen so far
+    for (int byte = 0; byte < a.mask_rows; ++byte) {
+      const unsigned bits = mcol[(size_t)byte * a.N];
+      for (int j = 0; j < 8; ++j) {
+        const int pos = byte * 8 + j;
+        if (pos >= a.w) break;
+        float v = 0.f;
+        if ((bits >> j) & 1u) {
+          if (hc < a.n_high) v = (float)hcol[(size_t)hc * a.N];
+          ++hc;
+        }
+        dst[pos * kBN] = v;
+      }
+    }
   } else if (MODE == kMaskfree) {  // K2 reads lo only
     const uint8_t* lcol = a.lo + (size_t)b * a.lo_rows * a.N + n;
     for (int pos = 0; pos < a.w; ++pos)
@@ -287,6 +320,8 @@ int launch(const void* x, int x_bf16, const void* mask, const void* hi,
 STRUM_ENTRY(strum_onehot_launch, kOnehot)
 STRUM_ENTRY(strum_maskfree_launch, kMaskfree)
 STRUM_ENTRY(strum_dense_launch, kDense)
+STRUM_ENTRY(strum_histream_launch, kHistream)     // K9: lo is null
+STRUM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)  // K10: mask and lo are null
 
 // Grouped entries (K6-K8): x (G, M, K) contiguous, G >= 1, no split-K.
 #define STRUM_GROUPED_ENTRY(NAME, MODE)                                               \

@@ -19,6 +19,11 @@ reference holds:
 The reference's ``_pick_block`` (8 × 128 TPU tiles) has no twin: the Hopper
 kernels choose their own tiles.  The result is f32 from the kernel, cast
 to ``out_dtype`` (default: ``x.dtype``).
+
+``strum_matmul_draft`` / ``strum_gemv_draft`` are the reduced-fidelity
+reads of the same payload (``DRAFT_MODES``): ``"histream"`` (K9, mask + hi)
+and ``"maskfree_p"`` (K10, hi only).  Each hands its kernel only the fields
+``draft_field_set(mode)`` names.
 """
 from __future__ import annotations
 
@@ -29,9 +34,15 @@ import torch
 from repro_torch.core.packing import PackedStruM
 from repro_torch.kernels import strum_matmul as K
 
-__all__ = ["strum_matmul", "strum_gemv", "strum_grouped_matmul", "VARIANTS"]
+__all__ = ["strum_matmul", "strum_gemv", "strum_grouped_matmul",
+           "strum_matmul_draft", "strum_gemv_draft", "draft_field_set",
+           "VARIANTS", "DRAFT_MODES"]
 
 VARIANTS = ("onehot", "maskfree", "dense")
+
+#: reduced-fidelity draft lowerings over the same payload; each streams a
+#: strict subset of the packed fields (see ``draft_field_set``)
+DRAFT_MODES = ("histream", "maskfree_p")
 
 
 def _min1(a: torch.Tensor, axis: int) -> torch.Tensor:
@@ -93,6 +104,52 @@ def strum_gemv(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,
     """Decode-path matvec (M = a few tokens): the same kernels, which pick
     their small-M tile (8 rows) and split K across blocks themselves."""
     return strum_matmul(x, packed, out_dtype=out_dtype, variant=variant)
+
+
+def draft_field_set(mode: str) -> tuple:
+    """The packed payload fields a draft mode streams (the others are never
+    handed to its kernel)."""
+    if mode == "histream":
+        return ("mask", "hi")
+    if mode == "maskfree_p":
+        return ("hi",)
+    raise ValueError(f"unknown draft mode {mode!r}; want one of {DRAFT_MODES}")
+
+
+def strum_matmul_draft(x: torch.Tensor, packed: PackedStruM, *, mode: str,
+                       out_dtype=None) -> torch.Tensor:
+    """Reduced-fidelity y = x @ draft_dequant(packed) from the same payload
+    tensors: ``"histream"`` (K9) reads mask + hi, ``"maskfree_p"`` (K10) hi
+    only; lo never reaches either kernel."""
+    out_dtype = out_dtype or x.dtype
+    if mode not in DRAFT_MODES:
+        raise ValueError(f"unknown draft mode {mode!r}; "
+                         f"want one of {DRAFT_MODES}")
+    if packed.n_low >= packed.w:
+        raise ValueError(f"draft modes need high values to stream "
+                         f"(n_low={packed.n_low} w={packed.w})")
+    lead, k_in = tuple(x.shape[:-1]), x.shape[-1]
+    if k_in != packed.k_dim:
+        raise ValueError(f"x K={k_in} vs packed k_dim={packed.k_dim}")
+    x2 = x.reshape(-1, k_in).contiguous()
+    w = packed.w
+    if mode == "histream":
+        if w % 8:
+            raise ValueError(f"histream draft needs byte-aligned mask rows "
+                             f"(w={w})")
+        y = K.strum_matmul_histream(x2, packed.mask, packed.hi, packed.scale,
+                                    w=w, n_low=packed.n_low)
+    else:
+        y = K.strum_matmul_maskfree_p(x2, packed.hi, packed.scale, w=w,
+                                      n_low=packed.n_low)
+    return y.reshape(lead + (packed.n_out,)).to(out_dtype)
+
+
+def strum_gemv_draft(x: torch.Tensor, packed: PackedStruM, *, mode: str,
+                     out_dtype=None) -> torch.Tensor:
+    """Decode-path draft matvec: the same kernels at a few rows, where the
+    skipped fields' bytes are the time saved (the op is bound by bytes)."""
+    return strum_matmul_draft(x, packed, mode=mode, out_dtype=out_dtype)
 
 
 def strum_grouped_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,

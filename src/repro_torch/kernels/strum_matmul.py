@@ -1,5 +1,5 @@
 """StruM packed-weight matmul: the Hopper kernels K1-K3, their grouped
-twins K6-K8, and their plain PyTorch versions.
+twins K6-K8, the draft kernels K9-K10, and their plain PyTorch versions.
 
 ``strum_matmul_onehot`` (K1, general mask + hi + lo decode),
 ``strum_matmul_maskfree`` (K2, p = 1: lo fields only, in position order) and
@@ -15,6 +15,15 @@ stacked payload (every field ``(G, nb, rows, N)``, scale ``(G, 1, N)``): the
 MoE expert contractions.  They replace ``strum_matmul_pallas_grouped``,
 ``_grouped_maskfree`` and ``_grouped_dense``; the group is a grid axis of
 the same CUDA kernels, and K is never split across blocks.
+
+``strum_matmul_histream`` (K9) and ``strum_matmul_maskfree_p`` (K10) are
+the reduced-fidelity reads of self-speculative decoding's draft lane: K9
+places the hi values at their masked positions and decodes every low
+position to 0 (it never reads lo), K10 places them in the leading
+``n_high`` positions of each block (it reads neither mask nor lo).  They
+replace ``strum_matmul_pallas_histream`` and
+``strum_matmul_pallas_maskfree_p``; the fields a kernel does not stream go
+to it as null pointers.
 
 Each wrapper takes the device of its tensors as the choice: CPU tensors go
 to the plain version (the CPU tests' path), CUDA tensors launch the kernel,
@@ -44,7 +53,9 @@ __all__ = ["strum_matmul_onehot", "strum_matmul_maskfree", "strum_matmul_dense",
            "strum_matmul_grouped_maskfree", "strum_matmul_grouped_dense",
            "strum_matmul_grouped_onehot_plain",
            "strum_matmul_grouped_maskfree_plain",
-           "strum_matmul_grouped_dense_plain", "launch_counts",
+           "strum_matmul_grouped_dense_plain", "strum_matmul_histream",
+           "strum_matmul_maskfree_p", "strum_matmul_histream_plain",
+           "strum_matmul_maskfree_p_plain", "launch_counts",
            "reset_launch_counts", "METHOD_CODES"]
 
 METHOD_CODES = {"sparsity": 0, "dliq": 1, "mip2q": 2}
@@ -52,7 +63,9 @@ _ENTRY = {"onehot": "strum_onehot_launch", "maskfree": "strum_maskfree_launch",
           "dense": "strum_dense_launch",
           "grouped_onehot": "strum_grouped_onehot_launch",
           "grouped_maskfree": "strum_grouped_maskfree_launch",
-          "grouped_dense": "strum_grouped_dense_launch"}
+          "grouped_dense": "strum_grouped_dense_launch",
+          "histream": "strum_histream_launch",
+          "maskfree_p": "strum_maskfree_p_launch"}
 _BN = 64  # output columns per CUDA block (kBN in the source)
 
 #: kernel name -> launches since the last reset
@@ -98,6 +111,24 @@ def strum_matmul_maskfree_plain(x2, lo, scale, *, w: int, q: int,
 
 def strum_matmul_dense_plain(x2, hi, scale, *, w: int) -> torch.Tensor:
     return _matmul_scaled(x2, hi[:, :w].to(torch.int32), scale)
+
+
+def strum_matmul_histream_plain(x2, mask, hi, scale, *, w: int,
+                                n_low: int) -> torch.Tensor:
+    """K9's arithmetic: hi values at their masked positions, low positions
+    0; lo is never read."""
+    high = _unpack_bits_axis1(mask, w)                       # (nb, w, N)
+    return _matmul_scaled(x2, _scatter_expand(hi[:, :w - n_low].to(torch.int32),
+                                              high), scale)
+
+
+def strum_matmul_maskfree_p_plain(x2, hi, scale, *, w: int,
+                                  n_low: int) -> torch.Tensor:
+    """K10's arithmetic: hi values in the leading ``w - n_low`` positions of
+    each block, the rest 0; neither mask nor lo is read."""
+    hv = hi[:, :w - n_low].to(torch.int32)
+    vals = torch.cat([hv, hv.new_zeros((hv.shape[0], n_low, hv.shape[2]))], dim=1)
+    return _matmul_scaled(x2, vals, scale)
 
 
 def strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, **kw) -> torch.Tensor:
@@ -272,4 +303,32 @@ def strum_matmul_grouped_dense(x3, hi, scale, *, w: int) -> torch.Tensor:
     if _route(x3) == "plain":
         return strum_matmul_grouped_dense_plain(x3, hi, scale, w=w)
     return _launch("grouped_dense", x3, None, hi, None, scale, w=w, n_low=0, q=1,
+                   method="sparsity")
+
+
+def _check_draft(name: str, w: int, n_low: int) -> None:
+    if not 0 <= n_low < w:
+        raise ValueError(f"{name} kernel needs high values to stream "
+                         f"(n_low={n_low} w={w})")
+
+
+def strum_matmul_histream(x2, mask, hi, scale, *, w: int, n_low: int) -> torch.Tensor:
+    """K9 (draft): y = x2 @ (hi at its masked positions, low positions 0) *
+    scale, (M, N) f32; needs w % 8 == 0 and never reads lo."""
+    _check_draft("histream", w, n_low)
+    if w % 8:
+        raise ValueError(f"histream kernel needs byte-aligned mask rows (w={w})")
+    if _route(x2) == "plain":
+        return strum_matmul_histream_plain(x2, mask, hi, scale, w=w, n_low=n_low)
+    return _launch("histream", x2, mask, hi, None, scale, w=w, n_low=n_low, q=1,
+                   method="sparsity")
+
+
+def strum_matmul_maskfree_p(x2, hi, scale, *, w: int, n_low: int) -> torch.Tensor:
+    """K10 (draft): y = x2 @ (hi in the leading w - n_low block positions,
+    the rest 0) * scale, (M, N) f32; any w, reads neither mask nor lo."""
+    _check_draft("maskfree_p", w, n_low)
+    if _route(x2) == "plain":
+        return strum_matmul_maskfree_p_plain(x2, hi, scale, w=w, n_low=n_low)
+    return _launch("maskfree_p", x2, None, hi, None, scale, w=w, n_low=n_low, q=1,
                    method="sparsity")

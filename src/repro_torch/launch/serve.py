@@ -7,6 +7,9 @@ runtime with StruM-packed KV pages.
         --paged --kv-cache mip2q --prompt-len 128 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch moonshot_v1_16b_a3b --layers 4 [--paged --kv-cache mip2q]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b \
+        --paged --kv-cache mip2q --speculative 3 --draft histream \
+        --trace /tmp/t.json
 
 builds the model from a seed on the card, packs every linear (and, for the
 MoE architectures, every expert stack) into an
@@ -18,20 +21,29 @@ serves the batch as ``--batch`` requests through
 ``--page-size``), with sealed KV pages packed by ``--kv-cache`` (the fixed
 codec ``StruMConfig(method, p=0.5, q=4, L=7)``; ``none`` keeps raw pages),
 and prints the drain time, the ticks, the median decode-only tick and the
-cache's bytes against int8 pages.  ``--device cpu`` runs the plain PyTorch
-path (the ``torch`` family) without a card; without it and without a card
-it raises.
+cache's bytes against int8 pages.  ``--speculative K`` (with ``--paged``)
+drafts up to K tokens per slot per tick from the plan's payload read at
+reduced fidelity (``--draft histream``: mask + hi, K9; ``maskfree_p``: hi
+only, K10) and verifies them at full fidelity; it prints the acceptance
+(accepted over drafted, from the telemetry counters of a recorder scoped to
+the run) and the draft's payload bytes over the full payload's.
+``--trace PATH`` records telemetry for the whole run and writes a
+Chrome-trace JSON to PATH at exit (check it with ``python -m
+repro_torch.telemetry.check PATH``).  ``--device cpu`` runs the plain
+PyTorch path (the ``torch`` family) without a card; without it and without
+a card it raises.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, telemetry
 from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.policy import StruMConfig
 from repro_torch.launch.steps import (build_serving_plan, make_decode_step,
@@ -102,16 +114,18 @@ def serve(cfg, params, prompt: torch.Tensor, gen: int, *, device="cuda",
 
 def serve_paged(cfg, params, prompt: torch.Tensor, gen: int, *, plan=None,
                 kv_cache=None, page_size: int = 16, prefill: str = "chunked",
-                device="cuda") -> dict:
+                speculative: int = 0, draft=None, device="cuda") -> dict:
     """Serve each row of ``prompt`` (B, S) as one request of ``gen + 1``
     tokens through a :class:`BatchScheduler` with B slots and ``max_len =
     S + gen + page_size``, timing every tick (host clock, synchronized).
 
     One untimed request first runs through a one-slot scheduler of the same
-    configuration (kernel builds, first-call set-up).  Returns the scheduler, the finished requests, the drain seconds, each
-    tick's ``(kind, ms)`` (kind "decode" when no prompt waited or was
-    prefilling before the tick) and ``lane_runs`` summed over both
-    schedulers.
+    configuration (kernel builds, first-call set-up).  Returns the
+    scheduler, the finished requests, the drain seconds, each tick's
+    ``(kind, ms)`` (kind "decode" when no prompt waited or was prefilling
+    before the tick) and ``lane_runs`` summed over both schedulers; with
+    ``speculative`` also ``spec``, the ``spec/*`` counters of a recorder
+    scoped to the timed run.
     """
     from repro_torch.serving import BatchScheduler, Request
     dev = resolve_device(device)
@@ -121,7 +135,8 @@ def serve_paged(cfg, params, prompt: torch.Tensor, gen: int, *, plan=None,
     def make(slots):
         return BatchScheduler(cfg, params, n_slots=slots, max_len=n + gen + page_size,
                               plan=plan, kv_cache=kv_cache, page_size=page_size,
-                              prefill=prefill, device=dev)
+                              prefill=prefill, speculative=speculative,
+                              draft=draft, device=dev)
     w = make(1)
     w.submit(Request(uid=-1, prompt=prompt[0, :page_size + 1], max_new_tokens=2))
     w.run_to_completion()
@@ -130,22 +145,26 @@ def serve_paged(cfg, params, prompt: torch.Tensor, gen: int, *, plan=None,
     for i in range(b):
         sched.submit(Request(uid=i, prompt=prompt[i], max_new_tokens=gen + 1))
     ticks = []
-    _sync(dev)
-    t0 = time.perf_counter()
-    while sched.queue or any(s is not None for s in sched.slots):
-        decode_only = not sched.queue and not sched._prefill_slots()
-        t1 = time.perf_counter()
-        sched.step()
+    with (telemetry.recording() if speculative else contextlib.nullcontext()) as rec:
         _sync(dev)
-        ticks.append(("decode" if decode_only else "mixed",
-                      (time.perf_counter() - t1) * 1e3))
-    drain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while sched.queue or any(s is not None for s in sched.slots):
+            decode_only = not sched.queue and not sched._prefill_slots()
+            t1 = time.perf_counter()
+            sched.step()
+            _sync(dev)
+            ticks.append(("decode" if decode_only else "mixed",
+                          (time.perf_counter() - t1) * 1e3))
+        drain = time.perf_counter() - t0
     # nothing is left to run: this only collects the finished requests
     done = sorted(sched.run_to_completion(), key=lambda r: r.uid)
     for k, v in sched.lane_runs.items():
         lane_runs[k] += v
-    return {"sched": sched, "requests": done, "drain_s": drain, "ticks": ticks,
-            "lane_runs": lane_runs}
+    out = {"sched": sched, "requests": done, "drain_s": drain, "ticks": ticks,
+           "lane_runs": lane_runs}
+    if speculative:
+        out["spec"] = rec.counters("spec/")
+    return out
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -175,6 +194,17 @@ def _parser() -> argparse.ArgumentParser:
                     help="(--paged) pack sealed KV pages with this codec")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill", default="chunked", choices=["chunked", "serial"])
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="(--paged) self-speculative decoding: draft up to K "
+                         "tokens per slot per tick from the packed payload read "
+                         "at reduced fidelity, then verify at full fidelity "
+                         "(token-identical greedy output)")
+    ap.add_argument("--draft", default="histream", choices=["histream", "maskfree_p"],
+                    help="(--speculative) which streams the draft lane reads: "
+                         "histream = mask + hi (skip lo), maskfree_p = hi only")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="record telemetry and write a Chrome-trace JSON to PATH "
+                         "at exit; open it in Perfetto or chrome://tracing")
     return ap
 
 
@@ -182,6 +212,11 @@ def run(argv=None) -> dict:
     """Parse ``argv``, build, pack and serve; returns what ``main`` prints
     (config, plan, served params, prompt, tokens, logits, times, bytes)."""
     args = _parser().parse_args(argv)
+    if args.speculative and not args.paged:
+        raise ValueError("--speculative needs --paged (the speculative lane is "
+                         "the paged runtime's)")
+    if args.trace:
+        telemetry.configure(trace_path=args.trace)
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers is not None:
@@ -207,7 +242,8 @@ def run(argv=None) -> dict:
             StruMConfig(method=args.kv_cache, p=0.5, q=4, L=7)
         res.update(serve_paged(cfg, params, prompt, args.gen, plan=res["plan"],
                                kv_cache=kv, page_size=args.page_size,
-                               prefill=args.prefill, device=dev))
+                               prefill=args.prefill, speculative=args.speculative,
+                               draft=args.draft, device=dev))
         return res
     toks, t_p, t_d, lg = serve(cfg, params, prompt, args.gen, device=dev,
                                return_logits=True)
@@ -244,7 +280,15 @@ def _paged_report(res: dict) -> list:
     sched, st = res["sched"], res["sched"].cache_stats()
     dec = sorted(ms for kind, ms in res["ticks"] if kind == "decode")
     med = f"{dec[len(dec) // 2]:.2f} ms over {len(dec)}" if dec else "none"
-    return [
+    spec = []
+    if sched.speculative:
+        c, sp = res["spec"], st["speculative"]
+        acc = c.get("accepted", 0) / c["drafted"] if c.get("drafted") else float("nan")
+        spec = [f"speculative: k={sp['k']} draft={sp['mode']} acceptance {acc:.3f} "
+                f"({int(c.get('accepted', 0))} of {int(c.get('drafted', 0))} drafts "
+                f"in {int(c.get('rounds', 0))} rounds; payload ratio "
+                f"{sp['ratio']:.4f})"]
+    return spec + [
         f"paged serve: {len(res['requests'])} requests in "
         f"{res['drain_s'] * 1e3:.1f} ms ({len(res['ticks'])} ticks, "
         f"{sched.prefill_mode} prefill) on {res['device']}; decode-only tick "
@@ -255,8 +299,35 @@ def _paged_report(res: dict) -> list:
         f"sample: {res['requests'][0].output[:16]}"]
 
 
+def _telemetry_report() -> list:
+    """End-of-run summary of the active recorder (``--trace`` /
+    ``STRUM_TRACE``), as the reference's serve entry point prints it."""
+    rec = telemetry.current()
+    if rec is None:
+        return []
+    lines = []
+    lat = rec.latency_summary()
+    if lat["n_requests"]:
+        def ms(v):
+            return "n/a" if v is None else f"{v / 1e3:.1f} ms"
+        gp = lat["goodput_tok_s"]
+        lines.append(f"telemetry: {lat['n_retired']}/{lat['n_requests']} retired; "
+                     f"ttft p50/p99 {ms(lat['ttft_p50_us'])}/{ms(lat['ttft_p99_us'])}; "
+                     f"tok p50/p99 {ms(lat['tok_p50_us'])}/{ms(lat['tok_p99_us'])}; "
+                     f"goodput {'n/a' if gp is None else f'{gp:.1f} tok/s'}")
+    disp = rec.counters("dispatch/variant/")
+    if disp:
+        counts = {k: int(v) for k, v in sorted(disp.items())}
+        lines.append(f"telemetry: dispatch {counts}; packed bytes "
+                     f"{int(rec.counter('dispatch/packed_bytes'))}")
+    cache = rec.counters("cache/")
+    if cache:
+        lines.append(f"telemetry: cache {dict(sorted(cache.items()))}")
+    return lines
+
+
 def main(argv=None) -> int:
-    for line in report(run(argv)):
+    for line in report(run(argv)) + _telemetry_report():
         print(line)
     return 0
 

@@ -1,6 +1,6 @@
 """Step builders shared by the server and the tests (twin of the serving
 half of ``repro.launch.steps``): one definition of the plan, prefill and
-decode steps, and of the paged runtime's two lanes."""
+decode steps, and of the paged runtime's lanes."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +8,8 @@ from typing import Optional
 from repro_torch.models import transformer as tfm
 
 __all__ = ["build_serving_plan", "make_prefill_step", "make_decode_step",
-           "make_paged_decode_step", "make_chunked_prefill_step"]
+           "make_paged_decode_step", "make_chunked_prefill_step",
+           "make_verify_step"]
 
 
 def build_serving_plan(params, *, cfg=None, policy=None,
@@ -53,4 +54,15 @@ def make_chunked_prefill_step(cfg, spec, cache_backend: Optional[str] = None, **
         return tfm.prefill_chunk_step(params, tokens, pools, hot, page_table,
                                       slot, start, valid_len, spec, cfg,
                                       cache_backend=cache_backend, **kw)
+    return step
+
+
+def make_verify_step(cfg, spec, cache_backend: Optional[str] = None, **kw):
+    """Verify lane of self-speculative decoding: one fixed-shape (1, k+1)
+    step that scores a slot's draft window at full fidelity and writes no
+    cache state (the scheduler commits the accepted KV rows itself)."""
+    def step(params, tokens, pools, hot, page_table, slot, start):
+        return tfm.verify_chunk_step(params, tokens, pools, hot, page_table,
+                                     slot, start, spec, cfg,
+                                     cache_backend=cache_backend, **kw)
     return step

@@ -1,6 +1,7 @@
 """GQA attention (twin of ``repro.models.attention``): chunked causal
 online-softmax attention for train/prefill, cache-based decode, and the
-paged decode and chunked-prefill attention of the serving runtime, as plain
+paged decode, chunked-prefill and speculative-verify attention of the
+serving runtime, as plain
 torch ops that mirror the reference's arithmetic around the kernels.
 
 Head order is kv-major, as in the reference: query head ``h`` belongs to kv
@@ -15,7 +16,8 @@ import torch
 from repro_torch.models.layers import apply_rope, linear, linear_def
 
 __all__ = ["attn_def", "attention", "decode_attention", "init_cache_spec",
-           "decode_attention_paged", "prefill_attention_paged"]
+           "decode_attention_paged", "prefill_attention_paged",
+           "verify_attention_paged"]
 
 NEG_INF = -1e30
 
@@ -238,23 +240,55 @@ def prefill_attention_paged(p: dict, x: torch.Tensor, cfg, pool: dict, spec,
     (k, v))`` with k/v (1, C, KV, hd); writing them into pages or the tail
     is the caller's job.
     """
+    return _chunk_attention_paged(p, x, cfg, pool, None, spec, table_row, start,
+                                  cache_backend, **kw)
+
+
+def verify_attention_paged(p: dict, x: torch.Tensor, cfg, pool: dict,
+                           tails: tuple, spec, table_row: torch.Tensor,
+                           start: torch.Tensor, cache_backend=None, **kw):
+    """Speculation-verify attention for ONE slot.  x: (1, C, D).
+
+    As :func:`prefill_attention_paged`, but ``start`` (the slot's committed
+    length) need not be page-aligned: the committed prefix is ``start //
+    page_size`` sealed pages plus a partly filled hot tail, so a third
+    online-softmax partial joins the sealed pages and the causal chunk --
+    the tail's committed rows (tail index ``i`` holds position ``(start //
+    ps) * ps + i``, valid strictly below ``start``: rows at or after it may
+    hold stale draft KV and never score).  ``tails`` is the slot's
+    ``(k_tail, v_tail)``, (1, page_size, KV, hd).  Nothing is written;
+    returns ``(y, (k, v))`` and the caller commits the accepted rows.
+    """
+    return _chunk_attention_paged(p, x, cfg, pool, tails, spec, table_row, start,
+                                  cache_backend, **kw)
+
+
+def _chunk_attention_paged(p, x, cfg, pool, tails, spec, table_row, start,
+                           cache_backend, **kw):
+    """One request's chunk at positions ``start + [0, C)`` against the
+    sealed pages before ``start // page_size``, the ``tails`` rows below
+    ``start`` (none when ``tails`` is None) and itself, causal."""
     from repro_torch.engine.cache import attn_sealed_partial
     b, c, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     rep = nh // nkv
     ps = spec.page_size
-    positions = (start.to(torch.long) + torch.arange(c, device=x.device))[None, :]
+    start_l = start.to(torch.long)
+    positions = (start_l + torch.arange(c, device=x.device))[None, :]
     q, k, v = _qkv(p, x, cfg, positions.expand(b, c), **kw)
 
     qf5 = (q.to(torch.float32) / math.sqrt(hd)).reshape(b, c, nkv, rep, hd)
     qr = qf5.permute(0, 2, 1, 3, 4).reshape(b, nkv, c * rep, hd)
-    n_valid = (start.to(torch.int32) // ps).reshape(1).expand(b)
-    sealed = attn_sealed_partial(pool, qr, table_row[None, :], n_valid, spec,
-                                 backend=cache_backend)
+    n_valid = (start_l // ps).to(torch.int32).reshape(1).expand(b)
+    parts = [attn_sealed_partial(pool, qr, table_row[None, :], n_valid, spec,
+                                 backend=cache_backend)]
+    if tails is not None:
+        t_pos = (start_l // ps) * ps + torch.arange(ps, device=x.device)
+        parts.append(_softmax_partial(qr, *tails, (t_pos < start_l)[None, None, None, :]))
     # query row i = (chunk row i // rep, i % rep) sees keys k <= i // rep
     qrow = torch.arange(c * rep, device=x.device) // rep
     causal = (qrow[:, None] >= torch.arange(c, device=x.device)[None, :])[None, None]
-    o = _merge_partials([sealed, _softmax_partial(qr, k, v, causal)])
+    o = _merge_partials(parts + [_softmax_partial(qr, k, v, causal)])
     o = o.reshape(b, nkv, c, rep, hd).permute(0, 2, 1, 3, 4)
     y = linear(p["wo"], o.reshape(b, c, nh * hd).to(x.dtype), **kw)
     return y, (k, v)

@@ -1,7 +1,8 @@
 """Decoder stack, the dense and MoE families of
 ``repro.models.transformer``: ``model_defs``, ``forward_train`` (forward
 only), ``prefill`` and ``decode_step``, and the serving runtime's paged
-lanes ``decode_step_paged`` and ``prefill_chunk_step``.
+lanes ``decode_step_paged``, ``prefill_chunk_step`` and
+``verify_chunk_step``.
 
 Parameters keep the reference layout: per period position ``pos{i}``,
 every leaf stacked with a leading ``n_groups`` dim.  The period is the lcm
@@ -25,7 +26,8 @@ from repro_torch.models.layers import (apply_norm, embed_def, embed_lookup,
                                        norm_def)
 
 __all__ = ["period", "n_groups", "model_defs", "forward_train", "prefill",
-           "decode_step", "decode_step_paged", "prefill_chunk_step"]
+           "decode_step", "decode_step_paged", "prefill_chunk_step",
+           "verify_chunk_step"]
 
 
 def _check_family(cfg) -> None:
@@ -165,11 +167,12 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
 
 # -------------------------------------------------------- paged serving --
 #
-# The serving runtime's two lanes (repro_torch.serving.scheduler): a decode
-# step over every slot and a chunked-prefill step over one slot, both
-# reading KV through the page table.  ``pools`` holds the sealed pages per
+# The serving runtime's lanes (repro_torch.serving.scheduler): a decode
+# step over every slot, a chunked-prefill step over one slot and the
+# speculative verify step over one slot, all reading KV through the page
+# table.  ``pools`` holds the sealed pages per
 # layer position, ``hot`` the per-slot tail pages.  Shapes are fixed per
-# lane -- (n_slots, 1) and (1, chunk) -- and ``slot`` / ``start`` /
+# lane -- (n_slots, 1), (1, chunk) and (1, k + 1) -- and ``slot`` / ``start`` /
 # ``valid_len`` / ``cache_len`` are device tensors, so no shape depends on
 # a prompt's length and no step reads a value back to the host.  The tails
 # are updated in place (the reference returns new ones); sealing full pages
@@ -244,3 +247,46 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     lg = logits(params.get("lm_head"), params["embed"], x)
     return lg, hot, {pos: {n: torch.stack(ts) for n, ts in c_.items()}
                      for pos, c_ in chunk_kv.items()}
+
+
+def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
+                      hot: dict, page_table: torch.Tensor, slot: torch.Tensor,
+                      start: torch.Tensor, spec, cfg, cache_backend=None, **kw):
+    """Score a speculative token window for ONE slot.  tokens: (1, C) int.
+
+    The verify lane of self-speculative decoding: ``tokens[0]`` is the
+    slot's next input token and ``tokens[1:]`` the draft continuation, at
+    positions ``start + [0, C)`` where ``start`` (a device scalar) is the
+    slot's committed length.  Full-fidelity weights, so ``argmax(logits[0,
+    j])`` is what plain decode would emit after the same prefix.  Nothing
+    is written: the scheduler commits the accepted rows of ``chunk_kv``
+    into the tails itself (its rollback).  Returns ``(logits (1, C, V),
+    chunk_kv)``, ``chunk_kv`` per layer position the window's
+    group-stacked (k, v) in the tails' dtype.
+    """
+    kw.setdefault("strum", cfg.strum)
+    x = _embed_in(params, tokens, cfg)
+    slot1 = slot.to(torch.long).reshape(1)
+    row = page_table.index_select(0, slot1)[0]
+    chunk_kv: dict = {f"pos{i}": {"k": [], "v": []} for i in range(period(cfg))}
+    for g in range(n_groups(cfg)):
+        gp, pool_g, hot_g = (_group(params["blocks"], g), _group(pools, g),
+                             _group(hot, g))
+        for i in range(period(cfg)):
+            bp, hp = gp[f"pos{i}"], hot_g[f"pos{i}"]
+            if "attn" not in bp:
+                raise NotImplementedError(
+                    "speculative verify needs an attention-only stack: SSM "
+                    "recurrent state cannot roll back a rejected window")
+            tails = (hp["k_tail"].index_select(0, slot1),
+                     hp["v_tail"].index_select(0, slot1))
+            h, (ck, cv) = attn_mod.verify_attention_paged(
+                bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg, pool_g[f"pos{i}"],
+                tails, spec, row, start, cache_backend=cache_backend, **kw)
+            chunk_kv[f"pos{i}"]["k"].append(ck.to(hp["k_tail"].dtype))
+            chunk_kv[f"pos{i}"]["v"].append(cv.to(hp["v_tail"].dtype))
+            x, _ = _ffn_residual(bp, x + h, cfg, kw)
+    x = apply_norm(params["final_norm"], x, cfg)
+    lg = logits(params.get("lm_head"), params["embed"], x)
+    return lg, {pos: {n: torch.stack(ts) for n, ts in c_.items()}
+                for pos, c_ in chunk_kv.items()}

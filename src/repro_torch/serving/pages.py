@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import packing
 from repro_torch.engine.cache import (CACHE_PAYLOAD_KEYS, CacheSpec,
                                       build_cache_spec, encode_page,
@@ -51,9 +52,14 @@ class PageAllocator:
 
     def alloc(self, n: int = 1) -> list:
         if n > len(self._free):
+            telemetry.inc("pages/alloc_fail")
             raise PagesExhausted(
                 f"requested {n} pages, {len(self._free)}/{self.n_pages} free")
         out, self._free = self._free[:n], self._free[n:]
+        if telemetry.enabled():
+            telemetry.inc("pages/alloc", n)
+            telemetry.event("page_alloc", cat="pages", n=n)
+            telemetry.gauge("pages/in_use", self.n_pages - len(self._free))
         return out
 
     def free(self, ids) -> None:
@@ -61,12 +67,19 @@ class PageAllocator:
         if dup:
             raise ValueError(f"double free of pages {sorted(dup)}")
         self._free.extend(int(i) for i in ids)
+        if telemetry.enabled():
+            telemetry.inc("pages/freed", len(ids))
+            telemetry.event("page_free", cat="pages", n=len(ids))
+            telemetry.gauge("pages/in_use", self.n_pages - len(self._free))
         self.defrag()
 
     def defrag(self) -> dict:
         self._free.sort()
         runs = sum(1 for a, b in zip(self._free, self._free[1:])
                    if b != a + 1) + (1 if self._free else 0)
+        if telemetry.enabled():
+            telemetry.inc("pages/defrag")
+            telemetry.gauge("pages/free_runs", runs)
         return {"free": len(self._free), "n_pages": self.n_pages,
                 "free_runs": runs}
 
@@ -202,6 +215,14 @@ def cache_stats(pools: dict, hot: dict, spec: CacheSpec, cfg,
     int8_pages = 2 * g * n_attn * n_pages * ps * f          # same pages, int8
     dtype_bytes = cfg.activation_dtype.itemsize
     dense = 2 * g * n_attn * n_slots * max_len * f * dtype_bytes
+    if telemetry.enabled():
+        # what the pools hold packed vs what stays full width (the hot
+        # tails, and fp pools)
+        telemetry.gauge("cache/resident_packed_bytes",
+                        int(packed) if spec.packed else 0)
+        telemetry.gauge("cache/resident_fp_bytes",
+                        int(_tree_bytes(hot)) + (0 if spec.packed else int(packed)))
+        telemetry.gauge("cache/ratio_vs_int8", packed / max(int8_pages, 1))
     return {
         "codec": spec.variant,
         "page_size": ps,

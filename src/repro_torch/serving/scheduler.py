@@ -1,7 +1,7 @@
 """Continuous-batching scheduler over paged, StruM-compressible KV caches
 (twin of ``repro.serving.scheduler``).
 
-A priority request queue, slot-based batching, a page allocator and two
+A priority request queue, slot-based batching, a page allocator and
 fixed-shape lanes:
 
   * **decode lane**: one (n_slots, 1) step; every decoding slot advances
@@ -11,7 +11,14 @@ fixed-shape lanes:
     every slot runs through, chunk by chunk, with ``slot`` / ``start`` /
     ``valid_len`` as device scalars.  ``prefill="serial"`` keeps the
     one-shot prefill (and charges the decode lane the head-of-line stall it
-    implies) as the comparison baseline.
+    implies) as the comparison baseline;
+  * **speculative lanes** (``speculative=k``): the decode lane becomes a
+    draft/verify round -- up to ``k`` draft tokens per slot through the
+    decode step on the plan's payload read at reduced fidelity
+    (``engine.build_draft_plan``: K9 or K10 on the card), then one (1, k+1)
+    verify step per slot at full fidelity whose greedy predictions judge
+    the drafts (longest accepted prefix) and give the bonus token.  Greedy
+    output equals plain decode's token for token.
 
 Pages are allocated at admission, sealed when they fill (packed through the
 engine's ``cache:*`` codec when ``kv_cache`` is a :class:`StruMConfig`) and
@@ -22,12 +29,23 @@ read the pools' packed bytes by page id.
 Weights come as ``params`` (dense, or a served tree) or ``plan=`` (a
 prebuilt :class:`repro_torch.engine.ExecutionPlan`).  The scheduler and
 its tensors live on ``device`` (default ``"cuda"``; raises without a card
-unless ``device="cpu"``).  Per tick it reads one argmax back to the host;
-the lanes themselves read nothing back.
+unless ``device="cpu"``).  Per tick it reads one argmax back to the host
+(the speculative lanes one per draft step and one per verify); the lanes
+themselves read nothing back.
 
-Not ported yet: ``speculative=`` (only 0 is accepted), ``schedule=``
-(the ``StruMSchedule`` JSON loader), ``mesh=`` / ``rules=`` and the
-telemetry hooks.
+The tails are written in place, so unlike the reference (which keeps the
+pre-draft tails as an immutable value) the speculative round snapshots the
+active slots' tails before the draft steps and copies them back before
+verify; accepted rows are then copied in.  The tails after every round
+equal the reference's.
+
+With a telemetry recorder active the scheduler records the reference's
+spans (``sched:*``, ``spec:*``), counters and gauges (``sched/*``,
+``spec/drafted``, ``spec/accepted``, ``spec/rounds``) and request
+lifecycle events.
+
+Not ported yet: ``schedule=`` (the ``StruMSchedule`` JSON loader) and
+``mesh=`` / ``rules=``.
 """
 from __future__ import annotations
 
@@ -37,9 +55,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, telemetry
 from repro_torch.launch.steps import (make_chunked_prefill_step,
-                                      make_paged_decode_step, make_prefill_step)
+                                      make_paged_decode_step, make_prefill_step,
+                                      make_verify_step)
 from repro_torch.serving import pages as pages_mod
 from repro_torch.serving.pages import PageAllocator, PagesExhausted
 
@@ -93,18 +112,22 @@ class BatchScheduler:
     (one ``prefill_chunk``-token chunk per tick, interleaved with the
     decode lane) or ``"serial"``.
 
+    Speculative knobs: ``speculative=k`` (k > 0, needs ``plan=``) drafts
+    up to ``k`` tokens per slot per tick from the plan's payload at reduced
+    fidelity and verifies them at full fidelity; ``draft=`` is a mode
+    (``"histream"``, the default, or ``"maskfree_p"``) or an
+    :class:`repro_torch.engine.DraftPolicy`.  Attention-only stacks.
+
     ``lane_runs`` counts the lane steps run: ``decode`` ticks,
-    ``prefill_chunk`` chunks and ``prefill_serial`` one-shot prefills.
+    ``prefill_chunk`` chunks, ``prefill_serial`` one-shot prefills, and the
+    speculative lane's ``draft`` steps and ``verify`` windows.
     """
 
     def __init__(self, cfg, params, n_slots: int = 4, max_len: int = 256,
                  plan=None, kv_cache=None, page_size: int = 16,
                  n_pages: Optional[int] = None, prefill: str = "chunked",
                  prefill_chunk: Optional[int] = None, cache_backend=None,
-                 speculative: int = 0, device="cuda"):
-        if speculative:
-            raise ValueError("speculative decoding is not ported yet; "
-                             "speculative must be 0")
+                 speculative: int = 0, draft=None, device="cuda"):
         if prefill not in ("chunked", "serial"):
             raise ValueError(f"prefill={prefill!r}; want 'chunked'|'serial'")
         dev = resolve_device(device)
@@ -146,7 +169,34 @@ class BatchScheduler:
         self._chunk_prefill = make_chunked_prefill_step(
             cfg, self.spec, cache_backend=cache_backend)
         self._prefill = make_prefill_step(cfg)
-        self.lane_runs = {"decode": 0, "prefill_chunk": 0, "prefill_serial": 0}
+        self.lane_runs = {"decode": 0, "prefill_chunk": 0, "prefill_serial": 0,
+                          "draft": 0, "verify": 0}
+
+        # ---- speculative lanes ----------------------------------------
+        self.speculative = int(speculative)
+        self.draft_plan = self.draft_policy = None
+        self._draft_decode = self._verify = None
+        if self.speculative:
+            from repro_torch import engine
+            if plan is None:
+                raise ValueError(
+                    "speculative=k needs a weight plan (plan=): the draft model "
+                    "is the plan's packed payload read at reduced fidelity")
+            if any(cfg.layer_kind(i) != "attn" for i in range(cfg.n_layers)):
+                raise ValueError(
+                    "speculative decoding needs an attention-only stack: SSM "
+                    "recurrent state cannot roll back a rejected window")
+            pol = (draft if isinstance(draft, engine.DraftPolicy)
+                   else engine.DraftPolicy(mode=draft or "histream"))
+            self.draft_policy = pol
+            # drafted from the served tree, so every payload tensor is the
+            # one the verify lane reads
+            self.draft_plan = engine.build_draft_plan(
+                dataclasses.replace(plan, params=self.params), pol)
+            self._draft_params = self.draft_plan.params
+            self._draft_decode = self._decode     # the draft plan's params
+            self._verify = make_verify_step(cfg, self.spec,
+                                            cache_backend=cache_backend)
 
         # ---- queue / slots --------------------------------------------
         self.queue: list[Request] = []
@@ -167,11 +217,13 @@ class BatchScheduler:
         """Validate + enqueue; impossible requests fail here, not mid-run."""
         plen = int(req.prompt.shape[0])
         if req.max_new_tokens > 0 and plen > self.max_len - 3:
+            telemetry.inc("sched/reject/prompt_too_long")
             raise ValueError(
                 f"request {req.uid}: prompt length {plen} does not fit the "
                 f"serving window (max_len={self.max_len} leaves room for "
                 f"{self.max_len - 3} prompt + 1 decode positions)")
         if self._pages_needed(req) > self.allocator.n_pages:
+            telemetry.inc("sched/reject/pages_never_fit")
             raise PagesExhausted(
                 f"request {req.uid}: needs {self._pages_needed(req)} pages "
                 f"but the pool only holds {self.allocator.n_pages} -- no "
@@ -179,6 +231,12 @@ class BatchScheduler:
         self._order[id(req)] = self._seq
         self._seq += 1
         self.queue.append(req)
+        if telemetry.enabled():
+            telemetry.inc("sched/submitted")
+            telemetry.request_event(req.uid, "submitted", prompt_len=plen,
+                                    max_new_tokens=req.max_new_tokens,
+                                    priority=req.priority)
+            telemetry.gauge("sched/queue_depth", len(self.queue))
 
     def _pages_needed(self, req: Request) -> int:
         plen = int(req.prompt.shape[0])
@@ -189,6 +247,7 @@ class BatchScheduler:
         while self.queue:
             free = [s for s in range(self.n_slots) if self.slots[s] is None]
             if not free:
+                telemetry.inc("sched/admit_wait/no_slot")
                 return
             nxt = max(self.queue, key=lambda r: (r.priority, -self._order[id(r)]))
             if nxt.max_new_tokens <= 0:
@@ -197,8 +256,13 @@ class BatchScheduler:
                 self._order.pop(id(nxt), None)
                 nxt.done = True
                 self._finished.append(nxt)
+                if telemetry.enabled():
+                    telemetry.inc("sched/retired")
+                    telemetry.request_event(nxt.uid, "retired", n_tokens=0)
+                    telemetry.gauge("sched/queue_depth", len(self.queue))
                 continue
             if self.allocator.available < self._pages_needed(nxt):
+                telemetry.inc("sched/admit_wait/no_pages")
                 return                      # wait for retirements
             self.queue.remove(nxt)
             self._order.pop(id(nxt), None)
@@ -206,6 +270,11 @@ class BatchScheduler:
             self.slots[slot] = _Slot(req=nxt, pages=self.allocator.alloc(
                 self._pages_needed(nxt)))
             self._table[slot] = -1
+            if telemetry.enabled():
+                telemetry.inc("sched/admitted")
+                telemetry.request_event(nxt.uid, "admitted", slot=slot,
+                                        pages=len(self.slots[slot].pages))
+                telemetry.gauge("sched/queue_depth", len(self.queue))
             if self.prefill_mode == "serial":
                 self._serial_prefill(slot)
 
@@ -215,9 +284,11 @@ class BatchScheduler:
         ``kv_pages[pos]`` is ``(k_page, v_page)``, (g, page_size, KV, hd)."""
         sl = self.slots[slot]
         pid = sl.pages[page_idx]
-        for pos in self._attn_pos:
-            k_page, v_page = kv_pages[pos]
-            self._seal(self.pools[pos], k_page, v_page, pid)
+        with telemetry.span("sched:seal", slot=slot, page=pid):
+            for pos in self._attn_pos:
+                k_page, v_page = kv_pages[pos]
+                self._seal(self.pools[pos], k_page, v_page, pid)
+        telemetry.inc("sched/pages_sealed")
         self._table[slot, page_idx] = pid
         sl.n_sealed = page_idx + 1
 
@@ -238,10 +309,12 @@ class BatchScheduler:
         req = sl.req
         req.output.append(int(tok))
         sl.state = "decode"
+        telemetry.request_event(req.uid, "first_token", slot=slot)
         if ((req.eos_id is not None and int(tok) == req.eos_id)
                 or len(req.output) >= req.max_new_tokens):
             self._retire(slot)
             return
+        telemetry.request_event(req.uid, "decode", slot=slot)
         self._tokens[slot] = req._feed(0, int(tok))
 
     def _serial_prefill(self, slot: int) -> None:
@@ -251,7 +324,10 @@ class BatchScheduler:
         prompt = self._dev(sl.req.prompt, torch.long)
         plen = int(prompt.shape[0])
         ps = self.page_size
-        lg, caches = self._prefill(self.params, {"tokens": prompt[None, :]})
+        telemetry.request_event(sl.req.uid, "prefill", mode="serial",
+                                prompt_len=plen)
+        with telemetry.span("sched:prefill_serial", slot=slot, prompt_len=plen):
+            lg, caches = self._prefill(self.params, {"tokens": prompt[None, :]})
         self.lane_runs["prefill_serial"] += 1
         n_full = plen // ps
         for j in range(n_full):
@@ -285,11 +361,16 @@ class BatchScheduler:
         c = self.prefill_chunk
         start = sl.pf_start
         valid = min(c, plen - start)
+        if start == 0:
+            telemetry.request_event(sl.req.uid, "prefill", mode="chunked",
+                                    prompt_len=plen)
         toks = torch.zeros((1, c), dtype=torch.long, device=self.device)
         toks[0, :valid] = self._dev(prompt[start:start + valid], torch.long)
-        lg, self.hot, chunk_kv = self._chunk_prefill(
-            self.params, toks, self.pools, self.hot, self._dev(self._table),
-            self._dev(slot), self._dev(start), self._dev(valid))
+        with telemetry.span("sched:prefill_chunk", slot=slot, start=start,
+                            valid=valid):
+            lg, self.hot, chunk_kv = self._chunk_prefill(
+                self.params, toks, self.pools, self.hot, self._dev(self._table),
+                self._dev(slot), self._dev(start), self._dev(valid))
         self.lane_runs["prefill_chunk"] += 1
         new_len = start + valid
         ps = self.page_size
@@ -310,6 +391,10 @@ class BatchScheduler:
         sl = self.slots[slot]
         sl.req.done = True
         self._finished.append(sl.req)
+        if telemetry.enabled():
+            telemetry.inc("sched/retired")
+            telemetry.request_event(sl.req.uid, "retired", slot=slot,
+                                    n_tokens=len(sl.req.output))
         self.allocator.free(sl.pages)      # defrags the free list
         self._table[slot] = -1
         self.slots[slot] = None
@@ -318,24 +403,34 @@ class BatchScheduler:
         return [s for s in range(self.n_slots)
                 if self.slots[s] is not None and self.slots[s].state == "decode"]
 
-    def _run_decode(self, active: list) -> None:
+    def _cache_len(self) -> np.ndarray:
         cache_len = np.zeros((self.n_slots,), np.int32)
         for s in range(self.n_slots):
             if self.slots[s] is not None:
                 cache_len[s] = self.slots[s].len
+        return cache_len
+
+    def _argmax(self, lg: torch.Tensor) -> np.ndarray:
+        """Greedy tokens of ``lg``'s last axis, read back to the host."""
+        return lg[..., :self.cfg.vocab_size].argmax(dim=-1).cpu().numpy()
+
+    def _run_decode(self, active: list) -> None:
         mask = np.zeros((self.n_slots,), bool)
         mask[active] = True
-        lg, self.hot = self._decode(
-            self.params, self._dev(self._tokens)[:, None], self.pools, self.hot,
-            self._dev(cache_len), self._dev(self._table), self._dev(mask))
+        with telemetry.span("sched:decode", n_active=len(active)):
+            lg, self.hot = self._decode(
+                self.params, self._dev(self._tokens)[:, None], self.pools,
+                self.hot, self._dev(self._cache_len()), self._dev(self._table),
+                self._dev(mask))
+            # the tick's one read back to the host
+            nxt = self._argmax(lg[:, -1])
         self.lane_runs["decode"] += 1
-        # the tick's one read back to the host
-        nxt = lg[:, -1, :self.cfg.vocab_size].argmax(dim=-1).cpu().numpy()
         for s in active:
             sl = self.slots[s]
             req = sl.req
             tok = int(nxt[s])
             req.output.append(tok)
+            telemetry.request_event(req.uid, "token", slot=s)
             sl.len += 1
             if sl.len % self.page_size == 0 \
                     and sl.len // self.page_size <= len(sl.pages):
@@ -347,30 +442,148 @@ class BatchScheduler:
                 continue
             self._tokens[s] = req._feed(len(req.output) - 1, tok)
 
+    # -------------------------------------------------------- speculative --
+    def _commit(self, chunk_kv: dict, slot: int, r: int, n_acc: int) -> None:
+        """Copy the first ``n_acc`` verify KV rows of ``slot``'s window into
+        its tails at row ``r``, in place: rejected draft KV is never
+        written (the rollback)."""
+        for pos in self._attn_pos:
+            for name in ("k", "v"):
+                tail = self.hot[pos][f"{name}_tail"][:, slot]   # (g, ps, KV, hd)
+                tail[:, r:r + n_acc] = chunk_kv[pos][name][:, 0, :n_acc]
+
+    def _run_speculative(self, active: list) -> None:
+        """One draft/verify round over the decoding slots.
+
+        Per slot: up to ``k_eff`` draft tokens (the draft plan, batched
+        through the decode step), then a fixed-shape ``(1, k+1)`` verify
+        step at full fidelity whose greedy predictions judge the drafts
+        (longest accepted prefix) and give the bonus token, so every token
+        out equals plain greedy decode's.  ``k_eff`` caps at the tail's
+        remaining room (``page_size - 1 - len % page_size``, so one round
+        commits into one page), the request's token budget and the window.
+        """
+        ps = self.page_size
+        C = self.speculative + 1
+        base = {s: self.slots[s].len for s in active}
+        k_eff = {}
+        for s in active:
+            sl = self.slots[s]
+            k_eff[s] = max(0, min(
+                self.speculative,
+                ps - 1 - sl.len % ps,
+                sl.req.max_new_tokens - len(sl.req.output) - 1,
+                (self.max_len - 2) - sl.len - 1))
+        max_k = max(k_eff.values(), default=0)
+        drafts: dict = {s: [] for s in active}
+        if max_k:
+            # the draft steps write provisional rows into the tails in place:
+            # keep the drafting slots' tails and put them back before verify
+            idx = self._dev([s for s in active if k_eff[s]], torch.long)
+            saved = {pos: {n: t.index_select(1, idx) for n, t in hp.items()}
+                     for pos, hp in self.hot.items()}
+            cache_len = self._cache_len()
+            cur = np.array(self._tokens, np.int64)
+            with telemetry.span("spec:draft", n_active=len(active), k=max_k):
+                for j in range(max_k):
+                    mask = np.zeros((self.n_slots,), bool)
+                    cl = cache_len.copy()
+                    for s in active:
+                        mask[s] = j < k_eff[s]
+                        cl[s] = base[s] + j
+                    lg, self.hot = self._draft_decode(
+                        self._draft_params, self._dev(cur)[:, None], self.pools,
+                        self.hot, self._dev(cl), self._dev(self._table),
+                        self._dev(mask))
+                    self.lane_runs["draft"] += 1
+                    nxt = self._argmax(lg[:, -1])
+                    for s in active:
+                        if j < k_eff[s]:
+                            drafts[s].append(int(nxt[s]))
+                            cur[s] = int(nxt[s])
+            for pos, hp in self.hot.items():
+                for n, t in hp.items():
+                    t.index_copy_(1, idx, saved[pos][n])
+            telemetry.inc("spec/drafted", sum(k_eff.values()))
+        for s in active:
+            sl = self.slots[s]
+            req = sl.req
+            start = base[s]
+            toks = np.zeros((1, C), np.int64)
+            toks[0, 0] = self._tokens[s]
+            toks[0, 1:1 + len(drafts[s])] = drafts[s]
+            with telemetry.span("spec:verify", slot=s, k=k_eff[s]):
+                lg, chunk_kv = self._verify(
+                    self.params, self._dev(toks), self.pools, self.hot,
+                    self._dev(self._table), self._dev(s), self._dev(start))
+                g = self._argmax(lg[0])
+            self.lane_runs["verify"] += 1
+            n_acc = 0
+            retired = False
+            for j in range(k_eff[s] + 1):
+                tok = int(g[j])
+                req.output.append(tok)
+                telemetry.request_event(req.uid, "token", slot=s)
+                n_acc = j + 1
+                if ((req.eos_id is not None and tok == req.eos_id)
+                        or len(req.output) >= req.max_new_tokens
+                        or start + n_acc >= self.max_len - 2):
+                    retired = True
+                    break
+                fed = req._feed(len(req.output) - 1, tok)
+                # a draft survives iff it is what plain decode would FEED
+                # next (the greedy token, unless teacher-forced)
+                if j < k_eff[s] and drafts[s][j] == fed:
+                    continue
+                self._tokens[s] = fed
+                break
+            self._commit(chunk_kv, s, start % ps, n_acc)
+            sl.len = start + n_acc
+            telemetry.inc("spec/rounds")
+            telemetry.inc("spec/accepted", n_acc - 1)
+            if sl.len % ps == 0 and sl.len // ps <= len(sl.pages):
+                self._seal_tails(s)
+            if retired:
+                self._retire(s)
+
     # -------------------------------------------------------------- drive --
     def step(self) -> int:
         """One scheduler tick: admit, advance one prefill chunk, decode all
-        decoding slots.  Returns the number of requests that progressed."""
-        self._admit()
-        progressed = 0
-        if self.prefill_mode == "chunked":
-            pf = self._prefill_slots()
-            if pf:
-                # round-robin by progress: least-advanced first
-                slot = min(pf, key=lambda s: (self.slots[s].pf_start, s))
-                self._advance_prefill(slot)
-                progressed += 1
-        if self._stall > 0:
-            # serial mode: the one-shot prefill still occupies the device
-            self._stall -= 1
+        decoding slots (one draft/verify round under ``speculative``).
+        Returns the number of requests that progressed."""
+        with telemetry.span("sched:step", tick=self._steps):
+            self._admit()
+            progressed = 0
+            prefill_busy = 0
+            if self.prefill_mode == "chunked":
+                pf = self._prefill_slots()
+                if pf:
+                    # round-robin by progress: least-advanced first
+                    slot = min(pf, key=lambda s: (self.slots[s].pf_start, s))
+                    self._advance_prefill(slot)
+                    progressed += 1
+                    prefill_busy = 1
+            if telemetry.enabled():
+                telemetry.inc("sched/ticks")
+                telemetry.gauge("sched/queue_depth", len(self.queue))
+                telemetry.gauge("sched/lane/prefill_busy", prefill_busy)
+            if self._stall > 0:
+                # serial mode: the one-shot prefill still occupies the device
+                self._stall -= 1
+                self._steps += 1
+                telemetry.inc("sched/stall_ticks")
+                telemetry.gauge("sched/lane/decode_active", 0)
+                return progressed + len(self._decode_slots())
+            active = self._decode_slots()
+            telemetry.gauge("sched/lane/decode_active", len(active))
+            if active:
+                if self.speculative:
+                    self._run_speculative(active)
+                else:
+                    self._run_decode(active)
+                progressed += len(active)
             self._steps += 1
-            return progressed + len(self._decode_slots())
-        active = self._decode_slots()
-        if active:
-            self._run_decode(active)
-            progressed += len(active)
-        self._steps += 1
-        return progressed
+            return progressed
 
     def run_to_completion(self, max_steps: int = 10_000) -> list:
         while (self.queue or any(s is not None for s in self.slots)) and max_steps:
@@ -388,4 +601,8 @@ class BatchScheduler:
         out["allocator"] = self.allocator.defrag()
         out["attn_variant"] = self.spec.attn_variant
         out["steps"] = self._steps
+        if self.speculative:
+            from repro_torch.engine import draft_plan_bytes
+            out["speculative"] = dict(k=self.speculative, mode=self.draft_policy.mode,
+                                      **draft_plan_bytes(self.draft_plan))
         return out

@@ -1,4 +1,4 @@
-"""Port kernels K1-K8 and K11 on the card against their plain PyTorch versions.
+"""Port kernels K1-K11 on the card against their plain PyTorch versions.
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -276,3 +276,86 @@ def test_paged_scheduler_launches_fused_kernel_on_card(dev):
     assert sorted(len(r.output) for r in done) == [12, 12]
     runs = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
     assert A.launch_counts["paged_attention"] == cfg.n_layers * runs
+
+
+# ------------------------------------------------- draft kernels: K9, K10
+
+DRAFT_CFGS = [StruMConfig(method=m, w=w, p=p, **kw) for m, kw in
+              (("dliq", dict(q=4)), ("mip2q", dict(L=5)), ("sparsity", {}))
+              for w in (8, 16, 32) for p in (0.25, 0.5, 0.75)]
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 2048), (4, 2048, 8192), (13, 200, 130)])
+@pytest.mark.parametrize("cfg", DRAFT_CFGS, ids=lambda c: f"{c.method}_w{c.w}_p{c.p}")
+@pytest.mark.parametrize("mode", ["histream", "maskfree_p"])
+def test_draft_kernel_matches_plain_on_card(dev, m, k, n, cfg, mode):
+    """K9 / K10 through ``ops.strum_matmul_draft`` (bf16 x, as the draft lane
+    feeds them); the wrapper hands the kernel a null pointer for every field
+    its mode does not stream (lo for K9, mask and lo for K10)."""
+    x, packed = _case(dev, m, k, n, cfg, torch.bfloat16)
+    before = K.launch_counts[mode]
+    y = ops.strum_matmul_draft(x, packed, mode=mode, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert K.launch_counts[mode] == before + 1
+    y_plain = ops.strum_matmul_draft(x.cpu(), _to_cpu(packed), mode=mode,
+                                     out_dtype=torch.float32)
+    err = (y.cpu() - y_plain).abs().max().item()
+    assert err <= REL_TOL * y_plain.abs().max().item(), (err, mode)
+
+
+def test_draft_kernels_launch_with_null_fields(dev, monkeypatch):
+    """The fields a draft kernel does not stream reach the launch as null
+    pointers; the kernel runs and agrees with its plain version."""
+    x, packed = _case(dev, 4, 256, 192, StruMConfig(), torch.float32)
+    seen = {}
+    launch = K._launch
+
+    def spy(name, x_, mask, hi, lo, scale, **kw):
+        seen[name] = (mask is None, hi is None, lo is None)
+        return launch(name, x_, mask, hi, lo, scale, **kw)
+    monkeypatch.setattr(K, "_launch", spy)
+    kw = dict(w=packed.w, n_low=packed.n_low)
+    y9 = K.strum_matmul_histream(x, packed.mask, packed.hi, packed.scale, **kw)
+    y10 = K.strum_matmul_maskfree_p(x, packed.hi, packed.scale, **kw)
+    torch.cuda.synchronize()
+    assert seen == {"histream": (False, False, True), "maskfree_p": (True, False, True)}
+    cpu = _to_cpu(packed)
+    for y, want in ((y9, K.strum_matmul_histream_plain(x.cpu(), cpu.mask, cpu.hi,
+                                                        cpu.scale, **kw)),
+                    (y10, K.strum_matmul_maskfree_p_plain(x.cpu(), cpu.hi, cpu.scale,
+                                                          **kw))):
+        assert (y.cpu() - want).abs().max().item() <= REL_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["histream", "maskfree_p"])
+def test_speculative_scheduler_launches_draft_kernel_on_card(dev, mode):
+    """The speculative lane on the card: every draft-lane linear on K9 / K10,
+    every verify-lane linear on K1, outputs equal to the plain lane's."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.engine import build_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = get_smoke_config("qwen2_7b")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    plan = build_plan(params, cfg=StruMConfig(), device=dev)
+    outs = {}
+    for k in (0, 3):
+        sched = BatchScheduler(cfg, None, plan=plan, n_slots=2, max_len=48, device=dev,
+                               kv_cache=StruMConfig(method="mip2q", p=0.5, L=7),
+                               speculative=k, draft=mode)
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((21, 5)):
+            sched.submit(Request(uid=i, prompt=torch.from_numpy(rng.integers(0, 256, n)),
+                                 max_new_tokens=12))
+        K.reset_launch_counts()
+        outs[k] = {r.uid: r.output for r in sched.run_to_completion()}
+        runs = sched.lane_runs
+    assert sorted(len(o) for o in outs[3].values()) == [12, 12]
+    assert K.launch_counts[mode] == 7 * cfg.n_layers * runs["draft"] > 0
+    assert K.launch_counts["onehot"] == 7 * cfg.n_layers * (
+        runs["verify"] + runs["prefill_chunk"])
+    # split-K sums in atomicAdd order: a near tie may flip a greedy token
+    # between lanes, so agreement is reported, not held bit for bit
+    same = np.mean([a == b for u in outs[0] for a, b in zip(outs[0][u], outs[3][u])])
+    assert same >= 0.9, same

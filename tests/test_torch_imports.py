@@ -1,7 +1,9 @@
 """The port stands alone and never quietly leaves the card.
 
 * No module of ``repro_torch``, and not ``chip_smoke.py``, imports ``jax``
-  or ``repro`` (an AST scan, and a subprocess that blocks those imports).
+  or ``repro`` (an AST scan, and a subprocess that blocks those imports);
+  the draft plans and the telemetry copy among them, whose trace checker
+  runs in that state.
 * Entry points default to ``device="cuda"`` and raise without a card.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card or
   outside the repo.
@@ -61,6 +63,45 @@ def test_all_port_modules_import_with_jax_and_reference_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25
+
+
+STANDALONE = ("repro_torch.engine.draft", "repro_torch.telemetry",
+              "repro_torch.telemetry.recorder", "repro_torch.telemetry.requests",
+              "repro_torch.telemetry.trace", "repro_torch.telemetry.check")
+
+
+STANDALONE_RUN = """
+import importlib, importlib.abc, runpy, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {src!r})
+for m in {mods!r}:
+    importlib.import_module(m)
+sys.argv = ["check", {trace!r}, "--require", "spec:"]
+runpy.run_module("repro_torch.telemetry.check", run_name="__main__")
+"""
+
+
+def test_draft_and_telemetry_modules_stand_alone(tmp_path):
+    """The draft plans and the telemetry copy are scanned above, import with
+    jax and the reference blocked, and the trace checker runs as a module
+    in that state."""
+    scanned = {str(p.relative_to(ROOT / "src")) for p in _port_files()[:-1]}
+    for mod in STANDALONE:
+        path = mod.replace(".", "/")
+        assert f"{path}.py" in scanned or f"{path}/__init__.py" in scanned, mod
+    trace = tmp_path / "t.json"
+    trace.write_text('{"traceEvents": [{"ph": "X", "name": "spec:verify", '
+                     '"ts": 0, "dur": 1}]}')
+    code = STANDALONE_RUN.format(forbidden=FORBIDDEN, src=str(ROOT / "src"),
+                                 mods=STANDALONE, trace=str(trace))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK ") and "spec:=1" in out.stdout
 
 
 @pytest.fixture
