@@ -36,11 +36,16 @@ Phases, each fatal on failure:
      K11 bit for bit; time kernel, plain
      version and a yardstick interleaved as in phase c (the yardstick for
      K4/K5 is ``scaled_dot_product_attention`` on the same pages dequantized
-     to bf16; K11 has no one-call yardstick);
+     to bf16; K11 has no one-call yardstick).  K4 is split-KV: its time
+     includes the combine kernel that merges the splits.  Kernel and
+     yardstick times here and in phase k are replays of a CUDA graph of one
+     call (the device's time; the eager calls' time, which adds the Python
+     wrapper's launch path, is printed beside it);
   h. serve full-width OLMo-1B through the paged runtime (``serve --paged
      --kv-cache mip2q --prompt-len 128 --gen 32``): it must select
      ``cache:attn_fused`` over ``cache:cuda_decode`` pools, launch K4 once
-     per layer per decode tick and per prefill chunk, and hold its pages at
+     per layer per decode tick and per prefill chunk (its combine at most as
+     often, and at least once), and hold its pages at
      x0.875 of int8; prints the drain time, ticks and decode-only tick;
   i. a 2-layer full-width scheduler with dliq p=1 q=4 pages must select and
      launch K5 (``cache:attn_fused_maskfree``);
@@ -54,13 +59,19 @@ Phases, each fatal on failure:
      capacity 6 at decode and 24 at prefill, bf16 x) and K6 at one
      Qwen3-MoE decode stack (128 experts, capacity 8, 4096 -> 1536), within
      KERNEL_TOL x max|plain|; time kernel, plain version and bf16
-     ``torch.bmm`` on the dequantized stack interleaved as in phase c;
+     ``torch.bmm`` on the dequantized stack interleaved as in phase c; then
+     K6 at a routed Moonshot decode: the port's ``_route`` on 4 tokens at
+     top-6 gives each expert's live rows (<= 24 of 64 experts live), x is
+     zero past them, K6 and its plain version take them as ``rows``, rows
+     past each count must be exactly 0, and the bound counts only the live
+     experts' bytes (the ``torch.bmm`` yardstick stays over all 64);
   l. serve Moonshot-16B-A3B at full width with its depth cut to MOE_LAYERS
      of 48 layers through the paged runtime (``serve --paged --kv-cache
      mip2q --prompt-len 128 --gen 32``) and the dense-cache loop (batch 4,
      prompt 32, gen 16): every expert stack must select ``cuda:grouped``
      and every attention linear ``cuda:onehot``, K6 must launch 3 x layers
-     x lane runs and K4 once per layer per lane run, weights and pages at
+     x lane runs (with each expert's live rows) and K4 once per layer per
+     lane run, weights and pages at
      x0.875 of int8; then the paged requests teacher-forced through the
      torch family, logits compared to phase f's tolerance;
   m. 2-layer full-width Moonshot under dliq p=1 and mip2q p=0 weights must
@@ -161,6 +172,33 @@ def _phase(name: str) -> None:
     print(f"== {name} (t = {PHASE_S[name[0]]:.1f} s)", flush=True)
 
 
+#: kernels of this slice whose ptxas report is printed entry by entry
+NEW_KERNELS = ("paged_attention_split_kernel", "split_combine_kernel",
+               "grouped_onehot_kernel")
+
+
+def _ptxas_lines(log: str) -> list:
+    """Registers and spills of every entry of the slice's new kernels (by
+    mangled name), and for the other entries the most registers any uses
+    and any that spill."""
+    out, other_regs, entry = [], [], ""
+    for line in log.splitlines():
+        line = line.strip().replace("ptxas info    : ", "")
+        if line.startswith("Compiling entry function"):
+            entry = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or ("spill" in line and "0 bytes spill" not in line):
+            if any(k in entry for k in NEW_KERNELS):
+                out.append(f"ptxas {entry}: {line}")
+            elif "registers" in line:
+                other_regs.append(int(line.split("Used ")[1].split()[0]))
+            else:
+                out.append(f"ptxas {entry} spills: {line}")
+    if other_regs:
+        out.append(f"ptxas, the other {len(other_regs)} entries: at most "
+                   f"{max(other_regs)} registers")
+    return out
+
+
 def _check(ok: bool, msg: str) -> None:
     """A failed check ends the run (an ``assert`` would vanish under -O)."""
     if not ok:
@@ -179,6 +217,25 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graphed(fn):
+    """``fn`` (one call of a wrapper or a yardstick) captured in a CUDA graph
+    after an eager warm-up; returns the replay.  Timed replays measure the
+    device's work for the call, not the Python wrapper's launch path, which
+    at tens of microseconds would otherwise be the time of a short kernel."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return graph.replay
 
 
 def _spread(vals) -> dict:
@@ -526,6 +583,12 @@ def phase_g(dev, gen, clocks):
             case = {"case": f"{label}, {kv} kv heads x {hd}, R={r}, context {ctx}, "
                             f"{live} live pages of {PAGE}", "max_abs_err": err,
                     "errs": errs}
+            if name == "paged_attention":
+                tiles = -(-r // A._row_tile(r, hd))
+                pps = A.split_pages(4, p_slot, kv * tiles, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)
+                case["case"] += (f", {-(-p_slot // pps)} KV splits of {pps} page slots "
+                                 "+ combine")
             if i < TIMED_CASES:
                 case.update(_time_attention(clocks, name, kern, plain, q4, args, ids,
                                             n_valid, kw, k, v, live, r, hd, kv))
@@ -535,7 +598,8 @@ def phase_g(dev, gen, clocks):
             rows[name]["cases"].append(case)
             print(f"  {name:24s} {case['case']}: max |kernel - plain| on live rows "
                   + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
-                  + (f"; kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f}, "
+                  + (f"; kernel {case['ms']:.4f} ms (graph replay; eager call "
+                     f"{case['eager_ms']:.4f}), plain {case['plain_ms']:.4f}, "
                      f"sdpa bf16 {case['library_ms']:.4f}, bound {case['bound_ms']:.4f} "
                      f"({case['bound_by']}, {case['bytes'] / 1e6:.2f} MB); {case['clock']}"
                      if "ms" in case else ""), flush=True)
@@ -574,11 +638,15 @@ def _time_attention(clocks, name, kern, plain, q4, args, ids, n_valid, kw, k, v,
     valid = (ids[:, pos // PAGE] >= 0) & (pos[None, :] < (n_valid[:, None] * PAGE))
     mask = valid[:, None, None, :]
     qb = q4.to(torch.bfloat16)
+
+    def call():
+        return kern(q4, *args, ids, n_valid, **kw)
     times = _interleaved(clocks, {
-        "ms": (lambda: kern(q4, *args, ids, n_valid, **kw), 20),
+        "ms": (_graphed(call), 20),
+        "eager_ms": (call, 20),
         "plain_ms": (lambda: plain(q4, *args, ids, n_valid, **kw), 1),
-        "library_ms": (lambda: F.scaled_dot_product_attention(
-            qb, kd, vd, attn_mask=mask, scale=1.0), 20)})
+        "library_ms": (_graphed(lambda: F.scaled_dot_product_attention(
+            qb, kd, vd, attn_mask=mask, scale=1.0)), 20)})
     page = sum(_page_bytes(pool, fields + ("scale",)) for pool in (k, v))
     nbytes = (live * page + q4.numel() * 4 + (q4.numel() + 2 * b * kv * r) * 4
               + ids.numel() * 4 + n_valid.numel() * 4)
@@ -600,7 +668,8 @@ def _time_page_decode(clocks, D, k, ids, n_valid, cfg, live):
     torch.cuda.synchronize()
     _check(torch.equal(got, want), "page_decode differs from its plain version")
     times = _interleaved(clocks, {
-        "ms": (lambda: D.strum_page_decode(*fields, **kw), 20),
+        "ms": (_graphed(lambda: D.strum_page_decode(*fields, **kw)), 20),
+        "eager_ms": (lambda: D.strum_page_decode(*fields, **kw), 20),
         "plain_ms": (lambda: D.strum_page_decode_plain(*fields, **kw), 5)})
     nbytes = sum(t.numel() * t.element_size() for t in fields) + got.numel() * 4
     return dict(times, library_ms=None, max_abs_err=0.0,
@@ -622,6 +691,14 @@ def _kv_counts() -> dict:
     from repro_torch.kernels import strum_decode as D
     from repro_torch.kernels import strum_matmul as K
     return dict(A.launch_counts, **D.launch_counts, **K.launch_counts)
+
+
+def _check_combine(launched) -> None:
+    """K4's combine runs once per K4 call whose table splits: at most once
+    per K4 launch, and at least once on a path that launched K4."""
+    k4, comb = launched["paged_attention"], launched["paged_attention_combine"]
+    _check(comb <= k4 and (k4 == 0 or comb > 0),
+           f"K4 combine launches {comb} against K4 launches {k4}")
 
 
 def phase_h(counts):
@@ -648,6 +725,8 @@ def phase_h(counts):
            f"K1 launches {launched['onehot']}, want 7 x {cfg.n_layers} x {lane}")
     _check(launched["paged_attention_maskfree"] == launched["page_decode"] == 0,
            f"phase h launched K5 or K11: {launched}")
+    _check_combine(launched)
+    counts["paged_attention_combine"] = launched["paged_attention_combine"]
     st = sched.cache_stats()
     _check(st["ratio_vs_int8"] == 0.875 and
            st["resident_page_bytes"] == st["expected_page_bytes"],
@@ -692,7 +771,7 @@ def phase_i(dev, counts):
     launched = _kv_counts()
     lane = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
     _check(len(done) == 4 and launched["paged_attention_maskfree"] == 2 * lane
-           and launched["paged_attention"] == 0,
+           and launched["paged_attention"] == launched["paged_attention_combine"] == 0,
            f"K5 launches {launched}, want 2 layers x {lane} lane runs")
     counts["paged_attention_maskfree"] = launched["paged_attention_maskfree"]
     st = sched.cache_stats()
@@ -853,10 +932,14 @@ def phase_k(dev, gen, clocks):
                 wd = dequant_leaf(packed, torch.bfloat16, cfg=cfg, k_dim=k)
                 calls.append((wrapper, plain, x, fields, kw, packed, wd, err, lim))
                 del y, y_plain
+            def layer():
+                return [cl[0](cl[2], *cl[3], **cl[4]) for cl in calls]
             t = _interleaved(clocks, {
-                "ms": (lambda: [cl[0](cl[2], *cl[3], **cl[4]) for cl in calls], 10),
+                "ms": (_graphed(layer), 10),
+                "eager_ms": (layer, 10),
                 "plain_ms": (lambda: [cl[1](cl[2], *cl[3], **cl[4]) for cl in calls], 1),
-                "library_ms": (lambda: [torch.bmm(cl[2], cl[6]) for cl in calls], 10)})
+                "library_ms": (_graphed(lambda: [torch.bmm(cl[2], cl[6]) for cl in calls]),
+                               10)})
             read = {"grouped_onehot": ("mask", "hi", "lo"), "grouped_maskfree": ("lo",),
                     "grouped_dense": ("hi",)}[name]
             nbytes = sum(sum(cl[5][f].numel() for f in read) + 4 * g * n
@@ -875,14 +958,96 @@ def phase_k(dev, gen, clocks):
                   f"max] of {ROUNDS} interleaved rounds: " + ", ".join(
                       f"{lab} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
                       f"{t['range_ms'][key][1]:.4f}] ms" for key, lab in
-                      (("ms", "kernel"), ("plain_ms", "plain"),
-                       ("library_ms", "torch.bmm bf16"))) +
+                      (("ms", "kernel (graph replay)"), ("eager_ms", "eager calls"),
+                       ("plain_ms", "plain"), ("library_ms", "torch.bmm bf16"))) +
                   f"; bound {case['bound_ms']:.4f} ms ({case['bound_by']}: "
                   f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); {t['clock']}",
                   flush=True)
             del calls
             torch.cuda.empty_cache()
+    rows["grouped_onehot"]["cases"].append(_routed_case(dev, gen, clocks,
+                                                        configs["grouped_onehot"]))
     return rows
+
+
+def _routed_case(dev, gen, clocks, cfg):
+    """K6 at a routed Moonshot decode: the port's own ``_route`` on 4 tokens
+    at top-6 gives each expert's filled slots (``rows``, <= 24 of 64 live),
+    x is zero past each count; kernel and plain version take ``rows``, the
+    bound counts only the live experts' bytes and rows, and the bf16
+    ``torch.bmm`` yardstick stays over all 64 stacks (the one call that
+    computes the same function)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.engine.dispatch import dequant_leaf
+    from repro_torch.models import moe
+    from repro_torch.models.quantize import _pack_leaf
+    mcfg = get_config(MOE_ARCH)
+    g, d = mcfg.n_experts, mcfg.d_model
+    tokens = 4
+    c = moe._capacity(tokens, mcfg)
+    route = moe._route(torch.randn((tokens, d), generator=gen, device=dev),
+                       torch.randn((d, g), generator=gen, device=dev) / d ** 0.5, mcfg,
+                       0, g, c)
+    counts = torch.zeros(g, dtype=torch.int32, device=dev).index_add_(
+        0, route["exp"], route["keep"].to(torch.int32))
+    n_live = int((counts > 0).sum())
+    _check(0 < n_live <= tokens * mcfg.top_k and int(counts.sum()) == tokens * mcfg.top_k,
+           f"routed case: {n_live} live experts, counts {counts.tolist()}")
+    live_rows = torch.arange(c, device=dev)[None, :] < counts[:, None].long()
+    wrapper, plain = None, None
+    calls = []
+    for k, n in MOE_LAYER:
+        w = torch.randn((g, k, n), generator=gen, device=dev)
+        packed = _pack_leaf(w, cfg)
+        del w
+        wrapper, plain, fields, kw = _grouped_args("grouped_onehot", packed, cfg)
+        x = torch.where(live_rows[..., None],
+                        torch.randn((g, c, k), generator=gen, device=dev), 0.0
+                        ).to(torch.bfloat16)
+        y = wrapper(x, *fields, rows=counts, **kw)
+        y_plain = plain(x, *fields, rows=counts, **kw)
+        torch.cuda.synchronize()
+        err = (y - y_plain).abs().max().item()
+        lim = KERNEL_TOL * y_plain.abs().max().item()
+        _check(err <= lim, f"grouped_onehot routed K={k} N={n}: |kernel - plain| "
+               f"{err} > {lim}")
+        _check(not bool(y[~live_rows].any()), "routed case: rows past the count not 0")
+        wd = dequant_leaf(packed, torch.bfloat16, cfg=cfg, k_dim=k)
+        calls.append((x, fields, kw, packed, wd, err, lim))
+    def layer():
+        return [wrapper(cl[0], *cl[1], rows=counts, **cl[2]) for cl in calls]
+    t = _interleaved(clocks, {
+        "ms": (_graphed(layer), 10),
+        "eager_ms": (layer, 10),
+        "plain_ms": (lambda: [plain(cl[0], *cl[1], rows=counts, **cl[2])
+                              for cl in calls], 1),
+        "library_ms": (_graphed(lambda: [torch.bmm(cl[0], cl[4]) for cl in calls]), 10)})
+    live = counts > 0
+    rows_live = int(counts.sum())
+    nbytes = sum(sum(cl[3][f][live].numel() for f in ("mask", "hi", "lo"))
+                 + 4 * n_live * n + 2 * rows_live * k + 4 * g * c * n
+                 for cl, (k, n) in zip(calls, MOE_LAYER))
+    flops = sum(2 * rows_live * k * n for k, n in MOE_LAYER)
+    case = dict(t, **_bound(nbytes, flops, PEAK_FLOPS["torch.bfloat16"]))
+    case.update(case=f"moonshot routed decode: {tokens} tokens top-{mcfg.top_k} -> "
+                     f"{n_live} of {g} experts live ({rows_live} rows, capacity {c}), "
+                     f"{' + '.join(f'{k}->{n}' for k, n in MOE_LAYER)}, bf16 x, "
+                     f"{cfg.method} p={cfg.p}, rows passed",
+                max_abs_err=max(cl[5] for cl in calls), limit=max(cl[6] for cl in calls),
+                live_experts=n_live)
+    print(f"  grouped_onehot    {case['case']}: max |kernel - plain| "
+          f"{case['max_abs_err']:.3e} (limit {case['limit']:.3e}); rows past each count "
+          f"exactly 0; median [min, max] of {ROUNDS} interleaved rounds: " + ", ".join(
+              f"{lab} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
+              f"{t['range_ms'][key][1]:.4f}] ms" for key, lab in
+              (("ms", "kernel (graph replay)"), ("eager_ms", "eager calls"),
+               ("plain_ms", "plain"), ("library_ms", "torch.bmm bf16 (all 64 stacks)"))) +
+          f"; bound {case['bound_ms']:.4f} ms ({case['bound_by']}: live experts "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); {t['clock']}", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    return case
 
 
 def _moe_plan_bytes(plan):
@@ -932,8 +1097,10 @@ def phase_l(dev, counts):
     lane = runs["decode"] + runs["prefill_chunk"]
     want = {"grouped_onehot": 3 * layers * lane, "onehot": 4 * layers * lane,
             "paged_attention": layers * lane}
+    _check_combine(launched)
     _check(all(launched[k] == v for k, v in want.items()) and
-           sum(launched.values()) == sum(want.values()),
+           sum(launched.values()) - launched["paged_attention_combine"] ==
+           sum(want.values()),
            f"launches {launched}, want {want} and nothing else ({runs})")
     st = sched.cache_stats()
     _check(st["ratio_vs_int8"] == 0.875 and
@@ -1122,6 +1289,7 @@ def phase_o(dev, plain, counts):
         _check(launched["paged_attention"] == cfg.n_layers * (
             runs["draft"] + runs["verify"] + runs["prefill_chunk"]),
             f"K4 launches {launched['paged_attention']} ({runs})")
+        _check_combine(launched)
         modes = sched.draft_plan.meta["draft"]
         _check(len(modes) == 7 and set(modes.values()) == {mode},
                f"draft modes {modes}")
@@ -1320,9 +1488,11 @@ def measure(dev, clocks):
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "workload": t["case"] + f"; median of {ROUNDS} interleaved rounds",
             "range_ms": t["range_ms"], "clock": t["clock"],
-            "cases": [{k: c[k] for k in ("case", "max_abs_err", "errs", "ms", "plain_ms",
-                                         "library_ms", "bound_ms", "bound_by")
+            "cases": [{k: c[k] for k in ("case", "max_abs_err", "errs", "ms", "eager_ms",
+                                         "plain_ms", "library_ms", "bound_ms", "bound_by")
                        if k in c} for c in row["cases"]]})
+        if name == "paged_attention":
+            kernels[-1]["combine_launches"] = counts["paged_attention_combine"]
     for name, (variant, replaces) in GROUPED.items():
         row = moe_rows[name]
         t = row["cases"][0]
@@ -1334,7 +1504,7 @@ def measure(dev, clocks):
             "workload": t["case"] + f" (one MoE layer's stacks); median of {ROUNDS} "
                         "interleaved rounds",
             "range_ms": t["range_ms"], "clock": t["clock"],
-            "cases": [{k: c[k] for k in ("case", "max_abs_err", "limit", "ms",
+            "cases": [{k: c[k] for k in ("case", "max_abs_err", "limit", "ms", "eager_ms",
                                          "plain_ms", "library_ms", "bound_ms",
                                          "bound_by")} for c in row["cases"]]})
     for name, (variant, replaces) in DRAFT.items():
@@ -1389,9 +1559,8 @@ def main() -> int:
     print(f"  built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s into "
           f"{build.build_dir()}", flush=True)
     for name in sources:
-        for line in build.BUILD_LOGS[name].splitlines():
-            if "registers" in line or "spill" in line and "0 bytes spill" not in line:
-                print(f"  {name}: " + line.strip().replace("ptxas info    : ", "ptxas: "))
+        for line in _ptxas_lines(build.BUILD_LOGS[name]):
+            print(f"  {name}: {line}", flush=True)
 
     clocks = Clocks()
     try:

@@ -126,7 +126,7 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
 def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
                      strum: Optional[StruMConfig] = None,
                      backend: Optional[str] = None, out_dtype=None,
-                     fsdp_axes=None) -> torch.Tensor:
+                     fsdp_axes=None, rows=None) -> torch.Tensor:
     """Batched y[..., c, n] = x[..., c, :] @ dequant(leaf[...]) for stacks.
 
     ``x``: (lead..., C, K), ``lead`` the leaf's stack dims -- e.g. MoE expert
@@ -134,6 +134,10 @@ def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
     selection (``cuda:grouped*``, K6-K8) streams the packed stack; any other
     (the ``torch:dequant`` fallback) dequantizes the stack at its *true* K
     to x's dtype and runs a batched matmul accumulated in f32.
+
+    ``rows`` (lead...) int on x's device, optional: the live rows of each
+    stack (x is zero past them).  ``cuda:grouped`` (K6) skips the work past
+    them; the other variants ignore it, with the same result.
 
     ``fsdp_axes`` (the reference's compressed-gather path inside a mesh
     body) is not ported yet (ROADMAP queue 1 item 13) and raises.
@@ -158,7 +162,8 @@ def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
     variant = _pick(cfg, info, spec, backend, x.device)
     _note_dispatch(variant, wleaf)
     if variant.grouped:
-        return variant.fn(x, _as_packed(wleaf, cfg, k_dim), out_dtype=out_dtype)
+        return variant.fn(x, _as_packed(wleaf, cfg, k_dim), out_dtype=out_dtype,
+                          rows=rows)
     wd = dequant_leaf(wleaf, x.dtype, cfg=cfg, k_dim=k_dim)
     return torch.matmul(x.to(torch.float32), wd.to(torch.float32)).to(out_dtype)
 

@@ -76,10 +76,10 @@ def _dense(x2, packed, *, out_dtype=None):
     "cuda:grouped", family="cuda", priority=10, grouped=True,
     supports=lambda cfg, info: _stacked(cfg, info) and cfg.w % 8 == 0,
     description="stacked expert leaves: group grid axis, general decode")
-def _grouped(xg, packed, *, out_dtype=None):
+def _grouped(xg, packed, *, out_dtype=None, rows=None):
     _on_card("cuda:grouped", xg)
     return ops.strum_grouped_matmul(xg, packed, out_dtype=out_dtype,
-                                    variant="onehot")
+                                    variant="onehot", rows=rows)
 
 
 @register_kernel(
@@ -87,20 +87,20 @@ def _grouped(xg, packed, *, out_dtype=None):
     supports=lambda cfg, info: (_stacked(cfg, info) and cfg.n_low == cfg.w
                                 and cfg.method in ("dliq", "mip2q")),
     description="stacked p=1.0: per-group lo payload only, no mask/hi stream")
-def _grouped_maskfree(xg, packed, *, out_dtype=None):
+def _grouped_maskfree(xg, packed, *, out_dtype=None, rows=None):
     _on_card("cuda:grouped_maskfree", xg)
     return ops.strum_grouped_matmul(xg, packed, out_dtype=out_dtype,
-                                    variant="maskfree")
+                                    variant="maskfree", rows=rows)
 
 
 @register_kernel(
     "cuda:grouped_dense", family="cuda", priority=20, grouped=True,
     supports=lambda cfg, info: _stacked(cfg, info) and cfg.n_low == 0,
     description="stacked n_low=0: per-group hi payload in order; any w")
-def _grouped_dense(xg, packed, *, out_dtype=None):
+def _grouped_dense(xg, packed, *, out_dtype=None, rows=None):
     _on_card("cuda:grouped_dense", xg)
     return ops.strum_grouped_matmul(xg, packed, out_dtype=out_dtype,
-                                    variant="dense")
+                                    variant="dense", rows=rows)
 
 
 # ------------------------------------------------------------------ draft --

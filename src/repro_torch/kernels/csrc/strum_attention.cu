@@ -4,7 +4,8 @@
 // Replaces the TPU kernels
 //   K11 strum_page_decode_launch                  <- strum_page_decode_pallas
 //                                                    (src/repro/kernels/strum_decode.py)
-//   K4  strum_paged_attention_launch(mode 0)      <- strum_paged_attention_pallas
+//   K4  strum_paged_attention_split_launch        <- strum_paged_attention_pallas
+//       (+ strum_attention_combine_launch, the merge of its KV splits)
 //   K5  strum_paged_attention_launch(mode 1)      <- strum_paged_attention_pallas_maskfree
 //                                                    (src/repro/kernels/strum_attention.py)
 //
@@ -29,23 +30,52 @@
 // point of the packed pages is that attention reads 14/16 of the int8 bytes
 // (mip2q, w = 16, p = .5) and never a decoded copy.
 //
-// K4 / K5 design (a simple version, not yet fast): one block per (slot, kv
+// K5 design (a simple version, not yet fast): one block per (slot, kv
 // head, tile of up to kMaxRows query rows).  The block reads its slot's page
 // ids itself and walks the pages in order, skipping ids < 0, pages at or
 // after n_valid and ids past the pool (the TPU grid's page axis becomes this
-// loop).  For each live page it (1) copies its head's packed bytes of K and
-// V (columns [g*hd, (g+1)*hd) of every row) and their scales into shared
-// memory with independent 4-byte loads, so one memory latency covers the
-// page; (2) decodes the (page_size, hd) K and V tiles there, one thread per
-// block column; (3) computes the scores against the pre-scaled queries,
-// up to a warp of threads per (row, position) as the block has threads to
-// spare (16 at R = 1, 1 at R = 16); (4)-(5) carries the online softmax (m, l, acc)
-// in f32 shared memory.  Outputs are written once per block: no atomics, so
-// the result does not depend on block order.  A slot with nothing live
-// returns m = -1e30, l = 0, acc = 0.  The pages of a slot are still walked
-// one after another by one block (64 blocks for OLMo-1B at batch 4);
-// split-KV across blocks, prefetching the next page, tensor cores and TMA
-// are for later versions.
+// loop).  For each live page it (1) copies its head's packed lo bytes of K
+// and V (columns [g*hd, (g+1)*hd) of every row) and their scales into shared
+// memory with independent 4-byte loads; (2) decodes the (page_size, hd) K
+// and V tiles there, one thread per block column; (3) computes the scores
+// against the pre-scaled queries; (4)-(5) carries the online softmax (m, l,
+// acc) in f32 shared memory.  A slot with nothing live returns m = -1e30,
+// l = 0, acc = 0.
+//
+// K4 design (split-KV, flash-decoding): the serial page chain of one block
+// per (slot, head) was the time (~6.5 us a page x 128 pages at OLMo-1B
+// decode on an H100 SXM at 700 W, 118x the byte bound), so the grid is
+// (KV split, kv head x row tile, slot).  Each split owns `pps`
+// consecutive page slots of the table; warp 0 reads them, keeps the live
+// ids in order (ballot + popcount) and a
+// split with none writes the identity partial and returns.  A live page's
+// head slice of K and V -- nb * (mask + hi + lo) rows of hd bytes at row
+// stride F -- and its 2 x hd scales come in by 16-byte cp.async.cg into a
+// two-stage shared-memory ring, so the next live page is in flight while
+// the current one decodes.  Per page there are two block barriers: (1) the
+// page has landed (and the last page's tiles are free), after which the next
+// page's copy is issued; (2) the K and V tiles are decoded (256 threads, one
+// per block column of K and V; a position's rank among the high / low set
+// is the popcount of the lower mask bits, the block's bytes sit in four
+// registers and lo codes decode through a table in shared memory).  Then
+// each of 4 position groups of warps takes 4 positions of the page, 8 lanes
+// per position, and within a group 2 warps split the tile's rows: scores by
+// 8-lane __shfl_xor_sync sums over hd, the max and the sum of the softmax
+// by __shfl_xor_sync across the 4 positions, and P.V into registers (a lane
+// owns hd / 32 columns).  Every warp keeps its own online state (m, l, acc)
+// for its rows; at the end the position groups are merged in order.  All
+// arithmetic is f32 (q pre-scaled, decoded values int x scale): at R = 1 a
+// tensor core buys nothing, and at R = 16 bf16 operands would not hold the
+// 2e-5 tolerance.  With more than one split, each split writes its partial
+// to scratch and split_combine_kernel merges the splits of every row in
+// split-index order (never arrival order), so the result does not depend on
+// block scheduling.  The second kernel was chosen over a last-arriving-block
+// merge: it needs no zeroed counters kept between calls and no fences, and
+// costs one launch per layer per lane run against ~2000 a tick.
+// Alignment contract of the staging: hd % 16 == 0 and every field and scale
+// pointer 16-byte aligned (then every row slice and scale slice is, since F
+// = KV * hd); w % 8 == 0, w <= 64, page size nb * w <= 64, pages per split
+// <= 32.  The launcher returns cudaErrorInvalidValue for anything else.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -329,6 +359,365 @@ cudaError_t launch_attention(const AttnArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------ K4: split-KV attention --
+
+constexpr int kSplitThreads = 256;
+constexpr int kPosGroups = 4;   // warps that share a page's positions, 4 each
+constexpr int kRowSets = kSplitThreads / 32 / kPosGroups;  // warps that share them by row
+constexpr int kMaxSplitPages = 32;   // page slots per split (one warp ballot)
+constexpr int kMaxPageSize = 64;     // positions of one page (nb * w)
+
+struct SplitArgs {
+  const float* q;       // (B, KV, R, hd) f32, pre-scaled by 1/sqrt(hd)
+  Pool k, v;
+  const int* page_ids;  // (B, P), -1 = unassigned
+  const int* n_valid;   // (B,)
+  float* acc;           // (S, B, KV, R, hd): one partial per split
+  float* m;             // (S, B, KV, R)
+  float* l;             // (S, B, KV, R)
+  int B, KV, R, hd, P, n_pages, pps, tiles;  // pps: page slots per split
+  Codec c;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Issue the copies of page `pid`'s head slice: for K then V, the nb*mask,
+// nb*hi and nb*lo rows of hd bytes (row stride F in the pool, hd here), then
+// the K and V scales (hd f32 each) after both.
+__device__ __forceinline__ void stage_page(const SplitArgs& a, int pid, size_t col0,
+                                           uint8_t* dst) {
+  const Codec& c = a.c;
+  const int hd = a.hd, vpr = hd >> 4;
+  const int fr[3] = {c.nb * c.mask_rows, c.nb * c.hi_rows, c.nb * c.lo_rows};
+  const int rows_kv = fr[0] + fr[1] + fr[2];
+  const int n_rows = 2 * rows_kv * vpr, n_scale = 2 * (hd >> 2);
+  float* sc = reinterpret_cast<float*>(dst + 2 * (size_t)rows_kv * hd);
+  for (int i = threadIdx.x; i < n_rows + n_scale; i += blockDim.x) {
+    if (i < n_rows) {
+      const int row = i / vpr, vec = i - row * vpr;
+      const int kv = row >= rows_kv;
+      const Pool& pool = kv ? a.v : a.k;
+      int r = row - kv * rows_kv, f = 0;
+      while (r >= fr[f]) r -= fr[f++];  // f: 0 mask, 1 hi, 2 lo
+      const uint8_t* base = f == 0 ? pool.mask
+                            : f == 1 ? reinterpret_cast<const uint8_t*>(pool.hi)
+                                     : pool.lo;
+      cp_async16(dst + (size_t)row * hd + 16 * vec,
+                 base + ((size_t)pid * fr[f] + r) * c.F + col0 + 16 * vec);
+    } else {
+      const int j = i - n_rows, per = hd >> 2;
+      const int kv = j >= per, vec = j - kv * per;
+      const Pool& pool = kv ? a.v : a.k;
+      cp_async16(sc + kv * hd + 4 * vec, pool.scale + (size_t)pid * c.F + col0 + 4 * vec);
+    }
+  }
+}
+
+// One position of a [1, w] block held in registers: m the mask bits, h0/h1
+// the hi bytes (rank order), l the lo fields, lut the decoded lo codes.  A
+// position's rank among the high (low) set is the popcount of the set
+// (clear) mask bits below it; both candidates are formed and one selected.
+__device__ __forceinline__ float reg_value(uint32_t m, uint32_t h0, uint32_t h1, uint32_t l,
+                                           const float* lut, int pos, int lmax, int q,
+                                           uint32_t qmask) {
+  const int rh = __popc(m & ((1u << pos) - 1u));
+  const int rl = pos - rh;
+  const float hv = (float)(int8_t)__byte_perm(h0, h1, (unsigned)(rh & 7));
+  const float lv = lut[(l >> (min(rl, lmax) * q)) & qmask];
+  return (m >> pos) & 1u ? hv : lv;
+}
+
+// Decode one staged [1, w] block column into dst[pos * dstride] (value x
+// scale s).  Rows are `stride` bytes apart; the hi and lo fields have at
+// least one row.  The common codecs (w <= 32, <= 8 hi and <= 4 lo rows)
+// read the block's bytes once into registers, fully unrolled at w = 16,
+// and decode lo codes through `lut`; the others read per position and
+// select between both candidates, so lanes with different masks do not
+// diverge.
+__device__ __forceinline__ void decode_ranked(const uint8_t* mcol, const int8_t* hcol,
+                                              const uint8_t* lcol, int stride,
+                                              const Codec& c, const float* lut, float s,
+                                              float* dst, int dstride) {
+  const int lmax = c.method != kSparsity && c.n_low > 0 ? c.n_low - 1 : 0;  // lo row 0 exists
+  if (c.w <= 32 && c.hi_rows <= 8 && c.lo_rows <= 4) {
+    uint32_t m = 0, h0 = 0, h1 = 0, l = 0;
+    for (int r = 0; r < c.mask_rows; ++r) m |= (uint32_t)mcol[(size_t)r * stride] << (8 * r);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r >= c.hi_rows) break;
+      const uint32_t b = (uint8_t)hcol[(size_t)r * stride];
+      if (r < 4) h0 |= b << (8 * r);
+      else h1 |= b << (8 * (r - 4));
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (r >= c.lo_rows) break;
+      l |= (uint32_t)lcol[(size_t)r * stride] << (8 * r);
+    }
+    const uint32_t qmask = c.method == kSparsity ? 0u : (1u << c.q) - 1u;
+    if (c.w == 16) {
+#pragma unroll
+      for (int pos = 0; pos < 16; ++pos)
+        dst[pos * dstride] = reg_value(m, h0, h1, l, lut, pos, lmax, c.q, qmask) * s;
+      return;
+    }
+    for (int pos = 0; pos < c.w; ++pos)
+      dst[pos * dstride] = reg_value(m, h0, h1, l, lut, pos, lmax, c.q, qmask) * s;
+    return;
+  }
+  unsigned long long bits = 0;
+  for (int byte = 0; byte < c.mask_rows; ++byte)
+    bits |= (unsigned long long)mcol[(size_t)byte * stride] << (8 * byte);
+  const int hmax = c.n_high > 0 ? c.n_high - 1 : 0;
+  for (int pos = 0; pos < c.w; ++pos) {
+    const int rh = __popcll(bits & ((1ull << pos) - 1ull));
+    const int rl = pos - rh;
+    const bool high = (bits >> pos) & 1ull;
+    const float hv = (float)hcol[(size_t)min(rh, hmax) * stride];
+    const float lv = decode_low(lo_field(lcol, c.lo_rows, stride, min(rl, lmax), c.q),
+                                c.method, c.q);
+    const float v = high ? (rh < c.n_high ? hv : 0.f) : (rl < c.n_low ? lv : 0.f);
+    dst[pos * dstride] = v * s;
+  }
+}
+
+// RT: query rows of the block's tile; CPL: head-dim columns per lane (hd <=
+// 32 * CPL).  Grid (split, kv head * tiles, slot), kSplitThreads threads:
+// warp w takes positions 4 (w % kPosGroups) + 16 j of each page and rows
+// w / kPosGroups + kRowSets i of the tile.
+template <int RT, int CPL>
+__global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(SplitArgs a) {
+  constexpr int RW = (RT + kRowSets - 1) / kRowSets;  // rows a warp carries
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int live[kMaxSplitPages];
+  __shared__ int n_live;
+  __shared__ float lut[256];  // lo code -> value (2^q <= 256 codes)
+  const Codec& c = a.c;
+  const int hd = a.hd, ps = c.nb * c.w;
+  const int rows_kv = c.nb * (c.mask_rows + c.hi_rows + c.lo_rows);
+  const int stage_bytes = 2 * rows_kv * hd + 8 * hd;  // K, V bytes + scales
+  const int KS = hd + 8;  // K row stride: the 4 positions of a warp hit 4 bank groups
+  uint8_t* ring = smem_raw;                                           // [2][stage_bytes]
+  float* Kt = reinterpret_cast<float*>(smem_raw + 2 * (size_t)stage_bytes);  // [ps][KS]
+  float* Vt = Kt + ps * KS;                                           // [ps][hd]
+  float* Qs = Vt + ps * hd;                                           // [RT][hd]
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int pg = warp % kPosGroups, rs = warp / kPosGroups;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int g = blockIdx.y / a.tiles, r0 = (blockIdx.y % a.tiles) * RT;
+  const int rows = min(RT, a.R - r0);
+  const size_t head = (size_t)b * a.KV + g;
+  const size_t prow = ((size_t)split * a.B * a.KV + head) * a.R + r0;  // partial row 0
+
+  if (warp == 0) {  // the split's live pages, in table order
+    const int p0 = split * a.pps, p1 = min(a.P, p0 + a.pps);
+    const int p = p0 + lane, nv = a.n_valid[b];
+    int pid = -1;
+    if (p < p1) pid = a.page_ids[(size_t)b * a.P + p];
+    const bool ok = p < p1 && pid >= 0 && pid < a.n_pages && p < nv;
+    const unsigned bal = __ballot_sync(0xffffffffu, ok);
+    if (ok) live[__popc(bal & ((1u << lane) - 1u))] = pid;
+    if (lane == 0) n_live = __popc(bal);
+  }
+  if (c.method != kSparsity)
+    for (int code = t; code < (1 << c.q); code += blockDim.x) lut[code] = decode_low(code, c.method, c.q);
+  else if (t == 0)
+    lut[0] = 0.f;
+  for (int idx = t; idx < RT * hd; idx += blockDim.x) {
+    const int r = idx / hd;
+    Qs[idx] = r < rows ? a.q[(head * a.R + r0 + r) * hd + idx % hd] : 0.f;
+  }
+  __syncthreads();
+  const int nl = n_live;
+  if (nl == 0) {  // identity partial
+    for (int idx = t; idx < rows * hd; idx += blockDim.x) a.acc[prow * hd + idx] = 0.f;
+    for (int r = t; r < rows; r += blockDim.x) {
+      a.m[prow + r] = kNegInf;
+      a.l[prow + r] = 0.f;
+    }
+    return;
+  }
+
+  const size_t col0 = (size_t)g * hd;
+  stage_page(a, live[0], col0, ring);
+  cp_async_commit();
+
+  float m_r[RW], l_r[RW], acc[RW][CPL];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    m_r[i] = kNegInf;
+    l_r[i] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc) acc[i][cc] = 0.f;
+  }
+  const int cols = c.nb * hd;
+  const int tl = lane >> 3, part = lane & 7;
+  for (int i = 0; i < nl; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // (1) page i landed; every warp is done with page i - 1's tiles
+    if (i + 1 < nl) stage_page(a, live[i + 1], col0, ring + ((i + 1) & 1) * stage_bytes);
+    cp_async_commit();
+    const uint8_t* st = ring + (i & 1) * stage_bytes;
+    const float* sc = reinterpret_cast<const float*>(st + 2 * (size_t)rows_kv * hd);
+    for (int idx = t; idx < 2 * cols; idx += blockDim.x) {
+      const int kv = idx >= cols;
+      const int rem = idx - kv * cols;
+      const int blk = rem / hd, d = rem - blk * hd;
+      const uint8_t* base = st + (size_t)kv * rows_kv * hd;
+      const uint8_t* hbase = base + c.nb * c.mask_rows * hd;
+      const uint8_t* lbase = hbase + c.nb * c.hi_rows * hd;
+      const int ds = kv ? hd : KS;
+      decode_ranked(base + blk * c.mask_rows * hd + d,
+                    reinterpret_cast<const int8_t*>(hbase + blk * c.hi_rows * hd + d),
+                    lbase + blk * c.lo_rows * hd + d, hd, c, lut, sc[kv * hd + d],
+                    (kv ? Vt : Kt) + (blk * c.w) * ds + d, ds);
+    }
+    __syncthreads();  // (2) K and V tiles decoded
+    for (int t0 = 4 * pg; t0 < ps; t0 += 4 * kPosGroups) {  // uniform per warp
+      const int tt = t0 + tl;
+      const bool valid = tt < ps;
+      const float* kr = Kt + (valid ? tt : t0) * KS;
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        const int r = rs + kRowSets * i;
+        if (r >= rows) break;
+        const float* qr = Qs + r * hd;
+        float s = 0.f;
+        for (int d = part; d < hd; d += 8) s += qr[d] * kr[d];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s = valid ? s : kNegInf;
+        float mx = fmaxf(s, __shfl_xor_sync(0xffffffffu, s, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_r[i], mx);
+        const float p = valid ? expf(s - m_new) : 0.f;
+        float sum = p + __shfl_xor_sync(0xffffffffu, p, 8);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+        const float corr = expf(m_r[i] - m_new);  // 0 on the warp's first live key
+        l_r[i] = l_r[i] * corr + sum;
+        m_r[i] = m_new;
+        float pj[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pj[j] = __shfl_sync(0xffffffffu, p, 8 * j);
+#pragma unroll
+        for (int cc = 0; cc < CPL; ++cc) {
+          const int d = lane + 32 * cc;
+          if (d < hd) {
+            float pv = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (t0 + j < ps) pv += pj[j] * Vt[(t0 + j) * hd + d];
+            acc[i][cc] = acc[i][cc] * corr + pv;
+          }
+        }
+      }
+    }
+  }
+
+  // merge the position groups' states of every row in group order; the
+  // merge scratch overlays the ring and the tiles (no copy is in flight:
+  // the last group was empty)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* Wm = reinterpret_cast<float*>(smem_raw);  // [groups][RT]
+  float* Wl = Wm + kPosGroups * RT;                // [groups][RT]
+  float* Wa = Wl + kPosGroups * RT;                // [groups][RT][hd]
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = rs + kRowSets * i;
+    if (r >= rows) break;
+    if (lane == 0) {
+      Wm[pg * RT + r] = m_r[i];
+      Wl[pg * RT + r] = l_r[i];
+    }
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc) {
+      const int d = lane + 32 * cc;
+      if (d < hd) Wa[(pg * RT + r) * hd + d] = acc[i][cc];
+    }
+  }
+  __syncthreads();
+  for (int idx = t; idx < rows * hd; idx += blockDim.x) {
+    const int r = idx / hd, d = idx - r * hd;
+    float M = kNegInf;
+    for (int w = 0; w < kPosGroups; ++w) M = fmaxf(M, Wm[w * RT + r]);
+    float L = 0.f, A = 0.f;
+    for (int w = 0; w < kPosGroups; ++w) {
+      const float e = expf(Wm[w * RT + r] - M);
+      L += Wl[w * RT + r] * e;
+      A += Wa[(w * RT + r) * hd + d] * e;
+    }
+    a.acc[prow * hd + idx] = A;
+    if (d == 0) {
+      a.m[prow + r] = M;
+      a.l[prow + r] = L;
+    }
+  }
+}
+
+// Merge S split partials of every (slot, head, row) in split-index order:
+// M = max m_s, l = sum l_s e^(m_s - M), acc = sum acc_s e^(m_s - M).  All
+// splits empty gives the identity partial exactly.  One block per row.
+__global__ void split_combine_kernel(const float* pacc, const float* pm, const float* pl,
+                                     float* acc, float* m, float* l, int S, int rows,
+                                     int hd) {
+  const int row = blockIdx.x;
+  float M = kNegInf;
+  for (int s = 0; s < S; ++s) M = fmaxf(M, pm[(size_t)s * rows + row]);
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float A = 0.f;
+    for (int s = 0; s < S; ++s)
+      A += pacc[((size_t)s * rows + row) * hd + d] * expf(pm[(size_t)s * rows + row] - M);
+    acc[(size_t)row * hd + d] = A;
+  }
+  if (threadIdx.x == 0) {
+    float L = 0.f;
+    for (int s = 0; s < S; ++s) L += pl[(size_t)s * rows + row] * expf(pm[(size_t)s * rows + row] - M);
+    m[row] = M;
+    l[row] = L;
+  }
+}
+
+template <int RT, int CPL>
+cudaError_t launch_split_typed(const SplitArgs& a, int splits, cudaStream_t stream) {
+  const int hd = a.hd, ps = a.c.nb * a.c.w;
+  const size_t rows_kv = (size_t)a.c.nb * (a.c.mask_rows + a.c.hi_rows + a.c.lo_rows);
+  const size_t stage = 2 * rows_kv * hd + 8 * (size_t)hd;
+  const size_t main_bytes = 2 * stage + sizeof(float) * ((size_t)ps * (hd + 8) +
+                                                         (size_t)ps * hd + (size_t)RT * hd);
+  const size_t merge_bytes = sizeof(float) * kPosGroups * (size_t)RT * (hd + 2);
+  const size_t smem = main_bytes > merge_bytes ? main_bytes : merge_bytes;
+  auto kernel = paged_attention_split_kernel<RT, CPL>;
+  // always raise the dynamic limit to this launch's need (the kernel has
+  // static shared memory beside it)
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(splits, a.KV * a.tiles, a.B);
+  kernel<<<grid, kSplitThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int RT>
+cudaError_t launch_split_rows(const SplitArgs& a, int splits, cudaStream_t s) {
+  if (a.hd <= 64) return launch_split_typed<RT, 2>(a, splits, s);
+  if (a.hd <= 128) return launch_split_typed<RT, 4>(a, splits, s);
+  return launch_split_typed<RT, 8>(a, splits, s);
+}
+
 }  // namespace
 
 extern "C" int strum_page_decode_launch(const void* mask, const void* hi, const void* lo,
@@ -346,7 +735,8 @@ extern "C" int strum_page_decode_launch(const void* mask, const void* hi, const 
   return (int)cudaGetLastError();
 }
 
-// mode 0 = K4 (mask + hi + lo), mode 1 = K5 (p = 1: lo only; mask/hi unused).
+// mode 1 = K5 (p = 1: lo only; mask/hi unused).  Mode 0 (K4) runs the
+// split kernel (strum_paged_attention_split_launch) and is refused here.
 extern "C" int strum_paged_attention_launch(
     int mode, const void* q, const void* k_mask, const void* k_hi, const void* k_lo,
     const void* k_scale, const void* v_mask, const void* v_hi, const void* v_lo,
@@ -354,7 +744,8 @@ extern "C" int strum_paged_attention_launch(
     void* l, int B, int KV, int R, int hd, int P, int n_pages, int nb, int w,
     int mask_rows, int hi_rows, int lo_rows, int n_low, int q_bits, int method,
     void* stream) {
-  if (B <= 0 || KV <= 0 || R <= 0 || hd <= 0 || P <= 0 || nb <= 0 || w <= 0)
+  if (mode != kMaskfree || B <= 0 || KV <= 0 || R <= 0 || hd <= 0 || P <= 0 ||
+      nb <= 0 || w <= 0)
     return (int)cudaErrorInvalidValue;
   // pages are staged with 4-byte loads: 4-byte rows and aligned fields
   const void* fields[] = {k_mask, k_hi, k_lo, v_mask, v_hi, v_lo};
@@ -376,7 +767,62 @@ extern "C" int strum_paged_attention_launch(
   a.rows = R < kMaxRows ? R : kMaxRows;
   a.c = make_codec(nb, w, KV * hd, mask_rows, hi_rows, lo_rows, n_low, q_bits, method);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = mode == kMaskfree ? launch_attention<kMaskfree>(a, B, s)
-                                          : launch_attention<kGeneral>(a, B, s);
+  return (int)launch_attention<kMaskfree>(a, B, s);
+}
+
+// K4: the split partials (S = ceil(P / pps) splits) into pacc / pm / pl,
+// (S, B, KV, R, hd) and (S, B, KV, R); with S == 1 those are the outputs.
+extern "C" int strum_paged_attention_split_launch(
+    const void* q, const void* k_mask, const void* k_hi, const void* k_lo,
+    const void* k_scale, const void* v_mask, const void* v_hi, const void* v_lo,
+    const void* v_scale, const void* page_ids, const void* n_valid, void* pacc, void* pm,
+    void* pl, int B, int KV, int R, int hd, int P, int n_pages, int pps, int nb, int w,
+    int mask_rows, int hi_rows, int lo_rows, int n_low, int q_bits, int method,
+    void* stream) {
+  if (B <= 0 || KV <= 0 || R <= 0 || P <= 0 || nb <= 0 || pps <= 0 ||
+      pps > kMaxSplitPages || w % 8 != 0 || w > 64 || nb * w > kMaxPageSize ||
+      mask_rows != w / 8 || hi_rows <= 0 || lo_rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte staging: whole 16-byte row slices and aligned fields
+  const void* fields[] = {k_mask, k_hi, k_lo, k_scale, v_mask, v_hi, v_lo, v_scale};
+  uintptr_t any = 0;
+  for (const void* f : fields) any |= reinterpret_cast<uintptr_t>(f);
+  if (hd <= 0 || hd % 16 != 0 || hd > 256 || any % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  SplitArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = {static_cast<const uint8_t*>(k_mask), static_cast<const int8_t*>(k_hi),
+         static_cast<const uint8_t*>(k_lo), static_cast<const float*>(k_scale)};
+  a.v = {static_cast<const uint8_t*>(v_mask), static_cast<const int8_t*>(v_hi),
+         static_cast<const uint8_t*>(v_lo), static_cast<const float*>(v_scale)};
+  a.page_ids = static_cast<const int*>(page_ids);
+  a.n_valid = static_cast<const int*>(n_valid);
+  a.acc = static_cast<float*>(pacc);
+  a.m = static_cast<float*>(pm);
+  a.l = static_cast<float*>(pl);
+  a.B = B; a.KV = KV; a.R = R; a.hd = hd; a.P = P; a.n_pages = n_pages; a.pps = pps;
+  a.c = make_codec(nb, w, KV * hd, mask_rows, hi_rows, lo_rows, n_low, q_bits, method);
+  const int splits = (P + pps - 1) / pps;
+  // row tile: 1 at decode, else 8 or 16 (8 where a lane holds 8 columns)
+  const int rt = R == 1 ? 1 : (R <= 8 || hd > 128) ? 8 : 16;
+  a.tiles = (R + rt - 1) / rt;
+  if ((long long)KV * a.tiles > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = rt == 1   ? launch_split_rows<1>(a, splits, s)
+                  : rt == 8 ? launch_split_rows<8>(a, splits, s)
+                            : launch_split_typed<16, 4>(a, splits, s);
   return (int)e;
+}
+
+// K4's merge of S > 1 split partials into acc (B, KV, R, hd), m, l (B, KV, R).
+extern "C" int strum_attention_combine_launch(const void* pacc, const void* pm,
+                                              const void* pl, void* acc, void* m, void* l,
+                                              int S, int rows, int hd, void* stream) {
+  if (S <= 0 || rows <= 0 || hd <= 0) return (int)cudaErrorInvalidValue;
+  const int threads = hd >= 128 ? 128 : ((hd + 31) / 32) * 32;
+  split_combine_kernel<<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pacc), static_cast<const float*>(pm),
+      static_cast<const float*>(pl), static_cast<float*>(acc), static_cast<float*>(m),
+      static_cast<float*>(l), S, rows, hd);
+  return (int)cudaGetLastError();
 }

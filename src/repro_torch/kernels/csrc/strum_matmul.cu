@@ -4,7 +4,7 @@
 //   K1 strum_onehot_launch    <- strum_matmul_pallas           (mask + hi + lo)
 //   K2 strum_maskfree_launch  <- strum_matmul_pallas_maskfree  (p = 1: lo only)
 //   K3 strum_dense_launch     <- strum_matmul_pallas_dense     (n_low = 0: hi only)
-//   K6 strum_grouped_onehot_launch   <- strum_matmul_pallas_grouped
+//   K6 strum_grouped_onehot_launch   <- strum_matmul_pallas_grouped (own kernel)
 //   K7 strum_grouped_maskfree_launch <- strum_matmul_pallas_grouped_maskfree
 //   K8 strum_grouped_dense_launch    <- strum_matmul_pallas_grouped_dense
 //   K9 strum_histream_launch   <- strum_matmul_pallas_histream  (draft: mask + hi)
@@ -18,8 +18,37 @@
 // entries never split K: an expert stack has G x ceil(N/64) >= 132 output
 // tiles, enough to fill the card, so they need no atomicAdd and give the
 // same result on every run.
-// They compute every group's rows, empty experts included, as the TPU
-// kernel does.
+// K7 and K8 compute every group's rows, empty experts included, as the TPU
+// kernels do.
+//
+// K6 has a kernel of its own (grouped_onehot_kernel, below), redesigned for
+// Hopper: the old one decoded every expert's weights one byte load and one
+// mask bit at a time, with nothing in flight while a chunk decoded, and its
+// decode work, not its bytes, set the time (2.93 ms for one Moonshot MoE
+// layer on an H100 SXM at 700 W, 20x the byte bound).  It takes an
+// optional per-group live-row count `rows` (rows at or past rows[g] of
+// x[g] are zero): a row tile at or past
+// the count reads no weight byte and writes exact zeros (a group with
+// rows[g] == 0 reads nothing), and rows past the count inside a computed
+// tile are written as 0 too.  Block = 64 output columns x BM rows (16, 32 or
+// 64) of one group, 256 threads.  The packed bytes of each K chunk (64 K
+// positions: mask, hi and lo rows of 64 columns) come in by 16-byte
+// cp.async.cg into a three-stage ring, two chunks ahead of the one being
+// decoded, and the chunk's x rows one chunk ahead into registers.  Decode:
+// one thread per (w-block, column); the block's mask, hi and lo bytes go
+// into four registers, a position's rank among the high (low) set is the
+// popcount of the lower mask bits, a hi value is a byte permute, a lo code
+// decodes through a table in shared memory, and the two candidates are
+// selected, not branched on; bf16 integers (|v| <= 128, exact) go out as
+// 16-byte stores into one of two column-major tiles.  One barrier per
+// chunk: while chunk c decodes into one tile, the product of chunk c - 1
+// runs on the other.  bf16 x runs on tensor cores (mma.sync m16n8k16, bf16
+// x bf16 -> f32, rows padded to 16 with zeros); f32 x keeps f32 FMAs on the
+// CUDA cores against the same exact tile.  The per-column scale is applied
+// to the f32 sums in the epilogue.  No split-K, no atomics: the same result
+// on every run.  Fields must be 16-byte aligned with N % 16 == 0 for the
+// asynchronous copies; other shapes (tests' odd N) are staged with plain
+// byte loads into the same ring.
 //
 // K9 and K10 are the draft lowerings of self-speculative decoding: the same
 // payload read at lower fidelity, a strict subset of its bytes.  K9
@@ -63,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -87,6 +118,14 @@ struct Args {
   // per-group element strides of x, mask, hi, lo, scale and out (grouped)
   long long gx, gmask, ghi, glo, gscale, gout;
 };
+
+__device__ __forceinline__ void cp_async_commit_g() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_g() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -304,6 +343,402 @@ int launch(const void* x, int x_bf16, const void* mask, const void* hi,
                       : launch_rows<MODE, false>(a, x_bf16, splits, s));
 }
 
+
+// ---------------------------------------- K6: live-expert grouped matmul --
+
+constexpr int kGThreads = 256;
+constexpr int kGBN = 64;       // output columns per block
+constexpr int kGRowGroups = kGThreads / kGBN;     // f32 path: threads per column
+constexpr int kGNT = kGBN / 8 / (kGThreads / 32);  // mma path: n8 tiles per warp
+constexpr int kGStages = 3;    // K chunks in the shared-memory ring
+constexpr int kGTargetKC = 64; // K positions per chunk
+
+struct GroupedArgs {
+  const void* x;        // (G, M, K)
+  const uint8_t* mask;  // (G, nb, mask_rows, N)
+  const int8_t* hi;     // (G, nb, hi_rows, N)
+  const uint8_t* lo;    // (G, nb, lo_rows, N)
+  const float* scale;   // (G, N)
+  const int* rows;      // (G,) live rows, or null: all M rows live
+  float* out;           // (G, M, N)
+  int M, N, K, nb, w, mask_rows, hi_rows, lo_rows, n_high, n_low, q, method;
+  int nbk, kc, kcp;     // w-blocks per chunk, K per chunk, kc padded to 16
+  int vec16;            // 16-byte asynchronous staging allowed
+};
+
+__device__ __forceinline__ void g_cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+// Stage chunk `ch`: for each of its w-blocks, the mask, hi and lo rows of
+// columns [n0, n0 + 64); blocks past nb and columns past N read as 0.
+// Layout: [field rows of block 0][of block 1]..., each row kGBN bytes.
+__device__ __forceinline__ void stage_chunk(const GroupedArgs& a, int ch, int n0,
+                                            uint8_t* dst) {
+  const int per_blk = a.mask_rows + a.hi_rows + a.lo_rows;
+  const int nrow = a.nbk * per_blk;
+  if (a.vec16) {
+    for (int i = threadIdx.x; i < nrow * (kGBN / 16); i += blockDim.x) {
+      const int row = i >> 2, vec = i & 3;
+      const int kb = row / per_blk;
+      int r = row - kb * per_blk;
+      const int b = ch * a.nbk + kb, n = n0 + 16 * vec;
+      const uint8_t* src = a.mask;
+      if (r < a.mask_rows) {
+        src = a.mask + ((size_t)b * a.mask_rows + r) * a.N + n;
+      } else if ((r -= a.mask_rows) < a.hi_rows) {
+        src = reinterpret_cast<const uint8_t*>(a.hi) + ((size_t)b * a.hi_rows + r) * a.N + n;
+      } else {
+        r -= a.hi_rows;
+        src = a.lo + ((size_t)b * a.lo_rows + r) * a.N + n;
+      }
+      const bool in = b < a.nb && n < a.N;  // N % 16 == 0: whole vectors
+      g_cp_async16(dst + row * kGBN + 16 * vec, in ? src : a.mask, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrow * kGBN; i += blockDim.x) {
+      const int row = i / kGBN, cc = i % kGBN;
+      const int kb = row / per_blk;
+      int r = row - kb * per_blk;
+      const int b = ch * a.nbk + kb, n = n0 + cc;
+      uint8_t v = 0;
+      if (b < a.nb && n < a.N) {
+        if (r < a.mask_rows) v = a.mask[((size_t)b * a.mask_rows + r) * a.N + n];
+        else if ((r -= a.mask_rows) < a.hi_rows)
+          v = (uint8_t)a.hi[((size_t)b * a.hi_rows + r) * a.N + n];
+        else v = a.lo[((size_t)b * a.lo_rows + r - a.hi_rows) * a.N + n];
+      }
+      dst[i] = v;
+    }
+  }
+}
+
+__device__ __forceinline__ int g_lo_field(const uint8_t* col, int rows, int j, int q) {
+  const int bit = j * q, byte = bit >> 3, sh = bit & 7;
+  unsigned v = col[byte * kGBN];
+  if (sh + q > 8 && byte + 1 < rows) v |= (unsigned)col[(byte + 1) * kGBN] << 8;
+  return (int)((v >> sh) & ((1u << q) - 1u));
+}
+
+__device__ __forceinline__ int g_decode_low(int c, int method, int q) {
+  if (method == kDliq) {
+    const int sb = 1 << (q - 1);
+    return ((c ^ sb) - sb) * (1 << (8 - q));
+  }
+  if (method == kMip2q) {
+    const int s = 1 - 2 * (c >> (q - 1));
+    return s * (1 << (c & ((1 << (q - 1)) - 1)));
+  }
+  return 0;
+}
+
+// One position of a [1, w] block held in registers: m the mask bits, h0/h1
+// the hi bytes (rank order), l the lo fields, lut the decoded lo codes.  A
+// position's rank among the high (low) set is the popcount of the set
+// (clear) mask bits below it; both candidates are formed and one selected.
+// Valid payloads have n_high set bits a block; a padded block (all clear)
+// reads lo field min(rank, lmax), whose activations are zero.
+__device__ __forceinline__ float reg_value(uint32_t m, uint32_t h0, uint32_t h1, uint32_t l,
+                                           const float* lut, int pos, int lmax, int q,
+                                           uint32_t qmask) {
+  const int rh = __popc(m & ((1u << pos) - 1u));
+  const int rl = pos - rh;
+  const float hv = (float)(int8_t)__byte_perm(h0, h1, (unsigned)(rh & 7));
+  const float lv = lut[(l >> (min(rl, lmax) * q)) & qmask];
+  return (m >> pos) & 1u ? hv : lv;
+}
+
+// Decode a staged chunk into Wt[n][k] (bf16 integers, k contiguous, row
+// stride kcp + 8): one thread per (w-block, column).  The common codecs
+// (w <= 32, <= 8 hi and <= 4 lo rows: mip2q / dliq p = 0.5) read the
+// block's bytes once into registers (fully unrolled at w = 16), and lo codes
+// decode through `lut` (2^q values in shared memory); the others read the
+// staged bytes per position.
+__device__ __forceinline__ void decode_chunk(const GroupedArgs& a, const uint8_t* st,
+                                             const float* lut, __nv_bfloat16* Wt) {
+  const int per_blk = a.mask_rows + a.hi_rows + a.lo_rows;
+  const int ws = a.kcp + 8;
+  const int hmax = a.n_high > 0 ? a.n_high - 1 : 0;
+  const int lmax = a.method != kSparsity && a.n_low > 0 ? a.n_low - 1 : 0;
+  const bool fast = a.w <= 32 && a.hi_rows <= 8 && a.lo_rows <= 4;
+  const uint32_t qmask = a.method == kSparsity ? 0u : (1u << a.q) - 1u;
+  for (int idx = threadIdx.x; idx < a.nbk * kGBN; idx += blockDim.x) {
+    const int kb = idx / kGBN, n = idx % kGBN;
+    const uint8_t* mcol = st + kb * per_blk * kGBN + n;
+    const int8_t* hcol = reinterpret_cast<const int8_t*>(mcol + a.mask_rows * kGBN);
+    const uint8_t* lcol = mcol + (a.mask_rows + a.hi_rows) * kGBN;
+    __nv_bfloat16* dst = Wt + n * ws + kb * a.w;
+    if (fast) {  // the block's mask, hi and lo bytes in four registers
+      uint32_t m = 0, h0 = 0, h1 = 0, l = 0;
+      for (int r = 0; r < a.mask_rows; ++r) m |= (uint32_t)mcol[r * kGBN] << (8 * r);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r >= a.hi_rows) break;
+        const uint32_t b = (uint8_t)hcol[r * kGBN];
+        if (r < 4) h0 |= b << (8 * r);
+        else h1 |= b << (8 * (r - 4));
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (r >= a.lo_rows) break;
+        l |= (uint32_t)lcol[r * kGBN] << (8 * r);
+      }
+      if (a.w == 16) {
+        uint32_t v8[8];
+#pragma unroll
+        for (int pos = 0; pos < 16; pos += 2) {
+          const __nv_bfloat162 pair = __floats2bfloat162_rn(
+              reg_value(m, h0, h1, l, lut, pos, lmax, a.q, qmask),
+              reg_value(m, h0, h1, l, lut, pos + 1, lmax, a.q, qmask));
+          v8[pos >> 1] = *reinterpret_cast<const uint32_t*>(&pair);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v8[0], v8[1], v8[2], v8[3]);
+        *reinterpret_cast<uint4*>(dst + 8) = make_uint4(v8[4], v8[5], v8[6], v8[7]);
+        continue;
+      }
+      for (int p0 = 0; p0 < a.w; p0 += 8) {
+        uint32_t v4[4];
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          const __nv_bfloat162 pair = __floats2bfloat162_rn(
+              reg_value(m, h0, h1, l, lut, p0 + j, lmax, a.q, qmask),
+              reg_value(m, h0, h1, l, lut, p0 + j + 1, lmax, a.q, qmask));
+          v4[j >> 1] = *reinterpret_cast<const uint32_t*>(&pair);
+        }
+        *reinterpret_cast<uint4*>(dst + p0) = make_uint4(v4[0], v4[1], v4[2], v4[3]);
+      }
+      continue;
+    }
+    unsigned long long bits = 0;
+    for (int byte = 0; byte < a.mask_rows; ++byte)
+      bits |= (unsigned long long)mcol[byte * kGBN] << (8 * byte);
+    for (int p0 = 0; p0 < a.w; p0 += 8) {
+      uint32_t v8[4] = {0u, 0u, 0u, 0u};  // eight bf16, two a word, low half first
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int pos = p0 + j;
+        const int rh = __popcll(bits & ((1ull << pos) - 1ull));
+        const int rl = pos - rh;
+        const int hv = hcol[min(rh, hmax) * kGBN];
+        const int lv = g_decode_low(g_lo_field(lcol, a.lo_rows, min(rl, lmax), a.q),
+                                    a.method, a.q);
+        const bool high = (bits >> pos) & 1ull;
+        const int v = high ? (rh < a.n_high ? hv : 0) : (rl < a.n_low ? lv : 0);
+        v8[j >> 1] |= (uint32_t)__bfloat16_as_ushort(__int2bfloat16_rn(v)) << (16 * (j & 1));
+      }
+      *reinterpret_cast<uint4*>(dst + p0) = make_uint4(v8[0], v8[1], v8[2], v8[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One chunk's product into the accumulators: bf16 x on tensor cores (each
+// warp kGNT n8 tiles of the block's 64 columns, every live m16 tile), f32 x
+// as f32 FMAs (kGRowGroups threads per column).
+template <int BM, typename T>
+__device__ __forceinline__ void chunk_product(const GroupedArgs& a, const __nv_bfloat16* Wt,
+                                              const T* Xs, int mrows,
+                                              float (&acc)[BM / 16][kGNT][4],
+                                              float (&facc)[BM / kGRowGroups]) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int ws = a.kcp + 8;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int xs = a.kcp + 8;
+    const int gid = lane >> 2, tig = lane & 3;
+    const uint32_t* W32 = reinterpret_cast<const uint32_t*>(Wt);
+    const uint32_t* X32 = reinterpret_cast<const uint32_t*>(Xs);
+    for (int ks = 0; ks < a.kcp; ks += 16) {
+      uint32_t bf[kGNT][2];
+#pragma unroll
+      for (int j = 0; j < kGNT; ++j) {
+        const int nrow = (warp * kGNT + j) * 8 + gid;
+        bf[j][0] = W32[(nrow * ws + ks + tig * 2) >> 1];
+        bf[j][1] = W32[(nrow * ws + ks + 8 + tig * 2) >> 1];
+      }
+#pragma unroll
+      for (int i = 0; i < BM / 16; ++i) {
+        if (i * 16 >= mrows) break;
+        const int r = i * 16 + gid;
+        uint32_t af[4];
+        af[0] = X32[(r * xs + ks + tig * 2) >> 1];
+        af[1] = X32[((r + 8) * xs + ks + tig * 2) >> 1];
+        af[2] = X32[(r * xs + ks + 8 + tig * 2) >> 1];
+        af[3] = X32[((r + 8) * xs + ks + 8 + tig * 2) >> 1];
+#pragma unroll
+        for (int j = 0; j < kGNT; ++j) mma_bf16(acc[i][j], af, bf[j]);
+      }
+    }
+  } else {
+    const int xs = a.kcp + 4;
+    const int c = t % kGBN, rg = t / kGBN;
+    const __nv_bfloat16* wr = Wt + c * ws;
+    for (int kk = 0; kk < a.kc; ++kk) {
+      const float wv = __bfloat162float(wr[kk]);
+#pragma unroll
+      for (int i = 0; i < BM / kGRowGroups; ++i)
+        if (rg + kGRowGroups * i < mrows) facc[i] += Xs[(rg + kGRowGroups * i) * xs + kk] * wv;
+    }
+  }
+}
+
+// Grid (ceil(N / 64), ceil(M / BM), G).  T: x's type (bf16: tensor cores;
+// f32: CUDA cores).  One barrier per chunk: while chunk ch decodes into one
+// of two weight tiles, the product of chunk ch - 1 runs on the other, chunks
+// ch + 1 and ch + 2 are in flight in the ring, and chunk ch + 1's x rows
+// are in flight into registers.
+template <int BM, typename T>
+__global__ void __launch_bounds__(kGThreads) grouped_onehot_kernel(GroupedArgs a) {
+  constexpr int XPT = BM * kGTargetKC / kGThreads;  // x elements a thread stages
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float lut[256];  // lo code -> value (2^q <= 256 codes)
+  const int g = blockIdx.z, n0 = blockIdx.x * kGBN, m0 = blockIdx.y * BM;
+  const int t = threadIdx.x;
+  const int live = a.rows ? min(max(a.rows[g], 0), a.M) : a.M;
+  float* out = a.out + (size_t)g * a.M * a.N;
+  if (m0 >= live) {  // nothing live in this row tile: exact zeros, no weight read
+    for (int idx = t; idx < BM * kGBN; idx += blockDim.x) {
+      const int m = m0 + idx / kGBN, n = n0 + idx % kGBN;
+      if (m < a.M && n < a.N) out[(size_t)m * a.N + n] = 0.f;
+    }
+    return;
+  }
+  const int mrows = min(BM, live - m0);
+  a.mask += (size_t)g * a.nb * a.mask_rows * a.N;
+  a.hi += (size_t)g * a.nb * a.hi_rows * a.N;
+  a.lo += (size_t)g * a.nb * a.lo_rows * a.N;
+  const float* scale = a.scale + (size_t)g * a.N;
+  const T* x = static_cast<const T*>(a.x) + ((size_t)g * a.M + m0) * a.K;
+
+  if (a.method != kSparsity)
+    for (int c = t; c < (1 << a.q); c += blockDim.x) lut[c] = (float)g_decode_low(c, a.method, a.q);
+  else if (t == 0)
+    lut[0] = 0.f;
+  const int stage_bytes = ((a.nbk * (a.mask_rows + a.hi_rows + a.lo_rows) * kGBN) + 15) & ~15;
+  const int ws = a.kcp + 8;                                 // Wt row stride (bf16)
+  const int xs = std::is_same<T, __nv_bfloat16>::value ? a.kcp + 8 : a.kcp + 4;
+  uint8_t* ring = smem_raw;
+  __nv_bfloat16* Wt = reinterpret_cast<__nv_bfloat16*>(ring + kGStages * stage_bytes);  // [2]
+  T* Xs = reinterpret_cast<T*>(Wt + 2 * kGBN * ws);                                     // [2]
+  // the pad columns [kc, kcp) are never written: zero them once, in both buffers
+  const int pad = a.kcp - a.kc;
+  for (int idx = t; idx < 2 * kGBN * pad; idx += blockDim.x)
+    Wt[(idx / pad) * ws + a.kc + idx % pad] = __int2bfloat16_rn(0);
+  for (int idx = t; idx < 2 * BM * pad; idx += blockDim.x)
+    Xs[(idx / pad) * xs + a.kc + idx % pad] = T(0.f);
+
+  const int chunks = (a.nb + a.nbk - 1) / a.nbk;
+  T xr[XPT];  // x of the next chunk, in flight in registers
+  auto load_x = [&](int ch) {
+#pragma unroll
+    for (int e = 0; e < XPT; ++e) {
+      const int idx = t + e * kGThreads, r = idx / kGTargetKC, kk = idx % kGTargetKC;
+      const int k = ch * a.kc + kk;
+      xr[e] = (r < mrows && kk < a.kc && k < a.K) ? x[(size_t)r * a.K + k] : T(0.f);
+    }
+  };
+  auto store_x = [&](T* dst) {
+#pragma unroll
+    for (int e = 0; e < XPT; ++e) {
+      const int idx = t + e * kGThreads, r = idx / kGTargetKC, kk = idx % kGTargetKC;
+      if (kk < a.kc) dst[r * xs + kk] = xr[e];
+    }
+  };
+  stage_chunk(a, 0, n0, ring);
+  cp_async_commit_g();
+  if (chunks > 1) stage_chunk(a, 1, n0, ring + stage_bytes);
+  cp_async_commit_g();
+  load_x(0);
+
+  float acc[BM / 16][kGNT][4];   // bf16 path: [m tile][n8 tile][fragment]
+  float facc[BM / kGRowGroups];  // f32 path: rows rg + kGRowGroups i of column t % 64
+#pragma unroll
+  for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < kGNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BM / kGRowGroups; ++i) facc[i] = 0.f;
+
+  cp_async_wait_g<1>();
+  __syncthreads();  // chunk 0 landed, the lookup table is written
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int cur = ch & 1;
+    store_x(Xs + cur * BM * xs);
+    if (ch + 1 < chunks) load_x(ch + 1);
+    decode_chunk(a, ring + (ch % kGStages) * stage_bytes, lut, Wt + cur * kGBN * ws);
+    if (ch > 0)
+      chunk_product<BM, T>(a, Wt + (cur ^ 1) * kGBN * ws, Xs + (cur ^ 1) * BM * xs, mrows,
+                           acc, facc);
+    if (ch + 2 < chunks) stage_chunk(a, ch + 2, n0, ring + ((ch + 2) % kGStages) * stage_bytes);
+    cp_async_commit_g();
+    cp_async_wait_g<1>();
+    __syncthreads();  // chunk ch decoded, chunk ch + 1 landed, chunk ch - 1's product done
+  }
+  chunk_product<BM, T>(a, Wt + ((chunks - 1) & 1) * kGBN * ws,
+                       Xs + ((chunks - 1) & 1) * BM * xs, mrows, acc, facc);
+  cp_async_wait_g<0>();
+
+  // epilogue: scale per column; rows past the live count are exact zeros
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int warp = t >> 5, lane = t & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < kGNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = i * 16 + gid + (e >> 1) * 8;
+          const int n = n0 + (warp * kGNT + j) * 8 + tig * 2 + (e & 1);
+          if (m0 + r < a.M && n < a.N)
+            out[(size_t)(m0 + r) * a.N + n] = r < mrows ? acc[i][j][e] * scale[n] : 0.f;
+        }
+  } else {
+    const int c = t % kGBN, rg = t / kGBN, n = n0 + c;
+    if (n < a.N) {
+      const float s = scale[n];
+#pragma unroll
+      for (int i = 0; i < BM / kGRowGroups; ++i) {
+        const int r = rg + kGRowGroups * i;
+        if (m0 + r < a.M) out[(size_t)(m0 + r) * a.N + n] = r < mrows ? facc[i] * s : 0.f;
+      }
+    }
+  }
+}
+
+template <int BM, typename T>
+cudaError_t launch_grouped_typed(const GroupedArgs& a, int G, cudaStream_t stream) {
+  const int stage_bytes = ((a.nbk * (a.mask_rows + a.hi_rows + a.lo_rows) * kGBN) + 15) & ~15;
+  const int xs = std::is_same<T, __nv_bfloat16>::value ? a.kcp + 8 : a.kcp + 4;
+  const size_t smem = (size_t)kGStages * stage_bytes + 2 * 2 * (size_t)kGBN * (a.kcp + 8) +
+                      2 * sizeof(T) * (size_t)BM * xs;
+  auto kernel = grouped_onehot_kernel<BM, T>;
+  // always raise the dynamic limit to this launch's need: with the static
+  // lookup table a launch near 48 KB is refused under the default limit
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.N + kGBN - 1) / kGBN, (a.M + BM - 1) / BM, G);
+  kernel<<<grid, kGThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_grouped_rows(const GroupedArgs& a, int G, cudaStream_t s) {
+  if (a.M <= 16) return launch_grouped_typed<16, T>(a, G, s);
+  if (a.M <= 32) return launch_grouped_typed<32, T>(a, G, s);
+  return launch_grouped_typed<64, T>(a, G, s);
+}
+
 }  // namespace
 
 #define STRUM_ENTRY(NAME, MODE)                                                       \
@@ -323,7 +758,7 @@ STRUM_ENTRY(strum_dense_launch, kDense)
 STRUM_ENTRY(strum_histream_launch, kHistream)     // K9: lo is null
 STRUM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)  // K10: mask and lo are null
 
-// Grouped entries (K6-K8): x (G, M, K) contiguous, G >= 1, no split-K.
+// Grouped entries (K7, K8): x (G, M, K) contiguous, G >= 1, no split-K.
 #define STRUM_GROUPED_ENTRY(NAME, MODE)                                               \
   extern "C" int NAME(const void* x, int x_bf16, const void* mask, const void* hi,     \
                       const void* lo, const void* scale, void* out, int G, int M,     \
@@ -334,6 +769,39 @@ STRUM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)  // K10: mask and lo are null
                         mask_rows, hi_rows, lo_rows, n_low, q, method, 1, stream);    \
   }
 
-STRUM_GROUPED_ENTRY(strum_grouped_onehot_launch, kOnehot)
+// K6: x (G, M, K) contiguous, f32 or bf16; rows (G,) int32 live rows per
+// group, or null (every row live).  w % 8 == 0, w <= 64.
+extern "C" int strum_grouped_onehot_launch(const void* x, int x_bf16, const void* mask,
+                                           const void* hi, const void* lo,
+                                           const void* scale, const void* rows, void* out,
+                                           int G, int M, int N, int K, int nb, int w,
+                                           int mask_rows, int hi_rows, int lo_rows,
+                                           int n_low, int q, int method, void* stream) {
+  if (G <= 0 || G > 65535 || M <= 0 || N <= 0 || K <= 0 || nb <= 0 || w <= 0 ||
+      w % 8 != 0 || w > 64 || mask_rows != w / 8 || hi_rows <= 0 || lo_rows <= 0 ||
+      K > nb * w || (method != kSparsity && (q < 1 || q > 8)))
+    return (int)cudaErrorInvalidValue;
+  GroupedArgs a;
+  a.x = x;
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.hi = static_cast<const int8_t*>(hi);
+  a.lo = static_cast<const uint8_t*>(lo);
+  a.scale = static_cast<const float*>(scale);
+  a.rows = static_cast<const int*>(rows);
+  a.out = static_cast<float*>(out);
+  a.M = M; a.N = N; a.K = K; a.nb = nb; a.w = w;
+  a.mask_rows = mask_rows; a.hi_rows = hi_rows; a.lo_rows = lo_rows;
+  a.n_high = w - n_low; a.n_low = n_low; a.q = q; a.method = method;
+  a.nbk = w >= kGTargetKC ? 1 : kGTargetKC / w;
+  a.kc = a.nbk * w;
+  a.kcp = (a.kc + 15) / 16 * 16;
+  const void* fields[] = {mask, hi, lo};
+  uintptr_t any = 0;
+  for (const void* f : fields) any |= reinterpret_cast<uintptr_t>(f);
+  a.vec16 = N % 16 == 0 && any % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(x_bf16 ? launch_grouped_rows<__nv_bfloat16>(a, G, s)
+                      : launch_grouped_rows<float>(a, G, s));
+}
 STRUM_GROUPED_ENTRY(strum_grouped_maskfree_launch, kMaskfree)
 STRUM_GROUPED_ENTRY(strum_grouped_dense_launch, kDense)

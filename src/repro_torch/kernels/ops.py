@@ -153,7 +153,7 @@ def strum_gemv_draft(x: torch.Tensor, packed: PackedStruM, *, mode: str,
 
 
 def strum_grouped_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,
-                         variant: str = "onehot") -> torch.Tensor:
+                         variant: str = "onehot", rows=None) -> torch.Tensor:
     """Batched y[..., m, n] = x[..., m, :] @ dequant(W[...]) for stacked leaves.
 
     ``packed`` carries lead stack dims on every field -- mask ``(lead..., nb,
@@ -161,6 +161,9 @@ def strum_grouped_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None
     ``models.quantize._pack_leaf`` emits for MoE expert stacks.  ``x`` is
     ``(lead..., M, K)`` with ``K == packed.k_dim`` (the true reduction dim).
     Lead dims flatten into one group axis (K6-K8 take it as a grid axis).
+    ``rows`` (lead...) int, optional, on x's device: the live rows of each
+    group -- rows at or past ``rows[g]`` of x are zero, and so are those of
+    the result; K6 skips their work (K7, K8 compute them).
     Returns ``(lead..., M, N)`` in ``out_dtype`` (default x.dtype).
     """
     out_dtype = out_dtype or x.dtype
@@ -184,14 +187,21 @@ def strum_grouped_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None
         return a.reshape((g,) + tuple(a.shape[lead_dims:])).contiguous()
 
     scale = flat(packed.scale)
+    if rows is not None:
+        if tuple(rows.shape) != lead:
+            raise ValueError(f"rows {tuple(rows.shape)} does not match the lead "
+                             f"dims {lead}")
+        rows = rows.reshape(g)
     if variant == "onehot":
         y = K.strum_matmul_grouped_onehot(
             x3, flat(packed.mask), _min1(flat(packed.hi), 2),
             _min1(flat(packed.lo), 2), scale, w=w, n_low=packed.n_low,
-            q=packed.q, method=packed.method)
+            q=packed.q, method=packed.method, rows=rows)
     elif variant == "maskfree":
         y = K.strum_matmul_grouped_maskfree(x3, flat(packed.lo), scale, w=w,
-                                            q=packed.q, method=packed.method)
+                                            q=packed.q, method=packed.method,
+                                            rows=rows)
     else:
-        y = K.strum_matmul_grouped_dense(x3, flat(packed.hi), scale, w=w)
+        y = K.strum_matmul_grouped_dense(x3, flat(packed.hi), scale, w=w,
+                                         rows=rows)
     return y.reshape(lead + (m, n)).to(out_dtype)

@@ -77,6 +77,12 @@ def lib():
         so.strum_paged_attention_launch.argtypes = [ctypes.c_int] + \
             [ctypes.c_void_p] * 14 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
         so.strum_paged_attention_launch.restype = ctypes.c_int
+        so.strum_paged_attention_split_launch.argtypes = \
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+        so.strum_paged_attention_split_launch.restype = ctypes.c_int
+        so.strum_attention_combine_launch.argtypes = \
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        so.strum_attention_combine_launch.restype = ctypes.c_int
     return so
 
 

@@ -13,8 +13,12 @@ source, with its design and what bounds it, is ``csrc/strum_matmul.cu``.
 ``y(G, M, N) f32 = x(G, M, K) @ dequant(W[g])`` for every group ``g`` of a
 stacked payload (every field ``(G, nb, rows, N)``, scale ``(G, 1, N)``): the
 MoE expert contractions.  They replace ``strum_matmul_pallas_grouped``,
-``_grouped_maskfree`` and ``_grouped_dense``; the group is a grid axis of
-the same CUDA kernels, and K is never split across blocks.
+``_grouped_maskfree`` and ``_grouped_dense``; the group is a grid axis and K
+is never split across blocks.  K7 and K8 are the 2-D kernels' template;
+K6 is a kernel of its own (asynchronous 16-byte staging, popcount decode,
+bf16 tensor cores for bf16 x) and takes optional per-group live-row counts
+``rows``: rows past ``rows[g]`` are zero in x and come out as exact zeros,
+and a row tile past the count reads no weight byte.
 
 ``strum_matmul_histream`` (K9) and ``strum_matmul_maskfree_p`` (K10) are
 the reduced-fidelity reads of self-speculative decoding's draft lane: K9
@@ -131,11 +135,23 @@ def strum_matmul_maskfree_p_plain(x2, hi, scale, *, w: int,
     return _matmul_scaled(x2, vals, scale)
 
 
-def strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, **kw) -> torch.Tensor:
-    """(G, M, K) x against (G, ...) fields: the 2-D plain version per group."""
-    return torch.stack([strum_matmul_onehot_plain(x3[g], mask[g], hi[g], lo[g],
-                                                  scale[g], **kw)
-                        for g in range(x3.shape[0])])
+def _past_rows_zero(y: torch.Tensor, rows) -> torch.Tensor:
+    """(G, M, N) y with rows at or past ``rows[g]`` of group g set to 0."""
+    if rows is None:
+        return y
+    live = torch.arange(y.shape[1], device=y.device)[None, :] < \
+        rows.to(device=y.device, dtype=torch.long).reshape(-1, 1)
+    return torch.where(live[..., None], y, y.new_zeros(()))
+
+
+def strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, rows=None,
+                                      **kw) -> torch.Tensor:
+    """(G, M, K) x against (G, ...) fields: the 2-D plain version per group;
+    with ``rows`` (G,), rows at or past ``rows[g]`` are 0 (K6's contract:
+    x is 0 there)."""
+    return _past_rows_zero(torch.stack([
+        strum_matmul_onehot_plain(x3[g], mask[g], hi[g], lo[g], scale[g], **kw)
+        for g in range(x3.shape[0])]), rows)
 
 
 def strum_matmul_grouped_maskfree_plain(x3, lo, scale, **kw) -> torch.Tensor:
@@ -157,9 +173,11 @@ def _lib():
         fn = getattr(lib, entry)
         if fn.argtypes is None:
             # 2-D: M N K ldx nb w rows x3 n_low q method splits;
-            # grouped: G M N K nb w rows x3 n_low q method
+            # grouped: G M N K nb w rows x3 n_low q method; K6 also takes
+            # the live-row counts after scale
             ints = 12 if name.startswith("grouped_") else 13
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+            ptrs = 6 if name == "grouped_onehot" else 5
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * ptrs
                            + [ctypes.c_int] * ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
@@ -176,11 +194,12 @@ def _splits(m: int, n: int, nb: int, device: torch.device) -> int:
 
 
 def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
-            method: str) -> torch.Tensor:
+            method: str, rows=None) -> torch.Tensor:
     """Validate every operand, then launch kernel ``name`` on x's stream.
     ``None`` marks a field the kernel does not read.  A 2-D kernel takes x
     (M, K), fields (nb, rows, N) and scale (1, N); a grouped one (name
-    ``grouped_*``) x (G, M, K), fields (G, nb, rows, N) and scale (G, 1, N)."""
+    ``grouped_*``) x (G, M, K), fields (G, nb, rows, N) and scale (G, 1, N);
+    K6 (``grouped_onehot``) also the live rows per group, (G,) or None."""
     lead = 1 if name.startswith("grouped_") else 0
     if x.dim() != 2 + lead:
         raise ValueError(f"cuda:{name}: x must be {2 + lead}-D, got {tuple(x.shape)}")
@@ -213,20 +232,29 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
     if k > nb * w:
         raise ValueError(f"cuda:{name}: x K={k} exceeds the payload's nb*w={nb * w}")
     ptrs = [t.data_ptr() if t is not None else None for t in (mask, hi, lo)]
-    rows = [t.shape[lead + 1] if t is not None else 0 for t in (mask, hi, lo)]
+    nrows = [t.shape[lead + 1] if t is not None else 0 for t in (mask, hi, lo)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = getattr(_lib(), _ENTRY[name])
     if lead:    # every expert stack fills the card with its own tiles: no split-K
         out = torch.empty((groups, m, n), dtype=torch.float32, device=x.device)
+        live = []
+        if name == "grouped_onehot":
+            if rows is not None:
+                if rows.numel() != groups or rows.is_floating_point():
+                    raise ValueError(f"cuda:{name}: rows {tuple(rows.shape)} "
+                                     f"{rows.dtype} is not ({groups},) integer")
+                rows = rows.to(device=x.device, dtype=torch.int32).reshape(
+                    groups).contiguous()
+            live = [rows.data_ptr() if rows is not None else None]
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
-                 out.data_ptr(), groups, m, n, k, nb, w, *rows, n_low, q,
+                 *live, out.data_ptr(), groups, m, n, k, nb, w, *nrows, n_low, q,
                  METHOD_CODES[method], stream)
     else:
         splits = _splits(m, n, nb, x.device)
         out = (torch.zeros if splits > 1 else torch.empty)(
             (m, n), dtype=torch.float32, device=x.device)
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
-                 out.data_ptr(), m, n, k, x.stride(0), nb, w, *rows, n_low, q,
+                 out.data_ptr(), m, n, k, x.stride(0), nb, w, *nrows, n_low, q,
                  METHOD_CODES[method], splits, stream)
     if err != 0:
         raise RuntimeError(f"cuda:{name} launch failed: CUDA error {err}")
@@ -274,21 +302,26 @@ def strum_matmul_dense(x2, hi, scale, *, w: int) -> torch.Tensor:
 
 
 def strum_matmul_grouped_onehot(x3, mask, hi, lo, scale, *, w: int, n_low: int,
-                                q: int, method: str) -> torch.Tensor:
+                                q: int, method: str, rows=None) -> torch.Tensor:
     """K6: y[g] = x3[g] @ dequant(mask[g], hi[g], lo[g], scale[g]), (G, M, N)
-    f32; needs w % 8 == 0."""
+    f32; needs w % 8 == 0 (w <= 64 on the card).  ``rows`` (G,) int, optional:
+    rows at or past ``rows[g]`` of x3[g] are zero; the kernel reads no weight
+    byte for a row tile past the count and writes those rows as exact 0."""
     if w % 8:
         raise ValueError(f"grouped onehot kernel needs byte-aligned mask rows (w={w})")
     if _route(x3) == "plain":
-        return strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, w=w,
+        return strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, rows, w=w,
                                                  n_low=n_low, q=q, method=method)
+    if w > 64:
+        raise ValueError(f"cuda:grouped_onehot: w={w} > 64")
     return _launch("grouped_onehot", x3, mask, hi, lo, scale, w=w, n_low=n_low,
-                   q=q, method=method)
+                   q=q, method=method, rows=rows)
 
 
 def strum_matmul_grouped_maskfree(x3, lo, scale, *, w: int, q: int,
-                                  method: str) -> torch.Tensor:
-    """K7 (p = 1): y[g] = x3[g] @ dequant(lo[g], scale[g]); no mask, no hi."""
+                                  method: str, rows=None) -> torch.Tensor:
+    """K7 (p = 1): y[g] = x3[g] @ dequant(lo[g], scale[g]); no mask, no hi.
+    ``rows`` is accepted and not read: x is 0 past it, so is y."""
     if method not in ("dliq", "mip2q"):
         raise ValueError(f"grouped maskfree kernel needs a lo payload, got {method!r}")
     if _route(x3) == "plain":
@@ -298,8 +331,9 @@ def strum_matmul_grouped_maskfree(x3, lo, scale, *, w: int, q: int,
                    q=q, method=method)
 
 
-def strum_matmul_grouped_dense(x3, hi, scale, *, w: int) -> torch.Tensor:
-    """K8 (n_low = 0): y[g] = x3[g] @ dequant(hi[g], scale[g]); any w."""
+def strum_matmul_grouped_dense(x3, hi, scale, *, w: int, rows=None) -> torch.Tensor:
+    """K8 (n_low = 0): y[g] = x3[g] @ dequant(hi[g], scale[g]); any w.
+    ``rows`` is accepted and not read, as for K7."""
     if _route(x3) == "plain":
         return strum_matmul_grouped_dense_plain(x3, hi, scale, w=w)
     return _launch("grouped_dense", x3, None, hi, None, scale, w=w, n_low=0, q=1,

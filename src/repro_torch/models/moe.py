@@ -8,8 +8,9 @@ drops (its weight is zeroed and its row parked in a trash slot ``C`` that is
 cut off).  The router runs in f32; ties in the top-k go to the lower expert
 index, as ``jax.lax.top_k`` orders them.  The three expert contractions go
 through :func:`_expert_contract`: a StruM-packed stack runs through the
-engine's grouped dispatch (``cuda:grouped*``, kernels K6-K8, on the card),
-a dense one through a batched matmul.
+engine's grouped dispatch (``cuda:grouped*``, kernels K6-K8, on the card)
+with each expert's filled-slot count (``rows``, so K6 skips empty experts
+and empty row tiles), a dense one through a batched matmul.
 
 Like the reference, ``moe_apply`` ignores a per-call ``backend=``: packed
 stacks always run the variant their plan recorded.  The expert-parallel
@@ -41,13 +42,15 @@ def moe_def(cfg, lead=()) -> dict:
     return out
 
 
-def _expert_contract(wstack, xbuf: torch.Tensor, scfg) -> torch.Tensor:
+def _expert_contract(wstack, xbuf: torch.Tensor, scfg, rows=None) -> torch.Tensor:
     """(E, C, K) x (E, K, N) -> (E, C, N) in xbuf's dtype, packed stacks kept
-    packed (grouped dispatch of their recorded variant), dense ones a
-    batched f32-accumulated matmul."""
+    packed (grouped dispatch of their recorded variant, with ``rows``, the
+    filled slots of each expert), dense ones a batched f32-accumulated
+    matmul."""
     if isinstance(wstack, dict):
         from repro_torch.engine.dispatch import dispatch_grouped
-        return dispatch_grouped(wstack, xbuf, strum=scfg, out_dtype=xbuf.dtype)
+        return dispatch_grouped(wstack, xbuf, strum=scfg, out_dtype=xbuf.dtype,
+                                rows=rows)
     return torch.matmul(xbuf.to(torch.float32),
                         wstack.to(xbuf.dtype).to(torch.float32)).to(xbuf.dtype)
 
@@ -113,13 +116,19 @@ def _moe_local(x2, router_w, wi, wg, wo, cfg, e_offset: int, capacity: int,
     buf.index_put_((r["exp"], r["pos"]),
                    torch.where(r["keep"][:, None], x2[r["tok"]], 0), accumulate=True)
     buf = buf[:, :capacity]
+    # filled slots per expert: a bincount of the kept assignments on the
+    # device (no host sync); slots fill from 0 in order, so every row past
+    # the count is zero in buf, and in h (silu(0)·0 = gelu(0) = 0)
+    e_local = buf.shape[0]
+    rows = torch.zeros(e_local, dtype=torch.int32, device=x2.device).index_add_(
+        0, r["exp"], r["keep"].to(torch.int32))
 
-    h = _expert_contract(wi, buf, scfgs[0])
+    h = _expert_contract(wi, buf, scfgs[0], rows)
     if wg is not None:
-        h = F.silu(_expert_contract(wg, buf, scfgs[1])) * h
+        h = F.silu(_expert_contract(wg, buf, scfgs[1], rows)) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    out_buf = _expert_contract(wo, h, scfgs[2])
+    out_buf = _expert_contract(wo, h, scfgs[2], rows)
 
     # combine: f32 weights (0 for drops), scatter-added per token in f32
     gathered = out_buf[r["exp"], torch.clamp(r["pos"], max=capacity - 1)]

@@ -1,4 +1,5 @@
-"""Port kernels K1-K11 on the card against their plain PyTorch versions.
+"""Port kernels K1-K11 on the card against their plain PyTorch versions
+(K4 split-KV with its combine kernel, K6 with and without live-row counts).
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -155,6 +156,77 @@ def test_moe_paged_scheduler_launches_grouped_kernel_on_card(dev):
     assert K.launch_counts["onehot"] == 4 * cfg.n_layers * runs
 
 
+def test_moe_paged_scheduler_hands_rows_to_k6_on_card(dev, monkeypatch):
+    """Every K6 launch of the Moonshot paged scheduler gets the experts'
+    live-row counts (int32 on the card, one per expert, at most the
+    capacity), and K6 still launches 3 times per MoE layer per lane run."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.engine import build_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = get_smoke_config("moonshot_v1_16b_a3b")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    plan = build_plan(params, cfg=StruMConfig(), device=dev)
+    sched = BatchScheduler(cfg, None, plan=plan, n_slots=2, max_len=48, device=dev,
+                           kv_cache=StruMConfig(method="mip2q", p=0.5, L=7))
+    seen = []
+    kernel = K.strum_matmul_grouped_onehot
+
+    def spy(x3, *a, rows=None, **kw):
+        y = kernel(x3, *a, rows=rows, **kw)
+        seen.append((rows, x3.shape, y))
+        return y
+    monkeypatch.setattr(K, "strum_matmul_grouped_onehot", spy)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((21, 5)):
+        sched.submit(Request(uid=i, prompt=torch.from_numpy(rng.integers(0, 256, n)),
+                             max_new_tokens=6))
+    K.reset_launch_counts()
+    done = sched.run_to_completion()
+    torch.cuda.synchronize()
+    assert sorted(len(r.output) for r in done) == [6, 6]
+    runs = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
+    assert K.launch_counts["grouped_onehot"] == 3 * cfg.n_layers * runs == len(seen)
+    for rows, shape, y in seen:
+        assert rows is not None and rows.dtype == torch.int32 and rows.is_cuda
+        assert rows.shape == (shape[0],) and int(rows.max()) <= shape[1]
+        for g, cnt in enumerate(rows.tolist()):
+            assert not y[g, cnt:].any()
+
+
+# K6 with live-row counts: N % 16 == 0 (16-byte asynchronous staging) and
+# not (byte staging); M = 6, 24 and 70 take the 16-, 32- and 64-row tiles,
+# 70 with a count inside its second tile
+@pytest.mark.parametrize("g,m,k,n", [(16, 6, 256, 1408), (8, 6, 200, 136),
+                                     (4, 24, 1400, 96), (3, 70, 64, 64)])
+@pytest.mark.parametrize("cfg", [c for c, _ in GROUPED_CFGS[:4]],
+                         ids=lambda c: f"{c.method}_w{c.w}_p{c.p}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_onehot_rows_on_card(dev, g, m, k, n, cfg, dtype):
+    x, packed = _grouped_case(dev, g, m, k, n, cfg, dtype)
+    rng = np.random.default_rng(g + m)
+    counts = rng.integers(0, m + 1, g)
+    counts[0], counts[-1] = 0, m                    # an empty and a full expert
+    rows = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    live = torch.arange(m, device=dev)[None, :] < rows[:, None].long()
+    xz = torch.where(live[..., None], x, torch.zeros_like(x))
+    before = K.launch_counts["grouped_onehot"]
+    y_rows = ops.strum_grouped_matmul(xz, packed, out_dtype=torch.float32, rows=rows)
+    y_full = ops.strum_grouped_matmul(xz, packed, out_dtype=torch.float32)
+    y_dirty = ops.strum_grouped_matmul(x, packed, out_dtype=torch.float32, rows=rows)
+    torch.cuda.synchronize()
+    assert K.launch_counts["grouped_onehot"] == before + 3
+    want = ops.strum_grouped_matmul(xz.cpu(), _to_cpu(packed), out_dtype=torch.float32,
+                                    rows=rows.cpu())
+    lim = REL_TOL * want.abs().max().item()
+    for y in (y_rows, y_full, y_dirty):
+        assert (y.cpu() - want).abs().max().item() <= lim
+    for gi, cnt in enumerate(counts.tolist()):
+        assert (y_rows[gi, cnt:] == 0).all() and (y_dirty[gi, cnt:] == 0).all()
+    assert torch.equal(y_rows, y_dirty)              # x past the count is never read
+
+
 # ------------------------------------------------ packed KV pages: K4, K5, K11
 
 PAGE_CODECS = [StruMConfig(method="mip2q", p=0.5, L=7),
@@ -236,6 +308,63 @@ def test_paged_attention_matches_plain_on_card(dev, cfg, kv, r):
                                          table.cpu(), n_valid.cpu(), **kw)
     _close(got, want)
     assert (want[2][1] == 0).all()                  # slot 1 (empty) held as identity
+
+
+def _long_table(dev, p, n_pages, seed):
+    """A (4, p) table over a pool of n_pages: slot 0 full, slot 1 empty,
+    slot 2 with -1 holes every third page, slot 3 cut by n_valid."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, n_pages, (4, p)).astype(np.int32)
+    table[1] = -1
+    table[2, ::3] = -1
+    n_valid = np.array([p, 0, p, max(1, (2 * p) // 3)], np.int32)
+    return torch.from_numpy(table).to(dev), torch.from_numpy(n_valid).to(dev)
+
+
+@pytest.mark.parametrize("kv,r", [(16, 1), (16, 16), (4, 7), (4, 112)])
+@pytest.mark.parametrize("p", [1, 4, 5, 33, 128])
+def test_split_kv_attention_across_split_boundaries_on_card(dev, kv, r, p):
+    """K4 at OLMo-1B (16 kv heads) and Qwen2-7B (4 kv heads) shapes with
+    tables of 1 to 128 page slots, so 1 to several splits with ragged last
+    splits: acc, m, l held to the plain version; the combine kernel
+    launches once exactly when the table splits."""
+    from repro_torch.kernels import strum_attention as A
+    cfg = StruMConfig(method="mip2q", p=0.5, L=7)
+    n_pages = 48
+    q4, k, v, _, _ = _attn_case(dev, cfg, kv, r, n_pages=n_pages, seed=p)
+    table, n_valid = _long_table(dev, p, n_pages, seed=p)
+    kw = dict(w=cfg.w, n_low=cfg.n_low, q=cfg.q, method=cfg.method)
+    args = [k[f] for f in ("mask", "hi", "lo", "scale")] + \
+        [v[f] for f in ("mask", "hi", "lo", "scale")]
+    tiles = -(-r // A._row_tile(r, 128))
+    pps = A.split_pages(4, p, kv * tiles,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    splits = -(-p // pps)
+    before = dict(A.launch_counts)
+    got = A.strum_paged_attention(q4, *args, table, n_valid, **kw)
+    torch.cuda.synchronize()
+    assert A.launch_counts["paged_attention"] == before["paged_attention"] + 1
+    assert A.launch_counts["paged_attention_combine"] == \
+        before["paged_attention_combine"] + (splits > 1)
+    want = A.strum_paged_attention_plain(q4.cpu(), *[t.cpu() for t in args],
+                                         table.cpu(), n_valid.cpu(), **kw)
+    _close(got, want)
+    if splits > 1:      # the CPU mirror of the same split and merge agrees too
+        mirror = A.strum_paged_attention_split_plain(
+            q4.cpu(), *[t.cpu() for t in args], table.cpu(), n_valid.cpu(),
+            pages_per_split=pps, **kw)
+        _close(got, mirror)
+
+
+def test_split_kv_attention_rejects_unaligned_head_dim(dev):
+    from repro_torch.kernels import strum_attention as A
+    cfg = StruMConfig(method="mip2q", p=0.5, L=7)
+    q4, k, v, table, n_valid = _attn_case(dev, cfg, 2, 1, hd=40)
+    args = [k[f] for f in ("mask", "hi", "lo", "scale")] + \
+        [v[f] for f in ("mask", "hi", "lo", "scale")]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        A.strum_paged_attention(q4, *args, table, n_valid, w=cfg.w, n_low=cfg.n_low,
+                                q=cfg.q, method=cfg.method)
 
 
 @pytest.mark.parametrize("kv,r", [(16, 1), (4, 7), (4, 112)])
