@@ -14,7 +14,12 @@ Phases, each fatal on failure:
      K % w != 0 case) and time both, the bf16 ``torch.matmul`` on the
      dequantized weight as a yardstick (all three interleaved over
      ``ROUNDS`` rounds: median and range, with the SM clock and power drawn
-     over the same window), and each one's least possible time;
+     over the same window; the kernels' eager calls and the replay of a CUDA
+     graph of the same calls, the device's time), and each one's least
+     possible time; every 2-D
+     kernel (K1-K3, and K9 / K10 on the mip2q layers) is called twice at
+     every shape and the two outputs must be bit-identical (split-K adds
+     the slices of a cluster in rank order);
   d. serve full-width OLMo-1B (16 layers, d 2048, vocab 50304, random
      weights from a seed) through ``repro_torch.launch.serve`` with its
      defaults (mip2q p=0.5 L=5, batch 4, prompt 32, gen 16): every plan
@@ -29,15 +34,16 @@ Phases, each fatal on failure:
   g. hold the packed-KV kernels K4 (mip2q p=0.5 L=7 pages), K5 (dliq p=1
      q=4) and K11 against their plain versions at OLMo-1B's attention shapes
      (16 kv heads x 128, pages of 16, 4 slots, contexts 512 and 2048, R = 1
-     and 16 query rows per kv head) and Qwen2-7B's (4 kv heads, R = 7 and
+     and 16 query rows per kv head; and pages of 128 at decode) and
+     Qwen2-7B's (4 kv heads, R = 7 and
      112), with one slot empty and one with -1 tail ids: acc, m, l and
      acc / l each within KERNEL_TOL x its largest |plain| + 1e-6 over the
      rows with a live page, the other rows exactly the identity partial,
      K11 bit for bit; time kernel, plain
      version and a yardstick interleaved as in phase c (the yardstick for
      K4/K5 is ``scaled_dot_product_attention`` on the same pages dequantized
-     to bf16; K11 has no one-call yardstick).  K4 is split-KV: its time
-     includes the combine kernel that merges the splits.  Kernel and
+     to bf16; K11 has no one-call yardstick).  K4 and K5 are split-KV: their
+     time includes the combine kernel that merges the splits.  Kernel and
      yardstick times here and in phase k are replays of a CUDA graph of one
      call (the device's time; the eager calls' time, which adds the Python
      wrapper's launch path, is printed beside it);
@@ -45,10 +51,14 @@ Phases, each fatal on failure:
      --kv-cache mip2q --prompt-len 128 --gen 32``): it must select
      ``cache:attn_fused`` over ``cache:cuda_decode`` pools, launch K4 once
      per layer per decode tick and per prefill chunk (its combine at most as
-     often, and at least once), and hold its pages at
+     often, and at least once; K5 and its combine never), and hold its pages at
      x0.875 of int8; prints the drain time, ticks and decode-only tick;
   i. a 2-layer full-width scheduler with dliq p=1 q=4 pages must select and
-     launch K5 (``cache:attn_fused_maskfree``);
+     launch K5 (``cache:attn_fused_maskfree``) once per layer per lane run,
+     its combine exactly once per call whose table splits, K4 and K4's
+     combine never; then ``serve --paged --kv-cache mip2q --page-size 128``
+     (2 layers, full width, prompt 256) must select K4 and launch it once
+     per layer per lane run, serving every request to completion;
   j. decode every page phase h sealed through ``gather_decode_pages`` (K11)
      against the plain decode, exactly; then phase h's requests, teacher-
      forced on its tokens, through the cuda family and through the torch
@@ -64,7 +74,10 @@ Phases, each fatal on failure:
      top-6 gives each expert's live rows (<= 24 of 64 experts live), x is
      zero past them, K6 and its plain version take them as ``rows``, rows
      past each count must be exactly 0, and the bound counts only the live
-     experts' bytes (the ``torch.bmm`` yardstick stays over all 64);
+     experts' bytes (the ``torch.bmm`` yardstick stays over all 64); the
+     same routed case for K7 (dliq p=1 q=4); each routed time must be below
+     its kernel's all-live capacity-6 time (a row tile past the count reads
+     no weight byte);
   l. serve Moonshot-16B-A3B at full width with its depth cut to MOE_LAYERS
      of 48 layers through the paged runtime (``serve --paged --kv-cache
      mip2q --prompt-len 128 --gen 32``) and the dense-cache loop (batch 4,
@@ -134,7 +147,7 @@ KV_KERNELS = {
     "cache:attn_fused_maskfree": ("paged_attention_maskfree",
                                   "src/repro/kernels/strum_attention.py:225"),
     "cache:cuda_decode": ("page_decode", "src/repro/kernels/strum_decode.py:48")}
-PAGE = 16
+PAGE = 16                       # page size of the serving runs and most cases
 # K6-K8 (grouped, one launch per expert stack): kernel name -> (registry
 # variant, TPU kernel it replaces, plan of the phase-k cases)
 # K9, K10 (the draft lane): kernel name -> (registry variant, TPU kernel)
@@ -153,11 +166,13 @@ MOE_CASES = [("moonshot decode", 64, 6, MOE_LAYER, tuple(GROUPED)),
              ("qwen3-moe decode", 128, 8, [(4096, 1536)], ("grouped_onehot",))]
 MOE_LAYERS = 4                  # of Moonshot's 48: the f32 init of all 48 is ~112 GB
 MOE_ARCH = "moonshot_v1_16b_a3b"
-# (label, kv heads, query rows per kv head, context tokens); timed cases first
-ATTN_CASES = [("olmo decode", 16, 1, 2048), ("olmo prefill", 16, 16, 2048),
-              ("qwen decode", 4, 7, 2048), ("olmo decode", 16, 1, 512),
-              ("olmo prefill", 16, 16, 512), ("qwen prefill", 4, 112, 512)]
-TIMED_CASES = 3
+# (label, kv heads, query rows per kv head, context tokens, page size);
+# timed cases first
+ATTN_CASES = [("olmo decode", 16, 1, 2048, PAGE), ("olmo prefill", 16, 16, 2048, PAGE),
+              ("qwen decode", 4, 7, 2048, PAGE), ("olmo decode", 16, 1, 2048, 128),
+              ("olmo decode", 16, 1, 512, PAGE), ("olmo prefill", 16, 16, 512, PAGE),
+              ("qwen prefill", 4, 112, 512, PAGE)]
+TIMED_CASES = 4
 # (K, N) of one OLMo-1B layer's seven linears: wq wk wv wo, wi wg, mlp wo
 LAYER_SHAPES = [(2048, 2048)] * 4 + [(2048, 8192)] * 2 + [(8192, 2048)]
 
@@ -174,7 +189,7 @@ def _phase(name: str) -> None:
 
 #: kernels of this slice whose ptxas report is printed entry by entry
 NEW_KERNELS = ("paged_attention_split_kernel", "split_combine_kernel",
-               "grouped_onehot_kernel")
+               "grouped_live_kernel")
 
 
 def _ptxas_lines(log: str) -> list:
@@ -330,8 +345,29 @@ def _read_bytes(variant, packed, x) -> int:
             + 4 * m * packed.n_out)
 
 
+def _twice_equal(what, fn, *args, **kw):
+    """Two calls of a 2-D kernel's wrapper on the same inputs must give the
+    same bits; returns the first."""
+    import torch
+    a, b = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    _check(torch.equal(a, b), f"{what}: two calls on the same inputs differ")
+    return a
+
+
+def _draft_twice_equal(what, x, packed) -> None:
+    """K9 and K10 on a mip2q payload, each called twice: bit-identical."""
+    from repro_torch.kernels import strum_matmul as K
+    kw = dict(w=packed.w, n_low=packed.n_low)
+    _twice_equal(f"histream {what}", K.strum_matmul_histream, x, packed.mask,
+                 packed.hi, packed.scale, **kw)
+    _twice_equal(f"maskfree_p {what}", K.strum_matmul_maskfree_p, x, packed.hi,
+                 packed.scale, **kw)
+
+
 def phase_c(dev, gen, clocks):
-    """Kernels vs plain versions at OLMo-1B shapes; per-layer times."""
+    """Kernels vs plain versions at OLMo-1B shapes; per-layer times; every
+    2-D kernel bit-identical across two calls at every shape."""
     import torch
     from repro_torch.core.apply import pack_array
     from repro_torch.core.policy import StruMConfig
@@ -356,7 +392,10 @@ def phase_c(dev, gen, clocks):
             for packed in layers + (extra if m == 4 else []):
                 wrapper, plain, fields, kw = _kernel_args(variant, packed)
                 x = xs[packed.k_dim]
-                y = wrapper(x, *fields, **kw)
+                what = f"M={m} K={packed.k_dim} N={packed.n_out}"
+                y = _twice_equal(f"{variant} {what}", wrapper, x, *fields, **kw)
+                if variant == "onehot":
+                    _draft_twice_equal(what, x, packed)
                 y_plain = plain(x, *fields, **kw)
                 torch.cuda.synchronize()
                 err = (y - y_plain).abs().max().item()
@@ -367,8 +406,11 @@ def phase_c(dev, gen, clocks):
                 calls.append((wrapper, plain, x, fields, kw, packed))
             timed = calls[:2 * len(LAYER_SHAPES)]
             dense_w = [(x, packed_dequant(p)) for _, _, x, _, _, p in timed]
+            def layer_calls():
+                return [c[0](c[2], *c[3], **c[4]) for c in timed]
             t = _interleaved(clocks, {     # two layers timed: times per layer
-                "ms": (lambda: [c[0](c[2], *c[3], **c[4]) for c in timed], 20),
+                "ms": (layer_calls, 20),
+                "graph_ms": (_graphed(layer_calls), 20),
                 "plain_ms": (lambda: [c[1](c[2], *c[3], **c[4]) for c in timed], 2),
                 "library_ms": (lambda: [torch.matmul(x, w) for x, w in dense_w], 20)},
                 calls=2)
@@ -380,15 +422,17 @@ def phase_c(dev, gen, clocks):
                   f"of {ROUNDS} interleaved rounds: " + ", ".join(
                       f"{label} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
                       f"{t['range_ms'][key][1]:.4f}] ms" for key, label in
-                      (("ms", "kernel"), ("plain_ms", "plain"),
-                       ("library_ms", "torch.matmul bf16"))) +
+                      (("ms", "kernel"), ("graph_ms", "kernel (graph replay)"),
+                       ("plain_ms", "plain"), ("library_ms", "torch.matmul bf16"))) +
                   f"; bound {row[m]['bound_ms']:.4f} ms ({row[m]['bound_by']}: "
                   f"{nbytes / 1e6:.2f} MB in {row[m]['bytes_ms']:.4f} ms, "
                   f"{flops / 1e9:.2f} GFLOP in {row[m]['ops_ms']:.4f} ms at "
                   f"{peak / 1e12:.0f} TFLOP/s); {t['clock']}", flush=True)
             del dense_w
         print(f"  {variant:8s} max |kernel - plain| {row['max_abs_err']:.3e} "
-              f"(<= {KERNEL_TOL} x max|plain| at every shape)", flush=True)
+              f"(<= {KERNEL_TOL} x max|plain| at every shape); two calls bit-identical "
+              f"at every shape" + (" (and K9, K10 on the same payloads)"
+                                   if variant == "onehot" else ""), flush=True)
         out[variant] = row
         del layers, extra
         torch.cuda.empty_cache()
@@ -444,8 +488,7 @@ def serve_times(res, clocks) -> dict:
         s = out[key]
         print(f"  {key} over {len(pre)} warm serves: median {s['median']:.3f}, "
               f"min {s['min']:.3f}, max {s['max']:.3f}", flush=True)
-    # split-K sums partials with atomicAdd in finishing order, so a near tie
-    # may flip a greedy token between serves: reported, not held
+    # the kernels give the same bits on every call; the share is reported
     print(f"  share of tokens equal to phase d's, per repeat: {same}; "
           f"{out['clock']}", flush=True)
     return out
@@ -482,15 +525,16 @@ def phase_f(res):
 
 # ------------------------------------------------- packed KV pages (g-j) --
 
-def _kv_pools(dev, gen, cfg, n_pages, f):
-    """K and V pools of ``n_pages`` random pages encoded with ``cfg``, with
-    empty fields floored at one row as the registry's fused variants do."""
+def _kv_pools(dev, gen, cfg, n_pages, f, ps):
+    """K and V pools of ``n_pages`` random pages of ``ps`` positions encoded
+    with ``cfg``, with empty fields floored at one row as the registry's
+    fused variants do."""
     import torch
     from repro_torch.engine.cache import encode_page
     from repro_torch.kernels.ops import _min1
     out = []
     for _ in range(2):
-        enc = encode_page(torch.randn((n_pages, PAGE, f), generator=gen, device=dev),
+        enc = encode_page(torch.randn((n_pages, ps, f), generator=gen, device=dev),
                           cfg)
         out.append({k: v if k == "scale" else _min1(v, 2).contiguous()
                     for k, v in enc.items()})
@@ -560,8 +604,8 @@ def phase_g(dev, gen, clocks):
                                              A.strum_paged_attention_maskfree_plain)}
     rows = {name: {"max_abs_err": 0.0, "cases": []} for name in
             ("paged_attention", "paged_attention_maskfree", "page_decode")}
-    for i, (label, kv, r, ctx) in enumerate(ATTN_CASES):
-        hd, p_slot = 128, ctx // PAGE
+    for i, (label, kv, r, ctx, ps) in enumerate(ATTN_CASES):
+        hd, p_slot = 128, ctx // ps
         f = kv * hd
         ids, n_valid = _attn_table(dev, p_slot)
         live = int(((ids >= 0) & (torch.arange(p_slot, device=dev)[None, :]
@@ -572,7 +616,7 @@ def phase_g(dev, gen, clocks):
             kw = dict(w=cfg.w, q=cfg.q, method=cfg.method)
             if name == "paged_attention":
                 kw["n_low"] = cfg.n_low
-            k, v = _kv_pools(dev, gen, cfg, 4 * p_slot, f)
+            k, v = _kv_pools(dev, gen, cfg, 4 * p_slot, f, ps)
             args = _kv_args(name, k, v)
             got = kern(q4, *args, ids, n_valid, **kw)
             want = plain(q4, *args, ids, n_valid, **kw)
@@ -581,17 +625,15 @@ def phase_g(dev, gen, clocks):
             err = max(errs.values())
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
             case = {"case": f"{label}, {kv} kv heads x {hd}, R={r}, context {ctx}, "
-                            f"{live} live pages of {PAGE}", "max_abs_err": err,
+                            f"{live} live pages of {ps}", "max_abs_err": err,
                     "errs": errs}
-            if name == "paged_attention":
-                tiles = -(-r // A._row_tile(r, hd))
-                pps = A.split_pages(4, p_slot, kv * tiles, torch.cuda.get_device_properties(
-                    dev).multi_processor_count)
-                case["case"] += (f", {-(-p_slot // pps)} KV splits of {pps} page slots "
-                                 "+ combine")
+            tiles = -(-r // A._row_tile(r, hd))
+            pps = A.split_pages(4, p_slot, kv * tiles, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            case["case"] += f", {-(-p_slot // pps)} KV splits of {pps} page slots + combine"
             if i < TIMED_CASES:
                 case.update(_time_attention(clocks, name, kern, plain, q4, args, ids,
-                                            n_valid, kw, k, v, live, r, hd, kv))
+                                            n_valid, kw, k, v, live, r, hd, kv, ps))
                 if i == 0 and name == "paged_attention":
                     rows["page_decode"]["cases"].append(
                         _time_page_decode(clocks, D, k, ids, n_valid, cfg, live))
@@ -614,7 +656,7 @@ def phase_g(dev, gen, clocks):
 
 
 def _time_attention(clocks, name, kern, plain, q4, args, ids, n_valid, kw, k, v,
-                    live, r, hd, kv):
+                    live, r, hd, kv, ps):
     """Kernel, plain version and the SDPA yardstick in turns; the bound from
     the bytes this data needs (live pages' fields and scales, q, outputs)
     and its f32 operations (QK^T and PV over the live keys)."""
@@ -631,11 +673,11 @@ def _time_attention(clocks, name, kern, plain, q4, args, ids, n_valid, kw, k, v,
                                    method=kw["method"])
         else:
             vals = strum_page_decode_plain(g["mask"], g["hi"], g["lo"], g["scale"], **kw)
-        return vals.reshape(b, p_slot * PAGE, kv, hd).transpose(1, 2).to(
+        return vals.reshape(b, p_slot * ps, kv, hd).transpose(1, 2).to(
             torch.bfloat16).contiguous()
     kd, vd = dense(k), dense(v)
-    pos = torch.arange(p_slot * PAGE, device=ids.device)
-    valid = (ids[:, pos // PAGE] >= 0) & (pos[None, :] < (n_valid[:, None] * PAGE))
+    pos = torch.arange(p_slot * ps, device=ids.device)
+    valid = (ids[:, pos // ps] >= 0) & (pos[None, :] < (n_valid[:, None] * ps))
     mask = valid[:, None, None, :]
     qb = q4.to(torch.bfloat16)
 
@@ -650,7 +692,7 @@ def _time_attention(clocks, name, kern, plain, q4, args, ids, n_valid, kw, k, v,
     page = sum(_page_bytes(pool, fields + ("scale",)) for pool in (k, v))
     nbytes = (live * page + q4.numel() * 4 + (q4.numel() + 2 * b * kv * r) * 4
               + ids.numel() * 4 + n_valid.numel() * 4)
-    flops = 4 * live * PAGE * kv * r * hd
+    flops = 4 * live * ps * kv * r * hd
     return dict(times, **_bound(nbytes, flops, PEAK_FLOPS["torch.float32"]))
 
 
@@ -694,11 +736,39 @@ def _kv_counts() -> dict:
 
 
 def _check_combine(launched) -> None:
-    """K4's combine runs once per K4 call whose table splits: at most once
-    per K4 launch, and at least once on a path that launched K4."""
-    k4, comb = launched["paged_attention"], launched["paged_attention_combine"]
-    _check(comb <= k4 and (k4 == 0 or comb > 0),
-           f"K4 combine launches {comb} against K4 launches {k4}")
+    """K4's (K5's) combine runs once per K4 (K5) call whose table splits: at
+    most once per launch of its kernel, and at least once on a path that
+    launched it."""
+    for name in ("paged_attention", "paged_attention_maskfree"):
+        kern, comb = launched[name], launched[f"{name}_combine"]
+        _check(comb <= kern and (kern == 0 or comb > 0),
+               f"{name} combine launches {comb} against {kern} launches")
+
+
+def _want_combines(sched, runs_by_slots, layers) -> int:
+    """The combine launches a paged run must make, exactly: one per K4 / K5
+    call whose table splits, by the wrapper's own rule (``split_pages``) on
+    each call's shape.  ``runs_by_slots``: {slots: lane_runs} of the
+    schedulers that ran, all of ``sched``'s page geometry; a decode tick is
+    one call over every slot with ``rep`` query rows per kv head, a prefill
+    chunk one call over one slot with ``chunk x rep`` rows."""
+    import torch
+    from repro_torch.kernels import strum_attention as A
+    cfg = sched.cfg
+    p, hd, kv = sched.pages_per_seq, cfg.hd, cfg.n_kv_heads
+    rep = cfg.n_heads // kv
+    sms = torch.cuda.get_device_properties(sched.device).multi_processor_count
+
+    def splits(b, r):
+        heads = kv * -(-r // A._row_tile(r, hd))
+        return -(-p // A.split_pages(b, p, heads, sms))
+    calls = 0
+    for slots, runs in runs_by_slots.items():
+        _check(runs.get("draft", 0) == runs.get("verify", 0) == 0,
+               f"no rule here for draft / verify lanes: {runs}")
+        calls += runs["decode"] * (splits(slots, rep) > 1)
+        calls += runs["prefill_chunk"] * (splits(1, sched.prefill_chunk * rep) > 1)
+    return layers * calls
 
 
 def phase_h(counts):
@@ -723,8 +793,9 @@ def phase_h(counts):
            f"{lane} lane runs ({runs})")
     _check(launched["onehot"] == 7 * cfg.n_layers * lane,
            f"K1 launches {launched['onehot']}, want 7 x {cfg.n_layers} x {lane}")
-    _check(launched["paged_attention_maskfree"] == launched["page_decode"] == 0,
-           f"phase h launched K5 or K11: {launched}")
+    _check(launched["paged_attention_maskfree"] == launched["page_decode"] ==
+           launched["paged_attention_maskfree_combine"] == 0,
+           f"phase h launched K5, its combine or K11: {launched}")
     _check_combine(launched)
     counts["paged_attention_combine"] = launched["paged_attention_combine"]
     st = sched.cache_stats()
@@ -745,10 +816,12 @@ def phase_h(counts):
 
 
 def phase_i(dev, counts):
-    """2 layers, full width, dliq p=1 q=4 pages: K5."""
+    """2 layers, full width, dliq p=1 q=4 pages: K5 and its combine, exact;
+    then pages of 128 positions through the serve entry point: K4."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core.policy import StruMConfig
+    from repro_torch.launch import serve as S
     from repro_torch.launch.steps import build_serving_plan
     from repro_torch.models import model_defs
     from repro_torch.models.params import init_params
@@ -770,13 +843,51 @@ def phase_i(dev, counts):
     done = sched.run_to_completion()
     launched = _kv_counts()
     lane = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
+    want_comb = _want_combines(sched, {4: sched.lane_runs}, 2)
     _check(len(done) == 4 and launched["paged_attention_maskfree"] == 2 * lane
+           and launched["paged_attention_maskfree_combine"] == want_comb
            and launched["paged_attention"] == launched["paged_attention_combine"] == 0,
-           f"K5 launches {launched}, want 2 layers x {lane} lane runs")
-    counts["paged_attention_maskfree"] = launched["paged_attention_maskfree"]
+           f"K5 launches {launched}, want 2 layers x {lane} lane runs, {want_comb} "
+           "combines, no K4")
+    for key in ("paged_attention_maskfree", "paged_attention_maskfree_combine"):
+        counts[key] = launched[key]
     st = sched.cache_stats()
     print(f"  {sched.spec.attn_variant}: launches {launched} (2 layers x {lane} lane "
-          f"runs {sched.lane_runs}); pages x{st['ratio_vs_int8']:.4f} of int8", flush=True)
+          f"runs {sched.lane_runs}; combine {want_comb} = one per call whose table "
+          f"splits); pages x{st['ratio_vs_int8']:.4f} of int8", flush=True)
+    del sched, plan
+    torch.cuda.empty_cache()
+
+    # pages of 128 positions (8 blocks of 16: two 64-position pieces a page)
+    _reset_kv_counts()
+    res = S.run(["--arch", "olmo_1b", "--layers", "2", "--seed", "0", "--paged",
+                 "--kv-cache", "mip2q", "--page-size", "128", "--prompt-len", "256",
+                 "--gen", "8"])
+    launched = _kv_counts()
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    sched, runs = res["sched"], res["lane_runs"]
+    _check(sched.spec.page_size == 128 and sched.spec.attn_variant == "cache:attn_fused",
+           f"pages of {sched.spec.page_size} selected {sched.spec.attn_variant}")
+    lane = runs["decode"] + runs["prefill_chunk"]
+    warm = {k: runs[k] - sched.lane_runs[k] for k in runs}
+    want_comb = _want_combines(sched, {1: warm, 4: sched.lane_runs}, 2)
+    _check(launched["paged_attention"] == 2 * lane and
+           launched["paged_attention_combine"] == want_comb and
+           launched["paged_attention_maskfree"] == 0,
+           f"page-128 launches {launched}, want K4 = 2 layers x {lane} lane runs "
+           f"({runs}), {want_comb} combines")
+    outs = [r.output for r in res["requests"]]
+    _check(len(outs) == 4 and all(len(o) == 9 for o in outs),
+           f"page-128 requests came back with {[len(o) for o in outs]} tokens")
+    sealed = int((sched.pools["pos0"]["k"]["scale"][0, :, 0].abs().amax(-1) > 0).sum())
+    _check(sealed > 0, "page-128 run sealed no page: K4 never read one")
+    counts["page_128"] = {"paged_attention": launched["paged_attention"],
+                          "paged_attention_combine": launched["paged_attention_combine"],
+                          "sealed_pages": sealed, "lane_runs": runs}
+    print(f"  pages of 128: {sched.spec.attn_variant}, launches {launched} (2 layers x "
+          f"{lane} lane runs {runs}; combine {want_comb}); {sealed} pages sealed; 4 "
+          f"requests served to completion", flush=True)
 
 
 def _recorded(sched, vocab):
@@ -965,15 +1076,22 @@ def phase_k(dev, gen, clocks):
                   flush=True)
             del calls
             torch.cuda.empty_cache()
-    rows["grouped_onehot"]["cases"].append(_routed_case(dev, gen, clocks,
-                                                        configs["grouped_onehot"]))
+    for name in ("grouped_onehot", "grouped_maskfree"):
+        routed = _routed_case(dev, gen, clocks, configs[name], name)
+        full = rows[name]["cases"][0]          # all 64 experts live, capacity 6
+        _check(routed["ms"] < full["ms"], f"{name}: routed decode {routed['ms']} ms is "
+               f"not below the all-live {full['ms']} ms")
+        print(f"  {name:17s} routed decode {routed['ms']:.4f} ms against all-live "
+              f"{full['ms']:.4f} ms ({routed['ms'] / full['ms']:.3f})", flush=True)
+        rows[name]["cases"].append(routed)
     return rows
 
 
-def _routed_case(dev, gen, clocks, cfg):
-    """K6 at a routed Moonshot decode: the port's own ``_route`` on 4 tokens
-    at top-6 gives each expert's filled slots (``rows``, <= 24 of 64 live),
-    x is zero past each count; kernel and plain version take ``rows``, the
+def _routed_case(dev, gen, clocks, cfg, name):
+    """K6 (or K7: ``name``) at a routed Moonshot decode: the port's own
+    ``_route`` on 4 tokens at top-6 gives each expert's filled slots
+    (``rows``, <= 24 of 64 live), x is zero past each count; kernel and
+    plain version take ``rows``, the
     bound counts only the live experts' bytes and rows, and the bf16
     ``torch.bmm`` yardstick stays over all 64 stacks (the one call that
     computes the same function)."""
@@ -1001,7 +1119,7 @@ def _routed_case(dev, gen, clocks, cfg):
         w = torch.randn((g, k, n), generator=gen, device=dev)
         packed = _pack_leaf(w, cfg)
         del w
-        wrapper, plain, fields, kw = _grouped_args("grouped_onehot", packed, cfg)
+        wrapper, plain, fields, kw = _grouped_args(name, packed, cfg)
         x = torch.where(live_rows[..., None],
                         torch.randn((g, c, k), generator=gen, device=dev), 0.0
                         ).to(torch.bfloat16)
@@ -1010,7 +1128,7 @@ def _routed_case(dev, gen, clocks, cfg):
         torch.cuda.synchronize()
         err = (y - y_plain).abs().max().item()
         lim = KERNEL_TOL * y_plain.abs().max().item()
-        _check(err <= lim, f"grouped_onehot routed K={k} N={n}: |kernel - plain| "
+        _check(err <= lim, f"{name} routed K={k} N={n}: |kernel - plain| "
                f"{err} > {lim}")
         _check(not bool(y[~live_rows].any()), "routed case: rows past the count not 0")
         wd = dequant_leaf(packed, torch.bfloat16, cfg=cfg, k_dim=k)
@@ -1025,7 +1143,8 @@ def _routed_case(dev, gen, clocks, cfg):
         "library_ms": (_graphed(lambda: [torch.bmm(cl[0], cl[4]) for cl in calls]), 10)})
     live = counts > 0
     rows_live = int(counts.sum())
-    nbytes = sum(sum(cl[3][f][live].numel() for f in ("mask", "hi", "lo"))
+    read = ("mask", "hi", "lo") if name == "grouped_onehot" else ("lo",)
+    nbytes = sum(sum(cl[3][f][live].numel() for f in read)
                  + 4 * n_live * n + 2 * rows_live * k + 4 * g * c * n
                  for cl, (k, n) in zip(calls, MOE_LAYER))
     flops = sum(2 * rows_live * k * n for k, n in MOE_LAYER)
@@ -1036,7 +1155,7 @@ def _routed_case(dev, gen, clocks, cfg):
                      f"{cfg.method} p={cfg.p}, rows passed",
                 max_abs_err=max(cl[5] for cl in calls), limit=max(cl[6] for cl in calls),
                 live_experts=n_live)
-    print(f"  grouped_onehot    {case['case']}: max |kernel - plain| "
+    print(f"  {name:17s} {case['case']}: max |kernel - plain| "
           f"{case['max_abs_err']:.3e} (limit {case['limit']:.3e}); rows past each count "
           f"exactly 0; median [min, max] of {ROUNDS} interleaved rounds: " + ", ".join(
               f"{lab} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
@@ -1209,8 +1328,11 @@ def phase_n(dev, gen, clocks):
                 row["max_abs_err"] = max(row["max_abs_err"], err)
                 timed.append((x, f, kw, packed, draft_dequant_packed(
                     packed, mode, torch.bfloat16)))
+            def layer_calls():
+                return [kern(c[0], *c[1], **c[2]) for c in timed]
             t = _interleaved(clocks, {     # two layers timed: times per layer
-                "ms": (lambda: [kern(c[0], *c[1], **c[2]) for c in timed], 20),
+                "ms": (layer_calls, 20),
+                "graph_ms": (_graphed(layer_calls), 20),
                 "plain_ms": (lambda: [plain(c[0], *c[1], **c[2]) for c in timed], 2),
                 "library_ms": (lambda: [torch.matmul(c[0], c[4]) for c in timed], 20)},
                 calls=2)
@@ -1223,8 +1345,8 @@ def phase_n(dev, gen, clocks):
                   f"{ROUNDS} interleaved rounds: " + ", ".join(
                       f"{label} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
                       f"{t['range_ms'][key][1]:.4f}] ms" for key, label in
-                      (("ms", "kernel"), ("plain_ms", "plain"),
-                       ("library_ms", "torch.matmul bf16"))) +
+                      (("ms", "kernel"), ("graph_ms", "kernel (graph replay)"),
+                       ("plain_ms", "plain"), ("library_ms", "torch.matmul bf16"))) +
                   f"; bound {row[m]['bound_ms']:.4f} ms ({row[m]['bound_by']}: "
                   f"{nbytes / 1e6:.2f} MB); {t['clock']}", flush=True)
             del timed
@@ -1473,7 +1595,7 @@ def measure(dev, clocks):
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "workload": "one OLMo-1B layer's 7 linears at M=4 (decode), bf16 x; "
                         f"median of {ROUNDS} interleaved rounds",
-            "range_ms": t["range_ms"], "clock": t["clock"],
+            "range_ms": t["range_ms"], "clock": t["clock"], "graph_ms": t["graph_ms"],
             "prefill_ms": pf["ms"], "prefill_bound_ms": pf["bound_ms"],
             "prefill_bound_by": pf["bound_by"],
             "prefill_library_ms": pf["library_ms"],
@@ -1491,8 +1613,8 @@ def measure(dev, clocks):
             "cases": [{k: c[k] for k in ("case", "max_abs_err", "errs", "ms", "eager_ms",
                                          "plain_ms", "library_ms", "bound_ms", "bound_by")
                        if k in c} for c in row["cases"]]})
-        if name == "paged_attention":
-            kernels[-1]["combine_launches"] = counts["paged_attention_combine"]
+        if name != "page_decode":
+            kernels[-1]["combine_launches"] = counts[f"{name}_combine"]
     for name, (variant, replaces) in GROUPED.items():
         row = moe_rows[name]
         t = row["cases"][0]
@@ -1518,7 +1640,7 @@ def measure(dev, clocks):
             "workload": "one OLMo-1B layer's 7 linears at M=4 (the draft lane's four "
                         f"slots), bf16 x, mip2q p=0.5; median of {ROUNDS} interleaved "
                         "rounds",
-            "range_ms": t["range_ms"], "clock": t["clock"],
+            "range_ms": t["range_ms"], "clock": t["clock"], "graph_ms": t["graph_ms"],
             "m1_ms": one["ms"], "m1_bound_ms": one["bound_ms"],
             "m1_plain_ms": one["plain_ms"], "m1_library_ms": one["library_ms"]})
     return kernels, times

@@ -63,6 +63,8 @@ class CacheSpec:
     backend: Optional[str] = None       # backend the variants were selected
                                         # under (None = auto)
     attn_variant: str = "cache:attn_unfused"
+    head_dim: int = 0                   # per-head width the attention variant
+                                        # was selected for (0 = not known)
 
     @property
     def packed(self) -> bool:
@@ -83,17 +85,22 @@ def select_cache_variant(cfg: Optional[StruMConfig], *, page_size: int,
 
 
 def select_attn_variant(cfg: Optional[StruMConfig], *, page_size: int,
-                        feat: int, backend: Optional[str] = None, device=None):
+                        feat: int, head_dim: int = 0, backend: Optional[str] = None,
+                        device=None):
     """The ``cache:attn_*`` consumer of the sealed pools: a fused kernel
-    where the codec supports one, ``cache:attn_unfused`` everywhere else."""
-    info = LeafInfo(k_dim=page_size, n_out=feat, cache=True, attn=True)
+    where the codec and the head dim (``head_dim``, 0 = not known) fit
+    one, ``cache:attn_unfused`` everywhere else."""
+    info = LeafInfo(k_dim=page_size, n_out=feat, cache=True, attn=True,
+                    head_dim=head_dim)
     return select_variant(cfg, info, backend=backend, device=device)
 
 
 def build_cache_spec(cfg: Optional[StruMConfig], *, page_size: int, feat: int,
-                     device, backend: Optional[str] = None) -> CacheSpec:
+                     device, backend: Optional[str] = None,
+                     head_dim: int = 0) -> CacheSpec:
     """Validate the (codec, page geometry) pair and select its decoder and
-    attention consumer for pools on ``device``.
+    attention consumer for pools on ``device`` (``head_dim``: the query's
+    per-head width, which the fused consumers' predicates check).
 
     ``page_size`` must be a multiple of the codec's block width ``w``: pages
     are blocked along cache positions, and a ragged last block would break
@@ -105,8 +112,9 @@ def build_cache_spec(cfg: Optional[StruMConfig], *, page_size: int, feat: int,
                          f"cache codec's block width w={cfg.w}")
     kw = dict(page_size=page_size, feat=feat, backend=backend, device=dev)
     return CacheSpec(page_size=page_size, device=dev, cfg=cfg,
-                     variant=select_cache_variant(cfg, **kw).name,
-                     backend=backend, attn_variant=select_attn_variant(cfg, **kw).name)
+                     variant=select_cache_variant(cfg, **kw).name, backend=backend,
+                     attn_variant=select_attn_variant(cfg, head_dim=head_dim, **kw).name,
+                     head_dim=head_dim)
 
 
 # ------------------------------------------------------------- encode side --
@@ -260,7 +268,8 @@ def attn_sealed_partial(pool: dict, qf: torch.Tensor, page_table: torch.Tensor,
         variant = get_variant(spec.attn_variant)
     else:
         variant = select_attn_variant(spec.cfg, page_size=spec.page_size, feat=1,
-                                      backend=backend, device=spec.device)
+                                      head_dim=spec.head_dim, backend=backend,
+                                      device=spec.device)
     if telemetry.enabled():
         telemetry.inc(f"attn/variant/{variant.name}")
     with telemetry.span(variant.name.replace("cache:attn_", "attn:"), cat="attn"):
@@ -311,10 +320,18 @@ def _note_fused_bytes(pool: dict, page_table: torch.Tensor, keys) -> None:
             if k != "scale"))
 
 
+def _attn_kernel_fits(cfg, info) -> bool:
+    """K4's and K5's limits on the card: a [1, w] block fits one 64-position
+    piece of a page, and a lane holds at most 8 of the head's columns.  Any
+    page size, and any head dim up to that, runs."""
+    from repro_torch.kernels.strum_attention import MAX_BLOCK_WIDTH, MAX_HEAD_DIM
+    return cfg.w <= MAX_BLOCK_WIDTH and info.head_dim <= MAX_HEAD_DIM
+
+
 @register_kernel(
     "cache:attn_fused", family="cuda", priority=10, cache=True, attn=True,
     supports=lambda cfg, info: (cfg is not None and not _is_identity(cfg)
-                                and cfg.w % 8 == 0),
+                                and cfg.w % 8 == 0 and _attn_kernel_fits(cfg, info)),
     description="K4: pools read by page id -> decode in shared memory -> "
                 "QK^T -> online softmax -> AV; sealed pages leave HBM only "
                 "as mask/hi/lo bytes")
@@ -332,7 +349,8 @@ def _attn_fused(pool, qf, page_table, n_valid, *, cfg, spec, backend=None):
     attn=True,
     supports=lambda cfg, info: (cfg is not None and not _is_identity(cfg)
                                 and cfg.n_low == cfg.w
-                                and cfg.method in ("dliq", "mip2q")),
+                                and cfg.method in ("dliq", "mip2q")
+                                and _attn_kernel_fits(cfg, info)),
     description="K5: p = 1.0 pools, no mask/hi streams, the lo payload is "
                 "the whole block in order")
 def _attn_fused_maskfree(pool, qf, page_table, n_valid, *, cfg, spec,

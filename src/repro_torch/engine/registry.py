@@ -55,6 +55,9 @@ class LeafInfo(NamedTuple):
     draft: str = ""       # non-empty selects from the ``draft:*`` partition:
                           # reduced-fidelity lowerings over the same payload
                           # ("histream" | "maskfree_p"), the draft lane
+    head_dim: int = 0     # ``cache:attn_*``: the query's per-head width
+                          # (0 = not known: a consumer's limit is checked
+                          # when it is called)
 
 
 @dataclasses.dataclass(frozen=True)

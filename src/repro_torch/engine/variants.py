@@ -74,7 +74,8 @@ def _dense(x2, packed, *, out_dtype=None):
 
 @register_kernel(
     "cuda:grouped", family="cuda", priority=10, grouped=True,
-    supports=lambda cfg, info: _stacked(cfg, info) and cfg.w % 8 == 0,
+    supports=lambda cfg, info: (_stacked(cfg, info) and cfg.w % 8 == 0
+                                and cfg.w <= 64),
     description="stacked expert leaves: group grid axis, general decode")
 def _grouped(xg, packed, *, out_dtype=None, rows=None):
     _on_card("cuda:grouped", xg)
@@ -85,7 +86,7 @@ def _grouped(xg, packed, *, out_dtype=None, rows=None):
 @register_kernel(
     "cuda:grouped_maskfree", family="cuda", priority=20, grouped=True,
     supports=lambda cfg, info: (_stacked(cfg, info) and cfg.n_low == cfg.w
-                                and cfg.method in ("dliq", "mip2q")),
+                                and cfg.method in ("dliq", "mip2q") and cfg.w <= 64),
     description="stacked p=1.0: per-group lo payload only, no mask/hi stream")
 def _grouped_maskfree(xg, packed, *, out_dtype=None, rows=None):
     _on_card("cuda:grouped_maskfree", xg)

@@ -5,9 +5,10 @@
 //   K11 strum_page_decode_launch                  <- strum_page_decode_pallas
 //                                                    (src/repro/kernels/strum_decode.py)
 //   K4  strum_paged_attention_split_launch        <- strum_paged_attention_pallas
-//       (+ strum_attention_combine_launch, the merge of its KV splits)
-//   K5  strum_paged_attention_launch(mode 1)      <- strum_paged_attention_pallas_maskfree
-//                                                    (src/repro/kernels/strum_attention.py)
+//   K5  strum_paged_attention_maskfree_split_launch
+//                                                 <- strum_paged_attention_pallas_maskfree
+//       (+ strum_attention_combine_launch, the merge of their KV splits;
+//        both in src/repro/kernels/strum_attention.py)
 //
 // Packed page layout (one [1, w] block per w cache positions of a feature
 // channel; F = n_kv_heads * head_dim contiguous in every field):
@@ -15,55 +16,52 @@
 //   hi    (n_pages, nb, hi_rows, F)    int8, the n_high high values in order
 //   lo    (n_pages, nb, lo_rows, F)    uint8, n_low q-bit fields, LSB-first
 //   scale (n_pages, F)                 f32 per-page, per-channel scale
-// A page holds nb * w cache positions.
+// A page holds nb * w cache positions.  p = 1 pages (K5) have only lo and
+// scale: the lo fields are the block's w values in position order.
 //
-// The shared decode (decode_column) is K1's (strum_matmul.cu), copied: walk
-// the w mask bits LSB-first; a set bit takes the next hi byte, a clear one
-// the next q-bit lo field (which may straddle two bytes when 8 % q != 0);
-// lo decodes as DLIQ (sign-extend, << (8 - q)), MIP2Q ([sign | k] -> +-2^k)
-// or sparsity (0).  The integer is multiplied by the channel's f32 scale in
-// one rounding, so K11 equals its plain PyTorch version bit for bit.
+// K11's decode (decode_column) is K1's (strum_matmul.cu), copied: walk the w
+// mask bits LSB-first; a set bit takes the next hi byte, a clear one the
+// next q-bit lo field (which may straddle two bytes when 8 % q != 0); lo
+// decodes as DLIQ (sign-extend, << (8 - q)), MIP2Q ([sign | k] -> +-2^k) or
+// sparsity (0).  The integer is multiplied by the channel's f32 scale in one
+// rounding, so K11 equals its plain PyTorch version bit for bit.
 //
-// What bounds them: both read each packed byte once and do little
+// What bounds them: all three read each packed byte once and do little
 // arithmetic per byte, so they are bound by HBM bytes (K11 by the f32 values
 // it writes, 4 / 0.875 times the packed bytes at the default codec).  The
 // point of the packed pages is that attention reads 14/16 of the int8 bytes
-// (mip2q, w = 16, p = .5) and never a decoded copy.
+// (mip2q, w = 16, p = .5), 8/16 at p = 1, and never a decoded copy.
 //
-// K5 design (a simple version, not yet fast): one block per (slot, kv
-// head, tile of up to kMaxRows query rows).  The block reads its slot's page
-// ids itself and walks the pages in order, skipping ids < 0, pages at or
-// after n_valid and ids past the pool (the TPU grid's page axis becomes this
-// loop).  For each live page it (1) copies its head's packed lo bytes of K
-// and V (columns [g*hd, (g+1)*hd) of every row) and their scales into shared
-// memory with independent 4-byte loads; (2) decodes the (page_size, hd) K
-// and V tiles there, one thread per block column; (3) computes the scores
-// against the pre-scaled queries; (4)-(5) carries the online softmax (m, l,
-// acc) in f32 shared memory.  A slot with nothing live returns m = -1e30,
-// l = 0, acc = 0.
-//
-// K4 design (split-KV, flash-decoding): the serial page chain of one block
-// per (slot, head) was the time (~6.5 us a page x 128 pages at OLMo-1B
-// decode on an H100 SXM at 700 W, 118x the byte bound), so the grid is
-// (KV split, kv head x row tile, slot).  Each split owns `pps`
-// consecutive page slots of the table; warp 0 reads them, keeps the live
-// ids in order (ballot + popcount) and a
-// split with none writes the identity partial and returns.  A live page's
-// head slice of K and V -- nb * (mask + hi + lo) rows of hd bytes at row
-// stride F -- and its 2 x hd scales come in by 16-byte cp.async.cg into a
-// two-stage shared-memory ring, so the next live page is in flight while
-// the current one decodes.  Per page there are two block barriers: (1) the
-// page has landed (and the last page's tiles are free), after which the next
-// page's copy is issued; (2) the K and V tiles are decoded (256 threads, one
-// per block column of K and V; a position's rank among the high / low set
-// is the popcount of the lower mask bits, the block's bytes sit in four
-// registers and lo codes decode through a table in shared memory).  Then
-// each of 4 position groups of warps takes 4 positions of the page, 8 lanes
-// per position, and within a group 2 warps split the tile's rows: scores by
-// 8-lane __shfl_xor_sync sums over hd, the max and the sum of the softmax
-// by __shfl_xor_sync across the 4 positions, and P.V into registers (a lane
-// owns hd / 32 columns).  Every warp keeps its own online state (m, l, acc)
-// for its rows; at the end the position groups are merged in order.  All
+// K4 and K5 design (split-KV, flash-decoding; one kernel, MODE picks the
+// fields): a serial page chain per (slot, head) was the time of the first
+// designs (~6.5 us a page x 128 pages at OLMo-1B decode on an H100 SXM at
+// 700 W, 118x the byte bound), so the grid is (KV split, kv head x row tile,
+// slot).  Each split owns `pps` consecutive page slots of the table; warp 0
+// reads them, keeps the live ids in order (ballot + popcount) and a split
+// with none writes the identity partial and returns.  A page is walked in
+// pieces of at most kMaxPageSize positions (`bpp` = kMaxPageSize / w blocks;
+// a page of nb blocks has ceil(nb / bpp) pieces, and the online state runs on
+// across them), so a page of any size takes the same shared memory.  A
+// piece's head slice of K and V -- bpp * (mask + hi + lo) rows of hd bytes at
+// row stride F (lo rows only for K5: the mask and hi pointers are null and no
+// code path reads them) -- and its 2 x hd scales come in by 16-byte
+// cp.async.cg into a two-stage shared-memory ring, so the next piece is in
+// flight while the current one decodes; where hd % 16 != 0 or a field is not
+// 16-byte aligned the same rows are staged with plain loads into the same
+// ring.  Per piece there are two block barriers: (1) the piece has landed
+// (and the last piece's tiles are free), after which the next piece's copy
+// is issued; (2) the K and V tiles are decoded (one thread per block column
+// of K and V).  K4's decode holds a block's mask, hi and lo bytes in four
+// registers, a position's rank among the high / low set is the popcount of
+// the lower mask bits and lo codes decode through a table in shared memory;
+// K5's loads the column's lo bytes as one 64-bit word and position i is
+// lut[(word >> q i) & (2^q - 1)] (no popcount, no select).  Then each of 4
+// position groups of warps takes 4 positions of the piece, 8 lanes per
+// position, and within a group 2 warps split the tile's rows: scores by
+// 8-lane __shfl_xor_sync sums over hd, the max and the sum of the softmax by
+// __shfl_xor_sync across the 4 positions, and P.V into registers (a lane owns
+// hd / 32 columns).  Every warp keeps its own online state (m, l, acc) for
+// its rows; at the end the position groups are merged in order.  All
 // arithmetic is f32 (q pre-scaled, decoded values int x scale): at R = 1 a
 // tensor core buys nothing, and at R = 16 bf16 operands would not hold the
 // 2e-5 tolerance.  With more than one split, each split writes its partial
@@ -72,10 +70,9 @@
 // block scheduling.  The second kernel was chosen over a last-arriving-block
 // merge: it needs no zeroed counters kept between calls and no fences, and
 // costs one launch per layer per lane run against ~2000 a tick.
-// Alignment contract of the staging: hd % 16 == 0 and every field and scale
-// pointer 16-byte aligned (then every row slice and scale slice is, since F
-// = KV * hd); w % 8 == 0, w <= 64, page size nb * w <= 64, pages per split
-// <= 32.  The launcher returns cudaErrorInvalidValue for anything else.
+// Contract: 0 < hd <= 256 (a lane's columns and the tiles' shared memory),
+// w <= 64 (K4 also w % 8 == 0), pages per split <= 32.  The launchers return
+// cudaErrorInvalidValue for anything else.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,8 +82,6 @@ enum Method { kSparsity = 0, kDliq = 1, kMip2q = 2 };
 enum Mode { kGeneral = 0, kMaskfree = 1 };
 
 constexpr int kDecodeThreads = 256;
-constexpr int kAttnThreads = 256;
-constexpr int kMaxRows = 16;      // query rows per attention block
 constexpr float kNegInf = -1e30f;
 
 struct Codec {
@@ -126,19 +121,11 @@ __device__ __forceinline__ float decode_low(int c, int method, int q) {
 
 // Decode one [1, w] block column into dst[pos * dstride], pos in [0, w),
 // each value times the channel's scale s.  mcol / hcol / lcol point at row
-// 0 of the column's mask / hi / lo bytes, rows `stride` bytes apart (F in
-// the pool, hd once staged in shared memory).
-template <int MODE>
+// 0 of the column's mask / hi / lo bytes, rows `stride` bytes apart.
 __device__ __forceinline__ void decode_column(const uint8_t* mcol, const int8_t* hcol,
                                               const uint8_t* lcol, int stride,
                                               const Codec& c, float s, float* dst,
                                               int dstride) {
-  if (MODE == kMaskfree) {  // K5: lo fields in position order, no mask/hi
-    for (int pos = 0; pos < c.w; ++pos)
-      dst[pos * dstride] = decode_low(lo_field(lcol, c.lo_rows, stride, pos, c.q),
-                                      c.method, c.q) * s;
-    return;
-  }
   int hc = 0, lc = 0;  // ranks among the high / low positions seen so far
   for (int byte = 0; byte < c.mask_rows; ++byte) {
     const unsigned bits = mcol[(size_t)byte * stride];
@@ -168,168 +155,10 @@ page_decode_kernel(Pool pool, Codec c, int P, float* out) {
   const int f = (int)(idx % c.F);
   const size_t blk = idx / c.F;  // page * nb + block
   float* dst = out + blk * c.w * c.F + f;
-  decode_column<kGeneral>(pool.mask + blk * c.mask_rows * c.F + f,
-                          pool.hi + blk * c.hi_rows * c.F + f,
-                          pool.lo + blk * c.lo_rows * c.F + f, c.F, c,
-                          pool.scale[(blk / c.nb) * c.F + f], dst, c.F);
-}
-
-struct AttnArgs {
-  const float* q;       // (B, KV, R, hd) f32, pre-scaled by 1/sqrt(hd)
-  Pool k, v;
-  const int* page_ids;  // (B, P), -1 = unassigned
-  const int* n_valid;   // (B,)
-  float* acc;           // (B, KV, R, hd)
-  float* m;             // (B, KV, R)
-  float* l;             // (B, KV, R)
-  int KV, R, hd, P, n_pages, rows;  // rows: query rows per block
-  Codec c;
-};
-
-// Copy `rows` rows of hd bytes (row stride F in the pool) into shared memory
-// (row stride hd) with 4-byte loads, all independent so their latencies
-// overlap.  The launcher has checked hd % 4 == 0 and 4-byte-aligned fields.
-__device__ __forceinline__ void stage_rows(const uint8_t* g, int rows, int F, int hd,
-                                           uint8_t* s) {
-  const int wpr = hd >> 2, n = rows * wpr;
-  uint32_t* s32 = reinterpret_cast<uint32_t*>(s);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / wpr;
-    s32[i] = *reinterpret_cast<const uint32_t*>(g + (size_t)r * F + 4 * (i - r * wpr));
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kAttnThreads) paged_attention_kernel(AttnArgs a) {
-  extern __shared__ float smem[];
-  const Codec& c = a.c;
-  const int ps = c.nb * c.w;
-  const int hd = a.hd;
-  const int RT = a.rows;
-  const int rows_kv = c.nb * (c.mask_rows + c.hi_rows + c.lo_rows);  // staged rows
-  const int KS = hd + 1;              // K row stride: conflict-free score reads
-  float* Kt = smem;                   // [ps][KS] decoded K tile of one page
-  float* Vt = Kt + ps * KS;           // [ps][hd]
-  float* Qs = Vt + ps * hd;           // [RT][hd]
-  float* Acc = Qs + RT * hd;          // [RT][hd]
-  float* S = Acc + RT * hd;           // [RT][ps] scores, then probabilities
-  float* Mr = S + RT * ps;            // [RT]
-  float* Lr = Mr + RT;                // [RT]
-  float* Corr = Lr + RT;              // [RT]
-  float* Sc = Corr + RT;              // [2][hd] K and V scales of the page
-  uint8_t* Pk = reinterpret_cast<uint8_t*>(Sc + 2 * hd);  // [rows_kv][hd] K bytes
-  uint8_t* Pv = Pk + rows_kv * hd;                        // [rows_kv][hd] V bytes
-
-  const int t = threadIdx.x;
-  const int b = blockIdx.x, g = blockIdx.y, r0 = blockIdx.z * RT;
-  const int rows = min(RT, a.R - r0);
-  const size_t head = (size_t)b * a.KV + g;
-
-  for (int idx = t; idx < RT * hd; idx += blockDim.x) {
-    const int r = idx / hd;
-    Qs[idx] = r < rows ? a.q[(head * a.R + r0 + r) * hd + idx % hd] : 0.f;
-    Acc[idx] = 0.f;
-  }
-  for (int r = t; r < RT; r += blockDim.x) {
-    Mr[r] = kNegInf;
-    Lr[r] = 0.f;
-  }
-
-  const int nv = a.n_valid[b];
-  const int cols = c.nb * hd;  // block columns of one tile
-  const int pairs = RT * ps;   // scores of one page
-  int split = 1;               // threads per score: fill the block, at most a warp
-  while (split < 32 && pairs * split * 2 <= (int)blockDim.x) split *= 2;
-  const int items = (pairs * split + 31) / 32 * 32;
-  const size_t col0 = (size_t)g * hd;
-  for (int p = 0; p < a.P; ++p) {
-    const int pid = a.page_ids[(size_t)b * a.P + p];
-    if (pid < 0 || pid >= a.n_pages || p >= nv) continue;  // uniform per block
-    // 1. this head's packed bytes of the page, K and V, into shared memory
-    const size_t blk0 = (size_t)pid * c.nb;
-    for (int kv = 0; kv < 2; ++kv) {
-      const Pool& pool = kv ? a.v : a.k;
-      uint8_t* dst = kv ? Pv : Pk;
-      if (MODE == kGeneral) {
-        stage_rows(pool.mask + blk0 * c.mask_rows * c.F + col0, c.nb * c.mask_rows, c.F,
-                   hd, dst);
-        dst += c.nb * c.mask_rows * hd;
-        stage_rows(reinterpret_cast<const uint8_t*>(pool.hi) + blk0 * c.hi_rows * c.F + col0,
-                   c.nb * c.hi_rows, c.F, hd, dst);
-        dst += c.nb * c.hi_rows * hd;
-      }
-      stage_rows(pool.lo + blk0 * c.lo_rows * c.F + col0, c.nb * c.lo_rows, c.F, hd, dst);
-      for (int d = t; d < hd; d += blockDim.x) Sc[kv * hd + d] = pool.scale[pid * (size_t)c.F + col0 + d];
-    }
-    __syncthreads();
-    // 2. decode the K and V tiles from shared memory, one thread per column
-    for (int idx = t; idx < 2 * cols; idx += blockDim.x) {
-      const int kv = idx >= cols;
-      const int rem = idx - kv * cols;
-      const int blk = rem / hd, d = rem % hd;
-      const uint8_t* base = kv ? Pv : Pk;
-      const uint8_t* mcol = base + (blk * c.mask_rows) * hd + d;
-      const uint8_t* hbase = base + (MODE == kGeneral ? c.nb * c.mask_rows * hd : 0);
-      const int8_t* hcol = reinterpret_cast<const int8_t*>(hbase + (blk * c.hi_rows) * hd + d);
-      const uint8_t* lbase = MODE == kGeneral ? hbase + c.nb * c.hi_rows * hd : base;
-      const uint8_t* lcol = lbase + (blk * c.lo_rows) * hd + d;
-      const int ds = kv ? hd : KS;
-      decode_column<MODE>(mcol, hcol, lcol, hd, c, Sc[kv * hd + d],
-                          (kv ? Vt : Kt) + (blk * c.w) * ds + d, ds);
-    }
-    __syncthreads();
-    // 3. scores: `split` neighbouring threads per (row, position), each a
-    // strided share of the head dim, summed by shuffles; every lane of a
-    // warp takes part in the shuffles (items rounded up to whole warps)
-    for (int i = t; i < items; i += blockDim.x) {
-      const int pr = i / split, part = i % split;
-      float s = 0.f;
-      if (pr < pairs) {
-        const float* qr = Qs + (pr / ps) * hd;
-        const float* kr = Kt + (pr % ps) * KS;
-        for (int d = part; d < hd; d += split) s += qr[d] * kr[d];
-      }
-      for (int o = split >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (pr < pairs && part == 0) S[pr] = s;
-    }
-    __syncthreads();
-    // 4. online softmax, one thread per row
-    for (int r = t; r < RT; r += blockDim.x) {
-      float* sr = S + r * ps;
-      const float m_prev = Mr[r];
-      float m_new = m_prev;
-      for (int tt = 0; tt < ps; ++tt) m_new = fmaxf(m_new, sr[tt]);
-      float sum = 0.f;
-      for (int tt = 0; tt < ps; ++tt) {
-        const float e = expf(sr[tt] - m_new);
-        sr[tt] = e;
-        sum += e;
-      }
-      const float corr = expf(m_prev - m_new);  // 0 on the first live page
-      Lr[r] = Lr[r] * corr + sum;
-      Mr[r] = m_new;
-      Corr[r] = corr;
-    }
-    __syncthreads();
-    // 5. rescale and accumulate p . V
-    for (int idx = t; idx < RT * hd; idx += blockDim.x) {
-      const int r = idx / hd, d = idx % hd;
-      const float* pr = S + r * ps;
-      float s = 0.f;
-      for (int tt = 0; tt < ps; ++tt) s += pr[tt] * Vt[tt * hd + d];
-      Acc[idx] = Acc[idx] * Corr[r] + s;
-    }
-    __syncthreads();
-  }
-
-  __syncthreads();
-  for (int idx = t; idx < rows * hd; idx += blockDim.x)
-    a.acc[(head * a.R + r0) * hd + idx] = Acc[idx];
-  for (int r = t; r < rows; r += blockDim.x) {
-    a.m[head * a.R + r0 + r] = Mr[r];
-    a.l[head * a.R + r0 + r] = Lr[r];
-  }
+  decode_column(pool.mask + blk * c.mask_rows * c.F + f,
+                pool.hi + blk * c.hi_rows * c.F + f,
+                pool.lo + blk * c.lo_rows * c.F + f, c.F, c,
+                pool.scale[(blk / c.nb) * c.F + f], dst, c.F);
 }
 
 Codec make_codec(int nb, int w, int F, int mask_rows, int hi_rows, int lo_rows,
@@ -341,43 +170,40 @@ Codec make_codec(int nb, int w, int F, int mask_rows, int hi_rows, int lo_rows,
   return c;
 }
 
-template <int MODE>
-cudaError_t launch_attention(const AttnArgs& a, int B, cudaStream_t stream) {
-  const int ps = a.c.nb * a.c.w;
-  const size_t floats = (size_t)ps * (a.hd + 1) + (size_t)ps * a.hd + 2 * (size_t)a.rows * a.hd +
-                        (size_t)a.rows * ps + 3 * (size_t)a.rows + 2 * (size_t)a.hd;
-  const size_t rows_kv = (size_t)a.c.nb * (a.c.mask_rows + a.c.hi_rows + a.c.lo_rows);
-  const size_t smem = floats * sizeof(float) + 2 * rows_kv * a.hd;
-  auto kernel = paged_attention_kernel<MODE>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid(B, a.KV, (a.R + a.rows - 1) / a.rows);
-  kernel<<<grid, kAttnThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
 
-
-// ------------------------------------------------ K4: split-KV attention --
+// ------------------------------------------- K4, K5: split-KV attention --
 
 constexpr int kSplitThreads = 256;
-constexpr int kPosGroups = 4;   // warps that share a page's positions, 4 each
+constexpr int kPosGroups = 4;   // warps that share a piece's positions, 4 each
 constexpr int kRowSets = kSplitThreads / 32 / kPosGroups;  // warps that share them by row
 constexpr int kMaxSplitPages = 32;   // page slots per split (one warp ballot)
-constexpr int kMaxPageSize = 64;     // positions of one page (nb * w)
+constexpr int kMaxPageSize = 64;     // positions of one piece of a page
+constexpr int kMaxHeadDim = 256;     // 32 lanes x 8 columns
 
 struct SplitArgs {
   const float* q;       // (B, KV, R, hd) f32, pre-scaled by 1/sqrt(hd)
-  Pool k, v;
+  Pool k, v;            // K5: mask and hi null
   const int* page_ids;  // (B, P), -1 = unassigned
   const int* n_valid;   // (B,)
   float* acc;           // (S, B, KV, R, hd): one partial per split
   float* m;             // (S, B, KV, R)
   float* l;             // (S, B, KV, R)
   int B, KV, R, hd, P, n_pages, pps, tiles;  // pps: page slots per split
-  Codec c;
+  int bpp;              // w-blocks of one piece (<= kMaxPageSize / w)
+  int vec16;            // 16-byte cp.async staging; else plain loads
+  Codec c;              // K5: mask_rows = hi_rows = 0
+};
+
+// Byte layout of one ring stage: K's rows (bpp blocks' mask, then hi, then
+// lo rows, hd bytes each), V's rows, then the K and V scales (hd f32 each)
+// at a 16-byte boundary.
+struct StageLayout {
+  int rows_kv, sc_off, bytes;
+  __host__ __device__ StageLayout(const Codec& c, int bpp, int hd) {
+    rows_kv = bpp * (c.mask_rows + c.hi_rows + c.lo_rows);
+    sc_off = (2 * rows_kv * hd + 15) & ~15;
+    bytes = (sc_off + 8 * hd + 15) & ~15;
+  }
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -392,34 +218,51 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Issue the copies of page `pid`'s head slice: for K then V, the nb*mask,
-// nb*hi and nb*lo rows of hd bytes (row stride F in the pool, hd here), then
-// the K and V scales (hd f32 each) after both.
-__device__ __forceinline__ void stage_page(const SplitArgs& a, int pid, size_t col0,
-                                           uint8_t* dst) {
+// Issue the copies of piece `pc` of page `pid`'s head slice (its blocks
+// [pc * bpp, pc * bpp + nbp)): for K then V, the mask, hi and lo rows of
+// those blocks (row stride F in the pool, hd here), then the K and V scales.
+// 16-byte cp.async where allowed, else one byte (one f32 scale) a thread.
+template <bool VEC16>
+__device__ __forceinline__ void stage_piece(const SplitArgs& a, int pid, int pc,
+                                            size_t col0, uint8_t* dst) {
   const Codec& c = a.c;
-  const int hd = a.hd, vpr = hd >> 4;
-  const int fr[3] = {c.nb * c.mask_rows, c.nb * c.hi_rows, c.nb * c.lo_rows};
-  const int rows_kv = fr[0] + fr[1] + fr[2];
-  const int n_rows = 2 * rows_kv * vpr, n_scale = 2 * (hd >> 2);
-  float* sc = reinterpret_cast<float*>(dst + 2 * (size_t)rows_kv * hd);
-  for (int i = threadIdx.x; i < n_rows + n_scale; i += blockDim.x) {
+  const int hd = a.hd, b0 = pc * a.bpp, nbp = min(a.bpp, c.nb - b0);
+  const int rf[3] = {c.mask_rows, c.hi_rows, c.lo_rows};
+  const StageLayout lay(c, a.bpp, hd);
+  const int live = nbp * (rf[0] + rf[1] + rf[2]);  // rows of K (V) this piece fills
+  constexpr int unit = VEC16 ? 16 : 1;
+  const int upr = hd / unit;
+  const int n_rows = 2 * live * upr, n_sc = VEC16 ? 2 * (hd >> 2) : 2 * hd;
+  float* sc = reinterpret_cast<float*>(dst + lay.sc_off);
+  const size_t blk0 = (size_t)pid * c.nb + b0;
+  for (int i = threadIdx.x; i < n_rows + n_sc; i += blockDim.x) {
     if (i < n_rows) {
-      const int row = i / vpr, vec = i - row * vpr;
-      const int kv = row >= rows_kv;
+      const int row = i / upr, u = i - row * upr;
+      const int kv = row >= live;
       const Pool& pool = kv ? a.v : a.k;
-      int r = row - kv * rows_kv, f = 0;
-      while (r >= fr[f]) r -= fr[f++];  // f: 0 mask, 1 hi, 2 lo
+      int r = row - kv * live, f = 0, off = 0;
+      while (r >= nbp * rf[f]) {  // f: 0 mask, 1 hi, 2 lo (K5 skips the empty two)
+        r -= nbp * rf[f];
+        off += a.bpp * rf[f];
+        ++f;
+      }
       const uint8_t* base = f == 0 ? pool.mask
                             : f == 1 ? reinterpret_cast<const uint8_t*>(pool.hi)
                                      : pool.lo;
-      cp_async16(dst + (size_t)row * hd + 16 * vec,
-                 base + ((size_t)pid * fr[f] + r) * c.F + col0 + 16 * vec);
+      const uint8_t* src = base + (blk0 * rf[f] + r) * c.F + col0 + (size_t)unit * u;
+      uint8_t* d = dst + (size_t)(kv * lay.rows_kv + off + r) * hd + unit * u;
+      if (VEC16) cp_async16(d, src);
+      else *d = *src;
     } else {
-      const int j = i - n_rows, per = hd >> 2;
-      const int kv = j >= per, vec = j - kv * per;
-      const Pool& pool = kv ? a.v : a.k;
-      cp_async16(sc + kv * hd + 4 * vec, pool.scale + (size_t)pid * c.F + col0 + 4 * vec);
+      const int j = i - n_rows;
+      if (VEC16) {
+        const int per = hd >> 2, kv = j >= per, vec = j - kv * per;
+        cp_async16(sc + kv * hd + 4 * vec,
+                   (kv ? a.v : a.k).scale + (size_t)pid * c.F + col0 + 4 * vec);
+      } else {
+        const int kv = j >= hd, d = j - kv * hd;
+        sc[kv * hd + d] = (kv ? a.v : a.k).scale[(size_t)pid * c.F + col0 + d];
+      }
     }
   }
 }
@@ -438,8 +281,8 @@ __device__ __forceinline__ float reg_value(uint32_t m, uint32_t h0, uint32_t h1,
   return (m >> pos) & 1u ? hv : lv;
 }
 
-// Decode one staged [1, w] block column into dst[pos * dstride] (value x
-// scale s).  Rows are `stride` bytes apart; the hi and lo fields have at
+// K4: decode one staged [1, w] block column into dst[pos * dstride] (value
+// x scale s).  Rows are `stride` bytes apart; the hi and lo fields have at
 // least one row.  The common codecs (w <= 32, <= 8 hi and <= 4 lo rows)
 // read the block's bytes once into registers, fully unrolled at w = 16,
 // and decode lo codes through `lut`; the others read per position and
@@ -492,11 +335,48 @@ __device__ __forceinline__ void decode_ranked(const uint8_t* mcol, const int8_t*
   }
 }
 
-// RT: query rows of the block's tile; CPL: head-dim columns per lane (hd <=
-// 32 * CPL).  Grid (split, kv head * tiles, slot), kSplitThreads threads:
-// warp w takes positions 4 (w % kPosGroups) + 16 j of each page and rows
+// K5: decode one staged p = 1 block column (w q-bit lo fields in position
+// order).  Up to 8 lo rows (w q <= 64 bits: w = 16 at q <= 4) the column's
+// bytes are one 64-bit word and position i is lut[(word >> q i) & qmask],
+// fully unrolled at w = 16 (constant shifts at q = 4); more rows read each
+// field from the staged bytes.
+__device__ __forceinline__ void decode_lo(const uint8_t* lcol, int stride, const Codec& c,
+                                          const float* lut, float s, float* dst,
+                                          int dstride) {
+  if (c.lo_rows <= 8) {
+    unsigned long long word = 0;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r >= c.lo_rows) break;
+      word |= (unsigned long long)lcol[(size_t)r * stride] << (8 * r);
+    }
+    if (c.w == 16 && c.q == 4) {
+#pragma unroll
+      for (int pos = 0; pos < 16; ++pos)
+        dst[pos * dstride] = lut[(word >> (4 * pos)) & 0xFull] * s;
+      return;
+    }
+    const unsigned long long qmask = (1ull << c.q) - 1ull;
+    if (c.w == 16) {
+#pragma unroll
+      for (int pos = 0; pos < 16; ++pos)
+        dst[pos * dstride] = lut[(word >> (pos * c.q)) & qmask] * s;
+      return;
+    }
+    for (int pos = 0; pos < c.w; ++pos)
+      dst[pos * dstride] = lut[(word >> (pos * c.q)) & qmask] * s;
+    return;
+  }
+  for (int pos = 0; pos < c.w; ++pos)
+    dst[pos * dstride] = lut[lo_field(lcol, c.lo_rows, stride, pos, c.q)] * s;
+}
+
+// MODE: kGeneral (K4, mask + hi + lo) or kMaskfree (K5, lo only).  RT:
+// query rows of the block's tile; CPL: head-dim columns per lane (hd <= 32 *
+// CPL).  Grid (split, kv head * tiles, slot), kSplitThreads threads: warp w
+// takes positions 4 (w % kPosGroups) + 16 j of each piece and rows
 // w / kPosGroups + kRowSets i of the tile.
-template <int RT, int CPL>
+template <int MODE, int RT, int CPL, bool VEC16>
 __global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(SplitArgs a) {
   constexpr int RW = (RT + kRowSets - 1) / kRowSets;  // rows a warp carries
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -504,14 +384,14 @@ __global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(Sp
   __shared__ int n_live;
   __shared__ float lut[256];  // lo code -> value (2^q <= 256 codes)
   const Codec& c = a.c;
-  const int hd = a.hd, ps = c.nb * c.w;
-  const int rows_kv = c.nb * (c.mask_rows + c.hi_rows + c.lo_rows);
-  const int stage_bytes = 2 * rows_kv * hd + 8 * hd;  // K, V bytes + scales
+  const int hd = a.hd, pmax = a.bpp * c.w;           // positions of a full piece
+  const int npc = (c.nb + a.bpp - 1) / a.bpp;         // pieces of a page
+  const StageLayout lay(c, a.bpp, hd);
   const int KS = hd + 8;  // K row stride: the 4 positions of a warp hit 4 bank groups
-  uint8_t* ring = smem_raw;                                           // [2][stage_bytes]
-  float* Kt = reinterpret_cast<float*>(smem_raw + 2 * (size_t)stage_bytes);  // [ps][KS]
-  float* Vt = Kt + ps * KS;                                           // [ps][hd]
-  float* Qs = Vt + ps * hd;                                           // [RT][hd]
+  uint8_t* ring = smem_raw;                                            // [2][lay.bytes]
+  float* Kt = reinterpret_cast<float*>(smem_raw + 2 * (size_t)lay.bytes);  // [pmax][KS]
+  float* Vt = Kt + pmax * KS;                                          // [pmax][hd]
+  float* Qs = Vt + pmax * hd;                                          // [RT][hd]
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int pg = warp % kPosGroups, rs = warp / kPosGroups;
@@ -551,7 +431,8 @@ __global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(Sp
   }
 
   const size_t col0 = (size_t)g * hd;
-  stage_page(a, live[0], col0, ring);
+  const int items = nl * npc;  // (live page, piece) in order
+  stage_piece<VEC16>(a, live[0], 0, col0, ring);
   cp_async_commit();
 
   float m_r[RW], l_r[RW], acc[RW][CPL];
@@ -562,27 +443,35 @@ __global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(Sp
 #pragma unroll
     for (int cc = 0; cc < CPL; ++cc) acc[i][cc] = 0.f;
   }
-  const int cols = c.nb * hd;
   const int tl = lane >> 3, part = lane & 7;
-  for (int i = 0; i < nl; ++i) {
+  int pc = 0, next_pg = npc > 1 ? 0 : 1, next_pc = npc > 1 ? 1 : 0;  // item it + 1
+  for (int it = 0; it < items; ++it) {
     cp_async_wait<0>();
-    __syncthreads();  // (1) page i landed; every warp is done with page i - 1's tiles
-    if (i + 1 < nl) stage_page(a, live[i + 1], col0, ring + ((i + 1) & 1) * stage_bytes);
+    __syncthreads();  // (1) piece it landed; every warp is done with piece it - 1's tiles
+    if (it + 1 < items)
+      stage_piece<VEC16>(a, live[next_pg], next_pc, col0, ring + ((it + 1) & 1) * lay.bytes);
     cp_async_commit();
-    const uint8_t* st = ring + (i & 1) * stage_bytes;
-    const float* sc = reinterpret_cast<const float*>(st + 2 * (size_t)rows_kv * hd);
+    const int nbp = min(a.bpp, c.nb - pc * a.bpp), ps = nbp * c.w;
+    const uint8_t* st = ring + (it & 1) * lay.bytes;
+    const float* sc = reinterpret_cast<const float*>(st + lay.sc_off);
+    const int cols = nbp * hd;
     for (int idx = t; idx < 2 * cols; idx += blockDim.x) {
       const int kv = idx >= cols;
       const int rem = idx - kv * cols;
       const int blk = rem / hd, d = rem - blk * hd;
-      const uint8_t* base = st + (size_t)kv * rows_kv * hd;
-      const uint8_t* hbase = base + c.nb * c.mask_rows * hd;
-      const uint8_t* lbase = hbase + c.nb * c.hi_rows * hd;
+      const uint8_t* base = st + (size_t)kv * lay.rows_kv * hd;
       const int ds = kv ? hd : KS;
-      decode_ranked(base + blk * c.mask_rows * hd + d,
-                    reinterpret_cast<const int8_t*>(hbase + blk * c.hi_rows * hd + d),
-                    lbase + blk * c.lo_rows * hd + d, hd, c, lut, sc[kv * hd + d],
-                    (kv ? Vt : Kt) + (blk * c.w) * ds + d, ds);
+      float* dst = (kv ? Vt : Kt) + (blk * c.w) * ds + d;
+      if (MODE == kMaskfree) {
+        decode_lo(base + blk * c.lo_rows * hd + d, hd, c, lut, sc[kv * hd + d], dst, ds);
+      } else {
+        const uint8_t* hbase = base + a.bpp * c.mask_rows * hd;
+        const uint8_t* lbase = hbase + a.bpp * c.hi_rows * hd;
+        decode_ranked(base + blk * c.mask_rows * hd + d,
+                      reinterpret_cast<const int8_t*>(hbase + blk * c.hi_rows * hd + d),
+                      lbase + blk * c.lo_rows * hd + d, hd, c, lut, sc[kv * hd + d], dst,
+                      ds);
+      }
     }
     __syncthreads();  // (2) K and V tiles decoded
     for (int t0 = 4 * pg; t0 < ps; t0 += 4 * kPosGroups) {  // uniform per warp
@@ -624,6 +513,11 @@ __global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(Sp
           }
         }
       }
+    }
+    pc = next_pc;
+    if (++next_pc == npc) {
+      next_pc = 0;
+      ++next_pg;
     }
   }
 
@@ -691,16 +585,16 @@ __global__ void split_combine_kernel(const float* pacc, const float* pm, const f
   }
 }
 
-template <int RT, int CPL>
-cudaError_t launch_split_typed(const SplitArgs& a, int splits, cudaStream_t stream) {
-  const int hd = a.hd, ps = a.c.nb * a.c.w;
-  const size_t rows_kv = (size_t)a.c.nb * (a.c.mask_rows + a.c.hi_rows + a.c.lo_rows);
-  const size_t stage = 2 * rows_kv * hd + 8 * (size_t)hd;
-  const size_t main_bytes = 2 * stage + sizeof(float) * ((size_t)ps * (hd + 8) +
-                                                         (size_t)ps * hd + (size_t)RT * hd);
+template <int MODE, int RT, int CPL, bool VEC16>
+cudaError_t launch_split_kernel(const SplitArgs& a, int splits, cudaStream_t stream) {
+  const int hd = a.hd, pmax = a.bpp * a.c.w;
+  const StageLayout lay(a.c, a.bpp, hd);
+  const size_t main_bytes = 2 * (size_t)lay.bytes +
+                            sizeof(float) * ((size_t)pmax * (hd + 8) + (size_t)pmax * hd +
+                                             (size_t)RT * hd);
   const size_t merge_bytes = sizeof(float) * kPosGroups * (size_t)RT * (hd + 2);
   const size_t smem = main_bytes > merge_bytes ? main_bytes : merge_bytes;
-  auto kernel = paged_attention_split_kernel<RT, CPL>;
+  auto kernel = paged_attention_split_kernel<MODE, RT, CPL, VEC16>;
   // always raise the dynamic limit to this launch's need (the kernel has
   // static shared memory beside it)
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -711,11 +605,61 @@ cudaError_t launch_split_typed(const SplitArgs& a, int splits, cudaStream_t stre
   return cudaGetLastError();
 }
 
-template <int RT>
+template <int MODE, int RT, int CPL>
+cudaError_t launch_split_typed(const SplitArgs& a, int splits, cudaStream_t s) {
+  return a.vec16 ? launch_split_kernel<MODE, RT, CPL, true>(a, splits, s)
+                 : launch_split_kernel<MODE, RT, CPL, false>(a, splits, s);
+}
+
+template <int MODE, int RT>
 cudaError_t launch_split_rows(const SplitArgs& a, int splits, cudaStream_t s) {
-  if (a.hd <= 64) return launch_split_typed<RT, 2>(a, splits, s);
-  if (a.hd <= 128) return launch_split_typed<RT, 4>(a, splits, s);
-  return launch_split_typed<RT, 8>(a, splits, s);
+  if (a.hd <= 64) return launch_split_typed<MODE, RT, 2>(a, splits, s);
+  if (a.hd <= 128) return launch_split_typed<MODE, RT, 4>(a, splits, s);
+  return launch_split_typed<MODE, RT, 8>(a, splits, s);
+}
+
+// Check the contract, fill the rest of `a` and launch MODE's kernel: S =
+// ceil(P / pps) split partials into a.acc / a.m / a.l.  `fields`: every
+// pointer the kernel reads pool bytes or scales from.
+template <int MODE>
+int launch_split(SplitArgs& a, const void* const* fields, int n_fields,
+                 cudaStream_t s) {
+  const Codec& c = a.c;
+  if (a.B <= 0 || a.KV <= 0 || a.R <= 0 || a.P <= 0 || c.nb <= 0 || a.pps <= 0 ||
+      a.pps > kMaxSplitPages || c.w <= 0 || c.w > kMaxPageSize || a.hd <= 0 ||
+      a.hd > kMaxHeadDim || c.lo_rows <= 0 ||
+      (c.method != kSparsity && (c.q < 1 || c.q > 8)))
+    return (int)cudaErrorInvalidValue;
+  if (MODE == kGeneral && (c.w % 8 != 0 || c.mask_rows != c.w / 8 || c.hi_rows <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (MODE == kMaskfree &&
+      (c.method == kSparsity || c.n_low != c.w || c.lo_rows * 8 < c.w * c.q))
+    return (int)cudaErrorInvalidValue;
+  uintptr_t any = 0;  // 16-byte staging: whole 16-byte row slices, aligned fields
+  for (int i = 0; i < n_fields; ++i) any |= reinterpret_cast<uintptr_t>(fields[i]);
+  a.vec16 = a.hd % 16 == 0 && any % 16 == 0;
+  a.bpp = c.nb < kMaxPageSize / c.w ? c.nb : kMaxPageSize / c.w;
+  const int splits = (a.P + a.pps - 1) / a.pps;
+  // row tile: 1 at decode, else 8 or 16 (8 where a lane holds 8 columns)
+  const int rt = a.R == 1 ? 1 : (a.R <= 8 || a.hd > 128) ? 8 : 16;
+  a.tiles = (a.R + rt - 1) / rt;
+  if ((long long)a.KV * a.tiles > 65535 || a.B > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = rt == 1   ? launch_split_rows<MODE, 1>(a, splits, s)
+                  : rt == 8 ? launch_split_rows<MODE, 8>(a, splits, s)
+                            : launch_split_typed<MODE, 16, 4>(a, splits, s);
+  return (int)e;
+}
+
+void set_common(SplitArgs& a, const void* q, const void* page_ids, const void* n_valid,
+                void* pacc, void* pm, void* pl, int B, int KV, int R, int hd, int P,
+                int n_pages, int pps) {
+  a.q = static_cast<const float*>(q);
+  a.page_ids = static_cast<const int*>(page_ids);
+  a.n_valid = static_cast<const int*>(n_valid);
+  a.acc = static_cast<float*>(pacc);
+  a.m = static_cast<float*>(pm);
+  a.l = static_cast<float*>(pl);
+  a.B = B; a.KV = KV; a.R = R; a.hd = hd; a.P = P; a.n_pages = n_pages; a.pps = pps;
 }
 
 }  // namespace
@@ -735,41 +679,6 @@ extern "C" int strum_page_decode_launch(const void* mask, const void* hi, const 
   return (int)cudaGetLastError();
 }
 
-// mode 1 = K5 (p = 1: lo only; mask/hi unused).  Mode 0 (K4) runs the
-// split kernel (strum_paged_attention_split_launch) and is refused here.
-extern "C" int strum_paged_attention_launch(
-    int mode, const void* q, const void* k_mask, const void* k_hi, const void* k_lo,
-    const void* k_scale, const void* v_mask, const void* v_hi, const void* v_lo,
-    const void* v_scale, const void* page_ids, const void* n_valid, void* acc, void* m,
-    void* l, int B, int KV, int R, int hd, int P, int n_pages, int nb, int w,
-    int mask_rows, int hi_rows, int lo_rows, int n_low, int q_bits, int method,
-    void* stream) {
-  if (mode != kMaskfree || B <= 0 || KV <= 0 || R <= 0 || hd <= 0 || P <= 0 ||
-      nb <= 0 || w <= 0)
-    return (int)cudaErrorInvalidValue;
-  // pages are staged with 4-byte loads: 4-byte rows and aligned fields
-  const void* fields[] = {k_mask, k_hi, k_lo, v_mask, v_hi, v_lo};
-  uintptr_t any = 0;
-  for (const void* f : fields) any |= reinterpret_cast<uintptr_t>(f);
-  if (hd % 4 != 0 || any % 4 != 0) return (int)cudaErrorInvalidValue;
-  AttnArgs a;
-  a.q = static_cast<const float*>(q);
-  a.k = {static_cast<const uint8_t*>(k_mask), static_cast<const int8_t*>(k_hi),
-         static_cast<const uint8_t*>(k_lo), static_cast<const float*>(k_scale)};
-  a.v = {static_cast<const uint8_t*>(v_mask), static_cast<const int8_t*>(v_hi),
-         static_cast<const uint8_t*>(v_lo), static_cast<const float*>(v_scale)};
-  a.page_ids = static_cast<const int*>(page_ids);
-  a.n_valid = static_cast<const int*>(n_valid);
-  a.acc = static_cast<float*>(acc);
-  a.m = static_cast<float*>(m);
-  a.l = static_cast<float*>(l);
-  a.KV = KV; a.R = R; a.hd = hd; a.P = P; a.n_pages = n_pages;
-  a.rows = R < kMaxRows ? R : kMaxRows;
-  a.c = make_codec(nb, w, KV * hd, mask_rows, hi_rows, lo_rows, n_low, q_bits, method);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)launch_attention<kMaskfree>(a, B, s);
-}
-
 // K4: the split partials (S = ceil(P / pps) splits) into pacc / pm / pl,
 // (S, B, KV, R, hd) and (S, B, KV, R); with S == 1 those are the outputs.
 extern "C" int strum_paged_attention_split_launch(
@@ -779,42 +688,36 @@ extern "C" int strum_paged_attention_split_launch(
     void* pl, int B, int KV, int R, int hd, int P, int n_pages, int pps, int nb, int w,
     int mask_rows, int hi_rows, int lo_rows, int n_low, int q_bits, int method,
     void* stream) {
-  if (B <= 0 || KV <= 0 || R <= 0 || P <= 0 || nb <= 0 || pps <= 0 ||
-      pps > kMaxSplitPages || w % 8 != 0 || w > 64 || nb * w > kMaxPageSize ||
-      mask_rows != w / 8 || hi_rows <= 0 || lo_rows <= 0)
-    return (int)cudaErrorInvalidValue;
-  // 16-byte staging: whole 16-byte row slices and aligned fields
-  const void* fields[] = {k_mask, k_hi, k_lo, k_scale, v_mask, v_hi, v_lo, v_scale};
-  uintptr_t any = 0;
-  for (const void* f : fields) any |= reinterpret_cast<uintptr_t>(f);
-  if (hd <= 0 || hd % 16 != 0 || hd > 256 || any % 16 != 0)
-    return (int)cudaErrorInvalidValue;
   SplitArgs a;
-  a.q = static_cast<const float*>(q);
+  set_common(a, q, page_ids, n_valid, pacc, pm, pl, B, KV, R, hd, P, n_pages, pps);
   a.k = {static_cast<const uint8_t*>(k_mask), static_cast<const int8_t*>(k_hi),
          static_cast<const uint8_t*>(k_lo), static_cast<const float*>(k_scale)};
   a.v = {static_cast<const uint8_t*>(v_mask), static_cast<const int8_t*>(v_hi),
          static_cast<const uint8_t*>(v_lo), static_cast<const float*>(v_scale)};
-  a.page_ids = static_cast<const int*>(page_ids);
-  a.n_valid = static_cast<const int*>(n_valid);
-  a.acc = static_cast<float*>(pacc);
-  a.m = static_cast<float*>(pm);
-  a.l = static_cast<float*>(pl);
-  a.B = B; a.KV = KV; a.R = R; a.hd = hd; a.P = P; a.n_pages = n_pages; a.pps = pps;
   a.c = make_codec(nb, w, KV * hd, mask_rows, hi_rows, lo_rows, n_low, q_bits, method);
-  const int splits = (P + pps - 1) / pps;
-  // row tile: 1 at decode, else 8 or 16 (8 where a lane holds 8 columns)
-  const int rt = R == 1 ? 1 : (R <= 8 || hd > 128) ? 8 : 16;
-  a.tiles = (R + rt - 1) / rt;
-  if ((long long)KV * a.tiles > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = rt == 1   ? launch_split_rows<1>(a, splits, s)
-                  : rt == 8 ? launch_split_rows<8>(a, splits, s)
-                            : launch_split_typed<16, 4>(a, splits, s);
-  return (int)e;
+  const void* fields[] = {k_mask, k_hi, k_lo, k_scale, v_mask, v_hi, v_lo, v_scale};
+  return launch_split<kGeneral>(a, fields, 8, static_cast<cudaStream_t>(stream));
 }
 
-// K4's merge of S > 1 split partials into acc (B, KV, R, hd), m, l (B, KV, R).
+// K5 (p = 1 pages: lo + scale, no mask or hi): the same partials as K4.
+extern "C" int strum_paged_attention_maskfree_split_launch(
+    const void* q, const void* k_lo, const void* k_scale, const void* v_lo,
+    const void* v_scale, const void* page_ids, const void* n_valid, void* pacc, void* pm,
+    void* pl, int B, int KV, int R, int hd, int P, int n_pages, int pps, int nb, int w,
+    int lo_rows, int q_bits, int method, void* stream) {
+  SplitArgs a;
+  set_common(a, q, page_ids, n_valid, pacc, pm, pl, B, KV, R, hd, P, n_pages, pps);
+  a.k = {nullptr, nullptr, static_cast<const uint8_t*>(k_lo),
+         static_cast<const float*>(k_scale)};
+  a.v = {nullptr, nullptr, static_cast<const uint8_t*>(v_lo),
+         static_cast<const float*>(v_scale)};
+  a.c = make_codec(nb, w, KV * hd, 0, 0, lo_rows, w, q_bits, method);
+  const void* fields[] = {k_lo, k_scale, v_lo, v_scale};
+  return launch_split<kMaskfree>(a, fields, 4, static_cast<cudaStream_t>(stream));
+}
+
+// K4's and K5's merge of S > 1 split partials into acc (B, KV, R, hd), m, l
+// (B, KV, R).
 extern "C" int strum_attention_combine_launch(const void* pacc, const void* pm,
                                               const void* pl, void* acc, void* m, void* l,
                                               int S, int rows, int hd, void* stream) {

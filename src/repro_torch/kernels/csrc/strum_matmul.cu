@@ -4,61 +4,11 @@
 //   K1 strum_onehot_launch    <- strum_matmul_pallas           (mask + hi + lo)
 //   K2 strum_maskfree_launch  <- strum_matmul_pallas_maskfree  (p = 1: lo only)
 //   K3 strum_dense_launch     <- strum_matmul_pallas_dense     (n_low = 0: hi only)
-//   K6 strum_grouped_onehot_launch   <- strum_matmul_pallas_grouped (own kernel)
+//   K6 strum_grouped_onehot_launch   <- strum_matmul_pallas_grouped
 //   K7 strum_grouped_maskfree_launch <- strum_matmul_pallas_grouped_maskfree
 //   K8 strum_grouped_dense_launch    <- strum_matmul_pallas_grouped_dense
 //   K9 strum_histream_launch   <- strum_matmul_pallas_histream  (draft: mask + hi)
 //   K10 strum_maskfree_p_launch <- strum_matmul_pallas_maskfree_p (draft: hi only)
-//
-// K6-K8 are the same kernels over a stack of G weights (MoE expert stacks):
-// y[g] = x[g] @ dequant(W[g]), x (G, M, K), every packed field (G, nb, rows,
-// N), scale (G, N), y (G, M, N), all contiguous.  The group is the grid's z
-// axis and each block offsets its pointers by the group's strides (a
-// template flag, so the 2-D kernels compile as before).  The grouped
-// entries never split K: an expert stack has G x ceil(N/64) >= 132 output
-// tiles, enough to fill the card, so they need no atomicAdd and give the
-// same result on every run.
-// K7 and K8 compute every group's rows, empty experts included, as the TPU
-// kernels do.
-//
-// K6 has a kernel of its own (grouped_onehot_kernel, below), redesigned for
-// Hopper: the old one decoded every expert's weights one byte load and one
-// mask bit at a time, with nothing in flight while a chunk decoded, and its
-// decode work, not its bytes, set the time (2.93 ms for one Moonshot MoE
-// layer on an H100 SXM at 700 W, 20x the byte bound).  It takes an
-// optional per-group live-row count `rows` (rows at or past rows[g] of
-// x[g] are zero): a row tile at or past
-// the count reads no weight byte and writes exact zeros (a group with
-// rows[g] == 0 reads nothing), and rows past the count inside a computed
-// tile are written as 0 too.  Block = 64 output columns x BM rows (16, 32 or
-// 64) of one group, 256 threads.  The packed bytes of each K chunk (64 K
-// positions: mask, hi and lo rows of 64 columns) come in by 16-byte
-// cp.async.cg into a three-stage ring, two chunks ahead of the one being
-// decoded, and the chunk's x rows one chunk ahead into registers.  Decode:
-// one thread per (w-block, column); the block's mask, hi and lo bytes go
-// into four registers, a position's rank among the high (low) set is the
-// popcount of the lower mask bits, a hi value is a byte permute, a lo code
-// decodes through a table in shared memory, and the two candidates are
-// selected, not branched on; bf16 integers (|v| <= 128, exact) go out as
-// 16-byte stores into one of two column-major tiles.  One barrier per
-// chunk: while chunk c decodes into one tile, the product of chunk c - 1
-// runs on the other.  bf16 x runs on tensor cores (mma.sync m16n8k16, bf16
-// x bf16 -> f32, rows padded to 16 with zeros); f32 x keeps f32 FMAs on the
-// CUDA cores against the same exact tile.  The per-column scale is applied
-// to the f32 sums in the epilogue.  No split-K, no atomics: the same result
-// on every run.  Fields must be 16-byte aligned with N % 16 == 0 for the
-// asynchronous copies; other shapes (tests' odd N) are staged with plain
-// byte loads into the same ring.
-//
-// K9 and K10 are the draft lowerings of self-speculative decoding: the same
-// payload read at lower fidelity, a strict subset of its bytes.  K9
-// (histream) walks the mask as K1 does, a set bit takes the next hi byte and
-// a clear bit decodes to 0: the lo stream is never read.  K10 (maskfree_p)
-// reads neither mask nor lo: position i < n_high of a block takes hi[i], the
-// rest are 0.  Their wrappers pass a null pointer for every field they do not
-// stream, so a stray read faults instead of going unnoticed.  At OLMo-1B
-// decode (mip2q w = 16, p = 0.5) they read 10 and 8 of K1's 14 bytes per 16
-// weights: bound by bytes as K1 is, with less decode work per weight.
 //
 // Packed layout (one [1, w] block per column, N contiguous in every field):
 //   mask  (nb, w/8, N)            uint8, LSB-first, 1 = high
@@ -66,33 +16,82 @@
 //   lo    (nb, lo_rows, N)        uint8, n_low q-bit fields, LSB-first along the
 //                                 block axis; a field may straddle two bytes
 //   scale (N,)                    f32 per-column scale
+// K6-K8 take a stack of G such weights (MoE expert stacks): y[g] = x[g] @
+// dequant(W[g]), x (G, M, K), every packed field (G, nb, rows, N), scale
+// (G, N), y (G, M, N), all contiguous; the group is the grid's z axis.
 //
-// What bounds it: at decode (M = batch, a few rows) the op reads every packed
+// What bounds them: at decode (M = batch, a few rows) each reads every packed
 // byte once and does ~2 flops per weight, so it is bound by HBM bytes; the
 // point of StruM is that those bytes are 14/16 of int8 (mip2q, w = 16, p = .5).
 // At prefill (M = 128) the card's bound is the bf16 tensor-core rate (decoded
-// values are exact in bf16 and the scale comes after the sum), which these f32
-// FMAs on the CUDA cores are far from; wgmma on bf16 operands would close it.
+// values are exact in bf16 and the scale comes after the sum).  What sets the
+// time of every design here so far is the decode work per weight, not bytes.
 //
-// Design (a first version that is right, not yet fast): a block owns a
-// BM x 64 output tile of one group and a contiguous range of w-blocks along K
-// (split-K over blockIdx.z, partial sums added with atomicAdd when a weight is
-// split in more than one slice).  For each K chunk
-// it (1) decodes the chunk's weights into shared memory, one thread per
-// (w-block, column): a high position takes the next hi byte and a low one the
-// next q-bit field, so a position's rank inside its set is the running count
-// of set (clear) mask bits before it -- the popcount of the lower mask bits --
-// with no one-hot contraction; (2) stages the x rows as f32 (any K past the
-// true reduction dim reads as 0: padded-K weight rows decode to junk, e.g.
-// MIP2Q code 0 is +1, and only zero activations null them); (3) each thread
-// accumulates BM/4 rows of one column in f32.  The per-column scale is applied
-// once in the epilogue.  M and N are bound-checked in the kernel: no padding.
-// Decoded values are integers of magnitude <= 128, exact in f32.
+// K1-K3, K9, K10 and K8 (one template, strum_matmul_kernel; a first version
+// that is right, not yet fast): a block owns a BM x 64 output tile and a
+// contiguous range of w-blocks along K.  For each K chunk it (1) decodes the
+// chunk's weights into shared memory as f32, one thread per (w-block,
+// column): a high position takes the next hi byte and a low one the next
+// q-bit field, so a position's rank inside its set is the running count of
+// set (clear) mask bits before it, with no one-hot contraction; (2) stages
+// the x rows as f32 (any K past the true reduction dim reads as 0: padded-K
+// weight rows decode to junk, e.g. MIP2Q code 0 is +1, and only zero
+// activations null them); (3) each thread accumulates BM/4 rows of one
+// column in f32; the per-column scale is applied once in the epilogue.
+// At decode the output tiles alone cannot fill the card (N = 2048 gives 32
+// tiles on 132 SMs), so a 2-D weight is split along K over blockIdx.z, at
+// most 8 slices; the slices of one tile are one thread-block cluster, each
+// leaves its partial tile in its shared memory, and rank r sums every S-th
+// element of the tile over the S partials in rank order through distributed
+// shared memory and writes it.  No atomics and no scratch: two calls on the
+// same inputs give the same bits.  A tile takes at most 8 slices (a
+// portable cluster size) where the atomics took up to 9, and a slice's time
+// is close to proportional to its K range (PERF.md has the cost at decode).
+// K8's stacks fill the card with their own tiles and are never split.
+// K9 and K10 are the draft lowerings of self-speculative decoding: the same
+// payload read at lower fidelity, a strict subset of its bytes.  K9
+// (histream) walks the mask as K1 does, a set bit takes the next hi byte and
+// a clear bit decodes to 0: the lo stream is never read.  K10 (maskfree_p)
+// reads neither mask nor lo: position i < n_high of a block takes hi[i], the
+// rest are 0.  Their wrappers pass a null pointer for every field they do not
+// stream, so a stray read faults instead of going unnoticed.
+//
+// K6 and K7 (one kernel, grouped_live_kernel; MODE picks the fields): the
+// template above decoded one bit field at a time into f32 shared memory with
+// nothing in flight, and its decode work set the time (2.93 ms for one
+// Moonshot MoE layer on an H100 SXM at 700 W, 20x the byte bound).  Both
+// take an optional per-group live-row count `rows` (rows at or past rows[g]
+// of x[g] are zero): a row tile at or past the count reads no weight byte
+// and writes exact zeros (a group with rows[g] == 0 reads nothing), and rows
+// past the count inside a computed tile are written as 0 too.  Block = 64
+// output columns x BM rows (16, 32 or 64) of one group, 256 threads.  The
+// packed bytes of each K chunk (64 K positions: K6's mask, hi and lo rows,
+// K7's lo rows, of 64 columns) come in by 16-byte cp.async.cg into a
+// three-stage ring, two chunks ahead of the one being decoded, and the
+// chunk's x rows one chunk ahead into registers.  Decode, one thread per
+// (w-block, column): K6 holds the block's mask, hi and lo bytes in four
+// registers, a position's rank among the high (low) set is the popcount of
+// the lower mask bits, a hi value is a byte permute, a lo code decodes
+// through a table in shared memory, and the two candidates are selected,
+// not branched on; K7 loads the block's lo bytes as one 64-bit word and
+// position i is the table's entry for bits [q i, q i + q).  bf16 integers
+// (|v| <= 128, exact) go out as 16-byte stores into one of two column-major
+// tiles.  One barrier per chunk: while chunk c decodes into one tile, the
+// product of chunk c - 1 runs on the other.  bf16 x runs on tensor cores
+// (mma.sync m16n8k16, bf16 x bf16 -> f32, rows padded to 16 with zeros);
+// f32 x keeps f32 FMAs on the CUDA cores against the same exact tile.  The
+// per-column scale is applied to the f32 sums in the epilogue.  No split-K,
+// no atomics: the same result on every run.  Fields must be 16-byte aligned
+// with N % 16 == 0 for the asynchronous copies; other shapes (tests' odd N)
+// are staged with plain byte loads into the same ring.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -100,6 +99,7 @@ constexpr int kThreads = 256;
 constexpr int kBN = 64;                       // output columns per block
 constexpr int kRowGroups = kThreads / kBN;    // threads sharing one column
 constexpr int kTargetKC = 64;                 // K elements staged per chunk
+constexpr int kMaxSplits = 8;   // K slices of one tile: a portable cluster size
 
 enum Mode { kOnehot = 0, kMaskfree = 1, kDense = 2, kHistream = 3, kMaskfreeP = 4 };
 enum Method { kSparsity = 0, kDliq = 1, kMip2q = 2 };
@@ -270,16 +270,36 @@ __global__ void __launch_bounds__(kThreads) strum_matmul_kernel(Args a) {
     __syncthreads();
   }
 
+  if (!GROUPED && gridDim.z > 1) {
+    // split-K: the gridDim.z K slices of this tile are one thread-block
+    // cluster (cluster rank == blockIdx.z).  Each slice leaves its partial
+    // tile in its own shared memory (free after the loop's last barrier);
+    // then rank r sums the tile's elements r, r + S, r + 2S, ... over the S
+    // partials in rank order through distributed shared memory and writes
+    // them, so every run adds in the same order and the cluster shares the
+    // reduction.
+    float* part = smem;  // [BM][kBN]
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) part[(rg + kRowGroups * i) * kBN + c] = acc[i];
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int S = gridDim.z;
+    for (int e = blockIdx.z + S * t; e < BM * kBN; e += S * kThreads) {
+      float sum = *cluster.map_shared_rank(part + e, 0);
+      for (int r = 1; r < S; ++r) sum += *cluster.map_shared_rank(part + e, r);
+      const int m = m0 + e / kBN, n = n0 + e % kBN;
+      if (m < a.M && n < a.N) a.out[(size_t)m * a.N + n] = sum * a.scale[n];
+    }
+    cluster.sync();  // every slice's shared memory stays alive until all are read
+    return;
+  }
   const int n = n0 + c;
   if (n >= a.N) return;
   const float s = a.scale[n];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int m = m0 + rg + kRowGroups * i;
-    if (m >= a.M) continue;
-    float* o = a.out + (size_t)m * a.N + n;
-    if (!GROUPED && gridDim.z > 1) atomicAdd(o, acc[i] * s);
-    else *o = acc[i] * s;
+    if (m < a.M) a.out[(size_t)m * a.N + n] = acc[i] * s;
   }
 }
 
@@ -294,8 +314,29 @@ cudaError_t launch_typed(const Args& a, int grid_z, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   dim3 grid((a.N + kBN - 1) / kBN, (a.M + BM - 1) / BM, grid_z);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  if (GROUPED || grid_z == 1) {
+    kernel<<<grid, kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  // split-K: the K slices of one output tile form a (1, 1, grid_z) cluster,
+  // placed by the load-balancing policy (under the default placement
+  // clusters of 3 slices ran measurably slower than the atomics did)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid_z;
+  attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+  attr[1].val.clusterSchedulingPolicyPreference = cudaClusterSchedulingPolicyLoadBalancing;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <int MODE, bool GROUPED>
@@ -329,6 +370,7 @@ int launch(const void* x, int x_bf16, const void* mask, const void* hi,
   a.nb = nb; a.w = w; a.mask_rows = mask_rows; a.hi_rows = hi_rows; a.lo_rows = lo_rows;
   a.n_high = w - n_low; a.n_low = n_low; a.q = q; a.method = method;
   a.nbk = w >= kTargetKC ? 1 : kTargetKC / w;
+  if (!groups && splits > kMaxSplits) return (int)cudaErrorInvalidValue;
   a.blocks_per_split = (nb + splits - 1) / splits;
   splits = (nb + a.blocks_per_split - 1) / a.blocks_per_split;  // no empty slice
   // contiguous (G, ...) stacks; a 2-D call never reads these
@@ -350,7 +392,8 @@ constexpr int kGThreads = 256;
 constexpr int kGBN = 64;       // output columns per block
 constexpr int kGRowGroups = kGThreads / kGBN;     // f32 path: threads per column
 constexpr int kGNT = kGBN / 8 / (kGThreads / 32);  // mma path: n8 tiles per warp
-constexpr int kGStages = 3;    // K chunks in the shared-memory ring
+constexpr int kGStages = 3;    // K chunks in the shared-memory ring (deeper
+                               // rings measured no faster for K6 or K7)
 constexpr int kGTargetKC = 64; // K positions per chunk
 
 struct GroupedArgs {
@@ -395,7 +438,8 @@ __device__ __forceinline__ void stage_chunk(const GroupedArgs& a, int ch, int n0
         src = a.lo + ((size_t)b * a.lo_rows + r) * a.N + n;
       }
       const bool in = b < a.nb && n < a.N;  // N % 16 == 0: whole vectors
-      g_cp_async16(dst + row * kGBN + 16 * vec, in ? src : a.mask, in ? 16 : 0);
+      // a zero-fill copy reads no byte; its dummy source is lo, never null
+      g_cp_async16(dst + row * kGBN + 16 * vec, in ? src : a.lo, in ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < nrow * kGBN; i += blockDim.x) {
@@ -450,7 +494,72 @@ __device__ __forceinline__ float reg_value(uint32_t m, uint32_t h0, uint32_t h1,
   return (m >> pos) & 1u ? hv : lv;
 }
 
-// Decode a staged chunk into Wt[n][k] (bf16 integers, k contiguous, row
+// K7: decode a staged p = 1 chunk (each block's w q-bit lo fields in
+// position order) into Wt[n][k], as decode_chunk below.  Up to 8 lo rows (w q
+// <= 64 bits) the block's bytes are one 64-bit word and position i is
+// lut[(word >> q i) & qmask] (constant shifts at w = 16, q = 4), stored as
+// 16-byte bf16 vectors where w % 8 == 0; more rows read each field from the
+// staged bytes.
+__device__ __forceinline__ void decode_chunk_lo(const GroupedArgs& a, const uint8_t* st,
+                                                const float* lut, __nv_bfloat16* Wt) {
+  const int ws = a.kcp + 8;
+  const unsigned long long qmask = (1ull << a.q) - 1ull;
+  for (int idx = threadIdx.x; idx < a.nbk * kGBN; idx += blockDim.x) {
+    const int kb = idx / kGBN, n = idx % kGBN;
+    const uint8_t* lcol = st + kb * a.lo_rows * kGBN + n;
+    __nv_bfloat16* dst = Wt + n * ws + kb * a.w;
+    if (a.lo_rows <= 8) {
+      unsigned long long word = 0;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r >= a.lo_rows) break;
+        word |= (unsigned long long)lcol[r * kGBN] << (8 * r);
+      }
+      if (a.w == 16) {
+        uint32_t v8[8];
+        if (a.q == 4) {
+#pragma unroll
+          for (int pos = 0; pos < 16; pos += 2) {
+            const __nv_bfloat162 pair = __floats2bfloat162_rn(
+                lut[(word >> (4 * pos)) & 0xFull], lut[(word >> (4 * pos + 4)) & 0xFull]);
+            v8[pos >> 1] = *reinterpret_cast<const uint32_t*>(&pair);
+          }
+        } else {
+#pragma unroll
+          for (int pos = 0; pos < 16; pos += 2) {
+            const __nv_bfloat162 pair = __floats2bfloat162_rn(
+                lut[(word >> (pos * a.q)) & qmask], lut[(word >> ((pos + 1) * a.q)) & qmask]);
+            v8[pos >> 1] = *reinterpret_cast<const uint32_t*>(&pair);
+          }
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v8[0], v8[1], v8[2], v8[3]);
+        *reinterpret_cast<uint4*>(dst + 8) = make_uint4(v8[4], v8[5], v8[6], v8[7]);
+        continue;
+      }
+      if (a.w % 8 == 0) {
+        for (int p0 = 0; p0 < a.w; p0 += 8) {
+          uint32_t v4[4];
+#pragma unroll
+          for (int j = 0; j < 8; j += 2) {
+            const __nv_bfloat162 pair =
+                __floats2bfloat162_rn(lut[(word >> ((p0 + j) * a.q)) & qmask],
+                                      lut[(word >> ((p0 + j + 1) * a.q)) & qmask]);
+            v4[j >> 1] = *reinterpret_cast<const uint32_t*>(&pair);
+          }
+          *reinterpret_cast<uint4*>(dst + p0) = make_uint4(v4[0], v4[1], v4[2], v4[3]);
+        }
+        continue;
+      }
+      for (int pos = 0; pos < a.w; ++pos)
+        dst[pos] = __float2bfloat16_rn(lut[(word >> (pos * a.q)) & qmask]);
+      continue;
+    }
+    for (int pos = 0; pos < a.w; ++pos)
+      dst[pos] = __float2bfloat16_rn(lut[g_lo_field(lcol, a.lo_rows, pos, a.q)]);
+  }
+}
+
+// K6: decode a staged chunk into Wt[n][k] (bf16 integers, k contiguous, row
 // stride kcp + 8): one thread per (w-block, column).  The common codecs
 // (w <= 32, <= 8 hi and <= 4 lo rows: mip2q / dliq p = 0.5) read the
 // block's bytes once into registers (fully unrolled at w = 16), and lo codes
@@ -590,13 +699,14 @@ __device__ __forceinline__ void chunk_product(const GroupedArgs& a, const __nv_b
   }
 }
 
-// Grid (ceil(N / 64), ceil(M / BM), G).  T: x's type (bf16: tensor cores;
-// f32: CUDA cores).  One barrier per chunk: while chunk ch decodes into one
-// of two weight tiles, the product of chunk ch - 1 runs on the other, chunks
-// ch + 1 and ch + 2 are in flight in the ring, and chunk ch + 1's x rows
-// are in flight into registers.
-template <int BM, typename T>
-__global__ void __launch_bounds__(kGThreads) grouped_onehot_kernel(GroupedArgs a) {
+// MODE: kOnehot (K6: mask + hi + lo) or kMaskfree (K7: lo only; mask and hi
+// are null with no rows).  Grid (ceil(N / 64), ceil(M / BM), G).  T: x's
+// type (bf16: tensor cores; f32: CUDA cores).  One barrier per chunk: while
+// chunk ch decodes into one of two weight tiles, the product of chunk ch - 1
+// runs on the other, chunks ch + 1 and ch + 2 are in flight in the ring, and
+// chunk ch + 1's x rows are in flight into registers.
+template <int MODE, int BM, typename T>
+__global__ void __launch_bounds__(kGThreads) grouped_live_kernel(GroupedArgs a) {
   constexpr int XPT = BM * kGTargetKC / kGThreads;  // x elements a thread stages
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float lut[256];  // lo code -> value (2^q <= 256 codes)
@@ -612,8 +722,10 @@ __global__ void __launch_bounds__(kGThreads) grouped_onehot_kernel(GroupedArgs a
     return;
   }
   const int mrows = min(BM, live - m0);
-  a.mask += (size_t)g * a.nb * a.mask_rows * a.N;
-  a.hi += (size_t)g * a.nb * a.hi_rows * a.N;
+  if (MODE != kMaskfree) {
+    a.mask += (size_t)g * a.nb * a.mask_rows * a.N;
+    a.hi += (size_t)g * a.nb * a.hi_rows * a.N;
+  }
   a.lo += (size_t)g * a.nb * a.lo_rows * a.N;
   const float* scale = a.scale + (size_t)g * a.N;
   const T* x = static_cast<const T*>(a.x) + ((size_t)g * a.M + m0) * a.K;
@@ -652,10 +764,11 @@ __global__ void __launch_bounds__(kGThreads) grouped_onehot_kernel(GroupedArgs a
       if (kk < a.kc) dst[r * xs + kk] = xr[e];
     }
   };
-  stage_chunk(a, 0, n0, ring);
-  cp_async_commit_g();
-  if (chunks > 1) stage_chunk(a, 1, n0, ring + stage_bytes);
-  cp_async_commit_g();
+#pragma unroll
+  for (int c0 = 0; c0 < kGStages - 1; ++c0) {  // chunks 0 .. kGStages - 2 in flight
+    if (c0 < chunks) stage_chunk(a, c0, n0, ring + c0 * stage_bytes);
+    cp_async_commit_g();
+  }
   load_x(0);
 
   float acc[BM / 16][kGNT][4];   // bf16 path: [m tile][n8 tile][fragment]
@@ -669,19 +782,24 @@ __global__ void __launch_bounds__(kGThreads) grouped_onehot_kernel(GroupedArgs a
 #pragma unroll
   for (int i = 0; i < BM / kGRowGroups; ++i) facc[i] = 0.f;
 
-  cp_async_wait_g<1>();
+  cp_async_wait_g<kGStages - 2>();
   __syncthreads();  // chunk 0 landed, the lookup table is written
   for (int ch = 0; ch < chunks; ++ch) {
     const int cur = ch & 1;
     store_x(Xs + cur * BM * xs);
     if (ch + 1 < chunks) load_x(ch + 1);
-    decode_chunk(a, ring + (ch % kGStages) * stage_bytes, lut, Wt + cur * kGBN * ws);
+    if (MODE == kMaskfree)
+      decode_chunk_lo(a, ring + (ch % kGStages) * stage_bytes, lut, Wt + cur * kGBN * ws);
+    else
+      decode_chunk(a, ring + (ch % kGStages) * stage_bytes, lut, Wt + cur * kGBN * ws);
     if (ch > 0)
       chunk_product<BM, T>(a, Wt + (cur ^ 1) * kGBN * ws, Xs + (cur ^ 1) * BM * xs, mrows,
                            acc, facc);
-    if (ch + 2 < chunks) stage_chunk(a, ch + 2, n0, ring + ((ch + 2) % kGStages) * stage_bytes);
+    // the slot of chunk ch - 1, whose decode the last barrier closed
+    const int ahead = ch + kGStages - 1;
+    if (ahead < chunks) stage_chunk(a, ahead, n0, ring + (ahead % kGStages) * stage_bytes);
     cp_async_commit_g();
-    cp_async_wait_g<1>();
+    cp_async_wait_g<kGStages - 2>();
     __syncthreads();  // chunk ch decoded, chunk ch + 1 landed, chunk ch - 1's product done
   }
   chunk_product<BM, T>(a, Wt + ((chunks - 1) & 1) * kGBN * ws,
@@ -715,13 +833,13 @@ __global__ void __launch_bounds__(kGThreads) grouped_onehot_kernel(GroupedArgs a
   }
 }
 
-template <int BM, typename T>
+template <int MODE, int BM, typename T>
 cudaError_t launch_grouped_typed(const GroupedArgs& a, int G, cudaStream_t stream) {
   const int stage_bytes = ((a.nbk * (a.mask_rows + a.hi_rows + a.lo_rows) * kGBN) + 15) & ~15;
   const int xs = std::is_same<T, __nv_bfloat16>::value ? a.kcp + 8 : a.kcp + 4;
   const size_t smem = (size_t)kGStages * stage_bytes + 2 * 2 * (size_t)kGBN * (a.kcp + 8) +
                       2 * sizeof(T) * (size_t)BM * xs;
-  auto kernel = grouped_onehot_kernel<BM, T>;
+  auto kernel = grouped_live_kernel<MODE, BM, T>;
   // always raise the dynamic limit to this launch's need: with the static
   // lookup table a launch near 48 KB is refused under the default limit
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -732,11 +850,37 @@ cudaError_t launch_grouped_typed(const GroupedArgs& a, int G, cudaStream_t strea
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int MODE, typename T>
 cudaError_t launch_grouped_rows(const GroupedArgs& a, int G, cudaStream_t s) {
-  if (a.M <= 16) return launch_grouped_typed<16, T>(a, G, s);
-  if (a.M <= 32) return launch_grouped_typed<32, T>(a, G, s);
-  return launch_grouped_typed<64, T>(a, G, s);
+  if (a.M <= 16) return launch_grouped_typed<MODE, 16, T>(a, G, s);
+  if (a.M <= 32) return launch_grouped_typed<MODE, 32, T>(a, G, s);
+  return launch_grouped_typed<MODE, 64, T>(a, G, s);
+}
+
+// K6 and K7: fill the chunking of `a` and launch MODE's kernel; the caller
+// has checked the fields.  `fields`: the packed pointers the kernel stages.
+template <int MODE>
+int launch_grouped(GroupedArgs& a, int x_bf16, const void* const* fields, int n_fields,
+                   int G, cudaStream_t s) {
+  a.nbk = a.w >= kGTargetKC ? 1 : kGTargetKC / a.w;
+  a.kc = a.nbk * a.w;
+  a.kcp = (a.kc + 15) / 16 * 16;
+  uintptr_t any = 0;
+  for (int i = 0; i < n_fields; ++i) any |= reinterpret_cast<uintptr_t>(fields[i]);
+  a.vec16 = a.N % 16 == 0 && any % 16 == 0;
+  return (int)(x_bf16 ? launch_grouped_rows<MODE, __nv_bfloat16>(a, G, s)
+                      : launch_grouped_rows<MODE, float>(a, G, s));
+}
+
+void set_grouped(GroupedArgs& a, const void* x, const void* scale, const void* rows,
+                 void* out, int M, int N, int K, int nb, int w, int n_low, int q,
+                 int method) {
+  a.x = x;
+  a.scale = static_cast<const float*>(scale);
+  a.rows = static_cast<const int*>(rows);
+  a.out = static_cast<float*>(out);
+  a.M = M; a.N = N; a.K = K; a.nb = nb; a.w = w;
+  a.n_high = w - n_low; a.n_low = n_low; a.q = q; a.method = method;
 }
 
 }  // namespace
@@ -758,7 +902,7 @@ STRUM_ENTRY(strum_dense_launch, kDense)
 STRUM_ENTRY(strum_histream_launch, kHistream)     // K9: lo is null
 STRUM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)  // K10: mask and lo are null
 
-// Grouped entries (K7, K8): x (G, M, K) contiguous, G >= 1, no split-K.
+// K8 (the 2-D kernels' template): x (G, M, K) contiguous, G >= 1, no split-K.
 #define STRUM_GROUPED_ENTRY(NAME, MODE)                                               \
   extern "C" int NAME(const void* x, int x_bf16, const void* mask, const void* hi,     \
                       const void* lo, const void* scale, void* out, int G, int M,     \
@@ -768,6 +912,8 @@ STRUM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)  // K10: mask and lo are null
     return launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, G, M, N, K, K, nb, w,    \
                         mask_rows, hi_rows, lo_rows, n_low, q, method, 1, stream);    \
   }
+
+STRUM_GROUPED_ENTRY(strum_grouped_dense_launch, kDense)
 
 // K6: x (G, M, K) contiguous, f32 or bf16; rows (G,) int32 live rows per
 // group, or null (every row live).  w % 8 == 0, w <= 64.
@@ -782,26 +928,38 @@ extern "C" int strum_grouped_onehot_launch(const void* x, int x_bf16, const void
       K > nb * w || (method != kSparsity && (q < 1 || q > 8)))
     return (int)cudaErrorInvalidValue;
   GroupedArgs a;
-  a.x = x;
+  set_grouped(a, x, scale, rows, out, M, N, K, nb, w, n_low, q, method);
   a.mask = static_cast<const uint8_t*>(mask);
   a.hi = static_cast<const int8_t*>(hi);
   a.lo = static_cast<const uint8_t*>(lo);
-  a.scale = static_cast<const float*>(scale);
-  a.rows = static_cast<const int*>(rows);
-  a.out = static_cast<float*>(out);
-  a.M = M; a.N = N; a.K = K; a.nb = nb; a.w = w;
   a.mask_rows = mask_rows; a.hi_rows = hi_rows; a.lo_rows = lo_rows;
-  a.n_high = w - n_low; a.n_low = n_low; a.q = q; a.method = method;
-  a.nbk = w >= kGTargetKC ? 1 : kGTargetKC / w;
-  a.kc = a.nbk * w;
-  a.kcp = (a.kc + 15) / 16 * 16;
   const void* fields[] = {mask, hi, lo};
-  uintptr_t any = 0;
-  for (const void* f : fields) any |= reinterpret_cast<uintptr_t>(f);
-  a.vec16 = N % 16 == 0 && any % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(x_bf16 ? launch_grouped_rows<__nv_bfloat16>(a, G, s)
-                      : launch_grouped_rows<float>(a, G, s));
+  return launch_grouped<kOnehot>(a, x_bf16, fields, 3, G,
+                                 static_cast<cudaStream_t>(stream));
 }
-STRUM_GROUPED_ENTRY(strum_grouped_maskfree_launch, kMaskfree)
-STRUM_GROUPED_ENTRY(strum_grouped_dense_launch, kDense)
+
+// K7 (p = 1): lo (G, nb, lo_rows, N) and scale only -- mask and hi are not
+// read (pass null) and mask_rows / hi_rows are ignored; rows as for K6.
+// n_low == w <= 64, dliq or mip2q, lo_rows * 8 >= w * q.
+extern "C" int strum_grouped_maskfree_launch(const void* x, int x_bf16, const void* mask,
+                                             const void* hi, const void* lo,
+                                             const void* scale, const void* rows,
+                                             void* out, int G, int M, int N, int K, int nb,
+                                             int w, int mask_rows, int hi_rows,
+                                             int lo_rows, int n_low, int q, int method,
+                                             void* stream) {
+  (void)mask; (void)hi; (void)mask_rows; (void)hi_rows;
+  if (G <= 0 || G > 65535 || M <= 0 || N <= 0 || K <= 0 || nb <= 0 || w <= 0 ||
+      w > 64 || n_low != w || (method != kDliq && method != kMip2q) || q < 1 || q > 8 ||
+      lo_rows * 8 < w * q || K > nb * w)
+    return (int)cudaErrorInvalidValue;
+  GroupedArgs a;
+  set_grouped(a, x, scale, rows, out, M, N, K, nb, w, n_low, q, method);
+  a.mask = nullptr;
+  a.hi = nullptr;
+  a.lo = static_cast<const uint8_t*>(lo);
+  a.mask_rows = 0; a.hi_rows = 0; a.lo_rows = lo_rows;
+  const void* fields[] = {lo};
+  return launch_grouped<kMaskfree>(a, x_bf16, fields, 1, G,
+                                   static_cast<cudaStream_t>(stream));
+}

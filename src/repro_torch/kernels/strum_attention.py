@@ -31,14 +31,18 @@ version walks the pages in one pass: page by page, decode K and V, scores,
 running max, rescale, accumulate, with a non-live page leaving the state as
 it was.
 
-K4 splits the table's page slots across blocks (flash-decoding):
+K4 and K5 split the table's page slots across blocks (flash-decoding):
 ``split_pages`` picks the page slots per split, each split writes its own
-partial, and a second kernel (``launch_counts["paged_attention_combine"]``,
-one launch per K4 call with more than one split) merges them in split-index
-order.  ``strum_paged_attention_split_plain`` mirrors that split and merge
-on the CPU (``merge_split_partials_plain``); the tests hold it to the
-one-pass version.  K4's staging needs ``hd % 16 == 0`` and 16-byte-aligned
-fields (the wrapper raises otherwise).
+partial, and a second kernel (``launch_counts["paged_attention_combine"]``
+after K4, ``["paged_attention_maskfree_combine"]`` after K5, one launch per
+call with more than one split) merges them in split-index order.
+``strum_paged_attention_split_plain`` mirrors that split and merge on the
+CPU (``merge_split_partials_plain``) for either kernel; the tests hold it
+to the one-pass version.  On the card both take any page size (a page is
+walked in pieces of at most 64 positions), any head dim up to 256 and
+fields at any alignment (staged by plain loads where 16-byte copies do not
+fit); the wrapper raises on a head dim over 256 or w over 64, which the
+registry does not select them for.
 """
 from __future__ import annotations
 
@@ -59,15 +63,18 @@ NEG_INF = -1e30
 
 #: kernel name -> launches since the last reset
 launch_counts = {"paged_attention": 0, "paged_attention_combine": 0,
-                 "paged_attention_maskfree": 0}
+                 "paged_attention_maskfree": 0,
+                 "paged_attention_maskfree_combine": 0}
 
 MAX_SPLIT_PAGES = 32  # page slots of one split (kMaxSplitPages in the source)
+MAX_HEAD_DIM = 256    # kMaxHeadDim: 32 lanes x 8 columns
+MAX_BLOCK_WIDTH = 64  # kMaxPageSize: a piece holds at least one [1, w] block
 _MIN_SPLIT_PAGES = 4  # fewer and the combine's reads outweigh the split
 _BLOCKS_PER_SM = 8    # K4 blocks to aim for on every SM
 
 
 def split_pages(n_slots: int, n_pages: int, heads: int, sms: int) -> int:
-    """Page slots per K4 split for a table of ``n_pages`` slots per slot,
+    """Page slots per K4 (K5) split for a table of ``n_pages`` slots per slot,
     ``heads`` (slot, kv head, row tile) blocks before splitting and ``sms``
     SMs: enough splits for ``_BLOCKS_PER_SM`` blocks an SM, none shorter
     than ``_MIN_SPLIT_PAGES`` page slots, none longer than
@@ -142,22 +149,24 @@ def merge_split_partials_plain(parts):
     return acc, m, l
 
 
-def strum_paged_attention_split_plain(q4, k_mask, k_hi, k_lo, k_scale, v_mask,
-                                      v_hi, v_lo, v_scale, page_ids, n_valid, *,
-                                      pages_per_split: int, w: int, n_low: int,
-                                      q: int, method: str):
-    """K4's split and merge on plain tensors: split ``s`` owns the table's
-    page slots ``[s·pps, (s+1)·pps)`` (the others read as -1), each split is
-    the one-pass partial over its slots, and the splits merge in order."""
+def strum_paged_attention_split_plain(q4, *args, pages_per_split: int,
+                                      maskfree: bool = False, **kw):
+    """K4's (``maskfree=True``: K5's) split and merge on plain tensors.
+    ``args`` are the pool fields the kernel takes, then ``page_ids`` and
+    ``n_valid``; ``kw`` the plain version's codec arguments.  Split ``s``
+    owns the table's page slots ``[s·pps, (s+1)·pps)`` (the others read as
+    -1), each split is the one-pass partial over its slots, and the splits
+    merge in order."""
+    plain = strum_paged_attention_maskfree_plain if maskfree else \
+        strum_paged_attention_plain
+    *fields, page_ids, n_valid = args
     p = page_ids.shape[1]
     col = torch.arange(p, device=page_ids.device)
     parts = []
     for s0 in range(0, p, pages_per_split):
         own = (col >= s0) & (col < s0 + pages_per_split)
         ids = torch.where(own[None, :], page_ids, torch.full_like(page_ids, -1))
-        parts.append(strum_paged_attention_plain(
-            q4, k_mask, k_hi, k_lo, k_scale, v_mask, v_hi, v_lo, v_scale, ids,
-            n_valid, w=w, n_low=n_low, q=q, method=method))
+        parts.append(plain(q4, *fields, ids, n_valid, **kw))
     return merge_split_partials_plain(parts)
 
 
@@ -173,21 +182,19 @@ def strum_paged_attention_maskfree_plain(q4, k_lo, k_scale, v_lo, v_scale,
 # ------------------------------------------------------------ CUDA launch --
 
 def _check_operands(name: str, q4, k: dict, v: dict, page_ids, n_valid, *,
-                    w: int, n_low: int, q: int, method: str, align: int):
+                    w: int, n_low: int, q: int, method: str):
     """Validate every operand for a launch on q4's device; returns the page
     table and ``n_valid`` as contiguous int32 there.  ``k`` / ``v`` map field
-    names to pool tensors; a field the kernel does not read is absent.
-    ``align``: bytes the kernel stages at a time (hd and every field
-    pointer must be multiples of it)."""
+    names to pool tensors; a field the kernel does not read is absent."""
     dev = q4.device
     b, kv, r, hd = q4.shape
     f = kv * hd
     n_pages, nb = k["lo"].shape[:2]
     if q4.dtype != torch.float32 or not q4.is_contiguous():
         raise ValueError(f"cuda:{name}: q4 must be contiguous float32")
-    if hd % align:
-        raise ValueError(f"cuda:{name}: head dim {hd} is not a multiple of {align} "
-                         f"(pages are staged in {align}-byte words)")
+    if hd > MAX_HEAD_DIM or w > MAX_BLOCK_WIDTH:
+        raise ValueError(f"cuda:{name}: head dim {hd} > {MAX_HEAD_DIM} or block width "
+                         f"w={w} > {MAX_BLOCK_WIDTH}")
     least = {"mask": (torch.uint8, w // 8), "hi": (torch.int8, w - n_low),
              "lo": (torch.uint8, 0 if method == "sparsity" else -(-(n_low * q) // 8))}
     for pool in (k, v):
@@ -195,36 +202,11 @@ def _check_operands(name: str, q4, k: dict, v: dict, page_ids, n_valid, *,
                        {fn: (t,) + least[fn] for fn, t in pool.items() if fn != "scale"},
                        n_pages, nb, f, dev)
         D.check_scale(f"cuda:{name}", pool["scale"], n_pages, f, dev)
-        if any(t.data_ptr() % align for t in pool.values()):
-            raise ValueError(f"cuda:{name}: pool fields must be {align}-byte aligned")
     ids = page_ids.to(device=dev, dtype=torch.int32).contiguous()
     nv = n_valid.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
     if ids.dim() != 2 or ids.shape[0] != b:
         raise ValueError(f"cuda:{name}: page_ids {tuple(ids.shape)} is not (B={b}, P)")
     return ids, nv
-
-
-def _launch_maskfree(q4, k: dict, v: dict, page_ids, n_valid, *, w: int, q: int,
-                     method: str):
-    """K5 on q4's stream: one block per (slot, kv head, row tile)."""
-    name = "paged_attention_maskfree"
-    ids, nv = _check_operands(name, q4, k, v, page_ids, n_valid, w=w, n_low=w, q=q,
-                              method=method, align=4)
-    b, kv, r, hd = q4.shape
-    n_pages, nb = k["lo"].shape[:2]
-    acc = torch.empty((b, kv, r, hd), dtype=torch.float32, device=q4.device)
-    m = torch.empty((b, kv, r), dtype=torch.float32, device=q4.device)
-    l = torch.empty((b, kv, r), dtype=torch.float32, device=q4.device)
-    err = D.lib().strum_paged_attention_launch(
-        1, q4.data_ptr(), None, None, k["lo"].data_ptr(), k["scale"].data_ptr(),
-        None, None, v["lo"].data_ptr(), v["scale"].data_ptr(), ids.data_ptr(),
-        nv.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, kv, r, hd,
-        ids.shape[1], n_pages, nb, w, 0, 0, k["lo"].shape[2], w, q,
-        METHOD_CODES[method], torch.cuda.current_stream(q4.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cuda:{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
-    return acc, m, l
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,23 +215,21 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _row_tile(r: int, hd: int) -> int:
-    """K4's query rows per block (the launcher's rule)."""
+    """K4's and K5's query rows per block (the launcher's rule)."""
     return 1 if r == 1 else 8 if (r <= 8 or hd > 128) else 16
 
 
-def _launch_split(q4, k: dict, v: dict, page_ids, n_valid, *, w: int, n_low: int,
-                  q: int, method: str):
-    """K4 on q4's stream: the split partials, then (more than one split) the
-    combine kernel; partials live in ``torch.empty`` scratch."""
-    name = "paged_attention"
+def _launch_split(name: str, q4, k: dict, v: dict, page_ids, n_valid, *, w: int,
+                  n_low: int, q: int, method: str):
+    """K4 (``name`` "paged_attention": mask, hi, lo, scale) or K5
+    ("paged_attention_maskfree": lo, scale) on q4's stream: the split
+    partials, then (more than one split) the combine kernel, counted under
+    ``name + "_combine"``; partials live in ``torch.empty`` scratch."""
     ids, nv = _check_operands(name, q4, k, v, page_ids, n_valid, w=w, n_low=n_low,
-                              q=q, method=method, align=16)
+                              q=q, method=method)
     dev = q4.device
     b, kv, r, hd = q4.shape
     n_pages, nb = k["lo"].shape[:2]
-    if hd > 256 or nb * w > 64:
-        raise ValueError(f"cuda:{name}: head dim {hd} > 256 or page of {nb * w} "
-                         "positions > 64")
     p = ids.shape[1]
     heads = kv * -(-r // _row_tile(r, hd))
     pps = split_pages(b, p, heads, _sm_count(dev))
@@ -259,12 +239,17 @@ def _launch_split(q4, k: dict, v: dict, page_ids, n_valid, *, w: int, n_low: int
     l = torch.empty((splits, b, kv, r), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     so = D.lib()
-    err = so.strum_paged_attention_split_launch(
-        q4.data_ptr(), *(pool[fn].data_ptr() for pool in (k, v)
-                         for fn in ("mask", "hi", "lo", "scale")),
-        ids.data_ptr(), nv.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, kv, r, hd, p, n_pages, pps, nb, w, k["mask"].shape[2], k["hi"].shape[2],
-        k["lo"].shape[2], n_low, q, METHOD_CODES[method], stream)
+    fields = tuple(k)            # the pool fields this kernel reads, in order
+    head = (q4.data_ptr(), *(pool[fn].data_ptr() for pool in (k, v) for fn in fields),
+            ids.data_ptr(), nv.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, kv, r, hd, p, n_pages, pps, nb, w)
+    if name == "paged_attention":
+        err = so.strum_paged_attention_split_launch(
+            *head, k["mask"].shape[2], k["hi"].shape[2], k["lo"].shape[2], n_low, q,
+            METHOD_CODES[method], stream)
+    else:
+        err = so.strum_paged_attention_maskfree_split_launch(
+            *head, k["lo"].shape[2], q, METHOD_CODES[method], stream)
     if err != 0:
         raise RuntimeError(f"cuda:{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
@@ -278,7 +263,7 @@ def _launch_split(q4, k: dict, v: dict, page_ids, n_valid, *, w: int, n_low: int
         splits, b * kv * r, hd, stream)
     if err != 0:
         raise RuntimeError(f"cuda:{name}_combine launch failed: CUDA error {err}")
-    launch_counts["paged_attention_combine"] += 1
+    launch_counts[f"{name}_combine"] += 1
     return out
 
 
@@ -286,28 +271,30 @@ def strum_paged_attention(q4, k_mask, k_hi, k_lo, k_scale, v_mask, v_hi, v_lo,
                           v_scale, page_ids, n_valid, *, w: int, n_low: int,
                           q: int, method: str):
     """K4: sealed-page partial (acc, m, l) over mask + hi + lo pools; needs
-    w % 8 == 0 (on the card also hd % 16 == 0 and 16-byte-aligned fields).
-    Empty fields come floored at one row."""
+    w % 8 == 0 (on the card also w <= 64 and head dim <= 256).  Empty fields
+    come floored at one row."""
     if w % 8:
         raise ValueError(f"paged attention needs byte-aligned mask rows (w={w})")
     if _route(q4) == "plain":
         return strum_paged_attention_plain(
             q4, k_mask, k_hi, k_lo, k_scale, v_mask, v_hi, v_lo, v_scale, page_ids,
             n_valid, w=w, n_low=n_low, q=q, method=method)
-    return _launch_split(q4, dict(mask=k_mask, hi=k_hi, lo=k_lo, scale=k_scale),
+    return _launch_split("paged_attention", q4,
+                         dict(mask=k_mask, hi=k_hi, lo=k_lo, scale=k_scale),
                          dict(mask=v_mask, hi=v_hi, lo=v_lo, scale=v_scale),
                          page_ids, n_valid, w=w, n_low=n_low, q=q, method=method)
 
 
 def strum_paged_attention_maskfree(q4, k_lo, k_scale, v_lo, v_scale, page_ids,
                                    n_valid, *, w: int, q: int, method: str):
-    """K5 (p = 1): the partial from lo + scale only; reads no mask or hi."""
+    """K5 (p = 1): the partial from lo + scale only; reads no mask or hi (on
+    the card w <= 64 and head dim <= 256)."""
     if method not in ("dliq", "mip2q"):
         raise ValueError(f"maskfree attention needs a lo payload, got {method!r}")
     if _route(q4) == "plain":
         return strum_paged_attention_maskfree_plain(
             q4, k_lo, k_scale, v_lo, v_scale, page_ids, n_valid, w=w, q=q,
             method=method)
-    return _launch_maskfree(q4, dict(lo=k_lo, scale=k_scale),
-                            dict(lo=v_lo, scale=v_scale), page_ids, n_valid, w=w,
-                            q=q, method=method)
+    return _launch_split("paged_attention_maskfree", q4, dict(lo=k_lo, scale=k_scale),
+                         dict(lo=v_lo, scale=v_scale), page_ids, n_valid, w=w, n_low=w,
+                         q=q, method=method)

@@ -7,8 +7,8 @@
 
 It replaces ``strum_page_decode_pallas`` of ``repro/kernels/strum_decode.py``
 and is the ``cache:cuda_decode`` codec (``repro_torch.engine.cache``).  The
-CUDA source, ``csrc/strum_attention.cu``, shares its per-column decode with
-the paged-attention kernels K4/K5.
+CUDA source is ``csrc/strum_attention.cu``, beside the paged-attention
+kernels K4/K5.
 
 As with the matmul kernels, the tensors' device is the choice: CPU tensors
 run the plain version, CUDA tensors launch the kernel, anything else
@@ -74,9 +74,9 @@ def lib():
         so.strum_page_decode_launch.argtypes = [ctypes.c_void_p] * 5 + \
             [ctypes.c_int] * 10 + [ctypes.c_void_p]
         so.strum_page_decode_launch.restype = ctypes.c_int
-        so.strum_paged_attention_launch.argtypes = [ctypes.c_int] + \
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-        so.strum_paged_attention_launch.restype = ctypes.c_int
+        so.strum_paged_attention_maskfree_split_launch.argtypes = \
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        so.strum_paged_attention_maskfree_split_launch.restype = ctypes.c_int
         so.strum_paged_attention_split_launch.argtypes = \
             [ctypes.c_void_p] * 14 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
         so.strum_paged_attention_split_launch.restype = ctypes.c_int

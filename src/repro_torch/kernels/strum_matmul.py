@@ -14,11 +14,15 @@ source, with its design and what bounds it, is ``csrc/strum_matmul.cu``.
 stacked payload (every field ``(G, nb, rows, N)``, scale ``(G, 1, N)``): the
 MoE expert contractions.  They replace ``strum_matmul_pallas_grouped``,
 ``_grouped_maskfree`` and ``_grouped_dense``; the group is a grid axis and K
-is never split across blocks.  K7 and K8 are the 2-D kernels' template;
-K6 is a kernel of its own (asynchronous 16-byte staging, popcount decode,
-bf16 tensor cores for bf16 x) and takes optional per-group live-row counts
-``rows``: rows past ``rows[g]`` are zero in x and come out as exact zeros,
-and a row tile past the count reads no weight byte.
+is never split across blocks.  K8 is the 2-D kernels' template; K6 and K7
+are two modes of a kernel of their own (asynchronous 16-byte staging,
+register decode, bf16 tensor cores for bf16 x) and take optional per-group
+live-row counts ``rows``: rows past ``rows[g]`` are zero in x and come out
+as exact zeros, and a row tile past the count reads no weight byte.
+
+At decode the 2-D kernels split K across the blocks of one thread-block
+cluster (``_splits``, at most ``MAX_SPLITS``) and add the partial tiles in
+rank order on the card: two calls on the same inputs give the same bits.
 
 ``strum_matmul_histream`` (K9) and ``strum_matmul_maskfree_p`` (K10) are
 the reduced-fidelity reads of self-speculative decoding's draft lane: K9
@@ -63,6 +67,7 @@ __all__ = ["strum_matmul_onehot", "strum_matmul_maskfree", "strum_matmul_dense",
            "reset_launch_counts", "METHOD_CODES"]
 
 METHOD_CODES = {"sparsity": 0, "dliq": 1, "mip2q": 2}
+_ROWS = ("grouped_onehot", "grouped_maskfree")  # kernels that take ``rows``
 _ENTRY = {"onehot": "strum_onehot_launch", "maskfree": "strum_maskfree_launch",
           "dense": "strum_dense_launch",
           "grouped_onehot": "strum_grouped_onehot_launch",
@@ -71,6 +76,7 @@ _ENTRY = {"onehot": "strum_onehot_launch", "maskfree": "strum_maskfree_launch",
           "histream": "strum_histream_launch",
           "maskfree_p": "strum_maskfree_p_launch"}
 _BN = 64  # output columns per CUDA block (kBN in the source)
+MAX_SPLITS = 8  # K slices of one 2-D tile: one portable cluster (kMaxSplits)
 
 #: kernel name -> launches since the last reset
 launch_counts = {name: 0 for name in _ENTRY}
@@ -154,9 +160,12 @@ def strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, rows=None,
         for g in range(x3.shape[0])]), rows)
 
 
-def strum_matmul_grouped_maskfree_plain(x3, lo, scale, **kw) -> torch.Tensor:
-    return torch.stack([strum_matmul_maskfree_plain(x3[g], lo[g], scale[g], **kw)
-                        for g in range(x3.shape[0])])
+def strum_matmul_grouped_maskfree_plain(x3, lo, scale, rows=None,
+                                        **kw) -> torch.Tensor:
+    """K7's arithmetic per group; ``rows`` as for K6."""
+    return _past_rows_zero(torch.stack([
+        strum_matmul_maskfree_plain(x3[g], lo[g], scale[g], **kw)
+        for g in range(x3.shape[0])]), rows)
 
 
 def strum_matmul_grouped_dense_plain(x3, hi, scale, **kw) -> torch.Tensor:
@@ -173,10 +182,10 @@ def _lib():
         fn = getattr(lib, entry)
         if fn.argtypes is None:
             # 2-D: M N K ldx nb w rows x3 n_low q method splits;
-            # grouped: G M N K nb w rows x3 n_low q method; K6 also takes
-            # the live-row counts after scale
+            # grouped: G M N K nb w rows x3 n_low q method; K6 and K7 also
+            # take the live-row counts after scale
             ints = 12 if name.startswith("grouped_") else 13
-            ptrs = 6 if name == "grouped_onehot" else 5
+            ptrs = 6 if name in _ROWS else 5
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * ptrs
                            + [ctypes.c_int] * ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -185,12 +194,13 @@ def _lib():
 
 def _splits(m: int, n: int, nb: int, device: torch.device) -> int:
     """Split K across blocks when the output tiles alone cannot fill the
-    card (decode: M = batch, a few dozen column tiles)."""
+    card (decode: M = batch, a few dozen column tiles); the slices of one
+    tile are one thread-block cluster, at most ``MAX_SPLITS`` blocks."""
     tiles = math.ceil(n / _BN) * math.ceil(m / (8 if m <= 8 else 64))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if tiles >= sms:
         return 1
-    return max(1, min(math.ceil(2 * sms / tiles), nb // 4))
+    return max(1, min(math.ceil(2 * sms / tiles), nb // 4, MAX_SPLITS))
 
 
 def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
@@ -199,7 +209,7 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
     ``None`` marks a field the kernel does not read.  A 2-D kernel takes x
     (M, K), fields (nb, rows, N) and scale (1, N); a grouped one (name
     ``grouped_*``) x (G, M, K), fields (G, nb, rows, N) and scale (G, 1, N);
-    K6 (``grouped_onehot``) also the live rows per group, (G,) or None."""
+    K6 and K7 (``_ROWS``) also the live rows per group, (G,) or None."""
     lead = 1 if name.startswith("grouped_") else 0
     if x.dim() != 2 + lead:
         raise ValueError(f"cuda:{name}: x must be {2 + lead}-D, got {tuple(x.shape)}")
@@ -238,7 +248,7 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
     if lead:    # every expert stack fills the card with its own tiles: no split-K
         out = torch.empty((groups, m, n), dtype=torch.float32, device=x.device)
         live = []
-        if name == "grouped_onehot":
+        if name in _ROWS:
             if rows is not None:
                 if rows.numel() != groups or rows.is_floating_point():
                     raise ValueError(f"cuda:{name}: rows {tuple(rows.shape)} "
@@ -251,8 +261,7 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
                  METHOD_CODES[method], stream)
     else:
         splits = _splits(m, n, nb, x.device)
-        out = (torch.zeros if splits > 1 else torch.empty)(
-            (m, n), dtype=torch.float32, device=x.device)
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
                  out.data_ptr(), m, n, k, x.stride(0), nb, w, *nrows, n_low, q,
                  METHOD_CODES[method], splits, stream)
@@ -320,20 +329,23 @@ def strum_matmul_grouped_onehot(x3, mask, hi, lo, scale, *, w: int, n_low: int,
 
 def strum_matmul_grouped_maskfree(x3, lo, scale, *, w: int, q: int,
                                   method: str, rows=None) -> torch.Tensor:
-    """K7 (p = 1): y[g] = x3[g] @ dequant(lo[g], scale[g]); no mask, no hi.
-    ``rows`` is accepted and not read: x is 0 past it, so is y."""
+    """K7 (p = 1): y[g] = x3[g] @ dequant(lo[g], scale[g]); no mask, no hi
+    (w <= 64 on the card).  ``rows`` (G,) int, optional, as for K6: a row
+    tile past the count reads no weight byte, and those rows come out 0."""
     if method not in ("dliq", "mip2q"):
         raise ValueError(f"grouped maskfree kernel needs a lo payload, got {method!r}")
     if _route(x3) == "plain":
-        return strum_matmul_grouped_maskfree_plain(x3, lo, scale, w=w, q=q,
+        return strum_matmul_grouped_maskfree_plain(x3, lo, scale, rows, w=w, q=q,
                                                    method=method)
+    if w > 64:
+        raise ValueError(f"cuda:grouped_maskfree: w={w} > 64")
     return _launch("grouped_maskfree", x3, None, None, lo, scale, w=w, n_low=w,
-                   q=q, method=method)
+                   q=q, method=method, rows=rows)
 
 
 def strum_matmul_grouped_dense(x3, hi, scale, *, w: int, rows=None) -> torch.Tensor:
     """K8 (n_low = 0): y[g] = x3[g] @ dequant(hi[g], scale[g]); any w.
-    ``rows`` is accepted and not read, as for K7."""
+    ``rows`` is accepted and not read: x is 0 past it, so is y."""
     if _route(x3) == "plain":
         return strum_matmul_grouped_dense_plain(x3, hi, scale, w=w)
     return _launch("grouped_dense", x3, None, hi, None, scale, w=w, n_low=0, q=1,

@@ -116,7 +116,7 @@ def make_cache_spec(cfg, kv_cache, page_size: int, device,
     _attn_positions(cfg)
     codec = None if kv_cache in (None, "fp") else kv_cache
     return build_cache_spec(codec, page_size=page_size, feat=attn_feat_dim(cfg),
-                            device=device, backend=backend)
+                            device=device, backend=backend, head_dim=cfg.hd)
 
 
 # ---------------------------------------------------------------- storage --

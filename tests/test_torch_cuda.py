@@ -1,5 +1,7 @@
 """Port kernels K1-K11 on the card against their plain PyTorch versions
-(K4 split-KV with its combine kernel, K6 with and without live-row counts).
+(K4 and K5 split-KV with their combine kernel, at pages of 16 and 128
+positions; K6 and K7 with and without live-row counts; K1-K3, K9, K10
+bit-identical across calls).
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -227,6 +229,68 @@ def test_grouped_onehot_rows_on_card(dev, g, m, k, n, cfg, dtype):
     assert torch.equal(y_rows, y_dirty)              # x past the count is never read
 
 
+# K7 with live-row counts at K6's shapes above; w = 8 at q = 3 (fields
+# straddle bytes) and w = 12 (no 16-byte stores)
+@pytest.mark.parametrize("g,m,k,n", [(16, 6, 256, 1408), (8, 6, 200, 136),
+                                     (4, 24, 1400, 96), (3, 70, 64, 64)])
+@pytest.mark.parametrize("cfg", [StruMConfig(method="dliq", p=1.0, q=4),
+                                 StruMConfig(method="mip2q", p=1.0, L=5),
+                                 StruMConfig(method="dliq", w=8, p=1.0, q=3),
+                                 StruMConfig(method="dliq", w=12, p=1.0, q=4)],
+                         ids=lambda c: f"{c.method}_w{c.w}_q{c.q}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_maskfree_rows_on_card(dev, g, m, k, n, cfg, dtype):
+    x, packed = _grouped_case(dev, g, m, k, n, cfg, dtype)
+    rng = np.random.default_rng(g + m)
+    counts = rng.integers(0, m + 1, g)
+    counts[0], counts[-1] = 0, m                    # an empty and a full expert
+    rows = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    live = torch.arange(m, device=dev)[None, :] < rows[:, None].long()
+    xz = torch.where(live[..., None], x, torch.zeros_like(x))
+    kw = dict(out_dtype=torch.float32, variant="maskfree")
+    before = K.launch_counts["grouped_maskfree"]
+    y_rows = ops.strum_grouped_matmul(xz, packed, rows=rows, **kw)
+    y_full = ops.strum_grouped_matmul(xz, packed, **kw)
+    y_dirty = ops.strum_grouped_matmul(x, packed, rows=rows, **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts["grouped_maskfree"] == before + 3
+    want = ops.strum_grouped_matmul(xz.cpu(), _to_cpu(packed), rows=rows.cpu(), **kw)
+    lim = REL_TOL * want.abs().max().item()
+    for y in (y_rows, y_full, y_dirty):
+        assert (y.cpu() - want).abs().max().item() <= lim
+    for gi, cnt in enumerate(counts.tolist()):
+        assert (y_rows[gi, cnt:] == 0).all() and (y_dirty[gi, cnt:] == 0).all()
+    assert torch.equal(y_rows, y_dirty)              # x past the count is never read
+
+
+# ------------------------------------------- 2-D kernels: deterministic split-K
+
+@pytest.mark.parametrize("variant,cfg", [
+    ("onehot", StruMConfig(method="mip2q", p=0.5, L=5)),
+    ("maskfree", StruMConfig(method="dliq", p=1.0, q=4)),
+    ("dense", StruMConfig(method="mip2q", p=0.0, L=5)),
+    ("histream", StruMConfig(method="mip2q", p=0.5, L=5)),
+    ("maskfree_p", StruMConfig(method="mip2q", p=0.5, L=5))])
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (4, 8192, 2048), (1, 2048, 8192)])
+def test_two_d_kernels_are_bit_identical_across_calls_on_card(dev, variant, cfg, m, k, n):
+    """K1-K3, K9, K10 at decode shapes where K is split across a cluster:
+    two calls on the same inputs give the same bits (the slices are added
+    in cluster-rank order, never in arrival order)."""
+    x, packed = _case(dev, m, k, n, cfg, torch.bfloat16)
+    assert K._splits(m, n, packed.mask.shape[0], dev) > 1
+    if variant in ("histream", "maskfree_p"):
+        def call():
+            return ops.strum_matmul_draft(x, packed, mode=variant, out_dtype=torch.float32)
+    else:
+        def call():
+            return ops.strum_matmul(x, packed, out_dtype=torch.float32, variant=variant)
+    before = K.launch_counts[variant]
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    assert K.launch_counts[variant] == before + 2
+    assert torch.equal(a, b)
+
+
 # ------------------------------------------------ packed KV pages: K4, K5, K11
 
 PAGE_CODECS = [StruMConfig(method="mip2q", p=0.5, L=7),
@@ -356,15 +420,79 @@ def test_split_kv_attention_across_split_boundaries_on_card(dev, kv, r, p):
         _close(got, mirror)
 
 
-def test_split_kv_attention_rejects_unaligned_head_dim(dev):
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is off a 16-byte
+    boundary (one element into a larger buffer)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    u = buf[1:1 + t.numel()].view(t.shape)
+    u.copy_(t)
+    assert u.is_contiguous() and u.data_ptr() % 16
+    return u
+
+
+def _attn_args(cfg, k, v, maskfree):
+    names = ("lo", "scale") if maskfree else ("mask", "hi", "lo", "scale")
+    kw = dict(w=cfg.w, q=cfg.q, method=cfg.method)
+    if not maskfree:
+        kw["n_low"] = cfg.n_low
+    return [k[f] for f in names] + [v[f] for f in names], kw
+
+
+def _run_attention(A, maskfree, q4, args, table, n_valid, kw):
+    """K4 or K5 on the card (one launch) and its plain version on the CPU."""
+    name = "paged_attention_maskfree" if maskfree else "paged_attention"
+    kern = A.strum_paged_attention_maskfree if maskfree else A.strum_paged_attention
+    plain = A.strum_paged_attention_maskfree_plain if maskfree else \
+        A.strum_paged_attention_plain
+    before = A.launch_counts[name]
+    got = kern(q4, *args, table, n_valid, **kw)
+    torch.cuda.synchronize()
+    assert A.launch_counts[name] == before + 1
+    return got, plain(q4.cpu(), *[t.cpu() for t in args], table.cpu(), n_valid.cpu(),
+                      **kw)
+
+
+@pytest.mark.parametrize("hd", [24, 40, 256])
+@pytest.mark.parametrize("maskfree", [False, True], ids=["k4", "k5"])
+def test_split_kv_attention_rejects_unaligned_head_dim(dev, hd, maskfree):
+    """K4 and K5 no longer refuse a head dim that is not a multiple of 16
+    (24, 40) or fields off a 16-byte boundary: those are staged with plain
+    loads into the same ring, and match the plain version; hd = 256 is the
+    widest they take.  What they still refuse -- a head dim over 256 --
+    raises ValueError in the wrapper (the registry never selects them
+    there)."""
     from repro_torch.kernels import strum_attention as A
-    cfg = StruMConfig(method="mip2q", p=0.5, L=7)
-    q4, k, v, table, n_valid = _attn_case(dev, cfg, 2, 1, hd=40)
-    args = [k[f] for f in ("mask", "hi", "lo", "scale")] + \
-        [v[f] for f in ("mask", "hi", "lo", "scale")]
-    with pytest.raises(ValueError, match="multiple of 16"):
-        A.strum_paged_attention(q4, *args, table, n_valid, w=cfg.w, n_low=cfg.n_low,
-                                q=cfg.q, method=cfg.method)
+    cfg = StruMConfig(method="dliq", p=1.0, q=4) if maskfree else \
+        StruMConfig(method="mip2q", p=0.5, L=7)
+    q4, k, v, table, n_valid = _attn_case(dev, cfg, 2, 3, hd=hd)
+    args, kw = _attn_args(cfg, k, v, maskfree)
+    _close(*_run_attention(A, maskfree, q4, args, table, n_valid, kw))
+    odd = [_unaligned(t) for t in args]
+    _close(*_run_attention(A, maskfree, q4, odd, table, n_valid, kw))
+    q4, k, v, table, n_valid = _attn_case(dev, cfg, 2, 1, n_pages=4, hd=288)
+    args, kw = _attn_args(cfg, k, v, maskfree)
+    kern = A.strum_paged_attention_maskfree if maskfree else A.strum_paged_attention
+    with pytest.raises(ValueError, match="head dim 288"):
+        kern(q4, *args, table, n_valid, **kw)
+
+
+@pytest.mark.parametrize("kv,r", [(16, 1), (16, 16), (4, 7)])
+@pytest.mark.parametrize("cfg", [StruMConfig(method="mip2q", p=0.5, L=7),
+                                 StruMConfig(method="dliq", p=0.25, q=3),
+                                 StruMConfig(method="dliq", p=1.0, q=4),
+                                 StruMConfig(method="mip2q", p=1.0, L=7)],
+                         ids=lambda c: f"{c.method}_p{c.p}")
+def test_paged_attention_page_128_on_card(dev, cfg, kv, r):
+    """Pages of 128 positions (nb = 8 blocks of 16): K4 (K5 at p = 1) walks
+    each page in two 64-position pieces and matches the plain version."""
+    from repro_torch.kernels import strum_attention as A
+    maskfree = cfg.p == 1.0
+    q4, k, v, table, n_valid = _attn_case(dev, cfg, kv, r, ps=128)
+    args, kw = _attn_args(cfg, k, v, maskfree)
+    assert k["lo"].shape[1] == 8
+    got, want = _run_attention(A, maskfree, q4, args, table, n_valid, kw)
+    _close(got, want)
+    assert (want[2][1] == 0).all()                  # slot 1 (empty) held as identity
 
 
 @pytest.mark.parametrize("kv,r", [(16, 1), (4, 7), (4, 112)])
@@ -385,6 +513,43 @@ def test_paged_attention_maskfree_matches_plain_on_card(dev, cfg, kv, r):
     _close(got, want)
 
 
+@pytest.mark.parametrize("kv,r", [(16, 1), (16, 16), (4, 7), (4, 112)])
+@pytest.mark.parametrize("p", [1, 4, 5, 33, 128])
+def test_maskfree_split_kv_attention_across_split_boundaries_on_card(dev, kv, r, p):
+    """K5, the twin of the K4 case above: tables of 1 to 128 page slots,
+    acc, m, l held to the plain version and, with more than one split, to
+    the CPU mirror of the same split and merge; K5's combine launches once
+    exactly when the table splits, K4's never."""
+    from repro_torch.kernels import strum_attention as A
+    cfg = StruMConfig(method="dliq", p=1.0, q=4)
+    n_pages = 48
+    q4, k, v, _, _ = _attn_case(dev, cfg, kv, r, n_pages=n_pages, seed=p)
+    table, n_valid = _long_table(dev, p, n_pages, seed=p)
+    kw = dict(w=cfg.w, q=cfg.q, method=cfg.method)
+    args = [k["lo"], k["scale"], v["lo"], v["scale"]]
+    tiles = -(-r // A._row_tile(r, 128))
+    pps = A.split_pages(4, p, kv * tiles,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    splits = -(-p // pps)
+    before = dict(A.launch_counts)
+    got = A.strum_paged_attention_maskfree(q4, *args, table, n_valid, **kw)
+    torch.cuda.synchronize()
+    assert A.launch_counts["paged_attention_maskfree"] == \
+        before["paged_attention_maskfree"] + 1
+    assert A.launch_counts["paged_attention_maskfree_combine"] == \
+        before["paged_attention_maskfree_combine"] + (splits > 1)
+    assert A.launch_counts["paged_attention_combine"] == before["paged_attention_combine"]
+    cpu = [t.cpu() for t in args]
+    want = A.strum_paged_attention_maskfree_plain(q4.cpu(), *cpu, table.cpu(),
+                                                  n_valid.cpu(), **kw)
+    _close(got, want)
+    if splits > 1:
+        mirror = A.strum_paged_attention_split_plain(
+            q4.cpu(), *cpu, table.cpu(), n_valid.cpu(), pages_per_split=pps,
+            maskfree=True, **kw)
+        _close(got, mirror)
+
+
 def test_paged_scheduler_launches_fused_kernel_on_card(dev):
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.kernels import strum_attention as A
@@ -403,6 +568,31 @@ def test_paged_scheduler_launches_fused_kernel_on_card(dev):
     A.reset_launch_counts()
     done = sched.run_to_completion()
     assert sorted(len(r.output) for r in done) == [12, 12]
+    runs = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
+    assert A.launch_counts["paged_attention"] == cfg.n_layers * runs
+
+
+def test_paged_scheduler_page_128_launches_k4_on_card(dev):
+    """Pages of 128 positions through the paged runtime: the spec selects
+    K4, which launches once per layer per lane run and serves every request
+    to completion (a prompt long enough to seal a page)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import strum_attention as A
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = get_smoke_config("qwen2_7b")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    sched = BatchScheduler(cfg, params, n_slots=2, max_len=384, page_size=128,
+                           device=dev, kv_cache=StruMConfig(method="mip2q", p=0.5, L=7))
+    assert sched.spec.attn_variant == "cache:attn_fused"
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((200, 21)):
+        sched.submit(Request(uid=i, prompt=torch.from_numpy(rng.integers(0, 256, n)),
+                             max_new_tokens=8))
+    A.reset_launch_counts()
+    done = sched.run_to_completion()
+    assert sorted(len(r.output) for r in done) == [8, 8]
     runs = sched.lane_runs["decode"] + sched.lane_runs["prefill_chunk"]
     assert A.launch_counts["paged_attention"] == cfg.n_layers * runs
 
@@ -484,7 +674,8 @@ def test_speculative_scheduler_launches_draft_kernel_on_card(dev, mode):
     assert K.launch_counts[mode] == 7 * cfg.n_layers * runs["draft"] > 0
     assert K.launch_counts["onehot"] == 7 * cfg.n_layers * (
         runs["verify"] + runs["prefill_chunk"])
-    # split-K sums in atomicAdd order: a near tie may flip a greedy token
-    # between lanes, so agreement is reported, not held bit for bit
+    # the lanes run other kernels at other shapes (K9 / K10 drafts, K1 on
+    # verify windows), so a near tie may flip a greedy token between them:
+    # agreement is held at 0.9, not bit for bit
     same = np.mean([a == b for u in outs[0] for a, b in zip(outs[0][u], outs[3][u])])
     assert same >= 0.9, same
