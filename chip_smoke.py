@@ -10,13 +10,13 @@ Phases, each fatal on failure:
   a. the card's name and power limit (``nvidia-smi``);
   b. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
   c. hold kernels K1-K3 against their plain PyTorch versions at OLMo-1B's
-     linear shapes (2048x2048, 2048x8192, 8192x2048; M = 4 and 128; plus a
-     K % w != 0 case) and time both, the bf16 ``torch.matmul`` on the
-     dequantized weight as a yardstick (all three interleaved over
-     ``ROUNDS`` rounds: median and range, with the SM clock and power drawn
-     over the same window; the kernels' eager calls and the replay of a CUDA
-     graph of the same calls, the device's time), and each one's least
-     possible time; every 2-D
+     linear shapes (2048x2048, 2048x8192, 8192x2048; M = 4, 16 and 128;
+     plus a K % w != 0 case) and time both, the bf16 ``torch.matmul`` on the
+     dequantized weight as a yardstick (all interleaved over ``ROUNDS``
+     rounds: median and range, with the SM clock and power drawn over the
+     same window; the kernels' and the yardstick's eager calls and the
+     replays of a CUDA graph of the same calls, the device's time), and each
+     one's least possible time; every 2-D
      kernel (K1-K3, and K9 / K10 on the mip2q layers) is called twice at
      every shape and the two outputs must be bit-identical (split-K adds
      the slices of a cluster in rank order);
@@ -95,7 +95,7 @@ Phases, each fatal on failure:
      (mip2q p=0.5 L=5, bf16 x, M = 4 and 1) within KERNEL_TOL x max|plain|,
      launched with null pointers for the fields they do not stream; time
      kernel, plain version and bf16 ``torch.matmul`` on the draft-decoded
-     weight interleaved as in phase c;
+     weight interleaved as in phase c, eager and graph-replayed;
   o. serve full-width OLMo-1B speculatively through the paged runtime
      (``serve --paged --kv-cache mip2q --prompt-len 128 --gen 32
      --speculative 3 --draft histream|maskfree_p``): K9 (or K10) must launch
@@ -187,9 +187,9 @@ def _phase(name: str) -> None:
     print(f"== {name} (t = {PHASE_S[name[0]]:.1f} s)", flush=True)
 
 
-#: kernels of this slice whose ptxas report is printed entry by entry
-NEW_KERNELS = ("paged_attention_split_kernel", "split_combine_kernel",
-               "grouped_live_kernel")
+#: kernels of this slice whose ptxas report is printed entry by entry (K1
+#: and K9's streamed kernel)
+NEW_KERNELS = ("stream_kernel",)
 
 
 def _ptxas_lines(log: str) -> list:
@@ -326,7 +326,8 @@ def _kernel_args(variant, packed):
     if variant == "onehot":
         return (K.strum_matmul_onehot, K.strum_matmul_onehot_plain,
                 (packed.mask, _min1(packed.hi, 1), _min1(packed.lo, 1), packed.scale),
-                dict(w=packed.w, n_low=packed.n_low, q=packed.q, method=packed.method))
+                dict(w=packed.w, n_low=packed.n_low, q=packed.q, method=packed.method,
+                     L=packed.L))
     if variant == "maskfree":
         return (K.strum_matmul_maskfree, K.strum_matmul_maskfree_plain,
                 (packed.lo, packed.scale),
@@ -385,7 +386,7 @@ def phase_c(dev, gen, clocks):
             del w
         extra = [pack_array(torch.randn((2045, 2048), generator=gen, device=dev), cfg)]
         row = {"max_abs_err": 0.0}
-        for m in (4, 128):
+        for m in (4, 16, 128):
             xs = {k: torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
                   for k in (2048, 8192, 2045)}
             calls = []
@@ -408,11 +409,14 @@ def phase_c(dev, gen, clocks):
             dense_w = [(x, packed_dequant(p)) for _, _, x, _, _, p in timed]
             def layer_calls():
                 return [c[0](c[2], *c[3], **c[4]) for c in timed]
+            def library_calls():
+                return [torch.matmul(x, w) for x, w in dense_w]
             t = _interleaved(clocks, {     # two layers timed: times per layer
                 "ms": (layer_calls, 20),
                 "graph_ms": (_graphed(layer_calls), 20),
                 "plain_ms": (lambda: [c[1](c[2], *c[3], **c[4]) for c in timed], 2),
-                "library_ms": (lambda: [torch.matmul(x, w) for x, w in dense_w], 20)},
+                "library_ms": (library_calls, 20),
+                "library_graph_ms": (_graphed(library_calls), 20)},
                 calls=2)
             nbytes = sum(_read_bytes(variant, c[5], c[2]) for c in timed) / 2
             flops = sum(2 * m * k * n for k, n in LAYER_SHAPES)
@@ -423,7 +427,8 @@ def phase_c(dev, gen, clocks):
                       f"{label} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
                       f"{t['range_ms'][key][1]:.4f}] ms" for key, label in
                       (("ms", "kernel"), ("graph_ms", "kernel (graph replay)"),
-                       ("plain_ms", "plain"), ("library_ms", "torch.matmul bf16"))) +
+                       ("plain_ms", "plain"), ("library_ms", "torch.matmul bf16"),
+                       ("library_graph_ms", "torch.matmul bf16 (graph replay)"))) +
                   f"; bound {row[m]['bound_ms']:.4f} ms ({row[m]['bound_by']}: "
                   f"{nbytes / 1e6:.2f} MB in {row[m]['bytes_ms']:.4f} ms, "
                   f"{flops / 1e9:.2f} GFLOP in {row[m]['ops_ms']:.4f} ms at "
@@ -1330,11 +1335,14 @@ def phase_n(dev, gen, clocks):
                     packed, mode, torch.bfloat16)))
             def layer_calls():
                 return [kern(c[0], *c[1], **c[2]) for c in timed]
+            def library_calls():
+                return [torch.matmul(c[0], c[4]) for c in timed]
             t = _interleaved(clocks, {     # two layers timed: times per layer
                 "ms": (layer_calls, 20),
                 "graph_ms": (_graphed(layer_calls), 20),
                 "plain_ms": (lambda: [plain(c[0], *c[1], **c[2]) for c in timed], 2),
-                "library_ms": (lambda: [torch.matmul(c[0], c[4]) for c in timed], 20)},
+                "library_ms": (library_calls, 20),
+                "library_graph_ms": (_graphed(library_calls), 20)},
                 calls=2)
             nbytes = sum(sum(getattr(c[3], f_).numel() for f_ in read)
                          + 4 * c[3].n_out + c[0].numel() * c[0].element_size()
@@ -1346,7 +1354,8 @@ def phase_n(dev, gen, clocks):
                       f"{label} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
                       f"{t['range_ms'][key][1]:.4f}] ms" for key, label in
                       (("ms", "kernel"), ("graph_ms", "kernel (graph replay)"),
-                       ("plain_ms", "plain"), ("library_ms", "torch.matmul bf16"))) +
+                       ("plain_ms", "plain"), ("library_ms", "torch.matmul bf16"),
+                       ("library_graph_ms", "torch.matmul bf16 (graph replay)"))) +
                   f"; bound {row[m]['bound_ms']:.4f} ms ({row[m]['bound_by']}: "
                   f"{nbytes / 1e6:.2f} MB); {t['clock']}", flush=True)
             del timed
@@ -1586,7 +1595,7 @@ def measure(dev, clocks):
 
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
-        t, pf = timings[name][4], timings[name][128]
+        t, mid, pf = timings[name][4], timings[name][16], timings[name][128]
         kernels.append({
             "name": f"cuda:{name}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": counts[name],
@@ -1596,9 +1605,13 @@ def measure(dev, clocks):
             "workload": "one OLMo-1B layer's 7 linears at M=4 (decode), bf16 x; "
                         f"median of {ROUNDS} interleaved rounds",
             "range_ms": t["range_ms"], "clock": t["clock"], "graph_ms": t["graph_ms"],
-            "prefill_ms": pf["ms"], "prefill_bound_ms": pf["bound_ms"],
-            "prefill_bound_by": pf["bound_by"],
+            "library_graph_ms": t["library_graph_ms"],
+            "m16_ms": mid["ms"], "m16_graph_ms": mid["graph_ms"],
+            "m16_bound_ms": mid["bound_ms"], "m16_library_graph_ms": mid["library_graph_ms"],
+            "prefill_ms": pf["ms"], "prefill_graph_ms": pf["graph_ms"],
+            "prefill_bound_ms": pf["bound_ms"], "prefill_bound_by": pf["bound_by"],
             "prefill_library_ms": pf["library_ms"],
+            "prefill_library_graph_ms": pf["library_graph_ms"],
             "prefill_range_ms": pf["range_ms"]})
     for variant, (name, replaces) in KV_KERNELS.items():
         row = kv_rows[name]
@@ -1641,8 +1654,10 @@ def measure(dev, clocks):
                         f"slots), bf16 x, mip2q p=0.5; median of {ROUNDS} interleaved "
                         "rounds",
             "range_ms": t["range_ms"], "clock": t["clock"], "graph_ms": t["graph_ms"],
-            "m1_ms": one["ms"], "m1_bound_ms": one["bound_ms"],
-            "m1_plain_ms": one["plain_ms"], "m1_library_ms": one["library_ms"]})
+            "library_graph_ms": t["library_graph_ms"],
+            "m1_ms": one["ms"], "m1_graph_ms": one["graph_ms"], "m1_bound_ms": one["bound_ms"],
+            "m1_plain_ms": one["plain_ms"], "m1_library_ms": one["library_ms"],
+            "m1_library_graph_ms": one["library_graph_ms"]})
     return kernels, times
 
 

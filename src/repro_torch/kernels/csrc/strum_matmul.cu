@@ -24,37 +24,73 @@
 // byte once and does ~2 flops per weight, so it is bound by HBM bytes; the
 // point of StruM is that those bytes are 14/16 of int8 (mip2q, w = 16, p = .5).
 // At prefill (M = 128) the card's bound is the bf16 tensor-core rate (decoded
-// values are exact in bf16 and the scale comes after the sum).  What sets the
-// time of every design here so far is the decode work per weight, not bytes.
+// values are exact in bf16 and the scale comes after the sum).  What set the
+// time of the first designs here was the decode work per weight, not bytes.
 //
-// K1-K3, K9, K10 and K8 (one template, strum_matmul_kernel; a first version
-// that is right, not yet fast): a block owns a BM x 64 output tile and a
-// contiguous range of w-blocks along K.  For each K chunk it (1) decodes the
-// chunk's weights into shared memory as f32, one thread per (w-block,
-// column): a high position takes the next hi byte and a low one the next
-// q-bit field, so a position's rank inside its set is the running count of
-// set (clear) mask bits before it, with no one-hot contraction; (2) stages
-// the x rows as f32 (any K past the true reduction dim reads as 0: padded-K
-// weight rows decode to junk, e.g. MIP2Q code 0 is +1, and only zero
-// activations null them); (3) each thread accumulates BM/4 rows of one
-// column in f32; the per-column scale is applied once in the epilogue.
-// At decode the output tiles alone cannot fill the card (N = 2048 gives 32
-// tiles on 132 SMs), so a 2-D weight is split along K over blockIdx.z, at
-// most 8 slices; the slices of one tile are one thread-block cluster, each
-// leaves its partial tile in its shared memory, and rank r sums every S-th
-// element of the tile over the S partials in rank order through distributed
-// shared memory and writes it.  No atomics and no scratch: two calls on the
-// same inputs give the same bits.  A tile takes at most 8 slices (a
-// portable cluster size) where the atomics took up to 9, and a slice's time
-// is close to proportional to its K range (PERF.md has the cost at decode).
-// K8's stacks fill the card with their own tiles and are never split.
-// K9 and K10 are the draft lowerings of self-speculative decoding: the same
-// payload read at lower fidelity, a strict subset of its bytes.  K9
-// (histream) walks the mask as K1 does, a set bit takes the next hi byte and
-// a clear bit decodes to 0: the lo stream is never read.  K10 (maskfree_p)
-// reads neither mask nor lo: position i < n_high of a block takes hi[i], the
-// rest are 0.  Their wrappers pass a null pointer for every field they do not
-// stream, so a stray read faults instead of going unnoticed.
+// K2, K3, K10 and K8 (one template, strum_matmul_kernel; a first version
+// that is right, not yet fast; also K1 and K9 at w > 64): a block owns a
+// BM x 64 output tile and a contiguous range of w-blocks along K.  For each
+// K chunk it (1) decodes the chunk's weights into shared memory as f32, one
+// thread per (w-block, column): a high position takes the next hi byte and
+// a low one the next q-bit field, so a position's rank inside its set is
+// the running count of set (clear) mask bits before it, with no one-hot
+// contraction; (2) stages the x rows as f32 (any K past the true reduction
+// dim reads as 0: padded-K weight rows decode to junk, e.g. MIP2Q code 0 is
+// +1, and only zero activations null them); (3) each thread accumulates
+// BM/4 rows of one column in f32; the per-column scale is applied once in
+// the epilogue.  At decode the output tiles alone cannot fill the card (N =
+// 2048 gives 32 tiles on 132 SMs), so a 2-D weight is split along K over
+// blockIdx.z, at most 8 slices; the slices of one tile are one thread-block
+// cluster, each leaves its partial tile in its shared memory, and rank r
+// sums every S-th element of the tile over the S partials in rank order
+// through distributed shared memory and writes it.  No atomics and no
+// scratch: two calls on the same inputs give the same bits.  A tile takes
+// at most 8 slices (a portable cluster size).  K8's stacks fill the card
+// with their own tiles and are never split.  K10 (maskfree_p, a draft
+// lowering of self-speculative decoding) reads neither mask nor lo:
+// position i < n_high of a block takes hi[i], the rest are 0.  Wrappers
+// pass a null pointer for every field a kernel does not stream, so a stray
+// read faults instead of going unnoticed.
+//
+// K1 and K9 (one kernel, stream_kernel; MODE picks the fields; w <= 64).
+// K9 (histream, the other draft lowering) is K1 without the lo stream: a
+// high position takes its hi byte, a low one is 0, and lo is never read.
+// The template spent ~300 issued instructions a weight on K1 (0.60 ms an
+// OLMo-1B layer at decode against a 17.7 us byte bound, which leaves ~9 at
+// the card's issue rate): 1-byte dependent global loads and nothing in
+// flight.  What bounds this kernel at decode is issued instructions, not
+// bytes: ~11 a weight in the decode (PERF.md has the measurements).
+//   Tile: 128 output columns (every field row a block reads is one full
+// 128-byte line) x BM rows -- 16 (the mma's height) for M <= 16 or f32 x,
+// with 512 threads and K chunks of 128; 128 past 16 rows of bf16 x, with
+// 256 threads and chunks of 64 -- over one K slice: split-K over a
+// cluster as above, and the launcher lowers the split until the card holds
+// every cluster of the launch at once (it holds 15 clusters of 8 at one
+// block an SM, not 16: a second wave doubled the time).
+//   Bytes in flight: each chunk's packed rows and x rows come in by 16-byte
+// cp.async.cg into a six-slot ring, four chunks (~58 KB at BM = 16) ahead
+// of the one decoding; each thread's copies are planned once per block.
+// Unaligned fields or x (odd N, K % 8 != 0) take plain loads into the ring.
+//   Decode: the common codec (w = 16, 8 high, 4-bit lo codes whose values
+// fit int8: dliq q = 4, mip2q L <= 6; for K9 any w = 16, p = 0.5 payload)
+// takes the byte path: two threads share a w-block of four adjacent
+// columns (14 shared-memory words), a column's fields are byte-gathered by
+// prmt, its 8 lo codes become int8 values through a 16-byte code table in
+// registers, and for each group of 4 positions one prmt takes the hi bytes
+// from the running high rank, one the lo values from the running low rank,
+// and one with a selector from a 16-entry table indexed by the mask nibble
+// places all four; int8 -> bf16 is exact by two magic-number lanes and one
+// bf16x2 fma.  Both tables come from the Python launcher
+// (byte_path_tables).  Every other codec walks each column's positions.
+//   Product: decoded bf16 go to one of two [128][K chunk] tiles whose
+// 16-byte chunks are XOR-swizzled (no bank conflicts for the decode's
+// 16-byte stores or the product's ldmatrix rows); one barrier a chunk:
+// while chunk c decodes, chunk c - 1 multiplies on tensor cores (ldmatrix
+// fragments, mma.sync m16n8k16, bf16 x bf16 -> f32; at BM = 16 the warps
+// split the chunk's k16 steps and their partial tiles are added in a fixed
+// order), f32 x on the CUDA cores against the same exact tile; the
+// per-column scale is applied in the epilogue.  No atomics: two calls give
+// the same bits.
 //
 // K6 and K7 (one kernel, grouped_live_kernel; MODE picks the fields): the
 // template above decoded one bit field at a time into f32 shared memory with
@@ -88,7 +124,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <cooperative_groups.h>
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -459,10 +499,13 @@ __device__ __forceinline__ void stage_chunk(const GroupedArgs& a, int ch, int n0
   }
 }
 
+// q-bit field j of one staged column's lo bytes (col points at its row 0;
+// staged rows are STRIDE bytes apart).
+template <int STRIDE = kGBN>
 __device__ __forceinline__ int g_lo_field(const uint8_t* col, int rows, int j, int q) {
   const int bit = j * q, byte = bit >> 3, sh = bit & 7;
-  unsigned v = col[byte * kGBN];
-  if (sh + q > 8 && byte + 1 < rows) v |= (unsigned)col[(byte + 1) * kGBN] << 8;
+  unsigned v = col[byte * STRIDE];
+  if (sh + q > 8 && byte + 1 < rows) v |= (unsigned)col[(byte + 1) * STRIDE] << 8;
   return (int)((v >> sh) & ((1u << q) - 1u));
 }
 
@@ -883,6 +926,668 @@ void set_grouped(GroupedArgs& a, const void* x, const void* scale, const void* r
   a.n_high = w - n_low; a.n_low = n_low; a.q = q; a.method = method;
 }
 
+
+// -------------------------- K1 and K9: the streamed packed-field matmul --
+
+constexpr int kSBN = 128;       // output columns per block: each field row read is one 128-byte line
+constexpr int kSStages = 6;     // ring slots, each the packed rows and x rows of one K chunk
+constexpr int kSAhead = kSStages - 2;  // chunks in flight beyond the one decoding
+
+struct StreamArgs {
+  const void* x;        // (M, K), row stride ldx
+  const uint8_t* mask;  // (nb, mask_rows, N)
+  const int8_t* hi;     // (nb, hi_rows, N)
+  const uint8_t* lo;    // (nb, lo_rows, N); not read in kHistream mode
+  const float* scale;   // (N,)
+  float* out;           // (M, N)
+  int M, N, K, ldx;
+  int nb, w, mask_rows, hi_rows, lo_rows, n_high, n_low, q, method;
+  int nbk, kc, kcp;     // w-blocks per chunk, K per chunk, kc padded to 16
+  int ws, xs;           // row strides (elements) of the weight and x tiles
+  int rows, bstride;    // staged field rows a w-block, staged bytes a w-block
+  int xoff, slot_bytes; // x tile offset in a ring slot, bytes a slot
+  int blocks_per_split;
+  int vec_fields, vec_x;  // 16-byte asynchronous staging allowed
+  uint32_t sel[16];     // byte path: prmt selector per mask nibble
+  uint32_t code[4];     // byte path: lo code -> int8 value, 16 bytes
+};
+
+// BM = 16: 512 threads, chunks of 128 positions; the product's 16 warps
+// are 4 along N (32 columns each) x 4 along K (two k16 steps each).  BM =
+// 128: 256 threads (the accumulators need the registers), chunks of 64,
+// warps 2 along M x 4 along N.  (1024 threads at BM = 16 cap a thread at 64
+// registers, spill, and measured slower.)
+template <int BM>
+struct StreamTile {
+  static constexpr int TH = BM == 16 ? 512 : 256;      // threads a block
+  static constexpr int KC = BM == 16 ? 128 : 64;       // K positions a chunk
+  static constexpr int SPLIT = TH / (KC / 16 * 32);    // byte path: threads an item
+  static constexpr int WN = 4;                         // warps along N
+  static constexpr int WM = BM == 16 ? 1 : 2;          // warps along M
+  static constexpr int KH = TH / 32 / (WN * WM);       // warps along K (bf16 x)
+  static constexpr int NT = kSBN / 8 / WN;             // n8 tiles a warp
+  static constexpr int MT = BM / 16 / WM;              // m16 tiles a warp
+  static constexpr int RG = TH / kSBN;                 // f32 path: threads a column
+  static constexpr int FR = BM / RG;                   // f32 path: rows a thread
+};
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b),
+               "r"(c), "r"(d));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Element offset of (column n, K position k) in a weight tile.  The 16-byte
+// chunks of a row are XOR-swizzled by (n ^ n >> 3) & 7 (ws is a multiple of
+// 64), so neither the decode's 16-byte stores nor the product's ldmatrix
+// rows meet a bank conflict.
+__device__ __forceinline__ int wt_off(int n, int k, int ws) {
+  return n * ws + (((k >> 3) ^ ((n ^ (n >> 3)) & 7)) << 3) + (k & 7);
+}
+
+// What a thread stages into every ring slot: up to kPlan 16-byte vectors
+// of packed rows and one of x at fixed slot offsets, each source moving by
+// a fixed stride a chunk (what a large chunk has beyond them is staged by
+// index arithmetic in stream_stage).
+constexpr int kPlan = 2;
+struct StagePlan {
+  const uint8_t* src[kPlan];  // each vector's source in chunk 0 (field rows)
+  long long step[kPlan];      // bytes the source moves a chunk
+  int dst[kPlan], kb[kPlan];  // slot offset; w-block within the chunk (-1: none)
+  bool nok[kPlan];            // the vector's columns lie below N
+  const uint8_t* xsrc;        // the x vector's source in chunk 0
+  int xdst, xk;               // slot offset; K offset within a chunk (-1: none)
+};
+
+// Staged field row r (mask, then hi, then lo rows) of w-block b at column n.
+__device__ __forceinline__ const uint8_t* field_src(const StreamArgs& a, int b, int r, int n) {
+  if (r < a.mask_rows) return a.mask + ((size_t)b * a.mask_rows + r) * a.N + n;
+  if ((r -= a.mask_rows) < a.hi_rows)
+    return reinterpret_cast<const uint8_t*>(a.hi) + ((size_t)b * a.hi_rows + r) * a.N + n;
+  return a.lo + ((size_t)b * a.lo_rows + r - a.hi_rows) * a.N + n;
+}
+
+__device__ __forceinline__ long long field_step(const StreamArgs& a, int r) {
+  const int rows = r < a.mask_rows ? a.mask_rows
+                 : r < a.mask_rows + a.hi_rows ? a.hi_rows : a.lo_rows;
+  return (long long)a.nbk * rows * a.N;
+}
+
+template <int TH, typename T>
+__device__ __forceinline__ StagePlan stage_plan(const StreamArgs& a, int b_begin, int n0,
+                                                int m0, int mrows) {
+  StagePlan p;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < kPlan; ++e) {
+    const int i = t + e * TH;
+    p.kb[e] = -1;
+    p.src[e] = a.mask;
+    p.step[e] = 0;
+    p.dst[e] = 0;
+    p.nok[e] = false;
+    if (a.vec_fields && i < a.nbk * a.rows * (kSBN / 16)) {
+      const int vec = i & 7, row = i >> 3;
+      const int kb = row / a.rows, r0 = row - kb * a.rows, n = n0 + 16 * vec;
+      p.kb[e] = kb;
+      p.nok[e] = n < a.N;  // N % 16 == 0: whole vectors
+      p.src[e] = field_src(a, b_begin + kb, r0, n);
+      p.step[e] = field_step(a, r0);
+      p.dst[e] = kb * a.bstride + r0 * kSBN + 16 * vec;
+    }
+  }
+  constexpr int kEPV = 16 / sizeof(T);
+  const int per_row = a.kc / kEPV;
+  p.xk = -1;
+  p.xsrc = static_cast<const uint8_t*>(a.x);
+  p.xdst = 0;
+  if (a.vec_x && t < mrows * per_row) {
+    const int r = t / per_row, v = t - r * per_row;
+    p.xk = v * kEPV;
+    p.xsrc = reinterpret_cast<const uint8_t*>(static_cast<const T*>(a.x) +
+                                              (size_t)(m0 + r) * a.ldx + b_begin * a.w + p.xk);
+    p.xdst = a.xoff + (r * a.xs + p.xk) * (int)sizeof(T);
+  }
+  return p;
+}
+
+// Stage chunk `ch` of this block's K slice into a ring slot: the packed
+// rows (mask, hi and, in kOnehot mode, lo) of columns [n0, n0 + 128) of its
+// w-blocks, laid out [w-block][row][128 bytes] with 16 bytes of padding a
+// w-block, and x rows m0 .. m0 + mrows - 1 of the chunk at xoff, [row][xs].
+// W-blocks past the slice and columns past N read as 0, and so does x past
+// the slice or past K (padded-K weight rows decode to junk, e.g. MIP2Q code
+// 0 is +1: only zero activations null them).  Unaligned fields or x are
+// staged with plain loads into the same slot.
+template <int TH, typename T>
+__device__ __forceinline__ void stream_stage(const StreamArgs& a, const StagePlan& p, int ch,
+                                             int b_begin, int b_end, int n0, int m0,
+                                             int mrows, uint8_t* slot) {
+  const int t = threadIdx.x;
+  const int b0 = b_begin + ch * a.nbk;
+  if (a.vec_fields) {
+#pragma unroll
+    for (int e = 0; e < kPlan; ++e) {
+      if (p.kb[e] >= 0) {
+        const bool in = p.nok[e] && b0 + p.kb[e] < b_end;
+        // a zero-fill copy reads no byte; its dummy source is mask, never null
+        g_cp_async16(slot + p.dst[e], in ? p.src[e] + ch * p.step[e] : a.mask, in ? 16 : 0);
+      }
+    }
+    for (int i = t + kPlan * TH; i < a.nbk * a.rows * (kSBN / 16); i += TH) {
+      const int vec = i & 7, row = i >> 3;
+      const int kb = row / a.rows, r0 = row - kb * a.rows;
+      const int b = b0 + kb, n = n0 + 16 * vec;
+      const bool in = b < b_end && n < a.N;
+      g_cp_async16(slot + kb * a.bstride + r0 * kSBN + 16 * vec,
+                   in ? field_src(a, b, r0, n) : a.mask, in ? 16 : 0);
+    }
+  } else {
+    for (int i = t; i < a.nbk * a.rows * kSBN; i += TH) {
+      const int cc = i % kSBN, row = i / kSBN;
+      const int kb = row / a.rows, r0 = row - kb * a.rows;
+      const int b = b0 + kb, n = n0 + cc;
+      slot[kb * a.bstride + r0 * kSBN + cc] =
+          b < b_end && n < a.N ? *field_src(a, b, r0, n) : 0;
+    }
+  }
+  T* xt = reinterpret_cast<T*>(slot + a.xoff);
+  const T* x = static_cast<const T*>(a.x);
+  const int k0 = b0 * a.w, kend = min(a.K, b_end * a.w);
+  if (a.vec_x) {  // K, ldx and the slice ends are multiples of the vector
+    constexpr int kEPV = 16 / sizeof(T);
+    if (p.xk >= 0) {
+      const bool in = k0 + p.xk < kend;
+      g_cp_async16(slot + p.xdst, in ? p.xsrc + (size_t)ch * a.kc * sizeof(T) : a.x,
+                   in ? 16 : 0);
+    }
+    const int per_row = a.kc / kEPV;
+    for (int i = t + TH; i < mrows * per_row; i += TH) {
+      const int r = i / per_row, v = i - r * per_row, k = k0 + v * kEPV;
+      const bool in = k < kend;
+      g_cp_async16(xt + r * a.xs + v * kEPV, in ? x + (size_t)(m0 + r) * a.ldx + k : x,
+                   in ? 16 : 0);
+    }
+  } else {
+    for (int i = t; i < mrows * a.kc; i += TH) {
+      const int r = i / a.kc, kk = i - r * a.kc, k = k0 + kk;
+      xt[r * a.xs + kk] = k < kend ? x[(size_t)(m0 + r) * a.ldx + k] : T(0.f);
+    }
+  }
+}
+
+// Column c of four rows: word i of `in` holds row i of four adjacent
+// columns (byte c = column c); the result holds column c's rows 0-3.  `pick`
+// is c | (c + 4) << 4, the selector of bytes c of two words.
+__device__ __forceinline__ uint32_t column4(const uint32_t* in, uint32_t pick) {
+  return prmt(prmt(in[0], in[1], pick), prmt(in[2], in[3], pick), 0x5410);
+}
+
+// The int8 values of four lo codes (the nibbles of lw's low half) from the
+// 16-byte code table t0..t3: codes 0-7 index (t0, t1), codes 8-15 (t2, t3),
+// and each byte takes the one its code's top bit names (a selector nibble
+// with bit 3 set sign-replicates, so each lookup is junk where unused).
+__device__ __forceinline__ uint32_t lo_values(uint32_t lw, uint32_t t0, uint32_t t1,
+                                              uint32_t t2, uint32_t t3) {
+  const uint32_t low = prmt(t0, t1, lw);
+  const uint32_t high = prmt(t2, t3, lw ^ 0x8888u);
+  const uint32_t top = prmt(0x8000u, 0u, (lw & 0x8888u) | ((lw >> 3) & 0x1111u));
+  return (low & ~top) | (high & top);
+}
+
+// Four int8 values, one a byte, to two bf16 pairs, exactly: each lane takes
+// 0x43 as its high byte and either the value's low 7 bits (128 + low7) or
+// its sign bit (128, or 256 when set) as its low byte; one bf16x2 fma
+// subtracts the second from the first, low7 - 128 sign = the value (both
+// operands and the result are exact in bf16).
+__device__ __forceinline__ void bytes_to_bf16(uint32_t v, uint32_t& p01, uint32_t& p23) {
+  const uint32_t low7 = v & 0x7F7F7F7Fu, sign = v & 0x80808080u;
+  const uint32_t k43 = 0x43434343u, neg1 = 0xBF80BF80u;
+  const uint32_t a01 = prmt(low7, k43, 0x5140), c01 = prmt(sign, k43, 0x5140);
+  const uint32_t a23 = prmt(low7, k43, 0x7362), c23 = prmt(sign, k43, 0x7362);
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(p01) : "r"(c01), "r"(neg1), "r"(a01));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(p23) : "r"(c23), "r"(neg1), "r"(a23));
+}
+
+// Byte path (w = 16, 8 high, 2 mask, 8 hi and, in kOnehot mode, 4 lo rows
+// of 4-bit codes whose values fit int8).  An item is one w-block of 4
+// adjacent columns, 14 shared-memory words (one row of the 4 columns each);
+// SPLIT threads share an item, each decoding 4 / SPLIT of its columns,
+// byte-gathered to the column's 16 mask bits, 8 hi bytes and 8 lo values
+// (the code table applied once to the 32-bit lo word).  For each group of
+// 4 positions (a mask nibble) with r high positions before it: one prmt
+// takes hi bytes r .. r + 3, one takes lo values 4j - r .. 4j - r + 3, and
+// one with sel[nibble] (the launcher's table: byte i takes hi byte (high
+// rank of i in the nibble) or lo byte 4 + (low rank of i)) places all four;
+// in kHistream mode the lo bytes are 0.  `p` is the item's words in the
+// slot; dst[cc] + toff the shared addresses of column c0 + cc's 16
+// positions in the tile.
+template <int MODE, int SPLIT>
+__device__ __forceinline__ void decode_bytes(const uint8_t* p, const uint32_t* sel,
+                                             const uint32_t (&code)[4], int c0,
+                                             const uint32_t (&dst)[4 / SPLIT][2], uint32_t toff) {
+  constexpr int kCols = 4 / SPLIT;  // columns a thread
+  uint32_t rows[8], lr[4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) rows[r] = lds32(p + (2 + r) * kSBN);
+  if (MODE == kOnehot) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) lr[r] = lds32(p + (10 + r) * kSBN);
+  }
+  const uint32_t mk0 = lds32(p), mk1 = lds32(p + kSBN);
+#pragma unroll
+  for (int cc = 0; cc < kCols; ++cc) {
+    const uint32_t c = c0 + cc, pick = c | (c + 4) << 4;
+    const uint32_t m = prmt(mk0, mk1, pick) & 0xFFFFu;
+    const uint32_t h0 = column4(rows, pick), h1 = column4(rows + 4, pick);
+    uint32_t l0 = 0u, l1 = 0u;  // lo values of ranks 0-3 and 4-7
+    if (MODE == kOnehot) {
+      const uint32_t l = column4(lr, pick);
+      l0 = lo_values(l, code[0], code[1], code[2], code[3]);
+      l1 = lo_values(l >> 16, code[0], code[1], code[2], code[3]);
+    }
+    uint32_t v[8];
+    uint32_t r = 0;  // high positions before the nibble
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t nib = (m >> (4 * j)) & 0xFu;
+      const uint32_t hw = prmt(h0, h1, 0x3210u + 0x1111u * r);
+      const uint32_t lw = MODE == kOnehot ? prmt(l0, l1, 0x3210u + 0x1111u * (4 * j - r)) : 0u;
+      bytes_to_bf16(prmt(hw, lw, sel[nib]), v[2 * j], v[2 * j + 1]);
+      r += __popc(nib);
+    }
+    sts128(dst[cc][0] + toff, v[0], v[1], v[2], v[3]);
+    sts128(dst[cc][1] + toff, v[4], v[5], v[6], v[7]);
+  }
+}
+
+// Every other codec: one thread per (w-block, column) walks the positions,
+// a high one taking the next hi byte and a low one the next q-bit field
+// (kHistream: 0), eight bf16 a 16-byte store.
+template <int MODE, int TH>
+__device__ __forceinline__ void decode_general(const StreamArgs& a, const uint8_t* st,
+                                               __nv_bfloat16* Wt) {
+  for (int idx = threadIdx.x; idx < a.nbk * kSBN; idx += TH) {
+    const int kb = idx / kSBN, n = idx - kb * kSBN;
+    const uint8_t* mcol = st + kb * a.bstride + n;
+    const int8_t* hcol = reinterpret_cast<const int8_t*>(mcol + a.mask_rows * kSBN);
+    const uint8_t* lcol = mcol + (a.mask_rows + a.hi_rows) * kSBN;
+    int hc = 0, lc = 0;  // ranks among the high / low positions seen so far
+    for (int p0 = 0; p0 < a.w; p0 += 8) {
+      const unsigned bits = mcol[(p0 >> 3) * kSBN];
+      uint32_t v4[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int v = 0;
+        if ((bits >> j) & 1u) {
+          if (hc < a.n_high) v = hcol[hc * kSBN];
+          ++hc;
+        } else {
+          if (MODE == kOnehot && lc < a.n_low)
+            v = g_decode_low(g_lo_field<kSBN>(lcol, a.lo_rows, lc, a.q), a.method, a.q);
+          ++lc;
+        }
+        v4[j >> 1] |= (uint32_t)__bfloat16_as_ushort(__int2bfloat16_rn(v)) << (16 * (j & 1));
+      }
+      sts128(smem_addr(Wt + wt_off(n, kb * a.w + p0, a.ws)), v4[0], v4[1], v4[2], v4[3]);
+    }
+  }
+}
+
+// One chunk's product into the accumulators.  bf16 x on tensor cores: warp
+// (kh, wm, wn) takes NT n8 tiles x MT m16 tiles over its share kh of the
+// chunk's k16 steps, B fragments two n8 tiles an ldmatrix.x4 from the
+// weight tile and A fragments one ldmatrix.x4 an m16 tile from the x tile
+// (tiles past the live rows skipped).  f32 x as f32 FMAs (RG threads a
+// column) against the same exact tile.
+template <int BM, typename T>
+__device__ __forceinline__ void stream_product(
+    const StreamArgs& a, const __nv_bfloat16* Wt, const T* Xs, int mrows,
+    float (&acc)[StreamTile<BM>::MT][StreamTile<BM>::NT][4],
+    float (&facc)[StreamTile<BM>::FR]) {
+  using S = StreamTile<BM>;
+  const int t = threadIdx.x;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int warp = t >> 5, lane = t & 31;
+    const int kh = warp / (S::WM * S::WN), wr = warp % (S::WM * S::WN);
+    const int wn = wr % S::WN, wm = wr / S::WN;
+    const uint32_t wt = smem_addr(Wt), xs = smem_addr(Xs);
+    const int steps = a.kcp >> 4, per = (steps + S::KH - 1) / S::KH;
+    const int s_end = min(steps, (kh + 1) * per);
+    // the row this lane addresses in each ldmatrix, and its 16-byte half
+    const int bn = (wn * S::NT + (lane >> 4)) * 8 + (lane & 7), bh = (lane >> 3) & 1;
+    const int ar = lane & 15, ah = lane >> 4;
+    for (int st = kh * per; st < s_end; ++st) {
+      const int ks = st << 4;
+      uint32_t bf[S::NT][2];
+#pragma unroll
+      for (int jp = 0; jp < S::NT / 2; ++jp) {
+        uint32_t r4[4];
+        ldsm4(r4, wt + 2 * wt_off(bn + 16 * jp, ks + 8 * bh, a.ws));
+        bf[2 * jp][0] = r4[0];
+        bf[2 * jp][1] = r4[1];
+        bf[2 * jp + 1][0] = r4[2];
+        bf[2 * jp + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i) {
+        const int mt = wm * S::MT + i;
+        if (mt * 16 >= mrows) break;
+        uint32_t af[4];
+        ldsm4(af, xs + 2 * ((mt * 16 + ar) * a.xs + ks + 8 * ah));
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j) mma_bf16(acc[i][j], af, bf[j]);
+      }
+    }
+  } else {
+    const int c = t % kSBN, rg = t / kSBN;
+    for (int kk = 0; kk < a.kc; ++kk) {
+      const float wv = __bfloat162float(Wt[wt_off(c, kk, a.ws)]);
+#pragma unroll
+      for (int i = 0; i < S::FR; ++i) {
+        const int r = rg + S::RG * i;
+        if (r < mrows) facc[i] += Xs[r * a.xs + kk] * wv;
+      }
+    }
+  }
+}
+
+// MODE: kOnehot (K1: mask + hi + lo) or kHistream (K9: mask + hi, low
+// positions 0; lo is never read).  BYTES: the byte path's decode.  Grid
+// (ceil(N / 128), ceil(M / BM), K slices); the K slices of one tile are one
+// thread-block cluster.  One barrier per chunk: while chunk ch decodes into
+// one of two weight tiles, the product of chunk ch - 1 runs on the other
+// and chunks ch + 1 .. ch + kSAhead are in flight in the ring.
+template <int MODE, int BM, typename T, bool BYTES>
+__global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
+    stream_kernel(const __grid_constant__ StreamArgs a) {
+  using S = StreamTile<BM>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint32_t sel[16];
+  const int t = threadIdx.x;
+  const int n0 = blockIdx.x * kSBN, m0 = blockIdx.y * BM;
+  const int mrows = min(BM, a.M - m0);
+  const int b_begin = blockIdx.z * a.blocks_per_split;
+  const int b_end = min(a.nb, b_begin + a.blocks_per_split);
+  const int chunks = (b_end - b_begin + a.nbk - 1) / a.nbk;
+  uint8_t* ring = smem_raw;
+  __nv_bfloat16* Wt = reinterpret_cast<__nv_bfloat16*>(ring + kSStages * a.slot_bytes);  // [2]
+  const int wt_elems = kSBN * a.ws;
+  if (BYTES && t < 16) sel[t] = a.sel[t];
+  // what neither staging nor decode writes and the product reads is zeroed
+  // once: x rows past M in every slot, and the K pad [kc, kcp) of x and Wt
+  const int row_bytes = a.xs * (int)sizeof(T);
+  const int dead = (BM - mrows) * row_bytes / 16;
+  for (int idx = t; idx < kSStages * dead; idx += S::TH) {
+    const int s = idx / dead;
+    reinterpret_cast<uint4*>(ring + s * a.slot_bytes + a.xoff + mrows * row_bytes)[idx - s * dead] =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  const int pad = a.kcp - a.kc;
+  for (int idx = t; idx < kSStages * mrows * pad; idx += S::TH) {
+    const int s = idx / (mrows * pad), e = idx - s * mrows * pad;
+    reinterpret_cast<T*>(ring + s * a.slot_bytes + a.xoff)[(e / pad) * a.xs + a.kc + e % pad] =
+        T(0.f);
+  }
+  for (int idx = t; idx < 2 * kSBN * pad; idx += S::TH) {
+    const int tile = idx / (kSBN * pad), e = idx - tile * kSBN * pad;
+    Wt[tile * wt_elems + wt_off(e / pad, a.kc + e % pad, a.ws)] = __int2bfloat16_rn(0);
+  }
+
+  const StagePlan plan = stage_plan<S::TH, T>(a, b_begin, n0, m0, mrows);
+#pragma unroll
+  for (int c = 0; c < kSAhead; ++c) {  // chunks 0 .. kSAhead - 1 in flight
+    if (c < chunks)
+      stream_stage<S::TH, T>(a, plan, c, b_begin, b_end, n0, m0, mrows, ring + c * a.slot_bytes);
+    cp_async_commit_g();
+  }
+  // byte path: this thread's item (w-block kb, column group cg) and columns,
+  // their words in a slot and their 16-byte stores in a tile, fixed per block
+  constexpr int kCols = 4 / S::SPLIT;
+  const int warp = t >> 5, lane = t & 31;
+  const int dkb = warp / S::SPLIT;
+  const int dcg = (warp % S::SPLIT) * (32 / S::SPLIT) + lane / S::SPLIT;
+  const int dc0 = (lane % S::SPLIT) * kCols;
+  const int doff = dkb * a.bstride + 4 * dcg;
+  uint32_t dst[kCols][2];
+#pragma unroll
+  for (int cc = 0; cc < kCols; ++cc)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      dst[cc][h] = smem_addr(Wt + wt_off(4 * dcg + dc0 + cc, dkb * 16 + 8 * h, a.ws));
+  const uint32_t code[4] = {a.code[0], a.code[1], a.code[2], a.code[3]};
+
+  float acc[S::MT][S::NT][4];  // bf16 path: [m tile][n8 tile][fragment]
+  float facc[S::FR];           // f32 path: rows rg + RG i of column t % 128
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < S::FR; ++i) facc[i] = 0.f;
+
+  cp_async_wait_g<kSAhead - 1>();
+  __syncthreads();  // chunk 0 landed; the tables and zeroed pads are written
+  for (int ch = 0; ch < chunks; ++ch) {
+    const uint8_t* st = ring + (ch % kSStages) * a.slot_bytes;
+    if (BYTES) {
+      decode_bytes<MODE, S::SPLIT>(st + doff, sel, code, dc0, dst, (ch & 1) * wt_elems * 2);
+    } else {
+      decode_general<MODE, S::TH>(a, st, Wt + (ch & 1) * wt_elems);
+    }
+    if (ch > 0)
+      stream_product<BM, T>(a, Wt + ((ch - 1) & 1) * wt_elems,
+                            reinterpret_cast<const T*>(ring + ((ch - 1) % kSStages) * a.slot_bytes +
+                                                       a.xoff),
+                            mrows, acc, facc);
+    // the slot of chunk ch - 2, whose decode and product barriers have closed
+    const int ahead = ch + kSAhead;
+    if (ahead < chunks)
+      stream_stage<S::TH, T>(a, plan, ahead, b_begin, b_end, n0, m0, mrows,
+                             ring + (ahead % kSStages) * a.slot_bytes);
+    cp_async_commit_g();
+    cp_async_wait_g<kSAhead - 1>();
+    __syncthreads();  // chunk ch decoded, chunk ch + 1 landed, chunk ch - 1's product done
+  }
+  if (chunks > 0)
+    stream_product<BM, T>(a, Wt + ((chunks - 1) & 1) * wt_elems,
+                          reinterpret_cast<const T*>(ring + ((chunks - 1) % kSStages) *
+                                                                a.slot_bytes + a.xoff),
+                          mrows, acc, facc);
+  cp_async_wait_g<0>();
+
+  // every accumulator to its (K share, row, column) of a [KH][BM][128] f32
+  // tile in shared memory; the shares are then added in kh order
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kKH = kBf16 ? S::KH : 1;
+  __syncthreads();  // every warp's last product is done with the ring and tiles
+  float* part = reinterpret_cast<float*>(smem_raw);
+  if constexpr (kBf16) {
+    const int gid = lane >> 2, tig = lane & 3;
+    const int kh = warp / (S::WM * S::WN), wr = warp % (S::WM * S::WN);
+    const int wn = wr % S::WN, wm = wr / S::WN;
+#pragma unroll
+    for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[(kh * BM + (wm * S::MT + i) * 16 + gid + (e >> 1) * 8) * kSBN +
+               (wn * S::NT + j) * 8 + tig * 2 + (e & 1)] = acc[i][j][e];
+  } else {
+#pragma unroll
+    for (int i = 0; i < S::FR; ++i) part[(t / kSBN + S::RG * i) * kSBN + t % kSBN] = facc[i];
+  }
+  __syncthreads();
+  if (kKH > 1)
+    for (int e = t; e < BM * kSBN; e += S::TH)
+      for (int kh = 1; kh < kKH; ++kh) part[e] += part[kh * BM * kSBN + e];
+  if (gridDim.z > 1) {
+    // split-K, as in strum_matmul_kernel: every slice leaves its partial
+    // tile in its shared memory and rank r sums elements r, r + S, ... over
+    // the S partials in rank order through distributed shared memory
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int Sz = gridDim.z;
+    for (int e = blockIdx.z + Sz * t; e < BM * kSBN; e += Sz * S::TH) {
+      const int m = m0 + e / kSBN, n = n0 + e % kSBN;
+      if (m >= a.M || n >= a.N) continue;
+      float sum = *cluster.map_shared_rank(part + e, 0);
+      for (int r = 1; r < Sz; ++r) sum += *cluster.map_shared_rank(part + e, r);
+      a.out[(size_t)m * a.N + n] = sum * a.scale[n];
+    }
+    cluster.sync();  // every slice's shared memory stays alive until all are read
+    return;
+  }
+  for (int e = t; e < BM * kSBN; e += S::TH) {  // each thread reads what it added
+    const int m = m0 + e / kSBN, n = n0 + e % kSBN;
+    if (m < a.M && n < a.N) a.out[(size_t)m * a.N + n] = part[e] * a.scale[n];
+  }
+}
+
+template <int MODE, int BM, typename T, bool BYTES>
+cudaError_t stream_launch_typed(StreamArgs a, int splits, cudaStream_t stream) {
+  const size_t smem = std::max((size_t)kSStages * a.slot_bytes + 2 * 2 * (size_t)kSBN * a.ws,
+                               (size_t)StreamTile<BM>::KH * BM * kSBN * sizeof(float));
+  auto kernel = stream_kernel<MODE, BM, T, BYTES>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((a.N + kSBN - 1) / kSBN) * ((a.M + BM - 1) / BM);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(StreamTile<BM>::TH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+  attr[1].val.clusterSchedulingPolicyPreference = cudaClusterSchedulingPolicyLoadBalancing;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  // Fewer slices where the card cannot hold every cluster of the launch at
+  // once (at one block an SM it holds fewer clusters of 8 than SMs / 8, and
+  // a second wave would double the time).  The answer depends only on the
+  // launch's shape, so a repeated call takes the same split and the same
+  // summation order; it is asked of the card once per shape.
+  static std::mutex lock;
+  static std::map<std::tuple<const void*, size_t, int, int>, int> fitted;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), smem, tiles, splits);
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    const auto hit = fitted.find(key);
+    if (hit != fitted.end()) {
+      splits = hit->second;
+    } else {
+      while (splits > 1) {
+        attr[0].val.clusterDim.z = splits;
+        cfg.gridDim = dim3((a.N + kSBN - 1) / kSBN, (a.M + BM - 1) / BM, splits);
+        int fit = 0;
+        e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+        if (e != cudaSuccess) return e;
+        if (fit >= tiles) break;
+        --splits;
+      }
+      fitted[key] = splits;
+    }
+  }
+  a.blocks_per_split = (a.nb + splits - 1) / splits;
+  splits = (a.nb + a.blocks_per_split - 1) / a.blocks_per_split;  // no empty slice
+  cfg.gridDim = dim3((a.N + kSBN - 1) / kSBN, (a.M + BM - 1) / BM, splits);
+  if (splits == 1) {
+    kernel<<<cfg.gridDim, StreamTile<BM>::TH, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  attr[0].val.clusterDim.z = splits;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int MODE, bool BYTES>
+cudaError_t stream_rows(const StreamArgs& a, int x_bf16, int bm, int splits, cudaStream_t s) {
+  if (!x_bf16) return stream_launch_typed<MODE, 16, float, BYTES>(a, splits, s);
+  return bm == 16 ? stream_launch_typed<MODE, 16, __nv_bfloat16, BYTES>(a, splits, s)
+                  : stream_launch_typed<MODE, 128, __nv_bfloat16, BYTES>(a, splits, s);
+}
+
+// K1 (kOnehot) and K9 (kHistream) for w <= 64.  `tables` (host memory, 20
+// words: sel[16] then code[4], from kernels/strum_matmul.py) selects the
+// byte path, or null.  A kOnehot call that reads no lo (sparsity, n_low =
+// 0) runs as kHistream: its low positions are 0.
+template <int MODE>
+int stream_launch(const void* x, int x_bf16, const void* mask, const void* hi, const void* lo,
+                  const void* scale, void* out, int M, int N, int K, int ldx, int nb, int w,
+                  int mask_rows, int hi_rows, int lo_rows, int n_low, int q, int method,
+                  int splits, const uint32_t* tables, cudaStream_t s) {
+  const bool reads_lo = MODE == kOnehot && method != kSparsity && n_low > 0;
+  if (M <= 0 || N <= 0 || K <= 0 || nb <= 0 || w <= 0 || w % 8 || w > 64 ||
+      mask_rows != w / 8 || n_low < 0 || n_low > w || hi_rows < std::max(w - n_low, 1) ||
+      K > nb * w || ldx < K || splits < 1 || splits > kMaxSplits || !x || !mask || !hi ||
+      !scale || !out ||
+      (reads_lo && (!lo || q < 1 || q > 8 || lo_rows * 8 < n_low * q)))
+    return (int)cudaErrorInvalidValue;
+  StreamArgs a = {};
+  a.x = x;
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.hi = static_cast<const int8_t*>(hi);
+  a.lo = reads_lo ? static_cast<const uint8_t*>(lo) : nullptr;
+  a.scale = static_cast<const float*>(scale);
+  a.out = static_cast<float*>(out);
+  a.M = M; a.N = N; a.K = K; a.ldx = ldx;
+  a.nb = nb; a.w = w; a.mask_rows = mask_rows; a.hi_rows = hi_rows;
+  a.lo_rows = reads_lo ? lo_rows : 0;
+  a.n_high = w - n_low; a.n_low = n_low; a.q = q; a.method = method;
+  const int bm = !x_bf16 || M <= 16 ? 16 : 128;
+  a.nbk = std::max(1, (bm == 16 ? StreamTile<16>::KC : StreamTile<128>::KC) / w);
+  a.kc = a.nbk * w;
+  a.kcp = (a.kc + 15) / 16 * 16;
+  a.ws = (a.kcp + 63) / 64 * 64;
+  a.xs = a.kcp + (x_bf16 ? 8 : 4);
+  a.rows = mask_rows + hi_rows + a.lo_rows;
+  a.bstride = a.rows * kSBN + 16;
+  a.xoff = a.nbk * a.bstride;
+  a.slot_bytes = (a.xoff + bm * a.xs * (x_bf16 ? 2 : 4) + 15) & ~15;
+  const uintptr_t fields = reinterpret_cast<uintptr_t>(mask) | reinterpret_cast<uintptr_t>(hi) |
+                           (reads_lo ? reinterpret_cast<uintptr_t>(lo) : 0);
+  a.vec_fields = N % 16 == 0 && fields % 16 == 0;
+  const int epv = x_bf16 ? 8 : 4;
+  a.vec_x = K % epv == 0 && ldx % epv == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (tables) {
+    if (w != 16 || n_low != 8 || hi_rows != 8 ||
+        (reads_lo && (q != 4 || lo_rows != 4)))
+      return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < 16; ++i) a.sel[i] = tables[i];
+    for (int i = 0; i < 4; ++i) a.code[i] = tables[16 + i];
+    return (int)(reads_lo ? stream_rows<kOnehot, true>(a, x_bf16, bm, splits, s)
+                          : stream_rows<kHistream, true>(a, x_bf16, bm, splits, s));
+  }
+  return (int)(reads_lo ? stream_rows<kOnehot, false>(a, x_bf16, bm, splits, s)
+                        : stream_rows<kHistream, false>(a, x_bf16, bm, splits, s));
+}
+
 }  // namespace
 
 #define STRUM_ENTRY(NAME, MODE)                                                       \
@@ -896,11 +1601,32 @@ void set_grouped(GroupedArgs& a, const void* x, const void* scale, const void* r
                         stream);                                                      \
   }
 
-STRUM_ENTRY(strum_onehot_launch, kOnehot)
 STRUM_ENTRY(strum_maskfree_launch, kMaskfree)
 STRUM_ENTRY(strum_dense_launch, kDense)
-STRUM_ENTRY(strum_histream_launch, kHistream)     // K9: lo is null
 STRUM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)  // K10: mask and lo are null
+
+// K1 and K9: the 2-D entries' arguments, then `tables` (host memory: the
+// byte path's 16 selectors and 4 code-table words, or null) before the
+// stream.  w > 64 runs on the template (tables must be null).
+#define STRUM_STREAM_ENTRY(NAME, MODE)                                                \
+  extern "C" int NAME(const void* x, int x_bf16, const void* mask, const void* hi,     \
+                      const void* lo, const void* scale, void* out, int M, int N,     \
+                      int K, int ldx, int nb, int w, int mask_rows, int hi_rows,      \
+                      int lo_rows, int n_low, int q, int method, int splits,          \
+                      const unsigned* tables, void* stream) {                         \
+    if (w > 64) {                                                                     \
+      if (tables) return (int)cudaErrorInvalidValue;                                  \
+      return launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, 0, M, N, K, ldx, nb,   \
+                          w, mask_rows, hi_rows, lo_rows, n_low, q, method, splits,   \
+                          stream);                                                    \
+    }                                                                                 \
+    return stream_launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, M, N, K, ldx, nb, \
+                               w, mask_rows, hi_rows, lo_rows, n_low, q, method,      \
+                               splits, tables, static_cast<cudaStream_t>(stream));    \
+  }
+
+STRUM_STREAM_ENTRY(strum_onehot_launch, kOnehot)
+STRUM_STREAM_ENTRY(strum_histream_launch, kHistream)  // K9: lo is null
 
 // K8 (the 2-D kernels' template): x (G, M, K) contiguous, G >= 1, no split-K.
 #define STRUM_GROUPED_ENTRY(NAME, MODE)                                               \

@@ -90,7 +90,7 @@ def strum_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,
         y = K.strum_matmul_onehot(x2, packed.mask, _min1(packed.hi, 1),
                                   _min1(packed.lo, 1), packed.scale, w=w,
                                   n_low=packed.n_low, q=packed.q,
-                                  method=packed.method)
+                                  method=packed.method, L=packed.L)
     elif variant == "maskfree":
         y = K.strum_matmul_maskfree(x2, packed.lo, packed.scale, w=w,
                                     q=packed.q, method=packed.method)
@@ -102,7 +102,7 @@ def strum_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,
 def strum_gemv(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,
                variant: str = "onehot") -> torch.Tensor:
     """Decode-path matvec (M = a few tokens): the same kernels, which pick
-    their small-M tile (8 rows) and split K across blocks themselves."""
+    their small-M tile and split K across blocks themselves."""
     return strum_matmul(x, packed, out_dtype=out_dtype, variant=variant)
 
 

@@ -20,9 +20,18 @@ register decode, bf16 tensor cores for bf16 x) and take optional per-group
 live-row counts ``rows``: rows past ``rows[g]`` are zero in x and come out
 as exact zeros, and a row tile past the count reads no weight byte.
 
+K1 and K9 (w <= ``STREAM_MAX_W``) run one kernel of their own (128-column
+tiles, the packed rows streamed by 16-byte asynchronous copies through a
+ring, decode in registers, bf16 x on tensor cores).  The common codec (w =
+16, 8 high, 4-bit lo codes whose values fit int8) decodes four positions
+at a time with byte permutes driven by two small tables that
+``byte_path_tables`` builds here and the launcher hands to the kernel;
+every other codec takes the kernel's general path.  K2, K3, K8, K10 (and
+K1, K9 past ``STREAM_MAX_W``) run the first template (``strum_matmul_kernel``).
+
 At decode the 2-D kernels split K across the blocks of one thread-block
-cluster (``_splits``, at most ``MAX_SPLITS``) and add the partial tiles in
-rank order on the card: two calls on the same inputs give the same bits.
+cluster (``_split_count``, at most ``MAX_SPLITS``) and add the partial tiles
+in rank order on the card: two calls on the same inputs give the same bits.
 
 ``strum_matmul_histream`` (K9) and ``strum_matmul_maskfree_p`` (K10) are
 the reduced-fidelity reads of self-speculative decoding's draft lane: K9
@@ -48,6 +57,7 @@ column in the epilogue.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -64,7 +74,7 @@ __all__ = ["strum_matmul_onehot", "strum_matmul_maskfree", "strum_matmul_dense",
            "strum_matmul_grouped_dense_plain", "strum_matmul_histream",
            "strum_matmul_maskfree_p", "strum_matmul_histream_plain",
            "strum_matmul_maskfree_p_plain", "launch_counts",
-           "reset_launch_counts", "METHOD_CODES"]
+           "reset_launch_counts", "METHOD_CODES", "byte_path_tables"]
 
 METHOD_CODES = {"sparsity": 0, "dliq": 1, "mip2q": 2}
 _ROWS = ("grouped_onehot", "grouped_maskfree")  # kernels that take ``rows``
@@ -75,8 +85,12 @@ _ENTRY = {"onehot": "strum_onehot_launch", "maskfree": "strum_maskfree_launch",
           "grouped_dense": "strum_grouped_dense_launch",
           "histream": "strum_histream_launch",
           "maskfree_p": "strum_maskfree_p_launch"}
-_BN = 64  # output columns per CUDA block (kBN in the source)
+_BN = 64  # output columns per CUDA block of the template (kBN in the source)
 MAX_SPLITS = 8  # K slices of one 2-D tile: one portable cluster (kMaxSplits)
+#: K1 and K9 run the streamed kernel up to this block width (the template above)
+_STREAM = ("onehot", "histream")
+STREAM_MAX_W = 64
+STREAM_BN = 128  # output columns per block of the streamed kernel (kSBN)
 
 #: kernel name -> launches since the last reset
 launch_counts = {name: 0 for name in _ENTRY}
@@ -102,7 +116,9 @@ def _matmul_scaled(x2: torch.Tensor, vals: torch.Tensor,
 
 
 def strum_matmul_onehot_plain(x2, mask, hi, lo, scale, *, w: int, n_low: int,
-                              q: int, method: str) -> torch.Tensor:
+                              q: int, method: str, L=None) -> torch.Tensor:
+    """K1's arithmetic; ``L`` is accepted as the kernel's wrapper takes it,
+    and changes nothing."""
     high = _unpack_bits_axis1(mask, w)                       # (nb, w, N)
     hi_vals = _scatter_expand(hi[:, :w - n_low].to(torch.int32), high)
     if method == "sparsity" or n_low == 0:
@@ -173,6 +189,59 @@ def strum_matmul_grouped_dense_plain(x3, hi, scale, **kw) -> torch.Tensor:
                         for g in range(x3.shape[0])])
 
 
+# ------------------------------------------------ the byte path's tables --
+
+def _nibble_selector(nib: int) -> int:
+    """``prmt`` selector placing one group of 4 positions: byte i takes hi
+    byte (rank of i among the nibble's set bits) from the hi window, or lo
+    byte 4 + (rank of i among its clear bits) from the lo window."""
+    sel = 0
+    for i in range(4):
+        high_below = bin(nib & ((1 << i) - 1)).count("1")
+        sel |= (high_below if (nib >> i) & 1 else 4 + i - high_below) << (4 * i)
+    return sel
+
+
+@functools.lru_cache(maxsize=None)
+def byte_path_tables(w: int, n_low: int, *, q: int = 4, method: str = "sparsity",
+                     L=None, reads_lo: bool = True):
+    """The 20 words K1 / K9 take for the byte path, or None for the general
+    path: 16 ``prmt`` selectors (one per mask nibble) and the 16-byte table
+    of lo code -> int8 value (4 words, code c in byte c % 4 of word c // 4).
+
+    The byte path is the codec w = 16 with 8 high positions; where lo is
+    read (``reads_lo`` and a method that stores lo) its codes must be 4 bits
+    and every code the codec can emit must decode into [-128, 127]: dliq q =
+    4 gives [-128, 112]; mip2q emits +-2^k for k <= L, so it needs L <= 6
+    (L = 7 emits +128; an unknown L counts as the widest, 7).  Table entries
+    of codes the codec never emits are their values wrapped to a byte."""
+    if w != 16 or n_low != 8:
+        return None
+    values = [0] * 16
+    if reads_lo and method != "sparsity":
+        if q != 4:
+            return None
+        codes = torch.arange(16, dtype=torch.int32)
+        decoded = decode_low_values(codes, method, q)
+        if method == "mip2q":
+            emitted = decoded[(codes & 7) <= (7 if L is None else L)]
+        else:
+            emitted = decoded
+        if int(emitted.min()) < -128 or int(emitted.max()) > 127:
+            return None
+        values = [int(v) & 0xFF for v in decoded]
+    sel = [_nibble_selector(nib) for nib in range(16)]
+    code = [sum(values[4 * i + b] << (8 * b) for b in range(4)) for i in range(4)]
+    return tuple(sel + code)
+
+
+@functools.lru_cache(maxsize=None)
+def _table_words(w, n_low, q, method, L, reads_lo):
+    """``byte_path_tables`` as the ctypes array the launcher takes, or None."""
+    words = byte_path_tables(w, n_low, q=q, method=method, L=L, reads_lo=reads_lo)
+    return (ctypes.c_uint32 * len(words))(*words) if words else None
+
+
 # ------------------------------------------------------------ CUDA launch --
 
 def _lib():
@@ -183,11 +252,13 @@ def _lib():
         if fn.argtypes is None:
             # 2-D: M N K ldx nb w rows x3 n_low q method splits;
             # grouped: G M N K nb w rows x3 n_low q method; K6 and K7 also
-            # take the live-row counts after scale
+            # take the live-row counts after scale; K1 and K9 take the byte
+            # path's tables (host memory) before the stream
             ints = 12 if name.startswith("grouped_") else 13
             ptrs = 6 if name in _ROWS else 5
+            tables = [ctypes.POINTER(ctypes.c_uint32)] if name in _STREAM else []
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * ptrs
-                           + [ctypes.c_int] * ints + [ctypes.c_void_p])
+                           + [ctypes.c_int] * ints + tables + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
 
@@ -203,13 +274,37 @@ def _splits(m: int, n: int, nb: int, device: torch.device) -> int:
     return max(1, min(math.ceil(2 * sms / tiles), nb // 4, MAX_SPLITS))
 
 
+def _stream_splits(m: int, n: int, nb: int, bf16: bool, device: torch.device) -> int:
+    """K1 / K9's split: a 128-column tile (16 rows; 128 rows past 16 rows of
+    bf16 x) holds ~180 KB of shared memory, one block an SM, so K is split
+    until the tiles cover the SMs once (no second partial wave), at most
+    ``MAX_SPLITS`` slices of at least 4 w-blocks.  The launcher takes fewer
+    where the card cannot hold every cluster at once (it asks the card)."""
+    bm = 128 if bf16 and m > 16 else 16
+    tiles = math.ceil(n / STREAM_BN) * math.ceil(m / bm)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if tiles >= sms:
+        return 1
+    return max(1, min(sms // tiles, nb // 4, MAX_SPLITS))
+
+
+def _split_count(name: str, m: int, n: int, nb: int, w: int, bf16: bool,
+                 device: torch.device) -> int:
+    """K slices a 2-D launch of kernel ``name`` takes."""
+    if name in _STREAM and w <= STREAM_MAX_W:
+        return _stream_splits(m, n, nb, bf16, device)
+    return _splits(m, n, nb, device)
+
+
 def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
-            method: str, rows=None) -> torch.Tensor:
+            method: str, rows=None, L=None) -> torch.Tensor:
     """Validate every operand, then launch kernel ``name`` on x's stream.
     ``None`` marks a field the kernel does not read.  A 2-D kernel takes x
     (M, K), fields (nb, rows, N) and scale (1, N); a grouped one (name
     ``grouped_*``) x (G, M, K), fields (G, nb, rows, N) and scale (G, 1, N);
-    K6 and K7 (``_ROWS``) also the live rows per group, (G,) or None."""
+    K6 and K7 (``_ROWS``) also the live rows per group, (G,) or None; K1
+    and K9 (``_STREAM``) the byte path's tables where the codec (with
+    mip2q's ``L``) allows it."""
     lead = 1 if name.startswith("grouped_") else 0
     if x.dim() != 2 + lead:
         raise ValueError(f"cuda:{name}: x must be {2 + lead}-D, got {tuple(x.shape)}")
@@ -260,11 +355,16 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
                  *live, out.data_ptr(), groups, m, n, k, nb, w, *nrows, n_low, q,
                  METHOD_CODES[method], stream)
     else:
-        splits = _splits(m, n, nb, x.device)
+        bf16 = x.dtype == torch.bfloat16
+        splits = _split_count(name, m, n, nb, w, bf16, x.device)
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
-                 out.data_ptr(), m, n, k, x.stride(0), nb, w, *nrows, n_low, q,
-                 METHOD_CODES[method], splits, stream)
+        tables = []
+        if name in _STREAM:
+            tables = [_table_words(w, n_low, q, method, L, name == "onehot")
+                      if w <= STREAM_MAX_W else None]
+        err = fn(x.data_ptr(), int(bf16), *ptrs, scale.data_ptr(), out.data_ptr(), m, n,
+                 k, x.stride(0), nb, w, *nrows, n_low, q, METHOD_CODES[method], splits,
+                 *tables, stream)
     if err != 0:
         raise RuntimeError(f"cuda:{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
@@ -280,15 +380,17 @@ def _route(x2: torch.Tensor) -> str:
 
 
 def strum_matmul_onehot(x2, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
-                        method: str) -> torch.Tensor:
-    """K1: y = x2 @ dequant(mask, hi, lo, scale), (M, N) f32; needs w % 8 == 0."""
+                        method: str, L=None) -> torch.Tensor:
+    """K1: y = x2 @ dequant(mask, hi, lo, scale), (M, N) f32; needs w % 8 == 0.
+    ``L`` (mip2q's largest shift, optional) lets a mip2q payload take the
+    byte path (``byte_path_tables``); it changes no result."""
     if w % 8:
         raise ValueError(f"onehot kernel needs byte-aligned mask rows (w={w})")
     if _route(x2) == "plain":
         return strum_matmul_onehot_plain(x2, mask, hi, lo, scale, w=w,
                                          n_low=n_low, q=q, method=method)
     return _launch("onehot", x2, mask, hi, lo, scale, w=w, n_low=n_low, q=q,
-                   method=method)
+                   method=method, L=L)
 
 
 def strum_matmul_maskfree(x2, lo, scale, *, w: int, q: int,

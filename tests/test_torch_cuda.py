@@ -1,7 +1,8 @@
 """Port kernels K1-K11 on the card against their plain PyTorch versions
 (K4 and K5 split-KV with their combine kernel, at pages of 16 and 128
-positions; K6 and K7 with and without live-row counts; K1-K3, K9, K10
-bit-identical across calls).
+positions; K6 and K7 with and without live-row counts; K1 and K9's
+streamed kernel at its tile edges, byte path and general path; K1-K3, K9,
+K10 bit-identical across calls).
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -277,7 +278,7 @@ def test_two_d_kernels_are_bit_identical_across_calls_on_card(dev, variant, cfg,
     two calls on the same inputs give the same bits (the slices are added
     in cluster-rank order, never in arrival order)."""
     x, packed = _case(dev, m, k, n, cfg, torch.bfloat16)
-    assert K._splits(m, n, packed.mask.shape[0], dev) > 1
+    assert K._split_count(variant, m, n, packed.mask.shape[0], packed.w, True, dev) > 1
     if variant in ("histream", "maskfree_p"):
         def call():
             return ops.strum_matmul_draft(x, packed, mode=variant, out_dtype=torch.float32)
@@ -289,6 +290,88 @@ def test_two_d_kernels_are_bit_identical_across_calls_on_card(dev, variant, cfg,
     torch.cuda.synchronize()
     assert K.launch_counts[variant] == before + 2
     assert torch.equal(a, b)
+
+
+# ------------------------------------- K1 and K9: the streamed kernel's edges
+
+#: codecs of the byte path (w = 16, 8 high, 4-bit lo codes that fit int8)
+BYTE_CODECS = [StruMConfig(method="mip2q", p=0.5, L=5), StruMConfig(method="dliq", p=0.5, q=4)]
+#: codecs of the general path: other widths (w = 24: a K chunk of 120, padded
+#: to 128), straddling 3-bit fields, mip2q L = 7 (emits +128), and sparsity
+#: (no lo stream: K9's byte path)
+GENERAL_CODECS = [StruMConfig(method="mip2q", w=8, p=0.5, L=5),
+                  StruMConfig(method="dliq", w=32, p=0.5, q=4),
+                  StruMConfig(method="mip2q", w=24, p=0.25, L=5),
+                  StruMConfig(method="dliq", p=0.5, q=3),
+                  StruMConfig(method="mip2q", p=0.5, L=7),
+                  StruMConfig(method="sparsity", p=0.5)]
+#: N = 130: unaligned fields, staged with plain loads; N = 2112 crosses a
+#: 128-column tile; K = 2045: K % w != 0, x staged with plain loads; K = 2000:
+#: 125 w-blocks, K slices of unequal length at every split count here
+EDGE_SHAPES = [(2045, 130), (2000, 2112)]
+
+
+def _codec_id(c):
+    return f"{c.method}_w{c.w}_p{c.p}_q{c.q}_L{c.L}"
+
+
+def _onehot_held(dev, m, k, n, cfg, dtype):
+    x, packed = _case(dev, m, k, n, cfg, dtype)
+    before = K.launch_counts["onehot"]
+    y = ops.strum_matmul(x, packed, out_dtype=torch.float32, variant="onehot")
+    torch.cuda.synchronize()
+    assert K.launch_counts["onehot"] == before + 1
+    y_plain = ops.strum_matmul(x.cpu(), _to_cpu(packed), out_dtype=torch.float32,
+                               variant="onehot")
+    err = (y.cpu() - y_plain).abs().max().item()
+    assert err <= REL_TOL * y_plain.abs().max().item(), err
+    return packed
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 128])
+@pytest.mark.parametrize("k,n", EDGE_SHAPES)
+@pytest.mark.parametrize("cfg", BYTE_CODECS, ids=_codec_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_k1_byte_path_edges_on_card(dev, m, k, n, cfg, dtype):
+    """K1 on the byte path at the main path's row counts and past the
+    16-row tile, across column tiles, ragged K and unequal K slices."""
+    packed = _onehot_held(dev, m, k, n, cfg, dtype)
+    assert K.byte_path_tables(packed.w, packed.n_low, q=packed.q, method=packed.method,
+                              L=packed.L) is not None
+    if n == 2112 and (dtype == torch.bfloat16 or m < 128):
+        # f32 x takes 16-row tiles: at M = 128 its 8 x 17 tiles cover the
+        # SMs unsplit; every other case here splits K into unequal slices
+        assert K._split_count("onehot", m, n, packed.mask.shape[0], packed.w,
+                              dtype == torch.bfloat16, dev) > 1
+
+
+@pytest.mark.parametrize("m", [4, 17])
+@pytest.mark.parametrize("k,n", EDGE_SHAPES)
+@pytest.mark.parametrize("cfg", GENERAL_CODECS, ids=_codec_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_k1_general_path_on_card(dev, m, k, n, cfg, dtype):
+    packed = _onehot_held(dev, m, k, n, cfg, dtype)
+    if cfg.method != "sparsity":
+        assert K.byte_path_tables(packed.w, packed.n_low, q=packed.q,
+                                  method=packed.method, L=packed.L) is None
+
+
+@pytest.mark.parametrize("w", [8, 16, 32])
+@pytest.mark.parametrize("m", [1, 4, 16, 128])
+@pytest.mark.parametrize("k,n", EDGE_SHAPES)
+def test_streamed_k9_on_card(dev, w, m, k, n):
+    """K9 through the streamed kernel (byte path at w = 16, general path
+    otherwise), bf16 x as the draft lane feeds it; lo is never handed over."""
+    x, packed = _case(dev, m, k, n, StruMConfig(method="mip2q", w=w, p=0.5, L=5),
+                      torch.bfloat16)
+    before = K.launch_counts["histream"]
+    y = ops.strum_matmul_draft(x, packed, mode="histream", out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert K.launch_counts["histream"] == before + 1
+    y_plain = ops.strum_matmul_draft(x.cpu(), _to_cpu(packed), mode="histream",
+                                     out_dtype=torch.float32)
+    err = (y.cpu() - y_plain).abs().max().item()
+    assert err <= REL_TOL * y_plain.abs().max().item(), err
 
 
 # ------------------------------------------------ packed KV pages: K4, K5, K11
