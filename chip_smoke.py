@@ -16,7 +16,8 @@ Phases, each fatal on failure:
      rounds: median and range, with the SM clock and power drawn over the
      same window; the kernels' and the yardstick's eager calls and the
      replays of a CUDA graph of the same calls, the device's time), and each
-     one's least possible time; every 2-D
+     one's least possible time; at M = 4 also each linear shape alone,
+     kernel and yardstick graph-replayed; every 2-D
      kernel (K1-K3, and K9 / K10 on the mip2q layers) is called twice at
      every shape and the two outputs must be bit-identical (split-K adds
      the slices of a cluster in rank order);
@@ -92,10 +93,11 @@ Phases, each fatal on failure:
      (``cuda:grouped_dense``);
   n. hold the draft kernels K9 (histream: mask + hi) and K10 (maskfree_p: hi
      only) against their plain versions at OLMo-1B's seven linear shapes
-     (mip2q p=0.5 L=5, bf16 x, M = 4 and 1) within KERNEL_TOL x max|plain|,
+     (mip2q p=0.5 L=5, bf16 x, M = 4, 1 and 16) within KERNEL_TOL x max|plain|,
      launched with null pointers for the fields they do not stream; time
      kernel, plain version and bf16 ``torch.matmul`` on the draft-decoded
-     weight interleaved as in phase c, eager and graph-replayed;
+     weight interleaved as in phase c, eager and graph-replayed, and at M = 4
+     each linear shape alone;
   o. serve full-width OLMo-1B speculatively through the paged runtime
      (``serve --paged --kv-cache mip2q --prompt-len 128 --gen 32
      --speculative 3 --draft histream|maskfree_p``): K9 (or K10) must launch
@@ -187,8 +189,8 @@ def _phase(name: str) -> None:
     print(f"== {name} (t = {PHASE_S[name[0]]:.1f} s)", flush=True)
 
 
-#: kernels of this slice whose ptxas report is printed entry by entry (K1
-#: and K9's streamed kernel)
+#: kernels of this slice whose ptxas report is printed entry by entry (the
+#: streamed kernel of K1, K2, K9 and K10)
 NEW_KERNELS = ("stream_kernel",)
 
 
@@ -279,6 +281,26 @@ def _bound(nbytes, flops, peak):
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def _per_shape(clocks, what, items) -> dict:
+    """Graph-replayed ms of one linear of each (K, N) shape, the kernel's
+    and the yardstick's: ``items`` holds (shape, kernel call, yardstick
+    call) for every timed linear; a shape's calls are replayed together
+    and the time split evenly among them (median of ``ROUNDS``)."""
+    out = {}
+    for shape in dict.fromkeys(s for s, _, _ in items):
+        kern = [k for s, k, _ in items if s == shape]
+        lib = [y for s, _, y in items if s == shape]
+        t = _interleaved(clocks, {
+            "graph_ms": (_graphed(lambda: [f() for f in kern]), 20),
+            "library_graph_ms": (_graphed(lambda: [f() for f in lib]), 20)},
+            calls=len(kern))
+        key = f"{shape[0]}x{shape[1]}"
+        out[key] = {"graph_ms": t["graph_ms"], "library_graph_ms": t["library_graph_ms"]}
+        print(f"    {what} {key}: one linear {t['graph_ms']:.4f} ms (graph replay), "
+              f"torch.matmul bf16 {t['library_graph_ms']:.4f} ms (graph replay)", flush=True)
+    return out
 
 
 class Clocks:
@@ -433,6 +455,12 @@ def phase_c(dev, gen, clocks):
                   f"{nbytes / 1e6:.2f} MB in {row[m]['bytes_ms']:.4f} ms, "
                   f"{flops / 1e9:.2f} GFLOP in {row[m]['ops_ms']:.4f} ms at "
                   f"{peak / 1e12:.0f} TFLOP/s); {t['clock']}", flush=True)
+            if m == 4:
+                row["per_shape"] = _per_shape(clocks, f"{variant:8s} M=  4", [
+                    ((c[5].k_dim, c[5].n_out),
+                     lambda c=c: c[0](c[2], *c[3], **c[4]),
+                     lambda x=x, w=w: torch.matmul(x, w))
+                    for c, (x, w) in zip(timed, dense_w)])
             del dense_w
         print(f"  {variant:8s} max |kernel - plain| {row['max_abs_err']:.3e} "
               f"(<= {KERNEL_TOL} x max|plain| at every shape); two calls bit-identical "
@@ -1317,7 +1345,7 @@ def phase_n(dev, gen, clocks):
     out = {}
     for mode, (kern, plain, fields, read) in calls.items():
         row = {"max_abs_err": 0.0}
-        for m in (4, 1):
+        for m in (4, 1, 16):
             xs = {k: torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
                   for k in (2048, 8192)}
             timed = []
@@ -1349,7 +1377,7 @@ def phase_n(dev, gen, clocks):
                          + 4 * m * c[3].n_out for c in timed) / 2
             flops = sum(2 * m * k * n for k, n in LAYER_SHAPES)
             row[m] = dict(t, **_bound(nbytes, flops, PEAK_FLOPS["torch.bfloat16"]))
-            print(f"  {mode:10s} M={m} one layer (7 linears), median [min, max] of "
+            print(f"  {mode:10s} M={m:2d} one layer (7 linears), median [min, max] of "
                   f"{ROUNDS} interleaved rounds: " + ", ".join(
                       f"{label} {t[key]:.4f} [{t['range_ms'][key][0]:.4f}, "
                       f"{t['range_ms'][key][1]:.4f}] ms" for key, label in
@@ -1358,6 +1386,10 @@ def phase_n(dev, gen, clocks):
                        ("library_graph_ms", "torch.matmul bf16 (graph replay)"))) +
                   f"; bound {row[m]['bound_ms']:.4f} ms ({row[m]['bound_by']}: "
                   f"{nbytes / 1e6:.2f} MB); {t['clock']}", flush=True)
+            if m == 4:
+                row["per_shape"] = _per_shape(clocks, f"{mode:10s} M= 4", [
+                    ((c[3].k_dim, c[3].n_out), lambda c=c: kern(c[0], *c[1], **c[2]),
+                     lambda c=c: torch.matmul(c[0], c[4])) for c in timed])
             del timed
         print(f"  {mode:10s} max |kernel - plain| {row['max_abs_err']:.3e} (<= "
               f"{KERNEL_TOL} x max|plain| at every shape)", flush=True)
@@ -1612,7 +1644,8 @@ def measure(dev, clocks):
             "prefill_bound_ms": pf["bound_ms"], "prefill_bound_by": pf["bound_by"],
             "prefill_library_ms": pf["library_ms"],
             "prefill_library_graph_ms": pf["library_graph_ms"],
-            "prefill_range_ms": pf["range_ms"]})
+            "prefill_range_ms": pf["range_ms"],
+            "per_shape_graph_ms": timings[name]["per_shape"]})
     for variant, (name, replaces) in KV_KERNELS.items():
         row = kv_rows[name]
         t = row["cases"][0]
@@ -1644,7 +1677,7 @@ def measure(dev, clocks):
                                          "bound_by")} for c in row["cases"]]})
     for name, (variant, replaces) in DRAFT.items():
         row = draft_rows[name]
-        t, one = row[4], row[1]
+        t, one, mid = row[4], row[1], row[16]
         kernels.append({
             "name": variant, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": counts[name], "max_abs_err": row["max_abs_err"], "ms": t["ms"],
@@ -1657,7 +1690,10 @@ def measure(dev, clocks):
             "library_graph_ms": t["library_graph_ms"],
             "m1_ms": one["ms"], "m1_graph_ms": one["graph_ms"], "m1_bound_ms": one["bound_ms"],
             "m1_plain_ms": one["plain_ms"], "m1_library_ms": one["library_ms"],
-            "m1_library_graph_ms": one["library_graph_ms"]})
+            "m1_library_graph_ms": one["library_graph_ms"],
+            "m16_ms": mid["ms"], "m16_graph_ms": mid["graph_ms"],
+            "m16_bound_ms": mid["bound_ms"], "m16_library_graph_ms": mid["library_graph_ms"],
+            "per_shape_graph_ms": row["per_shape"]})
     return kernels, times
 
 

@@ -27,9 +27,10 @@
 // values are exact in bf16 and the scale comes after the sum).  What set the
 // time of the first designs here was the decode work per weight, not bytes.
 //
-// K2, K3, K10 and K8 (one template, strum_matmul_kernel; a first version
-// that is right, not yet fast; also K1 and K9 at w > 64): a block owns a
-// BM x 64 output tile and a contiguous range of w-blocks along K.  For each
+// K3 and K8 (one template, strum_matmul_kernel; a first version that is
+// right, not yet fast; also K1, K2, K9 and K10 at w > 64 or w % 8 != 0): a
+// block owns a BM x 64 output tile and a contiguous range of w-blocks along
+// K.  For each
 // K chunk it (1) decodes the chunk's weights into shared memory as f32, one
 // thread per (w-block, column): a high position takes the next hi byte and
 // a low one the next q-bit field, so a position's rank inside its set is
@@ -52,9 +53,12 @@
 // pass a null pointer for every field a kernel does not stream, so a stray
 // read faults instead of going unnoticed.
 //
-// K1 and K9 (one kernel, stream_kernel; MODE picks the fields; w <= 64).
-// K9 (histream, the other draft lowering) is K1 without the lo stream: a
-// high position takes its hi byte, a low one is 0, and lo is never read.
+// K1, K2, K9 and K10 (one kernel, stream_kernel; MODE picks the fields;
+// w <= 64, w % 8 == 0).  K9 (histream, the other draft lowering) is K1
+// without the lo stream: a high position takes its hi byte, a low one is 0,
+// and lo is never read.  K2 (p = 1) streams lo alone: position i takes lo
+// field i.  K10 streams hi alone: position i < n_high takes hi byte i, the
+// rest are 0.
 // The template spent ~300 issued instructions a weight on K1 (0.60 ms an
 // OLMo-1B layer at decode against a 17.7 us byte bound, which leaves ~9 at
 // the card's issue rate): 1-byte dependent global loads and nothing in
@@ -72,16 +76,23 @@
 // of the one decoding; each thread's copies are planned once per block.
 // Unaligned fields or x (odd N, K % 8 != 0) take plain loads into the ring.
 //   Decode: the common codec (w = 16, 8 high, 4-bit lo codes whose values
-// fit int8: dliq q = 4, mip2q L <= 6; for K9 any w = 16, p = 0.5 payload)
-// takes the byte path: two threads share a w-block of four adjacent
-// columns (14 shared-memory words), a column's fields are byte-gathered by
-// prmt, its 8 lo codes become int8 values through a 16-byte code table in
-// registers, and for each group of 4 positions one prmt takes the hi bytes
-// from the running high rank, one the lo values from the running low rank,
-// and one with a selector from a 16-entry table indexed by the mask nibble
-// places all four; int8 -> bf16 is exact by two magic-number lanes and one
-// bf16x2 fma.  Both tables come from the Python launcher
-// (byte_path_tables).  Every other codec walks each column's positions.
+// fit int8: dliq q = 4, mip2q L <= 6; for K9 and K10 any w = 16, p = 0.5
+// payload; for K2 w = 16 with those 4-bit codes) takes the byte path: two
+// threads share a w-block of four adjacent columns (one shared-memory word
+// a staged row), a column's fields are byte-gathered by prmt, lo codes
+// become int8 values through a 16-byte code table in registers, and (K1,
+// K9) for each group of 4 positions one prmt takes the hi bytes from the
+// running high rank, one the lo values from the running low rank, and one
+// with a selector from a 16-entry table indexed by the mask nibble places
+// all four; K2's codes are in position order (dliq q = 4's are their
+// values' top nibbles: a shift, no table) and K10's hi bytes are its
+// leading 8 positions, so neither places anything.  K10's trailing 8
+// positions are 0, so its byte path stages and multiplies only the leading
+// 8 of each w-block, x and weights alike: half the tile and half the
+// product of zero-filling the rest (PERF.md has both designs' times).
+// int8 -> bf16 is exact by two magic-number lanes and one bf16x2 fma.  The
+// tables come from the Python launcher (byte_path_tables).  Every other
+// codec walks each column's positions.
 //   Product: decoded bf16 go to one of two [128][K chunk] tiles whose
 // 16-byte chunks are XOR-swizzled (no bank conflicts for the decode's
 // 16-byte stores or the product's ldmatrix rows); one barrier a chunk:
@@ -927,7 +938,7 @@ void set_grouped(GroupedArgs& a, const void* x, const void* scale, const void* r
 }
 
 
-// -------------------------- K1 and K9: the streamed packed-field matmul --
+// ------------------ K1, K2, K9 and K10: the streamed packed-field matmul --
 
 constexpr int kSBN = 128;       // output columns per block: each field row read is one 128-byte line
 constexpr int kSStages = 6;     // ring slots, each the packed rows and x rows of one K chunk
@@ -935,14 +946,17 @@ constexpr int kSAhead = kSStages - 2;  // chunks in flight beyond the one decodi
 
 struct StreamArgs {
   const void* x;        // (M, K), row stride ldx
-  const uint8_t* mask;  // (nb, mask_rows, N)
-  const int8_t* hi;     // (nb, hi_rows, N)
-  const uint8_t* lo;    // (nb, lo_rows, N); not read in kHistream mode
+  const uint8_t* mask;  // (nb, mask_rows, N); null in kMaskfree, kMaskfreeP modes
+  const int8_t* hi;     // (nb, hi_rows, N); null in kMaskfree mode
+  const uint8_t* lo;    // (nb, lo_rows, N); null in kHistream, kMaskfreeP modes
+  const uint8_t* dummy; // a streamed field: the source of zero-fill copies
   const float* scale;   // (N,)
   float* out;           // (M, N)
   int M, N, K, ldx;
-  int nb, w, mask_rows, hi_rows, lo_rows, n_high, n_low, q, method;
+  int nb, w, mask_rows, hi_rows, lo_rows, n_high, n_low, q, method;  // rows: 0
+                                                                      // if not streamed
   int nbk, kc, kcp;     // w-blocks per chunk, K per chunk, kc padded to 16
+  int shift4;           // kMaskfree's byte path: the code table is c -> c << 4 (dliq q = 4)
   int ws, xs;           // row strides (elements) of the weight and x tiles
   int rows, bstride;    // staged field rows a w-block, staged bytes a w-block
   int xoff, slot_bytes; // x tile offset in a ring slot, bytes a slot
@@ -1019,7 +1033,8 @@ struct StagePlan {
   int xdst, xk;               // slot offset; K offset within a chunk (-1: none)
 };
 
-// Staged field row r (mask, then hi, then lo rows) of w-block b at column n.
+// Staged field row r (mask, then hi, then lo rows; a field the mode does
+// not stream has no rows) of w-block b at column n.
 __device__ __forceinline__ const uint8_t* field_src(const StreamArgs& a, int b, int r, int n) {
   if (r < a.mask_rows) return a.mask + ((size_t)b * a.mask_rows + r) * a.N + n;
   if ((r -= a.mask_rows) < a.hi_rows)
@@ -1033,7 +1048,15 @@ __device__ __forceinline__ long long field_step(const StreamArgs& a, int r) {
   return (long long)a.nbk * rows * a.N;
 }
 
-template <int TH, typename T>
+// K offset within a chunk of the c-th position the x tile holds: every
+// position, or (COMPACT: K10's byte path, w = 16) the leading 8 of each
+// w-block, whose chunk then spans 2 kc positions of K.
+template <bool COMPACT>
+__device__ __forceinline__ int kpos(int c) {
+  return COMPACT ? c + (c & ~7) : c;
+}
+
+template <int TH, typename T, bool COMPACT>
 __device__ __forceinline__ StagePlan stage_plan(const StreamArgs& a, int b_begin, int n0,
                                                 int m0, int mrows) {
   StagePlan p;
@@ -1042,7 +1065,7 @@ __device__ __forceinline__ StagePlan stage_plan(const StreamArgs& a, int b_begin
   for (int e = 0; e < kPlan; ++e) {
     const int i = t + e * TH;
     p.kb[e] = -1;
-    p.src[e] = a.mask;
+    p.src[e] = a.dummy;
     p.step[e] = 0;
     p.dst[e] = 0;
     p.nok[e] = false;
@@ -1063,23 +1086,25 @@ __device__ __forceinline__ StagePlan stage_plan(const StreamArgs& a, int b_begin
   p.xdst = 0;
   if (a.vec_x && t < mrows * per_row) {
     const int r = t / per_row, v = t - r * per_row;
-    p.xk = v * kEPV;
+    p.xk = kpos<COMPACT>(v * kEPV);
     p.xsrc = reinterpret_cast<const uint8_t*>(static_cast<const T*>(a.x) +
                                               (size_t)(m0 + r) * a.ldx + b_begin * a.w + p.xk);
-    p.xdst = a.xoff + (r * a.xs + p.xk) * (int)sizeof(T);
+    p.xdst = a.xoff + (r * a.xs + v * kEPV) * (int)sizeof(T);
   }
   return p;
 }
 
 // Stage chunk `ch` of this block's K slice into a ring slot: the packed
-// rows (mask, hi and, in kOnehot mode, lo) of columns [n0, n0 + 128) of its
-// w-blocks, laid out [w-block][row][128 bytes] with 16 bytes of padding a
-// w-block, and x rows m0 .. m0 + mrows - 1 of the chunk at xoff, [row][xs].
-// W-blocks past the slice and columns past N read as 0, and so does x past
-// the slice or past K (padded-K weight rows decode to junk, e.g. MIP2Q code
-// 0 is +1: only zero activations null them).  Unaligned fields or x are
-// staged with plain loads into the same slot.
-template <int TH, typename T>
+// rows its mode streams (mask, hi, lo in that order) of columns [n0, n0 +
+// 128) of its w-blocks, laid out [w-block][row][128 bytes] with 16 bytes of
+// padding a w-block, and x rows m0 .. m0 + mrows - 1 of the chunk at xoff,
+// [row][xs], holding the chunk's multiplied positions (kpos: all of them,
+// or, COMPACT, each w-block's leading 8).  W-blocks past the slice and columns
+// past N read as 0, and so does x past the slice or past K (padded-K weight
+// rows decode to junk, e.g. MIP2Q code 0 is +1: only zero activations null
+// them).  Unaligned fields or x are staged with plain loads into the same
+// slot.
+template <int TH, typename T, bool COMPACT>
 __device__ __forceinline__ void stream_stage(const StreamArgs& a, const StagePlan& p, int ch,
                                              int b_begin, int b_end, int n0, int m0,
                                              int mrows, uint8_t* slot) {
@@ -1090,8 +1115,8 @@ __device__ __forceinline__ void stream_stage(const StreamArgs& a, const StagePla
     for (int e = 0; e < kPlan; ++e) {
       if (p.kb[e] >= 0) {
         const bool in = p.nok[e] && b0 + p.kb[e] < b_end;
-        // a zero-fill copy reads no byte; its dummy source is mask, never null
-        g_cp_async16(slot + p.dst[e], in ? p.src[e] + ch * p.step[e] : a.mask, in ? 16 : 0);
+        // a zero-fill copy reads no byte; its source is a streamed field, never null
+        g_cp_async16(slot + p.dst[e], in ? p.src[e] + ch * p.step[e] : a.dummy, in ? 16 : 0);
       }
     }
     for (int i = t + kPlan * TH; i < a.nbk * a.rows * (kSBN / 16); i += TH) {
@@ -1100,7 +1125,7 @@ __device__ __forceinline__ void stream_stage(const StreamArgs& a, const StagePla
       const int b = b0 + kb, n = n0 + 16 * vec;
       const bool in = b < b_end && n < a.N;
       g_cp_async16(slot + kb * a.bstride + r0 * kSBN + 16 * vec,
-                   in ? field_src(a, b, r0, n) : a.mask, in ? 16 : 0);
+                   in ? field_src(a, b, r0, n) : a.dummy, in ? 16 : 0);
     }
   } else {
     for (int i = t; i < a.nbk * a.rows * kSBN; i += TH) {
@@ -1118,19 +1143,20 @@ __device__ __forceinline__ void stream_stage(const StreamArgs& a, const StagePla
     constexpr int kEPV = 16 / sizeof(T);
     if (p.xk >= 0) {
       const bool in = k0 + p.xk < kend;
-      g_cp_async16(slot + p.xdst, in ? p.xsrc + (size_t)ch * a.kc * sizeof(T) : a.x,
+      g_cp_async16(slot + p.xdst,
+                   in ? p.xsrc + (size_t)ch * (COMPACT ? 2 : 1) * a.kc * sizeof(T) : a.x,
                    in ? 16 : 0);
     }
     const int per_row = a.kc / kEPV;
     for (int i = t + TH; i < mrows * per_row; i += TH) {
-      const int r = i / per_row, v = i - r * per_row, k = k0 + v * kEPV;
+      const int r = i / per_row, v = i - r * per_row, k = k0 + kpos<COMPACT>(v * kEPV);
       const bool in = k < kend;
       g_cp_async16(xt + r * a.xs + v * kEPV, in ? x + (size_t)(m0 + r) * a.ldx + k : x,
                    in ? 16 : 0);
     }
   } else {
     for (int i = t; i < mrows * a.kc; i += TH) {
-      const int r = i / a.kc, kk = i - r * a.kc, k = k0 + kk;
+      const int r = i / a.kc, kk = i - r * a.kc, k = k0 + kpos<COMPACT>(kk);
       xt[r * a.xs + kk] = k < kend ? x[(size_t)(m0 + r) * a.ldx + k] : T(0.f);
     }
   }
@@ -1169,27 +1195,61 @@ __device__ __forceinline__ void bytes_to_bf16(uint32_t v, uint32_t& p01, uint32_
   asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(p23) : "r"(c23), "r"(neg1), "r"(a23));
 }
 
-// Byte path (w = 16, 8 high, 2 mask, 8 hi and, in kOnehot mode, 4 lo rows
-// of 4-bit codes whose values fit int8).  An item is one w-block of 4
-// adjacent columns, 14 shared-memory words (one row of the 4 columns each);
-// SPLIT threads share an item, each decoding 4 / SPLIT of its columns,
-// byte-gathered to the column's 16 mask bits, 8 hi bytes and 8 lo values
-// (the code table applied once to the 32-bit lo word).  For each group of
-// 4 positions (a mask nibble) with r high positions before it: one prmt
-// takes hi bytes r .. r + 3, one takes lo values 4j - r .. 4j - r + 3, and
-// one with sel[nibble] (the launcher's table: byte i takes hi byte (high
-// rank of i in the nibble) or lo byte 4 + (low rank of i)) places all four;
-// in kHistream mode the lo bytes are 0.  `p` is the item's words in the
-// slot; dst[cc] + toff the shared addresses of column c0 + cc's 16
-// positions in the tile.
+// Byte path (w = 16).  An item is one w-block of 4 adjacent columns, one
+// shared-memory word a staged row (that row of the 4 columns); SPLIT
+// threads share an item, each decoding 4 / SPLIT of its columns.
+// kOnehot / kHistream (2 mask, 8 hi and, in kOnehot mode, 4 lo rows of
+// 4-bit codes whose values fit int8): a column is byte-gathered to its 16
+// mask bits, 8 hi bytes and 8 lo values (the code table applied once to
+// the 32-bit lo word).  For each group of 4 positions (a mask nibble) with
+// r high positions before it: one prmt takes hi bytes r .. r + 3, one takes
+// lo values 4j - r .. 4j - r + 3, and one with sel[nibble] (the launcher's
+// table: byte i takes hi byte (high rank of i in the nibble) or lo byte 4 +
+// (low rank of i)) places all four; in kHistream mode the lo bytes are 0.
+// kMaskfree (8 lo rows): a column's 8 lo bytes hold position j in nibble j,
+// so each group of 4 positions is the code table applied to one half word
+// (`shift4`, dliq q = 4: each code is its value's top nibble, so a mask
+// and a shift per word and one prmt per 4 positions replace the table).
+// kMaskfreeP (8 hi rows): hi byte j is position j < 8; the tile holds only
+// those 8 positions of each w-block, as the x tile does (COMPACT).
+// `p` is the item's words in the slot; dst[cc] + toff the shared addresses
+// of column c0 + cc's positions 0-7 and 8-15 (kMaskfreeP: 0-7) in the tile.
 template <int MODE, int SPLIT>
 __device__ __forceinline__ void decode_bytes(const uint8_t* p, const uint32_t* sel,
-                                             const uint32_t (&code)[4], int c0,
+                                             const uint32_t (&code)[4], bool shift4, int c0,
                                              const uint32_t (&dst)[4 / SPLIT][2], uint32_t toff) {
   constexpr int kCols = 4 / SPLIT;  // columns a thread
-  uint32_t rows[8], lr[4];
+  constexpr bool kMasked = MODE == kOnehot || MODE == kHistream;
+  uint32_t rows[8], lr[4];          // hi rows (kMaskfree: lo rows)
 #pragma unroll
-  for (int r = 0; r < 8; ++r) rows[r] = lds32(p + (2 + r) * kSBN);
+  for (int r = 0; r < 8; ++r) rows[r] = lds32(p + ((kMasked ? 2 : 0) + r) * kSBN);
+  if (!kMasked) {
+#pragma unroll
+    for (int cc = 0; cc < kCols; ++cc) {
+      const uint32_t c = c0 + cc, pick = c | (c + 4) << 4;
+      const uint32_t w0 = column4(rows, pick), w1 = column4(rows + 4, pick);
+      uint32_t v[8];
+      if (MODE == kMaskfree && shift4) {  // a code is its value's top nibble
+        const uint32_t e0 = (w0 << 4) & 0xF0F0F0F0u, o0 = w0 & 0xF0F0F0F0u;
+        const uint32_t e1 = (w1 << 4) & 0xF0F0F0F0u, o1 = w1 & 0xF0F0F0F0u;
+        bytes_to_bf16(prmt(e0, o0, 0x5140u), v[0], v[1]);
+        bytes_to_bf16(prmt(e0, o0, 0x7362u), v[2], v[3]);
+        bytes_to_bf16(prmt(e1, o1, 0x5140u), v[4], v[5]);
+        bytes_to_bf16(prmt(e1, o1, 0x7362u), v[6], v[7]);
+      } else if (MODE == kMaskfree) {  // w0: positions 0-7, w1: 8-15, a nibble each
+        bytes_to_bf16(lo_values(w0, code[0], code[1], code[2], code[3]), v[0], v[1]);
+        bytes_to_bf16(lo_values(w0 >> 16, code[0], code[1], code[2], code[3]), v[2], v[3]);
+        bytes_to_bf16(lo_values(w1, code[0], code[1], code[2], code[3]), v[4], v[5]);
+        bytes_to_bf16(lo_values(w1 >> 16, code[0], code[1], code[2], code[3]), v[6], v[7]);
+      } else {                  // w0: positions 0-3, w1: 4-7, a byte each
+        bytes_to_bf16(w0, v[0], v[1]);
+        bytes_to_bf16(w1, v[2], v[3]);
+      }
+      sts128(dst[cc][0] + toff, v[0], v[1], v[2], v[3]);
+      if (MODE == kMaskfree) sts128(dst[cc][1] + toff, v[4], v[5], v[6], v[7]);
+    }
+    return;
+  }
   if (MODE == kOnehot) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) lr[r] = lds32(p + (10 + r) * kSBN);
@@ -1222,11 +1282,14 @@ __device__ __forceinline__ void decode_bytes(const uint8_t* p, const uint32_t* s
 }
 
 // Every other codec: one thread per (w-block, column) walks the positions,
-// a high one taking the next hi byte and a low one the next q-bit field
-// (kHistream: 0), eight bf16 a 16-byte store.
+// eight bf16 a 16-byte store.  kOnehot / kHistream: a high position takes
+// the next hi byte and a low one the next q-bit field (kHistream: 0);
+// kMaskfree: position i takes q-bit field i; kMaskfreeP: position i takes
+// hi byte i below n_high, else 0.
 template <int MODE, int TH>
 __device__ __forceinline__ void decode_general(const StreamArgs& a, const uint8_t* st,
                                                __nv_bfloat16* Wt) {
+  constexpr bool kMasked = MODE == kOnehot || MODE == kHistream;
   for (int idx = threadIdx.x; idx < a.nbk * kSBN; idx += TH) {
     const int kb = idx / kSBN, n = idx - kb * kSBN;
     const uint8_t* mcol = st + kb * a.bstride + n;
@@ -1234,12 +1297,17 @@ __device__ __forceinline__ void decode_general(const StreamArgs& a, const uint8_
     const uint8_t* lcol = mcol + (a.mask_rows + a.hi_rows) * kSBN;
     int hc = 0, lc = 0;  // ranks among the high / low positions seen so far
     for (int p0 = 0; p0 < a.w; p0 += 8) {
-      const unsigned bits = mcol[(p0 >> 3) * kSBN];
+      const unsigned bits = kMasked ? mcol[(p0 >> 3) * kSBN] : 0u;
       uint32_t v4[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        const int pos = p0 + j;
         int v = 0;
-        if ((bits >> j) & 1u) {
+        if (MODE == kMaskfree) {
+          v = g_decode_low(g_lo_field<kSBN>(lcol, a.lo_rows, pos, a.q), a.method, a.q);
+        } else if (MODE == kMaskfreeP) {
+          if (pos < a.n_high) v = hcol[pos * kSBN];
+        } else if ((bits >> j) & 1u) {
           if (hc < a.n_high) v = hcol[hc * kSBN];
           ++hc;
         } else {
@@ -1312,8 +1380,10 @@ __device__ __forceinline__ void stream_product(
   }
 }
 
-// MODE: kOnehot (K1: mask + hi + lo) or kHistream (K9: mask + hi, low
-// positions 0; lo is never read).  BYTES: the byte path's decode.  Grid
+// MODE: kOnehot (K1: mask + hi + lo), kHistream (K9: mask + hi, low
+// positions 0), kMaskfree (K2: lo in position order) or kMaskfreeP (K10:
+// hi in the leading n_high positions, the rest 0); a field the mode does
+// not stream is never read.  BYTES: the byte path's decode.  Grid
 // (ceil(N / 128), ceil(M / BM), K slices); the K slices of one tile are one
 // thread-block cluster.  One barrier per chunk: while chunk ch decodes into
 // one of two weight tiles, the product of chunk ch - 1 runs on the other
@@ -1322,6 +1392,7 @@ template <int MODE, int BM, typename T, bool BYTES>
 __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
     stream_kernel(const __grid_constant__ StreamArgs a) {
   using S = StreamTile<BM>;
+  constexpr bool kCompact = MODE == kMaskfreeP && BYTES;  // x and tile hold positions 0-7
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint32_t sel[16];
   const int t = threadIdx.x;
@@ -1354,11 +1425,12 @@ __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
     Wt[tile * wt_elems + wt_off(e / pad, a.kc + e % pad, a.ws)] = __int2bfloat16_rn(0);
   }
 
-  const StagePlan plan = stage_plan<S::TH, T>(a, b_begin, n0, m0, mrows);
+  const StagePlan plan = stage_plan<S::TH, T, kCompact>(a, b_begin, n0, m0, mrows);
 #pragma unroll
   for (int c = 0; c < kSAhead; ++c) {  // chunks 0 .. kSAhead - 1 in flight
     if (c < chunks)
-      stream_stage<S::TH, T>(a, plan, c, b_begin, b_end, n0, m0, mrows, ring + c * a.slot_bytes);
+      stream_stage<S::TH, T, kCompact>(a, plan, c, b_begin, b_end, n0, m0, mrows,
+                                       ring + c * a.slot_bytes);
     cp_async_commit_g();
   }
   // byte path: this thread's item (w-block kb, column group cg) and columns,
@@ -1374,7 +1446,8 @@ __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
   for (int cc = 0; cc < kCols; ++cc)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      dst[cc][h] = smem_addr(Wt + wt_off(4 * dcg + dc0 + cc, dkb * 16 + 8 * h, a.ws));
+      dst[cc][h] = smem_addr(Wt + wt_off(4 * dcg + dc0 + cc, dkb * (kCompact ? 8 : 16) + 8 * h,
+                                         a.ws));
   const uint32_t code[4] = {a.code[0], a.code[1], a.code[2], a.code[3]};
 
   float acc[S::MT][S::NT][4];  // bf16 path: [m tile][n8 tile][fragment]
@@ -1393,7 +1466,8 @@ __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
   for (int ch = 0; ch < chunks; ++ch) {
     const uint8_t* st = ring + (ch % kSStages) * a.slot_bytes;
     if (BYTES) {
-      decode_bytes<MODE, S::SPLIT>(st + doff, sel, code, dc0, dst, (ch & 1) * wt_elems * 2);
+      decode_bytes<MODE, S::SPLIT>(st + doff, sel, code, a.shift4, dc0, dst,
+                                   (ch & 1) * wt_elems * 2);
     } else {
       decode_general<MODE, S::TH>(a, st, Wt + (ch & 1) * wt_elems);
     }
@@ -1405,8 +1479,8 @@ __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
     // the slot of chunk ch - 2, whose decode and product barriers have closed
     const int ahead = ch + kSAhead;
     if (ahead < chunks)
-      stream_stage<S::TH, T>(a, plan, ahead, b_begin, b_end, n0, m0, mrows,
-                             ring + (ahead % kSStages) * a.slot_bytes);
+      stream_stage<S::TH, T, kCompact>(a, plan, ahead, b_begin, b_end, n0, m0, mrows,
+                                       ring + (ahead % kSStages) * a.slot_bytes);
     cp_async_commit_g();
     cp_async_wait_g<kSAhead - 1>();
     __syncthreads();  // chunk ch decoded, chunk ch + 1 landed, chunk ch - 1's product done
@@ -1533,59 +1607,88 @@ cudaError_t stream_rows(const StreamArgs& a, int x_bf16, int bm, int splits, cud
                   : stream_launch_typed<MODE, 128, __nv_bfloat16, BYTES>(a, splits, s);
 }
 
-// K1 (kOnehot) and K9 (kHistream) for w <= 64.  `tables` (host memory, 20
-// words: sel[16] then code[4], from kernels/strum_matmul.py) selects the
-// byte path, or null.  A kOnehot call that reads no lo (sparsity, n_low =
-// 0) runs as kHistream: its low positions are 0.
-template <int MODE>
-int stream_launch(const void* x, int x_bf16, const void* mask, const void* hi, const void* lo,
-                  const void* scale, void* out, int M, int N, int K, int ldx, int nb, int w,
-                  int mask_rows, int hi_rows, int lo_rows, int n_low, int q, int method,
-                  int splits, const uint32_t* tables, cudaStream_t s) {
-  const bool reads_lo = MODE == kOnehot && method != kSparsity && n_low > 0;
-  if (M <= 0 || N <= 0 || K <= 0 || nb <= 0 || w <= 0 || w % 8 || w > 64 ||
-      mask_rows != w / 8 || n_low < 0 || n_low > w || hi_rows < std::max(w - n_low, 1) ||
-      K > nb * w || ldx < K || splits < 1 || splits > kMaxSplits || !x || !mask || !hi ||
-      !scale || !out ||
+template <bool BYTES>
+cudaError_t stream_mode(int mode, const StreamArgs& a, int x_bf16, int bm, int splits,
+                        cudaStream_t s) {
+  switch (mode) {
+    case kOnehot: return stream_rows<kOnehot, BYTES>(a, x_bf16, bm, splits, s);
+    case kHistream: return stream_rows<kHistream, BYTES>(a, x_bf16, bm, splits, s);
+    case kMaskfree: return stream_rows<kMaskfree, BYTES>(a, x_bf16, bm, splits, s);
+    default: return stream_rows<kMaskfreeP, BYTES>(a, x_bf16, bm, splits, s);
+  }
+}
+
+// K1 (kOnehot), K2 (kMaskfree), K9 (kHistream) and K10 (kMaskfreeP) for w
+// <= 64, w % 8 == 0.  Each mode streams its fields only -- K1 mask, hi and
+// lo; K9 mask and hi; K2 lo; K10 hi -- and the others may be null.
+// `tables` (host memory, 20 words: sel[16] then code[4], from
+// kernels/strum_matmul.py) selects the byte path, or null.  A kOnehot call
+// that reads no lo (sparsity, n_low = 0) runs as kHistream: its low
+// positions are 0.
+int stream_launch(int mode, const void* x, int x_bf16, const void* mask, const void* hi,
+                  const void* lo, const void* scale, void* out, int M, int N, int K, int ldx,
+                  int nb, int w, int mask_rows, int hi_rows, int lo_rows, int n_low, int q,
+                  int method, int splits, const uint32_t* tables, cudaStream_t s) {
+  const bool masked = mode == kOnehot || mode == kHistream;
+  const bool reads_hi = mode != kMaskfree;
+  const bool reads_lo =
+      mode == kMaskfree || (mode == kOnehot && method != kSparsity && n_low > 0);
+  const int n_high = w - n_low;
+  if (M <= 0 || N <= 0 || K <= 0 || nb <= 0 || w <= 0 || w % 8 || w > 64 || n_low < 0 ||
+      n_low > w || K > nb * w || ldx < K || splits < 1 || splits > kMaxSplits || !x ||
+      !scale || !out || (masked && (!mask || mask_rows != w / 8)) ||
+      (reads_hi && (!hi || hi_rows < std::max(n_high, 1))) ||
+      (mode == kMaskfree && (n_low != w || (method != kDliq && method != kMip2q))) ||
+      (mode == kMaskfreeP && n_high < 1) ||
       (reads_lo && (!lo || q < 1 || q > 8 || lo_rows * 8 < n_low * q)))
     return (int)cudaErrorInvalidValue;
   StreamArgs a = {};
   a.x = x;
-  a.mask = static_cast<const uint8_t*>(mask);
-  a.hi = static_cast<const int8_t*>(hi);
+  a.mask = masked ? static_cast<const uint8_t*>(mask) : nullptr;
+  a.hi = reads_hi ? static_cast<const int8_t*>(hi) : nullptr;
   a.lo = reads_lo ? static_cast<const uint8_t*>(lo) : nullptr;
+  a.dummy = masked ? a.mask : reads_hi ? reinterpret_cast<const uint8_t*>(a.hi) : a.lo;
   a.scale = static_cast<const float*>(scale);
   a.out = static_cast<float*>(out);
   a.M = M; a.N = N; a.K = K; a.ldx = ldx;
-  a.nb = nb; a.w = w; a.mask_rows = mask_rows; a.hi_rows = hi_rows;
+  a.nb = nb; a.w = w;
+  a.mask_rows = masked ? mask_rows : 0;
+  a.hi_rows = reads_hi ? hi_rows : 0;
   a.lo_rows = reads_lo ? lo_rows : 0;
-  a.n_high = w - n_low; a.n_low = n_low; a.q = q; a.method = method;
+  a.n_high = n_high; a.n_low = n_low; a.q = q; a.method = method;
   const int bm = !x_bf16 || M <= 16 ? 16 : 128;
   a.nbk = std::max(1, (bm == 16 ? StreamTile<16>::KC : StreamTile<128>::KC) / w);
-  a.kc = a.nbk * w;
+  // K10's byte path (COMPACT) stages and multiplies only each w-block's 8
+  // live positions: the other 8 weights are 0, so their x is never read
+  a.kc = a.nbk * (mode == kMaskfreeP && tables ? 8 : w);
   a.kcp = (a.kc + 15) / 16 * 16;
   a.ws = (a.kcp + 63) / 64 * 64;
   a.xs = a.kcp + (x_bf16 ? 8 : 4);
-  a.rows = mask_rows + hi_rows + a.lo_rows;
+  a.rows = a.mask_rows + a.hi_rows + a.lo_rows;
   a.bstride = a.rows * kSBN + 16;
   a.xoff = a.nbk * a.bstride;
   a.slot_bytes = (a.xoff + bm * a.xs * (x_bf16 ? 2 : 4) + 15) & ~15;
-  const uintptr_t fields = reinterpret_cast<uintptr_t>(mask) | reinterpret_cast<uintptr_t>(hi) |
-                           (reads_lo ? reinterpret_cast<uintptr_t>(lo) : 0);
+  const uintptr_t fields = reinterpret_cast<uintptr_t>(a.mask) |
+                           reinterpret_cast<uintptr_t>(a.hi) |
+                           reinterpret_cast<uintptr_t>(a.lo);
   a.vec_fields = N % 16 == 0 && fields % 16 == 0;
   const int epv = x_bf16 ? 8 : 4;
   a.vec_x = K % epv == 0 && ldx % epv == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (tables) {
-    if (w != 16 || n_low != 8 || hi_rows != 8 ||
-        (reads_lo && (q != 4 || lo_rows != 4)))
-      return (int)cudaErrorInvalidValue;
+  const int run = mode == kOnehot && !reads_lo ? kHistream : mode;
+  if (tables) {  // the byte path's layouts: w = 16 and (but K2) 8 high
+    const bool fits =
+        w == 16 && (mode == kMaskfree ? q == 4 && lo_rows == 8
+                                      : n_low == 8 && hi_rows == 8 &&
+                                            (!reads_lo || (q == 4 && lo_rows == 4)));
+    if (!fits) return (int)cudaErrorInvalidValue;
     for (int i = 0; i < 16; ++i) a.sel[i] = tables[i];
     for (int i = 0; i < 4; ++i) a.code[i] = tables[16 + i];
-    return (int)(reads_lo ? stream_rows<kOnehot, true>(a, x_bf16, bm, splits, s)
-                          : stream_rows<kHistream, true>(a, x_bf16, bm, splits, s));
+    // dliq q = 4's table (code c -> c << 4 as a byte): a code is its value's top nibble
+    a.shift4 = mode == kMaskfree && a.code[0] == 0x30201000u && a.code[1] == 0x70605040u &&
+               a.code[2] == 0xB0A09080u && a.code[3] == 0xF0E0D0C0u;
+    return (int)stream_mode<true>(run, a, x_bf16, bm, splits, s);
   }
-  return (int)(reads_lo ? stream_rows<kOnehot, false>(a, x_bf16, bm, splits, s)
-                        : stream_rows<kHistream, false>(a, x_bf16, bm, splits, s));
+  return (int)stream_mode<false>(run, a, x_bf16, bm, splits, s);
 }
 
 }  // namespace
@@ -1601,32 +1704,33 @@ int stream_launch(const void* x, int x_bf16, const void* mask, const void* hi, c
                         stream);                                                      \
   }
 
-STRUM_ENTRY(strum_maskfree_launch, kMaskfree)
 STRUM_ENTRY(strum_dense_launch, kDense)
-STRUM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)  // K10: mask and lo are null
 
-// K1 and K9: the 2-D entries' arguments, then `tables` (host memory: the
-// byte path's 16 selectors and 4 code-table words, or null) before the
-// stream.  w > 64 runs on the template (tables must be null).
+// K1, K2, K9 and K10: the 2-D entries' arguments, then `tables` (host
+// memory: the byte path's 16 selectors and 4 code-table words, or null)
+// before the stream.  w > 64 and w % 8 != 0 run on the template (tables
+// must be null).
 #define STRUM_STREAM_ENTRY(NAME, MODE)                                                \
   extern "C" int NAME(const void* x, int x_bf16, const void* mask, const void* hi,     \
                       const void* lo, const void* scale, void* out, int M, int N,     \
                       int K, int ldx, int nb, int w, int mask_rows, int hi_rows,      \
                       int lo_rows, int n_low, int q, int method, int splits,          \
                       const unsigned* tables, void* stream) {                         \
-    if (w > 64) {                                                                     \
+    if (w > 64 || w % 8) {                                                            \
       if (tables) return (int)cudaErrorInvalidValue;                                  \
       return launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, 0, M, N, K, ldx, nb,   \
                           w, mask_rows, hi_rows, lo_rows, n_low, q, method, splits,   \
                           stream);                                                    \
     }                                                                                 \
-    return stream_launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, M, N, K, ldx, nb, \
-                               w, mask_rows, hi_rows, lo_rows, n_low, q, method,      \
-                               splits, tables, static_cast<cudaStream_t>(stream));    \
+    return stream_launch(MODE, x, x_bf16, mask, hi, lo, scale, out, M, N, K, ldx, nb, \
+                         w, mask_rows, hi_rows, lo_rows, n_low, q, method, splits,    \
+                         tables, static_cast<cudaStream_t>(stream));                  \
   }
 
 STRUM_STREAM_ENTRY(strum_onehot_launch, kOnehot)
-STRUM_STREAM_ENTRY(strum_histream_launch, kHistream)  // K9: lo is null
+STRUM_STREAM_ENTRY(strum_maskfree_launch, kMaskfree)      // K2: mask and hi are null
+STRUM_STREAM_ENTRY(strum_histream_launch, kHistream)      // K9: lo is null
+STRUM_STREAM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)   // K10: mask and lo are null
 
 // K8 (the 2-D kernels' template): x (G, M, K) contiguous, G >= 1, no split-K.
 #define STRUM_GROUPED_ENTRY(NAME, MODE)                                               \

@@ -93,7 +93,7 @@ def strum_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None,
                                   method=packed.method, L=packed.L)
     elif variant == "maskfree":
         y = K.strum_matmul_maskfree(x2, packed.lo, packed.scale, w=w,
-                                    q=packed.q, method=packed.method)
+                                    q=packed.q, method=packed.method, L=packed.L)
     else:
         y = K.strum_matmul_dense(x2, packed.hi, packed.scale, w=w)
     return y.reshape(lead + (packed.n_out,)).to(out_dtype)

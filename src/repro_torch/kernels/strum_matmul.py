@@ -20,14 +20,17 @@ register decode, bf16 tensor cores for bf16 x) and take optional per-group
 live-row counts ``rows``: rows past ``rows[g]`` are zero in x and come out
 as exact zeros, and a row tile past the count reads no weight byte.
 
-K1 and K9 (w <= ``STREAM_MAX_W``) run one kernel of their own (128-column
-tiles, the packed rows streamed by 16-byte asynchronous copies through a
-ring, decode in registers, bf16 x on tensor cores).  The common codec (w =
-16, 8 high, 4-bit lo codes whose values fit int8) decodes four positions
-at a time with byte permutes driven by two small tables that
-``byte_path_tables`` builds here and the launcher hands to the kernel;
-every other codec takes the kernel's general path.  K2, K3, K8, K10 (and
-K1, K9 past ``STREAM_MAX_W``) run the first template (``strum_matmul_kernel``).
+K1, K2, K9 and K10 (``_STREAM``; w <= ``STREAM_MAX_W`` and w % 8 == 0)
+run one kernel of their own, four modes of it (128-column tiles, the
+packed rows a mode streams brought in by 16-byte asynchronous copies
+through a ring, decode in registers, bf16 x on tensor cores).  The common
+codec (w = 16: K1 and K9 with 8 high and, for K1, 4-bit lo codes whose
+values fit int8; K2 with such codes; K10 with 8 high) decodes four
+positions at a time with byte permutes, driven where it needs them by the
+small tables that ``byte_path_tables`` builds here and the launcher hands
+to the kernel; every other codec takes the kernel's general path.  K3 and
+K8 (and the other four at other widths) run the first template
+(``strum_matmul_kernel``).
 
 At decode the 2-D kernels split K across the blocks of one thread-block
 cluster (``_split_count``, at most ``MAX_SPLITS``) and add the partial tiles
@@ -87,8 +90,9 @@ _ENTRY = {"onehot": "strum_onehot_launch", "maskfree": "strum_maskfree_launch",
           "maskfree_p": "strum_maskfree_p_launch"}
 _BN = 64  # output columns per CUDA block of the template (kBN in the source)
 MAX_SPLITS = 8  # K slices of one 2-D tile: one portable cluster (kMaxSplits)
-#: K1 and K9 run the streamed kernel up to this block width (the template above)
-_STREAM = ("onehot", "histream")
+#: K1, K2, K9 and K10 run the streamed kernel up to this block width, for w
+#: % 8 == 0 (the template otherwise)
+_STREAM = ("onehot", "maskfree", "histream", "maskfree_p")
 STREAM_MAX_W = 64
 STREAM_BN = 128  # output columns per block of the streamed kernel (kSBN)
 
@@ -202,43 +206,66 @@ def _nibble_selector(nib: int) -> int:
     return sel
 
 
+def _lo_table(method: str, q: int, L):
+    """The 16-byte table of 4-bit lo code -> int8 value (as 16 bytes), or
+    None where a code the codec can emit decodes outside [-128, 127]: dliq q
+    = 4 gives [-128, 112]; mip2q emits +-2^k for k <= L, so it needs L <= 6
+    (L = 7 emits +128; an unknown L counts as the widest, 7).  Entries of
+    codes the codec never emits are their values wrapped to a byte."""
+    if q != 4:
+        return None
+    codes = torch.arange(16, dtype=torch.int32)
+    decoded = decode_low_values(codes, method, q)
+    emitted = decoded[(codes & 7) <= (7 if L is None else L)] if method == "mip2q" \
+        else decoded
+    if int(emitted.min()) < -128 or int(emitted.max()) > 127:
+        return None
+    return [int(v) & 0xFF for v in decoded]
+
+
 @functools.lru_cache(maxsize=None)
 def byte_path_tables(w: int, n_low: int, *, q: int = 4, method: str = "sparsity",
-                     L=None, reads_lo: bool = True):
-    """The 20 words K1 / K9 take for the byte path, or None for the general
-    path: 16 ``prmt`` selectors (one per mask nibble) and the 16-byte table
-    of lo code -> int8 value (4 words, code c in byte c % 4 of word c // 4).
+                     L=None, kernel: str = "onehot"):
+    """The 20 words a streamed kernel (``_STREAM``) takes for the byte path,
+    or None for the general path: 16 ``prmt`` selectors (one per mask
+    nibble) and the 16-byte table of lo code -> int8 value (4 words, code c
+    in byte c % 4 of word c // 4).
 
-    The byte path is the codec w = 16 with 8 high positions; where lo is
-    read (``reads_lo`` and a method that stores lo) its codes must be 4 bits
-    and every code the codec can emit must decode into [-128, 127]: dliq q =
-    4 gives [-128, 112]; mip2q emits +-2^k for k <= L, so it needs L <= 6
-    (L = 7 emits +128; an unknown L counts as the widest, 7).  Table entries
-    of codes the codec never emits are their values wrapped to a byte."""
-    if w != 16 or n_low != 8:
+    K1 / K9 (``kernel`` "onehot" / "histream"): the codec w = 16 with 8 high
+    positions; where lo is read (K1, a method that stores lo) its codes
+    must be 4 bits and every code the codec can emit must decode
+    into [-128, 127] (``_lo_table``).  K2 ("maskfree"): w = 16, every
+    position a lo code under that same rule; its codes are in position
+    order, so the selectors are 0 (not read).  K10 ("maskfree_p"): w = 16
+    with 8 high; it places hi bytes in order and reads no lo, so all 20
+    words are 0 (not read): their presence selects the byte path."""
+    if w != 16:
         return None
-    values = [0] * 16
-    if reads_lo and method != "sparsity":
-        if q != 4:
+    if kernel == "maskfree":
+        values = _lo_table(method, q, L) if n_low == w and method != "sparsity" else None
+        if values is None:
             return None
-        codes = torch.arange(16, dtype=torch.int32)
-        decoded = decode_low_values(codes, method, q)
-        if method == "mip2q":
-            emitted = decoded[(codes & 7) <= (7 if L is None else L)]
-        else:
-            emitted = decoded
-        if int(emitted.min()) < -128 or int(emitted.max()) > 127:
-            return None
-        values = [int(v) & 0xFF for v in decoded]
-    sel = [_nibble_selector(nib) for nib in range(16)]
+        sel = [0] * 16
+    elif n_low != 8:
+        return None
+    elif kernel == "maskfree_p":
+        return (0,) * 20
+    else:
+        values = [0] * 16
+        if kernel == "onehot" and method != "sparsity":
+            values = _lo_table(method, q, L)
+            if values is None:
+                return None
+        sel = [_nibble_selector(nib) for nib in range(16)]
     code = [sum(values[4 * i + b] << (8 * b) for b in range(4)) for i in range(4)]
     return tuple(sel + code)
 
 
 @functools.lru_cache(maxsize=None)
-def _table_words(w, n_low, q, method, L, reads_lo):
-    """``byte_path_tables`` as the ctypes array the launcher takes, or None."""
-    words = byte_path_tables(w, n_low, q=q, method=method, L=L, reads_lo=reads_lo)
+def _table_words(name, w, n_low, q, method, L):
+    """Kernel ``name``'s ``byte_path_tables`` as the ctypes array the
+    launcher takes, or None."""
+    words = byte_path_tables(w, n_low, q=q, method=method, L=L, kernel=name)
     return (ctypes.c_uint32 * len(words))(*words) if words else None
 
 
@@ -252,8 +279,8 @@ def _lib():
         if fn.argtypes is None:
             # 2-D: M N K ldx nb w rows x3 n_low q method splits;
             # grouped: G M N K nb w rows x3 n_low q method; K6 and K7 also
-            # take the live-row counts after scale; K1 and K9 take the byte
-            # path's tables (host memory) before the stream
+            # take the live-row counts after scale; the streamed kernels
+            # take the byte path's tables (host memory) before the stream
             ints = 12 if name.startswith("grouped_") else 13
             ptrs = 6 if name in _ROWS else 5
             tables = [ctypes.POINTER(ctypes.c_uint32)] if name in _STREAM else []
@@ -274,12 +301,18 @@ def _splits(m: int, n: int, nb: int, device: torch.device) -> int:
     return max(1, min(math.ceil(2 * sms / tiles), nb // 4, MAX_SPLITS))
 
 
+def _streamed(name: str, w: int) -> bool:
+    """Whether a 2-D launch of kernel ``name`` runs the streamed kernel."""
+    return name in _STREAM and w <= STREAM_MAX_W and w % 8 == 0
+
+
 def _stream_splits(m: int, n: int, nb: int, bf16: bool, device: torch.device) -> int:
-    """K1 / K9's split: a 128-column tile (16 rows; 128 rows past 16 rows of
-    bf16 x) holds ~180 KB of shared memory, one block an SM, so K is split
-    until the tiles cover the SMs once (no second partial wave), at most
-    ``MAX_SPLITS`` slices of at least 4 w-blocks.  The launcher takes fewer
-    where the card cannot hold every cluster at once (it asks the card)."""
+    """The streamed kernel's split: a 128-column tile (16 rows; 128 rows
+    past 16 rows of bf16 x) runs one block an SM (its launch bounds; K1's
+    tile holds ~180 KB of shared memory), so K is split until the tiles
+    cover the SMs once (no second partial wave), at most ``MAX_SPLITS``
+    slices of at least 4 w-blocks.  The launcher takes fewer where the card
+    cannot hold every cluster at once (it asks the card)."""
     bm = 128 if bf16 and m > 16 else 16
     tiles = math.ceil(n / STREAM_BN) * math.ceil(m / bm)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -291,7 +324,7 @@ def _stream_splits(m: int, n: int, nb: int, bf16: bool, device: torch.device) ->
 def _split_count(name: str, m: int, n: int, nb: int, w: int, bf16: bool,
                  device: torch.device) -> int:
     """K slices a 2-D launch of kernel ``name`` takes."""
-    if name in _STREAM and w <= STREAM_MAX_W:
+    if _streamed(name, w):
         return _stream_splits(m, n, nb, bf16, device)
     return _splits(m, n, nb, device)
 
@@ -302,9 +335,9 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
     ``None`` marks a field the kernel does not read.  A 2-D kernel takes x
     (M, K), fields (nb, rows, N) and scale (1, N); a grouped one (name
     ``grouped_*``) x (G, M, K), fields (G, nb, rows, N) and scale (G, 1, N);
-    K6 and K7 (``_ROWS``) also the live rows per group, (G,) or None; K1
-    and K9 (``_STREAM``) the byte path's tables where the codec (with
-    mip2q's ``L``) allows it."""
+    K6 and K7 (``_ROWS``) also the live rows per group, (G,) or None; K1,
+    K2, K9 and K10 (``_STREAM``) the byte path's tables where the codec
+    (with mip2q's ``L``) allows it."""
     lead = 1 if name.startswith("grouped_") else 0
     if x.dim() != 2 + lead:
         raise ValueError(f"cuda:{name}: x must be {2 + lead}-D, got {tuple(x.shape)}")
@@ -360,8 +393,8 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
         tables = []
         if name in _STREAM:
-            tables = [_table_words(w, n_low, q, method, L, name == "onehot")
-                      if w <= STREAM_MAX_W else None]
+            tables = [_table_words(name, w, n_low, q, method, L)
+                      if _streamed(name, w) else None]
         err = fn(x.data_ptr(), int(bf16), *ptrs, scale.data_ptr(), out.data_ptr(), m, n,
                  k, x.stride(0), nb, w, *nrows, n_low, q, METHOD_CODES[method], splits,
                  *tables, stream)
@@ -393,15 +426,17 @@ def strum_matmul_onehot(x2, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
                    method=method, L=L)
 
 
-def strum_matmul_maskfree(x2, lo, scale, *, w: int, q: int,
-                          method: str) -> torch.Tensor:
-    """K2 (p = 1): y = x2 @ dequant(lo, scale); reads neither mask nor hi."""
+def strum_matmul_maskfree(x2, lo, scale, *, w: int, q: int, method: str,
+                          L=None) -> torch.Tensor:
+    """K2 (p = 1): y = x2 @ dequant(lo, scale); reads neither mask nor hi.
+    ``L`` (mip2q's largest shift, optional) lets a mip2q payload take the
+    byte path (``byte_path_tables``); it changes no result."""
     if method not in ("dliq", "mip2q"):
         raise ValueError(f"maskfree kernel needs a lo payload, got {method!r}")
     if _route(x2) == "plain":
         return strum_matmul_maskfree_plain(x2, lo, scale, w=w, q=q, method=method)
     return _launch("maskfree", x2, None, None, lo, scale, w=w, n_low=w, q=q,
-                   method=method)
+                   method=method, L=L)
 
 
 def strum_matmul_dense(x2, hi, scale, *, w: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Port kernels K1-K11 on the card against their plain PyTorch versions
 (K4 and K5 split-KV with their combine kernel, at pages of 16 and 128
-positions; K6 and K7 with and without live-row counts; K1 and K9's
-streamed kernel at its tile edges, byte path and general path; K1-K3, K9,
-K10 bit-identical across calls).
+positions; K6 and K7 with and without live-row counts; the streamed
+kernel's four modes, K1, K2, K9 and K10, at its tile edges, byte path and
+general path, and the template they keep at other widths; K1-K3, K9, K10
+bit-identical across calls).
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -374,6 +375,89 @@ def test_streamed_k9_on_card(dev, w, m, k, n):
     assert err <= REL_TOL * y_plain.abs().max().item(), err
 
 
+#: K2's streamed codecs: the byte path (w = 16, 4-bit codes that fit int8)
+#: and the general path (mip2q L = 7 emits +128; 3-bit fields straddle
+#: bytes at w = 8; w = 32)
+K2_CODECS = [StruMConfig(method="dliq", p=1.0, q=4), StruMConfig(method="mip2q", p=1.0, L=5),
+             StruMConfig(method="mip2q", p=1.0, L=7),
+             StruMConfig(method="dliq", w=8, p=1.0, q=3),
+             StruMConfig(method="dliq", w=32, p=1.0, q=4)]
+#: K10's streamed codecs: the byte path (w = 16, 8 high; lo is never read,
+#: so L = 7 and dliq take it too) and the general path (6, 24 and 12 high;
+#: w = 24 pads a K chunk of 120 to 128)
+K10_CODECS = [StruMConfig(method="mip2q", p=0.5, L=5), StruMConfig(method="dliq", p=0.5, q=4),
+              StruMConfig(method="mip2q", p=0.5, L=7),
+              StruMConfig(method="mip2q", w=8, p=0.25, L=5),
+              StruMConfig(method="dliq", w=32, p=0.75, q=4),
+              StruMConfig(method="mip2q", w=24, p=0.5, L=5)]
+
+
+def _stream_mode_held(dev, name, m, k, n, cfg, dtype):
+    """K2 (``name`` "maskfree") or K10 ("maskfree_p") through ``ops`` on
+    aligned and unaligned x: one launch each, both within REL_TOL of the
+    plain version and bit-identical to each other (x staged by asynchronous
+    copies or by plain loads lands as the same tile).  Returns the payload."""
+    x, packed = _case(dev, m, k, n, cfg, dtype)
+    if name == "maskfree":
+        def call(x_, p):
+            return ops.strum_matmul(x_, p, out_dtype=torch.float32, variant="maskfree")
+    else:
+        def call(x_, p):
+            return ops.strum_matmul_draft(x_, p, mode="maskfree_p", out_dtype=torch.float32)
+    before = K.launch_counts[name]
+    y, y_odd = call(x, packed), call(_unaligned(x), packed)
+    torch.cuda.synchronize()
+    assert K.launch_counts[name] == before + 2
+    want = call(x.cpu(), _to_cpu(packed))
+    err = (y.cpu() - want).abs().max().item()
+    assert err <= REL_TOL * want.abs().max().item(), err
+    assert torch.equal(y, y_odd)
+    return packed
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 128])
+@pytest.mark.parametrize("k,n", EDGE_SHAPES)
+@pytest.mark.parametrize("cfg", K2_CODECS, ids=_codec_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_k2_on_card(dev, m, k, n, cfg, dtype):
+    """K2 in the streamed kernel's lo-only mode at the main path's row
+    counts and past the 16-row tile, odd N, K % w != 0, unaligned x; the
+    byte path exactly where the codes fit int8."""
+    packed = _stream_mode_held(dev, "maskfree", m, k, n, cfg, dtype)
+    assert K._streamed("maskfree", packed.w)
+    byte = K.byte_path_tables(packed.w, packed.n_low, q=packed.q, method=packed.method,
+                              L=packed.L, kernel="maskfree") is not None
+    assert byte == (cfg.w == 16 and cfg.q == 4 and (cfg.method == "dliq" or cfg.L <= 6))
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 128])
+@pytest.mark.parametrize("k,n", EDGE_SHAPES)
+@pytest.mark.parametrize("cfg", K10_CODECS, ids=_codec_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_k10_on_card(dev, m, k, n, cfg, dtype):
+    """K10 in the streamed kernel's hi-only mode at the same edges; the byte
+    path at w = 16 with 8 high."""
+    packed = _stream_mode_held(dev, "maskfree_p", m, k, n, cfg, dtype)
+    assert K._streamed("maskfree_p", packed.w)
+    byte = K.byte_path_tables(packed.w, packed.n_low, kernel="maskfree_p") is not None
+    assert byte == (cfg.w == 16 and cfg.n_low == 8)
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("maskfree", StruMConfig(method="dliq", w=4, p=1.0, q=3)),
+    ("maskfree", StruMConfig(method="dliq", w=128, p=1.0, q=4)),
+    ("maskfree_p", StruMConfig(method="mip2q", w=12, p=0.5, L=5)),
+    ("maskfree_p", StruMConfig(method="mip2q", w=128, p=0.5, L=5))],
+    ids=lambda v: v if isinstance(v, str) else _codec_id(v))
+@pytest.mark.parametrize("m", [4, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k10_keep_the_template_past_the_streamed_widths_on_card(dev, name, cfg, m, dtype):
+    """Where the streamed kernel's constraints fail (w % 8 != 0, w > 64) K2
+    and K10 run the template, with no byte-path tables."""
+    packed = _stream_mode_held(dev, name, m, 2000, 130, cfg, dtype)
+    assert not K._streamed(name, packed.w)
+
+
 # ------------------------------------------------ packed KV pages: K4, K5, K11
 
 PAGE_CODECS = [StruMConfig(method="mip2q", p=0.5, L=7),
@@ -706,9 +790,10 @@ def test_draft_kernel_matches_plain_on_card(dev, m, k, n, cfg, mode):
 
 
 def test_draft_kernels_launch_with_null_fields(dev, monkeypatch):
-    """The fields a draft kernel does not stream reach the launch as null
-    pointers; the kernel runs and agrees with its plain version."""
+    """The fields a draft kernel, or K2, does not stream reach the launch as
+    null pointers; the kernel runs and agrees with its plain version."""
     x, packed = _case(dev, 4, 256, 192, StruMConfig(), torch.float32)
+    _, p1 = _case(dev, 4, 256, 192, StruMConfig(method="dliq", p=1.0, q=4), torch.float32)
     seen = {}
     launch = K._launch
 
@@ -717,15 +802,20 @@ def test_draft_kernels_launch_with_null_fields(dev, monkeypatch):
         return launch(name, x_, mask, hi, lo, scale, **kw)
     monkeypatch.setattr(K, "_launch", spy)
     kw = dict(w=packed.w, n_low=packed.n_low)
+    kw2 = dict(w=p1.w, q=p1.q, method=p1.method)
     y9 = K.strum_matmul_histream(x, packed.mask, packed.hi, packed.scale, **kw)
     y10 = K.strum_matmul_maskfree_p(x, packed.hi, packed.scale, **kw)
+    y2 = K.strum_matmul_maskfree(x, p1.lo, p1.scale, **kw2)
     torch.cuda.synchronize()
-    assert seen == {"histream": (False, False, True), "maskfree_p": (True, False, True)}
-    cpu = _to_cpu(packed)
+    assert seen == {"histream": (False, False, True), "maskfree_p": (True, False, True),
+                    "maskfree": (True, True, False)}
+    cpu, cpu1 = _to_cpu(packed), _to_cpu(p1)
     for y, want in ((y9, K.strum_matmul_histream_plain(x.cpu(), cpu.mask, cpu.hi,
                                                         cpu.scale, **kw)),
                     (y10, K.strum_matmul_maskfree_p_plain(x.cpu(), cpu.hi, cpu.scale,
-                                                          **kw))):
+                                                          **kw)),
+                    (y2, K.strum_matmul_maskfree_plain(x.cpu(), cpu1.lo, cpu1.scale,
+                                                       **kw2))):
         assert (y.cpu() - want).abs().max().item() <= REL_TOL * want.abs().max().item()
 
 

@@ -156,7 +156,7 @@ def test_histream_byte_path_places_hi_and_zeroes_low(method):
     """K9 (and a sparsity payload on K1): the same tables with no lo stream
     give the hi values at their masked positions and 0 elsewhere."""
     _, m, h0, h1, _, hi_vals, _ = _case("mip2q", 5, seed=1)
-    tables = byte_path_tables(W, N_LOW, method=method, reads_lo=False)
+    tables = byte_path_tables(W, N_LOW, method=method, kernel="histream")
     got, got_bf16 = decode_block_bytes(m, h0, h1, None, tables, reads_lo=False)
     assert torch.equal(got, hi_vals)
     assert torch.equal(got_bf16, hi_vals.to(torch.float32))
