@@ -29,7 +29,8 @@ Phases, each fatal on failure:
      and range of the prefill and decode times;
   e. two shorter runs (2 layers, full width) under ``--strum dliq --p 1.0``
      and ``--p 0``, which must select and launch ``cuda:maskfree`` and
-     ``cuda:dense``;
+     ``cuda:dense`` (K3 on the streamed kernel's byte path: every entry's
+     payload routes there);
   f. phase d's logits at every decode position against the same port run
      through the ``torch`` family (dequantize + torch.matmul), teacher-forced;
   g. hold the packed-KV kernels K4 (mip2q p=0.5 L=7 pages), K5 (dliq p=1
@@ -76,9 +77,9 @@ Phases, each fatal on failure:
      zero past them, K6 and its plain version take them as ``rows``, rows
      past each count must be exactly 0, and the bound counts only the live
      experts' bytes (the ``torch.bmm`` yardstick stays over all 64); the
-     same routed case for K7 (dliq p=1 q=4); each routed time must be below
-     its kernel's all-live capacity-6 time (a row tile past the count reads
-     no weight byte);
+     same routed case for K7 (dliq p=1 q=4) and K8 (mip2q p=0); each routed
+     time must be below its kernel's all-live capacity-6 time (a row tile
+     past the count reads no weight byte);
   l. serve Moonshot-16B-A3B at full width with its depth cut to MOE_LAYERS
      of 48 layers through the paged runtime (``serve --paged --kv-cache
      mip2q --prompt-len 128 --gen 32``) and the dense-cache loop (batch 4,
@@ -90,7 +91,8 @@ Phases, each fatal on failure:
      torch family, logits compared to phase f's tolerance;
   m. 2-layer full-width Moonshot under dliq p=1 and mip2q p=0 weights must
      select and launch K7 (``cuda:grouped_maskfree``) and K8
-     (``cuda:grouped_dense``);
+     (``cuda:grouped_dense``), every launch with each expert's live rows
+     (K3 for the attention linears of the p=0 run, on the byte path);
   n. hold the draft kernels K9 (histream: mask + hi) and K10 (maskfree_p: hi
      only) against their plain versions at OLMo-1B's seven linear shapes
      (mip2q p=0.5 L=5, bf16 x, M = 4, 1 and 16) within KERNEL_TOL x max|plain|,
@@ -190,7 +192,7 @@ def _phase(name: str) -> None:
 
 
 #: kernels of this slice whose ptxas report is printed entry by entry (the
-#: streamed kernel of K1, K2, K9 and K10)
+#: streamed kernel of K1, K2, K3, K8, K9 and K10)
 NEW_KERNELS = ("stream_kernel",)
 
 
@@ -490,6 +492,9 @@ def _serve(argv, variant, counts):
     plan = res["plan"]
     variants = set(plan.variants().values())
     _check(variants == {f"cuda:{variant}"}, f"plan selected {variants}")
+    if variant == "dense":
+        routes = _dense_routes(plan)
+        _check(routes == {"bytes"}, f"K3's payloads route to {routes}, want the byte path")
     cfg = res["cfg"]
     steps = 1 + res["gen"] + 2     # + the untimed warm-up prefill and decode step
     want = 7 * cfg.n_layers * steps
@@ -499,6 +504,14 @@ def _serve(argv, variant, counts):
     print(f"  launches in this run: {launched} (7 linears x {cfg.n_layers} layers "
           f"x {steps} steps, 2 of them warm-up)", flush=True)
     return res
+
+
+def _dense_routes(plan) -> set:
+    """Where K3 / K8 run each n_low = 0 entry of a plan (``_dense_view``:
+    the streamed kernel's byte path, its general path or the template)."""
+    from repro_torch.kernels import strum_matmul as K
+    return {K._dense_view(e.cfg.w, *e.leaf["hi"].shape[-3:-1])[0]
+            for e in plan.entries.values() if e.cfg.n_low == 0}
 
 
 def serve_times(res, clocks) -> dict:
@@ -1109,7 +1122,7 @@ def phase_k(dev, gen, clocks):
                   flush=True)
             del calls
             torch.cuda.empty_cache()
-    for name in ("grouped_onehot", "grouped_maskfree"):
+    for name in ("grouped_onehot", "grouped_maskfree", "grouped_dense"):
         routed = _routed_case(dev, gen, clocks, configs[name], name)
         full = rows[name]["cases"][0]          # all 64 experts live, capacity 6
         _check(routed["ms"] < full["ms"], f"{name}: routed decode {routed['ms']} ms is "
@@ -1121,7 +1134,7 @@ def phase_k(dev, gen, clocks):
 
 
 def _routed_case(dev, gen, clocks, cfg, name):
-    """K6 (or K7: ``name``) at a routed Moonshot decode: the port's own
+    """K6 (or K7, K8: ``name``) at a routed Moonshot decode: the port's own
     ``_route`` on 4 tokens at top-6 gives each expert's filled slots
     (``rows``, <= 24 of 64 live), x is zero past each count; kernel and
     plain version take ``rows``, the
@@ -1176,7 +1189,8 @@ def _routed_case(dev, gen, clocks, cfg, name):
         "library_ms": (_graphed(lambda: [torch.bmm(cl[0], cl[4]) for cl in calls]), 10)})
     live = counts > 0
     rows_live = int(counts.sum())
-    read = ("mask", "hi", "lo") if name == "grouped_onehot" else ("lo",)
+    read = {"grouped_onehot": ("mask", "hi", "lo"), "grouped_maskfree": ("lo",),
+            "grouped_dense": ("hi",)}[name]
     nbytes = sum(sum(cl[3][f][live].numel() for f in read)
                  + 4 * n_live * n + 2 * rows_live * k + 4 * g * c * n
                  for cl, (k, n) in zip(calls, MOE_LAYER))
@@ -1298,10 +1312,23 @@ def phase_l(dev, counts):
 
 
 def _serve_moe(argv, attn, grouped, counts):
+    """A 2-layer MoE serve whose expert stacks run kernel ``grouped`` (K7 or
+    K8), each launch with the experts' live-row counts."""
+    import torch
     from repro_torch.kernels import strum_matmul as K
     from repro_torch.launch import serve as S
+    wrapper = f"strum_matmul_{grouped}"
+    kernel, seen = getattr(K, wrapper), []
+
+    def spy(x3, *a, rows=None, **kw):
+        seen.append((tuple(x3.shape), rows))
+        return kernel(x3, *a, rows=rows, **kw)
     K.reset_launch_counts()
-    res = S.run(argv)
+    setattr(K, wrapper, spy)
+    try:
+        res = S.run(argv)
+    finally:
+        setattr(K, wrapper, kernel)
     launched = dict(K.launch_counts)
     for line in S.report(res):
         print("  " + line, flush=True)
@@ -1314,10 +1341,20 @@ def _serve_moe(argv, attn, grouped, counts):
     _check(all(launched[k] == v for k, v in want.items()) and
            sum(launched.values()) == sum(want.values()),
            f"launches {launched}, want {want} only")
+    _check(len(seen) == launched[grouped] and all(
+        r is not None and r.is_cuda and r.dtype == torch.int32 and tuple(r.shape) ==
+        (shape[0],) and 0 <= int(r.min()) and int(r.max()) <= shape[1]
+        for shape, r in seen), f"{grouped}: {len(seen)} calls, not every one of the "
+           f"{launched[grouped]} launches with each expert's live rows")
+    if grouped == "grouped_dense":
+        routes = _dense_routes(res["plan"])
+        _check(routes == {"bytes"}, f"K3 / K8's payloads route to {routes}")
     counts[grouped] = launched[grouped]
+    live = [int((r > 0).sum()) for _, r in seen]
     print(f"  launches in this run: {launched} (3 expert stacks and 4 attention "
-          f"linears x {cfg.n_layers} layers x {steps} steps, 2 of them warm-up)",
-          flush=True)
+          f"linears x {cfg.n_layers} layers x {steps} steps, 2 of them warm-up); every "
+          f"{grouped} launch with the experts' live rows ({min(live)}-{max(live)} of "
+          f"{seen[0][0][0]} experts live)", flush=True)
 
 
 # ---------------------------------------------- speculative decoding (n-o) --

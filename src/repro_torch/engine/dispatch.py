@@ -136,9 +136,9 @@ def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
     to x's dtype and runs a batched matmul accumulated in f32.
 
     ``rows`` (lead...) int on x's device, optional: the live rows of each
-    stack (x is zero past them).  ``cuda:grouped`` (K6) and
-    ``cuda:grouped_maskfree`` (K7) skip the work past them; the other
-    variants ignore it, with the same result.
+    stack (x is zero past them).  ``cuda:grouped`` (K6),
+    ``cuda:grouped_maskfree`` (K7) and ``cuda:grouped_dense`` (K8) skip the
+    work past them; the other variants ignore it, with the same result.
 
     ``fsdp_axes`` (the reference's compressed-gather path inside a mesh
     body) is not ported yet (ROADMAP queue 1 item 13) and raises.

@@ -27,10 +27,11 @@
 // values are exact in bf16 and the scale comes after the sum).  What set the
 // time of the first designs here was the decode work per weight, not bytes.
 //
-// K3 and K8 (one template, strum_matmul_kernel; a first version that is
-// right, not yet fast; also K1, K2, K9 and K10 at w > 64 or w % 8 != 0): a
-// block owns a BM x 64 output tile and a contiguous range of w-blocks along
-// K.  For each
+// The first template (strum_matmul_kernel; a first version that is right,
+// not fast), kept only for the widths the streamed kernel below cannot take:
+// K1, K2, K9 and K10 at w > 64 or w % 8 != 0, K3 and K8 there too unless
+// the 16-wide view (below) applies.  A block owns a BM x 64 output tile and
+// a contiguous range of w-blocks along K.  For each
 // K chunk it (1) decodes the chunk's weights into shared memory as f32, one
 // thread per (w-block, column): a high position takes the next hi byte and
 // a low one the next q-bit field, so a position's rank inside its set is
@@ -53,12 +54,26 @@
 // pass a null pointer for every field a kernel does not stream, so a stray
 // read faults instead of going unnoticed.
 //
-// K1, K2, K9 and K10 (one kernel, stream_kernel; MODE picks the fields;
-// w <= 64, w % 8 == 0).  K9 (histream, the other draft lowering) is K1
-// without the lo stream: a high position takes its hi byte, a low one is 0,
-// and lo is never read.  K2 (p = 1) streams lo alone: position i takes lo
-// field i.  K10 streams hi alone: position i < n_high takes hi byte i, the
-// rest are 0.
+// K1, K2, K3, K8, K9 and K10 (one kernel, stream_kernel; MODE picks the
+// fields; w <= 64, w % 8 == 0).  K9 (histream, the other draft lowering) is
+// K1 without the lo stream: a high position takes its hi byte, a low one is
+// 0, and lo is never read.  K2 (p = 1) streams lo alone: position i takes
+// lo field i.  K10 streams hi alone: position i < n_high takes hi byte i,
+// the rest are 0.  K3 and K8 (kDense, n_low = 0) stream hi alone, and
+// position i takes hi byte i: int8 weights, the family's most bytes (67.8
+// MB an OLMo-1B layer, 566.6 MB a Moonshot-16B-A3B MoE layer), so bytes
+// bound them at decode and the bf16 tensor-core rate at M = 128.  The first
+// template spent dependent 1-byte loads and f32 FMAs on them (4.0x and 3.3x
+// the one-call yardsticks, PERF.md).  Because hi (nb, w, N) is (nb w, N)
+// contiguous int8, the launcher hands any payload with nb w % 16 == 0 to
+// the byte path as nb w / 16 blocks of 16 (x's true K still nulls the
+// padded rows); other widths with w <= 64, w % 8 == 0 take the general
+// path.  K8 is the same mode with GROUPED set: blockIdx.z is the group, whose
+// w-blocks are [g nb, g nb + nb) of the stacked field (one group base, so
+// the read-only argument block needs no per-group copy), no split and no
+// cluster (a Moonshot stack is 704-1024 blocks), and it reads the live-row
+// counts as K6 does: a row tile past rows[g] writes zeros and returns
+// before it stages anything.
 // The template spent ~300 issued instructions a weight on K1 (0.60 ms an
 // OLMo-1B layer at decode against a 17.7 us byte bound, which leaves ~9 at
 // the card's issue rate): 1-byte dependent global loads and nothing in
@@ -77,7 +92,8 @@
 // Unaligned fields or x (odd N, K % 8 != 0) take plain loads into the ring.
 //   Decode: the common codec (w = 16, 8 high, 4-bit lo codes whose values
 // fit int8: dliq q = 4, mip2q L <= 6; for K9 and K10 any w = 16, p = 0.5
-// payload; for K2 w = 16 with those 4-bit codes) takes the byte path: two
+// payload; for K2 w = 16 with those 4-bit codes; for K3 and K8 w = 16 at
+// n_low = 0, which the 16-wide view makes of most widths) takes the byte path: two
 // threads share a w-block of four adjacent columns (one shared-memory word
 // a staged row), a column's fields are byte-gathered by prmt, lo codes
 // become int8 values through a 16-byte code table in registers, and (K1,
@@ -86,7 +102,9 @@
 // with a selector from a 16-entry table indexed by the mask nibble places
 // all four; K2's codes are in position order (dliq q = 4's are their
 // values' top nibbles: a shift, no table) and K10's hi bytes are its
-// leading 8 positions, so neither places anything.  K10's trailing 8
+// leading 8 positions, so neither places anything; K3 / K8's 16 hi bytes
+// are positions 0-15: four gathers, four conversions, no table, no
+// placement (~3 instructions a weight).  K10's trailing 8
 // positions are 0, so its byte path stages and multiplies only the leading
 // 8 of each w-block, x and weights alike: half the tile and half the
 // product of zero-filling the rest (PERF.md has both designs' times).
@@ -945,13 +963,14 @@ constexpr int kSStages = 6;     // ring slots, each the packed rows and x rows o
 constexpr int kSAhead = kSStages - 2;  // chunks in flight beyond the one decoding
 
 struct StreamArgs {
-  const void* x;        // (M, K), row stride ldx
-  const uint8_t* mask;  // (nb, mask_rows, N); null in kMaskfree, kMaskfreeP modes
+  const void* x;        // (M, K), row stride ldx; grouped: (G, M, K), ldx = K
+  const uint8_t* mask;  // (nb, mask_rows, N); null in kMaskfree, kMaskfreeP, kDense modes
   const int8_t* hi;     // (nb, hi_rows, N); null in kMaskfree mode
-  const uint8_t* lo;    // (nb, lo_rows, N); null in kHistream, kMaskfreeP modes
+  const uint8_t* lo;    // (nb, lo_rows, N); null in kHistream, kMaskfreeP, kDense modes
   const uint8_t* dummy; // a streamed field: the source of zero-fill copies
-  const float* scale;   // (N,)
-  float* out;           // (M, N)
+  const float* scale;   // (N,); grouped: (G, N)
+  const int* live;      // grouped: (G,) live rows of each group, or null (all M)
+  float* out;           // (M, N); grouped: (G, M, N)
   int M, N, K, ldx;
   int nb, w, mask_rows, hi_rows, lo_rows, n_high, n_low, q, method;  // rows: 0
                                                                       // if not streamed
@@ -1056,9 +1075,13 @@ __device__ __forceinline__ int kpos(int c) {
   return COMPACT ? c + (c & ~7) : c;
 }
 
+// b_begin / b_end: the block's w-blocks, counted over the whole field (a
+// grouped launch's group g owns w-blocks [g nb, g nb + nb), so field_src
+// needs no group offset); kb0: the w-block at x's K = 0 (g nb, or 0); xr0:
+// x's row of the tile's row 0 (g M + m0, or m0).
 template <int TH, typename T, bool COMPACT>
-__device__ __forceinline__ StagePlan stage_plan(const StreamArgs& a, int b_begin, int n0,
-                                                int m0, int mrows) {
+__device__ __forceinline__ StagePlan stage_plan(const StreamArgs& a, int b_begin, int kb0,
+                                                int n0, int xr0, int mrows) {
   StagePlan p;
   const int t = threadIdx.x;
 #pragma unroll
@@ -1088,7 +1111,8 @@ __device__ __forceinline__ StagePlan stage_plan(const StreamArgs& a, int b_begin
     const int r = t / per_row, v = t - r * per_row;
     p.xk = kpos<COMPACT>(v * kEPV);
     p.xsrc = reinterpret_cast<const uint8_t*>(static_cast<const T*>(a.x) +
-                                              (size_t)(m0 + r) * a.ldx + b_begin * a.w + p.xk);
+                                              (size_t)(xr0 + r) * a.ldx +
+                                              (b_begin - kb0) * a.w + p.xk);
     p.xdst = a.xoff + (r * a.xs + v * kEPV) * (int)sizeof(T);
   }
   return p;
@@ -1103,11 +1127,11 @@ __device__ __forceinline__ StagePlan stage_plan(const StreamArgs& a, int b_begin
 // past N read as 0, and so does x past the slice or past K (padded-K weight
 // rows decode to junk, e.g. MIP2Q code 0 is +1: only zero activations null
 // them).  Unaligned fields or x are staged with plain loads into the same
-// slot.
+// slot.  b_begin, b_end, kb0 and xr0 as for stage_plan.
 template <int TH, typename T, bool COMPACT>
 __device__ __forceinline__ void stream_stage(const StreamArgs& a, const StagePlan& p, int ch,
-                                             int b_begin, int b_end, int n0, int m0,
-                                             int mrows, uint8_t* slot) {
+                                             int b_begin, int b_end, int kb0, int n0,
+                                             int xr0, int mrows, uint8_t* slot) {
   const int t = threadIdx.x;
   const int b0 = b_begin + ch * a.nbk;
   if (a.vec_fields) {
@@ -1138,7 +1162,7 @@ __device__ __forceinline__ void stream_stage(const StreamArgs& a, const StagePla
   }
   T* xt = reinterpret_cast<T*>(slot + a.xoff);
   const T* x = static_cast<const T*>(a.x);
-  const int k0 = b0 * a.w, kend = min(a.K, b_end * a.w);
+  const int k0 = (b0 - kb0) * a.w, kend = min(a.K, (b_end - kb0) * a.w);
   if (a.vec_x) {  // K, ldx and the slice ends are multiples of the vector
     constexpr int kEPV = 16 / sizeof(T);
     if (p.xk >= 0) {
@@ -1151,13 +1175,13 @@ __device__ __forceinline__ void stream_stage(const StreamArgs& a, const StagePla
     for (int i = t + TH; i < mrows * per_row; i += TH) {
       const int r = i / per_row, v = i - r * per_row, k = k0 + kpos<COMPACT>(v * kEPV);
       const bool in = k < kend;
-      g_cp_async16(xt + r * a.xs + v * kEPV, in ? x + (size_t)(m0 + r) * a.ldx + k : x,
+      g_cp_async16(xt + r * a.xs + v * kEPV, in ? x + (size_t)(xr0 + r) * a.ldx + k : x,
                    in ? 16 : 0);
     }
   } else {
     for (int i = t; i < mrows * a.kc; i += TH) {
       const int r = i / a.kc, kk = i - r * a.kc, k = k0 + kpos<COMPACT>(kk);
-      xt[r * a.xs + kk] = k < kend ? x[(size_t)(m0 + r) * a.ldx + k] : T(0.f);
+      xt[r * a.xs + kk] = k < kend ? x[(size_t)(xr0 + r) * a.ldx + k] : T(0.f);
     }
   }
 }
@@ -1212,6 +1236,8 @@ __device__ __forceinline__ void bytes_to_bf16(uint32_t v, uint32_t& p01, uint32_
 // and a shift per word and one prmt per 4 positions replace the table).
 // kMaskfreeP (8 hi rows): hi byte j is position j < 8; the tile holds only
 // those 8 positions of each w-block, as the x tile does (COMPACT).
+// kDense (16 hi rows): hi byte j is position j; four gathers and four
+// conversions a column, no mask, no table, no placement.
 // `p` is the item's words in the slot; dst[cc] + toff the shared addresses
 // of column c0 + cc's positions 0-7 and 8-15 (kMaskfreeP: 0-7) in the tile.
 template <int MODE, int SPLIT>
@@ -1220,6 +1246,21 @@ __device__ __forceinline__ void decode_bytes(const uint8_t* p, const uint32_t* s
                                              const uint32_t (&dst)[4 / SPLIT][2], uint32_t toff) {
   constexpr int kCols = 4 / SPLIT;  // columns a thread
   constexpr bool kMasked = MODE == kOnehot || MODE == kHistream;
+  if constexpr (MODE == kDense) {
+    uint32_t hr[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) hr[r] = lds32(p + r * kSBN);
+#pragma unroll
+    for (int cc = 0; cc < kCols; ++cc) {
+      const uint32_t c = c0 + cc, pick = c | (c + 4) << 4;
+      uint32_t v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bytes_to_bf16(column4(hr + 4 * j, pick), v[2 * j], v[2 * j + 1]);
+      sts128(dst[cc][0] + toff, v[0], v[1], v[2], v[3]);
+      sts128(dst[cc][1] + toff, v[4], v[5], v[6], v[7]);
+    }
+    return;
+  }
   uint32_t rows[8], lr[4];          // hi rows (kMaskfree: lo rows)
 #pragma unroll
   for (int r = 0; r < 8; ++r) rows[r] = lds32(p + ((kMasked ? 2 : 0) + r) * kSBN);
@@ -1285,7 +1326,7 @@ __device__ __forceinline__ void decode_bytes(const uint8_t* p, const uint32_t* s
 // eight bf16 a 16-byte store.  kOnehot / kHistream: a high position takes
 // the next hi byte and a low one the next q-bit field (kHistream: 0);
 // kMaskfree: position i takes q-bit field i; kMaskfreeP: position i takes
-// hi byte i below n_high, else 0.
+// hi byte i below n_high, else 0; kDense: hi byte i (n_high = w).
 template <int MODE, int TH>
 __device__ __forceinline__ void decode_general(const StreamArgs& a, const uint8_t* st,
                                                __nv_bfloat16* Wt) {
@@ -1305,7 +1346,7 @@ __device__ __forceinline__ void decode_general(const StreamArgs& a, const uint8_
         int v = 0;
         if (MODE == kMaskfree) {
           v = g_decode_low(g_lo_field<kSBN>(lcol, a.lo_rows, pos, a.q), a.method, a.q);
-        } else if (MODE == kMaskfreeP) {
+        } else if (MODE == kMaskfreeP || MODE == kDense) {
           if (pos < a.n_high) v = hcol[pos * kSBN];
         } else if ((bits >> j) & 1u) {
           if (hc < a.n_high) v = hcol[hc * kSBN];
@@ -1381,30 +1422,50 @@ __device__ __forceinline__ void stream_product(
 }
 
 // MODE: kOnehot (K1: mask + hi + lo), kHistream (K9: mask + hi, low
-// positions 0), kMaskfree (K2: lo in position order) or kMaskfreeP (K10:
-// hi in the leading n_high positions, the rest 0); a field the mode does
-// not stream is never read.  BYTES: the byte path's decode.  Grid
-// (ceil(N / 128), ceil(M / BM), K slices); the K slices of one tile are one
-// thread-block cluster.  One barrier per chunk: while chunk ch decodes into
-// one of two weight tiles, the product of chunk ch - 1 runs on the other
-// and chunks ch + 1 .. ch + kSAhead are in flight in the ring.
-template <int MODE, int BM, typename T, bool BYTES>
+// positions 0), kMaskfree (K2: lo in position order), kMaskfreeP (K10: hi
+// in the leading n_high positions, the rest 0) or kDense (K3, K8: hi is
+// every position in order); a field the mode does not stream is never
+// read.  BYTES: the byte path's decode.  Grid (ceil(N / 128), ceil(M / BM),
+// K slices); the K slices of one tile are one thread-block cluster.
+// GROUPED (kDense only, K8): blockIdx.z is the group, K is not split and
+// there is no cluster; a row tile at or past the group's live rows writes
+// zeros and returns before it reads anything.  One barrier per chunk: while
+// chunk ch decodes into one of two weight tiles, the product of chunk ch - 1
+// runs on the other and chunks ch + 1 .. ch + kSAhead are in flight in the
+// ring.
+template <int MODE, int BM, typename T, bool BYTES, bool GROUPED = false>
 __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
     stream_kernel(const __grid_constant__ StreamArgs a) {
   using S = StreamTile<BM>;
   constexpr bool kCompact = MODE == kMaskfreeP && BYTES;  // x and tile hold positions 0-7
+  static_assert(!GROUPED || MODE == kDense, "the grouped form is kDense's alone");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint32_t sel[16];
   const int t = threadIdx.x;
   const int n0 = blockIdx.x * kSBN, m0 = blockIdx.y * BM;
-  const int mrows = min(BM, a.M - m0);
-  const int b_begin = blockIdx.z * a.blocks_per_split;
-  const int b_end = min(a.nb, b_begin + a.blocks_per_split);
+  // grouped: group g's w-blocks are [g nb, g nb + nb) of the stacked field,
+  // its x rows [g M, g M + M), its scale and output offset by g N and g M N
+  const int g = GROUPED ? blockIdx.z : 0;
+  const int kb0 = GROUPED ? g * a.nb : 0;
+  const int live = GROUPED && a.live ? min(max(a.live[g], 0), a.M) : a.M;
+  const float* scale = a.scale + (GROUPED ? (size_t)g * a.N : 0);
+  float* out = a.out + (GROUPED ? (size_t)g * a.M * a.N : 0);
+  if (GROUPED && m0 >= live) {  // nothing live in this row tile: exact zeros, no read
+    for (int e = t; e < BM * kSBN; e += S::TH) {
+      const int m = m0 + e / kSBN, n = n0 + e % kSBN;
+      if (m < a.M && n < a.N) out[(size_t)m * a.N + n] = 0.f;
+    }
+    return;  // legal: a grouped launch has no cluster to wait for this block
+  }
+  const int mrows = min(BM, live - m0);
+  const int xr0 = g * a.M + m0;
+  const int b_begin = GROUPED ? kb0 : blockIdx.z * a.blocks_per_split;
+  const int b_end = GROUPED ? kb0 + a.nb : min(a.nb, b_begin + a.blocks_per_split);
   const int chunks = (b_end - b_begin + a.nbk - 1) / a.nbk;
   uint8_t* ring = smem_raw;
   __nv_bfloat16* Wt = reinterpret_cast<__nv_bfloat16*>(ring + kSStages * a.slot_bytes);  // [2]
   const int wt_elems = kSBN * a.ws;
-  if (BYTES && t < 16) sel[t] = a.sel[t];
+  if (BYTES && (MODE == kOnehot || MODE == kHistream) && t < 16) sel[t] = a.sel[t];
   // what neither staging nor decode writes and the product reads is zeroed
   // once: x rows past M in every slot, and the K pad [kc, kcp) of x and Wt
   const int row_bytes = a.xs * (int)sizeof(T);
@@ -1425,11 +1486,11 @@ __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
     Wt[tile * wt_elems + wt_off(e / pad, a.kc + e % pad, a.ws)] = __int2bfloat16_rn(0);
   }
 
-  const StagePlan plan = stage_plan<S::TH, T, kCompact>(a, b_begin, n0, m0, mrows);
+  const StagePlan plan = stage_plan<S::TH, T, kCompact>(a, b_begin, kb0, n0, xr0, mrows);
 #pragma unroll
   for (int c = 0; c < kSAhead; ++c) {  // chunks 0 .. kSAhead - 1 in flight
     if (c < chunks)
-      stream_stage<S::TH, T, kCompact>(a, plan, c, b_begin, b_end, n0, m0, mrows,
+      stream_stage<S::TH, T, kCompact>(a, plan, c, b_begin, b_end, kb0, n0, xr0, mrows,
                                        ring + c * a.slot_bytes);
     cp_async_commit_g();
   }
@@ -1479,7 +1540,7 @@ __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
     // the slot of chunk ch - 2, whose decode and product barriers have closed
     const int ahead = ch + kSAhead;
     if (ahead < chunks)
-      stream_stage<S::TH, T, kCompact>(a, plan, ahead, b_begin, b_end, n0, m0, mrows,
+      stream_stage<S::TH, T, kCompact>(a, plan, ahead, b_begin, b_end, kb0, n0, xr0, mrows,
                                        ring + (ahead % kSStages) * a.slot_bytes);
     cp_async_commit_g();
     cp_async_wait_g<kSAhead - 1>();
@@ -1518,7 +1579,7 @@ __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
   if (kKH > 1)
     for (int e = t; e < BM * kSBN; e += S::TH)
       for (int kh = 1; kh < kKH; ++kh) part[e] += part[kh * BM * kSBN + e];
-  if (gridDim.z > 1) {
+  if (!GROUPED && gridDim.z > 1) {
     // split-K, as in strum_matmul_kernel: every slice leaves its partial
     // tile in its shared memory and rank r sums elements r, r + S, ... over
     // the S partials in rank order through distributed shared memory
@@ -1535,16 +1596,25 @@ __global__ void __launch_bounds__(StreamTile<BM>::TH, 1)
     cluster.sync();  // every slice's shared memory stays alive until all are read
     return;
   }
-  for (int e = t; e < BM * kSBN; e += S::TH) {  // each thread reads what it added
+  // each thread reads what it added; grouped rows past the live count are 0
+  for (int e = t; e < BM * kSBN; e += S::TH) {
     const int m = m0 + e / kSBN, n = n0 + e % kSBN;
-    if (m < a.M && n < a.N) a.out[(size_t)m * a.N + n] = part[e] * a.scale[n];
+    if (m < a.M && n < a.N)
+      out[(size_t)m * a.N + n] = GROUPED && e / kSBN >= mrows ? 0.f : part[e] * scale[n];
   }
+}
+
+// Dynamic shared memory of a launch: the ring and the two weight tiles, or
+// the partial tiles of the epilogue, which reuse them.
+template <int BM>
+size_t stream_smem(const StreamArgs& a) {
+  return std::max((size_t)kSStages * a.slot_bytes + 2 * 2 * (size_t)kSBN * a.ws,
+                  (size_t)StreamTile<BM>::KH * BM * kSBN * sizeof(float));
 }
 
 template <int MODE, int BM, typename T, bool BYTES>
 cudaError_t stream_launch_typed(StreamArgs a, int splits, cudaStream_t stream) {
-  const size_t smem = std::max((size_t)kSStages * a.slot_bytes + 2 * 2 * (size_t)kSBN * a.ws,
-                               (size_t)StreamTile<BM>::KH * BM * kSBN * sizeof(float));
+  const size_t smem = stream_smem<BM>(a);
   auto kernel = stream_kernel<MODE, BM, T, BYTES>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -1600,8 +1670,33 @@ cudaError_t stream_launch_typed(StreamArgs a, int splits, cudaStream_t stream) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// K8: one plain launch, grid (ceil(N / 128), ceil(M / BM), G).  No split
+// and no cluster (each group's tiles stream all of K), so the split cache
+// of stream_launch_typed is not asked.
+template <int BM, typename T, bool BYTES>
+cudaError_t stream_grouped_typed(const StreamArgs& a, int G, cudaStream_t stream) {
+  const size_t smem = stream_smem<BM>(a);
+  auto kernel = stream_kernel<kDense, BM, T, BYTES, true>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.N + kSBN - 1) / kSBN, (a.M + BM - 1) / BM, G);
+  kernel<<<grid, StreamTile<BM>::TH, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// groups = 0: a 2-D launch in `splits` K slices; groups >= 1 (kDense only):
+// a stack of `groups` weights, K not split.
 template <int MODE, bool BYTES>
-cudaError_t stream_rows(const StreamArgs& a, int x_bf16, int bm, int splits, cudaStream_t s) {
+cudaError_t stream_rows(const StreamArgs& a, int x_bf16, int bm, int splits, int groups,
+                        cudaStream_t s) {
+  if constexpr (MODE == kDense) {
+    if (groups) {
+      if (!x_bf16) return stream_grouped_typed<16, float, BYTES>(a, groups, s);
+      return bm == 16 ? stream_grouped_typed<16, __nv_bfloat16, BYTES>(a, groups, s)
+                      : stream_grouped_typed<128, __nv_bfloat16, BYTES>(a, groups, s);
+    }
+  }
   if (!x_bf16) return stream_launch_typed<MODE, 16, float, BYTES>(a, splits, s);
   return bm == 16 ? stream_launch_typed<MODE, 16, __nv_bfloat16, BYTES>(a, splits, s)
                   : stream_launch_typed<MODE, 128, __nv_bfloat16, BYTES>(a, splits, s);
@@ -1609,26 +1704,30 @@ cudaError_t stream_rows(const StreamArgs& a, int x_bf16, int bm, int splits, cud
 
 template <bool BYTES>
 cudaError_t stream_mode(int mode, const StreamArgs& a, int x_bf16, int bm, int splits,
-                        cudaStream_t s) {
+                        int groups, cudaStream_t s) {
   switch (mode) {
-    case kOnehot: return stream_rows<kOnehot, BYTES>(a, x_bf16, bm, splits, s);
-    case kHistream: return stream_rows<kHistream, BYTES>(a, x_bf16, bm, splits, s);
-    case kMaskfree: return stream_rows<kMaskfree, BYTES>(a, x_bf16, bm, splits, s);
-    default: return stream_rows<kMaskfreeP, BYTES>(a, x_bf16, bm, splits, s);
+    case kOnehot: return stream_rows<kOnehot, BYTES>(a, x_bf16, bm, splits, 0, s);
+    case kHistream: return stream_rows<kHistream, BYTES>(a, x_bf16, bm, splits, 0, s);
+    case kMaskfree: return stream_rows<kMaskfree, BYTES>(a, x_bf16, bm, splits, 0, s);
+    case kDense: return stream_rows<kDense, BYTES>(a, x_bf16, bm, splits, groups, s);
+    default: return stream_rows<kMaskfreeP, BYTES>(a, x_bf16, bm, splits, 0, s);
   }
 }
 
-// K1 (kOnehot), K2 (kMaskfree), K9 (kHistream) and K10 (kMaskfreeP) for w
-// <= 64, w % 8 == 0.  Each mode streams its fields only -- K1 mask, hi and
-// lo; K9 mask and hi; K2 lo; K10 hi -- and the others may be null.
-// `tables` (host memory, 20 words: sel[16] then code[4], from
+// K1 (kOnehot), K2 (kMaskfree), K9 (kHistream), K10 (kMaskfreeP) and K3
+// (kDense) for w <= 64, w % 8 == 0; K8 is kDense with `groups` >= 1 (x (G,
+// M, K) with ldx = K, fields (G, nb, rows, N), scale (G, N), `live` (G,)
+// live rows or null).  Each mode streams its fields only -- K1 mask, hi and
+// lo; K9 mask and hi; K2 lo; K10 and K3 / K8 hi -- and the others may be
+// null.  `tables` (host memory, 20 words: sel[16] then code[4], from
 // kernels/strum_matmul.py) selects the byte path, or null.  A kOnehot call
 // that reads no lo (sparsity, n_low = 0) runs as kHistream: its low
 // positions are 0.
 int stream_launch(int mode, const void* x, int x_bf16, const void* mask, const void* hi,
-                  const void* lo, const void* scale, void* out, int M, int N, int K, int ldx,
-                  int nb, int w, int mask_rows, int hi_rows, int lo_rows, int n_low, int q,
-                  int method, int splits, const uint32_t* tables, cudaStream_t s) {
+                  const void* lo, const void* scale, const int* live, void* out, int groups,
+                  int M, int N, int K, int ldx, int nb, int w, int mask_rows, int hi_rows,
+                  int lo_rows, int n_low, int q, int method, int splits,
+                  const uint32_t* tables, cudaStream_t s) {
   const bool masked = mode == kOnehot || mode == kHistream;
   const bool reads_hi = mode != kMaskfree;
   const bool reads_lo =
@@ -1639,8 +1738,9 @@ int stream_launch(int mode, const void* x, int x_bf16, const void* mask, const v
       !scale || !out || (masked && (!mask || mask_rows != w / 8)) ||
       (reads_hi && (!hi || hi_rows < std::max(n_high, 1))) ||
       (mode == kMaskfree && (n_low != w || (method != kDliq && method != kMip2q))) ||
-      (mode == kMaskfreeP && n_high < 1) ||
-      (reads_lo && (!lo || q < 1 || q > 8 || lo_rows * 8 < n_low * q)))
+      (mode == kMaskfreeP && n_high < 1) || (mode == kDense && n_low != 0) ||
+      (groups && (mode != kDense || groups > 65535 || ldx != K || splits != 1)) ||
+      groups < 0 || (reads_lo && (!lo || q < 1 || q > 8 || lo_rows * 8 < n_low * q)))
     return (int)cudaErrorInvalidValue;
   StreamArgs a = {};
   a.x = x;
@@ -1649,9 +1749,11 @@ int stream_launch(int mode, const void* x, int x_bf16, const void* mask, const v
   a.lo = reads_lo ? static_cast<const uint8_t*>(lo) : nullptr;
   a.dummy = masked ? a.mask : reads_hi ? reinterpret_cast<const uint8_t*>(a.hi) : a.lo;
   a.scale = static_cast<const float*>(scale);
+  a.live = groups ? live : nullptr;
   a.out = static_cast<float*>(out);
   a.M = M; a.N = N; a.K = K; a.ldx = ldx;
   a.nb = nb; a.w = w;
+  a.blocks_per_split = nb;  // a 2-D launch sets its own once the split is fitted
   a.mask_rows = masked ? mask_rows : 0;
   a.hi_rows = reads_hi ? hi_rows : 0;
   a.lo_rows = reads_lo ? lo_rows : 0;
@@ -1675,9 +1777,10 @@ int stream_launch(int mode, const void* x, int x_bf16, const void* mask, const v
   const int epv = x_bf16 ? 8 : 4;
   a.vec_x = K % epv == 0 && ldx % epv == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int run = mode == kOnehot && !reads_lo ? kHistream : mode;
-  if (tables) {  // the byte path's layouts: w = 16 and (but K2) 8 high
+  if (tables) {  // the byte path's layouts: w = 16 and (but K2, K3) 8 high
     const bool fits =
         w == 16 && (mode == kMaskfree ? q == 4 && lo_rows == 8
+                    : mode == kDense  ? hi_rows == 16
                                       : n_low == 8 && hi_rows == 8 &&
                                             (!reads_lo || (q == 4 && lo_rows == 4)));
     if (!fits) return (int)cudaErrorInvalidValue;
@@ -1686,30 +1789,17 @@ int stream_launch(int mode, const void* x, int x_bf16, const void* mask, const v
     // dliq q = 4's table (code c -> c << 4 as a byte): a code is its value's top nibble
     a.shift4 = mode == kMaskfree && a.code[0] == 0x30201000u && a.code[1] == 0x70605040u &&
                a.code[2] == 0xB0A09080u && a.code[3] == 0xF0E0D0C0u;
-    return (int)stream_mode<true>(run, a, x_bf16, bm, splits, s);
+    return (int)stream_mode<true>(run, a, x_bf16, bm, splits, groups, s);
   }
-  return (int)stream_mode<false>(run, a, x_bf16, bm, splits, s);
+  return (int)stream_mode<false>(run, a, x_bf16, bm, splits, groups, s);
 }
 
 }  // namespace
 
-#define STRUM_ENTRY(NAME, MODE)                                                       \
-  extern "C" int NAME(const void* x, int x_bf16, const void* mask, const void* hi,     \
-                      const void* lo, const void* scale, void* out, int M, int N,     \
-                      int K, int ldx, int nb, int w, int mask_rows, int hi_rows,      \
-                      int lo_rows, int n_low, int q, int method, int splits,          \
-                      void* stream) {                                                 \
-    return launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, 0, M, N, K, ldx, nb, w,  \
-                        mask_rows, hi_rows, lo_rows, n_low, q, method, splits,        \
-                        stream);                                                      \
-  }
-
-STRUM_ENTRY(strum_dense_launch, kDense)
-
-// K1, K2, K9 and K10: the 2-D entries' arguments, then `tables` (host
-// memory: the byte path's 16 selectors and 4 code-table words, or null)
-// before the stream.  w > 64 and w % 8 != 0 run on the template (tables
-// must be null).
+// K1, K2, K3, K9 and K10: x (M, K) with row stride ldx, the packed fields
+// the mode streams (the others null), then `tables` (host memory: the byte
+// path's 16 selectors and 4 code-table words, or null) before the stream.
+// w > 64 and w % 8 != 0 run on the template (tables must be null).
 #define STRUM_STREAM_ENTRY(NAME, MODE)                                                \
   extern "C" int NAME(const void* x, int x_bf16, const void* mask, const void* hi,     \
                       const void* lo, const void* scale, void* out, int M, int N,     \
@@ -1722,28 +1812,39 @@ STRUM_ENTRY(strum_dense_launch, kDense)
                           w, mask_rows, hi_rows, lo_rows, n_low, q, method, splits,   \
                           stream);                                                    \
     }                                                                                 \
-    return stream_launch(MODE, x, x_bf16, mask, hi, lo, scale, out, M, N, K, ldx, nb, \
-                         w, mask_rows, hi_rows, lo_rows, n_low, q, method, splits,    \
-                         tables, static_cast<cudaStream_t>(stream));                  \
+    return stream_launch(MODE, x, x_bf16, mask, hi, lo, scale, nullptr, out, 0, M, N, \
+                         K, ldx, nb, w, mask_rows, hi_rows, lo_rows, n_low, q, method, \
+                         splits, tables, static_cast<cudaStream_t>(stream));         \
   }
 
 STRUM_STREAM_ENTRY(strum_onehot_launch, kOnehot)
 STRUM_STREAM_ENTRY(strum_maskfree_launch, kMaskfree)      // K2: mask and hi are null
 STRUM_STREAM_ENTRY(strum_histream_launch, kHistream)      // K9: lo is null
 STRUM_STREAM_ENTRY(strum_maskfree_p_launch, kMaskfreeP)   // K10: mask and lo are null
+STRUM_STREAM_ENTRY(strum_dense_launch, kDense)            // K3: mask and lo are null
 
-// K8 (the 2-D kernels' template): x (G, M, K) contiguous, G >= 1, no split-K.
-#define STRUM_GROUPED_ENTRY(NAME, MODE)                                               \
-  extern "C" int NAME(const void* x, int x_bf16, const void* mask, const void* hi,     \
-                      const void* lo, const void* scale, void* out, int G, int M,     \
-                      int N, int K, int nb, int w, int mask_rows, int hi_rows,        \
-                      int lo_rows, int n_low, int q, int method, void* stream) {      \
-    if (G <= 0) return (int)cudaErrorInvalidValue;                                   \
-    return launch<MODE>(x, x_bf16, mask, hi, lo, scale, out, G, M, N, K, K, nb, w,    \
-                        mask_rows, hi_rows, lo_rows, n_low, q, method, 1, stream);    \
+// K8: x (G, M, K) contiguous, hi (G, nb, hi_rows, N), scale (G, N); mask and
+// lo are not read (pass null); rows (G,) int32 live rows per group, or null
+// (every row live): a row tile at or past rows[g] reads nothing and writes
+// zeros, and rows past the count inside a computed tile are written as 0.
+// `tables` as for the 2-D entries.  w > 64 and w % 8 != 0 run on the
+// template, which does not read rows (x is 0 past them, and so is y).
+extern "C" int strum_grouped_dense_launch(const void* x, int x_bf16, const void* mask,
+                                          const void* hi, const void* lo, const void* scale,
+                                          const void* rows, void* out, int G, int M, int N,
+                                          int K, int nb, int w, int mask_rows, int hi_rows,
+                                          int lo_rows, int n_low, int q, int method,
+                                          const unsigned* tables, void* stream) {
+  if (G <= 0) return (int)cudaErrorInvalidValue;
+  if (w > 64 || w % 8) {
+    if (tables) return (int)cudaErrorInvalidValue;
+    return launch<kDense>(x, x_bf16, mask, hi, lo, scale, out, G, M, N, K, K, nb, w,
+                          mask_rows, hi_rows, lo_rows, n_low, q, method, 1, stream);
   }
-
-STRUM_GROUPED_ENTRY(strum_grouped_dense_launch, kDense)
+  return stream_launch(kDense, x, x_bf16, mask, hi, lo, scale, static_cast<const int*>(rows),
+                       out, G, M, N, K, K, nb, w, mask_rows, hi_rows, lo_rows, n_low, q,
+                       method, 1, tables, static_cast<cudaStream_t>(stream));
+}
 
 // K6: x (G, M, K) contiguous, f32 or bf16; rows (G,) int32 live rows per
 // group, or null (every row live).  w % 8 == 0, w <= 64.

@@ -163,7 +163,8 @@ def strum_grouped_matmul(x: torch.Tensor, packed: PackedStruM, *, out_dtype=None
     Lead dims flatten into one group axis (K6-K8 take it as a grid axis).
     ``rows`` (lead...) int, optional, on x's device: the live rows of each
     group -- rows at or past ``rows[g]`` of x are zero, and so are those of
-    the result; K6 and K7 skip their work (K8 computes them).
+    the result; K6, K7 and K8 skip their work (K8 at the widths the
+    streamed kernel takes; the template computes them).
     Returns ``(lead..., M, N)`` in ``out_dtype`` (default x.dtype).
     """
     out_dtype = out_dtype or x.dtype

@@ -14,23 +14,26 @@ source, with its design and what bounds it, is ``csrc/strum_matmul.cu``.
 stacked payload (every field ``(G, nb, rows, N)``, scale ``(G, 1, N)``): the
 MoE expert contractions.  They replace ``strum_matmul_pallas_grouped``,
 ``_grouped_maskfree`` and ``_grouped_dense``; the group is a grid axis and K
-is never split across blocks.  K8 is the 2-D kernels' template; K6 and K7
-are two modes of a kernel of their own (asynchronous 16-byte staging,
-register decode, bf16 tensor cores for bf16 x) and take optional per-group
-live-row counts ``rows``: rows past ``rows[g]`` are zero in x and come out
-as exact zeros, and a row tile past the count reads no weight byte.
+is never split across blocks.  All three take optional per-group live-row
+counts ``rows``: rows past ``rows[g]`` are zero in x and come out as exact
+zeros, and a row tile past the count reads no weight byte.  K6 and K7 are
+two modes of a kernel of their own (asynchronous 16-byte staging, register
+decode, bf16 tensor cores for bf16 x); K8 is the grouped form of the
+streamed kernel's dense mode (below).
 
-K1, K2, K9 and K10 (``_STREAM``; w <= ``STREAM_MAX_W`` and w % 8 == 0)
-run one kernel of their own, four modes of it (128-column tiles, the
+K1, K2, K3, K8, K9 and K10 (``_STREAM``; w <= ``STREAM_MAX_W`` and w % 8
+== 0) run one kernel of their own, five modes of it (128-column tiles, the
 packed rows a mode streams brought in by 16-byte asynchronous copies
 through a ring, decode in registers, bf16 x on tensor cores).  The common
 codec (w = 16: K1 and K9 with 8 high and, for K1, 4-bit lo codes whose
-values fit int8; K2 with such codes; K10 with 8 high) decodes four
-positions at a time with byte permutes, driven where it needs them by the
-small tables that ``byte_path_tables`` builds here and the launcher hands
-to the kernel; every other codec takes the kernel's general path.  K3 and
-K8 (and the other four at other widths) run the first template
-(``strum_matmul_kernel``).
+values fit int8; K2 with such codes; K10 with 8 high; K3 and K8 at n_low =
+0) decodes four positions at a time with byte permutes, driven where it
+needs them by the small tables that ``byte_path_tables`` builds here and
+the launcher hands to the kernel; every other codec takes the kernel's
+general path.  Under n_low = 0 the hi rows of a payload are every value in
+position order, so K3 and K8 hand any payload with nb * w % 16 == 0 to the
+byte path as blocks of 16 (``_dense_view``).  The other widths run the
+first template (``strum_matmul_kernel``).
 
 At decode the 2-D kernels split K across the blocks of one thread-block
 cluster (``_split_count``, at most ``MAX_SPLITS``) and add the partial tiles
@@ -80,7 +83,7 @@ __all__ = ["strum_matmul_onehot", "strum_matmul_maskfree", "strum_matmul_dense",
            "reset_launch_counts", "METHOD_CODES", "byte_path_tables"]
 
 METHOD_CODES = {"sparsity": 0, "dliq": 1, "mip2q": 2}
-_ROWS = ("grouped_onehot", "grouped_maskfree")  # kernels that take ``rows``
+_ROWS = ("grouped_onehot", "grouped_maskfree", "grouped_dense")  # take ``rows``
 _ENTRY = {"onehot": "strum_onehot_launch", "maskfree": "strum_maskfree_launch",
           "dense": "strum_dense_launch",
           "grouped_onehot": "strum_grouped_onehot_launch",
@@ -90,9 +93,10 @@ _ENTRY = {"onehot": "strum_onehot_launch", "maskfree": "strum_maskfree_launch",
           "maskfree_p": "strum_maskfree_p_launch"}
 _BN = 64  # output columns per CUDA block of the template (kBN in the source)
 MAX_SPLITS = 8  # K slices of one 2-D tile: one portable cluster (kMaxSplits)
-#: K1, K2, K9 and K10 run the streamed kernel up to this block width, for w
-#: % 8 == 0 (the template otherwise)
-_STREAM = ("onehot", "maskfree", "histream", "maskfree_p")
+#: K1, K2, K9, K10, K3 and K8 run the streamed kernel up to this block
+#: width, for w % 8 == 0 (the template otherwise; K3 and K8 first take the
+#: 16-wide view of ``_dense_view``); each takes the byte path's tables
+_STREAM = ("onehot", "maskfree", "histream", "maskfree_p", "dense", "grouped_dense")
 STREAM_MAX_W = 64
 STREAM_BN = 128  # output columns per block of the streamed kernel (kSBN)
 
@@ -188,9 +192,11 @@ def strum_matmul_grouped_maskfree_plain(x3, lo, scale, rows=None,
         for g in range(x3.shape[0])]), rows)
 
 
-def strum_matmul_grouped_dense_plain(x3, hi, scale, **kw) -> torch.Tensor:
-    return torch.stack([strum_matmul_dense_plain(x3[g], hi[g], scale[g], **kw)
-                        for g in range(x3.shape[0])])
+def strum_matmul_grouped_dense_plain(x3, hi, scale, rows=None, **kw) -> torch.Tensor:
+    """K8's arithmetic per group; ``rows`` as for K6."""
+    return _past_rows_zero(torch.stack([
+        strum_matmul_dense_plain(x3[g], hi[g], scale[g], **kw)
+        for g in range(x3.shape[0])]), rows)
 
 
 # ------------------------------------------------ the byte path's tables --
@@ -238,9 +244,13 @@ def byte_path_tables(w: int, n_low: int, *, q: int = 4, method: str = "sparsity"
     position a lo code under that same rule; its codes are in position
     order, so the selectors are 0 (not read).  K10 ("maskfree_p"): w = 16
     with 8 high; it places hi bytes in order and reads no lo, so all 20
-    words are 0 (not read): their presence selects the byte path."""
+    words are 0 (not read): their presence selects the byte path.  K3 / K8
+    ("dense" / "grouped_dense"): w = 16, n_low = 0 (16 hi rows a block, as
+    ``_dense_view`` hands every payload it can), all 20 words 0 likewise."""
     if w != 16:
         return None
+    if kernel in ("dense", "grouped_dense"):
+        return (0,) * 20 if n_low == 0 else None
     if kernel == "maskfree":
         values = _lo_table(method, q, L) if n_low == w and method != "sparsity" else None
         if values is None:
@@ -278,9 +288,10 @@ def _lib():
         fn = getattr(lib, entry)
         if fn.argtypes is None:
             # 2-D: M N K ldx nb w rows x3 n_low q method splits;
-            # grouped: G M N K nb w rows x3 n_low q method; K6 and K7 also
-            # take the live-row counts after scale; the streamed kernels
-            # take the byte path's tables (host memory) before the stream
+            # grouped: G M N K nb w rows x3 n_low q method; K6, K7 and K8
+            # also take the live-row counts after scale; the streamed
+            # kernels take the byte path's tables (host memory) before the
+            # stream
             ints = 12 if name.startswith("grouped_") else 13
             ptrs = 6 if name in _ROWS else 5
             tables = [ctypes.POINTER(ctypes.c_uint32)] if name in _STREAM else []
@@ -302,8 +313,26 @@ def _splits(m: int, n: int, nb: int, device: torch.device) -> int:
 
 
 def _streamed(name: str, w: int) -> bool:
-    """Whether a 2-D launch of kernel ``name`` runs the streamed kernel."""
+    """Whether a launch of kernel ``name`` at block width ``w`` runs the
+    streamed kernel (for K3 and K8, the width after ``_dense_view``)."""
     return name in _STREAM and w <= STREAM_MAX_W and w % 8 == 0
+
+
+def _dense_view(w: int, nb: int, hi_rows: int):
+    """K3 / K8's route for ``nb`` blocks of width ``w`` with ``hi_rows`` hi
+    rows each: ``(path, nb, w, hi_rows)`` as the launcher hands them over.
+
+    Under n_low = 0, hi ``(nb, w, N)`` is every value in position order, so
+    as ``(nb * w, N)`` contiguous int8 it is also ``nb * w / 16`` blocks of
+    16 whenever ``nb * w % 16 == 0`` (x's true K still nulls the padded
+    rows): the streamed kernel's byte path ("bytes").  Otherwise w <= 64
+    with w % 8 == 0 takes its general path ("general"), and the rest the
+    template ("template")."""
+    if hi_rows == w and nb * w % 16 == 0:
+        return "bytes", nb * w // 16, 16, 16
+    if _streamed("dense", w):
+        return "general", nb, w, hi_rows
+    return "template", nb, w, hi_rows
 
 
 def _stream_splits(m: int, n: int, nb: int, bf16: bool, device: torch.device) -> int:
@@ -335,9 +364,10 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
     ``None`` marks a field the kernel does not read.  A 2-D kernel takes x
     (M, K), fields (nb, rows, N) and scale (1, N); a grouped one (name
     ``grouped_*``) x (G, M, K), fields (G, nb, rows, N) and scale (G, 1, N);
-    K6 and K7 (``_ROWS``) also the live rows per group, (G,) or None; K1,
-    K2, K9 and K10 (``_STREAM``) the byte path's tables where the codec
-    (with mip2q's ``L``) allows it."""
+    K6, K7 and K8 (``_ROWS``) also the live rows per group, (G,) or None;
+    the streamed kernels (``_STREAM``) the byte path's tables where the
+    codec (with mip2q's ``L``) allows it, K3 and K8 after the 16-wide view
+    of their hi rows (``_dense_view``)."""
     lead = 1 if name.startswith("grouped_") else 0
     if x.dim() != 2 + lead:
         raise ValueError(f"cuda:{name}: x must be {2 + lead}-D, got {tuple(x.shape)}")
@@ -371,6 +401,13 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
         raise ValueError(f"cuda:{name}: x K={k} exceeds the payload's nb*w={nb * w}")
     ptrs = [t.data_ptr() if t is not None else None for t in (mask, hi, lo)]
     nrows = [t.shape[lead + 1] if t is not None else 0 for t in (mask, hi, lo)]
+    byte_path = _streamed(name, w)
+    if name in ("dense", "grouped_dense"):      # the same bytes, maybe 16 wide
+        path, nb, w, nrows[1] = _dense_view(w, nb, nrows[1])
+        byte_path = path == "bytes"
+    tables = []
+    if name in _STREAM:
+        tables = [_table_words(name, w, n_low, q, method, L) if byte_path else None]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = getattr(_lib(), _ENTRY[name])
     if lead:    # every expert stack fills the card with its own tiles: no split-K
@@ -386,15 +423,11 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
             live = [rows.data_ptr() if rows is not None else None]
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
                  *live, out.data_ptr(), groups, m, n, k, nb, w, *nrows, n_low, q,
-                 METHOD_CODES[method], stream)
+                 METHOD_CODES[method], *tables, stream)
     else:
         bf16 = x.dtype == torch.bfloat16
         splits = _split_count(name, m, n, nb, w, bf16, x.device)
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        tables = []
-        if name in _STREAM:
-            tables = [_table_words(name, w, n_low, q, method, L)
-                      if _streamed(name, w) else None]
         err = fn(x.data_ptr(), int(bf16), *ptrs, scale.data_ptr(), out.data_ptr(), m, n,
                  k, x.stride(0), nb, w, *nrows, n_low, q, METHOD_CODES[method], splits,
                  *tables, stream)
@@ -440,7 +473,10 @@ def strum_matmul_maskfree(x2, lo, scale, *, w: int, q: int, method: str,
 
 
 def strum_matmul_dense(x2, hi, scale, *, w: int) -> torch.Tensor:
-    """K3 (n_low = 0): y = x2 @ dequant(hi, scale); any w."""
+    """K3 (n_low = 0): y = x2 @ dequant(hi, scale), (M, N) f32, for any w.
+    On the card the streamed kernel's dense mode takes it (``_dense_view``:
+    the byte path wherever nb * w % 16 == 0, else its general path for w <=
+    64, w % 8 == 0); only other widths take the template."""
     if _route(x2) == "plain":
         return strum_matmul_dense_plain(x2, hi, scale, w=w)
     return _launch("dense", x2, None, hi, None, scale, w=w, n_low=0, q=1,
@@ -481,12 +517,16 @@ def strum_matmul_grouped_maskfree(x3, lo, scale, *, w: int, q: int,
 
 
 def strum_matmul_grouped_dense(x3, hi, scale, *, w: int, rows=None) -> torch.Tensor:
-    """K8 (n_low = 0): y[g] = x3[g] @ dequant(hi[g], scale[g]); any w.
-    ``rows`` is accepted and not read: x is 0 past it, so is y."""
+    """K8 (n_low = 0): y[g] = x3[g] @ dequant(hi[g], scale[g]), (G, M, N)
+    f32, for any w; on the card the streamed kernel's dense mode, grouped,
+    routed as K3's.  ``rows`` (G,) int, optional, as for K6: a row tile past
+    the count reads no weight byte, and those rows come out 0 (the template,
+    at the widths the streamed kernel cannot take, does not read ``rows``:
+    x is 0 past them, so is y)."""
     if _route(x3) == "plain":
-        return strum_matmul_grouped_dense_plain(x3, hi, scale, w=w)
+        return strum_matmul_grouped_dense_plain(x3, hi, scale, rows, w=w)
     return _launch("grouped_dense", x3, None, hi, None, scale, w=w, n_low=0, q=1,
-                   method="sparsity")
+                   method="sparsity", rows=rows)
 
 
 def _check_draft(name: str, w: int, n_low: int) -> None:

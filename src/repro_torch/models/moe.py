@@ -9,7 +9,7 @@ cut off).  The router runs in f32; ties in the top-k go to the lower expert
 index, as ``jax.lax.top_k`` orders them.  The three expert contractions go
 through :func:`_expert_contract`: a StruM-packed stack runs through the
 engine's grouped dispatch (``cuda:grouped*``, kernels K6-K8, on the card)
-with each expert's filled-slot count (``rows``, so K6 and K7 skip empty
+with each expert's filled-slot count (``rows``, so K6, K7 and K8 skip empty
 experts and empty row tiles), a dense one through a batched matmul.
 
 Like the reference, ``moe_apply`` ignores a per-call ``backend=``: packed

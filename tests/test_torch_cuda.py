@@ -1,9 +1,9 @@
 """Port kernels K1-K11 on the card against their plain PyTorch versions
 (K4 and K5 split-KV with their combine kernel, at pages of 16 and 128
-positions; K6 and K7 with and without live-row counts; the streamed
-kernel's four modes, K1, K2, K9 and K10, at its tile edges, byte path and
-general path, and the template they keep at other widths; K1-K3, K9, K10
-bit-identical across calls).
+positions; K6, K7 and K8 with and without live-row counts; the streamed
+kernel's five modes, K1, K2, K3 (and K8 grouped), K9 and K10, at its tile
+edges, byte path and general path, and the template they keep at other
+widths; K1-K3, K9, K10 bit-identical across calls).
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -456,6 +456,108 @@ def test_k2_k10_keep_the_template_past_the_streamed_widths_on_card(dev, name, cf
     and K10 run the template, with no byte-path tables."""
     packed = _stream_mode_held(dev, name, m, 2000, 130, cfg, dtype)
     assert not K._streamed(name, packed.w)
+
+
+# ------------------------------------- K3 and K8: the streamed kernel's dense mode
+
+#: (w, K, route): the byte path at w = 16 and, through the 16-wide view, at w
+#: = 8, 12, 32 and 128; the general path at an odd block count of w = 8 and
+#: w = 24; the template at w = 12 with a block count not a multiple of 4.
+#: K % w != 0 but at w = 8 and (12, 1968).
+DENSE_CASES = [(16, 2045, "bytes"), (8, 2000, "bytes"), (12, 1968, "bytes"),
+               (32, 2000, "bytes"), (128, 2000, "bytes"), (8, 1992, "general"),
+               (24, 1976, "general"), (12, 2000, "template")]
+
+
+def _dense_held(dev, m, k, n, w, dtype):
+    """K3 through ``ops`` on aligned x twice and on unaligned x: three
+    launches, within REL_TOL of the plain version, all three bit-identical.
+    Returns the payload."""
+    x, packed = _case(dev, m, k, n, StruMConfig(method="mip2q", w=w, p=0.0, L=5), dtype)
+
+    def call(x_, p):
+        return ops.strum_matmul(x_, p, out_dtype=torch.float32, variant="dense")
+    before = K.launch_counts["dense"]
+    y, y2, y_odd = call(x, packed), call(x, packed), call(_unaligned(x), packed)
+    torch.cuda.synchronize()
+    assert K.launch_counts["dense"] == before + 3
+    want = call(x.cpu(), _to_cpu(packed))
+    err = (y.cpu() - want).abs().max().item()
+    assert err <= REL_TOL * want.abs().max().item(), err
+    assert torch.equal(y, y2) and torch.equal(y, y_odd)
+    return packed
+
+
+@pytest.mark.parametrize("w,k,route", DENSE_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("m", [1, 4, 16, 128])
+@pytest.mark.parametrize("n", [130, 2112])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_k3_on_card(dev, w, k, route, m, n, dtype):
+    """K3 in the streamed kernel's dense mode at byte-path, general-path and
+    template widths, odd N, K % w != 0, unaligned x; two calls give the
+    same bits."""
+    packed = _dense_held(dev, m, k, n, w, dtype)
+    assert K._dense_view(w, *packed.hi.shape[:2])[0] == route
+
+
+#: K8's shapes: Moonshot's wi N at capacity 6 (BM = 16), capacity 24 (BM =
+#: 128) with N % 16 != 0 (byte staging), 70 rows (several 16-row tiles for
+#: f32 x); (w, K, route) as for K3
+@pytest.mark.parametrize("g,m,n", [(16, 6, 1408), (8, 24, 136), (4, 70, 96)])
+@pytest.mark.parametrize("w,k,route", DENSE_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_dense_rows_on_card(dev, g, m, n, w, k, route, dtype):
+    """K8 with live-row counts: an empty, partial and full expert; rows past
+    the count exactly 0, and x there never read on the streamed kernel."""
+    x, packed = _grouped_case(dev, g, m, k, n, StruMConfig(method="mip2q", w=w, p=0.0, L=5),
+                              dtype)
+    assert K._dense_view(w, *packed.hi.shape[1:3])[0] == route
+    rng = np.random.default_rng(g + m)
+    counts = rng.integers(0, m + 1, g)
+    counts[0], counts[-1] = 0, m                    # an empty and a full expert
+    rows = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    live = torch.arange(m, device=dev)[None, :] < rows[:, None].long()
+    xz = torch.where(live[..., None], x, torch.zeros_like(x))
+    kw = dict(out_dtype=torch.float32, variant="dense")
+    before = K.launch_counts["grouped_dense"]
+    y_rows = ops.strum_grouped_matmul(xz, packed, rows=rows, **kw)
+    y_full = ops.strum_grouped_matmul(xz, packed, **kw)
+    y_dirty = ops.strum_grouped_matmul(x, packed, rows=rows, **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts["grouped_dense"] == before + 3
+    want = ops.strum_grouped_matmul(xz.cpu(), _to_cpu(packed), rows=rows.cpu(), **kw)
+    lim = REL_TOL * want.abs().max().item()
+    for y in (y_rows, y_full):
+        assert (y.cpu() - want).abs().max().item() <= lim
+    for gi, cnt in enumerate(counts.tolist()):
+        assert not y_rows[gi, cnt:].any()
+    if route != "template":                          # the template does not read rows
+        assert torch.equal(y_rows, y_dirty)
+
+
+def test_dense_kernels_launch_with_null_fields(dev, monkeypatch):
+    """K3 and K8 reach the launch with null mask and lo pointers; each runs
+    and agrees with its plain version."""
+    cfg = StruMConfig(method="mip2q", p=0.0, L=5)
+    x, packed = _case(dev, 4, 256, 192, cfg, torch.bfloat16)
+    x3, gp = _grouped_case(dev, 3, 6, 256, 192, cfg, torch.bfloat16)
+    seen = {}
+    launch = K._launch
+
+    def spy(name, x_, mask, hi, lo, scale, **kw):
+        seen[name] = (mask is None, hi is None, lo is None)
+        return launch(name, x_, mask, hi, lo, scale, **kw)
+    monkeypatch.setattr(K, "_launch", spy)
+    y3 = K.strum_matmul_dense(x, packed.hi, packed.scale, w=16)
+    rows = torch.tensor([6, 2, 0], dtype=torch.int32, device=dev)
+    y8 = K.strum_matmul_grouped_dense(x3, gp.hi, gp.scale, w=16, rows=rows)
+    torch.cuda.synchronize()
+    assert seen == {"dense": (True, False, True), "grouped_dense": (True, False, True)}
+    cpu, gcpu = _to_cpu(packed), _to_cpu(gp)
+    for y, want in ((y3, K.strum_matmul_dense_plain(x.cpu(), cpu.hi, cpu.scale, w=16)),
+                    (y8, K.strum_matmul_grouped_dense_plain(x3.cpu(), gcpu.hi, gcpu.scale,
+                                                            rows.cpu(), w=16))):
+        assert (y.cpu() - want).abs().max().item() <= REL_TOL * want.abs().max().item()
 
 
 # ------------------------------------------------ packed KV pages: K4, K5, K11

@@ -198,11 +198,13 @@ def test_launcher_picks_the_k2_k10_byte_path(kernel, w, n_low, method, q, L, ok)
     ("maskfree", 4, False), ("maskfree", 12, False), ("maskfree", 72, False),
     ("maskfree_p", 16, True), ("maskfree_p", 32, True), ("maskfree_p", 24, True),
     ("maskfree_p", 80, False), ("onehot", 16, True), ("histream", 64, True),
-    ("dense", 16, False), ("grouped_maskfree", 16, False),
+    ("dense", 16, True), ("grouped_dense", 64, True), ("dense", 12, False),
+    ("grouped_maskfree", 16, False),
 ])
 def test_streamed_kernel_takes_w_up_to_64_in_steps_of_8(name, w, streamed):
     """K2 and K10 run the streamed kernel where its constraints hold (w <=
-    64, w % 8 == 0) and the template elsewhere, as K1 and K9 do."""
+    64, w % 8 == 0) and the template elsewhere, as K1 and K9 do; so do K3
+    and K8 at the width their launcher hands over (``_dense_view``)."""
     assert K._streamed(name, w) == streamed
 
 
