@@ -44,7 +44,11 @@ Phases, each fatal on failure:
      K11 bit for bit; time kernel, plain
      version and a yardstick interleaved as in phase c (the yardstick for
      K4/K5 is ``scaled_dot_product_attention`` on the same pages dequantized
-     to bf16; K11 has no one-call yardstick).  K4 and K5 are split-KV: their
+     to bf16; K11 has no one-call yardstick).  K11 is timed on the live K
+     pages of the first case and on ``DECODE_CASES`` (dliq q=3, Qwen2-7B's
+     F = 512, pages of 128, w = 64 and 128), beside a ``fill_`` of the same
+     f32 output (the card's write rate, a reference only), each bit for bit.
+     K4 and K5 are split-KV: their
      time includes the combine kernel that merges the splits.  Kernel and
      yardstick times here and in phase k are replays of a CUDA graph of one
      call (the device's time; the eager calls' time, which adds the Python
@@ -177,6 +181,15 @@ ATTN_CASES = [("olmo decode", 16, 1, 2048, PAGE), ("olmo prefill", 16, 16, 2048,
               ("olmo decode", 16, 1, 512, PAGE), ("olmo prefill", 16, 16, 512, PAGE),
               ("qwen prefill", 4, 112, 512, PAGE)]
 TIMED_CASES = 4
+# K11's other timed cases (the first is phase g's live OLMo K pages): (label,
+# StruMConfig keywords, pages, page size, F); 320 pages of 16 and 40 of 128
+# are the live pages of phase g's 2048-token tables
+DECODE_CASES = [
+    ("olmo dliq", dict(method="dliq", p=0.25, q=3), 320, PAGE, 2048),
+    ("qwen2-7b width", dict(method="mip2q", p=0.5, L=7), 320, PAGE, 512),
+    ("olmo pages of 128", dict(method="mip2q", p=0.5, L=7), 40, 128, 2048),
+    ("olmo w=64", dict(method="mip2q", w=64, p=0.5, L=7), 40, 128, 2048),
+    ("olmo w=128", dict(method="mip2q", w=128, p=0.5, L=7), 40, 128, 2048)]
 # (K, N) of one OLMo-1B layer's seven linears: wq wk wv wo, wi wg, mlp wo
 LAYER_SHAPES = [(2048, 2048)] * 4 + [(2048, 8192)] * 2 + [(8192, 2048)]
 
@@ -571,20 +584,20 @@ def phase_f(res):
 
 # ------------------------------------------------- packed KV pages (g-j) --
 
-def _kv_pools(dev, gen, cfg, n_pages, f, ps):
-    """K and V pools of ``n_pages`` random pages of ``ps`` positions encoded
-    with ``cfg``, with empty fields floored at one row as the registry's
-    fused variants do."""
+def _pool(dev, gen, cfg, n_pages, f, ps):
+    """A pool of ``n_pages`` random pages of ``ps`` positions encoded with
+    ``cfg``, with empty fields floored at one row as the registry's
+    variants do."""
     import torch
     from repro_torch.engine.cache import encode_page
     from repro_torch.kernels.ops import _min1
-    out = []
-    for _ in range(2):
-        enc = encode_page(torch.randn((n_pages, ps, f), generator=gen, device=dev),
-                          cfg)
-        out.append({k: v if k == "scale" else _min1(v, 2).contiguous()
-                    for k, v in enc.items()})
-    return out
+    enc = encode_page(torch.randn((n_pages, ps, f), generator=gen, device=dev), cfg)
+    return {k: v if k == "scale" else _min1(v, 2).contiguous() for k, v in enc.items()}
+
+
+def _kv_pools(dev, gen, cfg, n_pages, f, ps):
+    """K and V pools (``_pool``)."""
+    return [_pool(dev, gen, cfg, n_pages, f, ps) for _ in range(2)]
 
 
 def _attn_table(dev, pages_per_slot):
@@ -637,11 +650,11 @@ def _held(got, want, what) -> dict:
 
 def phase_g(dev, gen, clocks):
     """K4, K5, K11 against their plain versions; timings of the first
-    ``TIMED_CASES`` cases and of K11 on the live pages of the first."""
+    ``TIMED_CASES`` cases, of K11 on the live K pages of the first and of
+    K11's ``DECODE_CASES``."""
     import torch
     from repro_torch.core.policy import StruMConfig
     from repro_torch.kernels import strum_attention as A
-    from repro_torch.kernels import strum_decode as D
     codecs = {"paged_attention": StruMConfig(method="mip2q", p=0.5, L=7),
               "paged_attention_maskfree": StruMConfig(method="dliq", p=1.0, q=4)}
     wrappers = {"paged_attention": (A.strum_paged_attention,
@@ -681,8 +694,12 @@ def phase_g(dev, gen, clocks):
                 case.update(_time_attention(clocks, name, kern, plain, q4, args, ids,
                                             n_valid, kw, k, v, live, r, hd, kv, ps))
                 if i == 0 and name == "paged_attention":
-                    rows["page_decode"]["cases"].append(
-                        _time_page_decode(clocks, D, k, ids, n_valid, cfg, live))
+                    sel = ids[(ids >= 0) & (torch.arange(p_slot, device=dev)[None, :]
+                                            < n_valid[:, None])].long()
+                    rows["page_decode"]["cases"].append(_time_page_decode(
+                        clocks, {f_: t[sel].contiguous() for f_, t in k.items()}, cfg,
+                        f"{live} live K pages of OLMo decode (2048 ctx), mip2q p=0.5 L=7 "
+                        f"-> ({live}, {ps}, {f}) f32"))
             rows[name]["cases"].append(case)
             print(f"  {name:24s} {case['case']}: max |kernel - plain| on live rows "
                   + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
@@ -693,11 +710,20 @@ def phase_g(dev, gen, clocks):
                      if "ms" in case else ""), flush=True)
             del k, v, args, got, want
         torch.cuda.empty_cache()
-    d = rows["page_decode"]["cases"][0]
-    rows["page_decode"]["max_abs_err"] = d["max_abs_err"]
-    print(f"  page_decode              {d['case']}: exact; kernel {d['ms']:.4f} ms, "
-          f"plain {d['plain_ms']:.4f}, bound {d['bound_ms']:.4f} ({d['bound_by']}, "
-          f"{d['bytes'] / 1e6:.2f} MB); no one-call yardstick; {d['clock']}", flush=True)
+    for label, cfg_kw, n_pages, ps, f in DECODE_CASES:
+        cfg = StruMConfig(**cfg_kw)
+        rows["page_decode"]["cases"].append(_time_page_decode(
+            clocks, _pool(dev, gen, cfg, n_pages, f, ps), cfg,
+            f"{label}: {n_pages} pages of {ps}, w={cfg.w}, {cfg.method} p={cfg.p} "
+            f"q={cfg.q} -> ({n_pages}, {ps}, {f}) f32"))
+        torch.cuda.empty_cache()
+    for d in rows["page_decode"]["cases"]:
+        print(f"  page_decode              {d['case']}: exact; kernel {d['ms']:.4f} ms "
+              f"(graph replay; eager call {d['eager_ms']:.4f}), plain "
+              f"{d['plain_ms']:.4f}, fill_ of the output "
+              f"{d['fill_ms']:.4f} (a write-rate reference, not a yardstick), bound "
+              f"{d['bound_ms']:.4f} ({d['bound_by']}, {d['bytes'] / 1e6:.2f} MB, "
+              f"{d['bytes'] / d['ms'] / 1e9:.2f} TB/s); {d['clock']}", flush=True)
     return rows
 
 
@@ -742,27 +768,28 @@ def _time_attention(clocks, name, kern, plain, q4, args, ids, n_valid, kw, k, v,
     return dict(times, **_bound(nbytes, flops, PEAK_FLOPS["torch.float32"]))
 
 
-def _time_page_decode(clocks, D, k, ids, n_valid, cfg, live):
-    """K11 on the live K pages of the first case, gathered as
-    ``gather_decode_pages`` gathers them: kernel against plain, exact."""
+def _time_page_decode(clocks, pool, cfg, label):
+    """K11 on one pool's pages against its plain version, bit for bit; the
+    kernel graph-replayed and eager, the plain version, and a graph-replayed
+    ``fill_`` of the same f32 output as the card's write rate (a reference,
+    not a one-call yardstick: no PyTorch call decodes the pages).  The bound
+    counts the fields and scales read once and the f32 values written once."""
     import torch
-    sel = ids[(ids >= 0) & (torch.arange(ids.shape[1], device=ids.device)[None, :]
-                            < n_valid[:, None])].long()
-    g = {f_: t[sel].contiguous() for f_, t in k.items()}
+    from repro_torch.kernels import strum_decode as D
     kw = dict(w=cfg.w, n_low=cfg.n_low, q=cfg.q, method=cfg.method)
-    fields = [g[f_] for f_ in ("mask", "hi", "lo", "scale")]
-    got = D.strum_page_decode(*fields, **kw)
+    fields = [pool[f_] for f_ in ("mask", "hi", "lo", "scale")]
     want = D.strum_page_decode_plain(*fields, **kw)
+    got = D.strum_page_decode(*fields, **kw)
     torch.cuda.synchronize()
-    _check(torch.equal(got, want), "page_decode differs from its plain version")
+    _check(torch.equal(got, want), f"page_decode differs from its plain version: {label}")
+    out = torch.empty_like(want)
     times = _interleaved(clocks, {
         "ms": (_graphed(lambda: D.strum_page_decode(*fields, **kw)), 20),
         "eager_ms": (lambda: D.strum_page_decode(*fields, **kw), 20),
+        "fill_ms": (_graphed(lambda: out.fill_(0.0)), 20),
         "plain_ms": (lambda: D.strum_page_decode_plain(*fields, **kw), 5)})
-    nbytes = sum(t.numel() * t.element_size() for t in fields) + got.numel() * 4
-    return dict(times, library_ms=None, max_abs_err=0.0,
-                case=f"{live} live K pages of OLMo decode (2048 ctx), mip2q p=0.5 "
-                     f"-> ({live}, {PAGE}, 2048) f32",
+    nbytes = sum(t.numel() * t.element_size() for t in fields) + want.numel() * 4
+    return dict(times, library_ms=None, max_abs_err=0.0, case=label,
                 **_bound(nbytes, 0, PEAK_FLOPS["torch.float32"]))
 
 
@@ -1694,7 +1721,8 @@ def measure(dev, clocks):
             "workload": t["case"] + f"; median of {ROUNDS} interleaved rounds",
             "range_ms": t["range_ms"], "clock": t["clock"],
             "cases": [{k: c[k] for k in ("case", "max_abs_err", "errs", "ms", "eager_ms",
-                                         "plain_ms", "library_ms", "bound_ms", "bound_by")
+                                         "fill_ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_by")
                        if k in c} for c in row["cases"]]})
         if name != "page_decode":
             kernels[-1]["combine_launches"] = counts[f"{name}_combine"]

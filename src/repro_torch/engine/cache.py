@@ -233,8 +233,8 @@ def _torch_dequant(leaf, *, cfg, page_size, out_dtype=torch.float32):
     "cache:cuda_decode", family="cuda", priority=10, cache=True,
     supports=lambda cfg, info: (cfg is not None and not _is_identity(cfg)
                                 and cfg.w % 8 == 0),
-    description="K11: decode packed pages on the card, one thread per "
-                "(page, block, channel)")
+    description="K11: decode packed pages on the card, one thread per block "
+                "column of 4 channels, decoded in registers")
 def _cuda_decode(leaf, *, cfg, page_size, out_dtype=torch.float32):
     from repro_torch.kernels.strum_decode import strum_page_decode
     lead, flat = _flat_pages(leaf)

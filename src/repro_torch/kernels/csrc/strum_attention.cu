@@ -19,12 +19,24 @@
 // A page holds nb * w cache positions.  p = 1 pages (K5) have only lo and
 // scale: the lo fields are the block's w values in position order.
 //
-// K11's decode (decode_column) is K1's (strum_matmul.cu), copied: walk the w
-// mask bits LSB-first; a set bit takes the next hi byte, a clear one the
-// next q-bit lo field (which may straddle two bytes when 8 % q != 0); lo
-// decodes as DLIQ (sign-extend, << (8 - q)), MIP2Q ([sign | k] -> +-2^k) or
-// sparsity (0).  The integer is multiplied by the channel's f32 scale in one
-// rounding, so K11 equals its plain PyTorch version bit for bit.
+// K11's design: a thread owns VEC = 4 adjacent channels of one [1, w] block
+// (VEC = 1 where F % 4 != 0 or a field is not aligned).  Each of the block
+// column's w / 8 mask, n_high hi and ceil(n_low q / 8) lo rows is one 4-byte
+// load through the read-only path (a warp reads 128 contiguous bytes a row),
+// all issued before any decode, as no address depends on the mask.  A 4x4
+// byte transpose gives each channel its mask, hi and lo words, and each
+// position is decoded in registers with K4's recipe (reg_value): its rank
+// among the high / low positions is a popcount of the mask bits below it,
+// the hi byte one __byte_perm, the lo code one shift of the lo word (a q = 3
+// field that straddles two bytes needs no second load) through a table of
+// the 2^q codes; sparsity and n_low = 0 read no lo row, and at p = 1 the
+// mask is zero, so position i takes field i.  Each position is one
+// evict-first float4 store (__stcs; a warp writes 512 contiguous bytes).
+// The registers hold w <= 64, 16 hi and 8 lo rows; past that the staged
+// path lands the same loads in the thread's own column of shared memory and
+// reads each position's bytes at its ranks.  The decoded integer is multiplied by the
+// channel's f32 scale in one rounding, so K11 equals its plain PyTorch
+// version bit for bit.
 //
 // What bounds them: all three read each packed byte once and do little
 // arithmetic per byte, so they are bound by HBM bytes (K11 by the f32 values
@@ -81,7 +93,8 @@ namespace {
 enum Method { kSparsity = 0, kDliq = 1, kMip2q = 2 };
 enum Mode { kGeneral = 0, kMaskfree = 1 };
 
-constexpr int kDecodeThreads = 256;
+constexpr int kDecodeThreads = 128;   // K11's block
+constexpr size_t kStagedSmem = 200 * 1024;  // K11 staged path: its columns' bytes, at most
 constexpr float kNegInf = -1e30f;
 
 struct Codec {
@@ -119,46 +132,251 @@ __device__ __forceinline__ float decode_low(int c, int method, int q) {
   return 0.f;
 }
 
-// Decode one [1, w] block column into dst[pos * dstride], pos in [0, w),
-// each value times the channel's scale s.  mcol / hcol / lcol point at row
-// 0 of the column's mask / hi / lo bytes, rows `stride` bytes apart.
-__device__ __forceinline__ void decode_column(const uint8_t* mcol, const int8_t* hcol,
-                                              const uint8_t* lcol, int stride,
-                                              const Codec& c, float s, float* dst,
-                                              int dstride) {
-  int hc = 0, lc = 0;  // ranks among the high / low positions seen so far
-  for (int byte = 0; byte < c.mask_rows; ++byte) {
-    const unsigned bits = mcol[(size_t)byte * stride];
-    for (int j = 0; j < 8; ++j) {
-      const int pos = byte * 8 + j;
-      if (pos >= c.w) break;
-      float v = 0.f;
-      if ((bits >> j) & 1u) {
-        if (hc < c.n_high) v = (float)hcol[(size_t)hc * stride];
-        ++hc;
+// A position's rank among the high (low) positions of its block is the
+// popcount of the set (clear) mask bits below it.
+__device__ __forceinline__ int popc_below(uint32_t m, int pos) {
+  return __popc(m & ((1u << pos) - 1u));
+}
+__device__ __forceinline__ int popc_below(uint64_t m, int pos) {
+  return __popcll(m & ((1ull << pos) - 1ull));
+}
+
+// One position of a [1, w] block held in registers (K4 and K11): m the mask
+// bits, h the hi bytes in rank order (4 a word, HW words: 4 HW high values),
+// l the lo fields, lut the decoded lo codes.  Both candidates are formed and
+// one selected, so lanes with different masks do not diverge.  The hi byte
+// is one byte permute at the high rank (two and a select at HW = 4; a block
+// has exactly n_high set bits, so a high position's rank is below n_high),
+// the lo code one shift of l at the low rank, clamped to the last field
+// (lmax) so that the shift stays inside the word.
+template <int HW, typename MT, typename LT>
+__device__ __forceinline__ float reg_value(MT m, const uint32_t (&h)[HW], LT l,
+                                           const float* lut, int pos, int lmax, int q,
+                                           LT qmask) {
+  static_assert(HW == 2 || HW == 4, "2 or 4 hi words");
+  const int rh = popc_below(m, pos);
+  const int rl = pos - rh;
+  uint32_t hb = __byte_perm(h[0], h[1], (unsigned)(rh & 7));
+  if constexpr (HW == 4) {
+    if (rh & 8) hb = __byte_perm(h[2], h[3], (unsigned)(rh & 7));
+  }
+  const float hv = (float)(int8_t)hb;
+  const float lv = lut[(unsigned)((l >> (min(rl, lmax) * q)) & qmask)];
+  return (m >> pos) & 1u ? hv : lv;
+}
+
+// ---------------------------------------------------------- K11: page decode --
+
+// One row of a block column: the bytes of VEC adjacent channels in one load
+// through the read-only path (VEC = 1: byte 0 of the word).
+template <int VEC>
+__device__ __forceinline__ uint32_t load_row(const uint8_t* p) {
+  if constexpr (VEC == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  else return __ldg(p);
+}
+
+// Rows r[0..3] of 4 channels (byte c of r[i] is channel c's byte of row i)
+// -> one word a channel (byte i of out[c] is row i): a 4x4 byte transpose in
+// eight byte permutes.  With VEC = 1 only out[0] is used.
+__device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* out) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+  out[0] = __byte_perm(t0, t1, 0x5410);
+  out[1] = __byte_perm(t0, t1, 0x7632);
+  out[2] = __byte_perm(t2, t3, 0x5410);
+  out[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// Rows [0, n) of a field's block column (n <= 4 G; rows past n are 0), every
+// load issued before the first transpose: w[c][g] holds channel c's bytes of
+// rows 4 g .. 4 g + 3, in row order.
+template <int VEC, int G>
+__device__ __forceinline__ void load_rows(const uint8_t* col, size_t stride, int n,
+                                          uint32_t (&w)[VEC][G]) {
+  uint32_t raw[4 * G];
+#pragma unroll
+  for (int r = 0; r < 4 * G; ++r) raw[r] = r < n ? load_row<VEC>(col + r * stride) : 0u;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    uint32_t t[4];
+    transpose4(raw + 4 * g, t);
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) w[c][g] = t[c];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_scales(const float* p, float (&s)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    s[0] = v.x; s[1] = v.y; s[2] = v.z; s[3] = v.w;
+  } else {
+    s[0] = __ldg(p);
+  }
+}
+
+// One position of VEC adjacent channels: one 16-byte (4-byte) evict-first
+// store, a warp writing 32 VEC contiguous floats.
+template <int VEC>
+__device__ __forceinline__ void store_values(float* dst, const float (&v)[VEC]) {
+  if constexpr (VEC == 4)
+    __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+  else
+    __stcs(dst, v[0]);
+}
+
+// Position pos of a block column's VEC channels, from registers, stored.
+template <int VEC, int HW, typename MT, typename LT>
+__device__ __forceinline__ void decode_position(float* dst, const MT (&m)[VEC],
+                                                const uint32_t (&h)[VEC][HW],
+                                                const LT (&l)[VEC], const float (&s)[VEC],
+                                                const float* lut, int pos, int lmax, int q,
+                                                LT qmask) {
+  float v[VEC];
+#pragma unroll
+  for (int c = 0; c < VEC; ++c)
+    v[c] = reg_value<HW>(m[c], h[c], l[c], lut, pos, lmax, q, qmask) * s[c];
+  store_values<VEC>(dst, v);
+}
+
+// The lo code table: 2^q decoded codes, 0 everywhere when the block has no
+// lo path (sparsity, n_low = 0), so a rank past the fields reads 0 there.
+__device__ __forceinline__ void fill_lut(float* lut, const Codec& c, bool lo_on) {
+  for (int code = threadIdx.x; code < 256; code += blockDim.x)
+    lut[code] = lo_on && code < (1 << c.q) ? decode_low(code, c.method, c.q) : 0.f;
+  __syncthreads();
+}
+
+// K11, register path (w <= 64, n_high <= 4 HW, n_low q <= 8 sizeof(LT)):
+// thread (x) owns VEC adjacent channels of one [1, w] block (grid y walks
+// the P nb blocks).  The block column's w / 8 mask, n_high hi and
+// ceil(n_low q / 8) lo rows are one VEC-byte load each, all issued up front
+// (no address depends on the mask), transposed to per-channel words; then
+// each position is decoded from registers and stored, one VEC-wide store.
+// out (P, nb w, F) f32: value x the page's channel scale, one rounding.
+template <int VEC, int HW, typename LT>
+__global__ void __launch_bounds__(kDecodeThreads)
+page_decode_kernel(Pool pool, Codec c, int n_blocks, float* out) {
+  constexpr int LG = sizeof(LT) / 4;  // lo words a channel
+  __shared__ float lut[256];
+  const bool lo_on = c.method != kSparsity && c.n_low > 0;
+  fill_lut(lut, c, lo_on);
+  const int f0 = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (f0 >= c.F) return;
+  const size_t F = c.F;
+  const int n_high = c.n_high;
+  const int lo_n = lo_on ? (c.n_low * c.q + 7) >> 3 : 0;
+  const int lmax = lo_on ? c.n_low - 1 : 0;
+  const LT qmask = lo_on ? (LT)((1u << c.q) - 1u) : (LT)0;
+  for (int blk = blockIdx.y; blk < n_blocks; blk += gridDim.y) {
+    uint32_t mw[VEC][2], h[VEC][HW], lw[VEC][LG];
+    float s[VEC];
+    load_rows<VEC, 2>(pool.mask + (size_t)blk * c.mask_rows * F + f0, F, c.w >> 3, mw);
+    load_rows<VEC, HW>(reinterpret_cast<const uint8_t*>(pool.hi) +
+                       (size_t)blk * c.hi_rows * F + f0, F, n_high, h);
+    load_rows<VEC, LG>(pool.lo + (size_t)blk * c.lo_rows * F + f0, F, lo_n, lw);
+    load_scales<VEC>(pool.scale + (size_t)(blk / c.nb) * F + f0, s);
+    LT l[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      l[k] = (LT)lw[k][0];
+      if constexpr (LG == 2) l[k] |= (LT)lw[k][1] << 32;
+    }
+    float* dst = out + (size_t)blk * c.w * F + f0;
+    if (c.w <= 32) {
+      uint32_t m[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) m[k] = mw[k][0];
+      if (c.w == 16) {
+#pragma unroll
+        for (int pos = 0; pos < 16; ++pos)
+          decode_position<VEC, HW>(dst + pos * F, m, h, l, s, lut, pos, lmax, c.q, qmask);
       } else {
-        if (c.method != kSparsity && lc < c.n_low)
-          v = decode_low(lo_field(lcol, c.lo_rows, stride, lc, c.q), c.method, c.q);
-        ++lc;
+        for (int pos = 0; pos < c.w; ++pos)
+          decode_position<VEC, HW>(dst + pos * F, m, h, l, s, lut, pos, lmax, c.q, qmask);
       }
-      dst[pos * dstride] = v * s;
+    } else {
+      uint64_t m[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) m[k] = mw[k][0] | (uint64_t)mw[k][1] << 32;
+      for (int pos = 0; pos < c.w; ++pos)
+        decode_position<VEC, HW>(dst + pos * F, m, h, l, s, lut, pos, lmax, c.q, qmask);
     }
   }
 }
 
-// K11: one thread per (page, block, channel); out (P, nb * w, F) f32.
+// K11, staged path (w > 64, or more hi or lo rows than the register path
+// holds): the same loads, all issued up front, land in the thread's own
+// column of shared memory (row r at word r x blockDim.x + thread, so the
+// rank-indexed reads of a warp hit 32 distinct banks), then each position
+// reads its hi byte and lo field (one or two words) at its clamped ranks;
+// the mask is read 64 positions at a time and the ranks carry across.
+template <int VEC>
 __global__ void __launch_bounds__(kDecodeThreads)
-page_decode_kernel(Pool pool, Codec c, int P, float* out) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)P * c.nb * c.F;
-  if (idx >= total) return;
-  const int f = (int)(idx % c.F);
-  const size_t blk = idx / c.F;  // page * nb + block
-  float* dst = out + blk * c.w * c.F + f;
-  decode_column(pool.mask + blk * c.mask_rows * c.F + f,
-                pool.hi + blk * c.hi_rows * c.F + f,
-                pool.lo + blk * c.lo_rows * c.F + f, c.F, c,
-                pool.scale[(blk / c.nb) * c.F + f], dst, c.F);
+page_decode_staged_kernel(Pool pool, Codec c, int n_blocks, float* out) {
+  // [w / 8 + max(n_high, 1) + max(lo_n, 1)][blockDim.x]: an empty field keeps
+  // one zero row, which a clamped rank may read
+  extern __shared__ uint32_t col_rows[];
+  __shared__ float lut[256];
+  const bool lo_on = c.method != kSparsity && c.n_low > 0;
+  fill_lut(lut, c, lo_on);
+  const int f0 = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (f0 >= c.F) return;  // no barrier follows
+  const size_t F = c.F;
+  const int T = blockDim.x, mr = c.w >> 3, n_high = c.n_high;
+  const int lo_n = lo_on ? (c.n_low * c.q + 7) >> 3 : 0;
+  const int hmax = max(n_high - 1, 0), lmax = lo_on ? c.n_low - 1 : 0;
+  const uint32_t qmask = lo_on ? (1u << c.q) - 1u : 0u;
+  uint32_t* mrow = col_rows + threadIdx.x;  // row r of this thread: [r * T]
+  uint32_t* hrow = mrow + mr * T;
+  uint32_t* lrow = hrow + max(n_high, 1) * T;
+  if (n_high == 0) hrow[0] = 0u;
+  if (lo_n == 0) lrow[0] = 0u;
+  for (int blk = blockIdx.y; blk < n_blocks; blk += gridDim.y) {
+    const uint8_t* mcol = pool.mask + (size_t)blk * c.mask_rows * F + f0;
+    const uint8_t* hcol = reinterpret_cast<const uint8_t*>(pool.hi) +
+                          (size_t)blk * c.hi_rows * F + f0;
+    const uint8_t* lcol = pool.lo + (size_t)blk * c.lo_rows * F + f0;
+#pragma unroll 8
+    for (int r = 0; r < mr; ++r) mrow[r * T] = load_row<VEC>(mcol + r * F);
+#pragma unroll 8
+    for (int r = 0; r < n_high; ++r) hrow[r * T] = load_row<VEC>(hcol + r * F);
+#pragma unroll 8
+    for (int r = 0; r < lo_n; ++r) lrow[r * T] = load_row<VEC>(lcol + r * F);
+    float s[VEC];
+    load_scales<VEC>(pool.scale + (size_t)(blk / c.nb) * F + f0, s);
+    float* dst = out + (size_t)blk * c.w * F + f0;
+    int rh0[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) rh0[k] = 0;
+    for (int base = 0; base < c.w; base += 64) {
+      const int n = min(64, c.w - base);
+      uint32_t raw[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) raw[r] = r < (n >> 3) ? mrow[((base >> 3) + r) * T] : 0u;
+      uint32_t t0[4], t1[4];
+      transpose4(raw, t0);
+      transpose4(raw + 4, t1);
+#pragma unroll 4
+      for (int pos = 0; pos < n; ++pos) {
+        float v[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const uint64_t m = t0[k] | (uint64_t)t1[k] << 32;
+          const int rh = rh0[k] + popc_below(m, pos), rl = base + pos - rh;
+          const float hv = (float)(int8_t)(hrow[min(rh, hmax) * T] >> (8 * k));
+          const int bit = min(rl, lmax) * c.q, byte = bit >> 3;
+          uint32_t lb = (lrow[byte * T] >> (8 * k)) & 0xFFu;
+          if (byte + 1 < lo_n) lb |= ((lrow[(byte + 1) * T] >> (8 * k)) & 0xFFu) << 8;
+          const float lv = lut[(lb >> (bit & 7)) & qmask];
+          v[k] = ((m >> pos) & 1u ? hv : lv) * s[k];
+        }
+        store_values<VEC>(dst + (size_t)(base + pos) * F, v);
+      }
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) rh0[k] += __popcll(t0[k] | (uint64_t)t1[k] << 32);
+    }
+  }
 }
 
 Codec make_codec(int nb, int w, int F, int mask_rows, int hi_rows, int lo_rows,
@@ -170,6 +388,40 @@ Codec make_codec(int nb, int w, int F, int mask_rows, int hi_rows, int lo_rows,
   return c;
 }
 
+
+// K11's grid: x over groups of VEC channels (a block of up to kDecodeThreads
+// threads), y over the P nb blocks (a stride loop past 65535).  The register
+// path's instantiation by the rows its block column needs (n_high hi, lo_n
+// lo); the staged path with as many threads as its shared memory allows.
+template <int VEC>
+cudaError_t launch_page_decode(const Pool& pool, const Codec& c, int n_blocks, bool staged,
+                               int n_high, int lo_n, float* out,
+                               cudaStream_t s) {
+  const int groups = c.F / VEC;
+  int threads = groups < kDecodeThreads ? (groups + 31) / 32 * 32 : kDecodeThreads;
+  const size_t row_bytes =  // staged: one thread's column
+      4 * (size_t)(c.w / 8 + (n_high > 1 ? n_high : 1) + (lo_n > 1 ? lo_n : 1));
+  if (staged)
+    while (threads > 32 && row_bytes * threads > kStagedSmem) threads -= 32;
+  if (staged && row_bytes * threads > kStagedSmem) return cudaErrorInvalidValue;
+  const dim3 grid((groups + threads - 1) / threads, n_blocks < 65535 ? n_blocks : 65535);
+  if (staged) {
+    auto kernel = page_decode_staged_kernel<VEC>;
+    const int smem = (int)(row_bytes * threads);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, threads, smem, s>>>(pool, c, n_blocks, out);
+  } else if (n_high <= 8 && lo_n <= 4) {
+    page_decode_kernel<VEC, 2, uint32_t><<<grid, threads, 0, s>>>(pool, c, n_blocks, out);
+  } else if (n_high <= 8) {
+    page_decode_kernel<VEC, 2, uint64_t><<<grid, threads, 0, s>>>(pool, c, n_blocks, out);
+  } else if (lo_n <= 4) {
+    page_decode_kernel<VEC, 4, uint32_t><<<grid, threads, 0, s>>>(pool, c, n_blocks, out);
+  } else {
+    page_decode_kernel<VEC, 4, uint64_t><<<grid, threads, 0, s>>>(pool, c, n_blocks, out);
+  }
+  return cudaGetLastError();
+}
 
 // ------------------------------------------- K4, K5: split-KV attention --
 
@@ -267,20 +519,6 @@ __device__ __forceinline__ void stage_piece(const SplitArgs& a, int pid, int pc,
   }
 }
 
-// One position of a [1, w] block held in registers: m the mask bits, h0/h1
-// the hi bytes (rank order), l the lo fields, lut the decoded lo codes.  A
-// position's rank among the high (low) set is the popcount of the set
-// (clear) mask bits below it; both candidates are formed and one selected.
-__device__ __forceinline__ float reg_value(uint32_t m, uint32_t h0, uint32_t h1, uint32_t l,
-                                           const float* lut, int pos, int lmax, int q,
-                                           uint32_t qmask) {
-  const int rh = __popc(m & ((1u << pos) - 1u));
-  const int rl = pos - rh;
-  const float hv = (float)(int8_t)__byte_perm(h0, h1, (unsigned)(rh & 7));
-  const float lv = lut[(l >> (min(rl, lmax) * q)) & qmask];
-  return (m >> pos) & 1u ? hv : lv;
-}
-
 // K4: decode one staged [1, w] block column into dst[pos * dstride] (value
 // x scale s).  Rows are `stride` bytes apart; the hi and lo fields have at
 // least one row.  The common codecs (w <= 32, <= 8 hi and <= 4 lo rows)
@@ -294,14 +532,12 @@ __device__ __forceinline__ void decode_ranked(const uint8_t* mcol, const int8_t*
                                               float* dst, int dstride) {
   const int lmax = c.method != kSparsity && c.n_low > 0 ? c.n_low - 1 : 0;  // lo row 0 exists
   if (c.w <= 32 && c.hi_rows <= 8 && c.lo_rows <= 4) {
-    uint32_t m = 0, h0 = 0, h1 = 0, l = 0;
+    uint32_t m = 0, h[2] = {0u, 0u}, l = 0;
     for (int r = 0; r < c.mask_rows; ++r) m |= (uint32_t)mcol[(size_t)r * stride] << (8 * r);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       if (r >= c.hi_rows) break;
-      const uint32_t b = (uint8_t)hcol[(size_t)r * stride];
-      if (r < 4) h0 |= b << (8 * r);
-      else h1 |= b << (8 * (r - 4));
+      h[r >> 2] |= (uint32_t)(uint8_t)hcol[(size_t)r * stride] << (8 * (r & 3));
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -312,11 +548,11 @@ __device__ __forceinline__ void decode_ranked(const uint8_t* mcol, const int8_t*
     if (c.w == 16) {
 #pragma unroll
       for (int pos = 0; pos < 16; ++pos)
-        dst[pos * dstride] = reg_value(m, h0, h1, l, lut, pos, lmax, c.q, qmask) * s;
+        dst[pos * dstride] = reg_value<2>(m, h, l, lut, pos, lmax, c.q, qmask) * s;
       return;
     }
     for (int pos = 0; pos < c.w; ++pos)
-      dst[pos * dstride] = reg_value(m, h0, h1, l, lut, pos, lmax, c.q, qmask) * s;
+      dst[pos * dstride] = reg_value<2>(m, h, l, lut, pos, lmax, c.q, qmask) * s;
     return;
   }
   unsigned long long bits = 0;
@@ -664,19 +900,34 @@ void set_common(SplitArgs& a, const void* q, const void* page_ids, const void* n
 
 }  // namespace
 
+// K11: P packed pages -> out (P, nb w, F) f32.  The register path where a
+// block column fits it (w <= 64, n_high <= 16, lo_n <= 8), else the staged
+// path: every codec with w % 8 == 0 runs.  VEC = 4 channels a thread where
+// F % 4 == 0 and the fields (4 bytes), scale and out (16 bytes) are aligned,
+// else the same code at VEC = 1.
 extern "C" int strum_page_decode_launch(const void* mask, const void* hi, const void* lo,
                                         const void* scale, void* out, int P, int nb, int w,
                                         int F, int mask_rows, int hi_rows, int lo_rows,
                                         int n_low, int q, int method, void* stream) {
-  if (P <= 0 || nb <= 0 || w <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  const bool lo_on = method != kSparsity && n_low > 0;
+  const int n_high = w - n_low, lo_n = lo_on ? (n_low * q + 7) / 8 : 0;
+  if (P <= 0 || nb <= 0 || w <= 0 || w % 8 != 0 || F <= 0 || n_low < 0 || n_high < 0 ||
+      (long long)P * nb > 0x7fffffff || (lo_on && (q < 1 || q > 8)) ||
+      mask_rows < w / 8 || hi_rows < (n_high > 1 ? n_high : 1) ||
+      lo_rows < (lo_n > 1 ? lo_n : 1))
+    return (int)cudaErrorInvalidValue;
   Pool pool = {static_cast<const uint8_t*>(mask), static_cast<const int8_t*>(hi),
                static_cast<const uint8_t*>(lo), static_cast<const float*>(scale)};
   const Codec c = make_codec(nb, w, F, mask_rows, hi_rows, lo_rows, n_low, q, method);
-  const size_t total = (size_t)P * nb * F;
-  const unsigned blocks = (unsigned)((total + kDecodeThreads - 1) / kDecodeThreads);
-  page_decode_kernel<<<blocks, kDecodeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      pool, c, P, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  const bool staged = w > 64 || n_high > 16 || lo_n > 8;
+  const uintptr_t bytes = reinterpret_cast<uintptr_t>(mask) | reinterpret_cast<uintptr_t>(hi) |
+                          reinterpret_cast<uintptr_t>(lo);
+  const uintptr_t floats = reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(out);
+  const bool vec4 = F % 4 == 0 && bytes % 4 == 0 && floats % 16 == 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  return (int)(vec4 ? launch_page_decode<4>(pool, c, P * nb, staged, n_high, lo_n, o, s)
+                    : launch_page_decode<1>(pool, c, P * nb, staged, n_high, lo_n, o, s));
 }
 
 // K4: the split partials (S = ceil(P / pps) splits) into pacc / pm / pl,

@@ -8,7 +8,15 @@
 It replaces ``strum_page_decode_pallas`` of ``repro/kernels/strum_decode.py``
 and is the ``cache:cuda_decode`` codec (``repro_torch.engine.cache``).  The
 CUDA source is ``csrc/strum_attention.cu``, beside the paged-attention
-kernels K4/K5.
+kernels K4/K5.  A thread owns 4 adjacent channels of one ``[1, w]`` block
+(1 where F % 4 != 0 or a field is not aligned): every mask, hi and lo row of
+that block column is one 4-byte load, all issued before the decode, which
+runs in registers (popcount ranks, a byte permute for the hi byte, a shift
+of the lo word, a table for the lo code); each position is one 16-byte
+evict-first store.  Blocks past the registers' reach (w > 64, more than 16
+hi or 8 lo rows) take a staged path: the same loads land in the thread's own
+column of shared memory, and each position reads its bytes there at its
+ranks.
 
 As with the matmul kernels, the tensors' device is the choice: CPU tensors
 run the plain version, CUDA tensors launch the kernel, anything else

@@ -1,6 +1,7 @@
 """Port kernels K1-K11 on the card against their plain PyTorch versions
 (K4 and K5 split-KV with their combine kernel, at pages of 16 and 128
-positions; K6, K7 and K8 with and without live-row counts; the streamed
+positions; K11 at w = 8 to 128 on both its paths, 4 and 1 channels a
+thread; K6, K7 and K8 with and without live-row counts; the streamed
 kernel's five modes, K1, K2, K3 (and K8 grouped), K9 and K10, at its tile
 edges, byte path and general path, and the template they keep at other
 widths; K1-K3, K9, K10 bit-identical across calls).
@@ -582,8 +583,23 @@ def _floored(pool):
             for k, v in pool.items()}
 
 
-@pytest.mark.parametrize("cfg", PAGE_CODECS, ids=lambda c: f"{c.method}_p{c.p}_q{c.q}")
-@pytest.mark.parametrize("ps,f", [(16, 2048), (32, 40)])
+# K11 also at w = 8, 64 and 128: the register path holds w <= 64 with at
+# most 16 hi and 8 lo rows, the staged path the rest
+DECODE_CODECS = PAGE_CODECS + [StruMConfig(method="mip2q", w=8, p=0.5, L=7),
+                               StruMConfig(method="mip2q", w=64, p=0.5, L=7),
+                               StruMConfig(method="dliq", w=64, p=1.0, q=4),
+                               StruMConfig(method="dliq", w=128, p=0.25, q=3),
+                               StruMConfig(method="sparsity", w=128, p=0.5),
+                               StruMConfig(method="mip2q", w=128, p=0.0, L=7)]
+# (codec, page size, F): pages of 16, 32 and 128 positions; F = 42 runs one
+# channel a thread
+DECODE_CASES = [(cfg, ps, f) for cfg in DECODE_CODECS
+                for ps, f in ((16, 2048), (32, 40), (128, 2048), (128, 42)) if ps % cfg.w == 0]
+
+
+@pytest.mark.parametrize("cfg,ps,f", DECODE_CASES,
+                         ids=[f"{c.method}_w{c.w}_p{c.p}_q{c.q}-{ps}-{f}"
+                              for c, ps, f in DECODE_CASES])
 def test_page_decode_equals_plain_on_card(dev, cfg, ps, f):
     from repro_torch.kernels import strum_decode as D
     pool = _floored(_pages(dev, 5, ps, f, cfg))
@@ -595,6 +611,29 @@ def test_page_decode_equals_plain_on_card(dev, cfg, ps, f):
     assert D.launch_counts["page_decode"] == before + 1
     want = D.strum_page_decode_plain(*[t.cpu() for t in fields], **kw)
     assert torch.equal(got.cpu(), want)             # integer x scale: exact
+
+
+@pytest.mark.parametrize("cfg", [PAGE_CODECS[0], PAGE_CODECS[2], DECODE_CODECS[-5],
+                                 DECODE_CODECS[-3]],
+                         ids=lambda c: f"{c.method}_w{c.w}_p{c.p}_q{c.q}")
+@pytest.mark.parametrize("offset", [0, 1])
+def test_page_decode_vector_widths_on_card(dev, cfg, offset):
+    """160 pages of 128 positions at F = 2048 on both paths (4 channels a
+    thread), and with the fields at an odd address (one channel a thread,
+    never a refusal): exact."""
+    from repro_torch.kernels import strum_decode as D
+    pool = _floored(_pages(dev, 160, 128, 2048, cfg))
+    if offset:
+        for k in ("mask", "hi", "lo"):
+            t = pool[k]
+            buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=dev)
+            buf[offset:] = t.reshape(-1)
+            pool[k] = buf[offset:].view(t.shape)
+    kw = dict(w=cfg.w, n_low=cfg.n_low, q=cfg.q, method=cfg.method)
+    fields = [pool[k] for k in ("mask", "hi", "lo", "scale")]
+    got = D.strum_page_decode(*fields, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, D.strum_page_decode_plain(*fields, **kw))
 
 
 def _attn_case(dev, cfg, kv, r, n_pages=12, ps=16, hd=128, seed=1):
