@@ -114,7 +114,40 @@ Phases, each fatal on failure:
      then phase h's requests teacher-forced through the speculative lane:
      its predictions against phase h's plain lane at >= 0.9 of positions
      (each disagreement printed with the plain lane's top-2 gap) and its
-     logits within phase f's tolerance of phase j's plain-lane logits.
+     logits within phase f's tolerance of phase j's plain-lane logits;
+  p. the schedule-driven path, each sub-phase fatal:
+     p1. profile full-width OLMo-1B (all 16 layers, seed 0, f32) on the card
+     with ``DEFAULT_GRID`` (timed; the same call again must be all cache
+     hits, timed: the content hashes), search under
+     ``Budget(target_ratio=0.875)`` (timed), save and load the schedule
+     JSON; every assigned tensor must get its config on a ``cuda:*``
+     variant (a ``torch:dequant`` entry only where no ``cuda:*`` predicate
+     accepts its config, printed) or stay dense where assigned None, and
+     the plan's packed bytes must equal ``tree_compression_report``'s over
+     the packed tensors exactly; serve it through ``serve --paged
+     --kv-cache mip2q --schedule PATH`` (batch 4, prompt 128, gen 32): one
+     launch per entry per layer per lane run, K4 once per layer per lane
+     run, nothing else; drain and decode-only tick beside phase h's; then
+     phase d's prompt through the dense-cache loop on the same plan, cuda vs
+     torch family as in phase f;
+     p2. a schedule the script writes for 2-layer full-width OLMo-1B, one
+     config per linear kind: K1 (mip2q p=0.5 L=5, on its byte path), K2
+     (dliq p=1), K3 (mip2q p=0), K1 off its byte path (mip2q L=7), one
+     linear dense; the plan must select exactly those variants and launch
+     one kernel per entry per layer per step and nothing else; logits vs
+     the torch family as in phase f; then the paged lane plain and
+     speculative (k=3, histream) on the same schedule: the same tokens, the
+     drafted and full-fidelity leaves ``build_draft_plan``'s mode map, and
+     each kernel's launches (K9 for the drafted leaves in draft steps, the
+     others' own kernels) exact;
+     p3. Moonshot-16B-A3B at 2 of 48 layers, full width: wi, wg, wo of its
+     MoE layer position on K6, K7, K8 through the paged runtime (one launch
+     each per layer per lane run, every one with the experts' live rows),
+     logits vs the torch family as in phase l; then wo left dense through
+     the dense-cache loop (K6 and K7 only), logits vs the torch family.
+     Names key whole stacked tensors (all layers of a position), as in the
+     reference, so a schedule cannot give two layers of one position two
+     configs: the dense ``wo`` is a second plan.
 
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
@@ -1015,9 +1048,10 @@ def phase_j(dev, res, counts):
     return _paged_vs_torch(dev, res)
 
 
-def _paged_vs_torch(dev, res):
+def _paged_vs_torch(dev, res, schedule=None):
     """A paged serve's requests, teacher-forced on its tokens, through the
-    cuda family (its own plan) and the torch family (weights and cache),
+    cuda family (its own plan) and the torch family (weights and cache;
+    the weights packed by ``schedule`` where given, else by ``cfg.strum``),
     logits held to phase f's tolerance."""
     import torch
     from repro_torch.launch.steps import build_serving_plan
@@ -1027,7 +1061,8 @@ def _paged_vs_torch(dev, res):
     sched, cfg = res["sched"], res["cfg"]
     spec = sched.spec
     params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
-    torch_plan = build_serving_plan(params, cfg=cfg.strum, backend="torch", device=dev)
+    torch_plan = build_serving_plan(params, schedule=schedule, cfg=cfg.strum,
+                                    backend="torch", device=dev)
     del params
     logits = {}
     for family, plan, backend in (("cuda", res["plan"], None),
@@ -1613,8 +1648,352 @@ def _spec_vs_plain(dev, res, plain, mode):
             "disagreements": gaps, "tokens_equal_share": same_h}
 
 
+# ------------------------------------------------- schedule-driven path (p) --
+
+#: where phase p writes its schedules (inside the build directory, which
+#: git ignores)
+SCHED_DIR = ROOT / "build" / "phase_p"
+#: plan variant -> the kernel (launch-count key) it launches
+VARIANT_KERNEL = {"cuda:onehot": "onehot", "cuda:maskfree": "maskfree",
+                  "cuda:dense": "dense", "cuda:grouped": "grouped_onehot",
+                  "cuda:grouped_maskfree": "grouped_maskfree",
+                  "cuda:grouped_dense": "grouped_dense"}
+K1_L5 = dict(method="mip2q", p=0.5, L=5)
+K2_P1 = dict(method="dliq", p=1.0, q=4)
+K3_P0 = dict(method="mip2q", p=0.0, L=5)
+# p2: each OLMo-1B linear kind its own config (None: dense); the kernel
+# each must select; K1 at L = 7 runs off its byte path
+P2_SCHEDULE = {"attn/wq/w": (K1_L5, "cuda:onehot"),
+               "attn/wk/w": (K2_P1, "cuda:maskfree"),
+               "attn/wv/w": (K3_P0, "cuda:dense"),
+               "attn/wo/w": (dict(method="mip2q", p=0.5, L=7), "cuda:onehot"),
+               "mlp/wi/w": (None, None),
+               "mlp/wg/w": (K1_L5, "cuda:onehot"),
+               "mlp/wo/w": (K2_P1, "cuda:maskfree")}
+# p3: one Moonshot MoE layer position's three expert stacks on K6, K7, K8;
+# p3b leaves wo dense
+P3_SCHEDULE = {"moe/wi": (K1_L5, "cuda:grouped"),
+               "moe/wg": (K2_P1, "cuda:grouped_maskfree"),
+               "moe/wo": (K3_P0, "cuda:grouped_dense")}
+P_LAYERS = 2                    # p2's and p3's depth, at full width
+
+
+def _write_schedule(name, table):
+    """A StruMSchedule over ``blocks/pos0/<kind>`` names, saved as JSON under
+    SCHED_DIR and held to load back; returns (path, {name: variant})."""
+    from repro_torch.autotune import StruMSchedule
+    from repro_torch.core.policy import StruMConfig
+    sched = StruMSchedule(
+        assignments={f"blocks/pos0/{k}": c and StruMConfig(**c)
+                     for k, (c, _) in table.items()},
+        meta={"written_by": "chip_smoke.py phase p"})
+    path = sched.save(str(SCHED_DIR / f"{name}.json"))
+    _check(StruMSchedule.load(path).to_json() == sched.to_json(),
+           f"{path} did not load back")
+    return path, {f"blocks/pos0/{k}": v for k, (_, v) in table.items()}
+
+
+def _plan_launches(plan, groups, steps, modes=None, draft_steps=0) -> dict:
+    """Launches a plan's kernels must make: one per entry per layer group
+    per step; in a speculative run an entry with a draft mode (``modes``)
+    launches that mode's kernel (K9 / K10) in the ``draft_steps`` instead."""
+    want: dict = {}
+    for name, e in plan.entries.items():
+        mode = (modes or {}).get(name, "")
+        # torch:dequant (printed by _check_schedule_plan) launches no kernel
+        for k, n in ((VARIANT_KERNEL.get(e.variant), steps - (draft_steps if mode else 0)),
+                     (mode, draft_steps if mode else 0)):
+            if k and n:
+                want[k] = want.get(k, 0) + groups * n
+    return want
+
+
+def _check_schedule_plan(plan, schedule, want_variants=None) -> None:
+    """Every tensor the schedule assigns a config has an entry with it, on a
+    cuda:* variant or, printed, on torch:dequant where no cuda:* predicate
+    accepts the config; a None assignment stays dense.  With
+    ``want_variants`` each entry has exactly its variant."""
+    import torch
+    from repro_torch.engine.plan import _is_expert_stack
+    from repro_torch.engine.registry import LeafInfo, list_variants
+    for name, cfg in schedule.assignments.items():
+        if cfg is None:
+            _check(name not in plan.entries and isinstance(_leaf_at(plan.params, name),
+                                                           torch.Tensor),
+                   f"{name}: assigned None, but packed")
+            continue
+        e = plan.entries.get(name)
+        _check(e is not None and e.cfg == cfg, f"{name}: {e and e.cfg}, want {cfg}")
+        if want_variants is not None:
+            _check(e.variant == want_variants[name],
+                   f"{name} selected {e.variant}, want {want_variants[name]}")
+        if not e.variant.startswith("cuda:"):
+            info = LeafInfo(k_dim=e.shape[-2], n_out=e.shape[-1], name=name,
+                            lead=tuple(e.shape[:-2]) if _is_expert_stack(name) else ())
+            cands = [v.name for v in list_variants().values() if v.family == "cuda"
+                     and not (v.cache or v.draft) and v.supports(e.cfg, info)]
+            _check(not cands, f"{name}: {e.variant}, but {cands} accept {e.cfg}")
+            print(f"  {name}: {e.variant} (no cuda:* variant accepts {e.cfg})",
+                  flush=True)
+
+
+def _k1_routes(plan) -> dict:
+    """{entry: "bytes" | "general"}: where K1 runs each cuda:onehot entry."""
+    from repro_torch.kernels import strum_matmul as K
+    return {n: "bytes" if K.byte_path_tables(e.cfg.w, e.cfg.n_low, q=e.cfg.q,
+                                              method=e.cfg.method, L=e.cfg.L,
+                                              kernel="onehot") else "general"
+            for n, e in plan.entries.items() if e.variant == "cuda:onehot"}
+
+
+def _dense_loop_logits(cfg, params, dev, gen=16, batch=4, prompt_len=32):
+    """Phase d's prompt (the serve entry point's, seed 0) through the
+    dense-cache loop on ``params``: a result dict for phase_f."""
+    import torch
+    from repro_torch.launch import serve as S
+    g = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g).to(dev)
+    toks, t_p, t_d, lg = S.serve(cfg, params, prompt, gen, device=dev,
+                                 return_logits=True)
+    return {"cfg": cfg, "params": params, "prompt": prompt, "tokens": toks,
+            "logits": lg, "gen": gen, "t_prefill": t_p, "t_decode": t_d}
+
+
+def phase_p1(dev, paged):
+    """Profile and search full-width OLMo-1B on the card; save, load, plan,
+    serve the schedule paged; phase d's prompt through it, cuda vs torch."""
+    import math
+
+    import torch
+    from repro_torch.autotune import (DEFAULT_GRID, Budget, StruMSchedule, cache_info,
+                                      clear_cache, profile_tree, search_schedule)
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.apply import tree_compression_report
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    cfg = get_config("olmo_1b")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    clear_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    prof = profile_tree(params, DEFAULT_GRID)
+    torch.cuda.synchronize(dev)
+    t_profile = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    first = cache_info()
+    t0 = time.perf_counter()
+    again = profile_tree(params, DEFAULT_GRID)
+    t_hits = time.perf_counter() - t0
+    second = cache_info()
+    n = len(prof)
+    _check(n == 7 and first == {"hits": 0, "misses": n, "entries": n} and
+           second == {"hits": n, "misses": n, "entries": n} and again == prof,
+           f"cache after the first profile {first}, after the second {second}: the "
+           f"second call must be all hits")
+    t0 = time.perf_counter()
+    sched = search_schedule(params, Budget(target_ratio=0.875), profile=prof)
+    t_search = time.perf_counter() - t0
+    elements = sum(r["size"] for r in prof.values())
+    print(f"  profile_tree: {n} tensors, {elements / 1e9:.3f} G weights, "
+          f"{len(DEFAULT_GRID)} configs each: {t_profile:.2f} s (all misses), peak "
+          f"{peak / 1e9:.2f} GB above the weights; the same call again {t_hits:.2f} s "
+          f"(all {n} hits: content hashes of {4 * elements / 1e9:.2f} GB, copied to the "
+          f"host); search_schedule (allocator on the profile) {t_search * 1e3:.2f} ms",
+          flush=True)
+    summ = sched.summary()
+    print(f"  searched schedule: {summ['config_distribution']}, achieved x"
+          f"{summ['achieved_ratio']:.4f} of int8 (budget x0.875), weighted SQNR "
+          f"{summ['weighted_sqnr_db']:.3f} dB, feasible {sched.meta['feasible']}",
+          flush=True)
+    _check(sched.meta["feasible"] and summ["achieved_ratio"] <= 0.875,
+           f"schedule misses its budget: {summ}")
+    path = sched.save(str(SCHED_DIR / "olmo_1b_searched.json"))
+    loaded = StruMSchedule.load(path)
+    _check(loaded.to_json() == sched.to_json(), "the saved schedule did not load back")
+    plan = build_serving_plan(params, schedule=loaded, device=dev)
+    _check_schedule_plan(plan, loaded)
+    report = tree_compression_report(params, schedule=loaded)
+    packed = {n for n, c in loaded.assignments.items() if c is not None}
+    want_bytes = sum(r["packed_bytes"] for r in report["tensors"] if r["name"] in packed)
+    payload = plan.summary()["packed_payload_bytes"]
+    int8 = sum(math.prod(e.shape) for e in plan.entries.values())
+    _check(payload == want_bytes, f"plan's packed bytes {payload} != the report's "
+           f"{want_bytes} over the assigned tensors")
+    routes = _k1_routes(plan)
+    print(f"  plan: {plan.summary()['variant_distribution']}; packed {payload} bytes = "
+          f"tree_compression_report's {want_bytes} over the {len(packed)} packed "
+          f"tensors; weights x{payload / int8:.4f} of int8; K1 routes {routes}",
+          flush=True)
+    del plan, params
+    torch.cuda.empty_cache()
+
+    launched: dict = {}
+    res = _serve_schedule(["--arch", "olmo_1b", "--seed", "0", "--paged", "--kv-cache",
+                           "mip2q", "--prompt-len", "128", "--gen", "32"], path, None,
+                          launched)
+    outs = [r.output for r in res["requests"]]
+    _check(len(outs) == 4 and all(len(o) == 33 for o in outs),
+           f"requests came back with {[len(o) for o in outs]} tokens")
+    runs = res["lane_runs"]
+    dec = sorted(ms for kind, ms in res["ticks"] if kind == "decode")
+    tick, h = _spread(dec), paged["decode_tick_ms"]
+    print(f"  drain {res['drain_s'] * 1e3:.1f} ms, decode-only tick median "
+          f"{tick['median']:.3f} ms [{tick['min']:.3f}, {tick['max']:.3f}] over "
+          f"{len(dec)}, against phase h's drain {paged['drain_ms']:.1f} ms, tick "
+          f"{h['median']:.3f} ms [{h['min']:.3f}, {h['max']:.3f}] (mip2q p=0.5 L=5 "
+          f"everywhere)", flush=True)
+    # phase d's prompt teacher-forced through the same plan, cuda vs torch
+    dl = _dense_loop_logits(res["cfg"], res["params"], dev)
+    phase_f(dl)
+    return {"profile_s": t_profile, "profile_hits_s": t_hits, "search_s": t_search,
+            "profile_peak_bytes": peak, "schedule": summ,
+            "weights_ratio_vs_int8": payload / int8, "packed_weight_bytes": payload,
+            "drain_ms": res["drain_s"] * 1e3, "ticks": len(res["ticks"]),
+            "decode_tick_ms": tick, "decode_ticks": len(dec), "lane_runs": runs,
+            "phase_h_decode_tick_ms": h, "phase_h_drain_ms": paged["drain_ms"],
+            "launches": launched, "k1_routes": routes,
+            "dense_loop_decode_ms_per_token": dl["t_decode"] / dl["gen"] * 1e3}
+
+
+def _serve_schedule(argv, path, want_variants, counts, spy=()):
+    """``serve ... --schedule path`` with the launch counts reset (added to
+    ``counts``); the plan must hold the schedule (with ``want_variants``,
+    exactly those variants) and the run launch one kernel per entry per
+    layer group per step (K4 once per layer per lane run) and nothing else.
+    ``spy`` names grouped wrappers whose every call must carry the experts'
+    live rows."""
+    import torch
+    from repro_torch.kernels import strum_matmul as K
+    from repro_torch.launch import serve as S
+    seen: dict = {name: [] for name in spy}
+    kept = {name: getattr(K, f"strum_matmul_{name}") for name in spy}
+
+    def wrap(name):
+        def call(x3, *a, rows=None, **kw):
+            seen[name].append((tuple(x3.shape), rows))
+            return kept[name](x3, *a, rows=rows, **kw)
+        return call
+    _reset_kv_counts()
+    for name in spy:
+        setattr(K, f"strum_matmul_{name}", wrap(name))
+    try:
+        res = S.run(argv + ["--schedule", path])
+    finally:
+        for name, fn in kept.items():
+            setattr(K, f"strum_matmul_{name}", fn)
+    launched = _kv_counts()
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    plan, cfg = res["plan"], res["cfg"]
+    _check_schedule_plan(plan, plan.schedule, want_variants)
+    modes, draft_steps = None, 0
+    if res["paged"]:
+        runs = res["lane_runs"]
+        steps = runs["decode"] + runs["prefill_chunk"] + runs["draft"] + runs["verify"]
+        if res["sched"].speculative:
+            modes, draft_steps = res["sched"].draft_plan.meta["draft"], runs["draft"]
+    else:
+        steps = 1 + res["gen"] + 2       # + the untimed warm-up prefill and decode
+    want = _plan_launches(plan, cfg.n_layers, steps, modes, draft_steps)
+    if res["paged"]:
+        want["paged_attention"] = cfg.n_layers * steps
+        _check_combine(launched)
+    extra = launched["paged_attention_combine"]
+    _check(all(launched[k] == v for k, v in want.items()) and
+           sum(launched.values()) - extra == sum(want.values()),
+           f"launches {launched}, want {want} and nothing else")
+    for name, calls in seen.items():
+        _check(len(calls) == launched[name] and all(
+            r is not None and r.is_cuda and r.dtype == torch.int32 and
+            tuple(r.shape) == (shape[0],) and 0 <= int(r.min()) and
+            int(r.max()) <= shape[1] for shape, r in calls),
+            f"{name}: {len(calls)} calls, not every one of the {launched[name]} "
+            f"launches with each expert's live rows")
+    for k, v in launched.items():
+        counts[k] = counts.get(k, 0) + v
+    print(f"  launches: {launched} (one per entry x {cfg.n_layers} layers x {steps} "
+          f"steps{', the warm-up included' if res['paged'] else ', 2 of them warm-up'})"
+          + "".join(f"; every {n} launch with the experts' live rows" for n in seen),
+          flush=True)
+    return res
+
+
+def phase_p2(dev):
+    """A mixed schedule the script writes: K1, K2, K3, K1 off its byte path
+    and a dense linear in one 2-layer full-width OLMo-1B plan; logits vs the
+    torch family; the speculative lane on it against the plain lane."""
+    from repro_torch import engine
+    path, variants = _write_schedule("olmo_1b_mixed", P2_SCHEDULE)
+    counts: dict = {}
+    res = _serve_schedule(["--arch", "olmo_1b", "--layers", str(P_LAYERS), "--seed",
+                           "0", "--gen", "4"], path, variants, counts)
+    routes = _k1_routes(res["plan"])
+    _check(routes == {"blocks/pos0/attn/wq/w": "bytes", "blocks/pos0/mlp/wg/w": "bytes",
+                      "blocks/pos0/attn/wo/w": "general"}, f"K1 routes {routes}")
+    dense = _dense_routes(res["plan"])
+    _check(dense == {"bytes"}, f"K3's payloads route to {dense}")
+    print(f"  K1 routes {routes}; K3 on its byte path", flush=True)
+    phase_f(res)
+
+    argv = ["--arch", "olmo_1b", "--layers", str(P_LAYERS), "--seed", "0", "--paged",
+            "--kv-cache", "mip2q", "--prompt-len", "64", "--gen", "16"]
+    plain = _serve_schedule(argv, path, variants, counts)
+    spec = _serve_schedule(argv + ["--speculative", str(SPEC_K), "--draft", "histream"],
+                           path, variants, counts)
+    got = {r.uid: r.output for r in spec["requests"]}
+    want = {r.uid: r.output for r in plain["requests"]}
+    _check(got == want, f"speculative tokens differ from the plain lane's: {got} vs "
+           f"{want}")
+    s = spec["sched"]
+    modes = s.draft_plan.meta["draft"]
+    want_modes = engine.build_draft_plan(s.plan, engine.DraftPolicy("histream")).meta["draft"]
+    drafted = {n for n, m in modes.items() if m}
+    _check(modes == want_modes and drafted == {n for n, e in s.plan.entries.items()
+                                               if 0 < e.cfg.n_low < e.cfg.w},
+           f"draft modes {modes}, build_draft_plan's {want_modes}")
+    runs = spec["lane_runs"]
+    _check(runs["draft"] > 0 and runs["decode"] == 0, f"speculative lane runs {runs}")
+    acc = spec["spec"]["accepted"] / max(spec["spec"]["drafted"], 1)
+    print(f"  speculative (k={SPEC_K}, histream) on the schedule plan: tokens = the "
+          f"plain lane's for all {len(got)} requests; drafted on K9 {sorted(drafted)}, "
+          f"kept at full fidelity {sorted(set(modes) - drafted)} in {runs['draft']} "
+          f"draft steps; acceptance {acc:.4f}; draft payload "
+          f"x{s.cache_stats()['speculative']['ratio']:.4f}", flush=True)
+    return {"launches": counts, "k1_routes": routes, "acceptance": acc,
+            "drafted": sorted(drafted)}
+
+
+def phase_p3(dev):
+    """Moonshot-16B-A3B, 2 of 48 layers, full width: wi, wg, wo of its MoE
+    layer position on K6, K7, K8 through the paged scheduler, logits vs the
+    torch family; then wo left dense through the dense-cache loop."""
+    path, variants = _write_schedule("moonshot_moe_mixed", P3_SCHEDULE)
+    counts: dict = {}
+    res = _serve_schedule(["--arch", MOE_ARCH, "--layers", str(P_LAYERS), "--seed", "0",
+                           "--paged", "--kv-cache", "mip2q", "--prompt-len", "128",
+                           "--gen", "16"], path, variants, counts,
+                          spy=("grouped_onehot", "grouped_maskfree", "grouped_dense"))
+    _check_moe_cfg(res["cfg"], P_LAYERS)
+    _check(_dense_routes(res["plan"]) == {"bytes"}, "K8's payload is off its byte path")
+    logits = _paged_vs_torch(dev, res, schedule=res["plan"].schedule)
+    del logits["cuda_logits"]
+
+    table = {k: v for k, v in P3_SCHEDULE.items() if k != "moe/wo"}
+    table["moe/wo"] = (None, None)
+    path_b, variants_b = _write_schedule("moonshot_moe_wo_dense", table)
+    # wo dense: _serve_schedule holds the run to K6 and K7 only (no K8)
+    res_b = _serve_schedule(["--arch", MOE_ARCH, "--layers", str(P_LAYERS), "--seed",
+                             "0", "--gen", "4"], path_b, variants_b, counts,
+                            spy=("grouped_onehot", "grouped_maskfree"))
+    phase_f(res_b)
+    return {"launches": counts, "logits": logits}
+
+
 def measure(dev, clocks):
-    """Phases c-m; returns the kernels' records and the serve times."""
+    """Phases c-p; returns the kernels' records and the serve times."""
     import torch
     _phase("c. kernels vs plain versions at OLMo-1B shapes")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1688,6 +2067,24 @@ def measure(dev, clocks):
            "maskfree_p, mip2q KV pages, batch 4, prompt 128, gen 32)")
     times["speculative"] = phase_o(dev, plain, counts)
     del plain
+    torch.cuda.empty_cache()
+
+    _phase("p. schedule-driven serving: a schedule searched on the card (OLMo-1B), "
+           "mixed plans (OLMo-1B, Moonshot-16B-A3B)")
+    sub = {}
+    for key, what, fn in (
+            ("p1", "search full-width OLMo-1B on the card, save, load, serve paged",
+             lambda: phase_p1(dev, times["paged"])),
+            ("p2", f"mixed schedule K1 / K2 / K3 / dense, OLMo-1B {P_LAYERS} layers, "
+                   "plain and speculative", lambda: phase_p2(dev)),
+            ("p3", f"K6 / K7 / K8 in one Moonshot MoE layer, {P_LAYERS} of 48 layers",
+             lambda: phase_p3(dev))):
+        t0 = time.perf_counter()
+        print(f"-- {key}. {what} (t = {t0 - _T0:.1f} s)", flush=True)
+        sub[key] = fn()
+        sub[key]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    times["schedule"] = sub
 
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
@@ -1829,6 +2226,15 @@ def main() -> int:
               f"{tick['median']:.3f} ms; acceptance {sp['acceptance']:.4f} "
               f"({int(sp['spec']['accepted'])} of {int(sp['spec']['drafted'])}); draft "
               f"payload x{sp['ratio']:.4f}")
+    p1 = times["schedule"]["p1"]
+    pt, ht = p1["decode_tick_ms"], p1["phase_h_decode_tick_ms"]
+    print(f"schedule path (searched OLMo-1B, {p1['schedule']['config_distribution']}, "
+          f"weights x{p1['weights_ratio_vs_int8']:.4f} of int8): profile "
+          f"{p1['profile_s']:.2f} s, again from the cache {p1['profile_hits_s']:.2f} s, "
+          f"search {p1['search_s'] * 1e3:.2f} ms; paged drain {p1['drain_ms']:.1f} ms, "
+          f"decode-only tick median {pt['median']:.3f} ms [{pt['min']:.3f}, "
+          f"{pt['max']:.3f}] against phase h's {ht['median']:.3f} ms; sub-phase seconds "
+          f"{ {k: round(v['seconds'], 1) for k, v in times['schedule'].items()} }")
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

@@ -2,8 +2,10 @@
 funnel (twin of the single-device half of ``repro.engine``).
 
     plan = engine.build_plan(params, cfg=StruMConfig(), device="cuda")
+    plan = engine.build_plan(params, schedule=sched)     # per-tensor configs
     y = engine.apply(plan, "blocks/pos0/mlp/wi/w", x)   # 2-D entries
     served = plan.params                                # model-shaped tree
+    fq = engine.fake_quantize(params, schedule=sched)   # no bit-packing
 
 KV-cache page codecs and the consumers of the page pools are registry
 entries too (the ``cache:*`` family, :mod:`repro_torch.engine.cache`):
@@ -21,11 +23,12 @@ from repro_torch.engine.draft import (DRAFT_MODES, DraftPolicy,
                                       draft_plan_bytes)
 from repro_torch.engine.dispatch import (apply, dequant_leaf, dispatch,
                                          dispatch_grouped, leaf_spec)
-from repro_torch.engine.plan import ExecutionPlan, PlanEntry, build_plan
+from repro_torch.engine.plan import (ExecutionPlan, PlanEntry, build_plan,
+                                     fake_quantize)
 from repro_torch.engine.registry import (BACKENDS, ExecSpec, KernelVariant,
-                                         LeafInfo, get_variant,
+                                         LeafInfo, get_variant, list_variants,
                                          register_kernel, resolve_backend,
-                                         select_variant)
+                                         select_variant, unregister_kernel)
 
 __all__ = ["CacheSpec", "build_cache_spec", "decode_pages", "encode_page",
            "gather_decode_pages", "select_cache_variant", "DRAFT_MODES",
@@ -33,6 +36,7 @@ __all__ = ["CacheSpec", "build_cache_spec", "decode_pages", "encode_page",
            "draft_dequant_packed", "draft_leaf_bytes", "draft_plan_bytes",
            "apply", "dispatch",
            "dispatch_grouped", "dequant_leaf", "leaf_spec", "ExecutionPlan",
-           "PlanEntry", "build_plan", "BACKENDS", "ExecSpec", "KernelVariant",
-           "LeafInfo", "get_variant", "register_kernel", "resolve_backend",
-           "select_variant"]
+           "PlanEntry", "build_plan", "fake_quantize", "BACKENDS", "ExecSpec",
+           "KernelVariant", "LeafInfo", "get_variant", "list_variants",
+           "register_kernel", "resolve_backend", "select_variant",
+           "unregister_kernel"]

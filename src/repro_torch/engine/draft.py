@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core.apply import map_named
 from repro_torch.core.packing import _scatter_expand, _unpack_bits_axis1
 from repro_torch.engine.dispatch import _as_packed, dequant_leaf
 from repro_torch.engine.registry import ExecSpec, LeafInfo, select_variant
@@ -127,15 +128,12 @@ def _is_packed_leaf(node) -> bool:
     return isinstance(node, dict) and "mask" in node and "hi" in node
 
 
-def _map_packed(fn, tree, prefix: str = ""):
-    """Map ``fn(name, leaf)`` over the packed leaves of a nested dict, names
-    ``/``-joined as plan entries are; everything else passes through."""
-    if _is_packed_leaf(tree):
-        return fn(prefix, tree)
-    if isinstance(tree, dict):
-        return {k: _map_packed(fn, v, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree.items()}
-    return tree
+def _map_packed(fn, tree):
+    """Map ``fn(name, leaf)`` over the packed leaves of a tree, named and
+    visited as plan entries are; everything else passes through."""
+    return map_named(lambda name, node: fn(name, node)
+                     if _is_packed_leaf(node) else node,
+                     tree, is_leaf=_is_packed_leaf)
 
 
 def build_draft_plan(plan, policy: Optional[DraftPolicy] = None):
@@ -183,7 +181,8 @@ def build_draft_plan(plan, policy: Optional[DraftPolicy] = None):
                 draft_policy={"mode": policy.mode,
                               "overrides": [list(o) for o in policy.overrides]})
     return ExecutionPlan(entries=new_entries, params=params,
-                         backend=plan.backend, meta=meta)
+                         backend=plan.backend, scope=plan.scope,
+                         schedule=plan.schedule, meta=meta)
 
 
 def draft_plan_bytes(plan) -> dict:

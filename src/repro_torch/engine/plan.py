@@ -1,33 +1,60 @@
-"""Execution plans: build once from ``(params, cfg | policy)``, serve many
-(twin of ``repro.engine.plan`` for ``scope="model"``).
+"""Execution plans: build once from ``(params, StruMSchedule)``, serve many
+(twin of ``repro.engine.plan``, without ``mesh=``).
 
-For every packed linear the plan records the payload *and* the kernel
-variant selected from the registry.  ``plan.params`` is the model-shaped
-tree the forward consumes: each eligible ``.../w`` weight and each MoE
-expert stack (``.../moe/wi|wg|wo``) becomes ``{"mask", "hi", "lo",
-"scale", "cfg", "spec"}`` with its lead dims kept on every payload field.
-Scan-group lead dims are sliced away before dispatch, so 2-D weights
-select a 2-D variant; expert stacks keep their expert dim and select from
-the grouped family (``cuda:grouped*``, K6-K8).
+For every quantized leaf the plan records the packed representation *and*
+the kernel variant selected from the registry, so serving never re-derives
+per-leaf configs.  Two scopes, as in the reference:
+
+``scope="model"``  model param trees: each eligible ``.../w`` weight and
+                   each MoE expert stack (``.../moe/wi|wg|wo``) becomes
+                   ``{"mask", "hi", "lo", "scale", "cfg", "spec"}`` with its
+                   lead dims kept on every payload field ("serve" layout).
+                   Scan-group lead dims are sliced away before dispatch, so
+                   2-D weights select a 2-D variant; expert stacks keep
+                   their expert dim and select from the grouped family
+                   (``cuda:grouped*``, K6-K8).
+``scope="tree"``   any tree: every eligible leaf packs column-folded
+                   ("folded" layout); ``plan.params`` is the flat manifest
+                   ``{name: (PackedStruM, shape) | leaf}`` that
+                   ``core.apply.pack_tree`` returns.
+
+A ``schedule`` (a :class:`repro_torch.autotune.StruMSchedule`, e.g. loaded
+from the reference's JSON) gives each tensor its own config, so one plan
+may run K1, K2, K3 and dense products side by side.  ``pack=False`` builds
+a selection-only plan (configs and variants, no payload), which
+:func:`fake_quantize` uses.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import packing
+from repro_torch.core.apply import _named_leaves, map_named
 from repro_torch.core.policy import LayerPolicy, StruMConfig, default_policy
 from repro_torch.engine import variants as _variants  # noqa: F401  (registration)
 from repro_torch.engine.registry import ExecSpec, LeafInfo, select_variant
 
-__all__ = ["PlanEntry", "ExecutionPlan", "build_plan"]
+__all__ = ["PlanEntry", "ExecutionPlan", "build_plan", "fake_quantize"]
+
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _is_expert_stack(name: str) -> bool:
     return "/moe/" in name and name.rsplit("/", 1)[-1] in ("wi", "wg", "wo")
+
+
+def _resolve_policy(schedule, policy: Optional[LayerPolicy],
+                    cfg: Optional[StruMConfig]) -> LayerPolicy:
+    """Schedule wins, then explicit policy, then a uniform-cfg default."""
+    if schedule is not None:
+        return schedule.to_policy()
+    if policy is not None:
+        return policy
+    return default_policy(cfg)
 
 
 @dataclasses.dataclass
@@ -38,36 +65,65 @@ class PlanEntry:
     cfg: StruMConfig
     variant: str
     shape: tuple                      # original dense shape
-    leaf: dict                        # packed tensors + cfg + spec
+    leaf: Optional[dict] = None       # packed tensors + cfg + spec; None if
+                                      # the plan was built with pack=False
     backend: Optional[str] = None
+    layout: str = "serve"             # "serve" (lead dims kept) | "folded"
 
     @property
     def spec(self) -> ExecSpec:
+        # K is shape[-2] in both layouts: folding moves lead dims into
+        # columns, never into the reduction axis
         return ExecSpec(cfg=self.cfg, variant=self.variant,
                         backend=self.backend, k_dim=self.shape[-2])
 
+    def _payload(self) -> dict:
+        if self.leaf is None:
+            raise ValueError(f"plan entry {self.name!r} was built with "
+                             f"pack=False (selection-only)")
+        return self.leaf
+
     def as_packed(self) -> packing.PackedStruM:
-        """The 2-D :class:`PackedStruM` view of a lead-free entry."""
-        if len(self.shape) > 2:
+        """The 2-D :class:`PackedStruM` view (folded, or lead-free serve)."""
+        leaf = self._payload()
+        if self.layout == "serve" and len(self.shape) > 2:
             raise ValueError(f"{self.name!r} is a stacked leaf (lead dims "
                              f"{self.shape[:-2]}); slice a group first")
         cfg = self.cfg
         return packing.PackedStruM(
             method=cfg.method, w=cfg.w, n_low=cfg.n_low, q=cfg.q, L=cfg.L,
-            k_dim=self.shape[-2], scale=self.leaf["scale"],
-            mask=self.leaf["mask"], hi=self.leaf["hi"], lo=self.leaf["lo"])
+            k_dim=self.shape[-2], scale=leaf["scale"], mask=leaf["mask"],
+            hi=leaf["hi"], lo=leaf["lo"])
 
-    def payload_bytes(self) -> int:
+    def dequantized(self, dtype=torch.float32) -> torch.Tensor:
+        """Decompress back to the original dense shape."""
+        leaf = self._payload()
+        if self.layout == "folded":
+            from repro_torch.core.apply import unpack_array
+            return unpack_array(self.as_packed(), self.shape, dtype)
+        from repro_torch.engine.dispatch import dequant_leaf
+        return dequant_leaf(leaf, dtype, cfg=self.cfg, k_dim=self.shape[-2])
+
+    def payload_bytes(self) -> Optional[int]:
+        if self.leaf is None:
+            return None
         return int(sum(self.leaf[k].numel() for k in ("mask", "hi", "lo")))
 
 
 @dataclasses.dataclass
 class ExecutionPlan:
-    """Per-leaf packed payloads + selected kernel variants, built once."""
+    """Per-leaf packed payloads + selected kernel variants, built once.
+
+    ``entries`` is keyed by parameter path name; ``params`` is either the
+    model-shaped served tree (scope="model") or the flat pack manifest
+    (scope="tree").
+    """
 
     entries: dict
     params: Any
     backend: Optional[str] = None
+    scope: str = "model"
+    schedule: Any = None
     meta: dict = dataclasses.field(default_factory=dict)   # e.g. a draft
                                                            # plan's mode map
 
@@ -85,64 +141,148 @@ class ExecutionPlan:
         dist: dict = {}
         for e in self.entries.values():
             dist[e.variant] = dist.get(e.variant, 0) + 1
-        return {"n_entries": len(self.entries), "backend": self.backend or "auto",
-                "scope": "model", "variant_distribution": dist,
-                "packed_payload_bytes": sum(e.payload_bytes()
-                                            for e in self.entries.values())}
+        out = {"n_entries": len(self.entries), "backend": self.backend or "auto",
+               "scope": self.scope, "variant_distribution": dist}
+        payload = [e.payload_bytes() for e in self.entries.values()]
+        if payload and None not in payload:
+            out["packed_payload_bytes"] = int(sum(payload))
+        return out
+
+    def fake_quantize(self, params: Any, baseline_int8: bool = True) -> Any:
+        """Shape-preserving fake-quant of ``params`` per this plan's configs,
+        on each leaf's device.
+
+        Leaves with a plan entry get the StruM round-trip; other float
+        matrices get the plain INT8 round-trip when ``baseline_int8`` (so
+        comparisons isolate StruM's delta on top of the INT8 baseline) or
+        pass through untouched.
+        """
+        from repro_torch.core.apply import fake_quantize_array, int8_baseline_array
+
+        def visit(name, leaf):
+            if not isinstance(leaf, torch.Tensor) or leaf.dtype not in _FLOATS:
+                return leaf
+            entry = self.entries.get(name)
+            if entry is None:
+                return int8_baseline_array(leaf) if (
+                    baseline_int8 and leaf.dim() >= 2
+                    and min(leaf.shape[-2:]) >= 2
+                    and "embed" not in name.lower()
+                ) else leaf
+            return fake_quantize_array(leaf, entry.cfg)
+
+        return map_named(visit, params)
 
 
-def _map_named(fn: Callable, tree: Any, prefix: str = "") -> Any:
-    """Map ``fn(name, leaf)`` over a nested dict; names are ``/``-joined keys,
-    as the reference's path names are."""
-    if isinstance(tree, dict):
-        return {k: _map_named(fn, v, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree.items()}
-    return fn(prefix, tree)
+def build_plan(params: Any, *, schedule: Any = None,
+               policy: Optional[LayerPolicy] = None,
+               cfg: Optional[StruMConfig] = None,
+               backend: Optional[str] = None, scope: str = "model",
+               float_only: bool = False, pack: bool = True,
+               validate: bool = False, device="cuda") -> ExecutionPlan:
+    """Build an :class:`ExecutionPlan` from ``(params, schedule)``.
 
-
-def build_plan(params: Any, *, policy: Optional[LayerPolicy] = None,
-               cfg: Optional[StruMConfig] = None, backend: Optional[str] = None,
-               device="cuda") -> ExecutionPlan:
-    """Pack every eligible ``.../w`` linear and MoE expert stack of a model
-    tree and select its variant.  Precedence: ``policy`` > uniform ``cfg``
-    > repo default, except that expert stacks pack with ``cfg`` whenever it
-    is given (the reference's legacy rule).
+    Precedence: ``schedule`` (per-tensor table) > ``policy`` > uniform
+    ``cfg`` > repo default.  Expert stacks pack with ``cfg`` whenever it is
+    given and no schedule is (the reference's legacy rule); with a
+    schedule they follow the schedule.
 
     Tensors move to ``device`` (default ``"cuda"``; raises without a card
     unless ``device="cpu"``), packing runs there, and ``backend=None`` /
     ``"auto"`` selects by that device: ``cuda:*`` on the card, ``torch:*``
-    on the CPU.
+    on the CPU.  ``validate=True`` needs the static plan checks
+    (``analysis.validate_plan``), which are not ported: it raises.
     """
+    if scope not in ("model", "tree"):
+        raise ValueError(f"scope={scope!r}")
+    if validate:
+        raise NotImplementedError(
+            "build_plan(validate=True) runs analysis.validate_plan, which is "
+            "not ported yet (ROADMAP queue 1 item 9)")
     dev = resolve_device(device)
-    pol = policy if policy is not None else default_policy(cfg)
+    pol = _resolve_policy(schedule, policy, cfg)
     entries: dict[str, PlanEntry] = {}
 
-    def visit(name, leaf):
-        if not isinstance(leaf, torch.Tensor):
-            return leaf
-        leaf = leaf.to(dev)
-        is_expert = _is_expert_stack(name)
-        if (not name.endswith("/w") and not is_expert) or leaf.dim() < 2:
-            return leaf
-        leaf_cfg = pol.resolve(name, tuple(leaf.shape))
-        if is_expert and cfg is not None:
-            leaf_cfg = cfg      # legacy: experts pack with the uniform cfg
-        if leaf_cfg is None:
-            return leaf
-        from repro_torch.models.quantize import _pack_leaf
+    def _entry(name, leaf, leaf_cfg, layout, packed_leaf, exec_lead=()):
+        # exec_lead: lead dims as the kernel sees them (scan groups are
+        # sliced away before dispatch; expert stacks keep theirs and select
+        # from the grouped family)
         shape = tuple(leaf.shape)
-        # lead dims as the kernel sees them: scan groups are sliced away
-        # before dispatch (2-D), expert stacks keep theirs (grouped family)
-        info = LeafInfo(k_dim=shape[-2], n_out=shape[-1],
-                        lead=shape[:-2] if is_expert else (), name=name)
+        info = LeafInfo(k_dim=shape[-2], n_out=shape[-1], lead=exec_lead,
+                        name=name)
         variant = select_variant(leaf_cfg, info, backend=backend, device=dev)
-        packed = _pack_leaf(leaf, leaf_cfg)
         e = PlanEntry(name=name, cfg=leaf_cfg, variant=variant.name,
-                      shape=shape, backend=backend, leaf=packed)
+                      shape=shape, leaf=packed_leaf, backend=backend,
+                      layout=layout)
+        if packed_leaf is not None:
+            packed_leaf["cfg"] = leaf_cfg
+            packed_leaf["spec"] = e.spec
         entries[name] = e
-        packed["cfg"] = leaf_cfg
-        packed["spec"] = e.spec
-        return packed
 
-    out = _map_named(visit, params)
-    return ExecutionPlan(entries=entries, params=out, backend=backend)
+    def _float_ok(leaf) -> bool:
+        return not float_only or leaf.dtype in _FLOATS
+
+    if scope == "model":
+        from repro_torch.models.quantize import _pack_leaf
+
+        def visit(name, leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            leaf = leaf.to(dev)
+            is_expert = _is_expert_stack(name)
+            if (not name.endswith("/w") and not is_expert) or leaf.dim() < 2 \
+                    or not _float_ok(leaf):
+                return leaf
+            leaf_cfg = pol.resolve(name, tuple(leaf.shape))
+            if is_expert and schedule is None and cfg is not None:
+                leaf_cfg = cfg      # legacy: experts pack with the uniform cfg
+            if leaf_cfg is None:
+                return leaf
+            packed = _pack_leaf(leaf, leaf_cfg) if pack else None
+            _entry(name, leaf, leaf_cfg, "serve", packed,
+                   tuple(leaf.shape[:-2]) if is_expert else ())
+            return packed if pack else leaf
+
+        out = map_named(visit, params)
+        return ExecutionPlan(entries=entries, params=out, backend=backend,
+                             scope="model", schedule=schedule)
+
+    # scope == "tree": flat manifest, column-folded packing
+    from repro_torch.core.apply import pack_array
+
+    out = {}
+    for name, leaf in _named_leaves(params):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.to(dev)
+        leaf_cfg = pol.resolve(name, tuple(getattr(leaf, "shape", ())))
+        if leaf_cfg is None or not isinstance(leaf, torch.Tensor) \
+                or not _float_ok(leaf):
+            out[name] = leaf
+            continue
+        if pack:
+            p = pack_array(leaf, leaf_cfg)
+            _entry(name, leaf, leaf_cfg, "folded",
+                   {"mask": p.mask, "hi": p.hi, "lo": p.lo, "scale": p.scale})
+            out[name] = (p, tuple(leaf.shape))
+        else:
+            _entry(name, leaf, leaf_cfg, "folded", None)
+            out[name] = leaf
+    return ExecutionPlan(entries=entries, params=out, backend=backend,
+                         scope="tree", schedule=schedule)
+
+
+def fake_quantize(params: Any, *, schedule: Any = None,
+                  policy: Optional[LayerPolicy] = None,
+                  cfg: Optional[StruMConfig] = None,
+                  baseline_int8: bool = True, device="cuda") -> Any:
+    """One-shot fake-quant through a selection-only plan (no bit-packing),
+    on ``device``: the engine-native replacement for
+    ``core.apply.fake_quantize_tree``, with the same eligibility and INT8
+    baseline, driven by the same schedule / policy resolution as
+    :func:`build_plan`."""
+    dev = resolve_device(device)
+    params = map_named(lambda _, x: x.to(dev) if isinstance(x, torch.Tensor)
+                       else x, params)
+    plan = build_plan(params, schedule=schedule, policy=policy, cfg=cfg,
+                      scope="tree", float_only=True, pack=False, device=dev)
+    return plan.fake_quantize(params, baseline_int8=baseline_int8)

@@ -32,8 +32,8 @@ import torch
 from repro_torch.core.policy import StruMConfig
 
 __all__ = ["LeafInfo", "KernelVariant", "ExecSpec", "BACKENDS", "FAMILIES",
-           "register_kernel", "get_variant", "select_variant",
-           "resolve_backend"]
+           "register_kernel", "unregister_kernel", "get_variant",
+           "list_variants", "select_variant", "resolve_backend"]
 
 BACKENDS = ("auto", "cuda", "torch", "reference")
 FAMILIES = ("cuda", "torch", "reference")
@@ -133,12 +133,20 @@ def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
     return deco
 
 
+def unregister_kernel(name: str) -> None:
+    _REGISTRY.pop(name, None)
+
+
 def get_variant(name: str) -> KernelVariant:
     try:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"no kernel variant {name!r}; registered: "
                        f"{sorted(_REGISTRY)}") from None
+
+
+def list_variants() -> dict[str, KernelVariant]:
+    return dict(_REGISTRY)
 
 
 def resolve_backend(backend: Optional[str], device=None) -> str:

@@ -10,12 +10,18 @@ runtime with StruM-packed KV pages.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b \
         --paged --kv-cache mip2q --speculative 3 --draft histream \
         --trace /tmp/t.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b \
+        --schedule sched.json [--paged --kv-cache mip2q]
 
 builds the model from a seed on the card, packs every linear (and, for the
 MoE architectures, every expert stack) into an
 :class:`~repro_torch.engine.ExecutionPlan` (``--strum none`` serves dense
-weights), prints the weight bytes against dense, the plan's variant
-distribution, the prefill and decode times and a token sample.  ``--paged``
+weights; ``--schedule PATH`` loads a ``StruMSchedule`` JSON, written by
+either package, and packs each tensor with its own config, overriding
+``--strum``), prints the weight bytes against dense, the plan's variant
+distribution (with a schedule also its packed bytes against the int8 bytes
+of the tensors it assigns), the prefill and decode times and a token
+sample.  ``--paged``
 serves the batch as ``--batch`` requests through
 :class:`repro_torch.serving.BatchScheduler` (``--prefill chunked|serial``,
 ``--page-size``), with sealed KV pages packed by ``--kv-cache`` (the fixed
@@ -182,6 +188,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--schedule", default=None, metavar="PATH",
+                    help="autotuned StruMSchedule JSON (overrides --strum)")
     ap.add_argument("--backend", default=None, choices=["auto", "cuda", "torch"],
                     help="pin the engine's kernel-variant family")
     ap.add_argument("--device", default="cuda",
@@ -224,7 +232,14 @@ def run(argv=None) -> dict:
     params = init_params(model_defs(cfg), seed=args.seed, device=dev,
                          dtype_override="float32")
     res = {"dense_bytes": serve_tree_bytes(params), "plan": None}
-    if args.strum != "none":
+    if args.schedule is not None:
+        from repro_torch.autotune.schedule import StruMSchedule
+        plan = build_serving_plan(params, schedule=StruMSchedule.load(args.schedule),
+                                  backend=args.backend, device=dev)
+        params = plan.params
+        res.update(plan=plan, packed_bytes=plan.serve_bytes(),
+                   ratio_note=f"schedule {args.schedule}")
+    elif args.strum != "none":
         scfg = StruMConfig(method=args.strum, p=args.p, q=args.q, L=args.L)
         cfg = dataclasses.replace(cfg, strum=scfg)
         plan = build_serving_plan(params, cfg=scfg, backend=args.backend,
@@ -263,6 +278,8 @@ def report(res: dict) -> list:
                      f"{res['ratio_note']})")
         lines.append(f"plan: {summ['n_entries']} entries, variants "
                      f"{summ['variant_distribution']} (backend {summ['backend']})")
+        if res["plan"].schedule is not None:
+            lines.append(_schedule_line(res["plan"]))
     else:
         lines.append(f"weights: dense {dense / 1e6:.2f} MB")
     if res["paged"]:
@@ -274,6 +291,20 @@ def report(res: dict) -> list:
                  f"{res['device']}")
     lines.append(f"sample: {res['tokens'][0, :16].tolist()}")
     return lines
+
+
+def _schedule_line(plan) -> str:
+    """A schedule plan's configs and its realized packed bytes against the
+    int8 bytes of the tensors it packs."""
+    import math
+    sched = plan.schedule
+    int8 = sum(math.prod(e.shape) for e in plan.entries.values())
+    payload = plan.summary()["packed_payload_bytes"]
+    dense = sum(cfg is None for cfg in sched.assignments.values())
+    return (f"schedule: {len(sched.assignments)} tensors assigned ({dense} kept "
+            f"dense), configs {sched.summary()['config_distribution']}; packed "
+            f"{payload / 1e6:.3f} MB = x{payload / max(int8, 1):.4f} of their int8 "
+            f"{int8 / 1e6:.3f} MB")
 
 
 def _paged_report(res: dict) -> list:

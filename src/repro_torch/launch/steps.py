@@ -12,13 +12,15 @@ __all__ = ["build_serving_plan", "make_prefill_step", "make_decode_step",
            "make_verify_step"]
 
 
-def build_serving_plan(params, *, cfg=None, policy=None,
+def build_serving_plan(params, *, schedule=None, cfg=None, policy=None,
                        backend: Optional[str] = None, device="cuda"):
-    """``(params, cfg | policy)`` -> :class:`repro_torch.engine.ExecutionPlan`
-    on ``device``."""
+    """``(params, schedule | cfg | policy)`` ->
+    :class:`repro_torch.engine.ExecutionPlan` on ``device``: the one place
+    ``launch/serve``, ``serving.scheduler`` and the tests turn weights into a
+    served plan."""
     from repro_torch import engine
-    return engine.build_plan(params, cfg=cfg, policy=policy, backend=backend,
-                             device=device)
+    return engine.build_plan(params, schedule=schedule, cfg=cfg, policy=policy,
+                             backend=backend, device=device)
 
 
 def make_prefill_step(cfg, **kw):

@@ -1,14 +1,19 @@
-"""Model-level StruM packing in the serving layout (twin of ``_pack_leaf``
-and ``serve_tree_bytes`` of ``repro.models.quantize``)."""
+"""Model-level StruM packing in the serving layout (twin of ``_pack_leaf``,
+``strum_serve_params`` and ``serve_tree_bytes`` of
+``repro.models.quantize``).  ``packed_model_defs`` (dry-run ParamDefs with
+sharding axes) waits for the launch dry-run tools."""
 from __future__ import annotations
+
+import warnings
+from typing import Optional
 
 import torch
 
 from repro_torch.core import blocking, packing
-from repro_torch.core.policy import StruMConfig
+from repro_torch.core.policy import LayerPolicy, StruMConfig
 from repro_torch.core.quantizers import int8_symmetric, quantize_blocks
 
-__all__ = ["serve_tree_bytes"]
+__all__ = ["strum_serve_params", "serve_tree_bytes"]
 
 
 def _pack_leaf(wt: torch.Tensor, scfg: StruMConfig) -> dict:
@@ -26,6 +31,29 @@ def _pack_leaf(wt: torch.Tensor, scfg: StruMConfig) -> dict:
         packed.append({"mask": p.mask, "hi": p.hi, "lo": p.lo, "scale": p.scale})
     return {key: torch.stack([p[key] for p in packed]).reshape(
         lead + tuple(packed[0][key].shape)) for key in packed[0]}
+
+
+def strum_serve_params(params, cfg, policy: Optional[LayerPolicy] = None,
+                       schedule=None, device="cuda"):
+    """Deprecated shim over :func:`repro_torch.engine.build_plan`: returns
+    ``build_plan(...).params``, the model-shaped served tree on ``device``.
+
+    Without a ``schedule`` every eligible kernel gets the uniform
+    ``cfg.strum``; with one (a :class:`repro_torch.autotune.StruMSchedule`,
+    e.g. loaded from disk) each tensor gets its own config, embedded with
+    its selected variant in the packed leaf.
+    """
+    warnings.warn(
+        "strum_serve_params is deprecated; use repro_torch.engine.build_plan "
+        "(the ExecutionPlan also records per-leaf kernel variants)",
+        DeprecationWarning, stacklevel=2)
+    scfg = cfg.strum
+    if scfg is None and schedule is None:
+        raise ValueError("set cfg.strum or pass a schedule")
+    from repro_torch.engine import build_plan
+    return build_plan(params, schedule=schedule,
+                      policy=policy if schedule is None else None,
+                      cfg=scfg, device=device).params
 
 
 def serve_tree_bytes(params) -> int:

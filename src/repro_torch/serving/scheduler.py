@@ -26,10 +26,13 @@ freed at retirement.  With a packed codec on the card, the sealed half of
 attention runs in the fused kernels K4 / K5 (``cache:attn_fused*``), which
 read the pools' packed bytes by page id.
 
-Weights come as ``params`` (dense, or a served tree) or ``plan=`` (a
-prebuilt :class:`repro_torch.engine.ExecutionPlan`).  The scheduler and
-its tensors live on ``device`` (default ``"cuda"``; raises without a card
-unless ``device="cpu"``).  Per tick it reads one argmax back to the host
+Weights come as ``params`` (dense, or a served tree), ``plan=`` (a
+prebuilt :class:`repro_torch.engine.ExecutionPlan`) or ``schedule=`` (a
+:class:`repro_torch.autotune.StruMSchedule` or the path of its JSON, either
+package's, + ``backend=``): the deployment end of the profile -> search ->
+schedule -> plan -> serve flow.  The scheduler and its tensors live on
+``device`` (default ``"cuda"``; raises without a card unless
+``device="cpu"``).  Per tick it reads one argmax back to the host
 (the speculative lanes one per draft step and one per verify); the lanes
 themselves read nothing back.
 
@@ -44,8 +47,7 @@ spans (``sched:*``, ``spec:*``), counters and gauges (``sched/*``,
 ``spec/drafted``, ``spec/accepted``, ``spec/rounds``) and request
 lifecycle events.
 
-Not ported yet: ``schedule=`` (the ``StruMSchedule`` JSON loader) and
-``mesh=`` / ``rules=``.
+Not ported yet: ``mesh=`` / ``rules=``.
 """
 from __future__ import annotations
 
@@ -112,7 +114,11 @@ class BatchScheduler:
     (one ``prefill_chunk``-token chunk per tick, interleaved with the
     decode lane) or ``"serial"``.
 
-    Speculative knobs: ``speculative=k`` (k > 0, needs ``plan=``) drafts
+    Weight knobs: ``plan=`` or ``schedule=`` (+ ``backend=``, which pins
+    the selection family of the plan the scheduler builds).
+
+    Speculative knobs: ``speculative=k`` (k > 0, needs ``plan=`` or
+    ``schedule=``) drafts
     up to ``k`` tokens per slot per tick from the plan's payload at reduced
     fidelity and verifies them at full fidelity; ``draft=`` is a mode
     (``"histream"``, the default, or ``"maskfree_p"``) or an
@@ -124,16 +130,32 @@ class BatchScheduler:
     """
 
     def __init__(self, cfg, params, n_slots: int = 4, max_len: int = 256,
-                 plan=None, kv_cache=None, page_size: int = 16,
-                 n_pages: Optional[int] = None, prefill: str = "chunked",
-                 prefill_chunk: Optional[int] = None, cache_backend=None,
-                 speculative: int = 0, draft=None, device="cuda"):
+                 schedule=None, plan=None, backend=None, kv_cache=None,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 prefill: str = "chunked", prefill_chunk: Optional[int] = None,
+                 cache_backend=None, speculative: int = 0, draft=None,
+                 device="cuda"):
+        if plan is not None and schedule is not None:
+            raise ValueError("pass plan= or schedule=, not both")
+        if plan is not None and backend is not None:
+            raise ValueError("backend= only applies when the scheduler "
+                             "builds the plan (schedule=...); a prebuilt "
+                             "plan already recorded its variant selection")
         if prefill not in ("chunked", "serial"):
             raise ValueError(f"prefill={prefill!r}; want 'chunked'|'serial'")
         dev = resolve_device(device)
+        if schedule is not None:
+            from repro_torch.autotune.schedule import StruMSchedule
+            from repro_torch.launch.steps import build_serving_plan
+            if isinstance(schedule, (str, bytes)) or hasattr(schedule, "__fspath__"):
+                schedule = StruMSchedule.load(schedule)
+            plan = build_serving_plan(params, schedule=schedule,
+                                      backend=backend, device=dev)
         if plan is not None:
             params = plan.params
+            schedule = schedule if schedule is not None else plan.schedule
         self.plan = plan
+        self.schedule = schedule
         self.cfg = cfg
         self.device = dev
         self.params = _to_device(params, dev)
@@ -180,8 +202,9 @@ class BatchScheduler:
             from repro_torch import engine
             if plan is None:
                 raise ValueError(
-                    "speculative=k needs a weight plan (plan=): the draft model "
-                    "is the plan's packed payload read at reduced fidelity")
+                    "speculative=k needs a weight plan (plan= or schedule=): the "
+                    "draft model is the plan's packed payload read at reduced "
+                    "fidelity")
             if any(cfg.layer_kind(i) != "attn" for i in range(cfg.n_layers)):
                 raise ValueError(
                     "speculative decoding needs an attention-only stack: SSM "
