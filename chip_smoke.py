@@ -149,9 +149,42 @@ Phases, each fatal on failure:
      reference, so a schedule cannot give two layers of one position two
      configs: the dense ``wo`` is a second plan.
 
+  q. the model zoo, each sub-phase fatal:
+     q1. full-width Mamba-2 780M, all 48 layers (mip2q p=0.5 L=5): K1 at its
+     in_proj (1536 -> 6448) and out_proj (3072 -> 1536) shapes, M = 4 and 16,
+     against its plain version (one layer timed at M = 4); the dense-cache
+     loop as in phase d, K1 exactly twice per layer per step and nothing
+     else, logits vs the torch family as in phase f; layer 0's packed mixer
+     at f32: ``ssm_prefill_chunk`` over 100 tokens in chunks of 16 equal to a
+     one-shot ``ssm_apply`` (outputs, conv tail, state), and its memory peak
+     at a 4 x 128 prefill below one (B, c, c, nh, hp) f32 tensor; the paged
+     runtime at
+     phase h's shape, K1 exactly twice per layer per lane run and K4, K5,
+     K11 and the combine never, weights at x0.875 of int8, the SSM hot
+     state's bytes exact; then its requests teacher-forced through the
+     chunked lane (its own tokens, exactly) and the serial lane (the same
+     tokens except at near ties: the gap between the two tokens' chunked
+     logits within twice the lanes' max |diff| there; logits to phase f's
+     tolerance), each lane's launches exact;
+     q2. the Jamba hybrid at its SMOKE shape (4 layers, period 2: SSM + MLP,
+     attention + MoE; the published width does not fit one card): paged with
+     mip2q KV pages, K1 on every dense linear, K4 once per attention layer
+     (its combine by the split rule) and K6 three times per MoE layer per
+     lane run, exactly; serial vs chunked as in q1; logits vs the torch
+     family as in phase l; ``speculative=3`` refused;
+     q3. DeepSeek-67B, StableLM-2-12B (head dim 160), InternVL2-26B's
+     InternLM2 backbone and MusicGen-medium (MHA, 24 kv heads of 64, GELU
+     MLP) at full width with 2 layers: 2 requests of 64 + 9 tokens paged,
+     launches exact, teacher-forced against the torch family; InternVL2 and
+     MusicGen also through their stub frontend (seeded ``embeds`` into
+     ``prefill`` and ``forward_train``, cuda vs torch family); K4 held to
+     its plain version and timed as in phase g at head dim 160 (8 kv heads,
+     R = 4) and 64 (24 kv heads, R = 1).
+
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
-it exits non-zero before printing any result.
+it exits non-zero before printing any result.  ``python3 chip_smoke.py --only
+q`` builds the kernels and runs phase q alone (no kernels or result line).
 """
 from __future__ import annotations
 
@@ -586,17 +619,22 @@ def serve_times(res, clocks) -> dict:
     return out
 
 
-def phase_f(res):
-    """Phase d's decode logits vs the torch family, teacher-forced."""
+def phase_f(res, family="torch", gate=True, tol=0.05):
+    """Phase d's decode logits vs the ``family`` backend (``torch``:
+    dequantize to the activation dtype + torch.matmul; ``reference``: the
+    kernels' plain oracle, f32 dequantize and product), teacher-forced;
+    with ``gate`` held to ``tol`` x max|logit| and, at phase f's 5%, argmax
+    agreement 0.9; at a tighter ``tol`` every argmax disagreement must be a
+    near tie (``_near_ties``).  Without ``gate`` only printed."""
     import torch
     from repro_torch.launch import serve as S
     cfg, params, prompt, toks = res["cfg"], res["params"], res["prompt"], res["tokens"]
     gen = res["gen"]
     with torch.inference_mode():
-        lg, caches = S.make_prefill_step(cfg, backend="torch")(params, {"tokens": prompt})
+        lg, caches = S.make_prefill_step(cfg, backend=family)(params, {"tokens": prompt})
         caches = S.pad_caches(caches, gen + 1)
         ref = [lg[:, -1]]
-        step = S.make_decode_step(cfg, backend="torch")
+        step = S.make_decode_step(cfg, backend=family)
         for i in range(gen):
             lg, caches = step(params, toks[:, i:i + 1], caches, prompt.shape[1] + i)
             ref.append(lg[:, -1])
@@ -607,12 +645,37 @@ def phase_f(res):
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    print(f"  logits cuda vs torch family over {gen + 1} positions x "
+    print(f"  logits cuda vs {family} family ({cfg.dtype}) over {gen + 1} positions x "
           f"{got.shape[0]} rows: max|diff| {err:.4e} (max|logit| {scale:.4e}), "
-          f"argmax agreement {agree:.3f}", flush=True)
-    _check(err <= 0.05 * scale, f"logits differ: {err} > 0.05 x {scale}")
-    _check(agree >= 0.9, f"argmax agreement {agree} < 0.9")
+          f"argmax agreement {agree:.3f}" + ("" if gate else " (printed, not held)"),
+          flush=True)
+    if gate:
+        _check(err <= tol * scale, f"logits differ: {err} > {tol} x {scale}")
+        if tol >= 0.05:
+            _check(agree >= 0.9, f"argmax agreement {agree} < 0.9")
+        else:
+            _near_ties(ref, got, ref.argmax(-1), f"{family} family")
     _check(torch.equal(got.argmax(-1), toks), "served tokens are not the argmax")
+    return {"max_abs_diff": err, "max_abs_logit": scale, "argmax_agreement": agree}
+
+
+def _near_ties(ref, got, toks, what) -> list:
+    """Every position where ``got``'s argmax is not ``toks`` (``ref``'s
+    tokens) must be a near tie: the gap between the two tokens' ``ref``
+    logits within twice the two logit rows' max |diff| there.  Returns
+    (row, position, gap, max |diff|) of each such position."""
+    import torch
+    pred = got.argmax(-1)
+    diff = (got - ref).abs().amax(-1)
+    gaps = []
+    for b, t in zip(*torch.nonzero(pred != toks, as_tuple=True)):
+        gap = (ref[b, t, toks[b, t]] - ref[b, t, pred[b, t]]).item()
+        gaps.append((int(b), int(t), gap, diff[b, t].item()))
+        _check(gap <= 2 * diff[b, t].item(),
+               f"{what} predicts {int(pred[b, t])} for {int(toks[b, t])} at row "
+               f"{int(b)} position {int(t)}: gap {gap} > 2 x max|diff| "
+               f"{diff[b, t].item()}")
+    return gaps
 
 
 # ------------------------------------------------- packed KV pages (g-j) --
@@ -998,9 +1061,10 @@ def phase_i(dev, counts):
 
 def _recorded(sched, vocab):
     """Wrap the scheduler's lanes to keep each request's logits in the order
-    its tokens come out (prefill's first token, then every decode tick)."""
+    its tokens come out (prefill's first token, chunked or serial, then
+    every decode tick)."""
     rec: dict = {}
-    decode, chunk = sched._decode, sched._chunk_prefill
+    decode, chunk, serial = sched._decode, sched._chunk_prefill, sched._prefill
 
     def dec(params, token, pools, hot, cache_len, table, active):
         lg, hot = decode(params, token, pools, hot, cache_len, table, active)
@@ -1014,7 +1078,14 @@ def _recorded(sched, vocab):
         if int(start) + int(valid) >= sl.req.prompt.shape[0]:
             rec.setdefault(sl.req.uid, []).append(out[0][0, int(valid) - 1, :vocab])
         return out
-    sched._decode, sched._chunk_prefill = dec, chk
+
+    def ser(params, batch):
+        lg, caches = serial(params, batch)
+        [sl] = [s for s in sched.slots if s is not None and s.state == "prefill"
+                and s.len == 0]
+        rec.setdefault(sl.req.uid, []).append(lg[0, -1, :vocab])
+        return lg, caches
+    sched._decode, sched._chunk_prefill, sched._prefill = dec, chk, ser
     return rec
 
 
@@ -1992,6 +2063,503 @@ def phase_p3(dev):
     return {"launches": counts, "logits": logits}
 
 
+# --------------------------------------------------------- model zoo (q) --
+
+SSM_ARCH = "mamba2_780m"
+HYBRID_ARCH = "jamba_1_5_large_398b"
+#: q3: dense configs at published width, depth cut to ZOO_LAYERS
+DENSE_ZOO = ("deepseek_67b", "stablelm_12b", "internvl2_26b", "musicgen_medium")
+ZOO_LAYERS = 2
+#: (K, N) of one Mamba-2 780M layer's two linears: in_proj (z, x, B, C, dt)
+#: and out_proj
+MAMBA_SHAPES = [(1536, 6448), (3072, 1536)]
+#: q3's K4 cases: (label, kv heads, query rows per kv head, head dim), the
+#: decode attention of StableLM-2-12B (GQA, hd 160) and MusicGen-medium (MHA)
+ZOO_ATTN = [("stablelm-2-12b decode", 8, 4, 160), ("musicgen-medium decode", 24, 1, 64)]
+
+
+def _full_width(cfg, arch, layers=None) -> None:
+    """``cfg`` is ``arch``'s published config, depth cut to ``layers``."""
+    from repro_torch.configs.base import get_config
+    want = get_config(arch)
+    if layers is not None:
+        want = dataclasses.replace(want, n_layers=layers)
+    _check(dataclasses.replace(cfg, strum=None) == want,
+           f"not {arch} at full width: {cfg}")
+
+
+def _zoo_counts(launched, want: dict, what) -> None:
+    """Exactly ``want`` launches of each kernel (and of K4's combine where
+    given), nothing else."""
+    _check(all(launched[k] == v for k, v in want.items()) and
+           sum(launched.values()) == sum(want.values()),
+           f"{what}: launches {launched}, want {want} and nothing else")
+
+
+def _mamba_k1(dev, gen, clocks) -> dict:
+    """K1 at Mamba-2 780M's in_proj (1536 -> 6448, N = 50 x 128 + 48) and
+    out_proj (3072 -> 1536), M = 4 (decode) and 16 (a prefill chunk), bf16
+    x: twice bit-identical and within KERNEL_TOL of the plain version; one
+    layer's two linears at M = 4 timed as phase c times a layer."""
+    import torch
+    from repro_torch.core.apply import pack_array
+    from repro_torch.core.policy import StruMConfig
+    cfg = StruMConfig(method="mip2q", p=0.5, L=5)
+    layer = [pack_array(torch.randn(s, generator=gen, device=dev), cfg)
+             for s in MAMBA_SHAPES]
+    out = {"max_abs_err": 0.0}
+    for m in (4, 16):
+        for packed in layer:
+            wrapper, plain, fields, kw = _kernel_args("onehot", packed)
+            x = torch.randn((m, packed.k_dim), generator=gen, device=dev).to(torch.bfloat16)
+            what = f"mamba2 M={m} K={packed.k_dim} N={packed.n_out}"
+            y = _twice_equal(f"onehot {what}", wrapper, x, *fields, **kw)
+            want = plain(x, *fields, **kw)
+            torch.cuda.synchronize()
+            err = (y - want).abs().max().item()
+            _check(err <= KERNEL_TOL * want.abs().max().item(),
+                   f"onehot {what}: |kernel - plain| {err}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+    xs = {k: torch.randn((4, k), generator=gen, device=dev).to(torch.bfloat16)
+          for k, _ in MAMBA_SHAPES}
+    calls = [(_kernel_args("onehot", p), xs[p.k_dim], packed_dequant(p), p) for p in layer]
+    t = _interleaved(clocks, {
+        "graph_ms": (_graphed(lambda: [a[0](x, *a[2], **a[3]) for a, x, _, _ in calls]), 20),
+        "plain_ms": (lambda: [a[1](x, *a[2], **a[3]) for a, x, _, _ in calls], 2),
+        "library_graph_ms": (_graphed(lambda: [torch.matmul(x, w)
+                                               for _, x, w, _ in calls]), 20)})
+    nbytes = sum(_read_bytes("onehot", p, x) for _, x, _, p in calls)
+    out.update(t, **_bound(nbytes, sum(2 * 4 * k * n for k, n in MAMBA_SHAPES),
+                           PEAK_FLOPS["torch.bfloat16"]))
+    print(f"  K1 at Mamba-2 780M's in_proj {MAMBA_SHAPES[0]} and out_proj "
+          f"{MAMBA_SHAPES[1]}, M = 4 and 16: max |kernel - plain| "
+          f"{out['max_abs_err']:.3e}, two calls bit-identical; one layer at M = 4: "
+          f"kernel {t['graph_ms']:.4f} ms (graph replay), plain {t['plain_ms']:.4f}, "
+          f"torch.matmul bf16 {t['library_graph_ms']:.4f} (graph replay), bound "
+          f"{out['bound_ms']:.4f} ({out['bound_by']}, {nbytes / 1e6:.2f} MB); "
+          f"{t['clock']}", flush=True)
+    return out
+
+
+def _ssm_layer_continuation(dev, plan, cfg) -> dict:
+    """Layer 0's packed mixer (K1 on in_proj / out_proj, f32 x): 100 tokens
+    through ``ssm_prefill_chunk`` in chunks of 16 (the last of 4) equal a
+    one-shot ``ssm_apply``: outputs, conv tail and state, each within rtol
+    2e-4 / atol 2e-4 (the CPU tests' tolerance).  Then the mixer's memory
+    peak at a 4 x 128-token prefill in the activation dtype."""
+    import torch
+    from repro_torch.models import mamba2
+    from repro_torch.models.transformer import _group
+    p = _group(plan.params["blocks"], 0)["pos0"]["ssm"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(5)
+    s, c = 100, 16
+    x = torch.randn((1, s, cfg.d_model), generator=g, device=dev) * 0.5
+    kw = dict(strum=cfg.strum)
+    with torch.inference_mode():
+        want, (conv_w, h_w) = mamba2.ssm_apply(p, x, cfg32, return_state=True, **kw)
+        _, nh, hp, ns, conv_dim = mamba2._dims(cfg)
+        conv = torch.zeros((1, cfg.ssm_conv - 1, conv_dim), device=dev)
+        h = torch.zeros((1, nh, hp, ns), device=dev)
+        outs = []
+        for start in range(0, s, c):
+            n = min(c, s - start)
+            xc = torch.zeros((1, c, cfg.d_model), device=dev)
+            xc[:, :n] = x[:, start:start + n]
+            y, (conv, h) = mamba2.ssm_prefill_chunk(
+                p, xc, cfg32, (conv, h), torch.tensor(n, device=dev), **kw)
+            outs.append(y[:, :n])
+        got = torch.cat(outs, dim=1)
+    errs = {}
+    for key, a, b in (("out", got, want), ("conv", conv, conv_w), ("state", h, h_w)):
+        _check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+               f"continuation {key}: {tuple(a.shape)} vs {tuple(b.shape)}")
+        excess = ((a - b).abs() - 2e-4 * b.abs()).max().item()
+        _check(excess <= 2e-4, f"continuation {key} differs from one-shot ssm_apply")
+        errs[key] = (a - b).abs().max().item()
+    print(f"  one full-width layer (K1, f32 x): {s} tokens in chunks of {c} (last "
+          f"{s % c}) through ssm_prefill_chunk = one-shot ssm_apply, max |diff| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + " (rtol 2e-4, atol 2e-4)", flush=True)
+    # the scan's peak at a 4 x 128 prefill (one chunk of 128): every chunk
+    # step is O(B c c nh), below one (B, c, c, nh, hp) f32 tensor
+    x4 = (torch.randn((4, 128, cfg.d_model), generator=g, device=dev) * 0.5).to(
+        cfg.activation_dtype)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        mamba2.ssm_apply(p, x4, cfg, **kw)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    five_d = 4 * 128 * 128 * nh * hp * 4
+    _check(peak < five_d, f"ssm_apply at 4 x 128 peaked {peak} bytes above its "
+           f"inputs, not below one (B, c, c, nh, hp) f32 tensor ({five_d})")
+    print(f"  ssm_apply peak at B 4 x 128 tokens ({cfg.dtype}, one chunk of 128): "
+          f"{peak / 1e6:.1f} MB above its inputs, against {five_d / 1e6:.1f} MB for "
+          f"one (B, c, c, nh, hp) f32 tensor", flush=True)
+    return dict(errs, prefill_peak_bytes=peak)
+
+
+def _attn_layers(cfg) -> int:
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def _lane_counts(cfg, plan, runs) -> dict:
+    """Launches a paged run of ``plan`` must make: every plan entry's kernel
+    once per layer group per lane run (chunks, decode ticks, serial
+    prefills); K4 once per attention layer per decode tick and prefill
+    chunk (the serial prefill attends without pages)."""
+    from repro_torch.models import transformer as tfm
+    lane = runs["decode"] + runs["prefill_chunk"] + runs["prefill_serial"]
+    want = _plan_launches(plan, tfm.n_groups(cfg), lane)
+    if _attn_layers(cfg):
+        want["paged_attention"] = _attn_layers(cfg) * (runs["decode"]
+                                                       + runs["prefill_chunk"])
+    return want
+
+
+def _serial_vs_chunked(dev, res) -> dict:
+    """A chunked paged serve's requests again through the chunked and the
+    serial lane, teacher-forced on its tokens, every position's logits
+    recorded.  The chunked lane must predict the served tokens exactly (the
+    kernels give the same bits on every call); the serial lane (one-shot
+    prefill, another K1 row count and SSD chunking) the same tokens, where
+    a disagreement is allowed only at a near tie: the gap between the two
+    tokens' chunked logits within twice the two lanes' max |diff| at that
+    position.  Logits held to phase f's tolerance."""
+    import torch
+    from repro_torch.serving import BatchScheduler, Request
+    sched, cfg = res["sched"], res["cfg"]
+    toks = torch.tensor([r.output for r in res["requests"]], device=dev)
+    logits = {}
+    for mode in ("chunked", "serial"):
+        s2 = BatchScheduler(cfg, None, n_slots=sched.n_slots, max_len=sched.max_len,
+                            plan=res["plan"], kv_cache=sched.spec.cfg,
+                            page_size=sched.page_size, prefill=mode, device=dev)
+        rec = _recorded(s2, cfg.vocab_size)
+        for r in res["requests"]:
+            s2.submit(Request(uid=r.uid, prompt=res["prompt"][r.uid].cpu(),
+                              max_new_tokens=len(r.output), force_tokens=r.output))
+        _reset_kv_counts()
+        with torch.inference_mode():
+            s2.run_to_completion()
+        launched = _kv_counts()
+        want = _lane_counts(cfg, res["plan"], s2.lane_runs)
+        if "paged_attention" in want:
+            want["paged_attention_combine"] = _want_combines(
+                s2, {s2.n_slots: s2.lane_runs}, _attn_layers(cfg))
+        _zoo_counts(launched, want, f"{mode} lane")
+        logits[mode] = torch.stack([torch.stack(rec[r.uid]) for r in res["requests"]])
+    got, ref = logits["serial"].float(), logits["chunked"].float()
+    _check(bool(torch.equal(ref.argmax(-1), toks)),
+           "chunked lane, teacher-forced, does not predict its own served tokens")
+    _check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+           f"serial logits not finite or of shape {tuple(got.shape)}")
+    gaps = _near_ties(ref, got, toks, "serial lane")
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    _check(err <= 0.05 * scale, f"serial vs chunked logits: {err} > 0.05 x {scale}")
+    same = (got.argmax(-1) == toks).float().mean().item()
+    print(f"  serial vs chunked lane, teacher-forced on the served tokens "
+          f"({toks.shape[1]} positions x {toks.shape[0]} requests): serial predicts "
+          f"the served token at {same:.3f} of positions (near ties otherwise: "
+          f"{[(b, t, round(g, 4), round(d, 4)) for b, t, g, d in gaps]}), logits "
+          f"max|diff| {err:.4e} (max|logit| {scale:.4e}); each lane's launches exact",
+          flush=True)
+    return {"tokens_equal_share": same, "near_ties": gaps, "max_abs_diff": err,
+            "max_abs_logit": scale}
+
+
+def _zoo_paged(argv, what):
+    """``serve`` with ``argv`` (a paged run), launch counts read around it;
+    returns (result, launches, the plan's K1 / K6 / K4 counts wanted)."""
+    from repro_torch.launch import serve as S
+    _reset_kv_counts()
+    res = S.run(argv)
+    launched = _kv_counts()
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    sched = res["sched"]
+    runs = res["lane_runs"]
+    want = _lane_counts(res["cfg"], res["plan"], runs)
+    if "paged_attention" in want:
+        warm = {k: runs[k] - sched.lane_runs[k] for k in runs}
+        want["paged_attention_combine"] = _want_combines(
+            sched, {1: warm, sched.n_slots: sched.lane_runs}, _attn_layers(res["cfg"]))
+    _zoo_counts(launched, want, what)
+    outs = [r.output for r in res["requests"]]
+    _check(len(outs) == sched.n_slots and all(len(o) == res["gen"] + 1 for o in outs),
+           f"{what}: requests came back with {[len(o) for o in outs]} tokens")
+    return res, launched
+
+
+def phase_q1(dev, gen, clocks) -> dict:
+    """Full-width Mamba-2 780M, all 48 layers: K1 at its shapes, the
+    dense-cache loop (cuda vs torch family), one layer's chunked
+    continuation, the paged runtime (exact K1 counts, nothing else), serial
+    vs chunked."""
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import mamba2
+    out = {"k1": _mamba_k1(dev, gen, clocks)}
+    _reset_kv_counts()
+    res = S.run(["--arch", SSM_ARCH, "--seed", "0"])
+    launched = _kv_counts()
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    cfg, plan = res["cfg"], res["plan"]
+    _full_width(cfg, SSM_ARCH)
+    _check(plan.summary()["variant_distribution"] == {"cuda:onehot": 2},
+           f"plan {plan.summary()['variant_distribution']}, want in_proj and "
+           "out_proj on cuda:onehot")
+    steps = 1 + res["gen"] + 2     # + the untimed warm-up prefill and decode step
+    _zoo_counts(launched, {"onehot": 2 * cfg.n_layers * steps}, "dense-cache loop")
+    out["dense_launches"] = launched["onehot"]
+    out["dense_prefill_ms"] = res["t_prefill"] * 1e3
+    out["dense_decode_ms_per_token"] = res["t_decode"] / res["gen"] * 1e3
+    print(f"  dense-cache loop launches {dict(launched)}: K1 = 2 x {cfg.n_layers} "
+          f"layers x {steps} steps, nothing else", flush=True)
+    # the torch family rounds every dequantized weight to bf16 (as the
+    # reference does), which K1 does not: held against the kernels' plain
+    # oracle, which computes K1's function; the torch family's distance is
+    # printed beside it
+    out["dense_logits"] = phase_f(res, family="reference")
+    out["dense_logits_torch"] = phase_f(res, gate=False)
+    # the same loop at f32 activations (K1 on f32 x): its plain oracle to
+    # 1e-3 of max|logit|, where 48 layers of bf16 roundings do not hide a
+    # fault
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.inference_mode():
+        toks, _, _, lg = S.serve(cfg32, res["params"], res["prompt"], res["gen"],
+                                 device=dev, return_logits=True, warmup=False)
+    out["dense_logits_f32"] = phase_f(dict(res, cfg=cfg32, tokens=toks, logits=lg),
+                                      family="reference", tol=1e-3)
+    out["continuation"] = _ssm_layer_continuation(dev, plan, cfg)
+    del res, plan
+    torch.cuda.empty_cache()
+
+    res, launched = _zoo_paged(["--arch", SSM_ARCH, "--seed", "0", "--paged",
+                                "--kv-cache", "mip2q", "--prompt-len", "128",
+                                "--gen", "32"], "paged Mamba-2")
+    sched, cfg = res["sched"], res["cfg"]
+    runs = res["lane_runs"]
+    lane = runs["decode"] + runs["prefill_chunk"]
+    payload, int8 = _moe_plan_bytes(res["plan"])
+    _check(payload * 8 == int8 * 7, f"packed weights {payload} vs int8 {int8}")
+    hot = S.ssm_hot_bytes(sched)
+    _, nh, hp, ns, conv_dim = mamba2._dims(cfg)
+    want_hot = cfg.n_layers * sched.n_slots * ((cfg.ssm_conv - 1) * conv_dim * 2
+                                               + nh * hp * ns * 4)
+    _check(hot == want_hot and sched.cache_stats()["n_pages"] == 0,
+           f"SSM hot state {hot} bytes, want {want_hot}; pages "
+           f"{sched.cache_stats()['n_pages']}")
+    dec = sorted(ms for kind, ms in res["ticks"] if kind == "decode")
+    out.update(drain_ms=res["drain_s"] * 1e3, ticks=len(res["ticks"]),
+               decode_tick_ms=_spread(dec), decode_ticks=len(dec), lane_runs=runs,
+               paged_launches=launched["onehot"], hot_state_bytes=hot,
+               packed_weight_bytes=payload, weights_ratio_vs_int8=payload / int8)
+    print(f"  paged launches {launched}: K1 = 2 x {cfg.n_layers} layers x {lane} lane "
+          f"runs {runs}, K4 / K5 / K11 / combine never; weights {payload / 1e9:.4f} GB "
+          f"packed vs int8 {int8 / 1e9:.4f} GB (x{payload / int8:.4f}); SSM hot state "
+          f"{hot / 1e6:.3f} MB ({sched.n_slots} slots: conv bf16 + state f32)", flush=True)
+    out["lanes"] = _serial_vs_chunked(dev, res)
+    return out
+
+
+def phase_q2(dev) -> dict:
+    """The Jamba hybrid at its SMOKE shape (4 layers, period 2: SSM + MLP,
+    attention + MoE) through the paged runtime with mip2q KV pages: K1, K4
+    and K6 in one tick, exact counts; serial vs chunked; logits vs the
+    torch family; speculative refused."""
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import serve as S
+    from repro_torch.serving import BatchScheduler
+    print("  the SMOKE shape: the published width does not fit one card at any "
+          "depth (one period of 8 layers ~154 GB in f32 before packing)", flush=True)
+    res, launched = _zoo_paged(["--arch", HYBRID_ARCH, "--smoke", "--seed", "0",
+                                "--paged", "--kv-cache", "mip2q", "--prompt-len", "128",
+                                "--gen", "32"], "paged Jamba smoke")
+    sched, cfg, plan = res["sched"], res["cfg"], res["plan"]
+    _check(dataclasses.replace(cfg, strum=None) == get_smoke_config(HYBRID_ARCH),
+           f"not Jamba's smoke config: {cfg}")
+    dist = plan.summary()["variant_distribution"]
+    _check(dist == {"cuda:onehot": 9, "cuda:grouped": 3},
+           f"plan {dist}, want 9 linears on cuda:onehot and 3 expert stacks on "
+           "cuda:grouped")
+    _check((sched.spec.variant, sched.spec.attn_variant) ==
+           ("cache:cuda_decode", "cache:attn_fused"),
+           f"paged serve selected {sched.spec.variant}, {sched.spec.attn_variant}")
+    st = sched.cache_stats()
+    _check(st["ratio_vs_int8"] == 0.875 and
+           st["resident_page_bytes"] == st["expected_page_bytes"],
+           f"packed pages x{st['ratio_vs_int8']} of int8 ({st})")
+    runs = res["lane_runs"]
+    print(f"  launches {launched} over lane runs {runs}: per run K1 18 (5 SSM + MLP "
+          f"and 4 attention linears x 2 groups), K4 2, K6 6 (3 stacks x 2 MoE layers)",
+          flush=True)
+    out = {"launches": dict(launched), "lane_runs": runs, "drain_ms": res["drain_s"] * 1e3,
+           "hot_state_bytes": S.ssm_hot_bytes(sched),
+           "lanes": _serial_vs_chunked(dev, res)}
+    logits = _paged_vs_torch(dev, res)
+    del logits["cuda_logits"]
+    out["logits"] = logits
+    try:
+        BatchScheduler(cfg, None, plan=plan, speculative=3, device=dev)
+    except ValueError as e:
+        _check("attention-only" in str(e), f"speculative=3 raised {e}")
+        print(f"  speculative=3 refused: {e}", flush=True)
+    else:
+        _check(False, "speculative=3 on the hybrid did not raise")
+    del res, plan, sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def _embeds_vs_torch(dev, res) -> dict:
+    """The stub frontend: seeded embeddings (2, 32, D) through ``prefill``
+    and ``forward_train`` on the run's plan (K1, counted) and on a torch
+    family plan of the same weights; logits to phase f's tolerance."""
+    import torch
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import forward_train, model_defs, prefill
+    from repro_torch.models.params import init_params
+    cfg = res["cfg"]
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    torch_plan = build_serving_plan(params, cfg=cfg.strum, backend="torch", device=dev)
+    del params
+    g = torch.Generator(device=dev).manual_seed(3)
+    e = torch.randn((2, 32, cfg.d_model), generator=g, device=dev) * 0.02
+    got = {}
+    for family, plan in (("cuda", res["plan"]), ("torch", torch_plan)):
+        _reset_kv_counts()
+        with torch.inference_mode():
+            last, _ = prefill(plan.params, {"embeds": e}, cfg)
+            full, _ = forward_train(plan.params, {"embeds": e}, cfg)
+        launched = _kv_counts()
+        want = _plan_launches(plan, cfg.n_layers, 2) if family == "cuda" else {}
+        _zoo_counts(launched, want, f"embeds through the {family} family")
+        got[family] = (last.float(), full.float())
+    del torch_plan
+    (lc, fc), (lt, ft) = got["cuda"], got["torch"]
+    _check(bool(torch.isfinite(lc).all() and torch.isfinite(fc).all()),
+           "embeds logits not finite")
+    err = max((lc - lt).abs().max().item(), (fc - ft).abs().max().item())
+    scale = ft.abs().max().item()
+    agree = (fc.argmax(-1) == ft.argmax(-1)).float().mean().item()
+    _check(err <= 0.05 * scale and agree >= 0.9,
+           f"embeds logits: max|diff| {err} (0.05 x {scale}), argmax agreement {agree}")
+    print(f"  embeds (2 x 32 x {cfg.d_model}) through prefill and forward_train, cuda "
+          f"vs torch family: max|diff| {err:.4e} (max|logit| {scale:.4e}), argmax "
+          f"agreement {agree:.3f}", flush=True)
+    return {"max_abs_diff": err, "max_abs_logit": scale, "argmax_agreement": agree}
+
+
+def _zoo_attention(dev, gen, clocks) -> list:
+    """K4 against its plain version at StableLM-2-12B's head dim 160 and
+    MusicGen-medium's 64 with 24 KV heads, as phase g holds it (mip2q p=0.5
+    L=7 pages of 16, 4 slots at 2048 tokens, one empty, one half -1), and
+    timed as phase g times it."""
+    import torch
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.kernels import strum_attention as A
+    cfg = StruMConfig(method="mip2q", p=0.5, L=7)
+    kw = dict(w=cfg.w, q=cfg.q, method=cfg.method, n_low=cfg.n_low)
+    cases = []
+    for label, kv, r, hd in ZOO_ATTN:
+        ctx, ps = 2048, PAGE
+        p_slot = ctx // ps
+        ids, n_valid = _attn_table(dev, p_slot)
+        live = int(((ids >= 0) & (torch.arange(p_slot, device=dev)[None, :]
+                                  < n_valid[:, None])).sum())
+        q4 = (torch.randn((4, kv, r, hd), generator=gen, device=dev) / hd ** 0.5).contiguous()
+        k, v = _kv_pools(dev, gen, cfg, 4 * p_slot, kv * hd, ps)
+        args = _kv_args("paged_attention", k, v)
+        got = A.strum_paged_attention(q4, *args, ids, n_valid, **kw)
+        want = A.strum_paged_attention_plain(q4, *args, ids, n_valid, **kw)
+        torch.cuda.synchronize()
+        errs = _held(got, want, f"paged_attention {label}")
+        case = {"case": f"{label}, {kv} kv heads x {hd}, R={r}, context {ctx}, {live} "
+                        f"live pages of {ps}", "max_abs_err": max(errs.values()),
+                "errs": errs}
+        case.update(_time_attention(clocks, "paged_attention", A.strum_paged_attention,
+                                    A.strum_paged_attention_plain, q4, args, ids,
+                                    n_valid, kw, k, v, live, r, hd, kv, ps))
+        print(f"  paged_attention          {case['case']}: max |kernel - plain| on live "
+              "rows " + ", ".join(f"{k_} {e_:.3e}" for k_, e_ in errs.items()) +
+              f"; kernel {case['ms']:.4f} ms (graph replay; eager call "
+              f"{case['eager_ms']:.4f}), plain {case['plain_ms']:.4f}, sdpa bf16 "
+              f"{case['library_ms']:.4f}, bound {case['bound_ms']:.4f} "
+              f"({case['bound_by']}, {case['bytes'] / 1e6:.2f} MB); {case['clock']}",
+              flush=True)
+        cases.append(case)
+        del k, v, args
+        torch.cuda.empty_cache()
+    return cases
+
+
+def phase_q3(dev, gen, clocks) -> dict:
+    """DeepSeek-67B, StableLM-2-12B, InternVL2-26B's backbone and
+    MusicGen-medium at full width, 2 layers: 2 requests of 64 + 9 tokens
+    paged (exact launches), teacher-forced against the torch family; the
+    stub-frontend configs through ``embeds``; K4 at head dims 160 and 64."""
+    import torch
+    from repro_torch.configs.base import get_config
+    out = {}
+    for arch in DENSE_ZOO:
+        res, launched = _zoo_paged(
+            ["--arch", arch, "--layers", str(ZOO_LAYERS), "--seed", "0", "--paged",
+             "--kv-cache", "mip2q", "--batch", "2", "--prompt-len", "64", "--gen", "8"],
+            f"paged {arch}")
+        cfg, sched = res["cfg"], res["sched"]
+        _full_width(cfg, arch, ZOO_LAYERS)
+        linears = 4 + (3 if cfg.gated_mlp else 2)
+        _check(res["plan"].summary()["variant_distribution"] == {"cuda:onehot": linears}
+               and sched.spec.attn_variant == "cache:attn_fused",
+               f"{arch}: plan {res['plan'].summary()['variant_distribution']}, "
+               f"attention {sched.spec.attn_variant}")
+        st = sched.cache_stats()
+        _check(st["ratio_vs_int8"] == 0.875, f"{arch}: pages x{st['ratio_vs_int8']}")
+        row = {"launches": dict(launched), "lane_runs": res["lane_runs"],
+               "drain_ms": res["drain_s"] * 1e3, "hd": cfg.hd,
+               "params": get_config(arch).param_count()}
+        row["logits"] = _paged_vs_torch(dev, res)
+        del row["logits"]["cuda_logits"]
+        if cfg.modality in ("vlm", "audio"):
+            row["embeds"] = _embeds_vs_torch(dev, res)
+        print(f"  {arch}: d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv x "
+              f"{cfg.hd}, d_ff {cfg.d_ff} ({'gated' if cfg.gated_mlp else 'GELU'}), "
+              f"vocab {cfg.vocab_size}; launches {dict(launched)} (K1 {linears} x "
+              f"{ZOO_LAYERS} layers, K4 {ZOO_LAYERS} per lane run)", flush=True)
+        out[arch] = row
+        del res, sched
+        torch.cuda.empty_cache()
+    out["attention"] = _zoo_attention(dev, gen, clocks)
+    return out
+
+
+def measure_zoo(dev, clocks) -> dict:
+    """Phase q, each sub-phase fatal; returns its records with seconds."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(12)
+    sub = {}
+    for key, what, fn in (
+            ("q1", "full-width Mamba-2 780M, all 48 layers: K1 at its shapes, the "
+                   "dense-cache loop, the paged runtime",
+             lambda: phase_q1(dev, gen, clocks)),
+            ("q2", "the Jamba hybrid (SMOKE shape): K1, K4 and K6 in one tick",
+             lambda: phase_q2(dev)),
+            ("q3", f"DeepSeek-67B, StableLM-2-12B, InternVL2-26B, MusicGen-medium at "
+                   f"full width, {ZOO_LAYERS} layers; K4 at hd 160 and 64",
+             lambda: phase_q3(dev, gen, clocks))):
+        t0 = time.perf_counter()
+        print(f"-- {key}. {what} (t = {t0 - _T0:.1f} s)", flush=True)
+        sub[key] = fn()
+        sub[key]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return sub
+
+
 def measure(dev, clocks):
     """Phases c-p; returns the kernels' records and the serve times."""
     import torch
@@ -2086,6 +2654,20 @@ def measure(dev, clocks):
         torch.cuda.empty_cache()
     times["schedule"] = sub
 
+    _phase("q. the model zoo: Mamba-2 780M (48 layers), the Jamba hybrid (SMOKE "
+           "shape), DeepSeek-67B, StableLM-2-12B, InternVL2-26B, MusicGen-medium "
+           f"({ZOO_LAYERS} layers)")
+    times["zoo"] = zoo = measure_zoo(dev, clocks)
+    zoo_launches = {
+        "onehot": {"mamba2_dense_loop": zoo["q1"]["dense_launches"],
+                   "mamba2_paged": zoo["q1"]["paged_launches"],
+                   "jamba_smoke_paged": zoo["q2"]["launches"]["onehot"],
+                   **{a: zoo["q3"][a]["launches"]["onehot"] for a in DENSE_ZOO}},
+        "paged_attention": {"jamba_smoke_paged": zoo["q2"]["launches"]["paged_attention"],
+                            **{a: zoo["q3"][a]["launches"]["paged_attention"]
+                               for a in DENSE_ZOO}},
+        "grouped_onehot": {"jamba_smoke_paged": zoo["q2"]["launches"]["grouped_onehot"]}}
+
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
         t, mid, pf = timings[name][4], timings[name][16], timings[name][128]
@@ -2107,6 +2689,11 @@ def measure(dev, clocks):
             "prefill_library_graph_ms": pf["library_graph_ms"],
             "prefill_range_ms": pf["range_ms"],
             "per_shape_graph_ms": timings[name]["per_shape"]})
+        if name == "onehot":
+            k1 = zoo["q1"]["k1"]
+            kernels[-1].update(zoo_launches=zoo_launches["onehot"], mamba2_layer={
+                k: k1[k] for k in ("max_abs_err", "graph_ms", "plain_ms",
+                                   "library_graph_ms", "bound_ms", "bound_by")})
     for variant, (name, replaces) in KV_KERNELS.items():
         row = kv_rows[name]
         t = row["cases"][0]
@@ -2123,6 +2710,12 @@ def measure(dev, clocks):
                        if k in c} for c in row["cases"]]})
         if name != "page_decode":
             kernels[-1]["combine_launches"] = counts[f"{name}_combine"]
+        if name == "paged_attention":
+            kernels[-1]["zoo_launches"] = zoo_launches["paged_attention"]
+            kernels[-1]["zoo_cases"] = [
+                {k: c[k] for k in ("case", "max_abs_err", "ms", "eager_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")}
+                for c in zoo["q3"]["attention"]]
     for name, (variant, replaces) in GROUPED.items():
         row = moe_rows[name]
         t = row["cases"][0]
@@ -2137,6 +2730,8 @@ def measure(dev, clocks):
             "cases": [{k: c[k] for k in ("case", "max_abs_err", "limit", "ms", "eager_ms",
                                          "plain_ms", "library_ms", "bound_ms",
                                          "bound_by")} for c in row["cases"]]})
+        if name == "grouped_onehot":
+            kernels[-1]["zoo_launches"] = zoo_launches["grouped_onehot"]
     for name, (variant, replaces) in DRAFT.items():
         row = draft_rows[name]
         t, one, mid = row[4], row[1], row[16]
@@ -2159,7 +2754,29 @@ def measure(dev, clocks):
     return kernels, times
 
 
-def main() -> int:
+def _zoo_report(zoo, smi) -> None:
+    """Phase q's summary lines."""
+    q1 = zoo["q1"]
+    t = q1["decode_tick_ms"]
+    print(f"zoo path (Mamba-2 780M, 48 layers, full width): paged drain "
+          f"{q1['drain_ms']:.1f} ms, {q1['ticks']} ticks, decode-only tick median "
+          f"{t['median']:.3f} ms [{t['min']:.3f}, {t['max']:.3f}] over "
+          f"{q1['decode_ticks']}; SSM hot state {q1['hot_state_bytes']} bytes; weights "
+          f"x{q1['weights_ratio_vs_int8']:.4f} of int8; dense loop decode "
+          f"{q1['dense_decode_ms_per_token']:.3f} ms/token, prefill "
+          f"{q1['dense_prefill_ms']:.1f} ms; K1 layer {q1['k1']['graph_ms']:.4f} ms "
+          f"(graph) vs bound {q1['k1']['bound_ms']:.4f}; Jamba smoke drain "
+          f"{zoo['q2']['drain_ms']:.1f} ms; 2-layer drains "
+          f"{ {a: round(zoo['q3'][a]['drain_ms'], 1) for a in DENSE_ZOO} } ms; "
+          f"sub-phase seconds { {k: round(v['seconds'], 1) for k, v in zoo.items()} }; "
+          f"{smi}")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only", "q"]):
+        print("usage: chip_smoke.py [--only q]", file=sys.stderr)
+        return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
               "the repo root", file=sys.stderr)
@@ -2199,6 +2816,12 @@ def main() -> int:
 
     clocks = Clocks()
     try:
+        if argv:            # phase q alone: no kernels line, no result line
+            _phase("q. the model zoo")
+            zoo = measure_zoo(dev, clocks)
+            _zoo_report(zoo, smi)
+            print(json.dumps({"zoo": zoo}, default=str))
+            return 0
         kernels, times = measure(dev, clocks)
     finally:
         clocks.close()
@@ -2235,11 +2858,12 @@ def main() -> int:
           f"decode-only tick median {pt['median']:.3f} ms [{pt['min']:.3f}, "
           f"{pt['max']:.3f}] against phase h's {ht['median']:.3f} ms; sub-phase seconds "
           f"{ {k: round(v['seconds'], 1) for k, v in times['schedule'].items()} }")
+    _zoo_report(times["zoo"], smi)
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "
           f"(batch 4), {smi}")
-    print(json.dumps({"serve": times}))
+    print(json.dumps({"serve": times}, default=str))
     print(json.dumps({"kernels": kernels}))
     print("kernels launched and held: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Architecture configs the port serves: one module per arch (CONFIG + SMOKE)."""
+"""Architecture configs: one module per arch (CONFIG + SMOKE), all ten of
+the reference's."""
 from repro_torch.configs.base import (ARCH_IDS, ModelConfig, get_config,
                                       get_smoke_config, tiny_variant)
 

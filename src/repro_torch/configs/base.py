@@ -1,7 +1,8 @@
 """Model configuration, a jax-free copy of ``repro.configs.base`` with the
-same ``ModelConfig`` fields and ``tiny_variant`` rule.  Only the
-architectures the port serves have modules here (``ARCH_IDS``); each
-exports ``CONFIG`` (the published shape) and ``SMOKE``.
+same ``ModelConfig`` fields and ``tiny_variant`` rule.  Every architecture
+of the reference has a module here (``ARCH_IDS``, in the reference's
+order); each exports ``CONFIG`` (the published shape) and ``SMOKE``.  The
+reference's dry-run cells (``ShapeSpec`` / ``SHAPES``) are not ported.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     family: str = "dense"          # dense | moe | ssm | hybrid
-    modality: str = "text"
+    modality: str = "text"         # text | audio | vlm (non-text: stub frontend)
     head_dim: Optional[int] = None  # default d_model // n_heads
     qkv_bias: bool = False
     norm: str = "rms"              # rms | nonparam (OLMo layer norm w/o params)
@@ -67,6 +68,15 @@ class ModelConfig:
     @property
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long contexts (SSM / hybrid-with-sparse-attention)."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def ssm_heads(self) -> int:
@@ -116,7 +126,18 @@ class ModelConfig:
         return total
 
 
-ARCH_IDS = ("qwen2_7b", "olmo_1b", "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b")
+ARCH_IDS = (
+    "jamba_1_5_large_398b",
+    "qwen2_7b",
+    "olmo_1b",
+    "stablelm_12b",
+    "deepseek_67b",
+    "musicgen_medium",
+    "internvl2_26b",
+    "qwen3_moe_235b_a22b",
+    "moonshot_v1_16b_a3b",
+    "mamba2_780m",
+)
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -12,9 +12,15 @@ runtime with StruM-packed KV pages.
         --trace /tmp/t.json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b \
         --schedule sched.json [--paged --kv-cache mip2q]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_780m \
+        [--paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba_1_5_large_398b --smoke --device cpu --paged
 
-builds the model from a seed on the card, packs every linear (and, for the
-MoE architectures, every expert stack) into an
+builds the model from a seed on the card (``--arch`` takes every config of
+the reference: dense, MoE, Mamba-2 and the Jamba hybrid; ``--layers N``
+must be a multiple of the architecture's period), packs every linear (and,
+for the MoE architectures, every expert stack) into an
 :class:`~repro_torch.engine.ExecutionPlan` (``--strum none`` serves dense
 weights; ``--schedule PATH`` loads a ``StruMSchedule`` JSON, written by
 either package, and packs each tensor with its own config, overriding
@@ -26,8 +32,9 @@ serves the batch as ``--batch`` requests through
 :class:`repro_torch.serving.BatchScheduler` (``--prefill chunked|serial``,
 ``--page-size``), with sealed KV pages packed by ``--kv-cache`` (the fixed
 codec ``StruMConfig(method, p=0.5, q=4, L=7)``; ``none`` keeps raw pages),
-and prints the drain time, the ticks, the median decode-only tick and the
-cache's bytes against int8 pages.  ``--speculative K`` (with ``--paged``)
+and prints the drain time, the ticks, the median decode-only tick, the
+cache's bytes against int8 pages and, for SSM layers, the bytes of their
+hot conv windows and states.  ``--speculative K`` (with ``--paged``)
 drafts up to K tokens per slot per tick from the plan's payload read at
 reduced fidelity (``--draft histream``: mask + hi, K9; ``maskfree_p``: hi
 only, K10) and verifies them at full fidelity; it prints the acceptance
@@ -58,7 +65,7 @@ from repro_torch.models import model_defs
 from repro_torch.models.params import init_params
 from repro_torch.models.quantize import serve_tree_bytes
 
-__all__ = ["pad_caches", "serve", "serve_paged", "run", "main"]
+__all__ = ["pad_caches", "serve", "serve_paged", "ssm_hot_bytes", "run", "main"]
 
 
 def pad_caches(caches: dict, extra: int) -> dict:
@@ -326,8 +333,22 @@ def _paged_report(res: dict) -> list:
         f"median {med}",
         f"cache: codec {st['codec']}, attention {st['attn_variant']}; packed "
         f"pages {st['resident_page_bytes'] / 1e6:.3f} MB, x{st['ratio_vs_int8']:.4f} "
-        f"vs int8 pages; lane runs {res['lane_runs']}",
+        f"vs int8 pages{_ssm_note(sched)}; lane runs {res['lane_runs']}",
         f"sample: {res['requests'][0].output[:16]}"]
+
+
+def ssm_hot_bytes(sched) -> int:
+    """Bytes of a scheduler's SSM hot state (conv windows and f32 states of
+    every slot and layer); 0 for attention-only stacks."""
+    return sum(t.numel() * t.element_size() for hp in sched.hot.values()
+               if "state" in hp for t in hp.values())
+
+
+def _ssm_note(sched) -> str:
+    if not ssm_hot_bytes(sched):
+        return ""
+    return (f"; SSM hot state {ssm_hot_bytes(sched) / 1e6:.3f} MB (conv + state, "
+            f"{sched.n_slots} slots)")
 
 
 def _telemetry_report() -> list:

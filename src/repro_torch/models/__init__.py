@@ -1,8 +1,9 @@
-"""Model substrate (dense and MoE decoders): layers, attention, MoE FFN,
-decoder stack."""
-from repro_torch.models.transformer import (decode_step, forward_train,
-                                            model_defs, n_groups, period,
-                                            prefill)
+"""Model substrate (dense, MoE, Mamba-2 and hybrid decoders): layers,
+attention, MoE FFN, the Mamba-2 mixer, decoder stack."""
+from repro_torch.models import mamba2
+from repro_torch.models.transformer import (cache_defs, decode_step,
+                                            forward_train, model_defs,
+                                            n_groups, period, prefill)
 
-__all__ = ["model_defs", "forward_train", "prefill", "decode_step", "period",
-           "n_groups"]
+__all__ = ["mamba2", "model_defs", "cache_defs", "forward_train", "prefill",
+           "decode_step", "period", "n_groups"]

@@ -1,16 +1,19 @@
-"""Decoder stack, the dense and MoE families of
-``repro.models.transformer``: ``model_defs``, ``forward_train`` (forward
-only), ``prefill`` and ``decode_step``, and the serving runtime's paged
-lanes ``decode_step_paged``, ``prefill_chunk_step`` and
-``verify_chunk_step``.
+"""Decoder stack (twin of ``repro.models.transformer``) for every family
+of the reference, dense, MoE, ``ssm`` (Mamba-2) and ``hybrid`` (Jamba):
+``model_defs``, ``cache_defs``, ``forward_train`` (forward only),
+``prefill`` and ``decode_step``, and the serving runtime's paged lanes
+``decode_step_paged``, ``prefill_chunk_step`` and ``verify_chunk_step``.
 
 Parameters keep the reference layout: per period position ``pos{i}``,
 every leaf stacked with a leading ``n_groups`` dim.  The period is the lcm
-of the MoE period (``moe_every``) and 1; a position whose layer is MoE
-holds ``moe`` (router + expert stacks) in place of ``mlp``.  The
-reference's ``lax.scan`` over groups is a Python loop here that slices
-group ``g`` out of every tensor (packed payload fields included).  SSM and
-hybrid stacks are not ported yet (ROADMAP queue 1 item 8).
+of the hybrid's attention period (``attn_every``) and the MoE period
+(``moe_every``); a position holds ``attn`` or ``ssm`` (its mixer, by
+``cfg.layer_kind``) and ``moe`` or ``mlp`` (its FFN, by
+``cfg.layer_is_moe``).  The reference's ``lax.scan`` over groups is a
+Python loop here that slices group ``g`` out of every tensor (packed
+payload fields included).  Inputs are token ids, or with ``batch["embeds"]``
+(the audio and VLM configs' stub frontend) embeddings ``(B, S, D)``; the
+decode lanes take ``(B, 1, D)`` embeddings in place of ``(B, 1)`` ids.
 """
 from __future__ import annotations
 
@@ -20,27 +23,24 @@ from typing import Any
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (apply_norm, embed_def, embed_lookup,
                                        linear_def, logits, mlp, mlp_def,
                                        norm_def)
+from repro_torch.models.params import ParamDef
 
-__all__ = ["period", "n_groups", "model_defs", "forward_train", "prefill",
-           "decode_step", "decode_step_paged", "prefill_chunk_step",
+__all__ = ["period", "n_groups", "model_defs", "cache_defs", "forward_train",
+           "prefill", "decode_step", "decode_step_paged", "prefill_chunk_step",
            "verify_chunk_step"]
 
 
-def _check_family(cfg) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not "
-                                  f"ported yet (Mamba-2)")
-
-
 def period(cfg) -> int:
-    """Layers per scan group: the lcm of the MoE period and 1 (the
-    reference's lcm with the attention period matters only for hybrids)."""
-    _check_family(cfg)
+    """Layers per scan group: the lcm of the hybrid's attention period and
+    the MoE period (8 for Jamba's 1:7 with MoE every 2; 1 for uniform
+    stacks)."""
     p = 1
+    if cfg.family == "hybrid" and cfg.attn_every:
+        p = math.lcm(p, cfg.attn_every)
     if cfg.n_experts and cfg.moe_every > 1:
         p = math.lcm(p, cfg.moe_every)
     if cfg.n_layers % p:
@@ -54,7 +54,11 @@ def n_groups(cfg) -> int:
 
 
 def _block_def(cfg, pos: int, lead) -> dict:
-    d = {"norm1": norm_def(cfg, lead), "attn": attn_mod.attn_def(cfg, lead)}
+    d = {"norm1": norm_def(cfg, lead)}
+    if cfg.layer_kind(pos) == "attn":
+        d["attn"] = attn_mod.attn_def(cfg, lead)
+    else:
+        d["ssm"] = mamba2.ssm_def(cfg, lead)
     if cfg.d_ff > 0:
         d["norm2"] = norm_def(cfg, lead)
         if cfg.layer_is_moe(pos):
@@ -75,12 +79,43 @@ def model_defs(cfg) -> dict:
     return defs
 
 
+def cache_defs(cfg, batch: int, max_len: int) -> dict:
+    """ParamDef tree of the dense-cache loop's per-layer caches, stacked by
+    group: ``k`` / ``v`` (activation dtype) per attention position, ``conv``
+    (activation dtype) and ``state`` (f32) per SSM position."""
+    g = n_groups(cfg)
+    out = {}
+    for i in range(period(cfg)):
+        if cfg.layer_kind(i) == "attn":
+            shape, axes = attn_mod.init_cache_spec(cfg, batch, max_len)
+            out[f"pos{i}"] = {n: ParamDef((g,) + shape, ("layers",) + axes,
+                                          dtype=cfg.dtype, init="zeros")
+                              for n in ("k", "v")}
+        else:
+            (cs, ca), (ss, sa) = mamba2.ssm_cache_spec(cfg, batch)
+            out[f"pos{i}"] = {
+                "conv": ParamDef((g,) + cs, ("layers",) + ca, dtype=cfg.dtype,
+                                 init="zeros"),
+                "state": ParamDef((g,) + ss, ("layers",) + sa, dtype="float32",
+                                  init="zeros")}
+    return out
+
+
 def _group(tree: Any, g: int) -> Any:
     """Group ``g`` of a stacked tree: every tensor indexed at ``[g]``;
     static leaf metadata (cfg, spec) passes through."""
     if isinstance(tree, dict):
         return {k: _group(v, g) for k, v in tree.items()}
     return tree[g] if isinstance(tree, torch.Tensor) else tree
+
+
+def _blocks(params, cfg, *trees):
+    """Every layer in order: ``(pos, block params, *the same group and
+    position of each of trees)``."""
+    for g in range(n_groups(cfg)):
+        groups = [_group(params["blocks"], g)] + [_group(t, g) for t in trees]
+        for i in range(period(cfg)):
+            yield (f"pos{i}",) + tuple(t[f"pos{i}"] for t in groups)
 
 
 def _ffn_residual(bp, x, cfg, kw):
@@ -94,73 +129,102 @@ def _ffn_residual(bp, x, cfg, kw):
     return x + mlp(bp["mlp"], h, cfg, **kw), 0.0
 
 
-def _embed_in(params, tokens, cfg):
-    return embed_lookup(params["embed"], tokens, cfg.activation_dtype)
+def _embed_in(params, inputs, cfg):
+    """Token ids ``(B, S)`` through the embedding table, or embeddings
+    ``(B, S, D)`` (the stub frontends) cast to the activation dtype."""
+    if inputs.dim() == 3:
+        return inputs.to(cfg.activation_dtype)
+    return embed_lookup(params["embed"], inputs, cfg.activation_dtype)
+
+
+def _batch_in(params, batch, cfg):
+    return _embed_in(params, batch["embeds"] if "embeds" in batch
+                     else batch["tokens"], cfg)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device, dtype=torch.int32)[None].expand(b, s)
 
 
+def _stack(per_pos: dict) -> dict:
+    """``{pos: {name: [per-group tensors]}}`` -> group-stacked tensors."""
+    return {pos: {n: torch.stack(ts) for n, ts in c.items()}
+            for pos, c in per_pos.items()}
+
+
+def _per_pos(cfg, attn_names, ssm_names=()) -> dict:
+    return {f"pos{i}": {n: [] for n in (attn_names if cfg.layer_kind(i) == "attn"
+                                        else ssm_names)}
+            for i in range(period(cfg))}
+
+
 def forward_train(params: dict, batch: dict, cfg, **kw):
     """Full forward; returns (logits f32, aux): aux is the MoE load-balance
-    loss summed over layers (0 for the dense family)."""
+    loss summed over layers (0 without MoE layers)."""
     kw.setdefault("strum", cfg.strum)
-    x = _embed_in(params, batch["tokens"], cfg)
+    x = _batch_in(params, batch, cfg)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(n_groups(cfg)):
-        gp = _group(params["blocks"], g)
-        for i in range(period(cfg)):
-            bp = gp[f"pos{i}"]
-            x = x + attn_mod.attention(bp["attn"], apply_norm(bp["norm1"], x, cfg),
-                                       cfg, positions, **kw)
-            x, a = _ffn_residual(bp, x, cfg, kw)
-            aux = aux + a
+    for _, bp in _blocks(params, cfg):
+        h = apply_norm(bp["norm1"], x, cfg)
+        if "attn" in bp:
+            h = attn_mod.attention(bp["attn"], h, cfg, positions, **kw)
+        else:
+            h = mamba2.ssm_apply(bp["ssm"], h, cfg, **kw)
+        x, a = _ffn_residual(bp, x + h, cfg, kw)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
     return logits(params.get("lm_head"), params["embed"], x), aux
 
 
 def prefill(params: dict, batch: dict, cfg, **kw):
     """Forward over a prompt; returns (last-token logits (B, 1, V) f32,
-    caches ``{"pos{i}": {"k", "v"}}`` stacked as (groups, B, S, KV, hd))."""
+    caches): per attention position ``{"k", "v"}`` stacked as (groups, B, S,
+    KV, hd), per SSM position ``{"conv", "state"}`` as (groups, B, W-1,
+    conv_dim) and (groups, B, nh, hp, ns) f32."""
     kw.setdefault("strum", cfg.strum)
-    x = _embed_in(params, batch["tokens"], cfg)
+    x = _batch_in(params, batch, cfg)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
-    kv: dict = {f"pos{i}": {"k": [], "v": []} for i in range(period(cfg))}
-    for g in range(n_groups(cfg)):
-        gp = _group(params["blocks"], g)
-        for i in range(period(cfg)):
-            bp = gp[f"pos{i}"]
-            h, (k, v) = attn_mod.attention(bp["attn"],
-                                           apply_norm(bp["norm1"], x, cfg), cfg,
-                                           positions, return_kv=True, **kw)
-            kv[f"pos{i}"]["k"].append(k.to(cfg.activation_dtype))
-            kv[f"pos{i}"]["v"].append(v.to(cfg.activation_dtype))
-            x, _ = _ffn_residual(bp, x + h, cfg, kw)
+    caches = _per_pos(cfg, ("k", "v"), ("conv", "state"))
+    for pos, bp in _blocks(params, cfg):
+        h = apply_norm(bp["norm1"], x, cfg)
+        c = caches[pos]
+        if "attn" in bp:
+            h, (k, v) = attn_mod.attention(bp["attn"], h, cfg, positions,
+                                           return_kv=True, **kw)
+            c["k"].append(k.to(cfg.activation_dtype))
+            c["v"].append(v.to(cfg.activation_dtype))
+        else:
+            h, (conv, state) = mamba2.ssm_apply(bp["ssm"], h, cfg,
+                                                return_state=True, **kw)
+            c["conv"].append(conv.to(cfg.activation_dtype))
+            c["state"].append(state)
+        x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x[:, -1:, :])
-    caches = {pos: {n: torch.stack(ts) for n, ts in c.items()}
-              for pos, c in kv.items()}
-    return lg, caches
+    return lg, _stack(caches)
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
                 cfg, **kw):
-    """One decode step.  token: (B, 1) int.  Returns (logits (B, 1, V) f32,
-    caches); the caches are updated in place at ``cache_len``."""
+    """One decode step.  token: (B, 1) int, or embeddings (B, 1, D).
+    Returns (logits (B, 1, V) f32, caches); the caches are updated in place
+    (attention at ``cache_len``, SSM conv and state whole)."""
     kw.setdefault("strum", cfg.strum)
     x = _embed_in(params, token, cfg)
-    for g in range(n_groups(cfg)):
-        gp = _group(params["blocks"], g)
-        for i in range(period(cfg)):
-            bp, c = gp[f"pos{i}"], caches[f"pos{i}"]
-            h, _ = attn_mod.decode_attention(
-                bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg,
-                (c["k"][g], c["v"][g]), cache_len, **kw)
-            x, _ = _ffn_residual(bp, x + h, cfg, kw)
+    for _, bp, c in _blocks(params, cfg, caches):
+        h = apply_norm(bp["norm1"], x, cfg)
+        if "attn" in bp:
+            h, _ = attn_mod.decode_attention(bp["attn"], h, cfg, (c["k"], c["v"]),
+                                             cache_len, **kw)
+        else:
+            h, (conv, state) = mamba2.ssm_decode(bp["ssm"], h, cfg,
+                                                 (c["conv"], c["state"]), **kw)
+            c["conv"].copy_(conv)
+            c["state"].copy_(state)
+        x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits(params.get("lm_head"), params["embed"], x), caches
 
@@ -170,36 +234,43 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
 # The serving runtime's lanes (repro_torch.serving.scheduler): a decode
 # step over every slot, a chunked-prefill step over one slot and the
 # speculative verify step over one slot, all reading KV through the page
-# table.  ``pools`` holds the sealed pages per
-# layer position, ``hot`` the per-slot tail pages.  Shapes are fixed per
-# lane -- (n_slots, 1), (1, chunk) and (1, k + 1) -- and ``slot`` / ``start`` /
-# ``valid_len`` / ``cache_len`` are device tensors, so no shape depends on
-# a prompt's length and no step reads a value back to the host.  The tails
-# are updated in place (the reference returns new ones); sealing full pages
-# into the pools happens between steps, on the host.
+# table.  ``pools`` holds the sealed pages per attention position (an SSM
+# position's pool is empty), ``hot`` the per-slot tail pages and SSM
+# (conv, state).  Shapes are fixed per lane -- (n_slots, 1), (1, chunk) and
+# (1, k + 1) -- and ``slot`` / ``start`` / ``valid_len`` / ``cache_len`` are
+# device tensors, so no shape depends on a prompt's length and no step reads
+# a value back to the host.  ``hot`` is updated in place (the reference
+# returns a new one); sealing full pages into the pools happens between
+# steps, on the host.
 
 def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
                       hot: dict, cache_len: torch.Tensor,
                       page_table: torch.Tensor, active: torch.Tensor,
                       spec, cfg, cache_backend=None, **kw):
-    """One decode step over paged caches.  token: (B, 1) int.
+    """One decode step over paged caches.  token: (B, 1) int, or (B, 1, D)
+    embeddings.
 
-    ``active`` (B,) bool masks the tail writes: parked slots and slots mid-
-    prefill ride the fixed-shape batch but keep their tails.  Returns
-    (logits (B, 1, V) f32, hot), ``hot`` updated in place.
+    ``active`` (B,) bool masks the hot-state writes: parked slots and slots
+    mid-prefill ride the fixed-shape batch but keep their tails and their
+    SSM conv and state.  Returns (logits (B, 1, V) f32, hot), ``hot``
+    updated in place.
     """
     kw.setdefault("strum", cfg.strum)
     x = _embed_in(params, token, cfg)
-    for g in range(n_groups(cfg)):
-        gp, pool_g, hot_g = (_group(params["blocks"], g), _group(pools, g),
-                             _group(hot, g))
-        for i in range(period(cfg)):
-            bp, hp = gp[f"pos{i}"], hot_g[f"pos{i}"]
+    for _, bp, pool, hp in _blocks(params, cfg, pools, hot):
+        h = apply_norm(bp["norm1"], x, cfg)
+        if "attn" in bp:
             h, _ = attn_mod.decode_attention_paged(
-                bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg, pool_g[f"pos{i}"],
-                (hp["k_tail"], hp["v_tail"]), spec, page_table, cache_len,
-                active=active, cache_backend=cache_backend, **kw)
-            x, _ = _ffn_residual(bp, x + h, cfg, kw)
+                bp["attn"], h, cfg, pool, (hp["k_tail"], hp["v_tail"]), spec,
+                page_table, cache_len, active=active, cache_backend=cache_backend,
+                **kw)
+        else:
+            h, (conv, state) = mamba2.ssm_decode(bp["ssm"], h, cfg,
+                                                 (hp["conv"], hp["state"]), **kw)
+            hp["conv"].copy_(torch.where(active[:, None, None], conv, hp["conv"]))
+            hp["state"].copy_(torch.where(active[:, None, None, None], state,
+                                          hp["state"]))
+        x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits(params.get("lm_head"), params["embed"], x), hot
 
@@ -208,15 +279,17 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
                        hot: dict, page_table: torch.Tensor, slot: torch.Tensor,
                        start: torch.Tensor, valid_len: torch.Tensor,
                        spec, cfg, cache_backend=None, **kw):
-    """One fixed-shape prefill chunk for ONE slot.  tokens: (1, C) int.
+    """One fixed-shape prefill chunk for ONE slot.  tokens: (1, C) int, or
+    (1, C, D) embeddings.
 
     ``slot`` / ``start`` / ``valid_len`` are device scalars.  Returns
     ``(logits (1, C, V), hot, chunk_kv)``: the first generated token is
     ``argmax(logits[0, valid_len - 1])`` on the last chunk, and ``chunk_kv``
-    (per layer position, the chunk's group-stacked (k, v)) is what the host
-    seals into full pages.  The slot's tail page gets the ragged remainder
-    ``[floor(valid_len / ps) * ps, valid_len)`` of the chunk, written in
-    place.
+    (per attention position the chunk's group-stacked (k, v); empty per SSM
+    position) is what the host seals into full pages.  In place, the slot's
+    tail page gets the ragged remainder ``[floor(valid_len / ps) * ps,
+    valid_len)`` of the chunk, and its SSM conv and state the chunk's
+    continuation (``ssm_prefill_chunk``).
     """
     kw.setdefault("strum", cfg.strum)
     ps = spec.page_size
@@ -229,30 +302,35 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     # is then empty and masked by length)
     tail_rel = torch.clamp((valid_len.to(torch.long) // ps) * ps, 0, c - ps)
     tail_idx = tail_rel + torch.arange(ps, device=x.device)
-    chunk_kv: dict = {f"pos{i}": {"k": [], "v": []} for i in range(period(cfg))}
-    for g in range(n_groups(cfg)):
-        gp, pool_g, hot_g = (_group(params["blocks"], g), _group(pools, g),
-                             _group(hot, g))
-        for i in range(period(cfg)):
-            bp, hp = gp[f"pos{i}"], hot_g[f"pos{i}"]
+    chunk_kv = _per_pos(cfg, ("k", "v"))
+    for pos, bp, pool, hp in _blocks(params, cfg, pools, hot):
+        h = apply_norm(bp["norm1"], x, cfg)
+        if "attn" in bp:
             h, (ck, cv) = attn_mod.prefill_attention_paged(
-                bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg, pool_g[f"pos{i}"],
-                spec, row, start, cache_backend=cache_backend, **kw)
+                bp["attn"], h, cfg, pool, spec, row, start,
+                cache_backend=cache_backend, **kw)
             for name, kv in (("k", ck), ("v", cv)):
                 kv = kv.to(hp[f"{name}_tail"].dtype)
-                chunk_kv[f"pos{i}"][name].append(kv)
+                chunk_kv[pos][name].append(kv)
                 hp[f"{name}_tail"].index_copy_(0, slot1, kv[:, tail_idx])
-            x, _ = _ffn_residual(bp, x + h, cfg, kw)
+        else:
+            cache = (hp["conv"].index_select(0, slot1),
+                     hp["state"].index_select(0, slot1))
+            h, (conv, state) = mamba2.ssm_prefill_chunk(bp["ssm"], h, cfg, cache,
+                                                        valid_len, **kw)
+            hp["conv"].index_copy_(0, slot1, conv.to(hp["conv"].dtype))
+            hp["state"].index_copy_(0, slot1, state)
+        x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x)
-    return lg, hot, {pos: {n: torch.stack(ts) for n, ts in c_.items()}
-                     for pos, c_ in chunk_kv.items()}
+    return lg, hot, _stack(chunk_kv)
 
 
 def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
                       hot: dict, page_table: torch.Tensor, slot: torch.Tensor,
                       start: torch.Tensor, spec, cfg, cache_backend=None, **kw):
-    """Score a speculative token window for ONE slot.  tokens: (1, C) int.
+    """Score a speculative token window for ONE slot.  tokens: (1, C) int, or
+    (1, C, D) embeddings.
 
     The verify lane of self-speculative decoding: ``tokens[0]`` is the
     slot's next input token and ``tokens[1:]`` the draft continuation, at
@@ -260,33 +338,29 @@ def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     slot's committed length.  Full-fidelity weights, so ``argmax(logits[0,
     j])`` is what plain decode would emit after the same prefix.  Nothing
     is written: the scheduler commits the accepted rows of ``chunk_kv``
-    into the tails itself (its rollback).  Returns ``(logits (1, C, V),
-    chunk_kv)``, ``chunk_kv`` per layer position the window's
-    group-stacked (k, v) in the tails' dtype.
+    into the tails itself (its rollback).  Attention-only stacks: SSM state
+    cannot roll back a rejected window.  Returns ``(logits (1, C, V),
+    chunk_kv)``, ``chunk_kv`` per layer position the window's group-stacked
+    (k, v) in the tails' dtype.
     """
     kw.setdefault("strum", cfg.strum)
     x = _embed_in(params, tokens, cfg)
     slot1 = slot.to(torch.long).reshape(1)
     row = page_table.index_select(0, slot1)[0]
-    chunk_kv: dict = {f"pos{i}": {"k": [], "v": []} for i in range(period(cfg))}
-    for g in range(n_groups(cfg)):
-        gp, pool_g, hot_g = (_group(params["blocks"], g), _group(pools, g),
-                             _group(hot, g))
-        for i in range(period(cfg)):
-            bp, hp = gp[f"pos{i}"], hot_g[f"pos{i}"]
-            if "attn" not in bp:
-                raise NotImplementedError(
-                    "speculative verify needs an attention-only stack: SSM "
-                    "recurrent state cannot roll back a rejected window")
-            tails = (hp["k_tail"].index_select(0, slot1),
-                     hp["v_tail"].index_select(0, slot1))
-            h, (ck, cv) = attn_mod.verify_attention_paged(
-                bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg, pool_g[f"pos{i}"],
-                tails, spec, row, start, cache_backend=cache_backend, **kw)
-            chunk_kv[f"pos{i}"]["k"].append(ck.to(hp["k_tail"].dtype))
-            chunk_kv[f"pos{i}"]["v"].append(cv.to(hp["v_tail"].dtype))
-            x, _ = _ffn_residual(bp, x + h, cfg, kw)
+    chunk_kv = _per_pos(cfg, ("k", "v"))
+    for pos, bp, pool, hp in _blocks(params, cfg, pools, hot):
+        if "attn" not in bp:
+            raise NotImplementedError(
+                "speculative verify needs an attention-only stack: SSM "
+                "recurrent state cannot roll back a rejected window")
+        tails = (hp["k_tail"].index_select(0, slot1),
+                 hp["v_tail"].index_select(0, slot1))
+        h, (ck, cv) = attn_mod.verify_attention_paged(
+            bp["attn"], apply_norm(bp["norm1"], x, cfg), cfg, pool, tails, spec,
+            row, start, cache_backend=cache_backend, **kw)
+        chunk_kv[pos]["k"].append(ck.to(hp["k_tail"].dtype))
+        chunk_kv[pos]["v"].append(cv.to(hp["v_tail"].dtype))
+        x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x)
-    return lg, {pos: {n: torch.stack(ts) for n, ts in c_.items()}
-                for pos, c_ in chunk_kv.items()}
+    return lg, _stack(chunk_kv)

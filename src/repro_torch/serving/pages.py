@@ -6,14 +6,14 @@ codec stats (twin of ``repro.serving.pages``).
   :mod:`repro_torch.engine.cache`) or as raw fp pages;
 * one **page table** ``(n_slots, pages_per_seq)`` of page ids is shared by
   every layer: id ``j`` addresses the ``j``-th page of every pool;
-* each slot keeps one **hot tail** page per layer, the page being written.
-  When it fills the scheduler *seals* it: block-quantized and written into
-  the pools at the slot's next page id.
+* each slot keeps one **hot tail** page per attention layer, the page being
+  written.  When it fills the scheduler *seals* it: block-quantized and
+  written into the pools at the slot's next page id;
+* an SSM (Mamba-2) layer position has no pages: its pool is an empty dict
+  and its whole state is hot, the slot's conv window and recurrent state.
 
-Pools and tails live on the cache spec's device.  Sealing writes into the
-pool tensors in place (the reference's jitted sealer returns new pools).
-Only attention stacks are ported: a model with SSM layers raises
-``NotImplementedError``.
+Pools and hot state live on the cache spec's device.  Sealing writes into
+the pool tensors in place (the reference's jitted sealer returns new pools).
 """
 from __future__ import annotations
 
@@ -96,14 +96,10 @@ def attn_feat_dim(cfg) -> int:
 
 
 def _attn_positions(cfg) -> list:
-    """Layer positions of the stack, all attention in the dense and MoE
-    families (SSM pages not ported)."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: paged caches are ported for attention stacks only "
-            f"(family={cfg.family!r}; SSM hot state waits for the Mamba-2 port)")
+    """The layer positions whose mixer is attention (``layer_kind``)."""
     from repro_torch.models import transformer as tfm
-    return [f"pos{i}" for i in range(tfm.period(cfg))]
+    return [f"pos{i}" for i in range(tfm.period(cfg))
+            if cfg.layer_kind(i) == "attn"]
 
 
 def make_cache_spec(cfg, kv_cache, page_size: int, device,
@@ -113,7 +109,6 @@ def make_cache_spec(cfg, kv_cache, page_size: int, device,
     ``kv_cache``: ``None`` / ``"fp"`` for raw pages, or a
     :class:`StruMConfig` for packed pages.
     """
-    _attn_positions(cfg)
     codec = None if kv_cache in (None, "fp") else kv_cache
     return build_cache_spec(codec, page_size=page_size, feat=attn_feat_dim(cfg),
                             device=device, backend=backend, head_dim=cfg.hd)
@@ -124,11 +119,15 @@ def make_cache_spec(cfg, kv_cache, page_size: int, device,
 def init_pools(cfg, n_pages: int, spec: CacheSpec) -> dict:
     """Zeroed page pools per layer position on ``spec.device``: packed
     payload fields ``(groups, n_pages, nb, rows, F)`` + ``scale (groups,
-    n_pages, 1, F)``, or raw ``pages (groups, n_pages, page_size, F)``."""
+    n_pages, 1, F)``, or raw ``pages (groups, n_pages, page_size, F)``; an
+    SSM position gets an empty dict (its state is hot only)."""
     from repro_torch.models import transformer as tfm
     g, f, ps, dev = tfm.n_groups(cfg), attn_feat_dim(cfg), spec.page_size, spec.device
     out = {}
-    for pos in _attn_positions(cfg):
+    for i in range(tfm.period(cfg)):
+        if cfg.layer_kind(i) != "attn":
+            out[f"pos{i}"] = {}
+            continue
         if spec.packed:
             c = spec.cfg
             nb = ps // c.w
@@ -142,18 +141,31 @@ def init_pools(cfg, n_pages: int, spec: CacheSpec) -> dict:
         else:
             leaf = lambda: {"pages": torch.zeros(  # noqa: E731
                 (g, n_pages, ps, f), dtype=cfg.activation_dtype, device=dev)}
-        out[pos] = {"k": leaf(), "v": leaf()}
+        out[f"pos{i}"] = {"k": leaf(), "v": leaf()}
     return out
 
 
 def init_hot(cfg, n_slots: int, page_size: int, device) -> dict:
-    """Per-slot hot tail pages ``(groups, n_slots, page_size, KV, hd)`` in
-    the activation dtype."""
+    """Per-slot hot state, the dtypes of ``transformer.cache_defs``: per
+    attention position the tail pages ``k_tail`` / ``v_tail`` ``(groups,
+    n_slots, page_size, KV, hd)`` in the activation dtype; per SSM position
+    ``conv`` ``(groups, n_slots, W-1, conv_dim)`` in the activation dtype and
+    ``state`` ``(groups, n_slots, nh, hp, ns)`` in f32."""
+    from repro_torch.models import mamba2
     from repro_torch.models import transformer as tfm
-    shape = (tfm.n_groups(cfg), n_slots, page_size, cfg.n_kv_heads, cfg.hd)
-    return {pos: {"k_tail": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
-                  "v_tail": torch.zeros(shape, dtype=cfg.activation_dtype, device=device)}
-            for pos in _attn_positions(cfg)}
+    g, act = tfm.n_groups(cfg), cfg.activation_dtype
+    out = {}
+    for i in range(tfm.period(cfg)):
+        if cfg.layer_kind(i) == "attn":
+            shape = (g, n_slots, page_size, cfg.n_kv_heads, cfg.hd)
+            out[f"pos{i}"] = {n: torch.zeros(shape, dtype=act, device=device)
+                              for n in ("k_tail", "v_tail")}
+        else:
+            (cs, _), (ss, _) = mamba2.ssm_cache_spec(cfg, n_slots)
+            out[f"pos{i}"] = {
+                "conv": torch.zeros((g,) + cs, dtype=act, device=device),
+                "state": torch.zeros((g,) + ss, dtype=torch.float32, device=device)}
+    return out
 
 
 # ---------------------------------------------------------------- sealing --
@@ -202,8 +214,9 @@ def cache_stats(pools: dict, hot: dict, spec: CacheSpec, cfg,
     n_attn = len(_attn_positions(cfg))
     n_pages = 0
     for pos in pools.values():
-        n_pages = next(iter(pos["k"].values())).shape[1]
-        break
+        if pos:
+            n_pages = next(iter(pos["k"].values())).shape[1]
+            break
     if spec.packed:
         packed = sum(_tree_bytes(pos, keys=("mask", "hi", "lo")) for pos in pools.values())
         scale = sum(_tree_bytes(pos, keys=("scale",)) for pos in pools.values())

@@ -6,7 +6,7 @@ fixed-shape lanes:
 
   * **decode lane**: one (n_slots, 1) step; every decoding slot advances
     one token per tick, parked and mid-prefill slots ride the batch masked
-    (their tails are protected by an ``active`` mask);
+    (an ``active`` mask protects their tails and SSM conv / state);
   * **prefill lane**: one (1, prefill_chunk) step that every prompt of
     every slot runs through, chunk by chunk, with ``slot`` / ``start`` /
     ``valid_len`` as device scalars.  ``prefill="serial"`` keeps the
@@ -19,6 +19,11 @@ fixed-shape lanes:
     verify step per slot at full fidelity whose greedy predictions judge
     the drafts (longest accepted prefix) and give the bonus token.  Greedy
     output equals plain decode's token for token.
+
+SSM (Mamba-2) layer positions have no pages: their conv window and state
+are hot per slot, zeroed at admission (the reference leaves a recycled
+slot's state to the next request's chunked prefill), carried through the
+chunks of the prefill lane and written whole by the serial prefill.
 
 Pages are allocated at admission, sealed when they fill (packed through the
 engine's ``cache:*`` codec when ``kv_cache`` is a :class:`StruMConfig`) and
@@ -183,7 +188,9 @@ class BatchScheduler:
         self.pools = pages_mod.init_pools(cfg, self.n_pages, self.spec)
         self.hot = pages_mod.init_hot(cfg, n_slots, ps, dev)
         self._seal = pages_mod.make_sealer(self.spec)
-        self._attn_pos = list(self.pools)
+        # attention positions only: an SSM position's pool is empty
+        self._attn_pos = [pos for pos, pool in self.pools.items() if pool]
+        self._ssm_pos = [pos for pos in self.hot if pos not in self._attn_pos]
 
         # ---- lanes -----------------------------------------------------
         self._decode = make_paged_decode_step(cfg, self.spec,
@@ -293,6 +300,7 @@ class BatchScheduler:
             self.slots[slot] = _Slot(req=nxt, pages=self.allocator.alloc(
                 self._pages_needed(nxt)))
             self._table[slot] = -1
+            self._reset_ssm(slot)
             if telemetry.enabled():
                 telemetry.inc("sched/admitted")
                 telemetry.request_event(nxt.uid, "admitted", slot=slot,
@@ -300,6 +308,14 @@ class BatchScheduler:
                 telemetry.gauge("sched/queue_depth", len(self.queue))
             if self.prefill_mode == "serial":
                 self._serial_prefill(slot)
+
+    def _reset_ssm(self, slot: int) -> None:
+        """Zero a newly admitted slot's SSM conv window and state: the
+        chunked lane continues from them, and a recycled slot still holds
+        its last request's."""
+        for pos in self._ssm_pos:
+            for t in self.hot[pos].values():
+                t[:, slot].zero_()
 
     # ------------------------------------------------------------ sealing --
     def _seal_into(self, slot: int, page_idx: int, kv_pages: dict) -> None:
@@ -365,6 +381,9 @@ class BatchScheduler:
                     tail = self.hot[pos][f"{name}_tail"]
                     tail[:, slot, :r] = caches[pos][name][:, 0, n_full * ps:plen].to(
                         tail.dtype)
+        for pos in self._ssm_pos:
+            for name, t in self.hot[pos].items():
+                t[:, slot] = caches[pos][name][:, 0].to(t.dtype)
         sl.len = plen
         # the one-shot step owns the device for the whole prompt: charge the
         # decode lane one stall tick per chunk-equivalent

@@ -4,7 +4,10 @@ positions; K11 at w = 8 to 128 on both its paths, 4 and 1 channels a
 thread; K6, K7 and K8 with and without live-row counts; the streamed
 kernel's five modes, K1, K2, K3 (and K8 grouped), K9 and K10, at its tile
 edges, byte path and general path, and the template they keep at other
-widths; K1-K3, K9, K10 bit-identical across calls).
+widths; K1-K3, K9, K10 bit-identical across calls; the model zoo's new
+shapes: K1 at Mamba-2 780M's in_proj and out_proj, K4 at head dim 160 and
+at 24 kv heads of 64, and the Mamba-2 and Jamba smoke configs' launch
+counts through the paged runtime).
 
 Marked ``cuda``: skipped (with a reason) where ``torch.cuda.is_available()``
 is false.  Run them on a GPU machine with
@@ -993,3 +996,81 @@ def test_speculative_scheduler_launches_draft_kernel_on_card(dev, mode):
     # agreement is held at 0.9, not bit for bit
     same = np.mean([a == b for u in outs[0] for a, b in zip(outs[0][u], outs[3][u])])
     assert same >= 0.9, same
+
+
+# ----------------------------------------- the model zoo's shapes: K1, K4
+
+@pytest.mark.parametrize("m", [4, 16])
+@pytest.mark.parametrize("k,n", [(1536, 6448), (3072, 1536)], ids=["in_proj", "out_proj"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_at_mamba2_shapes_on_card(dev, m, k, n, dtype):
+    """K1 at Mamba-2 780M's in_proj (N = 6448 = 50 x 128 + 48, a column
+    tail at full width) and out_proj, decode and prefill-chunk rows."""
+    x, packed = _case(dev, m, k, n, StruMConfig(method="mip2q", p=0.5, L=5), dtype)
+    before = K.launch_counts["onehot"]
+    y = ops.strum_matmul(x, packed, out_dtype=torch.float32, variant="onehot")
+    torch.cuda.synchronize()
+    assert K.launch_counts["onehot"] == before + 1
+    y_plain = ops.strum_matmul(x.cpu(), _to_cpu(packed), out_dtype=torch.float32,
+                               variant="onehot")
+    err = (y.cpu() - y_plain).abs().max().item()
+    assert err <= REL_TOL * y_plain.abs().max().item(), err
+
+
+@pytest.mark.parametrize("kv,r,hd", [(8, 4, 160), (24, 1, 64)],
+                         ids=["stablelm_hd160", "musicgen_hd64_24kv"])
+@pytest.mark.parametrize("cfg", PAGE_CODECS[:2], ids=lambda c: f"{c.method}_p{c.p}_q{c.q}")
+def test_paged_attention_zoo_head_dims_on_card(dev, cfg, kv, r, hd):
+    """K4 at StableLM-2-12B's head dim 160 (five columns a lane) and
+    MusicGen-medium's 24 kv heads of 64."""
+    from repro_torch.kernels import strum_attention as A
+    q4, k, v, table, n_valid = _attn_case(dev, cfg, kv, r, hd=hd)
+    kw = dict(w=cfg.w, n_low=cfg.n_low, q=cfg.q, method=cfg.method)
+    args = [k[f] for f in ("mask", "hi", "lo", "scale")] + \
+        [v[f] for f in ("mask", "hi", "lo", "scale")]
+    before = A.launch_counts["paged_attention"]
+    got = A.strum_paged_attention(q4, *args, table, n_valid, **kw)
+    torch.cuda.synchronize()
+    assert A.launch_counts["paged_attention"] == before + 1
+    want = A.strum_paged_attention_plain(q4.cpu(), *[t.cpu() for t in args],
+                                         table.cpu(), n_valid.cpu(), **kw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "jamba_1_5_large_398b"])
+def test_ssm_paged_scheduler_launch_counts_on_card(dev, arch):
+    """The SSM smoke configs through the paged runtime on the card: K1 on
+    every linear, K6 on Jamba's expert stacks and K4 on its attention
+    layers, once per layer per lane run; serial and chunked serve every
+    request (the same tokens are held on the CPU, at f32)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.engine import build_plan
+    from repro_torch.kernels import strum_attention as A
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = get_smoke_config(arch)
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    plan = build_plan(params, cfg=StruMConfig(), device=dev)
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    linears = sum(2 if cfg.layer_kind(i) == "ssm" else 4 for i in range(cfg.n_layers)) \
+        + 3 * sum(cfg.d_ff > 0 and not cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    for mode in ("chunked", "serial"):
+        sched = BatchScheduler(cfg, None, plan=plan, n_slots=2, max_len=48, device=dev,
+                               prefill=mode, kv_cache=StruMConfig(method="mip2q", p=0.5, L=7))
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((21, 7)):
+            sched.submit(Request(uid=i, prompt=torch.from_numpy(rng.integers(0, 256, n)),
+                                 max_new_tokens=6))
+        K.reset_launch_counts()
+        A.reset_launch_counts()
+        done = sched.run_to_completion()
+        torch.cuda.synchronize()
+        assert sorted(len(r.output) for r in done) == [6, 6]
+        runs = sched.lane_runs
+        lane = runs["decode"] + runs["prefill_chunk"] + runs["prefill_serial"]
+        assert K.launch_counts["onehot"] == linears * lane
+        assert K.launch_counts["grouped_onehot"] == 3 * moe * lane
+        assert A.launch_counts["paged_attention"] == attn * (runs["decode"]
+                                                             + runs["prefill_chunk"])

@@ -93,7 +93,24 @@ def _leaves(tree, prefix=""):
 
 
 def test_build_plan_payloads_byte_identical(smoke_params):
-    jparams, tparams = smoke_params
+    _payloads_identical(*smoke_params)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "jamba_1_5_large_398b"])
+def test_build_plan_payloads_byte_identical_ssm_trees(arch):
+    """The Mamba-2 and Jamba smoke trees: the same leaves packed (in_proj,
+    out_proj, attention and MLP linears, Jamba's expert stacks) and the
+    policy's exclusions (conv_w, conv_b, a_log, dt_bias, norm_scale) and
+    the 1-D d_skip left dense, as in the reference."""
+    cfg = j_smoke(arch)
+    params = j_init_params(j_model_defs(cfg), seed=0, dtype_override="float32")
+    tplan = _payloads_identical(
+        params, params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"))
+    ssm = [n for n in tplan.entries if "/ssm/" in n]
+    assert sorted(n.split("/")[-2] for n in ssm) == ["in_proj", "out_proj"]
+
+
+def _payloads_identical(jparams, tparams):
     jplan = jengine.build_plan(jparams, cfg=JCfg())
     tplan = engine.build_plan(tparams, cfg=TCfg(), device="cpu")
     assert sorted(tplan.entries) == sorted(jplan.entries)
@@ -114,6 +131,7 @@ def test_build_plan_payloads_byte_identical(smoke_params):
         if isinstance(leaf, torch.Tensor) and name.split("/")[-1] not in FIELDS:
             np.testing.assert_array_equal(leaf.numpy(), np.asarray(
                 _get(jplan.params, name)))
+    return tplan
 
 
 def _get(tree, name):

@@ -5,12 +5,21 @@ packed plan's payloads carry across the other way, so both sides run the
 same weights and the same packed bytes (payload identity itself is held in
 test_torch_engine.py).  ``olmo_1b`` (non-parametric LN, tied head, MHA) and
 ``qwen2_7b`` (GQA with kv-major heads, QKV bias, RMSNorm) each run dense
-and under mip2q p = 0.5, dliq p = 1.0 and p = 0 plans, at f32 activations.
+and under mip2q p = 0.5, dliq p = 1.0 and p = 0 plans; the other eight
+configs of ``ARCH_IDS`` (DeepSeek, StableLM, InternVL2, MusicGen with its
+plain-GELU MLP, the two MoE configs, Mamba-2 and the Jamba hybrid) dense
+and under mip2q p = 0.5; the stub-frontend configs (``vlm``, ``audio``)
+also through ``embeds`` (prompt and teacher-forced decode inputs as
+embeddings).  All at f32 activations.
 
-Tolerance: logits agree to rtol 1e-4, atol 1e-5 (f32 products summed in
-different orders by XLA and ATen).
+Tolerance: dense and MoE logits agree to rtol 1e-4, atol 1e-5 (f32
+products summed in different orders by XLA and ATen); the ``ssm`` and
+``hybrid`` families to rtol 2e-4, atol 2e-4, the reference's own tolerance
+for its chunked scan (the SSD sums run in another order and across chunk
+boundaries in both packages).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +38,7 @@ from repro.models import model_defs as j_model_defs
 from repro.models import prefill as j_prefill
 from repro.models.params import init_params as j_init_params
 from repro_torch import engine
+from repro_torch.configs.base import ARCH_IDS
 from repro_torch.configs.base import get_smoke_config as t_smoke
 from repro_torch.core.policy import StruMConfig as TCfg
 from repro_torch.launch.serve import pad_caches, serve
@@ -36,11 +46,17 @@ from repro_torch.models import decode_step, forward_train, prefill
 from repro_torch.models.params import params_from_numpy
 
 RTOL, ATOL = 1e-4, 1e-5
+SSM_TOL = dict(rtol=2e-4, atol=2e-4)
 FIELDS = ("mask", "hi", "lo", "scale")
 PLANS = {"dense": None, "mip2q_p0.5": dict(method="mip2q", p=0.5, L=5),
          "dliq_p1.0": dict(method="dliq", p=1.0, q=4),
          "dliq_p0": dict(method="dliq", p=0.0, q=4)}
 B, PROMPT, STEPS, SEQ = 2, 8, 3, 40   # SEQ > attn_chunk (32): a ragged tail
+ALL_PLANS = ("olmo_1b", "qwen2_7b")   # every plan; the rest dense and mip2q
+ZOO = [a for a in ARCH_IDS if a not in ALL_PLANS]
+CASES = [(a, p) for a in ALL_PLANS for p in PLANS] + \
+    [(a, p) for a in ZOO for p in ("dense", "mip2q_p0.5")]
+EMBEDS = [a for a in ARCH_IDS if t_smoke(a).modality in ("vlm", "audio")]
 
 
 def _cfgs(arch):
@@ -48,12 +64,18 @@ def _cfgs(arch):
             dataclasses.replace(t_smoke(arch), dtype="float32"))
 
 
-@pytest.fixture(scope="module", params=["olmo_1b", "qwen2_7b"])
-def arch_params(request):
-    jcfg, tcfg = _cfgs(request.param)
+def _tol(cfg) -> dict:
+    if cfg.family in ("ssm", "hybrid"):
+        return SSM_TOL
+    return dict(rtol=RTOL, atol=ATOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _arch_params(arch):
+    jcfg, _ = _cfgs(arch)
     jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
-    return request.param, jparams, tparams
+    return jparams, tparams
 
 
 def _set(tree, name, leaf):
@@ -80,19 +102,27 @@ def _tokens(seed, shape):
     return np.random.default_rng(seed).integers(0, 256, size=shape).astype(np.int32)
 
 
-@pytest.mark.parametrize("plan", list(PLANS))
-def test_logits_match_reference(arch_params, plan):
-    arch, jparams, tparams = arch_params
+def _held_to_reference(arch, plan, embeds=False):
+    """forward_train over SEQ inputs, then prefill over PROMPT and STEPS
+    teacher-forced decode steps, both packages on the same served weights;
+    ``embeds``: every input an embedding (B, ., D) instead of a token id."""
     jcfg, tcfg = _cfgs(arch)
+    jparams, tparams = _arch_params(arch)
     jserved, tserved, tplan = _served(jparams, tparams, PLANS[plan])
     if tplan is not None:   # CPU tensors: the torch family
         assert set(tplan.variants().values()) == {"torch:dequant"}
-    seq = _tokens(1, (B, SEQ))
+    if embeds:
+        rng = np.random.default_rng(3)
+        seq = rng.normal(size=(B, SEQ, tcfg.d_model)).astype(np.float32)
+        key, as_torch = "embeds", torch.from_numpy
+    else:
+        seq = _tokens(1, (B, SEQ))
+        key, as_torch = "tokens", lambda a: torch.from_numpy(a).long()
     prompt, teach = seq[:, :PROMPT], seq[:, PROMPT:PROMPT + STEPS]
 
     def reference(params, seq, prompt, teach):
-        full, _ = j_forward(params, {"tokens": seq}, jcfg)
-        lg, caches = j_prefill(params, {"tokens": prompt}, jcfg)
+        full, _ = j_forward(params, {key: seq}, jcfg)
+        lg, caches = j_prefill(params, {key: prompt}, jcfg)
         caches = j_pad_caches(caches, STEPS)
         steps = [lg[:, -1]]
         for i in range(STEPS):
@@ -102,29 +132,43 @@ def test_logits_match_reference(arch_params, plan):
         return full, jnp.stack(steps, axis=1)
     j_full, j_steps = jax.jit(reference)(jserved, seq, prompt, teach)
 
-    t_full, _ = forward_train(tserved, {"tokens": torch.from_numpy(seq).long()}, tcfg)
-    lg, caches = prefill(tserved, {"tokens": torch.from_numpy(prompt).long()}, tcfg)
+    t_full, _ = forward_train(tserved, {key: as_torch(seq)}, tcfg)
+    lg, caches = prefill(tserved, {key: as_torch(prompt)}, tcfg)
     caches = pad_caches(caches, STEPS)
     t_steps = [lg[:, -1]]
     for i in range(STEPS):
-        lg, caches = decode_step(tserved, torch.from_numpy(teach[:, i:i + 1]).long(),
-                                 caches, PROMPT + i, tcfg)
+        lg, caches = decode_step(tserved, as_torch(teach[:, i:i + 1]), caches,
+                                 PROMPT + i, tcfg)
         t_steps.append(lg[:, -1])
-    np.testing.assert_allclose(t_full.numpy(), np.asarray(j_full), rtol=RTOL, atol=ATOL)
+    tol = _tol(tcfg)
+    np.testing.assert_allclose(t_full.numpy(), np.asarray(j_full), **tol)
     np.testing.assert_allclose(torch.stack(t_steps, 1).numpy(), np.asarray(j_steps),
-                               rtol=RTOL, atol=ATOL)
+                               **tol)
     # decode through the cache == the full forward at the same positions
     np.testing.assert_allclose(torch.stack(t_steps, 1).numpy(),
-                               t_full[:, PROMPT - 1:PROMPT + STEPS].numpy(),
-                               rtol=RTOL, atol=ATOL)
+                               t_full[:, PROMPT - 1:PROMPT + STEPS].numpy(), **tol)
 
 
-def test_greedy_tokens_teacher_forced_against_reference_serve(arch_params):
+@pytest.mark.parametrize("arch,plan", CASES, ids=[f"{a}-{p}" for a, p in CASES])
+def test_logits_match_reference(arch, plan):
+    _held_to_reference(arch, plan)
+
+
+@pytest.mark.parametrize("arch", EMBEDS)
+@pytest.mark.parametrize("plan", ["dense", "mip2q_p0.5"])
+def test_embeds_match_reference(arch, plan):
+    """The audio / VLM stub frontend: ``batch["embeds"]`` into prefill and
+    forward_train, (B, 1, D) embeddings into every decode step."""
+    _held_to_reference(arch, plan, embeds=True)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_greedy_tokens_teacher_forced_against_reference_serve(arch):
     """Greedy tokens of ``repro.launch.serve.serve`` are compared position by
     position, teacher-forced, with the port's predictions (raw greedy
     suffixes diverge after one near-tied flip); a disagreement is allowed
     only where the two tokens' logits are within 1e-4 (a near tie)."""
-    arch, jparams, tparams = arch_params
+    jparams, tparams = _arch_params(arch)
     jcfg, tcfg = _cfgs(arch)
     kw = PLANS["mip2q_p0.5"]
     jserved, tserved, _ = _served(jparams, tparams, kw)
