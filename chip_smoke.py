@@ -181,15 +181,51 @@ Phases, each fatal on failure:
      its plain version and timed as in phase g at head dim 160 (8 kv heads,
      R = 4) and 64 (24 kv heads, R = 1).
 
+  r. the training path, each sub-phase fatal:
+     r1. full-width OLMo-1B, all 16 layers, f32 parameters, bf16 activations,
+     the config's remat, through ``launch.train``'s own code (``build``,
+     ``TrainLoopRunner``, the data pipeline, AdamW as ``train.py`` sets it):
+     ``TRAIN_STEPS`` steps at batch 4 x seq 2048, then ``COMPRESSED_STEPS``
+     with ``--grad-compression``; ms per step (median of the steps after the
+     first, and range), tokens/s, ``max_memory_allocated``, every step's loss
+     and grad norm, the f32 FLOP bound of the step; every loss and grad norm
+     finite, every parameter moves, every leaf of the state stays on the
+     card, and no StruM kernel launches;
+     r2. one ``make_train_step`` at full width, 2 layers, batch 1 x seq 256,
+     f32 activations, on the card and on the CPU from the same parameters:
+     loss within 1e-4 relative, each leaf's gradient within 1e-3 of its
+     largest |g|, and AdamW on the CPU from the card's gradients within 1e-5
+     of the card's updated parameters (each leaf's largest |p|); the two
+     whole steps' parameters within what the gradient gap allows, element
+     by element (AdamW's first step is lr · e / (|e| + eps), e the clipped
+     gradient, whose slope eps / (|e| + eps)² is 1 / eps near e = 0: there
+     the f32 gradients' absolute gap, set by the size of the sums that make
+     them and not by |e|, becomes a visible step gap), and within 1e-5 of
+     each leaf's largest |p| where both |e| >= 1e3 · eps;
+     r3. resume on the OLMo smoke config: ``TrainLoopRunner(ckpt_every=3)``
+     for 6 steps, against 3 steps, a new runner through ``resume_or_init``
+     and 3 more: every parameter and optimizer leaf bit for bit (a failure
+     names the leaves with the largest differences);
+     r4. tests/test_system.py's flow on the card: sys_tiny trained 120 steps
+     (the last 10 losses' mean 0.5 below the first 10's) and its PTQ CE
+     ordering; r1's trained weights through the default plan, CE through
+     ``loss_fn`` over the packed leaves (K1, exactly 7 x 16 launches, at M =
+     8192) within 1e-2 of the CE through ``fake_quantize`` of the same
+     config, K1 on a trained layer at M = 8192 held to its plain version and
+     timed with its bound; then those packed weights served paged (2
+     requests of 128 + 8 tokens, mip2q pages), K1 and K4 launches exact.
+
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
 it exits non-zero before printing any result.  ``python3 chip_smoke.py --only
-q`` builds the kernels and runs phase q alone (no kernels or result line).
+q`` (``--only r``) builds the kernels and runs phase q (r) alone (no kernels
+or result line).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2560,8 +2596,539 @@ def measure_zoo(dev, clocks) -> dict:
     return sub
 
 
+# --------------------------------------------------------- phase r: train --
+
+TRAIN_DIR = ROOT / "build" / "phase_r"
+# r1: launch.train's own flags at full width (OLMo-1B, 16 layers, f32
+# parameters, bf16 activations, the config's remat); steps of each run
+TRAIN_ARGV = ["--arch", "olmo_1b", "--batch", "4", "--seq", "2048", "--ckpt-every",
+              "0", "--device", "cuda"]
+TRAIN_STEPS, COMPRESSED_STEPS = 5, 3
+# r4a: tests/test_system.py's model and data
+SYS_TINY = dict(name="sys_tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                head_dim=16, d_ff=128, vocab_size=256, remat=False, attn_chunk=32)
+SYS_STEPS = 120
+
+
+def _train_flops(cfg, b: int, s: int) -> dict:
+    """Operations of one train step from its shapes: every product (the
+    linears and the tied head, ``param_count``) 6·N·T, causal attention
+    (QK and PV over the lower triangle) 6·b·s²·H·hd a layer; remat runs the
+    blocks' forward a second time."""
+    tokens = b * s
+    head = cfg.padded_vocab * cfg.d_model
+    blocks = cfg.param_count() - cfg.vocab_size * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    attn_fwd = 2 * b * s * s * cfg.n_heads * cfg.hd * cfg.n_layers
+    model = 6 * (blocks + head) * tokens + 3 * attn_fwd
+    remat = (2 * blocks * tokens + attn_fwd) if cfg.remat else 0
+    return {"model": model, "with_remat": model + remat}
+
+
+def _state_on_cuda(state) -> bool:
+    from repro_torch.core.apply import _named_leaves
+    return all(t.device.type == "cuda" for _, t in _named_leaves(state))
+
+
+def _train_run(dev, argv, steps, what) -> dict:
+    """``launch.train``'s parts from its flags, ``steps`` steps through its
+    ``TrainLoopRunner``, each step synchronized and timed; returns the
+    final state, per-step ms and metrics, the peak memory and launches."""
+    import shutil
+    import torch
+    from repro_torch.core.apply import _named_leaves
+    from repro_torch.data.pipeline import global_batch
+    from repro_torch.launch import train as T
+    from repro_torch.runtime.fault_tolerance import TrainLoopRunner
+    cfg, _, dcfg, cold_start, step_fn = T.build(
+        T.parse_args(argv + ["--steps", str(steps)]))
+    work = TRAIN_DIR / what
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    _reset_kv_counts()
+    state = cold_start()
+    first = {n: t.reshape(-1)[:4096].clone() for n, t in _named_leaves(state["params"])}
+    times, metrics = [], []
+
+    def timed(state, batch):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in out[1].items()})
+        return out
+    runner = TrainLoopRunner(str(work), ckpt_every=0)
+    state = runner.run(state, 0, steps, timed,
+                       lambda s: global_batch(dcfg, s, device=dev), log_every=1,
+                       log_fn=lambda line: print("    " + line, flush=True))
+    launched = _kv_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = [n for n, t in _named_leaves(state["params"])
+             if not torch.equal(t.reshape(-1)[:4096], first[n])]
+    _check(all(math.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")),
+           f"{what}: a loss or grad norm is not finite: {metrics}")
+    _check(len(moved) == len(first), f"{what}: parameters that did not move: "
+           f"{sorted(set(first) - set(moved))}")
+    _check(_state_on_cuda(state), f"{what}: a leaf of the state left the card")
+    _check(sum(launched.values()) == 0, f"{what}: StruM kernels launched: {launched}")
+    return {"cfg": cfg, "data": dcfg, "state": state, "step_ms": times,
+            "metrics": metrics, "peak_bytes": peak, "resident_before_bytes": resident}
+
+
+def phase_r1(dev) -> dict:
+    """Full-width OLMo-1B, all 16 layers, through ``launch.train``'s code:
+    TRAIN_STEPS plain steps, then COMPRESSED_STEPS with --grad-compression;
+    finite, moving, on the card, no StruM kernel."""
+    import torch
+    out = {}
+    for key, extra, steps in (("plain", [], TRAIN_STEPS),
+                              ("compressed", ["--grad-compression"], COMPRESSED_STEPS)):
+        run = _train_run(dev, TRAIN_ARGV + extra, steps, f"r1_{key}")
+        cfg, dcfg = run["cfg"], run["data"]
+        if key == "plain":
+            _full_width(cfg, "olmo_1b")
+            _check(cfg.remat and cfg.dtype == "bfloat16", f"r1 config {cfg}")
+            out["params"] = run["state"]["params"]      # for r4b
+        del run["state"]
+        torch.cuda.empty_cache()
+        warm = run["step_ms"][1:]
+        tokens = dcfg.global_batch * dcfg.seq_len
+        flops = _train_flops(cfg, dcfg.global_batch, dcfg.seq_len)
+        bound = {k: v / PEAK_FLOPS["torch.float32"] * 1e3 for k, v in flops.items()}
+        rec = {"step_ms": run["step_ms"], "warm_step_ms": _spread(warm),
+               "tokens_per_s": tokens / statistics.median(warm) * 1e3,
+               "peak_bytes": run["peak_bytes"],
+               "resident_before_bytes": run["resident_before_bytes"], "flops": flops,
+               "f32_bound_ms": bound, "metrics": run["metrics"]}
+        out[key] = rec
+        w = rec["warm_step_ms"]
+        print(f"  r1 {key}: {steps} steps of batch {dcfg.global_batch} x seq "
+              f"{dcfg.seq_len}; ms per step after the first: median {w['median']:.1f} "
+              f"[{w['min']:.1f}, {w['max']:.1f}] (first {run['step_ms'][0]:.1f}); "
+              f"{rec['tokens_per_s']:.0f} tokens/s; peak memory "
+              f"{rec['peak_bytes'] / 1e9:.2f} GB (of it "
+              f"{rec['resident_before_bytes'] / 1e9:.2f} GB held before the run); losses "
+              f"{[round(m['loss'], 4) for m in run['metrics']]}, grad norms "
+              f"{[round(m['grad_norm'], 4) for m in run['metrics']]}; f32 bound "
+              f"{bound['model']:.1f} ms ({flops['model'] / 1e12:.1f} TFLOP: 6·N·T + "
+              f"causal attention), {bound['with_remat']:.1f} ms with remat's second "
+              f"forward ({flops['with_remat'] / 1e12:.1f} TFLOP) at "
+              f"{PEAK_FLOPS['torch.float32'] / 1e12:.0f} TFLOP/s; median / bound "
+              f"{w['median'] / bound['with_remat']:.2f}; no StruM kernel launched",
+              flush=True)
+    return out
+
+
+def _step_gap(opt_cfg, params, ga, gb, pa, pb, lr: float, norms: tuple) -> dict:
+    """How far two first AdamW steps from the same parameters, one from
+    gradients ``ga`` of global norm ``norms[0]`` (giving ``pa``), one from
+    ``gb`` (``norms[1]``, giving ``pb``), may differ, element by element,
+    and how far they do.  At step 1 the update is lr · (e / (|e| + eps) +
+    decay), e the clipped gradient; e / (|e| +
+    eps) moves by at most eps · |Δe| / (m + eps)², m the smallest |e| between
+    the two (0 where their signs differ), and never by more than 2.  Adding
+    f32 rounding, |Δp| <= lr · min(2, eps · |Δe| / (m + eps)²) + 2^-20 ·
+    (|p| + lr) must hold everywhere.  Where both |e| >= 1e3 · eps the
+    sensitivity is small, and there the steps are also held at 1e-5 of each
+    leaf's largest |p| (``rel``); ``outside`` counts the other elements."""
+    import torch
+    from repro_torch.core.apply import _named_leaves
+    sa, sb = (min(1.0, opt_cfg.clip_norm / max(n, 1e-9)) for n in norms)
+    la, lb, lpa, lpb = (dict(_named_leaves(t)) for t in (ga, gb, pa, pb))
+    eps, ulp = opt_cfg.eps, 2.0 ** -20
+    worst_ratio, worst_rel, outside, total, at = 0.0, 0.0, 0, 0, {}
+    for n, p in _named_leaves(params):
+        ea, eb = la[n].double() * sa, lb[n].double() * sb
+        dp = (lpa[n].double() - lpb[n].double()).abs()
+        m = torch.where(torch.sign(ea) == torch.sign(eb),
+                        torch.minimum(ea.abs(), eb.abs()), torch.zeros_like(ea))
+        sens = torch.clamp(eps * (ea - eb).abs() / (m + eps) ** 2, max=2.0)
+        bound = lr * sens + ulp * (p.double().abs() + lr)
+        r = dp / bound
+        ratio = r.max().item()
+        if ratio > worst_ratio:
+            i = r.argmax()
+            worst_ratio, at = ratio, {"leaf": n, "index": int(i), **{
+                k: v.reshape(-1)[i].item() for k, v in (
+                    ("e", ea), ("e_other", eb), ("p", p), ("p_step", lpa[n]),
+                    ("p_step_other", lpb[n]), ("allowed", bound))}}
+        big = m >= 1e3 * eps
+        outside += int((~big).sum())
+        total += m.numel()
+        if big.any():
+            worst_rel = max(worst_rel, dp[big].max().item()
+                            / max(lpb[n].abs().max().item(), 1e-30))
+    return {"bound_ratio": worst_ratio, "bound_at": at, "rel": worst_rel,
+            "outside": outside, "elements": total}
+
+
+def phase_r2(dev) -> dict:
+    """One train step at full width, 2 layers, batch 1 x seq 256, f32
+    activations, on the card and on the CPU from the same parameters."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.apply import _named_leaves, map_named
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch import steps as St
+    from repro_torch.launch import train as T
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    # AdamW as the trainer builds it for r1; the model cut to 2 layers here
+    _, opt_cfg, _, _, _ = T.build(T.parse_args(
+        ["--arch", "olmo_1b", "--steps", str(TRAIN_STEPS), "--device", "cuda"]))
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=2)
+    _full_width(cfg, "olmo_1b", layers=2)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=1, seed=0)
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    runs = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        p = map_named(lambda _, t: t.to(d), params)
+        batch = global_batch(dcfg, 0, device=d)
+        # the train step's two calls, so that its gradients can be read: the
+        # CPU's embedding gradient is not repeatable from call to call (the
+        # backward of ``table[ids]`` adds repeated ids' rows in parallel)
+        (loss, _), grads = St._value_and_grad(p, batch, cfg)
+        new_p, _, m = adamw_update(opt_cfg, p, grads, init_opt_state(p))
+        runs[name] = {"loss": float(loss), "lr": float(m["lr"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "grads": map_named(lambda _, g: g.cpu(), grads),
+                      "params": map_named(lambda _, t: t.cpu(), new_p)}
+        if name == "cuda":   # on the card make_train_step gives those bits
+            step_p, _, sm = St.make_train_step(cfg, opt_cfg)(p, init_opt_state(p), batch)
+            _check(float(sm["loss"]) == runs[name]["loss"] and all(
+                torch.equal(x, y) for (_, x), (_, y) in zip(
+                    _named_leaves(step_p), _named_leaves(new_p))),
+                "r2: make_train_step on the card is not its gradient and AdamW calls")
+            del step_p
+        del p, grads, new_p
+    a, b = runs["cuda"], runs["cpu"]
+    p_cpu = map_named(lambda _, t: t.cpu(), params)
+    # AdamW on the CPU from the card's gradients: the update alone, on the
+    # same inputs as the card's
+    same_in, _, _ = adamw_update(opt_cfg, p_cpu, a["grads"], init_opt_state(p_cpu))
+
+    def worst(x, y):
+        """(max |x - y| / max|y| over leaves, the leaf)."""
+        ly = dict(_named_leaves(y))
+        return max(((t.double() - ly[n].double()).abs().max().item()
+                    / max(ly[n].abs().max().item(), 1e-30), n)
+                   for n, t in _named_leaves(x))
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    g_rel, p_rel = worst(a["grads"], b["grads"])[0], worst(a["params"], same_in)[0]
+    step_rel, leaf = worst(a["params"], b["params"])
+    gap = _step_gap(opt_cfg, p_cpu, a["grads"], b["grads"], a["params"], b["params"],
+                    max(a["lr"], b["lr"]), (a["grad_norm"], b["grad_norm"]))
+    # the largest whole-step gap, and the two gradients there
+    i = (dict(_named_leaves(a["params"]))[leaf]
+         - dict(_named_leaves(b["params"]))[leaf]).abs().argmax()
+    dp_at, g_at = (tuple(dict(_named_leaves(x[k]))[leaf].reshape(-1)[i].item()
+                         for x in (a, b)) for k in ("params", "grads"))
+    print(f"  r2 card vs CPU, one step at full width, 2 layers, batch 1 x seq 256, f32: "
+          f"loss {a['loss']:.6f} vs {b['loss']:.6f} (rel {loss_rel:.2e}); gradients "
+          f"max |diff| / max|g| over leaves {g_rel:.2e}; AdamW from the same gradients "
+          f"{p_rel:.2e} of max|p|; the two whole steps: {step_rel:.2e} of max|p| at "
+          f"worst ({leaf}: |Δp| {abs(dp_at[0] - dp_at[1]):.3e} where g is "
+          f"{g_at[0]:.4e} on the card, {g_at[1]:.4e} on the CPU, grad norms "
+          f"{a['grad_norm']:.6f} / {b['grad_norm']:.6f}), at most {gap['bound_ratio']:.3f} of what the gradient gap "
+          f"allows (lr · min(2, eps·|Δe|/(m+eps)²) + rounding; worst at "
+          f"{gap['bound_at'].get('leaf')}), {gap['rel']:.2e} of max|p| where |e| >= 1e3·eps "
+          f"({gap['outside']} of {gap['elements']} elements below it)", flush=True)
+    _check(loss_rel <= 1e-4, f"r2 loss differs: {loss_rel} > 1e-4 relative")
+    _check(g_rel <= 1e-3, f"r2 gradients differ: {g_rel} > 1e-3 of max|g|")
+    _check(p_rel <= 1e-5, f"r2 AdamW differs on the same gradients: {p_rel} > 1e-5")
+    _check(gap["bound_ratio"] <= 1.0, f"r2 whole steps differ past what the gradient "
+           f"gap allows: {gap}")
+    _check(gap["rel"] <= 1e-5, f"r2 whole steps differ where |e| >= 1e3·eps: {gap}")
+    return {"loss_rel": loss_rel, "grad_rel": g_rel, "param_rel": p_rel,
+            "step_param_rel": step_rel, "step_gap": gap,
+            "worst_step": {"leaf": leaf, "p": list(dp_at), "g": list(g_at)}}
+
+
+def _resume_runs(dev) -> tuple:
+    """Six steps of the OLMo smoke config through ``TrainLoopRunner``
+    (ckpt_every=3) without a break, and three, a new runner through
+    ``resume_or_init`` and three more; returns both final states."""
+    import shutil
+    from repro_torch.data.pipeline import global_batch
+    from repro_torch.launch import train as T
+    from repro_torch.runtime.fault_tolerance import TrainLoopRunner, resume_or_init
+    argv = ["--arch", "olmo_1b", "--smoke", "--batch", "8", "--seq", "64", "--steps",
+            "6", "--ckpt-every", "3", "--device", "cuda"]
+    _, _, dcfg, cold_start, step_fn = T.build(T.parse_args(argv))
+
+    def batch(s):
+        return global_batch(dcfg, s, device=dev)
+    states = []
+    for name in ("whole", "resumed"):
+        shutil.rmtree(TRAIN_DIR / f"r3_{name}", ignore_errors=True)
+    whole = TrainLoopRunner(str(TRAIN_DIR / "r3_whole"), ckpt_every=3)
+    states.append(whole.run(cold_start(), 0, 6, step_fn, batch, log_every=0))
+    first = TrainLoopRunner(str(TRAIN_DIR / "r3_resumed"), ckpt_every=3)
+    first.run(cold_start(), 0, 3, step_fn, batch, log_every=0)
+    again = TrainLoopRunner(str(TRAIN_DIR / "r3_resumed"), ckpt_every=3)
+    state, start = resume_or_init(again.ckpt_dir, cold_start(), cold_start)
+    _check(start == 3 and int(state["opt"].step) == 3 and _state_on_cuda(state),
+           f"r3 resumed at step {start}")
+    states.append(again.run(state, start, 6, step_fn, batch, log_every=0))
+    return states
+
+
+def _state_diff(a, b) -> list:
+    """(max |diff|, leaf) of every leaf that differs, largest first."""
+    import torch
+    from repro_torch.core.apply import _named_leaves
+    lb = dict(_named_leaves(b))
+    return sorted(((x.double() - lb[n].double()).abs().max().item(), n)
+                  for n, x in _named_leaves(a) if not torch.equal(x, lb[n]))[::-1]
+
+
+def phase_r3(dev) -> dict:
+    """Resume: six steps without a break equal three + restore + three,
+    bit for bit (the dense smoke config: no MoE atomics); where they differ,
+    the failure names the leaves with the largest differences."""
+    diff = _state_diff(*_resume_runs(dev))
+    _check(not diff, f"r3 resume is not bit-identical: {len(diff)} leaves differ, "
+           f"largest (max |diff|, leaf) {diff[:5]}")
+    print("  r3 six steps == three + resume_or_init + three, every parameter and "
+          "optimizer leaf bit for bit", flush=True)
+    return {"leaves_differing": 0}
+
+
+def _sys_tiny_trained(dev):
+    import torch
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    cfg = ModelConfig(**SYS_TINY)
+    data = DataConfig(vocab_size=256, seq_len=64, global_batch=8, seed=3)
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=10,
+                                            total_steps=SYS_STEPS))
+    losses = []
+    for s in range(SYS_STEPS):
+        params, opt, m = step(params, opt, global_batch(data, s, device=dev))
+        losses.append(m["ce"])
+    return cfg, data, params, [float(x) for x in torch.stack(losses).cpu()]
+
+
+def _eval_ce(params, cfg, data, dev, steps=(9000, 9001, 9002)) -> float:
+    import torch
+    from repro_torch.data.pipeline import global_batch
+    from repro_torch.models import loss_fn
+    with torch.no_grad():
+        return statistics.mean(float(loss_fn(params, global_batch(data, s, device=dev),
+                                             cfg)[1]["ce"]) for s in steps)
+
+
+def phase_r4a(dev) -> dict:
+    """tests/test_system.py's flow on the card: train sys_tiny, then the
+    PTQ CE ordering (its "int8" arm is ``default_policy(None)``, as the
+    reference writes it)."""
+    from repro_torch.core.policy import StruMConfig, default_policy
+    from repro_torch.engine import fake_quantize
+    cfg, data, params, losses = _sys_tiny_trained(dev)
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    base = _eval_ce(params, cfg, data, dev)
+    ce = {"fp32": base, "int8": _eval_ce(fake_quantize(
+        params, policy=default_policy(None), device=dev), cfg, data, dev)}
+    for method, kw in [("sparsity", {}), ("dliq", dict(q=4)), ("mip2q", dict(L=7))]:
+        ce[method] = _eval_ce(fake_quantize(params, policy=default_policy(
+            StruMConfig(method=method, p=0.5, **kw)), device=dev), cfg, data, dev)
+    print(f"  r4a sys_tiny, {SYS_STEPS} steps on the card: mean CE of the first 10 "
+          f"{first:.4f}, of the last 10 {last:.4f}; PTQ CE "
+          f"{ {k: round(v, 4) for k, v in ce.items()} }", flush=True)
+    _check(last < first - 0.5, f"r4a loss fell {first - last:.4f} < 0.5")
+    _check(abs(ce["int8"] - base) < 0.05, f"r4a int8 CE {ce['int8']} vs fp32 {base}")
+    _check(ce["dliq"] - ce["int8"] < 0.10 and ce["mip2q"] - ce["int8"] < 0.10,
+           f"r4a mixed precision off int8: {ce}")
+    _check(ce["sparsity"] > max(ce["dliq"], ce["mip2q"]), f"r4a sparsity not worst: {ce}")
+    return {"first10": first, "last10": last, "ptq_ce": ce}
+
+
+def _k1_layer_at(dev, params, m, clocks) -> dict:
+    """K1 on the trained layer 0's seven linears at M = m (bf16 x), held to
+    its plain version, timed beside the plain version and bf16
+    ``torch.matmul`` on the dequantized weight; bound as phase c's."""
+    import torch
+    from repro_torch.core.apply import pack_array
+    from repro_torch.core.policy import StruMConfig
+    blk = params["blocks"]["pos0"]
+    ws = [blk["attn"][k]["w"][0] for k in ("wq", "wk", "wv", "wo")] + \
+        [blk["mlp"][k]["w"][0] for k in ("wi", "wg", "wo")]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    calls, err = [], 0.0
+    for w in ws:
+        packed = pack_array(w, StruMConfig())
+        wrapper, plain, fields, kw = _kernel_args("onehot", packed)
+        x = torch.randn((m, packed.k_dim), generator=gen, device=dev).to(torch.bfloat16)
+        y, y_plain = wrapper(x, *fields, **kw), plain(x, *fields, **kw)
+        lim = KERNEL_TOL * y_plain.abs().max().item()
+        e = (y - y_plain).abs().max().item()
+        _check(e <= lim, f"K1 at M={m} K={packed.k_dim} N={packed.n_out}: {e} > {lim}")
+        err = max(err, e)
+        calls.append((wrapper, plain, x, fields, kw, packed, packed_dequant(packed)))
+        del y, y_plain
+    t = _interleaved(clocks, {
+        "ms": (lambda: [c[0](c[2], *c[3], **c[4]) for c in calls], 3),
+        "plain_ms": (lambda: [c[1](c[2], *c[3], **c[4]) for c in calls], 1),
+        "library_ms": (lambda: [torch.matmul(c[2], c[6]) for c in calls], 3)})
+    nbytes = sum(_read_bytes("onehot", c[5], c[2]) for c in calls)
+    flops = sum(2 * m * c[5].k_dim * c[5].n_out for c in calls)
+    rec = dict(t, max_abs_err=err, **_bound(nbytes, flops, PEAK_FLOPS["torch.bfloat16"]))
+    print(f"  r4b K1, one trained layer (7 linears) at M = {m}, bf16 x, median [min, "
+          f"max] of {ROUNDS}: kernel {t['ms']:.3f} {t['range_ms']['ms']} ms, plain "
+          f"{t['plain_ms']:.3f} ms, torch.matmul bf16 {t['library_ms']:.3f} ms; bound "
+          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB in "
+          f"{rec['bytes_ms']:.4f} ms, {flops / 1e12:.3f} TFLOP in {rec['ops_ms']:.3f} "
+          f"ms at 989 TFLOP/s); max |kernel - plain| {err:.3e}; {t['clock']}", flush=True)
+    return rec
+
+
+def phase_r4b(dev, params, clocks) -> dict:
+    """r1's trained full-width parameters through the default plan: CE
+    through ``loss_fn`` over the packed leaves (K1, 112 launches a forward
+    at M = 8192) against CE through ``fake_quantize`` of the same config
+    (no INT8 baseline on the other leaves: the plan leaves them dense)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.engine import build_plan, fake_quantize
+    from repro_torch.models import loss_fn
+    scfg = StruMConfig()
+    cfg = get_config("olmo_1b")
+    qcfg = dataclasses.replace(cfg, strum=scfg)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=2048, global_batch=4, seed=0)
+    batch = global_batch(data, 9000, device=dev)
+    plan = build_plan(params, cfg=scfg, device=dev)
+    _check(set(plan.variants().values()) == {"cuda:onehot"},
+           f"r4b plan {plan.summary()['variant_distribution']}")
+    with torch.no_grad():
+        _reset_kv_counts()
+        ce_packed = float(loss_fn(plan.params, batch, qcfg)[1]["ce"])
+        launched = _kv_counts()
+        want = 7 * cfg.n_layers
+        _zoo_counts(launched, {"onehot": want}, "r4b packed loss_fn")
+        fq = fake_quantize(params, cfg=scfg, baseline_int8=False, device=dev)
+        ce_fq = float(loss_fn(fq, batch, cfg)[1]["ce"])
+        del fq
+        ce_dense = float(loss_fn(params, batch, cfg)[1]["ce"])
+    rel = abs(ce_packed - ce_fq) / abs(ce_fq)
+    print(f"  r4b trained OLMo-1B, batch 4 x 2048 (M = 8192): CE packed {ce_packed:.5f} "
+          f"(K1 {launched['onehot']} launches = 7 x {cfg.n_layers}), fake-quantized "
+          f"{ce_fq:.5f} (rel {rel:.2e}), dense {ce_dense:.5f}", flush=True)
+    _check(math.isfinite(ce_packed) and rel <= 1e-2,
+           f"r4b packed CE {ce_packed} vs fake-quantized {ce_fq}: {rel} > 1e-2")
+    k1 = _k1_layer_at(dev, params, 4 * 2048, clocks)
+    return {"plan": plan, "ce_packed": ce_packed, "ce_fake_quant": ce_fq,
+            "ce_dense": ce_dense, "rel": rel, "k1_launches": launched["onehot"],
+            "k1": k1}
+
+
+def phase_r4c(dev, plan) -> dict:
+    """The trained packed weights served through the paged runtime, 2
+    requests of 128 + 8 tokens, mip2q KV pages: K1 and K4 launches exact."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch import serve as S
+    cfg = dataclasses.replace(get_config("olmo_1b"), strum=StruMConfig())
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2, seed=0)
+    prompt = global_batch(data, 9100, device=dev)["tokens"]
+    _reset_kv_counts()
+    res = S.serve_paged(cfg, plan.params, prompt, 7, plan=plan, page_size=PAGE,
+                        kv_cache=StruMConfig(method="mip2q", p=0.5, q=4, L=7),
+                        device=dev)
+    launched = _kv_counts()
+    runs = res["lane_runs"]
+    lane = runs["decode"] + runs["prefill_chunk"]
+    sched = res["sched"]
+    _check(sched.spec.attn_variant == "cache:attn_fused",
+           f"r4c attention {sched.spec.attn_variant}")
+    _check(launched["onehot"] == 7 * cfg.n_layers * lane and
+           launched["paged_attention"] == cfg.n_layers * lane,
+           f"r4c launches {launched}, want K1 7 x {cfg.n_layers} x {lane}, K4 "
+           f"{cfg.n_layers} x {lane} ({runs})")
+    _check(launched["paged_attention_maskfree"] == launched["page_decode"] == 0 and
+           sum(v for k, v in launched.items() if k not in (
+               "onehot", "paged_attention", "paged_attention_combine")) == 0,
+           f"r4c launched another kernel: {launched}")
+    _check_combine(launched)
+    outs = [r.output for r in res["requests"]]
+    _check(len(outs) == 2 and all(len(o) == 8 for o in outs),
+           f"r4c requests came back with {[len(o) for o in outs]} tokens")
+    print(f"  r4c trained packed OLMo-1B served paged (2 x 128 + 8, mip2q pages): "
+          f"launches {launched} = K1 7 x {cfg.n_layers} x {lane}, K4 {cfg.n_layers} x "
+          f"{lane} lane runs {runs}; drain {res['drain_s'] * 1e3:.1f} ms; tokens {outs}",
+          flush=True)
+    return {"launches": launched, "lane_runs": runs, "drain_ms": res["drain_s"] * 1e3}
+
+
+def measure_train(dev, clocks) -> dict:
+    """Phase r, each sub-phase fatal; returns its records with seconds."""
+    import torch
+    torch.cuda.init()       # the allocator's statistics exist from here on
+    sub, t_start = {}, time.perf_counter()
+    r1_params = {}
+
+    def r1():
+        rec = phase_r1(dev)
+        r1_params["params"] = rec.pop("params")
+        return rec
+
+    def r4():
+        rec = {"a": phase_r4a(dev)}
+        b = phase_r4b(dev, r1_params.pop("params"), clocks)
+        rec["c"] = phase_r4c(dev, b.pop("plan"))
+        rec["b"] = b
+        return rec
+    for key, what, fn in (
+            ("r1", f"full-width OLMo-1B, 16 layers: {TRAIN_STEPS} train steps, "
+                   f"{COMPRESSED_STEPS} with --grad-compression", r1),
+            ("r2", "one train step at full width, 2 layers: card vs CPU",
+             lambda: phase_r2(dev)),
+            ("r3", "resume on the OLMo smoke config: 6 steps == 3 + restore + 3",
+             lambda: phase_r3(dev)),
+            ("r4", "train -> PTQ -> packed serving: sys_tiny; r1's weights packed "
+                   "(K1 at M = 8192) and served paged (K1, K4)", r4)):
+        t0 = time.perf_counter()
+        print(f"-- {key}. {what} (t = {t0 - _T0:.1f} s)", flush=True)
+        sub[key] = fn()
+        sub[key]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    sub["seconds"] = time.perf_counter() - t_start
+    return sub
+
+
+def _train_report(train, smi) -> None:
+    """Phase r's summary line."""
+    r1 = train["r1"]
+    p, c = r1["plain"], r1["compressed"]
+    print(f"train path (OLMo-1B, 16 layers, full width, batch 4 x 2048, f32 params, "
+          f"bf16 activations, remat): ms per step median {p['warm_step_ms']['median']:.1f} "
+          f"[{p['warm_step_ms']['min']:.1f}, {p['warm_step_ms']['max']:.1f}] over "
+          f"{len(p['step_ms']) - 1} warm steps, {p['tokens_per_s']:.0f} tokens/s, peak "
+          f"{p['peak_bytes'] / 1e9:.2f} GB, f32 bound {p['f32_bound_ms']['with_remat']:.1f} "
+          f"ms; --grad-compression {c['warm_step_ms']['median']:.1f} ms, peak "
+          f"{c['peak_bytes'] / 1e9:.2f} GB; r4b K1 layer at M = 8192 "
+          f"{train['r4']['b']['k1']['ms']:.3f} ms vs bound "
+          f"{train['r4']['b']['k1']['bound_ms']:.3f}; sub-phase seconds "
+          f"{ {k: round(v['seconds'], 1) for k, v in train.items() if k != 'seconds'} }, "
+          f"phase r {train['seconds']:.1f} s; {smi}")
+
+
 def measure(dev, clocks):
-    """Phases c-p; returns the kernels' records and the serve times."""
+    """Phases c-r; returns the kernels' records and the serve (and train)
+    times."""
     import torch
     _phase("c. kernels vs plain versions at OLMo-1B shapes")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2668,6 +3235,14 @@ def measure(dev, clocks):
                                for a in DENSE_ZOO}},
         "grouped_onehot": {"jamba_smoke_paged": zoo["q2"]["launches"]["grouped_onehot"]}}
 
+    _phase("r. the training path: full-width OLMo-1B train steps (plain and "
+           "--grad-compression), card vs CPU, resume, train -> PTQ -> packed serving")
+    times["train"] = train = measure_train(dev, clocks)
+    train_launches = {
+        "onehot": {"r4b_packed_loss_fn": train["r4"]["b"]["k1_launches"],
+                   "r4c_paged": train["r4"]["c"]["launches"]["onehot"]},
+        "paged_attention": {"r4c_paged": train["r4"]["c"]["launches"]["paged_attention"]}}
+
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
         t, mid, pf = timings[name][4], timings[name][16], timings[name][128]
@@ -2694,6 +3269,10 @@ def measure(dev, clocks):
             kernels[-1].update(zoo_launches=zoo_launches["onehot"], mamba2_layer={
                 k: k1[k] for k in ("max_abs_err", "graph_ms", "plain_ms",
                                    "library_graph_ms", "bound_ms", "bound_by")})
+            r4 = train["r4"]["b"]["k1"]
+            kernels[-1].update(train_launches=train_launches["onehot"], m8192_layer={
+                k: r4[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")})
     for variant, (name, replaces) in KV_KERNELS.items():
         row = kv_rows[name]
         t = row["cases"][0]
@@ -2712,6 +3291,7 @@ def measure(dev, clocks):
             kernels[-1]["combine_launches"] = counts[f"{name}_combine"]
         if name == "paged_attention":
             kernels[-1]["zoo_launches"] = zoo_launches["paged_attention"]
+            kernels[-1]["train_launches"] = train_launches["paged_attention"]
             kernels[-1]["zoo_cases"] = [
                 {k: c[k] for k in ("case", "max_abs_err", "ms", "eager_ms", "plain_ms",
                                    "library_ms", "bound_ms", "bound_by")}
@@ -2774,8 +3354,8 @@ def _zoo_report(zoo, smi) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "q"]):
-        print("usage: chip_smoke.py [--only q]", file=sys.stderr)
+    if argv not in ([], ["--only", "q"], ["--only", "r"]):
+        print("usage: chip_smoke.py [--only q|r]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
@@ -2816,11 +3396,17 @@ def main(argv=None) -> int:
 
     clocks = Clocks()
     try:
-        if argv:            # phase q alone: no kernels line, no result line
+        if argv == ["--only", "q"]:     # phase q alone: no kernels or result line
             _phase("q. the model zoo")
             zoo = measure_zoo(dev, clocks)
             _zoo_report(zoo, smi)
             print(json.dumps({"zoo": zoo}, default=str))
+            return 0
+        if argv == ["--only", "r"]:     # phase r alone: no kernels or result line
+            _phase("r. the training path")
+            train = measure_train(dev, clocks)
+            _train_report(train, smi)
+            print(json.dumps({"train": train}, default=str))
             return 0
         kernels, times = measure(dev, clocks)
     finally:
@@ -2832,7 +3418,8 @@ def main(argv=None) -> int:
     print(f"paged path: drain {paged['drain_ms']:.1f} ms, {paged['ticks']} ticks, "
           f"decode-only tick median {tick['median']:.3f} ms [{tick['min']:.3f}, "
           f"{tick['max']:.3f}] over {paged['decode_ticks']}; phase time "
-          f"{json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})} s")
+          f"{json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})} s (start of "
+          f"each phase); phase r took {times['train']['seconds']:.1f} s")
     moe = times["moe"]
     mt = moe["decode_tick_ms"]
     print(f"moe path (Moonshot-16B-A3B, {moe['layers']} layers, full width): drain "
@@ -2859,6 +3446,7 @@ def main(argv=None) -> int:
           f"{pt['max']:.3f}] against phase h's {ht['median']:.3f} ms; sub-phase seconds "
           f"{ {k: round(v['seconds'], 1) for k, v in times['schedule'].items()} }")
     _zoo_report(times["zoo"], smi)
+    _train_report(times["train"], smi)
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

@@ -26,8 +26,8 @@ from repro_torch.core.quantizers import int8_symmetric, quantize_blocks
 
 __all__ = ["fake_quantize_array", "pack_array", "unpack_array",
            "int8_baseline_array", "packed_payload_bytes", "path_name",
-           "map_named", "fake_quantize_tree", "pack_tree",
-           "tree_compression_report"]
+           "map_named", "tree_leaves", "tree_like", "fake_quantize_tree",
+           "pack_tree", "tree_compression_report"]
 
 
 def _to_2d(x: torch.Tensor):
@@ -120,6 +120,17 @@ def _named_leaves(tree: Any):
     """(name, leaf) of every leaf of ``tree``, in ``jax.tree_util`` order."""
     for path, leaf in _flatten_with_path(tree):
         yield path_name(path), leaf
+
+
+def tree_leaves(tree: Any) -> list:
+    """Every leaf of ``tree``, in ``_named_leaves`` order."""
+    return [leaf for _, leaf in _named_leaves(tree)]
+
+
+def tree_like(tree: Any, leaves) -> Any:
+    """``tree``'s structure holding ``leaves`` (in ``_named_leaves`` order)."""
+    it = iter(leaves)
+    return map_named(lambda _, __: next(it), tree)
 
 
 def map_named(fn: Callable, tree: Any, is_leaf: Optional[Callable] = None,

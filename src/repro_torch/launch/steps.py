@@ -1,15 +1,56 @@
-"""Step builders shared by the server and the tests (twin of the serving
-half of ``repro.launch.steps``): one definition of the plan, prefill and
-decode steps, and of the paged runtime's lanes."""
+"""Step builders shared by the trainer, the server and the tests (twin of
+the single-device half of ``repro.launch.steps``): one definition of the
+train step, the plan, the prefill and decode steps, and the paged runtime's
+lanes."""
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.models import transformer as tfm
+import torch
 
-__all__ = ["build_serving_plan", "make_prefill_step", "make_decode_step",
-           "make_paged_decode_step", "make_chunked_prefill_step",
-           "make_verify_step"]
+from repro_torch.core.apply import tree_leaves, tree_like
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
+from repro_torch.runtime import compression as gcomp
+
+__all__ = ["make_train_step", "build_serving_plan", "make_prefill_step",
+           "make_decode_step", "make_paged_decode_step",
+           "make_chunked_prefill_step", "make_verify_step"]
+
+
+def _value_and_grad(params, batch, cfg):
+    """``(loss, metrics), grads`` of ``tfm.loss_fn`` at ``params``.  The
+    gradients are taken through ``detach().requires_grad_()`` copies of the
+    leaves, so the caller's tree is never marked; a leaf the loss does not
+    reach gets a zero gradient, as ``jax.grad`` gives it."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, metrics = tfm.loss_fn(tree_like(params, leaves), batch, cfg)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            tree_like(params, grads))
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, grad_compression: bool = False):
+    """``(params, opt_state[, ef_state], batch) -> (params, opt_state[,
+    ef_state], metrics)``: loss and gradients by autograd, MIP2Q gradient
+    compression with error feedback when ``grad_compression``, then AdamW.
+    Functional: new trees come back and the inputs are left as they were.
+    ``metrics`` holds ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` as
+    tensors."""
+    if grad_compression:
+        def step(params, opt_state, ef_state, batch):
+            (loss, metrics), grads = _value_and_grad(params, batch, cfg)
+            grads, ef_state = gcomp.compress_tree_with_ef(grads, ef_state)
+            params, opt_state, stats = adamw.adamw_update(opt_cfg, params, grads,
+                                                          opt_state)
+            return params, opt_state, ef_state, dict(metrics, loss=loss, **stats)
+        return step
+
+    def step(params, opt_state, batch):
+        (loss, metrics), grads = _value_and_grad(params, batch, cfg)
+        params, opt_state, stats = adamw.adamw_update(opt_cfg, params, grads, opt_state)
+        return params, opt_state, dict(metrics, loss=loss, **stats)
+    return step
 
 
 def build_serving_plan(params, *, schedule=None, cfg=None, policy=None,

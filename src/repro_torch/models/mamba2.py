@@ -91,6 +91,16 @@ def _conv_seq(xbc, w, bias):
     return F.silu(out + bias[None, None, :])
 
 
+def _segment_decay(seg: torch.Tensor, tril: torch.Tensor) -> torch.Tensor:
+    """``exp(seg)`` on and below the diagonal, 0 above.  seg (B,t,s,nh) is
+    positive above the diagonal, where exp can overflow: seg is masked to
+    -inf before exp (exp(-inf) = 0), so no inf enters the forward and no
+    0 · inf the gradient of seg.  The same values as selecting after exp."""
+    return torch.exp(torch.where(tril[None, :, :, None], seg,
+                                 torch.full((), -torch.inf, dtype=seg.dtype,
+                                            device=seg.device)))
+
+
 def _ssd_chunked(xh, dt, a, bb, cc, chunk: int, h0=None):
     """Chunked SSD scan.
 
@@ -119,9 +129,7 @@ def _ssd_chunked(xh, dt, a, bb, cc, chunk: int, h0=None):
         dak, xdtk, bk, ck = da[:, sl], xdt[:, sl], bf[:, sl], cf[:, sl]
         cum = torch.cumsum(dak, dim=1)                      # (B,c,nh)
         seg = cum[:, :, None, :] - cum[:, None, :, :]       # (B,t,s,nh)
-        # exp(seg) overflows above the diagonal: select, never multiply
-        decay = torch.where(tril[None, :, :, None], torch.exp(seg),
-                            torch.zeros((), dtype=_F32, device=xh.device))
+        decay = _segment_decay(seg, tril)
         scores = torch.einsum("btk,bsk->bts", ck, bk)       # (B,t,s)
         y_intra = torch.einsum("btsh,bshp->bthp", scores[..., None] * decay, xdtk)
         # inter-chunk: y[t] += C_t · h_prev · exp(cum[t])

@@ -1,8 +1,9 @@
 """Decoder stack (twin of ``repro.models.transformer``) for every family
 of the reference, dense, MoE, ``ssm`` (Mamba-2) and ``hybrid`` (Jamba):
-``model_defs``, ``cache_defs``, ``forward_train`` (forward only),
-``prefill`` and ``decode_step``, and the serving runtime's paged lanes
-``decode_step_paged``, ``prefill_chunk_step`` and ``verify_chunk_step``.
+``model_defs``, ``cache_defs``, ``forward_train`` (with the ``remat``
+policy), ``loss_fn``, ``prefill`` and ``decode_step``, and the serving
+runtime's paged lanes ``decode_step_paged``, ``prefill_chunk_step`` and
+``verify_chunk_step``.
 
 Parameters keep the reference layout: per period position ``pos{i}``,
 every leaf stacked with a leading ``n_groups`` dim.  The period is the lcm
@@ -21,6 +22,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2, moe
@@ -30,8 +32,8 @@ from repro_torch.models.layers import (apply_norm, embed_def, embed_lookup,
 from repro_torch.models.params import ParamDef
 
 __all__ = ["period", "n_groups", "model_defs", "cache_defs", "forward_train",
-           "prefill", "decode_step", "decode_step_paged", "prefill_chunk_step",
-           "verify_chunk_step"]
+           "loss_fn", "prefill", "decode_step", "decode_step_paged",
+           "prefill_chunk_step", "verify_chunk_step"]
 
 
 def period(cfg) -> int:
@@ -158,24 +160,73 @@ def _per_pos(cfg, attn_names, ssm_names=()) -> dict:
             for i in range(period(cfg))}
 
 
+#: ops whose outputs ``remat_policy="dots"`` keeps for the backward (the
+#: reference's ``dots_saveable``: every matmul and einsum contraction)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default]
+
+
+def _remat(body, cfg):
+    """The configured activation-checkpoint policy around a group body
+    (twin of the reference's ``_remat``): ``remat_policy="full"`` recomputes
+    the whole group in the backward, ``"dots"`` keeps the matmul outputs
+    and recomputes the rest.  Forward values are unchanged; without
+    gradients the body runs as is."""
+    if not cfg.remat:
+        return body
+    ckpt_kw = {}
+    if cfg.remat_policy == "dots":
+        ckpt_kw["context_fn"] = lambda: _ckpt.create_selective_checkpoint_contexts(_DOTS)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return _ckpt.checkpoint(body, *args, use_reentrant=False, **ckpt_kw)
+    return run
+
+
 def forward_train(params: dict, batch: dict, cfg, **kw):
     """Full forward; returns (logits f32, aux): aux is the MoE load-balance
-    loss summed over layers (0 without MoE layers)."""
+    loss summed over layers (0 without MoE layers).  With ``cfg.remat``
+    each layer group is checkpointed (:func:`_remat`)."""
     kw.setdefault("strum", cfg.strum)
     x = _batch_in(params, batch, cfg)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
+
+    def group(x, gp):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(period(cfg)):
+            bp = gp[f"pos{i}"]
+            h = apply_norm(bp["norm1"], x, cfg)
+            if "attn" in bp:
+                h = attn_mod.attention(bp["attn"], h, cfg, positions, **kw)
+            else:
+                h = mamba2.ssm_apply(bp["ssm"], h, cfg, **kw)
+            x, a = _ffn_residual(bp, x + h, cfg, kw)
+            aux = aux + a
+        return x, aux
+
+    body = _remat(group, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, bp in _blocks(params, cfg):
-        h = apply_norm(bp["norm1"], x, cfg)
-        if "attn" in bp:
-            h = attn_mod.attention(bp["attn"], h, cfg, positions, **kw)
-        else:
-            h = mamba2.ssm_apply(bp["ssm"], h, cfg, **kw)
-        x, a = _ffn_residual(bp, x + h, cfg, kw)
+    for g in range(n_groups(cfg)):
+        x, a = body(x, _group(params["blocks"], g))
         aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
     return logits(params.get("lm_head"), params["embed"], x), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg, **kw):
+    """Next-token cross-entropy over ``labels >= 0`` plus
+    ``router_aux_weight · aux``; returns ``(loss, {"ce", "aux"})``."""
+    lg, aux = forward_train(params, batch, cfg, **kw)
+    labels = batch["labels"]
+    lse = torch.logsumexp(lg, dim=-1)
+    # a masked label (< 0) reads column 0; its term is multiplied by 0
+    gold = torch.gather(lg, -1, labels.clamp(min=0).to(torch.long)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    ce = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params: dict, batch: dict, cfg, **kw):

@@ -4,7 +4,8 @@
   or ``repro`` (an AST scan, and a subprocess that blocks those imports);
   the draft plans and the telemetry copy among them, whose trace checker
   runs in that state.
-* Entry points default to ``device="cuda"`` and raise without a card.
+* Entry points (serving, and since the training path ``launch.train`` and
+  the data pipeline) default to ``device="cuda"`` and raise without a card.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card or
   outside the repo.
 """
@@ -128,6 +129,21 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
     # asked for explicitly, the CPU serves through the torch family
     plan = build_plan(params, device="cpu")
     assert set(plan.variants().values()) == {"torch:dequant"}
+
+
+def test_train_entry_points_raise_without_a_card(no_card, tmp_path):
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "olmo_1b", "--smoke", "--steps", "1",
+                    "--workdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        global_batch(DataConfig(vocab_size=256, seq_len=8, global_batch=2), 0)
+    # asked for explicitly, the CPU trains
+    assert train.main(["--arch", "olmo_1b", "--smoke", "--steps", "1", "--batch", "2",
+                       "--seq", "16", "--ckpt-every", "0", "--device", "cpu",
+                       "--workdir", str(tmp_path)]) == 0
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_paged_entry_points_raise_without_a_card(no_card):

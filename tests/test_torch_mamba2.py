@@ -232,3 +232,32 @@ def test_ssm_apply_bf16_keeps_the_reference_casts():
         want = np.asarray(want, np.float32)
         err = np.abs(got.float().numpy() - want).max()
         assert err <= 2 ** -7 * np.abs(want).max(), err
+
+
+def test_scan_gradient_is_finite_under_exp_overflow():
+    """Large ``dt · |a|`` makes ``seg`` above the diagonal overflow ``exp``
+    in f32.  Masking ``seg`` before ``exp`` gives the same decay bits as
+    selecting after it (which puts 0 · inf = NaN into the gradient of
+    ``seg``), the scan still matches the float64 recurrence, and every
+    gradient is finite."""
+    xh, dt, a, bb, cc = _scan_inputs(7, 2, 32, 2, 4, 8, dt_hi=10.0, a_hi=20.0)
+    c = 16
+    cum = torch.cumsum(torch.from_numpy(dt[:, :c] * a[None, None, :]), dim=1)
+    seg = (cum[:, :, None, :] - cum[:, None, :, :]).requires_grad_()
+    tril = torch.ones((c, c), dtype=torch.bool).tril()
+    assert torch.isinf(torch.exp(seg)).any()        # the overflow is real
+    new = tm._segment_decay(seg, tril)
+    old = torch.where(tril[None, :, :, None], torch.exp(seg), torch.zeros(()))
+    assert torch.equal(new, old)
+    g_new, = torch.autograd.grad(new.sum(), seg)
+    g_old, = torch.autograd.grad(old.sum(), seg)
+    assert torch.isfinite(g_new).all() and torch.isnan(g_old).any()
+
+    ins = [t.requires_grad_() for t in _t(xh, dt, a, bb, cc)]
+    y, h = tm._ssd_chunked(*ins, chunk=c)
+    y_ref, h_ref = _naive_recurrence(xh, dt, a, bb, cc)
+    np.testing.assert_allclose(y.detach().numpy(), y_ref, **TOL)
+    np.testing.assert_allclose(h.detach().numpy(), h_ref, **TOL)
+    grads = torch.autograd.grad(y.sum() + h.sum(), ins)
+    for name, g in zip(("xh", "dt", "a", "bb", "cc"), grads):
+        assert torch.isfinite(g).all(), name
