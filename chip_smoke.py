@@ -215,11 +215,37 @@ Phases, each fatal on failure:
      timed with its bound; then those packed weights served paged (2
      requests of 128 + 8 tokens, mip2q pages), K1 and K4 launches exact.
 
+  s. distributed execution, each sub-phase fatal (the mesh path reuses the
+     kernels above: K1 after the packed gather of ``sharded:gather_pallas``,
+     K6 after ``sharded:grouped_gather``'s, K4 in the paged lanes):
+     s1. NCCL on a world of 1, a 1x1 mesh: full-width OLMo-1B (16 layers,
+     seed 0, the default plan) through ``serve --mesh 1x1``'s code, the
+     dense-cache loop and ``BatchScheduler(mesh=)`` paged (mip2q pages,
+     phase h's shape): every entry on ``sharded:gather_pallas``, K1 exactly
+     phase d's count and 7 x 16 per lane run, K4 16 per lane run, tokens
+     equal to phases d and h;
+     s2. 4 gloo ranks sharing cuda:0 (gloo takes CUDA tensors in the
+     card's torch build; NCCL refuses two ranks on one device) as a 2x2
+     mesh: full-width OLMo-1B cut to MESH_LAYERS layers, packed prefill + 8
+     decode steps, each rank holding a quarter of every payload, K1 7 x
+     layers x steps on every rank; at f32 activations the one-device run's
+     tokens and its logits within phase f's tolerance, at the config's bf16
+     the logits teacher-forced on the served tokens within phase f's
+     tolerance, every argmax disagreement a near tie; one full-width
+     Moonshot-16B-A3B MoE layer (a 4-slot decode, no drops) through the
+     expert-parallel body, K6 3 times on every rank, the gathered-bytes
+     counter exactly the rank's block, within phase l's tolerance of
+     ``moe_apply`` on one device; the packed and dense bf16 payload bytes
+     and their ratio, computed from the plan;
+     s3. the ZeRO-3 train step on 2 gloo ranks (data = 2), full-width
+     OLMo-1B at MESH_LAYERS layers, batch 2 x 256, f32, against the
+     one-device step, within r2's bound; the dense f32 bytes it gathers.
+
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
 it exits non-zero before printing any result.  ``python3 chip_smoke.py --only
-q`` (``--only r``) builds the kernels and runs phase q (r) alone (no kernels
-or result line).
+q`` (``--only r``, ``--only s``) builds the kernels and runs phase q (r, s)
+alone (no kernels or result line).
 """
 from __future__ import annotations
 
@@ -3126,8 +3152,519 @@ def _train_report(train, smi) -> None:
           f"phase r {train['seconds']:.1f} s; {smi}")
 
 
+
+# ---------------------------------------------------- distributed (s) --
+
+#: s2's and s3's OLMo-1B depth, at full width.  s2 and s3 run as gloo
+#: ranks sharing cuda:0 (NCCL refuses two ranks on one device); gloo takes
+#: CUDA tensors for all_gather / all_reduce in the card's torch build
+MESH_LAYERS = 2
+
+
+def _single_device_refs(dev) -> dict:
+    """Phase d's and phase h's runs again (``--only s``): tokens and K1 /
+    K4 launches, for s1 to hold the 1x1 mesh to."""
+    from repro_torch.launch import serve as S
+    _reset_kv_counts()
+    d = S.run(["--arch", "olmo_1b", "--seed", "0"])
+    d_k1 = _kv_counts()["onehot"]
+    _reset_kv_counts()
+    h = S.run(["--arch", "olmo_1b", "--seed", "0", "--paged", "--kv-cache", "mip2q",
+               "--prompt-len", "128", "--gen", "32"])
+    h_k = _kv_counts()
+    lane = h["lane_runs"]["decode"] + h["lane_runs"]["prefill_chunk"]
+    return {"d_tokens": d["tokens"].cpu(), "d_k1": d_k1,
+            "h_tokens": [r.output for r in h["requests"]],
+            "h_k1_per_lane_run": h_k["onehot"] / lane,
+            "h_k4_per_lane_run": h_k["paged_attention"] / lane}
+
+
+def phase_s1(dev, refs) -> dict:
+    """``serve --mesh 1x1``'s code on NCCL, world 1: the dense-cache loop and
+    the paged ``BatchScheduler(mesh=)``, full-width OLMo-1B, 16 layers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import serve as S
+    out = {}
+    _reset_kv_counts()
+    res = S.run(["--arch", "olmo_1b", "--seed", "0", "--mesh", "1x1"])
+    launched = _kv_counts()
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    _check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+           f"s1 runs on {dist.get_backend()}, world {dist.get_world_size()}")
+    dist_v = res["plan"].summary()["variant_distribution"]
+    _check(dist_v == {"sharded:gather_pallas": 7}, f"s1 plan selected {dist_v}")
+    steps = 1 + res["gen"] + 2
+    want = 7 * res["cfg"].n_layers * steps
+    _check(launched["onehot"] == want == refs["d_k1"] and
+           sum(launched.values()) == want,
+           f"s1 dense loop launches {launched}, want {want} of K1 (phase d: "
+           f"{refs['d_k1']})")
+    same = torch.equal(res["tokens"].cpu(), refs["d_tokens"])
+    _check(same, "s1 dense-loop tokens differ from the single-device run's")
+    out["dense_launches"] = launched["onehot"]
+    print(f"  dense-cache loop on the 1x1 mesh: K1 {launched['onehot']} launches (7 x 16 "
+          f"x {steps} steps, as phase d), tokens equal to phase d's: {same}", flush=True)
+    _reset_kv_counts()
+    res = S.run(["--arch", "olmo_1b", "--seed", "0", "--mesh", "1x1", "--paged",
+                 "--kv-cache", "mip2q", "--prompt-len", "128", "--gen", "32"])
+    launched = _kv_counts()
+    for line in S.report(res):
+        print("  " + line, flush=True)
+    runs = res["lane_runs"]
+    lane = runs["decode"] + runs["prefill_chunk"]
+    _check(launched["onehot"] == 7 * 16 * lane == refs["h_k1_per_lane_run"] * lane and
+           launched["paged_attention"] == 16 * lane == refs["h_k4_per_lane_run"] * lane,
+           f"s1 paged launches {launched}, want 7 x 16 and 16 x {lane} lane runs")
+    _check(launched["paged_attention_maskfree"] == launched["page_decode"] == 0,
+           f"s1 paged launched K5 or K11: {launched}")
+    toks = [r.output for r in res["requests"]]
+    _check(toks == refs["h_tokens"], "s1 paged tokens differ from phase h's")
+    out.update(paged_launches=launched["onehot"], paged_k4=launched["paged_attention"],
+               lane_runs=runs, drain_ms=res["drain_s"] * 1e3)
+    print(f"  paged on the 1x1 mesh: K1 {launched['onehot']}, K4 "
+          f"{launched['paged_attention']} launches over {lane} lane runs ({runs}; "
+          f"per lane run as phase h), tokens equal to phase h's: True", flush=True)
+    dist.destroy_process_group()
+    return out
+
+
+def _s_rank(rank: int, world: int, port: int, what: str, out) -> None:
+    """One gloo rank on cuda:0 (spawned): runs ``_s2_body`` or
+    ``_s3_body`` and puts ``(rank, result, error)`` on ``out``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=world)
+        res = {"s2": _s2_body, "s3": _s3_body}[what](rank, torch.device("cuda", 0))
+        dist.barrier()
+        out.put((rank, res, None))
+    except BaseException:
+        out.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_ranks(what: str, world: int, timeout: float = 600.0) -> list:
+    """``world`` gloo ranks sharing cuda:0; every process is joined or
+    ended before this returns; a rank's error ends the run."""
+    import multiprocessing as mp
+    import os
+    import queue
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    old = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    procs = [ctx.Process(target=_s_rank, args=(r, world, port, what, out))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if old is None:
+            os.environ.pop("OMP_NUM_THREADS")
+        else:
+            os.environ["OMP_NUM_THREADS"] = old
+    results, error = {}, None
+    try:
+        while len(results) < world and error is None:
+            rank, res, err = out.get(timeout=timeout)
+            if err is not None:
+                error = f"{what} rank {rank}:\n{err}"
+            results[rank] = res
+    except queue.Empty:
+        error = f"{what}: ranks timed out after {timeout} s ({sorted(results)} done)"
+    finally:
+        for p in procs:
+            p.join(timeout=60 if error is None else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    _check(error is None, str(error))
+    return [results[r] for r in range(world)]
+
+
+def _gather_bytes(plan, calls: int) -> dict:
+    """Packed bytes the plan's leaves gather over ``calls`` calls each, the
+    dequantized bf16 and the int8 bytes of the same weights."""
+    from repro_torch.engine import dense_gather_bytes
+    int8 = sum(math.prod(e.shape) for e in plan.entries.values())
+    return {"packed": calls * plan.summary()["packed_payload_bytes"],
+            "dense_bf16": calls * sum(
+                dense_gather_bytes(e.shape[-2], math.prod(e.shape) // e.shape[-2])
+                for e in plan.entries.values()),
+            "int8": calls * int8}
+
+
+def _forced_logits(cfg, params, prompt, toks):
+    """One device's f32 logits ``(B, gen + 1, V)`` of ``prompt`` and then
+    ``toks`` fed back (teacher-forced), as phase f takes them."""
+    import torch
+    from repro_torch.launch import serve as S
+    gen = toks.shape[1] - 1
+    with torch.inference_mode():
+        lg, caches = S.make_prefill_step(cfg)(params, {"tokens": prompt})
+        caches = S.pad_caches(caches, gen + 1)
+        ref = [lg[:, -1]]
+        step = S.make_decode_step(cfg)
+        for i in range(gen):
+            lg, caches = step(params, toks[:, i:i + 1], caches, prompt.shape[1] + i)
+            ref.append(lg[:, -1])
+    return torch.stack(ref, dim=1)[..., :cfg.vocab_size].float()
+
+
+def _s2_body(rank: int, dev) -> dict:
+    """A rank of s2 (2 x 2 mesh): full-width OLMo-1B at MESH_LAYERS layers,
+    packed prefill + 8 decode steps through the dense-cache loop, at f32
+    activations and at the config's bf16; one full-width Moonshot-16B-A3B
+    MoE layer through the expert-parallel body.  Rank 0 also runs both on
+    one device, in the same process, and compares."""
+    import torch
+    from repro_torch import telemetry
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.engine import build_plan
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.moe import moe_apply, moe_def
+    from repro_torch.models.params import init_params
+    out = {}
+    # f32 activations, held to the one-device tokens exactly; then the
+    # config's bf16, where the row-parallel partial sums and the one-device
+    # split-K sums round at other points (a last-bit difference that can flip
+    # a near-tied argmax of a random model's flat logits): held teacher-forced
+    scfg = StruMConfig()
+    cfg16 = dataclasses.replace(get_config("olmo_1b"), n_layers=MESH_LAYERS, strum=scfg)
+    cfg = dataclasses.replace(cfg16, dtype="float32")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    mesh = make_host_mesh(data=2, model=2)
+    rules = shd.rules_for_mesh(mesh)
+    gen_steps = 8
+    t0 = time.perf_counter()
+    plan = build_serving_plan(params, cfg=scfg, mesh=mesh, rules=rules, device=dev)
+    _reset_kv_counts()
+    with telemetry.recording() as rec:
+        toks, t_p, t_d, lg = S.serve(cfg, plan.params, prompt, gen_steps, device=dev,
+                                     return_logits=True, mesh=mesh, rules=rules)
+    launched = _kv_counts()
+    steps = 1 + gen_steps + 2
+    local = sum(e.leaf[k].numel() for e in plan.entries.values()
+                for k in ("mask", "hi", "lo"))
+    out["olmo"] = {
+        "seconds": time.perf_counter() - t0, "launches": dict(launched),
+        "want_k1": 7 * cfg.n_layers * steps, "steps": steps,
+        "prefill_ms": t_p * 1e3, "decode_ms_per_token": t_d / gen_steps * 1e3,
+        "dist": plan.summary()["variant_distribution"],
+        "gathered_counter": int(rec.counter("dispatch/sharded/gathered_packed_bytes")),
+        "bytes": _gather_bytes(plan, steps), "local_payload": local,
+        "whole_payload": plan.summary()["packed_payload_bytes"]}
+    _reset_kv_counts()
+    toks16, _, _, lg16 = S.serve(cfg16, plan.params, prompt, gen_steps, device=dev,
+                                 return_logits=True, mesh=mesh, rules=rules)
+    out["olmo_bf16"] = {"launches": dict(_kv_counts()), "dtype": cfg16.dtype}
+    del plan
+    if rank == 0:
+        plan1 = build_serving_plan(params, cfg=scfg, device=dev)
+        toks1, _, _, lg1 = S.serve(cfg, plan1.params, prompt, gen_steps, device=dev,
+                                   return_logits=True)
+        got, want = lg[..., :cfg.vocab_size], lg1[..., :cfg.vocab_size]
+        out["olmo"].update(
+            single_dist=plan1.summary()["variant_distribution"],
+            tokens_equal=bool(torch.equal(toks, toks1)),
+            max_abs_diff=(got - want).abs().max().item(),
+            max_abs_logit=want.abs().max().item(),
+            argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item())
+        got = lg16[..., :cfg.vocab_size].float()
+        ref = _forced_logits(cfg16, plan1.params, prompt, toks16)
+        out["olmo_bf16"].update(
+            served_is_argmax=bool(torch.equal(got.argmax(-1), toks16)),
+            max_abs_diff=(got - ref).abs().max().item(),
+            max_abs_logit=ref.abs().max().item(),
+            argmax_agreement=(got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+            near_ties=_near_ties(ref, got, ref.argmax(-1), "s2 bf16 on 2x2"),
+            positions=got.shape[0] * got.shape[1])
+        del plan1
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mcfg = dataclasses.replace(get_config(MOE_ARCH), strum=scfg)
+    params = init_params({"blocks": {"moe": moe_def(mcfg)}}, seed=0, device=dev,
+                         dtype_override="float32")
+    rules = shd.rules_for_mesh(mesh)
+    plan = build_plan(params, cfg=scfg, mesh=mesh, rules=rules, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # a decode step of 4 slots: at most 4 tokens per expert, under the
+    # capacity (top_k) on one device and per token shard alike, so the two
+    # drop nothing and compute the same function
+    x = torch.randn((4, 1, mcfg.d_model), generator=gen, device=dev).to(
+        mcfg.activation_dtype)
+    _reset_kv_counts()
+    with telemetry.recording() as rec:
+        y, aux = moe_apply(plan.params["blocks"]["moe"], x, mcfg, mesh=mesh)
+    launched = _kv_counts()
+    block = sum(e.leaf[k].numel() for e in plan.entries.values()
+                for k in ("mask", "hi", "lo"))
+    out["moe"] = {"seconds": time.perf_counter() - t0, "launches": dict(launched),
+                  "dist": plan.summary()["variant_distribution"],
+                  "gathered_counter": int(rec.counter(
+                      "dispatch/sharded/gathered_packed_bytes")),
+                  "block_payload": block,
+                  "assembled": block * shd.axis_size(mesh, shd.fsdp_axes(mesh)),
+                  "bytes": _gather_bytes(plan, 1)}
+    if rank == 0:
+        plan1 = build_plan(params, cfg=scfg, device=dev)
+        y1, aux1 = moe_apply(plan1.params["blocks"]["moe"], x, mcfg)
+        out["moe"].update(max_abs_diff=(y.float() - y1.float()).abs().max().item(),
+                          max_abs_y=y1.float().abs().max().item(),
+                          aux=(float(aux), float(aux1)),
+                          single_dist=plan1.summary()["variant_distribution"])
+    return out
+
+
+def _s3_body(rank: int, dev) -> dict:
+    """A rank of s3 (data = 2): the ZeRO-3 train step, full-width OLMo-1B at
+    MESH_LAYERS layers, batch 2 x 256, f32.  Rank 0 also takes the step on
+    one device and holds the two to r2's bound."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.apply import _named_leaves
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch import steps as St
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.params import gather_params, init_params, shard_params
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    _, opt_cfg, _, _, _ = T.build(T.parse_args(
+        ["--arch", "olmo_1b", "--steps", str(TRAIN_STEPS), "--device", "cuda"]))
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=MESH_LAYERS,
+                              dtype="float32")
+    defs = model_defs(cfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=2, seed=0)
+    params = init_params(defs, seed=0, device=dev, dtype_override="float32")
+    mesh = make_host_mesh(data=2, model=1)
+    rules = shd.rules_for_mesh(mesh)
+    batch = global_batch(dcfg, 0, device=dev)
+    t0 = time.perf_counter()
+    local = shard_params(params, defs, mesh, rules)
+    (loss, _), grads = St._zero3_value_and_grad(local, batch, cfg, mesh, rules, defs)
+    new_local, _, sm = St.make_train_step(cfg, opt_cfg, mesh=mesh, rules=rules)(
+        local, init_opt_state(local), batch)
+    new = gather_params(new_local, defs, mesh, rules)
+    torch.cuda.synchronize(dev)
+    out = {"seconds": time.perf_counter() - t0, "loss": float(loss),
+           "step_loss": float(sm["loss"]), "grad_norm": float(sm["grad_norm"]),
+           "lr": float(sm["lr"]),
+           "local_bytes": sum(t.numel() * 4 for _, t in _named_leaves(local)),
+           "global_bytes": sum(t.numel() * 4 for _, t in _named_leaves(params)),
+           "gathered_bytes": _gathered_param_bytes(params, defs, mesh, rules),
+           "linear_int8": sum(t.numel() for n, t in _named_leaves(params)
+                              if n.endswith("/w") and t.dim() >= 2)}
+    # the step is its gradient and AdamW calls: the same bits
+    again, _, _ = adamw_update(opt_cfg, local, shard_params(grads, defs, mesh, rules),
+                               init_opt_state(local), gnorm=sm["grad_norm"])
+    out["step_is_its_calls"] = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        _named_leaves(again), _named_leaves(new_local)))
+    if rank == 0:     # on the card: r2's element-wise bound, without host copies
+        (l1, _), g1 = St._value_and_grad(params, batch, cfg)
+        p1, _, m1 = adamw_update(opt_cfg, params, g1, init_opt_state(params))
+        ly = dict(_named_leaves(g1))
+        g_rel = max((g.double() - ly[n].double()).abs().max().item()
+                    / max(ly[n].abs().max().item(), 1e-30)
+                    for n, g in _named_leaves(grads))
+        gap = _step_gap(opt_cfg, params, grads, g1, new, p1,
+                        max(out["lr"], float(m1["lr"])),
+                        (out["grad_norm"], float(m1["grad_norm"])))
+        out.update(single_loss=float(l1), single_grad_norm=float(m1["grad_norm"]),
+                   grad_rel=g_rel, step_gap=gap)
+    return out
+
+
+def _gathered_param_bytes(params, defs, mesh, rules) -> int:
+    """Bytes the ZeRO-3 step's all-gathers assemble: every leaf the rules
+    cut over mesh axes of size > 1, whole."""
+    from repro_torch.models.params import ParamDef
+    from repro_torch.models.sharding import axis_size, spec_for_axes
+    if isinstance(defs, ParamDef):
+        parts = math.prod(axis_size(mesh, e) for e in spec_for_axes(defs.axes,
+                                                                    rules.table))
+        return params.numel() * params.element_size() if parts > 1 else 0
+    return sum(_gathered_param_bytes(params[k], d, mesh, rules)
+               for k, d in defs.items())
+
+
+def measure_mesh(dev, refs) -> dict:
+    """Phase s, each sub-phase fatal; returns its records with seconds and
+    the K1 / K4 / K6 launches of its runs."""
+    import torch
+    sub, t_start = {}, time.perf_counter()
+    print(f"  s2 and s3 run as gloo ranks sharing cuda:0 (NCCL refuses two ranks on "
+          f"one device), torch {torch.__version__}", flush=True)
+    for key, what, fn in (
+            ("s1", "NCCL, world 1, a 1x1 mesh: full-width OLMo-1B, 16 layers, through "
+                   "serve --mesh 1x1's code, dense-cache loop and paged",
+             lambda: phase_s1(dev, refs)),
+            ("s2", f"4 gloo ranks on cuda:0, a 2x2 mesh: full-width OLMo-1B cut to "
+                   f"{MESH_LAYERS} layers (prefill + 8 decode steps) and one "
+                   f"full-width Moonshot-16B-A3B MoE layer", lambda: _spawn_ranks("s2", 4)),
+            ("s3", f"2 gloo ranks on cuda:0, data = 2: the ZeRO-3 train step, "
+                   f"full-width OLMo-1B at {MESH_LAYERS} layers, batch 2 x 256, f32",
+             lambda: _spawn_ranks("s3", 2))):
+        t0 = time.perf_counter()
+        print(f"-- {key}. {what} (t = {t0 - _T0:.1f} s)", flush=True)
+        rec = fn()
+        if key == "s2":
+            rec = _check_s2(rec)
+        elif key == "s3":
+            rec = _check_s3(rec)
+        sub[key] = rec
+        sub[key]["seconds"] = time.perf_counter() - t0
+        print(f"  {key} took {sub[key]['seconds']:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    sub["seconds"] = time.perf_counter() - t_start
+    return sub
+
+
+def _bytes_line(what: str, b: dict) -> str:
+    return (f"  {what}, computed from the plan: packed payload {b['packed']} bytes vs "
+            f"dense bf16 {b['dense_bf16']} (x{b['packed'] / b['dense_bf16']:.4f}) and "
+            f"int8 {b['int8']} (x{b['packed'] / b['int8']:.4f}, Eq. 1)")
+
+
+def _check_s2(ranks: list) -> dict:
+    """s2's launch counts, payload blocks, gather bytes and parity, exact
+    where they are counts."""
+    for r, res in enumerate(ranks):
+        o, m = res["olmo"], res["moe"]
+        _check(o["dist"] == {"sharded:gather_pallas": 7},
+               f"s2 rank {r} OLMo plan {o['dist']}")
+        _check(o["launches"]["onehot"] == o["want_k1"] and
+               sum(o["launches"].values()) == o["want_k1"],
+               f"s2 rank {r} OLMo launches {o['launches']}, want {o['want_k1']} K1")
+        _check(o["gathered_counter"] == o["bytes"]["packed"],
+               f"s2 rank {r} gathered {o['gathered_counter']} vs {o['bytes']}")
+        _check(o["local_payload"] * 4 == o["whole_payload"],
+               f"s2 rank {r} holds {o['local_payload']} of {o['whole_payload']} bytes")
+        b16 = res["olmo_bf16"]
+        _check(b16["launches"]["onehot"] == o["want_k1"] and
+               sum(b16["launches"].values()) == o["want_k1"],
+               f"s2 rank {r} OLMo bf16 launches {b16['launches']}, want {o['want_k1']} K1")
+        _check(m["dist"] == {"sharded:grouped_gather": 3}, f"s2 rank {r} MoE {m['dist']}")
+        _check(m["gathered_counter"] == m["block_payload"] and
+               m["block_payload"] * 4 == m["bytes"]["packed"],
+               f"s2 rank {r} MoE gathered counter {m['gathered_counter']}, want its "
+               f"block {m['block_payload']} (a quarter of {m['bytes']['packed']})")
+        _check(m["launches"]["grouped_onehot"] == 3 and
+               sum(m["launches"].values()) == 3,
+               f"s2 rank {r} MoE launches {m['launches']}, want 3 K6")
+    o, m, b16 = ranks[0]["olmo"], ranks[0]["moe"], ranks[0]["olmo_bf16"]
+    print(f"  OLMo-1B ({MESH_LAYERS} layers, f32 activations) on 2x2, plan "
+          f"{o['dist']} (one device: {o['single_dist']}); prefill "
+          f"{o['prefill_ms']:.1f} ms, decode {o['decode_ms_per_token']:.2f} ms/token "
+          f"(rank 0, host clock, gloo's host copies included)", flush=True)
+    print(f"  OLMo-1B ({MESH_LAYERS} layers) on 2x2, each rank: K1 "
+          f"{o['launches']['onehot']} launches (7 x {MESH_LAYERS} x {o['steps']} steps); "
+          f"payload block {o['local_payload']} of {o['whole_payload']} bytes; vs one "
+          f"device: tokens equal {o['tokens_equal']}, logits max|diff| "
+          f"{o['max_abs_diff']:.4e} (max|logit| {o['max_abs_logit']:.4e}), argmax "
+          f"agreement {o['argmax_agreement']:.3f}; {o['seconds']:.1f} s", flush=True)
+    print(f"  OLMo-1B ({MESH_LAYERS} layers) on 2x2 at {b16['dtype']} (the config's "
+          f"dtype), each rank: K1 {b16['launches']['onehot']} launches; teacher-forced "
+          f"on its tokens vs one device over {b16['positions']} positions: logits "
+          f"max|diff| {b16['max_abs_diff']:.4e} (max|logit| {b16['max_abs_logit']:.4e}), "
+          f"argmax agreement {b16['argmax_agreement']:.3f}, "
+          f"{len(b16['near_ties'])} argmax disagreements, each a near tie (gap <= 2 x "
+          f"the row's max|diff|): {b16['near_ties']}", flush=True)
+    print(f"  OLMo-1B {o['steps']} steps, each rank: gathered-bytes counter "
+          f"{o['gathered_counter']} (measured; a 2-D leaf counts whole)", flush=True)
+    print(_bytes_line(f"OLMo-1B {o['steps']} steps", o["bytes"]), flush=True)
+    print(f"  Moonshot MoE layer on 2x2 (decode, 4 slots), each rank: K6 "
+          f"{m['launches']['grouped_onehot']} launches through sharded:grouped_gather; "
+          f"vs one device ({m['single_dist']}): max|diff| {m['max_abs_diff']:.4e} "
+          f"(max|y| {m['max_abs_y']:.4e}), aux {m['aux'][0]:.6f} vs {m['aux'][1]:.6f}; "
+          f"{m['seconds']:.1f} s", flush=True)
+    print(f"  Moonshot MoE layer, one call, each rank: gathered-bytes counter "
+          f"{m['gathered_counter']} (measured: the rank's block of its 3 stacks, as "
+          f"the counter counts a stack); its all-gathers over data assemble "
+          f"{m['assembled']} bytes (its experts' whole stacks, packed)", flush=True)
+    print(_bytes_line("Moonshot MoE layer, whole plan", m["bytes"]), flush=True)
+    _check(o["tokens_equal"], "s2 tokens differ from the one-device run's")
+    _check(o["max_abs_diff"] <= 0.05 * o["max_abs_logit"] and
+           o["argmax_agreement"] >= 0.9, f"s2 logits differ: {o}")
+    # phase f's tolerance at 5%; every disagreement a near tie (checked on rank 0)
+    _check(b16["served_is_argmax"] and b16["max_abs_diff"] <= 0.05 * b16["max_abs_logit"]
+           and b16["argmax_agreement"] >= 0.9, f"s2 bf16 logits differ: {b16}")
+    _check(m["max_abs_diff"] <= 0.05 * m["max_abs_y"] and
+           abs(m["aux"][0] - m["aux"][1]) <= 1e-4 * max(1.0, abs(m["aux"][1])),
+           f"s2 MoE layer differs: {m}")
+    return {"olmo": o, "olmo_bf16": b16, "moe": m,
+            "k1_launches_per_rank": [r["olmo"]["launches"]["onehot"] for r in ranks],
+            "k6_launches_per_rank": [r["moe"]["launches"]["grouped_onehot"]
+                                     for r in ranks]}
+
+
+def _check_s3(ranks: list) -> dict:
+    """s3 against the one-device step, to r2's bound."""
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        _check(res["step_is_its_calls"] and res["step_loss"] == res["loss"],
+               f"s3 rank {r}: the step is not its gradient and AdamW calls")
+        _check(res["local_bytes"] < res["global_bytes"],
+               f"s3 rank {r} holds {res['local_bytes']} of {res['global_bytes']}")
+    loss_rel = abs(r0["loss"] - r0["single_loss"]) / abs(r0["single_loss"])
+    gap = r0["step_gap"]
+    print(f"  ZeRO-3 on data = 2 vs one device, one step: loss {r0['loss']:.6f} vs "
+          f"{r0['single_loss']:.6f} (rel {loss_rel:.2e}); gradients max |diff| / max|g| "
+          f"{r0['grad_rel']:.2e}; grad norms {r0['grad_norm']:.6f} / "
+          f"{r0['single_grad_norm']:.6f}; the steps at most {gap['bound_ratio']:.3f} of "
+          f"what the gradient gap allows, {gap['rel']:.2e} of max|p| where |e| >= "
+          f"1e3·eps ({gap['outside']} of {gap['elements']} elements below it); each "
+          f"rank holds {r0['local_bytes']} of {r0['global_bytes']} parameter bytes; "
+          f"{r0['seconds']:.1f} s for the gradient and the step", flush=True)
+    print(f"  ZeRO-3 gathers dense f32 parameters: {r0['gathered_bytes']} bytes a step "
+          f"(all-gather outputs of the sharded leaves), against "
+          f"{int(r0['linear_int8'] * 0.875)} bytes if its linears moved as mip2q "
+          f"p=0.5 payloads (x0.875 of their int8 {r0['linear_int8']}, Eq. 1); counts, "
+          f"not rates", flush=True)
+    _check(loss_rel <= 1e-4, f"s3 loss differs: {loss_rel} > 1e-4 relative")
+    _check(r0["grad_rel"] <= 1e-3, f"s3 gradients differ: {r0['grad_rel']} > 1e-3")
+    _check(gap["bound_ratio"] <= 1.0, f"s3 steps differ past the gradient gap: {gap}")
+    _check(gap["rel"] <= 1e-5, f"s3 steps differ where |e| >= 1e3·eps: {gap}")
+    return {k: v for k, v in r0.items() if k != "step_gap"} | {
+        "loss_rel": loss_rel, "step_gap": gap}
+
+
+def _mesh_report(mesh, smi) -> None:
+    """Phase s's summary line."""
+    s1, s2 = mesh["s1"], mesh["s2"]
+    print(f"mesh path: s1 (NCCL, 1x1) dense K1 {s1['dense_launches']}, paged K1 "
+          f"{s1['paged_launches']} / K4 {s1['paged_k4']}, paged drain "
+          f"{s1['drain_ms']:.1f} ms; s2 (gloo 2x2) K1 per rank "
+          f"{s2['k1_launches_per_rank']}, K6 per rank {s2['k6_launches_per_rank']}; s3 "
+          f"ZeRO-3 loss rel {mesh['s3']['loss_rel']:.2e}; sub-phase seconds "
+          f"{ {k: round(v['seconds'], 1) for k, v in mesh.items() if k != 'seconds'} }, "
+          f"phase s {mesh['seconds']:.1f} s; {smi}")
+
+
 def measure(dev, clocks):
-    """Phases c-r; returns the kernels' records and the serve (and train)
+    """Phases c-s; returns the kernels' records and the serve (train, mesh)
     times."""
     import torch
     _phase("c. kernels vs plain versions at OLMo-1B shapes")
@@ -3137,6 +3674,7 @@ def measure(dev, clocks):
     counts: dict = {}
     _phase("d. serve full-width OLMo-1B (mip2q p=0.5 L=5, batch 4, prompt 32, gen 16)")
     res = _serve(["--arch", "olmo_1b", "--seed", "0"], "onehot", counts)
+    refs = {"d_tokens": res["tokens"].cpu(), "d_k1": counts["onehot"]}
     cfg = res["cfg"]
     _check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size) ==
            (16, 2048, 16, 8192, 50304), f"not full-width OLMo-1B: {cfg}")
@@ -3168,6 +3706,9 @@ def measure(dev, clocks):
            "gen 32)")
     paged, res = phase_h(counts)
     times["paged"] = paged
+    lane = paged["lane_runs"]["decode"] + paged["lane_runs"]["prefill_chunk"]
+    refs.update(h_tokens=[r.output for r in res["requests"]], h_k1_per_lane_run=7 * 16,
+                h_k4_per_lane_run=counts["paged_attention"] / lane)
 
     _phase("i. dliq p=1 KV pages (2 layers, full width)")
     phase_i(dev, counts)
@@ -3243,6 +3784,17 @@ def measure(dev, clocks):
                    "r4c_paged": train["r4"]["c"]["launches"]["onehot"]},
         "paged_attention": {"r4c_paged": train["r4"]["c"]["launches"]["paged_attention"]}}
 
+    _phase("s. distributed: NCCL world-1 1x1 mesh (full-width OLMo-1B, serve --mesh "
+           f"1x1), 4 gloo ranks on a 2x2 mesh (OLMo-1B at {MESH_LAYERS} layers, a "
+           "Moonshot MoE layer), the ZeRO-3 train step on 2 gloo ranks")
+    times["mesh"] = mesh = measure_mesh(dev, refs)
+    mesh_launches = {
+        "onehot": {"s1_dense_loop": mesh["s1"]["dense_launches"],
+                   "s1_paged": mesh["s1"]["paged_launches"],
+                   "s2_olmo_per_rank": mesh["s2"]["k1_launches_per_rank"]},
+        "paged_attention": {"s1_paged": mesh["s1"]["paged_k4"]},
+        "grouped_onehot": {"s2_moe_per_rank": mesh["s2"]["k6_launches_per_rank"]}}
+
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
         t, mid, pf = timings[name][4], timings[name][16], timings[name][128]
@@ -3270,6 +3822,7 @@ def measure(dev, clocks):
                 k: k1[k] for k in ("max_abs_err", "graph_ms", "plain_ms",
                                    "library_graph_ms", "bound_ms", "bound_by")})
             r4 = train["r4"]["b"]["k1"]
+            kernels[-1]["mesh_launches"] = mesh_launches["onehot"]
             kernels[-1].update(train_launches=train_launches["onehot"], m8192_layer={
                 k: r4[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")})
@@ -3292,6 +3845,7 @@ def measure(dev, clocks):
         if name == "paged_attention":
             kernels[-1]["zoo_launches"] = zoo_launches["paged_attention"]
             kernels[-1]["train_launches"] = train_launches["paged_attention"]
+            kernels[-1]["mesh_launches"] = mesh_launches["paged_attention"]
             kernels[-1]["zoo_cases"] = [
                 {k: c[k] for k in ("case", "max_abs_err", "ms", "eager_ms", "plain_ms",
                                    "library_ms", "bound_ms", "bound_by")}
@@ -3312,6 +3866,7 @@ def measure(dev, clocks):
                                          "bound_by")} for c in row["cases"]]})
         if name == "grouped_onehot":
             kernels[-1]["zoo_launches"] = zoo_launches["grouped_onehot"]
+            kernels[-1]["mesh_launches"] = mesh_launches["grouped_onehot"]
     for name, (variant, replaces) in DRAFT.items():
         row = draft_rows[name]
         t, one, mid = row[4], row[1], row[16]
@@ -3354,8 +3909,8 @@ def _zoo_report(zoo, smi) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "q"], ["--only", "r"]):
-        print("usage: chip_smoke.py [--only q|r]", file=sys.stderr)
+    if argv not in ([], ["--only", "q"], ["--only", "r"], ["--only", "s"]):
+        print("usage: chip_smoke.py [--only q|r|s]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
@@ -3402,6 +3957,12 @@ def main(argv=None) -> int:
             _zoo_report(zoo, smi)
             print(json.dumps({"zoo": zoo}, default=str))
             return 0
+        if argv == ["--only", "s"]:     # phase s alone: no kernels or result line
+            _phase("s. distributed")
+            mesh = measure_mesh(dev, _single_device_refs(dev))
+            _mesh_report(mesh, smi)
+            print(json.dumps({"mesh": mesh}, default=str))
+            return 0
         if argv == ["--only", "r"]:     # phase r alone: no kernels or result line
             _phase("r. the training path")
             train = measure_train(dev, clocks)
@@ -3447,6 +4008,7 @@ def main(argv=None) -> int:
           f"{ {k: round(v['seconds'], 1) for k, v in times['schedule'].items()} }")
     _zoo_report(times["zoo"], smi)
     _train_report(times["train"], smi)
+    _mesh_report(times["mesh"], smi)
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

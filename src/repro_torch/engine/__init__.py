@@ -12,6 +12,9 @@ entries too (the ``cache:*`` family, :mod:`repro_torch.engine.cache`):
 ``build_cache_spec`` selects them per (codec, page geometry, device).
 ``build_draft_plan`` derives a plan's reduced-fidelity twin over the same
 payload tensors (the ``draft:*`` partition, :mod:`repro_torch.engine.draft`).
+``build_plan(mesh=...)`` records per-leaf layouts (:class:`ShardSpec`) and
+selects from the ``sharded:*`` family (:mod:`repro_torch.engine.sharded`),
+which all-gathers packed payloads before the kernel.
 """
 from repro_torch.engine.cache import (CacheSpec, build_cache_spec,
                                       decode_pages, encode_page,
@@ -26,9 +29,12 @@ from repro_torch.engine.dispatch import (apply, dequant_leaf, dispatch,
 from repro_torch.engine.plan import (ExecutionPlan, PlanEntry, build_plan,
                                      fake_quantize)
 from repro_torch.engine.registry import (BACKENDS, ExecSpec, KernelVariant,
-                                         LeafInfo, get_variant, list_variants,
-                                         register_kernel, resolve_backend,
-                                         select_variant, unregister_kernel)
+                                         LeafInfo, ShardSpec, get_variant,
+                                         list_variants, register_kernel,
+                                         resolve_backend, select_variant,
+                                         unregister_kernel)
+from repro_torch.engine.sharded import (dense_gather_bytes,
+                                        gather_dequant_leaf, tp_pattern_for)
 
 __all__ = ["CacheSpec", "build_cache_spec", "decode_pages", "encode_page",
            "gather_decode_pages", "select_cache_variant", "DRAFT_MODES",
@@ -37,6 +43,7 @@ __all__ = ["CacheSpec", "build_cache_spec", "decode_pages", "encode_page",
            "apply", "dispatch",
            "dispatch_grouped", "dequant_leaf", "leaf_spec", "ExecutionPlan",
            "PlanEntry", "build_plan", "fake_quantize", "BACKENDS", "ExecSpec",
-           "KernelVariant", "LeafInfo", "get_variant", "list_variants",
+           "KernelVariant", "LeafInfo", "ShardSpec", "dense_gather_bytes",
+           "gather_dequant_leaf", "tp_pattern_for", "get_variant", "list_variants",
            "register_kernel", "resolve_backend", "select_variant",
            "unregister_kernel"]

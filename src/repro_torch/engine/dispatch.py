@@ -1,5 +1,5 @@
 """Runtime dispatch: packed leaf (+ recorded variant) -> kernel call (twin
-of the single-device half of ``repro.engine.dispatch``).
+of ``repro.engine.dispatch``).
 
 The one funnel every quantized linear of ``models/`` goes through.  A leaf
 built by :func:`repro_torch.engine.build_plan` carries an :class:`ExecSpec`
@@ -10,9 +10,14 @@ from the same registry.
 With a telemetry recorder active, every call counts
 ``dispatch/variant/<name>`` and the packed bytes it streams
 (``dispatch/packed_bytes``; a ``draft:*`` call counts only its mode's
-fields, mirrored under ``spec/draft_packed_bytes``).  The reference counts
-these once per leaf per ``jax.jit`` trace; the eager port counts once per
-call.
+fields, mirrored under ``spec/draft_packed_bytes``; a ``sharded:*`` call
+the payload it gathers, mirrored under
+``dispatch/sharded/gathered_packed_bytes``).  The reference counts these
+once per leaf per ``jax.jit`` trace; the eager port counts once per call.
+
+With ``mesh=`` a 2-D leaf runs through the registry's ``sharded:*`` family
+(:mod:`repro_torch.engine.sharded`): the FSDP all-gather moves the *packed*
+payload, and a per-call ``backend=`` still reaches the post-gather kernel.
 """
 from __future__ import annotations
 
@@ -36,14 +41,23 @@ def _draft_mode_of(variant_name: str) -> str:
     return tail[len("torch_"):] if tail.startswith("torch_") else tail
 
 
-def _note_dispatch(variant, wleaf: dict) -> None:
+def _note_dispatch(variant, wleaf: dict, *, sharded: bool = False) -> None:
     """Count one call through ``variant`` into the active recorders: the
     variant, and the packed bytes it streams (mask + hi + lo, or a draft
-    mode's subset, also under ``spec/draft_packed_bytes``)."""
+    mode's subset, also under ``spec/draft_packed_bytes``).  A ``sharded:*``
+    call counts the payload as the reference's trace sees it (a 2-D leaf
+    whole, a stack as this rank's block), also under
+    ``dispatch/sharded/gathered_packed_bytes``."""
     if not telemetry.enabled():
         return
     telemetry.inc(f"dispatch/variant/{variant.name}")
-    if variant.draft:
+    if sharded:
+        payload = sum(wleaf[k].numel() for k in ("mask", "hi", "lo"))
+        shard = getattr(wleaf.get("spec"), "shard", None)
+        if shard is not None and wleaf["mask"].dim() == 3:    # a 2-D block
+            payload *= shard.parts
+        telemetry.inc("dispatch/sharded/gathered_packed_bytes", payload)
+    elif variant.draft:
         from repro_torch.kernels.ops import draft_field_set
         fields = draft_field_set(_draft_mode_of(variant.name))
         payload = sum(wleaf[k].numel() for k in fields if k in wleaf)
@@ -85,35 +99,104 @@ def _check_k(spec: Optional[ExecSpec], k_dim: int) -> None:
 def _pick(cfg: StruMConfig, info: LeafInfo, spec: Optional[ExecSpec],
           backend: Optional[str], device):
     """A per-call ``backend`` overrides the plan's recorded selection;
-    without one, the spec's variant is authoritative.  The override stays
-    inside a draft leaf's partition: it never promotes a draft leaf to
-    full fidelity."""
+    without one, the spec's variant is authoritative -- unless its
+    sharded-ness disagrees with the call's mesh context (``info.fsdp``):
+    then it is re-selected under the plan's backend, so a mesh-aware plan
+    serves without a mesh (a 1x1 one) and a mesh-less plan serves on a
+    mesh.  The override stays inside a draft leaf's partition: it never
+    promotes a draft leaf to full fidelity."""
     if spec is None:
         return select_variant(cfg, info, backend=backend, device=device)
     recorded = get_variant(spec.variant)
     if backend is None:
-        return recorded
+        if recorded.sharded == bool(info.fsdp):
+            return recorded
+        backend = spec.backend
     if recorded.draft and not info.draft:
         info = info._replace(draft=_draft_mode_of(spec.variant))
     return select_variant(cfg, info, backend=backend, device=device)
 
 
+def _sharded_call(wleaf: dict, x: torch.Tensor, cfg: StruMConfig,
+                  spec: Optional[ExecSpec], info: LeafInfo, *, mesh,
+                  pattern: Optional[str], backend: Optional[str], out_dtype,
+                  rows=None) -> torch.Tensor:
+    """Select and invoke a ``sharded:*`` variant: the one implementation
+    behind the 2-D mesh branch of :func:`dispatch` and the ``fsdp_axes``
+    branch of :func:`dispatch_grouped`."""
+    variant = _pick(cfg, info, spec, backend, x.device)
+    _note_dispatch(variant, wleaf, sharded=True)
+    eff_backend = backend if backend is not None else (
+        spec.backend if spec is not None else None)
+    kw = {"rows": rows} if variant.grouped else {}
+    return variant.fn(wleaf, x, cfg=cfg, mesh=mesh, fsdp=tuple(info.fsdp),
+                      pattern=pattern, k_dim=x.shape[-1], backend=eff_backend,
+                      out_dtype=out_dtype, **kw)
+
+
+def _check_whole(spec: Optional[ExecSpec]) -> None:
+    """A leaf cut into blocks by a mesh-aware plan serves only on its mesh."""
+    shard = getattr(spec, "shard", None)
+    if shard is not None and shard.parts > 1:
+        raise ValueError(
+            f"the leaf holds one of {shard.parts} blocks of a mesh-aware plan "
+            f"(mesh {dict(shard.mesh_shape)}); pass mesh=")
+
+
 def dispatch(wleaf: dict, x: torch.Tensor, *,
              strum: Optional[StruMConfig] = None,
-             backend: Optional[str] = None, out_dtype=None) -> torch.Tensor:
+             backend: Optional[str] = None, out_dtype=None,
+             mesh=None, tp_mesh=None,
+             tp_pattern: Optional[str] = None) -> torch.Tensor:
     """y = x @ dequant(leaf) through the leaf's selected kernel variant.
 
     ``x``: (..., K); returns (..., N) in ``out_dtype`` (default x.dtype).
     Stacked leaves (lead dims: MoE expert stacks) go to
     :func:`dispatch_grouped`; ``x`` then carries the matching lead dims.
+
+    With ``mesh`` (``tp_mesh`` is the alias the model forwards thread) a
+    2-D leaf runs through the ``sharded:*`` family: ``x`` and the result are
+    global, the leaf this rank's block (mesh-aware plans) or global.  The TP
+    layout comes from ``tp_pattern`` or the leaf's ``spec.shard``.  As in
+    the reference: a stacked leaf with a mesh raises (its collectives run
+    inside the MoE body), a mesh without a TP layout raises, and a mesh with
+    no FSDP axis serves the local path.
     """
     cfg, spec = leaf_spec(wleaf, strum)
     k_dim = x.shape[-1]
     _check_k(spec, k_dim)
     out_dtype = out_dtype or x.dtype
+    mesh = mesh if mesh is not None else tp_mesh
+    shard = getattr(spec, "shard", None)
+    pattern = tp_pattern or (shard.tp_pattern if shard is not None else None)
     if wleaf["mask"].dim() > 3:
+        if mesh is not None:
+            # going local would gather the DEQUANTIZED stack, the regression
+            # the sharded:* family exists to prevent
+            raise ValueError(
+                "stacked (expert) leaves take the distributed path inside the "
+                "MoE shard_map body: use models.moe.moe_apply(..., mesh=...) or "
+                "dispatch_grouped(..., fsdp_axes=..., mesh=...) from within the "
+                "body, not dispatch(mesh=...)")
         return dispatch_grouped(wleaf, x, strum=strum, backend=backend,
                                 out_dtype=out_dtype)
+    if mesh is not None:
+        if pattern is None:
+            raise ValueError(
+                "dispatch(mesh=...) on a 2-D leaf needs a TP layout: pass "
+                "tp_pattern='col'|'row', or build the plan mesh-aware "
+                "(build_plan(..., mesh=...)) so the leaf's spec records it")
+        from repro_torch.models.sharding import axis_names, fsdp_axes
+        fsdp = tuple(a for a in (shard.fsdp_axes if shard is not None and
+                                 shard.fsdp_axes else fsdp_axes(mesh))
+                     if a in axis_names(mesh))
+        if fsdp:      # a mesh with no FSDP axis (TP-only) serves the local path
+            info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1],
+                            fsdp=fsdp, tp_pattern=pattern)
+            return _sharded_call(wleaf, x, cfg, spec, info, mesh=mesh,
+                                 pattern=pattern, backend=backend,
+                                 out_dtype=out_dtype)
+    _check_whole(spec)
     info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1])
     variant = _pick(cfg, info, spec, backend, x.device)
     _note_dispatch(variant, wleaf)
@@ -126,7 +209,7 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
 def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
                      strum: Optional[StruMConfig] = None,
                      backend: Optional[str] = None, out_dtype=None,
-                     fsdp_axes=None, rows=None) -> torch.Tensor:
+                     fsdp_axes=None, mesh=None, rows=None) -> torch.Tensor:
     """Batched y[..., c, n] = x[..., c, :] @ dequant(leaf[...]) for stacks.
 
     ``x``: (lead..., C, K), ``lead`` the leaf's stack dims -- e.g. MoE expert
@@ -140,13 +223,12 @@ def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
     ``cuda:grouped_maskfree`` (K7) and ``cuda:grouped_dense`` (K8) skip the
     work past them; the other variants ignore it, with the same result.
 
-    ``fsdp_axes`` (the reference's compressed-gather path inside a mesh
-    body) is not ported yet (ROADMAP queue 1 item 13) and raises.
+    ``fsdp_axes`` marks a call from inside the MoE body whose stack is this
+    rank's block, its packed block axis still FSDP-sharded over those axes
+    of ``mesh``: selection then goes to the ``sharded:*`` family, and
+    ``sharded:grouped_gather`` all-gathers the *packed* stack and
+    re-dispatches here on the gathered form with the same backend.
     """
-    if fsdp_axes:
-        raise NotImplementedError("dispatch_grouped(fsdp_axes=...) is the "
-                                  "distributed path, not ported yet (ROADMAP "
-                                  "queue 1 item 13)")
     cfg, spec = leaf_spec(wleaf, strum)
     lead_dims = wleaf["mask"].dim() - 3
     if lead_dims == 0:
@@ -157,8 +239,19 @@ def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
             f"stacked leaf with lead dims {lead} needs x of shape "
             f"(*lead, C, K); got {tuple(x.shape)}")
     k_dim = x.shape[-1]
-    _check_k(spec, k_dim)
     out_dtype = out_dtype or x.dtype
+    if fsdp_axes:
+        if mesh is None:
+            raise ValueError("dispatch_grouped(fsdp_axes=...) gathers over a "
+                             "mesh's groups: pass mesh=")
+        # the leaf is a block (its nb still FSDP-split): the recorded k_dim
+        # applies after the gather
+        info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1], lead=lead,
+                        fsdp=tuple(fsdp_axes))
+        return _sharded_call(wleaf, x, cfg, spec, info, mesh=mesh, pattern=None,
+                             backend=backend, out_dtype=out_dtype, rows=rows)
+    _check_k(spec, k_dim)
+    _check_whole(spec)
     info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1], lead=lead)
     variant = _pick(cfg, info, spec, backend, x.device)
     _note_dispatch(variant, wleaf)

@@ -1,5 +1,5 @@
 """Execution plans: build once from ``(params, StruMSchedule)``, serve many
-(twin of ``repro.engine.plan``, without ``mesh=``).
+(twin of ``repro.engine.plan``).
 
 For every quantized leaf the plan records the packed representation *and*
 the kernel variant selected from the registry, so serving never re-derives
@@ -23,6 +23,14 @@ from the reference's JSON) gives each tensor its own config, so one plan
 may run K1, K2, K3 and dense products side by side.  ``pack=False`` builds
 a selection-only plan (configs and variants, no payload), which
 :func:`fake_quantize` uses.
+
+``mesh=`` (+ ``rules=``) makes the plan mesh-aware, as in the reference:
+every entry records its distributed layout (:class:`ShardSpec`: FSDP gather
+axes from the rules' ``embed`` mapping, col / row TP pattern, expert lead
+axis) and selects from the ``sharded:*`` family.  Unlike the reference,
+whose arrays are global and placed by GSPMD, each rank packs the global
+weight and keeps only its block of the payload (ZeRO-3 storage);
+``payload_bytes`` and ``summary`` still count the whole payload.
 """
 from __future__ import annotations
 
@@ -35,8 +43,11 @@ from repro_torch import resolve_device
 from repro_torch.core import packing
 from repro_torch.core.apply import _named_leaves, map_named
 from repro_torch.core.policy import LayerPolicy, StruMConfig, default_policy
+from repro_torch.engine import sharded as _sharded  # registers sharded:*; layouts
 from repro_torch.engine import variants as _variants  # noqa: F401  (registration)
-from repro_torch.engine.registry import ExecSpec, LeafInfo, select_variant
+from repro_torch.engine.registry import ExecSpec, LeafInfo, ShardSpec, select_variant
+from repro_torch.models.sharding import (axis_names, axis_sizes, fsdp_axes,
+                                         rules_for_mesh, shard_slice)
 
 __all__ = ["PlanEntry", "ExecutionPlan", "build_plan", "fake_quantize"]
 
@@ -69,13 +80,16 @@ class PlanEntry:
                                       # the plan was built with pack=False
     backend: Optional[str] = None
     layout: str = "serve"             # "serve" (lead dims kept) | "folded"
+    shard: Optional[ShardSpec] = None  # distributed layout (mesh-aware plans);
+                                       # ``leaf`` is then this rank's block
 
     @property
     def spec(self) -> ExecSpec:
         # K is shape[-2] in both layouts: folding moves lead dims into
         # columns, never into the reduction axis
         return ExecSpec(cfg=self.cfg, variant=self.variant,
-                        backend=self.backend, k_dim=self.shape[-2])
+                        backend=self.backend, k_dim=self.shape[-2],
+                        shard=self.shard)
 
     def _payload(self) -> dict:
         if self.leaf is None:
@@ -105,9 +119,11 @@ class PlanEntry:
         return dequant_leaf(leaf, dtype, cfg=self.cfg, k_dim=self.shape[-2])
 
     def payload_bytes(self) -> Optional[int]:
+        """mask + hi + lo bytes of the whole payload (all ranks' blocks)."""
         if self.leaf is None:
             return None
-        return int(sum(self.leaf[k].numel() for k in ("mask", "hi", "lo")))
+        local = sum(self.leaf[k].numel() for k in ("mask", "hi", "lo"))
+        return int(local * (self.shard.parts if self.shard is not None else 1))
 
 
 @dataclasses.dataclass
@@ -143,6 +159,8 @@ class ExecutionPlan:
             dist[e.variant] = dist.get(e.variant, 0) + 1
         out = {"n_entries": len(self.entries), "backend": self.backend or "auto",
                "scope": self.scope, "variant_distribution": dist}
+        if self.meta.get("fsdp_axes"):
+            out["fsdp_axes"] = tuple(self.meta["fsdp_axes"])
         payload = [e.payload_bytes() for e in self.entries.values()]
         if payload and None not in payload:
             out["packed_payload_bytes"] = int(sum(payload))
@@ -174,11 +192,28 @@ class ExecutionPlan:
         return map_named(visit, params)
 
 
+def _mesh_layout(mesh, rules):
+    """(FSDP axes, TP axis, ``((axis, size), ...)``) of a mesh-aware plan;
+    ``((), None, ())`` without a mesh.  The FSDP axes are the rules'
+    ``embed`` mapping, as in the reference, kept to the mesh's axes."""
+    if mesh is None:
+        return (), None, ()
+    rules = rules or rules_for_mesh(mesh)
+    names = axis_names(mesh)
+    emb = rules.table.get("embed")
+    fsdp = (tuple(emb) if isinstance(emb, tuple) else (emb,)) if emb \
+        else fsdp_axes(mesh)
+    return (tuple(a for a in fsdp if a in names),
+            "model" if "model" in names else None,
+            tuple(axis_sizes(mesh).items()))
+
+
 def build_plan(params: Any, *, schedule: Any = None,
                policy: Optional[LayerPolicy] = None,
                cfg: Optional[StruMConfig] = None,
                backend: Optional[str] = None, scope: str = "model",
                float_only: bool = False, pack: bool = True,
+               mesh=None, rules=None,
                validate: bool = False, device="cuda") -> ExecutionPlan:
     """Build an :class:`ExecutionPlan` from ``(params, schedule)``.
 
@@ -192,9 +227,17 @@ def build_plan(params: Any, *, schedule: Any = None,
     ``"auto"`` selects by that device: ``cuda:*`` on the card, ``torch:*``
     on the CPU.  ``validate=True`` needs the static plan checks
     (``analysis.validate_plan``), which are not ported: it raises.
+
+    ``mesh`` (a ``DeviceMesh``, + optional sharding ``rules``) makes the
+    plan mesh-aware (the module docstring): each packed leaf becomes this
+    rank's block, and ``ExecSpec.shard`` records the layout and the mesh's
+    shape.  Folded (``scope="tree"``) leaves have no TP layout: refused.
     """
     if scope not in ("model", "tree"):
         raise ValueError(f"scope={scope!r}")
+    if mesh is not None and scope != "model":
+        raise ValueError("mesh-aware plans need scope='model': folded "
+                         "(scope='tree') leaves have no TP layout")
     if validate:
         raise NotImplementedError(
             "build_plan(validate=True) runs analysis.validate_plan, which is "
@@ -202,19 +245,33 @@ def build_plan(params: Any, *, schedule: Any = None,
     dev = resolve_device(device)
     pol = _resolve_policy(schedule, policy, cfg)
     entries: dict[str, PlanEntry] = {}
+    fsdp, tp, mesh_shape = _mesh_layout(mesh, rules)
 
     def _entry(name, leaf, leaf_cfg, layout, packed_leaf, exec_lead=()):
         # exec_lead: lead dims as the kernel sees them (scan groups are
         # sliced away before dispatch; expert stacks keep theirs and select
         # from the grouped family)
         shape = tuple(leaf.shape)
+        shard = None
+        if fsdp:
+            shard = ShardSpec(fsdp_axes=fsdp, lead_axis=tp, mesh_shape=mesh_shape) \
+                if exec_lead else ShardSpec(fsdp_axes=fsdp, mesh_shape=mesh_shape,
+                                            tp_pattern=_sharded.tp_pattern_for(name))
         info = LeafInfo(k_dim=shape[-2], n_out=shape[-1], lead=exec_lead,
-                        name=name)
+                        name=name, fsdp=fsdp,
+                        tp_pattern=shard.tp_pattern if shard else None)
         variant = select_variant(leaf_cfg, info, backend=backend, device=dev)
         e = PlanEntry(name=name, cfg=leaf_cfg, variant=variant.name,
                       shape=shape, leaf=packed_leaf, backend=backend,
-                      layout=layout)
+                      layout=layout, shard=shard)
         if packed_leaf is not None:
+            if shard is not None:     # keep this rank's block of the payload
+                scan = packed_leaf["mask"].dim() - 3 - bool(exec_lead)
+                specs = _sharded.payload_specs(shard.tp_pattern, fsdp,
+                                               None if exec_lead else tp,
+                                               shard.lead_axis, scan)
+                for k, sp in specs.items():
+                    packed_leaf[k] = shard_slice(packed_leaf[k], sp, mesh)
             packed_leaf["cfg"] = leaf_cfg
             packed_leaf["spec"] = e.spec
         entries[name] = e
@@ -245,7 +302,8 @@ def build_plan(params: Any, *, schedule: Any = None,
 
         out = map_named(visit, params)
         return ExecutionPlan(entries=entries, params=out, backend=backend,
-                             scope="model", schedule=schedule)
+                             scope="model", schedule=schedule,
+                             meta={"fsdp_axes": fsdp} if fsdp else {})
 
     # scope == "tree": flat manifest, column-folded packing
     from repro_torch.core.apply import pack_array

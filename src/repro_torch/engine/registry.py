@@ -1,5 +1,5 @@
-"""Kernel registry: named variants + capability predicates (twin of the 2-D
-half of ``repro.engine.registry``).
+"""Kernel registry: named variants + capability predicates (twin of
+``repro.engine.registry``).
 
 Families map to execution substrates, each the twin of a reference family:
 
@@ -20,6 +20,12 @@ plan and tensors, never by ``torch.cuda.is_available()``: CUDA tensors get
 ``"interpret"`` has no twin -- a CUDA kernel has no interpret mode, and the
 CPU path of every kernel wrapper is its plain PyTorch version -- so it, like
 any unknown string, raises ``ValueError``.
+
+Mesh context partitions selection as in the reference: a non-empty
+``LeafInfo.fsdp`` restricts it to ``sharded=True`` variants (the
+``sharded:*`` family, :mod:`repro_torch.engine.sharded`), which own their
+collectives; an empty one excludes them.  A mesh-aware plan records each
+leaf's distributed layout as a :class:`ShardSpec` in ``ExecSpec.shard``.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ import torch
 
 from repro_torch.core.policy import StruMConfig
 
-__all__ = ["LeafInfo", "KernelVariant", "ExecSpec", "BACKENDS", "FAMILIES",
+__all__ = ["LeafInfo", "KernelVariant", "ExecSpec", "ShardSpec", "BACKENDS",
+           "FAMILIES",
            "register_kernel", "unregister_kernel", "get_variant",
            "list_variants", "select_variant", "resolve_backend"]
 
@@ -46,6 +53,9 @@ class LeafInfo(NamedTuple):
     n_out: int
     lead: tuple = ()
     name: str = ""
+    fsdp: tuple = ()      # mesh axes the reduction / block dim is FSDP-sharded
+                          # over; non-empty selects the ``sharded:*`` family
+    tp_pattern: Optional[str] = None  # 'col' | 'row' TP layout (2-D leaves)
     cache: bool = False   # True selects from the ``cache:*`` family (paged
                           # KV-page codecs: k_dim is the page size, n_out the
                           # per-token feature dim)
@@ -81,6 +91,11 @@ class KernelVariant:
     fields; selection considers it only when ``info.draft`` names a mode,
     and its ``supports`` matches that mode, so full-fidelity and draft
     lowerings never compete and neither do the two modes.
+    ``sharded=True`` marks a distributed variant (``sharded:*``): its
+    ``fn(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend, out_dtype)``
+    takes the payload dict of this rank's shard and the global activations,
+    and owns its collectives; selection considers it only when
+    ``info.fsdp`` is non-empty.
     ``redispatch=True`` marks a variant whose landing under another family
     is no datapath substitution (it re-selects with the caller's backend
     inside), so the cross-family fallback onto it does not warn.
@@ -93,10 +108,35 @@ class KernelVariant:
     priority: int = 0
     description: str = ""
     grouped: bool = False
+    sharded: bool = False
     redispatch: bool = False
     cache: bool = False
     attn: bool = False
     draft: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Per-leaf distributed layout recorded by a mesh-aware plan: axis names
+    as in the reference, plus the mesh shape the plan was built on.  The
+    port's leaf holds this rank's shard of the payload, so it serves only on
+    a mesh of that shape (``mesh_shape``, ``((name, size), ...)``); a shape
+    of all ones holds the whole payload and also serves without a mesh."""
+
+    fsdp_axes: tuple = ()             # mesh axes the reduction (2-D) or
+                                      # packed-block (stacks) dim shards over
+    tp_pattern: Optional[str] = None  # 'col' (K FSDP / N TP) or 'row'
+                                      # (K TP / N FSDP) for 2-D leaves
+    lead_axis: Optional[str] = None   # mesh axis an expert stack's lead dim
+                                      # shards over (EP == TP axis)
+    mesh_shape: tuple = ()            # ((axis name, size), ...) at build time
+
+    @property
+    def parts(self) -> int:
+        """How many blocks the packed fields were cut into: the sizes of the
+        FSDP axes times the expert axis (stacks) or ``model`` (2-D)."""
+        from repro_torch.engine.sharded import field_parts
+        return field_parts(self)["mask"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +147,7 @@ class ExecSpec:
     variant: str
     backend: Optional[str] = None   # plan-level backend at selection time
     k_dim: Optional[int] = None     # true (unpadded) reduction dim
+    shard: Optional[ShardSpec] = None  # distributed layout (mesh-aware plans)
 
 
 _REGISTRY: dict[str, KernelVariant] = {}
@@ -114,9 +155,9 @@ _REGISTRY: dict[str, KernelVariant] = {}
 
 def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
                     priority: int = 0, description: str = "",
-                    grouped: bool = False, redispatch: bool = False,
-                    cache: bool = False, attn: bool = False,
-                    draft: bool = False):
+                    grouped: bool = False, sharded: bool = False,
+                    redispatch: bool = False, cache: bool = False,
+                    attn: bool = False, draft: bool = False):
     """Decorator: register ``fn`` as kernel variant ``name`` (latest wins)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
@@ -128,7 +169,8 @@ def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
         _REGISTRY[name] = KernelVariant(
             name=name, fn=fn, supports=supports, family=family,
             priority=priority, description=description, grouped=grouped,
-            redispatch=redispatch, cache=cache, attn=attn, draft=draft)
+            sharded=sharded, redispatch=redispatch, cache=cache, attn=attn,
+            draft=draft)
         return fn
     return deco
 
@@ -171,13 +213,15 @@ def select_variant(cfg: StruMConfig, info: LeafInfo,
     predicate accepts ``(cfg, info)``; if that family has none (e.g.
     ``w % 8 != 0`` under onehot), fall back to the ``torch`` family, with a
     warning when the family was asked for explicitly (unless the fallback
-    is a ``redispatch`` variant).  ``info.cache``, ``info.attn`` and
-    ``info.draft`` partition the candidates: only variants with the same
-    three flags compete, and the fallback stays inside the partition."""
+    is a ``redispatch`` variant).  ``info.fsdp``, ``info.cache``,
+    ``info.attn`` and ``info.draft`` partition the candidates: only variants
+    with the same four flags compete, and the fallback stays inside the
+    partition."""
     fam = resolve_backend(backend, device)
     for family in dict.fromkeys((fam, "torch")):
         cands = [v for v in _REGISTRY.values()
-                 if v.family == family and v.cache == info.cache
+                 if v.family == family and v.sharded == bool(info.fsdp)
+                 and v.cache == info.cache
                  and v.attn == info.attn and v.draft == bool(info.draft)
                  and v.supports(cfg, info)]
         if cands:

@@ -17,7 +17,8 @@ every prompt is prefilled, and profiles ``--steps`` decode-only ticks.  For
 each it prints the host time, the summed device time of the kernels, the
 device busy share (kernel time over host wall time) and the top ops by
 device time and by host time (``key_averages``).  Needs a card; other flags
-pass to ``repro_torch.launch.serve``.
+pass to ``repro_torch.launch.serve`` (``--mesh 1x1`` profiles the mesh
+path: the ``sharded:*`` dispatch around the same kernels).
 """
 from __future__ import annotations
 
@@ -55,12 +56,18 @@ def _report(name: str, prof, wall: float, n: int, rows: int) -> None:
     print(avg.table(sort_by="self_cpu_time_total", row_limit=rows))
 
 
+def _rules(res: dict):
+    from repro_torch.models.sharding import rules_for_mesh
+    return None if res["mesh"] is None else rules_for_mesh(res["mesh"])
+
+
 def _profile_paged(res: dict, args) -> int:
     """Decode-only ticks of a scheduler like the one ``res`` drained."""
     from repro_torch.serving import BatchScheduler, Request
     done = res["sched"]
     b, n = res["prompt"].shape
     sched = BatchScheduler(res["cfg"], res["params"], n_slots=b, max_len=done.max_len,
+                           mesh=res["mesh"], rules=_rules(res),
                            plan=res["plan"], kv_cache=done.spec.cfg,
                            page_size=done.page_size, prefill=done.prefill_mode,
                            device=res["device"])
@@ -89,12 +96,13 @@ def main(argv=None) -> int:
         return _profile_paged(res, args)
     cfg, params, prompt, toks = res["cfg"], res["params"], res["prompt"], res["tokens"]
     steps, n = min(args.steps, res["gen"]), prompt.shape[1]
+    mesh = {"mesh": res["mesh"], "rules": _rules(res)}
     with torch.inference_mode():
         prof, wall, (_, caches) = _profiled(
-            lambda: S.make_prefill_step(cfg)(params, {"tokens": prompt}))
+            lambda: S.make_prefill_step(cfg, **mesh)(params, {"tokens": prompt}))
         _report("prefill", prof, wall, 1, args.rows)
         caches = S.pad_caches(caches, steps + 1)
-        step = S.make_decode_step(cfg)
+        step = S.make_decode_step(cfg, **mesh)
 
         def decode():
             for i in range(steps):

@@ -16,6 +16,8 @@ runtime with StruM-packed KV pages.
         [--paged]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba_1_5_large_398b --smoke --device cpu --paged
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch olmo_1b --smoke --device cpu --mesh 2x2 [--paged]
 
 builds the model from a seed on the card (``--arch`` takes every config of
 the reference: dense, MoE, Mamba-2 and the Jamba hybrid; ``--layers N``
@@ -44,7 +46,11 @@ the run) and the draft's payload bytes over the full payload's.
 Chrome-trace JSON to PATH at exit (check it with ``python -m
 repro_torch.telemetry.check PATH``).  ``--device cpu`` runs the plain
 PyTorch path (the ``torch`` family) without a card; without it and without
-a card it raises.
+a card it raises.  ``--mesh DATAxMODEL`` serves on a ``DeviceMesh`` of that
+shape (NCCL on the card, gloo with ``--device cpu``): under ``torchrun``
+with DATA x MODEL ranks, or on a world of 1 as ``1x1``; the plan is
+mesh-aware (every rank keeps its block of the payload, ``sharded:*``
+variants gather the packed bytes) and every rank prints the same report.
 """
 from __future__ import annotations
 
@@ -127,7 +133,8 @@ def serve(cfg, params, prompt: torch.Tensor, gen: int, *, device="cuda",
 
 def serve_paged(cfg, params, prompt: torch.Tensor, gen: int, *, plan=None,
                 kv_cache=None, page_size: int = 16, prefill: str = "chunked",
-                speculative: int = 0, draft=None, device="cuda") -> dict:
+                speculative: int = 0, draft=None, mesh=None, rules=None,
+                device="cuda") -> dict:
     """Serve each row of ``prompt`` (B, S) as one request of ``gen + 1``
     tokens through a :class:`BatchScheduler` with B slots and ``max_len =
     S + gen + page_size``, timing every tick (host clock, synchronized).
@@ -147,6 +154,7 @@ def serve_paged(cfg, params, prompt: torch.Tensor, gen: int, *, plan=None,
 
     def make(slots):
         return BatchScheduler(cfg, params, n_slots=slots, max_len=n + gen + page_size,
+                              mesh=mesh, rules=rules,
                               plan=plan, kv_cache=kv_cache, page_size=page_size,
                               prefill=prefill, speculative=speculative,
                               draft=draft, device=dev)
@@ -220,6 +228,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="record telemetry and write a Chrome-trace JSON to PATH "
                          "at exit; open it in Perfetto or chrome://tracing")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve on a device mesh, e.g. 2x2 under torchrun with 4 "
+                         "ranks, or 1x1; plans then select sharded:* variants")
     return ap
 
 
@@ -238,11 +249,20 @@ def run(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_params(model_defs(cfg), seed=args.seed, device=dev,
                          dtype_override="float32")
-    res = {"dense_bytes": serve_tree_bytes(params), "plan": None}
+    res = {"dense_bytes": serve_tree_bytes(params), "plan": None, "mesh": None}
+    mesh = rules = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models.sharding import rules_for_mesh
+        data, model = (int(v) for v in args.mesh.lower().split("x"))
+        mesh = make_host_mesh(data=data, model=model, device=dev)
+        rules = rules_for_mesh(mesh)
+        res["mesh"] = mesh
     if args.schedule is not None:
         from repro_torch.autotune.schedule import StruMSchedule
         plan = build_serving_plan(params, schedule=StruMSchedule.load(args.schedule),
-                                  backend=args.backend, device=dev)
+                                  backend=args.backend, mesh=mesh, rules=rules,
+                                  device=dev)
         params = plan.params
         res.update(plan=plan, packed_bytes=plan.serve_bytes(),
                    ratio_note=f"schedule {args.schedule}")
@@ -250,7 +270,7 @@ def run(argv=None) -> dict:
         scfg = StruMConfig(method=args.strum, p=args.p, q=args.q, L=args.L)
         cfg = dataclasses.replace(cfg, strum=scfg)
         plan = build_serving_plan(params, cfg=scfg, backend=args.backend,
-                                  device=dev)
+                                  mesh=mesh, rules=rules, device=dev)
         params = plan.params
         res.update(plan=plan, packed_bytes=plan.serve_bytes(),
                    ratio_note=f"theoretical vs int8 r={scfg.compression_ratio:.4f}")
@@ -265,10 +285,11 @@ def run(argv=None) -> dict:
         res.update(serve_paged(cfg, params, prompt, args.gen, plan=res["plan"],
                                kv_cache=kv, page_size=args.page_size,
                                prefill=args.prefill, speculative=args.speculative,
-                               draft=args.draft, device=dev))
+                               draft=args.draft, mesh=mesh, rules=rules,
+                               device=dev))
         return res
     toks, t_p, t_d, lg = serve(cfg, params, prompt, args.gen, device=dev,
-                               return_logits=True)
+                               return_logits=True, mesh=mesh, rules=rules)
     res.update(tokens=toks, logits=lg, t_prefill=t_p, t_decode=t_d)
     return res
 
@@ -278,6 +299,9 @@ def report(res: dict) -> list:
     dense, cfg = res["dense_bytes"], res["cfg"]
     lines = [f"model: {cfg.name}, {cfg.n_layers} layers, {cfg.param_count():,} params, "
              f"{cfg.active_param_count():,} active per token"]
+    if res["mesh"] is not None:
+        from repro_torch.models.sharding import axis_sizes
+        lines.append(f"mesh: {axis_sizes(res['mesh'])} ({res['mesh'].device_type})")
     if res["plan"] is not None:
         comp, summ = res["packed_bytes"], res["plan"].summary()
         lines.append(f"weights: dense {dense / 1e6:.2f} MB -> StruM "

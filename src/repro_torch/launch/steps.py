@@ -1,7 +1,7 @@
 """Step builders shared by the trainer, the server and the tests (twin of
-the single-device half of ``repro.launch.steps``): one definition of the
-train step, the plan, the prefill and decode steps, and the paged runtime's
-lanes."""
+``repro.launch.steps``): one definition of the train step (single-device,
+or ZeRO-3 on a mesh), the plan, the prefill and decode steps, and the paged
+runtime's lanes, each with the reference's ``mesh=`` / ``rules=``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.core.apply import tree_leaves, tree_like
 from repro_torch.models import transformer as tfm
+from repro_torch.models.sharding import Rules, rules_for_mesh
 from repro_torch.optim import adamw
 from repro_torch.runtime import compression as gcomp
 
@@ -30,13 +31,17 @@ def _value_and_grad(params, batch, cfg):
             tree_like(params, grads))
 
 
-def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, grad_compression: bool = False):
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh=None,
+                    rules: Optional[Rules] = None, grad_compression: bool = False):
     """``(params, opt_state[, ef_state], batch) -> (params, opt_state[,
     ef_state], metrics)``: loss and gradients by autograd, MIP2Q gradient
     compression with error feedback when ``grad_compression``, then AdamW.
     Functional: new trees come back and the inputs are left as they were.
     ``metrics`` holds ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` as
-    tensors."""
+    tensors.  With ``mesh`` the step is ZeRO-3 (:func:`_zero3_step`)."""
+    if mesh is not None:
+        return _zero3_step(cfg, opt_cfg, mesh, rules or rules_for_mesh(mesh),
+                           grad_compression)
     if grad_compression:
         def step(params, opt_state, ef_state, batch):
             (loss, metrics), grads = _value_and_grad(params, batch, cfg)
@@ -53,59 +58,134 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, grad_compression: bool = Fa
     return step
 
 
+def _zero3_value_and_grad(params, batch, cfg, mesh, rules: Rules, defs):
+    """``(loss, metrics), grads`` of the whole ``batch`` from this rank's
+    parameter shards: gather the full parameters, take the loss of this
+    rank's rows (the batch splits over the rules' ``batch`` axes), and
+    all-reduce the gradients (mean), each rank's weighted by its share of
+    the labelled tokens, so loss and gradients are the whole batch's, as on
+    one device.  MoE layers route over the whole batch (capacity, slots and
+    the load-balance fractions: ``moe.moe_apply(batch_split=)``), so their
+    aux is the single-device one on every rank.  ``grads`` is the full
+    gradient tree, on every rank."""
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.params import gather_params
+    axes = rules.table.get("batch")
+    full = gather_params(params, defs, mesh, rules)
+    local = {k: shd.shard_slice(v, shd.P(axes), mesh) for k, v in batch.items()}
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(full)]
+    _, m = tfm.loss_fn(tree_like(full, leaves), local, cfg, batch_split=(mesh, axes))
+    n = (local["labels"] >= 0).sum().to(torch.float32)
+    share = n * shd.axis_size(mesh, axes) / torch.clamp(
+        shd.all_reduce(n, mesh, axes), min=1.0)
+    obj = share * m["ce"] + cfg.router_aux_weight * m["aux"]
+    grads = torch.autograd.grad(obj, leaves, materialize_grads=True)
+    grads = tree_like(full, [shd.all_reduce(g, mesh, axes, "mean") for g in grads])
+    ce = shd.all_reduce(share * m["ce"].detach(), mesh, axes, "mean")
+    aux = m["aux"].detach()                       # the whole batch's already
+    return (ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}), grads
+
+
+def _zero3_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, rules: Rules,
+                grad_compression: bool):
+    """The train step on a mesh, ZeRO-3 over the data axes: ``params``, the
+    AdamW moments (and the error-feedback residual) are this rank's shards
+    under ``rules`` (``models.params.shard_params``); ``batch`` is global.
+    Loss and gradients come from :func:`_zero3_value_and_grad`; the clip
+    reads the reduced gradients' global norm; AdamW updates each rank's
+    shards.  Dense compute is replicated over the ``model`` axis (no
+    tensor-parallel train step)."""
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import gather_params, shard_params
+    defs = model_defs(cfg)
+
+    def update(params, opt_state, grads, loss, metrics):
+        params, opt_state, stats = adamw.adamw_update(
+            opt_cfg, params, shard_params(grads, defs, mesh, rules), opt_state,
+            gnorm=adamw.global_norm(grads))
+        return params, opt_state, dict(metrics, loss=loss, **stats)
+
+    if grad_compression:
+        def step(params, opt_state, ef_state, batch):
+            (loss, metrics), grads = _zero3_value_and_grad(params, batch, cfg, mesh,
+                                                           rules, defs)
+            res = gather_params(ef_state.residual, defs, mesh, rules)
+            grads, ef = gcomp.compress_tree_with_ef(grads, gcomp.CompressionState(res))
+            params, opt_state, metrics = update(params, opt_state, grads, loss, metrics)
+            ef_state = gcomp.CompressionState(shard_params(ef.residual, defs, mesh,
+                                                           rules))
+            return params, opt_state, ef_state, metrics
+        return step
+
+    def step(params, opt_state, batch):
+        (loss, metrics), grads = _zero3_value_and_grad(params, batch, cfg, mesh,
+                                                       rules, defs)
+        return update(params, opt_state, grads, loss, metrics)
+    return step
+
+
 def build_serving_plan(params, *, schedule=None, cfg=None, policy=None,
-                       backend: Optional[str] = None, device="cuda"):
+                       backend: Optional[str] = None, mesh=None,
+                       rules: Optional[Rules] = None, device="cuda"):
     """``(params, schedule | cfg | policy)`` ->
     :class:`repro_torch.engine.ExecutionPlan` on ``device``: the one place
     ``launch/serve``, ``serving.scheduler`` and the tests turn weights into a
-    served plan."""
+    served plan.  With a ``mesh`` (and optional ``rules``) every entry
+    records its distributed layout, keeps this rank's block of the payload
+    and selects from the ``sharded:*`` family."""
     from repro_torch import engine
+    rules = rules or (rules_for_mesh(mesh) if mesh is not None else None)
     return engine.build_plan(params, schedule=schedule, cfg=cfg, policy=policy,
-                             backend=backend, device=device)
+                             backend=backend, mesh=mesh, rules=rules,
+                             device=device)
 
 
-def make_prefill_step(cfg, **kw):
+def make_prefill_step(cfg, mesh=None, rules: Optional[Rules] = None, **kw):
     """(params, batch) -> (last-token logits, caches); ``kw`` (e.g.
     ``backend=``) reaches every linear."""
     def step(params, batch):
-        return tfm.prefill(params, batch, cfg, **kw)
+        return tfm.prefill(params, batch, cfg, mesh=mesh, rules=rules, **kw)
     return step
 
 
-def make_decode_step(cfg, **kw):
+def make_decode_step(cfg, mesh=None, rules: Optional[Rules] = None, **kw):
     """(params, token, caches, cache_len) -> (logits, caches)."""
     def step(params, token, caches, cache_len):
-        return tfm.decode_step(params, token, caches, cache_len, cfg, **kw)
+        return tfm.decode_step(params, token, caches, cache_len, cfg, mesh=mesh,
+                               rules=rules, **kw)
     return step
 
 
-def make_paged_decode_step(cfg, spec, cache_backend: Optional[str] = None, **kw):
+def make_paged_decode_step(cfg, spec, mesh=None, rules: Optional[Rules] = None,
+                           cache_backend: Optional[str] = None, **kw):
     """Decode lane of the paged runtime: one (n_slots, 1) step over the page
     table.  ``spec`` (a :class:`repro_torch.engine.cache.CacheSpec`) rides
     the closure; ``kw`` reaches every linear."""
     def step(params, token, pools, hot, cache_len, page_table, active):
         return tfm.decode_step_paged(params, token, pools, hot, cache_len,
-                                     page_table, active, spec, cfg,
-                                     cache_backend=cache_backend, **kw)
+                                     page_table, active, spec, cfg, mesh=mesh,
+                                     rules=rules, cache_backend=cache_backend, **kw)
     return step
 
 
-def make_chunked_prefill_step(cfg, spec, cache_backend: Optional[str] = None, **kw):
+def make_chunked_prefill_step(cfg, spec, mesh=None, rules: Optional[Rules] = None,
+                              cache_backend: Optional[str] = None, **kw):
     """Prefill lane: one fixed-shape (1, chunk) step that every slot's
     prompt advances through, chunk by chunk."""
     def step(params, tokens, pools, hot, page_table, slot, start, valid_len):
         return tfm.prefill_chunk_step(params, tokens, pools, hot, page_table,
-                                      slot, start, valid_len, spec, cfg,
-                                      cache_backend=cache_backend, **kw)
+                                      slot, start, valid_len, spec, cfg, mesh=mesh,
+                                      rules=rules, cache_backend=cache_backend, **kw)
     return step
 
 
-def make_verify_step(cfg, spec, cache_backend: Optional[str] = None, **kw):
+def make_verify_step(cfg, spec, mesh=None, rules: Optional[Rules] = None,
+                     cache_backend: Optional[str] = None, **kw):
     """Verify lane of self-speculative decoding: one fixed-shape (1, k+1)
     step that scores a slot's draft window at full fidelity and writes no
     cache state (the scheduler commits the accepted KV rows itself)."""
     def step(params, tokens, pools, hot, page_table, slot, start):
         return tfm.verify_chunk_step(params, tokens, pools, hot, page_table,
-                                     slot, start, spec, cfg,
+                                     slot, start, spec, cfg, mesh=mesh, rules=rules,
                                      cache_backend=cache_backend, **kw)
     return step

@@ -14,6 +14,7 @@ import math
 import torch
 
 from repro_torch.models.layers import apply_rope, linear, linear_def
+from repro_torch.models.sharding import constrain
 
 __all__ = ["attn_def", "attention", "decode_attention", "init_cache_spec",
            "decode_attention_paged", "prefill_attention_paged",
@@ -36,9 +37,10 @@ def attn_def(cfg, lead=()) -> dict:
 def _qkv(p, x, cfg, positions, **kw):
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = linear(p["wq"], x, **kw).reshape(b, s, nh, hd)
-    k = linear(p["wk"], x, **kw).reshape(b, s, nkv, hd)
-    v = linear(p["wv"], x, **kw).reshape(b, s, nkv, hd)
+    kw_c = dict(kw, tp_pattern="col")
+    q = linear(p["wq"], x, **kw_c).reshape(b, s, nh, hd)
+    k = linear(p["wk"], x, **kw_c).reshape(b, s, nkv, hd)
+    v = linear(p["wv"], x, **kw_c).reshape(b, s, nkv, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -91,12 +93,18 @@ def _chunked_causal(q, k, v, chunk: int) -> torch.Tensor:
 
 
 def attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-              return_kv: bool = False, **kw):
-    """Training / prefill attention.  x: (B, S, D)."""
+              return_kv: bool = False, rules=None, **kw):
+    """Training / prefill attention.  x: (B, S, D).  ``rules`` checks the
+    heads' logical axes (``sharding.constrain``), as the reference pins
+    them; the heads stay replicated here."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions, **kw)
+    if cfg.attn_heads_constraint and rules is not None:
+        q = constrain(q, ("batch", None, "heads", None), rules)
+        k = constrain(k, ("batch", None, "kv_heads", None), rules)
+        v = constrain(v, ("batch", None, "kv_heads", None), rules)
     o = _chunked_causal(q, k, v, cfg.attn_chunk).to(x.dtype)
-    y = linear(p["wo"], o.reshape(b, s, -1), **kw)
+    y = linear(p["wo"], o.reshape(b, s, -1), **dict(kw, tp_pattern="row"))
     return (y, (k, v)) if return_kv else y
 
 
@@ -131,7 +139,7 @@ def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
     sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
     w = torch.softmax(sc, dim=-1)
     o = torch.einsum("bgrs,bsgd->bgrd", w, cv.to(torch.float32))
-    y = linear(p["wo"], o.reshape(b, 1, nh * hd).to(x.dtype), **kw)
+    y = linear(p["wo"], o.reshape(b, 1, nh * hd).to(x.dtype), **dict(kw, tp_pattern="row"))
     return y, (ck, cv)
 
 
@@ -222,7 +230,7 @@ def decode_attention_paged(p: dict, x: torch.Tensor, cfg, pool: dict,
     t_pos = (n_valid.to(torch.long) * ps)[:, None] + torch.arange(ps, device=x.device)
     valid_t = (t_pos <= lens[:, None])[:, None, None, :]
     o = _merge_partials([sealed, _softmax_partial(qf, kt, vt, valid_t)])
-    y = linear(p["wo"], o.reshape(b, 1, nh * hd).to(x.dtype), **kw)
+    y = linear(p["wo"], o.reshape(b, 1, nh * hd).to(x.dtype), **dict(kw, tp_pattern="row"))
     return y, (kt, vt)
 
 
@@ -290,5 +298,5 @@ def _chunk_attention_paged(p, x, cfg, pool, tails, spec, table_row, start,
     causal = (qrow[:, None] >= torch.arange(c, device=x.device)[None, :])[None, None]
     o = _merge_partials(parts + [_softmax_partial(qr, k, v, causal)])
     o = o.reshape(b, nkv, c, rep, hd).permute(0, 2, 1, 3, 4)
-    y = linear(p["wo"], o.reshape(b, c, nh * hd).to(x.dtype), **kw)
+    y = linear(p["wo"], o.reshape(b, c, nh * hd).to(x.dtype), **dict(kw, tp_pattern="row"))
     return y, (k, v)

@@ -72,13 +72,18 @@ def linear_def(d_in: int, d_out: int, in_axis: str, out_axis: str,
 
 
 def linear(p: dict, x: torch.Tensor, *, strum: Optional[StruMConfig] = None,
-           backend: Optional[str] = None) -> torch.Tensor:
+           backend: Optional[str] = None, tp_mesh=None,
+           tp_pattern: Optional[str] = None) -> torch.Tensor:
     """y = x @ W (+ b), dense or StruM-compressed; ``backend`` overrides the
-    plan's variant per call (``"torch"``, ``"cuda"``, ...)."""
+    plan's variant per call (``"torch"``, ``"cuda"``, ...).  With
+    ``tp_mesh`` a packed leaf runs through the ``sharded:*`` family in the
+    ``tp_pattern`` layout ('col' | 'row'); a dense leaf ignores both (dense
+    compute is replicated)."""
     wleaf = p["w"]
     if isinstance(wleaf, dict):
         from repro_torch.engine.dispatch import dispatch
-        y = dispatch(wleaf, x, strum=strum, backend=backend)
+        y = dispatch(wleaf, x, strum=strum, backend=backend, mesh=tp_mesh,
+                     tp_pattern=tp_pattern)
     else:
         y = _f32_matmul(x, wleaf).to(x.dtype)
     if "b" in p:
@@ -99,12 +104,13 @@ def mlp_def(cfg, lead=()) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor, cfg, **kw) -> torch.Tensor:
-    h = linear(p["wi"], x, **kw)
+    kw_c = dict(kw, tp_pattern="col")
+    h = linear(p["wi"], x, **kw_c)
     if cfg.gated_mlp:
-        h = F.silu(linear(p["wg"], x, **kw)) * h
+        h = F.silu(linear(p["wg"], x, **kw_c)) * h
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return linear(p["wo"], h, **kw)
+    return linear(p["wo"], h, **dict(kw, tp_pattern="row"))
 
 
 # ------------------------------------------------------------------ RoPE --

@@ -148,6 +148,7 @@ def _ssd_chunked(xh, dt, a, bb, cc, chunk: int, h0=None):
 def _project_in(p, x, cfg, kw):
     """(z, xs, bb, cc, dt) through the fused or the split projections."""
     di, nh, hp, ns, _ = _dims(cfg)
+    kw = dict(kw, tp_pattern="col")
     if cfg.ssm_split_proj:
         bc = linear(p["in_bc"], x, **kw)
         return (linear(p["in_z"], x, **kw), linear(p["in_x"], x, **kw),
@@ -162,7 +163,7 @@ def _gate_out(p, y, xh, z, x_dtype, cfg, kw):
     y = y.reshape(b, s, cfg.d_inner).to(x_dtype)
     y = y * F.silu(z)
     y = rms_norm(y, p["norm_scale"])
-    return linear(p["out_proj"], y, **kw)
+    return linear(p["out_proj"], y, **dict(kw, tp_pattern="row"))
 
 
 def _dt_a(p, dt):

@@ -1,5 +1,4 @@
-"""Top-k MoE FFN, single device (twin of the local path of
-``repro.models.moe``).
+"""Top-k MoE FFN with expert parallelism (twin of ``repro.models.moe``).
 
 Dispatch is GShard-style fixed capacity: per expert ``C = max(ceil(T·k / E
 · capacity_factor), top_k)`` slots, filled in token-major order of the
@@ -13,8 +12,22 @@ with each expert's filled-slot count (``rows``, so K6, K7 and K8 skip empty
 experts and empty row tiles), a dense one through a batched matmul.
 
 Like the reference, ``moe_apply`` ignores a per-call ``backend=``: packed
-stacks always run the variant their plan recorded.  The expert-parallel
-mesh path (``mesh=``) is not ported yet (ROADMAP queue 1 item 13).
+stacks always run the variant their plan recorded.
+
+With a mesh that has a ``model`` axis, ``moe_apply`` runs the reference's
+expert-parallel body on every rank: tokens split over the data axes (where
+the batch divides), experts over ``model`` (EP == TP axis), each rank runs
+its token rows against its experts, and one all-reduce over ``model``
+combines them; the load-balance fractions are averaged over all ranks
+before their product (aux from the data-mean fractions).  A packed stack is
+this rank's block (a mesh-aware plan's, or cut from a global one) and stays
+packed: ``dispatch_grouped(fsdp_axes=..., mesh=...)`` selects
+``sharded:grouped_gather``, which all-gathers the packed block axis before
+the grouped kernel (K6-K8 on the card).  A dense stack is global and gives
+this rank its experts.  ``x`` and the result are global, as every forward's
+activations are.  A mesh without a ``model`` axis runs the local path, as in
+the reference (a mesh-aware plan's stacks are then gathered packed over the
+FSDP axes before each contraction).
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.params import ParamDef
 
 __all__ = ["moe_def", "moe_apply"]
@@ -42,15 +56,18 @@ def moe_def(cfg, lead=()) -> dict:
     return out
 
 
-def _expert_contract(wstack, xbuf: torch.Tensor, scfg, rows=None) -> torch.Tensor:
+def _expert_contract(wstack, xbuf: torch.Tensor, scfg, rows=None, fsdp=(),
+                     mesh=None) -> torch.Tensor:
     """(E, C, K) x (E, K, N) -> (E, C, N) in xbuf's dtype, packed stacks kept
     packed (grouped dispatch of their recorded variant, with ``rows``, the
     filled slots of each expert), dense ones a batched f32-accumulated
-    matmul."""
+    matmul.  Inside the EP body ``fsdp`` names the axes of ``mesh`` a packed
+    stack's block axis is still split over (gathered packed by dispatch)."""
     if isinstance(wstack, dict):
         from repro_torch.engine.dispatch import dispatch_grouped
         return dispatch_grouped(wstack, xbuf, strum=scfg, out_dtype=xbuf.dtype,
-                                rows=rows)
+                                rows=rows, fsdp_axes=tuple(fsdp) or None,
+                                mesh=mesh)
     return torch.matmul(xbuf.to(torch.float32),
                         wstack.to(xbuf.dtype).to(torch.float32)).to(xbuf.dtype)
 
@@ -74,12 +91,16 @@ def _top_k(probs: torch.Tensor, k: int):
 
 
 def _route(x2: torch.Tensor, router_w: torch.Tensor, cfg, e_offset: int,
-           e_local: int, capacity: int) -> dict:
+           e_local: int, capacity: int, split=None) -> dict:
     """Router, top-k and capacity positions of the flattened ``(T·k)``
     assignments (token-major).  Returns the assignments' token ``tok``,
     local expert ``exp``, slot ``pos`` (``capacity`` for a drop), ``keep``
     and f32 combine weight ``w`` (0 for a drop), and the load-balance
-    fractions ``dispatch_frac`` / ``prob_frac`` over all experts."""
+    fractions ``dispatch_frac`` / ``prob_frac`` over all experts.  With
+    ``split = (mesh, axes)`` the rows are this rank's consecutive part of a
+    token order split over ``axes``: an assignment keeps its slot when its
+    position among all ranks' assignments (the earlier ranks' counts, one
+    all-gather, plus its own) is under ``capacity``."""
     t = x2.shape[0]
     k = cfg.top_k
     logits = x2.to(torch.float32) @ router_w.to(torch.float32)
@@ -98,19 +119,26 @@ def _route(x2: torch.Tensor, router_w: torch.Tensor, cfg, e_offset: int,
     # GShard capacity positions: running count per expert, in assignment order
     onehot = F.one_hot(exp, e_local) * is_local[:, None]
     pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
-    keep = is_local & (pos < capacity)
+    slot = pos
+    if split is not None:
+        mesh, axes = split
+        counts = shd.all_gather(onehot.sum(0)[None], mesh, axes, 0)   # (ranks, E)
+        slot = pos + counts[:shd.axis_index(mesh, axes)].sum(0)[exp]
+    keep = is_local & (slot < capacity)
     return {"tok": tok, "exp": exp, "pos": torch.where(keep, pos, capacity),
             "keep": keep, "w": torch.where(keep, w, 0.0),
             "dispatch_frac": dispatch_frac, "prob_frac": prob_frac}
 
 
 def _moe_local(x2, router_w, wi, wg, wo, cfg, e_offset: int, capacity: int,
-               scfgs=(None, None, None)):
+               scfgs=(None, None, None), fsdp=(), mesh=None, split=None):
     """Token-local, expert-local MoE.  x2: (T, D); wi/wg (E, D, F), wo (E,
-    F, D), dense or packed, for the experts from ``e_offset`` on.  Returns
-    (y (T, D) in x2's dtype, (dispatch_frac, prob_frac))."""
+    F, D), dense or packed, for the experts from ``e_offset`` on (packed
+    stacks still split over ``fsdp`` inside the EP body; ``split`` as in
+    :func:`_route`).  Returns (y (T, D) in x2's dtype, (dispatch_frac,
+    prob_frac))."""
     t, d = x2.shape
-    r = _route(x2, router_w, cfg, e_offset, _stack_len(wi), capacity)
+    r = _route(x2, router_w, cfg, e_offset, _stack_len(wi), capacity, split)
     # dispatch: (E, C + 1, D) in x's dtype; slot C is the trash bin
     buf = x2.new_zeros((_stack_len(wi), capacity + 1, d))
     buf.index_put_((r["exp"], r["pos"]),
@@ -123,12 +151,12 @@ def _moe_local(x2, router_w, wi, wg, wo, cfg, e_offset: int, capacity: int,
     rows = torch.zeros(e_local, dtype=torch.int32, device=x2.device).index_add_(
         0, r["exp"], r["keep"].to(torch.int32))
 
-    h = _expert_contract(wi, buf, scfgs[0], rows)
+    h = _expert_contract(wi, buf, scfgs[0], rows, fsdp, mesh)
     if wg is not None:
-        h = F.silu(_expert_contract(wg, buf, scfgs[1], rows)) * h
+        h = F.silu(_expert_contract(wg, buf, scfgs[1], rows, fsdp, mesh)) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    out_buf = _expert_contract(wo, h, scfgs[2], rows)
+    out_buf = _expert_contract(wo, h, scfgs[2], rows, fsdp, mesh)
 
     # combine: f32 weights (0 for drops), scatter-added per token in f32
     gathered = out_buf[r["exp"], torch.clamp(r["pos"], max=capacity - 1)]
@@ -138,17 +166,98 @@ def _moe_local(x2, router_w, wi, wg, wo, cfg, e_offset: int, capacity: int,
     return y.to(x2.dtype), (r["dispatch_frac"], r["prob_frac"])
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, **_kw):
+def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None, **_kw):
     """x: (B, S, D) -> (y, aux).  ``aux = E · Σ(dispatch_frac · prob_frac)``,
     the switch-style load-balance loss.  Per-call kwargs (``backend=``,
     ``strum=``) are ignored, as the reference ignores them: packed stacks
-    run their recorded variant, with ``cfg.strum`` for stacks without one."""
-    if mesh is not None:
-        raise NotImplementedError("moe_apply(mesh=...) is the expert-parallel "
-                                  "path, not ported yet (ROADMAP queue 1 item 13)")
+    run their recorded variant, with ``cfg.strum`` for stacks without one.
+    A mesh with a ``model`` axis runs the expert-parallel body (the module
+    docstring); a mesh the experts or the stacks' FSDP dim do not divide
+    raises before any collective, with the shapes in the message.
+
+    ``batch_split = (mesh, axes)`` (the ZeRO-3 train step, with no
+    ``mesh``): ``x`` is this rank's equal share of a batch split over
+    ``axes``, and the layer routes as one device does on the whole batch:
+    capacity over all tokens, slots in the global token order, and aux from
+    the all-rank mean fractions; its gradient carries this rank's share of
+    ``prob_frac``, so the step's gradient mean is the whole batch's."""
     b, s, d = x.shape
     scfg = cfg.strum
-    y, (df, pf) = _moe_local(x.reshape(-1, d), p["router"]["w"], p["wi"],
-                             p.get("wg"), p["wo"], cfg, 0, _capacity(b * s, cfg),
-                             scfgs=(scfg, scfg, scfg))
-    return y.reshape(b, s, d), cfg.n_experts * torch.sum(df * pf)
+    if batch_split is not None and mesh is None:
+        smesh, axes = batch_split
+        n = shd.axis_size(smesh, axes)
+        y, (df, pf) = _moe_local(x.reshape(-1, d), p["router"]["w"], p["wi"],
+                                 p.get("wg"), p["wo"], cfg, 0,
+                                 _capacity(n * b * s, cfg), scfgs=(scfg, scfg, scfg),
+                                 split=batch_split)
+        df = shd.all_reduce(df, smesh, axes, "mean")
+        pf = pf + (shd.all_reduce(pf.detach(), smesh, axes, "mean") - pf).detach()
+        return y.reshape(b, s, d), cfg.n_experts * torch.sum(df * pf)
+    if mesh is None or "model" not in shd.axis_names(mesh):
+        # the reference's local path; a mesh-aware plan's stacks on an
+        # FSDP-only mesh are blocks of their block axis, gathered packed
+        blocks = any(_is_block(p.get(nm)) for nm in ("wi", "wg", "wo"))
+        y, (df, pf) = _moe_local(x.reshape(-1, d), p["router"]["w"], p["wi"],
+                                 p.get("wg"), p["wo"], cfg, 0,
+                                 _capacity(b * s, cfg), scfgs=(scfg, scfg, scfg),
+                                 fsdp=shd.fsdp_axes(mesh) if blocks else (),
+                                 mesh=mesh)
+        return y.reshape(b, s, d), cfg.n_experts * torch.sum(df * pf)
+
+    data_axes = shd.fsdp_axes(mesh)
+    sizes = shd.axis_sizes(mesh)
+    n_data = shd.axis_size(mesh, data_axes)
+    n_model = sizes["model"]
+    if cfg.n_experts % n_model:
+        raise ValueError(
+            f"moe_apply: n_experts={cfg.n_experts} is not divisible by the "
+            f"'model' mesh axis (size {n_model}, mesh shape {sizes}); experts "
+            f"shard evenly over 'model'")
+    stacks = {nm: p[nm] for nm in ("wi", "wg", "wo") if p.get(nm) is not None}
+    for nm, w in stacks.items():
+        # axis 1 is the FSDP shard dim: K for dense stacks, the packed block
+        # axis nb = ceil(K/w) for compressed ones (a block's: times n_data)
+        arr = w["mask"] if isinstance(w, dict) else w
+        n1 = arr.shape[1] * (n_data if _is_block(w) else 1)
+        kind = "packed block axis nb" if isinstance(w, dict) else "K axis"
+        if n1 % n_data:
+            raise ValueError(
+                f"moe_apply: expert stack {nm!r} {kind} of size {n1} (array "
+                f"shape {tuple(arr.shape)}) is not divisible by the FSDP data "
+                f"axes {data_axes} (size {n_data}); the all-gather would "
+                f"mis-shard")
+    e_local = cfg.n_experts // n_model
+    shard_tokens = b % n_data == 0
+    cap = _capacity((b // n_data) * s if shard_tokens else b * s, cfg)
+    midx = shd.axis_index(mesh, "model")
+    x_l = shd.shard_slice(x, shd.P(data_axes if shard_tokens else None), mesh)
+    local = {nm: _expert_block(w, mesh, data_axes, midx, e_local)
+             for nm, w in stacks.items()}
+    y, (df, pf) = _moe_local(x_l.reshape(-1, d), p["router"]["w"], local["wi"],
+                             local.get("wg"), local["wo"], cfg, midx * e_local, cap,
+                             scfgs=(scfg, scfg, scfg), fsdp=data_axes, mesh=mesh)
+    y = shd.all_reduce(y, mesh, "model")                # combine expert shards
+    # global fractions BEFORE the product (aux is nonlinear in them)
+    df = shd.all_reduce(df, mesh, data_axes + ("model",), "mean")
+    pf = shd.all_reduce(pf, mesh, data_axes + ("model",), "mean")
+    y = y.reshape(x_l.shape)
+    if shard_tokens:
+        y = shd.all_gather(y, mesh, data_axes, 0)
+    return y, cfg.n_experts * torch.sum(df * pf)
+
+
+def _is_block(w) -> bool:
+    """A packed stack from a mesh-aware plan holds this rank's block."""
+    shard = getattr(w.get("spec"), "shard", None) if isinstance(w, dict) else None
+    return shard is not None and bool(shard.mesh_shape)
+
+
+def _expert_block(w, mesh, data_axes: tuple, midx: int, e_local: int):
+    """This rank's experts of a stack: a dense stack's slice (whole K), a
+    packed stack's block (experts over ``model``, block axis over the data
+    axes; a mesh-aware plan's leaf already is one)."""
+    if not isinstance(w, dict):
+        return w[midx * e_local:(midx + 1) * e_local]
+    from repro_torch.engine.sharded import local_payload, payload_specs
+    return dict(w, **local_payload(w, payload_specs(None, data_axes, None, "model"),
+                                   mesh))

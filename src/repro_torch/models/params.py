@@ -6,6 +6,11 @@ materializes them on a device from a seed.
 nested dict (the same ``/``-joined paths, the same ``(groups, K, N)``
 stacking) of numpy arrays becomes the port's tree on a device, so both
 sides compute on identical weights.
+
+On a mesh, ``param_pspecs`` gives each leaf's ``PartitionSpec`` under the
+sharding rules, ``shard_params`` cuts a global tree (tensors, or numpy: the
+weight carry-over) into this rank's shards and ``gather_params`` puts the
+shards back together (ZeRO-3 storage; checkpoints hold the global arrays).
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["ParamDef", "init_params", "params_from_numpy", "torch_dtype"]
+__all__ = ["ParamDef", "init_params", "params_from_numpy", "torch_dtype",
+           "param_pspecs", "param_shardings", "shard_params", "gather_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +90,47 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+
+def _with_defs(fn, tree, defs):
+    """``fn(leaf, def)`` over a parameter tree and its ``ParamDef`` tree."""
+    if isinstance(defs, ParamDef):
+        return fn(tree, defs)
+    return {k: _with_defs(fn, tree[k], d) for k, d in defs.items()}
+
+
+def param_pspecs(defs, rules):
+    """``ParamDef`` tree -> ``PartitionSpec`` tree under ``rules``."""
+    from repro_torch.models.sharding import spec_for_axes
+    return _with_defs(lambda _, d: spec_for_axes(d.axes, rules.table), defs, defs)
+
+
+def param_shardings(defs, mesh, rules):
+    """``ParamDef`` tree -> ``(mesh, PartitionSpec)`` pairs, the twin of the
+    reference's ``NamedSharding`` tree."""
+    return _with_defs(lambda spec, _: (mesh, spec), param_pspecs(defs, rules),
+                      defs)
+
+
+def shard_params(tree, defs, mesh, rules, device=None):
+    """A global tree (tensors or numpy arrays, e.g. the reference's
+    ``init_params``) -> this rank's shards under ``rules``, on ``device``
+    (default: the mesh's device type)."""
+    from repro_torch.models.sharding import shard_slice, spec_for_axes
+    dev = resolve_device(device or mesh.device_type)
+
+    def cut(x, d):
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+        return shard_slice(x.to(dev), spec_for_axes(d.axes, rules.table), mesh)
+    return _with_defs(cut, tree, defs)
+
+
+def gather_params(tree, defs, mesh, rules):
+    """This rank's shards -> the global tree (every rank gets all of it)."""
+    from repro_torch.models.sharding import all_gather, spec_for_axes
+
+    def whole(x, d):
+        for dim, entry in enumerate(spec_for_axes(d.axes, rules.table)):
+            x = all_gather(x, mesh, entry, dim)
+        return x
+    return _with_defs(whole, tree, defs)

@@ -57,8 +57,14 @@ def strum_serve_params(params, cfg, policy: Optional[LayerPolicy] = None,
 
 
 def serve_tree_bytes(params) -> int:
-    """Bytes of every tensor in a (possibly packed) parameter tree."""
+    """Bytes of every tensor in a (possibly packed) parameter tree; a packed
+    leaf of a mesh-aware plan (this rank's block) counts as its whole."""
     if isinstance(params, dict):
+        shard = getattr(params.get("spec"), "shard", None)
+        if shard is not None and shard.mesh_shape:
+            from repro_torch.engine.sharded import field_parts
+            parts = field_parts(shard)
+            return sum(serve_tree_bytes(v) * parts.get(k, 1) for k, v in params.items())
         return sum(serve_tree_bytes(v) for v in params.values())
     if isinstance(params, torch.Tensor):
         return params.numel() * params.element_size()

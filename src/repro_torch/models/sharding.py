@@ -1,0 +1,280 @@
+"""Logical-axis sharding rules and the collectives of a device mesh (twin of
+``repro.models.sharding``).
+
+Every parameter is declared with *logical* axis names (``ParamDef.axes``);
+rules map them to mesh axes, as in the reference:
+
+  * the ``embed``-like (reduction / d_model) dim of every weight shards over
+    the data axis: ZeRO-3 / FSDP storage, gathered per use,
+  * output-feature dims (heads, mlp, vocab, experts) shard over ``model``,
+  * stacked-layer dims never shard.
+
+The port runs one process per rank (``torch.distributed``) over a
+``DeviceMesh`` and keeps the reference's ``shard_map`` contract, *global in,
+global out*: every rank runs the same program on the same full activations,
+parameters and packed payloads are held as this rank's shard, and collectives
+are written only where the reference writes them, inside its ``shard_map``
+bodies (the ``sharded:*`` variants, the MoE body, the pipeline ring).
+Placing dense activations and the decode caches (``batch``, ``heads``,
+``cache_seq``) is what the reference leaves to GSPMD: here dense compute is
+replicated on every rank, so :func:`constrain` checks the logical axes
+against the rules and the mesh and moves nothing.  That is a layout choice,
+not a numerical difference.
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh``
+(:func:`repro_torch.launch.mesh.make_host_mesh`); the helpers here also take
+any object with ``axis_names`` and a ``shape`` dict, as the reference's
+tests pass, wherever no collective runs.  Collectives use what both gloo and
+NCCL implement: ``all_gather`` in its list form and ``all_reduce``, over the
+mesh's process groups (``DeviceMesh.get_group``; a flattened sub-mesh where
+several axes act as one, such as ``("pod", "data")``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "PartitionSpec", "P", "Rules", "TRAIN_RULES", "POD_TRAIN_RULES",
+    "rules_for_mesh", "fsdp_axes", "spec_for_axes", "shard_leaf", "constrain",
+    "batch_spec", "shard_map", "axis_names", "axis_sizes", "axis_size",
+    "axis_index", "all_gather", "all_reduce", "shard_slice",
+]
+
+
+class PartitionSpec(tuple):
+    """Torch-free twin of ``jax.sharding.PartitionSpec``: one entry per dim,
+    ``None`` (replicated), a mesh axis name, or a tuple of names (the dim
+    splits over their product, the first name outermost)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+# logical axis -> mesh axis (or tuple of mesh axes); None = replicated
+TRAIN_RULES: dict = {
+    "batch": "data",
+    "seq": None,
+    "embed": "data",        # FSDP shard dim of weights
+    "embed_no_fsdp": None,
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": None,       # GQA kv counts are small; replicate
+    "head_dim": None,
+    "qkv": "model",         # fused (heads*hd [+bias]) output dims
+    "mlp": "model",
+    "experts": "model",     # EP == TP axis
+    "expert_mlp": None,
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "ssm_heads": "model",
+    "layers": None,
+    "conv": None,
+    "cache_seq": "model",   # decode KV/conv caches: sequence over model
+}
+
+POD_TRAIN_RULES = dict(TRAIN_RULES)
+POD_TRAIN_RULES.update({
+    "batch": ("pod", "data"),
+    "embed": ("pod", "data"),   # FSDP spans pods
+})
+
+
+def axis_names(mesh) -> tuple:
+    """The mesh's axis names; ``()`` for ``mesh=None`` or an object without
+    any (the reference's ``getattr(mesh, "axis_names", ())``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(getattr(mesh, "axis_names", ()))
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` or a mesh-like object."""
+    if mesh is None:
+        return {}
+    if hasattr(mesh, "mesh_dim_names"):
+        return {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+    return dict(mesh.shape)
+
+
+def _as_axes(entry) -> tuple:
+    """A spec entry as a tuple of mesh axis names."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def axis_size(mesh, axes) -> int:
+    """Product of the sizes of ``axes`` (a name, a tuple of names, or None);
+    an axis the mesh lacks counts 1 (replicated), as the rules' ``model``
+    on an FSDP-only mesh."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes.get(a, 1) for a in _as_axes(axes))
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's coordinate along ``axes`` taken as one axis (row-major,
+    the first name outermost): ``jax.lax.axis_index`` over a tuple."""
+    idx = 0
+    for a in _as_axes(axes):
+        idx = idx * mesh.size(axis_names(mesh).index(a)) + mesh.get_local_rank(a)
+    return idx
+
+
+def fsdp_axes(mesh) -> tuple:
+    """Mesh axes weights FSDP-shard (and all-gather) over: ``("data",)``, or
+    ``("pod", "data")`` when FSDP spans pods; ``()`` for ``mesh=None``."""
+    names = axis_names(mesh)
+    cand = ("pod", "data") if "pod" in names else ("data",)
+    return tuple(a for a in cand if a in names)
+
+
+class Rules:
+    """Logical-axis table; ``axis_names`` (set by :func:`rules_for_mesh`)
+    are the mesh axes the table may name, which :func:`constrain` checks."""
+
+    def __init__(self, table: dict, axis_names: Optional[tuple] = None):
+        self.table = dict(table)
+        self.axis_names = axis_names
+
+    def __call__(self, axes) -> PartitionSpec:
+        return spec_for_axes(axes, self.table)
+
+
+def rules_for_mesh(mesh, global_batch: Optional[int] = None) -> Rules:
+    """The reference's rules for ``mesh``; a ``global_batch`` the data axes
+    do not divide replicates the batch."""
+    names = axis_names(mesh)
+    table = dict(POD_TRAIN_RULES if "pod" in names else TRAIN_RULES)
+    if mesh is not None and global_batch is not None:
+        if global_batch % axis_size(mesh, table["batch"]):
+            table["batch"] = None
+    return Rules(table, names if mesh is not None else None)
+
+
+def spec_for_axes(axes, table: dict) -> PartitionSpec:
+    """('embed', 'mlp') -> PartitionSpec('data', 'model') under the rules."""
+    return P(*(None if a is None else table.get(a, None) for a in axes))
+
+
+def shard_slice(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the global tensor ``x`` under ``spec`` (dims the
+    spec leaves out are whole).  A dim its axes do not divide raises."""
+    for dim, entry in enumerate(spec):
+        n = axis_size(mesh, entry)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(
+                f"dim {dim} of size {x.shape[dim]} (shape {tuple(x.shape)}) is not "
+                f"divisible by mesh axes {_as_axes(entry)} (size {n})")
+        x = x.chunk(n, dim=dim)[axis_index(mesh, entry)]
+    return x.contiguous()
+
+
+def shard_leaf(mesh, x: torch.Tensor, axes, table: Optional[dict] = None):
+    """This rank's shard of one global tensor under its logical ``axes``
+    (the default table is :data:`TRAIN_RULES`); ``mesh=None`` passes it."""
+    if mesh is None:
+        return x
+    return shard_slice(x, spec_for_axes(axes, table or TRAIN_RULES), mesh)
+
+
+def constrain(x: torch.Tensor, axes, rules: Optional[Rules]):
+    """The reference's ``with_sharding_constraint`` by logical axes, as a
+    checked no-op: one logical axis per dim, each mapped to axes of the
+    rules' mesh.  Dense activations stay replicated (the module docstring)."""
+    if rules is None:
+        return x
+    if len(axes) != x.dim():
+        raise ValueError(f"constrain: {len(axes)} logical axes {tuple(axes)} "
+                         f"for a {x.dim()}-d tensor of shape {tuple(x.shape)}")
+    if rules.axis_names is not None:
+        for entry in rules(axes):
+            missing = [a for a in _as_axes(entry) if a not in rules.axis_names]
+            if missing:
+                raise ValueError(f"constrain: logical axes {tuple(axes)} map to "
+                                 f"{missing}, not axes of the mesh "
+                                 f"{rules.axis_names}")
+    return x
+
+
+def batch_spec(rules: Optional[Rules], extra_axes: int = 1) -> PartitionSpec:
+    """(batch, seq, ...) activation spec."""
+    if rules is None:
+        return P()
+    return rules(("batch",) + (None,) * extra_axes)
+
+
+# ------------------------------------------------------------ collectives --
+
+def _group(mesh, axes):
+    """The process group of ``axes`` (one axis, or several flattened)."""
+    axes = _as_axes(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten("_".join(axes)).get_group()
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axes, axis=dim, tiled=True)``: the ranks'
+    blocks concatenated along ``dim`` in the order of :func:`axis_index`."""
+    n = axis_size(mesh, axes)
+    if n == 1:
+        return x
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=_group(mesh, axes))
+    return torch.cat(parts, dim=dim)
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """``psum`` (``op="sum"``) or ``pmean`` (``"mean"``) over ``axes``; the
+    input is left as it was."""
+    n = axis_size(mesh, axes)
+    if n == 1:
+        return x
+    import torch.distributed as dist
+    y = x.clone()
+    dist.all_reduce(y, group=_group(mesh, axes))
+    return y / n if op == "mean" else y
+
+
+def _map_spec(fn, tree, spec):
+    """Apply ``fn(leaf, spec)`` over a tensor tree; ``spec`` is one spec for
+    the whole tree or a dict of specs matching a dict."""
+    if isinstance(tree, dict):
+        return {k: _map_spec(fn, v, spec[k] if isinstance(spec, dict) else spec)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_spec(fn, v, s) for v, s in zip(tree, spec))
+    return fn(tree, spec) if isinstance(tree, torch.Tensor) else tree
+
+
+def _gather_out(y: torch.Tensor, spec, mesh) -> torch.Tensor:
+    for dim, entry in enumerate(spec):
+        y = all_gather(y, mesh, entry, dim)
+    return y
+
+
+def shard_map(f, mesh, in_specs, out_specs):
+    """Twin of ``jax.shard_map`` under the global-in, global-out contract:
+    the returned function takes global (replicated) arguments, enters ``f``
+    on this rank's blocks of them (``in_specs``, one per argument; a dict
+    of specs for a dict argument), and all-gathers ``f``'s result back to
+    global along ``out_specs``.  Inside ``f`` the collectives are
+    :func:`all_gather` / :func:`all_reduce` / :func:`axis_index` on
+    ``mesh``."""
+    def fn(*args):
+        local = [_map_spec(lambda x, s: shard_slice(x, s, mesh), a, s)
+                 for a, s in zip(args, in_specs)]
+        out = f(*local)
+        return _map_spec(lambda y, s: _gather_out(y, s, mesh), out, out_specs)
+    return fn

@@ -15,6 +15,14 @@ Python loop here that slices group ``g`` out of every tensor (packed
 payload fields included).  Inputs are token ids, or with ``batch["embeds"]``
 (the audio and VLM configs' stub frontend) embeddings ``(B, S, D)``; the
 decode lanes take ``(B, 1, D)`` embeddings in place of ``(B, 1)`` ids.
+
+Every forward and lane takes ``mesh=`` / ``rules=`` as the reference's do:
+the mesh rides to every linear as ``tp_mesh`` (packed leaves run the
+``sharded:*`` compressed-gather family, dense leaves ignore it) and to the
+MoE FFN (the expert-parallel body); ``rules`` reach
+:func:`repro_torch.models.sharding.constrain`, a checked no-op: activations
+and caches stay global and replicated on every rank (placing them is what
+the reference leaves to GSPMD).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.models.layers import (apply_norm, embed_def, embed_lookup,
                                        linear_def, logits, mlp, mlp_def,
                                        norm_def)
 from repro_torch.models.params import ParamDef
+from repro_torch.models.sharding import constrain
 
 __all__ = ["period", "n_groups", "model_defs", "cache_defs", "forward_train",
            "loss_fn", "prefill", "decode_step", "decode_step_paged",
@@ -120,15 +129,25 @@ def _blocks(params, cfg, *trees):
             yield (f"pos{i}",) + tuple(t[f"pos{i}"] for t in groups)
 
 
-def _ffn_residual(bp, x, cfg, kw):
+def _ffn_residual(bp, x, cfg, kw, batch_split=None):
     """x + the block's MLP or MoE FFN; returns (x, MoE aux loss or 0)."""
     if cfg.d_ff <= 0:
         return x, 0.0
     h = apply_norm(bp["norm2"], x, cfg)
     if "moe" in bp:
-        h, aux = moe.moe_apply(bp["moe"], h, cfg, **kw)
+        h, aux = moe.moe_apply(bp["moe"], h, cfg, mesh=kw.get("tp_mesh"),
+                               batch_split=batch_split)
         return x + h, aux
     return x + mlp(bp["mlp"], h, cfg, **kw), 0.0
+
+
+def _mesh_kw(kw: dict, mesh) -> dict:
+    """The linears' keywords: ``strum`` defaults to the config's, and a mesh
+    rides along as ``tp_mesh`` whatever ``cfg.strum`` is (a schedule-built
+    plan packs leaves with ``cfg.strum`` None)."""
+    if mesh is not None:
+        kw.setdefault("tp_mesh", mesh)
+    return kw
 
 
 def _embed_in(params, inputs, cfg):
@@ -185,12 +204,17 @@ def _remat(body, cfg):
     return run
 
 
-def forward_train(params: dict, batch: dict, cfg, **kw):
+def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
+                  batch_split=None, **kw):
     """Full forward; returns (logits f32, aux): aux is the MoE load-balance
     loss summed over layers (0 without MoE layers).  With ``cfg.remat``
-    each layer group is checkpointed (:func:`_remat`)."""
+    each layer group is checkpointed (:func:`_remat`).  ``batch_split =
+    (mesh, axes)`` says ``batch`` is this rank's share of a batch split over
+    ``axes`` (the ZeRO-3 step): MoE layers then route over the whole batch
+    (``moe.moe_apply``)."""
     kw.setdefault("strum", cfg.strum)
-    x = _batch_in(params, batch, cfg)
+    _mesh_kw(kw, mesh)
+    x = constrain(_batch_in(params, batch, cfg), ("batch", None, None), rules)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
 
@@ -200,10 +224,11 @@ def forward_train(params: dict, batch: dict, cfg, **kw):
             bp = gp[f"pos{i}"]
             h = apply_norm(bp["norm1"], x, cfg)
             if "attn" in bp:
-                h = attn_mod.attention(bp["attn"], h, cfg, positions, **kw)
+                h = attn_mod.attention(bp["attn"], h, cfg, positions, rules=rules,
+                                       **kw)
             else:
                 h = mamba2.ssm_apply(bp["ssm"], h, cfg, **kw)
-            x, a = _ffn_residual(bp, x + h, cfg, kw)
+            x, a = _ffn_residual(bp, x + h, cfg, kw, batch_split)
             aux = aux + a
         return x, aux
 
@@ -213,13 +238,14 @@ def forward_train(params: dict, batch: dict, cfg, **kw):
         x, a = body(x, _group(params["blocks"], g))
         aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
-    return logits(params.get("lm_head"), params["embed"], x), aux
+    lg = logits(params.get("lm_head"), params["embed"], x)
+    return constrain(lg, ("batch", None, "vocab"), rules), aux
 
 
-def loss_fn(params: dict, batch: dict, cfg, **kw):
+def loss_fn(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
     """Next-token cross-entropy over ``labels >= 0`` plus
     ``router_aux_weight · aux``; returns ``(loss, {"ce", "aux"})``."""
-    lg, aux = forward_train(params, batch, cfg, **kw)
+    lg, aux = forward_train(params, batch, cfg, mesh, rules, **kw)
     labels = batch["labels"]
     lse = torch.logsumexp(lg, dim=-1)
     # a masked label (< 0) reads column 0; its term is multiplied by 0
@@ -229,13 +255,14 @@ def loss_fn(params: dict, batch: dict, cfg, **kw):
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def prefill(params: dict, batch: dict, cfg, **kw):
+def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
     """Forward over a prompt; returns (last-token logits (B, 1, V) f32,
     caches): per attention position ``{"k", "v"}`` stacked as (groups, B, S,
     KV, hd), per SSM position ``{"conv", "state"}`` as (groups, B, W-1,
     conv_dim) and (groups, B, nh, hp, ns) f32."""
     kw.setdefault("strum", cfg.strum)
-    x = _batch_in(params, batch, cfg)
+    _mesh_kw(kw, mesh)
+    x = constrain(_batch_in(params, batch, cfg), ("batch", None, None), rules)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     caches = _per_pos(cfg, ("k", "v"), ("conv", "state"))
@@ -244,7 +271,7 @@ def prefill(params: dict, batch: dict, cfg, **kw):
         c = caches[pos]
         if "attn" in bp:
             h, (k, v) = attn_mod.attention(bp["attn"], h, cfg, positions,
-                                           return_kv=True, **kw)
+                                           return_kv=True, rules=rules, **kw)
             c["k"].append(k.to(cfg.activation_dtype))
             c["v"].append(v.to(cfg.activation_dtype))
         else:
@@ -259,12 +286,13 @@ def prefill(params: dict, batch: dict, cfg, **kw):
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
-                cfg, **kw):
+                cfg, mesh=None, rules=None, **kw):
     """One decode step.  token: (B, 1) int, or embeddings (B, 1, D).
     Returns (logits (B, 1, V) f32, caches); the caches are updated in place
     (attention at ``cache_len``, SSM conv and state whole)."""
     kw.setdefault("strum", cfg.strum)
-    x = _embed_in(params, token, cfg)
+    _mesh_kw(kw, mesh)
+    x = constrain(_embed_in(params, token, cfg), ("batch", None, None), rules)
     for _, bp, c in _blocks(params, cfg, caches):
         h = apply_norm(bp["norm1"], x, cfg)
         if "attn" in bp:
@@ -297,7 +325,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
 def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
                       hot: dict, cache_len: torch.Tensor,
                       page_table: torch.Tensor, active: torch.Tensor,
-                      spec, cfg, cache_backend=None, **kw):
+                      spec, cfg, mesh=None, rules=None, cache_backend=None, **kw):
     """One decode step over paged caches.  token: (B, 1) int, or (B, 1, D)
     embeddings.
 
@@ -307,7 +335,8 @@ def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
     updated in place.
     """
     kw.setdefault("strum", cfg.strum)
-    x = _embed_in(params, token, cfg)
+    _mesh_kw(kw, mesh)
+    x = constrain(_embed_in(params, token, cfg), ("batch", None, None), rules)
     for _, bp, pool, hp in _blocks(params, cfg, pools, hot):
         h = apply_norm(bp["norm1"], x, cfg)
         if "attn" in bp:
@@ -329,7 +358,8 @@ def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
 def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
                        hot: dict, page_table: torch.Tensor, slot: torch.Tensor,
                        start: torch.Tensor, valid_len: torch.Tensor,
-                       spec, cfg, cache_backend=None, **kw):
+                       spec, cfg, mesh=None, rules=None, cache_backend=None,
+                       **kw):
     """One fixed-shape prefill chunk for ONE slot.  tokens: (1, C) int, or
     (1, C, D) embeddings.
 
@@ -343,8 +373,9 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     continuation (``ssm_prefill_chunk``).
     """
     kw.setdefault("strum", cfg.strum)
+    _mesh_kw(kw, mesh)
     ps = spec.page_size
-    x = _embed_in(params, tokens, cfg)
+    x = constrain(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
     c = x.shape[1]
     slot1 = slot.to(torch.long).reshape(1)
     row = page_table.index_select(0, slot1)[0]
@@ -379,7 +410,8 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
 
 def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
                       hot: dict, page_table: torch.Tensor, slot: torch.Tensor,
-                      start: torch.Tensor, spec, cfg, cache_backend=None, **kw):
+                      start: torch.Tensor, spec, cfg, mesh=None, rules=None,
+                      cache_backend=None, **kw):
     """Score a speculative token window for ONE slot.  tokens: (1, C) int, or
     (1, C, D) embeddings.
 
@@ -395,7 +427,8 @@ def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     (k, v) in the tails' dtype.
     """
     kw.setdefault("strum", cfg.strum)
-    x = _embed_in(params, tokens, cfg)
+    _mesh_kw(kw, mesh)
+    x = constrain(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
     slot1 = slot.to(torch.long).reshape(1)
     row = page_table.index_select(0, slot1)[0]
     chunk_kv = _per_pos(cfg, ("k", "v"))

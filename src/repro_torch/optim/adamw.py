@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -70,10 +70,14 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState,
+                 gnorm: Optional[torch.Tensor] = None):
     """Returns (new_params, new_state, stats) with stats ``grad_norm`` and
-    ``lr`` (tensors); nothing it was given is modified."""
-    gnorm = global_norm(grads)
+    ``lr`` (tensors); nothing it was given is modified.  ``gnorm`` is the
+    clip's global norm where ``grads`` are shards of the gradient (the ZeRO-3
+    step); by default the norm of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = warmup_cosine(cfg, step)

@@ -52,7 +52,13 @@ spans (``sched:*``, ``spec:*``), counters and gauges (``sched/*``,
 ``spec/drafted``, ``spec/accepted``, ``spec/rounds``) and request
 lifecycle events.
 
-Not ported yet: ``mesh=`` / ``rules=``.
+``mesh=`` / ``rules=`` (a ``DeviceMesh``, as the reference's scheduler
+takes a mesh) thread into the plan the scheduler builds and into every
+lane: packed linears run the ``sharded:*`` compressed-gather family and MoE
+layers the expert-parallel body.  Every rank runs the same scheduler on the
+same requests; pages, tails and tokens are replicated, so each rank's
+output is the whole batch's.  No sharded draft variant exists, so
+``speculative`` with a mesh is refused.
 """
 from __future__ import annotations
 
@@ -120,7 +126,8 @@ class BatchScheduler:
     decode lane) or ``"serial"``.
 
     Weight knobs: ``plan=`` or ``schedule=`` (+ ``backend=``, which pins
-    the selection family of the plan the scheduler builds).
+    the selection family of the plan the scheduler builds), ``mesh=`` /
+    ``rules=`` (the module docstring).
 
     Speculative knobs: ``speculative=k`` (k > 0, needs ``plan=`` or
     ``schedule=``) drafts
@@ -135,7 +142,8 @@ class BatchScheduler:
     """
 
     def __init__(self, cfg, params, n_slots: int = 4, max_len: int = 256,
-                 schedule=None, plan=None, backend=None, kv_cache=None,
+                 mesh=None, rules=None, schedule=None, plan=None, backend=None,
+                 kv_cache=None,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  prefill: str = "chunked", prefill_chunk: Optional[int] = None,
                  cache_backend=None, speculative: int = 0, draft=None,
@@ -148,6 +156,9 @@ class BatchScheduler:
                              "plan already recorded its variant selection")
         if prefill not in ("chunked", "serial"):
             raise ValueError(f"prefill={prefill!r}; want 'chunked'|'serial'")
+        if speculative and mesh is not None:
+            raise ValueError("speculative=k with mesh=: the draft lane has no "
+                             "sharded:* variant")
         dev = resolve_device(device)
         if schedule is not None:
             from repro_torch.autotune.schedule import StruMSchedule
@@ -155,7 +166,8 @@ class BatchScheduler:
             if isinstance(schedule, (str, bytes)) or hasattr(schedule, "__fspath__"):
                 schedule = StruMSchedule.load(schedule)
             plan = build_serving_plan(params, schedule=schedule,
-                                      backend=backend, device=dev)
+                                      backend=backend, mesh=mesh, rules=rules,
+                                      device=dev)
         if plan is not None:
             params = plan.params
             schedule = schedule if schedule is not None else plan.schedule
@@ -193,11 +205,11 @@ class BatchScheduler:
         self._ssm_pos = [pos for pos in self.hot if pos not in self._attn_pos]
 
         # ---- lanes -----------------------------------------------------
-        self._decode = make_paged_decode_step(cfg, self.spec,
+        self._decode = make_paged_decode_step(cfg, self.spec, mesh, rules,
                                               cache_backend=cache_backend)
         self._chunk_prefill = make_chunked_prefill_step(
-            cfg, self.spec, cache_backend=cache_backend)
-        self._prefill = make_prefill_step(cfg)
+            cfg, self.spec, mesh, rules, cache_backend=cache_backend)
+        self._prefill = make_prefill_step(cfg, mesh, rules)
         self.lane_runs = {"decode": 0, "prefill_chunk": 0, "prefill_serial": 0,
                           "draft": 0, "verify": 0}
 

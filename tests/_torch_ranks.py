@@ -1,0 +1,538 @@
+"""Multi-rank runs of the port for the CPU tests: gloo ranks spawned with
+``torch.multiprocessing``, one intra-op thread each, and the rank bodies of
+``tests/test_torch_sharded.py`` and ``tests/test_torch_distributed.py``.
+
+This module imports ``torch`` and ``repro_torch`` only: a spawned rank
+re-imports the module of the function it runs, and the test modules import
+JAX.  Inputs come from an ``.npz`` the test writes (seeded numpy arrays and
+the reference's parameters); every rank returns a dict of numpy arrays and
+plain values.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import queue
+import socket
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+FIELDS = ("mask", "hi", "lo", "scale")
+
+
+def free_port() -> int:
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _entry(fn, rank: int, world: int, port: int, args: tuple, out) -> None:
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=world)
+        res = fn(rank, world, *args)
+        dist.barrier()
+        out.put((rank, res, None))
+    except BaseException:
+        out.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world: int, *args, timeout: float = 600.0) -> list:
+    """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; returns the
+    ranks' results in rank order, or raises with the first rank's
+    traceback.  Every rank is joined (or ended) before it returns."""
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    env = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS")}
+    os.environ.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    try:
+        procs = [ctx.Process(target=_entry, args=(fn, r, world, port, args, out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    results, errors = {}, []
+    try:
+        while len(results) + len(errors) < world:
+            rank, res, err = out.get(timeout=timeout)
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+                break
+            results[rank] = res
+    except queue.Empty:
+        errors.append(f"timed out after {timeout} s with {sorted(results)} done")
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if errors:
+        raise RuntimeError(errors[0])
+    return [results[r] for r in range(world)]
+
+
+# --------------------------------------------------------------- helpers --
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Nested dict of arrays -> ``{"a/b/c": array}``."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten(v, name))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def unflatten(flat: dict, prefix: str) -> dict:
+    """The sub-tree of ``flatten``'s output under ``prefix`` as torch
+    tensors on the CPU."""
+    tree: dict = {}
+    for name, v in flat.items():
+        if not name.startswith(prefix + "/"):
+            continue
+        node = tree
+        parts = name[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = torch.tensor(np.asarray(v))
+    return tree
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to(torch.float32).numpy() if t.dtype == torch.bfloat16 \
+        else t.detach().numpy()
+
+
+def _fields(leaf: dict) -> dict:
+    return {k: _np(leaf[k]) for k in FIELDS}
+
+
+def _gathered(y: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    from repro_torch.models import sharding as shd
+    return shd.all_gather(y, mesh, axes, dim)
+
+
+# ------------------------------------------------- test_torch_sharded.py --
+
+def sharded_cases(rank: int, world: int, path: str) -> dict:
+    """The 4 x 2 ("data", "model") mesh cases and the FSDP-only mesh case."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import engine, telemetry
+    from repro_torch.autotune.schedule import StruMSchedule
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.engine.dispatch import dequant_leaf, dispatch, dispatch_grouped
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_serving_plan, make_prefill_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import sharding as shd
+
+    data = dict(np.load(path))
+    scfg = StruMConfig(method="mip2q", p=0.5, L=5)
+    mesh = make_host_mesh(data=4, model=2, device="cpu")
+    res: dict = {"coord": (shd.axis_index(mesh, "data"), shd.axis_index(mesh, "model"))}
+    t = lambda k: torch.tensor(data[k])  # noqa: E731
+
+    # -- plan parity: col, row and an expert stack on 4 x 2 ------------------
+    params = {"blocks": {"mlp": {"wi": {"w": t("w_wi")}, "wo": {"w": t("w_wo")}},
+                         "moe": {"wi": t("w_stack")}}}
+    plan = engine.build_plan(params, cfg=scfg, backend="cuda", mesh=mesh,
+                             device="cpu")
+    res["dist"] = plan.summary()["variant_distribution"]
+    res["payload_bytes"] = plan.summary()["packed_payload_bytes"]
+    local = engine.build_plan(params, cfg=scfg, device="cpu")
+    for nm in ("wi", "wo"):
+        leaf = plan.params["blocks"]["mlp"][nm]["w"]
+        res[f"{nm}_pattern"] = leaf["spec"].shard.tp_pattern
+        res[f"{nm}_fields"] = _fields(leaf)
+        x = t(f"x_{nm}")
+        res[f"{nm}_y"] = _np(dispatch(leaf, x, mesh=mesh))
+        res[f"{nm}_want"] = _np(x @ dequant_leaf(local.params["blocks"]["mlp"][nm]["w"],
+                                                 torch.float32))
+        # a mesh-less plan's (global) leaf served on the mesh
+        res[f"{nm}_y_global_leaf"] = _np(dispatch(
+            local.params["blocks"]["mlp"][nm]["w"], x, mesh=mesh,
+            tp_pattern=res[f"{nm}_pattern"]))
+        try:
+            dispatch(leaf, x)
+            res[f"{nm}_no_mesh"] = "served"
+        except ValueError as e:
+            res[f"{nm}_no_mesh"] = str(e)
+        for m in (6, 1, 13):      # ragged M: none divides the 4-way FSDP axis
+            xm = t(f"x_{nm}_m{m}")
+            res[f"{nm}_ragged{m}"] = (
+                _np(dispatch(leaf, xm, mesh=mesh)),
+                _np(xm @ dequant_leaf(local.params["blocks"]["mlp"][nm]["w"],
+                                      torch.float32)))
+    stack = plan.params["blocks"]["moe"]["wi"]
+    res["stack_variant"] = stack["spec"].variant
+    res["stack_lead_axis"] = stack["spec"].shard.lead_axis
+    res["stack_fields"] = _fields(stack)
+    xb = shd.shard_slice(t("xb"), shd.P("model"), mesh)
+    yg = dispatch_grouped(stack, xb, strum=scfg, fsdp_axes=("data",), mesh=mesh)
+    res["stack_y"] = _np(_gathered(yg, mesh, "model", 0))
+    res["stack_want"] = _np(torch.matmul(
+        t("xb"), dequant_leaf(local.params["blocks"]["moe"]["wi"], torch.float32)))
+
+    # -- packed bytes, not dequantized ---------------------------------------
+    leaf = plan.params["blocks"]["mlp"]["wi"]["w"]
+    with telemetry.recording() as rec:
+        dispatch(leaf, t("x_wi"), mesh=mesh)
+    res["counters"] = {k: int(v) for k, v in rec.counters().items()}
+    res["whole_payload"] = local.entries["blocks/mlp/wi/w"].payload_bytes()
+
+    # -- the post-gather kernel sees the per-call backend ---------------------
+    calls = []
+
+    @engine.register_kernel("test:probe", family="torch", priority=99,
+                            supports=lambda c, i: not i.lead)
+    def probe(x2, packed, *, out_dtype=None):
+        calls.append(tuple(x2.shape))
+        return torch.zeros((x2.shape[0], packed.n_out), dtype=out_dtype or x2.dtype)
+    try:
+        gleaf = dict(local.params["blocks"]["mlp"]["wi"]["w"])
+        gleaf.pop("spec")
+        y = dispatch(gleaf, t("x_wi"), mesh=mesh, tp_pattern="col", backend="cuda")
+        res["probe_cuda"] = (list(calls), float(y.abs().max()))
+        calls.clear()
+        dispatch(gleaf, t("x_wi"), mesh=mesh, tp_pattern="col", backend="torch")
+        res["probe_torch"] = list(calls)
+    finally:
+        engine.unregister_kernel("test:probe")
+
+    # -- the MoE model through sharded:grouped_gather -------------------------
+    mcfg = get_smoke_config("qwen3_moe_235b_a22b")
+    mscfg = StruMConfig(method="mip2q", p=0.5, L=5, w=16)
+    import dataclasses
+    mcfg = dataclasses.replace(mcfg, strum=mscfg)
+    mp_ = {"blocks": {"moe": unflatten(data, "moe_params")}}
+    mplan = engine.build_plan(mp_, cfg=mscfg, mesh=mesh, device="cpu")
+    res["moe_dist"] = mplan.summary()["variant_distribution"]
+    mlocal = engine.build_plan(mp_, cfg=mscfg, device="cpu")
+    x = t("moe_x")
+    y_l, a_l = moe_mod.moe_apply(mlocal.params["blocks"]["moe"], x, mcfg)
+    y_d, a_d = moe_mod.moe_apply(mplan.params["blocks"]["moe"], x, mcfg, mesh=mesh)
+    res["moe"] = (_np(y_l), float(a_l), _np(y_d), float(a_d))
+
+    # the plan's backend reaches the post-gather grouped kernel
+    gcalls = []
+
+    @engine.register_kernel("test:gprobe", family="reference", priority=99,
+                            grouped=True, supports=lambda c, i: bool(i.lead))
+    def gprobe(xg, packed, *, out_dtype=None, rows=None):
+        gcalls.append(tuple(xg.shape))
+        return torch.zeros(tuple(xg.shape[:-1]) + (packed.n_out,),
+                           dtype=out_dtype or xg.dtype)
+    try:
+        for backend in ("reference", None):
+            p_b = engine.build_plan(mp_, cfg=mscfg, backend=backend, mesh=mesh,
+                                    device="cpu")
+            moe_mod.moe_apply(p_b.params["blocks"]["moe"], torch.zeros_like(x),
+                              mcfg, mesh=mesh)
+            res[f"gprobe_{backend}"] = len(gcalls)
+            gcalls.clear()
+    finally:
+        engine.unregister_kernel("test:gprobe")
+
+    # -- a schedule-built plan threads the mesh into the forwards ------------
+    qcfg = dataclasses.replace(get_smoke_config("qwen2_7b"), strum=None,
+                               dtype="float32")
+    qp = unflatten(data, "qwen_params")
+    sched = StruMSchedule(assignments={
+        n: StruMConfig(method="mip2q", p=0.5, L=5) for n in data["sched_names"]})
+    rules = shd.rules_for_mesh(mesh)
+    splan = build_serving_plan(qp, schedule=sched, mesh=mesh, rules=rules,
+                               device="cpu")
+    res["sched_dist"] = splan.summary()["variant_distribution"]
+    batch = {"tokens": torch.ones((4, 8), dtype=torch.long)}
+    with telemetry.recording() as rec:
+        lg, _ = make_prefill_step(qcfg, mesh, rules)(splan.params, batch)
+    res["sched_gathered"] = int(rec.counter("dispatch/sharded/gathered_packed_bytes"))
+    single = build_serving_plan(qp, schedule=sched, device="cpu")
+    lg1, _ = make_prefill_step(qcfg)(single.params, batch)
+    res["sched_lg"] = (_np(lg), _np(lg1))
+
+    # -- an FSDP-only mesh (no "model" axis) ----------------------------------
+    fmesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    fparams = {"mlp": {"wi": {"w": t("f_wi")}, "wo": {"w": t("f_wo")}}}
+    fplan = engine.build_plan(fparams, cfg=scfg, backend="cuda", mesh=fmesh,
+                              device="cpu")
+    flocal = engine.build_plan(fparams, cfg=scfg, device="cpu")
+    for nm in ("wi", "wo"):
+        x = t(f"f_x_{nm}")
+        leaf = fplan.params["mlp"][nm]["w"]
+        res[f"fsdp_{nm}"] = (leaf["spec"].variant, _np(dispatch(leaf, x, mesh=fmesh)),
+                             _np(x @ dequant_leaf(flocal.params["mlp"][nm]["w"],
+                                                  torch.float32)))
+    return res
+
+
+# --------------------------------------------- test_torch_distributed.py --
+
+def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
+    """The 2 x 2 mesh cases, the pipeline on pp = 4, the ZeRO-3 step and the
+    elastic checkpoint round trip (saved on 2 x 2, restored on 4 x 1 and on
+    one device), the scheduler and ``serve --mesh``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import engine
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.apply import fake_quantize_array
+    from repro_torch.core.policy import StruMConfig, default_policy
+    from repro_torch.engine.sharded import gather_dequant_leaf
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_serving_plan, make_train_step
+    from repro_torch.models import decode_step, model_defs, prefill
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.params import gather_params, shard_params
+    from repro_torch.models.quantize import _pack_leaf
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.pipeline import pipelined_apply
+    from repro_torch.serving import BatchScheduler, Request
+
+    data = dict(np.load(path))
+    t = lambda k: torch.tensor(data[k])  # noqa: E731
+    mesh = make_host_mesh(data=2, model=2, device="cpu")
+    res: dict = {}
+
+    # -- the shard_map twin ---------------------------------------------------
+    x = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6)
+    blocks = shd.shard_map(lambda b: b * 2 + 1, mesh, (shd.P("data", "model"),),
+                           shd.P("data", "model"))(x)
+    summed = shd.shard_map(lambda b: shd.all_reduce(b, mesh, "model"), mesh,
+                           (shd.P("data", "model"),), shd.P("data", None))(x)
+    res["shard_map"] = (_np(blocks), _np(summed))
+    res["shard_leaf"] = _np(shd.shard_leaf(mesh, x, ("embed", "mlp")))
+    res["coord"] = (shd.axis_index(mesh, "data"), shd.axis_index(mesh, "model"))
+
+    # -- gather_dequant_leaf, both TP patterns --------------------------------
+    scfg = StruMConfig(method="mip2q", p=0.5, L=5)
+    leaf = _pack_leaf(t("gd_w"), scfg)
+    res["gd_want"] = _np(fake_quantize_array(t("gd_w"), scfg))
+    for pattern in ("col", "row"):
+        res[f"gd_{pattern}"] = _np(gather_dequant_leaf(leaf, scfg, mesh, pattern, 64,
+                                                       dtype=torch.float32))
+
+    # -- the expert-parallel MoE body, dense and packed -----------------------
+    mcfg = get_smoke_config("qwen3_moe_235b_a22b")
+    mp_ = unflatten(data, "moe_params")
+    x = t("moe_x")
+    res["moe_dense"] = [_np(v) if isinstance(v, torch.Tensor) else v for v in
+                        (*moe_apply(mp_, x, mcfg), *moe_apply(mp_, x, mcfg, mesh=mesh))]
+    kcfg = StruMConfig(method="mip2q", p=0.5, L=5, w=16)
+    pcfg = dataclasses.replace(mcfg, strum=kcfg)
+    pk = engine.build_plan({"blocks": {"moe": unflatten(data, "moe_params32")}},
+                           cfg=kcfg, device="cpu").params["blocks"]["moe"]
+    res["moe_packed"] = [_np(v) for v in (*moe_apply(pk, x, pcfg),
+                                          *moe_apply(pk, x, pcfg, mesh=mesh))]
+    # a mesh-aware plan's stacks on an FSDP-only mesh: the local path, the
+    # blocks gathered packed
+    from torch.distributed.device_mesh import init_device_mesh
+    fmesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    fplan = engine.build_plan({"blocks": {"moe": unflatten(data, "moe_params32")}},
+                              cfg=kcfg, mesh=fmesh, device="cpu")
+    res["moe_fsdp_only"] = (fplan.summary()["variant_distribution"],
+                            *[_np(v) for v in moe_apply(fplan.params["blocks"]["moe"],
+                                                        x, pcfg, mesh=fmesh)])
+
+    # -- GPipe over pp = 4 -----------------------------------------------------
+    pmesh = make_host_mesh(pp=world, data=1, model=1, device="cpu")
+    ws = t("pp_ws")
+    res["pp"] = _np(pipelined_apply(lambda w, v: torch.tanh(v @ w), ws, t("pp_x"),
+                                    mesh=pmesh, n_micro=4))
+
+    # -- the ZeRO-3 train step against the single-device step (f32
+    # activations), and at the config's own dtype against the reference ----
+    qcfg = get_smoke_config("qwen2_7b")
+    defs = model_defs(qcfg)
+    qp = unflatten(data, "qwen_params")
+    ocfg = adamw.AdamWConfig(lr=1e-3, total_steps=10)
+    rules = shd.rules_for_mesh(mesh)
+    b0 = {k: t(f"batch0_{k}").long() for k in ("tokens", "labels")}
+    _, _, m0 = make_train_step(qcfg, ocfg, mesh=mesh, rules=rules)(
+        shard_params(qp, defs, mesh, rules),
+        adamw.init_opt_state(shard_params(qp, defs, mesh, rules)), b0)
+    res["train_loss_config_dtype"] = float(m0["loss"])
+    # OLMo's smoke config for the step-by-step parity: Qwen2's k bias has an
+    # exactly-zero gradient (softmax ignores a shift of all of a query's
+    # scores), so AdamW turns its rounding noise into +-lr steps in any run
+    ocfg_t = dataclasses.replace(get_smoke_config("olmo_1b"), dtype="float32")
+    odefs = model_defs(ocfg_t)
+    from repro_torch.models.params import init_params
+    op0 = init_params(odefs, seed=0, device="cpu", dtype_override="float32")
+    batches = [{k: t(f"batch{s}_{k}").long() for k in ("tokens", "labels")}
+               for s in range(3)]
+    one = make_train_step(ocfg_t, ocfg)
+    zero = make_train_step(ocfg_t, ocfg, mesh=mesh, rules=rules)
+    p1, o1 = op0, adamw.init_opt_state(op0)
+    p3 = shard_params(op0, odefs, mesh, rules)
+    o3 = adamw.init_opt_state(p3)
+    res["train_loss"] = []
+    for b in batches:
+        p1, o1, m1 = one(p1, o1, b)
+        p3, o3, m3 = zero(p3, o3, b)
+        res["train_loss"].append((float(m1["loss"]), float(m3["loss"]),
+                                  float(m1["grad_norm"]), float(m3["grad_norm"])))
+    state = elastic.global_state({"params": p3, "opt": o3}, odefs, mesh, rules)
+    res["train_single"] = flatten({"params": p1, "m": o1.m, "v": o1.v})
+    res["train_zero3"] = flatten({"params": state["params"], "m": state["opt"].m,
+                                  "v": state["opt"].v})
+    res["train_local_bytes"] = sum(v.numel() for v in flatten_t(p3).values())
+    res["train_global_bytes"] = sum(v.numel() for v in flatten_t(p1).values())
+    # the ZeRO-3 step on Qwen3-MoE's smoke config at capacity factor 1, so
+    # capacity drops tokens: slots and load-balance fractions over the
+    # whole batch, as on one device; and OLMo's with gradient compression
+    mcfg_t = dataclasses.replace(mcfg, dtype="float32", capacity_factor=1.0)
+    res["train_moe"] = zero3_vs_one(
+        mcfg_t, init_params(model_defs(mcfg_t), seed=0, device="cpu",
+                            dtype_override="float32"), batches, ocfg, mesh, rules)
+    res["train_compressed"] = zero3_vs_one(ocfg_t, op0, batches, ocfg, mesh, rules,
+                                           compress=True)
+    # the MoE config at its own dtype against the reference's sharded step
+    _, _, m0 = make_train_step(mcfg, ocfg, mesh=mesh, rules=rules)(
+        shard_params(unflatten(data, "qmoe_params"), model_defs(mcfg), mesh, rules),
+        adamw.init_opt_state(shard_params(unflatten(data, "qmoe_params"),
+                                          model_defs(mcfg), mesh, rules)), b0)
+    res["train_moe_loss_config_dtype"] = (float(m0["loss"]), float(m0["aux"]))
+
+    # -- elastic: saved on data=2 x model=2, restored on data=4 and one device
+    if rank == 0:
+        ckpt.save(workdir, 3, state)
+    dist.barrier()
+    template = {"params": op0, "opt": adamw.init_opt_state(op0)}
+    restored, step, _ = ckpt.restore(workdir, template)
+    res["restored_step"] = step
+    got, want = flatten_t(restored), flatten_t(state)
+    res["restored_equal"] = got.keys() == want.keys() and all(
+        torch.equal(got[k], want[k]) for k in want)
+    mesh4 = make_host_mesh(data=world, model=1, device="cpu")
+    rules4 = shd.rules_for_mesh(mesh4)
+    loc4 = elastic.local_state(restored, odefs, mesh4, rules4)
+    p4, o4, m4 = make_train_step(ocfg_t, ocfg, mesh=mesh4, rules=rules4)(
+        loc4["params"], loc4["opt"], batches[0])
+    p5, o5, m5 = one(restored["params"], restored["opt"], batches[0])
+    res["elastic"] = (float(m4["loss"]), float(m5["loss"]),
+                      flatten({"params": gather_params(p4, odefs, mesh4, rules4)}),
+                      flatten({"params": p5}))
+
+    # -- packed decode on 2 x 2 against the dense fake-quant decode -----------
+    dcfg = StruMConfig(method="mip2q", p=0.5, L=7)
+    base = dataclasses.replace(qcfg, dtype="float32")
+    cfg = dataclasses.replace(base, strum=dcfg)
+    served = engine.build_plan(qp, cfg=dcfg, device="cpu").params
+    fakeq = engine.fake_quantize(qp, policy=default_policy(dcfg), baseline_int8=False,
+                                 device="cpu")
+    toks = torch.ones((2, 8), dtype=torch.long)
+    _, caches = prefill(fakeq, {"tokens": toks}, base)
+    caches = serve_mod.pad_caches(caches, 4)
+    tok = torch.ones((2, 1), dtype=torch.long)
+    lg_ref, _ = decode_step(fakeq, tok, {k: {n: c.clone() for n, c in v.items()}
+                                         for k, v in caches.items()}, 8, base)
+    lg_pk, _ = decode_step(served, tok, caches, 8, cfg, mesh=mesh, rules=rules)
+    res["decode"] = (_np(lg_ref), _np(lg_pk))
+
+    # -- BatchScheduler(mesh=) against the single-device scheduler ------------
+    ocfg_s = get_smoke_config("olmo_1b")
+    oscfg = StruMConfig(method="mip2q", p=0.5, L=5)
+    ocfg_s = dataclasses.replace(ocfg_s, strum=oscfg)
+    from repro_torch.models.params import init_params
+    op = init_params(model_defs(ocfg_s), seed=0, device="cpu", dtype_override="float32")
+    kv = StruMConfig(method="mip2q", p=0.5, q=4, L=7)
+    prompts = [t("sched_prompt0").long(), t("sched_prompt1").long()]
+
+    def run(sched, force=None):
+        for i, pr in enumerate(prompts):
+            sched.submit(Request(uid=i, prompt=pr, max_new_tokens=6,
+                                 force_tokens=None if force is None else force[i]))
+        return [r.output for r in sorted(sched.run_to_completion(),
+                                         key=lambda r: r.uid)]
+    plan1 = build_serving_plan(op, cfg=oscfg, device="cpu")
+    want = run(BatchScheduler(ocfg_s, op, n_slots=2, max_len=48, plan=plan1,
+                              kv_cache=kv, device="cpu"))
+    plan_m = build_serving_plan(op, cfg=oscfg, mesh=mesh, rules=rules, device="cpu")
+    got = run(BatchScheduler(ocfg_s, op, n_slots=2, max_len=48, mesh=mesh, rules=rules,
+                             plan=plan_m, kv_cache=kv, device="cpu"), force=want)
+    res["sched"] = (want, got, plan_m.summary()["variant_distribution"])
+
+    # -- serve --mesh 2x2 against serve on one device -------------------------
+    argv = ["--arch", "olmo_1b", "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--gen", "3"]
+    a = serve_mod.run(argv)
+    b = serve_mod.run(argv + ["--mesh", "2x2"])
+    res["serve"] = (a["tokens"].tolist(), b["tokens"].tolist(),
+                    b["plan"].summary()["variant_distribution"],
+                    serve_mod.report(b)[1])
+    return res
+
+
+def zero3_vs_one(cfg, p0, batches, ocfg, mesh, rules, compress=False):
+    """``len(batches)`` ZeRO-3 steps on ``mesh`` and as many single-device
+    steps from the same parameters ``p0``: ``(per-step metrics as (one
+    device, ZeRO-3) pairs, the single-device state, the ZeRO-3 state
+    gathered)``, the states flat, with the error-feedback residual under
+    ``ef`` when ``compress``."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import gather_params, shard_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import compression as gcomp
+    defs = model_defs(cfg)
+    one = make_train_step(cfg, ocfg, grad_compression=compress)
+    zero = make_train_step(cfg, ocfg, mesh=mesh, rules=rules, grad_compression=compress)
+    pa, pb = p0, shard_params(p0, defs, mesh, rules)
+    oa, ob = adamw.init_opt_state(pa), adamw.init_opt_state(pb)
+    ea, eb = gcomp.init_ef_state(pa), gcomp.init_ef_state(pb)
+    metrics = []
+    for b in batches:
+        if compress:
+            pa, oa, ea, ma = one(pa, oa, ea, b)
+            pb, ob, eb, mb = zero(pb, ob, eb, b)
+        else:
+            pa, oa, ma = one(pa, oa, b)
+            pb, ob, mb = zero(pb, ob, b)
+        metrics.append({k: (float(ma[k]), float(mb[k]))
+                        for k in ("loss", "ce", "aux", "grad_norm")})
+    single = {"params": pa, "m": oa.m, "v": oa.v}
+    full = {k: gather_params(v, defs, mesh, rules)
+            for k, v in (("params", pb), ("m", ob.m), ("v", ob.v))}
+    if compress:
+        single["ef"] = ea.residual
+        full["ef"] = gather_params(eb.residual, defs, mesh, rules)
+    return metrics, flatten(single), flatten(full)
+
+
+def flatten_t(tree, prefix: str = "") -> dict:
+    """Nested dicts / NamedTuples of tensors -> ``{"a/b": tensor}``."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        tree = tree._asdict()
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(flatten_t(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out

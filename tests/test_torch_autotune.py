@@ -35,6 +35,8 @@ from repro_torch.core import dynamic_p as tdyn
 from repro_torch.core.policy import StruMConfig as TCfg
 from repro_torch.models.params import params_from_numpy
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 PROFILE_DB = 1e-3
 DRAFT_RTOL = 1e-5
 

@@ -33,6 +33,8 @@ from repro_torch.kernels.strum_decode import strum_page_decode_plain
 from repro_torch.models.attention import _merge_partials as t_merge
 from repro_torch.serving import pages as tpages
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 FIELDS = ("mask", "hi", "lo", "scale")
 #: reference backend -> the port's twin; variant names swap the family word
 BACKEND = {"interpret": "cuda", "pallas": "cuda", "xla": "torch"}

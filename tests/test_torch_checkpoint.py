@@ -45,6 +45,8 @@ from repro_torch.optim import adamw
 from repro_torch.runtime import compression as comp
 from repro_torch.runtime import fault_tolerance as ft
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 
 def _state():
     """A small port train state: f32, bf16 and 1-D leaves, OptState, EF."""

@@ -27,6 +27,8 @@ from repro_torch.core.apply import unpack_array as t_unpack
 from repro_torch.core.policy import LayerPolicy as TPolicy
 from repro_torch.core.policy import StruMConfig as TCfg
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 FIELDS = ("mask", "hi", "lo", "scale")
 
 # the method x w x p x q/L grid of tests/test_kernels.py (p = 0 is n_low = 0,

@@ -23,6 +23,8 @@ from repro_torch.core.policy import StruMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import strum_matmul as K
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 pytestmark = pytest.mark.cuda
 
 #: kernel and plain version both accumulate in f32, in different orders

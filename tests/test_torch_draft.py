@@ -39,6 +39,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import strum_matmul as K
 from repro_torch.models.params import params_from_numpy
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 FIELDS = ("mask", "hi", "lo", "scale")
 MODES = ("histream", "maskfree_p")
 CODECS = [dict(method="dliq", q=4), dict(method="dliq", q=3),

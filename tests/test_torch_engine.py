@@ -25,6 +25,8 @@ from repro_torch.core.policy import StruMConfig as TCfg
 from repro_torch.kernels import ref
 from repro_torch.models.params import params_from_numpy
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 TWIN_BACKEND = {"pallas": "cuda", "xla": "torch", "reference": "reference"}
 TWIN_FAMILY = {"pallas": "cuda", "xla": "torch", "ref": "ref"}
 FIELDS = ("mask", "hi", "lo", "scale")

@@ -5,7 +5,9 @@
   the draft plans and the telemetry copy among them, whose trace checker
   runs in that state.
 * Entry points (serving, and since the training path ``launch.train`` and
-  the data pipeline) default to ``device="cuda"`` and raise without a card.
+  the data pipeline, and since the distributed slice the mesh constructors
+  and ``serve --mesh``) default to ``device="cuda"`` and raise without a
+  card.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card or
   outside the repo.
 """
@@ -17,6 +19,8 @@ from pathlib import Path
 
 import pytest
 import torch
+
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -84,6 +88,26 @@ for m in {mods!r}:
 sys.argv = ["check", {trace!r}, "--require", "spec:"]
 runpy.run_module("repro_torch.telemetry.check", run_name="__main__")
 """
+
+
+DISTRIBUTED = ("repro_torch.launch.mesh", "repro_torch.models.sharding",
+               "repro_torch.engine.sharded", "repro_torch.runtime.pipeline",
+               "repro_torch.runtime.elastic")
+
+
+@pytest.mark.parametrize("mod", DISTRIBUTED)
+def test_distributed_modules_are_scanned_and_stand_alone(mod):
+    """The distributed slice's modules are among the scanned files and
+    import with jax and the reference blocked (no process group starts)."""
+    scanned = {str(p.relative_to(ROOT / "src")) for p in _port_files()[:-1]}
+    assert mod.replace(".", "/") + ".py" in scanned
+    code = STANDALONE_RUN.split("sys.argv")[0].format(
+        forbidden=FORBIDDEN, src=str(ROOT / "src"), mods=(mod,))
+    code += "import torch.distributed as d; print(d.is_initialized())"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def test_draft_and_telemetry_modules_stand_alone(tmp_path):
@@ -163,6 +187,22 @@ def test_paged_entry_points_raise_without_a_card(no_card):
     # asked for explicitly, the CPU serves through the torch family
     sched = BatchScheduler(cfg, params, device="cpu", kv_cache="fp")
     assert sched.cache_stats()["codec"] == "cache:fp_passthrough"
+
+
+def test_mesh_entry_points_raise_without_a_card(no_card):
+    """``make_host_mesh`` and ``serve --mesh`` default to the card (NCCL)
+    and raise before starting a process group; ``device="cpu"`` is gloo."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_host_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "olmo_1b", "--smoke", "--mesh", "1x1"])
+    assert not dist.is_initialized()
 
 
 def test_moe_entry_points_raise_without_a_card(no_card):

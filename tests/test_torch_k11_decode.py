@@ -40,6 +40,8 @@ from repro_torch.kernels.ops import _min1
 from repro_torch.kernels.strum_decode import strum_page_decode_plain
 from test_torch_k1_decode import prmt
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 FIELDS = ("mask", "hi", "lo", "scale")
 POP8 = torch.tensor([bin(i).count("1") for i in range(256)])
 

@@ -22,6 +22,8 @@ from repro_torch.core.packing import (_pack_bits_axis1, _pack_fields, _scatter_e
 from repro_torch.core.policy import q_for_L
 from repro_torch.kernels.strum_matmul import byte_path_tables
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 W, N_LOW, Q = 16, 8, 4
 
 

@@ -26,6 +26,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import strum_matmul as K
 from test_torch_k1_decode import bytes_to_bf16, lo_values, prmt
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 W, Q = 16, 4
 NB, N = 64, 64           # 4096 columns of one w-block each side
 

@@ -38,6 +38,8 @@ from repro_torch.models.quantize import _pack_leaf
 from test_torch_k1_decode import bytes_to_bf16
 from test_torch_k2_k10_decode import _by_column, _column4, _items
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 W = 16
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -22,6 +22,8 @@ from repro_torch.core.policy import StruMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import strum_matmul as K
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 RTOL, ATOL = 1e-5, 1e-4
 FIELDS = ("mask", "hi", "lo", "scale")
 

@@ -30,6 +30,8 @@ from repro_torch.configs.base import get_smoke_config as t_smoke
 from repro_torch.models import mamba2 as tm
 from repro_torch.models.params import params_from_numpy
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 S, C = 21, 8                      # 2 full chunks + a ragged one (5 valid)
 

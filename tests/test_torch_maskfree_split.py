@@ -50,6 +50,8 @@ from repro_torch.kernels import strum_matmul as K
 from repro_torch.models import moe
 from repro_torch.models.quantize import _pack_leaf
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 FIELDS = ("mask", "hi", "lo", "scale")
 ATTN_TOL = dict(rtol=1e-5, atol=1e-6)
 GROUPED_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -45,6 +45,8 @@ from repro_torch.launch.serve import pad_caches, serve
 from repro_torch.models import decode_step, forward_train, prefill
 from repro_torch.models.params import params_from_numpy
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 RTOL, ATOL = 1e-4, 1e-5
 SSM_TOL = dict(rtol=2e-4, atol=2e-4)
 FIELDS = ("mask", "hi", "lo", "scale")

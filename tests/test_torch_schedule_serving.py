@@ -38,6 +38,8 @@ from repro_torch.models.params import params_from_numpy
 from repro_torch.models.quantize import strum_serve_params
 from repro_torch.serving import BatchScheduler, Request
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 FIELDS = ("mask", "hi", "lo", "scale")
 LENS, NEW = (8, 21, 5), 10

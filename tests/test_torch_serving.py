@@ -42,6 +42,8 @@ from repro_torch.models import model_defs
 from repro_torch.models.params import init_params, params_from_numpy
 from repro_torch.serving import BatchScheduler, PagesExhausted, Request
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 PACKED_TOL = dict(rtol=1e-3, atol=2e-3)
 LENS, NEW = (8, 21, 5), 12

@@ -45,6 +45,8 @@ from repro_torch.models.params import params_from_numpy
 from repro_torch.serving import BatchScheduler, Request
 from repro_torch.serving import pages
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 PACKED_TOL = dict(rtol=1e-3, atol=2e-3)
 TAIL_TOL = dict(rtol=1e-4, atol=1e-5)
 WCFGS = [("dliq_q4", dict(method="dliq", w=16, p=0.5, q=4)),

@@ -43,6 +43,8 @@ from repro_torch.kernels import strum_matmul as K
 from repro_torch.models import moe
 from repro_torch.models.quantize import _pack_leaf
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 FIELDS = ("mask", "hi", "lo", "scale")
 ATTN_TOL = dict(rtol=1e-5, atol=1e-6)
 GROUPED_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -259,7 +261,7 @@ def test_moe_local_rows_through_k6(monkeypatch, capacity_factor):
                                         ("wo", (e, f, d), 3))}
     calls = []
 
-    def contract(wstack, xbuf, scfg, rows=None):
+    def contract(wstack, xbuf, scfg, rows=None, fsdp=(), mesh=None):
         packed = _packed(wstack, wstack["cfg"], xbuf.shape[-1])
         y = ops.strum_grouped_matmul(xbuf, packed, rows=rows)
         assert torch.equal(y, ops.strum_grouped_matmul(xbuf, packed))

@@ -40,6 +40,8 @@ from repro_torch.models.params import params_from_numpy
 from repro_torch.serving import BatchScheduler, Request
 from repro_torch.serving import pages as t_pages
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 ARCHS = ["mamba2_780m", "jamba_1_5_large_398b"]
 LENS, NEW = (7, 18), 5
 PAGE_CFG = dict(method="mip2q", p=0.5, L=7)

@@ -35,6 +35,8 @@ from repro_torch.serving import BatchScheduler, Request
 from repro_torch.telemetry import check
 from repro_torch.telemetry.recorder import _STACK, NULL_SPAN
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 RNG = np.random.default_rng(0)
 
 

@@ -30,6 +30,8 @@ from repro_torch.core import apply as tapply
 from repro_torch.core import metrics as tmetrics
 from repro_torch.core.policy import LayerPolicy, StruMConfig as TCfg
 
+torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
+
 FIELDS = ("mask", "hi", "lo", "scale")
 METRIC_RTOL = 1e-6
 NT = collections.namedtuple("NT", "b a")
