@@ -241,11 +241,40 @@ Phases, each fatal on failure:
      OLMo-1B at MESH_LAYERS layers, batch 2 x 256, f32, against the
      one-device step, within r2's bound; the dense f32 bytes it gathers.
 
+  t. static analysis (``repro_torch.analysis``), each sub-phase fatal:
+     t1. the registry audit and the launch-contract lint on the card: every
+     point of the reference's lint grid (and head dims 64-320, pages of
+     16-128 for attention) that a ``cuda:*`` / ``cache:*`` / ``draft:*``
+     predicate accepts must pass its launcher's ``launch_contract`` and is
+     launched, within KERNEL_TOL x max|plain| + 1e-6 of its plain version,
+     K1-K11 each launched; points the contracts refuse for a C++ check go
+     straight to the C++ entry points and must come back
+     cudaErrorInvalidValue; 0 error findings;
+     t2. dataflow on full-width OLMo-1B (16 layers, phase d's plan): one
+     dense decode step, each of the 112 linears exactly one K1 launch handed
+     its leaf's mask / hi / lo / scale once, every decode site a K1 launch
+     (no decoded copy, no ``torch:dequant``); one paged decode tick on phase
+     h's scheduler (mip2q pages, 4 slots decoding): 16 K4 launches, the
+     sealed pools read by K4 only, the pool bytes read equal to pools x 2 x
+     slots x pages a slot x ``page_payload_bytes`` and to the tick's
+     ``attn/fused/packed_bytes`` counter;
+     t3. ``verify_draft_payload`` on phase o's speculative scheduler, each
+     draft mode (the draft leaves the target's tensors, no skipped stream
+     handed to any op or launch, the bytes read equal to
+     ``draft_plan_bytes``), then every drafted leaf's skipped streams
+     replaced by 0xFF copies: the draft step's logits bit for bit the same;
+     t4. the recompile lint at full width, T_LAYERS layers, over the
+     reference's mixed-length workload (chunked, serial and speculative
+     schedulers): the signatures per lane, and exactly T_RETRACING flagged;
+     t5. ``build_plan(..., validate=True)`` for full-width OLMo-1B and
+     Moonshot-16B-A3B at MOE_LAYERS layers, and the time of
+     ``validate_plan``.
+
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
 it exits non-zero before printing any result.  ``python3 chip_smoke.py --only
-q`` (``--only r``, ``--only s``) builds the kernels and runs phase q (r, s)
-alone (no kernels or result line).
+q`` (``--only r``, ``--only s``, ``--only t``) builds the kernels and runs
+phase q (r, s, t) alone (no kernels or result line).
 """
 from __future__ import annotations
 
@@ -3663,9 +3692,338 @@ def _mesh_report(mesh, smi) -> None:
           f"phase s {mesh['seconds']:.1f} s; {smi}")
 
 
+# ----------------------------------------------------- t. static analysis --
+
+T_LAYERS = 2                    # t4's depth, at full width
+#: the kernels every lint on the card must launch: K1-K11
+T_KERNELS = ("onehot", "maskfree", "dense", "paged_attention",
+             "paged_attention_maskfree", "page_decode", "grouped_onehot",
+             "grouped_maskfree", "grouped_dense", "histream", "maskfree_p")
+#: the lanes the recompile lint flags today (ROADMAP perf item 1)
+T_RETRACING = ("serial-scheduler/serial_prefill", "spec-scheduler/commit")
+
+
+def phase_t1(dev) -> dict:
+    """The registry audit, then the launch-contract lint on the card: every
+    point a cuda-family predicate accepts launched and held to its plain
+    version, and the C++ refusals probed."""
+    from repro_torch.analysis import pallas_lint, registry_audit
+    audit, _ = registry_audit.audit_registry()
+    _check(audit.ok, f"registry audit: {audit.render()}")
+    st: dict = {}
+    lint = pallas_lint.lint_pallas(device=dev, stats=st)
+    _check(lint.ok, f"launch-contract lint: {lint.render()}")
+    missing = [k for k in T_KERNELS if st["launches"].get(k, 0) <= 0]
+    _check(not missing, f"the lint launched none of {missing}: {st['launches']}")
+    bad = [r for r in st["refusals"] if r[2] != 1]
+    _check(st["refusals"] and not bad, f"C++ refusals {st['refusals']}")
+    worst = {k: {"max_abs_err": e, "limit": lim} for k, (e, lim) in st["worst"].items()}
+    print(f"  accepted points per kernel {st['points']}", flush=True)
+    print(f"  launches per kernel {st['launches']}", flush=True)
+    print(f"  worst |kernel - plain| (limit) {worst}", flush=True)
+    print(f"  C++ refusals (probe, .cu line, CUDA error): {st['refusals']}", flush=True)
+    print(f"  findings: audit {len(audit.findings)} ({len(audit.errors())} errors), "
+          f"lint {len(lint.findings)} ({len(lint.errors())} errors)", flush=True)
+    return {"points": st["points"], "launches": st["launches"], "worst": worst,
+            "refusals": st["refusals"],
+            "audit_findings": len(audit.findings),
+            "lint_findings": len(lint.findings)}
+
+
+def _t_olmo(dev, layers=None):
+    """Full-width OLMo-1B (``layers`` of 16) under phase d's plan: mip2q p=0.5
+    L=5, f32 parameters from seed 0."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    scfg = StruMConfig(method="mip2q", p=0.5, L=5)
+    cfg = dataclasses.replace(get_config("olmo_1b"), strum=scfg)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    return cfg, params, build_serving_plan(params, cfg=scfg, device=dev)
+
+
+def _t_paged(cfg, plan, dev, **kw):
+    """Phase h's scheduler (4 slots, mip2q pages of 16) with 4 requests of 128
+    tokens admitted and prefilled: every slot decoding."""
+    import torch
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.serving import BatchScheduler, Request
+    sched = BatchScheduler(cfg, None, n_slots=4, max_len=128 + 33 + PAGE, plan=plan,
+                           kv_cache=StruMConfig(method="mip2q", p=0.5, q=4, L=7),
+                           page_size=PAGE, device=dev, **kw)
+    gen = torch.Generator().manual_seed(0)
+    for i in range(4):
+        sched.submit(Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (128,),
+                                                         generator=gen),
+                             max_new_tokens=33))
+    while sched.queue or sched._prefill_slots():
+        sched.step()
+    return sched
+
+
+def _region_events(trace, prefix) -> dict:
+    """Stored regions whose leaf tag starts with ``prefix`` -> the events
+    handed them."""
+    return {r: [trace.events[i] for i in ev] for r, ev in trace.read_regions.items()
+            if r[0].startswith(prefix)}
+
+
+def phase_t2(dev) -> dict:
+    """Dataflow on full-width OLMo-1B: one dense decode step (each linear
+    one K1 launch reading its leaf's fields once, no decoded copy) and one
+    paged decode tick (K4 the only reader of the sealed pools, the pool
+    bytes it reads the packed payload of the live pages: the table's
+    entries below each slot's sealed count; ``attn/fused/packed_bytes``
+    counts the table's capacity, every entry, as the reference does)."""
+    import torch
+    from repro_torch import telemetry
+    from repro_torch.analysis import dataflow, suite
+    from repro_torch.kernels import strum_attention as A
+    from repro_torch.kernels import strum_matmul as K
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    cfg, params, plan = _t_olmo(dev)
+    del params
+    _check(cfg.n_layers == 16 and cfg.d_model == 2048, f"not full-width OLMo-1B: {cfg}")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    lg, caches = make_prefill_step(cfg)(plan.params, {"tokens": prompt})
+    tok = lg[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    caches = S.pad_caches(caches, 1)
+    k1_before = K.launch_counts["onehot"]
+    with telemetry.recording() as rec:
+        trace = dataflow.trace_dataflow(make_decode_step(cfg), plan.params, tok,
+                                        caches, 32)
+    torch.cuda.synchronize()
+    n_lin = 7 * cfg.n_layers
+    calls = trace.kernel_calls()
+    _check(len(calls) == n_lin and all(e.name == "cuda:onehot" and e.route == "cuda"
+                                       for e in calls),
+           f"decode step made {[(e.name, e.route) for e in calls]} kernel calls")
+    _check(K.launch_counts["onehot"] - k1_before == n_lin,
+           f"K1 launched {K.launch_counts['onehot'] - k1_before}, want {n_lin}")
+    per_call = [{f: len(r) for f, r in e.reads.items()} for e in calls]
+    _check(all(p == {"mask": 1, "hi": 1, "lo": 1, "scale": 1} for p in per_call),
+           f"K1 calls read {per_call[:3]}...")
+    weights = _region_events(trace, "0/0/")
+    leaves = {(t, off) for t, f, off in weights if f == "mask"}
+    _check(len(leaves) == n_lin and all(len(ev) == 1 and ev[0].kind == "kernel"
+                                        for ev in weights.values()),
+           f"{len(leaves)} weight leaves read, by {set(len(e) for e in weights.values())}"
+           " events each")
+    sites = [trace.events[i] for i, _ in trace.decode_sites]
+    _check(len(sites) == n_lin and all(e.kind == "kernel" for e in sites),
+           f"decode sites {[(e.kind, e.name) for e in sites][:5]}... ({len(sites)})")
+    counters = rec.counters("dispatch/variant/")
+    _check(counters == {"cuda:onehot": n_lin},
+           f"dispatch counters {counters}")
+    dense = dataflow.verify(None, trace=trace, location="olmo_1b/decode-step")
+    _check(dense.ok, dense.render())
+    dense_events = len(trace.events)
+    print(f"  dense decode step: {dense_events} events, {n_lin} K1 launches, each "
+          f"handed its leaf's mask/hi/lo/scale once ({len(weights)} regions, one "
+          f"reader each), {len(sites)} decode sites all K1 launches, no decoded copy, "
+          f"counters {counters}", flush=True)
+
+    sched = _t_paged(cfg, plan, dev)
+    active = sched._decode_slots()
+    _check(len(active) == 4, f"slots decoding {active}")
+    mask = torch.zeros(4, dtype=torch.bool)
+    mask[active] = True
+    args = (sched.params, sched._dev(sched._tokens)[:, None], sched.pools,
+            suite._clone(sched.hot), sched._dev(sched._cache_len()),
+            sched._dev(sched._table), mask.to(dev))
+    k4_before = dict(A.launch_counts)
+    with telemetry.recording() as rec:
+        trace = dataflow.trace_dataflow(sched._decode, *args)
+    torch.cuda.synchronize()
+    k4 = trace.kernel_calls("cache:attn_fused")
+    launched = {k: A.launch_counts[k] - k4_before[k] for k in A.launch_counts}
+    _check(len(k4) == cfg.n_layers and all(e.route == "cuda" for e in k4) and
+           launched["paged_attention"] == cfg.n_layers,
+           f"{len(k4)} K4 calls, launches {launched}")
+    pools = _region_events(trace, "0/2/")
+    _check(pools and all(all(e.kind == "kernel" and e.name == "cache:attn_fused"
+                             for e in ev) for ev in pools.values()),
+           "sealed pools read by " + str({e.name for ev in pools.values() for e in ev}))
+    lens, table = sched._cache_len(), sched._table
+    want = suite.fused_read_bytes(sched, lens=lens, table=table)
+    capacity = suite.fused_read_bytes(sched)
+    got = trace.sealed_gather_packed_bytes()
+    counter = rec.counters().get("attn/fused/packed_bytes")
+    _check(0 < got == want < capacity == counter,
+           f"pool bytes read {got}, live payload {want}, table capacity {capacity}, "
+           f"counter {counter}")
+    paged = dataflow.verify(None, trace=trace, location="olmo_1b/paged-tick",
+                            expected_gather_packed_bytes=want, forbid_fp_pages=True)
+    _check(paged.ok, paged.render())
+    n_pools = sum(p["k"]["mask"].shape[0] for p in sched.pools.values() if p)
+    ppb = capacity // (n_pools * 2 * sched.n_slots * sched.pages_per_seq)
+    live = want // (n_pools * 2 * ppb)
+    print(f"  paged decode tick: {len(trace.events)} events, {len(k4)} K4 launches (+ "
+          f"{launched['paged_attention_combine']} combines), {len(pools)} pool regions "
+          f"read by K4 only; pool bytes read {got} = {n_pools} pools x 2 x {live} live "
+          f"(slot, page) entries of {sched.n_slots} x {sched.pages_per_seq} x {ppb} B; "
+          f"attn/fused/packed_bytes {counter} = the table's capacity", flush=True)
+    return {"decode_events": dense_events, "tick_events": len(trace.events),
+            "k1_launches": n_lin, "k4_launches": len(k4),
+            "combines": launched["paged_attention_combine"], "pool_bytes": got,
+            "live_entries": live, "capacity_bytes": capacity, "counter": counter,
+            "plan": plan, "cfg": cfg}
+
+
+def phase_t3(dev, cfg, plan) -> dict:
+    """The draft-payload proof on phase o's speculative scheduler, both modes,
+    then a poisoned copy of every skipped stream: the draft step's logits
+    bit for bit the same."""
+    import torch
+    from repro_torch.analysis import dataflow, suite
+    from repro_torch.engine import draft_plan_bytes
+    from repro_torch.kernels import strum_matmul as K
+    out = {}
+    for mode in DRAFT:
+        sched = _t_paged(cfg, plan, dev, speculative=SPEC_K, draft=mode)
+        before = K.launch_counts[mode]
+        trace = dataflow.trace_dataflow(
+            sched._draft_decode, *suite.decode_lane_args(sched, sched._draft_params))
+        torch.cuda.synchronize()
+        n = K.launch_counts[mode] - before
+        _check(n == 7 * cfg.n_layers and {e.name for e in trace.kernel_calls()} -
+               {"cache:attn_fused"} == {DRAFT[mode][0]},
+               f"draft step launched {n} {mode}, calls "
+               f"{ {e.name for e in trace.kernel_calls()} }")
+        rep = suite.verify_draft_payload(sched, location=f"olmo_1b/draft[{mode}]",
+                                         trace=trace)
+        _check(rep.ok, rep.render())
+        poison = suite.draft_poison_check(sched)
+        _check(poison["bit_equal"] and poison["leaves"] == 7,
+               f"{mode}: poisoned skipped streams changed the draft logits {poison}")
+        decl = draft_plan_bytes(sched.draft_plan)
+        print(f"  {mode}: {n} launches of {DRAFT[mode][0]} in one draft step; payload "
+              f"read {decl['draft_bytes']} of {decl['full_bytes']} B "
+              f"(x{decl['ratio']:.4f}); draft leaves share the target's tensors; "
+              f"{poison['poisoned_bytes']} skipped bytes of {poison['leaves']} leaves "
+              f"set to 0xFF: logits bit-identical ({poison['max_abs_diff']})", flush=True)
+        out[mode] = {"launches": n, **decl, **poison}
+        del sched
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_t4(dev) -> dict:
+    """The recompile lint at full width, 2 layers: chunked, serial and
+    speculative schedulers over the reference's mixed-length workload."""
+    import torch
+    from repro_torch.analysis import recompile, suite
+    cfg, params, _ = _t_olmo(dev, T_LAYERS)
+    out, flagged = {}, []
+    for label, kw in (("scheduler", {}), ("serial-scheduler", {"prefill": "serial"}),
+                      ("spec-scheduler", {"speculative": 2})):
+        sched = suite.build_tiny_scheduler(cfg, params, device=dev, **kw)
+        rep = recompile.lint_scheduler_recompiles(sched=sched, location=label)
+        counts = recompile.lane_trace_counts(sched)
+        calls = {k: len(v) for k, v in sched._lane_signatures.items() if v}
+        flagged += [f.location for f in rep.findings]
+        print(f"  {label}: shape signatures per lane {counts} over calls {calls}",
+              flush=True)
+        for f in rep.findings:
+            print(f"    {f.render()}", flush=True)
+        out[label] = {"signatures": counts, "calls": calls}
+        del sched
+    _check(sorted(flagged) == sorted(T_RETRACING),
+           f"lanes flagged {flagged}, want exactly {T_RETRACING}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_t5(dev) -> dict:
+    """``build_plan(..., validate=True)`` for full-width OLMo-1B and phase l's
+    Moonshot-16B-A3B (4 of 48 layers); the time ``validate_plan`` takes."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.analysis import validate_plan
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    out = {}
+    for arch, layers in (("olmo_1b", None), (MOE_ARCH, MOE_LAYERS)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+        plan = engine.build_plan(params, cfg=StruMConfig(method="mip2q", p=0.5, L=5),
+                                 float_only=True, device=dev, validate=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = validate_plan(plan, params=params, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        _check(not rep.findings, rep.render())
+        print(f"  {arch} ({cfg.n_layers} layers): {len(plan.entries)} entries "
+              f"{plan.summary()['variant_distribution']}, validate=True passed; "
+              f"validate_plan {ms:.2f} ms, {len(rep.findings)} findings", flush=True)
+        out[arch] = {"entries": len(plan.entries), "validate_ms": ms,
+                     "findings": len(rep.findings)}
+        del params, plan
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure_analysis(dev) -> dict:
+    """Phase t: static analysis on the card, each sub-phase fatal."""
+    import torch
+    out = {}
+    t0 = time.perf_counter()
+    print(f"-- t1. registry audit and the launch-contract lint on the card "
+          f"(t = {t0 - _T0:.1f} s)", flush=True)
+    out["t1"] = phase_t1(dev)
+    out["t1"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print(f"-- t2. dataflow, full-width OLMo-1B: a dense decode step, a paged tick "
+          f"(t = {t0 - _T0:.1f} s)", flush=True)
+    t2 = phase_t2(dev)
+    cfg, plan = t2.pop("cfg"), t2.pop("plan")
+    out["t2"] = t2
+    out["t2"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print(f"-- t3. the draft-payload proof and the poisoned skipped streams "
+          f"(t = {t0 - _T0:.1f} s)", flush=True)
+    out["t3"] = phase_t3(dev, cfg, plan)
+    out["t3"]["seconds"] = time.perf_counter() - t0
+    del cfg, plan
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"-- t4. the recompile lint, full width, {T_LAYERS} layers "
+          f"(t = {t0 - _T0:.1f} s)", flush=True)
+    out["t4"] = phase_t4(dev)
+    out["t4"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print(f"-- t5. build_plan(validate=True) (t = {t0 - _T0:.1f} s)", flush=True)
+    out["t5"] = phase_t5(dev)
+    out["t5"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _analysis_report(t, smi) -> None:
+    """Phase t's summary line."""
+    print(f"analysis (phase t): lint launches {t['t1']['launches']}, C++ refusals "
+          f"{len(t['t1']['refusals'])} all cudaErrorInvalidValue; dense step "
+          f"{t['t2']['k1_launches']} K1, paged tick {t['t2']['k4_launches']} K4 reading "
+          f"{t['t2']['pool_bytes']} pool bytes; draft ratios "
+          f"{ {m: round(v['ratio'], 4) for m, v in t['t3'].items() if isinstance(v, dict)} }; "
+          f"validate_plan ms { {a: round(v['validate_ms'], 2) for a, v in t['t5'].items() if isinstance(v, dict)} }; "
+          f"sub-phase seconds { {k: round(v['seconds'], 1) for k, v in t.items()} }; {smi}",
+          flush=True)
+
+
 def measure(dev, clocks):
-    """Phases c-s; returns the kernels' records and the serve (train, mesh)
-    times."""
+    """Phases c-t; returns the kernels' records and the serve (train, mesh,
+    analysis) times."""
     import torch
     _phase("c. kernels vs plain versions at OLMo-1B shapes")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3795,6 +4153,11 @@ def measure(dev, clocks):
         "paged_attention": {"s1_paged": mesh["s1"]["paged_k4"]},
         "grouped_onehot": {"s2_moe_per_rank": mesh["s2"]["k6_launches_per_rank"]}}
 
+    _phase("t. static analysis: registry audit and launch-contract lint on the card, "
+           "dataflow and draft proofs on full-width OLMo-1B, recompile lint, "
+           "build_plan(validate=True)")
+    times["analysis"] = analysis = measure_analysis(dev)
+
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
         t, mid, pf = timings[name][4], timings[name][16], timings[name][128]
@@ -3886,6 +4249,9 @@ def measure(dev, clocks):
             "m16_ms": mid["ms"], "m16_graph_ms": mid["graph_ms"],
             "m16_bound_ms": mid["bound_ms"], "m16_library_graph_ms": mid["library_graph_ms"],
             "per_shape_graph_ms": row["per_shape"]})
+    from repro_torch.analysis.pallas_lint import VARIANT_KERNELS
+    for k in kernels:        # phase t1's launches, each held to its plain version
+        k["lint_launches"] = analysis["t1"]["launches"][VARIANT_KERNELS[k["name"]]]
     return kernels, times
 
 
@@ -3909,8 +4275,9 @@ def _zoo_report(zoo, smi) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "q"], ["--only", "r"], ["--only", "s"]):
-        print("usage: chip_smoke.py [--only q|r|s]", file=sys.stderr)
+    if argv not in ([], ["--only", "q"], ["--only", "r"], ["--only", "s"],
+                    ["--only", "t"]):
+        print("usage: chip_smoke.py [--only q|r|s|t]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
@@ -3963,6 +4330,12 @@ def main(argv=None) -> int:
             _mesh_report(mesh, smi)
             print(json.dumps({"mesh": mesh}, default=str))
             return 0
+        if argv == ["--only", "t"]:     # phase t alone: no kernels or result line
+            _phase("t. static analysis")
+            analysis = measure_analysis(dev)
+            _analysis_report(analysis, smi)
+            print(json.dumps({"analysis": analysis}, default=str))
+            return 0
         if argv == ["--only", "r"]:     # phase r alone: no kernels or result line
             _phase("r. the training path")
             train = measure_train(dev, clocks)
@@ -4009,6 +4382,7 @@ def main(argv=None) -> int:
     _zoo_report(times["zoo"], smi)
     _train_report(times["train"], smi)
     _mesh_report(times["mesh"], smi)
+    _analysis_report(times["analysis"], smi)
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

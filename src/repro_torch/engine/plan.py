@@ -208,6 +208,18 @@ def _mesh_layout(mesh, rules):
             tuple(axis_sizes(mesh).items()))
 
 
+def _maybe_validate(plan: ExecutionPlan, validate: bool, params: Any,
+                    device) -> ExecutionPlan:
+    if not validate:
+        return plan
+    from repro_torch.analysis import validate_plan
+    report = validate_plan(plan, params=params, device=device)
+    if report.errors():
+        raise ValueError("build_plan(validate=True) failed:\n"
+                         + report.render(min_severity="warning"))
+    return plan
+
+
 def build_plan(params: Any, *, schedule: Any = None,
                policy: Optional[LayerPolicy] = None,
                cfg: Optional[StruMConfig] = None,
@@ -225,8 +237,9 @@ def build_plan(params: Any, *, schedule: Any = None,
     Tensors move to ``device`` (default ``"cuda"``; raises without a card
     unless ``device="cpu"``), packing runs there, and ``backend=None`` /
     ``"auto"`` selects by that device: ``cuda:*`` on the card, ``torch:*``
-    on the CPU.  ``validate=True`` needs the static plan checks
-    (``analysis.validate_plan``), which are not ported: it raises.
+    on the CPU.  ``validate=True`` runs the static plan checks
+    (``analysis.validate_plan``, with ``params`` for a schedule's error
+    budget) and raises ``ValueError`` on any error finding.
 
     ``mesh`` (a ``DeviceMesh``, + optional sharding ``rules``) makes the
     plan mesh-aware (the module docstring): each packed leaf becomes this
@@ -238,10 +251,6 @@ def build_plan(params: Any, *, schedule: Any = None,
     if mesh is not None and scope != "model":
         raise ValueError("mesh-aware plans need scope='model': folded "
                          "(scope='tree') leaves have no TP layout")
-    if validate:
-        raise NotImplementedError(
-            "build_plan(validate=True) runs analysis.validate_plan, which is "
-            "not ported yet (ROADMAP queue 1 item 9)")
     dev = resolve_device(device)
     pol = _resolve_policy(schedule, policy, cfg)
     entries: dict[str, PlanEntry] = {}
@@ -301,9 +310,11 @@ def build_plan(params: Any, *, schedule: Any = None,
             return packed if pack else leaf
 
         out = map_named(visit, params)
-        return ExecutionPlan(entries=entries, params=out, backend=backend,
-                             scope="model", schedule=schedule,
-                             meta={"fsdp_axes": fsdp} if fsdp else {})
+        return _maybe_validate(
+            ExecutionPlan(entries=entries, params=out, backend=backend,
+                          scope="model", schedule=schedule,
+                          meta={"fsdp_axes": fsdp} if fsdp else {}),
+            validate, params, dev)
 
     # scope == "tree": flat manifest, column-folded packing
     from repro_torch.core.apply import pack_array
@@ -325,8 +336,10 @@ def build_plan(params: Any, *, schedule: Any = None,
         else:
             _entry(name, leaf, leaf_cfg, "folded", None)
             out[name] = leaf
-    return ExecutionPlan(entries=entries, params=out, backend=backend,
-                         scope="tree", schedule=schedule)
+    return _maybe_validate(
+        ExecutionPlan(entries=entries, params=out, backend=backend, scope="tree",
+                      schedule=schedule),
+        validate, params, dev)
 
 
 def fake_quantize(params: Any, *, schedule: Any = None,

@@ -159,7 +159,7 @@ def gather_dequant_leaf(wleaf: dict, scfg: StruMConfig, mesh, pattern: str,
     fsdp = tuple(fsdp) if fsdp else shd.fsdp_axes(mesh)
     tp = _tp_axis(mesh)
     wd = _local_dense(wleaf, scfg, mesh, pattern, fsdp, dtype)
-    wd = shd.all_gather(wd, mesh, tp, 1 if pattern == "col" else 0)
+    wd = shd.gather_out(wd, mesh, tp, 1 if pattern == "col" else 0)
     return wd[:k_dim]
 
 
@@ -175,7 +175,7 @@ def _gather_dequant(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
     wd = _local_dense(wleaf, cfg, mesh, pattern, fsdp, x.dtype).to(torch.float32)
     xf = x.to(torch.float32)
     if pattern == "col":
-        y = shd.all_gather(xf @ wd[:k_dim], mesh, tp, -1)
+        y = shd.gather_out(xf @ wd[:k_dim], mesh, tp, -1)
     else:
         xk = xf.chunk(shd.axis_size(mesh, tp), dim=-1)[shd.axis_index(mesh, tp)] \
             if tp else xf
@@ -223,8 +223,8 @@ def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
     y = inner.fn(x_l, _packed(cfg, k_local, f), out_dtype=torch.float32)
     if not col:
         y = shd.all_reduce(y, mesh, tp)              # row-parallel K-partials
-    y = shd.all_gather(y, mesh, tp, 1) if col else y
-    y = shd.all_gather(y, mesh, fsdp, 0)[:m]
+    y = shd.gather_out(y, mesh, tp, 1) if col else y
+    y = shd.gather_out(y, mesh, fsdp, 0)[:m]
     return y.to(out_dtype).reshape(lead + (n_global,))
 
 

@@ -48,16 +48,20 @@ from __future__ import annotations
 
 import functools
 import math
+import types
+from typing import Optional
 
 import torch
 
+from repro_torch.kernels import hooks
 from repro_torch.kernels import strum_decode as D
 from repro_torch.kernels.strum_matmul import METHOD_CODES, _route
 
 __all__ = ["strum_paged_attention", "strum_paged_attention_maskfree",
            "strum_paged_attention_plain", "strum_paged_attention_maskfree_plain",
            "strum_paged_attention_split_plain", "merge_split_partials_plain",
-           "split_pages", "launch_counts", "reset_launch_counts", "NEG_INF"]
+           "split_pages", "launch_counts", "reset_launch_counts", "NEG_INF",
+           "launch_contract"]
 
 NEG_INF = -1e30
 
@@ -181,42 +185,127 @@ def strum_paged_attention_maskfree_plain(q4, k_lo, k_scale, v_lo, v_scale,
 
 # ------------------------------------------------------------ CUDA launch --
 
-def _check_operands(name: str, q4, k: dict, v: dict, page_ids, n_valid, *,
-                    w: int, n_low: int, q: int, method: str):
-    """Validate every operand for a launch on q4's device; returns the page
-    table and ``n_valid`` as contiguous int32 there.  ``k`` / ``v`` map field
-    names to pool tensors; a field the kernel does not read is absent."""
-    dev = q4.device
-    b, kv, r, hd = q4.shape
-    f = kv * hd
-    n_pages, nb = k["lo"].shape[:2]
-    if q4.dtype != torch.float32 or not q4.is_contiguous():
-        raise ValueError(f"cuda:{name}: q4 must be contiguous float32")
-    if hd > MAX_HEAD_DIM or w > MAX_BLOCK_WIDTH:
-        raise ValueError(f"cuda:{name}: head dim {hd} > {MAX_HEAD_DIM} or block width "
-                         f"w={w} > {MAX_BLOCK_WIDTH}")
-    least = {"mask": (torch.uint8, w // 8), "hi": (torch.int8, w - n_low),
-             "lo": (torch.uint8, 0 if method == "sparsity" else -(-(n_low * q) // 8))}
-    for pool in (k, v):
-        D.check_fields(f"cuda:{name}",
-                       {fn: (t,) + least[fn] for fn, t in pool.items() if fn != "scale"},
-                       n_pages, nb, f, dev)
-        D.check_scale(f"cuda:{name}", pool["scale"], n_pages, f, dev)
-    ids = page_ids.to(device=dev, dtype=torch.int32).contiguous()
-    nv = n_valid.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
-    if ids.dim() != 2 or ids.shape[0] != b:
-        raise ValueError(f"cuda:{name}: page_ids {tuple(ids.shape)} is not (B={b}, P)")
-    return ids, nv
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_CU = "csrc/strum_attention.cu"
 
 
 def _row_tile(r: int, hd: int) -> int:
     """K4's and K5's query rows per block (the launcher's rule)."""
     return 1 if r == 1 else 8 if (r <= 8 or hd > 128) else 16
+
+
+def launch_contract(name: str, b: int, kv: int, r: int, hd: int, p: int,
+                    n_pages: int, nb: int, w: int, n_low: int, q: int, method: str, *,
+                    fields=None, v_fields=None, sms=None) -> dict:
+    """Everything K4 (``name`` "paged_attention") or K5
+    ("paged_attention_maskfree") refuses, from shapes and dtypes alone:
+    raises ``ValueError`` with the reason, naming the line of
+    ``csrc/strum_attention.cu`` where its entry point returns
+    ``cudaErrorInvalidValue`` for the same point.  The launcher calls it
+    first.
+
+    q4 is ``(B, KV, R, hd)``, the table ``(B, P)``, the pools ``n_pages``
+    pages of ``nb`` blocks of width ``w`` over ``F = KV * hd`` channels;
+    ``fields`` maps each K pool field the kernel reads to ``(shape, dtype)``
+    (default: the packer's rows), ``v_fields`` the V pool's (default: the
+    same; the kernel takes one set of rows for both); ``sms``, the card's
+    SM count, adds the split.  Returns a read-only mapping (cached per argument set)
+    ``{"pps", "splits", "rows"}``: page slots per split,
+    splits, and the (mask, hi, lo) rows a block."""
+    return _contract(name, b, kv, r, hd, p, n_pages, nb, w, n_low, q, method,
+                     None if fields is None else tuple(fields.items()),
+                     None if v_fields is None else tuple(v_fields.items()), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _contract(name, b, kv, r, hd, p, n_pages, nb, w, n_low, q, method, fields,
+              v_fields, sms):
+    fields = None if fields is None else dict(fields)
+    if name not in ("paged_attention", "paged_attention_maskfree"):
+        raise ValueError(f"no paged-attention kernel {name!r}")
+    tag = f"cuda:{name}"
+
+    def refuse(why: str, line: Optional[int] = None):
+        raise ValueError(f"{tag}: {why}" + (f" ({_CU}:{line})" if line else ""))
+
+    maskfree = name == "paged_attention_maskfree"
+    if min(b, kv, r, p, nb, n_pages) < 1 or hd < 1 or w < 1 or not 0 <= n_low <= w:
+        refuse(f"B={b} KV={kv} R={r} P={p} pages={n_pages} nb={nb} hd={hd} w={w} "
+               f"n_low={n_low} out of range", 868)
+    if hd > MAX_HEAD_DIM:
+        refuse(f"head dim {hd} > {MAX_HEAD_DIM}", 868)
+    if w > MAX_BLOCK_WIDTH:
+        refuse(f"block width w={w} > {MAX_BLOCK_WIDTH}", 868)
+    if method != "sparsity" and not 1 <= q <= 8:
+        refuse(f"q={q} outside [1, 8]", 868)
+    if maskfree and (method == "sparsity" or n_low != w):
+        refuse(f"needs a lo payload at n_low == w, got {method} n_low={n_low}", 873)
+    if not maskfree and w % 8:
+        refuse(f"needs byte-aligned mask rows (w={w})", 870)
+    least = {"mask": (torch.uint8, w // 8), "hi": (torch.int8, w - n_low),
+             "lo": (torch.uint8, 0 if method == "sparsity" else -(-(n_low * q) // 8))}
+    reads = ("lo",) if maskfree else ("mask", "hi", "lo")
+    if fields is None:
+        fields = {f: ((n_pages, nb, max(least[f][1], 1), kv * hd), least[f][0])
+                  for f in reads}
+    rows = {"mask": 0, "hi": 0, "lo": 0}
+    for f, (shape, dtype) in fields.items():
+        want, low = least[f]
+        if dtype != want or len(shape) != 4 or tuple(shape[:2]) != (n_pages, nb) \
+                or shape[3] != kv * hd or shape[2] < max(low, 1):
+            # K5's entry point refuses lo rows short of w * q / 8 itself
+            refuse(f"{f} {tuple(shape)} {dtype} does not fit ({n_pages}, {nb}, "
+                   f">= {max(low, 1)}, {kv * hd}) {want}",
+                   873 if maskfree and f == "lo" else None)
+        rows[f] = shape[2]
+    if v_fields is not None and dict(v_fields) != fields:
+        refuse(f"V pool fields {dict(v_fields)} are not K's {fields}")
+    if not maskfree and rows["mask"] != w // 8:
+        refuse(f"mask has {rows['mask']} rows a block; the kernel reads w/8 = {w // 8}",
+               870)
+    if kv * -(-r // _row_tile(r, hd)) > 65535 or b > 65535:
+        refuse(f"grid of {b} slots x {kv * -(-r // _row_tile(r, hd))} head tiles "
+               f"past 65535", 882)
+    out = {"pps": None, "splits": None, "rows": (rows["mask"], rows["hi"], rows["lo"])}
+    if sms is not None:
+        pps = split_pages(b, p, kv * -(-r // _row_tile(r, hd)), sms)
+        if not 1 <= pps <= MAX_SPLIT_PAGES:
+            refuse(f"{pps} page slots a split outside [1, {MAX_SPLIT_PAGES}]", 868)
+        out.update(pps=pps, splits=-(-p // pps))
+    return types.MappingProxyType(out)
+
+
+def _check_operands(name: str, q4, k: dict, v: dict, page_ids, n_valid, *,
+                    w: int, n_low: int, q: int, method: str):
+    """The launch contract, then what it cannot see: every operand on q4's
+    device and contiguous, and the scales; returns the contract's route,
+    the page table and ``n_valid`` as contiguous int32 there.  ``k`` /
+    ``v`` map field names to pool tensors; a field the kernel does not
+    read is absent."""
+    dev = q4.device
+    b, kv, r, hd = q4.shape
+    n_pages, nb = k["lo"].shape[:2]
+    if page_ids.dim() != 2 or page_ids.shape[0] != b:
+        raise ValueError(f"cuda:{name}: page_ids {tuple(page_ids.shape)} is not "
+                         f"(B={b}, P)")
+    shapes = lambda pool: {f: (tuple(t.shape), t.dtype)  # noqa: E731
+                           for f, t in pool.items() if f != "scale"}
+    route = launch_contract(name, b, kv, r, hd, page_ids.shape[1], n_pages, nb, w,
+                            n_low, q, method, fields=shapes(k), v_fields=shapes(v),
+                            sms=_sm_count(dev))
+    if q4.dtype != torch.float32 or not q4.is_contiguous():
+        raise ValueError(f"cuda:{name}: q4 must be contiguous float32")
+    for pool in (k, v):
+        D.check_placed(f"cuda:{name}", {f: t for f, t in pool.items() if f != "scale"},
+                       dev)
+        D.check_scale(f"cuda:{name}", pool["scale"], n_pages, kv * hd, dev)
+    ids = page_ids.to(device=dev, dtype=torch.int32).contiguous()
+    nv = n_valid.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
+    return route, ids, nv
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_split(name: str, q4, k: dict, v: dict, page_ids, n_valid, *, w: int,
@@ -225,15 +314,13 @@ def _launch_split(name: str, q4, k: dict, v: dict, page_ids, n_valid, *, w: int,
     ("paged_attention_maskfree": lo, scale) on q4's stream: the split
     partials, then (more than one split) the combine kernel, counted under
     ``name + "_combine"``; partials live in ``torch.empty`` scratch."""
-    ids, nv = _check_operands(name, q4, k, v, page_ids, n_valid, w=w, n_low=n_low,
-                              q=q, method=method)
+    route, ids, nv = _check_operands(name, q4, k, v, page_ids, n_valid, w=w,
+                                     n_low=n_low, q=q, method=method)
     dev = q4.device
     b, kv, r, hd = q4.shape
     n_pages, nb = k["lo"].shape[:2]
     p = ids.shape[1]
-    heads = kv * -(-r // _row_tile(r, hd))
-    pps = split_pages(b, p, heads, _sm_count(dev))
-    splits = -(-p // pps)
+    pps, splits = route["pps"], route["splits"]
     acc = torch.empty((splits, b, kv, r, hd), dtype=torch.float32, device=dev)
     m = torch.empty((splits, b, kv, r), dtype=torch.float32, device=dev)
     l = torch.empty((splits, b, kv, r), dtype=torch.float32, device=dev)
@@ -245,11 +332,10 @@ def _launch_split(name: str, q4, k: dict, v: dict, page_ids, n_valid, *, w: int,
             b, kv, r, hd, p, n_pages, pps, nb, w)
     if name == "paged_attention":
         err = so.strum_paged_attention_split_launch(
-            *head, k["mask"].shape[2], k["hi"].shape[2], k["lo"].shape[2], n_low, q,
-            METHOD_CODES[method], stream)
+            *head, *route["rows"], n_low, q, METHOD_CODES[method], stream)
     else:
         err = so.strum_paged_attention_maskfree_split_launch(
-            *head, k["lo"].shape[2], q, METHOD_CODES[method], stream)
+            *head, route["rows"][2], q, METHOD_CODES[method], stream)
     if err != 0:
         raise RuntimeError(f"cuda:{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
@@ -273,6 +359,11 @@ def strum_paged_attention(q4, k_mask, k_hi, k_lo, k_scale, v_mask, v_hi, v_lo,
     """K4: sealed-page partial (acc, m, l) over mask + hi + lo pools; needs
     w % 8 == 0 (on the card also w <= 64 and head dim <= 256).  Empty fields
     come floored at one row."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "cache:attn_fused", strum_paged_attention, q4, k_mask, k_hi, k_lo, k_scale,
+            v_mask, v_hi, v_lo, v_scale, page_ids, n_valid, w=w, n_low=n_low, q=q,
+            method=method)
     if w % 8:
         raise ValueError(f"paged attention needs byte-aligned mask rows (w={w})")
     if _route(q4) == "plain":
@@ -289,6 +380,10 @@ def strum_paged_attention_maskfree(q4, k_lo, k_scale, v_lo, v_scale, page_ids,
                                    n_valid, *, w: int, q: int, method: str):
     """K5 (p = 1): the partial from lo + scale only; reads no mask or hi (on
     the card w <= 64 and head dim <= 256)."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "cache:attn_fused_maskfree", strum_paged_attention_maskfree, q4, k_lo,
+            k_scale, v_lo, v_scale, page_ids, n_valid, w=w, q=q, method=method)
     if method not in ("dliq", "mip2q"):
         raise ValueError(f"maskfree attention needs a lo payload, got {method!r}")
     if _route(q4) == "plain":

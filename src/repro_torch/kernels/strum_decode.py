@@ -28,15 +28,17 @@ kernel equals the plain version bit for bit.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.core.packing import (_scatter_expand, _unpack_bits_axis1,
                                       _unpack_fields, decode_low_values)
+from repro_torch.kernels import hooks
 from repro_torch.kernels.strum_matmul import METHOD_CODES, _route
 
 __all__ = ["strum_page_decode", "strum_page_decode_plain", "decode_lo_pages",
-           "launch_counts", "reset_launch_counts", "lib"]
+           "launch_counts", "reset_launch_counts", "lib", "launch_contract"]
 
 #: kernel name -> launches since the last reset
 launch_counts = {"page_decode": 0}
@@ -94,18 +96,13 @@ def lib():
     return so
 
 
-def check_fields(name: str, fields: dict, lead: int, nb: int, f: int,
-                 device: torch.device) -> None:
-    """Raise unless every packed field is contiguous on ``device`` with shape
-    (lead, nb, >= least rows, F) and its dtype; ``fields`` maps a name to
-    (tensor, dtype, least rows)."""
-    for fname, (t, dtype, least) in fields.items():
+def check_placed(name: str, fields: dict, device: torch.device) -> None:
+    """Raise unless every packed field (name -> tensor) is contiguous on
+    ``device``: what a launch contract, which sees only shapes and
+    dtypes, cannot check."""
+    for fname, t in fields.items():
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{name}: {fname} must be contiguous and on {device}")
-        if t.dtype != dtype or t.dim() != 4 or tuple(t.shape[:2]) != (lead, nb) \
-                or t.shape[3] != f or t.shape[2] < max(least, 1):
-            raise ValueError(f"{name}: {fname} {tuple(t.shape)} {t.dtype} does not "
-                             f"fit ({lead}, {nb}, >= {max(least, 1)}, {f}) {dtype}")
 
 
 def check_scale(name: str, scale: torch.Tensor, lead: int, f: int,
@@ -117,25 +114,72 @@ def check_scale(name: str, scale: torch.Tensor, lead: int, f: int,
                          f"float32 on {device}")
 
 
+_CU = "csrc/strum_attention.cu"
+_STAGED_SMEM = 200 * 1024   # kStagedSmem: the staged path's shared memory
+
+
+def launch_contract(p: int, nb: int, w: int, f: int, n_low: int, q: int,
+                    method: str, *, fields=None) -> dict:
+    """Everything K11 refuses, from shapes and dtypes alone: raises
+    ``ValueError`` with the reason, naming the line of
+    ``csrc/strum_attention.cu`` where ``strum_page_decode_launch`` returns
+    ``cudaErrorInvalidValue`` for the same point.  The launcher calls it
+    first.  ``p`` pages of ``nb`` blocks of width ``w`` over ``f``
+    channels; ``fields`` maps mask / hi / lo to ``(shape, dtype)``
+    (default: the packer's rows, empty ones floored at one).  Returns
+    ``{"rows"}``: the (mask, hi, lo) rows a block."""
+    tag = "cuda:page_decode"
+
+    def refuse(why: str, line: Optional[int] = None):
+        raise ValueError(f"{tag}: {why}" + (f" ({_CU}:{line})" if line else ""))
+
+    lo_on = method != "sparsity" and n_low > 0
+    n_high, lo_n = w - n_low, -(-(n_low * q) // 8) if lo_on else 0
+    if min(p, nb, w, f) < 1 or not 0 <= n_low <= w or p * nb > 0x7FFFFFFF:
+        refuse(f"P={p} nb={nb} w={w} F={f} n_low={n_low} out of range", 918)
+    if w % 8:
+        refuse(f"needs byte-aligned mask rows (w={w})", 918)
+    if lo_on and not 1 <= q <= 8:
+        refuse(f"q={q} outside [1, 8]", 918)
+    least = {"mask": (torch.uint8, w // 8), "hi": (torch.int8, n_high),
+             "lo": (torch.uint8, 0 if method == "sparsity" else lo_n)}
+    if fields is None:
+        fields = {k: ((p, nb, max(v[1], 1), f), v[0]) for k, v in least.items()}
+    rows = {}
+    for name, (shape, dtype) in fields.items():
+        want, low = least[name]
+        if dtype != want or len(shape) != 4 or tuple(shape[:2]) != (p, nb) \
+                or shape[3] != f or shape[2] < max(low, 1):
+            refuse(f"{name} {tuple(shape)} {dtype} does not fit ({p}, {nb}, "
+                   f">= {max(low, 1)}, {f}) {want}", 918)
+        rows[name] = shape[2]
+    staged = w > 64 or n_high > 16 or lo_n > 8
+    if staged and 32 * 4 * (w // 8 + max(n_high, 1) + max(lo_n, 1)) > _STAGED_SMEM:
+        refuse(f"one warp's staged columns exceed {_STAGED_SMEM} bytes", 406)
+    return {"rows": (rows["mask"], rows["hi"], rows["lo"])}
+
+
 def strum_page_decode(mask, hi, lo, scale, *, w: int, n_low: int, q: int,
                       method: str) -> torch.Tensor:
     """K11: P packed pages -> (P, nb·w, F) f32.  Empty fields (hi at p = 1,
     lo under sparsity or n_low = 0) come floored at one row."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel("cache:cuda_decode", strum_page_decode, mask, hi, lo,
+                                   scale, w=w, n_low=n_low, q=q, method=method)
     if w % 8:
         raise ValueError(f"page decode needs byte-aligned mask rows (w={w})")
     if _route(mask) == "plain":
         return strum_page_decode_plain(mask, hi, lo, scale, w=w, n_low=n_low, q=q,
                                        method=method)
     p, nb, _, f = mask.shape
-    lo_rows = 0 if method == "sparsity" else -(-(n_low * q) // 8)
-    check_fields("cuda:page_decode",
-                 {"mask": (mask, torch.uint8, w // 8), "hi": (hi, torch.int8, w - n_low),
-                  "lo": (lo, torch.uint8, lo_rows)}, p, nb, f, mask.device)
+    route = launch_contract(p, nb, w, f, n_low, q, method, fields={
+        k: (tuple(t.shape), t.dtype) for k, t in (("mask", mask), ("hi", hi), ("lo", lo))})
+    check_placed("cuda:page_decode", {"mask": mask, "hi": hi, "lo": lo}, mask.device)
     check_scale("cuda:page_decode", scale, p, f, mask.device)
     out = torch.empty((p, nb * w, f), dtype=torch.float32, device=mask.device)
     err = lib().strum_page_decode_launch(
         mask.data_ptr(), hi.data_ptr(), lo.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), p, nb, w, f, mask.shape[2], hi.shape[2], lo.shape[2], n_low,
+        out.data_ptr(), p, nb, w, f, *route["rows"], n_low,
         q, METHOD_CODES[method], torch.cuda.current_stream(mask.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cuda:page_decode launch failed: CUDA error {err}")

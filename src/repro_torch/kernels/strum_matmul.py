@@ -65,11 +65,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
+from typing import Optional
 
 import torch
 
 from repro_torch.core.packing import (_scatter_expand, _unpack_bits_axis1,
                                       _unpack_fields, decode_low_values)
+from repro_torch.kernels import hooks
 
 __all__ = ["strum_matmul_onehot", "strum_matmul_maskfree", "strum_matmul_dense",
            "strum_matmul_onehot_plain", "strum_matmul_maskfree_plain",
@@ -80,7 +83,8 @@ __all__ = ["strum_matmul_onehot", "strum_matmul_maskfree", "strum_matmul_dense",
            "strum_matmul_grouped_dense_plain", "strum_matmul_histream",
            "strum_matmul_maskfree_p", "strum_matmul_histream_plain",
            "strum_matmul_maskfree_p_plain", "launch_counts",
-           "reset_launch_counts", "METHOD_CODES", "byte_path_tables"]
+           "reset_launch_counts", "METHOD_CODES", "byte_path_tables",
+           "launch_contract"]
 
 METHOD_CODES = {"sparsity": 0, "dliq": 1, "mip2q": 2}
 _ROWS = ("grouped_onehot", "grouped_maskfree", "grouped_dense")  # take ``rows``
@@ -301,12 +305,17 @@ def _lib():
     return lib
 
 
-def _splits(m: int, n: int, nb: int, device: torch.device) -> int:
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _splits(m: int, n: int, nb: int, device=None, *, sms=None) -> int:
     """Split K across blocks when the output tiles alone cannot fill the
     card (decode: M = batch, a few dozen column tiles); the slices of one
-    tile are one thread-block cluster, at most ``MAX_SPLITS`` blocks."""
+    tile are one thread-block cluster, at most ``MAX_SPLITS`` blocks.
+    ``sms`` (the card's SM count) is asked of ``device`` unless given."""
     tiles = math.ceil(n / _BN) * math.ceil(m / (8 if m <= 8 else 64))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device) if sms is None else sms
     if tiles >= sms:
         return 1
     return max(1, min(math.ceil(2 * sms / tiles), nb // 4, MAX_SPLITS))
@@ -335,7 +344,8 @@ def _dense_view(w: int, nb: int, hi_rows: int):
     return "template", nb, w, hi_rows
 
 
-def _stream_splits(m: int, n: int, nb: int, bf16: bool, device: torch.device) -> int:
+def _stream_splits(m: int, n: int, nb: int, bf16: bool, device=None, *,
+                   sms=None) -> int:
     """The streamed kernel's split: a 128-column tile (16 rows; 128 rows
     past 16 rows of bf16 x) runs one block an SM (its launch bounds; K1's
     tile holds ~180 KB of shared memory), so K is split until the tiles
@@ -344,70 +354,174 @@ def _stream_splits(m: int, n: int, nb: int, bf16: bool, device: torch.device) ->
     cannot hold every cluster at once (it asks the card)."""
     bm = 128 if bf16 and m > 16 else 16
     tiles = math.ceil(n / STREAM_BN) * math.ceil(m / bm)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device) if sms is None else sms
     if tiles >= sms:
         return 1
     return max(1, min(sms // tiles, nb // 4, MAX_SPLITS))
 
 
 def _split_count(name: str, m: int, n: int, nb: int, w: int, bf16: bool,
-                 device: torch.device) -> int:
+                 device=None, *, sms=None) -> int:
     """K slices a 2-D launch of kernel ``name`` takes."""
     if _streamed(name, w):
-        return _stream_splits(m, n, nb, bf16, device)
-    return _splits(m, n, nb, device)
+        return _stream_splits(m, n, nb, bf16, device, sms=sms)
+    return _splits(m, n, nb, device, sms=sms)
+
+
+_CU = "csrc/strum_matmul.cu"
+
+
+def _field_rows(w: int, n_low: int, q: int, method: str) -> dict:
+    """Field -> (dtype, least rows per block the kernels read); the packer
+    writes exactly these (an empty field floored at one row)."""
+    return {"mask": (torch.uint8, -(-w // 8)), "hi": (torch.int8, w - n_low),
+            "lo": (torch.uint8, 0 if method == "sparsity" else -(-(n_low * q) // 8))}
+
+
+def launch_contract(name: str, m: int, k: int, nb: int, n: int, w: int,
+                    n_low: int, q: int, method: str, dtype, groups: int = 0, *,
+                    fields=None, L=None, sms=None) -> dict:
+    """Everything kernel ``name`` (a key of ``_ENTRY``) refuses, from shapes
+    and dtypes alone: raises ``ValueError`` with the reason, naming the line
+    of ``csrc/strum_matmul.cu`` where its C++ entry point returns
+    ``cudaErrorInvalidValue`` for the same point.  The launcher calls it
+    before anything else, so it is the one statement of what launches.
+
+    ``x`` is ``(M, K)`` (``groups`` = 0) or ``(G, M, K)``, the payload ``nb``
+    blocks of width ``w`` over ``N`` columns.  ``fields`` maps each field
+    the kernel reads to its ``(shape, dtype)`` (default: the packer's
+    rows); ``sms``, the card's SM count, adds the K split of a 2-D launch.
+    Returns the route, a read-only mapping cached per argument set (a
+    launch pays one lookup): ``nb`` / ``w`` / ``rows`` (mask, hi, lo) as
+    the entry point takes them (K3 / K8 after ``_dense_view``), the byte
+    path's ``tables`` (or None) and ``splits``."""
+    return _contract(name, m, k, nb, n, w, n_low, q, method, dtype, groups,
+                     None if fields is None else tuple(fields.items()), L, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _contract(name, m, k, nb, n, w, n_low, q, method, dtype, groups, fields, L, sms):
+    fields = None if fields is None else dict(fields)
+    if name not in _ENTRY:
+        raise ValueError(f"no StruM matmul kernel {name!r}; want one of {sorted(_ENTRY)}")
+    tag = f"cuda:{name}"
+
+    def refuse(why: str, line: Optional[int] = None):
+        raise ValueError(f"{tag}: {why}" + (f" ({_CU}:{line})" if line else ""))
+
+    grouped = name.startswith("grouped_")
+    if dtype not in (torch.float32, torch.bfloat16):
+        refuse(f"x must be float32/bfloat16, got {dtype}")
+    # the entry point that refuses for the C++ side: K6's, K7's, the
+    # streamed kernel's, or the template's (which checks only sizes)
+    entry = {"grouped_onehot": 1860, "grouped_maskfree": 1886}.get(
+        name, 1744 if _streamed(name, w) or name == "grouped_dense" and w <= 64
+        and w % 8 == 0 else 430)
+    cxx = None if entry == 430 else entry
+    if grouped and not 1 <= groups <= 65535:
+        refuse(f"G={groups} groups outside [1, 65535]", 1838 if name == "grouped_dense"
+               and groups < 1 else entry)
+    if not grouped and groups:
+        refuse(f"a 2-D kernel takes no groups (G={groups})")
+    if min(m, n, k, nb, w) < 1 or not 0 <= n_low <= w:
+        refuse(f"M={m} N={n} K={k} nb={nb} w={w} n_low={n_low} out of range", entry)
+    if k > nb * w:
+        refuse(f"x K={k} exceeds the payload's nb*w={nb * w}", cxx)
+    if name in ("onehot", "histream", "grouped_onehot") and w % 8:
+        refuse(f"needs byte-aligned mask rows (w={w})", cxx)
+    if name in ("maskfree", "grouped_maskfree") and (
+            method not in ("dliq", "mip2q") or n_low != w):
+        refuse(f"needs a lo payload at n_low == w, got {method} n_low={n_low} w={w}",
+               cxx)
+    if name in ("dense", "grouped_dense") and n_low:
+        refuse(f"needs n_low == 0, got {n_low}", cxx)
+    if name in ("histream", "maskfree_p") and n_low >= w:
+        refuse(f"needs high values to stream (n_low={n_low} w={w})", cxx)
+    if name in ("grouped_onehot", "grouped_maskfree") and w > 64:
+        refuse(f"w={w} > 64", entry)
+    mode = name.replace("grouped_", "")
+    reads = {"onehot": ("mask", "hi", "lo"), "maskfree": ("lo",), "dense": ("hi",),
+             "histream": ("mask", "hi"), "maskfree_p": ("hi",)}[mode]
+    reads_lo = "lo" in reads and method != "sparsity" and n_low > 0
+    if reads_lo and not 1 <= q <= 8:
+        refuse(f"q={q} outside [1, 8]", cxx)
+    least = _field_rows(w, n_low, q, method)
+    if fields is None:
+        fields = {f: ((groups,) * grouped + (nb, max(least[f][1], 1), n), least[f][0])
+                  for f in reads}
+    rows = {"mask": 0, "hi": 0, "lo": 0}
+    for f, (shape, fdtype) in fields.items():
+        want, low = least[f]
+        if fdtype != want or len(shape) != 3 + grouped or shape[grouped] != nb or \
+                shape[-1] != n or shape[grouped + 1] < max(low, 1) or \
+                (grouped and shape[0] != groups):
+            refuse(f"{f} {tuple(shape)} {fdtype} does not fit G={max(groups, 1)} "
+                   f"nb={nb} N={n} ({want}, >= {low} rows)")
+        rows[f] = shape[grouped + 1]
+    if "mask" in fields and cxx and rows["mask"] != w // 8:
+        refuse(f"mask has {rows['mask']} rows a block; the kernel reads w/8 = {w // 8}",
+               cxx)
+    r_nb, r_w, r_hi = nb, w, rows["hi"]
+    streamed, byte_path = _streamed(name, w), _streamed(name, w)
+    if mode == "dense":                  # the same bytes, maybe 16 wide
+        path, r_nb, r_w, r_hi = _dense_view(w, nb, r_hi)
+        streamed, byte_path = path != "template", path == "bytes"
+    tables = byte_path_tables(r_w, n_low, q=q, method=method, L=L, kernel=name) \
+        if byte_path else None
+    if tables is not None and not (r_w == 16 and (
+            q == 4 and rows["lo"] == 8 if mode == "maskfree" else
+            r_hi == 16 if mode == "dense" else
+            n_low == 8 and r_hi == 8 and (not reads_lo or (q == 4 and rows["lo"] == 4)))):
+        # the byte path's layouts: w = 16 and (but K2, K3, K8) 8 high
+        refuse(f"the byte path's tables do not fit rows {rows} at w={r_w}", 1786)
+    splits = 1
+    if sms is not None and not grouped:
+        splits = _split_count(name, m, n, r_nb, r_w, dtype == torch.bfloat16, sms=sms)
+        if not 1 <= splits <= MAX_SPLITS:
+            refuse(f"{splits} K splits outside [1, {MAX_SPLITS}]",
+                   1744 if streamed else 442)
+    return types.MappingProxyType({
+        "nb": r_nb, "w": r_w, "rows": (rows["mask"], r_hi, rows["lo"]), "tables": tables,
+        "splits": splits})
 
 
 def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
             method: str, rows=None, L=None) -> torch.Tensor:
-    """Validate every operand, then launch kernel ``name`` on x's stream.
-    ``None`` marks a field the kernel does not read.  A 2-D kernel takes x
-    (M, K), fields (nb, rows, N) and scale (1, N); a grouped one (name
-    ``grouped_*``) x (G, M, K), fields (G, nb, rows, N) and scale (G, 1, N);
-    K6, K7 and K8 (``_ROWS``) also the live rows per group, (G,) or None;
-    the streamed kernels (``_STREAM``) the byte path's tables where the
-    codec (with mip2q's ``L``) allows it, K3 and K8 after the 16-wide view
-    of their hi rows (``_dense_view``)."""
+    """Check the launch contract, then every operand's device and layout,
+    then launch kernel ``name`` on x's stream.  ``None`` marks a field the
+    kernel does not read.  A 2-D kernel takes x (M, K), fields (nb, rows,
+    N) and scale (1, N); a grouped one (name ``grouped_*``) x (G, M, K),
+    fields (G, nb, rows, N) and scale (G, 1, N); K6, K7 and K8 (``_ROWS``)
+    also the live rows per group, (G,) or None; the streamed kernels
+    (``_STREAM``) the byte path's tables where the codec (with mip2q's
+    ``L``) allows it, K3 and K8 after the 16-wide view of their hi rows
+    (``_dense_view``)."""
     lead = 1 if name.startswith("grouped_") else 0
     if x.dim() != 2 + lead:
         raise ValueError(f"cuda:{name}: x must be {2 + lead}-D, got {tuple(x.shape)}")
-    groups = x.shape[0] if lead else 1
+    groups = x.shape[0] if lead else 0
     m, k = x.shape[-2:]
     n = scale.shape[-1]
-    # field -> (tensor, dtype, least rows per block the kernel reads)
-    fields = {"mask": (mask, torch.uint8, -(-w // 8)),
-              "hi": (hi, torch.int8, w - n_low),
-              "lo": (lo, torch.uint8,
-                     0 if method == "sparsity" else -(-(n_low * q) // 8))}
-    fields = {f: v for f, v in fields.items() if v[0] is not None}
-    nb = next(iter(fields.values()))[0].shape[lead]
-    for t in [x, scale] + [v[0] for v in fields.values()]:
+    fields = {f: t for f, t in (("mask", mask), ("hi", hi), ("lo", lo)) if t is not None}
+    nb = next(iter(fields.values())).shape[lead]
+    route = launch_contract(
+        name, m, k, nb, n, w, n_low, q, method, x.dtype, groups,
+        fields={f: (tuple(t.shape), t.dtype) for f, t in fields.items()}, L=L,
+        sms=None if lead else _sm_count(x.device))
+    for t in [x, scale] + list(fields.values()):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"cuda:{name}: operands must be contiguous and on "
                              f"{x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or scale.dtype != torch.float32:
-        raise TypeError(f"cuda:{name}: x must be float32/bfloat16 and scale "
-                        f"float32, got {x.dtype}, {scale.dtype}")
-    if scale.numel() != groups * n or (lead and scale.shape[0] != groups):
-        raise ValueError(f"cuda:{name}: scale {tuple(scale.shape)} does not fit "
-                         f"{groups} group(s) of N={n}")
-    for f, (t, dtype, least) in fields.items():
-        if t.dtype != dtype or t.dim() != 3 + lead or t.shape[lead] != nb or \
-                t.shape[-1] != n or t.shape[lead + 1] < max(least, 1) or \
-                (lead and t.shape[0] != groups):
-            raise ValueError(f"cuda:{name}: {f} {tuple(t.shape)} {t.dtype} does not "
-                             f"fit G={groups} nb={nb} N={n} ({dtype}, >= {least} rows)")
-    if k > nb * w:
-        raise ValueError(f"cuda:{name}: x K={k} exceeds the payload's nb*w={nb * w}")
+    if scale.dtype != torch.float32 or scale.numel() != max(groups, 1) * n or \
+            (lead and scale.shape[0] != groups):
+        raise ValueError(f"cuda:{name}: scale {tuple(scale.shape)} {scale.dtype} does "
+                         f"not fit {max(groups, 1)} group(s) of N={n} float32")
     ptrs = [t.data_ptr() if t is not None else None for t in (mask, hi, lo)]
-    nrows = [t.shape[lead + 1] if t is not None else 0 for t in (mask, hi, lo)]
-    byte_path = _streamed(name, w)
-    if name in ("dense", "grouped_dense"):      # the same bytes, maybe 16 wide
-        path, nb, w, nrows[1] = _dense_view(w, nb, nrows[1])
-        byte_path = path == "bytes"
+    nb, w, nrows = route["nb"], route["w"], route["rows"]
     tables = []
     if name in _STREAM:
-        tables = [_table_words(name, w, n_low, q, method, L) if byte_path else None]
+        tables = [_table_words(name, w, n_low, q, method, L)
+                  if route["tables"] is not None else None]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = getattr(_lib(), _ENTRY[name])
     if lead:    # every expert stack fills the card with its own tiles: no split-K
@@ -425,12 +539,10 @@ def _launch(name: str, x, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
                  *live, out.data_ptr(), groups, m, n, k, nb, w, *nrows, n_low, q,
                  METHOD_CODES[method], *tables, stream)
     else:
-        bf16 = x.dtype == torch.bfloat16
-        splits = _split_count(name, m, n, nb, w, bf16, x.device)
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        err = fn(x.data_ptr(), int(bf16), *ptrs, scale.data_ptr(), out.data_ptr(), m, n,
-                 k, x.stride(0), nb, w, *nrows, n_low, q, METHOD_CODES[method], splits,
-                 *tables, stream)
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, scale.data_ptr(),
+                 out.data_ptr(), m, n, k, x.stride(0), nb, w, *nrows, n_low, q,
+                 METHOD_CODES[method], route["splits"], *tables, stream)
     if err != 0:
         raise RuntimeError(f"cuda:{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
@@ -450,6 +562,10 @@ def strum_matmul_onehot(x2, mask, hi, lo, scale, *, w: int, n_low: int, q: int,
     """K1: y = x2 @ dequant(mask, hi, lo, scale), (M, N) f32; needs w % 8 == 0.
     ``L`` (mip2q's largest shift, optional) lets a mip2q payload take the
     byte path (``byte_path_tables``); it changes no result."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "cuda:onehot", strum_matmul_onehot, x2, mask, hi, lo, scale, w=w,
+            n_low=n_low, q=q, method=method, L=L)
     if w % 8:
         raise ValueError(f"onehot kernel needs byte-aligned mask rows (w={w})")
     if _route(x2) == "plain":
@@ -464,6 +580,10 @@ def strum_matmul_maskfree(x2, lo, scale, *, w: int, q: int, method: str,
     """K2 (p = 1): y = x2 @ dequant(lo, scale); reads neither mask nor hi.
     ``L`` (mip2q's largest shift, optional) lets a mip2q payload take the
     byte path (``byte_path_tables``); it changes no result."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "cuda:maskfree", strum_matmul_maskfree, x2, lo, scale, w=w, q=q,
+            method=method, L=L)
     if method not in ("dliq", "mip2q"):
         raise ValueError(f"maskfree kernel needs a lo payload, got {method!r}")
     if _route(x2) == "plain":
@@ -477,6 +597,8 @@ def strum_matmul_dense(x2, hi, scale, *, w: int) -> torch.Tensor:
     On the card the streamed kernel's dense mode takes it (``_dense_view``:
     the byte path wherever nb * w % 16 == 0, else its general path for w <=
     64, w % 8 == 0); only other widths take the template."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel("cuda:dense", strum_matmul_dense, x2, hi, scale, w=w)
     if _route(x2) == "plain":
         return strum_matmul_dense_plain(x2, hi, scale, w=w)
     return _launch("dense", x2, None, hi, None, scale, w=w, n_low=0, q=1,
@@ -489,13 +611,15 @@ def strum_matmul_grouped_onehot(x3, mask, hi, lo, scale, *, w: int, n_low: int,
     f32; needs w % 8 == 0 (w <= 64 on the card).  ``rows`` (G,) int, optional:
     rows at or past ``rows[g]`` of x3[g] are zero; the kernel reads no weight
     byte for a row tile past the count and writes those rows as exact 0."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "cuda:grouped", strum_matmul_grouped_onehot, x3, mask, hi, lo, scale, w=w,
+            n_low=n_low, q=q, method=method, rows=rows)
     if w % 8:
         raise ValueError(f"grouped onehot kernel needs byte-aligned mask rows (w={w})")
     if _route(x3) == "plain":
         return strum_matmul_grouped_onehot_plain(x3, mask, hi, lo, scale, rows, w=w,
                                                  n_low=n_low, q=q, method=method)
-    if w > 64:
-        raise ValueError(f"cuda:grouped_onehot: w={w} > 64")
     return _launch("grouped_onehot", x3, mask, hi, lo, scale, w=w, n_low=n_low,
                    q=q, method=method, rows=rows)
 
@@ -505,13 +629,15 @@ def strum_matmul_grouped_maskfree(x3, lo, scale, *, w: int, q: int,
     """K7 (p = 1): y[g] = x3[g] @ dequant(lo[g], scale[g]); no mask, no hi
     (w <= 64 on the card).  ``rows`` (G,) int, optional, as for K6: a row
     tile past the count reads no weight byte, and those rows come out 0."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "cuda:grouped_maskfree", strum_matmul_grouped_maskfree, x3, lo, scale, w=w,
+            q=q, method=method, rows=rows)
     if method not in ("dliq", "mip2q"):
         raise ValueError(f"grouped maskfree kernel needs a lo payload, got {method!r}")
     if _route(x3) == "plain":
         return strum_matmul_grouped_maskfree_plain(x3, lo, scale, rows, w=w, q=q,
                                                    method=method)
-    if w > 64:
-        raise ValueError(f"cuda:grouped_maskfree: w={w} > 64")
     return _launch("grouped_maskfree", x3, None, None, lo, scale, w=w, n_low=w,
                    q=q, method=method, rows=rows)
 
@@ -523,6 +649,10 @@ def strum_matmul_grouped_dense(x3, hi, scale, *, w: int, rows=None) -> torch.Ten
     the count reads no weight byte, and those rows come out 0 (the template,
     at the widths the streamed kernel cannot take, does not read ``rows``:
     x is 0 past them, so is y)."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "cuda:grouped_dense", strum_matmul_grouped_dense, x3, hi, scale, w=w,
+            rows=rows)
     if _route(x3) == "plain":
         return strum_matmul_grouped_dense_plain(x3, hi, scale, rows, w=w)
     return _launch("grouped_dense", x3, None, hi, None, scale, w=w, n_low=0, q=1,
@@ -538,6 +668,10 @@ def _check_draft(name: str, w: int, n_low: int) -> None:
 def strum_matmul_histream(x2, mask, hi, scale, *, w: int, n_low: int) -> torch.Tensor:
     """K9 (draft): y = x2 @ (hi at its masked positions, low positions 0) *
     scale, (M, N) f32; needs w % 8 == 0 and never reads lo."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "draft:histream", strum_matmul_histream, x2, mask, hi, scale, w=w,
+            n_low=n_low)
     _check_draft("histream", w, n_low)
     if w % 8:
         raise ValueError(f"histream kernel needs byte-aligned mask rows (w={w})")
@@ -550,6 +684,10 @@ def strum_matmul_histream(x2, mask, hi, scale, *, w: int, n_low: int) -> torch.T
 def strum_matmul_maskfree_p(x2, hi, scale, *, w: int, n_low: int) -> torch.Tensor:
     """K10 (draft): y = x2 @ (hi in the leading w - n_low block positions,
     the rest 0) * scale, (M, N) f32; any w, reads neither mask nor lo."""
+    if hooks.active is not None:     # a dataflow trace: record the call, then run it
+        return hooks.active.kernel(
+            "draft:maskfree_p", strum_matmul_maskfree_p, x2, hi, scale, w=w,
+            n_low=n_low)
     _check_draft("maskfree_p", w, n_low)
     if _route(x2) == "plain":
         return strum_matmul_maskfree_p_plain(x2, hi, scale, w=w, n_low=n_low)

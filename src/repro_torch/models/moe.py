@@ -242,7 +242,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None, **_kw)
     pf = shd.all_reduce(pf, mesh, data_axes + ("model",), "mean")
     y = y.reshape(x_l.shape)
     if shard_tokens:
-        y = shd.all_gather(y, mesh, data_axes, 0)
+        y = shd.gather_out(y, mesh, data_axes, 0)
     return y, cfg.n_experts * torch.sum(df * pf)
 
 

@@ -36,11 +36,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import hooks
+
 __all__ = [
     "PartitionSpec", "P", "Rules", "TRAIN_RULES", "POD_TRAIN_RULES",
     "rules_for_mesh", "fsdp_axes", "spec_for_axes", "shard_leaf", "constrain",
     "batch_spec", "shard_map", "axis_names", "axis_sizes", "axis_size",
-    "axis_index", "all_gather", "all_reduce", "shard_slice",
+    "axis_index", "all_gather", "gather_out", "all_reduce", "shard_slice",
 ]
 
 
@@ -226,25 +228,46 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """``jax.lax.all_gather(x, axes, axis=dim, tiled=True)``: the ranks'
     blocks concatenated along ``dim`` in the order of :func:`axis_index`."""
     n = axis_size(mesh, axes)
-    if n == 1:
-        return x
-    import torch.distributed as dist
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=_group(mesh, axes))
-    return torch.cat(parts, dim=dim)
+    out = x
+    if n > 1:
+        import torch.distributed as dist
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=_group(mesh, axes))
+        out = torch.cat(parts, dim=dim)
+    if hooks.active is not None:    # a dataflow trace records the collective
+        hooks.active.collective("all_gather", x, n, out)
+    return out
+
+
+def gather_out(y: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """A result's global-out re-assembly: :func:`all_gather`, recorded by a
+    dataflow trace as ``out_gather``.  It is the twin of ``shard_map``'s
+    ``out_specs``, which the reference's program holds as a sharded value
+    and not as a collective, so it is no gather-class collective of the
+    program (``analysis.dataflow``)."""
+    if hooks.active is None:
+        return all_gather(y, mesh, axes, dim)
+    trace = hooks.active
+    with hooks.paused():
+        out = all_gather(y, mesh, axes, dim)
+    trace.collective("out_gather", y, axis_size(mesh, axes), out)
+    return out
 
 
 def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     """``psum`` (``op="sum"``) or ``pmean`` (``"mean"``) over ``axes``; the
     input is left as it was."""
     n = axis_size(mesh, axes)
-    if n == 1:
-        return x
-    import torch.distributed as dist
-    y = x.clone()
-    dist.all_reduce(y, group=_group(mesh, axes))
-    return y / n if op == "mean" else y
+    out = x
+    if n > 1:
+        import torch.distributed as dist
+        out = x.clone()
+        dist.all_reduce(out, group=_group(mesh, axes))
+        out = out / n if op == "mean" else out
+    if hooks.active is not None:
+        hooks.active.collective("psum", x, n, out)
+    return out
 
 
 def _map_spec(fn, tree, spec):
@@ -260,7 +283,7 @@ def _map_spec(fn, tree, spec):
 
 def _gather_out(y: torch.Tensor, spec, mesh) -> torch.Tensor:
     for dim, entry in enumerate(spec):
-        y = all_gather(y, mesh, entry, dim)
+        y = gather_out(y, mesh, entry, dim)
     return y
 
 

@@ -11,7 +11,11 @@ format, same ``python -m repro_torch.telemetry.check`` CLI).
   Event Format complete events;
 * **request lifecycle log**: submitted -> admitted -> prefill ->
   first_token -> decode -> retired per request, reduced to TTFT, per-token
-  p50/p99 and goodput by :mod:`repro_torch.telemetry.requests`.
+  p50/p99 and goodput by :mod:`repro_torch.telemetry.requests`;
+* **collective byte accounting** — :func:`all_gather_stats`
+  (:mod:`repro_torch.telemetry.jaxpr_stats`), read off one recorded call
+  by ``analysis.dataflow`` (imported lazily, so the trace checker runs
+  without the engine).
 
 One difference from the reference: the reference's dispatch counters fire
 at ``jax.jit`` trace time (once per leaf per compiled step, the layer scan
@@ -24,8 +28,7 @@ Nothing is recorded until a recorder is active: ``STRUM_TRACE=<path>``
 (read at import) or ``--trace`` on the serve entry point installs a
 process-wide recorder flushed at exit, and ``recording()`` scopes one to a
 ``with`` block.  With none active every hook is an early return and
-``span()`` returns a shared null object.  The reference's
-``all_gather_stats`` (jaxpr byte accounting) has no twin here.
+``span()`` returns a shared null object.
 """
 from repro_torch.telemetry.recorder import (MAX_EVENTS, Recorder, configure,
                                             current, enabled, event, gauge, inc,
@@ -47,6 +50,16 @@ __all__ = [
     "LIFECYCLE_STAGES", "check_well_ordered", "latency_summary",
     "percentile", "request_metrics",
     "chrome_trace", "validate_chrome_trace", "require_spans",
+    "all_gather_stats",
 ]
+
+
+def __getattr__(name: str):
+    # lazy: all_gather_stats pulls in the engine, which the trace checker
+    # CLI must not need
+    if name == "all_gather_stats":
+        from repro_torch.telemetry.jaxpr_stats import all_gather_stats
+        return all_gather_stats
+    raise AttributeError(f"module 'repro_torch.telemetry' has no attribute {name!r}")
 
 _init_from_env()

@@ -536,3 +536,33 @@ def flatten_t(tree, prefix: str = "") -> dict:
     for k, v in tree.items():
         out.update(flatten_t(v, f"{prefix}/{k}" if prefix else str(k)))
     return out
+
+
+# ----------------------------------------------- test_torch_dataflow.py --
+
+def dataflow_cases(rank: int, world: int) -> dict:
+    """On a 2 x 2 ("data", "model") mesh: ``collective_stats`` of every
+    ``sharded:*`` variant (the suite's scenarios, zero payloads) with the
+    dataflow findings, and one ``sharded:gather_pallas`` dispatch of a
+    mesh-aware plan's leaf through ``all_gather_stats`` beside the runtime
+    counters it records."""
+    from repro_torch import engine, telemetry
+    from repro_torch.analysis import suite
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.engine.dispatch import dispatch
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=2, model=2, device="cpu")
+    stats: dict = {}
+    report = suite.verify_sharded_variants(mesh=mesh, stats=stats)
+    scfg = StruMConfig(method="mip2q", p=0.5, L=5)
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.normal(size=(128, 256)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(8, 128)).astype(np.float32))
+    plan = engine.build_plan({"mlp": {"wi": {"w": w}}}, cfg=scfg, mesh=mesh,
+                             device="cpu")
+    leaf = plan.params["mlp"]["wi"]["w"]
+    with telemetry.recording() as rec:
+        st = telemetry.all_gather_stats(lambda lf, xx: dispatch(lf, xx, mesh=mesh),
+                                        leaf, x, mesh=mesh)
+    return {"stats": stats, "findings": report.to_json(), "dispatch_stats": st,
+            "counters": rec.counters(), "payload": plan.summary()["packed_payload_bytes"]}
