@@ -270,11 +270,32 @@ Phases, each fatal on failure:
      Moonshot-16B-A3B at MOE_LAYERS layers, and the time of
      ``validate_plan``.
 
+  u. static numerics (``repro_torch.analysis.numerics``) on full-width
+     OLMo-1B, all 16 layers, f32 activations, the default plan (K1 on its
+     f32-x path), each sub-phase fatal:
+     u1. ``analyze`` over ``forward_train`` at tokens U_TOKENS: each of the
+     112 K1 calls interpreted through the hooks on the card, no unsupported
+     op, no error finding, a finite bound and interval, and the bound at
+     least the teacher-forced measured error (float vs packed forward on
+     the card); the flash / rms matches printed;
+     u2. ``output_error_profile`` of the 7 stacked linears, the
+     ``output_error`` search at phase p1's budget beside the ``sqnr`` one
+     (both tables and where they differ), that schedule's plan through the
+     dense-cache loop and, from its JSON, the paged ``BatchScheduler(
+     schedule=)`` (fp pages): teacher-forced on the loop's tokens, every
+     paged argmax off the loop's token a near tie; K1 / K2 / K3 launches and
+     the tick;
+     u3. ``search_draft_schedule(plan, fn=forward)``; one request served
+     speculatively with the winner (mip2q pages) gives the greedy lane's
+     tokens; predicted alpha and speedup beside the measured acceptance;
+     u4. ``verify_numerics(device="cuda")`` and ``python -m
+     repro_torch.analysis --passes numerics --device cuda``: clean.
+
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
 it exits non-zero before printing any result.  ``python3 chip_smoke.py --only
-q`` (``--only r``, ``--only s``, ``--only t``) builds the kernels and runs
-phase q (r, s, t) alone (no kernels or result line).
+q`` (``--only r``, ``--only s``, ``--only t``, ``--only u``) builds the
+kernels and runs phase q (r, s, t, u) alone (no kernels or result line).
 """
 from __future__ import annotations
 
@@ -4021,9 +4042,260 @@ def _analysis_report(t, smi) -> None:
           flush=True)
 
 
+# ----------------------------------------------- static numerics (u) --
+
+U_TOKENS = (2, 64)              # u1's and u3's teacher-forced batch
+U_KV = dict(method="mip2q", p=0.5, q=4, L=7)   # u3's KV pages (phase h's)
+
+
+def _u_model(dev):
+    """Full-width OLMo-1B, all 16 layers, f32 activations, f32 parameters
+    from seed 0 and the default plan (mip2q p=0.5 L=5, K1 on the card); the
+    forward ``fn(params, tokens)`` and u1's tokens."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import forward_train
+    scfg = StruMConfig(method="mip2q", p=0.5, L=5)
+    cfg = dataclasses.replace(get_config("olmo_1b"), dtype="float32", strum=scfg)
+    _check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size) ==
+           (16, 2048, 16, 8192, 50304), f"not full-width OLMo-1B: {cfg}")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    plan = build_serving_plan(params, cfg=scfg, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, U_TOKENS, generator=gen).to(dev)
+
+    def fn(p, t):
+        return forward_train(p, {"tokens": t}, cfg)[0]
+    return cfg, params, plan, fn, toks
+
+
+def phase_u1(dev, cfg, params, plan, fn, toks) -> dict:
+    """The numerics pass over a full-width packed forward: every K1 call
+    interpreted through the hooks on the card; the bound finite and at
+    least the teacher-forced measured error, float vs packed on the card."""
+    import torch
+    from repro_torch.analysis import numerics
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    stats = numerics.leaf_stats_from_plan(plan, params)
+    torch.cuda.synchronize(dev)
+    t_stats = time.perf_counter() - t0
+    _reset_kv_counts()
+    t0 = time.perf_counter()
+    res, rep = numerics.analyze(fn, plan.params, toks, stats=stats,
+                                location="olmo_1b/numerics[u1]")
+    torch.cuda.synchronize(dev)
+    t_analyze = time.perf_counter() - t0
+    launched = _kv_counts()
+    k1 = res.counts.get("kernel:cuda:onehot", 0)
+    want = 7 * cfg.n_layers
+    _check(k1 == want and launched["onehot"] == want and
+           sum(launched.values()) == want,
+           f"K1 calls interpreted {k1}, launched {launched}; want {want} K1 and nothing "
+           "else")
+    _check(not res.unsupported and not rep.errors(),
+           f"unsupported {res.unsupported}; {rep.render(min_severity='info')}")
+    lo, hi = res.interval
+    _check(math.isfinite(lo) and math.isfinite(hi) and math.isfinite(res.total),
+           f"bound not finite: total {res.total}, interval {res.interval}")
+    t0 = time.perf_counter()
+    measured = numerics.measured_error(fn, (params, toks), (plan.params, toks))
+    t_measured = time.perf_counter() - t0
+    _check(res.total >= measured, f"UNSOUND: static {res.total} < measured {measured}")
+    _check(set(res.per_tag) == set(plan.entries), f"tags {sorted(res.per_tag)}")
+    print(f"  K1 calls interpreted {k1} (launched {launched['onehot']}); bound total "
+          f"{res.total:.6g} >= measured {measured:.6g}; total_err2 "
+          f"{res.total_err2:.6g}; interval [{lo:.6g}, {hi:.6g}]; matches "
+          f"{res.counts}; findings {len(rep.findings)} (info); stats {t_stats:.2f} s, "
+          f"analyze {t_analyze:.2f} s, measured {t_measured:.2f} s", flush=True)
+    return {"total": res.total, "total_err2": res.total_err2, "interval": [lo, hi],
+            "measured": measured, "per_tag": res.per_tag,
+            "per_tag_err2": res.per_tag_err2, "counts": res.counts,
+            "k1_launches": launched["onehot"], "info_findings": len(rep.findings),
+            "stats_s": t_stats, "analyze_s": t_analyze, "measured_s": t_measured}
+
+
+def phase_u2(dev, cfg, params, fn, toks) -> dict:
+    """The ``output_error`` proxy: per-leaf gains on the card, a schedule
+    searched with it at phase p1's budget beside p1's ``sqnr`` search, then
+    that schedule served by the dense-cache loop and, from disk, by the
+    paged ``BatchScheduler(schedule=)``; teacher-forced on the loop's
+    tokens, every paged argmax that is not the loop's token is a near tie."""
+    import torch
+    from repro_torch.autotune import (DEFAULT_GRID, Budget, config_key,
+                                      output_error_profile, profile_tree, search_schedule)
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.serving import BatchScheduler, Request
+    t0 = time.perf_counter()
+    prof = profile_tree(params, DEFAULT_GRID)
+    t_profile = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oprof = output_error_profile(params, fn, toks, profile=prof)
+    torch.cuda.synchronize(dev)
+    t_gains = time.perf_counter() - t0
+    _check(len(oprof) == 7 and all(r["gain"] > 0 for r in oprof.values()),
+           f"gains {({n: r['gain'] for n, r in oprof.items()})}")
+    budget = Budget(target_ratio=0.875)
+    sq = search_schedule(params, budget, profile=prof)
+    oe = search_schedule(params, budget, profile=oprof, proxy="output_error")
+    _check(oe.meta["feasible"] and oe.summary()["achieved_ratio"] <= 0.875,
+           f"output_error schedule misses its budget: {oe.summary()}")
+    tables = {"sqnr": {n: config_key(c) for n, c in sorted(sq.assignments.items())},
+              "output_error": {n: config_key(c) for n, c in sorted(oe.assignments.items())}}
+    differ = sorted(n for n in tables["sqnr"]
+                    if tables["sqnr"][n] != tables["output_error"].get(n))
+    print(f"  profile {t_profile:.2f} s, gains {t_gains:.2f} s: "
+          f"{ {n: round(r['gain'], 6) for n, r in oprof.items()} }", flush=True)
+    for proxy, table in tables.items():
+        print(f"  {proxy} schedule (x{(sq if proxy == 'sqnr' else oe).summary()['achieved_ratio']:.4f}"
+              f" of int8): {table}", flush=True)
+    print(f"  the proxies differ on {differ}", flush=True)
+    path = oe.save(str(SCHED_DIR / "olmo_1b_output_error.json"))
+    plan = build_serving_plan(params, schedule=oe, device=dev)
+    _check_schedule_plan(plan, oe)
+    gen_n, batch, plen = 16, 4, 32
+    g = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen), generator=g)
+    _reset_kv_counts()
+    toks_d, _, t_dec, lg_d = S.serve(cfg, plan.params, prompt, gen_n, device=dev,
+                                     return_logits=True)
+    loop_launched = _kv_counts()
+    _reset_kv_counts()
+    paged = S.serve_paged(cfg, plan.params, prompt, gen_n, plan=plan, page_size=PAGE,
+                          device=dev)
+    paged_launched = _kv_counts()
+    del plan
+    outs = torch.tensor([r.output for r in paged["requests"]], device=toks_d.device)
+    same_free = (outs == toks_d).float().mean().item()
+    s2 = BatchScheduler(cfg, params, n_slots=batch, max_len=plen + gen_n + 1 + PAGE,
+                        schedule=path, page_size=PAGE, device=dev)
+    rec = _recorded(s2, cfg.vocab_size)
+    for i in range(batch):
+        s2.submit(Request(uid=i, prompt=prompt[i], max_new_tokens=gen_n + 1,
+                          force_tokens=toks_d[i].tolist()))
+    with torch.inference_mode():
+        s2.run_to_completion()
+    lg_p = torch.stack([torch.stack(rec[i]) for i in range(batch)]).float()
+    ref = lg_d[..., :cfg.vocab_size].float()
+    _check(bool(torch.isfinite(lg_p).all()) and lg_p.shape == ref.shape,
+           f"paged logits of shape {tuple(lg_p.shape)}, want {tuple(ref.shape)}")
+    gaps = _near_ties(ref, lg_p, toks_d, "paged schedule= lane")
+    err = (lg_p - ref).abs().max().item()
+    same_forced = (lg_p.argmax(-1) == toks_d).float().mean().item()
+    dec = sorted(ms for kind, ms in paged["ticks"] if kind == "decode")
+    tick = _spread(dec)
+    k123 = {k: paged_launched[k] + loop_launched[k] for k in ("onehot", "maskfree", "dense")}
+    print(f"  dense loop vs paged (schedule from {path}, fp pages): free-running tokens "
+          f"equal at {same_free:.3f} of positions; teacher-forced argmax = loop tokens at "
+          f"{same_forced:.3f}, max|logit diff| {err:.4e}, near ties {gaps}; K1/K2/K3 "
+          f"launches loop {({k: loop_launched[k] for k in k123})}, paged "
+          f"{({k: paged_launched[k] for k in k123})}; paged decode-only tick median "
+          f"{tick['median']:.3f} ms [{tick['min']:.3f}, {tick['max']:.3f}] over "
+          f"{len(dec)}; loop decode {t_dec / gen_n * 1e3:.3f} ms/token", flush=True)
+    return {"profile_s": t_profile, "gains_s": t_gains,
+            "gains": {n: r["gain"] for n, r in oprof.items()}, "tables": tables,
+            "differ": differ, "schedule": oe.summary(), "tokens_equal_free": same_free,
+            "tokens_equal_forced": same_forced, "max_abs_logit_diff": err,
+            "near_ties": gaps, "launches": k123, "loop_launches": loop_launched,
+            "paged_launches": paged_launched, "decode_tick_ms": tick,
+            "loop_decode_ms_per_token": t_dec / gen_n * 1e3}
+
+
+def phase_u3(dev, cfg, params, plan, fn, toks) -> dict:
+    """``search_draft_schedule(plan, fn=forward)``; one request served
+    speculatively with the winner, its tokens the greedy lane's."""
+    import torch
+    from repro_torch.autotune import search_draft_schedule
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.launch import serve as S
+    t0 = time.perf_counter()
+    search = search_draft_schedule(plan, fn=fn, fn_args=(toks,))
+    t_search = time.perf_counter() - t0
+    best = search["best"]
+    policy, k = best["policy"], best["k"]
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 32), generator=g)
+    kv = StruMConfig(**U_KV)
+    _reset_kv_counts()
+    spec = S.serve_paged(cfg, plan.params, prompt, 16, plan=plan, kv_cache=kv,
+                         page_size=PAGE, speculative=k, draft=policy, device=dev)
+    launched = _kv_counts()
+    greedy = S.serve_paged(cfg, plan.params, prompt, 16, plan=plan, kv_cache=kv,
+                           page_size=PAGE, device=dev)
+    got, want = spec["requests"][0].output, greedy["requests"][0].output
+    _check(got == want, f"speculative tokens {got} != greedy {want}")
+    acc = spec["spec"]["accepted"] / max(spec["spec"]["drafted"], 1)
+    print(f"  search {t_search:.2f} s: best {best['policy'].mode} k={k}, predicted "
+          f"alpha {best['alpha_pred']:.4f}, speedup {best['speedup_pred']:.4f} (cost "
+          f"ratio {best['cost_ratio']:.4f}); served tokens = greedy tokens ({len(got)}); "
+          f"measured acceptance {acc:.4f} ({int(spec['spec']['accepted'])} of "
+          f"{int(spec['spec']['drafted'])}); launches {launched} (random weights: the "
+          f"predicted and the measured acceptance mean little)", flush=True)
+    return {"search_s": t_search, "policy": best["policy"].mode, "k": k,
+            "alpha_pred": best["alpha_pred"], "speedup_pred": best["speedup_pred"],
+            "cost_ratio": best["cost_ratio"], "acceptance": acc, "spec": spec["spec"],
+            "tokens": len(got), "launches": launched}
+
+
+def phase_u4(dev) -> dict:
+    """``verify_numerics`` on the card and the CLI's numerics pass."""
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.analysis.suite import verify_numerics
+    t0 = time.perf_counter()
+    report = verify_numerics(device=dev)
+    _check(report.ok and not report.errors(), report.render(min_severity="info"))
+    rc = cli.main(["--passes", "numerics", "--device", "cuda"])
+    _check(rc == 0, f"python -m repro_torch.analysis --passes numerics exited {rc}")
+    print(f"  verify_numerics: {len(report.findings)} findings; CLI --passes numerics "
+          f"--device cuda exit {rc} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"findings": len(report.findings), "cli_rc": rc}
+
+
+def measure_numerics(dev) -> dict:
+    """Phase u: the numerics interpreter and its consumers on the card, each
+    sub-phase fatal."""
+    import torch
+    out = {}
+    t0 = time.perf_counter()
+    cfg, params, plan, fn, toks = _u_model(dev)
+    print(f"  full-width OLMo-1B f32 and its plan in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for key, what, run in (
+            ("u1", "analyze a full-width packed forward",
+             lambda: phase_u1(dev, cfg, params, plan, fn, toks)),
+            ("u2", "output_error proxy: gains, search, serve (loop and paged)",
+             lambda: phase_u2(dev, cfg, params, fn, toks)),
+            ("u3", "search_draft_schedule(fn=), speculative vs greedy",
+             lambda: phase_u3(dev, cfg, params, plan, fn, toks)),
+            ("u4", "verify_numerics and the CLI on the card", lambda: phase_u4(dev))):
+        t1 = time.perf_counter()
+        print(f"-- {key}. {what} (t = {t1 - _T0:.1f} s)", flush=True)
+        out[key] = run()
+        out[key]["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    return out
+
+
+def _numerics_report(u, smi) -> None:
+    """Phase u's summary line."""
+    u1, u2, u3 = u["u1"], u["u2"], u["u3"]
+    print(f"numerics (phase u, full-width OLMo-1B f32): bound {u1['total']:.6g} >= "
+          f"measured {u1['measured']:.6g}, total_err2 {u1['total_err2']:.6g}, "
+          f"{u1['k1_launches']} K1 calls interpreted, {u1['counts']}; output_error "
+          f"schedule differs from sqnr's on {len(u2['differ'])} of 7, paged = loop "
+          f"teacher-forced at {u2['tokens_equal_forced']:.3f}; draft {u3['policy']} "
+          f"k={u3['k']} acceptance {u3['acceptance']:.4f}; sub-phase seconds "
+          f"{ {k: round(v['seconds'], 1) for k, v in u.items()} }; {smi}", flush=True)
+
+
 def measure(dev, clocks):
-    """Phases c-t; returns the kernels' records and the serve (train, mesh,
-    analysis) times."""
+    """Phases c-u; returns the kernels' records and the serve (train, mesh,
+    analysis, numerics) times."""
     import torch
     _phase("c. kernels vs plain versions at OLMo-1B shapes")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4158,6 +4430,18 @@ def measure(dev, clocks):
            "build_plan(validate=True)")
     times["analysis"] = analysis = measure_analysis(dev)
 
+    _phase("u. static numerics: the interpreter over full-width OLMo-1B (f32), the "
+           "output_error proxy searched and served, the draft search, the pass")
+    times["numerics"] = numerics = measure_numerics(dev)
+    u_launches: dict = {}
+    for sub, launched in (("u1_analyze", {"onehot": numerics["u1"]["k1_launches"]}),
+                          ("u2_dense_loop", numerics["u2"]["loop_launches"]),
+                          ("u2_paged", numerics["u2"]["paged_launches"]),
+                          ("u3_speculative", numerics["u3"]["launches"])):
+        for name, n in launched.items():
+            if n:
+                u_launches.setdefault(name, {})[sub] = n
+
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
         t, mid, pf = timings[name][4], timings[name][16], timings[name][128]
@@ -4252,6 +4536,7 @@ def measure(dev, clocks):
     from repro_torch.analysis.pallas_lint import VARIANT_KERNELS
     for k in kernels:        # phase t1's launches, each held to its plain version
         k["lint_launches"] = analysis["t1"]["launches"][VARIANT_KERNELS[k["name"]]]
+        k["numerics_launches"] = u_launches.get(VARIANT_KERNELS[k["name"]], {})
     return kernels, times
 
 
@@ -4276,8 +4561,8 @@ def _zoo_report(zoo, smi) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q"], ["--only", "r"], ["--only", "s"],
-                    ["--only", "t"]):
-        print("usage: chip_smoke.py [--only q|r|s|t]", file=sys.stderr)
+                    ["--only", "t"], ["--only", "u"]):
+        print("usage: chip_smoke.py [--only q|r|s|t|u]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
@@ -4336,6 +4621,12 @@ def main(argv=None) -> int:
             _analysis_report(analysis, smi)
             print(json.dumps({"analysis": analysis}, default=str))
             return 0
+        if argv == ["--only", "u"]:     # phase u alone: no kernels or result line
+            _phase("u. static numerics")
+            numerics = measure_numerics(dev)
+            _numerics_report(numerics, smi)
+            print(json.dumps({"numerics": numerics}, default=str))
+            return 0
         if argv == ["--only", "r"]:     # phase r alone: no kernels or result line
             _phase("r. the training path")
             train = measure_train(dev, clocks)
@@ -4383,6 +4674,7 @@ def main(argv=None) -> int:
     _train_report(times["train"], smi)
     _mesh_report(times["mesh"], smi)
     _analysis_report(times["analysis"], smi)
+    _numerics_report(times["numerics"], smi)
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

@@ -1,7 +1,7 @@
 """repro_torch.analysis — static analysis of the port's registry, kernel
 launchers, plans and serving lanes (twin of ``repro.analysis``).
 
-Five passes, the reference's rule ids on their findings:
+Six passes, the reference's rule ids on their findings:
 
 * **packed dataflow** (:func:`verify`, :func:`trace_dataflow`) — one
   recorded run of a function: every ATen op, every kernel call and every
@@ -17,6 +17,10 @@ Five passes, the reference's rule ids on their findings:
   held to its kernel's plain version;
 * **recompile lint** (:func:`lint_scheduler_recompiles`) — every call of a
   serving lane has one shape signature;
+* **numerics** (:func:`analyze`, :func:`output_gains`) — an abstract
+  interpreter over one eager run: a static per-leaf and end-to-end bound
+  on the output error a plan's quantization causes, and the noise gains
+  the ``output_error`` autotune proxy reads;
 * **plan validation** (:func:`validate_plan`, ``build_plan(validate=True)``).
 
 ``python -m repro_torch.analysis`` runs them over the model zoo.  Importing
@@ -29,7 +33,7 @@ __all__ = [
     "verify", "trace_dataflow", "collective_stats",
     "audit_registry", "render_coverage",
     "lint_pallas", "lint_scheduler_recompiles",
-    "validate_plan", "run_all",
+    "validate_plan", "analyze", "output_gains", "run_all",
 ]
 
 _LAZY = {
@@ -41,6 +45,8 @@ _LAZY = {
     "lint_pallas": "repro_torch.analysis.pallas_lint",
     "lint_scheduler_recompiles": "repro_torch.analysis.recompile",
     "validate_plan": "repro_torch.analysis.plan_check",
+    "analyze": "repro_torch.analysis.numerics",
+    "output_gains": "repro_torch.analysis.numerics",
     "run_all": "repro_torch.analysis.suite",
 }
 

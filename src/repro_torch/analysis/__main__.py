@@ -27,8 +27,8 @@ def _parse_args(argv):
         prog="python -m repro_torch.analysis",
         description="Static analysis of the PyTorch port: packed-dataflow "
                     "verification, registry audit, launch-contract lint of "
-                    "the CUDA kernels, recompile lint and the draft-payload "
-                    "proof.")
+                    "the CUDA kernels, recompile lint, the static numerics "
+                    "bound and the draft-payload proof.")
     ap.add_argument("--passes", default=",".join(PASSES),
                     help=f"comma-separated subset of {','.join(PASSES)}")
     ap.add_argument("--arch", action="append", default=None,

@@ -8,7 +8,10 @@ them (twin of ``repro.analysis.suite``):
   draft-payload proof (:func:`verify_draft_payload`);
 * registry audit (:mod:`repro_torch.analysis.registry_audit`);
 * launch-contract lint (:mod:`repro_torch.analysis.pallas_lint`);
-* recompile lint (:mod:`repro_torch.analysis.recompile`).
+* recompile lint (:mod:`repro_torch.analysis.recompile`);
+* numerics (:mod:`repro_torch.analysis.numerics`): the static output-error
+  bound of a packed forward and its soundness self-check
+  (:func:`verify_numerics`).
 
 Every scenario takes a ``device``.  On the CPU the ``cuda`` family of the
 matmul lowerings cannot run (``engine.variants._on_card``), so the lanes
@@ -17,8 +20,6 @@ selection by pure logic and records K4's plain route (a CPU tensor takes
 it); on the card the same calls run the kernels.  Without a mesh the
 sharded scenarios run on a 1 x 1 mesh-like object, where every collective
 is recorded with width 1 (the reference traces a 1-device mesh alike).
-The numerics pass (``verify_numerics``) is the reference's; its port is
-the next slice's.
 """
 from __future__ import annotations
 
@@ -34,10 +35,10 @@ from repro_torch.core.policy import StruMConfig
 __all__ = ["PASSES", "run_all", "tiny_model", "verify_local_apply",
            "verify_sharded_variants", "verify_cache_codecs",
            "verify_scheduler_lanes", "verify_fused_attention",
-           "verify_draft_payload", "check_cache_pools", "build_tiny_scheduler",
-           "draft_poison_check"]
+           "verify_draft_payload", "verify_numerics", "check_cache_pools",
+           "build_tiny_scheduler", "draft_poison_check"]
 
-PASSES = ("dataflow", "registry", "pallas", "recompile", "draft")
+PASSES = ("dataflow", "registry", "pallas", "recompile", "numerics", "draft")
 
 _WCFG = StruMConfig(method="mip2q", w=16, p=0.5, L=5)
 _KVCFG = StruMConfig(method="dliq", w=16, p=0.5, q=4)
@@ -430,6 +431,60 @@ def draft_poison_check(sched) -> dict:
             "bit_equal": bool(torch.equal(got, want))}
 
 
+_NUMERICS_CFGS = (StruMConfig(method="dliq", w=8, p=0.5, q=4),
+                  StruMConfig(method="mip2q", w=8, p=0.5, L=3))
+
+
+def verify_numerics(arch: str = "qwen2_7b", cfgs=_NUMERICS_CFGS,
+                    device="cpu") -> Report:
+    """Numerics pass + soundness self-check on a real packed forward.
+
+    For each schedule: derive the static per-layer and end-to-end
+    output-error bound with :func:`repro_torch.analysis.numerics.analyze`,
+    then run the float and the packed forward teacher-forced on the same
+    tokens and require ``static bound >= measured error`` — a violated
+    inequality is a bug in the interpreter itself and reports
+    ``numerics/unsound-bound``.  Schedules that declare an error budget
+    (``Budget(error_budget=...)`` via autotune) are additionally checked
+    with :func:`repro_torch.analysis.numerics.check_error_budget`.
+    """
+    from repro_torch import engine
+    from repro_torch.analysis import numerics
+    from repro_torch.models.transformer import forward_train
+
+    cfg, params = tiny_model(arch, device)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen).to(device)
+
+    def fn(p, t):
+        return forward_train(p, {"tokens": t}, cfg)[0]
+
+    report = Report()
+    for scfg in cfgs:
+        loc = f"{arch}/numerics[{scfg.method} w={scfg.w} p={scfg.p}]"
+        plan = engine.build_plan(params, cfg=scfg, pack=True, device=device)
+        stats = numerics.leaf_stats_from_plan(plan, params)
+        res, rep = numerics.analyze(fn, plan.params, toks, stats=stats,
+                                    location=loc)
+        report.extend(rep)
+        measured = numerics.measured_error(fn, (params, toks),
+                                           (plan.params, toks))
+        if res.total < measured:
+            report.add("error", "numerics/unsound-bound", loc,
+                       f"static bound {res.total:.6g} < measured "
+                       f"teacher-forced error {measured:.6g}")
+        budget = _schedule_error_budget(plan.schedule)
+        if budget is not None:
+            report.extend(numerics.check_error_budget(
+                res, {"total": budget}, location=loc))
+    return report
+
+
+def _schedule_error_budget(schedule):
+    meta = getattr(schedule, "meta", None) or {}
+    return (meta.get("budget") or {}).get("error_budget")
+
+
 # --------------------------------------------------------------- runner --
 
 def run_all(arches=("qwen2_7b",), passes=PASSES, lint_cfgs: Optional[list] = None,
@@ -446,6 +501,9 @@ def run_all(arches=("qwen2_7b",), passes=PASSES, lint_cfgs: Optional[list] = Non
         report.extend(verify_local_apply(device))
         report.extend(verify_sharded_variants(device=device))
         report.extend(verify_cache_codecs(device=device))
+    if "numerics" in passes:
+        for arch in arches:
+            report.extend(verify_numerics(arch, device=device))
     if "dataflow" in passes or "recompile" in passes:
         for arch in arches:
             cfg, params = tiny_model(arch, device)

@@ -48,8 +48,9 @@ class Budget:
     ``error_budget`` is not an allocation axis: it declares the maximum
     statically derived end-to-end output error the schedule accepts, is
     recorded in the schedule meta, and is enforced after the fact by the
-    reference's numerics pass (``analysis.numerics.check_error_budget``,
-    ``build_plan(..., validate=True)``; not ported yet).
+    numerics pass (``analysis.numerics.check_error_budget`` in
+    ``analysis.suite.verify_numerics``; ``build_plan(..., validate=True)``
+    checks each packed entry's unit-input bound against it).
     """
 
     target_ratio: Optional[float] = None   # packed/int8 bytes, e.g. 0.875
@@ -149,11 +150,12 @@ def search_schedule(params, budget: Budget,
 
     ``proxy`` picks the allocator's quality objective: ``"sqnr"`` is the
     data-free size-weighted noise power; ``"output_error"`` is the
-    activation-aware output error power, which needs rows carrying
-    ``output_err2`` (an ``output_error_profile`` result, e.g. the
-    reference's).  Deriving one here (``fn``/``fn_args``) needs the static
-    numerics pass, which is not ported: without such a profile the arm
-    raises ``NotImplementedError``.
+    activation-aware statically derived *output* error power (weight noise
+    rescaled by each leaf's noise gain — the quantity the numerics pass
+    bounds).  The output-error proxy needs either a profile from
+    ``output_error_profile`` or ``fn``/``fn_args`` (a forward, e.g.
+    ``lambda p, t: forward_train(p, {"tokens": t}, cfg)[0]``) to derive one
+    here.
 
     Returns a :class:`StruMSchedule` whose meta records the budget, the
     proxy, the per-tensor decision table, and the achieved totals.

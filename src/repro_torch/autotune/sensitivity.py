@@ -19,8 +19,8 @@ twice.  The key is the tensor's bytes, never its address: a freed
 allocation that is reused must not hit a stale entry.  Hashing a tensor on
 the card copies it to the host first.
 
-``output_error_profile`` needs the static numerics pass
-(``analysis.numerics.output_gains``), which is not ported: it raises.
+``output_error_profile`` composes the SQNR with each leaf's output noise
+gain from the static numerics pass (``analysis.numerics.output_gains``).
 """
 from __future__ import annotations
 
@@ -188,11 +188,40 @@ def output_error_profile(params, fn, *fn_args,
                          base_policy: Optional[LayerPolicy] = None,
                          profile: Optional[dict] = None,
                          use_cache: bool = True, **fn_kwargs) -> dict:
-    """Activation-aware sensitivity: weight SQNR composed with each leaf's
-    statically derived output noise gain.  The gains come from the static
-    numerics pass (``analysis.numerics.output_gains``), which the port does
-    not have yet, so this raises rather than fall back to the ``"sqnr"``
-    proxy."""
-    raise NotImplementedError(
-        "output_error_profile needs analysis.numerics.output_gains, which is "
-        "not ported yet (ROADMAP queue 1 item 9); use proxy='sqnr'")
+    """Activation-aware sensitivity: weight SQNR composed with the model's
+    statically derived per-leaf noise gains.
+
+    One :func:`repro_torch.analysis.numerics.output_gains` pass over one
+    recorded run of ``fn(params, *fn_args)`` seeds a unit mean-square
+    perturbation at every eligible leaf and reads off the *output* error
+    power it induces — each leaf's gain ``G``.  A candidate config's
+    predicted output error power is then ``G · ms(W) · 10^(−SQNR/10)``
+    (leaf noise power rescaled by how much of it survives to the logits),
+    which is what separates an attention projection from an equally-SQNR'd
+    MLP matrix.
+
+    Returns :func:`profile_tree` rows extended with ``"gain"`` and
+    ``"output_err2": {config_key: predicted output error power}``; feed it
+    to ``search_schedule(..., proxy="output_error")``.
+    """
+    from repro_torch.analysis import numerics
+
+    base_policy = base_policy or default_policy()
+    if profile is None:
+        profile = profile_tree(params, grid, base_policy=base_policy,
+                               use_cache=use_cache)
+    gains = numerics.output_gains(fn, params, *fn_args,
+                                  names=tuple(sorted(profile)),
+                                  location="autotune.output_error_profile",
+                                  **fn_kwargs)
+    out = {}
+    for name, row in profile.items():
+        g = float(gains.get(name, 0.0))
+        row = dict(row, gain=g)
+        row["output_err2"] = {
+            key: g * row["ms"] * 10.0 ** (-s / 10.0)
+            for key, s in row["sqnr_db"].items()}
+        row["int8_output_err2"] = (
+            g * row["ms"] * 10.0 ** (-row["int8_sqnr_db"] / 10.0))
+        out[name] = row
+    return out

@@ -16,9 +16,9 @@ acceptance ``α``, draft length ``k`` and relative draft cost ``c``::
     cost/round      = k·c + 1                         (k drafts + 1 verify)
     speedup         = E[tokens/round] / (k·c + 1)
 
-Gains are uniform unless the caller passes ``gains=``; deriving them from
-a forward (``fn=``) needs the static numerics pass, which is not ported,
-so that arm raises.
+Gains are uniform unless the caller passes ``gains=`` or a forward
+(``fn=``), from which the static numerics pass derives them
+(``analysis.numerics.output_gains``).
 """
 from __future__ import annotations
 
@@ -88,20 +88,22 @@ def search_draft_schedule(plan, *, policies=None, ks=(1, 2, 3, 4),
                           gains=None, fn=None, fn_args=(), **fn_kwargs):
     """Pick ``(DraftPolicy, k)`` by predicted speculative speedup.
 
-    ``gains`` maps leaf name -> output noise gain; omit it for uniform
-    gains.  ``fn=`` (gains traced from the model forward) needs the static
-    numerics pass, which is not ported, and raises.  Returns ``{"rows",
-    "profiles", "best"}`` where ``best`` carries the winning ``policy``
-    object, ``k``, and its predicted α / c / speedup.
+    ``gains`` maps leaf name -> output noise gain; pass the model forward
+    as ``fn(params, *fn_args, **fn_kwargs)`` to compute them with
+    :func:`repro_torch.analysis.numerics.output_gains` (what
+    ``output_error_profile`` uses), or omit both for uniform gains.
+    Returns ``{"rows", "profiles", "best"}`` where ``best`` carries the
+    winning ``policy`` object, ``k``, and its predicted α / c / speedup.
     """
     if policies is None:
         policies = (DraftPolicy(mode="histream"),
                     DraftPolicy(mode="maskfree_p"))
     if gains is None and fn is not None:
-        raise NotImplementedError(
-            "search_draft_schedule(fn=...) needs analysis.numerics."
-            "output_gains, which is not ported yet (ROADMAP queue 1 item 9); "
-            "pass gains= or neither")
+        from repro_torch.analysis import numerics
+        names = tuple(sorted(plan.entries))
+        gains = numerics.output_gains(fn, plan.params, *fn_args, names=names,
+                                      location="autotune.draft_schedule",
+                                      **fn_kwargs)
     rows, profiles = [], {}
     best = None
     for policy in policies:

@@ -10,10 +10,13 @@ plain values.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import queue
-import socket
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
 import traceback
 
 import numpy as np
@@ -23,17 +26,11 @@ import torch.multiprocessing as mp
 FIELDS = ("mask", "hi", "lo", "scale")
 
 
-def free_port() -> int:
-    with contextlib.closing(socket.socket()) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _entry(fn, rank: int, world: int, port: int, args: tuple, out) -> None:
+def _entry(fn, rank: int, world: int, store: str, args: tuple, out) -> None:
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+        dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
         res = fn(rank, world, *args)
         dist.barrier()
@@ -46,17 +43,27 @@ def _entry(fn, rank: int, world: int, port: int, args: tuple, out) -> None:
             dist.destroy_process_group()
 
 
-def spawn(fn, world: int, *args, timeout: float = 600.0) -> list:
+def spawn(fn, world: int, *args, timeout: float = 600.0, abort=None) -> list:
     """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; returns the
     ranks' results in rank order, or raises with the first rank's
-    traceback.  Every rank is joined (or ended) before it returns."""
+    traceback.
+
+    The ranks meet through a file store in a fresh temporary directory (no
+    TCP port is picked in advance, so nothing else on the machine can take
+    it first).  The wait ends as soon as a rank reports an error, exits
+    without a result, or ``abort()`` returns a message (the caller's
+    reference run failed); else it lasts until ``timeout`` seconds pass
+    without a rank's result.  Every rank is joined (or ended) before it
+    returns."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    port = free_port()
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    store = os.path.join(tmp, "store")
     env = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS")}
     os.environ.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = []
     try:
-        procs = [ctx.Process(target=_entry, args=(fn, r, world, port, args, out))
+        procs = [ctx.Process(target=_entry, args=(fn, r, world, store, args, out))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -67,24 +74,105 @@ def spawn(fn, world: int, *args, timeout: float = 600.0) -> list:
             else:
                 os.environ[k] = v
     results, errors = {}, []
+    t0 = deadline = time.monotonic()
+    deadline += timeout
     try:
-        while len(results) + len(errors) < world:
-            rank, res, err = out.get(timeout=timeout)
+        while len(results) < world and not errors:
+            try:
+                rank, res, err = out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and p.exitcode not in (None, 0)]
+                why = abort() if abort is not None else None
+                if dead:
+                    errors.append(f"rank {dead[0]} exited with code "
+                                  f"{procs[dead[0]].exitcode} and no result")
+                elif why:
+                    errors.append(why)
+                elif time.monotonic() > deadline:
+                    errors.append(f"timed out after {time.monotonic() - t0:.0f} s "
+                                  f"with {sorted(results)} done")
+                continue
             if err is not None:
                 errors.append(f"rank {rank}:\n{err}")
-                break
-            results[rank] = res
-    except queue.Empty:
-        errors.append(f"timed out after {timeout} s with {sorted(results)} done")
+            else:
+                results[rank] = res
+                deadline = time.monotonic() + timeout
     finally:
         for p in procs:
             p.join(timeout=30 if not errors else 5)
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
     if errors:
         raise RuntimeError(errors[0])
     return [results[r] for r in range(world)]
+
+
+#: Python's hash salt of the subprocess that draws the reference's weights
+#: (its ``init_params`` keys each leaf by ``hash(name)``)
+HASH_SEED = "1"
+
+
+def draw_inputs(module: str, path: str, cwd: str) -> None:
+    """Run ``module._inputs(path)`` in a subprocess with Python's hash salt
+    fixed to :data:`HASH_SEED`, so the weights are the same in every run
+    (drawn in the test process, they change with its salt)."""
+    env = {**os.environ, "PYTHONHASHSEED": HASH_SEED, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join(["src", "tests"])}
+    subprocess.run([sys.executable, "-c", f"import sys, {module}; "
+                    f"{module}._inputs(sys.argv[1])", path],
+                   check=True, env=env, cwd=cwd, timeout=600)
+
+
+def reference_run(script: str, args: list, env: dict, cwd: str,
+                  timeout: float = 600.0) -> subprocess.Popen:
+    """Start a reference script (``python -c script *args``) beside the
+    ranks, its output in temporary files; :func:`finish` collects it."""
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    p = subprocess.Popen([sys.executable, "-c", script, *args], env=env, cwd=cwd,
+                         stdout=logs[0], stderr=logs[1], text=True)
+    p.logs, p.t0, p.failure = logs, time.monotonic(), None
+    p.deadline = p.t0 + timeout
+    return p
+
+
+def _output(p: subprocess.Popen) -> tuple:
+    out = []
+    for f in p.logs:
+        f.seek(0)
+        out.append(f.read())
+        f.close()
+    return tuple(out)
+
+
+def reference_failed(p: subprocess.Popen):
+    """``spawn``'s ``abort``: a message once the reference run has failed."""
+    def check():
+        if p.failure is None and p.poll() not in (None, 0):
+            out, err = _output(p)
+            p.failure = (f"reference run exited with {p.returncode} after "
+                         f"{time.monotonic() - p.t0:.0f} s:\n{out}\n{err}")
+        return p.failure
+    return check
+
+
+def finish(p: subprocess.Popen) -> str:
+    """The reference run's standard output, once it ends with code 0."""
+    if p.failure is not None:
+        raise AssertionError(p.failure)
+    try:
+        p.wait(timeout=max(1.0, p.deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        out, err = _output(p)
+        raise AssertionError(f"reference run timed out after "
+                             f"{time.monotonic() - p.t0:.0f} s:\n{out}\n{err}")
+    out, err = _output(p)
+    assert p.returncode == 0, out + "\n" + err
+    return out
 
 
 # --------------------------------------------------------------- helpers --

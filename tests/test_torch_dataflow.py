@@ -18,10 +18,7 @@ reference on the CPU.
 """
 import json
 import os
-import subprocess
-import sys
 import textwrap
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -190,16 +187,9 @@ def two_by_two():
     env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
            "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
 
-    def reference():
-        r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE)],
-                           capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
-        assert r.returncode == 0, r.stdout + "\n" + r.stderr
-        return json.loads(r.stdout.split("REF ", 1)[1])
-
-    with ThreadPoolExecutor(1) as pool:
-        ref = pool.submit(reference)
-        port = ranks.spawn(ranks.dataflow_cases, 4)
-        return ref.result(), port
+    ref = ranks.reference_run(textwrap.dedent(REFERENCE), [], env, ROOT)
+    port = ranks.spawn(ranks.dataflow_cases, 4, abort=ranks.reference_failed(ref))
+    return json.loads(ranks.finish(ref).split("REF ", 1)[1]), port
 
 
 def _jsonable(stats):

@@ -36,7 +36,6 @@ import os
 import subprocess
 import sys
 import textwrap
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -179,21 +178,14 @@ def _inputs(path: str) -> None:
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("distributed")
     src, dst = str(tmp / "inputs.npz"), str(tmp / "reference.npz")
-    _inputs(src)
+    ranks.draw_inputs("test_torch_distributed", src, ROOT)
     env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
            "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
 
-    def reference():
-        r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE), src, dst],
-                           capture_output=True, text=True, timeout=600, env=env,
-                           cwd=ROOT)
-        assert r.returncode == 0, r.stdout + "\n" + r.stderr
-        return json.loads(r.stdout.split("META ", 1)[1])
-
-    with ThreadPoolExecutor(1) as pool:
-        ref = pool.submit(reference)
-        port = ranks.spawn(ranks.distributed_cases, WORLD, src, str(tmp / "ckpt"))
-        meta = ref.result()
+    ref = ranks.reference_run(textwrap.dedent(REFERENCE), [src, dst], env, ROOT)
+    port = ranks.spawn(ranks.distributed_cases, WORLD, src, str(tmp / "ckpt"),
+                       abort=ranks.reference_failed(ref))
+    meta = json.loads(ranks.finish(ref).split("META ", 1)[1])
     return dict(np.load(src)), dict(np.load(dst)), meta, port
 
 

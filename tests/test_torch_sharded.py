@@ -21,11 +21,8 @@ reference's own distributed tests (``tests/test_sharded_engine.py``):
 """
 import json
 import os
-import subprocess
-import sys
 import textwrap
 import warnings
-from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -187,21 +184,13 @@ def run(tmp_path_factory):
     rank)``: the reference subprocess and the port's ranks run together."""
     tmp = tmp_path_factory.mktemp("sharded")
     src, dst = str(tmp / "inputs.npz"), str(tmp / "reference.npz")
-    _inputs(src)
+    ranks.draw_inputs("test_torch_sharded", src, ROOT)
     env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
            "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
 
-    def reference():
-        r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE), src, dst],
-                           capture_output=True, text=True, timeout=600, env=env,
-                           cwd=ROOT)
-        assert r.returncode == 0, r.stdout + "\n" + r.stderr
-        return json.loads(r.stdout.split("META ", 1)[1])
-
-    with ThreadPoolExecutor(1) as pool:
-        ref = pool.submit(reference)
-        port = ranks.spawn(ranks.sharded_cases, WORLD, src)
-        meta = ref.result()
+    ref = ranks.reference_run(textwrap.dedent(REFERENCE), [src, dst], env, ROOT)
+    port = ranks.spawn(ranks.sharded_cases, WORLD, src, abort=ranks.reference_failed(ref))
+    meta = json.loads(ranks.finish(ref).split("META ", 1)[1])
     return dict(np.load(src)), dict(np.load(dst)), meta, port
 
 
