@@ -291,11 +291,38 @@ Phases, each fatal on failure:
      u4. ``verify_numerics(device="cuda")`` and ``python -m
      repro_torch.analysis --passes numerics --device cuda``: clean.
 
+  v. the launch tools and examples (``repro_torch.examples``,
+     ``repro_torch.launch.dryrun``), each sub-phase fatal; the dry-run sweep
+     of every arch x shape starts in V_WORKERS processes (host work on
+     ``meta`` tensors) beside v1:
+     v1. the example twins through their ``run`` at full width, seed 0:
+     quickstart (its 512 x 256 matrix through K1 within KERNEL_TOL of the
+     plain version, then full-width OLMo-1B packed by the default plan: 113
+     K1 launches, the dense and packed MB, the next-token TV distance);
+     serve_batch (OLMo-1B, 6 requests on 3 slots, mip2q weights and KV pages
+     of 16, chunked prefill: every request retires with 8 tokens, pages
+     x0.875 of int8 exactly, K1 and K4 launched; ticks and drain ms);
+     serve_strum (OLMo-1B, the three fixed configs: each payload over the
+     int8 bytes of K padded to whole blocks equal to Eq. 1 / 2 of its p and
+     q, over the true int8 bytes within that padding; the schedule searched
+     at 0.875 meets it; variants and token agreement); train_e2e (M100 at 8
+     x 256 for V_TRAIN_STEPS steps: the mean loss of the last 10 below that
+     of the first 10, every PTQ eval CE finite, ms a step);
+     v2. full-width OLMo-1B on the default plan, a decode step at V_DECODE
+     and a prefill at V_PREFILL: the dry-run's count on ``meta``
+     (``count_step``, f32 parameters as the card holds them) beside the same
+     step on the card: kernel calls equal to the launches per kernel and
+     argument bytes equal to the real inputs' bytes, exactly; its temp
+     bytes beside the card's peak above the allocations before the step,
+     its roofline seconds beside the measured ms (reported); then the sweep's
+     status counts (any FAIL is fatal) and seconds.
+
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
 it exits non-zero before printing any result.  ``python3 chip_smoke.py --only
-q`` (``--only r``, ``--only s``, ``--only t``, ``--only u``) builds the
-kernels and runs phase q (r, s, t, u) alone (no kernels or result line).
+q`` (``--only r``, ``--only s``, ``--only t``, ``--only u``, ``--only v``)
+builds the kernels and runs phase q (r, s, t, u, v) alone (no kernels or
+result line).
 """
 from __future__ import annotations
 
@@ -312,11 +339,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
-# H100 SXM dense peaks by activation dtype.  Decoded weights are integers of
-# magnitude <= 128, exact in bf16, and the scale comes after the sum, so bf16
-# x meets the bf16 tensor-core rate; f32 x has only the CUDA cores' rate.
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# The H100 SXM's published HBM rate and dense peaks by activation dtype,
+# from ``repro_torch.hardware`` (bound in ``main`` once ``src/`` is on the
+# path).  Decoded weights are integers of magnitude <= 128, exact in bf16, and
+# the scale comes after the sum, so bf16 x meets the bf16 tensor-core rate;
+# f32 x has only the CUDA cores' rate.
+HBM_BYTES_PER_S: float
+PEAK_FLOPS: dict
 # |kernel - plain| <= KERNEL_TOL * max|plain| (+ 1e-6 for K4/K5, each
 # output over its live rows): f32 sums of the same terms in another order
 KERNEL_TOL = 2e-5
@@ -4293,9 +4322,289 @@ def _numerics_report(u, smi) -> None:
           f"{ {k: round(v['seconds'], 1) for k, v in u.items()} }; {smi}", flush=True)
 
 
+# ------------------------------------------- launch tools and examples (v) --
+
+V_DIR = ROOT / "build" / "phase_v"     # the twins' schedule JSON and checkpoints
+V_TRAIN_STEPS = 30                     # v1's train_e2e steps (M100 at 8 x 256)
+V_DECODE = (4, 2048)                   # v2's decode step: slots, cache tokens
+V_PREFILL = (4, 32)                    # v2's prefill step: batch, tokens
+V_WORKERS = 4                          # processes of v2's dry-run sweep
+
+
+def _v_olmo(dev):
+    """Full-width OLMo-1B and its f32 weights from seed 0."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import init_params
+    cfg = get_config("olmo_1b")
+    _full_width(cfg, "olmo_1b")
+    return cfg, init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+
+
+def phase_v_quickstart(dev, cfg, params) -> dict:
+    """The twin of examples/quickstart.py: its 512 x 256 matrix through K1
+    held against the plain version, then OLMo-1B packed by the default plan
+    (the 112 linears on K1)."""
+    from repro_torch.examples import quickstart
+    _reset_kv_counts()
+    res = quickstart.run(model_cfg=cfg, params=params, seed=0, device=dev)
+    launched = _kv_counts()
+    _check(res["kernel_max_err"] <= KERNEL_TOL * res["kernel_max_ref"],
+           f"quickstart: K1 off its plain version by {res['kernel_max_err']:.3g} "
+           f"(max |plain| {res['kernel_max_ref']:.3g})")
+    _check(res["variant_distribution"] == {"cuda:onehot": 7},
+           f"quickstart: variants {res['variant_distribution']}")
+    _zoo_counts(launched, {"onehot": 1 + 7 * cfg.n_layers}, "quickstart")
+    _check(res["weight_bytes"] == 512 * 256 * 7 // 8 and res["achieved_ratio"] == 0.875,
+           f"quickstart: payload {res['weight_bytes']} B, x{res['achieved_ratio']}")
+    _check(math.isfinite(res["tv"]) and 0 <= res["tv"] <= 1, f"quickstart: TV {res['tv']}")
+    print(f"  quickstart: K1 max err {res['kernel_max_err']:.3g} (max |plain| "
+          f"{res['kernel_max_ref']:.4g}); OLMo-1B {res['dense_bytes'] / 1e6:.2f} MB dense "
+          f"-> {res['served_bytes'] / 1e6:.2f} MB StruM; next-token TV "
+          f"{res['tv']:.4f}; launches {launched}", flush=True)
+    return {k: res[k] for k in ("kernel_max_err", "kernel_max_ref", "weight_bytes",
+                                "dense_bytes", "served_bytes", "tv")} | {
+        "launches": launched}
+
+
+def phase_v_serve_batch(dev, cfg, params) -> dict:
+    """The twin of examples/serve_batch.py at full width: 6 requests on 3
+    slots, mip2q weights and mip2q KV pages of 16, chunked prefill."""
+    from repro_torch.examples import serve_batch
+    prompts = serve_batch.prompts_for(6, cfg.vocab_size, seed=0)
+    _reset_kv_counts()
+    res = serve_batch.run(cfg, params, prompts, slots=3, gen=8, strum="mip2q",
+                          kv_cache="mip2q", page_size=16, prefill="chunked", device=dev)
+    launched = _kv_counts()
+    _check(sorted(res["outputs"]) == list(range(6)) and
+           all(len(o) == 8 for o in res["outputs"].values()),
+           f"serve_batch: not every request retired with 8 tokens: {res['outputs']}")
+    c = res["cache"]
+    _check(c["ratio_vs_int8"] == 0.875 and c["attn_variant"] == "cache:attn_fused",
+           f"serve_batch: cache {c}")
+    _check(launched["onehot"] > 0 and launched["paged_attention"] > 0,
+           f"serve_batch: launches {launched}")
+    print(f"  serve_batch: 6 requests x 8 tokens in {res['ticks']} ticks, drain "
+          f"{res['seconds'] * 1e3:.1f} ms; pages {c['codec']} x{c['ratio_vs_int8']:.3f} "
+          f"of int8 ({c['resident_page_bytes']} B); launches {launched}", flush=True)
+    return {"ticks": res["ticks"], "drain_ms": res["seconds"] * 1e3, "cache": c,
+            "launches": launched}
+
+
+def phase_v_serve_strum(dev, cfg, params) -> dict:
+    """The twin of examples/serve_strum.py at full width: the three fixed
+    configs, each one's payload over int8 equal to Eq. 1 / 2 of its p and q
+    (exactly against K padded to whole blocks; against the true K within
+    that padding), and the flow autotuned at a budget of 0.875."""
+    import numpy as np
+    from repro_torch.core.packing import compression_ratio, compression_ratio_sparsity
+    from repro_torch.examples import serve_strum
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32))
+    _reset_kv_counts()
+    res = serve_strum.run(cfg, params, prompt, gen=12, target_ratio=0.875,
+                          schedule_path=str(V_DIR / "strum_schedule_olmo_1b.json"),
+                          device=dev)
+    launched = _kv_counts()
+    out = {"fixed": {}, "launches": launched}
+    for method, r in res["fixed"].items():
+        eq = compression_ratio_sparsity(r["p"]) if method == "sparsity" else \
+            compression_ratio(r["p"], r["q"])
+        got, padded = r["payload_bytes"] / r["int8_bytes"], \
+            r["payload_bytes"] / r["padded_int8_bytes"]
+        pad = r["padded_int8_bytes"] / r["int8_bytes"] - 1
+        _check(padded == eq and abs(got - eq) <= eq * pad,
+               f"serve_strum {method}: payload x{got} of int8 (x{padded} padded), "
+               f"Eq. x{eq}")
+        out["fixed"][method] = {"ratio": got, "eq": eq, "padding": pad,
+                                "agreement": r["agreement"], "variants": r["variants"],
+                                "proj_us": r["proj_us_per_token"]}
+        print(f"  serve_strum {method} p=0.5: payload x{got:.4f} of int8 (Eq. x{eq:.4f}, "
+              f"padding {pad:.3g}); variants {r['variants']}; token agreement "
+              f"{r['agreement']:.2%}; proj H100 weight-stream "
+              f"{r['proj_us_per_token']:.1f} us/tok", flush=True)
+    a = res["autotune"]
+    _check(a["achieved_ratio"] <= 0.875 + 1e-9,
+           f"serve_strum: the searched schedule misses its budget: {a['achieved_ratio']}")
+    out["autotune"] = {k: a[k] for k in ("achieved_ratio", "weighted_sqnr_db",
+                                         "config_distribution", "variants", "agreement",
+                                         "n_packed", "packed_ratio")}
+    print(f"  serve_strum autotune r<=0.875: achieved x{a['achieved_ratio']:.4f}, "
+          f"{a['config_distribution']}, variants {a['variants']}, token agreement "
+          f"{a['agreement']:.2%}; launches {launched}", flush=True)
+    return out
+
+
+def phase_v_train(dev) -> dict:
+    """The twin of examples/train_e2e.py: M100 at 8 x 256 for V_TRAIN_STEPS
+    steps on the card, then the PTQ eval of the three methods."""
+    import statistics as st
+    from repro_torch.examples import train_e2e
+    cfg = train_e2e.M100
+    res = train_e2e.run(cfg, steps=V_TRAIN_STEPS, batch=8, seq=256,
+                        workdir=str(V_DIR / "e2e"), device=dev,
+                        log_fn=lambda line: print(f"    {line}", flush=True))
+    first, last = st.mean(res["losses"][:10]), st.mean(res["losses"][-10:])
+    _check(last < first, f"train_e2e: loss {first:.4f} over the first 10 steps, "
+                         f"{last:.4f} over the last 10")
+    _check(all(math.isfinite(v) for v in res["eval"].values()),
+           f"train_e2e: eval CE {res['eval']}")
+    ms = res["ms_per_step"][1:]     # the first step pays the first calls' set-up
+    print(f"  train_e2e {cfg.name} ({res['param_count'] / 1e6:.1f}M params, 8 x 256): "
+          f"loss {first:.4f} -> {last:.4f} (mean of the first / last 10 of "
+          f"{V_TRAIN_STEPS}); {st.median(ms):.2f} ms a step (median, [{min(ms):.2f}, "
+          f"{max(ms):.2f}], first {res['ms_per_step'][0]:.1f}); eval CE "
+          f"{ {k: round(v, 4) for k, v in res['eval'].items()} }", flush=True)
+    return {"loss_first10": first, "loss_last10": last, "eval": res["eval"],
+            "ms_per_step": _spread(ms), "first_step_ms": res["ms_per_step"][0]}
+
+
+def _v2_step(dev, cfg, plan, kind, b, s):
+    """The dry-run's count of one step on ``meta`` beside the same step on
+    the card: per-kernel calls and argument bytes exactly, memory and time
+    reported."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.analysis.pallas_lint import VARIANT_KERNELS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import cache_defs
+    from repro_torch.models.params import init_params
+    shape = ShapeSpec(f"v2_{kind}", s, b, kind)
+    rec = dryrun.count_step(cfg, shape, specs.input_specs(cfg, shape,
+                                                          param_dtype="float32"))
+    if kind == "decode":
+        caches = init_params(cache_defs(cfg, b, specs.padded_cache_len(s)), device=dev)
+        real = (plan.params, torch.zeros((b, 1), dtype=torch.long, device=dev), caches, s)
+        step = make_decode_step(cfg)
+    else:
+        real = (plan.params, {"tokens": torch.zeros((b, s), dtype=torch.long, device=dev)})
+        step = make_prefill_step(cfg)
+    args = sum(t.numel() * t.element_size() for t in tree_flatten(real)[0]
+               if isinstance(t, torch.Tensor))
+    _check(args == rec["memory"]["argument_bytes"],
+           f"v2 {kind}: the card's arguments hold {args} B, the dry-run's "
+           f"{rec['memory']['argument_bytes']} B")
+    with torch.inference_mode():
+        step(*real)                      # first calls' set-up
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_kv_counts()
+        t0 = time.perf_counter()
+        out = step(*real)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del out
+    launched = {k: v for k, v in _kv_counts().items() if v}
+    want = {VARIANT_KERNELS[k]: v for k, v in rec["kernels"].items()}
+    _check(launched == want, f"v2 {kind}: the card launched {launched}, the dry-run "
+                             f"counted {want}")
+    roof = dryrun.roofline_terms(dryrun.compute_s(rec["flops_by_dtype"]), rec["bytes"],
+                                 0)
+    bound_ms = max(roof["compute_s"], roof["memory_s"]) * 1e3
+    print(f"  v2 {kind} {b} x {s}: kernel calls {rec['kernels']} = launches {launched}; "
+          f"arguments {args} B on both; dry-run temp {rec['memory']['temp_bytes']} B "
+          f"beside the card's peak above its prior allocations {peak} B; roofline "
+          f"{bound_ms:.3f} ms ({roof['bottleneck']}; compute {roof['compute_s'] * 1e3:.3f}, "
+          f"memory {roof['memory_s'] * 1e3:.3f}) beside {ms:.3f} ms measured; count "
+          f"{rec['seconds']:.2f} s on meta", flush=True)
+    return {"kernels": rec["kernels"], "launches": launched, "argument_bytes": args,
+            "temp_bytes": rec["memory"]["temp_bytes"], "peak_above_prior": peak,
+            "flops": rec["flops"], "bytes": rec["bytes"], "roofline": roof,
+            "bound_ms": bound_ms, "ms": ms, "count_s": rec["seconds"]}
+
+
+def _sweep_cells():
+    from repro_torch.configs.base import ARCH_IDS, SHAPES
+    return [(a, s) for a in ARCH_IDS for s in SHAPES]
+
+
+def _sweep_status(futures, t0) -> dict:
+    """Every cell's status; a cell that raised is ``FAIL`` with its error."""
+    status = {}
+    for (arch, shape), fut in futures.items():
+        err = fut.exception()
+        status[f"{arch}/{shape}"] = (fut.result()["status"] if err is None else
+                                     f"FAIL: {type(err).__name__}: {err}")
+    counts = {k: sum(v.startswith(k) for v in status.values())
+              for k in ("OK", "SKIP", "FAIL")}
+    fails = {c: v for c, v in status.items() if v.startswith("FAIL")}
+    print(f"  v2 dry-run sweep: {len(status)} cells, {counts}, in "
+          f"{time.perf_counter() - t0:.1f} s ({V_WORKERS} processes, beside v1)"
+          + (f"; failed: {fails}" if fails else ""), flush=True)
+    _check(not fails, f"dry-run cells failed: {fails}")
+    return {"counts": counts, "seconds": time.perf_counter() - t0}
+
+
+def measure_examples(dev) -> dict:
+    """Phase v, each sub-phase fatal: the example twins at full width (v1),
+    then the dry-run held against the card and the whole dry-run sweep (v2),
+    which runs in worker processes from the start of the phase."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.engine import build_plan
+    from repro_torch.launch.dryrun import lower_cell
+    V_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with ProcessPoolExecutor(V_WORKERS, mp_context=multiprocessing.get_context("spawn")
+                             ) as pool:
+        t_sweep = time.perf_counter()
+        futures = {cell: pool.submit(lower_cell, *cell) for cell in _sweep_cells()}
+        cfg, params = _v_olmo(dev)
+        for key, what, run in (
+                ("quickstart", "the 512 x 256 matrix through K1, OLMo-1B packed",
+                 lambda: phase_v_quickstart(dev, cfg, params)),
+                ("serve_batch", "OLMo-1B, 6 requests, 3 slots, mip2q weights and pages",
+                 lambda: phase_v_serve_batch(dev, cfg, params)),
+                ("serve_strum", "OLMo-1B, three fixed configs, autotuned at 0.875",
+                 lambda: phase_v_serve_strum(dev, cfg, params)),
+                ("train_e2e", f"M100 at 8 x 256, {V_TRAIN_STEPS} steps, PTQ eval",
+                 lambda: phase_v_train(dev))):
+            t0 = time.perf_counter()
+            print(f"-- v1 {key}: {what} (t = {t0 - _T0:.1f} s)", flush=True)
+            out[key] = run()
+            out[key]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        print(f"-- v2 the dry-run held against the card, full-width OLMo-1B, default "
+              f"plan (t = {t0 - _T0:.1f} s)", flush=True)
+        scfg = StruMConfig(method="mip2q", p=0.5, L=5)
+        pcfg = dataclasses.replace(cfg, strum=scfg)
+        plan = build_plan(params, cfg=scfg, device=dev)
+        del params
+        out["v2"] = {kind: _v2_step(dev, pcfg, plan, kind, *bs)
+                     for kind, bs in (("decode", V_DECODE), ("prefill", V_PREFILL))}
+        del plan
+        torch.cuda.empty_cache()
+        out["v2"]["sweep"] = _sweep_status(futures, t_sweep)
+        out["v2"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _examples_report(v, smi) -> None:
+    """Phase v's summary line."""
+    d, p = v["v2"]["decode"], v["v2"]["prefill"]
+    print(f"examples (phase v, full width): quickstart TV {v['quickstart']['tv']:.4f}; "
+          f"serve_batch {v['serve_batch']['ticks']} ticks, drain "
+          f"{v['serve_batch']['drain_ms']:.1f} ms; serve_strum agreement "
+          f"{ {k: round(r['agreement'], 4) for k, r in v['serve_strum']['fixed'].items()} }"
+          f", autotuned {v['serve_strum']['autotune']['agreement']:.4f}; train_e2e "
+          f"{v['train_e2e']['ms_per_step']['median']:.2f} ms a step; dry-run decode "
+          f"{d['bound_ms']:.3f} ms bound vs {d['ms']:.3f} ms, prefill {p['bound_ms']:.3f} "
+          f"vs {p['ms']:.3f} ms; sweep {v['v2']['sweep']['counts']} in "
+          f"{v['v2']['sweep']['seconds']:.1f} s; sub-phase seconds "
+          f"{ {k: round(r['seconds'], 1) for k, r in v.items()} }; {smi}", flush=True)
+
+
 def measure(dev, clocks):
-    """Phases c-u; returns the kernels' records and the serve (train, mesh,
-    analysis, numerics) times."""
+    """Phases c-v; returns the kernels' records and the serve (train, mesh,
+    analysis, numerics, examples) times."""
     import torch
     _phase("c. kernels vs plain versions at OLMo-1B shapes")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4442,6 +4751,20 @@ def measure(dev, clocks):
             if n:
                 u_launches.setdefault(name, {})[sub] = n
 
+    _phase("v. the launch tools and examples: the example twins at full width "
+           "(quickstart, serve_batch, serve_strum on OLMo-1B, train_e2e on M100), the "
+           "dry-run held against the card, the dry-run sweep")
+    times["examples"] = examples = measure_examples(dev)
+    v_launches: dict = {}
+    for sub, launched in (("v1_quickstart", examples["quickstart"]["launches"]),
+                          ("v1_serve_batch", examples["serve_batch"]["launches"]),
+                          ("v1_serve_strum", examples["serve_strum"]["launches"]),
+                          ("v2_decode", examples["v2"]["decode"]["launches"]),
+                          ("v2_prefill", examples["v2"]["prefill"]["launches"])):
+        for name, n in launched.items():
+            if n:
+                v_launches.setdefault(name, {})[sub] = n
+
     kernels = []
     for name in ("onehot", "maskfree", "dense"):
         t, mid, pf = timings[name][4], timings[name][16], timings[name][128]
@@ -4537,6 +4860,7 @@ def measure(dev, clocks):
     for k in kernels:        # phase t1's launches, each held to its plain version
         k["lint_launches"] = analysis["t1"]["launches"][VARIANT_KERNELS[k["name"]]]
         k["numerics_launches"] = u_launches.get(VARIANT_KERNELS[k["name"]], {})
+        k["examples_launches"] = v_launches.get(VARIANT_KERNELS[k["name"]], {})
     return kernels, times
 
 
@@ -4561,8 +4885,8 @@ def _zoo_report(zoo, smi) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q"], ["--only", "r"], ["--only", "s"],
-                    ["--only", "t"], ["--only", "u"]):
-        print("usage: chip_smoke.py [--only q|r|s|t|u]", file=sys.stderr)
+                    ["--only", "t"], ["--only", "u"], ["--only", "v"]):
+        print("usage: chip_smoke.py [--only q|r|s|t|u|v]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
@@ -4574,6 +4898,8 @@ def main(argv=None) -> int:
               "test needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    from repro_torch.hardware import HBM_BYTES_PER_S, PEAK_FLOPS
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 yardsticks
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4627,6 +4953,12 @@ def main(argv=None) -> int:
             _numerics_report(numerics, smi)
             print(json.dumps({"numerics": numerics}, default=str))
             return 0
+        if argv == ["--only", "v"]:     # phase v alone: no kernels or result line
+            _phase("v. the launch tools and examples")
+            examples = measure_examples(dev)
+            _examples_report(examples, smi)
+            print(json.dumps({"examples": examples}, default=str))
+            return 0
         if argv == ["--only", "r"]:     # phase r alone: no kernels or result line
             _phase("r. the training path")
             train = measure_train(dev, clocks)
@@ -4675,6 +5007,7 @@ def main(argv=None) -> int:
     _mesh_report(times["mesh"], smi)
     _analysis_report(times["analysis"], smi)
     _numerics_report(times["numerics"], smi)
+    _examples_report(times["examples"], smi)
     print(f"main path (median of {times['serves']} warm serves): prefill "
           f"{pre['median']:.3f} ms [{pre['min']:.3f}, {pre['max']:.3f}], decode "
           f"{dec['median']:.3f} ms/token [{dec['min']:.3f}, {dec['max']:.3f}] "

@@ -1,8 +1,8 @@
 """Model configuration, a jax-free copy of ``repro.configs.base`` with the
 same ``ModelConfig`` fields and ``tiny_variant`` rule.  Every architecture
 of the reference has a module here (``ARCH_IDS``, in the reference's
-order); each exports ``CONFIG`` (the published shape) and ``SMOKE``.  The
-reference's dry-run cells (``ShapeSpec`` / ``SHAPES``) are not ported.
+order); each exports ``CONFIG`` (the published shape) and ``SMOKE``.  ``SHAPES``
+holds the reference's four dry-run cells (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -14,8 +14,8 @@ import torch
 
 from repro_torch.core.policy import StruMConfig
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "get_smoke_config",
-           "tiny_variant"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "ARCH_IDS", "get_config",
+           "get_smoke_config", "tiny_variant"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +125,21 @@ class ModelConfig:
                 total -= (self.n_experts - self.top_k) * mult * self.d_model * self.d_ff
         return total
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 ARCH_IDS = (
     "jamba_1_5_large_398b",

@@ -6,10 +6,11 @@ blocks; the last block is zero-padded.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["pad_to_block", "unpad_from_block", "to_blocks", "from_blocks",
-           "num_blocks"]
+           "num_blocks", "block_shape_ok", "np_to_blocks"]
 
 
 def num_blocks(k: int, w: int) -> int:
@@ -40,3 +41,19 @@ def from_blocks(blocks: torch.Tensor, k: int) -> torch.Tensor:
     """``(nb, w, N) -> (K, N)``, inverse of :func:`to_blocks`."""
     nb, w = blocks.shape[:2]
     return unpad_from_block(blocks.reshape((nb * w,) + tuple(blocks.shape[2:])), k)
+
+
+def block_shape_ok(w: int) -> bool:
+    """The reference's guard, kept as it is: w divides 128, the TPU's tile
+    alignment.  The CUDA kernels state their own limits in their launchers'
+    ``launch_contract``."""
+    return w > 0 and 128 % w == 0
+
+
+def np_to_blocks(x: np.ndarray, w: int) -> np.ndarray:
+    """NumPy twin of :func:`to_blocks` for offline encoders."""
+    k = x.shape[0]
+    pad = num_blocks(k, w) * w - k
+    if pad:
+        x = np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
+    return x.reshape((x.shape[0] // w, w) + x.shape[1:])

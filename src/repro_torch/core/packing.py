@@ -18,7 +18,8 @@ import torch
 from repro_torch.core import blocking
 from repro_torch.core.quantizers import QuantizedBlocks
 
-__all__ = ["PackedStruM", "field_dims", "pack", "decode_low_values",
+__all__ = ["PackedStruM", "field_dims", "compression_ratio",
+           "compression_ratio_sparsity", "pack", "decode_low_values",
            "decode_blocks", "decode_matrix", "dequantize"]
 
 
@@ -28,6 +29,16 @@ def field_dims(w: int, n_low: int, q: int, method: str) -> tuple:
     hi_rows = w - n_low
     lo_rows = 0 if method == "sparsity" else -(-(n_low * q) // 8)
     return mask_rows, hi_rows, lo_rows
+
+
+def compression_ratio(p: float, q: int) -> float:
+    """Paper Eq. 1: compressed over int8 bytes of the mixed payload."""
+    return (p * (q - 8) + 9) / 8.0
+
+
+def compression_ratio_sparsity(p: float) -> float:
+    """Paper Eq. 2: sparsity (or q = 1), where low values carry no payload."""
+    return (9 - 8 * p) / 8.0
 
 
 class PackedStruM(NamedTuple):
@@ -51,6 +62,14 @@ class PackedStruM(NamedTuple):
     @property
     def n_out(self) -> int:
         return self.scale.shape[-1]
+
+    def payload_bytes(self) -> int:
+        return int(self.mask.numel() + self.hi.numel() + self.lo.numel())
+
+    def achieved_ratio(self) -> float:
+        """Realized compressed over int8 bytes of the padded matrix (scales
+        excluded)."""
+        return self.payload_bytes() / float(self.mask.shape[0] * self.w * self.n_out)
 
 
 def _pack_bits_axis1(bits: torch.Tensor) -> torch.Tensor:

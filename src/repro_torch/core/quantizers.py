@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["QuantizedBlocks", "int8_symmetric",
+__all__ = ["QuantizedBlocks", "int8_symmetric", "dequantize_int8",
            "rank_in_block", "magnitude_low_mask", "pow2_round", "pow2_shift",
            "pow2_error_low_mask", "structured_sparsity", "dliq", "mip2q",
            "quantize_blocks", "n_low_for_p", "METHODS"]
@@ -55,6 +55,11 @@ def int8_symmetric(w: torch.Tensor, axis: int = 0):
                         torch.ones_like(amax)).to(torch.float32)
     codes = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return codes, scale
+
+
+def dequantize_int8(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``codes * scale`` in f32, the inverse of :func:`int8_symmetric`."""
+    return codes.to(torch.float32) * scale
 
 
 def rank_in_block(key: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["DataConfig", "global_batch", "host_shard"]
+__all__ = ["DataConfig", "global_batch", "host_shard", "batch_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,3 +64,18 @@ def host_shard(cfg: DataConfig, step: int, host_id: int, n_hosts: int,
     per = cfg.global_batch // n_hosts
     return _batch(np.stack([_token_block(cfg, step, host_id * per + r)
                             for r in range(per)]), device)
+
+
+def batch_specs(cfg: DataConfig, d_model: int = 0, modality: str = "text") -> dict:
+    """``meta`` stand-ins of a global batch for the dry-run (nothing drawn or
+    allocated).  The reference's int32 tokens and labels are int64 here, the
+    port's token dtype (:func:`global_batch`); a non-text modality's
+    ``embeds`` are bf16 ``(B, S, d_model)``, as in the reference."""
+    b, s = cfg.global_batch, cfg.seq_len
+    out = {"labels": torch.empty((b, s), dtype=torch.long, device="meta")}
+    if modality == "text":
+        out["tokens"] = torch.empty((b, s), dtype=torch.long, device="meta")
+    else:   # stub frontend: precomputed frame / patch embeddings
+        out["embeds"] = torch.empty((b, s, d_model), dtype=torch.bfloat16,
+                                    device="meta")
+    return out

@@ -39,7 +39,10 @@ def _stacked(cfg, info):
 
 
 def _on_card(name: str, x2: torch.Tensor) -> None:
-    if x2.device.type != "cuda":
+    """CUDA tensors, or ``meta`` ones for the dry-run's shape-only step
+    (``launch.dryrun``): the kernel wrapper then raises on ``meta`` unless
+    the ``kernels.hooks`` slot takes the call."""
+    if x2.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on CUDA tensors; got {x2.device} "
                          f"(select with backend='auto' or 'torch' off the card)")
 

@@ -1,0 +1,13 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet: dense rates,
+no sparsity, at its full 700 W power limit; a card set below that limit runs
+slower under load).  The one home of these numbers: the dry-run's roofline
+(``launch.dryrun``), ``chip_smoke.py``'s kernel bounds, the route probe and
+the examples' weight-stream projections all read them here."""
+
+BF16_FLOPS = 989e12            # FLOP/s, bf16 / fp16 tensor cores
+F32_FLOPS = 67e12              # FLOP/s, float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12      # HBM3
+NVLINK_BYTES_PER_S = 450e9     # NVLink 4, per direction
+
+#: peak FLOP/s by the operands' dtype, keyed by ``str(torch dtype)``
+PEAK_FLOPS = {"torch.bfloat16": BF16_FLOPS, "torch.float32": F32_FLOPS}

@@ -1,7 +1,8 @@
 """The observation slot of the kernel wrappers and the collectives.
 
 ``active`` is None, or the tracer of a running
-:func:`repro_torch.analysis.dataflow.trace_dataflow`.  Every kernel wrapper
+:func:`repro_torch.analysis.dataflow.trace_dataflow` (or the dry-run's
+:class:`repro_torch.launch.dryrun.Counter`, which takes kernel calls only).  Every kernel wrapper
 of :mod:`~repro_torch.kernels.strum_matmul` (K1-K3, K6-K10),
 :mod:`~repro_torch.kernels.strum_attention` (K4, K5) and
 :mod:`~repro_torch.kernels.strum_decode` (K11) hands its call, on either

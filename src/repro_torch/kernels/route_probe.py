@@ -34,12 +34,11 @@ import torch
 
 from repro_torch.core.policy import StruMConfig
 from repro_torch.engine.cache import encode_page
+from repro_torch.hardware import HBM_BYTES_PER_S
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import _min1
 from repro_torch.kernels.strum_decode import strum_page_decode_plain
 from repro_torch.kernels.strum_matmul import METHOD_CODES
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 
 _STAGED = ("const bool staged = w > 64 || n_high > 16 || lo_n > 8;",
            "const bool staged = true;")

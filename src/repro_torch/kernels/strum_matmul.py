@@ -142,7 +142,9 @@ def strum_matmul_onehot_plain(x2, mask, hi, lo, scale, *, w: int, n_low: int,
 
 
 def strum_matmul_maskfree_plain(x2, lo, scale, *, w: int, q: int,
-                                method: str) -> torch.Tensor:
+                                method: str, L=None) -> torch.Tensor:
+    """K2's arithmetic; ``L`` is accepted as the kernel's wrapper takes it,
+    and changes nothing."""
     vals = decode_low_values(_unpack_fields(lo, w, q), method, q)
     return _matmul_scaled(x2, vals, scale)
 

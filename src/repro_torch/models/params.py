@@ -2,6 +2,9 @@
 ``ParamDef(shape, axes, dtype, init, scale)`` trees, and ``init_params``
 materializes them on a device from a seed.
 
+``abstract_params`` is the dry-run's stand-in tree: ``meta`` tensors of the
+same shapes and dtypes, which allocate nothing and draw nothing.
+
 ``params_from_numpy`` carries a reference parameter tree across: the same
 nested dict (the same ``/``-joined paths, the same ``(groups, K, N)``
 stacking) of numpy arrays becomes the port's tree on a device, so both
@@ -23,8 +26,9 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["ParamDef", "init_params", "params_from_numpy", "torch_dtype",
-           "param_pspecs", "param_shardings", "shard_params", "gather_params"]
+__all__ = ["ParamDef", "init_params", "abstract_params", "params_from_numpy",
+           "torch_dtype", "param_pspecs", "param_shardings", "shard_params",
+           "gather_params", "tree_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +57,25 @@ def _fan_in(shape) -> int:
     return int(np.prod(shape[:-1])) if len(shape) > 1 else max(shape[0], 1)
 
 
+def _resolve_dtype(d: ParamDef, override) -> torch.dtype:
+    """Overrides apply to floating leaves only (packed uint8 / int8 payloads
+    and integer counters keep their declared dtype)."""
+    dt = torch_dtype(d.dtype)
+    if override is not None and dt.is_floating_point:
+        return torch_dtype(override)
+    return dt
+
+
+def _map_defs(fn, defs):
+    """``fn(path, def)`` over a ``ParamDef`` tree, the tree's shape kept."""
+    def walk(tree, prefix):
+        if isinstance(tree, ParamDef):
+            return fn(prefix, tree)
+        return {k: walk(v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    return walk(defs, "")
+
+
 def init_params(defs, seed: int = 0, device="cuda",
                 dtype_override: Optional[str] = None):
     """Materialize a ParamDef tree on ``device`` (default ``"cuda"``; raises
@@ -62,9 +85,7 @@ def init_params(defs, seed: int = 0, device="cuda",
     dev = resolve_device(device)
 
     def make(name, d: ParamDef):
-        dt = torch_dtype(d.dtype)
-        if dtype_override is not None and dt.is_floating_point:
-            dt = torch_dtype(dtype_override)
+        dt = _resolve_dtype(d, dtype_override)
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=dt, device=dev)
         if d.init == "ones":
@@ -74,13 +95,22 @@ def init_params(defs, seed: int = 0, device="cuda",
         std = d.scale / np.sqrt(_fan_in(d.shape)) if d.init == "normal" else d.scale
         arr = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=dev)
         return (arr * std).to(dt)
+    return _map_defs(make, defs)
 
-    def walk(tree, prefix):
-        if isinstance(tree, ParamDef):
-            return make(prefix, tree)
-        return {k: walk(v, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree.items()}
-    return walk(defs, "")
+
+def abstract_params(defs, dtype_override: Optional[str] = None):
+    """``meta`` tensor tree of a ``ParamDef`` tree: the twin of the
+    reference's ``ShapeDtypeStruct`` stand-ins (no allocation, no draw)."""
+    return _map_defs(lambda _, d: torch.empty(
+        d.shape, dtype=_resolve_dtype(d, dtype_override), device="meta"), defs)
+
+
+def tree_bytes(defs) -> int:
+    """Bytes of a ``ParamDef`` tree at its declared dtypes."""
+    sizes = []
+    _map_defs(lambda _, d: sizes.append(
+        int(np.prod(d.shape)) * torch_dtype(d.dtype).itemsize), defs)
+    return sum(sizes)
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:

@@ -1,7 +1,8 @@
-"""Model-level StruM packing in the serving layout (twin of ``_pack_leaf``,
-``strum_serve_params`` and ``serve_tree_bytes`` of
-``repro.models.quantize``).  ``packed_model_defs`` (dry-run ParamDefs with
-sharding axes) waits for the launch dry-run tools."""
+"""Model-level StruM packing in the serving layout (twin of
+``repro.models.quantize``): ``_pack_leaf``, ``strum_serve_params``,
+``serve_tree_bytes`` and ``packed_model_defs``, the packed model's
+``ParamDef`` tree that the dry-run (``launch.specs``) builds its stand-ins
+and partition specs from."""
 from __future__ import annotations
 
 import warnings
@@ -10,10 +11,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core import blocking, packing
-from repro_torch.core.policy import LayerPolicy, StruMConfig
+from repro_torch.core.policy import LayerPolicy, StruMConfig, default_policy
 from repro_torch.core.quantizers import int8_symmetric, quantize_blocks
 
-__all__ = ["strum_serve_params", "serve_tree_bytes"]
+__all__ = ["strum_serve_params", "serve_tree_bytes", "packed_model_defs"]
 
 
 def _pack_leaf(wt: torch.Tensor, scfg: StruMConfig) -> dict:
@@ -54,6 +55,47 @@ def strum_serve_params(params, cfg, policy: Optional[LayerPolicy] = None,
     return build_plan(params, schedule=schedule,
                       policy=policy if schedule is None else None,
                       cfg=scfg, device=device).params
+
+
+def packed_model_defs(cfg, policy: Optional[LayerPolicy] = None) -> dict:
+    """``ParamDef`` tree of the model packed under ``cfg.strum``: exact
+    payload shapes, dtypes and logical axes, nothing allocated.
+
+    Every eligible linear ``{"w": ParamDef(..., (..., in_ax, out_ax))}``
+    becomes ``{"w": {"mask", "hi", "lo", "scale"}}`` with the in-axis moved
+    to the block dim (nb = ceil(K / w)) and the out-axis kept; MoE expert
+    stacks pack the same way with their lead dims, whatever the policy says
+    of them (``engine.build_plan``'s rule for a uniform config).  The
+    shapes are ``build_plan``'s, except that an empty field (sparsity's lo,
+    hi at p = 1) keeps the reference's one-row floor: the row the kernels
+    are handed (``kernels.ops._min1``), where the plan stores 0 rows."""
+    from repro_torch.core.apply import map_named
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import ParamDef
+    scfg = cfg.strum
+    if scfg is None:
+        raise ValueError("packed_model_defs needs cfg.strum")
+    policy = policy or default_policy(scfg)
+
+    def visit(name, leaf):
+        is_expert = "/moe/" in name and name.rsplit("/", 1)[-1] in ("wi", "wg", "wo")
+        if (not name.endswith("/w") and not is_expert) or len(leaf.shape) < 2:
+            return leaf
+        if not is_expert and policy.resolve(name, leaf.shape) is None:
+            return leaf
+        lead, (k_dim, n) = leaf.shape[:-2], leaf.shape[-2:]
+        la, (in_ax, out_ax) = leaf.axes[:-2], leaf.axes[-2:]
+        nb = blocking.num_blocks(k_dim, scfg.w)
+        mb, nh, lb = packing.field_dims(scfg.w, scfg.n_low, scfg.q, scfg.method)
+
+        def field(rows, dtype):
+            return ParamDef(lead + (nb, max(rows, 1), n), la + (in_ax, None, out_ax),
+                            dtype=dtype, init="zeros")
+        return {"mask": field(mb, "uint8"), "hi": field(nh, "int8"),
+                "lo": field(lb, "uint8"),
+                "scale": ParamDef(lead + (1, n), la + (None, out_ax),
+                                  dtype="float32", init="zeros")}
+    return map_named(visit, model_defs(cfg))
 
 
 def serve_tree_bytes(params) -> int:

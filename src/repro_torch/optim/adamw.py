@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.core.apply import map_named, tree_leaves, tree_like
 
-__all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update",
-           "warmup_cosine", "global_norm"]
+__all__ = ["AdamWConfig", "OptState", "init_opt_state", "abstract_opt_state",
+           "adamw_update", "warmup_cosine", "global_norm"]
 
 _F32 = torch.float32
 
@@ -51,6 +51,16 @@ def init_opt_state(params) -> OptState:
     dev = tree_leaves(params)[0].device
     return OptState(torch.zeros((), dtype=torch.int32, device=dev), zeros,
                     map_named(lambda _, z: z.clone(), zeros))
+
+
+def abstract_opt_state(params_abs) -> OptState:
+    """The dry-run's stand-in state: ``meta`` tensors, an int32 step and f32
+    moments shaped like ``params_abs`` (no allocation)."""
+    def moments():
+        return map_named(lambda _, p: torch.empty(p.shape, dtype=_F32, device="meta"),
+                         params_abs)
+    return OptState(torch.empty((), dtype=torch.int32, device="meta"), moments(),
+                    moments())
 
 
 def warmup_cosine(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,10 @@
   card.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card or
   outside the repo.
+* The launch tools (the dry-run, its specs, the H100 constants) and the
+  example twins are scanned and import alone; the twins' ``main`` defaults
+  to the card and raises without one, while the dry-run (``meta`` tensors)
+  needs none.
 """
 import ast
 import shutil
@@ -108,6 +112,23 @@ def test_distributed_modules_are_scanned_and_stand_alone(mod):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+LAUNCH_TOOLS = ("repro_torch.hardware", "repro_torch.launch.specs",
+                "repro_torch.launch.dryrun", "repro_torch.examples.quickstart",
+                "repro_torch.examples.serve_batch", "repro_torch.examples.serve_strum",
+                "repro_torch.examples.train_e2e", "repro_torch.examples.dryrun_cell")
+
+
+@pytest.mark.parametrize("mod", LAUNCH_TOOLS)
+def test_launch_tools_and_examples_are_scanned_and_stand_alone(mod):
+    scanned = {str(p.relative_to(ROOT / "src")) for p in _port_files()[:-1]}
+    assert mod.replace(".", "/") + ".py" in scanned
+    code = STANDALONE_RUN.split("sys.argv")[0].format(
+        forbidden=FORBIDDEN, src=str(ROOT / "src"), mods=(mod,))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_draft_and_telemetry_modules_stand_alone(tmp_path):
@@ -220,3 +241,18 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                              env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0, out.stdout
         assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_example_twins_default_to_the_card(no_card, tmp_path, capsys):
+    from repro_torch.examples import (dryrun_cell, quickstart, serve_batch,
+                                      serve_strum, train_e2e)
+    for mod, argv in ((quickstart, []), (serve_batch, ["--arch", "olmo_1b"]),
+                      (serve_strum, ["--arch", "olmo_1b"]),
+                      (train_e2e, ["--small", "--steps", "1",
+                                   "--workdir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.main(argv)
+    assert not any(tmp_path.iterdir())
+    # the dry-run runs on meta tensors: no card needed
+    assert dryrun_cell.main(["--arch", "mamba2_780m", "--shape", "long_500k"]) == 0
+    assert '"status": "OK"' in capsys.readouterr().out
