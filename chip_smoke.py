@@ -231,7 +231,9 @@ Phases, each fatal on failure:
      layers x steps on every rank; at f32 activations the one-device run's
      tokens and its logits within phase f's tolerance, at the config's bf16
      the logits teacher-forced on the served tokens within phase f's
-     tolerance, every argmax disagreement a near tie; one full-width
+     tolerance, every argmax disagreement a near tie; one more f32 decode
+     step under the dry-run's ``Counter``, its collectives and launches
+     recorded for v3; one full-width
      Moonshot-16B-A3B MoE layer (a 4-slot decode, no drops) through the
      expert-parallel body, K6 3 times on every rank, the gathered-bytes
      counter exactly the rank's block, within phase l's tolerance of
@@ -292,9 +294,9 @@ Phases, each fatal on failure:
      repro_torch.analysis --passes numerics --device cuda``: clean.
 
   v. the launch tools and examples (``repro_torch.examples``,
-     ``repro_torch.launch.dryrun``), each sub-phase fatal; the dry-run sweep
-     of every arch x shape starts in V_WORKERS processes (host work on
-     ``meta`` tensors) beside v1:
+     ``repro_torch.launch.dryrun``), each sub-phase fatal; the dry-run sweeps
+     of every arch x shape on 1x1, 16x16 and 2x16x16 start in V_WORKERS
+     processes (host work on ``meta`` tensors) beside v1:
      v1. the example twins through their ``run`` at full width, seed 0:
      quickstart (its 512 x 256 matrix through K1 within KERNEL_TOL of the
      plain version, then full-width OLMo-1B packed by the default plan: 113
@@ -315,7 +317,19 @@ Phases, each fatal on failure:
      argument bytes equal to the real inputs' bytes, exactly; its temp
      bytes beside the card's peak above the allocations before the step,
      its roofline seconds beside the measured ms (reported); then the sweep's
-     status counts (any FAIL is fatal) and seconds.
+     status counts (any FAIL is fatal) and seconds;
+     v3. the dry-run of s2's OLMo decode step on the abstract 2x2 mesh
+     (``AbstractMesh``: ``meta`` tensors, rank 0, the card's kernel choices)
+     held to what s2's rank 0 records on cuda:0 under the same ``Counter``:
+     every collective (primitive, kind, result shape and dtype, width,
+     bytes, in order), the kernel calls and the K1 launches, exactly (with
+     ``--only v`` that decode step runs alone on 4 gloo ranks first); then
+     full-width OLMo-1B's decode_32k on mip2q weights counted on all three
+     meshes (printed: per-device FLOPs, bytes, link bytes); then the sweeps
+     of every arch x shape on rank 0 of 16x16 and 2x16x16 (the
+     same V_WORKERS processes), their status counts (any FAIL is fatal)
+     and seconds; every sweep record is written to
+     ``build/phase_v/dryrun_sweep.json``.
 
 Before the last line it prints a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a card, or outside the repo,
@@ -3320,7 +3334,8 @@ def _s_rank(rank: int, world: int, port: int, what: str, out) -> None:
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 rank=rank, world_size=world)
-        res = {"s2": _s2_body, "s3": _s3_body}[what](rank, torch.device("cuda", 0))
+        res = {"s2": _s2_body, "s3": _s3_body, "s2_decode": _s2_decode_body}[what](
+            rank, torch.device("cuda", 0))
         dist.barrier()
         out.put((rank, res, None))
     except BaseException:
@@ -3402,6 +3417,36 @@ def _forced_logits(cfg, params, prompt, toks):
     return torch.stack(ref, dim=1)[..., :cfg.vocab_size].float()
 
 
+def _s2_olmo(dev) -> tuple:
+    """s2's OLMo: the default StruM config, the bf16 and f32 configs at
+    MESH_LAYERS layers, f32 weights (seed 0), a 4 x 32 prompt, the 2x2 mesh
+    and its rules."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.params import init_params
+    scfg = StruMConfig()
+    cfg16 = dataclasses.replace(get_config("olmo_1b"), n_layers=MESH_LAYERS, strum=scfg)
+    cfg = dataclasses.replace(cfg16, dtype="float32")
+    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    mesh = make_host_mesh(data=2, model=2)
+    return scfg, cfg16, cfg, params, prompt, mesh, shd.rules_for_mesh(mesh)
+
+
+def _s2_decode_body(rank: int, dev) -> dict:
+    """A rank of s2's decode record alone (``--only v``): s2's OLMo plan on
+    its 2x2 mesh and :func:`_s2_decode_record`."""
+    from repro_torch.launch.steps import build_serving_plan
+    scfg, _, cfg, params, prompt, mesh, rules = _s2_olmo(dev)
+    plan = build_serving_plan(params, cfg=scfg, mesh=mesh, rules=rules, device=dev)
+    return _s2_decode_record(cfg, plan.params, prompt, mesh, rules)
+
+
 def _s2_body(rank: int, dev) -> dict:
     """A rank of s2 (2 x 2 mesh): full-width OLMo-1B at MESH_LAYERS layers,
     packed prefill + 8 decode steps through the dense-cache loop, at f32
@@ -3411,12 +3456,9 @@ def _s2_body(rank: int, dev) -> dict:
     import torch
     from repro_torch import telemetry
     from repro_torch.configs.base import get_config
-    from repro_torch.core.policy import StruMConfig
     from repro_torch.engine import build_plan
     from repro_torch.launch import serve as S
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_serving_plan
-    from repro_torch.models import model_defs
     from repro_torch.models import sharding as shd
     from repro_torch.models.moe import moe_apply, moe_def
     from repro_torch.models.params import init_params
@@ -3425,14 +3467,7 @@ def _s2_body(rank: int, dev) -> dict:
     # config's bf16, where the row-parallel partial sums and the one-device
     # split-K sums round at other points (a last-bit difference that can flip
     # a near-tied argmax of a random model's flat logits): held teacher-forced
-    scfg = StruMConfig()
-    cfg16 = dataclasses.replace(get_config("olmo_1b"), n_layers=MESH_LAYERS, strum=scfg)
-    cfg = dataclasses.replace(cfg16, dtype="float32")
-    params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
-    prompt = torch.randint(0, cfg.vocab_size, (4, 32),
-                           generator=torch.Generator().manual_seed(0)).to(dev)
-    mesh = make_host_mesh(data=2, model=2)
-    rules = shd.rules_for_mesh(mesh)
+    scfg, cfg16, cfg, params, prompt, mesh, rules = _s2_olmo(dev)
     gen_steps = 8
     t0 = time.perf_counter()
     plan = build_serving_plan(params, cfg=scfg, mesh=mesh, rules=rules, device=dev)
@@ -3452,6 +3487,7 @@ def _s2_body(rank: int, dev) -> dict:
         "gathered_counter": int(rec.counter("dispatch/sharded/gathered_packed_bytes")),
         "bytes": _gather_bytes(plan, steps), "local_payload": local,
         "whole_payload": plan.summary()["packed_payload_bytes"]}
+    out["decode_record"] = _s2_decode_record(cfg, plan.params, prompt, mesh, rules)
     _reset_kv_counts()
     toks16, _, _, lg16 = S.serve(cfg16, plan.params, prompt, gen_steps, device=dev,
                                  return_logits=True, mesh=mesh, rules=rules)
@@ -3514,6 +3550,29 @@ def _s2_body(rank: int, dev) -> dict:
                           aux=(float(aux), float(aux1)),
                           single_dist=plan1.summary()["variant_distribution"])
     return out
+
+
+def _s2_decode_record(cfg, params, prompt, mesh, rules) -> dict:
+    """One decode step of s2's OLMo on its 2x2 mesh, after a prefill of
+    ``prompt``, under the dry-run's ``Counter``: the collectives this rank
+    records in order, the kernel calls it counts and the wrappers'
+    launches (phase v3 holds the abstract mesh's count to them)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    with torch.inference_mode():
+        _, caches = make_prefill_step(cfg, mesh, rules)(params, {"tokens": prompt})
+        caches = pad_caches(caches, 1)
+        step = make_decode_step(cfg, mesh, rules)
+        _reset_kv_counts()
+        counter = dryrun.Counter()
+        with counter:
+            step(params, prompt[:, -1:], caches, prompt.shape[1])
+        torch.cuda.synchronize()
+    return {"collectives": counter.collectives, "kernels": dict(counter.kernels),
+            "launches": {k: v for k, v in _kv_counts().items() if v},
+            "batch": prompt.shape[0], "cache_len": prompt.shape[1]}
 
 
 def _s3_body(rank: int, dev) -> dict:
@@ -3694,6 +3753,7 @@ def _check_s2(ranks: list) -> dict:
            abs(m["aux"][0] - m["aux"][1]) <= 1e-4 * max(1.0, abs(m["aux"][1])),
            f"s2 MoE layer differs: {m}")
     return {"olmo": o, "olmo_bf16": b16, "moe": m,
+            "decode_record": ranks[0]["decode_record"],
             "k1_launches_per_rank": [r["olmo"]["launches"]["onehot"] for r in ranks],
             "k6_launches_per_rank": [r["moe"]["launches"]["grouped_onehot"]
                                      for r in ranks]}
@@ -4517,32 +4577,93 @@ def _v2_step(dev, cfg, plan, kind, b, s):
             "bound_ms": bound_ms, "ms": ms, "count_s": rec["seconds"]}
 
 
+#: the dry-run sweep's meshes: one H100 (v2), and rank 0 of the two
+#: production meshes on the stand-in (v3)
+V_MESHES = ("1x1", "16x16", "2x16x16")
+
+
 def _sweep_cells():
     from repro_torch.configs.base import ARCH_IDS, SHAPES
-    return [(a, s) for a in ARCH_IDS for s in SHAPES]
+    return [(a, s, m) for m in V_MESHES for a in ARCH_IDS for s in SHAPES]
 
 
-def _sweep_status(futures, t0) -> dict:
-    """Every cell's status; a cell that raised is ``FAIL`` with its error."""
+def _sweep_status(futures, t0, mesh: str) -> dict:
+    """Every cell's status on ``mesh``, once all of them are done; a cell
+    that raised is ``FAIL`` with its error."""
     status = {}
-    for (arch, shape), fut in futures.items():
+    for (arch, shape, m), fut in futures.items():
+        if m != mesh:
+            continue
         err = fut.exception()
         status[f"{arch}/{shape}"] = (fut.result()["status"] if err is None else
                                      f"FAIL: {type(err).__name__}: {err}")
     counts = {k: sum(v.startswith(k) for v in status.values())
               for k in ("OK", "SKIP", "FAIL")}
     fails = {c: v for c, v in status.items() if v.startswith("FAIL")}
-    print(f"  v2 dry-run sweep: {len(status)} cells, {counts}, in "
-          f"{time.perf_counter() - t0:.1f} s ({V_WORKERS} processes, beside v1)"
+    seconds = time.perf_counter() - t0
+    print(f"  {'v2' if mesh == '1x1' else 'v3'} dry-run sweep on {mesh}: {len(status)} "
+          f"cells, {counts}, all done {seconds:.1f} s after the sweep started "
+          f"({V_WORKERS} processes, beside v1)"
           + (f"; failed: {fails}" if fails else ""), flush=True)
-    _check(not fails, f"dry-run cells failed: {fails}")
-    return {"counts": counts, "seconds": time.perf_counter() - t0}
+    _check(not fails, f"dry-run cells on {mesh} failed: {fails}")
+    return {"counts": counts, "seconds": seconds}
 
 
-def measure_examples(dev) -> dict:
+def _v3_hold(record: dict) -> dict:
+    """v3: the dry-run's count of s2's OLMo decode step on the abstract 2x2
+    mesh (``meta``, rank 0, the card's kernel choices) beside what s2's
+    rank 0 records on cuda:0: every collective (primitive, kind, result
+    shape and dtype, width, bytes, in order) and the kernel calls and
+    launches, exactly."""
+    from repro_torch.analysis.pallas_lint import VARIANT_KERNELS
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import AbstractMesh
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=MESH_LAYERS,
+                              strum=StruMConfig(), dtype="float32")
+    shape = ShapeSpec("v3_decode", record["cache_len"], record["batch"], "decode")
+    rec = dryrun.count_step(cfg, shape, specs.input_specs(cfg, shape,
+                                                          param_dtype="float32"),
+                            mesh=AbstractMesh((2, 2), ("data", "model")))
+    got, live = rec["collective_records"], record["collectives"]
+    first = next((i for i, (a, b) in enumerate(zip(got, live)) if a != b),
+                 None if len(got) == len(live) else min(len(got), len(live)))
+    _check(first is None, f"v3: the abstract count's collective {first} "
+                          f"{got[first] if first is not None and first < len(got) else None}"
+                          f" vs s2's {live[first] if first is not None and first < len(live) else None}"
+                          f" ({len(got)} vs {len(live)} collectives)")
+    launches = {VARIANT_KERNELS[k]: v for k, v in rec["kernels"].items()}
+    _check(rec["kernels"] == record["kernels"] and launches == record["launches"],
+           f"v3: the abstract count's kernel calls {rec['kernels']} (launches "
+           f"{launches}) vs s2's {record['kernels']} (launches {record['launches']})")
+    coll = rec["collectives"]
+    packed = {m: lower_cell("olmo_1b", "decode_32k", {"strum": StruMConfig()}, "mip2q",
+                            mesh=m) for m in V_MESHES}
+    for m, r in packed.items():
+        print(f"  v3 full-width OLMo-1B decode_32k, mip2q p=0.5 weights, rank 0 of {m}: "
+              f"{r['flops_per_dev']:.6g} FLOPs, {r['bytes_per_dev']:.6g} bytes, "
+              f"{r['link_bytes_per_dev']} link bytes a device, kernels {r['kernels']}, "
+              f"roofline {r['roofline']}", flush=True)
+    print(f"  v3 s2's OLMo-1B decode ({MESH_LAYERS} layers, {record['batch']} slots) "
+          f"on the abstract 2x2 mesh: {len(got)} collectives equal to s2's rank 0 on "
+          f"cuda:0 one by one ({coll['per_kind_count']}, bytes "
+          f"{coll['per_kind_bytes']}, out_gather {coll['out_gather_bytes']} B, link "
+          f"{coll['link_bytes']} B); kernel calls {rec['kernels']} = launches "
+          f"{record['launches']}; count {rec['seconds']:.2f} s on meta", flush=True)
+    return {"collectives": coll, "kernels": rec["kernels"], "launches": record["launches"],
+            "n_collectives": len(got), "count_s": rec["seconds"], "packed_decode": packed}
+
+
+def measure_examples(dev, s2_record=None) -> dict:
     """Phase v, each sub-phase fatal: the example twins at full width (v1),
-    then the dry-run held against the card and the whole dry-run sweep (v2),
-    which runs in worker processes from the start of the phase."""
+    then the dry-run held against the card and the whole dry-run sweep
+    (v2), then the dry-run on the abstract 2x2 mesh held against s2's live
+    ranks (``s2_record``; without it, as ``--only v`` runs, s2's decode
+    step runs alone on 4 gloo ranks first) and the sweeps of the two
+    production meshes (v3).  The sweeps run in worker processes from the
+    start of the phase."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -4555,7 +4676,8 @@ def measure_examples(dev) -> dict:
     with ProcessPoolExecutor(V_WORKERS, mp_context=multiprocessing.get_context("spawn")
                              ) as pool:
         t_sweep = time.perf_counter()
-        futures = {cell: pool.submit(lower_cell, *cell) for cell in _sweep_cells()}
+        futures = {(a, sh, m): pool.submit(lower_cell, a, sh, mesh=m)
+                   for a, sh, m in _sweep_cells()}
         cfg, params = _v_olmo(dev)
         for key, what, run in (
                 ("quickstart", "the 512 x 256 matrix through K1, OLMo-1B packed",
@@ -4582,8 +4704,19 @@ def measure_examples(dev) -> dict:
                      for kind, bs in (("decode", V_DECODE), ("prefill", V_PREFILL))}
         del plan
         torch.cuda.empty_cache()
-        out["v2"]["sweep"] = _sweep_status(futures, t_sweep)
+        out["v2"]["sweep"] = _sweep_status(futures, t_sweep, "1x1")
         out["v2"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        print(f"-- v3 the dry-run on the abstract 2x2 mesh held against s2's gloo "
+              f"ranks, then the 16x16 and 2x16x16 sweeps (t = {t0 - _T0:.1f} s)",
+              flush=True)
+        if s2_record is None:
+            s2_record = _spawn_ranks("s2_decode", 4)[0]
+        out["v3"] = _v3_hold(s2_record)
+        out["v3"]["sweep"] = {m: _sweep_status(futures, t_sweep, m) for m in V_MESHES[1:]}
+        out["v3"]["seconds"] = time.perf_counter() - t0
+        (V_DIR / "dryrun_sweep.json").write_text(json.dumps(
+            [f.result() for f in futures.values()], indent=1))
     return out
 
 
@@ -4598,7 +4731,11 @@ def _examples_report(v, smi) -> None:
           f"{v['train_e2e']['ms_per_step']['median']:.2f} ms a step; dry-run decode "
           f"{d['bound_ms']:.3f} ms bound vs {d['ms']:.3f} ms, prefill {p['bound_ms']:.3f} "
           f"vs {p['ms']:.3f} ms; sweep {v['v2']['sweep']['counts']} in "
-          f"{v['v2']['sweep']['seconds']:.1f} s; sub-phase seconds "
+          f"{v['v2']['sweep']['seconds']:.1f} s; v3 abstract 2x2 = s2 over "
+          f"{v['v3']['n_collectives']} collectives, link {v['v3']['collectives']['link_bytes']}"
+          f" B, K1 {v['v3']['launches']}; sweeps "
+          f"{ {m: (r['counts'], round(r['seconds'], 1)) for m, r in v['v3']['sweep'].items()} }"
+          f"; sub-phase seconds "
           f"{ {k: round(r['seconds'], 1) for k, r in v.items()} }; {smi}", flush=True)
 
 
@@ -4754,7 +4891,7 @@ def measure(dev, clocks):
     _phase("v. the launch tools and examples: the example twins at full width "
            "(quickstart, serve_batch, serve_strum on OLMo-1B, train_e2e on M100), the "
            "dry-run held against the card, the dry-run sweep")
-    times["examples"] = examples = measure_examples(dev)
+    times["examples"] = examples = measure_examples(dev, mesh["s2"]["decode_record"])
     v_launches: dict = {}
     for sub, launched in (("v1_quickstart", examples["quickstart"]["launches"]),
                           ("v1_serve_batch", examples["serve_batch"]["launches"]),

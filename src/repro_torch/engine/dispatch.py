@@ -18,6 +18,10 @@ once per leaf per ``jax.jit`` trace; the eager port counts once per call.
 With ``mesh=`` a 2-D leaf runs through the registry's ``sharded:*`` family
 (:mod:`repro_torch.engine.sharded`): the FSDP all-gather moves the *packed*
 payload, and a per-call ``backend=`` still reaches the post-gather kernel.
+
+``accum_dtype`` (default f32) is the reference's ``preferred_element_type``:
+the plain routes (``KernelVariant.accum``) round their f32 product to it
+before ``out_dtype``; the CUDA kernels ignore it.
 """
 from __future__ import annotations
 
@@ -120,7 +124,7 @@ def _pick(cfg: StruMConfig, info: LeafInfo, spec: Optional[ExecSpec],
 def _sharded_call(wleaf: dict, x: torch.Tensor, cfg: StruMConfig,
                   spec: Optional[ExecSpec], info: LeafInfo, *, mesh,
                   pattern: Optional[str], backend: Optional[str], out_dtype,
-                  rows=None) -> torch.Tensor:
+                  accum_dtype=torch.float32, rows=None) -> torch.Tensor:
     """Select and invoke a ``sharded:*`` variant: the one implementation
     behind the 2-D mesh branch of :func:`dispatch` and the ``fsdp_axes``
     branch of :func:`dispatch_grouped`."""
@@ -131,7 +135,7 @@ def _sharded_call(wleaf: dict, x: torch.Tensor, cfg: StruMConfig,
     kw = {"rows": rows} if variant.grouped else {}
     return variant.fn(wleaf, x, cfg=cfg, mesh=mesh, fsdp=tuple(info.fsdp),
                       pattern=pattern, k_dim=x.shape[-1], backend=eff_backend,
-                      out_dtype=out_dtype, **kw)
+                      out_dtype=out_dtype, accum_dtype=accum_dtype, **kw)
 
 
 def _check_whole(spec: Optional[ExecSpec]) -> None:
@@ -146,7 +150,7 @@ def _check_whole(spec: Optional[ExecSpec]) -> None:
 def dispatch(wleaf: dict, x: torch.Tensor, *,
              strum: Optional[StruMConfig] = None,
              backend: Optional[str] = None, out_dtype=None,
-             mesh=None, tp_mesh=None,
+             accum_dtype=torch.float32, mesh=None, tp_mesh=None,
              tp_pattern: Optional[str] = None) -> torch.Tensor:
     """y = x @ dequant(leaf) through the leaf's selected kernel variant.
 
@@ -179,7 +183,7 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
                 "dispatch_grouped(..., fsdp_axes=..., mesh=...) from within the "
                 "body, not dispatch(mesh=...)")
         return dispatch_grouped(wleaf, x, strum=strum, backend=backend,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype, accum_dtype=accum_dtype)
     if mesh is not None:
         if pattern is None:
             raise ValueError(
@@ -195,21 +199,23 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
                             fsdp=fsdp, tp_pattern=pattern)
             return _sharded_call(wleaf, x, cfg, spec, info, mesh=mesh,
                                  pattern=pattern, backend=backend,
-                                 out_dtype=out_dtype)
+                                 out_dtype=out_dtype, accum_dtype=accum_dtype)
     _check_whole(spec)
     info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1])
     variant = _pick(cfg, info, spec, backend, x.device)
     _note_dispatch(variant, wleaf)
     packed = _as_packed(wleaf, cfg, k_dim)
     lead = tuple(x.shape[:-1])
-    y = variant.fn(x.reshape(-1, k_dim), packed, out_dtype=out_dtype)
+    y = variant.fn(x.reshape(-1, k_dim), packed, out_dtype=out_dtype,
+                   **({"accum_dtype": accum_dtype} if variant.accum else {}))
     return y.reshape(lead + (y.shape[-1],))
 
 
 def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
                      strum: Optional[StruMConfig] = None,
                      backend: Optional[str] = None, out_dtype=None,
-                     fsdp_axes=None, mesh=None, rows=None) -> torch.Tensor:
+                     accum_dtype=torch.float32, fsdp_axes=None, mesh=None,
+                     rows=None, device=None) -> torch.Tensor:
     """Batched y[..., c, n] = x[..., c, :] @ dequant(leaf[...]) for stacks.
 
     ``x``: (lead..., C, K), ``lead`` the leaf's stack dims -- e.g. MoE expert
@@ -228,11 +234,14 @@ def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
     of ``mesh``: selection then goes to the ``sharded:*`` family, and
     ``sharded:grouped_gather`` all-gathers the *packed* stack and
     re-dispatches here on the gathered form with the same backend.
+    ``device`` is the device ``backend=None`` selects for (default x's:
+    the dry-run's ``meta`` tensors pass the device they stand for).
     """
     cfg, spec = leaf_spec(wleaf, strum)
     lead_dims = wleaf["mask"].dim() - 3
     if lead_dims == 0:
-        return dispatch(wleaf, x, strum=strum, backend=backend, out_dtype=out_dtype)
+        return dispatch(wleaf, x, strum=strum, backend=backend, out_dtype=out_dtype,
+                        accum_dtype=accum_dtype)
     lead = tuple(wleaf["mask"].shape[:lead_dims])
     if x.dim() != lead_dims + 2 or tuple(x.shape[:lead_dims]) != lead:
         raise ValueError(
@@ -249,17 +258,19 @@ def dispatch_grouped(wleaf: dict, x: torch.Tensor, *,
         info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1], lead=lead,
                         fsdp=tuple(fsdp_axes))
         return _sharded_call(wleaf, x, cfg, spec, info, mesh=mesh, pattern=None,
-                             backend=backend, out_dtype=out_dtype, rows=rows)
+                             backend=backend, out_dtype=out_dtype,
+                             accum_dtype=accum_dtype, rows=rows)
     _check_k(spec, k_dim)
     _check_whole(spec)
     info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1], lead=lead)
-    variant = _pick(cfg, info, spec, backend, x.device)
+    variant = _pick(cfg, info, spec, backend, x.device if device is None else device)
     _note_dispatch(variant, wleaf)
     if variant.grouped:
         return variant.fn(x, _as_packed(wleaf, cfg, k_dim), out_dtype=out_dtype,
                           rows=rows)
     wd = dequant_leaf(wleaf, x.dtype, cfg=cfg, k_dim=k_dim)
-    return torch.matmul(x.to(torch.float32), wd.to(torch.float32)).to(out_dtype)
+    return torch.matmul(x.to(torch.float32), wd.to(torch.float32)).to(
+        accum_dtype).to(out_dtype)
 
 
 def apply(plan, name: str, x: torch.Tensor, *, backend: Optional[str] = None,

@@ -47,7 +47,7 @@ from repro_torch.engine import sharded as _sharded  # registers sharded:*; layou
 from repro_torch.engine import variants as _variants  # noqa: F401  (registration)
 from repro_torch.engine.registry import ExecSpec, LeafInfo, ShardSpec, select_variant
 from repro_torch.models.sharding import (axis_names, axis_sizes, fsdp_axes,
-                                         rules_for_mesh, shard_slice)
+                                         rules_for_mesh)
 
 __all__ = ["PlanEntry", "ExecutionPlan", "build_plan", "fake_quantize"]
 
@@ -275,12 +275,7 @@ def build_plan(params: Any, *, schedule: Any = None,
                       layout=layout, shard=shard)
         if packed_leaf is not None:
             if shard is not None:     # keep this rank's block of the payload
-                scan = packed_leaf["mask"].dim() - 3 - bool(exec_lead)
-                specs = _sharded.payload_specs(shard.tp_pattern, fsdp,
-                                               None if exec_lead else tp,
-                                               shard.lead_axis, scan)
-                for k, sp in specs.items():
-                    packed_leaf[k] = shard_slice(packed_leaf[k], sp, mesh)
+                packed_leaf.update(_sharded.cut_payload(packed_leaf, shard, mesh))
             packed_leaf["cfg"] = leaf_cfg
             packed_leaf["spec"] = e.spec
         entries[name] = e

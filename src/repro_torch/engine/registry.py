@@ -99,6 +99,11 @@ class KernelVariant:
     ``redispatch=True`` marks a variant whose landing under another family
     is no datapath substitution (it re-selects with the caller's backend
     inside), so the cross-family fallback onto it does not warn.
+    ``accum=True`` marks a plain route whose ``fn`` also takes
+    ``accum_dtype``, the dtype its f32 product is rounded to before
+    ``out_dtype`` (the reference's ``preferred_element_type``).  The CUDA
+    kernels and the oracle take none and accumulate in f32, as the
+    reference's Pallas variants ignore the argument.
     """
 
     name: str
@@ -113,6 +118,7 @@ class KernelVariant:
     cache: bool = False
     attn: bool = False
     draft: bool = False
+    accum: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +163,7 @@ def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
                     priority: int = 0, description: str = "",
                     grouped: bool = False, sharded: bool = False,
                     redispatch: bool = False, cache: bool = False,
-                    attn: bool = False, draft: bool = False):
+                    attn: bool = False, draft: bool = False, accum: bool = False):
     """Decorator: register ``fn`` as kernel variant ``name`` (latest wins)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
@@ -170,7 +176,7 @@ def register_kernel(name: str, *, supports: Callable, family: str = "cuda",
             name=name, fn=fn, supports=supports, family=family,
             priority=priority, description=description, grouped=grouped,
             sharded=sharded, redispatch=redispatch, cache=cache, attn=attn,
-            draft=draft)
+            draft=draft, accum=accum)
         return fn
     return deco
 

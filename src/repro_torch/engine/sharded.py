@@ -37,6 +37,11 @@ reference:
 On a CPU tensor the post-gather selection resolves the ``cuda`` family to
 the ``torch`` family, the CPU's plain path; on the card it keeps the
 caller's backend, so a per-call ``backend=`` reaches the post-gather kernel.
+The dry-run's ``meta`` tensors on an abstract mesh select as on the device
+the mesh stands for (``AbstractMesh.target``).  ``accum_dtype`` reaches the
+plain routes (``gather_dequant``'s product, which its collectives then
+carry, and a plain post-gather variant), as in the reference; the kernels
+ignore it.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ from repro_torch.engine.registry import (LeafInfo, list_variants, register_kerne
 from repro_torch.models import sharding as shd
 
 __all__ = ["gather_dequant_leaf", "tp_pattern_for", "dense_gather_bytes",
-           "payload_specs", "local_payload"]
+           "payload_specs", "cut_payload", "local_payload"]
 
 FIELDS = ("mask", "hi", "lo")
 _ROW_NAMES = ("wo", "out_proj")
@@ -99,6 +104,17 @@ def payload_specs(pattern: Optional[str], fsdp: tuple, tp: Optional[str],
             "lo": shd.P(*lead, *spec), "scale": shd.P(*lead, *scale)}
 
 
+def cut_payload(fields: dict, shard, mesh) -> dict:
+    """This rank's block of a whole packed leaf's fields under a mesh-aware
+    plan's ``ShardSpec`` (an expert stack has no TP pattern; leading
+    stacked-layer dims stay whole): what ``build_plan(mesh=)`` keeps."""
+    stack = shard.tp_pattern is None
+    tp = None if stack or "model" not in shd.axis_names(mesh) else "model"
+    specs = payload_specs(shard.tp_pattern, shard.fsdp_axes, tp, shard.lead_axis,
+                          fields["mask"].dim() - 3 - stack)
+    return {k: shd.shard_slice(fields[k], sp, mesh) for k, sp in specs.items()}
+
+
 def local_payload(wleaf: dict, specs: dict, mesh) -> dict:
     """This rank's block of the payload fields: a leaf from a mesh-aware
     plan holds it already (its ``ShardSpec`` names the mesh shape it was cut
@@ -128,6 +144,14 @@ def _gather_fields(f: dict, pattern: str, fsdp: tuple, mesh) -> dict:
     out = {k: shd.all_gather(f[k], mesh, fsdp, 0 if col else 2) for k in FIELDS}
     out["scale"] = f["scale"] if col else shd.all_gather(f["scale"], mesh, fsdp, 1)
     return out
+
+
+def _target(x: torch.Tensor, mesh) -> torch.device:
+    """The device the post-gather kernel is selected for: ``x``'s, or the
+    one an abstract mesh's ``meta`` tensors stand for."""
+    if x.device.type == "meta" and getattr(mesh, "abstract", False):
+        return torch.device(mesh.target)
+    return x.device
 
 
 def _post_gather_backend(backend: Optional[str], device) -> Optional[str]:
@@ -169,17 +193,17 @@ def gather_dequant_leaf(wleaf: dict, scfg: StruMConfig, mesh, pattern: str,
     description="all-gather packed payloads along the FSDP axes, dequantize "
                 "this rank's block, f32 matmul (portable distributed path)")
 def _gather_dequant(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
-                    out_dtype=None):
+                    out_dtype=None, accum_dtype=torch.float32):
     out_dtype = out_dtype or x.dtype
     tp = _tp_axis(mesh)
     wd = _local_dense(wleaf, cfg, mesh, pattern, fsdp, x.dtype).to(torch.float32)
     xf = x.to(torch.float32)
     if pattern == "col":
-        y = shd.gather_out(xf @ wd[:k_dim], mesh, tp, -1)
+        y = shd.gather_out((xf @ wd[:k_dim]).to(accum_dtype), mesh, tp, -1)
     else:
         xk = xf.chunk(shd.axis_size(mesh, tp), dim=-1)[shd.axis_index(mesh, tp)] \
             if tp else xf
-        y = shd.all_reduce(xk @ wd[:xk.shape[-1]], mesh, tp)
+        y = shd.all_reduce((xk @ wd[:xk.shape[-1]]).to(accum_dtype), mesh, tp)
     return y.to(out_dtype)
 
 
@@ -199,7 +223,7 @@ def _post_gather_expressible(cfg: StruMConfig, info: LeafInfo) -> bool:
     description="all-gather the packed payloads along the FSDP axes, then run "
                 "the registry-selected 2-D kernel on the gathered payload")
 def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
-                   out_dtype=None):
+                   out_dtype=None, accum_dtype=torch.float32):
     tp = _tp_axis(mesh)
     col = pattern == "col"
     out_dtype = out_dtype or x.dtype
@@ -217,10 +241,11 @@ def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
     k_local = x_l.shape[-1]
     n_global = f["scale"].shape[-1] * (shd.axis_size(mesh, tp) if col else 1)
     # the post-gather kernel: the same registry, the caller's backend
+    dev = _target(x, mesh)
     inner = select_variant(cfg, LeafInfo(k_dim=k_dim, n_out=n_global),
-                           backend=_post_gather_backend(backend, x.device),
-                           device=x.device)
-    y = inner.fn(x_l, _packed(cfg, k_local, f), out_dtype=torch.float32)
+                           backend=_post_gather_backend(backend, dev), device=dev)
+    y = inner.fn(x_l, _packed(cfg, k_local, f), out_dtype=torch.float32,
+                 **({"accum_dtype": accum_dtype} if inner.accum else {}))
     if not col:
         y = shd.all_reduce(y, mesh, tp)              # row-parallel K-partials
     y = shd.gather_out(y, mesh, tp, 1) if col else y
@@ -235,16 +260,19 @@ def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
     description="inside the MoE body: all-gather the packed expert stack "
                 "along the FSDP axes, then re-dispatch to the grouped family")
 def _grouped_gather(wleaf, x, *, cfg, mesh, fsdp, pattern=None, k_dim=None,
-                    backend=None, out_dtype=None, rows=None):
+                    backend=None, out_dtype=None, accum_dtype=torch.float32,
+                    rows=None):
     # the FSDP shard dim is the packed block axis nb, ndim-3 of every field
     # (lead..., nb, rows, N); scales are per output channel and stay local
     gathered = {k: shd.all_gather(wleaf[k], mesh, fsdp, wleaf[k].dim() - 3)
                 for k in FIELDS}
     gathered["scale"] = wleaf["scale"]
     from repro_torch.engine.dispatch import dispatch_grouped
+    dev = _target(x, mesh)
     return dispatch_grouped(gathered, x, strum=cfg,
-                            backend=_post_gather_backend(backend, x.device),
-                            out_dtype=out_dtype, rows=rows)
+                            backend=_post_gather_backend(backend, dev),
+                            out_dtype=out_dtype, accum_dtype=accum_dtype,
+                            rows=rows, device=dev)
 
 
 # --------------------------------------------------- collective accounting --

@@ -18,7 +18,10 @@
   ref:torch       the plain oracle (``kernels.ref``)
 
 A ``cuda:*`` variant handed CPU tensors raises: the plan or the call chose
-the card, and quietly running elsewhere would hide that.
+the card, and quietly running elsewhere would hide that.  The plain routes
+(``torch:dequant`` and the ``draft:torch_*`` twins) take ``accum_dtype``;
+the kernels, like the reference's Pallas variants, ignore it and
+accumulate in f32.
 """
 from __future__ import annotations
 
@@ -144,36 +147,36 @@ def _draft_maskfree_p(x2, packed, *, out_dtype=None):
 
 
 def _draft_torch(mode):
-    def fn(x2, packed, *, out_dtype=None):
+    def fn(x2, packed, *, out_dtype=None, accum_dtype=torch.float32):
         out_dtype = out_dtype or x2.dtype
         wd = draft_dequant_packed(packed, mode, x2.dtype)
-        return (x2.to(torch.float32) @ wd.to(torch.float32)).to(out_dtype)
+        return (x2.to(torch.float32) @ wd.to(torch.float32)).to(accum_dtype).to(out_dtype)
     return fn
 
 
 register_kernel(
-    "draft:torch_histream", family="torch", priority=0, draft=True,
+    "draft:torch_histream", family="torch", priority=0, draft=True, accum=True,
     supports=_histream_ok,
     description="draft fallback: mask + hi decode + torch.matmul, lo never "
                 "read")(_draft_torch("histream"))
 
 register_kernel(
-    "draft:torch_maskfree_p", family="torch", priority=0, draft=True,
+    "draft:torch_maskfree_p", family="torch", priority=0, draft=True, accum=True,
     supports=_draft_mode("maskfree_p"),
     description="draft fallback: hi-only decode + torch.matmul, mask and lo "
                 "never read")(_draft_torch("maskfree_p"))
 
 
 @register_kernel(
-    "torch:dequant", family="torch", priority=0,
+    "torch:dequant", family="torch", priority=0, accum=True,
     supports=lambda cfg, info: True,
     description="dequantize to dense, torch.matmul in f32 (portable fallback)")
-def _dequant(x2, packed, *, out_dtype=None):
+def _dequant(x2, packed, *, out_dtype=None, accum_dtype=torch.float32):
     # weights rounded to x's dtype, as the reference dequantizes to x.dtype;
-    # the product accumulates in f32 (its preferred_element_type)
+    # the f32 product rounded to accum_dtype (its preferred_element_type)
     out_dtype = out_dtype or x2.dtype
     wd = packing.dequantize(packed, x2.dtype)
-    return (x2.to(torch.float32) @ wd.to(torch.float32)).to(out_dtype)
+    return (x2.to(torch.float32) @ wd.to(torch.float32)).to(accum_dtype).to(out_dtype)
 
 
 @register_kernel(

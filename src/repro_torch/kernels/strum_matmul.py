@@ -8,6 +8,9 @@ twins K6-K8, the draft kernels K9-K10, and their plain PyTorch versions.
 ``strum_matmul_pallas``, ``strum_matmul_pallas_maskfree`` and
 ``strum_matmul_pallas_dense`` of ``repro/kernels/strum_matmul.py``; the CUDA
 source, with its design and what bounds it, is ``csrc/strum_matmul.cu``.
+Every kernel here accumulates in f32 and takes no ``accum_dtype``: as the
+reference's Pallas variants ignore ``cfg.accum_dtype``, only the plain
+routes of ``engine`` round their products to it.
 
 ``strum_matmul_grouped_{onehot,maskfree,dense}`` (K6, K7, K8) compute
 ``y(G, M, N) f32 = x(G, M, K) @ dequant(W[g])`` for every group ``g`` of a

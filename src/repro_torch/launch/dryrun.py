@@ -1,11 +1,12 @@
-"""Dry-run of every (arch x shape) cell on one H100 (twin of
-``repro.launch.dryrun``).
+"""Dry-run of every (arch x shape) cell on one H100, or on one rank of a
+16x16 or 2x16x16 mesh of them (twin of ``repro.launch.dryrun``).
 
 The reference lowers and compiles each cell's jitted step on 512 forced
-host devices and reads XLA's ``cost_analysis`` / ``memory_analysis``.  The
-port has no compiler to ask, so it *runs* the cell's step once on the
-``meta`` tensors of :func:`repro_torch.launch.specs.input_specs`: shapes and
-dtypes flow through every ATen op, nothing is allocated or computed, and a
+host devices and reads XLA's ``cost_analysis`` / ``memory_analysis`` and
+the collectives of the partitioned HLO.  The port has no compiler to ask,
+so it *runs* the cell's step once on the ``meta`` tensors of
+:func:`repro_torch.launch.specs.input_specs`: shapes and dtypes flow
+through every ATen op, nothing is allocated or computed, and a
 :class:`Counter` (a ``TorchDispatchMode`` and the ``kernels.hooks`` slot)
 counts what the step does:
 
@@ -24,26 +25,52 @@ counts what the step does:
   On any other device the wrapper itself runs, uncounted, as the dataflow
   tracer runs it (the kernel on the card, its plain version on the CPU);
   a call that mixes ``meta`` with other tensors is refused;
+* collectives (:meth:`Counter.collective`, the slot every collective of
+  ``models.sharding`` reports to): kind, count and the result's bytes per
+  device, in the reference's accounting (:func:`collective_bytes`);
 * memory: ``argument_bytes`` (the input trees), ``output_bytes`` (the
   step's outputs) and ``temp_bytes``, the peak of live bytes above the
   arguments, tracked per storage with ``weakref.finalize``.
 
+On a mesh (``lower_cell(..., mesh="16x16" | "2x16x16")``) the step is the
+port's mesh step (``mesh=`` / ``rules=``) on the :class:`AbstractMesh` of
+``launch.mesh.make_production_mesh(device="meta")``: no process group,
+rank 0's coordinate, the card's kernel choices.  Its collectives build
+their results' shapes alone, and each input is the block rank 0 holds.
+That is what the port holds, which differs from the reference's GSPMD
+specs (``launch.specs.input_shardings``), and the record's ``note`` says
+so: dense leaves, activations and the decode caches are global on every
+rank (dense compute is replicated, ``models.sharding``); packed leaves are
+the rank's block of a mesh-aware plan (``build_plan(mesh=)``); a train
+step's parameters and AdamW moments are its ZeRO-3 shards and its batch is
+global (the step takes its rows itself).  The port's ``out_gather`` (the
+re-assembly of a result to global) moves bytes on the wire, so it counts
+as an all-gather; it is also recorded alone (``out_gather_bytes``), since
+the reference's ``out_specs`` are no collective.
+
 Costs are counted at depth ``period(cfg)``, twice that (and, for a train
 step, three times) and extrapolated to the config's depth
-(:func:`extrapolated_costs`), exactly; the roofline uses the H100's published peaks
-(:mod:`repro_torch.hardware`).  One H100 moves no collective bytes, so the
-``collectives`` record is empty and ``collective_s`` is 0.
+(:func:`extrapolated_costs`), exactly, collectives included; the roofline
+uses the H100's published peaks (:mod:`repro_torch.hardware`).  One H100
+moves no collective bytes, so its ``collectives`` record is empty and its
+``collective_s`` is 0.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
+        [--multi-pod | --both-meshes] [--accum-dtype bfloat16]
+        [--attn-constraint]
 
-needs no card.  The reference's ``--multi-pod`` / ``--both-meshes`` are left
-out: the port's collectives run real process groups and its dense compute is
-replicated on every rank (``models/sharding.py``), so a 16x16 or 2x16x16
-dry-run needs a collective stand-in the port does not have.  So are
-``--accum-dtype`` and ``--attn-constraint``: the port reads no
-``cfg.accum_dtype``, and ``cfg.attn_heads_constraint`` acts only under a
-mesh's rules, which the 1x1 dry-run has none of; either flag would record a
-variant whose counts are the baseline's.
+needs no card.  With neither ``--multi-pod`` nor ``--both-meshes`` a cell
+is counted on one H100 (mesh ``1x1``), where the reference's default is
+16x16; ``--multi-pod`` gives 2x16x16 and ``--both-meshes`` both production
+meshes.  ``--accum-dtype`` sets ``cfg.accum_dtype``: the dense products and
+the plain routes round their f32 products to it; the CUDA kernels ignore
+it, as the reference's Pallas variants do, and the card's post-gather
+partial sums stay f32 (as the reference's ``gather_pallas`` sums), so its
+collectives and kernel calls are the baseline's and only the dense
+products' rounding adds ATen work.  ``--attn-constraint``
+sets ``cfg.attn_heads_constraint``, which acts through the checked
+``constrain`` of ``models.attention`` and moves nothing: its counts equal
+the baseline's, where the reference's GSPMD reshards the heads.
 """
 from __future__ import annotations
 
@@ -69,14 +96,17 @@ from repro_torch import hardware
 from repro_torch.configs.base import ARCH_IDS, SHAPES, get_config
 from repro_torch.core.apply import map_named
 from repro_torch.kernels import hooks
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import input_specs
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
+from repro_torch.models.sharding import rules_for_mesh
 from repro_torch.models.transformer import period
-from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.adamw import AdamWConfig, OptState
 
 __all__ = ["Counter", "count_step", "extrapolated_costs", "compute_s",
-           "roofline_terms", "model_flops", "lower_cell", "main"]
+           "collective_bytes", "roofline_terms", "model_flops",
+           "lower_cell", "MESHES", "main"]
 
 #: kernels whose work is a product of x (M, K) with a packed (K, N) weight
 MATMULS = ("cuda:onehot", "cuda:maskfree", "cuda:dense", "cuda:grouped",
@@ -84,6 +114,11 @@ MATMULS = ("cuda:onehot", "cuda:maskfree", "cuda:dense", "cuda:grouped",
            "draft:maskfree_p")
 COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                     "collective-permute")
+#: ``models.sharding``'s collectives as the reference's HLO names them
+KIND_OF = {"all_gather": "all-gather", "psum": "all-reduce",
+           "out_gather": "all-gather"}
+#: the mesh names of a record -> ``make_production_mesh``'s ``multi_pod``
+MESHES = {"16x16": False, "2x16x16": True}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -112,6 +147,7 @@ class Counter(TorchDispatchMode):
         self.kernel_flops = _Tally()   # str(x dtype) -> FLOPs of kernel calls
         self.kernel_bytes = 0
         self.live = self.peak = 0      # bytes of tensors made during the run
+        self.collectives: list = []    # one dict per collective call
         self._seen: set = set()
         self._muted = 0
 
@@ -189,6 +225,32 @@ class Counter(TorchDispatchMode):
             self.kernel_flops[str(x.dtype)] += 2 * x.numel() * bound["scale"].shape[-1]
         return out
 
+    def collective(self, primitive: str, x: torch.Tensor, width: int,
+                   out: torch.Tensor) -> None:
+        """One collective of ``models.sharding`` over ``width`` ranks: its
+        kind (:data:`KIND_OF`) and its result's bytes on this device, as
+        the reference's ``collective_bytes`` reads the partitioned HLO.  A
+        group of one rank moves nothing and is not recorded."""
+        if width <= 1:
+            return
+        self.collectives.append({"primitive": primitive, "kind": KIND_OF[primitive],
+                                 "shape": tuple(out.shape), "dtype": str(out.dtype),
+                                 "width": width, "bytes": _nbytes(out)})
+
+
+def collective_bytes(records) -> dict:
+    """Twin of the reference's ``collective_bytes`` over :class:`Counter`
+    records (``kind``, ``bytes``): the result bytes and the count per kind,
+    and the ring model's ``link_bytes`` (an all-reduce is a reduce-scatter
+    and an all-gather, so twice its bytes; every other kind once)."""
+    sums = dict.fromkeys(COLLECTIVE_KINDS, 0)
+    counts = dict.fromkeys(COLLECTIVE_KINDS, 0)
+    for r in records:
+        sums[r["kind"]] += r["bytes"]
+        counts[r["kind"]] += 1
+    link = 2 * sums["all-reduce"] + sum(v for k, v in sums.items() if k != "all-reduce")
+    return {"per_kind_bytes": sums, "per_kind_count": counts, "link_bytes": link}
+
 
 def compute_s(flops_by_dtype: dict) -> float:
     """FLOPs over the H100's peak for their dtype (bf16 at the tensor cores'
@@ -197,41 +259,75 @@ def compute_s(flops_by_dtype: dict) -> float:
                for dt, f in flops_by_dtype.items())
 
 
-def _step_for(cfg, kind: str):
+def _step_for(cfg, kind: str, mesh=None, rules=None):
     if kind == "train":
-        return make_train_step(cfg, AdamWConfig())
+        return make_train_step(cfg, AdamWConfig(), mesh=mesh, rules=rules)
     if kind == "prefill":
-        return make_prefill_step(cfg)
-    return make_decode_step(cfg)
+        return make_prefill_step(cfg, mesh=mesh, rules=rules)
+    return make_decode_step(cfg, mesh=mesh, rules=rules)
 
 
-def _card_plan(params, cfg):
+def _card_plan(params, cfg, mesh=None, rules=None):
     """Give every packed leaf of a ``packed_model_defs`` stand-in tree the
     ``cfg`` and ``spec`` that ``engine.build_plan`` records on the card, so
-    each linear dispatches to the ``cuda`` kernel the card would run."""
+    each linear dispatches to the ``cuda`` kernel the card would run; with
+    ``mesh`` the plan is mesh-aware and each leaf is cut, as ``build_plan``
+    cuts it, to the block this rank holds."""
     from repro_torch.engine import build_plan
+    from repro_torch.engine.sharded import cut_payload
     from repro_torch.models import model_defs
     from repro_torch.models.params import abstract_params
     plan = build_plan(abstract_params(model_defs(cfg)), cfg=cfg.strum, backend="cuda",
-                      pack=False, device="meta")
+                      pack=False, mesh=mesh, rules=rules, device="meta")
 
     def attach(name, leaf):
         e = plan.entries.get(name)
-        if e is not None:
-            leaf = dict(leaf, cfg=e.cfg, spec=e.spec)
+        if e is None:
+            return leaf
+        leaf = dict(leaf, cfg=e.cfg, spec=e.spec)
+        if e.shard is not None:
+            leaf.update(cut_payload(leaf, e.shard, mesh))
         return leaf
     return map_named(attach, params, is_leaf=lambda x: isinstance(x, dict) and "mask" in x)
 
 
-def count_step(cfg, shape, inputs=None) -> dict:
+def _rank_inputs(cfg, shape, inputs, mesh, rules):
+    """The inputs rank 0 of ``mesh`` holds: packed serving leaves as the
+    card's (mesh-aware) plan cuts them, a train step's parameters and
+    moments as its ZeRO-3 shards; everything else global."""
+    if cfg.strum is not None and shape.kind != "train":
+        return (_card_plan(inputs[0], cfg, mesh, rules),) + tuple(inputs[1:])
+    if mesh is not None and shape.kind == "train":
+        from repro_torch.models import model_defs
+        from repro_torch.models.params import shard_params
+        defs = model_defs(cfg)
+        params, opt, batch = inputs
+        cut = lambda t: shard_params(t, defs, mesh, rules, device="meta")  # noqa: E731
+        return cut(params), OptState(opt.step, cut(opt.m), cut(opt.v)), batch
+    return inputs
+
+
+def count_step(cfg, shape, inputs=None, mesh=None, rules=None) -> dict:
     """Run ``shape``'s step of ``cfg`` once on ``inputs`` (by default the
     ``meta`` trees of ``input_specs(cfg, shape)``) under a
-    :class:`Counter`; returns the counts and the memory record."""
+    :class:`Counter`; returns the counts, the collectives in the order
+    they ran (``collective_records``) and the memory record.  With
+    ``mesh`` (a ``DeviceMesh``, or an ``AbstractMesh`` for ``meta``
+    inputs) the step is the port's mesh step under ``rules`` (default
+    ``rules_for_mesh(mesh, shape.global_batch)``), each input cut to the
+    block this rank holds (the module docstring), and the collectives are
+    counted."""
     if inputs is None:
         inputs = input_specs(cfg, shape)
-    if cfg.strum is not None and shape.kind != "train":
-        inputs = (_card_plan(inputs[0], cfg),) + tuple(inputs[1:])
-    step = _step_for(cfg, shape.kind)
+    if mesh is not None:
+        rules = rules or rules_for_mesh(mesh, shape.global_batch)
+        if getattr(mesh, "abstract", False):
+            off = {t.device.type for t in _tensors(inputs)} - {"meta"}
+            if off:
+                raise ValueError(f"count_step: {mesh!r} takes meta inputs only; "
+                                 f"got tensors on {sorted(off)}")
+    inputs = _rank_inputs(cfg, shape, inputs, mesh, rules)
+    step = _step_for(cfg, shape.kind, mesh, rules)
     counter = Counter()
     args_bytes = counter.hold(inputs)
     held = {t.untyped_storage()._cdata for t in _tensors(inputs)}
@@ -241,36 +337,41 @@ def count_step(cfg, shape, inputs=None) -> dict:
     out_bytes = sum(map(_nbytes, outs))
     alias_bytes = sum(_nbytes(t) for t in outs if t.untyped_storage()._cdata in held)
     del outs
+    coll = collective_bytes(counter.collectives)
+    coll["out_gather_bytes"] = sum(r["bytes"] for r in counter.collectives
+                                   if r["primitive"] == "out_gather")
     return {"flops": sum((counter.flops + counter.kernel_flops).values()),
             "flops_by_dtype": dict(counter.flops + counter.kernel_flops),
             "kernel_flops": sum(counter.kernel_flops.values()),
             "aten_bytes": counter.bytes, "kernel_bytes": counter.kernel_bytes,
             "bytes": counter.bytes + counter.kernel_bytes,
-            "kernels": dict(counter.kernels),
+            "kernels": dict(counter.kernels), "collectives": coll,
+            "collective_records": counter.collectives,
             "memory": {"argument_bytes": args_bytes, "output_bytes": out_bytes,
                        "temp_bytes": counter.peak, "alias_bytes": alias_bytes},
             "seconds": time.perf_counter() - t0}
 
 
-def _extrapolate(counts: list, groups: int) -> dict:
-    """Newton's forward differences of records counted at 1, 2, ... groups,
-    evaluated at ``groups``: sum_j C(groups - 1, j) * delta^j (exact for
-    counts polynomial in the depth of degree below ``len(counts)``)."""
+def _extrapolate(counts: list, groups: int, first: int = 1) -> dict:
+    """Newton's forward differences of records counted at ``first``,
+    ``first + 1``, ... groups, evaluated at ``groups``: sum_j C(groups -
+    first, j) * delta^j (exact for counts polynomial in the depth, from
+    ``first`` groups on, of degree below ``len(counts)``)."""
     out = {}
     for k in dict.fromkeys(key for c in counts for key in c):
         vals = [c.get(k, 0) for c in counts]
         if any(isinstance(v, dict) for v in vals):
-            out[k] = _extrapolate([v or {} for v in vals], groups)
+            out[k] = _extrapolate([v or {} for v in vals], groups, first)
             continue
         total, diffs = 0, vals
         for j in range(len(vals)):
-            total += math.comb(groups - 1, j) * diffs[0]
+            total += math.comb(groups - first, j) * diffs[0]
             diffs = [b - a for a, b in zip(diffs, diffs[1:])]
         out[k] = total
     return out
 
 
-def extrapolated_costs(cfg, shape) -> dict:
+def extrapolated_costs(cfg, shape, mesh=None, rules=None) -> dict:
     """Counts of the full-depth step from runs at depths P = ``period(cfg)``,
     2P and, for a train step, 3P, extrapolated to ``cfg.n_layers`` (the
     reference does this because ``cost_analysis`` counts a ``scan`` body
@@ -279,21 +380,34 @@ def extrapolated_costs(cfg, shape) -> dict:
     group's slice of a stacked weight is a zero-filled tensor of the whole
     stack (``select_backward``) added into its gradient.  Both are counted
     exactly; ``temp_bytes``, a peak, is extrapolated the same way and is not
-    exact."""
+    exact.  On a mesh the collectives of a layer group are the same in
+    every group, so they are extrapolated with the rest; a ZeRO-3 train
+    step's autograd clones more bytes at one group than the quadratic
+    through two, three and four gives (an MoE config), so on a mesh a train
+    step of two groups or more is counted at 2P, 3P and 4P."""
     p = period(cfg)
-    runs = [count_step(dataclasses.replace(cfg, n_layers=k * p), shape)
-            for k in range(1, 4 if shape.kind == "train" else 3)]
+    groups = cfg.n_layers // p
+    first = 2 if mesh is not None and shape.kind == "train" and groups >= 2 else 1
+    runs = [count_step(dataclasses.replace(cfg, n_layers=k * p), shape, mesh=mesh,
+                       rules=rules)
+            for k in range(first, first + (3 if shape.kind == "train" else 2))]
     for r in runs:
         r.pop("seconds")
-    return _extrapolate(runs, cfg.n_layers // p)
+        r.pop("collective_records")
+    return _extrapolate(runs, groups, first)
 
 
-def roofline_terms(t_c: float, bytes_per_dev: float,
-                   link_bytes_per_dev: float) -> dict:
-    """The three least times (compute ``t_c``, HBM bytes, NVLink bytes) and
-    the largest one's name."""
+def roofline_terms(t_c: float, bytes_per_dev: float, link_bytes_per_dev: float,
+                   n_devices: int = 1) -> dict:
+    """The three least times (compute ``t_c``, HBM bytes, link bytes) and
+    the largest one's name.  Link bytes cross NVLink within one node of 8
+    H100s; on a larger mesh (16x16, 2x16x16) every axis of 16 spans nodes,
+    so its groups run at the inter-node rate, one 400 Gb/s port per card
+    (``hardware``)."""
     t_m = bytes_per_dev / hardware.HBM_BYTES_PER_S
-    t_x = link_bytes_per_dev / hardware.NVLINK_BYTES_PER_S
+    link = hardware.NVLINK_BYTES_PER_S if n_devices <= hardware.CARDS_PER_NODE \
+        else hardware.INTERNODE_BYTES_PER_S
+    t_x = link_bytes_per_dev / link
     dom = max(("compute", t_c), ("memory", t_m), ("collective", t_x),
               key=lambda kv: kv[1])[0]
     return {"compute_s": t_c, "memory_s": t_m, "collective_s": t_x,
@@ -307,38 +421,59 @@ def model_flops(cfg, shape) -> float:
     return (6.0 if shape.kind == "train" else 2.0) * cfg.active_param_count() * tokens
 
 
+#: the record's ``note`` on a mesh: where the port's per-rank inputs
+#: differ from the reference's GSPMD specs
+MESH_NOTE = ("rank 0 of the port's mesh step: dense weights, activations and "
+             "decode caches global on every rank (dense compute replicated), "
+             "packed weights the rank's block of a mesh-aware plan, train "
+             "parameters and moments ZeRO-3 shards with the batch global; the "
+             "reference's specs shard dense weights, activations and caches "
+             "too. out_gather re-assembles results to global and counts as an "
+             "all-gather")
+
+
 def lower_cell(arch: str, shape_name: str, overrides: Optional[dict] = None,
-               variant: str = "baseline") -> dict:
-    """The record of one cell on one H100 (mesh ``1x1``); the reference's
-    keys wherever the quantity is the same (``trace_s`` in place of
-    ``lower_s`` / ``compile_s``: the two ``meta`` runs' host seconds)."""
+               variant: str = "baseline", *, mesh: str = "1x1") -> dict:
+    """The record of one cell on one H100 (``mesh="1x1"``) or on rank 0 of
+    a ``"16x16"`` / ``"2x16x16"`` mesh of them; the reference's keys
+    wherever the quantity is the same (``trace_s`` in place of ``lower_s``
+    / ``compile_s``: the ``meta`` runs' host seconds)."""
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     shape = SHAPES[shape_name]
-    rec = {"arch": arch, "shape": shape_name, "mesh": "1x1", "variant": variant}
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh, "variant": variant}
     if shape_name == "long_500k" and not cfg.sub_quadratic:
         return dict(rec, status="SKIP(full-attn)",
                     note="quadratic attention at 512k context")
+    mesh_obj = None if mesh == "1x1" else make_production_mesh(multi_pod=MESHES[mesh],
+                                                               device="meta")
+    n_dev = 1 if mesh_obj is None else mesh_obj.size()
     t0 = time.perf_counter()
-    costs = extrapolated_costs(cfg, shape)
-    args = sum(_nbytes(t) for t in _tensors(input_specs(cfg, shape)))
+    costs = extrapolated_costs(cfg, shape, mesh_obj)
     flops, nbytes = costs["flops"], costs["bytes"]
-    rec.update(status="OK", kind=shape.kind, n_devices=1,
+    coll = costs["collectives"]
+    if mesh_obj is None:
+        args = sum(_nbytes(t) for t in _tensors(input_specs(cfg, shape)))
+        memory = dict(costs["memory"], argument_bytes=args)
+        coll = {k: coll[k] for k in ("per_kind_bytes", "per_kind_count", "link_bytes")}
+    else:
+        memory = costs["memory"]
+        rec["note"] = MESH_NOTE
+    link = coll["link_bytes"]
+    rec.update(status="OK", kind=shape.kind, n_devices=n_dev,
                trace_s=round(time.perf_counter() - t0, 2),
                flops_per_dev=flops, bytes_per_dev=nbytes,
                aten_bytes_per_dev=costs["aten_bytes"],
                kernel_bytes_per_dev=costs["kernel_bytes"],
-               flops_by_dtype=costs["flops_by_dtype"], link_bytes_per_dev=0,
-               kernels=costs["kernels"],
-               collectives={"per_kind_bytes": dict.fromkeys(COLLECTIVE_KINDS, 0),
-                            "per_kind_count": dict.fromkeys(COLLECTIVE_KINDS, 0),
-                            "link_bytes": 0},
-               memory=dict(costs["memory"], argument_bytes=args),
-               roofline=roofline_terms(compute_s(costs["flops_by_dtype"]), nbytes, 0))
-    rec["model_flops_total"] = rec["model_flops_per_dev"] = model_flops(cfg, shape)
+               flops_by_dtype=costs["flops_by_dtype"], link_bytes_per_dev=link,
+               kernels=costs["kernels"], collectives=coll, memory=memory,
+               roofline=roofline_terms(compute_s(costs["flops_by_dtype"]), nbytes,
+                                       link, n_dev))
+    rec["model_flops_total"] = model_flops(cfg, shape)
+    rec["model_flops_per_dev"] = rec["model_flops_total"] / n_dev
     if flops > 0:
-        rec["useful_flops_ratio"] = rec["model_flops_total"] / flops
+        rec["useful_flops_ratio"] = rec["model_flops_per_dev"] / flops
     return rec
 
 
@@ -346,21 +481,32 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None, help="one arch id, or omit for all")
     ap.add_argument("--shape", default=None, help="one shape name, or omit for all")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="rank 0 of a 2x16x16 mesh (default: one H100, 1x1)")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="16x16 and 2x16x16")
     ap.add_argument("--out", default="build/dryrun.json")
     ap.add_argument("--variant", default="baseline",
                     help="label recorded with each cell (perf iterations)")
+    ap.add_argument("--accum-dtype", default=None,
+                    help="override cfg.accum_dtype (e.g. bfloat16)")
     ap.add_argument("--remat-policy", default=None,
                     help="override cfg.remat_policy (full|dots)")
     ap.add_argument("--serve-packed", default=None,
                     help="StruM method for packed serving (mip2q|dliq|sparsity)")
     ap.add_argument("--strum-p", type=float, default=0.5)
     ap.add_argument("--strum-L", type=int, default=5)
+    ap.add_argument("--attn-constraint", action="store_true")
     ap.add_argument("--ssm-split", action="store_true")
     args = ap.parse_args(argv)
 
     overrides = {}
+    if args.attn_constraint:
+        overrides["attn_heads_constraint"] = True
     if args.ssm_split:
         overrides["ssm_split_proj"] = True
+    if args.accum_dtype:
+        overrides["accum_dtype"] = args.accum_dtype
     if args.remat_policy:
         overrides["remat_policy"] = args.remat_policy
     if args.serve_packed:
@@ -370,6 +516,8 @@ def main(argv=None) -> int:
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)
     shapes = [args.shape] if args.shape else list(SHAPES)
+    meshes = list(MESHES) if args.both_meshes else \
+        ["2x16x16"] if args.multi_pod else ["1x1"]
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     results = []
     if os.path.exists(args.out):
@@ -379,27 +527,29 @@ def main(argv=None) -> int:
             for r in results}
     for arch in archs:
         for shape in shapes:
-            key = (arch, shape, "1x1", args.variant)
-            if key in done:
-                print(f"cached {key}", flush=True)
-                continue
-            print(f"counting {key} ...", flush=True)
-            try:
-                rec = lower_cell(arch, shape, overrides, args.variant)
-            except Exception as e:  # noqa: BLE001 — record and continue
-                rec = {"arch": arch, "shape": shape, "mesh": "1x1",
-                       "variant": args.variant,
-                       "status": f"FAIL: {type(e).__name__}: {e}",
-                       "traceback": traceback.format_exc()[-2000:]}
-            results.append(rec)
-            with open(args.out, "w") as f:
-                json.dump(results, f, indent=1)
-            extra = ""
-            if rec["status"] == "OK":
-                r = rec["roofline"]
-                extra = (f" bottleneck={r['bottleneck']} tc={r['compute_s']:.3f}s "
-                         f"tm={r['memory_s']:.3f}s trace={rec['trace_s']:.1f}s")
-            print(f"  -> {rec['status']}{extra}", flush=True)
+            for mesh in meshes:
+                key = (arch, shape, mesh, args.variant)
+                if key in done:
+                    print(f"cached {key}", flush=True)
+                    continue
+                print(f"counting {key} ...", flush=True)
+                try:
+                    rec = lower_cell(arch, shape, overrides, args.variant, mesh=mesh)
+                except Exception as e:  # noqa: BLE001 — record and continue
+                    rec = {"arch": arch, "shape": shape, "mesh": mesh,
+                           "variant": args.variant,
+                           "status": f"FAIL: {type(e).__name__}: {e}",
+                           "traceback": traceback.format_exc()[-2000:]}
+                results.append(rec)
+                with open(args.out, "w") as f:
+                    json.dump(results, f, indent=1)
+                extra = ""
+                if rec["status"] == "OK":
+                    r = rec["roofline"]
+                    extra = (f" bottleneck={r['bottleneck']} tc={r['compute_s']:.3f}s "
+                             f"tm={r['memory_s']:.3f}s tx={r['collective_s']:.3f}s "
+                             f"trace={rec['trace_s']:.1f}s")
+                print(f"  -> {rec['status']}{extra}", flush=True)
     n_ok = sum(r["status"] == "OK" for r in results)
     n_skip = sum(r["status"].startswith("SKIP") for r in results)
     print(f"TOTAL {len(results)} cells: {n_ok} OK, {n_skip} SKIP, "

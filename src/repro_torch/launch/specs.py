@@ -11,7 +11,11 @@ scalar could not run).  :func:`input_shardings` gives the same trees'
 ``PartitionSpec`` leaves under the sharding rules (the reference's
 ``NamedSharding`` trees without the mesh): it reads only a mesh's axis names
 and sizes, so a stand-in object with ``axis_names`` and a ``shape`` dict
-serves, as ``models.sharding`` allows wherever no collective runs.
+serves, as ``models.sharding`` allows wherever no collective runs.  These
+are the reference's GSPMD specs; the port's mesh step holds other blocks
+(dense weights, activations and caches global, packed weights a mesh-aware
+plan's block, ZeRO-3 shards for a train step), and the mesh dry-run counts
+those (``launch.dryrun``).
 """
 from __future__ import annotations
 

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import StruMConfig
-from repro_torch.models.params import ParamDef
+from repro_torch.models.params import ParamDef, torch_dtype
 
 __all__ = ["rms_norm", "nonparam_ln", "norm_def", "apply_norm", "linear_def",
            "linear", "mlp_def", "mlp", "rope_freqs", "apply_rope", "embed_def",
@@ -72,20 +72,23 @@ def linear_def(d_in: int, d_out: int, in_axis: str, out_axis: str,
 
 
 def linear(p: dict, x: torch.Tensor, *, strum: Optional[StruMConfig] = None,
-           backend: Optional[str] = None, tp_mesh=None,
+           backend: Optional[str] = None, accum_dtype=torch.float32, tp_mesh=None,
            tp_pattern: Optional[str] = None) -> torch.Tensor:
     """y = x @ W (+ b), dense or StruM-compressed; ``backend`` overrides the
-    plan's variant per call (``"torch"``, ``"cuda"``, ...).  With
-    ``tp_mesh`` a packed leaf runs through the ``sharded:*`` family in the
-    ``tp_pattern`` layout ('col' | 'row'); a dense leaf ignores both (dense
-    compute is replicated)."""
+    plan's variant per call (``"torch"``, ``"cuda"``, ...).  ``accum_dtype``
+    (a dtype or its name) is the reference's ``preferred_element_type``:
+    the f32 product is rounded to it before x's dtype (the CUDA kernels
+    ignore it).  With ``tp_mesh`` a packed leaf runs through the
+    ``sharded:*`` family in the ``tp_pattern`` layout ('col' | 'row'); a
+    dense leaf ignores both (dense compute is replicated)."""
+    acc = torch_dtype(accum_dtype)
     wleaf = p["w"]
     if isinstance(wleaf, dict):
         from repro_torch.engine.dispatch import dispatch
-        y = dispatch(wleaf, x, strum=strum, backend=backend, mesh=tp_mesh,
-                     tp_pattern=tp_pattern)
+        y = dispatch(wleaf, x, strum=strum, backend=backend, accum_dtype=acc,
+                     mesh=tp_mesh, tp_pattern=tp_pattern)
     else:
-        y = _f32_matmul(x, wleaf).to(x.dtype)
+        y = _f32_matmul(x, wleaf).to(acc).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

@@ -27,7 +27,11 @@ any object with ``axis_names`` and a ``shape`` dict, as the reference's
 tests pass, wherever no collective runs.  Collectives use what both gloo and
 NCCL implement: ``all_gather`` in its list form and ``all_reduce``, over the
 mesh's process groups (``DeviceMesh.get_group``; a flattened sub-mesh where
-several axes act as one, such as ``("pod", "data")``).
+several axes act as one, such as ``("pod", "data")``).  On an abstract mesh
+(:class:`repro_torch.launch.mesh.AbstractMesh`: no process group, one
+rank's coordinate) they take ``meta`` tensors only and build the result's
+shape alone, so the dry-run counts one rank of a production mesh; any other
+tensor there raises.
 """
 from __future__ import annotations
 
@@ -122,7 +126,8 @@ def axis_size(mesh, axes) -> int:
 
 def axis_index(mesh, axes) -> int:
     """This rank's coordinate along ``axes`` taken as one axis (row-major,
-    the first name outermost): ``jax.lax.axis_index`` over a tuple."""
+    the first name outermost): ``jax.lax.axis_index`` over a tuple.  An
+    abstract mesh gives the coordinate it was made with."""
     idx = 0
     for a in _as_axes(axes):
         idx = idx * mesh.size(axis_names(mesh).index(a)) + mesh.get_local_rank(a)
@@ -224,12 +229,28 @@ def _group(mesh, axes):
     return mesh[axes]._flatten("_".join(axes)).get_group()
 
 
+def _stand_in(mesh, x: torch.Tensor, what: str) -> bool:
+    """Is ``mesh`` abstract?  Then ``x`` must be a ``meta`` tensor: the
+    stand-in shapes results and never takes the place of a real group on
+    real data."""
+    if not getattr(mesh, "abstract", False):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"{what}: {mesh!r} has no process group; it takes meta "
+                         f"tensors only, got one on {x.device}")
+    return True
+
+
 def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """``jax.lax.all_gather(x, axes, axis=dim, tiled=True)``: the ranks'
-    blocks concatenated along ``dim`` in the order of :func:`axis_index`."""
+    blocks concatenated along ``dim`` in the order of :func:`axis_index`
+    (on an abstract mesh, ``n`` copies of the ``meta`` block)."""
     n = axis_size(mesh, axes)
     out = x
-    if n > 1:
+    if _stand_in(mesh, x, "all_gather"):
+        if n > 1:
+            out = torch.cat([x] * n, dim=dim)
+    elif n > 1:
         import torch.distributed as dist
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
@@ -257,13 +278,16 @@ def gather_out(y: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     """``psum`` (``op="sum"``) or ``pmean`` (``"mean"``) over ``axes``; the
-    input is left as it was."""
+    input is left as it was (on an abstract mesh the sum is a ``meta``
+    clone)."""
     n = axis_size(mesh, axes)
     out = x
+    stand_in = _stand_in(mesh, x, "all_reduce")
     if n > 1:
-        import torch.distributed as dist
         out = x.clone()
-        dist.all_reduce(out, group=_group(mesh, axes))
+        if not stand_in:
+            import torch.distributed as dist
+            dist.all_reduce(out, group=_group(mesh, axes))
         out = out / n if op == "mean" else out
     if hooks.active is not None:
         hooks.active.collective("psum", x, n, out)

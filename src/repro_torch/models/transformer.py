@@ -16,7 +16,8 @@ payload fields included).  Inputs are token ids, or with ``batch["embeds"]``
 (the audio and VLM configs' stub frontend) embeddings ``(B, S, D)``; the
 decode lanes take ``(B, 1, D)`` embeddings in place of ``(B, 1)`` ids.
 
-Every forward and lane takes ``mesh=`` / ``rules=`` as the reference's do:
+Every forward and lane takes ``mesh=`` / ``rules=`` as the reference's do,
+and hands ``cfg.accum_dtype`` to every linear as its ``accum_dtype``;
 the mesh rides to every linear as ``tp_mesh`` (packed leaves run the
 ``sharded:*`` compressed-gather family, dense leaves ignore it) and to the
 MoE FFN (the expert-parallel body); ``rules`` reach
@@ -141,10 +142,12 @@ def _ffn_residual(bp, x, cfg, kw, batch_split=None):
     return x + mlp(bp["mlp"], h, cfg, **kw), 0.0
 
 
-def _mesh_kw(kw: dict, mesh) -> dict:
-    """The linears' keywords: ``strum`` defaults to the config's, and a mesh
-    rides along as ``tp_mesh`` whatever ``cfg.strum`` is (a schedule-built
-    plan packs leaves with ``cfg.strum`` None)."""
+def _linear_kw(kw: dict, cfg, mesh) -> dict:
+    """The linears' keywords: ``strum`` and ``accum_dtype`` default to the
+    config's, and a mesh rides along as ``tp_mesh`` whatever ``cfg.strum``
+    is (a schedule-built plan packs leaves with ``cfg.strum`` None)."""
+    kw.setdefault("strum", cfg.strum)
+    kw.setdefault("accum_dtype", cfg.accum_dtype)
     if mesh is not None:
         kw.setdefault("tp_mesh", mesh)
     return kw
@@ -212,8 +215,7 @@ def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
     (mesh, axes)`` says ``batch`` is this rank's share of a batch split over
     ``axes`` (the ZeRO-3 step): MoE layers then route over the whole batch
     (``moe.moe_apply``)."""
-    kw.setdefault("strum", cfg.strum)
-    _mesh_kw(kw, mesh)
+    _linear_kw(kw, cfg, mesh)
     x = constrain(_batch_in(params, batch, cfg), ("batch", None, None), rules)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
@@ -260,8 +262,7 @@ def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
     caches): per attention position ``{"k", "v"}`` stacked as (groups, B, S,
     KV, hd), per SSM position ``{"conv", "state"}`` as (groups, B, W-1,
     conv_dim) and (groups, B, nh, hp, ns) f32."""
-    kw.setdefault("strum", cfg.strum)
-    _mesh_kw(kw, mesh)
+    _linear_kw(kw, cfg, mesh)
     x = constrain(_batch_in(params, batch, cfg), ("batch", None, None), rules)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
@@ -290,8 +291,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
     """One decode step.  token: (B, 1) int, or embeddings (B, 1, D).
     Returns (logits (B, 1, V) f32, caches); the caches are updated in place
     (attention at ``cache_len``, SSM conv and state whole)."""
-    kw.setdefault("strum", cfg.strum)
-    _mesh_kw(kw, mesh)
+    _linear_kw(kw, cfg, mesh)
     x = constrain(_embed_in(params, token, cfg), ("batch", None, None), rules)
     for _, bp, c in _blocks(params, cfg, caches):
         h = apply_norm(bp["norm1"], x, cfg)
@@ -334,8 +334,7 @@ def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
     SSM conv and state.  Returns (logits (B, 1, V) f32, hot), ``hot``
     updated in place.
     """
-    kw.setdefault("strum", cfg.strum)
-    _mesh_kw(kw, mesh)
+    _linear_kw(kw, cfg, mesh)
     x = constrain(_embed_in(params, token, cfg), ("batch", None, None), rules)
     for _, bp, pool, hp in _blocks(params, cfg, pools, hot):
         h = apply_norm(bp["norm1"], x, cfg)
@@ -372,8 +371,7 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     valid_len)`` of the chunk, and its SSM conv and state the chunk's
     continuation (``ssm_prefill_chunk``).
     """
-    kw.setdefault("strum", cfg.strum)
-    _mesh_kw(kw, mesh)
+    _linear_kw(kw, cfg, mesh)
     ps = spec.page_size
     x = constrain(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
     c = x.shape[1]
@@ -426,8 +424,7 @@ def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     chunk_kv)``, ``chunk_kv`` per layer position the window's group-stacked
     (k, v) in the tails' dtype.
     """
-    kw.setdefault("strum", cfg.strum)
-    _mesh_kw(kw, mesh)
+    _linear_kw(kw, cfg, mesh)
     x = constrain(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
     slot1 = slot.to(torch.long).reshape(1)
     row = page_table.index_select(0, slot1)[0]

@@ -654,3 +654,106 @@ def dataflow_cases(rank: int, world: int) -> dict:
                                         leaf, x, mesh=mesh)
     return {"stats": stats, "findings": report.to_json(), "dispatch_stats": st,
             "counters": rec.counters(), "payload": plan.summary()["packed_payload_bytes"]}
+
+
+# ------------------------------------------ test_torch_mesh_dryrun.py --
+
+#: (case, mesh shape, mesh axis names, shape kind): the live twins of the
+#: dry-run's abstract counts (``launch.dryrun.count_step(mesh=)``)
+MESH_CASES = (("decode_2x2", (2, 2), ("data", "model"), "decode"),
+              ("prefill_2x2", (2, 2), ("data", "model"), "prefill"),
+              ("decode_2x1x2", (2, 1, 2), ("pod", "data", "model"), "decode"),
+              ("train_data2", (2,), ("data",), "train"))
+MESH_ARCHS = ("olmo_1b", "moonshot_v1_16b_a3b")
+
+
+def mesh_shape_spec(kind: str):
+    """A small cell of ``kind`` (4 sequences, 16 tokens)."""
+    from repro_torch.configs.base import ShapeSpec
+    return ShapeSpec(f"{kind}_small", 16, 4, kind)
+
+
+def mesh_cfg(arch: str):
+    """``arch``'s smoke config, packed with the default ``StruMConfig``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.policy import StruMConfig
+    return dataclasses.replace(get_smoke_config(arch), strum=StruMConfig())
+
+
+def _materialize(tree, gen):
+    """Seeded CPU tensors of a ``meta`` tree's shapes and dtypes (token ids
+    below 256, every smoke vocabulary's size)."""
+    def one(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.dtype.is_floating_point:
+            return (torch.randn(t.shape, generator=gen) * 0.05).to(t.dtype)
+        return torch.randint(0, 256, t.shape, generator=gen).to(t.dtype)
+    if isinstance(tree, dict):
+        return {k: _materialize(v, gen) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_materialize(v, gen) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_materialize(v, gen) for v in tree)
+    return one(tree)
+
+
+def mesh_live_count(rank: int, mesh, arch: str, kind: str) -> dict:
+    """One step of ``kind`` on this rank of ``mesh`` (real gloo groups, CPU
+    tensors drawn alike on every rank, f32 weights, so packed scales are
+    f32 on both sides) under the dry-run's ``Counter``:
+    the collectives it records, in order, and the kernel calls.  Serving
+    runs the card's mesh-aware plan (``backend="cuda"``: on the CPU its
+    post-gather kernels are the ``torch`` family); a train step starts from
+    ZeRO-3 shards of the parameters and fresh AdamW moments."""
+    import dataclasses
+
+    from repro_torch.launch.dryrun import Counter, _step_for
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.params import shard_params
+    from repro_torch.optim import adamw
+
+    cfg = mesh_cfg(arch)
+    shape = mesh_shape_spec(kind)
+    rules = shd.rules_for_mesh(mesh, shape.global_batch)
+    gen = torch.Generator().manual_seed(0)
+    inputs = _materialize(input_specs(dataclasses.replace(cfg, strum=None), shape,
+                                      param_dtype="float32"), gen)
+    if kind == "train":
+        defs = model_defs(cfg)
+        params = shard_params(inputs[0], defs, mesh, rules, device="cpu")
+        inputs = (params, adamw.init_opt_state(params), inputs[2])
+    else:
+        plan = build_serving_plan(inputs[0], cfg=cfg.strum, backend="cuda", mesh=mesh,
+                                  rules=rules, device="cpu")
+        inputs = (plan.params,) + tuple(inputs[1:])
+    counter = Counter()
+    with counter:
+        _step_for(cfg, kind, mesh, rules)(*inputs)
+    return {"collectives": counter.collectives, "kernels": dict(counter.kernels)}
+
+
+def mesh_dryrun_cases(rank: int, world: int) -> dict:
+    """Every :data:`MESH_CASES` x :data:`MESH_ARCHS` on 4 ranks; rank 0's
+    counts (the other ranks return an empty dict).  ``train_data2`` runs on
+    ranks {0, 1} and {2, 3}, two data = 2 meshes side by side."""
+    from torch.distributed.device_mesh import init_device_mesh
+    meshes = {}
+    for case, shape, names, _ in MESH_CASES:
+        if case == "train_data2":
+            pairs = init_device_mesh("cpu", (2, 2), mesh_dim_names=("replica", "data"))
+            meshes[case] = pairs["data"]
+        else:
+            meshes[case] = init_device_mesh("cpu", shape, mesh_dim_names=names)
+    res = {}
+    for case, _, _, kind in MESH_CASES:
+        for arch in MESH_ARCHS:
+            out = mesh_live_count(rank, meshes[case], arch, kind)
+            if rank == 0:
+                res[(case, arch)] = out
+    return res

@@ -36,6 +36,7 @@ from repro.models import decode_step as j_decode_step
 from repro.models import forward_train as j_forward
 from repro.models import model_defs as j_model_defs
 from repro.models import prefill as j_prefill
+from repro.models.layers import linear as j_linear
 from repro.models.params import init_params as j_init_params
 from repro_torch import engine
 from repro_torch.configs.base import ARCH_IDS
@@ -43,6 +44,7 @@ from repro_torch.configs.base import get_smoke_config as t_smoke
 from repro_torch.core.policy import StruMConfig as TCfg
 from repro_torch.launch.serve import pad_caches, serve
 from repro_torch.models import decode_step, forward_train, prefill
+from repro_torch.models.layers import linear
 from repro_torch.models.params import params_from_numpy
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
@@ -61,9 +63,9 @@ CASES = [(a, p) for a in ALL_PLANS for p in PLANS] + \
 EMBEDS = [a for a in ARCH_IDS if t_smoke(a).modality in ("vlm", "audio")]
 
 
-def _cfgs(arch):
-    return (dataclasses.replace(j_smoke(arch), dtype="float32"),
-            dataclasses.replace(t_smoke(arch), dtype="float32"))
+def _cfgs(arch, accum="float32"):
+    return (dataclasses.replace(j_smoke(arch), dtype="float32", accum_dtype=accum),
+            dataclasses.replace(t_smoke(arch), dtype="float32", accum_dtype=accum))
 
 
 def _tol(cfg) -> dict:
@@ -104,11 +106,12 @@ def _tokens(seed, shape):
     return np.random.default_rng(seed).integers(0, 256, size=shape).astype(np.int32)
 
 
-def _held_to_reference(arch, plan, embeds=False):
+def _held_to_reference(arch, plan, embeds=False, accum="float32"):
     """forward_train over SEQ inputs, then prefill over PROMPT and STEPS
     teacher-forced decode steps, both packages on the same served weights;
-    ``embeds``: every input an embedding (B, ., D) instead of a token id."""
-    jcfg, tcfg = _cfgs(arch)
+    ``embeds``: every input an embedding (B, ., D) instead of a token id;
+    ``accum``: both configs' ``accum_dtype``."""
+    jcfg, tcfg = _cfgs(arch, accum)
     jparams, tparams = _arch_params(arch)
     jserved, tserved, tplan = _served(jparams, tparams, PLANS[plan])
     if tplan is not None:   # CPU tensors: the torch family
@@ -154,6 +157,49 @@ def _held_to_reference(arch, plan, embeds=False):
 @pytest.mark.parametrize("arch,plan", CASES, ids=[f"{a}-{p}" for a, p in CASES])
 def test_logits_match_reference(arch, plan):
     _held_to_reference(arch, plan)
+
+
+@pytest.mark.parametrize("plan", ["dense", "mip2q_p0.5"])
+def test_accum_dtype_default_matches_reference(plan):
+    """``cfg.accum_dtype`` at its default (f32) through the whole serving
+    slice: the logits at the tolerance above."""
+    _held_to_reference("qwen2_7b", plan, accum="float32")
+
+
+def _group0(leaf):
+    """Layer group 0 of a stacked dense weight or packed leaf."""
+    if isinstance(leaf, dict):
+        return {k: (v[0] if k in FIELDS else v) for k, v in leaf.items()}
+    return leaf[0]
+
+
+@pytest.mark.parametrize("name", ["wi", "wo"])
+@pytest.mark.parametrize("plan", ["dense", "mip2q_p0.5"])
+def test_accum_dtype_bf16_linear_matches_reference(plan, name):
+    """At ``accum_dtype="bfloat16"`` a linear rounds its f32 product to
+    bf16 before x's dtype (dense, and the ``torch:dequant`` route of a
+    packed leaf), as the reference's ``preferred_element_type`` does: one
+    MLP linear of the qwen2_7b smoke model on f32 activations, against the
+    reference's ``linear``, every output within one bf16 step and 99% of
+    them bit-identical (measured: all).  The setting acts: its outputs are
+    not the f32 ones.  Through the whole model the two packages' f32 sums
+    in other orders (attention, norms) make a product round to the
+    neighbouring bf16 value now and then, in a way that changes from
+    process to process (CPU XLA's threads), so the logits are held at the
+    default ``accum_dtype`` only (above)."""
+    jparams, tparams = _arch_params("qwen2_7b")
+    jserved, tserved, _ = _served(jparams, tparams, PLANS[plan])
+    jl = {"w": _group0(jserved["blocks"]["pos0"]["mlp"][name]["w"])}
+    tl = {"w": _group0(tserved["blocks"]["pos0"]["mlp"][name]["w"])}
+    k_dim = int(jparams["blocks"]["pos0"]["mlp"][name]["w"].shape[-2])
+    x = np.random.default_rng(0).normal(size=(B * SEQ, k_dim)).astype(np.float32)
+    want = np.asarray(j_linear(jl, jnp.asarray(x), accum_dtype=jnp.bfloat16))
+    got = linear(tl, torch.from_numpy(x), accum_dtype="bfloat16").numpy()
+    f32 = linear(tl, torch.from_numpy(x)).numpy()
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert (np.abs(got - want) <= step).all()
+    assert (got == want).mean() >= 0.99
+    assert (got != f32).mean() >= 0.9
 
 
 @pytest.mark.parametrize("arch", EMBEDS)
