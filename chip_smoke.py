@@ -226,14 +226,18 @@ Phases, each fatal on failure:
      equal to phases d and h;
      s2. 4 gloo ranks sharing cuda:0 (gloo takes CUDA tensors in the
      card's torch build; NCCL refuses two ranks on one device) as a 2x2
-     mesh: full-width OLMo-1B cut to MESH_LAYERS layers, packed prefill + 8
-     decode steps, each rank holding a quarter of every payload, K1 7 x
-     layers x steps on every rank; at f32 activations the one-device run's
-     tokens and its logits within phase f's tolerance, at the config's bf16
-     the logits teacher-forced on the served tokens within phase f's
-     tolerance, every argmax disagreement a near tie; one more f32 decode
-     step under the dry-run's ``Counter``, its collectives and launches
-     recorded for v3; one full-width
+     mesh: full-width OLMo-1B at S2_LAYERS (all 16) layers in the sharded
+     serving layout (the reference's ``input_shardings``: dense and packed
+     weights placed by ``shard_params``, the batch over data, the caches
+     also over ``model`` by sequence), packed prefill + 8 decode steps
+     through the dense-cache loop, each rank holding a quarter of every
+     payload and of the caches and its share of every dense leaf (printed
+     against the whole), K1 7 x layers x steps on every rank; at f32
+     activations the one-device run's tokens and its logits within phase
+     f's tolerance, at the config's bf16 the logits teacher-forced on the
+     served tokens within phase f's tolerance, every argmax disagreement a
+     near tie; one more f32 decode step under the dry-run's ``Counter``, its
+     collectives and launches recorded for v3; one full-width
      Moonshot-16B-A3B MoE layer (a 4-slot decode, no drops) through the
      expert-parallel body, K6 3 times on every rank, the gathered-bytes
      counter exactly the rank's block, within phase l's tolerance of
@@ -325,7 +329,9 @@ Phases, each fatal on failure:
      bytes, in order), the kernel calls and the K1 launches, exactly (with
      ``--only v`` that decode step runs alone on 4 gloo ranks first); then
      full-width OLMo-1B's decode_32k on mip2q weights counted on all three
-     meshes (printed: per-device FLOPs, bytes, link bytes); then the sweeps
+     meshes and on dense weights on 16x16 (printed: per-device FLOPs,
+     bytes, link bytes; rank 0's argument bytes of the dense cell, which
+     the CPU tests hold to the reference's shard sizes); then the sweeps
      of every arch x shape on rank 0 of 16x16 and 2x16x16 (the
      same V_WORKERS processes), their status counts (any FAIL is fatal)
      and seconds; every sweep record is written to
@@ -3248,10 +3254,13 @@ def _train_report(train, smi) -> None:
 
 # ---------------------------------------------------- distributed (s) --
 
-#: s2's and s3's OLMo-1B depth, at full width.  s2 and s3 run as gloo
-#: ranks sharing cuda:0 (NCCL refuses two ranks on one device); gloo takes
-#: CUDA tensors for all_gather / all_reduce in the card's torch build
+#: s3's OLMo-1B depth, at full width.  s2 and s3 run as gloo ranks sharing
+#: cuda:0 (NCCL refuses two ranks on one device); gloo takes CUDA tensors
+#: for all_gather / all_reduce in the card's torch build
 MESH_LAYERS = 2
+#: s2's OLMo-1B depth: all 16 layers, at full width, in the sharded serving
+#: layout
+S2_LAYERS = 16
 
 
 def _single_device_refs(dev) -> dict:
@@ -3419,8 +3428,8 @@ def _forced_logits(cfg, params, prompt, toks):
 
 def _s2_olmo(dev) -> tuple:
     """s2's OLMo: the default StruM config, the bf16 and f32 configs at
-    MESH_LAYERS layers, f32 weights (seed 0), a 4 x 32 prompt, the 2x2 mesh
-    and its rules."""
+    S2_LAYERS layers, f32 weights (seed 0), a 4 x 32 prompt, the 2x2 mesh
+    and its rules (the batch of 4 over data)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core.policy import StruMConfig
@@ -3429,13 +3438,13 @@ def _s2_olmo(dev) -> tuple:
     from repro_torch.models import sharding as shd
     from repro_torch.models.params import init_params
     scfg = StruMConfig()
-    cfg16 = dataclasses.replace(get_config("olmo_1b"), n_layers=MESH_LAYERS, strum=scfg)
+    cfg16 = dataclasses.replace(get_config("olmo_1b"), n_layers=S2_LAYERS, strum=scfg)
     cfg = dataclasses.replace(cfg16, dtype="float32")
     params = init_params(model_defs(cfg), seed=0, device=dev, dtype_override="float32")
     prompt = torch.randint(0, cfg.vocab_size, (4, 32),
                            generator=torch.Generator().manual_seed(0)).to(dev)
     mesh = make_host_mesh(data=2, model=2)
-    return scfg, cfg16, cfg, params, prompt, mesh, shd.rules_for_mesh(mesh)
+    return scfg, cfg16, cfg, params, prompt, mesh, shd.rules_for_mesh(mesh, 4)
 
 
 def _s2_decode_body(rank: int, dev) -> dict:
@@ -3448,11 +3457,13 @@ def _s2_decode_body(rank: int, dev) -> dict:
 
 
 def _s2_body(rank: int, dev) -> dict:
-    """A rank of s2 (2 x 2 mesh): full-width OLMo-1B at MESH_LAYERS layers,
-    packed prefill + 8 decode steps through the dense-cache loop, at f32
-    activations and at the config's bf16; one full-width Moonshot-16B-A3B
-    MoE layer through the expert-parallel body.  Rank 0 also runs both on
-    one device, in the same process, and compares."""
+    """A rank of s2 (2 x 2 mesh): full-width OLMo-1B at S2_LAYERS layers,
+    packed prefill + 8 decode steps through the dense-cache loop in the
+    sharded serving layout (weights placed by ``shard_params``, the batch
+    over data, the caches also over ``model``), at f32 activations and at
+    the config's bf16; the bytes each rank holds; one full-width
+    Moonshot-16B-A3B MoE layer through the expert-parallel body.  Rank 0
+    also runs both on one device, in the same process, and compares."""
     import torch
     from repro_torch import telemetry
     from repro_torch.configs.base import get_config
@@ -3460,8 +3471,9 @@ def _s2_body(rank: int, dev) -> dict:
     from repro_torch.launch import serve as S
     from repro_torch.launch.steps import build_serving_plan
     from repro_torch.models import sharding as shd
+    from repro_torch.models import model_defs
     from repro_torch.models.moe import moe_apply, moe_def
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import init_params, shard_params
     out = {}
     # f32 activations, held to the one-device tokens exactly; then the
     # config's bf16, where the row-parallel partial sums and the one-device
@@ -3471,9 +3483,11 @@ def _s2_body(rank: int, dev) -> dict:
     gen_steps = 8
     t0 = time.perf_counter()
     plan = build_serving_plan(params, cfg=scfg, mesh=mesh, rules=rules, device=dev)
+    # the sharded serving layout: every dense leaf this rank's shard too
+    placed = shard_params(plan.params, model_defs(cfg), mesh, rules, device=dev)
     _reset_kv_counts()
     with telemetry.recording() as rec:
-        toks, t_p, t_d, lg = S.serve(cfg, plan.params, prompt, gen_steps, device=dev,
+        toks, t_p, t_d, lg = S.serve(cfg, placed, prompt, gen_steps, device=dev,
                                      return_logits=True, mesh=mesh, rules=rules)
     launched = _kv_counts()
     steps = 1 + gen_steps + 2
@@ -3486,13 +3500,14 @@ def _s2_body(rank: int, dev) -> dict:
         "dist": plan.summary()["variant_distribution"],
         "gathered_counter": int(rec.counter("dispatch/sharded/gathered_packed_bytes")),
         "bytes": _gather_bytes(plan, steps), "local_payload": local,
-        "whole_payload": plan.summary()["packed_payload_bytes"]}
-    out["decode_record"] = _s2_decode_record(cfg, plan.params, prompt, mesh, rules)
+        "whole_payload": plan.summary()["packed_payload_bytes"],
+        "weights": _resident_weights(placed)}
+    out["decode_record"] = _s2_decode_record(cfg, placed, prompt, mesh, rules)
     _reset_kv_counts()
-    toks16, _, _, lg16 = S.serve(cfg16, plan.params, prompt, gen_steps, device=dev,
+    toks16, _, _, lg16 = S.serve(cfg16, placed, prompt, gen_steps, device=dev,
                                  return_logits=True, mesh=mesh, rules=rules)
     out["olmo_bf16"] = {"launches": dict(_kv_counts()), "dtype": cfg16.dtype}
-    del plan
+    del plan, placed
     if rank == 0:
         plan1 = build_serving_plan(params, cfg=scfg, device=dev)
         toks1, _, _, lg1 = S.serve(cfg, plan1.params, prompt, gen_steps, device=dev,
@@ -3553,26 +3568,79 @@ def _s2_body(rank: int, dev) -> dict:
 
 
 def _s2_decode_record(cfg, params, prompt, mesh, rules) -> dict:
-    """One decode step of s2's OLMo on its 2x2 mesh, after a prefill of
-    ``prompt``, under the dry-run's ``Counter``: the collectives this rank
-    records in order, the kernel calls it counts and the wrappers'
-    launches (phase v3 holds the abstract mesh's count to them)."""
+    """One decode step of s2's OLMo on its 2x2 mesh in the sharded serving
+    layout, after a prefill of ``prompt`` into caches of
+    ``padded_cache_len(S)`` positions (a decode cell of the dry-run), under
+    the dry-run's ``Counter``: the collectives this rank records in order,
+    the kernel calls it counts and the wrappers' launches (phase v3 holds
+    the abstract mesh's count to them); and the cache bytes this rank holds
+    against the whole caches'."""
     import torch
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
-    from repro_torch.launch.serve import pad_caches
+    from repro_torch.launch.specs import padded_cache_len, place_inputs
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import sharding as shd
+    b, n = prompt.shape
     with torch.inference_mode():
-        _, caches = make_prefill_step(cfg, mesh, rules)(params, {"tokens": prompt})
-        caches = pad_caches(caches, 1)
+        placed, batch = place_inputs(cfg, ShapeSpec("s2_prefill", n, b, "prefill"),
+                                     (params, {"tokens": prompt}), mesh, rules)
+        _, caches = make_prefill_step(cfg, mesh, rules, max_len=padded_cache_len(n))(
+            placed, batch)
+        token = shd.place_tree(prompt[:, -1:], shd.P(rules.table["batch"], None), mesh)
+        held = sum(t.numel() * t.element_size() for c in caches.values()
+                   for t in c.values())
+        whole = sum(math.prod(shd.placement(t).shape) * t.element_size()
+                    for c in caches.values() for t in c.values())
         step = make_decode_step(cfg, mesh, rules)
         _reset_kv_counts()
         counter = dryrun.Counter()
         with counter:
-            step(params, prompt[:, -1:], caches, prompt.shape[1])
+            step(placed, token, caches, n)
         torch.cuda.synchronize()
     return {"collectives": counter.collectives, "kernels": dict(counter.kernels),
             "launches": {k: v for k, v in _kv_counts().items() if v},
-            "batch": prompt.shape[0], "cache_len": prompt.shape[1]}
+            "batch": b, "cache_len": n, "layers": cfg.n_layers,
+            "cache_bytes": held, "cache_whole_bytes": whole}
+
+
+def _resident_weights(placed) -> dict:
+    """The weight bytes this rank holds in the sharded serving layout, the
+    whole model's, what each leaf's cut predicts (its whole bytes over its
+    parts), and the leaves not cut in as many parts as the mesh has ranks
+    (replicated over some axis), by name and parts."""
+    import torch
+    from repro_torch.engine.sharded import field_parts
+    from repro_torch.models import sharding as shd
+    held = whole = want = 0
+    partial = {}
+
+    def walk(tree, name):
+        nonlocal held, whole, want
+        if isinstance(tree, dict) and "mask" in tree:
+            shard = tree["spec"].shard
+            parts = field_parts(shard)
+            for k in ("mask", "hi", "lo", "scale"):
+                t = tree[k]
+                nb = t.numel() * t.element_size()
+                held += nb
+                whole += nb * parts[k]
+                want += nb
+                if parts[k] < math.prod(n for _, n in shard.mesh_shape):
+                    partial[f"{name}/{k}"] = parts[k]
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{name}/{k}" if name else k)
+        elif isinstance(tree, torch.Tensor):
+            pl = shd.placement(tree)
+            nb = tree.numel() * tree.element_size()
+            held += nb
+            whole += math.prod(pl.shape) * tree.element_size()
+            want += math.prod(pl.shape) * tree.element_size() // pl.parts
+            if pl.parts < math.prod(n for _, n in pl.mesh_shape):
+                partial[name] = pl.parts
+    walk(placed, "")
+    return {"held": held, "whole": whole, "want": want, "partial": partial}
 
 
 def _s3_body(rank: int, dev) -> dict:
@@ -3659,8 +3727,9 @@ def measure_mesh(dev, refs) -> dict:
             ("s1", "NCCL, world 1, a 1x1 mesh: full-width OLMo-1B, 16 layers, through "
                    "serve --mesh 1x1's code, dense-cache loop and paged",
              lambda: phase_s1(dev, refs)),
-            ("s2", f"4 gloo ranks on cuda:0, a 2x2 mesh: full-width OLMo-1B cut to "
-                   f"{MESH_LAYERS} layers (prefill + 8 decode steps) and one "
+            ("s2", f"4 gloo ranks on cuda:0, a 2x2 mesh: full-width OLMo-1B at "
+                   f"{S2_LAYERS} layers in the sharded serving layout (prefill + 8 "
+                   f"decode steps) and one "
                    f"full-width Moonshot-16B-A3B MoE layer", lambda: _spawn_ranks("s2", 4)),
             ("s3", f"2 gloo ranks on cuda:0, data = 2: the ZeRO-3 train step, "
                    f"full-width OLMo-1B at {MESH_LAYERS} layers, batch 2 x 256, f32",
@@ -3700,6 +3769,12 @@ def _check_s2(ranks: list) -> dict:
                f"s2 rank {r} gathered {o['gathered_counter']} vs {o['bytes']}")
         _check(o["local_payload"] * 4 == o["whole_payload"],
                f"s2 rank {r} holds {o['local_payload']} of {o['whole_payload']} bytes")
+        w, d = o["weights"], res["decode_record"]
+        _check(w["held"] == w["want"] and w["held"] * 4 >= w["whole"],
+               f"s2 rank {r} weight bytes {w}")
+        _check(d["cache_bytes"] * 4 == d["cache_whole_bytes"],
+               f"s2 rank {r} holds {d['cache_bytes']} of {d['cache_whole_bytes']} "
+               f"cache bytes, not a quarter")
         b16 = res["olmo_bf16"]
         _check(b16["launches"]["onehot"] == o["want_k1"] and
                sum(b16["launches"].values()) == o["want_k1"],
@@ -3713,17 +3788,24 @@ def _check_s2(ranks: list) -> dict:
                sum(m["launches"].values()) == 3,
                f"s2 rank {r} MoE launches {m['launches']}, want 3 K6")
     o, m, b16 = ranks[0]["olmo"], ranks[0]["moe"], ranks[0]["olmo_bf16"]
-    print(f"  OLMo-1B ({MESH_LAYERS} layers, f32 activations) on 2x2, plan "
+    w, d = o["weights"], ranks[0]["decode_record"]
+    print(f"  OLMo-1B ({S2_LAYERS} layers) on 2x2 in the sharded serving layout, rank "
+          f"0 holds {w['held']} of {w['whole']} weight bytes (x{w['held'] / w['whole']:.4f}; "
+          f"a quarter but for the leaves cut in fewer parts: {w['partial']}) and "
+          f"{d['cache_bytes']} of {d['cache_whole_bytes']} cache bytes "
+          f"(x{d['cache_bytes'] / d['cache_whole_bytes']:.4f}; {d['batch']} slots x "
+          f"{d['cache_len']} tokens in a cache of padded_cache_len)", flush=True)
+    print(f"  OLMo-1B ({S2_LAYERS} layers, f32 activations) on 2x2, plan "
           f"{o['dist']} (one device: {o['single_dist']}); prefill "
           f"{o['prefill_ms']:.1f} ms, decode {o['decode_ms_per_token']:.2f} ms/token "
           f"(rank 0, host clock, gloo's host copies included)", flush=True)
-    print(f"  OLMo-1B ({MESH_LAYERS} layers) on 2x2, each rank: K1 "
-          f"{o['launches']['onehot']} launches (7 x {MESH_LAYERS} x {o['steps']} steps); "
+    print(f"  OLMo-1B ({S2_LAYERS} layers) on 2x2, each rank: K1 "
+          f"{o['launches']['onehot']} launches (7 x {S2_LAYERS} x {o['steps']} steps); "
           f"payload block {o['local_payload']} of {o['whole_payload']} bytes; vs one "
           f"device: tokens equal {o['tokens_equal']}, logits max|diff| "
           f"{o['max_abs_diff']:.4e} (max|logit| {o['max_abs_logit']:.4e}), argmax "
           f"agreement {o['argmax_agreement']:.3f}; {o['seconds']:.1f} s", flush=True)
-    print(f"  OLMo-1B ({MESH_LAYERS} layers) on 2x2 at {b16['dtype']} (the config's "
+    print(f"  OLMo-1B ({S2_LAYERS} layers) on 2x2 at {b16['dtype']} (the config's "
           f"dtype), each rank: K1 {b16['launches']['onehot']} launches; teacher-forced "
           f"on its tokens vs one device over {b16['positions']} positions: logits "
           f"max|diff| {b16['max_abs_diff']:.4e} (max|logit| {b16['max_abs_logit']:.4e}), "
@@ -4621,7 +4703,7 @@ def _v3_hold(record: dict) -> dict:
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch.dryrun import lower_cell
     from repro_torch.launch.mesh import AbstractMesh
-    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=MESH_LAYERS,
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=record["layers"],
                               strum=StruMConfig(), dtype="float32")
     shape = ShapeSpec("v3_decode", record["cache_len"], record["batch"], "decode")
     rec = dryrun.count_step(cfg, shape, specs.input_specs(cfg, shape,
@@ -4646,8 +4728,23 @@ def _v3_hold(record: dict) -> dict:
               f"{r['flops_per_dev']:.6g} FLOPs, {r['bytes_per_dev']:.6g} bytes, "
               f"{r['link_bytes_per_dev']} link bytes a device, kernels {r['kernels']}, "
               f"roofline {r['roofline']}", flush=True)
-    print(f"  v3 s2's OLMo-1B decode ({MESH_LAYERS} layers, {record['batch']} slots) "
-          f"on the abstract 2x2 mesh: {len(got)} collectives equal to s2's rank 0 on "
+    dense = lower_cell("olmo_1b", "decode_32k", mesh="16x16")
+    one = lower_cell("olmo_1b", "decode_32k")
+    print(f"  v3 full-width OLMo-1B decode_32k, dense, rank 0 of 16x16 ({dense['layout']}): "
+          f"argument bytes {dense['memory']['argument_bytes']} (one H100: "
+          f"{one['memory']['argument_bytes']}), {dense['flops_per_dev']:.6g} FLOPs "
+          f"(one H100: {one['flops_per_dev']:.6g}), {dense['bytes_per_dev']:.6g} bytes, "
+          f"{dense['link_bytes_per_dev']} link bytes a device "
+          f"({dense['collectives']['per_kind_count']}), roofline {dense['roofline']}",
+          flush=True)
+    _check(dense["layout"] == "input_shardings" and dense["link_bytes_per_dev"] > 0 and
+           dense["memory"]["argument_bytes"] * 200 < one["memory"]["argument_bytes"],
+           f"v3: the dense decode_32k on 16x16 is not counted in the sharded layout: "
+           f"{dense['layout']}, {dense['memory']}")
+    packed["dense_16x16"] = dense
+    print(f"  v3 s2's OLMo-1B decode ({record['layers']} layers, {record['batch']} "
+          f"slots, the sharded serving layout) on the abstract 2x2 mesh: {len(got)} "
+          f"collectives equal to s2's rank 0 on "
           f"cuda:0 one by one ({coll['per_kind_count']}, bytes "
           f"{coll['per_kind_bytes']}, out_gather {coll['out_gather_bytes']} B, link "
           f"{coll['link_bytes']} B); kernel calls {rec['kernels']} = launches "
@@ -4861,8 +4958,9 @@ def measure(dev, clocks):
         "paged_attention": {"r4c_paged": train["r4"]["c"]["launches"]["paged_attention"]}}
 
     _phase("s. distributed: NCCL world-1 1x1 mesh (full-width OLMo-1B, serve --mesh "
-           f"1x1), 4 gloo ranks on a 2x2 mesh (OLMo-1B at {MESH_LAYERS} layers, a "
-           "Moonshot MoE layer), the ZeRO-3 train step on 2 gloo ranks")
+           f"1x1), 4 gloo ranks on a 2x2 mesh (OLMo-1B at {S2_LAYERS} layers in the "
+           "sharded serving layout, a Moonshot MoE layer), the ZeRO-3 train step on 2 "
+           "gloo ranks")
     times["mesh"] = mesh = measure_mesh(dev, refs)
     mesh_launches = {
         "onehot": {"s1_dense_loop": mesh["s1"]["dense_launches"],

@@ -124,7 +124,8 @@ def _pick(cfg: StruMConfig, info: LeafInfo, spec: Optional[ExecSpec],
 def _sharded_call(wleaf: dict, x: torch.Tensor, cfg: StruMConfig,
                   spec: Optional[ExecSpec], info: LeafInfo, *, mesh,
                   pattern: Optional[str], backend: Optional[str], out_dtype,
-                  accum_dtype=torch.float32, rows=None) -> torch.Tensor:
+                  accum_dtype=torch.float32, rows=None, k_dim=None,
+                  spmd: bool = False) -> torch.Tensor:
     """Select and invoke a ``sharded:*`` variant: the one implementation
     behind the 2-D mesh branch of :func:`dispatch` and the ``fsdp_axes``
     branch of :func:`dispatch_grouped`."""
@@ -132,10 +133,11 @@ def _sharded_call(wleaf: dict, x: torch.Tensor, cfg: StruMConfig,
     _note_dispatch(variant, wleaf, sharded=True)
     eff_backend = backend if backend is not None else (
         spec.backend if spec is not None else None)
-    kw = {"rows": rows} if variant.grouped else {}
+    kw = {"rows": rows} if variant.grouped else {"spmd": spmd}
     return variant.fn(wleaf, x, cfg=cfg, mesh=mesh, fsdp=tuple(info.fsdp),
-                      pattern=pattern, k_dim=x.shape[-1], backend=eff_backend,
-                      out_dtype=out_dtype, accum_dtype=accum_dtype, **kw)
+                      pattern=pattern, k_dim=k_dim or x.shape[-1],
+                      backend=eff_backend, out_dtype=out_dtype,
+                      accum_dtype=accum_dtype, **kw)
 
 
 def _check_whole(spec: Optional[ExecSpec]) -> None:
@@ -151,7 +153,7 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
              strum: Optional[StruMConfig] = None,
              backend: Optional[str] = None, out_dtype=None,
              accum_dtype=torch.float32, mesh=None, tp_mesh=None,
-             tp_pattern: Optional[str] = None) -> torch.Tensor:
+             tp_pattern: Optional[str] = None, spmd: bool = False) -> torch.Tensor:
     """y = x @ dequant(leaf) through the leaf's selected kernel variant.
 
     ``x``: (..., K); returns (..., N) in ``out_dtype`` (default x.dtype).
@@ -164,15 +166,24 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
     layout comes from ``tp_pattern`` or the leaf's ``spec.shard``.  As in
     the reference: a stacked leaf with a mesh raises (its collectives run
     inside the MoE body), a mesh without a TP layout raises, and a mesh with
-    no FSDP axis serves the local path.
+    no FSDP axis serves the local path.  With ``spmd`` (the sharded serving
+    layout) ``x`` and the result are this rank's blocks instead, as the
+    reference's ``shard_map`` in and out specs hold them: the rows this
+    rank holds, a row leaf's ``x`` its block of K over ``model``, a col
+    leaf's result its block of N.
     """
     cfg, spec = leaf_spec(wleaf, strum)
-    k_dim = x.shape[-1]
-    _check_k(spec, k_dim)
     out_dtype = out_dtype or x.dtype
     mesh = mesh if mesh is not None else tp_mesh
     shard = getattr(spec, "shard", None)
     pattern = tp_pattern or (shard.tp_pattern if shard is not None else None)
+    spmd = spmd and mesh is not None
+    k_dim = x.shape[-1]
+    if spmd and pattern == "row":
+        from repro_torch.models.sharding import axis_names, axis_size
+        if "model" in axis_names(mesh):
+            k_dim *= axis_size(mesh, "model")
+    _check_k(spec, k_dim)
     if wleaf["mask"].dim() > 3:
         if mesh is not None:
             # going local would gather the DEQUANTIZED stack, the regression
@@ -199,7 +210,11 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
                             fsdp=fsdp, tp_pattern=pattern)
             return _sharded_call(wleaf, x, cfg, spec, info, mesh=mesh,
                                  pattern=pattern, backend=backend,
-                                 out_dtype=out_dtype, accum_dtype=accum_dtype)
+                                 out_dtype=out_dtype, accum_dtype=accum_dtype,
+                                 k_dim=k_dim, spmd=spmd)
+        if spmd:
+            raise ValueError("the sharded serving layout needs an FSDP axis on "
+                             "the mesh")
     _check_whole(spec)
     info = LeafInfo(k_dim=k_dim, n_out=wleaf["scale"].shape[-1])
     variant = _pick(cfg, info, spec, backend, x.device)

@@ -20,8 +20,16 @@ does the math:
                             axes, then re-dispatch to the grouped family
                             (K6-K8 on the card).
 
-The reference's ``shard_map`` contract holds: activations ``x`` arrive
-global (replicated on every rank) and the result leaves global.  A leaf
+Two contracts, one per layout (:mod:`repro_torch.models.sharding`).  In
+the replicated layout activations ``x`` arrive global (replicated on every
+rank) and the result leaves global (``gather_out``).  In the sharded
+serving layout (``spmd=True``) ``x`` arrives at the reference's ``x_spec``
+and ``y`` leaves at its ``y_spec``, as its ``shard_map`` holds them: the
+rows this rank holds (the batch over the data axes; they are the token
+rows' FSDP split), a row leaf's ``x`` also its block of K over ``model``;
+a col result keeps its block of N over ``model`` (``P(m_ax, tp)``), a row
+result is whole after the all-reduce.  Nothing is then sliced or
+gathered back.  A leaf
 from a mesh-aware plan already holds this rank's block of the payload
 (``ExecSpec.shard``); any other leaf is global and is cut to the block
 first, as ``shard_map``'s ``in_specs`` would.  TP layouts as in the
@@ -193,11 +201,16 @@ def gather_dequant_leaf(wleaf: dict, scfg: StruMConfig, mesh, pattern: str,
     description="all-gather packed payloads along the FSDP axes, dequantize "
                 "this rank's block, f32 matmul (portable distributed path)")
 def _gather_dequant(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
-                    out_dtype=None, accum_dtype=torch.float32):
+                    out_dtype=None, accum_dtype=torch.float32, spmd=False):
     out_dtype = out_dtype or x.dtype
     tp = _tp_axis(mesh)
     wd = _local_dense(wleaf, cfg, mesh, pattern, fsdp, x.dtype).to(torch.float32)
     xf = x.to(torch.float32)
+    if spmd:            # x at x_spec, y at y_spec: this rank's rows and blocks
+        y = xf @ wd[:xf.shape[-1]]
+        if pattern != "col":
+            y = shd.all_reduce(y, mesh, tp)
+        return y.to(accum_dtype).to(out_dtype)
     if pattern == "col":
         y = shd.gather_out((xf @ wd[:k_dim]).to(accum_dtype), mesh, tp, -1)
     else:
@@ -223,15 +236,26 @@ def _post_gather_expressible(cfg: StruMConfig, info: LeafInfo) -> bool:
     description="all-gather the packed payloads along the FSDP axes, then run "
                 "the registry-selected 2-D kernel on the gathered payload")
 def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
-                   out_dtype=None, accum_dtype=torch.float32):
+                   out_dtype=None, accum_dtype=torch.float32, spmd=False):
     tp = _tp_axis(mesh)
     col = pattern == "col"
     out_dtype = out_dtype or x.dtype
     lead = tuple(x.shape[:-1])
-    x2 = x.reshape(-1, k_dim)
-    m = x2.shape[0]
     f = _gather_fields(local_payload(wleaf, payload_specs(pattern, fsdp, tp), mesh),
                        pattern, fsdp, mesh)
+    dev = _target(x, mesh)
+    if spmd:            # x at x_spec, y at y_spec: this rank's rows and blocks
+        x_l = x.reshape(-1, x.shape[-1])
+        n_global = f["scale"].shape[-1] * (shd.axis_size(mesh, tp) if col else 1)
+        inner = select_variant(cfg, LeafInfo(k_dim=k_dim, n_out=n_global),
+                               backend=_post_gather_backend(backend, dev), device=dev)
+        y = inner.fn(x_l, _packed(cfg, x_l.shape[-1], f), out_dtype=torch.float32,
+                     **({"accum_dtype": accum_dtype} if inner.accum else {}))
+        if not col:
+            y = shd.all_reduce(y, mesh, tp)          # row-parallel K-partials
+        return y.to(out_dtype).reshape(lead + (y.shape[-1],))
+    x2 = x.reshape(-1, k_dim)
+    m = x2.shape[0]
     n_fsdp = shd.axis_size(mesh, fsdp)
     m_pad = _pick_m_pad(m, n_fsdp)
     if m_pad:
@@ -241,7 +265,6 @@ def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
     k_local = x_l.shape[-1]
     n_global = f["scale"].shape[-1] * (shd.axis_size(mesh, tp) if col else 1)
     # the post-gather kernel: the same registry, the caller's backend
-    dev = _target(x, mesh)
     inner = select_variant(cfg, LeafInfo(k_dim=k_dim, n_out=n_global),
                            backend=_post_gather_backend(backend, dev), device=dev)
     y = inner.fn(x_l, _packed(cfg, k_local, f), out_dtype=torch.float32,

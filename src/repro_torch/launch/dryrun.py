@@ -36,17 +36,28 @@ On a mesh (``lower_cell(..., mesh="16x16" | "2x16x16")``) the step is the
 port's mesh step (``mesh=`` / ``rules=``) on the :class:`AbstractMesh` of
 ``launch.mesh.make_production_mesh(device="meta")``: no process group,
 rank 0's coordinate, the card's kernel choices.  Its collectives build
-their results' shapes alone, and each input is the block rank 0 holds.
-That is what the port holds, which differs from the reference's GSPMD
-specs (``launch.specs.input_shardings``), and the record's ``note`` says
-so: dense leaves, activations and the decode caches are global on every
-rank (dense compute is replicated, ``models.sharding``); packed leaves are
-the rank's block of a mesh-aware plan (``build_plan(mesh=)``); a train
-step's parameters and AdamW moments are its ZeRO-3 shards and its batch is
-global (the step takes its rows itself).  The port's ``out_gather`` (the
-re-assembly of a result to global) moves bytes on the wire, so it counts
-as an all-gather; it is also recorded alone (``out_gather_bytes``), since
-the reference's ``out_specs`` are no collective.
+their results' shapes alone, and each input is the block rank 0 holds
+(``launch.specs.place_inputs``), under the layout the record names
+(``layout``, :data:`LAYOUT_NOTES`):
+
+* ``input_shardings``: the prefill and decode cells of the dense GQA
+  decoders run the sharded serving layout (``models.sharding``), the
+  reference's ``input_shardings``: rank 0 holds its shards of the dense
+  and packed weights, its rows of the batch and its slice of the decode
+  caches, so its argument bytes are the sum of the reference's shard
+  sizes (tokens int64 where the reference's are int32, ``cache_len`` a
+  Python int), and the count holds the FSDP gathers, the row-parallel
+  all-reduces, the vocab-parallel embedding and the flash-decode merge;
+* ``replicated``: the other families' serving cells keep dense weights,
+  activations and caches global on every rank (dense compute
+  replicated), packed weights a mesh-aware plan's block;
+* ``zero3``: a train step's parameters and AdamW moments are its ZeRO-3
+  shards and its batch is global (the step takes its rows itself).
+
+In the replicated layout the port's ``out_gather`` (the re-assembly of a
+result to global) moves bytes on the wire, so it counts as an all-gather;
+it is also recorded alone (``out_gather_bytes``), since the reference's
+``out_specs`` are no collective.
 
 Costs are counted at depth ``period(cfg)``, twice that (and, for a train
 step, three times) and extrapolated to the config's depth
@@ -68,9 +79,10 @@ it, as the reference's Pallas variants do, and the card's post-gather
 partial sums stay f32 (as the reference's ``gather_pallas`` sums), so its
 collectives and kernel calls are the baseline's and only the dense
 products' rounding adds ATen work.  ``--attn-constraint``
-sets ``cfg.attn_heads_constraint``, which acts through the checked
-``constrain`` of ``models.attention`` and moves nothing: its counts equal
-the baseline's, where the reference's GSPMD reshards the heads.
+sets ``cfg.attn_heads_constraint``, which ``models.attention`` checks with
+``sharding.check_axes`` and which moves nothing (the sharded serving
+layout places the heads by its own schedule): its counts equal the
+baseline's, where the reference's GSPMD reshards the heads.
 """
 from __future__ import annotations
 
@@ -97,16 +109,16 @@ from repro_torch.configs.base import ARCH_IDS, SHAPES, get_config
 from repro_torch.core.apply import map_named
 from repro_torch.kernels import hooks
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.specs import input_specs
+from repro_torch.launch.specs import input_specs, place_inputs
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models.sharding import rules_for_mesh
-from repro_torch.models.transformer import period
+from repro_torch.models.transformer import period, sharded_serving
 from repro_torch.optim.adamw import AdamWConfig, OptState
 
 __all__ = ["Counter", "count_step", "extrapolated_costs", "compute_s",
            "collective_bytes", "roofline_terms", "model_flops",
-           "lower_cell", "MESHES", "main"]
+           "lower_cell", "layout_of", "LAYOUT_NOTES", "MESHES", "main"]
 
 #: kernels whose work is a product of x (M, K) with a packed (K, N) weight
 MATMULS = ("cuda:onehot", "cuda:maskfree", "cuda:dense", "cuda:grouped",
@@ -292,19 +304,24 @@ def _card_plan(params, cfg, mesh=None, rules=None):
 
 
 def _rank_inputs(cfg, shape, inputs, mesh, rules):
-    """The inputs rank 0 of ``mesh`` holds: packed serving leaves as the
-    card's (mesh-aware) plan cuts them, a train step's parameters and
-    moments as its ZeRO-3 shards; everything else global."""
+    """The inputs rank 0 of ``mesh`` holds (the module docstring): packed
+    serving leaves as the card's (mesh-aware) plan cuts them, then every
+    input placed by ``launch.specs.place_inputs``."""
     if cfg.strum is not None and shape.kind != "train":
-        return (_card_plan(inputs[0], cfg, mesh, rules),) + tuple(inputs[1:])
-    if mesh is not None and shape.kind == "train":
-        from repro_torch.models import model_defs
-        from repro_torch.models.params import shard_params
-        defs = model_defs(cfg)
-        params, opt, batch = inputs
-        cut = lambda t: shard_params(t, defs, mesh, rules, device="meta")  # noqa: E731
-        return cut(params), OptState(opt.step, cut(opt.m), cut(opt.v)), batch
-    return inputs
+        inputs = (_card_plan(inputs[0], cfg, mesh, rules),) + tuple(inputs[1:])
+    if mesh is None:
+        return inputs
+    return place_inputs(cfg, shape, inputs, mesh, rules)
+
+
+def layout_of(cfg, kind: str, mesh) -> str:
+    """The layout a cell's step runs on ``mesh``: ``"1x1"`` without one, else
+    a key of :data:`LAYOUT_NOTES`."""
+    if mesh is None:
+        return "1x1"
+    if kind == "train":
+        return "zero3"
+    return "input_shardings" if sharded_serving(cfg, mesh) else "replicated"
 
 
 def count_step(cfg, shape, inputs=None, mesh=None, rules=None) -> dict:
@@ -421,15 +438,26 @@ def model_flops(cfg, shape) -> float:
     return (6.0 if shape.kind == "train" else 2.0) * cfg.active_param_count() * tokens
 
 
-#: the record's ``note`` on a mesh: where the port's per-rank inputs
-#: differ from the reference's GSPMD specs
-MESH_NOTE = ("rank 0 of the port's mesh step: dense weights, activations and "
-             "decode caches global on every rank (dense compute replicated), "
-             "packed weights the rank's block of a mesh-aware plan, train "
-             "parameters and moments ZeRO-3 shards with the batch global; the "
-             "reference's specs shard dense weights, activations and caches "
-             "too. out_gather re-assembles results to global and counts as an "
-             "all-gather")
+#: the record's ``note`` on a mesh, by its ``layout``: what rank 0 holds
+LAYOUT_NOTES = {
+    "input_shardings": (
+        "rank 0 of the port's sharded serving layout, the reference's "
+        "input_shardings: dense and packed weights, the batch and the decode "
+        "caches are rank 0's shards (weights FSDP over data, qkv/mlp/vocab over "
+        "model; batch over data; cache sequence over model); tokens int64 and "
+        "cache_len a Python int where the reference's are int32"),
+    "replicated": (
+        "rank 0 of the port's replicated layout: dense weights, activations and "
+        "decode caches global on every rank (dense compute replicated), packed "
+        "weights the rank's block of a mesh-aware plan; the reference's specs "
+        "shard dense weights, activations and caches too. out_gather "
+        "re-assembles results to global and counts as an all-gather"),
+    "zero3": (
+        "rank 0 of the port's ZeRO-3 train step: parameters and moments ZeRO-3 "
+        "shards over the data axes, the batch global, dense compute replicated "
+        "over model; the reference's specs shard the batch and the model axis "
+        "too"),
+}
 
 
 def lower_cell(arch: str, shape_name: str, overrides: Optional[dict] = None,
@@ -448,6 +476,7 @@ def lower_cell(arch: str, shape_name: str, overrides: Optional[dict] = None,
                     note="quadratic attention at 512k context")
     mesh_obj = None if mesh == "1x1" else make_production_mesh(multi_pod=MESHES[mesh],
                                                                device="meta")
+    rec["layout"] = layout_of(cfg, shape.kind, mesh_obj)
     n_dev = 1 if mesh_obj is None else mesh_obj.size()
     t0 = time.perf_counter()
     costs = extrapolated_costs(cfg, shape, mesh_obj)
@@ -459,7 +488,7 @@ def lower_cell(arch: str, shape_name: str, overrides: Optional[dict] = None,
         coll = {k: coll[k] for k in ("per_kind_bytes", "per_kind_count", "link_bytes")}
     else:
         memory = costs["memory"]
-        rec["note"] = MESH_NOTE
+        rec["note"] = LAYOUT_NOTES[rec["layout"]]
     link = coll["link_bytes"]
     rec.update(status="OK", kind=shape.kind, n_devices=n_dev,
                trace_s=round(time.perf_counter() - t0, 2),

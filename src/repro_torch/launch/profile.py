@@ -29,6 +29,7 @@ import time
 import torch
 
 from repro_torch.launch import serve as S
+from repro_torch.models.sharding import place_tree, placement
 
 __all__ = ["main"]
 
@@ -58,7 +59,8 @@ def _report(name: str, prof, wall: float, n: int, rows: int) -> None:
 
 def _rules(res: dict):
     from repro_torch.models.sharding import rules_for_mesh
-    return None if res["mesh"] is None else rules_for_mesh(res["mesh"])
+    return None if res["mesh"] is None else rules_for_mesh(res["mesh"],
+                                                           res["prompt"].shape[0])
 
 
 def _profile_paged(res: dict, args) -> int:
@@ -94,15 +96,16 @@ def main(argv=None) -> int:
     res = S.run(rest)
     if res["paged"]:
         return _profile_paged(res, args)
-    cfg, params, prompt, toks = res["cfg"], res["params"], res["prompt"], res["tokens"]
+    cfg, prompt, toks = res["cfg"], res["prompt"], res["tokens"]
     steps, n = min(args.steps, res["gen"]), prompt.shape[1]
-    mesh = {"mesh": res["mesh"], "rules": _rules(res)}
+    params, rows, prefill, step = S.serving_setup(cfg, res["params"], prompt, steps,
+                                                  mesh=res["mesh"], rules=_rules(res))
+    pl = placement(rows)
+    if pl is not None:      # the sharded serving layout: this rank's rows
+        toks = place_tree(toks, pl.spec, res["mesh"])
     with torch.inference_mode():
-        prof, wall, (_, caches) = _profiled(
-            lambda: S.make_prefill_step(cfg, **mesh)(params, {"tokens": prompt}))
+        prof, wall, (_, caches) = _profiled(lambda: prefill(params, {"tokens": rows}))
         _report("prefill", prof, wall, 1, args.rows)
-        caches = S.pad_caches(caches, steps + 1)
-        step = S.make_decode_step(cfg, **mesh)
 
         def decode():
             for i in range(steps):

@@ -51,6 +51,12 @@ shape (NCCL on the card, gloo with ``--device cpu``): under ``torchrun``
 with DATA x MODEL ranks, or on a world of 1 as ``1x1``; the plan is
 mesh-aware (every rank keeps its block of the payload, ``sharded:*``
 variants gather the packed bytes) and every rank prints the same report.
+The dense-cache loop of a dense GQA decoder then runs the sharded serving
+layout (``models.sharding``): dense weights placed by ``shard_params``, the
+prompt split over the data axes, the caches (padded to
+``launch.specs.padded_cache_len`` where ``model`` has more than one rank)
+also over ``model`` by sequence; only the sampled tokens (and the logits
+kept for the report) are gathered whole.
 """
 from __future__ import annotations
 
@@ -71,7 +77,8 @@ from repro_torch.models import model_defs
 from repro_torch.models.params import init_params
 from repro_torch.models.quantize import serve_tree_bytes
 
-__all__ = ["pad_caches", "serve", "serve_paged", "ssm_hot_bytes", "run", "main"]
+__all__ = ["pad_caches", "decode_cache_len", "serving_setup", "serve", "serve_paged",
+           "greedy_tokens", "ssm_hot_bytes", "run", "main"]
 
 
 def pad_caches(caches: dict, extra: int) -> dict:
@@ -90,45 +97,117 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def decode_cache_len(mesh, seq_len: int) -> int:
+    """The decode loop's cache length for ``seq_len`` positions: one
+    headroom slot, rounded up by ``launch.specs.padded_cache_len`` where the
+    sharded serving layout splits the cache's sequence over a ``model`` axis
+    of more than one rank (the split must divide it)."""
+    from repro_torch.launch.specs import padded_cache_len
+    from repro_torch.models import sharding as shd
+    if mesh is not None and shd.axis_size(mesh, shd.tp_axis(mesh)) > 1:
+        return padded_cache_len(seq_len)
+    return seq_len + 1
+
+
+def serving_setup(cfg, params, prompt: torch.Tensor, gen: int, *, mesh=None,
+                  rules=None, **kw):
+    """The dense-cache loop's set-up, shared by :func:`serve` and
+    ``launch.profile``: ``(params, prompt, prefill step, decode step)``.  On
+    a ``mesh`` the params and the prompt are this rank's blocks
+    (``launch.specs.place_inputs``; as they are outside the sharded serving
+    layout); the prefill's caches hold :func:`decode_cache_len` positions,
+    enough for ``gen`` decode steps."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import place_inputs
+    from repro_torch.models import sharding as shd
+    b, n = prompt.shape
+    if mesh is not None:
+        rules = rules or shd.rules_for_mesh(mesh, b)
+        params, batch = place_inputs(cfg, ShapeSpec("serve", n, b, "prefill"),
+                                     (params, {"tokens": prompt}), mesh, rules)
+        prompt = batch["tokens"]
+    max_len = decode_cache_len(mesh, n + gen)
+    return (params, prompt, make_prefill_step(cfg, mesh, rules, max_len=max_len, **kw),
+            make_decode_step(cfg, mesh, rules, **kw))
+
+
 @torch.inference_mode()
 def serve(cfg, params, prompt: torch.Tensor, gen: int, *, device="cuda",
-          return_logits: bool = False, warmup: bool = True, **kw):
+          return_logits: bool = False, warmup: bool = True, mesh=None,
+          rules=None, **kw):
     """Prefill ``prompt`` (B, S) then ``gen`` greedy decode steps.
 
     Returns ``(tokens (B, gen+1), prefill_s, decode_s)``, plus the f32 logits
     of every step ``(B, gen+1, V)`` when ``return_logits``; ``kw`` (e.g.
     ``backend=``) reaches every linear.  With ``warmup`` one untimed prefill
     and decode step run first, so the times leave out the first calls'
-    set-up (library handles, allocator growth, kernel loading).
+    set-up (library handles, allocator growth, kernel loading).  On a
+    ``mesh`` a dense GQA decoder serves in the sharded serving layout
+    (:func:`serving_setup`; ``params`` whole or already placed): each rank
+    computes its rows and blocks, the greedy token is a vocab-parallel
+    argmax (:func:`greedy_tokens`), and only the tokens and the returned
+    logits are gathered whole.  The other families keep the replicated
+    layout.  Tokens and logits come back whole on every rank.
     """
     dev = resolve_device(device)
-    prompt = prompt.to(dev)
-    prefill_fn = make_prefill_step(cfg, **kw)
-    decode_fn = make_decode_step(cfg, **kw)
-
+    n = prompt.shape[1]
+    params, rows, prefill_fn, decode_fn = serving_setup(
+        cfg, params, prompt.to(dev), gen, mesh=mesh, rules=rules, **kw)
     if warmup:
-        lg, caches = prefill_fn(params, {"tokens": prompt})
-        decode_fn(params, lg[:, -1, :cfg.vocab_size].argmax(-1)[:, None],
-                  pad_caches(caches, 1), prompt.shape[1])
+        lg, caches = prefill_fn(params, {"tokens": rows})
+        decode_fn(params, greedy_tokens(lg, mesh, cfg.vocab_size), caches, n)
     _sync(dev)
     t0 = time.perf_counter()
-    lg, caches = prefill_fn(params, {"tokens": prompt})
-    caches = pad_caches(caches, gen + 1)
+    lg, caches = prefill_fn(params, {"tokens": rows})
     steps = [lg[:, -1]]
-    toks = [lg[:, -1, :cfg.vocab_size].argmax(-1)[:, None]]
+    toks = [greedy_tokens(lg, mesh, cfg.vocab_size)]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    n = prompt.shape[1]
     for i in range(gen):
         lg, caches = decode_fn(params, toks[-1], caches, n + i)
         steps.append(lg[:, -1])
-        toks.append(lg[:, -1, :cfg.vocab_size].argmax(-1)[:, None])
+        toks.append(greedy_tokens(lg, mesh, cfg.vocab_size))
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    out = (torch.cat(toks, dim=1), t_prefill, t_decode)
-    return out + (torch.stack(steps, dim=1),) if return_logits else out
+    out = (_whole_like(torch.cat(toks, dim=1), toks[0], mesh), t_prefill, t_decode)
+    if not return_logits:
+        return out
+    return out + (_whole_like(torch.stack(steps, dim=1), lg, mesh),)
+
+
+def _whole_like(t: torch.Tensor, like: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``, a block placed as ``like`` is, gathered whole; ``t`` itself
+    when ``like`` is whole."""
+    from repro_torch.models import sharding as shd
+    pl = shd.placement(like)
+    return t if pl is None else shd.gather_whole(shd.place(t, mesh, pl.spec), mesh)
+
+
+def greedy_tokens(lg: torch.Tensor, mesh, vocab: int) -> torch.Tensor:
+    """``argmax(lg[:, -1, :vocab])`` as ``(B, 1)``.  Of a placed logits
+    block ``(B_l, S, V_l)`` (rows and a vocab block; the sharded serving
+    layout): each rank's first maximum over its valid columns, then the
+    first maximum over the ranks of the vocab axes, which is the first
+    maximum of the whole row; this rank's rows' tokens ``(B_l, 1)``,
+    placed."""
+    from repro_torch.models import sharding as shd
+    pl = shd.placement(lg)
+    if pl is None:
+        return lg[:, -1, :vocab].argmax(-1)[:, None]
+    entry = pl.spec[2]
+    v_l = lg.shape[-1]
+    v0 = shd.axis_index(mesh, entry) * v_l if shd.axis_size(mesh, entry) > 1 else 0
+    cols = v0 + torch.arange(v_l, device=lg.device)
+    row = torch.where(cols < vocab, lg[:, -1], torch.full_like(lg[:, -1], -torch.inf))
+    best, idx = row.max(dim=-1)
+    if shd.axis_size(mesh, entry) > 1:
+        bests = shd.all_gather(best[None], mesh, entry, 0)
+        idxs = shd.all_gather((idx + v0)[None], mesh, entry, 0)
+        pick = bests.argmax(dim=0)
+        idx = idxs.gather(0, pick[None])[0]
+    return shd.place(idx[:, None], mesh, shd.P(pl.spec[0], None))
 
 
 def serve_paged(cfg, params, prompt: torch.Tensor, gen: int, *, plan=None,
@@ -256,7 +335,7 @@ def run(argv=None) -> dict:
         from repro_torch.models.sharding import rules_for_mesh
         data, model = (int(v) for v in args.mesh.lower().split("x"))
         mesh = make_host_mesh(data=data, model=model, device=dev)
-        rules = rules_for_mesh(mesh)
+        rules = rules_for_mesh(mesh, args.batch)
         res["mesh"] = mesh
     if args.schedule is not None:
         from repro_torch.autotune.schedule import StruMSchedule

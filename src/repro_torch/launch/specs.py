@@ -11,11 +11,15 @@ scalar could not run).  :func:`input_shardings` gives the same trees'
 ``PartitionSpec`` leaves under the sharding rules (the reference's
 ``NamedSharding`` trees without the mesh): it reads only a mesh's axis names
 and sizes, so a stand-in object with ``axis_names`` and a ``shape`` dict
-serves, as ``models.sharding`` allows wherever no collective runs.  These
-are the reference's GSPMD specs; the port's mesh step holds other blocks
-(dense weights, activations and caches global, packed weights a mesh-aware
-plan's block, ZeRO-3 shards for a train step), and the mesh dry-run counts
-those (``launch.dryrun``).
+serves, as ``models.sharding`` allows wherever no collective runs.
+
+They are the placement the serving steps take on a mesh
+(:func:`place_inputs`; the sharded serving layout of
+``models.sharding``), for the dense GQA decoders' prefill and decode cells:
+``serve --mesh`` and the mesh dry-run apply them.  Packed weights are the
+blocks a mesh-aware plan cuts (``build_plan(mesh=)``), which are these
+specs' blocks.  The other families' serving steps and the train step keep
+the replicated layout (a train step: ZeRO-3 shards with the batch global).
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from repro_torch.models.sharding import (P, Rules, axis_sizes, fsdp_axes,
                                          rules_for_mesh)
 from repro_torch.optim.adamw import OptState, abstract_opt_state
 
-__all__ = ["input_specs", "input_shardings", "batch_axes", "padded_cache_len"]
+__all__ = ["input_specs", "input_shardings", "batch_axes", "padded_cache_len",
+           "place_inputs"]
 
 
 def padded_cache_len(seq_len: int) -> int:
@@ -121,3 +126,44 @@ def input_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
                                      padded_cache_len(shape.seq_len)), Rules(table))
     token = P(baxes, None, None) if cfg.modality != "text" else P(baxes, None)
     return pspecs, token, cspecs, P()
+
+
+def place_inputs(cfg: ModelConfig, shape: ShapeSpec, inputs, mesh,
+                 rules: Optional[Rules] = None):
+    """This rank's blocks of a cell's whole ``inputs`` (in
+    :func:`input_specs`' order) under :func:`input_shardings`, each placed
+    (``models.sharding.Placement``): what the sharded serving layout's
+    prefill and decode steps take.  Dense weights are cut by
+    ``models.params.shard_params``; packed weights must be a mesh-aware
+    plan's blocks already.  A train cell, or a family the layout does not
+    cover, is its replicated layout: ZeRO-3 shards of the parameters and
+    AdamW moments for a train step (batch global), the inputs as they are
+    for the others."""
+    from repro_torch.models.params import shard_params
+    from repro_torch.models.sharding import place_tree
+    from repro_torch.models.transformer import sharded_serving
+    rules = rules or rules_for_mesh(mesh, shape.global_batch)
+    defs = model_defs(cfg)
+    dev = _device_of(inputs[0])
+    if shape.kind == "train":
+        params, opt, batch = inputs
+        cut = lambda t: shard_params(t, defs, mesh, rules, device=dev)  # noqa: E731
+        return cut(params), OptState(opt.step, cut(opt.m), cut(opt.v)), batch
+    if not sharded_serving(cfg, mesh):
+        return inputs
+    specs = input_shardings(cfg, shape, mesh, rules)
+    params = shard_params(inputs[0], defs, mesh, rules, device=dev)
+    rest = tuple(place_tree(t, s, mesh) if isinstance(t, (dict, torch.Tensor)) else t
+                 for t, s in zip(inputs[1:], specs[1:]))
+    return (params,) + rest
+
+
+def _device_of(tree) -> torch.device:
+    """The device of the first tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            dev = _device_of(v)
+            if dev is not None:
+                return dev
+        return None
+    return tree.device if isinstance(tree, torch.Tensor) else None

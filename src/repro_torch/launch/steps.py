@@ -140,16 +140,23 @@ def build_serving_plan(params, *, schedule=None, cfg=None, policy=None,
                              device=device)
 
 
-def make_prefill_step(cfg, mesh=None, rules: Optional[Rules] = None, **kw):
+def make_prefill_step(cfg, mesh=None, rules: Optional[Rules] = None,
+                      max_len: Optional[int] = None, replicated: bool = False, **kw):
     """(params, batch) -> (last-token logits, caches); ``kw`` (e.g.
-    ``backend=``) reaches every linear."""
+    ``backend=``) reaches every linear, ``max_len`` pads the caches to the
+    decode loop's length.  With a mesh, a dense GQA decoder's step takes
+    its inputs at ``launch.specs.input_shardings`` (``place_inputs``) and
+    returns this rank's blocks (the sharded serving layout), unless
+    ``replicated`` (the paged runtime's serial prefill)."""
     def step(params, batch):
-        return tfm.prefill(params, batch, cfg, mesh=mesh, rules=rules, **kw)
+        return tfm.prefill(params, batch, cfg, mesh=mesh, rules=rules,
+                           max_len=max_len, replicated=replicated, **kw)
     return step
 
 
 def make_decode_step(cfg, mesh=None, rules: Optional[Rules] = None, **kw):
-    """(params, token, caches, cache_len) -> (logits, caches)."""
+    """(params, token, caches, cache_len) -> (logits, caches); with a mesh,
+    as :func:`make_prefill_step` says."""
     def step(params, token, caches, cache_len):
         return tfm.decode_step(params, token, caches, cache_len, cfg, mesh=mesh,
                                rules=rules, **kw)

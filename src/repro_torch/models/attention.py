@@ -6,6 +6,19 @@ torch ops that mirror the reference's arithmetic around the kernels.
 
 Head order is kv-major, as in the reference: query head ``h`` belongs to kv
 group ``h // rep`` (``q.reshape(b, nkv, rep, hd)``).
+
+In the sharded serving layout (``spmd=True`` with a ``tp_mesh`` among the
+linears' keywords; :mod:`repro_torch.models.sharding`) each rank holds its
+rows of the batch and its block of the q / k / v columns over ``model``,
+which need not align with heads (Qwen2-7B's 3584 q columns over 16 ranks
+are 1.75 heads each): q, k and v are gathered over ``model``.  Prefill
+then computes the heads that overlap this rank's block of the columns and
+keeps that block, which is the K block of ``wo``'s row-parallel product.
+Decode reads a cache whose sequence is split over ``model``: the new
+token is written on the rank that holds position ``cache_len``, each rank
+takes the online-softmax partial of every head over its slice of the
+sequence, the partials are merged across ``model`` by
+:func:`_merge_partials`'s rule, and ``wo`` runs on this rank's block.
 """
 from __future__ import annotations
 
@@ -13,8 +26,8 @@ import math
 
 import torch
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import apply_rope, linear, linear_def
-from repro_torch.models.sharding import constrain
 
 __all__ = ["attn_def", "attention", "decode_attention", "init_cache_spec",
            "decode_attention_paged", "prefill_attention_paged",
@@ -34,13 +47,29 @@ def attn_def(cfg, lead=()) -> dict:
     }
 
 
+def _spmd_mesh(kw: dict):
+    """The mesh of the sharded serving layout, or None (any other lane)."""
+    return kw.get("tp_mesh") if kw.get("spmd") else None
+
+
+def _tp_block(mesh, width: int) -> tuple:
+    """This rank's columns ``[c0, c1)`` of a ``width``-wide dim split over
+    ``model``."""
+    n = shd.axis_size(mesh, shd.tp_axis(mesh))
+    c0 = shd.axis_index(mesh, shd.tp_axis(mesh)) * (width // n) if n > 1 else 0
+    return c0, c0 + width // n
+
+
 def _qkv(p, x, cfg, positions, **kw):
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     kw_c = dict(kw, tp_pattern="col")
-    q = linear(p["wq"], x, **kw_c).reshape(b, s, nh, hd)
-    k = linear(p["wk"], x, **kw_c).reshape(b, s, nkv, hd)
-    v = linear(p["wv"], x, **kw_c).reshape(b, s, nkv, hd)
+    q, k, v = (linear(p[n], x, **kw_c) for n in ("wq", "wk", "wv"))
+    mesh = _spmd_mesh(kw)
+    tp = shd.tp_axis(mesh) if mesh is not None else None
+    if shd.axis_size(mesh, tp) > 1:   # each rank holds its block of the columns
+        q, k, v = (shd.all_gather(t, mesh, tp, t.dim() - 1) for t in (q, k, v))
+    q, k, v = q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd), v.reshape(b, s, nkv, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -95,17 +124,37 @@ def _chunked_causal(q, k, v, chunk: int) -> torch.Tensor:
 def attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
               return_kv: bool = False, rules=None, **kw):
     """Training / prefill attention.  x: (B, S, D).  ``rules`` checks the
-    heads' logical axes (``sharding.constrain``), as the reference pins
-    them; the heads stay replicated here."""
+    heads' logical axes, as the reference pins them
+    (``sharding.check_axes``); the replicated layout keeps the heads whole
+    and the sharded serving layout places them by its own schedule (the
+    module docstring), so the constraint moves nothing."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions, **kw)
     if cfg.attn_heads_constraint and rules is not None:
-        q = constrain(q, ("batch", None, "heads", None), rules)
-        k = constrain(k, ("batch", None, "kv_heads", None), rules)
-        v = constrain(v, ("batch", None, "kv_heads", None), rules)
-    o = _chunked_causal(q, k, v, cfg.attn_chunk).to(x.dtype)
-    y = linear(p["wo"], o.reshape(b, s, -1), **dict(kw, tp_pattern="row"))
+        shd.check_axes(q, ("batch", None, "heads", None), rules)
+        shd.check_axes(k, ("batch", None, "kv_heads", None), rules)
+        shd.check_axes(v, ("batch", None, "kv_heads", None), rules)
+    mesh = _spmd_mesh(kw)
+    if mesh is None:
+        o = _chunked_causal(q, k, v, cfg.attn_chunk).reshape(b, s, -1)
+    else:
+        o = _heads_of_block(q, k, v, cfg, mesh)
+    y = linear(p["wo"], o.to(x.dtype), **dict(kw, tp_pattern="row"))
     return (y, (k, v)) if return_kv else y
+
+
+def _heads_of_block(q, k, v, cfg, mesh) -> torch.Tensor:
+    """Causal attention of the heads that overlap this rank's block of the
+    q columns, each against its kv group; returns that block of the
+    output columns, (B, S, nh·hd / model) f32."""
+    b, s, nh, hd = q.shape
+    rep = nh // k.shape[2]
+    c0, c1 = _tp_block(mesh, nh * hd)
+    h0, h1 = c0 // hd, -(-c1 // hd)
+    groups = torch.arange(h0, h1, device=q.device) // rep
+    o = _chunked_causal(q[:, :, h0:h1], k.index_select(2, groups),
+                        v.index_select(2, groups), cfg.attn_chunk)
+    return o.reshape(b, s, -1)[..., c0 - h0 * hd:c1 - h0 * hd]
 
 
 def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
@@ -115,7 +164,10 @@ def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
     The new token attends over ``cache[:cache_len]`` plus itself.  Unlike
     the reference's functional update, the cache is written in place at
     position ``cache_len`` (saves a cache copy per step) and returned.
-    ``cache_len`` is an int or a (B,) tensor of per-row lengths.
+    ``cache_len`` is an int or a (B,) tensor of per-row lengths.  In the
+    sharded serving layout the cache holds this rank's rows and its slice
+    of the sequence (its placement says which), as the module docstring
+    says.
     """
     b = x.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -128,19 +180,53 @@ def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
     else:
         lens = torch.full((b,), int(cache_len), dtype=torch.long, device=x.device)
     q, k, v = _qkv(p, x, cfg, lens[:, None], **kw)
-
-    rows = torch.arange(b, device=x.device)
-    ck[rows, lens] = k[:, 0].to(ck.dtype)
-    cv[rows, lens] = v[:, 0].to(cv.dtype)
-
     qf = (q.to(torch.float32) / math.sqrt(hd)).reshape(b, nkv, rep, hd)
-    sc = torch.einsum("bgrd,bsgd->bgrs", qf, ck.to(torch.float32))
-    valid = torch.arange(smax, device=x.device)[None, :] <= lens[:, None]
-    sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
-    w = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bgrs,bsgd->bgrd", w, cv.to(torch.float32))
-    y = linear(p["wo"], o.reshape(b, 1, nh * hd).to(x.dtype), **dict(kw, tp_pattern="row"))
+    rows = torch.arange(b, device=x.device)
+    mesh = _spmd_mesh(kw)
+    pl = shd.placement(ck)
+    seq = pl.spec[1] if mesh is not None and pl is not None else None
+    if shd.axis_size(mesh, seq) > 1:        # the sequence split over ranks
+        o = _decode_seq_sharded(qf, k, v, ck, cv, lens, mesh, seq)
+    else:
+        ck[rows, lens] = k[:, 0].to(ck.dtype)
+        cv[rows, lens] = v[:, 0].to(cv.dtype)
+        sc = torch.einsum("bgrd,bsgd->bgrs", qf, ck.to(torch.float32))
+        valid = torch.arange(smax, device=x.device)[None, :] <= lens[:, None]
+        sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
+        w = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bgrs,bsgd->bgrd", w, cv.to(torch.float32))
+    o = o.reshape(b, 1, nh * hd)
+    if mesh is not None:                    # this rank's K block of wo
+        c0, c1 = _tp_block(mesh, nh * hd)
+        o = o[..., c0:c1]
+    y = linear(p["wo"], o.to(x.dtype), **dict(kw, tp_pattern="row"))
     return y, (ck, cv)
+
+
+def _decode_seq_sharded(qf, k, v, ck, cv, lens, mesh, entry) -> torch.Tensor:
+    """Flash-decode over a cache whose sequence is split over the mesh axes
+    ``entry``: the new token is written on the rank whose slice holds
+    position ``lens`` (per row), each rank takes the online-softmax partial
+    over its slice, and the partials of every rank are merged.  Returns the
+    normalized output (B, KV, rep, hd) f32, whole on every rank."""
+    b = qf.shape[0]
+    s_l = ck.shape[1]
+    s0 = shd.axis_index(mesh, entry) * s_l
+    rows = torch.arange(b, device=qf.device)
+    own = (lens >= s0) & (lens < s0 + s_l)
+    idx = (lens - s0).clamp(0, s_l - 1)
+    for cache, new in ((ck, k), (cv, v)):
+        cache[rows, idx] = torch.where(own[:, None, None], new[:, 0].to(cache.dtype),
+                                       cache[rows, idx])
+    pos = s0 + torch.arange(s_l, device=qf.device)
+    valid = (pos[None, :] <= lens[:, None])[:, None, None, :]
+    acc, m, l = _softmax_partial(qf, ck, cv, valid)
+    sizes = (acc[0].numel(), m[0].numel(), l[0].numel())
+    flat = torch.cat([acc.reshape(b, -1), m.reshape(b, -1), l.reshape(b, -1)], dim=-1)
+    every = shd.all_gather(flat[None], mesh, entry, 0)
+    parts = [tuple(t.reshape(like.shape) for t, like in
+                   zip(row.split(sizes, dim=-1), (acc, m, l))) for row in every]
+    return _merge_partials(parts)
 
 
 def init_cache_spec(cfg, batch: int, max_len: int):

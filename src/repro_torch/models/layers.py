@@ -8,6 +8,14 @@ from :func:`repro_torch.engine.build_plan`); it then runs through
 (dense linears, the logits) are ``torch.matmul`` in f32, after rounding the
 weight to the activation dtype as the reference's ``w.astype(x.dtype)``
 does.
+
+In the sharded serving layout (``spmd=True`` with a ``tp_mesh``; see
+:mod:`repro_torch.models.sharding`) a dense leaf is this rank's shard: its
+``embed`` dim is gathered over the data axes per use (FSDP), a ``col``
+linear keeps its output features local, a ``row`` linear contracts this
+rank's block of K and all-reduces over ``model``; the embedding table is
+vocab-parallel and the LM head's logits are this rank's vocab block.
+Anywhere else a sharded dense leaf raises.
 """
 from __future__ import annotations
 
@@ -17,11 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import StruMConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.params import ParamDef, torch_dtype
 
 __all__ = ["rms_norm", "nonparam_ln", "norm_def", "apply_norm", "linear_def",
            "linear", "mlp_def", "mlp", "rope_freqs", "apply_rope", "embed_def",
-           "embed_lookup", "logits"]
+           "embed_lookup", "logits", "check_whole"]
 
 
 def _f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -73,24 +82,65 @@ def linear_def(d_in: int, d_out: int, in_axis: str, out_axis: str,
 
 def linear(p: dict, x: torch.Tensor, *, strum: Optional[StruMConfig] = None,
            backend: Optional[str] = None, accum_dtype=torch.float32, tp_mesh=None,
-           tp_pattern: Optional[str] = None) -> torch.Tensor:
+           tp_pattern: Optional[str] = None, spmd: bool = False) -> torch.Tensor:
     """y = x @ W (+ b), dense or StruM-compressed; ``backend`` overrides the
     plan's variant per call (``"torch"``, ``"cuda"``, ...).  ``accum_dtype``
     (a dtype or its name) is the reference's ``preferred_element_type``:
     the f32 product is rounded to it before x's dtype (the CUDA kernels
     ignore it).  With ``tp_mesh`` a packed leaf runs through the
-    ``sharded:*`` family in the ``tp_pattern`` layout ('col' | 'row'); a
-    dense leaf ignores both (dense compute is replicated)."""
+    ``sharded:*`` family in the ``tp_pattern`` layout ('col' | 'row').  A
+    dense leaf computes replicated, unless ``spmd`` (the sharded serving
+    layout): then it must be a placed shard (``params.shard_params``) and
+    runs as the module docstring says; ``x`` and the result hold this
+    rank's rows (a row linear's ``x`` its block of K, a col linear's result
+    its block of N)."""
     acc = torch_dtype(accum_dtype)
     wleaf = p["w"]
     if isinstance(wleaf, dict):
         from repro_torch.engine.dispatch import dispatch
         y = dispatch(wleaf, x, strum=strum, backend=backend, accum_dtype=acc,
-                     mesh=tp_mesh, tp_pattern=tp_pattern)
+                     mesh=tp_mesh, tp_pattern=tp_pattern, spmd=spmd)
+    elif spmd and tp_mesh is not None:
+        y = _spmd_product(x, wleaf, tp_mesh).to(acc).to(x.dtype)
     else:
+        check_whole(wleaf, "a dense linear")
         y = _f32_matmul(x, wleaf).to(acc).to(x.dtype)
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        b = p["b"]
+        if not (spmd and tp_mesh is not None):
+            check_whole(b, "a linear's bias")
+        y = y + b.to(y.dtype)
+    return y
+
+
+def check_whole(t: torch.Tensor, what: str) -> None:
+    """Refuse a sharded dense leaf outside the sharded serving layout: it
+    would compute on its block as if it were the whole tensor."""
+    if shd.is_sharded(t):
+        pl = shd.placement(t)
+        raise ValueError(
+            f"{what}: a sharded dense leaf (global shape {pl.shape}, spec "
+            f"{pl.spec}) reached a lane that holds whole dense weights; the "
+            f"sharded serving layout covers prefill and decode_step of the "
+            f"dense GQA decoders on a mesh")
+
+
+def _spmd_product(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """f32 ``x @ w`` of a placed dense shard: each ``embed`` dim gathered
+    over its axes (FSDP), a K split over ``model`` contracted locally and
+    all-reduced over it."""
+    pl = shd.placement(w)
+    if pl is None or pl.axes is None:
+        raise ValueError("sharded serving layout: a dense weight that is not a "
+                         "placed shard; place the served tree with "
+                         "models.params.shard_params")
+    for dim, (ax, entry) in enumerate(zip(pl.axes, pl.spec)):
+        if ax == "embed" and shd.axis_size(mesh, entry) > 1:
+            w = shd.all_gather(w, mesh, entry, dim)
+    y = _f32_matmul(x, w)
+    k_entry = pl.spec[0]
+    if pl.axes[0] != "embed" and shd.axis_size(mesh, k_entry) > 1:
+        y = shd.all_reduce(y, mesh, k_entry)      # row-parallel K-partials
     return y
 
 
@@ -141,12 +191,32 @@ def embed_def(cfg) -> dict:
                               ("vocab", "embed_no_fsdp"), scale=1.0)}
 
 
-def embed_lookup(p: dict, ids: torch.Tensor, dtype) -> torch.Tensor:
-    return p["table"][ids].to(dtype)
+def embed_lookup(p: dict, ids: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
+    """Rows of the table for ``ids``.  A table sharded over the vocab
+    (the sharded serving layout; ``mesh`` given) is vocab-parallel: each
+    rank looks up the ids its block holds, zeroes the others and the rows
+    are all-reduced over the vocab's axes (one rank adds a row, the others
+    zeros, so the sum is exact)."""
+    table = p["table"]
+    if mesh is not None and shd.placement(table) is None:
+        raise ValueError("sharded serving layout: the embedding table is not "
+                         "placed; place the served tree with "
+                         "models.params.shard_params")
+    if mesh is None or not shd.is_sharded(table):
+        check_whole(table, "the embedding")
+        return table[ids].to(dtype)
+    entry = shd.placement(table).spec[0]
+    n = table.shape[0]
+    local = ids - shd.axis_index(mesh, entry) * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(dtype)
+    rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+    return shd.all_reduce(rows, mesh, entry)
 
 
 def logits(head_p: Optional[dict], embed_p: dict, x: torch.Tensor) -> torch.Tensor:
-    """LM head, f32 out: tied (embed^T) or untied."""
+    """LM head, f32 out: tied (embed^T) or untied.  On a vocab-sharded head
+    (the sharded serving layout) the result is this rank's vocab block."""
     if head_p is not None:
         return _f32_matmul(x, head_p["w"])
     return _f32_matmul(x, embed_p["table"].T)

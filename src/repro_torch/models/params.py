@@ -12,8 +12,11 @@ sides compute on identical weights.
 
 On a mesh, ``param_pspecs`` gives each leaf's ``PartitionSpec`` under the
 sharding rules, ``shard_params`` cuts a global tree (tensors, or numpy: the
-weight carry-over) into this rank's shards and ``gather_params`` puts the
-shards back together (ZeRO-3 storage; checkpoints hold the global arrays).
+weight carry-over; or a served tree, whose packed leaves it keeps as they
+are) into this rank's shards, each placed
+(``sharding.Placement``), and ``gather_params`` puts the shards back
+together (ZeRO-3 storage and the sharded serving layout; checkpoints hold
+the global arrays).
 """
 from __future__ import annotations
 
@@ -144,14 +147,43 @@ def param_shardings(defs, mesh, rules):
 
 def shard_params(tree, defs, mesh, rules, device=None):
     """A global tree (tensors or numpy arrays, e.g. the reference's
-    ``init_params``) -> this rank's shards under ``rules``, on ``device``
-    (default: the mesh's device type)."""
-    from repro_torch.models.sharding import shard_slice, spec_for_axes
+    ``init_params``; or a served tree) -> this rank's shards under
+    ``rules``, on ``device`` (default: the mesh's device type).  Every dense
+    leaf is cut by its ``ParamDef``'s logical axes (the reference's
+    ``param_shardings``) and says what it holds: its
+    :class:`~repro_torch.models.sharding.Placement` (global shape, spec,
+    logical axes).  A packed leaf of a served tree is kept as it is: the
+    block of a plan built on this mesh (``build_plan(mesh=)``; its
+    ``ExecSpec.shard`` says so), or a mesh-less plan's whole leaf, which the
+    ``sharded:*`` variants cut to this rank's block per use
+    (``engine.sharded.local_payload``); the block of a plan built on
+    another mesh raises.  A leaf placed already is kept (the call is
+    idempotent).  Cutting a ZeRO-3 tree is the same call on a training
+    tree."""
+    from repro_torch.models.sharding import (axis_sizes, place, placement,
+                                             shard_slice, spec_for_axes)
     dev = resolve_device(device or mesh.device_type)
+    here = tuple(axis_sizes(mesh).items())
 
     def cut(x, d):
+        if isinstance(x, dict):
+            shard = getattr(x.get("spec"), "shard", None)
+            if shard is not None and shard.mesh_shape != here:
+                raise ValueError(
+                    "shard_params: a packed leaf cut for the mesh "
+                    f"{dict(shard.mesh_shape)}, not this mesh {dict(here)}; "
+                    "build the plan with build_plan(..., mesh=) on this mesh")
+            return x
         x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
-        return shard_slice(x.to(dev), spec_for_axes(d.axes, rules.table), mesh)
+        spec = spec_for_axes(d.axes, rules.table)
+        pl = placement(x)
+        if pl is not None:          # placed already: this rank's block
+            if pl.spec != spec or pl.mesh_shape != here:
+                raise ValueError(f"shard_params: a leaf placed at {pl.spec} on "
+                                 f"{dict(pl.mesh_shape)}; want {spec} on {dict(here)}")
+            return x
+        return place(shard_slice(x, spec, mesh).to(dev), mesh, spec,
+                     tuple(x.shape), d.axes)
     return _with_defs(cut, tree, defs)
 
 

@@ -10,16 +10,27 @@ rules map them to mesh axes, as in the reference:
   * stacked-layer dims never shard.
 
 The port runs one process per rank (``torch.distributed``) over a
-``DeviceMesh`` and keeps the reference's ``shard_map`` contract, *global in,
-global out*: every rank runs the same program on the same full activations,
-parameters and packed payloads are held as this rank's shard, and collectives
-are written only where the reference writes them, inside its ``shard_map``
-bodies (the ``sharded:*`` variants, the MoE body, the pipeline ring).
-Placing dense activations and the decode caches (``batch``, ``heads``,
-``cache_seq``) is what the reference leaves to GSPMD: here dense compute is
-replicated on every rank, so :func:`constrain` checks the logical axes
-against the rules and the mesh and moves nothing.  That is a layout choice,
-not a numerical difference.
+``DeviceMesh``.  Two layouts share these helpers:
+
+* **the sharded serving layout** (the reference's ``input_shardings``):
+  the dense GQA decoders' ``prefill`` and ``decode_step`` on a mesh take
+  every input at its spec and each rank holds and computes its block.
+  Weights are this rank's shards (:func:`repro_torch.models.params.
+  shard_params`), activations split their batch over the data axes and the
+  decode caches also their sequence over ``model``.  The collectives GSPMD
+  places in the reference are written out where the layout needs them
+  (the FSDP gather of a weight per use, the row-parallel all-reduce, the
+  vocab-parallel embedding, the flash-decode merge).  A tensor placed so
+  carries a :class:`Placement` (global shape and spec), and
+  :func:`constrain` moves a tensor to the block its logical axes name, by
+  slicing a whole tensor or by collectives from another placement;
+* **the replicated layout**, kept by every other lane (the paged runtime, the
+  MoE, SSM and hybrid families, the train step): dense weights,
+  activations and caches global and replicated on every rank, packed
+  weights a mesh-aware plan's block, collectives only inside the reference's
+  ``shard_map`` bodies (the ``sharded:*`` variants, the MoE body, the
+  pipeline ring).  There :func:`check_axes` checks the logical axes and
+  moves nothing, and a placed (sharded) dense leaf raises.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 (:func:`repro_torch.launch.mesh.make_host_mesh`); the helpers here also take
@@ -35,6 +46,7 @@ tensor there raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -47,6 +59,8 @@ __all__ = [
     "rules_for_mesh", "fsdp_axes", "spec_for_axes", "shard_leaf", "constrain",
     "batch_spec", "shard_map", "axis_names", "axis_sizes", "axis_size",
     "axis_index", "all_gather", "gather_out", "all_reduce", "shard_slice",
+    "Placement", "place", "placement", "is_sharded", "check_axes",
+    "place_tree", "tp_axis", "gather_whole",
 ]
 
 
@@ -134,6 +148,12 @@ def axis_index(mesh, axes) -> int:
     return idx
 
 
+def tp_axis(mesh) -> Optional[str]:
+    """The tensor-parallel mesh axis (the rules' ``qkv`` / ``mlp`` /
+    ``vocab``), or None on a mesh without one."""
+    return "model" if "model" in axis_names(mesh) else None
+
+
 def fsdp_axes(mesh) -> tuple:
     """Mesh axes weights FSDP-shard (and all-gather) over: ``("data",)``, or
     ``("pod", "data")`` when FSDP spans pods; ``()`` for ``mesh=None``."""
@@ -144,11 +164,14 @@ def fsdp_axes(mesh) -> tuple:
 
 class Rules:
     """Logical-axis table; ``axis_names`` (set by :func:`rules_for_mesh`)
-    are the mesh axes the table may name, which :func:`constrain` checks."""
+    are the mesh axes the table may name, which :func:`constrain` checks,
+    and ``mesh`` the mesh :func:`constrain` places on (the reference's
+    mesh context)."""
 
-    def __init__(self, table: dict, axis_names: Optional[tuple] = None):
+    def __init__(self, table: dict, axis_names: Optional[tuple] = None, mesh=None):
         self.table = dict(table)
         self.axis_names = axis_names
+        self.mesh = mesh
 
     def __call__(self, axes) -> PartitionSpec:
         return spec_for_axes(axes, self.table)
@@ -162,7 +185,10 @@ def rules_for_mesh(mesh, global_batch: Optional[int] = None) -> Rules:
     if mesh is not None and global_batch is not None:
         if global_batch % axis_size(mesh, table["batch"]):
             table["batch"] = None
-    return Rules(table, names if mesh is not None else None)
+    # a mesh-like stand-in (axis names and sizes, no rank coordinate) can
+    # only be checked against, not placed on
+    live = mesh if hasattr(mesh, "get_local_rank") else None
+    return Rules(table, names if mesh is not None else None, live)
 
 
 def spec_for_axes(axes, table: dict) -> PartitionSpec:
@@ -193,10 +219,87 @@ def shard_leaf(mesh, x: torch.Tensor, axes, table: Optional[dict] = None):
     return shard_slice(x, spec_for_axes(axes, table or TRAIN_RULES), mesh)
 
 
-def constrain(x: torch.Tensor, axes, rules: Optional[Rules]):
-    """The reference's ``with_sharding_constraint`` by logical axes, as a
-    checked no-op: one logical axis per dim, each mapped to axes of the
-    rules' mesh.  Dense activations stay replicated (the module docstring)."""
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """What a placed tensor holds: this rank's block of a tensor of global
+    ``shape`` under ``spec`` on a mesh of ``mesh_shape`` (``((axis, size),
+    ...)``); ``axes`` are its logical axes where it is a parameter or a
+    cache leaf (the rules' names), else None."""
+
+    shape: tuple
+    spec: PartitionSpec
+    mesh_shape: tuple
+    axes: Optional[tuple] = None
+
+    @property
+    def parts(self) -> int:
+        """How many blocks the global tensor is cut into."""
+        sizes = dict(self.mesh_shape)
+        return math.prod(sizes.get(a, 1) for e in self.spec for a in _as_axes(e))
+
+    def drop_lead(self) -> "Placement":
+        """The placement of ``t[g]``: a whole leading (stacked-layer) dim
+        indexed away."""
+        if self.spec and self.spec[0] is not None:
+            raise ValueError(f"indexing a sharded leading dim ({self.spec[0]})")
+        return Placement(self.shape[1:], P(*self.spec[1:]), self.mesh_shape,
+                         None if self.axes is None else self.axes[1:])
+
+
+def place(t: torch.Tensor, mesh, spec, shape=None, axes=None) -> torch.Tensor:
+    """``t`` as this rank's block of a tensor of global ``shape`` (default:
+    ``t``'s shape times the spec's axis sizes) under ``spec``: a view of it
+    (the same storage) that carries the :class:`Placement`, so the caller's
+    tensor object is never marked."""
+    spec = P(*spec) + P(*(None,) * (t.dim() - len(spec)))
+    t = t.view_as(t)
+    if shape is None:
+        shape = tuple(n * axis_size(mesh, e) for n, e in zip(t.shape, spec))
+    t._placement = Placement(tuple(shape), spec, tuple(axis_sizes(mesh).items()),
+                             None if axes is None else tuple(axes))
+    return t
+
+
+def placement(t) -> Optional[Placement]:
+    """The :class:`Placement` :func:`place` recorded on ``t``, or None (a
+    whole tensor, or no tensor)."""
+    return getattr(t, "_placement", None)
+
+
+def is_sharded(t) -> bool:
+    """Does ``t`` hold a block of a larger tensor (a placement cut in more
+    than one part)?"""
+    pl = placement(t)
+    return pl is not None and pl.parts > 1
+
+
+def place_tree(tree, specs, mesh, device=None):
+    """Cut every tensor of ``tree`` (whole) to this rank's block under the
+    matching spec of ``specs`` (a tree of the same shape, or one spec for
+    all) and :func:`place` it; ``device`` moves each leaf first."""
+    def cut(x, spec):
+        if device is not None:
+            x = x.to(device)
+        return place(shard_slice(x, spec, mesh), mesh, spec, tuple(x.shape))
+    return _map_spec(cut, tree, specs)
+
+
+def gather_whole(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole tensor of a placed block: all-gathered over every axis its
+    placement splits it along (a tensor without a placement is whole)."""
+    pl = placement(t)
+    if pl is None:
+        return t
+    for dim, entry in enumerate(pl.spec):
+        if axis_size(mesh, entry) > 1:
+            t = all_gather(t, mesh, entry, dim)
+    return t
+
+
+def check_axes(x: torch.Tensor, axes, rules: Optional[Rules]) -> torch.Tensor:
+    """The replicated layout's ``with_sharding_constraint``: checks that
+    ``axes`` name one logical axis per dim, each mapped to axes of the
+    rules' mesh, and moves nothing."""
     if rules is None:
         return x
     if len(axes) != x.dim():
@@ -210,6 +313,45 @@ def constrain(x: torch.Tensor, axes, rules: Optional[Rules]):
                                  f"{missing}, not axes of the mesh "
                                  f"{rules.axis_names}")
     return x
+
+
+def constrain(x: torch.Tensor, axes, rules: Optional[Rules]) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical axes: this
+    rank's block of ``x`` under ``rules(axes)`` on the rules' mesh.  A whole
+    ``x`` (no :class:`Placement`) is sliced; a placed one moves by
+    collectives: every dim whose axes differ from the target's is gathered
+    whole, then every such dim is sliced to the target's block.  The result is placed.
+    Checked as :func:`check_axes` checks; without rules or without a mesh
+    in them nothing moves."""
+    check_axes(x, axes, rules)
+    if rules is None or rules.mesh is None:
+        return x
+    mesh, target = rules.mesh, rules(axes)
+    src = placement(x)
+    shape = tuple(x.shape) if src is None else src.shape
+    have = P(*(None,) * x.dim()) if src is None else src.spec
+    if src is not None and len(shape) != x.dim():
+        raise ValueError(f"constrain: the tensor's placement is of a "
+                         f"{len(shape)}-d tensor, it has {x.dim()} dims")
+    out = x
+    moves = [dim for dim, (a, b) in enumerate(zip(have, target))
+             if _as_axes(a) != _as_axes(b)]
+    for dim in moves:           # every moving dim whole first: an axis may
+        if axis_size(mesh, have[dim]) > 1:      # move from one dim to another
+            out = all_gather(out, mesh, have[dim], dim)
+    for dim in moves:
+        b = target[dim]
+        n = axis_size(mesh, b)
+        if n > 1:
+            if out.shape[dim] % n:
+                raise ValueError(
+                    f"constrain: dim {dim} of size {out.shape[dim]} (shape "
+                    f"{shape}) is not divisible by mesh axes {_as_axes(b)} "
+                    f"(size {n})")
+            out = out.chunk(n, dim=dim)[axis_index(mesh, b)]
+    if out is x and src is not None:
+        return x
+    return place(out.contiguous(), mesh, target, shape)
 
 
 def batch_spec(rules: Optional[Rules], extra_axes: int = 1) -> PartitionSpec:
@@ -312,16 +454,18 @@ def _gather_out(y: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 
 def shard_map(f, mesh, in_specs, out_specs):
-    """Twin of ``jax.shard_map`` under the global-in, global-out contract:
-    the returned function takes global (replicated) arguments, enters ``f``
-    on this rank's blocks of them (``in_specs``, one per argument; a dict
-    of specs for a dict argument), and all-gathers ``f``'s result back to
-    global along ``out_specs``.  Inside ``f`` the collectives are
-    :func:`all_gather` / :func:`all_reduce` / :func:`axis_index` on
-    ``mesh``."""
+    """Twin of ``jax.shard_map`` under the global-in, global-out contract
+    of the replicated layout: the returned function takes global
+    (replicated) arguments, enters ``f`` on this rank's blocks of them
+    (``in_specs``, one per argument; a dict of specs for a dict argument),
+    and all-gathers ``f``'s result back to global along ``out_specs``.
+    Inside ``f`` the collectives are :func:`all_gather` /
+    :func:`all_reduce` / :func:`axis_index` on ``mesh``.  The sharded
+    serving layout's blocks-in, blocks-out contract is carried by the
+    ``sharded:*`` variants' ``spmd`` branches (``engine.sharded``)."""
     def fn(*args):
-        local = [_map_spec(lambda x, s: shard_slice(x, s, mesh), a, s)
-                 for a, s in zip(args, in_specs)]
-        out = f(*local)
+        local_args = [_map_spec(lambda x, s: shard_slice(x, s, mesh), a, s)
+                      for a, s in zip(args, in_specs)]
+        out = f(*local_args)
         return _map_spec(lambda y, s: _gather_out(y, s, mesh), out, out_specs)
     return fn

@@ -18,12 +18,24 @@ decode lanes take ``(B, 1, D)`` embeddings in place of ``(B, 1)`` ids.
 
 Every forward and lane takes ``mesh=`` / ``rules=`` as the reference's do,
 and hands ``cfg.accum_dtype`` to every linear as its ``accum_dtype``;
-the mesh rides to every linear as ``tp_mesh`` (packed leaves run the
-``sharded:*`` compressed-gather family, dense leaves ignore it) and to the
-MoE FFN (the expert-parallel body); ``rules`` reach
-:func:`repro_torch.models.sharding.constrain`, a checked no-op: activations
-and caches stay global and replicated on every rank (placing them is what
-the reference leaves to GSPMD).
+the mesh rides to every linear as ``tp_mesh`` and to the MoE FFN (the
+expert-parallel body).  Two layouts (:mod:`repro_torch.models.sharding`):
+
+* ``prefill`` and ``decode_step`` of the dense GQA decoders (every layer
+  ``attn_def`` + ``mlp_def``: OLMo, Qwen2, every ``family="dense"``
+  config) on a mesh run the sharded serving layout, the reference's
+  ``input_shardings``: params placed by ``params.shard_params``, the batch
+  (tokens, embeddings, caches) split over the rules' ``batch`` axes
+  (replicated where they do not divide it, ``rules_for_mesh(mesh,
+  global_batch)``), the decode caches' sequence over ``model``; the
+  logits are this rank's rows and vocab block, placed.  ``prefill(...,
+  max_len=)`` returns caches already padded to the decode loop's length
+  (``launch.specs.padded_cache_len``) and cut to this rank's slice;
+* every other lane and family keeps the replicated layout: activations
+  and caches global on every rank, dense weights whole (a sharded one
+  raises), packed leaves run the ``sharded:*`` compressed-gather family
+  and ``rules`` reach :func:`repro_torch.models.sharding.check_axes`,
+  which moves nothing.
 """
 from __future__ import annotations
 
@@ -35,15 +47,16 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2, moe
-from repro_torch.models.layers import (apply_norm, embed_def, embed_lookup,
-                                       linear_def, logits, mlp, mlp_def,
-                                       norm_def)
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import (apply_norm, check_whole, embed_def,
+                                       embed_lookup, linear_def, logits, mlp,
+                                       mlp_def, norm_def)
 from repro_torch.models.params import ParamDef
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import check_axes, constrain
 
 __all__ = ["period", "n_groups", "model_defs", "cache_defs", "forward_train",
            "loss_fn", "prefill", "decode_step", "decode_step_paged",
-           "prefill_chunk_step", "verify_chunk_step"]
+           "prefill_chunk_step", "verify_chunk_step", "sharded_serving"]
 
 
 def period(cfg) -> int:
@@ -114,11 +127,36 @@ def cache_defs(cfg, batch: int, max_len: int) -> dict:
 
 
 def _group(tree: Any, g: int) -> Any:
-    """Group ``g`` of a stacked tree: every tensor indexed at ``[g]``;
-    static leaf metadata (cfg, spec) passes through."""
+    """Group ``g`` of a stacked tree: every tensor indexed at ``[g]`` (a
+    placed one keeps its placement, less the stacked dim); static leaf
+    metadata (cfg, spec) passes through."""
     if isinstance(tree, dict):
         return {k: _group(v, g) for k, v in tree.items()}
-    return tree[g] if isinstance(tree, torch.Tensor) else tree
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    pl = shd.placement(tree)
+    out = tree[g]
+    if pl is not None:
+        out._placement = pl.drop_lead()
+    return out
+
+
+def sharded_serving(cfg, mesh) -> bool:
+    """Do ``prefill`` / ``decode_step`` of ``cfg`` on ``mesh`` run the
+    sharded serving layout?  On any mesh for the dense GQA decoders
+    (``family="dense"``, no experts)."""
+    return mesh is not None and cfg.family == "dense" and not cfg.n_experts
+
+
+def _whole_dense(params, lane: str) -> None:
+    """A lane of the replicated layout refuses a sharded dense leaf
+    anywhere in ``params`` (it never computes on a block as if whole and
+    never gathers it back quietly)."""
+    if isinstance(params, dict):
+        for v in params.values():
+            _whole_dense(v, lane)
+    elif isinstance(params, torch.Tensor):
+        check_whole(params, lane)
 
 
 def _blocks(params, cfg, *trees):
@@ -153,17 +191,32 @@ def _linear_kw(kw: dict, cfg, mesh) -> dict:
     return kw
 
 
-def _embed_in(params, inputs, cfg):
-    """Token ids ``(B, S)`` through the embedding table, or embeddings
-    ``(B, S, D)`` (the stub frontends) cast to the activation dtype."""
+def _embed_in(params, inputs, cfg, mesh=None):
+    """Token ids ``(B, S)`` through the embedding table (vocab-parallel on
+    ``mesh``), or embeddings ``(B, S, D)`` (the stub frontends) cast to the
+    activation dtype."""
     if inputs.dim() == 3:
         return inputs.to(cfg.activation_dtype)
-    return embed_lookup(params["embed"], inputs, cfg.activation_dtype)
+    return embed_lookup(params["embed"], inputs, cfg.activation_dtype, mesh)
 
 
-def _batch_in(params, batch, cfg):
+def _batch_in(params, batch, cfg, mesh=None):
     return _embed_in(params, batch["embeds"] if "embeds" in batch
-                     else batch["tokens"], cfg)
+                     else batch["tokens"], cfg, mesh)
+
+
+def _serving_layout(params, cfg, mesh, rules, kw: dict, lane: str,
+                    replicated: bool = False):
+    """Set up a serving step: ``(rules, mesh)`` of the sharded serving
+    layout (``kw`` gains ``spmd``), or ``(rules, None)`` for the
+    replicated layout (asked for, or the only one ``cfg`` has), whose
+    params must hold whole dense leaves."""
+    if sharded_serving(cfg, mesh) and not replicated:
+        kw["spmd"] = True
+        return rules or shd.rules_for_mesh(mesh), mesh
+    _whole_dense(params, lane)
+    return rules, None
+
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -216,7 +269,8 @@ def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
     ``axes`` (the ZeRO-3 step): MoE layers then route over the whole batch
     (``moe.moe_apply``)."""
     _linear_kw(kw, cfg, mesh)
-    x = constrain(_batch_in(params, batch, cfg), ("batch", None, None), rules)
+    _whole_dense(params, "forward_train")
+    x = check_axes(_batch_in(params, batch, cfg), ("batch", None, None), rules)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
 
@@ -241,7 +295,7 @@ def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
         aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x)
-    return constrain(lg, ("batch", None, "vocab"), rules), aux
+    return check_axes(lg, ("batch", None, "vocab"), rules), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
@@ -257,13 +311,22 @@ def loss_fn(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
+def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None,
+            max_len=None, replicated: bool = False, **kw):
     """Forward over a prompt; returns (last-token logits (B, 1, V) f32,
-    caches): per attention position ``{"k", "v"}`` stacked as (groups, B, S,
-    KV, hd), per SSM position ``{"conv", "state"}`` as (groups, B, W-1,
-    conv_dim) and (groups, B, nh, hp, ns) f32."""
+    caches): per attention position ``{"k", "v"}`` stacked as (groups, B,
+    L, KV, hd), per SSM position ``{"conv", "state"}`` as (groups, B, W-1,
+    conv_dim) and (groups, B, nh, hp, ns) f32.  ``L`` is ``max_len`` (the
+    prompt's positions, then zeros: the decode loop's cache), by default
+    the prompt's length.  In the sharded serving layout (the module
+    docstring) everything is this rank's block, placed: logits at
+    ``(batch, None, vocab)``, attention caches at ``(layers, batch,
+    cache_seq, kv_heads, head_dim)``.  ``replicated`` keeps the
+    replicated layout on a mesh (the paged runtime's serial prefill)."""
     _linear_kw(kw, cfg, mesh)
-    x = constrain(_batch_in(params, batch, cfg), ("batch", None, None), rules)
+    rules, spmd = _serving_layout(params, cfg, mesh, rules, kw, "prefill", replicated)
+    x = _batch_in(params, batch, cfg, spmd)
+    x = check_axes(x, ("batch", None, None), rules)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     caches = _per_pos(cfg, ("k", "v"), ("conv", "state"))
@@ -273,8 +336,12 @@ def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
         if "attn" in bp:
             h, (k, v) = attn_mod.attention(bp["attn"], h, cfg, positions,
                                            return_kv=True, rules=rules, **kw)
-            c["k"].append(k.to(cfg.activation_dtype))
-            c["v"].append(v.to(cfg.activation_dtype))
+            for name, t in (("k", k), ("v", v)):
+                t = _pad_seq(t.to(cfg.activation_dtype), max_len)
+                if spmd is not None:    # this rank's slice of the sequence
+                    rows = shd.place(t, spmd, rules(("batch", None, None, None)))
+                    t = constrain(rows, ("batch", "cache_seq", None, None), rules)
+                c[name].append(t)
         else:
             h, (conv, state) = mamba2.ssm_apply(bp["ssm"], h, cfg,
                                                 return_state=True, **kw)
@@ -283,16 +350,37 @@ def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
         x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x[:, -1:, :])
-    return lg, _stack(caches)
+    caches = _stack(caches)
+    if spmd is None:
+        return lg, caches
+    axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    caches = {pos: {n: shd.place(t, spmd, rules(axes), axes=axes) for n, t in c.items()}
+              for pos, c in caches.items()}
+    return shd.place(lg, spmd, rules(("batch", None, "vocab"))), caches
+
+
+def _pad_seq(t: torch.Tensor, max_len) -> torch.Tensor:
+    """(B, S, ...) -> (B, max_len, ...), zeros after the S positions."""
+    if max_len is None or max_len == t.shape[1]:
+        return t
+    if max_len < t.shape[1]:
+        raise ValueError(f"max_len={max_len} is shorter than the prompt "
+                         f"({t.shape[1]} positions)")
+    shape = list(t.shape)
+    shape[1] = max_len - t.shape[1]
+    return torch.cat([t, t.new_zeros(shape)], dim=1)
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
                 cfg, mesh=None, rules=None, **kw):
     """One decode step.  token: (B, 1) int, or embeddings (B, 1, D).
     Returns (logits (B, 1, V) f32, caches); the caches are updated in place
-    (attention at ``cache_len``, SSM conv and state whole)."""
+    (attention at ``cache_len``, SSM conv and state whole).  In the sharded
+    serving layout ``token``, ``caches`` and the logits are this rank's
+    blocks (the module docstring)."""
     _linear_kw(kw, cfg, mesh)
-    x = constrain(_embed_in(params, token, cfg), ("batch", None, None), rules)
+    rules, spmd = _serving_layout(params, cfg, mesh, rules, kw, "decode_step")
+    x = check_axes(_embed_in(params, token, cfg, spmd), ("batch", None, None), rules)
     for _, bp, c in _blocks(params, cfg, caches):
         h = apply_norm(bp["norm1"], x, cfg)
         if "attn" in bp:
@@ -305,7 +393,10 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
             c["state"].copy_(state)
         x, _ = _ffn_residual(bp, x + h, cfg, kw)
     x = apply_norm(params["final_norm"], x, cfg)
-    return logits(params.get("lm_head"), params["embed"], x), caches
+    lg = logits(params.get("lm_head"), params["embed"], x)
+    if spmd is not None:
+        lg = shd.place(lg, spmd, rules(("batch", None, "vocab")))
+    return lg, caches
 
 
 # -------------------------------------------------------- paged serving --
@@ -335,7 +426,8 @@ def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
     updated in place.
     """
     _linear_kw(kw, cfg, mesh)
-    x = constrain(_embed_in(params, token, cfg), ("batch", None, None), rules)
+    _whole_dense(params, "decode_step_paged")
+    x = check_axes(_embed_in(params, token, cfg), ("batch", None, None), rules)
     for _, bp, pool, hp in _blocks(params, cfg, pools, hot):
         h = apply_norm(bp["norm1"], x, cfg)
         if "attn" in bp:
@@ -373,7 +465,8 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     """
     _linear_kw(kw, cfg, mesh)
     ps = spec.page_size
-    x = constrain(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
+    _whole_dense(params, "prefill_chunk_step")
+    x = check_axes(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
     c = x.shape[1]
     slot1 = slot.to(torch.long).reshape(1)
     row = page_table.index_select(0, slot1)[0]
@@ -425,7 +518,8 @@ def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     (k, v) in the tails' dtype.
     """
     _linear_kw(kw, cfg, mesh)
-    x = constrain(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
+    _whole_dense(params, "verify_chunk_step")
+    x = check_axes(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
     slot1 = slot.to(torch.long).reshape(1)
     row = page_table.index_select(0, slot1)[0]
     chunk_kv = _per_pos(cfg, ("k", "v"))

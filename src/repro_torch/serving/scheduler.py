@@ -209,7 +209,7 @@ class BatchScheduler:
                                               cache_backend=cache_backend)
         self._chunk_prefill = make_chunked_prefill_step(
             cfg, self.spec, mesh, rules, cache_backend=cache_backend)
-        self._prefill = make_prefill_step(cfg, mesh, rules)
+        self._prefill = make_prefill_step(cfg, mesh, rules, replicated=True)
         self.lane_runs = {"decode": 0, "prefill_chunk": 0, "prefill_serial": 0,
                           "draft": 0, "verify": 0}
 

@@ -126,6 +126,27 @@ def draw_inputs(module: str, path: str, cwd: str) -> None:
                    check=True, env=env, cwd=cwd, timeout=600)
 
 
+#: the XLA flags of a pinned reference run: one thread, so XLA's CPU
+#: reductions sum in one order whatever else runs on the machine
+PINNED_XLA_FLAGS = "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"
+
+
+def pinned_reference(module: str, func: str, path: str, cwd: str, *args) -> None:
+    """Run ``module.func(path, *args)`` in a subprocess whose process state
+    is fixed: XLA on the CPU with :data:`PINNED_XLA_FLAGS`, no
+    ``STRUM_INTERPRET`` (the reference's analysis CLI sets it for the rest
+    of a process that calls it).  What the reference computes then does not
+    depend on what ran before it in the caller's process.  (Python's hash
+    salt is not pinned: ``func`` draws no weight that depends on it.)"""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("STRUM_INTERPRET", "XLA_FLAGS")}
+    env.update(JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1", XLA_FLAGS=PINNED_XLA_FLAGS,
+               PYTHONPATH=os.pathsep.join(["src", "tests"]))
+    subprocess.run([sys.executable, "-c", f"import sys, {module}; "
+                    f"{module}.{func}(*sys.argv[1:])", path, *args],
+                   check=True, env=env, cwd=cwd, timeout=600)
+
+
 def reference_run(script: str, args: list, env: dict, cwd: str,
                   timeout: float = 600.0) -> subprocess.Popen:
     """Start a reference script (``python -c script *args``) beside the
@@ -230,6 +251,8 @@ def sharded_cases(rank: int, world: int, path: str) -> dict:
     from repro_torch.core.policy import StruMConfig
     from repro_torch.engine.dispatch import dequant_leaf, dispatch, dispatch_grouped
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.specs import place_inputs
     from repro_torch.launch.steps import build_serving_plan, make_prefill_step
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import sharding as shd
@@ -352,8 +375,13 @@ def sharded_cases(rank: int, world: int, path: str) -> dict:
                                device="cpu")
     res["sched_dist"] = splan.summary()["variant_distribution"]
     batch = {"tokens": torch.ones((4, 8), dtype=torch.long)}
+    # the sharded serving layout: inputs at the reference's specs, logits
+    # this rank's block, gathered whole to compare
+    shape = ShapeSpec("prefill_4x8", 8, 4, "prefill")
+    placed = place_inputs(qcfg, shape, (splan.params, batch), mesh, rules)
     with telemetry.recording() as rec:
-        lg, _ = make_prefill_step(qcfg, mesh, rules)(splan.params, batch)
+        lg, _ = make_prefill_step(qcfg, mesh, rules)(*placed)
+    lg = shd.gather_whole(lg, mesh)
     res["sched_gathered"] = int(rec.counter("dispatch/sharded/gathered_packed_bytes"))
     single = build_serving_plan(qp, schedule=sched, device="cpu")
     lg1, _ = make_prefill_step(qcfg)(single.params, batch)
@@ -390,8 +418,10 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
     from repro_torch.core.apply import fake_quantize_array
     from repro_torch.core.policy import StruMConfig, default_policy
     from repro_torch.engine.sharded import gather_dequant_leaf
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import place_inputs
     from repro_torch.launch.steps import build_serving_plan, make_train_step
     from repro_torch.models import decode_step, model_defs, prefill
     from repro_torch.models import sharding as shd
@@ -417,6 +447,17 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
     res["shard_map"] = (_np(blocks), _np(summed))
     res["shard_leaf"] = _np(shd.shard_leaf(mesh, x, ("embed", "mlp")))
     res["coord"] = (shd.axis_index(mesh, "data"), shd.axis_index(mesh, "model"))
+
+    # -- constrain: a slice of a whole tensor, a re-layout of a placed one ----
+    crules = shd.rules_for_mesh(mesh)
+    block = shd.constrain(x, ("batch", "vocab"), crules)       # P(data, model)
+    moved = shd.constrain(block, ("vocab", "batch"), crules)   # P(model, data)
+    whole = shd.constrain(moved, (None, None), crules)
+    res["constrain"] = (_np(block), tuple(shd.placement(block).spec),
+                        shd.placement(block).shape, _np(moved),
+                        tuple(shd.placement(moved).spec),
+                        shd.constrain(moved, ("vocab", "batch"), crules) is moved,
+                        _np(whole))
 
     # -- gather_dequant_leaf, both TP patterns --------------------------------
     scfg = StruMConfig(method="mip2q", p=0.5, L=5)
@@ -532,7 +573,6 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
     dcfg = StruMConfig(method="mip2q", p=0.5, L=7)
     base = dataclasses.replace(qcfg, dtype="float32")
     cfg = dataclasses.replace(base, strum=dcfg)
-    served = engine.build_plan(qp, cfg=dcfg, device="cpu").params
     fakeq = engine.fake_quantize(qp, policy=default_policy(dcfg), baseline_int8=False,
                                  device="cpu")
     toks = torch.ones((2, 8), dtype=torch.long)
@@ -541,8 +581,20 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
     tok = torch.ones((2, 1), dtype=torch.long)
     lg_ref, _ = decode_step(fakeq, tok, {k: {n: c.clone() for n, c in v.items()}
                                          for k, v in caches.items()}, 8, base)
-    lg_pk, _ = decode_step(served, tok, caches, 8, cfg, mesh=mesh, rules=rules)
-    res["decode"] = (_np(lg_ref), _np(lg_pk))
+    # the sharded serving layout: a mesh-aware plan, every input at its spec
+    drules = shd.rules_for_mesh(mesh, 2)
+    mplan = engine.build_plan(qp, cfg=dcfg, mesh=mesh, rules=drules, device="cpu")
+    placed = place_inputs(cfg, ShapeSpec("decode_2x12", 12, 2, "decode"),
+                          (mplan.params, tok, caches, 8), mesh, drules)
+    lg_pk, _ = decode_step(*placed, cfg, mesh=mesh, rules=drules)
+    res["decode"] = (_np(lg_ref), _np(shd.gather_whole(lg_pk, mesh)))
+    # a mesh-less plan in the same layout: its whole packed leaves are cut
+    # to this rank's block per use
+    served = engine.build_plan(qp, cfg=dcfg, device="cpu").params
+    placed = place_inputs(cfg, ShapeSpec("decode_2x12", 12, 2, "decode"),
+                          (served, tok, caches, 8), mesh, drules)
+    lg_ml, _ = decode_step(*placed, cfg, mesh=mesh, rules=drules)
+    res["decode_meshless"] = _np(shd.gather_whole(lg_ml, mesh))
 
     # -- BatchScheduler(mesh=) against the single-device scheduler ------------
     ocfg_s = get_smoke_config("olmo_1b")
@@ -706,12 +758,13 @@ def mesh_live_count(rank: int, mesh, arch: str, kind: str) -> dict:
     f32 on both sides) under the dry-run's ``Counter``:
     the collectives it records, in order, and the kernel calls.  Serving
     runs the card's mesh-aware plan (``backend="cuda"``: on the CPU its
-    post-gather kernels are the ``torch`` family); a train step starts from
-    ZeRO-3 shards of the parameters and fresh AdamW moments."""
+    post-gather kernels are the ``torch`` family) on the inputs placed as
+    the dry-run places them (``launch.specs.place_inputs``); a train step
+    starts from ZeRO-3 shards of the parameters and fresh AdamW moments."""
     import dataclasses
 
     from repro_torch.launch.dryrun import Counter, _step_for
-    from repro_torch.launch.specs import input_specs
+    from repro_torch.launch.specs import input_specs, place_inputs
     from repro_torch.launch.steps import build_serving_plan
     from repro_torch.models import model_defs
     from repro_torch.models import sharding as shd
@@ -731,7 +784,8 @@ def mesh_live_count(rank: int, mesh, arch: str, kind: str) -> dict:
     else:
         plan = build_serving_plan(inputs[0], cfg=cfg.strum, backend="cuda", mesh=mesh,
                                   rules=rules, device="cpu")
-        inputs = (plan.params,) + tuple(inputs[1:])
+        inputs = place_inputs(cfg, shape, (plan.params,) + tuple(inputs[1:]), mesh,
+                              rules)
     counter = Counter()
     with counter:
         _step_for(cfg, kind, mesh, rules)(*inputs)
@@ -756,4 +810,164 @@ def mesh_dryrun_cases(rank: int, world: int) -> dict:
             out = mesh_live_count(rank, meshes[case], arch, kind)
             if rank == 0:
                 res[(case, arch)] = out
+    return res
+
+
+# ------------------------------------------- test_torch_spmd_serving.py --
+
+#: (arch, plan, mesh shape, global batch): the sharded serving layout's
+#: cases; batch 3 is one the data axis of 2 does not divide (replicated)
+SPMD_CASES = tuple((arch, plan, shape, b)
+                   for arch in ("olmo_1b", "qwen2_7b") for plan in ("dense", "mip2q")
+                   for shape, b in (((2, 2), 4), ((1, 4), 4), ((4, 1), 4), ((2, 2), 3))
+                   ) + (("qwen2_7b_h6", "dense", (1, 4), 4),)
+#: a case's config name -> (smoke config, overrides): Qwen2's smoke config
+#: with 6 query heads over 2 kv heads puts 1.5 heads on each of 4 ranks
+#: (the packed plan's 6 ``wo`` blocks do not split over 4: dense only)
+SPMD_ARCHS = {"olmo_1b": ("olmo_1b", {}), "qwen2_7b": ("qwen2_7b", {}),
+              "qwen2_7b_h6": ("qwen2_7b", {"n_heads": 6, "n_kv_heads": 2})}
+#: prompt length and greedy steps of every case
+SPMD_PROMPT, SPMD_GEN = 8, 4
+
+
+def spmd_case_id(case) -> str:
+    arch, plan, shape, b = case
+    return f"{arch}-{plan}-{shape[0]}x{shape[1]}-b{b}"
+
+
+def spmd_cfg(arch: str, plan: str):
+    """``arch``'s smoke config at f32 activations, packed with mip2q p = 0.5
+    L = 5 for ``plan == "mip2q"``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.policy import StruMConfig
+    base, over = SPMD_ARCHS[arch]
+    cfg = dataclasses.replace(get_smoke_config(base), dtype="float32", **over)
+    if plan == "mip2q":
+        cfg = dataclasses.replace(cfg, strum=StruMConfig(method="mip2q", p=0.5, L=5))
+    return cfg
+
+
+def tree_from(data: dict, defs, prefix: str):
+    """The arrays of ``data`` under ``prefix`` shaped like the ``ParamDef``
+    tree ``defs`` (empty sub-trees kept), as CPU tensors."""
+    if not isinstance(defs, dict):
+        return torch.tensor(np.asarray(data[prefix]))
+    return {k: tree_from(data, v, f"{prefix}/{k}") for k, v in defs.items()}
+
+
+def _blocks_flat(tree, prefix: str = "") -> dict:
+    """A placed tree's tensors by path; a packed leaf's payload fields."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_blocks_flat({f: v[f] for f in FIELDS} if "mask" in v else v, name))
+        elif isinstance(v, torch.Tensor):
+            out[name] = _np(v).copy()     # decode steps write caches in place
+    return out
+
+
+def spmd_serving_cases(rank: int, world: int, path: str) -> dict:
+    """Every :data:`SPMD_CASES` case on this rank: the placed parameters'
+    blocks, the prefill caches' blocks, the logits of the prefill and each
+    greedy decode step gathered whole, the tokens; and ``serve``'s tokens
+    and logits on the same mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.serve import greedy_tokens, serve
+    from repro_torch.launch.specs import padded_cache_len, place_inputs
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import decode_step, model_defs, prefill
+    from repro_torch.models import sharding as shd
+
+    data = dict(np.load(path))
+    meshes = {shape: init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+              for shape in {c[2] for c in SPMD_CASES}}
+    s, gen = SPMD_PROMPT, SPMD_GEN
+    res = {}
+    for case in SPMD_CASES:
+        arch, plan, shape, b = case
+        cfg, mesh = spmd_cfg(arch, plan), meshes[shape]
+        rules = shd.rules_for_mesh(mesh, b)
+        params = tree_from(data, model_defs(cfg), f"w/{arch}")
+        if cfg.strum is not None:
+            params = build_serving_plan(params, cfg=cfg.strum, mesh=mesh, rules=rules,
+                                        device="cpu").params
+        prompt = torch.tensor(data[f"prompt/{b}"]).long()
+        placed, batch = place_inputs(cfg, ShapeSpec("prefill", s, b, "prefill"),
+                                     (params, {"tokens": prompt}), mesh, rules)
+        lg, caches = prefill(placed, batch, cfg, mesh=mesh, rules=rules,
+                             max_len=padded_cache_len(s + gen))
+        out = {"leaves": _blocks_flat(placed), "caches": _blocks_flat(caches),
+               "cache_spec": tuple(shd.placement(caches["pos0"]["k"]).spec)}
+        logits = [shd.gather_whole(lg, mesh)[:, -1]]
+        tok = greedy_tokens(lg, mesh, cfg.vocab_size)
+        toks = [shd.gather_whole(tok, mesh)]
+        for i in range(gen):
+            lg, caches = decode_step(placed, tok, caches, s + i, cfg, mesh=mesh,
+                                     rules=rules)
+            logits.append(shd.gather_whole(lg, mesh)[:, -1])
+            tok = greedy_tokens(lg, mesh, cfg.vocab_size)
+            toks.append(shd.gather_whole(tok, mesh))
+        out["logits"] = _np(torch.stack(logits, dim=1))
+        out["tokens"] = _np(torch.cat(toks, dim=1))
+        st, _, _, sl = serve(cfg, params, prompt, gen, device="cpu", return_logits=True,
+                             warmup=False, mesh=mesh, rules=rules)
+        out["serve"] = (_np(st), _np(sl))
+        res[spmd_case_id(case)] = out
+    return res
+
+
+def spmd_uncovered_cases(rank: int, world: int) -> dict:
+    """The lanes and families the sharded serving layout does not cover, on
+    2 x 2: each refuses a sharded dense leaf (the message), and still
+    serves whole leaves in the replicated layout (its result)."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import forward_train, model_defs, prefill
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.params import init_params, shard_params
+    from repro_torch.serving import BatchScheduler, Request
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    rules = shd.rules_for_mesh(mesh, 4)
+    res = {}
+
+    def refused(fn) -> str:
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return ""
+
+    olmo = dataclasses.replace(get_smoke_config("olmo_1b"), dtype="float32")
+    op = init_params(model_defs(olmo), seed=0, device="cpu", dtype_override="float32")
+    sp = shard_params(op, model_defs(olmo), mesh, rules, device="cpu")
+    toks = torch.ones((4, 8), dtype=torch.long)
+    res["train"] = refused(lambda: forward_train(sp, {"tokens": toks}, olmo))
+    res["no_mesh"] = refused(lambda: prefill(sp, {"tokens": toks}, olmo))
+
+    def paged():
+        sched = BatchScheduler(olmo, sp, n_slots=2, max_len=32, mesh=mesh, rules=rules,
+                               device="cpu")
+        sched.submit(Request(uid=0, prompt=toks[0], max_new_tokens=2))
+        sched.run_to_completion()
+    res["paged"] = refused(paged)
+    for arch in ("moonshot_v1_16b_a3b", "mamba2_780m"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        p = init_params(model_defs(cfg), seed=0, device="cpu", dtype_override="float32")
+        placed = shard_params(p, model_defs(cfg), mesh, rules, device="cpu")
+        res[arch] = refused(lambda: prefill(placed, {"tokens": toks}, cfg, mesh=mesh,
+                                            rules=rules))
+        # the replicated layout: whole leaves on the mesh serve the
+        # single-device logits
+        lg, _ = prefill(p, {"tokens": toks}, cfg, mesh=mesh, rules=rules)
+        lg1, _ = prefill(p, {"tokens": toks}, cfg)
+        res[f"{arch}_replicated"] = (_np(lg), _np(lg1))
     return res

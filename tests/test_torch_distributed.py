@@ -25,8 +25,13 @@ seeded inputs.  Held:
   ``test_sharded_train_step_matches_single_device`` asks);
 * the elastic round trip: a ZeRO-3 state saved from the 2 x 2 mesh
   restores bit for bit, and steps on data = 4 and on one device agree;
-* a packed decode on 2 x 2 (a mesh-less plan served on the mesh) within
-  2e-3 of the dense fake-quant decode and of the reference's;
+* a packed decode on 2 x 2 in the sharded serving layout (a mesh-aware
+  plan, every input placed at the reference's ``input_shardings``, the
+  logits gathered whole) within 2e-3 of the dense fake-quant decode and of
+  the reference's, and a mesh-less plan's decode in the same layout equal
+  to the mesh-aware plan's;
+* ``sharding.constrain`` slices a whole tensor and re-lays a placed one
+  out;
 * ``BatchScheduler(mesh=)`` on the OLMo smoke config, teacher-forced, gives
   the single-device scheduler's tokens; ``serve --mesh 2x2`` the tokens of
   ``serve`` on one device.
@@ -244,18 +249,30 @@ def test_sharding_rules_match_reference(shape, global_batch):
     assert pairs["embed"]["table"] == (mesh, rules(("vocab", "embed_no_fsdp")))
 
 
-def test_constrain_is_a_checked_no_op():
-    """The logical axes must fit the tensor and map to the rules' mesh
-    axes; the tensor comes back untouched."""
+def test_constrain_slices_and_relayouts(run):
+    """``sharding.constrain`` on 2 x 2 is the reference's
+    ``with_sharding_constraint``: a whole tensor comes back as this rank's
+    block under the rules (and placed), a placed block moves by collectives
+    to another spec, a block already at its spec comes back as it is, and
+    an all-None spec gathers it whole.  The logical axes must fit the
+    tensor and map to the rules' mesh axes; without rules nothing moves."""
     from repro_torch.models import sharding as shd
-    x = torch.zeros(2, 3, 4)
+    x = np.arange(4 * 6, dtype=np.float32).reshape(4, 6)
+    for res in run[3]:
+        d, m = res["coord"]
+        block, bspec, gshape, moved, mspec, same, whole = res["constrain"]
+        np.testing.assert_array_equal(block, x[2 * d:2 * d + 2, 3 * m:3 * m + 3])
+        assert bspec == ("data", "model") and gshape == (4, 6)
+        np.testing.assert_array_equal(moved, x[2 * m:2 * m + 2, 3 * d:3 * d + 3])
+        assert mspec == ("model", "data") and same
+        np.testing.assert_array_equal(whole, x)
+    t = torch.zeros(2, 3, 4)
     rules = shd.rules_for_mesh(FakeMesh(data=2, model=2))
-    assert shd.constrain(x, ("batch", None, "vocab"), rules) is x
-    assert shd.constrain(x, ("batch", None), None) is x
+    assert shd.constrain(t, ("batch", None, "vocab"), None) is t
     with pytest.raises(ValueError, match="logical axes"):
-        shd.constrain(x, ("batch", None), rules)
+        shd.constrain(t, ("batch", None), rules)
     with pytest.raises(ValueError, match="not axes of the mesh"):
-        shd.constrain(x, ("batch", None, "vocab"), shd.rules_for_mesh(FakeMesh(data=2)))
+        shd.constrain(t, ("batch", None, "vocab"), shd.rules_for_mesh(FakeMesh(data=2)))
 
 
 def test_shard_map_enters_local_blocks_and_gathers(run):
@@ -434,6 +451,19 @@ def test_packed_decode_matches_dense_decode_distributed(run):
         assert float(np.abs(lg_pk - lg_ref).max()) < 2e-3
         assert float(np.abs(lg_pk - ref["decode_pk"]).max()) < 2e-3
         assert float(np.abs(lg_ref - ref["decode_ref"]).max()) < 2e-3
+
+
+def test_meshless_plan_decodes_in_the_sharded_layout(run):
+    """A plan built without a mesh serves on one: ``shard_params`` keeps its
+    whole packed leaves and the ``sharded:*`` variants cut each to this
+    rank's block per use, so the logits are the mesh-aware plan's."""
+    _, ref, _, port = run
+    for res in port:
+        lg_ref, lg_pk = res["decode"]
+        lg_ml = res["decode_meshless"]
+        assert float(np.abs(lg_ml - lg_ref).max()) < 2e-3
+        assert float(np.abs(lg_ml - ref["decode_pk"]).max()) < 2e-3
+        np.testing.assert_array_equal(lg_ml, lg_pk)
 
 
 def test_batch_scheduler_on_mesh_matches_single_device(run):

@@ -25,7 +25,11 @@ an abstract mesh against live gloo ranks and against the reference's HLO.
 * the CLI and the example: ``--both-meshes`` writes one record per mesh with the
   reference's keys, ``long_500k`` of a full-attention arch is skipped on
   both; ``--attn-constraint`` counts what the baseline counts, and so
-  does ``--accum-dtype`` in collectives and kernel calls.
+  does ``--accum-dtype`` in collectives and kernel calls;
+* the layouts: OLMo's serving cells are counted in the sharded serving
+  layout (no ``out_gather``; a 2x16x16 decode_32k's rank 0 holds and
+  computes under 1/256 of one H100's cell), Moonshot's in the replicated
+  layout, the train step as ZeRO-3.
 """
 import json
 import os
@@ -136,8 +140,16 @@ def test_abstract_count_equals_live_ranks(run, case, arch):
         r["bytes"] for r in live["collectives"] if r["primitive"] == "out_gather")
     kinds = {r["primitive"] for r in recs}
     assert {"all_gather", "psum"} <= kinds
-    if shape.kind != "train":
+    # the sharded serving layout (OLMo's serving cells) keeps every result
+    # at its spec; the replicated layout (Moonshot) re-assembles them
+    layout = dryrun.layout_of(ranks.mesh_cfg(arch), shape.kind, mesh)
+    assert layout == {"train": "zero3", "olmo_1b": "input_shardings",
+                      "moonshot_v1_16b_a3b": "replicated"}[
+        "train" if shape.kind == "train" else arch]
+    if layout == "replicated":
         assert "out_gather" in kinds
+    else:
+        assert "out_gather" not in kinds
 
 
 @pytest.mark.parametrize("arch", ranks.MESH_ARCHS)
@@ -276,9 +288,14 @@ def test_dryrun_cell_multi_pod(capsys):
                              "--multi-pod"]) == 0
     rec = json.loads(capsys.readouterr().out)
     assert rec["mesh"] == "2x16x16" and rec["n_devices"] == 512 and rec["status"] == "OK"
-    # dense weights are replicated: the port moves nothing for a dense decode
-    assert rec["link_bytes_per_dev"] == 0
-    assert rec["flops_per_dev"] == dryrun.lower_cell("olmo_1b", "decode_32k")["flops_per_dev"]
+    # the sharded serving layout: rank 0 holds 1/512 of the batch's work and
+    # of the cache, and moves the FSDP gathers, the row all-reduces, the
+    # vocab-parallel embedding and the flash-decode merge
+    assert rec["layout"] == "input_shardings"
+    assert rec["link_bytes_per_dev"] > 0
+    one = dryrun.lower_cell("olmo_1b", "decode_32k")
+    assert rec["flops_per_dev"] < one["flops_per_dev"] / 256
+    assert rec["memory"]["argument_bytes"] < one["memory"]["argument_bytes"] / 256
 
 
 @pytest.mark.parametrize("kind", ("train", "prefill", "decode"))

@@ -18,9 +18,14 @@ Tolerances, each stated with its test:
   except at a near tie (logits within 1e-4), as test_torch_models.py;
 * the paged ``BatchScheduler`` per position: fp pages rtol 1e-4 / atol 1e-5,
   mip2q pages rtol 1e-3 / atol 2e-3 (test_torch_serving.py's, which says
-  why packed pages cannot be held tighter).
+  why packed pages cannot be held tighter); the reference's half runs in a
+  pinned process of its own (``_torch_ranks.pinned_reference``) on weights
+  drawn from one numpy generator (seed 0, ``_torch_f64_referee.numpy_params``),
+  so neither what ran earlier in the test's process nor its hash salt can
+  move it.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -49,8 +54,12 @@ from repro_torch.models import decode_step, forward_train, moe, prefill
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serving import BatchScheduler, Request
 
+import _torch_f64_referee as referee
+import _torch_ranks as ranks
+
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5
 AUX_RTOL = 1e-5
 FIELDS = ("mask", "hi", "lo", "scale")
@@ -323,52 +332,103 @@ def _record(sched, vocab):
     return rec
 
 
-@pytest.fixture(scope="module")
-def moonshot():
-    jcfg, tcfg = _cfgs("moonshot_v1_16b_a3b")
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
-    return jcfg, tcfg, jparams, tparams
+#: the paged cases: (KV codec, logits tolerance) by id
+PAGED = {"fp": (None, dict(rtol=1e-4, atol=1e-5)),
+         "mip2q_L7": (dict(method="mip2q", p=0.5, L=7), dict(rtol=1e-3, atol=2e-3))}
+PAGED_WEIGHTS = dict(method="mip2q", p=0.5, L=5)
 
 
-@pytest.mark.parametrize("codec,tol", [
-    (None, dict(rtol=1e-4, atol=1e-5)),
-    (dict(method="mip2q", p=0.5, L=7), dict(rtol=1e-3, atol=2e-3)),
-], ids=["fp", "mip2q_L7"])
-def test_paged_scheduler_matches_reference_per_position(moonshot, codec, tol):
-    """Both schedulers serve three requests on two slots (slot recycling;
-    parked slots ride the decode batch through the experts on both sides),
-    teacher-forced, on packed mip2q weights; every position's logits agree."""
-    jcfg, tcfg, jparams, tparams = moonshot
-    wkw = dict(method="mip2q", p=0.5, L=5)
-    jserved, tserved, _ = _served(jparams, tparams, wkw)
-    jcfg = dataclasses.replace(jcfg, strum=JCfg(**wkw))
-    tcfg = dataclasses.replace(tcfg, strum=TCfg(**wkw))
+def _paged_run(sched_cls, req_cls, cfg, params, as_prompt, **extra):
+    """One scheduler serves three teacher-forced requests on two slots;
+    returns it and its per-request logits."""
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, 256, size=(n,)).astype(np.int32) for n in LENS]
     forced = [rng.integers(0, 256, size=(NEW,)).tolist() for _ in LENS]
-    recs = []
-    for sched_cls, req_cls, cfg, params, as_prompt, extra in (
-            (JSched, JReq, jcfg, jserved, jnp.asarray,
-             {} if codec is None else dict(kv_cache=JCfg(**codec),
-                                           cache_backend="interpret")),
-            (BatchScheduler, Request, tcfg, tserved, torch.from_numpy,
-             dict(device="cpu") if codec is None else dict(
-                 device="cpu", kv_cache=TCfg(**codec), cache_backend="cuda"))):
-        sched = sched_cls(cfg, params, n_slots=2, max_len=48, **extra)
-        rec = _record(sched, cfg.vocab_size)
-        for i, (p, f) in enumerate(zip(prompts, forced)):
-            sched.submit(req_cls(uid=i, prompt=as_prompt(p), max_new_tokens=NEW,
-                                 force_tokens=f))
-        done = {r.uid: r for r in sched.run_to_completion(max_steps=500)}
-        assert sorted(done) == [0, 1, 2]
-        recs.append((sched, rec))
-    (jsched, jrec), (tsched, trec) = recs
-    assert tsched.spec.attn_variant == jsched.spec.attn_variant
-    assert tsched._steps == jsched._steps
-    for uid in jrec:
-        assert len(jrec[uid]) == len(trec[uid]) == NEW
-        np.testing.assert_allclose(np.stack(trec[uid]), np.stack(jrec[uid]), **tol,
+    sched = sched_cls(cfg, params, n_slots=2, max_len=48, **extra)
+    rec = _record(sched, cfg.vocab_size)
+    for i, (p, f) in enumerate(zip(prompts, forced)):
+        sched.submit(req_cls(uid=i, prompt=as_prompt(p), max_new_tokens=NEW,
+                             force_tokens=f))
+    done = {r.uid: r for r in sched.run_to_completion(max_steps=500)}
+    assert sorted(done) == [0, 1, 2]
+    return sched, rec
+
+
+def _reference_paged(path: str) -> None:
+    """The reference's half of the paged cases, run by
+    ``_torch_ranks.pinned_reference`` in a process of its own: Moonshot's
+    smoke weights (one numpy generator, seed 0), the payloads the port
+    packed from them, and per case every
+    request's logits, its attention variant and its tick count."""
+    jcfg, tcfg = _cfgs("moonshot_v1_16b_a3b")
+    host = referee.numpy_params(j_model_defs(jcfg), 0)
+    jparams = jax.tree.map(jnp.asarray, host)
+    tparams = params_from_numpy(host, device="cpu")
+    jserved, _, tplan = _served(jparams, tparams, PAGED_WEIGHTS)
+    jcfg = dataclasses.replace(jcfg, strum=JCfg(**PAGED_WEIGHTS))
+    out = {f"w/{k}": v for k, v in ranks.flatten(host).items()}
+    out.update({f"pk/{name}/{f}": tplan[name].leaf[f].numpy()
+                for name in tplan.entries for f in FIELDS})
+    for cid, (codec, _) in PAGED.items():
+        extra = {} if codec is None else dict(kv_cache=JCfg(**codec),
+                                              cache_backend="interpret")
+        sched, rec = _paged_run(JSched, JReq, jcfg, jserved, jnp.asarray, **extra)
+        out.update({f"{cid}/rec/{uid}": np.stack(rows) for uid, rows in rec.items()})
+        out[f"{cid}/attn_variant"] = np.array(sched.spec.attn_variant)
+        out[f"{cid}/steps"] = np.array(sched._steps)
+    np.savez(path, **out)
+
+
+@pytest.fixture(scope="module")
+def moonshot_reference(tmp_path_factory):
+    """The reference's half of the paged cases, from one pinned subprocess:
+    what ran earlier in this process cannot move it."""
+    path = str(tmp_path_factory.mktemp("ref") / "moonshot.npz")
+    ranks.pinned_reference("test_torch_moe", "_reference_paged", path, ROOT)
+    return dict(np.load(path))
+
+
+def _weights(ref: dict, defs, prefix: str = "w") -> dict:
+    """Saved reference weights as a nested dict shaped like ``defs`` (empty
+    sub-trees kept)."""
+    if not isinstance(defs, dict):
+        return ref[prefix]
+    return {k: _weights(ref, v, f"{prefix}/{k}") for k, v in defs.items()}
+
+
+@pytest.mark.parametrize("codec,tol", list(PAGED.values()), ids=list(PAGED))
+def test_paged_scheduler_matches_reference_per_position(moonshot_reference, codec, tol):
+    """Both schedulers serve three requests on two slots (slot recycling;
+    parked slots ride the decode batch through the experts on both sides),
+    teacher-forced, on packed mip2q weights; every position's logits agree.
+    The reference's half runs in a pinned process of its own
+    (``_torch_ranks.pinned_reference``); both halves serve the same
+    weights and the same packed payloads (the port's packing here equals
+    the one the reference's half served, bit for bit)."""
+    from repro_torch.models import model_defs
+    ref = moonshot_reference
+    cid = next(k for k, v in PAGED.items() if v == (codec, tol))
+    _, tcfg = _cfgs("moonshot_v1_16b_a3b")
+    tparams = params_from_numpy(_weights(ref, model_defs(tcfg)), device="cpu")
+    tplan = engine.build_plan(tparams, cfg=TCfg(**PAGED_WEIGHTS), device="cpu")
+    packed = {k[len("pk/"):] for k in ref if k.startswith("pk/")}
+    assert packed == {f"{name}/{f}" for name in tplan.entries for f in FIELDS}
+    for name in tplan.entries:
+        for f in FIELDS:
+            np.testing.assert_array_equal(tplan[name].leaf[f].numpy(),
+                                          ref[f"pk/{name}/{f}"], err_msg=f"{name}/{f}")
+    tserved = tplan.params
+    tcfg = dataclasses.replace(tcfg, strum=TCfg(**PAGED_WEIGHTS))
+    extra = dict(device="cpu") if codec is None else dict(
+        device="cpu", kv_cache=TCfg(**codec), cache_backend="cuda")
+    tsched, trec = _paged_run(BatchScheduler, Request, tcfg, tserved, torch.from_numpy,
+                              **extra)
+    assert tsched.spec.attn_variant == str(ref[f"{cid}/attn_variant"])
+    assert tsched._steps == int(ref[f"{cid}/steps"])
+    for uid in range(len(LENS)):
+        want = ref[f"{cid}/rec/{uid}"]
+        assert len(want) == len(trec[uid]) == NEW
+        np.testing.assert_allclose(np.stack(trec[uid]), want, **tol,
                                    err_msg=f"request {uid}")
 
 

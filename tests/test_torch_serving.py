@@ -20,9 +20,18 @@ neighbouring code.  Three runs of the four packed cases on a CPU printed:
 scales differing by at most 9-19 ulps, in 0.31-0.37 of them; payload bytes
 differing in one case of twelve (4.65e-5 of them); max |logit diff| 8.9e-7
 to 2.2e-6.  The test prints both counts for every case and bounds them at
-64 ulps and 1e-3 of the bytes.
+64 ulps and 1e-3 of the bytes.  The reference's half of the packed cases
+runs in a process of its own whose state is pinned
+(``_torch_ranks.pinned_reference``: single-threaded XLA, no
+``STRUM_INTERPRET``), on weights drawn from one numpy generator (seed 0,
+the reference's init scales: ``_torch_f64_referee.numpy_params``; the
+reference's ``init_params`` keys leaves by ``hash(name)``, so its draw
+changes with the process's hash salt) and carried to the port, so the
+comparison depends neither on what ran earlier in the test's process nor
+on its hash salt.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -42,8 +51,12 @@ from repro_torch.models import model_defs
 from repro_torch.models.params import init_params, params_from_numpy
 from repro_torch.serving import BatchScheduler, PagesExhausted, Request
 
+import _torch_f64_referee as referee
+import _torch_ranks as ranks
+
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-5)
 PACKED_TOL = dict(rtol=1e-3, atol=2e-3)
 LENS, NEW = (8, 21, 5), 12
@@ -108,24 +121,27 @@ def _record(sched, vocab):
     return rec
 
 
+def _serve_one(sched_cls, req_cls, cfg, params, as_prompt, max_len=48, **kw):
+    """One scheduler serves the three teacher-forced requests; returns it
+    and its per-request logits."""
+    prompts, forced = _prompts(), _forced(len(LENS))
+    sched = sched_cls(cfg, params, n_slots=2, max_len=max_len, **kw)
+    rec = _record(sched, cfg.vocab_size)
+    for i, (p, f) in enumerate(zip(prompts, forced)):
+        sched.submit(req_cls(uid=i, prompt=as_prompt(p), max_new_tokens=NEW,
+                             force_tokens=f))
+    done = {r.uid: r for r in sched.run_to_completion(max_steps=500)}
+    assert sorted(done) == [0, 1, 2] and all(len(r.output) == NEW
+                                             for r in done.values())
+    return sched, rec
+
+
 def _serve_both(arch, max_len=48, j_kw=None, t_kw=None, **kw):
     jcfg, tcfg, jparams, tparams = arch
-    prompts, forced = _prompts(), _forced(len(LENS))
-    out = []
-    for sched_cls, req_cls, cfg, params, as_prompt, extra in (
-            (JSched, JReq, jcfg, jparams, jnp.asarray, j_kw or {}),
-            (BatchScheduler, Request, tcfg, tparams, torch.from_numpy,
-             dict(t_kw or {}, device="cpu"))):
-        sched = sched_cls(cfg, params, n_slots=2, max_len=max_len, **kw, **extra)
-        rec = _record(sched, cfg.vocab_size)
-        for i, (p, f) in enumerate(zip(prompts, forced)):
-            sched.submit(req_cls(uid=i, prompt=as_prompt(p), max_new_tokens=NEW,
-                                 force_tokens=f))
-        done = {r.uid: r for r in sched.run_to_completion(max_steps=500)}
-        assert sorted(done) == [0, 1, 2] and all(len(r.output) == NEW
-                                                 for r in done.values())
-        out.append((sched, rec))
-    return out
+    return [_serve_one(JSched, JReq, jcfg, jparams, jnp.asarray, max_len,
+                       **kw, **(j_kw or {})),
+            _serve_one(BatchScheduler, Request, tcfg, tparams, torch.from_numpy,
+                       max_len, **kw, **dict(t_kw or {}, device="cpu"))]
 
 
 def _compare_logits(ref, port, tol):
@@ -150,15 +166,16 @@ def test_fp_pages_match_reference_per_position(arch, prefill):
                             else "prefill_serial"] > 0
 
 
-def _pool_diffs(jsched, tsched):
-    """Over every pool field after both runs: the largest scale difference
-    in ulps, the share of scales that differ, and the share of payload
-    bytes that differ."""
+def _pool_diffs(jpools: dict, tsched):
+    """Over every pool field after both runs (the reference's as
+    ``{"pos/k|v/field": array}``): the largest scale difference in ulps,
+    the share of scales that differ, and the share of payload bytes that
+    differ."""
     ulps, scales, n_scales, codes, n_codes = 0, 0, 0, 0, 0
     for pos, pool in tsched.pools.items():
         for name in ("k", "v"):
             for key, t in pool[name].items():
-                a, b = t.numpy(), np.asarray(jsched.pools[pos][name][key])
+                a, b = t.numpy(), jpools[f"{pos}/{name}/{key}"]
                 if key == "scale":
                     d = np.abs(a.view(np.int32).astype(np.int64)
                                - b.view(np.int32).astype(np.int64))
@@ -171,19 +188,67 @@ def _pool_diffs(jsched, tsched):
     return ulps, scales / n_scales, codes / n_codes
 
 
-@pytest.mark.parametrize("codec,max_len", [
-    (dict(method="dliq", p=0.5, q=4), 48),
-    (dict(method="mip2q", p=0.5, L=7), 40),      # max_len % page_size != 0
-], ids=["dliq_q4", "mip2q_L7_ragged_window"])
-def test_packed_pages_match_reference_per_position(arch, codec, max_len):
-    (jsched, jrec), (tsched, trec) = _serve_both(
-        arch, max_len=max_len, j_kw=dict(kv_cache=JCfg(**codec),
-                                         cache_backend="interpret"),
-        t_kw=dict(kv_cache=TCfg(**codec), cache_backend="cuda"))
-    assert jsched.spec.attn_variant == tsched.spec.attn_variant == "cache:attn_fused"
+#: the packed-page cases: (codec, max_len) by id
+PACKED = {"dliq_q4": (dict(method="dliq", p=0.5, q=4), 48),
+          "mip2q_L7_ragged_window": (dict(method="mip2q", p=0.5, L=7), 40)}  # max_len % page_size != 0
+
+
+def _reference_packed(path: str, arch: str) -> None:
+    """The reference's half of the packed-page cases, run by
+    ``_torch_ranks.pinned_reference`` in a process of its own: its weights
+    (one numpy generator, seed 0) and, per case, every request's logits,
+    the pools it sealed, and its attention variant, into ``path``."""
+    jcfg, _ = _cfgs(arch)
+    jparams = jax.tree.map(jnp.asarray, referee.numpy_params(j_model_defs(jcfg), 0))
+    out = {f"w/{k}": v for k, v in ranks.flatten(jax.tree.map(np.asarray, jparams)).items()}
+    for cid, (codec, max_len) in PACKED.items():
+        sched, rec = _serve_one(JSched, JReq, jcfg, jparams, jnp.asarray, max_len,
+                                kv_cache=JCfg(**codec), cache_backend="interpret")
+        out.update({f"{cid}/rec/{uid}": np.stack(rows) for uid, rows in rec.items()})
+        out.update({f"{cid}/pool/{pos}/{name}/{key}": np.asarray(a)
+                    for pos, pool in sched.pools.items() for name in ("k", "v")
+                    for key, a in pool[name].items()})
+        out[f"{cid}/attn_variant"] = np.array(sched.spec.attn_variant)
+    np.savez(path, **out)
+
+
+@pytest.fixture(scope="module")
+def packed_reference(tmp_path_factory):
+    """``arch -> the reference's half of the packed cases`` (one pinned
+    subprocess per arch, on first use)."""
+    cache: dict = {}
+
+    def get(arch: str) -> dict:
+        if arch not in cache:
+            path = str(tmp_path_factory.mktemp("ref") / f"{arch}.npz")
+            ranks.pinned_reference("test_torch_serving", "_reference_packed", path,
+                                   ROOT, arch)
+            cache[arch] = dict(np.load(path))
+        return cache[arch]
+    return get
+
+
+@pytest.mark.parametrize("codec,max_len", list(PACKED.values()), ids=list(PACKED))
+def test_packed_pages_match_reference_per_position(arch, packed_reference, codec,
+                                                   max_len):
+    """The reference's half runs in a process of its own with its state
+    pinned (``_torch_ranks.pinned_reference``), so what ran earlier in this
+    process cannot move its pools; both halves serve its weights."""
+    tcfg = arch[1]
+    name = tcfg.name[:-len("_smoke")]
+    cid = next(k for k, v in PACKED.items() if v == (codec, max_len))
+    ref = packed_reference(name)
+    tparams = params_from_numpy(_weights(ref, model_defs(tcfg)), device="cpu")
+    tsched, trec = _serve_one(BatchScheduler, Request, tcfg, tparams, torch.from_numpy,
+                              max_len, kv_cache=TCfg(**codec), cache_backend="cuda",
+                              device="cpu")
+    jrec = {uid: list(ref[f"{cid}/rec/{uid}"]) for uid in range(len(LENS))}
+    assert str(ref[f"{cid}/attn_variant"]) == tsched.spec.attn_variant == "cache:attn_fused"
     assert tsched.spec.variant == "cache:cuda_decode"
     worst = _compare_logits(jrec, trec, PACKED_TOL)
-    ulps, scale_share, code_share = _pool_diffs(jsched, tsched)
+    pre = f"{cid}/pool/"
+    ulps, scale_share, code_share = _pool_diffs(
+        {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}, tsched)
     print(f"\npools: scales differ by <= {ulps} ulps ({scale_share:.3f} of them), "
           f"{code_share:.2e} of payload bytes differ; max |logit diff| {worst:.2e}")
     assert ulps <= 64 and code_share < 1e-3
@@ -191,6 +256,15 @@ def test_packed_pages_match_reference_per_position(arch, codec, max_len):
     assert st["resident_page_bytes"] == st["expected_page_bytes"]
     assert st["ratio_vs_int8"] == pytest.approx(TCfg(**codec).compression_ratio)
     assert st["ratio_vs_int8"] == pytest.approx(0.875)
+
+
+def _weights(ref: dict, defs, prefix: str = "w") -> dict:
+    """The reference's weights of a saved half, as a nested dict of numpy
+    arrays shaped like ``defs`` (empty sub-trees, e.g. OLMo's parameter-free
+    norms, kept)."""
+    if not isinstance(defs, dict):
+        return ref[prefix]
+    return {k: _weights(ref, v, f"{prefix}/{k}") for k, v in defs.items()}
 
 
 # ------------------------------------------------------------- edge cases --
