@@ -3343,7 +3343,8 @@ def _s_rank(rank: int, world: int, port: int, what: str, out) -> None:
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 rank=rank, world_size=world)
-        res = {"s2": _s2_body, "s3": _s3_body, "s2_decode": _s2_decode_body}[what](
+        res = {"s2": _s2_body, "s3": _s3_body, "s2_decode": _s2_decode_body,
+               "s4": _s4_body}[what](
             rank, torch.device("cuda", 0))
         dist.barrier()
         out.put((rank, res, None))
@@ -3716,13 +3717,14 @@ def _gathered_param_bytes(params, defs, mesh, rules) -> int:
                for k, d in defs.items())
 
 
-def measure_mesh(dev, refs) -> dict:
+def measure_mesh(dev, refs, only=None) -> dict:
     """Phase s, each sub-phase fatal; returns its records with seconds and
-    the K1 / K4 / K6 launches of its runs."""
+    the K1 / K4 / K6 launches of its runs.  ``only`` names the sub-phases to
+    run (default: all)."""
     import torch
     sub, t_start = {}, time.perf_counter()
-    print(f"  s2 and s3 run as gloo ranks sharing cuda:0 (NCCL refuses two ranks on "
-          f"one device), torch {torch.__version__}", flush=True)
+    print(f"  s2, s3 and s4 run as gloo ranks sharing cuda:0 (NCCL refuses two ranks "
+          f"on one device), torch {torch.__version__}", flush=True)
     for key, what, fn in (
             ("s1", "NCCL, world 1, a 1x1 mesh: full-width OLMo-1B, 16 layers, through "
                    "serve --mesh 1x1's code, dense-cache loop and paged",
@@ -3733,7 +3735,15 @@ def measure_mesh(dev, refs) -> dict:
                    f"full-width Moonshot-16B-A3B MoE layer", lambda: _spawn_ranks("s2", 4)),
             ("s3", f"2 gloo ranks on cuda:0, data = 2: the ZeRO-3 train step, "
                    f"full-width OLMo-1B at {MESH_LAYERS} layers, batch 2 x 256, f32",
-             lambda: _spawn_ranks("s3", 2))):
+             lambda: _spawn_ranks("s3", 2)),
+            ("s4", f"4 gloo ranks on cuda:0, a 2x2 mesh, the sharded serving layout "
+                   f"of the MoE, SSM and hybrid families: full-width Moonshot-16B-A3B "
+                   f"at {MOE_LAYERS} layers, full-width Mamba-2 780M at "
+                   f"{S4_SSM_LAYERS} layers, Jamba at its smoke shape "
+                   f"(prefill + {S4_GEN} decode steps each, f32 and bf16)",
+             lambda: _spawn_ranks("s4", 4))):
+        if only is not None and key not in only:
+            continue
         t0 = time.perf_counter()
         print(f"-- {key}. {what} (t = {t0 - _T0:.1f} s)", flush=True)
         rec = fn()
@@ -3741,6 +3751,8 @@ def measure_mesh(dev, refs) -> dict:
             rec = _check_s2(rec)
         elif key == "s3":
             rec = _check_s3(rec)
+        elif key == "s4":
+            rec = _check_s4(rec)
         sub[key] = rec
         sub[key]["seconds"] = time.perf_counter() - t0
         print(f"  {key} took {sub[key]['seconds']:.1f} s", flush=True)
@@ -3872,6 +3884,254 @@ def _check_s3(ranks: list) -> dict:
         "loss_rel": loss_rel, "step_gap": gap}
 
 
+#: s4's families on the 2x2 mesh: (arch, depth at full width, or None for
+#: the smoke shape).  Jamba's full width does not fit one card (one MoE
+#: layer's experts are 16 x 3 x 8192 x 24576 parameters, 38.7 GB at f32);
+#: the dry-run counts it on meta
+S4_SSM_LAYERS = 16             # of Mamba-2's 48, at full width
+S4_CASES = ((MOE_ARCH, MOE_LAYERS), (SSM_ARCH, S4_SSM_LAYERS), (HYBRID_ARCH, None))
+S4_PROMPT = (4, 32)             # batch (over data = 2) x prompt tokens
+S4_GEN = 8
+
+
+def _s4_cfg(arch: str, layers):
+    """s4's config of ``arch`` at its config's dtype (bf16), packed with the
+    default StruM config: full width at ``layers``, or the smoke shape."""
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.core.policy import StruMConfig
+    cfg = get_smoke_config(arch) if layers is None else dataclasses.replace(
+        get_config(arch), n_layers=layers)
+    return dataclasses.replace(cfg, strum=StruMConfig())
+
+
+def _held_bytes(placed) -> dict:
+    """What this rank holds of a served tree against the whole: packed
+    payload fields (mask, hi, lo, scale; the whole is each field's block
+    times its parts) and dense leaves (the whole from each ``Placement``,
+    and the bytes each leaf's cut predicts: its whole over its parts).  A
+    tree without placements (one device) holds it all."""
+    import torch
+    from repro_torch.engine.sharded import field_parts
+    from repro_torch.models import sharding as shd
+    out = {"payload": {"held": 0, "whole": 0}, "dense": {"held": 0, "whole": 0, "want": 0}}
+
+    def walk(tree):
+        if isinstance(tree, dict) and "mask" in tree:
+            shard = tree["spec"].shard
+            parts = field_parts(shard) if shard is not None else {}
+            for k in ("mask", "hi", "lo", "scale"):
+                nb = tree[k].numel() * tree[k].element_size()
+                out["payload"]["held"] += nb
+                out["payload"]["whole"] += nb * parts.get(k, 1)
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                walk(v)
+        elif isinstance(tree, torch.Tensor):
+            pl = shd.placement(tree)
+            nb = tree.numel() * tree.element_size()
+            whole = nb if pl is None else math.prod(pl.shape) * tree.element_size()
+            o = out["dense"]
+            o["held"] += nb
+            o["whole"] += whole
+            o["want"] += whole if pl is None else whole // pl.parts
+    walk(placed)
+    return out
+
+
+def _teacher_forced(got, toks, ref, what: str) -> dict:
+    """The served logits ``got`` (greedy ``toks``) against one device's
+    logits ``ref`` teacher-forced on the same tokens: every argmax
+    disagreement must be a near tie (:func:`_near_ties`)."""
+    import torch
+    return dict(served_is_argmax=bool(torch.equal(got.argmax(-1), toks)),
+                max_abs_diff=(got - ref).abs().max().item(),
+                max_abs_logit=ref.abs().max().item(),
+                argmax_agreement=(got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+                near_ties=_near_ties(ref, got, ref.argmax(-1), what),
+                positions=got.shape[0] * got.shape[1])
+
+
+def _s4_body(rank: int, dev) -> dict:
+    """A rank of s4 (2 x 2 mesh): for each of :data:`S4_CASES`, the default
+    mip2q plan built on the mesh and served in the sharded serving layout
+    (prefill + S4_GEN decode steps through the dense-cache loop) at f32
+    activations and at the config's bf16, the launches and the bytes this
+    rank holds, and one f32 decode step under the dry-run's ``Counter``.
+    One rank at a time draws the whole model on the card (f32, seed 0),
+    packs it and keeps its blocks, so the card holds one whole model at a
+    time.  Rank 0 also serves the one-device plan on each data shard's rows
+    (the rows a data rank routes its MoE capacity over) and compares."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import place_inputs
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.params import init_params, shard_params
+    mesh = make_host_mesh(data=2, model=2)
+    b, n = S4_PROMPT
+    rules = shd.rules_for_mesh(mesh, b)
+    shards = [slice(d * b // 2, (d + 1) * b // 2) for d in range(2)]
+    out = {}
+    for arch, layers in S4_CASES:
+        t0 = time.perf_counter()
+        cfg16 = _s4_cfg(arch, layers)
+        cfg = dataclasses.replace(cfg16, dtype="float32")
+        prompt = torch.randint(0, cfg.vocab_size, (b, n),
+                               generator=torch.Generator().manual_seed(0)).to(dev)
+        placed = plan1 = None
+        for r in range(dist.get_world_size()):
+            if r == rank:
+                params = init_params(model_defs(cfg), seed=0, device=dev,
+                                     dtype_override="float32")
+                plan = build_serving_plan(params, cfg=cfg.strum, mesh=mesh, rules=rules,
+                                          device=dev)
+                dist_v = plan.summary()["variant_distribution"]
+                per_step = {"onehot": 0, "grouped_onehot": 0}
+                for e in plan.entries.values():     # one launch a group a step
+                    per_step["onehot" if len(e.shape) == 3 else "grouped_onehot"] += \
+                        e.shape[0]
+                placed = shard_params(plan.params, model_defs(cfg), mesh, rules,
+                                      device=dev)
+                del plan
+                if rank == 0:
+                    plan1 = build_serving_plan(params, cfg=cfg.strum, device=dev)
+                del params
+                torch.cuda.empty_cache()
+            dist.barrier()
+        placed = place_inputs(cfg, ShapeSpec("s4", n, b, "prefill"),
+                              (placed, {"tokens": prompt}), mesh, rules)[0]
+        steps = 1 + S4_GEN
+        _reset_kv_counts()
+        t1 = time.perf_counter()
+        toks, t_p, t_d, lg = S.serve(cfg, placed, prompt, S4_GEN, device=dev,
+                                     return_logits=True, warmup=False, mesh=mesh,
+                                     rules=rules)
+        serve_s = time.perf_counter() - t1
+        launched = dict(_kv_counts())
+        rec = {"dist": dist_v, "launches": launched, "steps": steps,
+               "want": {k: v * steps for k, v in per_step.items()},
+               "held": _held_bytes(placed), "prefill_ms": t_p * 1e3,
+               "decode_ms_per_token": t_d / S4_GEN * 1e3, "serve_s": serve_s,
+               "layers": cfg.n_layers, "smoke": layers is None}
+        rec["decode_record"] = _s2_decode_record(cfg, placed, prompt, mesh, rules)
+        _reset_kv_counts()
+        toks16, _, _, lg16 = S.serve(cfg16, placed, prompt, S4_GEN, device=dev,
+                                     return_logits=True, warmup=False, mesh=mesh,
+                                     rules=rules)
+        rec["bf16_launches"] = dict(_kv_counts())
+        del placed
+        if rank == 0:
+            ones = [S.serve(cfg, plan1.params, prompt[h], S4_GEN, device=dev,
+                            return_logits=True, warmup=False) for h in shards]
+            toks1 = torch.cat([o[0] for o in ones])
+            lg1 = torch.cat([o[3] for o in ones])
+            got, want = lg[..., :cfg.vocab_size], lg1[..., :cfg.vocab_size]
+            rec.update(single_held=_held_bytes(plan1.params),
+                       single_dist=plan1.summary()["variant_distribution"],
+                       tokens_equal=bool(torch.equal(toks, toks1)),
+                       first_differing=[tuple(map(int, rt)) for rt in
+                                        torch.nonzero(toks != toks1)[:4]],
+                       max_abs_diff=(got - want).abs().max().item())
+            rec["f32"] = _teacher_forced(
+                got, toks, torch.cat([_forced_logits(cfg, plan1.params, prompt[h], toks[h])
+                                      for h in shards]), f"s4 {arch} f32 on 2x2")
+            rec["bf16"] = _teacher_forced(
+                lg16[..., :cfg.vocab_size].float(), toks16,
+                torch.cat([_forced_logits(cfg16, plan1.params, prompt[h], toks16[h])
+                           for h in shards]), f"s4 {arch} bf16 on 2x2")
+            del plan1
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        out[arch] = rec
+    return out
+
+
+def _s4_abstract(arch: str, layers, record: dict) -> dict:
+    """s4's f32 decode step of ``arch`` counted on the abstract 2x2 mesh and
+    held to rank 0's record (:func:`_abstract_hold`)."""
+    cfg = dataclasses.replace(_s4_cfg(arch, layers), dtype="float32")
+    rec = _abstract_hold(cfg, record, f"s4 {arch}", "rank 0's")
+    return {"n_collectives": len(rec["collective_records"]),
+            "per_kind_count": rec["collectives"]["per_kind_count"],
+            "link_bytes": rec["collectives"]["link_bytes"], "kernels": rec["kernels"],
+            "count_s": rec["seconds"]}
+
+
+def _check_s4(ranks: list) -> dict:
+    """s4's launch counts, held bytes and parity, exact where they are
+    counts; the abstract count of each f32 decode step."""
+    out = {}
+    for arch, layers in S4_CASES:
+        for r, res in enumerate(ranks):
+            a = res[arch]
+            for what, got in (("f32", a["launches"]), ("bf16", a["bf16_launches"])):
+                live = {k: v for k, v in got.items() if v}
+                want = {k: v for k, v in a["want"].items() if v}
+                _check(live == want and a["want"]["onehot"] > 0 and
+                       (a["want"]["grouped_onehot"] > 0) == (arch != SSM_ARCH),
+                       f"s4 rank {r} {arch} {what} launches {live}, want {want}")
+            one = ranks[0][arch]["single_held"]
+            h = a["held"]
+            _check(h["dense"]["held"] == h["dense"]["want"] and
+                   h["dense"]["whole"] == one["dense"]["whole"] and
+                   h["payload"]["whole"] == one["payload"]["whole"] and
+                   0 < h["payload"]["held"] < h["payload"]["whole"],
+                   f"s4 rank {r} {arch} holds {h}; one device {one}")
+            d = a["decode_record"]
+            _check(d["cache_bytes"] * 4 == d["cache_whole_bytes"],
+                   f"s4 rank {r} {arch} holds {d['cache_bytes']} of "
+                   f"{d['cache_whole_bytes']} cache bytes, not a quarter")
+        a = ranks[0][arch]
+        for what in ("f32", "bf16"):
+            t = a[what]
+            _check(t["served_is_argmax"] and t["max_abs_diff"] <= 0.05 * t["max_abs_logit"]
+                   and t["argmax_agreement"] >= 0.9, f"s4 {arch} {what} logits differ: {t}")
+        d = a["decode_record"]
+        abstract = _s4_abstract(arch, layers, d)
+        depth = "smoke shape" if a["smoke"] else f"{a['layers']} layers, full width"
+        held = [r[arch]["held"] for r in ranks]
+        caches = [r[arch]["decode_record"]["cache_bytes"] for r in ranks]
+        print(f"  {arch} ({depth}) on 2x2 in the sharded serving layout, plan "
+              f"{a['dist']} (one device: {a['single_dist']}); ranks 0-3 hold "
+              f"{[h['payload']['held'] for h in held]} of {held[0]['payload']['whole']} "
+              f"payload bytes (rank 0 x{held[0]['payload']['held'] / held[0]['payload']['whole']:.4f}), "
+              f"{[h['dense']['held'] for h in held]} of {held[0]['dense']['whole']} "
+              f"dense-leaf bytes (x{held[0]['dense']['held'] / held[0]['dense']['whole']:.4f}), "
+              f"{caches} of {d['cache_whole_bytes']} cache bytes "
+              f"(x{caches[0] / d['cache_whole_bytes']:.4f})", flush=True)
+        print(f"  {arch} each rank: K1 {[r[arch]['launches'].get('onehot', 0) for r in ranks]}"
+              f", K6 {[r[arch]['launches'].get('grouped_onehot', 0) for r in ranks]} "
+              f"launches (want {a['want']}: one a layer group a step, {a['steps']} steps; "
+              f"bf16 the same); vs the one-device plan on each data shard's rows: "
+              f"tokens equal {a['tokens_equal']} (first differing (row, position): "
+              f"{a['first_differing']}), logits max|diff| {a['max_abs_diff']:.4e}", flush=True)
+        for what in ("f32", "bf16"):
+            t = a[what]
+            print(f"  {arch} {what} teacher-forced on the served tokens over "
+                  f"{t['positions']} positions: max|diff| {t['max_abs_diff']:.4e} (max|logit| "
+                  f"{t['max_abs_logit']:.4e}), argmax agreement {t['argmax_agreement']:.3f}, "
+                  f"{len(t['near_ties'])} disagreements, each a near tie (gap <= 2 x the "
+                  f"row's max|diff|): {t['near_ties']}", flush=True)
+        print(f"  {arch} f32 decode step on the abstract 2x2 mesh: "
+              f"{abstract['n_collectives']} collectives equal to rank 0's one by one "
+              f"({abstract['per_kind_count']}, link {abstract['link_bytes']} B); kernel "
+              f"calls {abstract['kernels']} = launches {d['launches']}; rank 0 host "
+              f"clock (gloo on one card): prefill {a['prefill_ms']:.1f} ms, decode "
+              f"{a['decode_ms_per_token']:.2f} ms/token; {a['seconds']:.1f} s", flush=True)
+        out[arch] = {k: v for k, v in a.items() if k != "decode_record"} | {
+            "abstract": abstract,
+            "cache": (d["cache_bytes"], d["cache_whole_bytes"]),
+            "k1_launches_per_rank": [r[arch]["launches"].get("onehot", 0) for r in ranks],
+            "k6_launches_per_rank": [r[arch]["launches"].get("grouped_onehot", 0)
+                                     for r in ranks]}
+    return out
+
+
 def _mesh_report(mesh, smi) -> None:
     """Phase s's summary line."""
     s1, s2 = mesh["s1"], mesh["s2"]
@@ -3879,7 +4139,8 @@ def _mesh_report(mesh, smi) -> None:
           f"{s1['paged_launches']} / K4 {s1['paged_k4']}, paged drain "
           f"{s1['drain_ms']:.1f} ms; s2 (gloo 2x2) K1 per rank "
           f"{s2['k1_launches_per_rank']}, K6 per rank {s2['k6_launches_per_rank']}; s3 "
-          f"ZeRO-3 loss rel {mesh['s3']['loss_rel']:.2e}; sub-phase seconds "
+          f"ZeRO-3 loss rel {mesh['s3']['loss_rel']:.2e}; s4 (gloo 2x2) K1 / K6 per "
+          f"rank {({a: (r['k1_launches_per_rank'], r['k6_launches_per_rank']) for a, r in mesh['s4'].items() if a != 'seconds'})}; sub-phase seconds "
           f"{ {k: round(v['seconds'], 1) for k, v in mesh.items() if k != 'seconds'} }, "
           f"phase s {mesh['seconds']:.1f} s; {smi}")
 
@@ -4691,35 +4952,47 @@ def _sweep_status(futures, t0, mesh: str) -> dict:
     return {"counts": counts, "seconds": seconds}
 
 
-def _v3_hold(record: dict) -> dict:
-    """v3: the dry-run's count of s2's OLMo decode step on the abstract 2x2
-    mesh (``meta``, rank 0, the card's kernel choices) beside what s2's
-    rank 0 records on cuda:0: every collective (primitive, kind, result
-    shape and dtype, width, bytes, in order) and the kernel calls and
-    launches, exactly."""
+def _abstract_hold(cfg, record: dict, what: str, whose: str) -> dict:
+    """The dry-run's count of ``cfg``'s decode step on the abstract 2x2 mesh
+    (``meta``, rank 0, the card's kernel choices) held to ``record``, a
+    live rank 0's record of the same step (``_s2_decode_record``): every
+    collective (primitive, kind, result shape and dtype, width, bytes, in
+    order) and the kernel calls and launches, exactly.  Returns the count."""
     from repro_torch.analysis.pallas_lint import VARIANT_KERNELS
-    from repro_torch.configs.base import ShapeSpec, get_config
-    from repro_torch.core.policy import StruMConfig
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun, specs
-    from repro_torch.launch.dryrun import lower_cell
     from repro_torch.launch.mesh import AbstractMesh
-    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=record["layers"],
-                              strum=StruMConfig(), dtype="float32")
-    shape = ShapeSpec("v3_decode", record["cache_len"], record["batch"], "decode")
+    shape = ShapeSpec(f"{what}_decode", record["cache_len"], record["batch"], "decode")
     rec = dryrun.count_step(cfg, shape, specs.input_specs(cfg, shape,
                                                           param_dtype="float32"),
                             mesh=AbstractMesh((2, 2), ("data", "model")))
     got, live = rec["collective_records"], record["collectives"]
     first = next((i for i, (a, b) in enumerate(zip(got, live)) if a != b),
                  None if len(got) == len(live) else min(len(got), len(live)))
-    _check(first is None, f"v3: the abstract count's collective {first} "
+    _check(first is None, f"{what}: the abstract count's collective {first} "
                           f"{got[first] if first is not None and first < len(got) else None}"
-                          f" vs s2's {live[first] if first is not None and first < len(live) else None}"
+                          f" vs {whose} {live[first] if first is not None and first < len(live) else None}"
                           f" ({len(got)} vs {len(live)} collectives)")
     launches = {VARIANT_KERNELS[k]: v for k, v in rec["kernels"].items()}
     _check(rec["kernels"] == record["kernels"] and launches == record["launches"],
-           f"v3: the abstract count's kernel calls {rec['kernels']} (launches "
-           f"{launches}) vs s2's {record['kernels']} (launches {record['launches']})")
+           f"{what}: the abstract count's kernel calls {rec['kernels']} (launches "
+           f"{launches}) vs {whose} {record['kernels']} (launches {record['launches']})")
+    return rec
+
+
+def _v3_hold(record: dict) -> dict:
+    """v3: the dry-run's count of s2's OLMo decode step on the abstract 2x2
+    mesh (``meta``, rank 0, the card's kernel choices) beside what s2's
+    rank 0 records on cuda:0: every collective (primitive, kind, result
+    shape and dtype, width, bytes, in order) and the kernel calls and
+    launches, exactly."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.launch.dryrun import lower_cell
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=record["layers"],
+                              strum=StruMConfig(), dtype="float32")
+    rec = _abstract_hold(cfg, record, "v3", "s2's")
+    got = rec["collective_records"]
     coll = rec["collectives"]
     packed = {m: lower_cell("olmo_1b", "decode_32k", {"strum": StruMConfig()}, "mip2q",
                             mesh=m) for m in V_MESHES}
@@ -4746,7 +5019,7 @@ def _v3_hold(record: dict) -> dict:
           f"slots, the sharded serving layout) on the abstract 2x2 mesh: {len(got)} "
           f"collectives equal to s2's rank 0 on "
           f"cuda:0 one by one ({coll['per_kind_count']}, bytes "
-          f"{coll['per_kind_bytes']}, out_gather {coll['out_gather_bytes']} B, link "
+          f"{coll['per_kind_bytes']}, link "
           f"{coll['link_bytes']} B); kernel calls {rec['kernels']} = launches "
           f"{record['launches']}; count {rec['seconds']:.2f} s on meta", flush=True)
     return {"collectives": coll, "kernels": rec["kernels"], "launches": record["launches"],
@@ -4960,7 +5233,8 @@ def measure(dev, clocks):
     _phase("s. distributed: NCCL world-1 1x1 mesh (full-width OLMo-1B, serve --mesh "
            f"1x1), 4 gloo ranks on a 2x2 mesh (OLMo-1B at {S2_LAYERS} layers in the "
            "sharded serving layout, a Moonshot MoE layer), the ZeRO-3 train step on 2 "
-           "gloo ranks")
+           "gloo ranks, 4 gloo ranks on a 2x2 mesh (Moonshot, Mamba-2 and Jamba in "
+           "the sharded serving layout)")
     times["mesh"] = mesh = measure_mesh(dev, refs)
     mesh_launches = {
         "onehot": {"s1_dense_loop": mesh["s1"]["dense_launches"],
@@ -4968,6 +5242,12 @@ def measure(dev, clocks):
                    "s2_olmo_per_rank": mesh["s2"]["k1_launches_per_rank"]},
         "paged_attention": {"s1_paged": mesh["s1"]["paged_k4"]},
         "grouped_onehot": {"s2_moe_per_rank": mesh["s2"]["k6_launches_per_rank"]}}
+    for arch, _ in S4_CASES:
+        s4 = mesh["s4"][arch]
+        for kern, key in (("onehot", "k1_launches_per_rank"),
+                          ("grouped_onehot", "k6_launches_per_rank")):
+            if any(s4[key]):
+                mesh_launches[kern][f"s4_{arch}_per_rank"] = s4[key]
 
     _phase("t. static analysis: registry audit and launch-contract lint on the card, "
            "dataflow and draft proofs on full-width OLMo-1B, recompile lint, "
@@ -5120,8 +5400,8 @@ def _zoo_report(zoo, smi) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q"], ["--only", "r"], ["--only", "s"],
-                    ["--only", "t"], ["--only", "u"], ["--only", "v"]):
-        print("usage: chip_smoke.py [--only q|r|s|t|u|v]", file=sys.stderr)
+                    ["--only", "s4"], ["--only", "t"], ["--only", "u"], ["--only", "v"]):
+        print("usage: chip_smoke.py [--only q|r|s|s4|t|u|v]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
@@ -5174,6 +5454,11 @@ def main(argv=None) -> int:
             _phase("s. distributed")
             mesh = measure_mesh(dev, _single_device_refs(dev))
             _mesh_report(mesh, smi)
+            print(json.dumps({"mesh": mesh}, default=str))
+            return 0
+        if argv == ["--only", "s4"]:    # sub-phase s4 alone: no kernels or result line
+            _phase("s4. the sharded serving layout of the MoE, SSM and hybrid families")
+            mesh = measure_mesh(dev, None, only=("s4",))
             print(json.dumps({"mesh": mesh}, default=str))
             return 0
         if argv == ["--only", "t"]:     # phase t alone: no kernels or result line

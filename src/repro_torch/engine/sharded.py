@@ -65,7 +65,7 @@ from repro_torch.engine.registry import (LeafInfo, list_variants, register_kerne
 from repro_torch.models import sharding as shd
 
 __all__ = ["gather_dequant_leaf", "tp_pattern_for", "dense_gather_bytes",
-           "payload_specs", "cut_payload", "local_payload"]
+           "payload_specs", "cut_payload", "local_payload", "stack_at_rest"]
 
 FIELDS = ("mask", "hi", "lo")
 _ROW_NAMES = ("wo", "out_proj")
@@ -137,6 +137,27 @@ def local_payload(wleaf: dict, specs: dict, mesh) -> dict:
                              f"called on mesh {dict(here)}")
         return fields
     return {k: shd.shard_slice(v, specs[k], mesh) for k, v in fields.items()}
+
+
+def stack_at_rest(wleaf: dict, mesh) -> dict:
+    """An expert stack of a mesh-aware plan as the reference's
+    ``input_shardings`` hold it: its experts over ``model`` and its packed
+    block axis whole (the rules map a stack's ``expert_fsdp`` axis to no
+    mesh axis), where the plan's block also splits the block axis over the
+    FSDP axes.  That axis is all-gathered once and the leaf's ``ShardSpec``
+    then names no FSDP axis; any other leaf is returned as it is.  The MoE
+    body cuts the data block again on entry (``models.moe``), as the
+    reference's ``in_specs`` reshard it."""
+    import dataclasses
+    spec = wleaf.get("spec")
+    shard = getattr(spec, "shard", None)
+    if shard is None or shard.tp_pattern is not None or not shard.fsdp_axes:
+        return wleaf
+    out = dict(wleaf, **{k: shd.all_gather(wleaf[k], mesh, shard.fsdp_axes,
+                                           wleaf[k].dim() - 3) for k in FIELDS})
+    out["spec"] = dataclasses.replace(spec, shard=dataclasses.replace(shard,
+                                                                      fsdp_axes=()))
+    return out
 
 
 def _packed(cfg: StruMConfig, k_dim: int, f: dict) -> packing.PackedStruM:

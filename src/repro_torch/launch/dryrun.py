@@ -40,24 +40,19 @@ their results' shapes alone, and each input is the block rank 0 holds
 (``launch.specs.place_inputs``), under the layout the record names
 (``layout``, :data:`LAYOUT_NOTES`):
 
-* ``input_shardings``: the prefill and decode cells of the dense GQA
-  decoders run the sharded serving layout (``models.sharding``), the
-  reference's ``input_shardings``: rank 0 holds its shards of the dense
-  and packed weights, its rows of the batch and its slice of the decode
-  caches, so its argument bytes are the sum of the reference's shard
-  sizes (tokens int64 where the reference's are int32, ``cache_len`` a
-  Python int), and the count holds the FSDP gathers, the row-parallel
-  all-reduces, the vocab-parallel embedding and the flash-decode merge;
-* ``replicated``: the other families' serving cells keep dense weights,
-  activations and caches global on every rank (dense compute
-  replicated), packed weights a mesh-aware plan's block;
+* ``input_shardings``: every family's prefill and decode cells run the
+  sharded serving layout (``models.sharding``), the reference's
+  ``input_shardings``: rank 0 holds its shards of the dense and packed
+  weights (a packed expert stack with its block axis whole, as the
+  reference's specs hold it), its rows of the batch and its blocks of the
+  decode caches (attention caches by sequence, the SSM ``conv`` cache by
+  channel and ``state`` by head), so its argument bytes are the sum of the
+  reference's shard sizes (tokens int64 where the reference's are int32,
+  ``cache_len`` a Python int), and the count holds the FSDP gathers, the
+  row-parallel all-reduces, the vocab-parallel embedding, the flash-decode
+  merge, the expert-parallel all-reduce and the SSM mixer's gathers;
 * ``zero3``: a train step's parameters and AdamW moments are its ZeRO-3
   shards and its batch is global (the step takes its rows itself).
-
-In the replicated layout the port's ``out_gather`` (the re-assembly of a
-result to global) moves bytes on the wire, so it counts as an all-gather;
-it is also recorded alone (``out_gather_bytes``), since the reference's
-``out_specs`` are no collective.
 
 Costs are counted at depth ``period(cfg)``, twice that (and, for a train
 step, three times) and extrapolated to the config's depth
@@ -113,7 +108,7 @@ from repro_torch.launch.specs import input_specs, place_inputs
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models.sharding import rules_for_mesh
-from repro_torch.models.transformer import period, sharded_serving
+from repro_torch.models.transformer import period
 from repro_torch.optim.adamw import AdamWConfig, OptState
 
 __all__ = ["Counter", "count_step", "extrapolated_costs", "compute_s",
@@ -319,9 +314,7 @@ def layout_of(cfg, kind: str, mesh) -> str:
     a key of :data:`LAYOUT_NOTES`."""
     if mesh is None:
         return "1x1"
-    if kind == "train":
-        return "zero3"
-    return "input_shardings" if sharded_serving(cfg, mesh) else "replicated"
+    return "zero3" if kind == "train" else "input_shardings"
 
 
 def count_step(cfg, shape, inputs=None, mesh=None, rules=None) -> dict:
@@ -355,8 +348,6 @@ def count_step(cfg, shape, inputs=None, mesh=None, rules=None) -> dict:
     alias_bytes = sum(_nbytes(t) for t in outs if t.untyped_storage()._cdata in held)
     del outs
     coll = collective_bytes(counter.collectives)
-    coll["out_gather_bytes"] = sum(r["bytes"] for r in counter.collectives
-                                   if r["primitive"] == "out_gather")
     return {"flops": sum((counter.flops + counter.kernel_flops).values()),
             "flops_by_dtype": dict(counter.flops + counter.kernel_flops),
             "kernel_flops": sum(counter.kernel_flops.values()),
@@ -446,12 +437,6 @@ LAYOUT_NOTES = {
         "caches are rank 0's shards (weights FSDP over data, qkv/mlp/vocab over "
         "model; batch over data; cache sequence over model); tokens int64 and "
         "cache_len a Python int where the reference's are int32"),
-    "replicated": (
-        "rank 0 of the port's replicated layout: dense weights, activations and "
-        "decode caches global on every rank (dense compute replicated), packed "
-        "weights the rank's block of a mesh-aware plan; the reference's specs "
-        "shard dense weights, activations and caches too. out_gather "
-        "re-assembles results to global and counts as an all-gather"),
     "zero3": (
         "rank 0 of the port's ZeRO-3 train step: parameters and moments ZeRO-3 "
         "shards over the data axes, the batch global, dense compute replicated "

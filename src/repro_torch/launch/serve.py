@@ -51,12 +51,13 @@ shape (NCCL on the card, gloo with ``--device cpu``): under ``torchrun``
 with DATA x MODEL ranks, or on a world of 1 as ``1x1``; the plan is
 mesh-aware (every rank keeps its block of the payload, ``sharded:*``
 variants gather the packed bytes) and every rank prints the same report.
-The dense-cache loop of a dense GQA decoder then runs the sharded serving
-layout (``models.sharding``): dense weights placed by ``shard_params``, the
-prompt split over the data axes, the caches (padded to
+The dense-cache loop of every family then runs the sharded serving layout
+(``models.sharding``): dense weights placed by ``shard_params``, the
+prompt split over the data axes, the attention caches (padded to
 ``launch.specs.padded_cache_len`` where ``model`` has more than one rank)
-also over ``model`` by sequence; only the sampled tokens (and the logits
-kept for the report) are gathered whole.
+also over ``model`` by sequence, the SSM caches by channel and head; only
+the sampled tokens (and the logits kept for the report) are gathered
+whole.
 """
 from __future__ import annotations
 
@@ -114,9 +115,8 @@ def serving_setup(cfg, params, prompt: torch.Tensor, gen: int, *, mesh=None,
     """The dense-cache loop's set-up, shared by :func:`serve` and
     ``launch.profile``: ``(params, prompt, prefill step, decode step)``.  On
     a ``mesh`` the params and the prompt are this rank's blocks
-    (``launch.specs.place_inputs``; as they are outside the sharded serving
-    layout); the prefill's caches hold :func:`decode_cache_len` positions,
-    enough for ``gen`` decode steps."""
+    (``launch.specs.place_inputs``); the prefill's caches hold
+    :func:`decode_cache_len` positions, enough for ``gen`` decode steps."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.specs import place_inputs
     from repro_torch.models import sharding as shd
@@ -142,12 +142,12 @@ def serve(cfg, params, prompt: torch.Tensor, gen: int, *, device="cuda",
     ``backend=``) reaches every linear.  With ``warmup`` one untimed prefill
     and decode step run first, so the times leave out the first calls'
     set-up (library handles, allocator growth, kernel loading).  On a
-    ``mesh`` a dense GQA decoder serves in the sharded serving layout
+    ``mesh`` every family serves in the sharded serving layout
     (:func:`serving_setup`; ``params`` whole or already placed): each rank
     computes its rows and blocks, the greedy token is a vocab-parallel
     argmax (:func:`greedy_tokens`), and only the tokens and the returned
-    logits are gathered whole.  The other families keep the replicated
-    layout.  Tokens and logits come back whole on every rank.
+    logits are gathered whole.  Tokens and logits come back whole on every
+    rank.
     """
     dev = resolve_device(device)
     n = prompt.shape[1]

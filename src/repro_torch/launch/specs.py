@@ -15,11 +15,13 @@ serves, as ``models.sharding`` allows wherever no collective runs.
 
 They are the placement the serving steps take on a mesh
 (:func:`place_inputs`; the sharded serving layout of
-``models.sharding``), for the dense GQA decoders' prefill and decode cells:
-``serve --mesh`` and the mesh dry-run apply them.  Packed weights are the
-blocks a mesh-aware plan cuts (``build_plan(mesh=)``), which are these
-specs' blocks.  The other families' serving steps and the train step keep
-the replicated layout (a train step: ZeRO-3 shards with the batch global).
+``models.sharding``), for every family's prefill and decode cells:
+``serve --mesh`` and the mesh dry-run apply them.  Packed 2-D weights are
+the blocks a mesh-aware plan cuts (``build_plan(mesh=)``), which are these
+specs' blocks; a packed expert stack's block axis, which the plan also
+splits over the data axes, is held whole, as these specs hold it
+(``engine.sharded.stack_at_rest``).  The train step keeps the replicated
+layout (ZeRO-3 shards with the batch global).
 """
 from __future__ import annotations
 
@@ -135,13 +137,13 @@ def place_inputs(cfg: ModelConfig, shape: ShapeSpec, inputs, mesh,
     (``models.sharding.Placement``): what the sharded serving layout's
     prefill and decode steps take.  Dense weights are cut by
     ``models.params.shard_params``; packed weights must be a mesh-aware
-    plan's blocks already.  A train cell, or a family the layout does not
-    cover, is its replicated layout: ZeRO-3 shards of the parameters and
-    AdamW moments for a train step (batch global), the inputs as they are
-    for the others."""
+    plan's blocks already, and its expert stacks' block axes are gathered
+    whole (the module docstring).  A train cell is its replicated layout:
+    ZeRO-3 shards of the parameters and AdamW moments (batch global)."""
+    from repro_torch.core.apply import map_named
+    from repro_torch.engine.sharded import stack_at_rest
     from repro_torch.models.params import shard_params
     from repro_torch.models.sharding import place_tree
-    from repro_torch.models.transformer import sharded_serving
     rules = rules or rules_for_mesh(mesh, shape.global_batch)
     defs = model_defs(cfg)
     dev = _device_of(inputs[0])
@@ -149,10 +151,10 @@ def place_inputs(cfg: ModelConfig, shape: ShapeSpec, inputs, mesh,
         params, opt, batch = inputs
         cut = lambda t: shard_params(t, defs, mesh, rules, device=dev)  # noqa: E731
         return cut(params), OptState(opt.step, cut(opt.m), cut(opt.v)), batch
-    if not sharded_serving(cfg, mesh):
-        return inputs
     specs = input_shardings(cfg, shape, mesh, rules)
-    params = shard_params(inputs[0], defs, mesh, rules, device=dev)
+    params = map_named(lambda _, w: stack_at_rest(w, mesh) if isinstance(w, dict) else w,
+                       shard_params(inputs[0], defs, mesh, rules, device=dev),
+                       is_leaf=lambda x: isinstance(x, dict) and "mask" in x)
     rest = tuple(place_tree(t, s, mesh) if isinstance(t, (dict, torch.Tensor)) else t
                  for t, s in zip(inputs[1:], specs[1:]))
     return (params,) + rest

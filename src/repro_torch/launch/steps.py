@@ -144,8 +144,8 @@ def make_prefill_step(cfg, mesh=None, rules: Optional[Rules] = None,
                       max_len: Optional[int] = None, replicated: bool = False, **kw):
     """(params, batch) -> (last-token logits, caches); ``kw`` (e.g.
     ``backend=``) reaches every linear, ``max_len`` pads the caches to the
-    decode loop's length.  With a mesh, a dense GQA decoder's step takes
-    its inputs at ``launch.specs.input_shardings`` (``place_inputs``) and
+    decode loop's length.  With a mesh, the step takes its inputs at
+    ``launch.specs.input_shardings`` (``place_inputs``) and
     returns this rank's blocks (the sharded serving layout), unless
     ``replicated`` (the paged runtime's serial prefill)."""
     def step(params, batch):

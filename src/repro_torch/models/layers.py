@@ -121,8 +121,7 @@ def check_whole(t: torch.Tensor, what: str) -> None:
         raise ValueError(
             f"{what}: a sharded dense leaf (global shape {pl.shape}, spec "
             f"{pl.spec}) reached a lane that holds whole dense weights; the "
-            f"sharded serving layout covers prefill and decode_step of the "
-            f"dense GQA decoders on a mesh")
+            f"sharded serving layout covers prefill and decode_step on a mesh")
 
 
 def _spmd_product(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:

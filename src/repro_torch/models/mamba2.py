@@ -17,12 +17,29 @@ Decode is the O(1) recurrent step on the carried (conv, state) cache.
 Casts follow the reference: the conv output goes back to the activation
 dtype before the scan, y goes to it before the ``silu(z)`` gate, the conv
 cache is kept in the activation dtype and the state in f32.
+
+In the sharded serving layout (``spmd=True`` with a ``tp_mesh`` among the
+linears' keywords; :mod:`repro_torch.models.sharding`) ``ssm_apply`` and
+``ssm_decode`` take the reference's blocks: this rank's rows, the
+``in_proj`` / ``conv`` / ``norm_scale`` columns, the heads and the caches
+over ``model``.  The ``model`` blocks of ``in_proj`` (z | x | B | C | dt)
+and of the conv channels (x | B | C) do not line up with the heads, so:
+``in_proj`` runs column-parallel and its output is gathered over
+``model``; the depthwise conv runs on this rank's channel block against
+its ``conv`` cache block and its output is gathered over ``model``; the
+scan takes this rank's heads of x, dt and the state and all of B and C;
+the gated RMSNorm all-reduces its sum of squares over ``model``; and
+``out_proj`` is row-parallel on the heads' block of ``d_inner``.  With
+``ssm_split_proj`` z and dt arrive as the heads' blocks, x and B / C are
+gathered whole.  The heads and the conv channels must divide over
+``model``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import linear, linear_def, rms_norm
 from repro_torch.models.params import ParamDef
 
@@ -145,25 +162,72 @@ def _ssd_chunked(xh, dt, a, bb, cc, chunk: int, h0=None):
     return y, h
 
 
-def _project_in(p, x, cfg, kw):
-    """(z, xs, bb, cc, dt) through the fused or the split projections."""
+def _tp_blocks(cfg, kw):
+    """``(mesh, heads, channels)`` of the sharded serving layout: its mesh
+    and this rank's slices of the heads and of the conv channels over
+    ``model``; ``(None, all heads, all channels)`` in any other lane."""
+    di, nh, hp, ns, conv_dim = _dims(cfg)
+    mesh = kw.get("tp_mesh") if kw.get("spmd") else None
+    tp = shd.tp_axis(mesh) if mesh is not None else None
+    n = shd.axis_size(mesh, tp)
+    if n == 1:
+        return mesh, slice(0, nh), slice(0, conv_dim)
+    if nh % n or conv_dim % n:
+        raise ValueError(
+            f"sharded serving layout: {nh} SSM heads and {conv_dim} conv channels "
+            f"do not both divide over the 'model' axis of {n} ranks")
+    r = shd.axis_index(mesh, tp)
+    return (mesh, slice(r * nh // n, (r + 1) * nh // n),
+            slice(r * conv_dim // n, (r + 1) * conv_dim // n))
+
+
+def _cols_whole(t: torch.Tensor, width: int, mesh) -> torch.Tensor:
+    """``t`` with all ``width`` columns: this rank's block of them (a
+    column-parallel result, the conv output) gathered over ``model``."""
+    if mesh is None or t.shape[-1] == width:
+        return t
+    return shd.all_gather(t, mesh, shd.tp_axis(mesh), t.dim() - 1)
+
+
+def _project_in(p, x, cfg, kw, mesh=None, heads=None):
+    """(z, xs, bb, cc, dt) through the fused or the split projections; in
+    the sharded serving layout (``mesh``) z and dt are the ``heads``'
+    blocks, xs, bb and cc whole."""
     di, nh, hp, ns, _ = _dims(cfg)
     kw = dict(kw, tp_pattern="col")
     if cfg.ssm_split_proj:
-        bc = linear(p["in_bc"], x, **kw)
-        return (linear(p["in_z"], x, **kw), linear(p["in_x"], x, **kw),
+        bc = _cols_whole(linear(p["in_bc"], x, **kw), 2 * ns, mesh)
+        return (linear(p["in_z"], x, **kw), _cols_whole(linear(p["in_x"], x, **kw), di, mesh),
                 bc[..., :ns], bc[..., ns:], linear(p["in_dt"], x, **kw))
-    return _split_proj(linear(p["in_proj"], x, **kw), cfg)
+    z, xs, bb, cc, dt = _split_proj(
+        _cols_whole(linear(p["in_proj"], x, **kw), 2 * di + 2 * ns + nh, mesh), cfg)
+    if mesh is not None:
+        z, dt = z[..., heads.start * hp:heads.stop * hp], dt[..., heads]
+    return z, xs, bb, cc, dt
 
 
-def _gate_out(p, y, xh, z, x_dtype, cfg, kw):
-    """D skip, the ``silu(z)`` gate, the gated RMSNorm and ``out_proj``."""
+def _gate_out(p, y, xh, z, x_dtype, cfg, kw, mesh=None):
+    """D skip, the ``silu(z)`` gate, the gated RMSNorm and ``out_proj``
+    (in the sharded serving layout on this rank's heads, the norm's sum of
+    squares all-reduced over ``model``)."""
     b, s = y.shape[:2]
     y = y + xh.to(_F32) * p["d_skip"].to(_F32)[None, None, :, None]
-    y = y.reshape(b, s, cfg.d_inner).to(x_dtype)
+    y = y.reshape(b, s, -1).to(x_dtype)
     y = y * F.silu(z)
-    y = rms_norm(y, p["norm_scale"])
+    if mesh is None or y.shape[-1] == cfg.d_inner:
+        y = rms_norm(y, p["norm_scale"])
+    else:
+        y = _rms_norm_split(y, p["norm_scale"], mesh, cfg.d_inner)
     return linear(p["out_proj"], y, **dict(kw, tp_pattern="row"))
+
+
+def _rms_norm_split(y, scale, mesh, width: int, eps: float = 1e-6):
+    """:func:`rms_norm` of a row whose ``width`` columns are split over
+    ``model``: this rank's block, normalized by the all-reduced sum of
+    squares."""
+    yf = y.to(_F32)
+    sq = shd.all_reduce(yf.square().sum(dim=-1, keepdim=True), mesh, shd.tp_axis(mesh))
+    return (yf * torch.rsqrt(sq / width + eps) * scale.to(_F32)).to(y.dtype)
 
 
 def _dt_a(p, dt):
@@ -176,19 +240,23 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg, chunk: int = 256,
     """Full-sequence SSD mixer.  x: (B, S, D).  With ``return_state`` also
     ``(conv tail (B, W-1, conv_dim), state (B, nh, hp, ns) f32)``; a prompt
     shorter than ``W-1`` gets a tail left-padded with zeros (the inputs
-    before the sequence's start)."""
+    before the sequence's start).  In the sharded serving layout (the module
+    docstring) the tail is this rank's channel block and the state its
+    heads."""
     b, s, _ = x.shape
     di, nh, hp, ns, conv_dim = _dims(cfg)
-    z, xs, bb, cc, dt = _project_in(p, x, cfg, kw)
-    xbc_raw = torch.cat([xs, bb, cc], dim=-1)
+    mesh, heads, chans = _tp_blocks(cfg, kw)
+    z, xs, bb, cc, dt = _project_in(p, x, cfg, kw, mesh, heads)
+    xbc_raw = torch.cat([xs, bb, cc], dim=-1)[..., chans]
     w = cfg.ssm_conv - 1
     conv_tail = F.pad(xbc_raw, (0, 0, max(w - s, 0), 0))[:, -w:, :]
     xbc = _conv_seq(xbc_raw, p["conv_w"].to(_F32), p["conv_b"].to(_F32)).to(x.dtype)
+    xbc = _cols_whole(xbc, conv_dim, mesh)
     xs, bb, cc = xbc[..., :di], xbc[..., di:di + ns], xbc[..., di + ns:]
     dt, a = _dt_a(p, dt)
-    xh = xs.reshape(b, s, nh, hp)
+    xh = xs.reshape(b, s, nh, hp)[:, :, heads]
     y, h_t = _ssd_chunked(xh, dt, a, bb, cc, chunk)
-    out = _gate_out(p, y, xh, z, x.dtype, cfg, kw)
+    out = _gate_out(p, y, xh, z, x.dtype, cfg, kw, mesh)
     if return_state:
         return out, (conv_tail, h_t)
     return out
@@ -232,24 +300,29 @@ def ssm_prefill_chunk(p: dict, x: torch.Tensor, cfg, cache: tuple,
 def ssm_decode(p: dict, x: torch.Tensor, cfg, cache: tuple, **kw):
     """O(1) single-token step.  x: (B, 1, D); ``cache = (conv (B, W-1,
     conv_dim), state (B, nh, hp, ns))``; returns ``(out, (conv, state))``,
-    new tensors (the caller decides where they go)."""
+    new tensors (the caller decides where they go).  In the sharded serving
+    layout (the module docstring) the caches are this rank's channel block
+    and heads."""
     b = x.shape[0]
     di, nh, hp, ns, conv_dim = _dims(cfg)
     conv_state, h = cache
-    z, xs, bb, cc, dt = _project_in(p, x, cfg, kw)
-    xbc = torch.cat([xs, bb, cc], dim=-1)[:, 0]                     # (B, cd)
+    mesh, heads, chans = _tp_blocks(cfg, kw)
+    z, xs, bb, cc, dt = _project_in(p, x, cfg, kw, mesh, heads)
+    xbc = torch.cat([xs, bb, cc], dim=-1)[:, 0, chans]              # (B, cd)
     window = torch.cat([conv_state, xbc[:, None, :]], dim=1)        # (B, W, cd)
     conv_out = torch.einsum("bwc,wc->bc", window.to(_F32), p["conv_w"].to(_F32))
     conv_out = F.silu(conv_out + p["conv_b"].to(_F32))
     new_conv = window[:, 1:, :].to(conv_state.dtype)
+    conv_out = _cols_whole(conv_out, conv_dim, mesh)
     xs, bbt, cct = conv_out[:, :di], conv_out[:, di:di + ns], conv_out[:, di + ns:]
     dt, a = _dt_a(p, dt[:, 0])                                      # (B, nh)
     decay = torch.exp(dt * a[None, :])
-    xh = xs.reshape(b, nh, hp)
+    xh = xs.reshape(b, nh, hp)[:, heads]
     h_new = (h.to(_F32) * decay[:, :, None, None]
              + (xh * dt[:, :, None])[..., None] * bbt[:, None, None, :])
     y = torch.einsum("bk,bhpk->bhp", cct, h_new)
-    return _gate_out(p, y[:, None], xh[:, None], z, x.dtype, cfg, kw), (new_conv, h_new)
+    return (_gate_out(p, y[:, None], xh[:, None], z, x.dtype, cfg, kw, mesh),
+            (new_conv, h_new))
 
 
 def ssm_cache_spec(cfg, batch: int):

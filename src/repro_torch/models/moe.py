@@ -19,15 +19,33 @@ expert-parallel body on every rank: tokens split over the data axes (where
 the batch divides), experts over ``model`` (EP == TP axis), each rank runs
 its token rows against its experts, and one all-reduce over ``model``
 combines them; the load-balance fractions are averaged over all ranks
-before their product (aux from the data-mean fractions).  A packed stack is
-this rank's block (a mesh-aware plan's, or cut from a global one) and stays
-packed: ``dispatch_grouped(fsdp_axes=..., mesh=...)`` selects
+before their product (aux from the data-mean fractions).  A packed stack
+enters the body as this rank's block, its experts over ``model`` and its
+packed block axis over the data axes (the reference's ``in_specs``):
+``dispatch_grouped(fsdp_axes=..., mesh=...)`` selects
 ``sharded:grouped_gather``, which all-gathers the packed block axis before
-the grouped kernel (K6-K8 on the card).  A dense stack is global and gives
-this rank its experts.  ``x`` and the result are global, as every forward's
-activations are.  A mesh without a ``model`` axis runs the local path, as in
-the reference (a mesh-aware plan's stacks are then gathered packed over the
-FSDP axes before each contraction).
+the grouped kernel (K6-K8 on the card).  Two contracts, one per layout
+(:mod:`repro_torch.models.sharding`):
+
+* the replicated layout (``spmd=False``): ``x`` and the result are global,
+  as every activation of that layout is; the body cuts its token rows and
+  gathers the result back.  A dense stack is global and gives this rank its
+  experts; a packed one is a mesh-aware plan's block or is cut from a
+  global one;
+* the sharded serving layout (``spmd=True``): ``x`` is this rank's rows
+  (the batch over the data axes, or whole and replicated where they do not
+  divide it, as the reference's ``shard_tokens``) and so is the result:
+  nothing is cut or gathered back, and the capacity is the reference's
+  ``t_local``, the rows this rank holds.  A dense stack arrives placed by
+  ``params.shard_params`` at ``P('model', None, None)`` (``expert_fsdp``
+  maps to no axis): this rank's experts, K whole, used as they are.  A
+  packed stack arrives as ``launch.specs.place_inputs`` holds it, its
+  block axis whole as the reference stores it, and is cut to this rank's
+  data block on entry, as the reference's ``in_specs`` reshard it.
+
+A mesh without a ``model`` axis runs the local path, as in the reference (a
+mesh-aware plan's stacks are then gathered packed over the FSDP axes before
+each contraction).
 """
 from __future__ import annotations
 
@@ -166,14 +184,16 @@ def _moe_local(x2, router_w, wi, wg, wo, cfg, e_offset: int, capacity: int,
     return y.to(x2.dtype), (r["dispatch_frac"], r["prob_frac"])
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None, **_kw):
+def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None,
+              spmd: bool = False, **_kw):
     """x: (B, S, D) -> (y, aux).  ``aux = E · Σ(dispatch_frac · prob_frac)``,
     the switch-style load-balance loss.  Per-call kwargs (``backend=``,
     ``strum=``) are ignored, as the reference ignores them: packed stacks
     run their recorded variant, with ``cfg.strum`` for stacks without one.
     A mesh with a ``model`` axis runs the expert-parallel body (the module
-    docstring); a mesh the experts or the stacks' FSDP dim do not divide
-    raises before any collective, with the shapes in the message.
+    docstring), with ``spmd`` in the sharded serving layout's contract; a
+    mesh the experts or the stacks' FSDP dim do not divide raises before
+    any collective, with the shapes in the message.
 
     ``batch_split = (mesh, axes)`` (the ZeRO-3 train step, with no
     ``mesh``): ``x`` is this rank's equal share of a batch split over
@@ -196,7 +216,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None, **_kw)
     if mesh is None or "model" not in shd.axis_names(mesh):
         # the reference's local path; a mesh-aware plan's stacks on an
         # FSDP-only mesh are blocks of their block axis, gathered packed
-        blocks = any(_is_block(p.get(nm)) for nm in ("wi", "wg", "wo"))
+        blocks = any(_nb_split(p.get(nm)) for nm in ("wi", "wg", "wo"))
         y, (df, pf) = _moe_local(x.reshape(-1, d), p["router"]["w"], p["wi"],
                                  p.get("wg"), p["wo"], cfg, 0,
                                  _capacity(b * s, cfg), scfgs=(scfg, scfg, scfg),
@@ -218,7 +238,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None, **_kw)
         # axis 1 is the FSDP shard dim: K for dense stacks, the packed block
         # axis nb = ceil(K/w) for compressed ones (a block's: times n_data)
         arr = w["mask"] if isinstance(w, dict) else w
-        n1 = arr.shape[1] * (n_data if _is_block(w) else 1)
+        n1 = arr.shape[1] * (n_data if _nb_split(w) else 1)
         kind = "packed block axis nb" if isinstance(w, dict) else "K axis"
         if n1 % n_data:
             raise ValueError(
@@ -227,10 +247,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None, **_kw)
                 f"axes {data_axes} (size {n_data}); the all-gather would "
                 f"mis-shard")
     e_local = cfg.n_experts // n_model
-    shard_tokens = b % n_data == 0
+    shard_tokens = b % n_data == 0 and not spmd
     cap = _capacity((b // n_data) * s if shard_tokens else b * s, cfg)
     midx = shd.axis_index(mesh, "model")
-    x_l = shd.shard_slice(x, shd.P(data_axes if shard_tokens else None), mesh)
+    x_l = shd.shard_slice(x, shd.P(data_axes), mesh) if shard_tokens else x
     local = {nm: _expert_block(w, mesh, data_axes, midx, e_local)
              for nm, w in stacks.items()}
     y, (df, pf) = _moe_local(x_l.reshape(-1, d), p["router"]["w"], local["wi"],
@@ -246,18 +266,28 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None, **_kw)
     return y, cfg.n_experts * torch.sum(df * pf)
 
 
-def _is_block(w) -> bool:
-    """A packed stack from a mesh-aware plan holds this rank's block."""
+def _nb_split(w) -> bool:
+    """Is ``w`` a packed stack whose block axis is already this rank's FSDP
+    block (a mesh-aware plan's)?  Not a stack held with its block axis
+    whole (``launch.specs.place_inputs``)."""
     shard = getattr(w.get("spec"), "shard", None) if isinstance(w, dict) else None
-    return shard is not None and bool(shard.mesh_shape)
+    return shard is not None and bool(shard.mesh_shape) and bool(shard.fsdp_axes)
 
 
 def _expert_block(w, mesh, data_axes: tuple, midx: int, e_local: int):
-    """This rank's experts of a stack: a dense stack's slice (whole K), a
+    """This rank's experts of a stack as the body takes them: a dense
+    stack's slice (whole K; a placed stack is this rank's already), a
     packed stack's block (experts over ``model``, block axis over the data
-    axes; a mesh-aware plan's leaf already is one)."""
+    axes: a mesh-aware plan's leaf already is one, a stack held with its
+    block axis whole is cut to it, a global one is cut)."""
     if not isinstance(w, dict):
+        if shd.placement(w) is not None:
+            return w
         return w[midx * e_local:(midx + 1) * e_local]
-    from repro_torch.engine.sharded import local_payload, payload_specs
+    from repro_torch.engine.sharded import FIELDS, local_payload, payload_specs
+    shard = getattr(w.get("spec"), "shard", None)
+    if shard is not None and shard.mesh_shape and not shard.fsdp_axes:
+        return dict(w, **{k: shd.shard_slice(w[k], shd.P(None, data_axes), mesh)
+                          for k in FIELDS})
     return dict(w, **local_payload(w, payload_specs(None, data_axes, None, "model"),
                                    mesh))

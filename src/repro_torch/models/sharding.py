@@ -13,24 +13,26 @@ The port runs one process per rank (``torch.distributed``) over a
 ``DeviceMesh``.  Two layouts share these helpers:
 
 * **the sharded serving layout** (the reference's ``input_shardings``):
-  the dense GQA decoders' ``prefill`` and ``decode_step`` on a mesh take
-  every input at its spec and each rank holds and computes its block.
-  Weights are this rank's shards (:func:`repro_torch.models.params.
-  shard_params`), activations split their batch over the data axes and the
-  decode caches also their sequence over ``model``.  The collectives GSPMD
-  places in the reference are written out where the layout needs them
-  (the FSDP gather of a weight per use, the row-parallel all-reduce, the
-  vocab-parallel embedding, the flash-decode merge).  A tensor placed so
-  carries a :class:`Placement` (global shape and spec), and
-  :func:`constrain` moves a tensor to the block its logical axes name, by
-  slicing a whole tensor or by collectives from another placement;
-* **the replicated layout**, kept by every other lane (the paged runtime, the
-  MoE, SSM and hybrid families, the train step): dense weights,
-  activations and caches global and replicated on every rank, packed
-  weights a mesh-aware plan's block, collectives only inside the reference's
-  ``shard_map`` bodies (the ``sharded:*`` variants, the MoE body, the
-  pipeline ring).  There :func:`check_axes` checks the logical axes and
-  moves nothing, and a placed (sharded) dense leaf raises.
+  the ``prefill`` and ``decode_step`` of every family on a mesh take every
+  input at its spec and each rank holds and computes its block.  Weights
+  are this rank's shards (:func:`repro_torch.models.params.shard_params`),
+  activations split their batch over the data axes, the attention caches
+  also their sequence over ``model`` and the SSM caches their channels and
+  heads.  The collectives GSPMD places in the reference are written out
+  where the layout needs them (the FSDP gather of a weight per use, the
+  row-parallel all-reduce, the vocab-parallel embedding, the flash-decode
+  merge, the expert-parallel combine, the SSM mixer's gathers of its
+  projections and conv output).  A tensor placed so carries a
+  :class:`Placement` (global shape and spec), and :func:`constrain` moves a
+  tensor to the block its logical axes name, by slicing a whole tensor or
+  by collectives from another placement;
+* **the replicated layout**, kept by every other lane (the paged runtime,
+  the train step): dense weights, activations and caches global and
+  replicated on every rank, packed weights a mesh-aware plan's block,
+  collectives only inside the reference's ``shard_map`` bodies (the
+  ``sharded:*`` variants, the MoE body, the pipeline ring).  There
+  :func:`check_axes` checks the logical axes and moves nothing, and a
+  placed (sharded) dense leaf raises.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 (:func:`repro_torch.launch.mesh.make_host_mesh`); the helpers here also take

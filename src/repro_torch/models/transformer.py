@@ -21,21 +21,26 @@ and hands ``cfg.accum_dtype`` to every linear as its ``accum_dtype``;
 the mesh rides to every linear as ``tp_mesh`` and to the MoE FFN (the
 expert-parallel body).  Two layouts (:mod:`repro_torch.models.sharding`):
 
-* ``prefill`` and ``decode_step`` of the dense GQA decoders (every layer
-  ``attn_def`` + ``mlp_def``: OLMo, Qwen2, every ``family="dense"``
-  config) on a mesh run the sharded serving layout, the reference's
-  ``input_shardings``: params placed by ``params.shard_params``, the batch
-  (tokens, embeddings, caches) split over the rules' ``batch`` axes
-  (replicated where they do not divide it, ``rules_for_mesh(mesh,
-  global_batch)``), the decode caches' sequence over ``model``; the
-  logits are this rank's rows and vocab block, placed.  ``prefill(...,
-  max_len=)`` returns caches already padded to the decode loop's length
+* ``prefill`` and ``decode_step`` of every family on a mesh run the
+  sharded serving layout, the reference's ``input_shardings``: params
+  placed by ``params.shard_params`` (packed expert stacks as
+  ``launch.specs.place_inputs`` holds them), the batch (tokens,
+  embeddings, caches) split over the rules' ``batch`` axes (replicated
+  where they do not divide it, ``rules_for_mesh(mesh, global_batch)``),
+  the attention caches' sequence over ``model``, the SSM ``conv`` cache's
+  channels and ``state``'s heads over ``model``; the MoE FFN takes this
+  rank's rows (``moe.moe_apply(spmd=True)``), the Mamba-2 mixer its blocks
+  (:mod:`repro_torch.models.mamba2`); the logits are this rank's rows and
+  vocab block, placed.  ``prefill(..., max_len=)`` returns attention
+  caches already padded to the decode loop's length
   (``launch.specs.padded_cache_len``) and cut to this rank's slice;
-* every other lane and family keeps the replicated layout: activations
-  and caches global on every rank, dense weights whole (a sharded one
-  raises), packed leaves run the ``sharded:*`` compressed-gather family
-  and ``rules`` reach :func:`repro_torch.models.sharding.check_axes`,
-  which moves nothing.
+* the paged runtime's lanes (``decode_step_paged``, ``prefill_chunk_step``,
+  ``verify_chunk_step``, and its serial prefill, ``prefill(...,
+  replicated=True)``) and the train forward keep the replicated layout:
+  activations and caches global on every rank, dense weights whole (a
+  sharded one raises), packed leaves run the ``sharded:*``
+  compressed-gather family and ``rules`` reach
+  :func:`repro_torch.models.sharding.check_axes`, which moves nothing.
 """
 from __future__ import annotations
 
@@ -143,9 +148,9 @@ def _group(tree: Any, g: int) -> Any:
 
 def sharded_serving(cfg, mesh) -> bool:
     """Do ``prefill`` / ``decode_step`` of ``cfg`` on ``mesh`` run the
-    sharded serving layout?  On any mesh for the dense GQA decoders
-    (``family="dense"``, no experts)."""
-    return mesh is not None and cfg.family == "dense" and not cfg.n_experts
+    sharded serving layout?  On any mesh, for every family (dense, MoE,
+    Mamba-2 and the hybrid)."""
+    return mesh is not None
 
 
 def _whole_dense(params, lane: str) -> None:
@@ -175,7 +180,7 @@ def _ffn_residual(bp, x, cfg, kw, batch_split=None):
     h = apply_norm(bp["norm2"], x, cfg)
     if "moe" in bp:
         h, aux = moe.moe_apply(bp["moe"], h, cfg, mesh=kw.get("tp_mesh"),
-                               batch_split=batch_split)
+                               batch_split=batch_split, spmd=kw.get("spmd", False))
         return x + h, aux
     return x + mlp(bp["mlp"], h, cfg, **kw), 0.0
 
@@ -209,8 +214,8 @@ def _serving_layout(params, cfg, mesh, rules, kw: dict, lane: str,
                     replicated: bool = False):
     """Set up a serving step: ``(rules, mesh)`` of the sharded serving
     layout (``kw`` gains ``spmd``), or ``(rules, None)`` for the
-    replicated layout (asked for, or the only one ``cfg`` has), whose
-    params must hold whole dense leaves."""
+    replicated layout (asked for, or no mesh), whose params must hold
+    whole dense leaves."""
     if sharded_serving(cfg, mesh) and not replicated:
         kw["spmd"] = True
         return rules or shd.rules_for_mesh(mesh), mesh
@@ -320,9 +325,9 @@ def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None,
     prompt's positions, then zeros: the decode loop's cache), by default
     the prompt's length.  In the sharded serving layout (the module
     docstring) everything is this rank's block, placed: logits at
-    ``(batch, None, vocab)``, attention caches at ``(layers, batch,
-    cache_seq, kv_heads, head_dim)``.  ``replicated`` keeps the
-    replicated layout on a mesh (the paged runtime's serial prefill)."""
+    ``(batch, None, vocab)``, each cache at its ``cache_defs`` axes.
+    ``replicated`` keeps the replicated layout on a mesh (the paged
+    runtime's serial prefill)."""
     _linear_kw(kw, cfg, mesh)
     rules, spmd = _serving_layout(params, cfg, mesh, rules, kw, "prefill", replicated)
     x = _batch_in(params, batch, cfg, spmd)
@@ -353,8 +358,10 @@ def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None,
     caches = _stack(caches)
     if spmd is None:
         return lg, caches
-    axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
-    caches = {pos: {n: shd.place(t, spmd, rules(axes), axes=axes) for n, t in c.items()}
+    axes = {pos: {n: d.axes for n, d in c.items()}
+            for pos, c in cache_defs(cfg, 1, 1).items()}
+    caches = {pos: {n: shd.place(t, spmd, rules(axes[pos][n]), axes=axes[pos][n])
+                    for n, t in c.items()}
               for pos, c in caches.items()}
     return shd.place(lg, spmd, rules(("batch", None, "vocab"))), caches
 
@@ -377,7 +384,8 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
     Returns (logits (B, 1, V) f32, caches); the caches are updated in place
     (attention at ``cache_len``, SSM conv and state whole).  In the sharded
     serving layout ``token``, ``caches`` and the logits are this rank's
-    blocks (the module docstring)."""
+    blocks (the module docstring), and each SSM cache is this rank's block
+    of it, updated whole."""
     _linear_kw(kw, cfg, mesh)
     rules, spmd = _serving_layout(params, cfg, mesh, rules, kw, "decode_step")
     x = check_axes(_embed_in(params, token, cfg, spmd), ("batch", None, None), rules)

@@ -820,12 +820,25 @@ def mesh_dryrun_cases(rank: int, world: int) -> dict:
 SPMD_CASES = tuple((arch, plan, shape, b)
                    for arch in ("olmo_1b", "qwen2_7b") for plan in ("dense", "mip2q")
                    for shape, b in (((2, 2), 4), ((1, 4), 4), ((4, 1), 4), ((2, 2), 3))
-                   ) + (("qwen2_7b_h6", "dense", (1, 4), 4),)
+                   ) + (("qwen2_7b_h6", "dense", (1, 4), 4),) + tuple(
+    (arch, plan, shape, b)
+    for arch, plans in (("moonshot_v1_16b_a3b", ("dense", "mip2q")),
+                        ("mamba2_780m", ("dense", "mip2q")),
+                        ("mamba2_780m_split", ("dense",)),
+                        ("jamba_1_5_large_398b", ("dense",)))
+    for plan in plans
+    for shape, b in (((2, 2), 4), ((1, 4), 4), ((2, 2), 3)))
 #: a case's config name -> (smoke config, overrides): Qwen2's smoke config
 #: with 6 query heads over 2 kv heads puts 1.5 heads on each of 4 ranks
-#: (the packed plan's 6 ``wo`` blocks do not split over 4: dense only)
+#: (the packed plan's 6 ``wo`` blocks do not split over 4: dense only);
+#: Mamba-2 also with its split projections (``in_z`` / ``in_x`` / ``in_bc``
+#: / ``in_dt``)
 SPMD_ARCHS = {"olmo_1b": ("olmo_1b", {}), "qwen2_7b": ("qwen2_7b", {}),
-              "qwen2_7b_h6": ("qwen2_7b", {"n_heads": 6, "n_kv_heads": 2})}
+              "qwen2_7b_h6": ("qwen2_7b", {"n_heads": 6, "n_kv_heads": 2}),
+              "moonshot_v1_16b_a3b": ("moonshot_v1_16b_a3b", {}),
+              "mamba2_780m": ("mamba2_780m", {}),
+              "mamba2_780m_split": ("mamba2_780m", {"ssm_split_proj": True}),
+              "jamba_1_5_large_398b": ("jamba_1_5_large_398b", {})}
 #: prompt length and greedy steps of every case
 SPMD_PROMPT, SPMD_GEN = 8, 4
 
@@ -902,7 +915,8 @@ def spmd_serving_cases(rank: int, world: int, path: str) -> dict:
         lg, caches = prefill(placed, batch, cfg, mesh=mesh, rules=rules,
                              max_len=padded_cache_len(s + gen))
         out = {"leaves": _blocks_flat(placed), "caches": _blocks_flat(caches),
-               "cache_spec": tuple(shd.placement(caches["pos0"]["k"]).spec)}
+               "cache_specs": {f"{pos}/{n}": tuple(shd.placement(t).spec)
+                               for pos, c in caches.items() for n, t in c.items()}}
         logits = [shd.gather_whole(lg, mesh)[:, -1]]
         tok = greedy_tokens(lg, mesh, cfg.vocab_size)
         toks = [shd.gather_whole(tok, mesh)]
@@ -922,9 +936,9 @@ def spmd_serving_cases(rank: int, world: int, path: str) -> dict:
 
 
 def spmd_uncovered_cases(rank: int, world: int) -> dict:
-    """The lanes and families the sharded serving layout does not cover, on
-    2 x 2: each refuses a sharded dense leaf (the message), and still
-    serves whole leaves in the replicated layout (its result)."""
+    """The lanes the sharded serving layout does not cover, on 2 x 2: the
+    train forward, a serving step without a mesh and the paged runtime
+    each refuse a sharded dense leaf (the message)."""
     import dataclasses
 
     from torch.distributed.device_mesh import init_device_mesh
@@ -959,15 +973,4 @@ def spmd_uncovered_cases(rank: int, world: int) -> dict:
         sched.submit(Request(uid=0, prompt=toks[0], max_new_tokens=2))
         sched.run_to_completion()
     res["paged"] = refused(paged)
-    for arch in ("moonshot_v1_16b_a3b", "mamba2_780m"):
-        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-        p = init_params(model_defs(cfg), seed=0, device="cpu", dtype_override="float32")
-        placed = shard_params(p, model_defs(cfg), mesh, rules, device="cpu")
-        res[arch] = refused(lambda: prefill(placed, {"tokens": toks}, cfg, mesh=mesh,
-                                            rules=rules))
-        # the replicated layout: whole leaves on the mesh serve the
-        # single-device logits
-        lg, _ = prefill(p, {"tokens": toks}, cfg, mesh=mesh, rules=rules)
-        lg1, _ = prefill(p, {"tokens": toks}, cfg)
-        res[f"{arch}_replicated"] = (_np(lg), _np(lg1))
     return res

@@ -1,21 +1,33 @@
 """The sharded serving layout (the reference's ``input_shardings``) against
 the JAX reference, on the CPU.
 
-The dense GQA decoders' prefill and decode steps on a mesh hold every
-input at the reference's spec and compute on their blocks
-(``models.sharding``).  One module fixture runs the port on 4 gloo ranks
-(``tests/_torch_ranks.py``) beside the reference in a subprocess on 4 forced
-host devices, over ``jax.sharding.Mesh`` meshes built by hand (Auto axes;
-jax 0.9's ``jax.make_mesh`` makes Explicit ones).  Weights come from a
-numpy seed, the packed plan's payloads are the port's (carried to the
-reference, whose eager packing they equal), prompts from a numpy seed.
-Cases (``_torch_ranks.SPMD_CASES``): the OLMo and Qwen2 smoke configs at
-f32 activations, dense and mip2q-packed, on 2 x 2, 1 x 4 and 4 x 1 with a
-batch of 4, and on 2 x 2 with a batch of 3, which the data axis does not
-divide (the batch is then replicated, as the reference's ``batch_axes``
-replicates it); and Qwen2's smoke config with 6 query heads over 2 kv
-heads on 1 x 4, dense, where a rank's block of the q columns is 1.5
-heads and of the k / v columns half a head.  Held:
+Every family's prefill and decode steps on a mesh hold every input at the
+reference's spec and compute on their blocks (``models.sharding``).  One
+module fixture runs the port on 4 gloo ranks (``tests/_torch_ranks.py``)
+beside the reference in a subprocess on 4 forced host devices, over
+``jax.sharding.Mesh`` meshes built by hand (Auto axes; jax 0.9's
+``jax.make_mesh`` makes Explicit ones).  Weights come from a numpy seed, the
+packed plan's payloads are the port's (carried to the reference, whose
+eager packing they equal), prompts from a numpy seed.  Cases
+(``_torch_ranks.SPMD_CASES``), every one at f32 activations:
+
+* the dense GQA decoders: the OLMo and Qwen2 smoke configs, dense and
+  mip2q-packed, on 2 x 2, 1 x 4 and 4 x 1 with a batch of 4, and on 2 x 2
+  with a batch of 3, which the data axis does not divide (the batch is then
+  replicated, as the reference's ``batch_axes`` replicates it); and Qwen2's
+  smoke config with 6 query heads over 2 kv heads on 1 x 4, dense, where a
+  rank's block of the q columns is 1.5 heads and of the k / v columns half
+  a head;
+* the MoE, SSM and hybrid families: the Moonshot smoke config (dense and
+  mip2q), Mamba-2's (dense and mip2q, and dense with its split
+  projections) and Jamba's (dense), each on 2 x 2 and 1 x 4 with a batch of
+  4 and on 2 x 2 with a batch of 3.  The smoke MoE configs route at most
+  one assignment of a token to an expert and their capacity (``top_k /
+  n_experts x capacity_factor = 2`` slots a token) is twice the rows a
+  rank routes, so neither the mesh run nor the single-device run drops a
+  token: the MoE cases are held to both, as the others are.
+
+Held:
 
 * every parameter and cache leaf on every rank has the shape of the
   reference's ``NamedSharding(mesh, spec).shard_shape(...)``; a parameter
@@ -27,17 +39,16 @@ heads and of the k / v columns half a head.  Held:
   ``in_shardings=input_shardings(...)``, and its single-device run within
   rtol 1e-4 / atol 1e-5 (f32: summation order only); the greedy tokens are
   equal; ``serve(mesh=)`` gives the same tokens and logits;
-* rank 0's argument bytes that the dry-run counts for OLMo-1B decode_32k
-  (dense, 16 x 16, on ``meta``) equal the sum of the reference's shard
-  sizes of that cell (a subprocess on 256 forced host devices, from
-  ``input_specs`` and ``input_shardings`` through ``shard_shape``, no
-  compile), less the two inputs whose dtype the port keeps otherwise: its
-  tokens are int64 where the reference's are int32, and its ``cache_len``
-  is a Python int where the reference's is an int32 scalar;
-* the lanes and families the layout does not cover (the train forward, a
-  step without a mesh, the paged runtime, the MoE and SSM families) refuse
-  a sharded dense leaf with a message, and the MoE and SSM families still
-  serve whole leaves on a mesh in the replicated layout.
+* rank 0's argument bytes that the dry-run counts for the decode_32k cells
+  of OLMo-1B, Moonshot-16B-A3B and Mamba-2 780M (dense, 16 x 16, on
+  ``meta``) equal the sum of the reference's shard sizes of that cell (a
+  subprocess on 256 forced host devices, from ``input_specs`` and
+  ``input_shardings`` through ``shard_shape``, no compile), less the two
+  inputs whose dtype the port keeps otherwise: its tokens are int64 where
+  the reference's are int32, and its ``cache_len`` is a Python int where
+  the reference's is an int32 scalar;
+* the lanes the layout does not cover (the train forward, a step without a
+  mesh, the paged runtime) refuse a sharded dense leaf with a message.
 """
 import dataclasses
 import json
@@ -152,9 +163,10 @@ np.savez(dst, **out)
 print("DONE")
 """
 
-#: the reference's rank-0 shard sizes of OLMo-1B decode_32k on 16 x 16
+#: the reference's rank-0 shard sizes of decode_32k on 16 x 16, for the
+#: archs named on the command line
 SHARD_BYTES = """
-import json, math
+import json, math, sys
 import jax, numpy as np
 from jax.sharding import Mesh
 from repro.configs.base import SHAPES, get_config
@@ -162,17 +174,21 @@ from repro.launch.specs import input_shardings, input_specs
 from repro.models.sharding import rules_for_mesh
 
 mesh = Mesh(np.array(jax.devices()).reshape(16, 16), ("data", "model"))
-cfg, shape = get_config("olmo_1b"), SHAPES["decode_32k"]
+shape = SHAPES["decode_32k"]
 rules = rules_for_mesh(mesh, shape.global_batch)
-specs = input_specs(cfg, shape)
-shards = input_shardings(cfg, shape, mesh, rules)
-sizes = [math.prod(sh.shard_shape(sp.shape)) * sp.dtype.itemsize
-         for sp, sh in zip(jax.tree.leaves(specs), jax.tree.leaves(shards))]
-token, cache_len = specs[1], specs[3]
-print("META", json.dumps({"total": sum(sizes),
-                          "token_shard": list(shards[1].shard_shape(token.shape)),
-                          "token_itemsize": token.dtype.itemsize,
-                          "cache_len_bytes": cache_len.dtype.itemsize}))
+out = {}
+for arch in sys.argv[1:]:
+    cfg = get_config(arch)
+    specs = input_specs(cfg, shape)
+    shards = input_shardings(cfg, shape, mesh, rules)
+    sizes = [math.prod(sh.shard_shape(sp.shape)) * sp.dtype.itemsize
+             for sp, sh in zip(jax.tree.leaves(specs), jax.tree.leaves(shards))]
+    token, cache_len = specs[1], specs[3]
+    out[arch] = {"total": sum(sizes),
+                 "token_shard": list(shards[1].shard_shape(token.shape)),
+                 "token_itemsize": token.dtype.itemsize,
+                 "cache_len_bytes": cache_len.dtype.itemsize}
+print("META", json.dumps(out))
 """
 
 
@@ -197,9 +213,18 @@ def _inputs(path: str) -> None:
     from repro_torch import engine
     out = {}
     rng = np.random.default_rng(29)
+    # the dense GQA decoders' weights, then the prompts, from one generator;
+    # the other families' weights from a second one
+    dense = ("olmo_1b", "qwen2_7b", "qwen2_7b_h6")
+    for arch in dense:
+        _draw(model_defs(ranks.spmd_cfg(arch, "mip2q")), rng, f"w/{arch}", out)
+    for b in {c[3] for c in ranks.SPMD_CASES}:
+        out[f"prompt/{b}"] = rng.integers(0, 256, size=(b, ranks.SPMD_PROMPT))
+    rng = np.random.default_rng(30)
     for arch in ranks.SPMD_ARCHS:
         cfg = ranks.spmd_cfg(arch, "mip2q")
-        _draw(model_defs(cfg), rng, f"w/{arch}", out)
+        if arch not in dense:
+            _draw(model_defs(cfg), rng, f"w/{arch}", out)
         if not any(c[:2] == (arch, "mip2q") for c in ranks.SPMD_CASES):
             continue
         whole = ranks.tree_from(out, model_defs(cfg), f"w/{arch}")
@@ -207,8 +232,6 @@ def _inputs(path: str) -> None:
         for name, e in plan.entries.items():
             for f in ranks.FIELDS:
                 out[f"pk/w/{arch}/{name}/{f}"] = e.leaf[f].numpy()
-    for b in {c[3] for c in ranks.SPMD_CASES}:
-        out[f"prompt/{b}"] = rng.integers(0, 256, size=(b, ranks.SPMD_PROMPT))
     np.savez(path, **out)
 
 
@@ -285,29 +308,49 @@ def test_logits_and_tokens_match_the_reference(run, cid):
 
 def test_batch_the_data_axis_does_not_divide_is_replicated(run):
     """Batch 3 on data = 2: the caches hold every row (batch replicated),
-    their sequence split over ``model``, as the reference's specs say."""
+    an attention cache's sequence split over ``model``, an SSM ``conv``
+    cache's channels and ``state``'s heads too, as the reference's specs
+    say."""
     live, ref, _ = run
-    cid = "olmo_1b-dense-2x2-b3"
     for res in live:
-        assert res[cid]["cache_spec"] == (None, None, "model", None, None)
-        assert res[cid]["caches"]["pos0/k"].shape[1] == 3
-        assert res["olmo_1b-dense-2x2-b4"]["cache_spec"] == (None, "data", "model",
-                                                             None, None)
+        olmo3, olmo4 = res["olmo_1b-dense-2x2-b3"], res["olmo_1b-dense-2x2-b4"]
+        assert olmo3["cache_specs"]["pos0/k"] == (None, None, "model", None, None)
+        assert olmo3["caches"]["pos0/k"].shape[1] == 3
+        assert olmo4["cache_specs"]["pos0/k"] == (None, "data", "model", None, None)
+        for b, rows in ((3, None), (4, "data")):
+            specs = res[f"mamba2_780m-dense-2x2-b{b}"]["cache_specs"]
+            assert specs["pos0/conv"] == (None, rows, None, "model")
+            assert specs["pos0/state"] == (None, rows, "model", None, None)
+            jamba = res[f"jamba_1_5_large_398b-dense-2x2-b{b}"]["cache_specs"]
+            assert jamba["pos1/k"] == (None, rows, "model", None, None)
+            assert jamba["pos0/conv"] == (None, rows, None, "model")
+
+
+def _shard_bytes(archs) -> dict:
+    """The reference's rank-0 shard sizes of ``archs``' decode_32k cells on
+    16 x 16 (a subprocess on 256 forced host devices)."""
+    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=256",
+           "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
+    p = ranks.reference_run(SHARD_BYTES, list(archs), env, ROOT, timeout=300)
+    return json.loads(ranks.finish(p).split("META ", 1)[1])
+
+
+def _port_argument_bytes(meta: dict) -> int:
+    """The reference's shard sizes as the port holds the same inputs: the
+    token int64 where the reference's is int32, ``cache_len`` a Python
+    int."""
+    tokens = int(np.prod(meta["token_shard"]))
+    return meta["total"] + tokens * (8 - meta["token_itemsize"]) - meta["cache_len_bytes"]
 
 
 def test_decode_32k_argument_bytes_equal_the_references_shards():
     """Rank 0 of 16 x 16, OLMo-1B decode_32k, dense: the dry-run's argument
     bytes are the reference's shard sizes, but for the token (int64 here,
     int32 there) and ``cache_len`` (a Python int here, 4 bytes there)."""
-    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=256",
-           "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
-    p = ranks.reference_run(SHARD_BYTES, [], env, ROOT, timeout=300)
     rec = dryrun.lower_cell("olmo_1b", "decode_32k", mesh="16x16")
-    meta = json.loads(ranks.finish(p).split("META ", 1)[1])
-    tokens = int(np.prod(meta["token_shard"]))
-    want = meta["total"] + tokens * (8 - meta["token_itemsize"]) - meta["cache_len_bytes"]
+    meta = _shard_bytes(["olmo_1b"])["olmo_1b"]
     assert rec["layout"] == "input_shardings"
-    assert rec["memory"]["argument_bytes"] == want
+    assert rec["memory"]["argument_bytes"] == _port_argument_bytes(meta)
     assert meta["total"] == 2_202_337_316
     # the count moves link bytes (FSDP gathers, row all-reduces, the
     # vocab-parallel embedding, the flash-decode merge) and splits the work
@@ -316,18 +359,96 @@ def test_decode_32k_argument_bytes_equal_the_references_shards():
     assert rec["flops_per_dev"] < one["flops_per_dev"] / 200
 
 
+#: the reference's rank-0 shard sums of decode_32k on 16 x 16
+MOE_SSM_SHARD_TOTALS = {"moonshot_v1_16b_a3b": 9_968_160_804,
+                        "mamba2_780m": 53_664_132}
+
+
+def test_moe_and_ssm_decode_32k_argument_bytes_equal_the_references_shards():
+    """Rank 0 of 16 x 16, Moonshot-16B-A3B and Mamba-2 780M decode_32k,
+    dense: the dry-run counts them in the sharded serving layout, and their
+    argument bytes are the reference's shard sizes but for the token and
+    ``cache_len``, under a hundredth of one H100's (the expert stacks split
+    over ``model`` alone)."""
+    metas = _shard_bytes(MOE_SSM_SHARD_TOTALS)
+    for arch, total in MOE_SSM_SHARD_TOTALS.items():
+        rec = dryrun.lower_cell(arch, "decode_32k", mesh="16x16")
+        assert metas[arch]["total"] == total
+        assert rec["layout"] == "input_shardings"
+        assert rec["memory"]["argument_bytes"] == _port_argument_bytes(metas[arch])
+        assert rec["link_bytes_per_dev"] > 0
+        one = dryrun.lower_cell(arch, "decode_32k")
+        assert rec["memory"]["argument_bytes"] * 100 < one["memory"]["argument_bytes"]
+
+
 def test_uncovered_lanes_refuse_a_sharded_dense_leaf():
     """A sharded dense leaf reaching the train forward, a step without a
-    mesh, the paged runtime or the MoE / SSM families raises; those
-    families still serve whole leaves on a mesh (the replicated layout)
-    with the single-device logits."""
+    mesh or the paged runtime raises."""
     res = ranks.spawn(ranks.spmd_uncovered_cases, 4)
     for r in res:
-        for lane in ("train", "no_mesh", "paged", "moonshot_v1_16b_a3b", "mamba2_780m"):
+        for lane in ("train", "no_mesh", "paged"):
             assert "sharded dense leaf" in r[lane], (lane, r[lane])
-        for arch in ("moonshot_v1_16b_a3b", "mamba2_780m"):
-            got, want = r[f"{arch}_replicated"]
-            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_every_family_serves_in_the_sharded_layout():
+    """``sharded_serving`` on a mesh, and the dry-run's layout of every
+    serving cell, for every config of the reference; never without a
+    mesh."""
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.transformer import sharded_serving
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        assert sharded_serving(cfg, mesh) and not sharded_serving(cfg, None), arch
+        for kind in ("prefill", "decode"):
+            assert dryrun.layout_of(cfg, kind, mesh) == "input_shardings"
+        assert dryrun.layout_of(cfg, "train", mesh) == "zero3"
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "mamba2_780m",
+                                  "mamba2_780m_split", "jamba_1_5_large_398b"])
+def test_moe_and_ssm_defs_twin_the_references_axes(arch):
+    """The parameter and cache trees of the MoE, SSM and hybrid smoke
+    configs name the reference's logical axes leaf for leaf (``experts``,
+    ``expert_fsdp``, ``conv``, ``ssm_inner``, ``ssm_heads``,
+    ``ssm_state``), so ``shard_params`` cuts what ``input_shardings``
+    does."""
+    from repro.configs.base import get_smoke_config as j_smoke
+    from repro.models import cache_defs as j_cache_defs
+    from repro.models import model_defs as j_model_defs
+    from repro_torch.models import cache_defs
+
+    def axes(tree, prefix=""):
+        if hasattr(tree, "axes"):
+            return {prefix: (tuple(tree.shape), tuple(tree.axes))}
+        return {k: v for n, t in tree.items()
+                for k, v in axes(t, f"{prefix}/{n}").items()}
+    base, over = ranks.SPMD_ARCHS[arch]
+    cfg = ranks.spmd_cfg(arch, "dense")
+    jcfg = dataclasses.replace(j_smoke(base), dtype="float32", **over)
+    assert axes(model_defs(cfg)) == axes(j_model_defs(jcfg))
+    assert axes(cache_defs(cfg, 4, 16)) == axes(j_cache_defs(jcfg, 4, 16))
+    names = {a for _, ax in axes(model_defs(cfg)).values() for a in ax}
+    family = {"moonshot_v1_16b_a3b": {"experts", "expert_fsdp"},
+              "jamba_1_5_large_398b": {"experts", "conv", "ssm_inner", "ssm_heads"}}
+    assert family.get(arch, {"conv", "ssm_inner", "ssm_heads"}) <= names
+
+
+def test_moe_smoke_cases_drop_no_token():
+    """Why the MoE cases hold to the single-device run as well: in every
+    case a rank's capacity (the reference's ``t_local``) and one device's
+    are at least the rows routed, and an expert gets at most one
+    assignment a row, so no assignment drops."""
+    from repro_torch.models.moe import _capacity
+    for arch, plan, shape, b in ranks.SPMD_CASES:
+        cfg = ranks.spmd_cfg(arch, plan)
+        if not cfg.n_experts:
+            continue
+        n_data = shape[0] if b % shape[0] == 0 else 1
+        for rows in (b // n_data * ranks.SPMD_PROMPT, b * ranks.SPMD_PROMPT,
+                     b // n_data, b):
+            assert _capacity(rows, cfg) >= rows, (arch, shape, b, rows)
 
 
 def test_shard_params_places_dense_leaves_and_keeps_packed_ones():
