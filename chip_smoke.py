@@ -226,7 +226,7 @@ Phases, each fatal on failure:
      equal to phases d and h;
      s2. 4 gloo ranks sharing cuda:0 (gloo takes CUDA tensors in the
      card's torch build; NCCL refuses two ranks on one device) as a 2x2
-     mesh: full-width OLMo-1B at S2_LAYERS (all 16) layers in the sharded
+     mesh: full-width OLMo-1B at S2_LAYERS (8 of 16) layers in the sharded
      serving layout (the reference's ``input_shardings``: dense and packed
      weights placed by ``shard_params``, the batch over data, the caches
      also over ``model`` by sequence), packed prefill + 8 decode steps
@@ -243,9 +243,27 @@ Phases, each fatal on failure:
      counter exactly the rank's block, within phase l's tolerance of
      ``moe_apply`` on one device; the packed and dense bf16 payload bytes
      and their ratio, computed from the plan;
-     s3. the ZeRO-3 train step on 2 gloo ranks (data = 2), full-width
-     OLMo-1B at MESH_LAYERS layers, batch 2 x 256, f32, against the
-     one-device step, within r2's bound; the dense f32 bytes it gathers.
+     s3. the ZeRO-3 train step (``steps._zero3_step``, the MoE, SSM and
+     hybrid families' step on a mesh) on 2 gloo ranks (data = 2),
+     full-width OLMo-1B at MESH_LAYERS layers, batch 2 x 256, f32, against
+     the one-device step, within r2's bound; the dense f32 bytes it gathers;
+     s4. the sharded serving layout of the MoE, SSM and hybrid families on
+     4 gloo ranks as 2x2 (full-width Moonshot at MOE_LAYERS, Mamba-2 780M at
+     S4_SSM_LAYERS, the Jamba smoke hybrid);
+     s5. the paged layout on 4 gloo ranks as 2x2: ``BatchScheduler(mesh=)``
+     over the default plan built on the mesh, 4 requests of 32 tokens,
+     chunk 16, 6 new tokens, f32, mip2q pages, for full-width OLMo-1B (16
+     layers), Moonshot (MOE_LAYERS), Mamba-2 780M (S4_SSM_LAYERS) and the
+     Jamba smoke hybrid: teacher-forced on one device's tokens, every lane's
+     logits within 1e-3 of max|logit| and every argmax disagreement a near
+     tie, OLMo-1B also on raw f32 pages (no KV codec); K1 / K4 / K6
+     launches on every rank exactly the plan's prediction (one a 2-D entry,
+     one an expert stack, one an attention layer, a lane run); the bytes
+     the decode lane all-gathers and ms a tick;
+     s6. one train step of full-width OLMo-1B at S6_LAYERS layers, 4 x 256,
+     f32, on 4 gloo ranks as 2x2 in the dense decoders' train layout and
+     as ZeRO-3, against the one-device step within s3's limits; ms a step
+     and each rank's peak memory for both.
 
   t. static analysis (``repro_torch.analysis``), each sub-phase fatal:
      t1. the registry audit and the launch-contract lint on the card: every
@@ -3258,9 +3276,9 @@ def _train_report(train, smi) -> None:
 #: cuda:0 (NCCL refuses two ranks on one device); gloo takes CUDA tensors
 #: for all_gather / all_reduce in the card's torch build
 MESH_LAYERS = 2
-#: s2's OLMo-1B depth: all 16 layers, at full width, in the sharded serving
-#: layout
-S2_LAYERS = 16
+#: s2's OLMo-1B depth: 8 of 16 layers (16 until s5 and s6 came), at full
+#: width, in the sharded serving layout
+S2_LAYERS = 8
 
 
 def _single_device_refs(dev) -> dict:
@@ -3344,7 +3362,7 @@ def _s_rank(rank: int, world: int, port: int, what: str, out) -> None:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 rank=rank, world_size=world)
         res = {"s2": _s2_body, "s3": _s3_body, "s2_decode": _s2_decode_body,
-               "s4": _s4_body}[what](
+               "s4": _s4_body, "s5": _s5_body, "s6": _s6_body}[what](
             rank, torch.device("cuda", 0))
         dist.barrier()
         out.put((rank, res, None))
@@ -3672,7 +3690,9 @@ def _s3_body(rank: int, dev) -> dict:
     t0 = time.perf_counter()
     local = shard_params(params, defs, mesh, rules)
     (loss, _), grads = St._zero3_value_and_grad(local, batch, cfg, mesh, rules, defs)
-    new_local, _, sm = St.make_train_step(cfg, opt_cfg, mesh=mesh, rules=rules)(
+    # the ZeRO-3 step (the MoE, SSM and hybrid families'; OLMo's own step on
+    # a mesh is the dense decoders' train layout, s6)
+    new_local, _, sm = St._zero3_step(cfg, opt_cfg, mesh, rules, False)(
         local, init_opt_state(local), batch)
     new = gather_params(new_local, defs, mesh, rules)
     torch.cuda.synchronize(dev)
@@ -3741,7 +3761,16 @@ def measure_mesh(dev, refs, only=None) -> dict:
                    f"at {MOE_LAYERS} layers, full-width Mamba-2 780M at "
                    f"{S4_SSM_LAYERS} layers, Jamba at its smoke shape "
                    f"(prefill + {S4_GEN} decode steps each, f32 and bf16)",
-             lambda: _spawn_ranks("s4", 4))):
+             lambda: _spawn_ranks("s4", 4)),
+            ("s5", f"4 gloo ranks on cuda:0, a 2x2 mesh, the paged layout: "
+                   f"BatchScheduler(mesh=) over the default plan, full-width OLMo-1B "
+                   f"(16 layers), Moonshot-16B-A3B ({MOE_LAYERS} layers), Mamba-2 780M "
+                   f"({S4_SSM_LAYERS} layers), the Jamba smoke hybrid; f32, teacher-forced",
+             lambda: _spawn_ranks("s5", 4)),
+            ("s6", f"4 gloo ranks on cuda:0, a 2x2 mesh: one train step of full-width "
+                   f"OLMo-1B ({S6_LAYERS} layers, {S6_BATCH[0]} x {S6_BATCH[1]}, f32) in "
+                   f"the dense decoders' train layout and as ZeRO-3, against one device",
+             lambda: _spawn_ranks("s6", 4))):
         if only is not None and key not in only:
             continue
         t0 = time.perf_counter()
@@ -3753,6 +3782,10 @@ def measure_mesh(dev, refs, only=None) -> dict:
             rec = _check_s3(rec)
         elif key == "s4":
             rec = _check_s4(rec)
+        elif key == "s5":
+            rec = _check_s5(rec)
+        elif key == "s6":
+            rec = _check_s6(rec)
         sub[key] = rec
         sub[key]["seconds"] = time.perf_counter() - t0
         print(f"  {key} took {sub[key]['seconds']:.1f} s", flush=True)
@@ -4132,6 +4165,310 @@ def _check_s4(ranks: list) -> dict:
     return out
 
 
+#: s5's models: full-width OLMo-1B, Moonshot-16B-A3B at MOE_LAYERS of 48,
+#: Mamba-2 780M at S4_SSM_LAYERS of 48, the Jamba smoke hybrid
+S5_CASES = (("olmo_1b", 16), (MOE_ARCH, MOE_LAYERS), (SSM_ARCH, S4_SSM_LAYERS),
+            (HYBRID_ARCH, None))
+S5_REQUESTS = (4, 32)           # requests (= slots, 2 a data rank) x prompt tokens
+S5_CHUNK = 16
+S5_GEN = 6
+#: s5 also serves this case on raw f32 pages (no KV codec), one device and
+#: 2x2, to show what the codec adds to the mesh's last-bit differences
+S5_RAW_ARCH = "olmo_1b"
+S6_LAYERS = 2                   # s6's OLMo-1B depth, at full width
+S6_BATCH = (4, 256)             # sequences (over data = 2) x tokens
+
+
+def _s5_want(plan, cfg) -> dict:
+    """The launches a rank's paged lane run makes, from the plan alone (the
+    prediction s5 holds its counts to): one K1 a 2-D entry a layer group,
+    one K6 an expert stack a group, one K4 (and at most one combine) an
+    attention layer."""
+    from repro_torch.models import transformer as tfm
+    want = {"onehot": 0, "grouped_onehot": 0,
+            "paged_attention": tfm.n_groups(cfg) * sum(
+                cfg.layer_kind(i) == "attn" for i in range(tfm.period(cfg)))}
+    for e in plan.entries.values():
+        want["onehot" if len(e.shape) == 3 else "grouped_onehot"] += e.shape[0]
+    return want
+
+
+def _s5_run(cfg, plan, dev, prompts, force=None, mesh=None, rules=None,
+            raw_pages=False) -> dict:
+    """One paged ``BatchScheduler`` run of s5 (chunked prefill, mip2q KV
+    pages, or raw pages if ``raw_pages``), every lane's logits kept (the
+    decode lane's gathered whole): tokens, logits, lane runs, ticks and
+    host ms (synchronized)."""
+    import torch
+    from repro_torch.core.policy import StruMConfig
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import BatchScheduler, Request
+    n, plen = S5_REQUESTS
+    sched = BatchScheduler(cfg, None, n_slots=n, max_len=64, mesh=mesh, rules=rules,
+                           plan=plan, kv_cache=None if raw_pages else StruMConfig(
+                               method="mip2q", p=0.5, q=4, L=7),
+                           prefill="chunked", prefill_chunk=S5_CHUNK, device=dev)
+    log = []
+    for name in ("_decode", "_chunk_prefill"):
+        lane = getattr(sched, name)
+
+        def run(*a, lane=lane):
+            out = lane(*a)
+            lg = out[0] if mesh is None else shd.gather_whole(out[0], mesh)
+            log.append(lg.reshape(-1, lg.shape[-1])[:, :cfg.vocab_size].float().cpu())
+            return out
+        setattr(sched, name, run)
+    for i in range(n):
+        sched.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=S5_GEN,
+                             force_tokens=None if force is None else force[i]))
+    moved = tfm.lane_gather_bytes["decode"]
+    _reset_kv_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    done = sched.run_to_completion()
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"tokens": [r.output for r in sorted(done, key=lambda r: r.uid)],
+            "launches": {k: v for k, v in _kv_counts().items() if v},
+            "logits": torch.cat(log), "runs": dict(sched.lane_runs), "ticks": sched._steps,
+            "ms": ms, "gathered": tfm.lane_gather_bytes["decode"] - moved}
+
+
+def _s5_body(rank: int, dev) -> dict:
+    """A rank of s5 (2 x 2 mesh): for each of :data:`S5_CASES` at f32, the
+    default plan built on the mesh and served by ``BatchScheduler(mesh=)``
+    in the paged layout, teacher-forced on one device's tokens (rank 0 runs
+    the one-device plan first and sends its tokens); the launches against
+    the plan's prediction, the bytes the decode lane gathers and ms a tick.
+    One rank at a time draws the whole model on the card (seed 0) and packs
+    it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_serving_plan
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.params import init_params
+    mesh = make_host_mesh(data=2, model=2)
+    rules = shd.rules_for_mesh(mesh)
+    n, plen = S5_REQUESTS
+    out = {}
+    for arch, layers in S5_CASES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(_s4_cfg(arch, layers), dtype="float32")
+        gen = torch.Generator().manual_seed(0)
+        prompts = [torch.randint(0, cfg.vocab_size, (plen,), generator=gen)
+                   for _ in range(n)]
+        plan = plan1 = None
+        for r in range(dist.get_world_size()):
+            if r == rank:
+                params = init_params(model_defs(cfg), seed=0, device=dev,
+                                     dtype_override="float32")
+                plan = build_serving_plan(params, cfg=cfg.strum, mesh=mesh, rules=rules,
+                                          device=dev)
+                if rank == 0:
+                    plan1 = build_serving_plan(params, cfg=cfg.strum, device=dev)
+                del params
+                torch.cuda.empty_cache()
+            dist.barrier()
+        want = _s5_want(plan, cfg)
+        one = _s5_run(cfg, plan1, dev, prompts) if rank == 0 else None
+        box = [None if one is None else one["tokens"]]
+        dist.broadcast_object_list(box, src=0)
+        got = _s5_run(cfg, plan, dev, prompts, force=box[0], mesh=mesh, rules=rules)
+        rec = {"want": want, "launches": got["launches"], "runs": got["runs"],
+               "ticks": got["ticks"], "ms_per_tick": got["ms"] / got["ticks"],
+               "gathered_per_decode": got["gathered"] / max(got["runs"]["decode"], 1),
+               "layers": cfg.n_layers, "smoke": layers is None}
+        if rank == 0:
+            ref, lg = one["logits"], got["logits"]
+            rec.update(tokens_equal=got["tokens"] == one["tokens"],
+                       tokens=got["tokens"][0], one_tokens=one["tokens"][0],
+                       one_ms_per_tick=one["ms"] / one["ticks"],
+                       one_launches=one["launches"],
+                       max_abs_diff=(lg - ref).abs().max().item(),
+                       max_abs_logit=ref.abs().max().item(),
+                       near_ties=_near_ties(ref[None], lg[None], ref.argmax(-1)[None],
+                                            f"s5 {arch}"))
+        if arch == S5_RAW_ARCH:
+            one_raw = _s5_run(cfg, plan1, dev, prompts, raw_pages=True) if rank == 0 else None
+            box = [None if one_raw is None else one_raw["tokens"]]
+            dist.broadcast_object_list(box, src=0)
+            raw = _s5_run(cfg, plan, dev, prompts, force=box[0], mesh=mesh, rules=rules,
+                          raw_pages=True)
+            if rank == 0:
+                rec["raw_max_abs_diff"] = (raw["logits"] - one_raw["logits"]).abs().max().item()
+                rec["raw_max_abs_logit"] = one_raw["logits"].abs().max().item()
+            del one_raw, raw
+        del plan, plan1, one, got
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        out[arch] = rec
+    return out
+
+
+def _check_s5(ranks: list) -> dict:
+    """s5's launches against the plan's prediction on every rank, the
+    tokens and logits against one device's."""
+    out = {}
+    for arch, _ in S5_CASES:
+        for r, res in enumerate(ranks):
+            a = res[arch]
+            lanes = a["runs"]["decode"] + a["runs"]["prefill_chunk"]
+            want = {k: v * lanes for k, v in a["want"].items() if v}
+            live = {k: v for k, v in a["launches"].items() if not k.endswith("_combine")}
+            _check(live == want, f"s5 rank {r} {arch} launches {live}, want {want} "
+                                 f"({a['want']} a lane run x {lanes})")
+            # a 64-position window's tables never split: no combine is due
+            comb = a["launches"].get("paged_attention_combine", 0)
+            _check(comb <= a["launches"].get("paged_attention", 0),
+                   f"s5 rank {r} {arch}: {comb} combines, more than K4's launches")
+        a = ranks[0][arch]
+        _check(a["max_abs_diff"] <= 1e-3 * max(a["max_abs_logit"], 1.0),
+               f"s5 {arch} lane logits differ from one device's: {a['max_abs_diff']}")
+        if "raw_max_abs_diff" in a:
+            _check(a["raw_max_abs_diff"] <= 1e-3 * max(a["raw_max_abs_logit"], 1.0),
+                   f"s5 {arch} raw-page lane logits differ from one device's: "
+                   f"{a['raw_max_abs_diff']}")
+        depth = "smoke shape" if a["smoke"] else f"{a['layers']} layers, full width"
+        print(f"  {arch} ({depth}) BatchScheduler(mesh=2x2), {S5_REQUESTS[0]} requests x "
+              f"{S5_REQUESTS[1]} tokens, chunk {S5_CHUNK}, {S5_GEN} new, f32, teacher-"
+              f"forced on one device's tokens: tokens equal {a['tokens_equal']} "
+              f"(request 0: {a['tokens']} vs {a['one_tokens']}), lane logits max|diff| "
+              f"{a['max_abs_diff']:.4e} (max|logit| {a['max_abs_logit']:.4e}), "
+              f"{len(a['near_ties'])} argmax disagreements, each a near tie: "
+              f"{a['near_ties']}", flush=True)
+        if "raw_max_abs_diff" in a:
+            print(f"  {arch} on raw f32 pages (no KV codec), teacher-forced on one device's "
+                  f"raw-page tokens: lane logits max|diff| {a['raw_max_abs_diff']:.4e} "
+                  f"(max|logit| {a['raw_max_abs_logit']:.4e}; mip2q pages "
+                  f"{a['max_abs_diff']:.4e})", flush=True)
+        print(f"  {arch} each rank: launches {[r[arch]['launches'] for r in ranks]} = "
+              f"the prediction {a['want']} a lane run x {a['runs']['decode']} decode + "
+              f"{a['runs']['prefill_chunk']} prefill-chunk runs (one device: "
+              f"{a['one_launches']}); decode lane all-gathers "
+              f"{a['gathered_per_decode']:.0f} B a run; {a['ms_per_tick']:.1f} ms a tick "
+              f"over {a['ticks']} ticks (one device {a['one_ms_per_tick']:.1f} ms; rank 0 "
+              f"host clock, gloo on one card); {a['seconds']:.1f} s", flush=True)
+        out[arch] = {k: v for k, v in a.items() if k != "near_ties"} | {
+            "near_ties": len(a["near_ties"]),
+            "launches_per_rank": [r[arch]["launches"] for r in ranks]}
+    return out
+
+
+def _s6_body(rank: int, dev) -> dict:
+    """A rank of s6 (2 x 2 mesh): one train step of full-width OLMo-1B at
+    S6_LAYERS layers, batch 4 x 256, f32, in the dense decoders' train
+    layout and then as ZeRO-3 (``launch.steps._zero3_step``), each timed
+    from the same inputs after a warm-up step (host clock, synchronized)
+    with this process's peak memory; rank 0 also takes the step on one
+    device and holds the new parameters to it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.apply import _named_leaves
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.params import gather_params, init_params, shard_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=S6_LAYERS, dtype="float32")
+    defs = model_defs(cfg)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    mesh = make_host_mesh(data=2, model=2)
+    rules = shd.rules_for_mesh(mesh)
+    b, s = S6_BATCH
+    batch = global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                    global_batch=b, seed=0), 0, device=dev)
+    params = init_params(defs, seed=0, device=dev, dtype_override="float32")
+    placed = shard_params(params, defs, mesh, rules)
+    opt = init_opt_state(placed)
+    if rank != 0:
+        del params
+    torch.cuda.empty_cache()
+    out = {"held_bytes": sum(t.numel() * 4 for _, t in _named_leaves(placed)),
+           "whole_bytes": sum(math.prod(shd.placement(t).shape) * 4
+                              for _, t in _named_leaves(placed))}
+    (_, _), grads = St._tp_value_and_grad(placed, batch, cfg, mesh, rules)
+    grads = gather_params(grads, defs, mesh, rules)
+    for name, step in (("tp", St.make_train_step(cfg, ocfg, mesh=mesh, rules=rules)),
+                       ("zero3", St._zero3_step(cfg, ocfg, mesh, rules, False))):
+        step(placed, opt, batch)                           # warm-up
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        new, _, m = step(placed, opt, batch)
+        torch.cuda.synchronize(dev)
+        out[name] = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                     "peak_over_resident": torch.cuda.max_memory_allocated(dev) - base}
+        if name == "tp":
+            tp_new = gather_params(new, defs, mesh, rules)
+        del new
+        torch.cuda.empty_cache()
+        dist.barrier()
+    if rank == 0:     # s3's holds: the gradients, then r2's element-wise bound
+        (l1, _), g1 = St._value_and_grad(params, batch, cfg)
+        p1, _, m1 = adamw_update(ocfg, params, g1, init_opt_state(params))
+        ly = dict(_named_leaves(g1))
+        out["one"] = {"loss": float(l1), "grad_norm": float(m1["grad_norm"])}
+        out["grad_rel"] = max((g.double() - ly[n].double()).abs().max().item()
+                              / max(ly[n].abs().max().item(), 1e-30)
+                              for n, g in _named_leaves(grads))
+        out["step_gap"] = _step_gap(ocfg, params, grads, g1, tp_new, p1,
+                                    max(float(m1["lr"]), ocfg.lr),
+                                    (out["tp"]["grad_norm"], float(m1["grad_norm"])))
+    del tp_new, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_s6(ranks: list) -> dict:
+    """s6 against the one-device step, to s3's (r2's) limits: loss and grad
+    norm within 1e-4 relative, gradients within 1e-3 of each leaf's
+    largest, the step within what the gradient gap allows element by
+    element and within 1e-5 of each leaf's largest where |e| >= 1e3·eps."""
+    r0 = ranks[0]
+    one, tp, z3, gap = r0["one"], r0["tp"], r0["zero3"], r0["step_gap"]
+    loss_rel = abs(tp["loss"] - one["loss"]) / abs(one["loss"])
+    gn_rel = abs(tp["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+    print(f"  OLMo-1B ({S6_LAYERS} layers, full width, f32) one train step on 2x2, batch "
+          f"{S6_BATCH[0]} x {S6_BATCH[1]}: loss {tp['loss']:.6f} vs one device "
+          f"{one['loss']:.6f} (rel {loss_rel:.2e}, limit 1e-4), grad norm "
+          f"{tp['grad_norm']:.6f} vs {one['grad_norm']:.6f} (rel {gn_rel:.2e}, limit "
+          f"1e-4), gradients max|diff| / leaf max {r0['grad_rel']:.2e} (limit 1e-3); the "
+          f"step at most {gap['bound_ratio']:.3f} of what the gradient gap allows (limit "
+          f"1), {gap['rel']:.2e} of max|p| where |e| >= 1e3·eps (limit 1e-5; "
+          f"{gap['outside']} of {gap['elements']} elements below it); ZeRO-3 loss "
+          f"{z3['loss']:.6f}", flush=True)
+    print(f"  each rank holds {[r['held_bytes'] for r in ranks]} of "
+          f"{r0['whole_bytes']} parameter bytes; ms a step (host clock, gloo on one "
+          f"card): train layout {[round(r['tp']['ms'], 1) for r in ranks]}, ZeRO-3 "
+          f"{[round(r['zero3']['ms'], 1) for r in ranks]}; peak memory a rank: train "
+          f"layout {[r['tp']['peak_bytes'] for r in ranks]} B "
+          f"({[r['tp']['peak_over_resident'] for r in ranks]} over resident), ZeRO-3 "
+          f"{[r['zero3']['peak_bytes'] for r in ranks]} B "
+          f"({[r['zero3']['peak_over_resident'] for r in ranks]} over resident)",
+          flush=True)
+    _check(loss_rel <= 1e-4 and gn_rel <= 1e-4, f"s6 loss / grad norm differ: "
+                                                f"{loss_rel}, {gn_rel}")
+    _check(r0["grad_rel"] <= 1e-3, f"s6 gradients differ: {r0['grad_rel']} > 1e-3")
+    _check(gap["bound_ratio"] <= 1.0, f"s6 steps differ past the gradient gap: {gap}")
+    _check(gap["rel"] <= 1e-5, f"s6 steps differ where |e| >= 1e3·eps: {gap}")
+    _check(all(r["held_bytes"] < r0["whole_bytes"] for r in ranks),
+           f"s6 ranks hold {[r['held_bytes'] for r in ranks]} of {r0['whole_bytes']}")
+    return {"loss_rel": loss_rel, "grad_norm_rel": gn_rel, "grad_rel": r0["grad_rel"],
+            "step_gap": {k: v for k, v in gap.items() if k != "bound_at"},
+            "per_rank": [{k: r[k] for k in ("tp", "zero3", "held_bytes")} for r in ranks]}
+
+
 def _mesh_report(mesh, smi) -> None:
     """Phase s's summary line."""
     s1, s2 = mesh["s1"], mesh["s2"]
@@ -4140,7 +4477,9 @@ def _mesh_report(mesh, smi) -> None:
           f"{s1['drain_ms']:.1f} ms; s2 (gloo 2x2) K1 per rank "
           f"{s2['k1_launches_per_rank']}, K6 per rank {s2['k6_launches_per_rank']}; s3 "
           f"ZeRO-3 loss rel {mesh['s3']['loss_rel']:.2e}; s4 (gloo 2x2) K1 / K6 per "
-          f"rank {({a: (r['k1_launches_per_rank'], r['k6_launches_per_rank']) for a, r in mesh['s4'].items() if a != 'seconds'})}; sub-phase seconds "
+          f"rank {({a: (r['k1_launches_per_rank'], r['k6_launches_per_rank']) for a, r in mesh['s4'].items() if a != 'seconds'})}; s5 (gloo 2x2, paged) "
+          f"launches per rank {({a: r['launches_per_rank'][0] for a, r in mesh['s5'].items() if a != 'seconds'})}; "
+          f"s6 (gloo 2x2, train) loss rel {mesh['s6']['loss_rel']:.2e}; sub-phase seconds "
           f"{ {k: round(v['seconds'], 1) for k, v in mesh.items() if k != 'seconds'} }, "
           f"phase s {mesh['seconds']:.1f} s; {smi}")
 
@@ -5242,6 +5581,10 @@ def measure(dev, clocks):
                    "s2_olmo_per_rank": mesh["s2"]["k1_launches_per_rank"]},
         "paged_attention": {"s1_paged": mesh["s1"]["paged_k4"]},
         "grouped_onehot": {"s2_moe_per_rank": mesh["s2"]["k6_launches_per_rank"]}}
+    for arch, _ in S5_CASES:
+        for kern, n in mesh["s5"][arch]["launches_per_rank"][0].items():
+            if kern in ("onehot", "paged_attention", "grouped_onehot"):
+                mesh_launches.setdefault(kern, {})[f"s5_{arch}_rank0"] = n
     for arch, _ in S4_CASES:
         s4 = mesh["s4"][arch]
         for kern, key in (("onehot", "k1_launches_per_rank"),
@@ -5400,8 +5743,9 @@ def _zoo_report(zoo, smi) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q"], ["--only", "r"], ["--only", "s"],
-                    ["--only", "s4"], ["--only", "t"], ["--only", "u"], ["--only", "v"]):
-        print("usage: chip_smoke.py [--only q|r|s|s4|t|u|v]", file=sys.stderr)
+                    ["--only", "s4"], ["--only", "s5"], ["--only", "s6"],
+                    ["--only", "t"], ["--only", "u"], ["--only", "v"]):
+        print("usage: chip_smoke.py [--only q|r|s|s4|s5|s6|t|u|v]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
@@ -5456,9 +5800,13 @@ def main(argv=None) -> int:
             _mesh_report(mesh, smi)
             print(json.dumps({"mesh": mesh}, default=str))
             return 0
-        if argv == ["--only", "s4"]:    # sub-phase s4 alone: no kernels or result line
-            _phase("s4. the sharded serving layout of the MoE, SSM and hybrid families")
-            mesh = measure_mesh(dev, None, only=("s4",))
+        if argv[:1] == ["--only"] and argv[1] in ("s4", "s5", "s6"):
+            # one sub-phase of s alone: no kernels or result line
+            _phase(f"{argv[1]}. " + {
+                "s4": "the sharded serving layout of the MoE, SSM and hybrid families",
+                "s5": "the paged layout: BatchScheduler(mesh=) on 2x2",
+                "s6": "the dense decoders' train step on 2x2"}[argv[1]])
+            mesh = measure_mesh(dev, None, only=(argv[1],))
             print(json.dumps({"mesh": mesh}, default=str))
             return 0
         if argv == ["--only", "t"]:     # phase t alone: no kernels or result line

@@ -125,7 +125,7 @@ def _sharded_call(wleaf: dict, x: torch.Tensor, cfg: StruMConfig,
                   spec: Optional[ExecSpec], info: LeafInfo, *, mesh,
                   pattern: Optional[str], backend: Optional[str], out_dtype,
                   accum_dtype=torch.float32, rows=None, k_dim=None,
-                  spmd: bool = False) -> torch.Tensor:
+                  spmd: bool = False, local_rows: bool = False) -> torch.Tensor:
     """Select and invoke a ``sharded:*`` variant: the one implementation
     behind the 2-D mesh branch of :func:`dispatch` and the ``fsdp_axes``
     branch of :func:`dispatch_grouped`."""
@@ -133,7 +133,7 @@ def _sharded_call(wleaf: dict, x: torch.Tensor, cfg: StruMConfig,
     _note_dispatch(variant, wleaf, sharded=True)
     eff_backend = backend if backend is not None else (
         spec.backend if spec is not None else None)
-    kw = {"rows": rows} if variant.grouped else {"spmd": spmd}
+    kw = {"rows": rows} if variant.grouped else {"spmd": spmd, "local_rows": local_rows}
     return variant.fn(wleaf, x, cfg=cfg, mesh=mesh, fsdp=tuple(info.fsdp),
                       pattern=pattern, k_dim=k_dim or x.shape[-1],
                       backend=eff_backend, out_dtype=out_dtype,
@@ -153,7 +153,8 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
              strum: Optional[StruMConfig] = None,
              backend: Optional[str] = None, out_dtype=None,
              accum_dtype=torch.float32, mesh=None, tp_mesh=None,
-             tp_pattern: Optional[str] = None, spmd: bool = False) -> torch.Tensor:
+             tp_pattern: Optional[str] = None, spmd: bool = False,
+             local_rows: bool = False) -> torch.Tensor:
     """y = x @ dequant(leaf) through the leaf's selected kernel variant.
 
     ``x``: (..., K); returns (..., N) in ``out_dtype`` (default x.dtype).
@@ -170,7 +171,8 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
     layout) ``x`` and the result are this rank's blocks instead, as the
     reference's ``shard_map`` in and out specs hold them: the rows this
     rank holds, a row leaf's ``x`` its block of K over ``model``, a col
-    leaf's result its block of N.
+    leaf's result its block of N.  With ``local_rows`` (the paged layout)
+    ``x`` and the result are this rank's rows with every feature.
     """
     cfg, spec = leaf_spec(wleaf, strum)
     out_dtype = out_dtype or x.dtype
@@ -211,7 +213,7 @@ def dispatch(wleaf: dict, x: torch.Tensor, *,
             return _sharded_call(wleaf, x, cfg, spec, info, mesh=mesh,
                                  pattern=pattern, backend=backend,
                                  out_dtype=out_dtype, accum_dtype=accum_dtype,
-                                 k_dim=k_dim, spmd=spmd)
+                                 k_dim=k_dim, spmd=spmd, local_rows=local_rows)
         if spmd:
             raise ValueError("the sharded serving layout needs an FSDP axis on "
                              "the mesh")

@@ -20,9 +20,12 @@ does the math:
                             axes, then re-dispatch to the grouped family
                             (K6-K8 on the card).
 
-Two contracts, one per layout (:mod:`repro_torch.models.sharding`).  In
+Three contracts, one per layout (:mod:`repro_torch.models.sharding`).  In
 the replicated layout activations ``x`` arrive global (replicated on every
-rank) and the result leaves global (``gather_out``).  In the sharded
+rank) and the result leaves global (``gather_out``).  In the paged layout
+(``local_rows=True``) ``x`` is this rank's rows, which differ between data
+ranks, and the result is the same rows with every feature: the token rows
+are not split again over the FSDP axes.  In the sharded
 serving layout (``spmd=True``) ``x`` arrives at the reference's ``x_spec``
 and ``y`` leaves at its ``y_spec``, as its ``shard_map`` holds them: the
 rows this rank holds (the batch over the data axes; they are the token
@@ -222,7 +225,9 @@ def gather_dequant_leaf(wleaf: dict, scfg: StruMConfig, mesh, pattern: str,
     description="all-gather packed payloads along the FSDP axes, dequantize "
                 "this rank's block, f32 matmul (portable distributed path)")
 def _gather_dequant(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
-                    out_dtype=None, accum_dtype=torch.float32, spmd=False):
+                    out_dtype=None, accum_dtype=torch.float32, spmd=False,
+                    local_rows=False):
+    # the global contract computes every row it is given: local_rows alike
     out_dtype = out_dtype or x.dtype
     tp = _tp_axis(mesh)
     wd = _local_dense(wleaf, cfg, mesh, pattern, fsdp, x.dtype).to(torch.float32)
@@ -257,7 +262,8 @@ def _post_gather_expressible(cfg: StruMConfig, info: LeafInfo) -> bool:
     description="all-gather the packed payloads along the FSDP axes, then run "
                 "the registry-selected 2-D kernel on the gathered payload")
 def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
-                   out_dtype=None, accum_dtype=torch.float32, spmd=False):
+                   out_dtype=None, accum_dtype=torch.float32, spmd=False,
+                   local_rows=False):
     tp = _tp_axis(mesh)
     col = pattern == "col"
     out_dtype = out_dtype or x.dtype
@@ -277,12 +283,12 @@ def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
         return y.to(out_dtype).reshape(lead + (y.shape[-1],))
     x2 = x.reshape(-1, k_dim)
     m = x2.shape[0]
-    n_fsdp = shd.axis_size(mesh, fsdp)
-    m_pad = _pick_m_pad(m, n_fsdp)
+    rows_fsdp = () if local_rows else fsdp     # local rows are split already
+    m_pad = _pick_m_pad(m, shd.axis_size(mesh, rows_fsdp))
     if m_pad:
         x2 = torch.cat([x2, x2.new_zeros((m_pad, k_dim))])
     # this rank's token rows (and, for row, its model-shard of K)
-    x_l = shd.shard_slice(x2, shd.P(fsdp or None, None if col else tp), mesh)
+    x_l = shd.shard_slice(x2, shd.P(rows_fsdp or None, None if col else tp), mesh)
     k_local = x_l.shape[-1]
     n_global = f["scale"].shape[-1] * (shd.axis_size(mesh, tp) if col else 1)
     # the post-gather kernel: the same registry, the caller's backend
@@ -293,7 +299,8 @@ def _gather_pallas(wleaf, x, *, cfg, mesh, fsdp, pattern, k_dim, backend=None,
     if not col:
         y = shd.all_reduce(y, mesh, tp)              # row-parallel K-partials
     y = shd.gather_out(y, mesh, tp, 1) if col else y
-    y = shd.gather_out(y, mesh, fsdp, 0)[:m]
+    if rows_fsdp:
+        y = shd.gather_out(y, mesh, rows_fsdp, 0)[:m]
     return y.to(out_dtype).reshape(lead + (n_global,))
 
 

@@ -51,8 +51,17 @@ their results' shapes alone, and each input is the block rank 0 holds
   ``cache_len`` a Python int), and the count holds the FSDP gathers, the
   row-parallel all-reduces, the vocab-parallel embedding, the flash-decode
   merge, the expert-parallel all-reduce and the SSM mixer's gathers;
-* ``zero3``: a train step's parameters and AdamW moments are its ZeRO-3
-  shards and its batch is global (the step takes its rows itself).
+* ``tp_train``: the dense decoders' train cells run the train layout of
+  ``models.transformer`` (the reference's train ``input_shardings``): rank
+  0 holds its shards of the parameters and AdamW moments and computes its
+  rows of the batch (the step takes them itself from the global batch)
+  and its blocks of the heads, the MLP and the vocabulary; the count holds
+  the FSDP gathers per use, the row-parallel all-reduces, the gathers of q
+  / k / v, the vocab-parallel embedding and cross-entropy, and the
+  backward's transposes of them all;
+* ``zero3``: the MoE, SSM and hybrid train cells: parameters and AdamW
+  moments are ZeRO-3 shards and the batch is global (the step takes its
+  rows itself).
 
 Costs are counted at depth ``period(cfg)``, twice that (and, for a train
 step, three times) and extrapolated to the config's depth
@@ -108,7 +117,7 @@ from repro_torch.launch.specs import input_specs, place_inputs
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models.sharding import rules_for_mesh
-from repro_torch.models.transformer import period
+from repro_torch.models.transformer import period, tp_train
 from repro_torch.optim.adamw import AdamWConfig, OptState
 
 __all__ = ["Counter", "count_step", "extrapolated_costs", "compute_s",
@@ -314,7 +323,9 @@ def layout_of(cfg, kind: str, mesh) -> str:
     a key of :data:`LAYOUT_NOTES`."""
     if mesh is None:
         return "1x1"
-    return "zero3" if kind == "train" else "input_shardings"
+    if kind == "train":
+        return "tp_train" if tp_train(cfg, mesh) else "zero3"
+    return "input_shardings"
 
 
 def count_step(cfg, shape, inputs=None, mesh=None, rules=None) -> dict:
@@ -437,6 +448,12 @@ LAYOUT_NOTES = {
         "caches are rank 0's shards (weights FSDP over data, qkv/mlp/vocab over "
         "model; batch over data; cache sequence over model); tokens int64 and "
         "cache_len a Python int where the reference's are int32"),
+    "tp_train": (
+        "rank 0 of the port's dense-decoder train step, the reference's train "
+        "input_shardings: parameters and moments rank 0's shards (FSDP over "
+        "data, qkv/mlp/vocab over model), its rows of the batch over data, its "
+        "blocks of the heads, the MLP and the vocabulary over model; each weight "
+        "gathered over data per use, never whole"),
     "zero3": (
         "rank 0 of the port's ZeRO-3 train step: parameters and moments ZeRO-3 "
         "shards over the data axes, the batch global, dense compute replicated "

@@ -1,6 +1,6 @@
 """Step builders shared by the trainer, the server and the tests (twin of
-``repro.launch.steps``): one definition of the train step (single-device,
-or ZeRO-3 on a mesh), the plan, the prefill and decode steps, and the paged
+``repro.launch.steps``): one definition of the train step (single-device;
+on a mesh the dense decoders' train layout or ZeRO-3), the plan, the prefill and decode steps, and the paged
 runtime's lanes, each with the reference's ``mesh=`` / ``rules=``."""
 from __future__ import annotations
 
@@ -38,10 +38,13 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh=None,
     compression with error feedback when ``grad_compression``, then AdamW.
     Functional: new trees come back and the inputs are left as they were.
     ``metrics`` holds ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` as
-    tensors.  With ``mesh`` the step is ZeRO-3 (:func:`_zero3_step`)."""
+    tensors.  With ``mesh`` the dense decoders' step runs the train layout
+    of ``models.transformer`` (:func:`_tp_step`), the MoE, SSM and hybrid
+    families' is ZeRO-3 (:func:`_zero3_step`)."""
     if mesh is not None:
-        return _zero3_step(cfg, opt_cfg, mesh, rules or rules_for_mesh(mesh),
-                           grad_compression)
+        make = _tp_step if tfm.tp_train(cfg, mesh) else _zero3_step
+        return make(cfg, opt_cfg, mesh, rules or rules_for_mesh(mesh),
+                    grad_compression)
     if grad_compression:
         def step(params, opt_state, ef_state, batch):
             (loss, metrics), grads = _value_and_grad(params, batch, cfg)
@@ -124,6 +127,89 @@ def _zero3_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, rules: Rules,
     return step
 
 
+def _held_as(tree, like):
+    """``tree``'s leaves carrying the placements of ``like``'s (the same
+    blocks of the same tensors: gradients, updated parameters)."""
+    from repro_torch.models import sharding as shd
+
+    def hold(t, ref):
+        t = t.view_as(t)
+        t._placement = shd.placement(ref)
+        return t
+    return tree_like(like, [hold(t, ref) for t, ref in zip(tree_leaves(tree),
+                                                            tree_leaves(like))])
+
+
+def _tp_value_and_grad(params, batch, cfg, mesh, rules: Rules):
+    """``(loss, metrics), grads`` of the whole ``batch`` in the dense
+    decoders' train layout: ``params`` are this rank's placed shards and so
+    are the gradients.  Each rank takes the loss of its rows (the batch
+    splits over the rules' ``batch`` axes), weighted by its share of the
+    labelled tokens and divided by the data ranks' count, so the sum over
+    the data ranks is the whole batch's loss; the gradient of a leaf split
+    over the data axes is that sum already (the FSDP gather's backward),
+    the gradient of one replicated over them is all-reduced here.  No
+    parameter is gathered whole: each is gathered over its ``embed`` axes
+    per use."""
+    from repro_torch.models import sharding as shd
+    axes = rules.table.get("batch")
+    n_data = shd.axis_size(mesh, axes)
+    local = {k: shd.shard_slice(v, shd.P(axes), mesh) for k, v in batch.items()}
+    held = tree_leaves(params)
+    leaves = [p.detach().requires_grad_() for p in held]
+    for leaf, p in zip(leaves, held):
+        leaf._placement = shd.placement(p)
+    _, m = tfm.loss_fn(tree_like(params, leaves), local, cfg, mesh=mesh, rules=rules)
+    n = (local["labels"] >= 0).sum().to(torch.float32)
+    share = n * n_data / torch.clamp(shd.all_reduce(n, mesh, axes), min=1.0)
+    obj = (share * m["ce"] + cfg.router_aux_weight * m["aux"]) / n_data
+    grads = torch.autograd.grad(obj, leaves, materialize_grads=True)
+    data = set(shd._as_axes(axes))
+
+    def whole_over_data(g, p):
+        spec = shd.placement(p).spec
+        if data & {a for e in spec for a in shd._as_axes(e)}:
+            return g                    # summed by its gather's backward
+        return shd.all_reduce(g, mesh, axes)
+    grads = [whole_over_data(g, p) for g, p in zip(grads, held)]
+    ce = shd.all_reduce(share * m["ce"].detach(), mesh, axes, "mean")
+    aux = m["aux"].detach()
+    return ((ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}),
+            _held_as(tree_like(params, grads), params))
+
+
+def _tp_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, rules: Rules,
+             grad_compression: bool):
+    """The dense decoders' train step on a mesh, the reference's train
+    ``input_shardings``: ``params``, the AdamW moments (and the
+    error-feedback residual) are this rank's shards under ``rules``
+    (``models.params.shard_params``); ``batch`` is global and each rank
+    takes its rows.  Loss and gradients from :func:`_tp_value_and_grad`;
+    the clip reads the global norm of the sharded gradients
+    (``adamw.global_norm(mesh=)``); AdamW updates each rank's shards, which
+    keep their placements.  Under compression the codec runs on this rank's
+    gradient blocks (its ``[1, w]`` blocks lie within a shard's rows where
+    the shard's last dim is a multiple of ``w``)."""
+    def update(params, opt_state, grads, loss, metrics):
+        new, opt_state, stats = adamw.adamw_update(
+            opt_cfg, params, grads, opt_state, gnorm=adamw.global_norm(grads, mesh))
+        return _held_as(new, params), opt_state, dict(metrics, loss=loss, **stats)
+
+    if grad_compression:
+        def step(params, opt_state, ef_state, batch):
+            (loss, metrics), grads = _tp_value_and_grad(params, batch, cfg, mesh, rules)
+            dec, ef_state = gcomp.compress_tree_with_ef(grads, ef_state)
+            params, opt_state, metrics = update(params, opt_state,
+                                                _held_as(dec, params), loss, metrics)
+            return params, opt_state, ef_state, metrics
+        return step
+
+    def step(params, opt_state, batch):
+        (loss, metrics), grads = _tp_value_and_grad(params, batch, cfg, mesh, rules)
+        return update(params, opt_state, grads, loss, metrics)
+    return step
+
+
 def build_serving_plan(params, *, schedule=None, cfg=None, policy=None,
                        backend: Optional[str] = None, mesh=None,
                        rules: Optional[Rules] = None, device="cuda"):
@@ -141,16 +227,16 @@ def build_serving_plan(params, *, schedule=None, cfg=None, policy=None,
 
 
 def make_prefill_step(cfg, mesh=None, rules: Optional[Rules] = None,
-                      max_len: Optional[int] = None, replicated: bool = False, **kw):
+                      max_len: Optional[int] = None, **kw):
     """(params, batch) -> (last-token logits, caches); ``kw`` (e.g.
     ``backend=``) reaches every linear, ``max_len`` pads the caches to the
     decode loop's length.  With a mesh, the step takes its inputs at
-    ``launch.specs.input_shardings`` (``place_inputs``) and
-    returns this rank's blocks (the sharded serving layout), unless
-    ``replicated`` (the paged runtime's serial prefill)."""
+    ``launch.specs.input_shardings`` (``place_inputs``) and returns this
+    rank's blocks (the sharded serving layout); given whole dense params it
+    runs the paged layout (the paged runtime's serial prefill)."""
     def step(params, batch):
         return tfm.prefill(params, batch, cfg, mesh=mesh, rules=rules,
-                           max_len=max_len, replicated=replicated, **kw)
+                           max_len=max_len, **kw)
     return step
 
 

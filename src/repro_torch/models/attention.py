@@ -12,8 +12,12 @@ linears' keywords; :mod:`repro_torch.models.sharding`) each rank holds its
 rows of the batch and its block of the q / k / v columns over ``model``,
 which need not align with heads (Qwen2-7B's 3584 q columns over 16 ranks
 are 1.75 heads each): q, k and v are gathered over ``model``.  Prefill
-then computes the heads that overlap this rank's block of the columns and
-keeps that block, which is the K block of ``wo``'s row-parallel product.
+and the dense decoders' train step then compute the heads that overlap
+this rank's block of the columns and keep that block, which is the K block
+of ``wo``'s row-parallel product.  In the backward each gather sums its
+gradient over ``model`` before it takes this rank's block: a rank's heads
+use part of the gathered k and v (and a head split between two ranks all
+of its q), so each rank holds a part of their gradient.
 Decode reads a cache whose sequence is split over ``model``: the new
 token is written on the rank that holds position ``cache_len``, each rank
 takes the online-softmax partial of every head over its slice of the
@@ -27,7 +31,7 @@ import math
 import torch
 
 from repro_torch.models import sharding as shd
-from repro_torch.models.layers import apply_rope, linear, linear_def
+from repro_torch.models.layers import apply_rope, linear, linear_def, tp_input
 
 __all__ = ["attn_def", "attention", "decode_attention", "init_cache_spec",
            "decode_attention_paged", "prefill_attention_paged",
@@ -63,6 +67,7 @@ def _tp_block(mesh, width: int) -> tuple:
 def _qkv(p, x, cfg, positions, **kw):
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = tp_input(x, kw)
     kw_c = dict(kw, tp_pattern="col")
     q, k, v = (linear(p[n], x, **kw_c) for n in ("wq", "wk", "wv"))
     mesh = _spmd_mesh(kw)

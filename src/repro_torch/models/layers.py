@@ -14,8 +14,13 @@ In the sharded serving layout (``spmd=True`` with a ``tp_mesh``; see
 ``embed`` dim is gathered over the data axes per use (FSDP), a ``col``
 linear keeps its output features local, a ``row`` linear contracts this
 rank's block of K and all-reduces over ``model``; the embedding table is
-vocab-parallel and the LM head's logits are this rank's vocab block.
-Anywhere else a sharded dense leaf raises.
+vocab-parallel and the LM head's logits are this rank's vocab block.  The
+dense decoders' train step runs the same products under autograd: the
+collectives carry their transposes, and the input of the column-parallel
+products (the MLP's, attention's q / k / v, the LM head) passes
+``sharding.grad_all_reduce``, whose backward sums the parts of its
+gradient the ``model`` ranks hold.  Anywhere else a sharded dense leaf
+raises.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from repro_torch.models.params import ParamDef, torch_dtype
 
 __all__ = ["rms_norm", "nonparam_ln", "norm_def", "apply_norm", "linear_def",
            "linear", "mlp_def", "mlp", "rope_freqs", "apply_rope", "embed_def",
-           "embed_lookup", "logits", "check_whole"]
+           "embed_lookup", "logits", "check_whole", "tp_input"]
 
 
 def _f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -82,7 +87,8 @@ def linear_def(d_in: int, d_out: int, in_axis: str, out_axis: str,
 
 def linear(p: dict, x: torch.Tensor, *, strum: Optional[StruMConfig] = None,
            backend: Optional[str] = None, accum_dtype=torch.float32, tp_mesh=None,
-           tp_pattern: Optional[str] = None, spmd: bool = False) -> torch.Tensor:
+           tp_pattern: Optional[str] = None, spmd: bool = False,
+           local_rows: bool = False) -> torch.Tensor:
     """y = x @ W (+ b), dense or StruM-compressed; ``backend`` overrides the
     plan's variant per call (``"torch"``, ``"cuda"``, ...).  ``accum_dtype``
     (a dtype or its name) is the reference's ``preferred_element_type``:
@@ -93,13 +99,15 @@ def linear(p: dict, x: torch.Tensor, *, strum: Optional[StruMConfig] = None,
     layout): then it must be a placed shard (``params.shard_params``) and
     runs as the module docstring says; ``x`` and the result hold this
     rank's rows (a row linear's ``x`` its block of K, a col linear's result
-    its block of N)."""
+    its block of N).  ``local_rows`` (the paged layout): ``x`` is this
+    rank's rows, the weight whole or a plan's packed block."""
     acc = torch_dtype(accum_dtype)
     wleaf = p["w"]
     if isinstance(wleaf, dict):
         from repro_torch.engine.dispatch import dispatch
         y = dispatch(wleaf, x, strum=strum, backend=backend, accum_dtype=acc,
-                     mesh=tp_mesh, tp_pattern=tp_pattern, spmd=spmd)
+                     mesh=tp_mesh, tp_pattern=tp_pattern, spmd=spmd,
+                     local_rows=local_rows)
     elif spmd and tp_mesh is not None:
         y = _spmd_product(x, wleaf, tp_mesh).to(acc).to(x.dtype)
     else:
@@ -121,7 +129,8 @@ def check_whole(t: torch.Tensor, what: str) -> None:
         raise ValueError(
             f"{what}: a sharded dense leaf (global shape {pl.shape}, spec "
             f"{pl.spec}) reached a lane that holds whole dense weights; the "
-            f"sharded serving layout covers prefill and decode_step on a mesh")
+            f"sharded serving layout covers prefill and decode_step on a mesh, "
+            f"and the dense decoders' train step")
 
 
 def _spmd_product(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
@@ -155,7 +164,16 @@ def mlp_def(cfg, lead=()) -> dict:
     return out
 
 
+def tp_input(x: torch.Tensor, kw: dict) -> torch.Tensor:
+    """The input of column-parallel products in the sharded layout (its
+    gradient summed over ``model`` in the backward); ``x`` elsewhere."""
+    mesh = kw.get("tp_mesh") if kw.get("spmd") else None
+    tp = shd.tp_axis(mesh) if mesh is not None else None
+    return shd.grad_all_reduce(x, mesh, tp) if tp is not None else x
+
+
 def mlp(p: dict, x: torch.Tensor, cfg, **kw) -> torch.Tensor:
+    x = tp_input(x, kw)
     kw_c = dict(kw, tp_pattern="col")
     h = linear(p["wi"], x, **kw_c)
     if cfg.gated_mlp:
@@ -213,9 +231,13 @@ def embed_lookup(p: dict, ids: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
     return shd.all_reduce(rows, mesh, entry)
 
 
-def logits(head_p: Optional[dict], embed_p: dict, x: torch.Tensor) -> torch.Tensor:
+def logits(head_p: Optional[dict], embed_p: dict, x: torch.Tensor,
+           mesh=None) -> torch.Tensor:
     """LM head, f32 out: tied (embed^T) or untied.  On a vocab-sharded head
-    (the sharded serving layout) the result is this rank's vocab block."""
+    (the sharded serving layout) the result is this rank's vocab block;
+    ``mesh`` (the train step) makes ``x`` the column-parallel input."""
+    if mesh is not None:
+        x = tp_input(x, {"tp_mesh": mesh, "spmd": True})
     if head_p is not None:
         return _f32_matmul(x, head_p["w"])
     return _f32_matmul(x, embed_p["table"].T)

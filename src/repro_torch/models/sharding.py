@@ -26,13 +26,28 @@ The port runs one process per rank (``torch.distributed``) over a
   :class:`Placement` (global shape and spec), and :func:`constrain` moves a
   tensor to the block its logical axes name, by slicing a whole tensor or
   by collectives from another placement;
-* **the replicated layout**, kept by every other lane (the paged runtime,
-  the train step): dense weights, activations and caches global and
+* **the paged layout** of the serving runtime's lanes (the decode lane,
+  the chunked and serial prefill, the verify lane) on a mesh, as the
+  reference's scheduler runs them: dense weights whole (a placed one
+  raises), packed weights a mesh-aware plan's block through the
+  ``sharded:*`` family, the lane's batch over the data axes where they
+  divide it and whole on every rank where they do not
+  (:func:`lane_rules`), page pools and per-slot tails whole and equal on
+  every rank.  :func:`constrain` cuts the activations to this rank's rows;
+  what a lane writes for its rows is all-gathered after it
+  (``models.transformer``);
+* **the replicated layout**, kept by the train step of the MoE, SSM and
+  hybrid families: dense weights, activations and caches global and
   replicated on every rank, packed weights a mesh-aware plan's block,
   collectives only inside the reference's ``shard_map`` bodies (the
   ``sharded:*`` variants, the MoE body, the pipeline ring).  There
   :func:`check_axes` checks the logical axes and moves nothing, and a
-  placed (sharded) dense leaf raises.
+  placed (sharded) dense leaf raises.  The dense decoders' train step
+  holds its weights as the sharded serving layout does and computes each
+  rank's block of the heads, the MLP and the vocabulary
+  (``launch.steps``); its collectives are :func:`all_gather`,
+  :func:`all_reduce` and :func:`grad_all_reduce`, which autograd
+  differentiates.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 (:func:`repro_torch.launch.mesh.make_host_mesh`); the helpers here also take
@@ -44,7 +59,8 @@ several axes act as one, such as ``("pod", "data")``).  On an abstract mesh
 (:class:`repro_torch.launch.mesh.AbstractMesh`: no process group, one
 rank's coordinate) they take ``meta`` tensors only and build the result's
 shape alone, so the dry-run counts one rank of a production mesh; any other
-tensor there raises.
+tensor there raises.  Under gloo a CUDA tensor's stream is synchronized
+before its collective (gloo copies it through the host).
 """
 from __future__ import annotations
 
@@ -62,7 +78,7 @@ __all__ = [
     "batch_spec", "shard_map", "axis_names", "axis_sizes", "axis_size",
     "axis_index", "all_gather", "gather_out", "all_reduce", "shard_slice",
     "Placement", "place", "placement", "is_sharded", "check_axes",
-    "place_tree", "tp_axis", "gather_whole",
+    "place_tree", "tp_axis", "gather_whole", "lane_rules", "grad_all_reduce",
 ]
 
 
@@ -191,6 +207,20 @@ def rules_for_mesh(mesh, global_batch: Optional[int] = None) -> Rules:
     # only be checked against, not placed on
     live = mesh if hasattr(mesh, "get_local_rank") else None
     return Rules(table, names if mesh is not None else None, live)
+
+
+def lane_rules(mesh, rules: Optional[Rules], batch: int) -> Rules:
+    """The paged layout's rules for a lane whose batch is ``batch`` rows:
+    ``rules`` (by default the mesh's) with the batch over its data axes
+    where they divide it, else whole on every rank, as
+    ``rules_for_mesh(mesh, global_batch=batch)`` says.  The reference's
+    GSPMD pads a batch of 1 over data = 2 instead; here every rank then
+    computes the one row."""
+    table = dict((rules or rules_for_mesh(mesh)).table)
+    if table.get("batch") is not None and batch % axis_size(mesh, table["batch"]):
+        table["batch"] = None
+    live = mesh if hasattr(mesh, "get_local_rank") else None
+    return Rules(table, axis_names(mesh), live)
 
 
 def spec_for_axes(axes, table: dict) -> PartitionSpec:
@@ -385,11 +415,16 @@ def _stand_in(mesh, x: torch.Tensor, what: str) -> bool:
     return True
 
 
-def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
-    """``jax.lax.all_gather(x, axes, axis=dim, tiled=True)``: the ranks'
-    blocks concatenated along ``dim`` in the order of :func:`axis_index`
-    (on an abstract mesh, ``n`` copies of the ``meta`` block)."""
-    n = axis_size(mesh, axes)
+def _sync(x: torch.Tensor, mesh, axes) -> None:
+    """Gloo copies a CUDA tensor through the host: finish the kernels that
+    write it first."""
+    import torch.distributed as dist
+    if x.is_cuda and dist.get_backend(_group(mesh, axes)) == "gloo":
+        torch.cuda.current_stream(x.device).synchronize()
+
+
+def _gather_raw(x: torch.Tensor, mesh, axes, dim: int, n: int) -> torch.Tensor:
+    """The ranks' blocks of ``x`` concatenated along ``dim`` (recorded)."""
     out = x
     if _stand_in(mesh, x, "all_gather"):
         if n > 1:
@@ -397,12 +432,93 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     elif n > 1:
         import torch.distributed as dist
         x = x.contiguous()
+        _sync(x, mesh, axes)
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=_group(mesh, axes))
         out = torch.cat(parts, dim=dim)
     if hooks.active is not None:    # a dataflow trace records the collective
         hooks.active.collective("all_gather", x, n, out)
     return out
+
+
+def _sum_raw(x: torch.Tensor, mesh, axes, n: int) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, a new tensor
+    (recorded)."""
+    out = x
+    stand_in = _stand_in(mesh, x, "all_reduce")
+    if n > 1:
+        out = x.clone()
+        if not stand_in:
+            import torch.distributed as dist
+            _sync(out, mesh, axes)
+            dist.all_reduce(out, group=_group(mesh, axes))
+    if hooks.active is not None:
+        hooks.active.collective("psum", x, n, out)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather; its backward sums the gradient over the same ranks and
+    keeps this rank's block (each rank's use of the gathered tensor gives
+    part of its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, n):
+        ctx.args = (mesh, axes, dim, n)
+        return _gather_raw(x, mesh, axes, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, n = ctx.args
+        g = _sum_raw(g.contiguous(), mesh, axes, n)
+        return g.chunk(n, dim=dim)[axis_index(mesh, axes)], None, None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce (sum, or mean: the sum divided by ``div``); its backward
+    passes the gradient on (divided alike): every rank holds the whole
+    result."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, n, div):
+        ctx.div = div
+        out = _sum_raw(x, mesh, axes, n)
+        return out / div if div != 1 else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.div if ctx.div != 1 else g), None, None, None, None
+
+
+class _GradSum(torch.autograd.Function):
+    """Identity; its backward sums the gradient over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, n):
+        ctx.args = (mesh, axes, n)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, n = ctx.args
+        return _sum_raw(g.contiguous(), mesh, axes, n), None, None, None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axes, axis=dim, tiled=True)``: the ranks'
+    blocks concatenated along ``dim`` in the order of :func:`axis_index`
+    (on an abstract mesh, ``n`` copies of the ``meta`` block).  Autograd
+    takes its transpose: the gradient summed over ``axes``, this rank's
+    block of it."""
+    n = axis_size(mesh, axes)
+    dim = dim % max(x.dim(), 1)
+    if n > 1 and _differentiable(x):
+        return _Gather.apply(x, mesh, axes, dim, n)
+    return _gather_raw(x, mesh, axes, dim, n)
 
 
 def gather_out(y: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
@@ -423,19 +539,25 @@ def gather_out(y: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     """``psum`` (``op="sum"``) or ``pmean`` (``"mean"``) over ``axes``; the
     input is left as it was (on an abstract mesh the sum is a ``meta``
-    clone)."""
+    clone).  Autograd passes the gradient through (divided by the ranks'
+    count for ``"mean"``)."""
     n = axis_size(mesh, axes)
-    out = x
-    stand_in = _stand_in(mesh, x, "all_reduce")
-    if n > 1:
-        out = x.clone()
-        if not stand_in:
-            import torch.distributed as dist
-            dist.all_reduce(out, group=_group(mesh, axes))
-        out = out / n if op == "mean" else out
-    if hooks.active is not None:
-        hooks.active.collective("psum", x, n, out)
-    return out
+    div = n if op == "mean" else 1
+    if n > 1 and _differentiable(x):
+        return _Sum.apply(x, mesh, axes, n, div)
+    out = _sum_raw(x, mesh, axes, n)
+    return out / div if div != 1 else out
+
+
+def grad_all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Identity in the forward; in the backward the gradient summed over
+    ``axes``: the input of column-parallel products, each of whose ranks
+    contributes part of its gradient (Megatron's ``f``).  Nothing runs,
+    and ``x`` comes back, where autograd does not track it."""
+    n = axis_size(mesh, axes)
+    if n > 1 and _differentiable(x):
+        return _GradSum.apply(x, mesh, axes, n)
+    return x
 
 
 def _map_spec(fn, tree, spec):

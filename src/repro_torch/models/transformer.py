@@ -19,31 +19,45 @@ decode lanes take ``(B, 1, D)`` embeddings in place of ``(B, 1)`` ids.
 Every forward and lane takes ``mesh=`` / ``rules=`` as the reference's do,
 and hands ``cfg.accum_dtype`` to every linear as its ``accum_dtype``;
 the mesh rides to every linear as ``tp_mesh`` and to the MoE FFN (the
-expert-parallel body).  Two layouts (:mod:`repro_torch.models.sharding`):
+expert-parallel body).  The layouts (:mod:`repro_torch.models.sharding`):
 
-* ``prefill`` and ``decode_step`` of every family on a mesh run the
-  sharded serving layout, the reference's ``input_shardings``: params
-  placed by ``params.shard_params`` (packed expert stacks as
-  ``launch.specs.place_inputs`` holds them), the batch (tokens,
-  embeddings, caches) split over the rules' ``batch`` axes (replicated
-  where they do not divide it, ``rules_for_mesh(mesh, global_batch)``),
-  the attention caches' sequence over ``model``, the SSM ``conv`` cache's
-  channels and ``state``'s heads over ``model``; the MoE FFN takes this
-  rank's rows (``moe.moe_apply(spmd=True)``), the Mamba-2 mixer its blocks
-  (:mod:`repro_torch.models.mamba2`); the logits are this rank's rows and
-  vocab block, placed.  ``prefill(..., max_len=)`` returns attention
-  caches already padded to the decode loop's length
+* ``prefill`` and ``decode_step`` of every family on a mesh, given placed
+  params, run the sharded serving layout, the reference's
+  ``input_shardings``: params placed by ``params.shard_params`` (packed
+  expert stacks as ``launch.specs.place_inputs`` holds them), the batch
+  (tokens, embeddings, caches) split over the rules' ``batch`` axes
+  (replicated where they do not divide it, ``rules_for_mesh(mesh,
+  global_batch)``), the attention caches' sequence over ``model``, the SSM
+  ``conv`` cache's channels and ``state``'s heads over ``model``; the MoE
+  FFN takes this rank's rows (``moe.moe_apply(spmd=True)``), the Mamba-2
+  mixer its blocks (:mod:`repro_torch.models.mamba2`); the logits are this
+  rank's rows and vocab block, placed.  ``prefill(..., max_len=)`` returns
+  attention caches already padded to the decode loop's length
   (``launch.specs.padded_cache_len``) and cut to this rank's slice;
 * the paged runtime's lanes (``decode_step_paged``, ``prefill_chunk_step``,
-  ``verify_chunk_step``, and its serial prefill, ``prefill(...,
-  replicated=True)``) and the train forward keep the replicated layout:
-  activations and caches global on every rank, dense weights whole (a
-  sharded one raises), packed leaves run the ``sharded:*``
-  compressed-gather family and ``rules`` reach
-  :func:`repro_torch.models.sharding.check_axes`, which moves nothing.
+  ``verify_chunk_step``) and ``prefill`` given whole dense params (the
+  paged runtime's serial prefill) run the paged layout, as the reference's
+  scheduler runs them: dense params whole (a sharded one raises), packed
+  leaves through the ``sharded:*`` family, the lane's batch cut to this
+  rank's rows by ``constrain`` after the embedding and held there after
+  every block (``sharding.lane_rules``: whole on every rank where the data
+  axes do not divide it), the per-slot inputs cut to the same rows, the MoE
+  FFN on those rows (``spmd=True``), pools and tails whole.  What the
+  decode lane writes for its rows (each slot's new tail row, the SSM
+  ``conv`` and ``state`` rows) is all-gathered over the data axes after
+  it, so the tails stay equal on every rank (:data:`lane_gather_bytes`
+  counts the bytes);
+* ``forward_train`` on a mesh: the dense decoders' train layout, given
+  placed params: the batch over the data axes, each weight gathered over
+  its ``embed`` axes per use, each rank computing its block of the heads,
+  the MLP and the vocabulary, differentiable through the collectives
+  (``loss_fn`` takes the vocab-parallel cross-entropy); the MoE, SSM and
+  hybrid families keep the replicated layout (whole dense weights, the
+  ZeRO-3 step of ``launch.steps``).
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Any
 
@@ -61,7 +75,12 @@ from repro_torch.models.sharding import check_axes, constrain
 
 __all__ = ["period", "n_groups", "model_defs", "cache_defs", "forward_train",
            "loss_fn", "prefill", "decode_step", "decode_step_paged",
-           "prefill_chunk_step", "verify_chunk_step", "sharded_serving"]
+           "prefill_chunk_step", "verify_chunk_step", "sharded_serving",
+           "tp_train", "lane_gather_bytes"]
+
+#: bytes the paged lanes all-gathered to keep the tails equal on every
+#: rank (the gathered results' bytes on this rank), by lane
+lane_gather_bytes: collections.Counter = collections.Counter()
 
 
 def period(cfg) -> int:
@@ -180,7 +199,8 @@ def _ffn_residual(bp, x, cfg, kw, batch_split=None):
     h = apply_norm(bp["norm2"], x, cfg)
     if "moe" in bp:
         h, aux = moe.moe_apply(bp["moe"], h, cfg, mesh=kw.get("tp_mesh"),
-                               batch_split=batch_split, spmd=kw.get("spmd", False))
+                               batch_split=batch_split,
+                               spmd=kw.get("spmd", False) or kw.get("local_rows", False))
         return x + h, aux
     return x + mlp(bp["mlp"], h, cfg, **kw), 0.0
 
@@ -210,18 +230,72 @@ def _batch_in(params, batch, cfg, mesh=None):
                      else batch["tokens"], cfg, mesh)
 
 
-def _serving_layout(params, cfg, mesh, rules, kw: dict, lane: str,
-                    replicated: bool = False):
-    """Set up a serving step: ``(rules, mesh)`` of the sharded serving
-    layout (``kw`` gains ``spmd``), or ``(rules, None)`` for the
-    replicated layout (asked for, or no mesh), whose params must hold
-    whole dense leaves."""
-    if sharded_serving(cfg, mesh) and not replicated:
-        kw["spmd"] = True
-        return rules or shd.rules_for_mesh(mesh), mesh
-    _whole_dense(params, lane)
-    return rules, None
+def _placed(params) -> bool:
+    """Are ``params`` placed shards (``params.shard_params``)?  The
+    embedding table says: it is dense in every served tree."""
+    return shd.placement(params["embed"]["table"]) is not None
 
+
+def _serving_layout(params, cfg, mesh, rules, kw: dict):
+    """Set up a serving step on the sharded serving layout: ``(rules,
+    mesh)``, ``kw`` gaining ``spmd``; ``(rules, None)`` without a mesh."""
+    if not sharded_serving(cfg, mesh):
+        _whole_dense(params, "a serving step without a mesh")
+        return rules, None
+    kw["spmd"] = True
+    return rules or shd.rules_for_mesh(mesh), mesh
+
+
+def _lane_layout(params, cfg, mesh, rules, kw: dict, lane: str, batch: int):
+    """Set up a lane of the paged layout for a batch of ``batch`` rows:
+    ``(rules, rows)``, ``rows`` this rank's slice of the batch (None
+    without a mesh); dense params must be whole, and ``kw`` gains
+    ``local_rows``."""
+    _whole_dense(params, lane)
+    if mesh is None:
+        return rules, None
+    rules = shd.lane_rules(mesh, rules, batch)
+    kw["local_rows"] = True
+    entry = rules.table["batch"]
+    n = shd.axis_size(mesh, entry)
+    i = shd.axis_index(mesh, entry) if n > 1 else 0
+    return rules, slice(i * batch // n, (i + 1) * batch // n)
+
+
+def _hold_rows(x, rules, shape):
+    """The reference's constraint of the activations after a block: ``x``
+    holds this rank's rows of a ``shape`` batch, which it keeps."""
+    if rules is None or rules.mesh is None:
+        return x
+    held = shd.place(x, rules.mesh, rules(("batch", None, None)), shape)
+    return constrain(held, ("batch", None, None), rules)
+
+
+def _slot_rows(tree, rows):
+    """Every per-slot tensor of a hot tree ``(groups, n_slots, ...)`` cut
+    to the slots ``rows`` (views: writes reach the whole tensor)."""
+    return {pos: {n: t[:, rows] for n, t in hp.items()} for pos, hp in tree.items()}
+
+
+def _share_rows(hot, rows, tail_pos, mesh, entry) -> int:
+    """All-gather over ``entry`` what the decode lane wrote for this rank's
+    ``rows``, into every rank's whole tails: each slot's tail row at
+    ``tail_pos`` (an inactive slot's is its unchanged one), and the SSM
+    ``conv`` / ``state`` rows.  Returns the gathered bytes."""
+    moved = 0
+    dev = tail_pos.device
+    every_row = torch.arange(tail_pos.shape[0], device=dev)
+    mine = every_row[rows]
+    for hp in hot.values():
+        for name, t in hp.items():
+            if name.endswith("_tail"):
+                new = shd.all_gather(t[:, mine, tail_pos[rows]], mesh, entry, 1)
+                t[:, every_row, tail_pos] = new
+            else:
+                new = shd.all_gather(t[:, rows], mesh, entry, 1)
+                t.copy_(new)
+            moved += new.numel() * new.element_size()
+    return moved
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -265,6 +339,14 @@ def _remat(body, cfg):
     return run
 
 
+def tp_train(cfg, mesh) -> bool:
+    """Does the train step of ``cfg`` on ``mesh`` run the dense decoders'
+    train layout (the module docstring)?  On a mesh, for the configs
+    without MoE or SSM layers; the others keep the ZeRO-3 step."""
+    return (mesh is not None and not cfg.n_experts
+            and all(cfg.layer_kind(i) == "attn" for i in range(period(cfg))))
+
+
 def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
                   batch_split=None, **kw):
     """Full forward; returns (logits f32, aux): aux is the MoE load-balance
@@ -272,10 +354,21 @@ def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
     each layer group is checkpointed (:func:`_remat`).  ``batch_split =
     (mesh, axes)`` says ``batch`` is this rank's share of a batch split over
     ``axes`` (the ZeRO-3 step): MoE layers then route over the whole batch
-    (``moe.moe_apply``)."""
+    (``moe.moe_apply``).  With a ``mesh`` (:func:`tp_train`) ``params`` are
+    placed shards, ``batch`` this rank's rows, and the logits this rank's
+    rows and vocab block, placed."""
+    if mesh is not None and not tp_train(cfg, mesh):
+        raise ValueError(f"{cfg.name}: the train forward on a mesh covers the dense "
+                         f"decoders; MoE, SSM and hybrid stacks train ZeRO-3 "
+                         f"(launch.steps.make_train_step)")
     _linear_kw(kw, cfg, mesh)
-    _whole_dense(params, "forward_train")
-    x = check_axes(_batch_in(params, batch, cfg), ("batch", None, None), rules)
+    spmd = None
+    if mesh is not None:
+        kw["spmd"] = True
+        rules, spmd = rules or shd.rules_for_mesh(mesh), mesh
+    else:
+        _whole_dense(params, "forward_train")
+    x = check_axes(_batch_in(params, batch, cfg, spmd), ("batch", None, None), rules)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
 
@@ -299,39 +392,74 @@ def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
         x, a = body(x, _group(params["blocks"], g))
         aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
-    lg = logits(params.get("lm_head"), params["embed"], x)
+    lg = logits(params.get("lm_head"), params["embed"], x, spmd)
+    if spmd is not None:
+        return shd.place(lg, mesh, rules(("batch", None, "vocab"))), aux
     return check_axes(lg, ("batch", None, "vocab"), rules), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
     """Next-token cross-entropy over ``labels >= 0`` plus
-    ``router_aux_weight · aux``; returns ``(loss, {"ce", "aux"})``."""
+    ``router_aux_weight · aux``; returns ``(loss, {"ce", "aux"})``.  With a
+    ``mesh`` (:func:`tp_train`) ``batch`` is this rank's rows and the loss
+    their mean, from the vocab-parallel logits (:func:`_vocab_parallel_ce`)."""
     lg, aux = forward_train(params, batch, cfg, mesh, rules, **kw)
     labels = batch["labels"]
-    lse = torch.logsumexp(lg, dim=-1)
-    # a masked label (< 0) reads column 0; its term is multiplied by 0
-    gold = torch.gather(lg, -1, labels.clamp(min=0).to(torch.long)[..., None])[..., 0]
+    if mesh is not None:
+        tok = _vocab_parallel_ce(lg, labels, mesh, shd.placement(lg).spec[-1])
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        # a masked label (< 0) reads column 0; its term is multiplied by 0
+        gold = torch.gather(lg, -1, labels.clamp(min=0).to(torch.long)[..., None])[..., 0]
+        tok = lse - gold
     mask = (labels >= 0).to(torch.float32)
-    ce = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    ce = torch.sum(tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
+def _vocab_parallel_ce(lg, labels, mesh, entry) -> torch.Tensor:
+    """Per token ``logsumexp - gold logit`` of logits whose vocabulary is
+    split over ``entry`` (``lg`` this rank's block): the max of every
+    rank's maxima (gathered, no gradient), the sum of exponentials
+    all-reduced, and the gold logit from the rank whose block holds the
+    label, all-reduced (the others add 0).  A masked label (< 0) reads
+    column 0."""
+    n = lg.shape[-1]
+    m = shd.all_gather(lg.detach().amax(dim=-1, keepdim=True), mesh, entry, -1)
+    m = m.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(shd.all_reduce(torch.exp(lg - m).sum(dim=-1), mesh, entry))
+    v0 = shd.axis_index(mesh, entry) * n if shd.axis_size(mesh, entry) > 1 else 0
+    local = labels.clamp(min=0).to(torch.long) - v0
+    hit = (local >= 0) & (local < n)
+    gold = torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = shd.all_reduce(torch.where(hit, gold, torch.zeros_like(gold)), mesh, entry)
+    return lse - gold
+
+
 def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None,
-            max_len=None, replicated: bool = False, **kw):
+            max_len=None, **kw):
     """Forward over a prompt; returns (last-token logits (B, 1, V) f32,
     caches): per attention position ``{"k", "v"}`` stacked as (groups, B,
     L, KV, hd), per SSM position ``{"conv", "state"}`` as (groups, B, W-1,
     conv_dim) and (groups, B, nh, hp, ns) f32.  ``L`` is ``max_len`` (the
     prompt's positions, then zeros: the decode loop's cache), by default
-    the prompt's length.  In the sharded serving layout (the module
-    docstring) everything is this rank's block, placed: logits at
-    ``(batch, None, vocab)``, each cache at its ``cache_defs`` axes.
-    ``replicated`` keeps the replicated layout on a mesh (the paged
-    runtime's serial prefill)."""
+    the prompt's length.  On a mesh, placed params run the sharded serving
+    layout (the module docstring): everything is this rank's block, placed,
+    logits at ``(batch, None, vocab)``, each cache at its ``cache_defs``
+    axes.  Whole dense params run the paged layout (the paged runtime's
+    serial prefill): logits and caches are this rank's rows of the batch,
+    placed, every feature whole."""
     _linear_kw(kw, cfg, mesh)
-    rules, spmd = _serving_layout(params, cfg, mesh, rules, kw, "prefill", replicated)
+    inputs = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    rows = spmd = None
+    if mesh is not None and not _placed(params):
+        rules, rows = _lane_layout(params, cfg, mesh, rules, kw, "prefill",
+                                   inputs.shape[0])
+    else:
+        rules, spmd = _serving_layout(params, cfg, mesh, rules, kw)
     x = _batch_in(params, batch, cfg, spmd)
-    x = check_axes(x, ("batch", None, None), rules)
+    shape = tuple(x.shape)
+    x = (constrain if rows is not None else check_axes)(x, ("batch", None, None), rules)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     caches = _per_pos(cfg, ("k", "v"), ("conv", "state"))
@@ -344,8 +472,8 @@ def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None,
             for name, t in (("k", k), ("v", v)):
                 t = _pad_seq(t.to(cfg.activation_dtype), max_len)
                 if spmd is not None:    # this rank's slice of the sequence
-                    rows = shd.place(t, spmd, rules(("batch", None, None, None)))
-                    t = constrain(rows, ("batch", "cache_seq", None, None), rules)
+                    t_rows = shd.place(t, spmd, rules(("batch", None, None, None)))
+                    t = constrain(t_rows, ("batch", "cache_seq", None, None), rules)
                 c[name].append(t)
         else:
             h, (conv, state) = mamba2.ssm_apply(bp["ssm"], h, cfg,
@@ -353,9 +481,16 @@ def prefill(params: dict, batch: dict, cfg, mesh=None, rules=None,
             c["conv"].append(conv.to(cfg.activation_dtype))
             c["state"].append(state)
         x, _ = _ffn_residual(bp, x + h, cfg, kw)
+        if rows is not None:
+            x = _hold_rows(x, rules, shape)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x[:, -1:, :])
     caches = _stack(caches)
+    if rows is not None:        # this rank's rows, every feature whole
+        entry = rules.table["batch"]
+        return (shd.place(lg, mesh, shd.P(entry), (shape[0],) + tuple(lg.shape[1:])),
+                {pos: {n: shd.place(t, mesh, shd.P(None, entry)) for n, t in c.items()}
+                 for pos, c in caches.items()})
     if spmd is None:
         return lg, caches
     axes = {pos: {n: d.axes for n, d in c.items()}
@@ -387,7 +522,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cache_len,
     blocks (the module docstring), and each SSM cache is this rank's block
     of it, updated whole."""
     _linear_kw(kw, cfg, mesh)
-    rules, spmd = _serving_layout(params, cfg, mesh, rules, kw, "decode_step")
+    rules, spmd = _serving_layout(params, cfg, mesh, rules, kw)
     x = check_axes(_embed_in(params, token, cfg, spmd), ("batch", None, None), rules)
     for _, bp, c in _blocks(params, cfg, caches):
         h = apply_norm(bp["norm1"], x, cfg)
@@ -434,9 +569,16 @@ def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
     updated in place.
     """
     _linear_kw(kw, cfg, mesh)
-    _whole_dense(params, "decode_step_paged")
-    x = check_axes(_embed_in(params, token, cfg), ("batch", None, None), rules)
-    for _, bp, pool, hp in _blocks(params, cfg, pools, hot):
+    b = token.shape[0]
+    rules, rows = _lane_layout(params, cfg, mesh, rules, kw, "decode_step_paged", b)
+    x = constrain(_embed_in(params, token, cfg), ("batch", None, None), rules)
+    shape = (b,) + tuple(x.shape[1:])
+    tail_pos = cache_len.to(torch.long) % spec.page_size
+    hot_l = hot
+    if rows is not None:        # the per-slot inputs on x's rows
+        cache_len, page_table, active = cache_len[rows], page_table[rows], active[rows]
+        hot_l = _slot_rows(hot, rows)
+    for _, bp, pool, hp in _blocks(params, cfg, pools, hot_l):
         h = apply_norm(bp["norm1"], x, cfg)
         if "attn" in bp:
             h, _ = attn_mod.decode_attention_paged(
@@ -450,8 +592,15 @@ def decode_step_paged(params: dict, token: torch.Tensor, pools: dict,
             hp["state"].copy_(torch.where(active[:, None, None, None], state,
                                           hp["state"]))
         x, _ = _ffn_residual(bp, x + h, cfg, kw)
+        x = _hold_rows(x, rules, shape)
     x = apply_norm(params["final_norm"], x, cfg)
-    return logits(params.get("lm_head"), params["embed"], x), hot
+    lg = logits(params.get("lm_head"), params["embed"], x)
+    if rows is None:
+        return lg, hot
+    entry = rules.table["batch"]
+    if shd.axis_size(mesh, entry) > 1:
+        lane_gather_bytes["decode"] += _share_rows(hot, rows, tail_pos, mesh, entry)
+    return shd.place(lg, mesh, shd.P(entry), (b,) + tuple(lg.shape[1:])), hot
 
 
 def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
@@ -473,8 +622,10 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     """
     _linear_kw(kw, cfg, mesh)
     ps = spec.page_size
-    _whole_dense(params, "prefill_chunk_step")
-    x = check_axes(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
+    rules, _ = _lane_layout(params, cfg, mesh, rules, kw, "prefill_chunk_step",
+                            tokens.shape[0])
+    x = constrain(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
+    shape = tuple(x.shape)
     c = x.shape[1]
     slot1 = slot.to(torch.long).reshape(1)
     row = page_table.index_select(0, slot1)[0]
@@ -502,6 +653,7 @@ def prefill_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
             hp["conv"].index_copy_(0, slot1, conv.to(hp["conv"].dtype))
             hp["state"].index_copy_(0, slot1, state)
         x, _ = _ffn_residual(bp, x + h, cfg, kw)
+        x = _hold_rows(x, rules, shape)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x)
     return lg, hot, _stack(chunk_kv)
@@ -526,8 +678,10 @@ def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
     (k, v) in the tails' dtype.
     """
     _linear_kw(kw, cfg, mesh)
-    _whole_dense(params, "verify_chunk_step")
-    x = check_axes(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
+    rules, _ = _lane_layout(params, cfg, mesh, rules, kw, "verify_chunk_step",
+                            tokens.shape[0])
+    x = constrain(_embed_in(params, tokens, cfg), ("batch", None, None), rules)
+    shape = tuple(x.shape)
     slot1 = slot.to(torch.long).reshape(1)
     row = page_table.index_select(0, slot1)[0]
     chunk_kv = _per_pos(cfg, ("k", "v"))
@@ -544,6 +698,7 @@ def verify_chunk_step(params: dict, tokens: torch.Tensor, pools: dict,
         chunk_kv[pos]["k"].append(ck.to(hp["k_tail"].dtype))
         chunk_kv[pos]["v"].append(cv.to(hp["v_tail"].dtype))
         x, _ = _ffn_residual(bp, x + h, cfg, kw)
+        x = _hold_rows(x, rules, shape)
     x = apply_norm(params["final_norm"], x, cfg)
     lg = logits(params.get("lm_head"), params["embed"], x)
     return lg, _stack(chunk_kv)

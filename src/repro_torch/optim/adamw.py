@@ -74,9 +74,25 @@ def warmup_cosine(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    sq = sum(torch.sum(torch.square(x.to(_F32))) for x in tree_leaves(tree))
+def global_norm(tree, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32.  With ``mesh`` a
+    leaf may be this rank's block of a placed tensor
+    (``models.sharding.Placement``): its sum of squares is all-reduced over
+    the mesh axes that split it, one all-reduce for all the leaves split
+    over the same axes, so each element counts once."""
+    if mesh is None:
+        sq = sum(torch.sum(torch.square(x.to(_F32))) for x in tree_leaves(tree))
+        return torch.sqrt(sq)
+    from repro_torch.models import sharding as shd
+    names = shd.axis_names(mesh)
+    by_axes: dict = {}
+    for x in tree_leaves(tree):
+        pl = shd.placement(x)
+        axes = () if pl is None else tuple(
+            a for e in pl.spec for a in shd._as_axes(e) if shd.axis_size(mesh, a) > 1)
+        axes = tuple(sorted(set(axes), key=names.index))
+        by_axes[axes] = by_axes.get(axes, 0) + torch.sum(torch.square(x.to(_F32)))
+    sq = sum(shd.all_reduce(v, mesh, axes) if axes else v for axes, v in by_axes.items())
     return torch.sqrt(sq)
 
 

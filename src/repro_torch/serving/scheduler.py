@@ -54,11 +54,17 @@ lifecycle events.
 
 ``mesh=`` / ``rules=`` (a ``DeviceMesh``, as the reference's scheduler
 takes a mesh) thread into the plan the scheduler builds and into every
-lane: packed linears run the ``sharded:*`` compressed-gather family and MoE
-layers the expert-parallel body.  Every rank runs the same scheduler on the
-same requests; pages, tails and tokens are replicated, so each rank's
-output is the whole batch's.  No sharded draft variant exists, so
-``speculative`` with a mesh is refused.
+lane, which run the paged layout (:mod:`repro_torch.models.transformer`):
+dense weights whole, packed linears through the ``sharded:*``
+compressed-gather family, MoE layers through the expert-parallel body, and
+each lane's batch over the data axes where they divide it: the decode lane
+computes this rank's slots, the batch-1 prefill lanes their one row on
+every rank.  Every rank runs the same scheduler on the same requests.  The
+pools and tails stay whole and equal on every rank (the decode lane
+all-gathers what it wrote for its slots), and the per-tick token read is
+each rank's argmax of its slots, all-gathered over the data axes as
+``(n_slots,)`` tokens, so each rank's output is the whole batch's.  No
+sharded draft variant exists, so ``speculative`` with a mesh is refused.
 """
 from __future__ import annotations
 
@@ -69,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, telemetry
+from repro_torch.models import sharding as shd
 from repro_torch.launch.steps import (make_chunked_prefill_step,
                                       make_paged_decode_step, make_prefill_step,
                                       make_verify_step)
@@ -175,6 +182,7 @@ class BatchScheduler:
         self.schedule = schedule
         self.cfg = cfg
         self.device = dev
+        self._mesh = mesh
         self.params = _to_device(params, dev)
         self.n_slots = n_slots
         self.max_len = max_len
@@ -209,7 +217,7 @@ class BatchScheduler:
                                               cache_backend=cache_backend)
         self._chunk_prefill = make_chunked_prefill_step(
             cfg, self.spec, mesh, rules, cache_backend=cache_backend)
-        self._prefill = make_prefill_step(cfg, mesh, rules, replicated=True)
+        self._prefill = make_prefill_step(cfg, mesh, rules)
         self.lane_runs = {"decode": 0, "prefill_chunk": 0, "prefill_serial": 0,
                           "draft": 0, "verify": 0}
 
@@ -465,8 +473,14 @@ class BatchScheduler:
         return cache_len
 
     def _argmax(self, lg: torch.Tensor) -> np.ndarray:
-        """Greedy tokens of ``lg``'s last axis, read back to the host."""
-        return lg[..., :self.cfg.vocab_size].argmax(dim=-1).cpu().numpy()
+        """Greedy tokens of ``lg``'s last axis, read back to the host.  A
+        lane's logits of this rank's rows (placed, their batch split over
+        the data axes) give this rank's tokens, all-gathered over them."""
+        tok = lg[..., :self.cfg.vocab_size].argmax(dim=-1)
+        pl = shd.placement(lg)
+        if pl is not None and shd.axis_size(self._mesh, pl.spec[0]) > 1:
+            tok = shd.all_gather(tok, self._mesh, pl.spec[0], 0)
+        return tok.cpu().numpy()
 
     def _run_decode(self, active: list) -> None:
         mask = np.zeros((self.n_slots,), bool)
@@ -477,7 +491,7 @@ class BatchScheduler:
                 self.hot, self._dev(self._cache_len()), self._dev(self._table),
                 self._dev(mask))
             # the tick's one read back to the host
-            nxt = self._argmax(lg[:, -1])
+            nxt = self._argmax(lg)[:, -1]
         self.lane_runs["decode"] += 1
         for s in active:
             sl = self.slots[s]

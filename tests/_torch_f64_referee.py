@@ -44,6 +44,14 @@ def numpy_params(defs, seed: int) -> dict:
     return fill(defs)
 
 
+def jax_params(defs, seed: int) -> dict:
+    """:func:`numpy_params` as ``jnp`` arrays, for the reference's
+    functions: the same weights whatever Python's hash salt."""
+    import jax
+    import jax.numpy as jnp
+    return jax.tree.map(jnp.asarray, numpy_params(defs, seed))
+
+
 def flat(tree, prefix: str = "") -> dict:
     """``{path: numpy array}`` of a nested dict of arrays."""
     if isinstance(tree, dict):

@@ -495,8 +495,10 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
     res["pp"] = _np(pipelined_apply(lambda w, v: torch.tanh(v @ w), ws, t("pp_x"),
                                     mesh=pmesh, n_micro=4))
 
-    # -- the ZeRO-3 train step against the single-device step (f32
-    # activations), and at the config's own dtype against the reference ----
+    # -- the train step on the mesh (the dense decoders' train layout for
+    # Qwen2 and OLMo, ZeRO-3 for Qwen3-MoE) against the single-device step
+    # (f32 activations), and at the config's own dtype against the
+    # reference -------------------------------------------------------------
     qcfg = get_smoke_config("qwen2_7b")
     defs = model_defs(qcfg)
     qp = unflatten(data, "qwen_params")
@@ -619,6 +621,11 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
                              plan=plan_m, kv_cache=kv, device="cpu"), force=want)
     res["sched"] = (want, got, plan_m.summary()["variant_distribution"])
 
+    # -- the paged layout and the dense decoders' train layout on 2 x 2 -------
+    res["paged_mesh"] = paged_mesh_cases(data, mesh)
+    res["tp_train"] = tp_train_cases(data, mesh)
+    res["rows"] = (shd.axis_index(mesh, "data"), shd.axis_index(mesh, "model"))
+
     # -- serve --mesh 2x2 against serve on one device -------------------------
     argv = ["--arch", "olmo_1b", "--smoke", "--device", "cpu", "--batch", "2",
             "--prompt-len", "8", "--gen", "3"]
@@ -630,8 +637,183 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
     return res
 
 
+#: the paged layout's families: dense, MoE, SSM and the hybrid (smoke configs)
+PAGED_ARCHS = ("olmo_1b", "qwen3_moe_235b_a22b", "mamba2_780m", "jamba_1_5_large_398b")
+
+
+def paged_mesh_cases(data: dict, mesh) -> dict:
+    """``BatchScheduler(mesh=)`` on 2 x 2 against one device's, per
+    :data:`PAGED_ARCHS` smoke config at f32 and prefill mode: 4 slots, the
+    three ``paged_prompt*`` requests, 6 new tokens; the mesh run
+    teacher-forced with one device's tokens.  Returns per ``arch/mode``: both
+    runs' tokens, their lane logits (the decode lane's gathered whole), the
+    rows each decode call of attention and of the SSM mixer was handed
+    beside the rows of the page table it got, and both runs' final pools
+    and hot state."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import mamba2, model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import BatchScheduler, Request
+
+    prompts = [torch.tensor(data[f"paged_prompt{i}"]).long() for i in range(3)]
+    rules = shd.rules_for_mesh(mesh)
+    seen: list = []
+    attn0, ssm0 = attn_mod.decode_attention_paged, mamba2.ssm_decode
+
+    def attn_probe(p, x, cfg, pool, tails, spec, page_table, cache_len, **kw):
+        seen.append(("attn", x.shape[0], _np(page_table)))
+        return attn0(p, x, cfg, pool, tails, spec, page_table, cache_len, **kw)
+
+    def ssm_probe(p, x, cfg, cache, **kw):
+        seen.append(("ssm", x.shape[0], cache[0].shape[0]))
+        return ssm0(p, x, cfg, cache, **kw)
+
+    def lanes(sched, log):
+        for name in ("_decode", "_chunk_prefill", "_prefill"):
+            lane = getattr(sched, name)
+
+            def run(*a, lane=lane, name=name):
+                out = lane(*a)
+                table = _np(a[5]) if name == "_decode" else None
+                log.append((name, _np(shd.gather_whole(out[0], mesh)), table))
+                return out
+            setattr(sched, name, run)
+
+    res = {}
+    attn_mod.decode_attention_paged, mamba2.ssm_decode = attn_probe, ssm_probe
+    try:
+        for arch in PAGED_ARCHS:
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+            params = tree_from(data, model_defs(cfg), f"paged_{arch}")
+            for mode in ("chunked", "serial"):
+                out = {}
+                for name, m in (("one", None), ("mesh", mesh)):
+                    sched = BatchScheduler(cfg, params, n_slots=4, max_len=64, mesh=m,
+                                           rules=rules if m is not None else None,
+                                           prefill=mode, device="cpu")
+                    log: list = []
+                    lanes(sched, log)
+                    del seen[:]
+                    moved = tfm.lane_gather_bytes["decode"]
+                    force = out.get("tokens_one")
+                    for i, pr in enumerate(prompts):
+                        sched.submit(Request(uid=i, prompt=pr, max_new_tokens=6,
+                                             force_tokens=None if force is None
+                                             else force[i]))
+                    done = sorted(sched.run_to_completion(), key=lambda r: r.uid)
+                    out[f"tokens_{name}"] = [r.output for r in done]
+                    out[f"lanes_{name}"] = log
+                    out[f"seen_{name}"] = list(seen)
+                    out[f"pools_{name}"] = {k: _np(v) for k, v in
+                                            flatten_t(sched.pools).items()
+                                            if isinstance(v, torch.Tensor)}
+                    out[f"hot_{name}"] = {k: _np(v) for k, v in
+                                          flatten_t(sched.hot).items()}
+                    out[f"gathered_{name}"] = (tfm.lane_gather_bytes["decode"] - moved,
+                                               sched.lane_runs["decode"])
+                res[f"{arch}/{mode}"] = out
+    finally:
+        attn_mod.decode_attention_paged, mamba2.ssm_decode = attn0, ssm0
+    return res
+
+
+def collective_fd_case(mesh) -> dict:
+    """The collectives' transposes against central finite differences, in
+    f64 on this rank of 2 x 2: ``L = (all_reduce(sum(c_r · tanh(all_gather(x_r))))
+    + all_reduce(sum(d_r · grad_all_reduce(v))))**2`` over ``model``, ``x_r``
+    this rank's block, ``v`` equal on the ranks of a ``model`` group, ``c_r``
+    and ``d_r`` each rank's own, so ``L`` is one value on the group.  Returns
+    autograd's gradients of ``x`` and ``v`` and the finite differences: ``x``
+    perturbed on one rank of the group at a time, ``v`` on all of it."""
+    from repro_torch.models import sharding as shd
+    gen = torch.Generator().manual_seed(11 + dist_rank())
+    x = torch.randn(2, 3, generator=gen, dtype=torch.float64)
+    c = torch.randn(4, 3, generator=gen, dtype=torch.float64)
+    d = torch.randn(3, generator=gen, dtype=torch.float64)
+    v = torch.tensor([0.3, -0.7, 1.1], dtype=torch.float64)
+    me = shd.axis_index(mesh, "model")
+
+    def loss(x, v):
+        h = torch.sum(c * torch.tanh(shd.all_gather(x, mesh, "model", 0)))
+        q = torch.sum(d * shd.grad_all_reduce(v, mesh, "model"))
+        return (shd.all_reduce(h, mesh, "model") + shd.all_reduce(q, mesh, "model")) ** 2
+
+    xg, vg = x.clone().requires_grad_(), v.clone().requires_grad_()
+    gx, gv = torch.autograd.grad(loss(xg, vg), (xg, vg))
+    eps = 1e-6
+    fx = torch.zeros_like(x)
+    for k in range(shd.axis_size(mesh, "model")):
+        for i in range(x.numel()):
+            step = torch.zeros_like(x).reshape(-1)
+            step[i] = eps if k == me else 0.0
+            step = step.reshape(x.shape)
+            diff = (loss(x + step, v) - loss(x - step, v)) / (2 * eps)
+            if k == me:
+                fx.reshape(-1)[i] = diff
+    fv = torch.zeros_like(v)
+    for i in range(v.numel()):
+        step = torch.zeros_like(v)
+        step[i] = eps
+        fv[i] = (loss(x, v + step) - loss(x, v - step)) / (2 * eps)
+    return {"x": (gx.numpy(), fx.numpy()), "v": (gv.numpy(), fv.numpy())}
+
+
+def dist_rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def tp_train_cases(data: dict, mesh) -> dict:
+    """The dense decoders' train layout on 2 x 2 (OLMo and Qwen2 smoke at
+    f32, batch ``batch0``): each rank's loss and gradients beside one
+    device's cut to this rank's blocks under the rules; the (K, N) of every
+    matmul of one train forward on this rank and on one device, in order
+    (the dataflow trace's op events)."""
+    import dataclasses
+
+    from repro_torch.analysis.dataflow import trace_dataflow
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import init_params, shard_params
+
+    rules = shd.rules_for_mesh(mesh)
+    batch = {k: torch.tensor(data[f"batch0_{k}"]).long() for k in ("tokens", "labels")}
+    local = {k: shd.shard_slice(v, shd.P(rules.table["batch"]), mesh)
+             for k, v in batch.items()}
+    res = {}
+    for arch in ("olmo_1b", "qwen2_7b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        defs = model_defs(cfg)
+        whole = init_params(defs, seed=0, device="cpu", dtype_override="float32")
+        placed = shard_params(whole, defs, mesh, rules)
+        (loss1, _), g1 = St._value_and_grad(whole, batch, cfg)
+        (loss, _), g = St._tp_value_and_grad(placed, batch, cfg, mesh, rules)
+        want = shard_params(g1, defs, mesh, rules)
+        res[f"{arch}/loss"] = (float(loss1), float(loss))
+        res[f"{arch}/grads"] = {k: (_np(v), _np(flatten_t(want)[k]))
+                                for k, v in flatten_t(g).items()}
+
+        def mms(fn, *args):
+            return [tuple(e.inputs[1][0]) for e in trace_dataflow(fn, *args).events
+                    if e.kind == "op" and e.name.startswith("aten.mm")
+                    and len(e.inputs) == 2]
+        res[f"{arch}/mm_one"] = mms(lambda p, b: tfm.forward_train(p, b, cfg), whole, batch)
+        res[f"{arch}/mm_rank"] = mms(lambda p, b: tfm.forward_train(p, b, cfg, mesh, rules),
+                                     placed, local)
+    res["fd"] = collective_fd_case(mesh)
+    return res
+
+
 def zero3_vs_one(cfg, p0, batches, ocfg, mesh, rules, compress=False):
-    """``len(batches)`` ZeRO-3 steps on ``mesh`` and as many single-device
+    """``len(batches)`` steps of ``make_train_step(mesh=)`` (ZeRO-3, or
+    the dense decoders' train layout) and as many single-device
     steps from the same parameters ``p0``: ``(per-step metrics as (one
     device, ZeRO-3) pairs, the single-device state, the ZeRO-3 state
     gathered)``, the states flat, with the error-feedback residual under
@@ -715,7 +897,8 @@ def dataflow_cases(rank: int, world: int) -> dict:
 MESH_CASES = (("decode_2x2", (2, 2), ("data", "model"), "decode"),
               ("prefill_2x2", (2, 2), ("data", "model"), "prefill"),
               ("decode_2x1x2", (2, 1, 2), ("pod", "data", "model"), "decode"),
-              ("train_data2", (2,), ("data",), "train"))
+              ("train_data2", (2,), ("data",), "train"),
+              ("train_2x2", (2, 2), ("data", "model"), "train"))
 MESH_ARCHS = ("olmo_1b", "moonshot_v1_16b_a3b")
 
 
@@ -936,9 +1119,9 @@ def spmd_serving_cases(rank: int, world: int, path: str) -> dict:
 
 
 def spmd_uncovered_cases(rank: int, world: int) -> dict:
-    """The lanes the sharded serving layout does not cover, on 2 x 2: the
-    train forward, a serving step without a mesh and the paged runtime
-    each refuse a sharded dense leaf (the message)."""
+    """The lanes that hold whole dense params, on 2 x 2: the MoE family's
+    train forward (its ZeRO-3 step's), a serving step without a mesh and
+    the paged runtime each refuse a sharded dense leaf (the message)."""
     import dataclasses
 
     from torch.distributed.device_mesh import init_device_mesh
@@ -964,7 +1147,11 @@ def spmd_uncovered_cases(rank: int, world: int) -> dict:
     op = init_params(model_defs(olmo), seed=0, device="cpu", dtype_override="float32")
     sp = shard_params(op, model_defs(olmo), mesh, rules, device="cpu")
     toks = torch.ones((4, 8), dtype=torch.long)
-    res["train"] = refused(lambda: forward_train(sp, {"tokens": toks}, olmo))
+    # the MoE family's train forward (the ZeRO-3 step's: whole dense params)
+    qmoe = dataclasses.replace(get_smoke_config("qwen3_moe_235b_a22b"), dtype="float32")
+    qp = init_params(model_defs(qmoe), seed=0, device="cpu", dtype_override="float32")
+    sq = shard_params(qp, model_defs(qmoe), mesh, rules, device="cpu")
+    res["train"] = refused(lambda: forward_train(sq, {"tokens": toks}, qmoe))
     res["no_mesh"] = refused(lambda: prefill(sp, {"tokens": toks}, olmo))
 
     def paged():

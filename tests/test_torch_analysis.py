@@ -325,12 +325,12 @@ def test_per_tensor_bound_and_budget_equal_the_references():
     from repro.configs.base import get_smoke_config as j_smoke
     from repro.core.apply import _named_leaves as j_named
     from repro.models import model_defs as j_defs
-    from repro.models.params import init_params as j_init
+    import _torch_f64_referee as referee
     from repro_torch.analysis.numerics import leaf_stats_from_plan, per_tensor_bound
     from repro_torch.autotune.schedule import StruMSchedule
     from repro_torch.core.apply import _named_leaves
 
-    jp = j_init(j_defs(j_smoke("olmo_1b")), seed=0, dtype_override="float32")
+    jp = referee.jax_params(j_defs(j_smoke("olmo_1b")), 0)
     tp = {}
     for name, leaf in j_named(jp):
         node = tp

@@ -26,7 +26,6 @@ from repro.configs.base import get_smoke_config as j_smoke
 from repro.core import dynamic_p as jdyn
 from repro.core.policy import StruMConfig as JCfg
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro_torch import autotune as tat
 from repro_torch import engine
 from repro_torch.autotune import costmodel as tcost
@@ -34,6 +33,8 @@ from repro_torch.autotune import search as tsearch
 from repro_torch.core import dynamic_p as tdyn
 from repro_torch.core.policy import StruMConfig as TCfg
 from repro_torch.models.params import params_from_numpy
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -253,7 +254,7 @@ def test_pareto_frontier_strictly_improving_and_equal_to_reference(ref_profile):
 @pytest.fixture(scope="module")
 def olmo_smoke():
     cfg = j_smoke("olmo_1b")
-    jparams = j_init_params(j_model_defs(cfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(cfg), 0)
     return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
 
 

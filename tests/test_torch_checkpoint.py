@@ -31,7 +31,6 @@ import torch
 from repro.checkpoint import checkpoint as jckpt
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro.optim import adamw as jadamw
 from repro.runtime import compression as jcomp
 from repro_torch.checkpoint import checkpoint as ckpt
@@ -44,6 +43,8 @@ from repro_torch.models.params import init_params
 from repro_torch.optim import adamw
 from repro_torch.runtime import compression as comp
 from repro_torch.runtime import fault_tolerance as ft
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -159,7 +160,7 @@ def test_heartbeat(tmp_path):
 
 def _jax_state():
     jcfg = j_smoke("olmo_1b")
-    p = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    p = referee.jax_params(j_model_defs(jcfg), 0)
     p["embed"]["table"] = p["embed"]["table"].astype(jnp.bfloat16)
     opt = jadamw.init_opt_state(p)
     g = jax.tree.map(lambda x: jnp.full(x.shape, 0.01, x.dtype), p)

@@ -289,7 +289,7 @@ def test_draft_payload_proof_clean_with_the_references_bytes(model, mode):
     from repro.engine import build_draft_plan as j_draft_plan
     from repro.engine import draft_plan_bytes as j_bytes
     from repro.engine.draft import DraftPolicy as JPolicy
-    from repro.models.params import init_params as j_init
+    import _torch_f64_referee as referee
     from repro.models import model_defs as j_defs
     from repro.configs.base import get_smoke_config as j_smoke
     import dataclasses
@@ -300,7 +300,7 @@ def test_draft_payload_proof_clean_with_the_references_bytes(model, mode):
     poison = suite.draft_poison_check(sched)
     assert poison["bit_equal"] and poison["leaves"] == 7 * cfg.n_layers // cfg.n_layers
     jcfg = dataclasses.replace(j_smoke("qwen2_7b"), dtype="float32")
-    jp = j_init(j_defs(jcfg), seed=0, dtype_override="float32")
+    jp = referee.jax_params(j_defs(jcfg), 0)
     jplan = jengine.build_plan(jp, cfg=JCfg(method="mip2q", w=16, p=0.5, L=5),
                                float_only=True)
     want = j_bytes(j_draft_plan(jplan, JPolicy(mode=mode)))

@@ -36,6 +36,7 @@ seeded inputs.  Held:
   the single-device scheduler's tokens; ``serve --mesh 2x2`` the tokens of
   ``serve`` on one device.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,6 +54,7 @@ from repro.models.params import init_params as j_init_params
 from repro.runtime.elastic import plan_remesh as j_plan_remesh
 from repro_torch.runtime.elastic import plan_remesh
 
+import _torch_f64_referee as referee
 import _torch_ranks as ranks
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
@@ -75,6 +77,7 @@ from repro.optim.adamw import AdamWConfig, init_opt_state
 from repro.runtime.pipeline import pipelined_apply
 
 src, dst = sys.argv[1], sys.argv[2]
+PAGED_ARCHS = sys.argv[3:]
 data = dict(np.load(src))
 J = lambda k: jnp.asarray(data[k])
 def sub(prefix):
@@ -141,6 +144,24 @@ with mesh:
     lg_pk, _ = jax.jit(lambda p, t, c: decode_step(
         p, t, c, jnp.int32(8), scfg_m, mesh=mesh, rules=rules))(served, tok, caches)
 out["decode_ref"], out["decode_pk"] = np.asarray(lg_ref), np.asarray(lg_pk)
+
+from repro.serving.scheduler import BatchScheduler, Request
+def from_defs(defs, prefix):
+    if not isinstance(defs, dict):
+        return J(prefix)
+    return {k: from_defs(v, f"{prefix}/{k}") for k, v in defs.items()}
+prompts = [J(f"paged_prompt{i}") for i in range(3)]
+for arch in PAGED_ARCHS:
+    pc = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    for mode in ("chunked", "serial"):
+        with mesh:
+            sched = BatchScheduler(pc, from_defs(model_defs(pc), f"paged_{arch}"),
+                                   n_slots=4, max_len=64,
+                                   mesh=mesh, rules=rules, prefill=mode)
+            for i, pr in enumerate(prompts):
+                sched.submit(Request(uid=i, prompt=pr, max_new_tokens=6))
+            done = sorted(sched.run_to_completion(), key=lambda r: r.uid)
+        meta[f"paged/{arch}/{mode}"] = [[int(t) for t in r.output] for r in done]
 np.savez(dst, **out)
 print("META", json.dumps(meta))
 """
@@ -176,6 +197,12 @@ def _inputs(path: str) -> None:
     rng = np.random.default_rng(5)
     for i, n in enumerate((19, 23)):
         d[f"sched_prompt{i}"] = rng.integers(0, 256, n).astype(np.int32)
+    for arch in ranks.PAGED_ARCHS:
+        pcfg = dataclasses.replace(j_smoke(arch), dtype="float32")
+        d.update(ranks.flatten(referee.numpy_params(j_model_defs(pcfg), 0), f"paged_{arch}"))
+    rng = np.random.default_rng(7)
+    for i, n in enumerate((20, 22, 21)):
+        d[f"paged_prompt{i}"] = rng.integers(0, 256, n).astype(np.int32)
     np.savez(path, **d)
 
 
@@ -187,7 +214,8 @@ def run(tmp_path_factory):
     env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
            "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
 
-    ref = ranks.reference_run(textwrap.dedent(REFERENCE), [src, dst], env, ROOT)
+    ref = ranks.reference_run(textwrap.dedent(REFERENCE),
+                              [src, dst, *ranks.PAGED_ARCHS], env, ROOT)
     port = ranks.spawn(ranks.distributed_cases, WORLD, src, str(tmp / "ckpt"),
                        abort=ranks.reference_failed(ref))
     meta = json.loads(ranks.finish(ref).split("META ", 1)[1])
@@ -388,10 +416,12 @@ def _mostly_leafwise(got: dict, want: dict, rel: float, frac: float) -> None:
 
 
 def test_zero3_train_step_matches_single_device(run):
-    """Three ZeRO-3 steps on 2 x 2 against three single-device steps (the
-    second batch masks most labels of one data shard's rows, so each
-    rank's gradient must count its share of the labelled tokens)
-    (OLMo's smoke config at f32 activations; Qwen2's k bias has an exactly
+    """Three train steps on 2 x 2 (``make_train_step(mesh=)``: the dense
+    decoders' train layout for OLMo and Qwen2, ZeRO-3 for Qwen3-MoE)
+    against three single-device steps (the second batch masks most labels
+    of one data shard's rows, so each rank's gradient must count its share
+    of the labelled tokens) (OLMo's smoke config at f32 activations;
+    Qwen2's k bias has an exactly
     zero gradient, whose rounding noise AdamW turns into +-lr steps in any
     two runs): loss and grad norm within 1e-4 relative (the gradient is
     summed over two halves of the batch, f32 sums in another order), every
@@ -479,3 +509,130 @@ def test_serve_mesh_matches_one_device(run):
         assert a == b
         assert set(dist) == {"sharded:gather_dequant"}
         assert mesh_line == "mesh: {'data': 2, 'model': 2} (cpu)"
+
+
+PAGED = [(arch, mode) for arch in ranks.PAGED_ARCHS for mode in ("chunked", "serial")]
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,mode", PAGED, ids=[f"{a}-{m}" for a, m in PAGED])
+def test_paged_mesh_scheduler_matches_one_device_and_reference(run, arch, mode):
+    """``BatchScheduler(mesh=)`` on 2 x 2 in the paged layout (the decode
+    lane's 4 slots over data, 2 a rank; the batch-1 prefill lanes whole on
+    every rank), teacher-forced with one device's tokens, predicts one
+    device's tokens, which are the reference's scheduler's on an Auto-axis
+    2 x 2 mesh; every lane's logits (the decode lane's all-gathered) are
+    one device's within rtol 1e-4 / atol 1e-5."""
+    _, _, meta, port = run
+    for res in port:
+        out = res["paged_mesh"][f"{arch}/{mode}"]
+        assert out["tokens_mesh"] == out["tokens_one"] == meta[f"paged/{arch}/{mode}"]
+        one, mesh = out["lanes_one"], out["lanes_mesh"]
+        assert [n for n, *_ in mesh] == [n for n, *_ in one]
+        for (name, got, _), (_, want, _) in zip(mesh, one):
+            np.testing.assert_allclose(got, want, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("arch", ranks.PAGED_ARCHS)
+def test_paged_lanes_compute_this_ranks_rows(run, arch):
+    """Every decode call of attention and of the SSM mixer on a rank is
+    handed its 2 of the 4 slots (data coordinate d: slots 2d, 2d + 1) and
+    those rows of the page table; on one device all 4."""
+    for res in run[3]:
+        d, _ = res["rows"]
+        for mode in ("chunked", "serial"):
+            out = res["paged_mesh"][f"{arch}/{mode}"]
+            tables = [t for name, _, t in out["lanes_mesh"] if name == "_decode"]
+            for run_name, rows in (("mesh", slice(2 * d, 2 * d + 2)), ("one", slice(0, 4))):
+                seen = out[f"seen_{run_name}"]
+                attn = [s for s in seen if s[0] == "attn"]
+                assert seen and all(s[1] == rows.stop - rows.start for s in seen)
+                assert all(s[2] == rows.stop - rows.start for s in seen if s[0] == "ssm")
+                if attn and run_name == "mesh":
+                    per_tick = len(attn) // len(tables)
+                    assert per_tick * len(tables) == len(attn)
+                    for i, (_, _, table) in enumerate(attn):
+                        np.testing.assert_array_equal(table, tables[i // per_tick][rows])
+
+
+@pytest.mark.parametrize("arch", ranks.PAGED_ARCHS)
+def test_paged_mesh_pools_and_tails_equal_on_every_rank(run, arch):
+    """After the run every rank's pools, tails and SSM ``conv`` / ``state``
+    are byte-equal to each other's; to one device's byte-equal for the
+    attention-only stacks, and within 1e-5 of each leaf's largest value for
+    the SSM ones: the CPU's vectorized ``softplus`` and ``silu`` round the
+    last, partial SIMD vector of a tensor apart from full ones, so a
+    2-slot batch's dt and gates differ from a 4-slot batch's in the last
+    bit (measured 2.4e-7 for Mamba-2, 8.3e-7 for Jamba, whose attention
+    reads the SSM layers' output).  The decode lane gathers, per run, each
+    slot's new tail row and the whole SSM rows, and nothing more."""
+    port = run[3]
+    ssm = arch in ("mamba2_780m", "jamba_1_5_large_398b")
+    for mode in ("chunked", "serial"):
+        outs = [res["paged_mesh"][f"{arch}/{mode}"] for res in port]
+        for part in ("pools", "hot"):
+            for out in outs:
+                got, one = out[f"{part}_mesh"], out[f"{part}_one"]
+                assert got.keys() == one.keys() == outs[0][f"{part}_mesh"].keys()
+                for k in got:
+                    np.testing.assert_array_equal(got[k], outs[0][f"{part}_mesh"][k])
+                    if ssm:
+                        scale = max(float(np.abs(one[k]).max()), 1e-30)
+                        assert float(np.abs(got[k] - one[k]).max()) <= 1e-5 * scale, k
+                    else:
+                        np.testing.assert_array_equal(got[k], one[k], err_msg=k)
+        hot = outs[0]["hot_one"]
+        per_run = sum(v.nbytes // v.shape[2] if k.endswith("_tail") else v.nbytes
+                      for k, v in hot.items())
+        moved, runs = outs[0]["gathered_mesh"]
+        assert runs > 0 and moved == per_run * runs
+
+
+def test_tp_train_grads_are_blocks_of_one_devices(run):
+    """The dense decoders' train layout on 2 x 2 (OLMo and Qwen2 smoke,
+    f32): each rank's loss is one device's within 1e-4 relative, and its
+    gradients are exactly the blocks one device's cut to under the rules,
+    shape for shape, every value within 1e-5 of its leaf's largest."""
+    for res in run[3]:
+        for arch in ("olmo_1b", "qwen2_7b"):
+            one, tp = res["tp_train"][f"{arch}/loss"]
+            assert abs(one - tp) <= 1e-4 * abs(one)
+            grads = res["tp_train"][f"{arch}/grads"]
+            assert grads
+            for k, (got, want) in grads.items():
+                assert got.shape == want.shape, k
+                scale = max(float(np.abs(want).max()), 1e-30)
+                assert float(np.abs(got - want).max()) <= 1e-5 * scale, k
+
+
+def test_tp_train_activations_are_column_blocks(run):
+    """In the dataflow trace of one train forward, one device's matmuls are,
+    in order, each layer's q, k, v, o, MLP in, gate and out products and
+    the LM head; a rank's (model = 2) are the same with half the columns of
+    the column-parallel ones (q, k, v, the MLP's in and gate, the head's
+    vocabulary) and half the rows of the row-parallel ones (o, MLP out)."""
+    from repro_torch.configs.base import get_smoke_config
+    for res in run[3]:
+        for arch in ("olmo_1b", "qwen2_7b"):
+            cfg = get_smoke_config(arch)
+            d, q, kv, f = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd, cfg.d_ff
+            layer = [(d, q, "col"), (d, kv, "col"), (d, kv, "col"), (q, d, "row"),
+                     (d, f, "col"), (d, f, "col"), (f, d, "row")]
+            want = layer * cfg.n_layers + [(d, cfg.padded_vocab, "col")]
+            one = [tuple(m) for m in res["tp_train"][f"{arch}/mm_one"]]
+            rank = [tuple(m) for m in res["tp_train"][f"{arch}/mm_rank"]]
+            assert one == [(k, n) for k, n, _ in want], arch
+            assert rank == [(k, n // 2) if p == "col" else (k // 2, n)
+                            for k, n, p in want], arch
+
+
+@pytest.mark.parametrize("what", ["x", "v"])
+def test_collective_transposes_match_finite_differences(run, what):
+    """The backward of ``all_gather`` (sum over the group, this rank's
+    block), ``all_reduce`` (identity) and ``grad_all_reduce`` (sum) against
+    central differences of one f64 function on 2 x 2 (``x`` each rank's
+    block, perturbed on one rank at a time; ``v`` equal on the model group,
+    perturbed on all of it), within 1e-6 relative."""
+    for res in run[3]:
+        got, want = res["tp_train"]["fd"][what]
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-8)

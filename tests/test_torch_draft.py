@@ -29,7 +29,6 @@ from repro.core.policy import StruMConfig as JCfg
 from repro.engine.draft import draft_dequant_packed as j_draft_dequant_packed
 from repro.kernels import ops as jops
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro_torch import engine, telemetry
 from repro_torch.core.apply import pack_array
 from repro_torch.core.policy import DEFAULT_EXCLUDE
@@ -38,6 +37,8 @@ from repro_torch.core.policy import StruMConfig as TCfg
 from repro_torch.kernels import ops
 from repro_torch.kernels import strum_matmul as K
 from repro_torch.models.params import params_from_numpy
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -225,7 +226,7 @@ DRAFT_POLICIES = [dict(mode="histream"), dict(mode="maskfree_p"),
 @pytest.fixture(scope="module", params=["qwen2_7b", "moonshot_v1_16b_a3b"])
 def arch_params(request):
     jcfg = dataclasses.replace(j_smoke(request.param), dtype="float32")
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     return request.param, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
                                                      device="cpu")
 

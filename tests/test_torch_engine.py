@@ -18,12 +18,13 @@ from repro.analysis.registry_audit import default_grid
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.core.policy import StruMConfig as JCfg
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro_torch import engine
 from repro_torch.core.apply import pack_array
 from repro_torch.core.policy import StruMConfig as TCfg
 from repro_torch.kernels import ref
 from repro_torch.models.params import params_from_numpy
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -82,7 +83,7 @@ def test_backend_strings():
 @pytest.fixture(scope="module")
 def smoke_params():
     cfg = j_smoke("olmo_1b")
-    params = j_init_params(j_model_defs(cfg), seed=0, dtype_override="float32")
+    params = referee.jax_params(j_model_defs(cfg), 0)
     return params, params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
 
 
@@ -105,7 +106,7 @@ def test_build_plan_payloads_byte_identical_ssm_trees(arch):
     policy's exclusions (conv_w, conv_b, a_log, dt_bias, norm_scale) and
     the 1-D d_skip left dense, as in the reference."""
     cfg = j_smoke(arch)
-    params = j_init_params(j_model_defs(cfg), seed=0, dtype_override="float32")
+    params = referee.jax_params(j_model_defs(cfg), 0)
     tplan = _payloads_identical(
         params, params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"))
     ssm = [n for n in tplan.entries if "/ssm/" in n]

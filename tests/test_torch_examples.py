@@ -52,7 +52,6 @@ from repro.core.policy import default_policy as j_default_policy
 from repro.launch.serve import serve as j_serve
 from repro.models import forward_train as j_forward
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro.models.quantize import serve_tree_bytes as j_tree_bytes
 from repro.serving import BatchScheduler as JBatch
 from repro.serving import Request as JReq
@@ -60,6 +59,8 @@ from repro_torch.configs.base import get_config, tiny_variant
 from repro_torch.core.policy import StruMConfig as TCfg
 from repro_torch.examples import quickstart, serve_batch, serve_strum, train_e2e
 from repro_torch.models.params import params_from_numpy
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -86,7 +87,7 @@ def model():
     at f32 activations."""
     jcfg = dataclasses.replace(j_tiny(j_get("olmo_1b")), dtype="float32")
     tcfg = dataclasses.replace(tiny_variant(get_config("olmo_1b")), dtype="float32")
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     return jcfg, tcfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
                                                   device="cpu")
 

@@ -26,7 +26,6 @@ from repro.configs.base import get_smoke_config as j_smoke
 from repro.core.policy import StruMConfig as JCfg
 from repro.models.moe import moe_apply as j_moe_apply
 from repro.models.moe import moe_def as j_moe_def
-from repro.models.params import init_params as j_init_params
 from repro.models.quantize import _pack_leaf as j_pack_leaf
 from repro_torch import engine
 from repro_torch.configs.base import get_smoke_config as t_smoke
@@ -37,6 +36,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.params import params_from_numpy
 from repro_torch.models.quantize import _pack_leaf
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -178,7 +179,7 @@ def test_moe_plan_payloads_byte_identical(arch):
     same bytes as the reference's, and selects the twins of its variants."""
     from repro.models import model_defs as j_model_defs
     jcfg = j_smoke(arch)
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     for jb, tb in (("interpret", "cuda"), (None, None)):
         jplan = jengine.build_plan(jparams, cfg=JCfg(), backend=jb)
@@ -220,8 +221,7 @@ def test_moe_heterogeneous_policy_selects_grouped():
                                dtype="float32")
     tcfg = dataclasses.replace(t_smoke("qwen3_moe_235b_a22b"), d_ff=40, strum=None,
                                dtype="float32")
-    jparams = j_init_params({"blocks": {"moe": j_moe_def(jcfg)}}, seed=1,
-                            dtype_override="float32")
+    jparams = referee.jax_params({"blocks": {"moe": j_moe_def(jcfg)}}, 1)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
 
     plan = engine.build_plan(tparams, policy=policy, backend="cuda", device="cpu")

@@ -25,10 +25,11 @@ import torch
 
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.models import mamba2 as jm
-from repro.models.params import init_params as j_init_params
 from repro_torch.configs.base import get_smoke_config as t_smoke
 from repro_torch.models import mamba2 as tm
 from repro_torch.models.params import params_from_numpy
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -102,8 +103,7 @@ def _cfgs(split: bool, dtype="float32"):
 def _params(jcfg, seed=0):
     """One mixer's params, seeded, with the zero / one inits replaced by
     draws so every head has its own a, dt bias, skip and norm scale."""
-    p = jax.tree.map(np.asarray, j_init_params(jm.ssm_def(jcfg), seed=seed,
-                                               dtype_override="float32"))
+    p = jax.tree.map(np.asarray, referee.jax_params(jm.ssm_def(jcfg), seed))
     rng = np.random.default_rng(seed + 100)
     for name, lo, hi in (("a_log", -1.0, 1.0), ("dt_bias", -2.0, 0.5),
                          ("d_skip", 0.5, 1.5), ("norm_scale", 0.5, 1.5),

@@ -7,8 +7,8 @@ an abstract mesh against live gloo ranks and against the reference's HLO.
   step records on rank 0 of 4 real gloo ranks under the same ``Counter``
   (``tests/_torch_ranks.py``): primitive, kind, result shape and dtype,
   group width and bytes, and the kernel calls.  Decode and prefill on
-  2 x 2, decode on 2 x 1 x 2 ("pod", "data", "model") and a ZeRO-3 train
-  step on data = 2; the OLMo and Moonshot smoke configs, packed with the
+  2 x 2, decode on 2 x 1 x 2 ("pod", "data", "model") and a train step
+  on data = 2 and on 2 x 2; the OLMo and Moonshot smoke configs, packed with the
   default ``StruMConfig``.  On CPU tensors the card's plan runs its
   post-gather products on the ``torch`` family, so no kernel is called
   there (``chip_smoke.py`` phase v3 holds the K1 calls on the card);
@@ -28,8 +28,9 @@ an abstract mesh against live gloo ranks and against the reference's HLO.
   does ``--accum-dtype`` in collectives and kernel calls;
 * the layouts: the serving cells of OLMo and Moonshot are counted in the
   sharded serving layout (no ``out_gather``; a 2x16x16 decode_32k's rank 0
-  holds and computes under 1/256 of one H100's cell), the train step as
-  ZeRO-3.
+  holds and computes under 1/256 of one H100's cell); OLMo's train step in
+  the dense decoders' train layout on data = 2 and on 2 x 2, forward and
+  backward (no all-gather gives a whole parameter), Moonshot's as ZeRO-3.
 """
 import json
 import os
@@ -140,10 +141,20 @@ def test_abstract_count_equals_live_ranks(run, case, arch):
     kinds = {r["primitive"] for r in recs}
     assert {"all_gather", "psum"} <= kinds
     # every serving cell runs the sharded serving layout, which keeps every
-    # result at its spec (no re-assembly to global)
+    # result at its spec (no re-assembly to global); OLMo's train step the
+    # dense decoders' train layout, which gathers no parameter whole
     layout = dryrun.layout_of(ranks.mesh_cfg(arch), shape.kind, mesh)
-    assert layout == ("zero3" if shape.kind == "train" else "input_shardings")
+    train = "tp_train" if arch == "olmo_1b" else "zero3"
+    assert layout == (train if shape.kind == "train" else "input_shardings")
     assert "out_gather" not in kinds
+    if layout == "tp_train":
+        from repro_torch.models import model_defs
+        from repro_torch.models.params import _with_defs
+        whole = set()
+        _with_defs(lambda _, d: whole.add(tuple(d.shape)), model_defs(
+            ranks.mesh_cfg(arch)), model_defs(ranks.mesh_cfg(arch)))
+        gathered = {r["shape"] for r in recs if r["primitive"] == "all_gather"}
+        assert gathered and not gathered & {s for s in whole if len(s) >= 2}
 
 
 @pytest.mark.parametrize("arch", ranks.MESH_ARCHS)
@@ -233,12 +244,13 @@ def test_cli_both_meshes(tmp_path):
         assert rec["link_bytes_per_dev"] == coll["link_bytes"] > 0
         assert coll["per_kind_count"]["all-gather"] > 0 and coll["per_kind_count"]["all-reduce"] > 0
         assert rec["roofline"]["collective_s"] == pytest.approx(coll["link_bytes"] / 50e9)
-        # the ZeRO-3 step: the batch splits over the data axes, dense compute
-        # is replicated over "model"
-        data = 16 * (2 if n == 512 else 1)
+        # the dense decoders' train layout: the batch splits over the data
+        # axes and the heads, the MLP and the vocabulary over "model", so
+        # each card counts a 1/n of one card's step
+        assert rec["layout"] == "tp_train"
         assert rec["flops_per_dev"] < one["flops_per_dev"]
         assert rec["model_flops_per_dev"] == pytest.approx(one["model_flops_total"] / n)
-        assert rec["flops_per_dev"] == pytest.approx(one["flops_per_dev"] / data, rel=0.05)
+        assert rec["flops_per_dev"] == pytest.approx(one["flops_per_dev"] / n, rel=0.05)
     assert dryrun.roofline_terms(0.0, 0.0, 450e9, 8)["collective_s"] == pytest.approx(1.0)
 
 

@@ -37,7 +37,6 @@ from repro.models import forward_train as j_forward
 from repro.models import model_defs as j_model_defs
 from repro.models import prefill as j_prefill
 from repro.models.layers import linear as j_linear
-from repro.models.params import init_params as j_init_params
 from repro_torch import engine
 from repro_torch.configs.base import ARCH_IDS
 from repro_torch.configs.base import get_smoke_config as t_smoke
@@ -46,6 +45,8 @@ from repro_torch.launch.serve import pad_caches, serve
 from repro_torch.models import decode_step, forward_train, prefill
 from repro_torch.models.layers import linear
 from repro_torch.models.params import params_from_numpy
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -77,7 +78,7 @@ def _tol(cfg) -> dict:
 @functools.lru_cache(maxsize=None)
 def _arch_params(arch):
     jcfg, _ = _cfgs(arch)
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     return jparams, tparams
 

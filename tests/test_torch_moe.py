@@ -43,7 +43,6 @@ from repro.models import forward_train as j_forward
 from repro.models import model_defs as j_model_defs
 from repro.models import moe as jmoe
 from repro.models import prefill as j_prefill
-from repro.models.params import init_params as j_init_params
 from repro.serving import BatchScheduler as JSched
 from repro.serving import Request as JReq
 from repro_torch import engine
@@ -78,7 +77,7 @@ def _cfgs(arch):
 @pytest.fixture(scope="module", params=ARCHS)
 def arch_params(request):
     jcfg, tcfg = _cfgs(request.param)
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     return request.param, jparams, tparams
 
@@ -182,8 +181,7 @@ def test_top_k_orders_ties_by_lower_index():
 def test_moe_apply_matches_reference(arch_params, packed):
     arch, _, _ = arch_params
     jcfg, tcfg = _cfgs(arch)
-    jp = j_init_params({"blocks": {"moe": jmoe.moe_def(jcfg)}}, seed=1,
-                       dtype_override="float32")
+    jp = referee.jax_params({"blocks": {"moe": jmoe.moe_def(jcfg)}}, 1)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     if packed:
         scfg = dict(method="mip2q", p=0.5, L=5)

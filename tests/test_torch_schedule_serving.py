@@ -25,7 +25,6 @@ from repro.autotune.schedule import StruMSchedule as JSched
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.core.policy import StruMConfig as JCfg
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro.models.quantize import strum_serve_params as j_serve_params
 from repro.serving import BatchScheduler as JBatch
 from repro.serving import Request as JReq
@@ -37,6 +36,8 @@ from repro_torch.launch.steps import build_serving_plan
 from repro_torch.models.params import params_from_numpy
 from repro_torch.models.quantize import strum_serve_params
 from repro_torch.serving import BatchScheduler, Request
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -73,7 +74,7 @@ def arch(request, tmp_path_factory):
     reference's schedule and the path of its JSON)."""
     name = request.param
     jcfg, tcfg = j_smoke(name), t_smoke(name)
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     jsched = JSched(assignments={f"blocks/pos0/{k}": c and JCfg(**c)
                                  for k, c in ARCHS[name].items()},

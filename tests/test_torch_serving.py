@@ -42,7 +42,6 @@ import torch
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.core.policy import StruMConfig as JCfg
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro.serving import BatchScheduler as JSched
 from repro.serving import Request as JReq
 from repro_torch.configs.base import get_smoke_config as t_smoke
@@ -73,7 +72,7 @@ def _cfgs(arch):
 @pytest.fixture(scope="module", params=["olmo_1b", "qwen2_7b"])
 def arch(request):
     jcfg, tcfg = _cfgs(request.param)
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, tcfg, jparams, tparams
 

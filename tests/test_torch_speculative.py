@@ -33,7 +33,6 @@ from repro.configs.base import get_smoke_config as j_smoke
 from repro.core.policy import StruMConfig as JCfg
 from repro.models import model_defs as j_model_defs
 from repro.models import transformer as jtfm
-from repro.models.params import init_params as j_init_params
 from repro.serving import BatchScheduler as JSched
 from repro.serving import Request as JReq
 from repro.serving import pages as jpages
@@ -44,6 +43,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serving import BatchScheduler, Request
 from repro_torch.serving import pages
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -68,7 +69,7 @@ def _arch(**over):
     over["dtype"] = "float32"
     jcfg = dataclasses.replace(j_smoke("qwen2_7b"), **over)
     tcfg = dataclasses.replace(t_smoke("qwen2_7b"), **over)
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     return jcfg, tcfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
                                                   device="cpu")
 

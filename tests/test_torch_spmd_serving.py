@@ -382,8 +382,9 @@ def test_moe_and_ssm_decode_32k_argument_bytes_equal_the_references_shards():
 
 
 def test_uncovered_lanes_refuse_a_sharded_dense_leaf():
-    """A sharded dense leaf reaching the train forward, a step without a
-    mesh or the paged runtime raises."""
+    """A sharded dense leaf reaching a lane that holds whole dense params
+    raises: the MoE family's train forward, a step without a mesh, the
+    paged runtime."""
     res = ranks.spawn(ranks.spmd_uncovered_cases, 4)
     for r in res:
         for lane in ("train", "no_mesh", "paged"):
@@ -398,12 +399,15 @@ def test_every_family_serves_in_the_sharded_layout():
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models.transformer import sharded_serving
     mesh = AbstractMesh((2, 2), ("data", "model"))
+    dense = {"olmo_1b", "qwen2_7b", "deepseek_67b", "stablelm_12b", "internvl2_26b",
+             "musicgen_medium"}
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         assert sharded_serving(cfg, mesh) and not sharded_serving(cfg, None), arch
         for kind in ("prefill", "decode"):
             assert dryrun.layout_of(cfg, kind, mesh) == "input_shardings"
-        assert dryrun.layout_of(cfg, "train", mesh) == "zero3"
+        assert dryrun.layout_of(cfg, "train", mesh) == (
+            "tp_train" if arch in dense else "zero3"), arch
 
 
 @pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "mamba2_780m",

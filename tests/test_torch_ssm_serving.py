@@ -28,7 +28,6 @@ import torch
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.core.policy import StruMConfig as JCfg
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro.serving import BatchScheduler as JSched
 from repro.serving import Request as JReq
 from repro.serving import pages as j_pages
@@ -39,6 +38,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serving import BatchScheduler, Request
 from repro_torch.serving import pages as t_pages
+
+import _torch_f64_referee as referee
 
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
@@ -55,7 +56,7 @@ def _cfgs(arch):
 @pytest.fixture(scope="module", params=ARCHS)
 def arch(request):
     jcfg, tcfg = _cfgs(request.param)
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, tcfg, jparams, tparams
 

@@ -21,7 +21,6 @@ from repro import telemetry as jtelemetry
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.core.policy import StruMConfig as JCfg
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro.serving import BatchScheduler as JSched
 from repro.serving import Request as JReq
 from repro.telemetry import check as jcheck
@@ -35,6 +34,8 @@ from repro_torch.serving import BatchScheduler, Request
 from repro_torch.telemetry import check
 from repro_torch.telemetry.recorder import _STACK, NULL_SPAN
 
+import _torch_f64_referee as referee
+
 torch.set_num_threads(1)  # xdist runs several workers side by side: one intra-op thread each
 
 RNG = np.random.default_rng(0)
@@ -44,7 +45,7 @@ RNG = np.random.default_rng(0)
 def setup():
     jcfg = dataclasses.replace(j_smoke("qwen2_7b"), dtype="float32")
     tcfg = dataclasses.replace(t_smoke("qwen2_7b"), dtype="float32")
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     return jcfg, tcfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
                                                   device="cpu")
 

@@ -51,7 +51,6 @@ from repro.configs.base import get_smoke_config as j_smoke
 from repro.data import pipeline as jdata
 from repro.launch.steps import make_train_step as j_make_train_step
 from repro.models import model_defs as j_model_defs
-from repro.models.params import init_params as j_init_params
 from repro.models.transformer import loss_fn as j_loss_fn
 from repro.optim import adamw as jadamw
 from repro.runtime import compression as jcomp
@@ -144,7 +143,7 @@ def _both(arch, dtype="float32"):
     """(reference (loss, metrics), grads) and the port's, same weights and
     batch."""
     jcfg, tcfg = _cfgs(arch, dtype)
-    jparams = j_init_params(j_model_defs(jcfg), seed=0, dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(jcfg), 0)
     toks, labels = _batch()
     jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
     want = jax.jit(jax.value_and_grad(lambda p, b: j_loss_fn(p, b, jcfg),
@@ -178,8 +177,7 @@ def test_bf16_activation_loss_matches_reference(arch):
 @pytest.mark.parametrize("policy", ["full", "dots"])
 def test_remat_gives_the_no_remat_loss_and_gradients(arch, policy):
     _, tcfg = _cfgs(arch)
-    jparams = j_init_params(j_model_defs(_cfgs(arch)[0]), seed=0,
-                            dtype_override="float32")
+    jparams = referee.jax_params(j_model_defs(_cfgs(arch)[0]), 0)
     tparams = params_from_numpy(_np(jparams), device="cpu")
     toks, labels = _batch(2)
     batch = {"tokens": torch.from_numpy(toks).long(),
