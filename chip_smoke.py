@@ -263,7 +263,15 @@ Phases, each fatal on failure:
      s6. one train step of full-width OLMo-1B at S6_LAYERS layers, 4 x 256,
      f32, on 4 gloo ranks as 2x2 in the dense decoders' train layout and
      as ZeRO-3, against the one-device step within s3's limits; ms a step
-     and each rank's peak memory for both.
+     and each rank's peak memory for both;
+     s7. one train step of the MoE, SSM and hybrid families in the train
+     layout on 4 gloo ranks as 2x2, 4 x 256, f32 (S7_CASES): full-width
+     Moonshot-16B-A3B at 1 layer (each rank its experts), full-width Mamba-2
+     780M at 2 layers (each rank its SSM heads; also timed as ZeRO-3) and
+     the Jamba smoke hybrid, each against the one-device step within s3's
+     limits (rank 0 takes it first, and holds the gathered gradients and
+     new parameters leaf by leaf); the dropped assignments of both runs, ms
+     a step and each rank's peak memory over resident.
 
   t. static analysis (``repro_torch.analysis``), each sub-phase fatal:
      t1. the registry audit and the launch-contract lint on the card: every
@@ -3362,7 +3370,7 @@ def _s_rank(rank: int, world: int, port: int, what: str, out) -> None:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 rank=rank, world_size=world)
         res = {"s2": _s2_body, "s3": _s3_body, "s2_decode": _s2_decode_body,
-               "s4": _s4_body, "s5": _s5_body, "s6": _s6_body}[what](
+               "s4": _s4_body, "s5": _s5_body, "s6": _s6_body, "s7": _s7_body}[what](
             rank, torch.device("cuda", 0))
         dist.barrier()
         out.put((rank, res, None))
@@ -3770,7 +3778,13 @@ def measure_mesh(dev, refs, only=None) -> dict:
             ("s6", f"4 gloo ranks on cuda:0, a 2x2 mesh: one train step of full-width "
                    f"OLMo-1B ({S6_LAYERS} layers, {S6_BATCH[0]} x {S6_BATCH[1]}, f32) in "
                    f"the dense decoders' train layout and as ZeRO-3, against one device",
-             lambda: _spawn_ranks("s6", 4))):
+             lambda: _spawn_ranks("s6", 4)),
+            ("s7", f"4 gloo ranks on cuda:0, a 2x2 mesh: one train step in the train "
+                   f"layout of the MoE, SSM and hybrid families ({S6_BATCH[0]} x "
+                   f"{S6_BATCH[1]}, f32): full-width Moonshot-16B-A3B at 1 layer, "
+                   f"full-width Mamba-2 780M at 2 layers (and as ZeRO-3), Jamba at its "
+                   f"smoke shape, each against one device",
+             lambda: _spawn_ranks("s7", 4))):
         if only is not None and key not in only:
             continue
         t0 = time.perf_counter()
@@ -3786,6 +3800,8 @@ def measure_mesh(dev, refs, only=None) -> dict:
             rec = _check_s5(rec)
         elif key == "s6":
             rec = _check_s6(rec)
+        elif key == "s7":
+            rec = _check_s7(rec)
         sub[key] = rec
         sub[key]["seconds"] = time.perf_counter() - t0
         print(f"  {key} took {sub[key]['seconds']:.1f} s", flush=True)
@@ -4469,9 +4485,295 @@ def _check_s6(ranks: list) -> dict:
             "per_rank": [{k: r[k] for k in ("tp", "zero3", "held_bytes")} for r in ranks]}
 
 
+#: s7's cases: (arch, layers at full width, or None for the smoke shape;
+#: whether the ZeRO-3 step is timed beside the train layout).  Moonshot at 1
+#: layer: a rank's shards with gradients, moments and the new parameters
+#: take ~9 GB, rank 0's one-device step ~35 GB at its peak, on one card;
+#: its ZeRO-3 step (whole trees on every rank) is not run
+S7_CASES = ((MOE_ARCH, 1, False), (SSM_ARCH, 2, True), (HYBRID_ARCH, None, False))
+
+
+def _s7_cfg(arch: str, layers):
+    """s7's config of ``arch`` at f32 activations: full width at
+    ``layers``, or the smoke shape."""
+    from repro_torch.configs.base import get_config, get_smoke_config
+    cfg = get_smoke_config(arch) if layers is None else dataclasses.replace(
+        get_config(arch), n_layers=layers)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def _no_drops(cfg):
+    """``cfg`` with an MoE capacity factor of at least ``n_experts /
+    top_k``: a rank's capacity is then every row it routes and no
+    assignment can drop, so the mesh step is one device's.  Below it each
+    data rank routes its rows with its own capacity (the reference's
+    sharded step), which is not one device's routing."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=max(cfg.capacity_factor,
+                                                        cfg.n_experts / cfg.top_k))
+
+
+def _drops(fn, *args, **kw) -> tuple:
+    """``(assignments the MoE layers drop, fn's result)`` of one call of a
+    forward ``fn`` without autograd (under it, remat's recompute would
+    route every layer twice)."""
+    import torch
+    with torch.no_grad(), _Drops() as drops:
+        out = fn(*args, **kw)
+    return drops.n, out
+
+
+class _Drops:
+    """While entered, counts the assignments the MoE layers drop: each
+    ``moe._route`` call's assignments to its experts that find no slot
+    (one host read a call)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.n, self.route = 0, moe._route
+
+        def route(x2, router_w, cfg, e_offset, e_local, capacity, split=None):
+            r = self.route(x2, router_w, cfg, e_offset, e_local, capacity, split)
+            with torch.no_grad():
+                probs = torch.softmax(x2.float() @ router_w.float(), dim=-1)
+                top = moe._top_k(probs, cfg.top_k)[1]
+                mine = ((top >= e_offset) & (top < e_offset + e_local)).sum()
+                self.n += int(mine - r["keep"].sum())
+            return r
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.route
+
+
+def _first_step_state(params):
+    """AdamW's state before its first step (``init_opt_state``'s values)
+    with each zero moment a broadcast view of one element: four full-width
+    Moonshot ranks on one card have no room for two more copies of their
+    shards beside the step's own new moments."""
+    import torch
+    from repro_torch.core.apply import map_named, tree_leaves
+    from repro_torch.optim.adamw import OptState
+
+    def zero(_, p):
+        return torch.zeros((), dtype=torch.float32, device=p.device).expand(p.shape)
+    dev = tree_leaves(params)[0].device
+    return OptState(torch.zeros((), dtype=torch.int32, device=dev),
+                    map_named(zero, params), map_named(zero, params))
+
+
+def _s7_case(rank: int, dev, arch: str, layers, zero3: bool) -> dict:
+    """One s7 case on this rank of 2x2 (the module docstring), each step
+    from AdamW's first-step state (:func:`_first_step_state`): rank 0
+    takes the one-device step first while the others wait, and keeps its
+    parameters, gradients and new parameters on the host; then one rank
+    at a time draws the whole model (seed 0) and keeps its shards; each
+    step timed after a warm-up; then the train layout's gradients (dropped
+    assignments counted) and the AdamW update from them; then each leaf of
+    the gradients and of the new parameters gathered whole in turn, and
+    rank 0 holds it to the one-device step.  An MoE config runs at :func:`_no_drops`' capacity
+    factor; where its own is lower, the loss, aux and dropped assignments
+    of the mesh and of one device at its own factor (the departure) are
+    taken too, untimed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.apply import _named_leaves
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import init_params, shard_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update, global_norm
+    own = _s7_cfg(arch, layers)
+    cfg = _no_drops(own)
+    defs = model_defs(cfg)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    mesh = make_host_mesh(data=2, model=2)
+    rules = shd.rules_for_mesh(mesh)
+    b, s = S6_BATCH
+    batch = global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                    global_batch=b, seed=0), 0, device=dev)
+    out = {"layers": cfg.n_layers, "smoke": layers is None,
+           "capacity_factor": cfg.capacity_factor,
+           "assignments": b * s * cfg.top_k * sum(
+               cfg.layer_is_moe(i) for i in range(cfg.n_layers))}
+    host = None
+    departs = own.capacity_factor < cfg.capacity_factor
+    if rank == 0:
+        params = init_params(defs, seed=0, device=dev, dtype_override="float32")
+        (l1, _), g1 = St._value_and_grad(params, batch, cfg)
+        p1, o1, m1 = adamw_update(ocfg, params, g1, _first_step_state(params))
+        out["one"] = {"loss": float(l1), "grad_norm": float(m1["grad_norm"]),
+                      "lr": float(m1["lr"]),
+                      "drops": _drops(tfm.loss_fn, params, batch, cfg)[0]}
+        if departs:     # the departure's one-device side, untimed
+            n, (loss, m) = _drops(tfm.loss_fn, params, batch, own)
+            out["own_one"] = {"loss": float(loss), "aux": float(m["aux"]), "drops": n}
+        host = [{n: t.cpu() for n, t in _named_leaves(tree)} for tree in (params, g1, p1)]
+        del params, g1, p1, o1, m1
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            whole = init_params(defs, seed=0, device=dev, dtype_override="float32")
+            placed = shard_params(whole, defs, mesh, rules)
+            del whole
+            torch.cuda.empty_cache()
+        dist.barrier()
+    opt = _first_step_state(placed)
+    out["held_bytes"] = sum(t.numel() * 4 for _, t in _named_leaves(placed))
+    out["whole_bytes"] = sum(math.prod(shd.placement(t).shape) * 4
+                             for _, t in _named_leaves(placed))
+    layouts = [("tp", St.make_train_step(cfg, ocfg, mesh=mesh, rules=rules))]
+    if zero3:
+        layouts.append(("zero3", St._zero3_step(cfg, ocfg, mesh, rules, False)))
+    for name, step in layouts:
+        step(placed, opt, batch)                           # warm-up
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        new, new_opt, m = step(placed, opt, batch)
+        torch.cuda.synchronize(dev)
+        out[name] = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "aux": float(m["aux"]),
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                     "peak_over_resident": torch.cuda.max_memory_allocated(dev) - base}
+        del new, new_opt
+        torch.cuda.empty_cache()
+        dist.barrier()
+    (_, _), grads = St._tp_value_and_grad(placed, batch, cfg, mesh, rules)
+    local = {k: shd.shard_slice(v, shd.P(rules.table["batch"]), mesh)
+             for k, v in batch.items()}
+    out["drops"] = _drops(tfm.loss_fn, placed, local, cfg, mesh=mesh, rules=rules)[0]
+    # the step from these gradients, as _tp_step takes it: the timed step's
+    # own may differ in their last bits (the MoE combine's scatter-add and
+    # the embedding's backward add atomically on the card), and AdamW's
+    # first step turns that into up to lr on an element whose gradient is
+    # near eps
+    tp_new = St._held_as(adamw_update(ocfg, placed, grads, opt,
+                                      gnorm=global_norm(grads, mesh))[0], placed)
+    del opt
+    if departs:         # the departure, at the config's own capacity factor
+        (loss, m), _ = St._tp_value_and_grad(placed, batch, own, mesh, rules)
+        out["own"] = {"capacity_factor": own.capacity_factor, "loss": float(loss),
+                      "aux": float(m["aux"]), "drops": _drops(
+                          tfm.loss_fn, placed, local, own, mesh=mesh, rules=rules)[0]}
+    del placed
+    torch.cuda.empty_cache()
+    # leaf by leaf: the mesh's gradient and new parameter gathered whole,
+    # held by rank 0 to the one-device step (r2's bound, s3's limits)
+    gaps, grad_rel = [], 0.0
+    if rank == 0:
+        norms = (out["tp"]["grad_norm"], out["one"]["grad_norm"])
+        lr = max(out["one"]["lr"], ocfg.lr)
+    for (n, g), (_, pn) in zip(_named_leaves(grads), _named_leaves(tp_new)):
+        gw, pw = shd.gather_whole(g, mesh), shd.gather_whole(pn, mesh)
+        if rank == 0:
+            p0, g1, p1 = (t[n].to(dev) for t in host)
+            grad_rel = max(grad_rel, (gw.double() - g1.double()).abs().max().item()
+                           / max(g1.abs().max().item(), 1e-30))
+            gaps.append(_step_gap(ocfg, {n: p0}, {n: gw}, {n: g1}, {n: pw}, {n: p1},
+                                  lr, norms))
+            del p0, g1, p1
+        del gw, pw
+        torch.cuda.empty_cache()
+    if rank == 0:
+        worst = max(gaps, key=lambda g: g["bound_ratio"])
+        out["grad_rel"] = grad_rel
+        out["step_gap"] = {"bound_ratio": worst["bound_ratio"], "bound_at": worst["bound_at"],
+                           "rel": max(g["rel"] for g in gaps),
+                           "outside": sum(g["outside"] for g in gaps),
+                           "elements": sum(g["elements"] for g in gaps)}
+    del grads, tp_new, host
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _s7_body(rank: int, dev) -> dict:
+    """A rank of s7 (2 x 2 mesh): every :data:`S7_CASES` case in turn."""
+    out = {}
+    for arch, layers, zero3 in S7_CASES:
+        t0 = time.perf_counter()
+        out[arch] = _s7_case(rank, dev, arch, layers, zero3)
+        out[arch]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _check_s7(ranks: list) -> dict:
+    """s7 against the one-device steps, to s3's (r2's) limits, as
+    :func:`_check_s6` holds s6."""
+    out = {}
+    for arch, layers, zero3 in S7_CASES:
+        r0 = ranks[0][arch]
+        one, tp, gap = r0["one"], r0["tp"], r0["step_gap"]
+        loss_rel = abs(tp["loss"] - one["loss"]) / abs(one["loss"])
+        gn_rel = abs(tp["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+        drops = sum(r[arch]["drops"] for r in ranks)
+        depth = "smoke shape" if r0["smoke"] else f"{r0['layers']} layers, full width"
+        z3 = (f"; ZeRO-3 {[round(r[arch]['zero3']['ms'], 1) for r in ranks]} ms, peak "
+              f"{[r[arch]['zero3']['peak_bytes'] for r in ranks]} B "
+              f"({[r[arch]['zero3']['peak_over_resident'] for r in ranks]} over "
+              f"resident), loss {r0['zero3']['loss']:.6f}") if zero3 else ""
+        print(f"  {arch} ({depth}, f32, capacity factor {r0['capacity_factor']:.4g}) one "
+              f"train step on 2x2, batch {S6_BATCH[0]} x {S6_BATCH[1]}: loss {tp['loss']:.6f} vs one device {one['loss']:.6f} "
+              f"(rel {loss_rel:.2e}, limit 1e-4), grad norm {tp['grad_norm']:.6f} vs "
+              f"{one['grad_norm']:.6f} (rel {gn_rel:.2e}, limit 1e-4), gradients "
+              f"max|diff| / leaf max {r0['grad_rel']:.2e} (limit 1e-3); the step at most "
+              f"{gap['bound_ratio']:.3f} of what the gradient gap allows (limit 1), "
+              f"{gap['rel']:.2e} of max|p| where |e| >= 1e3·eps (limit 1e-5; "
+              f"{gap['outside']} of {gap['elements']} elements below it); dropped "
+              f"assignments {drops} on the mesh (the ranks' "
+              f"{[r[arch]['drops'] for r in ranks]}), {one['drops']} on one device, of "
+              f"{r0['assignments']}", flush=True)
+        if "own" in r0:
+            mo, oo = r0["own"], r0["own_one"]
+            print(f"  {arch} at its own capacity factor {mo['capacity_factor']} (each data "
+                  f"rank routes its rows with its own capacity, the reference's sharded "
+                  f"step): mesh loss {mo['loss']:.6f}, aux {mo['aux']:.6f}, "
+                  f"{sum(r[arch]['own']['drops'] for r in ranks)} assignments dropped; "
+                  f"one device loss {oo['loss']:.6f}, aux {oo['aux']:.6f}, {oo['drops']} "
+                  f"dropped", flush=True)
+        print(f"  {arch} each rank holds {[r[arch]['held_bytes'] for r in ranks]} of "
+              f"{r0['whole_bytes']} parameter bytes; ms a step (host clock, gloo on one "
+              f"card): train layout {[round(r[arch]['tp']['ms'], 1) for r in ranks]}, "
+              f"peak {[r[arch]['tp']['peak_bytes'] for r in ranks]} B "
+              f"({[r[arch]['tp']['peak_over_resident'] for r in ranks]} over "
+              f"resident){z3}; {r0['seconds']:.1f} s", flush=True)
+        _check(loss_rel <= 1e-4 and gn_rel <= 1e-4,
+               f"s7 {arch} loss / grad norm differ: {loss_rel}, {gn_rel}")
+        _check(r0["grad_rel"] <= 1e-3, f"s7 {arch} gradients differ: {r0['grad_rel']}")
+        _check(gap["bound_ratio"] <= 1.0, f"s7 {arch} steps differ past the gradient "
+                                          f"gap: {gap}")
+        _check(gap["rel"] <= 1e-5, f"s7 {arch} steps differ where |e| >= 1e3·eps: {gap}")
+        _check(drops == one["drops"] == 0, f"s7 {arch} dropped assignments at "
+                                           f"capacity factor {r0['capacity_factor']}")
+        _check(all(r[arch]["held_bytes"] < r0["whole_bytes"] for r in ranks),
+               f"s7 {arch} ranks hold {[r[arch]['held_bytes'] for r in ranks]} of "
+               f"{r0['whole_bytes']}")
+        out[arch] = {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+                     "grad_rel": r0["grad_rel"], "drops": drops, "one_drops": one["drops"],
+                     "own": r0.get("own"), "own_one": r0.get("own_one"),
+                     "step_gap": {k: v for k, v in gap.items() if k != "bound_at"},
+                     "seconds": r0["seconds"],
+                     "per_rank": [{k: r[arch][k] for k in ("tp", "held_bytes")
+                                   + (("zero3",) if zero3 else ())} for r in ranks]}
+    return out
+
+
 def _mesh_report(mesh, smi) -> None:
     """Phase s's summary line."""
     s1, s2 = mesh["s1"], mesh["s2"]
+    s7_rel = {a: f"{r['loss_rel']:.2e}" for a, r in mesh["s7"].items() if a != "seconds"}
     print(f"mesh path: s1 (NCCL, 1x1) dense K1 {s1['dense_launches']}, paged K1 "
           f"{s1['paged_launches']} / K4 {s1['paged_k4']}, paged drain "
           f"{s1['drain_ms']:.1f} ms; s2 (gloo 2x2) K1 per rank "
@@ -4479,7 +4781,8 @@ def _mesh_report(mesh, smi) -> None:
           f"ZeRO-3 loss rel {mesh['s3']['loss_rel']:.2e}; s4 (gloo 2x2) K1 / K6 per "
           f"rank {({a: (r['k1_launches_per_rank'], r['k6_launches_per_rank']) for a, r in mesh['s4'].items() if a != 'seconds'})}; s5 (gloo 2x2, paged) "
           f"launches per rank {({a: r['launches_per_rank'][0] for a, r in mesh['s5'].items() if a != 'seconds'})}; "
-          f"s6 (gloo 2x2, train) loss rel {mesh['s6']['loss_rel']:.2e}; sub-phase seconds "
+          f"s6 (gloo 2x2, train) loss rel {mesh['s6']['loss_rel']:.2e}; s7 (gloo 2x2, "
+          f"MoE / SSM / hybrid train) loss rel {s7_rel}; sub-phase seconds "
           f"{ {k: round(v['seconds'], 1) for k, v in mesh.items() if k != 'seconds'} }, "
           f"phase s {mesh['seconds']:.1f} s; {smi}")
 
@@ -5744,8 +6047,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "q"], ["--only", "r"], ["--only", "s"],
                     ["--only", "s4"], ["--only", "s5"], ["--only", "s6"],
-                    ["--only", "t"], ["--only", "u"], ["--only", "v"]):
-        print("usage: chip_smoke.py [--only q|r|s|s4|s5|s6|t|u|v]", file=sys.stderr)
+                    ["--only", "s7"], ["--only", "t"], ["--only", "u"], ["--only", "v"]):
+        print("usage: chip_smoke.py [--only q|r|s|s4|s5|s6|s7|t|u|v]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch beside {__file__}; run it from "
@@ -5800,12 +6103,13 @@ def main(argv=None) -> int:
             _mesh_report(mesh, smi)
             print(json.dumps({"mesh": mesh}, default=str))
             return 0
-        if argv[:1] == ["--only"] and argv[1] in ("s4", "s5", "s6"):
+        if argv[:1] == ["--only"] and argv[1] in ("s4", "s5", "s6", "s7"):
             # one sub-phase of s alone: no kernels or result line
             _phase(f"{argv[1]}. " + {
                 "s4": "the sharded serving layout of the MoE, SSM and hybrid families",
                 "s5": "the paged layout: BatchScheduler(mesh=) on 2x2",
-                "s6": "the dense decoders' train step on 2x2"}[argv[1]])
+                "s6": "the dense decoders' train step on 2x2",
+                "s7": "the MoE, SSM and hybrid families' train step on 2x2"}[argv[1]])
             mesh = measure_mesh(dev, None, only=(argv[1],))
             print(json.dumps({"mesh": mesh}, default=str))
             return 0

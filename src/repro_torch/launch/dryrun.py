@@ -51,17 +51,16 @@ their results' shapes alone, and each input is the block rank 0 holds
   ``cache_len`` a Python int), and the count holds the FSDP gathers, the
   row-parallel all-reduces, the vocab-parallel embedding, the flash-decode
   merge, the expert-parallel all-reduce and the SSM mixer's gathers;
-* ``tp_train``: the dense decoders' train cells run the train layout of
+* ``tp_train``: every family's train cells run the train layout of
   ``models.transformer`` (the reference's train ``input_shardings``): rank
   0 holds its shards of the parameters and AdamW moments and computes its
   rows of the batch (the step takes them itself from the global batch)
-  and its blocks of the heads, the MLP and the vocabulary; the count holds
-  the FSDP gathers per use, the row-parallel all-reduces, the gathers of q
-  / k / v, the vocab-parallel embedding and cross-entropy, and the
-  backward's transposes of them all;
-* ``zero3``: the MoE, SSM and hybrid train cells: parameters and AdamW
-  moments are ZeRO-3 shards and the batch is global (the step takes its
-  rows itself).
+  and its blocks of the heads, the MLP, the experts, the SSM heads and
+  conv channels and the vocabulary; the count holds the FSDP gathers per
+  use, the row-parallel all-reduces, the gathers of q / k / v and of the
+  SSM projections and conv output, the expert-parallel combine, the
+  vocab-parallel embedding and cross-entropy, and the backward's
+  transposes of them all.
 
 Costs are counted at depth ``period(cfg)``, twice that (and, for a train
 step, three times) and extrapolated to the config's depth
@@ -117,7 +116,7 @@ from repro_torch.launch.specs import input_specs, place_inputs
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models.sharding import rules_for_mesh
-from repro_torch.models.transformer import period, tp_train
+from repro_torch.models.transformer import period
 from repro_torch.optim.adamw import AdamWConfig, OptState
 
 __all__ = ["Counter", "count_step", "extrapolated_costs", "compute_s",
@@ -323,9 +322,7 @@ def layout_of(cfg, kind: str, mesh) -> str:
     a key of :data:`LAYOUT_NOTES`."""
     if mesh is None:
         return "1x1"
-    if kind == "train":
-        return "tp_train" if tp_train(cfg, mesh) else "zero3"
-    return "input_shardings"
+    return "tp_train" if kind == "train" else "input_shardings"
 
 
 def count_step(cfg, shape, inputs=None, mesh=None, rules=None) -> dict:
@@ -400,10 +397,11 @@ def extrapolated_costs(cfg, shape, mesh=None, rules=None) -> dict:
     stack (``select_backward``) added into its gradient.  Both are counted
     exactly; ``temp_bytes``, a peak, is extrapolated the same way and is not
     exact.  On a mesh the collectives of a layer group are the same in
-    every group, so they are extrapolated with the rest; a ZeRO-3 train
-    step's autograd clones more bytes at one group than the quadratic
-    through two, three and four gives (an MoE config), so on a mesh a train
-    step of two groups or more is counted at 2P, 3P and 4P."""
+    every group, so they are extrapolated with the rest; a train step's
+    autograd on a mesh can clone more bytes at one group than the quadratic
+    through two, three and four gives (the ZeRO-3 step did on an MoE
+    config), so on a mesh a train step of two groups or more is counted at
+    2P, 3P and 4P."""
     p = period(cfg)
     groups = cfg.n_layers // p
     first = 2 if mesh is not None and shape.kind == "train" and groups >= 2 else 1
@@ -449,16 +447,12 @@ LAYOUT_NOTES = {
         "model; batch over data; cache sequence over model); tokens int64 and "
         "cache_len a Python int where the reference's are int32"),
     "tp_train": (
-        "rank 0 of the port's dense-decoder train step, the reference's train "
-        "input_shardings: parameters and moments rank 0's shards (FSDP over "
-        "data, qkv/mlp/vocab over model), its rows of the batch over data, its "
-        "blocks of the heads, the MLP and the vocabulary over model; each weight "
-        "gathered over data per use, never whole"),
-    "zero3": (
-        "rank 0 of the port's ZeRO-3 train step: parameters and moments ZeRO-3 "
-        "shards over the data axes, the batch global, dense compute replicated "
-        "over model; the reference's specs shard the batch and the model axis "
-        "too"),
+        "rank 0 of the port's train step, the reference's train input_shardings: "
+        "parameters and moments rank 0's shards (FSDP over data; qkv/mlp/vocab, "
+        "experts, SSM inner dims and heads over model), its rows of the batch "
+        "over data, its blocks of the heads, the MLP, the experts, the SSM heads "
+        "and channels and the vocabulary over model; each weight gathered over "
+        "data per use, never whole"),
 }
 
 

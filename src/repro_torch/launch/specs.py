@@ -20,8 +20,9 @@ They are the placement the serving steps take on a mesh
 the blocks a mesh-aware plan cuts (``build_plan(mesh=)``), which are these
 specs' blocks; a packed expert stack's block axis, which the plan also
 splits over the data axes, is held whole, as these specs hold it
-(``engine.sharded.stack_at_rest``).  The train step keeps the replicated
-layout (ZeRO-3 shards with the batch global).
+(``engine.sharded.stack_at_rest``).  A train cell's parameters and AdamW
+moments are this rank's shards under the same rules, its batch global (the
+train layout's step takes its rows itself).
 """
 from __future__ import annotations
 
@@ -138,8 +139,9 @@ def place_inputs(cfg: ModelConfig, shape: ShapeSpec, inputs, mesh,
     prefill and decode steps take.  Dense weights are cut by
     ``models.params.shard_params``; packed weights must be a mesh-aware
     plan's blocks already, and its expert stacks' block axes are gathered
-    whole (the module docstring).  A train cell is its replicated layout:
-    ZeRO-3 shards of the parameters and AdamW moments (batch global)."""
+    whole (the module docstring).  A train cell's parameters and AdamW
+    moments are cut to this rank's shards, its batch left global (the train
+    layout's step takes its rows)."""
     from repro_torch.core.apply import map_named
     from repro_torch.engine.sharded import stack_at_rest
     from repro_torch.models.params import shard_params

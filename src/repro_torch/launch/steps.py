@@ -1,9 +1,12 @@
 """Step builders shared by the trainer, the server and the tests (twin of
 ``repro.launch.steps``): one definition of the train step (single-device;
-on a mesh the dense decoders' train layout or ZeRO-3), the plan, the prefill and decode steps, and the paged
-runtime's lanes, each with the reference's ``mesh=`` / ``rules=``."""
+on a mesh the reference's train layout for every family, with the ZeRO-3
+step kept beside it as a yardstick), the plan, the prefill and decode
+steps, and the paged runtime's lanes, each with the reference's
+``mesh=`` / ``rules=``."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -38,13 +41,12 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh=None,
     compression with error feedback when ``grad_compression``, then AdamW.
     Functional: new trees come back and the inputs are left as they were.
     ``metrics`` holds ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr`` as
-    tensors.  With ``mesh`` the dense decoders' step runs the train layout
-    of ``models.transformer`` (:func:`_tp_step`), the MoE, SSM and hybrid
-    families' is ZeRO-3 (:func:`_zero3_step`)."""
+    tensors.  With ``mesh`` every family's step runs the train layout of
+    ``models.transformer`` (:func:`_tp_step`); :func:`_zero3_step` is not
+    selected."""
     if mesh is not None:
-        make = _tp_step if tfm.tp_train(cfg, mesh) else _zero3_step
-        return make(cfg, opt_cfg, mesh, rules or rules_for_mesh(mesh),
-                    grad_compression)
+        return _tp_step(cfg, opt_cfg, mesh, rules or rules_for_mesh(mesh),
+                        grad_compression)
     if grad_compression:
         def step(params, opt_state, ef_state, batch):
             (loss, metrics), grads = _value_and_grad(params, batch, cfg)
@@ -91,7 +93,9 @@ def _zero3_value_and_grad(params, batch, cfg, mesh, rules: Rules, defs):
 
 def _zero3_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, rules: Rules,
                 grad_compression: bool):
-    """The train step on a mesh, ZeRO-3 over the data axes: ``params``, the
+    """A yardstick beside :func:`_tp_step`, which ``make_train_step``
+    selects on a mesh: the train step ZeRO-3 over the data axes, routing an
+    MoE layer over the whole batch as one device does.  ``params``, the
     AdamW moments (and the error-feedback residual) are this rank's shards
     under ``rules`` (``models.params.shard_params``); ``batch`` is global.
     Loss and gradients come from :func:`_zero3_value_and_grad`; the clip
@@ -141,9 +145,9 @@ def _held_as(tree, like):
 
 
 def _tp_value_and_grad(params, batch, cfg, mesh, rules: Rules):
-    """``(loss, metrics), grads`` of the whole ``batch`` in the dense
-    decoders' train layout: ``params`` are this rank's placed shards and so
-    are the gradients.  Each rank takes the loss of its rows (the batch
+    """``(loss, metrics), grads`` of the whole ``batch`` in the train
+    layout: ``params`` are this rank's placed shards and so are the
+    gradients.  Each rank takes the loss of its rows (the batch
     splits over the rules' ``batch`` axes), weighted by its share of the
     labelled tokens and divided by the data ranks' count, so the sum over
     the data ranks is the whole batch's loss; the gradient of a leaf split
@@ -163,15 +167,14 @@ def _tp_value_and_grad(params, batch, cfg, mesh, rules: Rules):
     n = (local["labels"] >= 0).sum().to(torch.float32)
     share = n * n_data / torch.clamp(shd.all_reduce(n, mesh, axes), min=1.0)
     obj = (share * m["ce"] + cfg.router_aux_weight * m["aux"]) / n_data
-    grads = torch.autograd.grad(obj, leaves, materialize_grads=True)
+    grads = list(torch.autograd.grad(obj, leaves, materialize_grads=True))
     data = set(shd._as_axes(axes))
-
-    def whole_over_data(g, p):
+    # one leaf's sum alive at a time; a leaf split over the data axes is
+    # summed over them by its gather's backward already
+    for i, p in enumerate(held):
         spec = shd.placement(p).spec
-        if data & {a for e in spec for a in shd._as_axes(e)}:
-            return g                    # summed by its gather's backward
-        return shd.all_reduce(g, mesh, axes)
-    grads = [whole_over_data(g, p) for g, p in zip(grads, held)]
+        if not data & {a for e in spec for a in shd._as_axes(e)}:
+            grads[i] = shd.all_reduce(grads[i], mesh, axes)
     ce = shd.all_reduce(share * m["ce"].detach(), mesh, axes, "mean")
     aux = m["aux"].detach()
     return ((ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}),
@@ -180,16 +183,15 @@ def _tp_value_and_grad(params, batch, cfg, mesh, rules: Rules):
 
 def _tp_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, rules: Rules,
              grad_compression: bool):
-    """The dense decoders' train step on a mesh, the reference's train
+    """Every family's train step on a mesh, the reference's train
     ``input_shardings``: ``params``, the AdamW moments (and the
     error-feedback residual) are this rank's shards under ``rules``
     (``models.params.shard_params``); ``batch`` is global and each rank
     takes its rows.  Loss and gradients from :func:`_tp_value_and_grad`;
     the clip reads the global norm of the sharded gradients
     (``adamw.global_norm(mesh=)``); AdamW updates each rank's shards, which
-    keep their placements.  Under compression the codec runs on this rank's
-    gradient blocks (its ``[1, w]`` blocks lie within a shard's rows where
-    the shard's last dim is a multiple of ``w``)."""
+    keep their placements.  Under compression the codec sees the global
+    ``[1, w]`` blocks (:func:`_compress_placed`)."""
     def update(params, opt_state, grads, loss, metrics):
         new, opt_state, stats = adamw.adamw_update(
             opt_cfg, params, grads, opt_state, gnorm=adamw.global_norm(grads, mesh))
@@ -198,7 +200,7 @@ def _tp_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, rules: Rules,
     if grad_compression:
         def step(params, opt_state, ef_state, batch):
             (loss, metrics), grads = _tp_value_and_grad(params, batch, cfg, mesh, rules)
-            dec, ef_state = gcomp.compress_tree_with_ef(grads, ef_state)
+            dec, ef_state = _compress_placed(grads, ef_state, mesh)
             params, opt_state, metrics = update(params, opt_state,
                                                 _held_as(dec, params), loss, metrics)
             return params, opt_state, ef_state, metrics
@@ -208,6 +210,60 @@ def _tp_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, rules: Rules,
         (loss, metrics), grads = _tp_value_and_grad(params, batch, cfg, mesh, rules)
         return update(params, opt_state, grads, loss, metrics)
     return step
+
+
+#: the gradient codec's block width (``runtime.compression``'s default)
+_CODEC_W = 16
+
+
+def _codec_dims(g: torch.Tensor, mesh) -> list:
+    """The dims of a placed gradient block the codec must see whole for
+    its ``[1, w]`` blocks of the flattened tensor to be the global
+    tensor's: from the last split dim back, each one whose local rows
+    (``prod(shape[k:])``, the dims after it whole) are no multiple of
+    ``w``.  Past the last split dim every run of a block's elements starts
+    at a multiple of that product in the global order, so once it is a
+    multiple of ``w`` the blocks line up."""
+    from repro_torch.models import sharding as shd
+    pl = shd.placement(g)
+    if pl is None or g.dim() < 2:
+        return []
+    shape, dims = list(g.shape), []
+    for k in reversed([k for k, e in enumerate(pl.spec) if shd.axis_size(mesh, e) > 1]):
+        if math.prod(shape[k:]) % _CODEC_W == 0:
+            break
+        dims.append(k)
+        shape[k] = pl.shape[k]
+    return dims
+
+
+def _compress_placed(grads, ef_state, mesh):
+    """``compress_tree_with_ef`` on this rank's gradient blocks as the
+    reference's codec runs on the global arrays: a leaf whose blocks would
+    not line up with the global tensor's (:func:`_codec_dims`; Mamba-2's
+    ``in_proj`` at 3224 columns a rank) is gathered with its residual over
+    those dims around the codec and cut back to this rank's block."""
+    from repro_torch.models import sharding as shd
+    gl, rl = tree_leaves(grads), tree_leaves(ef_state.residual)
+    cuts = [[(k, shd.placement(g).spec[k]) for k in _codec_dims(g, mesh)] for g in gl]
+
+    def whole(t, cut):
+        for k, entry in cut:
+            t = shd.all_gather(t, mesh, entry, k)
+        return t
+
+    def block(t, cut):
+        for k, entry in cut:
+            t = t.chunk(shd.axis_size(mesh, entry), dim=k)[shd.axis_index(mesh, entry)]
+        return t.contiguous()
+    dec, ef = gcomp.compress_tree_with_ef(
+        tree_like(grads, [whole(g, c) for g, c in zip(gl, cuts)]),
+        gcomp.CompressionState(tree_like(ef_state.residual,
+                                         [whole(r, c) for r, c in zip(rl, cuts)])),
+        w=_CODEC_W)
+    return (tree_like(grads, [block(t, c) for t, c in zip(tree_leaves(dec), cuts)]),
+            gcomp.CompressionState(tree_like(ef_state.residual, [
+                block(t, c) for t, c in zip(tree_leaves(ef.residual), cuts)])))
 
 
 def build_serving_plan(params, *, schedule=None, cfg=None, policy=None,

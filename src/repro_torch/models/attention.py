@@ -12,7 +12,7 @@ linears' keywords; :mod:`repro_torch.models.sharding`) each rank holds its
 rows of the batch and its block of the q / k / v columns over ``model``,
 which need not align with heads (Qwen2-7B's 3584 q columns over 16 ranks
 are 1.75 heads each): q, k and v are gathered over ``model``.  Prefill
-and the dense decoders' train step then compute the heads that overlap
+and the train step then compute the heads that overlap
 this rank's block of the columns and keep that block, which is the K block
 of ``wo``'s row-parallel product.  In the backward each gather sums its
 gradient over ``model`` before it takes this rank's block: a rank's heads

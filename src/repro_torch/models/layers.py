@@ -15,9 +15,10 @@ In the sharded serving layout (``spmd=True`` with a ``tp_mesh``; see
 linear keeps its output features local, a ``row`` linear contracts this
 rank's block of K and all-reduces over ``model``; the embedding table is
 vocab-parallel and the LM head's logits are this rank's vocab block.  The
-dense decoders' train step runs the same products under autograd: the
-collectives carry their transposes, and the input of the column-parallel
-products (the MLP's, attention's q / k / v, the LM head) passes
+train step (every family on a mesh) runs the same products under
+autograd: the collectives carry their transposes, and the input of the
+column-parallel products (the MLP's, attention's q / k / v, the SSM
+mixer's projections, the MoE body's, the LM head) passes
 ``sharding.grad_all_reduce``, whose backward sums the parts of its
 gradient the ``model`` ranks hold.  Anywhere else a sharded dense leaf
 raises.
@@ -130,7 +131,7 @@ def check_whole(t: torch.Tensor, what: str) -> None:
             f"{what}: a sharded dense leaf (global shape {pl.shape}, spec "
             f"{pl.spec}) reached a lane that holds whole dense weights; the "
             f"sharded serving layout covers prefill and decode_step on a mesh, "
-            f"and the dense decoders' train step")
+            f"and the train step on a mesh")
 
 
 def _spmd_product(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:

@@ -32,7 +32,12 @@ the gated RMSNorm all-reduces its sum of squares over ``model``; and
 ``out_proj`` is row-parallel on the heads' block of ``d_inner``.  With
 ``ssm_split_proj`` z and dt arrive as the heads' blocks, x and B / C are
 gathered whole.  The heads and the conv channels must divide over
-``model``.
+``model``.  The train layout (``launch.steps.make_train_step`` on a mesh)
+runs ``ssm_apply`` on the same blocks under autograd: the input of the
+column-parallel projections passes ``layers.tp_input``, each gather's
+backward sums the parts of the gradient the ranks' heads give it (and so
+does ``in_bc``'s, whole on every rank), and the norm's sum of squares is
+``sharding.shared_all_reduce``, whose backward sums too.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import sharding as shd
-from repro_torch.models.layers import linear, linear_def, rms_norm
+from repro_torch.models.layers import linear, linear_def, rms_norm, tp_input
 from repro_torch.models.params import ParamDef
 
 __all__ = ["ssm_def", "ssm_apply", "ssm_decode", "ssm_prefill_chunk",
@@ -183,24 +188,33 @@ def _tp_blocks(cfg, kw):
 
 def _cols_whole(t: torch.Tensor, width: int, mesh) -> torch.Tensor:
     """``t`` with all ``width`` columns: this rank's block of them (a
-    column-parallel result, the conv output) gathered over ``model``."""
-    if mesh is None or t.shape[-1] == width:
+    column-parallel result, the conv output) gathered over ``model``; a
+    ``t`` every rank computes whole (``in_bc``'s, replicated over
+    ``model``) is passed on with its gradient summed over ``model``, as
+    the gather's backward sums it: each rank's heads use all of it."""
+    if mesh is None:
         return t
+    if t.shape[-1] == width:
+        return shd.grad_all_reduce(t, mesh, shd.tp_axis(mesh))
     return shd.all_gather(t, mesh, shd.tp_axis(mesh), t.dim() - 1)
 
 
 def _project_in(p, x, cfg, kw, mesh=None, heads=None):
     """(z, xs, bb, cc, dt) through the fused or the split projections; in
     the sharded serving layout (``mesh``) z and dt are the ``heads``'
-    blocks, xs, bb and cc whole."""
+    blocks, xs, bb and cc whole.  Under autograd the column-parallel
+    products take ``x`` through ``layers.tp_input``; ``in_bc``, whole on
+    every rank, takes it as it is (its gradient is summed over ``model``
+    after it, by :func:`_cols_whole`)."""
     di, nh, hp, ns, _ = _dims(cfg)
     kw = dict(kw, tp_pattern="col")
+    xt = tp_input(x, kw)
     if cfg.ssm_split_proj:
         bc = _cols_whole(linear(p["in_bc"], x, **kw), 2 * ns, mesh)
-        return (linear(p["in_z"], x, **kw), _cols_whole(linear(p["in_x"], x, **kw), di, mesh),
-                bc[..., :ns], bc[..., ns:], linear(p["in_dt"], x, **kw))
+        return (linear(p["in_z"], xt, **kw), _cols_whole(linear(p["in_x"], xt, **kw), di, mesh),
+                bc[..., :ns], bc[..., ns:], linear(p["in_dt"], xt, **kw))
     z, xs, bb, cc, dt = _split_proj(
-        _cols_whole(linear(p["in_proj"], x, **kw), 2 * di + 2 * ns + nh, mesh), cfg)
+        _cols_whole(linear(p["in_proj"], xt, **kw), 2 * di + 2 * ns + nh, mesh), cfg)
     if mesh is not None:
         z, dt = z[..., heads.start * hp:heads.stop * hp], dt[..., heads]
     return z, xs, bb, cc, dt
@@ -224,9 +238,10 @@ def _gate_out(p, y, xh, z, x_dtype, cfg, kw, mesh=None):
 def _rms_norm_split(y, scale, mesh, width: int, eps: float = 1e-6):
     """:func:`rms_norm` of a row whose ``width`` columns are split over
     ``model``: this rank's block, normalized by the all-reduced sum of
-    squares."""
+    squares (whose gradient is summed over ``model`` too)."""
     yf = y.to(_F32)
-    sq = shd.all_reduce(yf.square().sum(dim=-1, keepdim=True), mesh, shd.tp_axis(mesh))
+    sq = shd.shared_all_reduce(yf.square().sum(dim=-1, keepdim=True), mesh,
+                               shd.tp_axis(mesh))
     return (yf * torch.rsqrt(sq / width + eps) * scale.to(_F32)).to(y.dtype)
 
 

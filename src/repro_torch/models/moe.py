@@ -41,11 +41,18 @@ the grouped kernel (K6-K8 on the card).  Two contracts, one per layout
   maps to no axis): this rank's experts, K whole, used as they are.  A
   packed stack arrives as ``launch.specs.place_inputs`` holds it, its
   block axis whole as the reference stores it, and is cut to this rank's
-  data block on entry, as the reference's ``in_specs`` reshard it.
+  data block on entry, as the reference's ``in_specs`` reshard it.  The
+  train layout (``launch.steps.make_train_step`` on a mesh) runs this
+  contract under autograd: the body's input and the router pass
+  ``sharding.grad_all_reduce`` (each ``model`` rank holds its experts'
+  part of their gradients), and the load-balance fractions carry the
+  gradient :func:`_rank_fractions` derives.
 
 A mesh without a ``model`` axis runs the local path, as in the reference (a
 mesh-aware plan's stacks are then gathered packed over the FSDP axes before
-each contraction).
+each contraction); dense stacks under ``spmd`` (rows held per rank, as the
+train layout holds them on an FSDP-only mesh) run the body with one
+``model`` rank, so the load-balance fractions are the data ranks' mean.
 """
 from __future__ import annotations
 
@@ -195,12 +202,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None,
     mesh the experts or the stacks' FSDP dim do not divide raises before
     any collective, with the shapes in the message.
 
-    ``batch_split = (mesh, axes)`` (the ZeRO-3 train step, with no
+    ``batch_split = (mesh, axes)`` (the ZeRO-3 step, ``launch.steps.
+    _zero3_step``, a yardstick the train step no longer selects; with no
     ``mesh``): ``x`` is this rank's equal share of a batch split over
     ``axes``, and the layer routes as one device does on the whole batch:
     capacity over all tokens, slots in the global token order, and aux from
     the all-rank mean fractions; its gradient carries this rank's share of
-    ``prob_frac``, so the step's gradient mean is the whole batch's."""
+    ``prob_frac``, so the step's gradient mean is the whole batch's.  The
+    train layout instead routes each data rank's rows with its own
+    capacity, as the reference's expert-parallel body does."""
     b, s, d = x.shape
     scfg = cfg.strum
     if batch_split is not None and mesh is None:
@@ -213,7 +223,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None,
         df = shd.all_reduce(df, smesh, axes, "mean")
         pf = pf + (shd.all_reduce(pf.detach(), smesh, axes, "mean") - pf).detach()
         return y.reshape(b, s, d), cfg.n_experts * torch.sum(df * pf)
-    if mesh is None or "model" not in shd.axis_names(mesh):
+    has_model = "model" in shd.axis_names(mesh)
+    dense = not any(isinstance(p.get(nm), dict) for nm in ("wi", "wg", "wo"))
+    if mesh is None or not (has_model or (spmd and dense)):
         # the reference's local path; a mesh-aware plan's stacks on an
         # FSDP-only mesh are blocks of their block axis, gathered packed
         blocks = any(_nb_split(p.get(nm)) for nm in ("wi", "wg", "wo"))
@@ -227,7 +239,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None,
     data_axes = shd.fsdp_axes(mesh)
     sizes = shd.axis_sizes(mesh)
     n_data = shd.axis_size(mesh, data_axes)
-    n_model = sizes["model"]
+    n_model = sizes.get("model", 1)
     if cfg.n_experts % n_model:
         raise ValueError(
             f"moe_apply: n_experts={cfg.n_experts} is not divisible by the "
@@ -249,21 +261,49 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, mesh=None, batch_split=None,
     e_local = cfg.n_experts // n_model
     shard_tokens = b % n_data == 0 and not spmd
     cap = _capacity((b // n_data) * s if shard_tokens else b * s, cfg)
-    midx = shd.axis_index(mesh, "model")
+    midx = shd.axis_index(mesh, "model") if has_model else 0
     x_l = shd.shard_slice(x, shd.P(data_axes), mesh) if shard_tokens else x
+    router_w = p["router"]["w"]
+    if spmd:    # the train layout: each model rank holds its experts' part
+        x_l = shd.grad_all_reduce(x_l, mesh, "model")       # of these gradients
+        router_w = shd.grad_all_reduce(router_w, mesh, "model")
     local = {nm: _expert_block(w, mesh, data_axes, midx, e_local)
              for nm, w in stacks.items()}
-    y, (df, pf) = _moe_local(x_l.reshape(-1, d), p["router"]["w"], local["wi"],
+    y, (df, pf) = _moe_local(x_l.reshape(-1, d), router_w, local["wi"],
                              local.get("wg"), local["wo"], cfg, midx * e_local, cap,
                              scfgs=(scfg, scfg, scfg), fsdp=data_axes, mesh=mesh)
     y = shd.all_reduce(y, mesh, "model")                # combine expert shards
     # global fractions BEFORE the product (aux is nonlinear in them)
-    df = shd.all_reduce(df, mesh, data_axes + ("model",), "mean")
-    pf = shd.all_reduce(pf, mesh, data_axes + ("model",), "mean")
+    ranks = data_axes + (("model",) if has_model else ())
+    df = shd.all_reduce(df, mesh, ranks, "mean")
+    if spmd:
+        pf = _rank_fractions(pf, mesh, ranks, n_model)
+    else:
+        pf = shd.all_reduce(pf, mesh, ranks, "mean")
     y = y.reshape(x_l.shape)
     if shard_tokens:
         y = shd.gather_out(y, mesh, data_axes, 0)
     return y, cfg.n_experts * torch.sum(df * pf)
+
+
+def _rank_fractions(pf: torch.Tensor, mesh, ranks: tuple,
+                    n_model: int) -> torch.Tensor:
+    """The mean of every rank's ``prob_frac`` over ``ranks`` (the
+    forward), carrying
+    ``1 / n_model`` of aux's gradient to this rank's own (the backward).
+
+    In the train layout each rank's objective is ``1 / n_data`` of the
+    whole batch's (``launch.steps``), the data ranks' gradients are summed,
+    and so are the ``model`` ranks' parts of the router's and the input's
+    gradients (:func:`moe_apply`).  A data rank's fractions are the same on
+    its ``n_model`` ranks and weigh ``1 / n_data`` in the mean, so the
+    whole batch's aux gradient reaches them as ``1 / n_data`` of aux's,
+    which is what each rank's ``1 / n_data`` objective gives once the
+    ``model`` sum has added its ranks' ``1 / n_model`` shares.  The
+    all-reduce's own backward (``1 / (n_data · n_model)``) would leave it
+    ``n_data`` times too small."""
+    whole = shd.all_reduce(pf.detach(), mesh, ranks, "mean")
+    return whole + (pf - pf.detach()) / n_model
 
 
 def _nb_split(w) -> bool:

@@ -10,7 +10,7 @@ rules map them to mesh axes, as in the reference:
   * stacked-layer dims never shard.
 
 The port runs one process per rank (``torch.distributed``) over a
-``DeviceMesh``.  Two layouts share these helpers:
+``DeviceMesh``.  Four layouts share these helpers:
 
 * **the sharded serving layout** (the reference's ``input_shardings``):
   the ``prefill`` and ``decode_step`` of every family on a mesh take every
@@ -36,18 +36,19 @@ The port runs one process per rank (``torch.distributed``) over a
   every rank.  :func:`constrain` cuts the activations to this rank's rows;
   what a lane writes for its rows is all-gathered after it
   (``models.transformer``);
-* **the replicated layout**, kept by the train step of the MoE, SSM and
-  hybrid families: dense weights, activations and caches global and
-  replicated on every rank, packed weights a mesh-aware plan's block,
-  collectives only inside the reference's ``shard_map`` bodies (the
-  ``sharded:*`` variants, the MoE body, the pipeline ring).  There
-  :func:`check_axes` checks the logical axes and moves nothing, and a
-  placed (sharded) dense leaf raises.  The dense decoders' train step
-  holds its weights as the sharded serving layout does and computes each
-  rank's block of the heads, the MLP and the vocabulary
-  (``launch.steps``); its collectives are :func:`all_gather`,
-  :func:`all_reduce` and :func:`grad_all_reduce`, which autograd
-  differentiates.
+* **the replicated layout**, kept by the ZeRO-3 step
+  (``launch.steps._zero3_step``, a yardstick no longer selected): dense
+  weights, activations and caches global and replicated on every rank,
+  packed weights a mesh-aware plan's block, collectives only inside the
+  reference's ``shard_map`` bodies (the ``sharded:*`` variants, the MoE
+  body, the pipeline ring).  There :func:`check_axes` checks the logical
+  axes and moves nothing, and a placed (sharded) dense leaf raises;
+* **the train layout** of every family (``launch.steps.make_train_step``
+  on a mesh): weights held as the sharded serving layout holds them, each
+  rank computing its block of the heads, the MLP, the experts, the SSM
+  heads and channels and the vocabulary; its collectives are
+  :func:`all_gather`, :func:`all_reduce`, :func:`grad_all_reduce` and
+  :func:`shared_all_reduce`, which autograd differentiates.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 (:func:`repro_torch.launch.mesh.make_host_mesh`); the helpers here also take
@@ -79,6 +80,7 @@ __all__ = [
     "axis_index", "all_gather", "gather_out", "all_reduce", "shard_slice",
     "Placement", "place", "placement", "is_sharded", "check_axes",
     "place_tree", "tp_axis", "gather_whole", "lane_rules", "grad_all_reduce",
+    "shared_all_reduce",
 ]
 
 
@@ -558,6 +560,16 @@ def grad_all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if n > 1 and _differentiable(x):
         return _GradSum.apply(x, mesh, axes, n)
     return x
+
+
+def shared_all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``psum`` over ``axes`` with its true transpose: the backward sums the
+    gradient over ``axes`` too.  For a sum that each rank then uses on its
+    own block (the gated norm's sum of squares over ``model``), whose
+    gradient each rank holds only its part of; :func:`all_reduce` passes
+    the gradient on as it is, which is right only where everything after
+    the sum is the same on every rank."""
+    return all_reduce(grad_all_reduce(x, mesh, axes), mesh, axes)
 
 
 def _map_spec(fn, tree, spec):

@@ -47,13 +47,16 @@ expert-parallel body).  The layouts (:mod:`repro_torch.models.sharding`):
   ``conv`` and ``state`` rows) is all-gathered over the data axes after
   it, so the tails stay equal on every rank (:data:`lane_gather_bytes`
   counts the bytes);
-* ``forward_train`` on a mesh: the dense decoders' train layout, given
+* ``forward_train`` on a mesh: the train layout of every family, given
   placed params: the batch over the data axes, each weight gathered over
   its ``embed`` axes per use, each rank computing its block of the heads,
-  the MLP and the vocabulary, differentiable through the collectives
-  (``loss_fn`` takes the vocab-parallel cross-entropy); the MoE, SSM and
-  hybrid families keep the replicated layout (whole dense weights, the
-  ZeRO-3 step of ``launch.steps``).
+  the MLP and the vocabulary, its experts (``moe.moe_apply(spmd=True)``
+  on its rows, with the reference's ``t_local`` capacity) and its SSM
+  heads and conv channels (the Mamba-2 mixer on its blocks),
+  differentiable through the collectives (``loss_fn`` takes the
+  vocab-parallel cross-entropy); the aux loss sums over the MoE layers.
+  A ``model`` axis that does not divide the experts, the SSM heads or
+  the conv channels raises before any collective.
 """
 from __future__ import annotations
 
@@ -76,7 +79,7 @@ from repro_torch.models.sharding import check_axes, constrain
 __all__ = ["period", "n_groups", "model_defs", "cache_defs", "forward_train",
            "loss_fn", "prefill", "decode_step", "decode_step_paged",
            "prefill_chunk_step", "verify_chunk_step", "sharded_serving",
-           "tp_train", "lane_gather_bytes"]
+           "lane_gather_bytes"]
 
 #: bytes the paged lanes all-gathered to keep the tails equal on every
 #: rank (the gathered results' bytes on this rank), by lane
@@ -339,12 +342,24 @@ def _remat(body, cfg):
     return run
 
 
-def tp_train(cfg, mesh) -> bool:
-    """Does the train step of ``cfg`` on ``mesh`` run the dense decoders'
-    train layout (the module docstring)?  On a mesh, for the configs
-    without MoE or SSM layers; the others keep the ZeRO-3 step."""
-    return (mesh is not None and not cfg.n_experts
-            and all(cfg.layer_kind(i) == "attn" for i in range(period(cfg))))
+def _check_train_mesh(cfg, mesh) -> None:
+    """Refuse, before any collective, a mesh whose ``model`` axis does not
+    divide the experts, the SSM heads or the conv channels, naming the
+    shapes (the reference's ``moe_apply`` check and the SSM mixer's)."""
+    sizes = shd.axis_sizes(mesh)
+    n = sizes.get("model", 1)
+    if cfg.n_experts % n:
+        raise ValueError(
+            f"{cfg.name}: n_experts={cfg.n_experts} is not divisible by the 'model' "
+            f"mesh axis (size {n}, mesh shape {sizes}); experts shard evenly over "
+            f"'model'")
+    if any(cfg.layer_kind(i) != "attn" for i in range(period(cfg))):
+        nh, conv_dim = cfg.ssm_heads, cfg.d_inner + 2 * cfg.ssm_state
+        if nh % n or conv_dim % n:
+            raise ValueError(
+                f"{cfg.name}: {nh} SSM heads and {conv_dim} conv channels do not "
+                f"both divide over the 'model' mesh axis (size {n}, mesh shape "
+                f"{sizes})")
 
 
 def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
@@ -354,16 +369,13 @@ def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
     each layer group is checkpointed (:func:`_remat`).  ``batch_split =
     (mesh, axes)`` says ``batch`` is this rank's share of a batch split over
     ``axes`` (the ZeRO-3 step): MoE layers then route over the whole batch
-    (``moe.moe_apply``).  With a ``mesh`` (:func:`tp_train`) ``params`` are
+    (``moe.moe_apply``).  With a ``mesh`` (the train layout) ``params`` are
     placed shards, ``batch`` this rank's rows, and the logits this rank's
     rows and vocab block, placed."""
-    if mesh is not None and not tp_train(cfg, mesh):
-        raise ValueError(f"{cfg.name}: the train forward on a mesh covers the dense "
-                         f"decoders; MoE, SSM and hybrid stacks train ZeRO-3 "
-                         f"(launch.steps.make_train_step)")
     _linear_kw(kw, cfg, mesh)
     spmd = None
     if mesh is not None:
+        _check_train_mesh(cfg, mesh)
         kw["spmd"] = True
         rules, spmd = rules or shd.rules_for_mesh(mesh), mesh
     else:
@@ -401,7 +413,7 @@ def forward_train(params: dict, batch: dict, cfg, mesh=None, rules=None,
 def loss_fn(params: dict, batch: dict, cfg, mesh=None, rules=None, **kw):
     """Next-token cross-entropy over ``labels >= 0`` plus
     ``router_aux_weight · aux``; returns ``(loss, {"ce", "aux"})``.  With a
-    ``mesh`` (:func:`tp_train`) ``batch`` is this rank's rows and the loss
+    ``mesh`` (the train layout) ``batch`` is this rank's rows and the loss
     their mean, from the vocab-parallel logits (:func:`_vocab_parallel_ce`)."""
     lg, aux = forward_train(params, batch, cfg, mesh, rules, **kw)
     labels = batch["labels"]

@@ -495,10 +495,9 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
     res["pp"] = _np(pipelined_apply(lambda w, v: torch.tanh(v @ w), ws, t("pp_x"),
                                     mesh=pmesh, n_micro=4))
 
-    # -- the train step on the mesh (the dense decoders' train layout for
-    # Qwen2 and OLMo, ZeRO-3 for Qwen3-MoE) against the single-device step
-    # (f32 activations), and at the config's own dtype against the
-    # reference -------------------------------------------------------------
+    # -- the train step on the mesh (the train layout; the ZeRO-3 step for
+    # Qwen3-MoE at capacity factor 1) against the single-device step (f32
+    # activations), and at the config's own dtype against the reference ----
     qcfg = get_smoke_config("qwen2_7b")
     defs = model_defs(qcfg)
     qp = unflatten(data, "qwen_params")
@@ -535,13 +534,15 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
                                   "v": state["opt"].v})
     res["train_local_bytes"] = sum(v.numel() for v in flatten_t(p3).values())
     res["train_global_bytes"] = sum(v.numel() for v in flatten_t(p1).values())
-    # the ZeRO-3 step on Qwen3-MoE's smoke config at capacity factor 1, so
-    # capacity drops tokens: slots and load-balance fractions over the
-    # whole batch, as on one device; and OLMo's with gradient compression
+    # the ZeRO-3 step (steps._zero3_step, a yardstick beside the train
+    # layout) on Qwen3-MoE's smoke config at capacity factor 1, so capacity
+    # drops tokens: slots and load-balance fractions over the whole batch,
+    # as on one device; and OLMo's train layout with gradient compression
     mcfg_t = dataclasses.replace(mcfg, dtype="float32", capacity_factor=1.0)
     res["train_moe"] = zero3_vs_one(
         mcfg_t, init_params(model_defs(mcfg_t), seed=0, device="cpu",
-                            dtype_override="float32"), batches, ocfg, mesh, rules)
+                            dtype_override="float32"), batches, ocfg, mesh, rules,
+        zero3=True)
     res["train_compressed"] = zero3_vs_one(ocfg_t, op0, batches, ocfg, mesh, rules,
                                            compress=True)
     # the MoE config at its own dtype against the reference's sharded step
@@ -550,6 +551,14 @@ def distributed_cases(rank: int, world: int, path: str, workdir: str) -> dict:
         adamw.init_opt_state(shard_params(unflatten(data, "qmoe_params"),
                                           model_defs(mcfg), mesh, rules)), b0)
     res["train_moe_loss_config_dtype"] = (float(m0["loss"]), float(m0["aux"]))
+    # the train layout at capacity factor 1 (tokens drop, each data rank
+    # routing its rows with its own capacity), f32, against the
+    # reference's sharded step
+    _, _, m0 = make_train_step(mcfg_t, ocfg, mesh=mesh, rules=rules)(
+        shard_params(unflatten(data, "qmoe_params"), model_defs(mcfg_t), mesh, rules),
+        adamw.init_opt_state(shard_params(unflatten(data, "qmoe_params"),
+                                          model_defs(mcfg_t), mesh, rules)), b0)
+    res["train_moe_c1"] = (float(m0["loss"]), float(m0["aux"]))
 
     # -- elastic: saved on data=2 x model=2, restored on data=4 and one device
     if rank == 0:
@@ -811,13 +820,14 @@ def tp_train_cases(data: dict, mesh) -> dict:
     return res
 
 
-def zero3_vs_one(cfg, p0, batches, ocfg, mesh, rules, compress=False):
-    """``len(batches)`` steps of ``make_train_step(mesh=)`` (ZeRO-3, or
-    the dense decoders' train layout) and as many single-device
-    steps from the same parameters ``p0``: ``(per-step metrics as (one
-    device, ZeRO-3) pairs, the single-device state, the ZeRO-3 state
-    gathered)``, the states flat, with the error-feedback residual under
-    ``ef`` when ``compress``."""
+def zero3_vs_one(cfg, p0, batches, ocfg, mesh, rules, compress=False, zero3=False):
+    """``len(batches)`` steps of ``make_train_step(mesh=)`` (the train
+    layout), or with ``zero3`` of the ZeRO-3 step (``steps._zero3_step``),
+    and as many single-device steps from the same parameters ``p0``:
+    ``(per-step metrics as (one device, mesh) pairs, the single-device
+    state, the mesh state gathered)``, the states flat, with the
+    error-feedback residual under ``ef`` when ``compress``."""
+    from repro_torch.launch import steps as St
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model_defs
     from repro_torch.models.params import gather_params, shard_params
@@ -825,7 +835,8 @@ def zero3_vs_one(cfg, p0, batches, ocfg, mesh, rules, compress=False):
     from repro_torch.runtime import compression as gcomp
     defs = model_defs(cfg)
     one = make_train_step(cfg, ocfg, grad_compression=compress)
-    zero = make_train_step(cfg, ocfg, mesh=mesh, rules=rules, grad_compression=compress)
+    zero = (St._zero3_step(cfg, ocfg, mesh, rules, compress) if zero3 else
+            make_train_step(cfg, ocfg, mesh=mesh, rules=rules, grad_compression=compress))
     pa, pb = p0, shard_params(p0, defs, mesh, rules)
     oa, ob = adamw.init_opt_state(pa), adamw.init_opt_state(pb)
     ea, eb = gcomp.init_ef_state(pa), gcomp.init_ef_state(pb)
@@ -1120,8 +1131,8 @@ def spmd_serving_cases(rank: int, world: int, path: str) -> dict:
 
 def spmd_uncovered_cases(rank: int, world: int) -> dict:
     """The lanes that hold whole dense params, on 2 x 2: the MoE family's
-    train forward (its ZeRO-3 step's), a serving step without a mesh and
-    the paged runtime each refuse a sharded dense leaf (the message)."""
+    train forward without a mesh, a serving step without a mesh and the
+    paged runtime each refuse a sharded dense leaf (the message)."""
     import dataclasses
 
     from torch.distributed.device_mesh import init_device_mesh
@@ -1147,7 +1158,7 @@ def spmd_uncovered_cases(rank: int, world: int) -> dict:
     op = init_params(model_defs(olmo), seed=0, device="cpu", dtype_override="float32")
     sp = shard_params(op, model_defs(olmo), mesh, rules, device="cpu")
     toks = torch.ones((4, 8), dtype=torch.long)
-    # the MoE family's train forward (the ZeRO-3 step's: whole dense params)
+    # the MoE family's train forward without a mesh (whole dense params)
     qmoe = dataclasses.replace(get_smoke_config("qwen3_moe_235b_a22b"), dtype="float32")
     qp = init_params(model_defs(qmoe), seed=0, device="cpu", dtype_override="float32")
     sq = shard_params(qp, model_defs(qmoe), mesh, rules, device="cpu")
@@ -1160,4 +1171,195 @@ def spmd_uncovered_cases(rank: int, world: int) -> dict:
         sched.submit(Request(uid=0, prompt=toks[0], max_new_tokens=2))
         sched.run_to_completion()
     res["paged"] = refused(paged)
+    return res
+
+
+# --------------------------------- test_torch_family_train_layout.py --
+
+#: the train layout's MoE, SSM and hybrid cases: (case, smoke config,
+#: overrides)
+FAMILY_CASES = (("qwen3_moe", "qwen3_moe_235b_a22b", {}),
+                ("moonshot", "moonshot_v1_16b_a3b", {}),
+                ("mamba2", "mamba2_780m", {}),
+                ("mamba2_split", "mamba2_780m", {"ssm_split_proj": True}),
+                ("jamba", "jamba_1_5_large_398b", {}))
+#: the aux-only cases (every label -1): an MoE stack and the hybrid
+FAMILY_AUX_ONLY = ("qwen3_moe", "jamba")
+#: random directions of the f64 finite-difference case, and its step
+FAMILY_FD_DIRECTIONS, FAMILY_FD_EPS = 3, 1e-3
+
+
+def family_cfg(case: str, get_smoke_config=None, **over):
+    """``case``'s smoke config at f32 activations and capacity factor 4
+    (``over`` replaces more fields); ``get_smoke_config`` is the package's
+    (the port's by default, the reference's in its script)."""
+    import dataclasses
+    if get_smoke_config is None:
+        from repro_torch.configs.base import get_smoke_config
+    base, fixed = {c: (a, o) for c, a, o in FAMILY_CASES}[case]
+    return dataclasses.replace(get_smoke_config(base), **{
+        "dtype": "float32", "capacity_factor": 4.0, **fixed, **over})
+
+
+def _grad_blocks(cfg, whole, placed, batch, mesh, rules) -> dict:
+    """This rank's loss, aux and gradient blocks in the train layout beside
+    one device's, cut to the same blocks under the rules."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import shard_params
+    (l1, m1), g1 = St._value_and_grad(whole, batch, cfg)
+    (l2, m2), g2 = St._tp_value_and_grad(placed, batch, cfg, mesh, rules)
+    want = flatten_t(shard_params(g1, model_defs(cfg), mesh, rules))
+    return {"loss": (float(l1), float(l2)), "ce": (float(m1["ce"]), float(m2["ce"])),
+            "aux": (float(m1["aux"]), float(m2["aux"])),
+            "grads": {k: (_np(v), _np(want[k])) for k, v in flatten_t(g2).items()}}
+
+
+def _expert_products(cfg, fn, *args) -> list:
+    """The weight shapes of the expert contractions (batched products
+    against a ``(E, d_model, d_ff)`` or ``(E, d_ff, d_model)`` stack) that
+    one call of ``fn`` makes, in order (the dataflow trace's op events)."""
+    from repro_torch.analysis.dataflow import trace_dataflow
+    stacks = {(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)}
+    return [tuple(e.inputs[1][0]) for e in trace_dataflow(fn, *args).events
+            if e.kind == "op" and e.name.startswith("aten.bmm") and len(e.inputs) == 2
+            and tuple(e.inputs[1][0][1:]) in stacks]
+
+
+class _Float64:
+    """Every ``torch.float32`` the port names (its norms, router, attention,
+    the linears' f32 accumulation) read as ``torch.float64`` while entered,
+    so a model runs in float64 throughout: the reference's f64 referee does
+    the same with ``jnp.float32``."""
+
+    def __enter__(self):
+        from repro_torch.models import mamba2
+        self.saved = torch.float32, mamba2._F32
+        torch.float32 = mamba2._F32 = torch.float64
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba2
+        torch.float32, mamba2._F32 = self.saved
+
+
+def _directional_fd(data: dict, mesh, rules, batch) -> list:
+    """Qwen3-MoE's smoke config at capacity factor 1 (tokens drop) in
+    float64 in the train layout: for each of :data:`FAMILY_FD_DIRECTIONS`
+    seeded directions ``v`` of the whole parameter tree, autograd's
+    directional derivative (the gathered gradient dotted with ``v``) and
+    the central difference of the mesh step's loss along ``v``."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model_defs
+    from repro_torch.models.params import gather_params, shard_params
+    out = []
+    with _Float64():
+        cfg = family_cfg("qwen3_moe", capacity_factor=1.0, dtype="float64")
+        defs = model_defs(cfg)
+        whole = {k: v.double() for k, v in flatten_t(
+            tree_from(data, defs, "p_qwen3_moe")).items()}
+        tree = lambda flat: unflatten_t(flat, defs)  # noqa: E731
+        (_, _), g = St._tp_value_and_grad(shard_params(tree(whole), defs, mesh, rules),
+                                          batch, cfg, mesh, rules)
+        g = flatten_t(gather_params(g, defs, mesh, rules))
+        rng = np.random.default_rng(3)
+        for _ in range(FAMILY_FD_DIRECTIONS):
+            v = {k: torch.tensor(rng.normal(size=tuple(t.shape)) * 0.01)
+                 for k, t in sorted(whole.items())}
+            ad = sum(float(torch.sum(g[k] * v[k])) for k in whole)
+
+            def loss(sign):
+                p = tree({k: whole[k] + sign * FAMILY_FD_EPS * v[k] for k in whole})
+                (l, _), _ = St._tp_value_and_grad(shard_params(p, defs, mesh, rules),
+                                                  batch, cfg, mesh, rules)
+                return float(l)
+            out.append((ad, (loss(1.0) - loss(-1.0)) / (2 * FAMILY_FD_EPS)))
+    return out
+
+
+def unflatten_t(flat: dict, defs) -> dict:
+    """``flatten_t``'s ``{"a/b": tensor}`` back to the tree of ``defs``."""
+    def build(d, prefix):
+        if not isinstance(d, dict):
+            return flat[prefix]
+        return {k: build(v, f"{prefix}/{k}" if prefix else k) for k, v in d.items()}
+    return build(defs, "")
+
+
+def _refused_before_collectives(fn) -> str:
+    """``fn``'s ValueError message, with every process group of the mesh
+    refused while it runs (so the message comes before any collective)."""
+    from repro_torch.models import sharding as shd
+    group = shd._group
+
+    def no_group(*a):
+        raise AssertionError("a collective ran before the refusal")
+    shd._group = no_group
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    finally:
+        shd._group = group
+    return ""
+
+
+def family_train_cases(rank: int, world: int, path: str) -> dict:
+    """The train layout of the MoE, SSM and hybrid families on 2 x 2 (the
+    :data:`FAMILY_CASES` smoke configs, f32, capacity factor 4, weights from
+    ``path``): this rank's loss and gradient blocks beside one device's
+    (also with every label -1), three ``make_train_step(mesh=)`` steps
+    beside three single-device steps, the expert products of one train
+    forward on this rank and on one device; Mamba-2's steps with gradient
+    compression; Qwen3-MoE's f64 directional derivatives at capacity factor
+    1 against finite differences; the steps a ``model`` axis of 2 does not
+    divide (3 experts, 1 SSM head), refused."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_defs
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import init_params, shard_params
+    from repro_torch.optim import adamw
+
+    data = dict(np.load(path))
+    mesh = make_host_mesh(data=2, model=2, device="cpu")
+    rules = shd.rules_for_mesh(mesh)
+    batches = [{k: torch.tensor(data[f"batch{s}_{k}"]).long() for k in ("tokens", "labels")}
+               for s in range(3)]
+    local = {k: shd.shard_slice(v, shd.P(rules.table["batch"]), mesh)
+             for k, v in batches[0].items()}
+    aux_only = dict(batches[0], labels=torch.full_like(batches[0]["labels"], -1))
+    ocfg = adamw.AdamWConfig(lr=1e-3, total_steps=10)
+    res: dict = {"coord": (shd.axis_index(mesh, "data"), shd.axis_index(mesh, "model"))}
+    for case, _, _ in FAMILY_CASES:
+        cfg = family_cfg(case)
+        defs = model_defs(cfg)
+        whole = tree_from(data, defs, f"p_{case}")
+        placed = shard_params(whole, defs, mesh, rules)
+        out = _grad_blocks(cfg, whole, placed, batches[0], mesh, rules)
+        if case in FAMILY_AUX_ONLY:
+            out["aux_only"] = _grad_blocks(cfg, whole, placed, aux_only, mesh, rules)
+        out["steps"] = zero3_vs_one(cfg, whole, batches, ocfg, mesh, rules)
+        if cfg.n_experts:
+            with torch.no_grad():
+                out["experts"] = (
+                    _expert_products(cfg, lambda p, b: tfm.forward_train(p, b, cfg),
+                                     whole, batches[0]),
+                    _expert_products(cfg, lambda p, b: tfm.forward_train(
+                        p, b, cfg, mesh, rules), placed, local))
+        res[case] = out
+    cfg = family_cfg("mamba2")
+    res["mamba2_compressed"] = zero3_vs_one(
+        cfg, tree_from(data, model_defs(cfg), "p_mamba2"), batches, ocfg, mesh, rules,
+        compress=True)
+    res["fd"] = _directional_fd(data, mesh, rules, batches[0])
+    res["refused"] = {}
+    for case, over in (("qwen3_moe", {"n_experts": 3}), ("mamba2", {"ssm_head_dim": 128})):
+        cfg = family_cfg(case, **over)
+        params = init_params(model_defs(cfg), seed=0, device="cpu",
+                             dtype_override="float32")
+        step = make_train_step(cfg, ocfg, mesh=mesh, rules=rules)
+        res["refused"][case] = _refused_before_collectives(
+            lambda: step(params, adamw.init_opt_state(params), batches[0]))
     return res

@@ -16,13 +16,17 @@ seeded inputs.  Held:
   single-device ``moe_apply`` and the reference's within 1e-4
   (``tests/test_distributed.py``, ``tests/test_grouped.py``);
 * GPipe over pp = 4 equals the sequential stages within 1e-5;
-* the ZeRO-3 train step: three steps equal the single-device
-  ``make_train_step``'s, every parameter and moment within 1e-5 of its
-  leaf's largest value (OLMo smoke and Qwen3-MoE smoke with tokens
-  dropped, f32), with gradient compression all but 0.1% of them and of
-  the error-feedback residual; Qwen2's and Qwen3-MoE's smoke loss within
-  5e-3 of the reference's sharded step (as
-  ``test_sharded_train_step_matches_single_device`` asks);
+* the train step on 2 x 2 (the train layout, ``make_train_step(mesh=)``;
+  the ZeRO-3 step, ``steps._zero3_step``, for Qwen3-MoE smoke with tokens
+  dropped): three steps equal the single-device ``make_train_step``'s,
+  every parameter and moment within 1e-5 of its leaf's largest value
+  (OLMo smoke and Qwen3-MoE smoke, f32), with gradient compression all
+  but 0.1% of them and of the error-feedback residual; Qwen2's and
+  Qwen3-MoE's smoke loss within 5e-3 of the reference's sharded step (as
+  ``test_sharded_train_step_matches_single_device`` asks); Qwen3-MoE's
+  train layout at capacity factor 1, f32, its first loss and aux within
+  1e-4 relative of the reference's sharded step (each data rank routes
+  its rows with its own capacity);
 * the elastic round trip: a ZeRO-3 state saved from the 2 x 2 mesh
   restores bit for bit, and steps on data = 4 and on one device agree;
 * a packed decode on 2 x 2 in the sharded serving layout (a mesh-aware
@@ -129,6 +133,11 @@ with mesh:
         qmp, init_opt_state(qmp), batch)
 meta["train_moe_single"] = (float(m1["loss"]), float(m1["aux"]))
 meta["train_moe_sharded"] = (float(m2["loss"]), float(m2["aux"]))
+qc1 = dataclasses.replace(qm, dtype="float32", capacity_factor=1.0)
+with mesh:
+    _, _, m2 = jax.jit(make_train_step(qc1, ocfg, mesh=mesh, rules=rules))(
+        qmp, init_opt_state(qmp), batch)
+meta["train_moe_c1_sharded"] = (float(m2["loss"]), float(m2["aux"]))
 
 dcfg = StruMConfig(method="mip2q", p=0.5, L=7)
 base = dataclasses.replace(cfg, dtype="float32")
@@ -416,9 +425,10 @@ def _mostly_leafwise(got: dict, want: dict, rel: float, frac: float) -> None:
 
 
 def test_zero3_train_step_matches_single_device(run):
-    """Three train steps on 2 x 2 (``make_train_step(mesh=)``: the dense
-    decoders' train layout for OLMo and Qwen2, ZeRO-3 for Qwen3-MoE)
-    against three single-device steps (the second batch masks most labels
+    """Three train steps on 2 x 2 (``make_train_step(mesh=)``, the train
+    layout, for OLMo and Qwen2; the ZeRO-3 step, ``steps._zero3_step``,
+    called directly for Qwen3-MoE, whose whole-batch routing this case
+    holds) against three single-device steps (the second batch masks most labels
     of one data shard's rows, so each rank's gradient must count its share
     of the labelled tokens) (OLMo's smoke config at f32 activations;
     Qwen2's k bias has an exactly
@@ -462,6 +472,20 @@ def test_zero3_train_step_matches_single_device(run):
         for want, want_aux in (meta["train_moe_sharded"], meta["train_moe_single"]):
             assert abs(loss - want) < 5e-3
             assert abs(aux - want_aux) <= 1e-3 * want_aux, (aux, want_aux)
+
+
+def test_train_layout_at_capacity_one_matches_the_references_sharded_step(run):
+    """Qwen3-MoE's smoke config at capacity factor 1 and f32 activations on
+    2 x 2: tokens drop, and the train layout routes each data rank's rows
+    with its own capacity (the reference's ``t_local``), so its step is not
+    one device's; its first loss and aux are the reference's sharded step's
+    on the Auto-axis mesh within 1e-4 relative."""
+    _, _, meta, port = run
+    want_loss, want_aux = meta["train_moe_c1_sharded"]
+    for res in port:
+        loss, aux = res["train_moe_c1"]
+        assert abs(loss - want_loss) <= 1e-4 * abs(want_loss), (loss, want_loss)
+        assert abs(aux - want_aux) <= 1e-4 * abs(want_aux), (aux, want_aux)
 
 
 def test_elastic_checkpoint_round_trip(run):

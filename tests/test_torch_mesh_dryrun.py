@@ -28,9 +28,9 @@ an abstract mesh against live gloo ranks and against the reference's HLO.
   does ``--accum-dtype`` in collectives and kernel calls;
 * the layouts: the serving cells of OLMo and Moonshot are counted in the
   sharded serving layout (no ``out_gather``; a 2x16x16 decode_32k's rank 0
-  holds and computes under 1/256 of one H100's cell); OLMo's train step in
-  the dense decoders' train layout on data = 2 and on 2 x 2, forward and
-  backward (no all-gather gives a whole parameter), Moonshot's as ZeRO-3.
+  holds and computes under 1/256 of one H100's cell); every train step in
+  the train layout on data = 2 and on 2 x 2, forward and backward (no
+  all-gather gives a whole parameter), OLMo's and Moonshot's alike.
 """
 import json
 import os
@@ -141,11 +141,10 @@ def test_abstract_count_equals_live_ranks(run, case, arch):
     kinds = {r["primitive"] for r in recs}
     assert {"all_gather", "psum"} <= kinds
     # every serving cell runs the sharded serving layout, which keeps every
-    # result at its spec (no re-assembly to global); OLMo's train step the
-    # dense decoders' train layout, which gathers no parameter whole
+    # result at its spec (no re-assembly to global); every train step the
+    # train layout, which gathers no parameter whole
     layout = dryrun.layout_of(ranks.mesh_cfg(arch), shape.kind, mesh)
-    train = "tp_train" if arch == "olmo_1b" else "zero3"
-    assert layout == (train if shape.kind == "train" else "input_shardings")
+    assert layout == ("tp_train" if shape.kind == "train" else "input_shardings")
     assert "out_gather" not in kinds
     if layout == "tp_train":
         from repro_torch.models import model_defs

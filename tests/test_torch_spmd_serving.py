@@ -47,8 +47,9 @@ Held:
   inputs whose dtype the port keeps otherwise: its tokens are int64 where
   the reference's are int32, and its ``cache_len`` is a Python int where
   the reference's is an int32 scalar;
-* the lanes the layout does not cover (the train forward, a step without a
-  mesh, the paged runtime) refuse a sharded dense leaf with a message.
+* the lanes the layout does not cover (the train forward without a mesh,
+  a step without a mesh, the paged runtime) refuse a sharded dense leaf
+  with a message.
 """
 import dataclasses
 import json
@@ -383,8 +384,8 @@ def test_moe_and_ssm_decode_32k_argument_bytes_equal_the_references_shards():
 
 def test_uncovered_lanes_refuse_a_sharded_dense_leaf():
     """A sharded dense leaf reaching a lane that holds whole dense params
-    raises: the MoE family's train forward, a step without a mesh, the
-    paged runtime."""
+    raises: the MoE family's train forward without a mesh, a step without
+    a mesh, the paged runtime."""
     res = ranks.spawn(ranks.spmd_uncovered_cases, 4)
     for r in res:
         for lane in ("train", "no_mesh", "paged"):
@@ -393,21 +394,18 @@ def test_uncovered_lanes_refuse_a_sharded_dense_leaf():
 
 def test_every_family_serves_in_the_sharded_layout():
     """``sharded_serving`` on a mesh, and the dry-run's layout of every
-    serving cell, for every config of the reference; never without a
-    mesh."""
+    serving cell (and the train layout of every train cell), for every
+    config of the reference; never without a mesh."""
     from repro_torch.configs.base import ARCH_IDS, get_config
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models.transformer import sharded_serving
     mesh = AbstractMesh((2, 2), ("data", "model"))
-    dense = {"olmo_1b", "qwen2_7b", "deepseek_67b", "stablelm_12b", "internvl2_26b",
-             "musicgen_medium"}
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         assert sharded_serving(cfg, mesh) and not sharded_serving(cfg, None), arch
         for kind in ("prefill", "decode"):
             assert dryrun.layout_of(cfg, kind, mesh) == "input_shardings"
-        assert dryrun.layout_of(cfg, "train", mesh) == (
-            "tp_train" if arch in dense else "zero3"), arch
+        assert dryrun.layout_of(cfg, "train", mesh) == "tp_train", arch
 
 
 @pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "mamba2_780m",
